@@ -1,0 +1,167 @@
+"""Beamform block: phased-array beamforming with integrated beam powers,
+the B step of an FX beamformer (counterpart of the single-device path of
+bifrost_tpu/blocks/beamform.py).
+
+The per-gulp engine is the planned `ops.beamform.Beamform`: `method=`
+(None reads the `beamform_method` config flag, latched for the sequence)
+selects kernel K4 or its plain version.  Weights are staged to the
+device once per sequence.  A gulp is split at integration boundaries,
+mid-gulp where the integration length is not a multiple of the gulp
+(`integrate_chunks`), and the partial sum carries across gulps, so the
+powers do not depend on how the stream is cut.  A 'cuda' ring carrying
+ci8 is read in raw storage form (`ReadSpan.data_storage`, 2 B/sample).
+
+Input axes: any order of (time, freq, station, pol) labels with time as
+the frame axis; output [-1, nbeam, nchan] f32 labelled (time, beam,
+freq), one frame per integration, with the time scale multiplied by the
+integration length and gulp_nframe 1.  Not ported: the mesh engines
+(ROADMAP A16), the data-quality gain and mask fold (A12) and the fused
+carry (A10).
+"""
+
+from __future__ import annotations
+
+import copy as _copy
+import warnings
+
+import numpy as np
+
+from ..ndarray import complex_view
+from ..ops.beamform import Beamform
+from ..pipeline import TransformBlock
+from ._common import (_canonical_permutation, deepcopy_header,
+                      integrate_chunks, store)
+
+
+class BeamformBlock(TransformBlock):
+
+    def output_nframes_for_gulp(self, rel_frame0, in_nframe):
+        """Exact emit schedule: one output frame for each integration
+        boundary the gulp crosses (the phase counter restarts with every
+        sequence)."""
+        n = self.nframe_per_integration
+        return [(rel_frame0 + in_nframe) // n - rel_frame0 // n]
+
+    def __init__(self, iring, weights, nframe_per_integration, *args,
+                 method=None, **kwargs):
+        """weights: (nbeam, nstation[, npol]) complex.  method: None
+        resolves the `beamform_method` config flag at each sequence start
+        ('auto'/'cuda'/'plain'), latched for the sequence."""
+        super().__init__(iring, *args, **kwargs)
+        w = np.asarray(weights)
+        if w.ndim == 3:  # (nbeam, nstation, npol) -> (nbeam, nstation*npol)
+            w = w.reshape(w.shape[0], -1)
+        if w.ndim != 2:
+            raise ValueError(
+                f"weights must be (nbeam, nstation[, npol]); got {w.shape}")
+        self.weights = w.astype(np.complex64)
+        self.nbeam = w.shape[0]
+        self.nframe_per_integration = nframe_per_integration
+        self.method = method
+        self.bf = Beamform()
+
+    def define_output_nframes(self, input_nframe):
+        return [1]
+
+    def on_sequence(self, iseq):
+        self.nframe_integrated = 0
+        self._acc = None
+        self._raw_reads = 0        # gulps read in raw int storage form
+        self._raw_read_nbyte = 0   # bytes those reads covered
+        ihdr = iseq.header
+        itensor = ihdr["_tensor"]
+        self._perm, self._role_labels = _canonical_permutation(
+            itensor.get("labels"))
+        if self._perm[0] != 0:
+            raise ValueError(
+                "beamform: the frame (streaming) axis must be time, got "
+                f"labels {itensor['labels']}")
+        self._dtype = iseq.tensor.dtype
+        shape = [itensor["shape"][i] for i in self._perm]
+        nsp = shape[2] * shape[3]
+        if self.weights.shape[1] != nsp:
+            raise ValueError(
+                f"weights expect {self.weights.shape[1]} inputs but the "
+                f"stream carries {shape[2]}x{shape[3]} station*pol")
+        ohdr = deepcopy_header(ihdr)
+        otensor = ohdr["_tensor"]
+        otensor["dtype"] = "f32"
+        otensor["shape"] = [-1, self.nbeam, shape[1]]
+        otensor["labels"] = [self._role_labels[0], "beam",
+                             self._role_labels[1]]
+        if itensor.get("scales") is not None:
+            t, f = (_copy.deepcopy(itensor["scales"][i])
+                    for i in self._perm[:2])
+            t[1] *= self.nframe_per_integration
+            otensor["scales"] = [t, [0, 1], f]
+        if itensor.get("units") is not None:
+            otensor["units"] = [itensor["units"][self._perm[0]], None,
+                                itensor["units"][self._perm[1]]]
+        ohdr["gulp_nframe"] = 1
+        gulp_actual = self.gulp_nframe or ihdr.get("gulp_nframe", 1)
+        if gulp_actual > self.nframe_per_integration:
+            raise ValueError(
+                f"gulp_nframe ({gulp_actual}) exceeds "
+                f"nframe_per_integration ({self.nframe_per_integration}); "
+                f"set gulp_nframe= on the beamform block")
+        # Resolve the method once per sequence and latch the config flag.
+        self.bf.method = self.method if self.method is not None else "auto"
+        self.bf.method = self.bf._resolve()
+        self._hold_flag_latch("beamform_method")
+        # Stage the weights on the device once per sequence.
+        self.bf.set_weights(self.weights, device=self.device)
+        return ohdr
+
+    def on_data(self, ispan, ospan):
+        nframe = ispan.nframe
+        raw = ispan.data_storage
+        if raw is not None:
+            nchan = raw.shape[self._perm[1]]
+            dts, perm = str(self._dtype), tuple(self._perm)
+
+            def engine(k0, k1):
+                r = raw if k1 - k0 == nframe else raw[k0:k1]
+                return self.bf.execute_raw(r, dts, perm)
+
+            self._raw_reads += 1
+            self._raw_read_nbyte += raw.numel() * raw.element_size()
+        else:
+            x = ispan.data
+            if self._dtype.is_complex and self._dtype.is_integer:
+                x = complex_view(x, self._dtype)
+            if self._perm != [0, 1, 2, 3]:
+                x = x.permute(self._perm)
+            ntime, nchan, nstand, npol = x.shape
+            xm = x.reshape(ntime, nchan, nstand * npol)
+
+            def engine(k0, k1):
+                return self.bf.execute(
+                    xm if k1 - k0 == nframe else xm[k0:k1])
+
+        outs, carry = integrate_chunks(
+            engine, nframe, (self._acc, self.nframe_integrated),
+            self.nframe_per_integration)
+        self._acc, self.nframe_integrated = carry
+        if outs:
+            store(ospan, outs[0].reshape(1, self.nbeam, nchan))
+            return 1
+        return 0
+
+    def on_sequence_end(self, iseqs):
+        # A trailing partial integration has no output slot: drop it, and
+        # say so.
+        if self.nframe_integrated:
+            warnings.warn(
+                f"{self.name}: dropping a trailing partial integration "
+                f"({self.nframe_integrated}/{self.nframe_per_integration} "
+                f"frames) at sequence end", stacklevel=1)
+            self.nframe_integrated = 0
+            self._acc = None
+
+
+def beamform(iring, weights, nframe_per_integration, *args, **kwargs):
+    """Beamform station/pol inputs into integrated beam powers (the
+    phased-array B engine) on kernel K4; ci8 'cuda' rings are read in raw
+    storage form."""
+    return BeamformBlock(iring, weights, nframe_per_integration, *args,
+                         **kwargs)

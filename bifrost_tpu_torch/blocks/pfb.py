@@ -1,0 +1,155 @@
+"""PFB channelizer block: the F-engine's front half as a streaming stage
+(counterpart of bifrost_tpu/blocks/pfb.py:98-256).
+
+Runs the planned `ops.pfb.Pfb`: `method=` (None reads the `pfb_method`
+config flag, latched for the sequence) selects kernel K2 or its plain
+version for the MAC; the DFT matmuls are shared; the (ntap-1)-frame
+history carries between gulps inside the plan, so split gulps are
+bitwise equal to one long gulp.
+
+ci8 ingest: a 'cuda' ring carrying ci8 is read in raw storage form
+(`ReadSpan.data_storage`, 2 B/sample), which the MAC kernel reads as it
+lies; the channelized gulp is written straight into the output span.
+
+Layout: the frame (streaming) axis must be time and must lead; every
+other axis is a stream sharing the prototype.  Output: [-1, nchan,
+...stream...] complex64 with a new 'freq' axis after time, the time
+scale coarsened by nchan and the freq axis anchored at the header's
+`cfreq`.  gulp_nframe must be a multiple of nchan; trailing frames of a
+final partial gulp that do not fill a spectrum are dropped with a
+warning.  The JAX block's fused-carry hooks are not ported (no fusion
+compiler yet).
+"""
+
+from __future__ import annotations
+
+import warnings
+
+import numpy as np
+
+from ..DataType import DataType
+from ..ndarray import complex_view
+from ..ops.pfb import Pfb
+from ..pipeline import TransformBlock
+from ..units import convert_units, transform_units
+from ._common import deepcopy_header, store
+
+
+class PfbBlock(TransformBlock):
+
+    def __init__(self, iring, nchan, ntap=4, coeffs=None, window="hamming",
+                 *args, method=None, **kwargs):
+        """nchan: channels per spectrum (one output spectrum per nchan
+        input frames).  ntap/window: prototype filter geometry
+        (ops.pfb.pfb_coeffs) unless explicit `coeffs` ((ntap, nchan) or
+        flat ntap*nchan) are given.  method: None resolves the
+        `pfb_method` config flag per sequence ('auto'/'cuda'/'plain')."""
+        super().__init__(iring, *args, **kwargs)
+        self.nchan = int(nchan)
+        self.ntap = int(ntap)
+        self.coeffs = None if coeffs is None \
+            else np.asarray(coeffs, dtype=np.float64)
+        self.window = window
+        self.method = method
+        self.pfb = Pfb()
+
+    def define_output_nframes(self, input_nframe):
+        return [input_nframe // self.nchan]
+
+    def output_nframes_for_gulp(self, rel_frame0, in_nframe):
+        """Exact emit schedule: one spectrum per nchan input frames, the
+        remainder of a final partial gulp dropped."""
+        return [in_nframe // self.nchan]
+
+    def on_sequence(self, iseq):
+        ihdr = iseq.header
+        itensor = ihdr["_tensor"]
+        if itensor["shape"][0] != -1:
+            raise ValueError(
+                f"pfb: the frame (streaming) axis must lead (time-first), "
+                f"got shape {itensor['shape']}")
+        gulp_actual = self.gulp_nframe or ihdr.get("gulp_nframe", 1)
+        if gulp_actual % self.nchan:
+            raise ValueError(
+                f"gulp_nframe ({gulp_actual}) must be a multiple of "
+                f"nchan ({self.nchan}); set gulp_nframe= on the pfb block")
+        self._dtype = DataType(itensor["dtype"])
+        # Resolve the method once per sequence and latch the config flag.
+        self.pfb.method = self.method if self.method is not None else "auto"
+        self.pfb.init(self.nchan, coeffs=self.coeffs, ntap=self.ntap,
+                      window=self.window)
+        self.pfb.method = self.pfb._resolve()
+        self._hold_flag_latch("pfb_method")
+        self._raw_reads = 0        # gulps read in raw int storage form
+        self._raw_read_nbyte = 0   # bytes those reads covered
+        self._dropped_tail = 0
+        ohdr = deepcopy_header(ihdr)
+        ot = ohdr["_tensor"]
+        ot["dtype"] = "cf32"
+        ot["shape"] = [-1, self.nchan] + list(itensor["shape"][1:])
+        labels = itensor.get("labels")
+        if labels is not None:
+            ot["labels"] = [labels[0], "freq"] + list(labels[1:])
+        scales = itensor.get("scales")
+        units = itensor.get("units")
+        tscale = None
+        if scales is not None and scales[0] is not None:
+            tscale = list(scales[0])
+        funit = None
+        if units is not None and units[0] is not None:
+            funit = transform_units(units[0], -1)
+        if scales is not None:
+            # The new freq axis is anchored at the stream's `cfreq` when
+            # the header has one, so the FDMT sees sky frequencies.
+            f0 = 0.0
+            cf = ihdr.get("cfreq")
+            if cf is not None and funit is not None:
+                f0 = convert_units(cf, ihdr.get("cfreq_units"), funit)
+            fscale = [f0, 1.0 / (tscale[1] * self.nchan)] \
+                if tscale and tscale[1] else [f0, 0]
+            new_t = [tscale[0], tscale[1] * self.nchan] if tscale else None
+            ot["scales"] = [new_t, fscale] + list(scales[1:])
+        if units is not None:
+            ot["units"] = [units[0], funit] + list(units[1:])
+        if ihdr.get("gulp_nframe"):
+            ohdr["gulp_nframe"] = max(ihdr["gulp_nframe"] // self.nchan, 1)
+        return ohdr
+
+    def on_data(self, ispan, ospan):
+        n = (ispan.nframe // self.nchan) * self.nchan
+        if n < ispan.nframe:
+            # final partial gulp: no output slot for the remainder
+            self._dropped_tail = ispan.nframe - n
+            warnings.warn(
+                f"{self.name}: dropping {self._dropped_tail} trailing "
+                f"frame(s) not filling a spectrum at sequence end",
+                stacklevel=1)
+        if n == 0:
+            return 0
+        out = ospan.data[:n // self.nchan]
+        raw = ispan.data_storage
+        if raw is not None:
+            raw = raw[:n]
+            self.pfb.execute_raw(raw, str(self._dtype), out=out)
+            self._raw_reads += 1
+            self._raw_read_nbyte += raw.numel() * raw.element_size()
+        else:
+            x = ispan.data[:n]
+            if self._dtype.is_complex and self._dtype.is_integer:
+                x = complex_view(x, self._dtype)
+            store(ospan, self.pfb.execute(x))
+        return n // self.nchan
+
+    def plan_report(self):
+        """The plan's runtime accounting (ops/runtime.py schema +
+        channelizer config)."""
+        return self.pfb.plan_report()
+
+
+def pfb(iring, nchan, ntap=4, coeffs=None, window="hamming", *args,
+        **kwargs):
+    """Polyphase-filterbank channelizer (the F-engine front half): one
+    critically-sampled nchan-point spectrum per nchan input frames, the
+    ntap-frame windowed-sinc MAC (kernel K2) and the DFT matmuls, with
+    the (ntap-1)-frame history carried between gulps."""
+    return PfbBlock(iring, nchan, ntap, coeffs, window, *args, **kwargs)

@@ -9,6 +9,7 @@ import numpy as np
 import torch
 
 from ..DataType import DataType
+from ..ndarray import structured_to_pair
 from ..pipeline import SourceBlock, SinkBlock
 
 __all__ = ["ArraySourceBlock", "array_source",
@@ -19,14 +20,19 @@ def _host_tensor(a):
     """numpy -> CPU tensor in storage form (structured complex integers
     gain the trailing (re, im) axis)."""
     if a.dtype.names is not None:
-        a = np.stack([a[a.dtype.names[0]], a[a.dtype.names[1]]], axis=-1)
+        a = structured_to_pair(a)
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
 class ArraySourceBlock(SourceBlock):
     """Stream a fixed numpy array, frame (time) axis first.  Header fields
     (dtype/labels/scales/units, and any extra metadata) may be overridden
-    via `header=`; dtype defaults to the array's own."""
+    via `header=`; dtype defaults to the array's own.
+
+    Complex-integer voltages (ci8) come either as the JAX package's
+    structured [("re", "i1"), ("im", "i1")] array or, with
+    ``header={"dtype": "ci8"}``, as their storage form: an int8 array
+    with a trailing (re, im) axis of 2."""
 
     def __init__(self, data, gulp_nframe, header=None, name="testdata",
                  **kwargs):
@@ -34,6 +40,13 @@ class ArraySourceBlock(SourceBlock):
         self.data_arr = np.asarray(data)
         self.header_override = dict(header or {})
         self._cursor = 0
+        dt = self.header_override.get("dtype")
+        self._pairs = (self.data_arr.dtype.names is None and dt is not None
+                       and DataType(dt).is_complex and
+                       DataType(dt).is_integer)
+        if self._pairs and self.data_arr.shape[-1] != 2:
+            raise ValueError(f"{dt} storage needs a trailing (re, im) axis "
+                             f"of 2, got shape {self.data_arr.shape}")
 
     def create_reader(self, name):
         @contextlib.contextmanager
@@ -45,17 +58,18 @@ class ArraySourceBlock(SourceBlock):
     def on_sequence(self, reader, name):
         arr = self.data_arr
         ov = self.header_override
+        shape = arr.shape[:-1] if self._pairs else arr.shape
+        ndim = len(shape)
         hdr = {
             "name": str(name),
             "time_tag": int(ov.get("time_tag", 0)),
             "_tensor": {
                 "dtype": str(ov.get("dtype") or DataType(arr.dtype)),
-                "shape": [-1] + list(arr.shape[1:]),
+                "shape": [-1] + list(shape[1:]),
                 "labels": ov.get("labels", ["time"] + [
-                    f"ax{i}" for i in range(1, arr.ndim)]),
-                "scales": ov.get("scales",
-                                 [[0, 1.0] for _ in range(arr.ndim)]),
-                "units": ov.get("units", [None] * arr.ndim),
+                    f"ax{i}" for i in range(1, ndim)]),
+                "scales": ov.get("scales", [[0, 1.0] for _ in range(ndim)]),
+                "units": ov.get("units", [None] * ndim),
             },
         }
         for k, v in ov.items():

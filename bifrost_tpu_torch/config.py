@@ -35,6 +35,16 @@ FLAGS = {f.name: f for f in [
          "version for a CPU tensor), 'plain' (the plain PyTorch merge "
          "step on any device), or 'naive' (the per-band unrolled "
          "executor, for tests).  Latched per sequence by FdmtBlock."),
+    Flag("pfb_method", "auto",
+         "Default PFB MAC method: 'auto'/'cuda' (kernel K2 for a CUDA "
+         "tensor, its plain PyTorch version for a CPU tensor) or 'plain' "
+         "(the plain version on any device).  Latched per sequence by "
+         "PfbBlock."),
+    Flag("beamform_method", "auto",
+         "Default beamform method: 'auto'/'cuda' (kernel K4 for a CUDA "
+         "tensor, its plain PyTorch version for a CPU tensor) or 'plain' "
+         "(the plain version on any device).  Latched per sequence by "
+         "BeamformBlock."),
 ]}
 
 

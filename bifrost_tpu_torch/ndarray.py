@@ -44,6 +44,61 @@ def tensor_shape(shape, dtype):
     return tuple(shape)
 
 
+def structured_to_pair(a):
+    """Structured complex-int numpy array (fields re, im) -> its component
+    integer array with a trailing (re, im) axis of 2, the storage form."""
+    a = np.ascontiguousarray(a)
+    return a.view(a.dtype[a.dtype.names[0]]).reshape(a.shape + (2,))
+
+
+def pair_to_structured(a, dtype="ci8"):
+    """Storage form (trailing (re, im) axis of 2) -> the structured numpy
+    array of complex-integer `dtype` (the JAX package's host form)."""
+    a = np.ascontiguousarray(a)
+    if a.shape[-1] != 2:
+        raise ValueError(f"expected a trailing (re, im) axis of 2, got "
+                         f"shape {a.shape}")
+    want = DataType(dtype).as_numpy_dtype()
+    return a.astype(want[want.names[0]]).view(want).reshape(a.shape[:-1])
+
+
+def logical_shape(storage_shape, dtype):
+    """Storage tensor shape -> logical shape (the inverse of
+    `tensor_shape` for complex integers of 8 bits or more)."""
+    dt = DataType(dtype)
+    shape = tuple(storage_shape)
+    if dt.nbit >= 8 and dt.is_complex and dt.is_integer:
+        if not shape or shape[-1] != 2:
+            raise ValueError(f"{dt} storage needs a trailing (re, im) axis "
+                             f"of 2, got shape {shape}")
+        return shape[:-1]
+    if dt.nbit < 8:
+        return shape[:-1] + (shape[-1] * (8 // dt.itemsize_bits),)
+    return shape
+
+
+def complex_view(t, dtype):
+    """The logical complex64 value of a complex-integer storage tensor
+    (ci8/ci16/ci32: trailing (re, im) axis of 2), lifted exactly; a
+    complex tensor passes through."""
+    dt = DataType(dtype)
+    if t.is_complex():
+        return t
+    if not (dt.is_complex and dt.is_integer and dt.nbit >= 8):
+        raise ValueError(f"complex_view expects ci8 or wider, got {dt}")
+    return torch.complex(t[..., 0].float(), t[..., 1].float())
+
+
+def storage_view(z, dtype):
+    """A logical complex tensor -> complex-integer storage (trailing (re,
+    im) axis of 2) of `dtype`, rounded to the nearest integer."""
+    dt = DataType(dtype)
+    if not (dt.is_complex and dt.is_integer and dt.nbit >= 8):
+        raise ValueError(f"storage_view expects ci8 or wider, got {dt}")
+    return torch.stack([z.real.round(), z.imag.round()], dim=-1) \
+        .to(dt.as_torch_dtype())
+
+
 def asarray(x, space="cuda", device=None):
     """`x` (numpy or tensor) as a tensor in `space`; `device` backs the
     'cuda' space (default: this thread's device, the card unless the
@@ -55,7 +110,7 @@ def asarray(x, space="cuda", device=None):
         return x.to(dev)
     a = np.asarray(x)
     if a.dtype.names is not None:      # structured complex-int -> (re, im)
-        a = np.stack([a[a.dtype.names[0]], a[a.dtype.names[1]]], axis=-1)
+        a = structured_to_pair(a)
     return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
 

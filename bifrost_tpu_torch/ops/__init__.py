@@ -1,7 +1,10 @@
 """Device ops of the port (counterparts of bifrost_tpu/ops)."""
 
+from .beamform import Beamform
 from .fdmt import Fdmt, plan_from_reference
+from .pfb import Pfb, pfb, pfb_coeffs
 from .transpose import transpose
 from . import stats
 
-__all__ = ["Fdmt", "plan_from_reference", "transpose", "stats"]
+__all__ = ["Beamform", "Fdmt", "plan_from_reference", "Pfb", "pfb",
+           "pfb_coeffs", "transpose", "stats"]

@@ -7,7 +7,9 @@ keyed by the RESOLVED method, and the uniform `report()` core every op's
     {"op", "method", "origin", "plan_build_s",
      "cache": {"entries", "capacity", "hits", "misses", "evictions"}}
 
-The staged-unpack helpers of the JAX module are not ported yet.
+It also holds the staged-unpack helpers (bifrost_tpu/ops/runtime.py:
+266-308), for ci8 and wider: a raw ring-storage gulp becomes f32 (re,
+im) planes.  ci4 (packed bytes) is not ported yet.
 """
 
 from __future__ import annotations
@@ -15,7 +17,35 @@ from __future__ import annotations
 import time
 from collections import OrderedDict
 
+from ..DataType import DataType
+
 DEFAULT_CAPACITY = 64
+
+
+def staged_unpack(raw, dtype):
+    """Raw ring storage of a complex-integer stream (ci8/ci16/ci32: the
+    integer component type with a trailing (re, im) axis of 2) -> f32
+    (re, im) planes of its logical shape.  The lift is exact."""
+    dt = DataType(dtype)
+    if not (dt.is_complex and dt.is_integer):
+        raise ValueError(f"staged_unpack expects a complex-integer ring "
+                         f"dtype, got {dt}")
+    if dt.nbit < 8:
+        raise NotImplementedError(f"staged_unpack: packed {dt} storage is "
+                                  f"not ported yet")
+    if raw.shape[-1] != 2:
+        raise ValueError(f"{dt} storage needs a trailing (re, im) axis of "
+                         f"2, got shape {tuple(raw.shape)}")
+    return raw[..., 0].float(), raw[..., 1].float()
+
+
+def staged_unpack_canonical(raw, dtype, perm):
+    """`staged_unpack`, then the planes permuted by `perm` (header axis
+    order -> (time, freq, station, pol)); expansion first, as the JAX
+    helper orders it."""
+    re, im = staged_unpack(raw, dtype)
+    perm = tuple(perm)
+    return re.permute(perm), im.permute(perm)
 
 
 class OpRuntime(object):

@@ -635,6 +635,18 @@ class ReadSpan(object):
         return self.tensor.span_view(rows[:self.tensor.nringlet],
                                      self.nframe)
 
+    @property
+    def data_storage(self):
+        """The span in raw storage form for a complex-integer stream of 8
+        bits or more on a 'cuda' ring (the int (re, im)-pair tensor the
+        H2D copy committed), else None (the JAX ReadSpan.data_storage
+        contract).  Storage here is already that form, so this is `data`."""
+        dt = self.tensor.dtype
+        if self.ring.space != "cuda" or not (dt.is_complex and
+                                             dt.is_integer and dt.nbit >= 8):
+            return None
+        return self.data
+
     def hold_until(self, event):
         """Delay this span's release until `event` has completed on the
         host: an asynchronous copy still reads these bytes."""

@@ -1,13 +1,24 @@
-"""The FRB-search service pieces of the port (counterpart of
-bifrost_tpu/service.py:553-762): the `FrameLedger`, the
-`CandidateDetectBlock`, and `frb_search_pipeline`, the body of the JAX
-package's `frb_search_spec` (service.py:294-315) built from the port's
-blocks, with an in-memory replay source in place of UDP capture:
+"""The service pieces of the port (counterpart of
+bifrost_tpu/service.py): the `FrameLedger`, the `CandidateDetectBlock`,
+and two chains built from the port's blocks, with an in-memory replay
+source in place of UDP capture:
 
-    array_source (u8 [time, freq]) -> copy('cuda') ->
-    transpose(['freq', 'time']) -> fdmt(max_delay) -> CandidateDetectBlock
+- `frb_search_pipeline`, the body of `frb_search_spec`
+  (service.py:294-315):
 
-`ServiceSpec`/`Service`, supervision and UDP capture are not ported yet.
+      array_source (u8 [time, freq]) -> copy('cuda') ->
+      transpose(['freq', 'time']) -> fdmt(max_delay) -> CandidateDetectBlock
+
+- `lwa_beam_search_pipeline`, the B-engine branch of
+  `lwa_instrument_spec` (service.py:443-534, its unfused form):
+
+      array_source (ci8 [time, station, pol]) -> copy('cuda') ->
+      pfb(nchan, ntap) -> beamform(weights, n_int) ->
+      transpose(['beam', 'freq', 'time']) -> fdmt(max_delay) ->
+      CandidateDetectBlock
+
+`ServiceSpec`/`Service`, supervision, UDP capture, fusion and the
+instrument's X/imaging branch are not ported yet.
 """
 
 from __future__ import annotations
@@ -18,7 +29,8 @@ import time
 import numpy as np
 import torch
 
-from .blocks import array_source, copy, fdmt, gather_sink, transpose
+from .blocks import (array_source, beamform, copy, fdmt, gather_sink, pfb,
+                     transpose)
 from .ops.stats import mad_snr
 from .pipeline import Pipeline, SinkBlock
 
@@ -198,4 +210,76 @@ def frb_search_pipeline(data, gulp_nframe, max_delay, f0_mhz=40.0,
         det.ledger = ledger
         if gather is not None:
             gather_sink(d, gather, gulp_nframe=gulp_nframe, name="gather")
+    return pipe, det, ledger
+
+
+def default_beam_weights(nbeam, nsp):
+    """`lwa_instrument_spec`'s deterministic small-integer beam weights
+    (service.py:408-412): w[b, i] = ((b * nsp + i) % 7) - 3, complex64."""
+    return ((np.arange(nbeam * nsp, dtype=np.int64).reshape(nbeam, nsp)
+             % 7) - 3).astype(np.complex64)
+
+
+def lwa_beam_search_pipeline(voltages, nstand=256, npol=2, nchan=4096,
+                             ntap=4, n_int=16, nbeam=8, weights=None,
+                             max_delay=64, threshold=8.0, f0_mhz=40.0,
+                             dt_s=1e-6, gulp_nframe=None, coeffs=None,
+                             device=None, pfb_method=None,
+                             beamform_method=None, fdmt_method=None,
+                             on_candidate=None, gather=None):
+    """Build the LWA beam-search chain over `voltages`, ci8 [time,
+    station, pol] replayed from memory: the JAX package's structured
+    (re, im) array or its int8 storage form with a trailing axis of 2.
+    The defaults are `lwa_instrument_spec`'s flagship geometry; `weights`
+    ((nbeam, nstand*npol) complex) default to its small-integer planes,
+    `coeffs` (the (ntap, nchan) PFB prototype) to `pfb_coeffs`.  A gulp
+    is `gulp_nframe` voltage frames (default nchan), a multiple of nchan
+    with at most n_int spectra.
+
+    `device`: None runs on the card (raising where there is none); 'cpu'
+    runs every 'cuda'-space ring on the CPU.  The three `*_method`
+    arguments pin the PFB, beamform and FDMT methods (None reads their
+    config flags).  `gather`: a dict whose 'beams' and 'dedispersed'
+    lists, where present, receive the beam-power frames and the
+    dedispersed gulps as numpy.  -> (pipeline, detector, ledger); call
+    `pipeline.run()`."""
+    nsp = int(nstand) * int(npol)
+    gulp = int(gulp_nframe) if gulp_nframe else int(nchan)
+    if gulp % nchan:
+        raise ValueError(f"gulp_nframe ({gulp}) must be a multiple of "
+                         f"nchan ({nchan}) so the PFB emits whole spectra "
+                         f"per gulp")
+    if gulp // nchan > n_int:
+        raise ValueError(f"gulp_nframe/nchan ({gulp // nchan}) spectra per "
+                         f"gulp exceeds nframe_per_integration ({n_int})")
+    if weights is None:
+        weights = default_beam_weights(nbeam, nsp)
+    gather = gather or {}
+    pipe = Pipeline(device=device)
+    ledger = FrameLedger()
+    with pipe:
+        src = array_source(voltages, gulp, header={
+            "dtype": "ci8",
+            "labels": ["time", "station", "pol"],
+            "scales": [[0.0, dt_s], None, None],
+            "units": ["s", None, None],
+            "cfreq": f0_mhz,
+            "cfreq_units": "MHz",
+        }, name="ingest")
+        dev = copy(src, space="cuda", name="fengine_h2d")
+        f = pfb(dev, nchan, ntap=ntap, coeffs=coeffs, method=pfb_method,
+                name="fengine_pfb")
+        b = beamform(f, weights, nframe_per_integration=n_int,
+                     method=beamform_method, name="bengine")
+        t = transpose(b, ["beam", "freq", "time"], name="bdetect_t")
+        d = fdmt(t, max_delay=max_delay, method=fdmt_method,
+                 name="bdetect_fdmt")
+        det = CandidateDetectBlock(d, threshold=threshold,
+                                   on_candidate=on_candidate,
+                                   name="bdetect")
+        det.ledger = ledger
+        if "beams" in gather:
+            gather_sink(b, gather["beams"], name="gather_beams")
+        if "dedispersed" in gather:
+            gather_sink(d, gather["dedispersed"], name="gather_dedispersed")
     return pipe, det, ledger

@@ -1,0 +1,66 @@
+"""Parameters carried over from the JAX package's plans, so that a run of
+the port and a run of the JAX package use the same numbers.
+
+The JAX plans keep their parameters in TPU layouts: `Beamform` stages the
+weights as (re, im) planes transposed to (station, beam) and padded to
+the 128-lane tile; `Pfb` folds the (ntap, nchan) prototype into an
+(ntap, lanes) bank, each channel's column repeated per stream and
+component; `Fdmt` holds its tables as numpy arrays.  `carry_over` takes
+those numpy arrays and returns the port's arguments.  It needs nothing of
+the JAX package: the caller hands over numpy.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .ops.fdmt import plan_from_reference
+
+
+def weights_from_planes(wr, wi, nbeam, nsp):
+    """(S_p, B_p) f32 weight planes (stations on rows, padded) -> the
+    (nbeam, nsp) complex64 weights."""
+    wr, wi = np.asarray(wr), np.asarray(wi)
+    if wr.shape != wi.shape or wr.shape[0] < nsp or wr.shape[1] < nbeam:
+        raise ValueError(f"weight planes {wr.shape}/{wi.shape} do not hold "
+                         f"{nsp} stations x {nbeam} beams")
+    w = wr[:nsp, :nbeam].astype(np.float32) + \
+        1j * wi[:nsp, :nbeam].astype(np.float32)
+    return np.ascontiguousarray(w.T.astype(np.complex64))
+
+
+def prototype_from_bank(bank, nchan):
+    """A folded (ntap, nchan * rep) MAC bank -> the (ntap, nchan)
+    prototype, checking that each channel's `rep` columns agree."""
+    bank = np.asarray(bank)
+    ntap, lanes = bank.shape
+    if lanes % nchan:
+        raise ValueError(f"bank of {lanes} lanes is not a fold of {nchan} "
+                         f"channels")
+    rep = lanes // nchan
+    cols = bank.reshape(ntap, nchan, rep)
+    if not (cols == cols[..., :1]).all():
+        raise ValueError("bank columns of one channel differ: not a folded "
+                         "prototype")
+    return np.ascontiguousarray(cols[..., 0])
+
+
+def carry_over(weight_planes=None, nbeam=None, nsp=None, pfb_bank=None,
+               nchan=None, fdmt_tables=None, fdmt_geometry=None):
+    """Numpy parameters of the JAX plans -> the port's arguments.
+
+    weight_planes: (wr, wi) of a JAX `Beamform` (`_w_planes`), with the
+    true nbeam and nsp; pfb_bank: a JAX `Pfb.staged_bank(...)` with the
+    plan's nchan; fdmt_tables: the JAX `Fdmt`'s `_steps`, `_buckets`,
+    `_init_perm`, `_init_chans_by_d` with fdmt_geometry = dict(nchan,
+    max_delay, f0, df[, exponent]).  -> dict with 'weights' ((nbeam, nsp)
+    complex64), 'coeffs' ((ntap, nchan) f32 values) and 'fdmt' (an `Fdmt`
+    plan), for the parts given."""
+    out = {}
+    if weight_planes is not None:
+        out["weights"] = weights_from_planes(*weight_planes, nbeam, nsp)
+    if pfb_bank is not None:
+        out["coeffs"] = prototype_from_bank(pfb_bank, nchan)
+    if fdmt_tables is not None:
+        out["fdmt"] = plan_from_reference(fdmt_tables, **fdmt_geometry)
+    return out

@@ -62,3 +62,71 @@ def test_fdmt_cuda_matches_cpu(cuda):
     x = torch.from_numpy(rng.standard_normal((64, 160)).astype(np.float32))
     plan = Fdmt().init(64, 128, 60e6, 0.1e6)
     assert _bits_equal(plan.execute(x.to(cuda)).cpu(), plan.execute(x))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("decim,ntap,rep,int8", [
+    (1, 4, 1, False), (2, 8, 1, False), (4, 1, 1, False), (1, 4, 6, True),
+    (1, 4, 6, False)])
+def test_fir_mac_kernel_bitwise_vs_plain(cuda, decim, ntap, rep, int8):
+    """K2 against its plain version, bitwise: decimation, a 1-tap
+    filter, shared coefficient columns (the PFB fold) and int8 input."""
+    from bifrost_tpu_torch.ops import fir_kernel
+    rng = np.random.default_rng(6)
+    lanes, ntime = 12 * 6, 40
+    x = (rng.integers(-128, 128, (ntime, lanes)).astype(np.int8) if int8
+         else rng.standard_normal((ntime, lanes)).astype(np.float32))
+    x = torch.from_numpy(x).to(cuda)
+    c = torch.from_numpy(rng.standard_normal(
+        (ntap, lanes // rep)).astype(np.float32)).to(cuda)
+    st = torch.from_numpy(rng.standard_normal(
+        (ntap - 1, lanes)).astype(np.float32)).to(cuda)
+    before = fir_kernel.fir_mac.launches
+    y = fir_kernel.fir_mac(x, c, st, decim, rep)
+    assert fir_kernel.fir_mac.launches == before + 1
+    assert _bits_equal(y, fir_kernel.fir_mac_plain(x, c, st, decim, rep))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nbeam,int8,ntime", [
+    (1, False, 40), (2, True, 5), (8, False, 16), (8, True, 33)])
+def test_beamform_kernel_bitwise_vs_plain(cuda, nbeam, int8, ntime):
+    """K4 against its plain version, bitwise: f32 and int8 voltages,
+    station counts across the kernel's 128-station chunks, frame counts
+    across its tiles."""
+    from bifrost_tpu_torch.ops import beamform_kernel
+    rng = np.random.default_rng(7)
+    nchan, nsp = 5, 300
+    if int8:
+        x = torch.from_numpy(rng.integers(-128, 128, (ntime, nchan, nsp, 2))
+                             .astype(np.int8)).to(cuda)
+    else:
+        x = torch.from_numpy((rng.standard_normal((ntime, nchan, nsp)) +
+                              1j * rng.standard_normal((ntime, nchan, nsp)))
+                             .astype(np.complex64)).to(cuda)
+    w = torch.from_numpy((rng.standard_normal((nbeam, nsp)) +
+                          1j * rng.standard_normal((nbeam, nsp)))
+                         .astype(np.complex64)).to(cuda)
+    before = beamform_kernel.beamform_power.launches
+    p = beamform_kernel.beamform_power(x, w)
+    assert beamform_kernel.beamform_power.launches == before + 1
+    assert _bits_equal(p, beamform_kernel.beamform_power_plain(x, w))
+
+
+@pytest.mark.gpu
+def test_pfb_and_beamform_cuda_match_cpu(cuda):
+    """The PFB and the beamform plan on the card against the CPU: the MAC
+    and the B-engine bitwise, the DFT matmuls (cuBLAS against the CPU's
+    BLAS, another summation order) to 1e-5 of the peak."""
+    from bifrost_tpu_torch.ops import Beamform, Pfb
+    rng = np.random.default_rng(8)
+    raw = rng.integers(-8, 8, (64 * 6, 3, 2, 2)).astype(np.int8)
+    got, want = (Pfb(method="cuda").init(64, ntap=4).execute_raw(
+        torch.from_numpy(raw).to(dev), "ci8").cpu()
+        for dev in (cuda, torch.device("cpu")))
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+    w = rng.integers(-3, 4, (8, 6)).astype(np.complex64)
+    xb = torch.from_numpy(raw).reshape(6, 64, 3, 2, 2)
+    a = Beamform().init(w, method="cuda").execute_raw(xb.to(cuda), "ci8")
+    b = Beamform().init(w, method="cuda").execute_raw(xb, "ci8")
+    assert _bits_equal(a.cpu(), b)

@@ -1,4 +1,5 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, and
+"""The port stands alone: it imports neither JAX nor the JAX package (nor
+loads its native library), its CUDA sources include nothing of it, and
 its entry points refuse to run without a card unless asked for the CPU."""
 
 import ast
@@ -15,8 +16,11 @@ PKG = ROOT / "bifrost_tpu_torch"
 
 
 def test_import_leaves_jax_and_reference_out():
-    code = ("import sys, bifrost_tpu_torch, bifrost_tpu_torch.service, "
-            "bifrost_tpu_torch.build, bifrost_tpu_torch.ops.fdmt_kernel\n"
+    # Every module of the package, imported in a fresh interpreter.
+    code = ("import importlib, pkgutil, sys, bifrost_tpu_torch\n"
+            "for m in pkgutil.walk_packages(bifrost_tpu_torch.__path__, "
+            "'bifrost_tpu_torch.'):\n"
+            "    importlib.import_module(m.name)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'bifrost_tpu' or "
             "m.startswith('bifrost_tpu.')]\n"
@@ -46,6 +50,20 @@ def test_source_imports_no_jax(path):
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
         assert top not in ("jax", "jaxlib", "bifrost_tpu"), (path, mod)
+    assert "libbifrost_tpu" not in path.read_text(), path
+
+
+@pytest.mark.parametrize("path", sorted((PKG / "csrc").glob("*.cu")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_cuda_sources_include_nothing_of_the_reference(path):
+    """A kernel source names the TPU kernel it replaces in a comment, and
+    includes only CUDA's and the C++ library's headers."""
+    text = path.read_text()
+    assert "libbifrost_tpu" not in text, path
+    for line in text.splitlines():
+        if line.lstrip().startswith("#include"):
+            assert "jax" not in line and "bifrost" not in line, line
+            assert line.split()[1][0] == "<", line
 
 
 def test_pipeline_without_device_needs_a_card(monkeypatch):
