@@ -2,13 +2,17 @@
 
 from .beamform import beamform, BeamformBlock
 from .copy import copy, CopyBlock
+from .correlate import correlate, CorrelateBlock
 from .fdmt import fdmt, FdmtBlock
+from .fft import fft, FftBlock
 from .pfb import pfb, PfbBlock
+from .romein import romein, GridderBlock
 from .testing import (array_source, ArraySourceBlock, callback_sink,
                       CallbackSinkBlock, gather_sink)
 from .transpose import transpose, TransposeBlock
 
-__all__ = ["beamform", "BeamformBlock", "copy", "CopyBlock", "fdmt",
-           "FdmtBlock", "pfb", "PfbBlock", "array_source",
+__all__ = ["beamform", "BeamformBlock", "copy", "CopyBlock", "correlate",
+           "CorrelateBlock", "fdmt", "FdmtBlock", "fft", "FftBlock", "pfb",
+           "PfbBlock", "romein", "GridderBlock", "array_source",
            "ArraySourceBlock", "callback_sink", "CallbackSinkBlock",
            "gather_sink", "transpose", "TransposeBlock"]

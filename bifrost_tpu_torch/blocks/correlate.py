@@ -1,0 +1,174 @@
+"""Correlate block: the X step of an FX correlator (counterpart of the
+single-device f32 engine of bifrost_tpu/blocks/correlate.py; reference
+python/bifrost/blocks/correlate.py).
+
+Per channel c, over the frames of an integration,
+
+    v[c, i, j] = sum_t conj(x[t, c, i]) * x[t, c, j]
+
+with i, j running over station x pol.  The product is one batched
+complex `torch.matmul` per gulp (cuBLAS CGEMM on the card) with TF32 off,
+as the JAX package runs it at Precision.HIGHEST outside any Pallas
+kernel; a gulp that is one whole integration is written straight into
+the output span.  A gulp is split at integration boundaries, mid-gulp
+where the integration length is not a multiple of the gulp
+(`integrate_chunks`), and the partial sum carries across gulps.
+
+`gains=` ((nstand,) or (nstand * npol,) complex) scales the voltages
+before the product, x' = g * x, so v'_ij = conj(g_i) g_j v_ij.
+
+Input axes: any order of (time, freq, station, pol) labels with time as
+the frame axis; output [-1, nchan, nstand, npol, nstand, npol] cf32
+labelled (time, freq, station_i, pol_i, station_j, pol_j), one frame per
+integration, the time scale multiplied by the integration length,
+``matrix_fill_mode`` 'full'.  Not ported yet (ROADMAP): the int8 engine,
+the raw ci* ingest, the `cal_gains` header and `gain_callback`,
+`set_gains`, the mesh engines and the fused-carry hooks.
+"""
+
+from __future__ import annotations
+
+import copy as _copy
+import warnings
+
+import numpy as np
+import torch
+
+from ..ndarray import complex_view
+from ..pipeline import TransformBlock
+from ._common import (_canonical_permutation, deepcopy_header,
+                      integrate_chunks, store)
+
+
+def xengine(xm, gains=None, out=None):
+    """xm (ntime, nchan, nsp) complex64 -> v (nchan, nsp, nsp) complex64,
+    v[c, i, j] = sum_t conj(x'[t, c, i]) x'[t, c, j] with x' = gains * x
+    (into `out` when given)."""
+    if xm.is_cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    if gains is not None:
+        xm = xm * gains
+    xc = xm.permute(1, 0, 2)                  # (nchan, ntime, nsp)
+    return torch.matmul(xc.mH, xc, out=out)
+
+
+class CorrelateBlock(TransformBlock):
+
+    def output_nframes_for_gulp(self, rel_frame0, in_nframe):
+        """Exact emit schedule: one output frame for each integration
+        boundary the gulp crosses."""
+        n = self.nframe_per_integration
+        return [(rel_frame0 + in_nframe) // n - rel_frame0 // n]
+
+    def __init__(self, iring, nframe_per_integration, *args, engine="f32",
+                 gains=None, **kwargs):
+        """engine: 'f32' (the only engine ported).  gains: per-station or
+        per-station*pol complex gains folded into the voltages."""
+        super().__init__(iring, *args, **kwargs)
+        if engine == "int8":
+            raise NotImplementedError(
+                "correlate: the int8 X-engine is not ported yet (ROADMAP, "
+                "left out by the imaging slice); use engine='f32'")
+        if engine != "f32":
+            raise ValueError(f"unknown correlate engine {engine!r}")
+        self.nframe_per_integration = nframe_per_integration
+        self.gains = None if gains is None \
+            else np.asarray(gains, dtype=np.complex64).reshape(-1)
+
+    def define_output_nframes(self, input_nframe):
+        return [1]
+
+    def on_sequence(self, iseq):
+        self.nframe_integrated = 0
+        self._acc = None
+        ihdr = iseq.header
+        itensor = ihdr["_tensor"]
+        self._perm, _ = _canonical_permutation(itensor.get("labels"))
+        if self._perm[0] != 0:
+            raise ValueError(
+                "correlate: the frame (streaming) axis must be time, got "
+                f"labels {itensor['labels']}")
+        self._dtype = iseq.tensor.dtype
+        ohdr = deepcopy_header(ihdr)
+        otensor = ohdr["_tensor"]
+        otensor["dtype"] = "cf32"
+        for key in ("shape", "labels", "scales", "units"):
+            if key not in itensor or itensor[key] is None:
+                continue
+            # Canonical (time, freq, station, pol) order; the station and
+            # pol entries are duplicated and must not alias.
+            t, f, s, p = (_copy.deepcopy(itensor[key][i])
+                          for i in self._perm)
+            otensor[key] = [t, f, s, p, _copy.deepcopy(s),
+                            _copy.deepcopy(p)]
+        for i in range(2):
+            otensor["labels"][2 + i] = str(otensor["labels"][2 + i]) + "_i"
+            otensor["labels"][4 + i] = str(otensor["labels"][4 + i]) + "_j"
+        otensor["scales"][0][1] *= self.nframe_per_integration
+        ohdr["matrix_fill_mode"] = "full"
+        ohdr["gulp_nframe"] = min(ihdr.get("gulp_nframe", 1),
+                                  self.nframe_per_integration)
+        gulp_actual = self.gulp_nframe or ihdr.get("gulp_nframe", 1)
+        if gulp_actual > self.nframe_per_integration:
+            raise ValueError(
+                f"gulp_nframe ({gulp_actual}) exceeds "
+                f"nframe_per_integration ({self.nframe_per_integration}); "
+                f"set gulp_nframe= on the correlate block")
+        nstand = int(itensor["shape"][self._perm[2]])
+        npol = int(itensor["shape"][self._perm[3]])
+        self._g = None
+        if self.gains is not None:
+            g = self.gains
+            if g.size == nstand and npol > 1:
+                g = np.repeat(g, npol)
+            if g.size != nstand * npol:
+                raise ValueError(
+                    f"{self.name}: gains have {self.gains.size} entries; "
+                    f"expected {nstand} (per station) or {nstand * npol} "
+                    f"(per station*pol)")
+            self._g = torch.from_numpy(g).to(self.device)
+        return ohdr
+
+    def on_data(self, ispan, ospan):
+        x = ispan.data
+        if self._dtype.is_complex and self._dtype.is_integer:
+            x = complex_view(x, self._dtype)
+        elif not x.is_complex():
+            x = x.to(torch.complex64)
+        if self._perm != [0, 1, 2, 3]:
+            x = x.permute(self._perm)
+        ntime, nchan, nstand, npol = x.shape
+        nsp = nstand * npol
+        xm = x.reshape(ntime, nchan, nsp)
+        n = self.nframe_per_integration
+        if self._acc is None and self.nframe_integrated == 0 and ntime == n:
+            # One whole integration: the product lands in the span.
+            xengine(xm, self._g, out=ospan.data.view(nchan, nsp, nsp))
+            return 1
+        outs, carry = integrate_chunks(
+            lambda k0, k1: xengine(xm if k1 - k0 == ntime else xm[k0:k1],
+                                   self._g),
+            ntime, (self._acc, self.nframe_integrated), n)
+        self._acc, self.nframe_integrated = carry
+        if outs:
+            store(ospan, outs[0].reshape(1, nchan, nstand, npol, nstand,
+                                         npol))
+            return 1
+        return 0
+
+    def on_sequence_end(self, iseqs):
+        # A trailing partial integration has no output slot: drop it, and
+        # say so.
+        if self.nframe_integrated:
+            warnings.warn(
+                f"{self.name}: dropping a trailing partial integration "
+                f"({self.nframe_integrated}/{self.nframe_per_integration} "
+                f"frames) at sequence end", stacklevel=1)
+            self.nframe_integrated = 0
+            self._acc = None
+
+
+def correlate(iring, nframe_per_integration, *args, **kwargs):
+    """Cross-multiply stations and integrate in time, the X engine of an
+    FX correlator (reference blocks/correlate.py:111-142)."""
+    return CorrelateBlock(iring, nframe_per_integration, *args, **kwargs)

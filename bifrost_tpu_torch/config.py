@@ -45,6 +45,16 @@ FLAGS = {f.name: f for f in [
          "tensor, its plain PyTorch version for a CPU tensor) or 'plain' "
          "(the plain version on any device).  Latched per sequence by "
          "BeamformBlock."),
+    Flag("romein_method", "auto",
+         "Default gridding method: 'auto'/'cuda' (kernels K6a/K6b for a "
+         "CUDA tensor, their plain PyTorch versions for a CPU tensor) or "
+         "'plain' (the plain versions on any device).  Latched per "
+         "sequence by GridderBlock."),
+    Flag("fft_method", "auto",
+         "Default FFT engine: 'auto'/'torch' (torch.fft: cuFFT on the "
+         "card).  The JAX package's 'xla' and MXU 'matmul*' engines are "
+         "TPU methods and are refused.  Latched per sequence by "
+         "FftBlock."),
 ]}
 
 

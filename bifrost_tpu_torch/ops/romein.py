@@ -1,0 +1,292 @@
+"""Romein gridding plan (counterpart of bifrost_tpu/ops/romein.py and of
+the plan-time part of bifrost_tpu/ops/romein_pallas.py).
+
+Each visibility v with grid position (x, y) and an m x m convolution
+kernel K scatters v * K into grid[y:y+m, x:x+m] of its plane; every part
+of a patch that falls outside the grid drops, on every side (the JAX
+scatter wraps negative indices unless remapped, ops/romein.py:109-116;
+here they never enter the plan).
+
+API as in the JAX package: ``init(positions, kernels, ngrid, method=)``,
+``set_positions``, ``set_kernels``, ``execute(data, grid)``,
+``plan_report()``.  Positions (2, ..., nvis) and kernels (broadcastable to
+(npol, nvis, m, m)) are plan state given as host arrays; device-resident
+positions (the JAX `bin_to_tiles_device` path) are not ported yet and
+raise.
+
+The plan, built once on the host per positions and kernels and cached per
+(method, npol, nvis, device), lists every in-grid contribution sorted by
+destination cell (`build_plan`, the destination sort of the JAX 'sorted'
+method, ops/romein.py:311-330, with CSR offsets per cell).  It keeps
+broadcast kernel planes as broadcasts: one (m, m) kernel plane, or one
+rank-1 (u, v) pair, per distinct leading index, never the (npol, nvis, m,
+m) array the JAX host plan materialises.  Kernels that `separate_kernels`
+(copied verbatim) finds rank-1 take K6b, the others K6a
+(ops/romein_kernel.py, csrc/romein.cu); all planes of a call go in one
+launch.
+
+Methods (the `romein_method` config flag when None/'auto'): 'cuda' (what
+'auto' resolves to: K6a/K6b for a CUDA tensor, their plain versions for a
+CPU one) and 'plain' (the plain versions on any device); the two are
+bitwise equal.  The JAX methods 'pallas', 'scatter' and 'sorted' and the
+'bf16' precision are TPU formulations and raise.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .romein_kernel import (grid_general, grid_general_plain,
+                            grid_separable, grid_separable_plain)
+from .runtime import OpRuntime
+
+METHODS = ("cuda", "plain")
+_TPU_METHODS = ("pallas", "scatter", "sorted")
+
+
+def separate_kernels(kern, tol=1e-5):
+    """Rank-1 factor (npol, ndata, m, m) kernels as u[j] * v[k], or None
+    (bifrost_tpu/ops/romein_pallas.py:281-333, verbatim).
+
+    Classic gridding kernels (prolate spheroidal, Gaussian, Kaiser-Bessel
+    anti-aliasing functions) are outer products of 1-D windows; detecting
+    that at plan time lets the gridder use the separable kernel K6b.
+    Non-separable kernels (w-projection) take the general kernel K6a.
+
+    Implemented over explicit (re, im) f32 planes: pivot selection by
+    |.|^2, division as multiply-by-conjugate over |pivot|^2.
+    """
+    kern = np.asarray(kern)
+    npol, ndata, m, m2 = kern.shape
+    kr = np.ascontiguousarray(kern.real, np.float32)
+    ki = np.ascontiguousarray(kern.imag, np.float32)
+    mag2 = kr * kr + ki * ki
+    piv = mag2.reshape(npol, ndata, -1).argmax(-1)
+    j0, k0 = piv // m2, piv % m2
+    idx_p, idx_d = np.ogrid[:npol, :ndata]
+    pvr = kr[idx_p, idx_d, j0, k0]                      # (npol, ndata)
+    pvi = ki[idx_p, idx_d, j0, k0]
+    denom = pvr * pvr + pvi * pvi
+    zero = denom == 0
+    safe = np.where(zero, np.float32(1), denom)
+    ur = kr[idx_p[..., None], idx_d[..., None], np.arange(m)[None, None],
+            k0[..., None]]                              # (npol, ndata, m)
+    ui = ki[idx_p[..., None], idx_d[..., None], np.arange(m)[None, None],
+            k0[..., None]]
+    vnr = kr[idx_p[..., None], idx_d[..., None], j0[..., None],
+             np.arange(m2)[None, None]]
+    vni = ki[idx_p[..., None], idx_d[..., None], j0[..., None],
+             np.arange(m2)[None, None]]
+    vr = (vnr * pvr[..., None] + vni * pvi[..., None]) / safe[..., None]
+    vi = (vni * pvr[..., None] - vnr * pvi[..., None]) / safe[..., None]
+    z = zero[..., None]
+    ur = np.where(z, np.float32(0), ur)
+    ui = np.where(z, np.float32(0), ui)
+    vr = np.where(z, np.float32(0), vr)
+    vi = np.where(z, np.float32(0), vi)
+    er = ur[..., :, None] * vr[..., None, :] \
+        - ui[..., :, None] * vi[..., None, :] - kr
+    ei = ur[..., :, None] * vi[..., None, :] \
+        + ui[..., :, None] * vr[..., None, :] - ki
+    err2 = er * er + ei * ei
+    scale2 = max(float(mag2.max()), 1e-30)
+    if float(err2.max()) > (tol * tol) * scale2:
+        return None
+    return ((ur + 1j * ui).astype(np.complex64),
+            (vr + 1j * vi).astype(np.complex64))
+
+
+def build_plan(xs, ys, m, ngrid):
+    """Host plan: every in-grid contribution of visibilities with patch
+    corners (xs, ys) and an m x m support, sorted by destination cell.
+    -> (offsets (ngrid*ngrid + 1,) int32, entries int32), entries[
+    offsets[c]:offsets[c+1]] the codes v * m*m + j * m + k of cell c in
+    ascending order."""
+    xs = np.asarray(xs, np.int64).reshape(-1)
+    ys = np.asarray(ys, np.int64).reshape(-1)
+    ndata = xs.size
+    if ndata * m * m >= 2 ** 31:
+        raise ValueError(f"romein: {ndata} visibilities x {m}x{m} overflow "
+                         f"the plan's int32 codes")
+    dy, dx = np.meshgrid(np.arange(m), np.arange(m), indexing="ij")
+    iy = (ys[:, None, None] + dy[None]).reshape(-1)
+    ix = (xs[:, None, None] + dx[None]).reshape(-1)
+    keep = (iy >= 0) & (iy < ngrid) & (ix >= 0) & (ix < ngrid)
+    code = np.nonzero(keep)[0]
+    lin = iy[keep] * ngrid + ix[keep]
+    order = np.argsort(lin, kind="stable")
+    counts = np.bincount(lin, minlength=ngrid * ngrid)
+    offsets = np.zeros(ngrid * ngrid + 1, np.int64)
+    np.cumsum(counts, out=offsets[1:])
+    return offsets.astype(np.int32), code[order].astype(np.int32)
+
+
+def kernel_planes(kern, npol, ndata, m):
+    """Kernels -> their distinct planes (nk, nvk, m, m) complex64, nk in
+    (1, npol), nvk in (1, ndata): a full (npol * ndata * m * m) array in
+    any leading arrangement is (npol, ndata, m, m) (the JAX reshape
+    tolerance, ops/romein.py:266-274); anything else must broadcast to
+    (npol, ndata, m, m) and stays a broadcast."""
+    kern = np.asarray(kern, np.complex64)
+    if kern.size == npol * ndata * m * m:
+        return kern.reshape(npol, ndata, m, m)
+    if kern.ndim < 2 or kern.ndim > 4 or kern.shape[-2:] != (m, m):
+        raise ValueError(f"romein: kernels {kern.shape} do not broadcast "
+                         f"to ({npol}, {ndata}, {m}, {m})")
+    k4 = kern.reshape((1,) * (4 - kern.ndim) + kern.shape)
+    if k4.shape[0] not in (1, npol) or k4.shape[1] not in (1, ndata):
+        raise ValueError(f"romein: kernels {kern.shape} do not broadcast "
+                         f"to ({npol}, {ndata}, {m}, {m})")
+    return np.ascontiguousarray(k4)
+
+
+class RomeinPlan(object):
+    """A built plan on one device: the CSR lists and the kernel planes
+    (`kern`, or the rank-1 `u`, `v` when `separable`)."""
+
+    def __init__(self, xs, ys, kern_np, ngrid, npol, ndata, device):
+        m = kern_np.shape[-1]
+        self.m, self.ngrid, self.npol, self.ndata = m, ngrid, npol, ndata
+        offsets, entries = build_plan(xs, ys, m, ngrid)
+        self.ncontrib = int(entries.size)
+        self.maxcount = int(np.diff(offsets).max()) if offsets.size > 1 \
+            else 0
+        planes = kernel_planes(kern_np, npol, ndata, m)
+        uv = separate_kernels(planes)
+        self.separable = uv is not None
+
+        def put(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+        self.offsets, self.entries = put(offsets), put(entries)
+        if self.separable:
+            self.u, self.v = put(uv[0]), put(uv[1])
+            self.kern = None
+        else:
+            self.kern = put(planes)
+            self.u = self.v = None
+
+    def grid(self, data, out, method, accumulate):
+        """Grid data (npol, ndata) complex64 into out (npol, ngrid,
+        ngrid) with K6a/K6b ('cuda') or their plain versions."""
+        if self.separable:
+            fn = grid_separable if method == "cuda" else grid_separable_plain
+            return fn(data, self.offsets, self.entries, self.u, self.v, out,
+                      accumulate)
+        fn = grid_general if method == "cuda" else grid_general_plain
+        return fn(data, self.offsets, self.entries, self.kern, out,
+                  accumulate)
+
+
+class Romein(object):
+    """Plan API (counterpart of bifrost_tpu/ops/romein.py `Romein`)."""
+
+    def __init__(self):
+        self.positions = None   # host (2, ..., ndata) int
+        self.kernels = None     # host complex kernels
+        self.ngrid = None
+        self.m = None
+        self.method = "auto"
+        self._last_plan = None
+        self._runtime = OpRuntime("romein", METHODS,
+                                  config_flag="romein_method",
+                                  default="cuda")
+
+    def init(self, positions, kernels, ngrid, method=None, precision="f32"):
+        """method: None/'auto' (the `romein_method` flag, else 'cuda'),
+        'cuda' or 'plain'.  precision must be 'f32'."""
+        if precision != "f32":
+            raise ValueError(
+                f"romein: precision {precision!r} is the JAX package's "
+                f"single-pass MXU mode; the port grids in f32 only")
+        self.set_positions(positions)
+        self.set_kernels(kernels)
+        self.ngrid = int(ngrid)
+        self.method = "auto" if method is None else method
+        self._resolve()
+        return self
+
+    def _resolve(self):
+        if self.method in _TPU_METHODS:
+            raise ValueError(
+                f"romein: method {self.method!r} is a TPU formulation of "
+                f"the JAX package; the port's methods are 'auto', 'cuda' "
+                f"(kernels K6a/K6b) and 'plain'")
+        return self._runtime.resolve_method(self.method)
+
+    @staticmethod
+    def _host(a, what):
+        if isinstance(a, torch.Tensor) and a.device.type != "cpu":
+            raise NotImplementedError(
+                f"romein: device-resident {what} (the JAX "
+                f"bin_to_tiles_device path) are not ported yet; pass them "
+                f"as host arrays")
+        return a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+    def set_positions(self, positions):
+        self.positions = self._host(positions, "positions")
+        self._runtime.invalidate()
+        self._last_plan = None
+
+    def set_kernels(self, kernels):
+        self.kernels = self._host(kernels, "kernels")
+        self.m = int(self.kernels.shape[-1])
+        self._runtime.invalidate()
+        self._last_plan = None
+
+    def plan(self, npol, ndata, device):
+        """The built plan for `npol` planes of `ndata` visibilities on
+        `device` (cached)."""
+        method = self._resolve()
+        device = torch.device(device)
+
+        def build():
+            pos = self.positions.reshape(2, -1, self.positions.shape[-1])
+            if pos.shape[-1] != ndata:
+                raise ValueError(f"romein: {pos.shape[-1]} positions for "
+                                 f"{ndata} visibilities")
+            return RomeinPlan(pos[0, 0], pos[1, 0], self.kernels,
+                              self.ngrid, npol, ndata, device)
+
+        plan = self._runtime.plan((method, npol, ndata, str(device)), build,
+                                  method=method, origin="host")
+        self._last_plan = plan
+        return plan, method
+
+    def execute(self, idata, odata=None, accumulate=True):
+        """Grid `idata` ((npol, ndata), or (..., ndata) complex) onto
+        `odata` ((npol, ngrid, ngrid) complex64 tensor, a new zero grid
+        when None): the result is added to the grid (`accumulate`, the
+        JAX execute's ``grid + gridded``) or replaces it.  -> the grid."""
+        data = idata if isinstance(idata, torch.Tensor) else \
+            torch.from_numpy(np.ascontiguousarray(idata))
+        data = data.reshape(-1, data.shape[-1])
+        if data.dtype != torch.complex64:
+            data = data.to(torch.complex64)
+        npol, ndata = data.shape
+        n = self.ngrid
+        if odata is None:
+            odata = torch.zeros(npol, n, n, dtype=torch.complex64,
+                                device=data.device)
+        grid = odata.view(npol, n, n)
+        plan, method = self.plan(npol, ndata, data.device)
+        plan.grid(data, grid, method, accumulate)
+        return odata
+
+    @property
+    def separable(self):
+        """Whether the last plan took the rank-1 kernel K6b."""
+        plan = self._last_plan
+        return None if plan is None else plan.separable
+
+    def plan_report(self):
+        """Uniform runtime accounting (ops/runtime.py schema) + the
+        gridder's geometry and kernel choice."""
+        rep = self._runtime.report()
+        plan = self._last_plan
+        rep.update({"ngrid": self.ngrid, "m": self.m,
+                    "kernel": None if plan is None else
+                    ("separable" if plan.separable else "general"),
+                    "ncontrib": None if plan is None else plan.ncontrib})
+        return rep

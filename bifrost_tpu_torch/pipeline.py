@@ -2,10 +2,11 @@
 (counterpart of bifrost_tpu/pipeline.py; reference python/bifrost/
 pipeline.py).
 
-BlockScope hierarchical defaults, a Pipeline with an init barrier, and
-the Source / MultiTransform / Transform / Sink block classes with the
+BlockScope hierarchical defaults, a Pipeline with an init barrier, the
+Source / MultiTransform / Transform / Sink block classes with the
 synchronous gulp loop: input overlap (`define_input_overlap_nframe`),
-the exact emit schedule (`output_nframes_for_gulp`), and skip handling.
+the exact emit schedule (`output_nframes_for_gulp`), and skip handling;
+and the header views (`RingView`, `SequenceView`, `block_view`).
 
 Device handling: a pipeline runs on one torch device, the card unless
 the caller passes ``device='cpu'``; with no card and no device named,
@@ -18,16 +19,20 @@ synchronised before its commit.
 
 from __future__ import annotations
 
+import copy as _copy
+import json
 import queue
 import threading
 import time
 
 from . import device as _device
-from .ring import EndOfDataStop, Ring, RingInterrupted
+from .ring import (EndOfDataStop, ReadSequence, Ring, RingInterrupted,
+                   TensorInfo)
 
 __all__ = ["Pipeline", "get_default_pipeline", "block_scope", "BlockScope",
            "Block", "SourceBlock", "SinkBlock", "TransformBlock",
-           "MultiTransformBlock", "PipelineInitError"]
+           "MultiTransformBlock", "PipelineInitError", "RingView",
+           "SequenceView", "block_view"]
 
 
 class PipelineInitError(RuntimeError):
@@ -586,3 +591,73 @@ class SinkBlock(MultiTransformBlock):
 
     def on_data(self, ispan):
         raise NotImplementedError
+
+
+# -------------------------------------------------------------------- views
+class RingView(object):
+    """Zero-copy header-transform view over a ring (counterpart of
+    bifrost_tpu/pipeline.py:2138-2169): readers see each sequence's
+    header rewritten by `header_transform`; the bytes are the ring's."""
+
+    def __init__(self, base_ring, header_transform):
+        self._parent = base_ring if isinstance(base_ring, RingView) else None
+        self.base_ring = getattr(base_ring, "base_ring", base_ring)
+        self.header_transform = header_transform
+        self.owner = getattr(base_ring, "owner", None)
+        self.name = f"{self.base_ring.name}.view"
+
+    @property
+    def space(self):
+        return self.base_ring.space
+
+    def transform_header(self, header):
+        """The header a reader of this view sees (parent views first)."""
+        if self._parent is not None:
+            header = self._parent.transform_header(header)
+        hdr = json.loads(json.dumps(header))    # deep copy
+        out = self.header_transform(hdr)
+        return hdr if out is None else out
+
+    def read(self, guarantee=True):
+        for iseq in self.base_ring.read(guarantee):
+            yield SequenceView(iseq, self.transform_header(iseq.header))
+
+
+class SequenceView(ReadSequence):
+    """A ReadSequence with a rewritten header (counterpart of
+    bifrost_tpu/pipeline.py:2171-2242): frame-unit math follows the new
+    header's tensor info; guarantees, open spans and closing are the base
+    sequence's (byte offsets are the same under any view)."""
+
+    def __init__(self, base, header):
+        self.base = base
+        self.ring = base.ring
+        self._seq = base._seq
+        self.guarantee = base.guarantee
+        self.name = header.get("name", base.name)
+        self.time_tag = header.get("time_tag", base.time_tag)
+        self.begin = base.begin
+        self.header = header
+        self.tensor = TensorInfo(header) if "_tensor" in header else None
+
+    @property
+    def _closed(self):
+        return self.base._closed
+
+    @property
+    def _open_spans(self):
+        return self.base._open_spans
+
+    def close(self):
+        self.base.close()
+
+    def _acquire(self, offset, size, nonblocking):
+        return self.base._acquire(offset, size, nonblocking)
+
+
+def block_view(block, header_transform):
+    """Wrap a block so that its output rings present transformed headers
+    (counterpart of bifrost_tpu/pipeline.py:2245-2251)."""
+    proxy = _copy.copy(block)
+    proxy.orings = [RingView(r, header_transform) for r in block.orings]
+    return proxy

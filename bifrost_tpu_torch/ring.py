@@ -41,7 +41,7 @@ from .DataType import DataType
 from .memory import Space, alloc_bytes
 from .ndarray import tensor_shape
 
-_ALIGN = 16   # capacity/ghost granularity: every element size divides it
+_ALIGN = 16   # default capacity/ghost granularity: every element divides it
 
 
 class EndOfDataStop(Exception):
@@ -83,8 +83,10 @@ class TensorInfo(object):
         # of complex integers.
         self.frame_tensor_shape = tensor_shape(self.frame_shape, self.dtype) \
             if self.frame_shape else tensor_shape((), self.dtype)
-        itemsize = torch.empty((), dtype=self.torch_dtype).element_size()
-        self.frame_nbyte = int(np.prod(self.frame_tensor_shape)) * itemsize
+        self.itemsize = torch.empty((), dtype=self.torch_dtype) \
+            .element_size()
+        self.frame_nbyte = int(np.prod(self.frame_tensor_shape)) * \
+            self.itemsize
 
     def span_shape(self, nframe):
         """Tensor shape of an nframe span in the header's axis order."""
@@ -169,18 +171,21 @@ class Ring(object):
             self._cond.notify_all()
 
     # ----------------------------------------------------------- geometry
-    def resize(self, contiguous_bytes, total_bytes=None, nringlet=1):
+    def resize(self, contiguous_bytes, total_bytes=None, nringlet=1,
+               align=_ALIGN):
         """Grow the ring to hold spans of `contiguous_bytes` per ringlet
         and `total_bytes` per ringlet in all (never shrinks); waits until
         no span is open, then re-lays out the live bytes
-        (cpp/src/ring.cpp btRingResize)."""
+        (cpp/src/ring.cpp btRingResize).  Capacity and ghost are
+        multiples of `align`, the element size of the sequences' typed
+        views: a ring of many ringlets of one 8-byte frame each (a
+        time-last stream) then holds 16 bytes per ringlet, not 32."""
         if total_bytes is None:
             total_bytes = contiguous_bytes * 4
         nringlet = max(int(nringlet), 1)
         with self._cond:
-            ghost = max(self.ghost, _round_up(contiguous_bytes, _ALIGN))
-            cap = max(self.capacity,
-                      _round_up(max(total_bytes, ghost), _ALIGN))
+            ghost = _round_up(max(self.ghost, contiguous_bytes), align)
+            cap = _round_up(max(self.capacity, total_bytes, ghost), align)
             nring = max(self.nringlet, nringlet)
             if (cap, ghost, nring) == (self.capacity, self.ghost,
                                        self.nringlet):
@@ -431,7 +436,7 @@ class WriteSequence(object):
         self.gulp_nframe = gulp_nframe
         ring.resize(self.tensor.frame_nbyte * gulp_nframe,
                     self.tensor.frame_nbyte * buf_nframe,
-                    self.tensor.nringlet)
+                    self.tensor.nringlet, align=self.tensor.itemsize)
         self._seq = ring._sequence_begin(header, self.tensor.nringlet)
         self.begin = self._seq.begin
         self._ended = False
@@ -534,7 +539,8 @@ class ReadSequence(object):
             buf_nframe = gulp_nframe * 3
         t = self.tensor
         self.ring.resize(t.frame_nbyte * gulp_nframe,
-                         t.frame_nbyte * buf_nframe, t.nringlet)
+                         t.frame_nbyte * buf_nframe, t.nringlet,
+                         align=t.itemsize)
 
     def acquire(self, frame_offset, nframe, nonblocking=False):
         """Acquire an absolute-frame-indexed span (frames since the

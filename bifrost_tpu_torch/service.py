@@ -17,8 +17,16 @@ source in place of UDP capture:
       transpose(['beam', 'freq', 'time']) -> fdmt(max_delay) ->
       CandidateDetectBlock
 
-`ServiceSpec`/`Service`, supervision, UDP capture, fusion and the
-instrument's X/imaging branch are not ported yet.
+- `lwa_instrument_pipeline`, the whole instrument of
+  `lwa_instrument_spec` (service.py:355-550, its unfused topology): the
+  B branch above and the X/imaging branch, both reading one PFB ring:
+
+      ... pfb -> correlate(n_int) -> transpose(['freq', 'station_i',
+      'pol_i', 'station_j', 'pol_j', 'time']) -> merge_axes x 3 ('vis')
+      -> romein(ngrid) -> fft(['v', 'u']) -> copy('system') -> on_image
+
+`ServiceSpec`/`Service`, supervision, UDP capture and fusion are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -29,10 +37,11 @@ import time
 import numpy as np
 import torch
 
-from .blocks import (array_source, beamform, copy, fdmt, gather_sink, pfb,
-                     transpose)
+from . import views
+from .blocks import (array_source, beamform, callback_sink, copy, correlate,
+                     fdmt, fft, gather_sink, pfb, romein, transpose)
 from .ops.stats import mad_snr
-from .pipeline import Pipeline, SinkBlock
+from .pipeline import Pipeline, SinkBlock, block_scope
 
 
 class FrameLedger(object):
@@ -220,6 +229,53 @@ def default_beam_weights(nbeam, nsp):
              % 7) - 3).astype(np.complex64)
 
 
+def _lwa_gulp(gulp_nframe, nchan, n_int):
+    gulp = int(gulp_nframe) if gulp_nframe else int(nchan)
+    if gulp % nchan:
+        raise ValueError(f"gulp_nframe ({gulp}) must be a multiple of "
+                         f"nchan ({nchan}) so the PFB emits whole spectra "
+                         f"per gulp")
+    if gulp // nchan > n_int:
+        raise ValueError(f"gulp_nframe/nchan ({gulp // nchan}) spectra per "
+                         f"gulp exceeds nframe_per_integration ({n_int})")
+    return gulp
+
+
+def _lwa_fengine(voltages, gulp, nchan, ntap, coeffs, f0_mhz, dt_s,
+                 pfb_method):
+    """The replay source, the H2D copy and the PFB: the F-engine ring both
+    engine branches read."""
+    src = array_source(voltages, gulp, header={
+        "dtype": "ci8",
+        "labels": ["time", "station", "pol"],
+        "scales": [[0.0, dt_s], None, None],
+        "units": ["s", None, None],
+        "cfreq": f0_mhz,
+        "cfreq_units": "MHz",
+    }, name="ingest")
+    dev = copy(src, space="cuda", name="fengine_h2d")
+    return pfb(dev, nchan, ntap=ntap, coeffs=coeffs, method=pfb_method,
+               name="fengine_pfb")
+
+
+def _lwa_bbranch(f, weights, n_int, max_delay, threshold, on_candidate,
+                 ledger, gather, beamform_method, fdmt_method):
+    """beamform -> transpose -> FDMT -> candidate detect."""
+    b = beamform(f, weights, nframe_per_integration=n_int,
+                 method=beamform_method, name="bengine")
+    t = transpose(b, ["beam", "freq", "time"], name="bdetect_t")
+    d = fdmt(t, max_delay=max_delay, method=fdmt_method,
+             name="bdetect_fdmt")
+    det = CandidateDetectBlock(d, threshold=threshold,
+                               on_candidate=on_candidate, name="bdetect")
+    det.ledger = ledger
+    if "beams" in gather:
+        gather_sink(b, gather["beams"], name="gather_beams")
+    if "dedispersed" in gather:
+        gather_sink(d, gather["dedispersed"], name="gather_dedispersed")
+    return det
+
+
 def lwa_beam_search_pipeline(voltages, nstand=256, npol=2, nchan=4096,
                              ntap=4, n_int=16, nbeam=8, weights=None,
                              max_delay=64, threshold=8.0, f0_mhz=40.0,
@@ -243,43 +299,108 @@ def lwa_beam_search_pipeline(voltages, nstand=256, npol=2, nchan=4096,
     lists, where present, receive the beam-power frames and the
     dedispersed gulps as numpy.  -> (pipeline, detector, ledger); call
     `pipeline.run()`."""
-    nsp = int(nstand) * int(npol)
-    gulp = int(gulp_nframe) if gulp_nframe else int(nchan)
-    if gulp % nchan:
-        raise ValueError(f"gulp_nframe ({gulp}) must be a multiple of "
-                         f"nchan ({nchan}) so the PFB emits whole spectra "
-                         f"per gulp")
-    if gulp // nchan > n_int:
-        raise ValueError(f"gulp_nframe/nchan ({gulp // nchan}) spectra per "
-                         f"gulp exceeds nframe_per_integration ({n_int})")
+    gulp = _lwa_gulp(gulp_nframe, nchan, n_int)
     if weights is None:
-        weights = default_beam_weights(nbeam, nsp)
-    gather = gather or {}
+        weights = default_beam_weights(nbeam, int(nstand) * int(npol))
     pipe = Pipeline(device=device)
     ledger = FrameLedger()
     with pipe:
-        src = array_source(voltages, gulp, header={
-            "dtype": "ci8",
-            "labels": ["time", "station", "pol"],
-            "scales": [[0.0, dt_s], None, None],
-            "units": ["s", None, None],
-            "cfreq": f0_mhz,
-            "cfreq_units": "MHz",
-        }, name="ingest")
-        dev = copy(src, space="cuda", name="fengine_h2d")
-        f = pfb(dev, nchan, ntap=ntap, coeffs=coeffs, method=pfb_method,
-                name="fengine_pfb")
-        b = beamform(f, weights, nframe_per_integration=n_int,
-                     method=beamform_method, name="bengine")
-        t = transpose(b, ["beam", "freq", "time"], name="bdetect_t")
-        d = fdmt(t, max_delay=max_delay, method=fdmt_method,
-                 name="bdetect_fdmt")
-        det = CandidateDetectBlock(d, threshold=threshold,
-                                   on_candidate=on_candidate,
-                                   name="bdetect")
-        det.ledger = ledger
-        if "beams" in gather:
-            gather_sink(b, gather["beams"], name="gather_beams")
-        if "dedispersed" in gather:
-            gather_sink(d, gather["dedispersed"], name="gather_dedispersed")
+        f = _lwa_fengine(voltages, gulp, nchan, ntap, coeffs, f0_mhz, dt_s,
+                         pfb_method)
+        det = _lwa_bbranch(f, weights, n_int, max_delay, threshold,
+                           on_candidate, ledger, gather or {},
+                           beamform_method, fdmt_method)
+    return pipe, det, ledger
+
+
+def default_uvw(nstand, npol, ngrid, m=3):
+    """`lwa_instrument_spec`'s default grid positions (service.py:
+    414-423): stations on a square grid, each baseline's offset hashed
+    onto the UV plane with room for an m x m kernel -> (2, nvis) int32,
+    nvis = (nstand * npol)**2 in (i, j) order."""
+    side = int(np.ceil(np.sqrt(nstand)))
+    px = np.repeat(np.arange(nstand) % side, npol)
+    py = np.repeat(np.arange(nstand) // side, npol)
+    u = (px[None, :] - px[:, None] + side - 1).reshape(-1)
+    v = (py[None, :] - py[:, None] + side - 1).reshape(-1)
+    lo = max(int(ngrid) - m - 1, 1)
+    return np.stack([(u * 7) % lo, (v * 7) % lo]).astype(np.int32)
+
+
+def default_grid_kernel(m=3):
+    """`lwa_instrument_spec`'s default gridding kernel (service.py:
+    424-428): an (m, m) plane of ones, which broadcasts to every
+    (channel, visibility) pair and is rank 1 (kernel K6b)."""
+    return np.ones((m, m), np.complex64)
+
+
+def lwa_instrument_pipeline(voltages, nstand=256, npol=2, nchan=4096,
+                            ntap=4, n_int=16, nbeam=8, gulp_nframe=None,
+                            engine="f32", gains=None, weights=None,
+                            uvw=None, kernels=None, ngrid=128, max_delay=64,
+                            threshold=8.0, f0_mhz=40.0, dt_s=1e-6,
+                            on_image=None, on_candidate=None, coeffs=None,
+                            device=None, pfb_method=None,
+                            beamform_method=None, fdmt_method=None,
+                            romein_method=None, fft_method=None,
+                            gather=None):
+    """Build the whole LWA instrument of `lwa_instrument_spec` over
+    `voltages` (ci8 [time, station, pol], as `lwa_beam_search_pipeline`
+    takes them), unfused: replay -> H2D -> PFB, then from the one PFB
+    ring both the B branch (beamform -> transpose -> FDMT -> detect) and
+    the X branch (correlate -> transpose -> merge_axes into 'vis' ->
+    Romein grid -> FFT over (v, u) -> copy to the host -> `on_image`).
+
+    Arguments as the spec's (minus its capture, fusion and interpret
+    options): `gains` ((nstand[, npol]) complex) fold into the X-engine's
+    voltages; `uvw` ((2, nvis) int grid positions) and `kernels`
+    (broadcastable to (nchan, nvis, m, m)) default to `default_uvw` and
+    `default_grid_kernel`; `weights` and `coeffs` as in
+    `lwa_beam_search_pipeline`.  `engine='int8'` is not ported yet.
+    `device`, the `*_method` pins and `gather` ('beams', 'dedispersed')
+    as in `lwa_beam_search_pipeline`.  `on_image(grid)` gets each image
+    frame, an (nchan, ngrid, ngrid, 1) host view valid during the call.
+
+    Ring sizing: one X-engine frame is nchan * (nstand*npol)**2 complex64
+    (8 GiB at the flagship), so the X-engine's output ring, the
+    transpose's and the gridder's input hold one frame each
+    (buffer_factor 1), and the imaging blocks take one frame per gulp.
+    -> (pipeline, detector, ledger); call `pipeline.run()`."""
+    if engine != "f32":
+        raise NotImplementedError(
+            f"lwa_instrument_pipeline: engine={engine!r} is not ported yet "
+            f"(ROADMAP: the int8 X-engine); use engine='f32'")
+    gulp = _lwa_gulp(gulp_nframe, nchan, n_int)
+    nsp = int(nstand) * int(npol)
+    if weights is None:
+        weights = default_beam_weights(nbeam, nsp)
+    m = 3 if kernels is None else int(np.shape(kernels)[-1])
+    if uvw is None:
+        uvw = default_uvw(nstand, npol, ngrid, m)
+    if kernels is None:
+        kernels = default_grid_kernel(m)
+    pipe = Pipeline(device=device)
+    ledger = FrameLedger()
+    with pipe:
+        f = _lwa_fengine(voltages, gulp, nchan, ntap, coeffs, f0_mhz, dt_s,
+                         pfb_method)
+        x = correlate(f, n_int, engine=engine, gains=gains, buffer_factor=1,
+                      name="xengine")
+        with block_scope(gulp_nframe=1):
+            t = transpose(x, ["freq", "station_i", "pol_i", "station_j",
+                              "pol_j", "time"], buffer_factor=1,
+                          name="image_t")
+            v = views.merge_axes(t, "station_i", "pol_i", label="inp_i")
+            v = views.merge_axes(v, "inp_i", "station_j", label="inp_ij")
+            v = views.merge_axes(v, "inp_ij", "pol_j", label="vis")
+            g = romein(v, ngrid, kernels, positions=uvw,
+                       method=romein_method, buffer_factor=1,
+                       name="image_grid")
+            img = fft(g, axes=["v", "u"], axis_labels=["m", "l"],
+                      method=fft_method, name="image_fft")
+            host = copy(img, space="system", name="image_d2h")
+            callback_sink(host, on_data=on_image, name="image_sink")
+        det = _lwa_bbranch(f, weights, n_int, max_delay, threshold,
+                           on_candidate, ledger, gather or {},
+                           beamform_method, fdmt_method)
     return pipe, det, ledger

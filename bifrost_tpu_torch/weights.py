@@ -5,8 +5,10 @@ The JAX plans keep their parameters in TPU layouts: `Beamform` stages the
 weights as (re, im) planes transposed to (station, beam) and padded to
 the 128-lane tile; `Pfb` folds the (ntap, nchan) prototype into an
 (ntap, lanes) bank, each channel's column repeated per stream and
-component; `Fdmt` holds its tables as numpy arrays.  `carry_over` takes
-those numpy arrays and returns the port's arguments.  It needs nothing of
+component; `Fdmt` holds its tables as numpy arrays; `Romein` keeps its
+host plan state as numpy (`_pos_np`, `_kern_np`); `CorrelateBlock` its
+gains as a flat complex table.  `carry_over` takes those numpy arrays and
+returns the port's arguments.  It needs nothing of
 the JAX package: the caller hands over numpy.
 """
 
@@ -46,17 +48,28 @@ def prototype_from_bank(bank, nchan):
 
 
 def carry_over(weight_planes=None, nbeam=None, nsp=None, pfb_bank=None,
-               nchan=None, fdmt_tables=None, fdmt_geometry=None):
+               nchan=None, fdmt_tables=None, fdmt_geometry=None,
+               romein_state=None, gains=None):
     """Numpy parameters of the JAX plans -> the port's arguments.
 
     weight_planes: (wr, wi) of a JAX `Beamform` (`_w_planes`), with the
     true nbeam and nsp; pfb_bank: a JAX `Pfb.staged_bank(...)` with the
     plan's nchan; fdmt_tables: the JAX `Fdmt`'s `_steps`, `_buckets`,
     `_init_perm`, `_init_chans_by_d` with fdmt_geometry = dict(nchan,
-    max_delay, f0, df[, exponent]).  -> dict with 'weights' ((nbeam, nsp)
-    complex64), 'coeffs' ((ntap, nchan) f32 values) and 'fdmt' (an `Fdmt`
-    plan), for the parts given."""
+    max_delay, f0, df[, exponent]); romein_state: a JAX `Romein`'s host
+    plan state (`_pos_np`, `_kern_np`); gains: the X-engine gains of the
+    spec (a JAX `CorrelateBlock`'s `gains`).  -> dict with 'weights'
+    ((nbeam, nsp) complex64), 'coeffs' ((ntap, nchan) f32 values), 'fdmt'
+    (an `Fdmt` plan), 'positions' ((2, ..., nvis) int32), 'kernels'
+    (complex64, its broadcast shape kept) and 'gains' (complex64), for
+    the parts given."""
     out = {}
+    if romein_state is not None:
+        pos, kern = romein_state
+        out["positions"] = np.asarray(pos).astype(np.int32)
+        out["kernels"] = np.asarray(kern).astype(np.complex64)
+    if gains is not None:
+        out["gains"] = np.asarray(gains).astype(np.complex64)
     if weight_planes is not None:
         out["weights"] = weights_from_planes(*weight_planes, nbeam, nsp)
     if pfb_bank is not None:

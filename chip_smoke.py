@@ -30,11 +30,25 @@ Phases, one line each; any failure exits non-zero:
              compared bitwise against the chain with every method
              'plain', and the first integration's powers against an
              f64 numpy golden.
+6. instrument — drive the whole LWA instrument (`lwa_instrument_pipeline`)
+             on the same voltages at the same width, both branches fanned
+             out from one PFB ring: the B branch above and the X/imaging
+             branch (correlate -> transpose -> Romein grid at ngrid 128
+             with the spec's rank-1 default kernel, kernel K6b -> FFT ->
+             copy to the host).  Launch counts are read from this run
+             alone; the B branch's outputs are compared bitwise with
+             [bengine]'s, the first 2 images with the same pipeline run 2
+             integrations deep with every method 'plain', and the first
+             image on 8 channels against an f64 numpy golden.  Then a
+             2-integration run with a seeded non-rank-1 kernel puts
+             kernel K6a on the path, its images compared bitwise with
+             the same run with every method 'plain'.
 
 The line before the last holds the kernel records as JSON; the last line
 is {"ok": true, "device": {...}}.
 """
 
+import gc
 import json
 import subprocess
 import sys
@@ -56,6 +70,13 @@ B_MAX_DELAY, B_NINT, B_REPLAY = 64, 80, 16
 B_F0, B_DT = 40.0, 1e-6
 B_GULP = N_INT * BCHAN
 
+# The imaging branch (bifrost_tpu/service.py:413-428): ngrid 128, the
+# default positions and the (3, 3) kernel of ones; K6a's check and run
+# use a seeded non-rank-1 (1, nvis, 3, 3) kernel plane.  X_PLAIN_NINT
+# integrations are compared with the all-'plain' pipeline.
+NGRID, M_KERN, X_PLAIN_NINT = 128, 3, 2
+X_GOLDEN_CHANS = np.linspace(0, BCHAN - 1, 8).astype(np.int64)
+
 # Device-memory rate by card (NVIDIA data sheets), bytes/s
 _HBM_RATE = (("H200", 4.8e12), ("H100 PCIe", 2.0e12), ("H100", 3.35e12))
 F32_PEAK = 67e12   # H100 SXM f32 outside the tensor cores, operations/s
@@ -63,6 +84,14 @@ F32_PEAK = 67e12   # H100 SXM f32 outside the tensor cores, operations/s
 
 def phase(name, msg):
     print(f"[{name}] {msg}", flush=True)
+
+
+def free_device():
+    """Collect the finished pipelines (blocks and rings refer to each
+    other, so only the cycle collector frees their device rings) and
+    hand the cached blocks back to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def hbm_rate(kind):
@@ -155,10 +184,13 @@ class Stamped(list):
 
 
 def kernel_counters():
-    from bifrost_tpu_torch.ops import beamform_kernel, fdmt_kernel, fir_kernel
+    from bifrost_tpu_torch.ops import (beamform_kernel, fdmt_kernel,
+                                       fir_kernel, romein_kernel)
     return {"fdmt_merge_step": fdmt_kernel.merge_step,
             "fir_mac": fir_kernel.fir_mac,
-            "beamform_power": beamform_kernel.beamform_power}
+            "beamform_power": beamform_kernel.beamform_power,
+            "romein_grid_general": romein_kernel.grid_general,
+            "romein_grid_separable": romein_kernel.grid_separable}
 
 
 def reset_counts():
@@ -383,7 +415,9 @@ def time_dft(dev, kind, rng):
 
 def bengine_path(dev):
     """The LWA beam-search chain at full width (module docstring, phase
-    5).  -> the kernels' launch counts in the main run."""
+    5).  -> (the kernels' launch counts in the main run, the voltages,
+    the gathered beam powers and dedispersed frames, and the first
+    integration's f64 golden spectra (N_INT, BCHAN, nsp))."""
     from bifrost_tpu_torch.ops import pfb_coeffs
     from bifrost_tpu_torch.service import (default_beam_weights,
                                            lwa_beam_search_pipeline)
@@ -418,7 +452,8 @@ def bengine_path(dev):
     fd = blocks["bdetect_fdmt"]
     nfdmt = B_NINT - B_MAX_DELAY           # FDMT gulps: one frame each
     expect = {"fir_mac": B_NINT, "beamform_power": B_NINT,
-              "fdmt_merge_step": nfdmt * NBEAM * len(fd.fdmt._steps)}
+              "fdmt_merge_step": nfdmt * NBEAM * len(fd.fdmt._steps),
+              "romein_grid_general": 0, "romein_grid_separable": 0}
     if counts != expect:
         raise AssertionError(f"launches {counts}, expected {expect}")
     s = ledger.summary()
@@ -479,7 +514,316 @@ def bengine_path(dev):
           f"dedispersed frames ({nfdmt} x {NBEAM} x {B_MAX_DELAY}) bitwise "
           f"equal: kernels vs plain; first integration vs the f64 numpy "
           f"golden: max rel err {err:.3e} (limit 1e-4)")
-    return counts
+    return counts, volt, got, spec
+
+
+def romein_work(plan, npol, nvis, rate):
+    """Least milliseconds of one gridding call: the visibilities read
+    once (complex64), every grid cell written once, the plan's offsets
+    and entries and the kernel planes read once; 8 (K6a) or 14 (K6b)
+    operations for each in-grid contribution on each plane.  -> (ms,
+    'bytes' or 'operations', bytes, operations)."""
+    ncell = plan.ngrid * plan.ngrid
+    planes = (plan.u, plan.v) if plan.separable else (plan.kern,)
+    nbytes = (npol * nvis * 8 + npol * ncell * 8 + (ncell + 1) * 4 +
+              plan.ncontrib * 4 + sum(p.numel() * 8 for p in planes))
+    nops = npol * plan.ncontrib * (14 if plan.separable else 8)
+    ms, by = bound(nbytes, nops, rate)
+    return ms, by, nbytes, nops
+
+
+def k6a_kernels(nvis):
+    """The seeded non-rank-1 (1, nvis, 3, 3) kernel plane of K6a's
+    check and run."""
+    rng = np.random.default_rng(SEED + 6)
+    return (rng.standard_normal((1, nvis, M_KERN, M_KERN)) +
+            1j * rng.standard_normal((1, nvis, M_KERN, M_KERN))) \
+        .astype(np.complex64)
+
+
+def check_romein(dev, kind):
+    """K6a and K6b at the imaging branch's shapes: one frame of 4096
+    planes x 262,144 visibilities, laid out as the time-last ring span
+    gives them (one complex64 every 16 bytes), gridded onto 128 x 128;
+    K6b with the default kernel, K6a with the seeded non-rank-1 plane.
+    Each against its plain version bitwise, timed beside the bound and
+    cuSPARSE SpMM (`torch.sparse.mm` with the plan as a CSR matrix).
+    -> the two kernel records."""
+    from bifrost_tpu_torch.ops import Romein
+    from bifrost_tpu_torch.service import default_grid_kernel, default_uvw
+    npol, nsp = BCHAN, NSTAND * NPOL
+    nvis = nsp * nsp
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    raw = torch.randn(npol, nvis, 2, 2, device=dev, generator=gen)
+    data = torch.view_as_complex(raw)[..., 0]
+    uvw = default_uvw(NSTAND, NPOL, NGRID, M_KERN)
+    recs = []
+    for name, kern, src in (
+            ("romein_grid_separable", default_grid_kernel(M_KERN),
+             "bifrost_tpu/ops/romein_pallas.py:505"),
+            ("romein_grid_general", k6a_kernels(nvis),
+             "bifrost_tpu/ops/romein_pallas.py:591")):
+        plan, _ = Romein().init(uvw, kern, NGRID).plan(npol, nvis, dev)
+        if plan.separable != (name == "romein_grid_separable"):
+            raise AssertionError(f"{name}: wrong kernel chosen")
+        out = torch.empty(npol, NGRID, NGRID, dtype=torch.complex64,
+                          device=dev)
+        plan.grid(data, out, "cuda", False)
+        want = plan.grid(data, torch.empty_like(out), "plain", False)
+        torch.cuda.synchronize()
+        if not bits_equal(torch.view_as_real(out), torch.view_as_real(want)):
+            raise AssertionError(f"{name} differs from plain")
+        worst = float((out - want).abs().max())
+        del want
+        ms = cuda_time(lambda: plan.grid(data, out, "cuda", False), 5)
+        plain_ms = cuda_time(
+            lambda: plan.grid(data, torch.empty_like(out), "plain", False),
+            1)
+        # The library yardstick: cuSPARSE SpMM, the plan as a (cells x
+        # visibilities) CSR matrix of kernel values times the (nvis,
+        # npol) visibilities, laid out once outside the timing.
+        vis_of = torch.div(plan.entries.long(), M_KERN * M_KERN,
+                           rounding_mode="floor")
+        jk = plan.entries.long() % (M_KERN * M_KERN)
+        vals = plan.u.reshape(-1)[jk // M_KERN] * \
+            plan.v.reshape(-1)[jk % M_KERN] if plan.separable else \
+            plan.kern.reshape(-1)[plan.entries.long()]
+        csr = torch.sparse_csr_tensor(plan.offsets.long(), vis_of, vals,
+                                      (NGRID * NGRID, nvis))
+        dense = data.T.contiguous()
+        lib = torch.sparse.mm(csr, dense).T.reshape(out.shape)
+        lib_err = float((lib - out).abs().max() / out.abs().max())
+        if not lib_err <= 1e-4:
+            raise AssertionError(f"{name}: SpMM differs, rel {lib_err}")
+        library_ms = cuda_time(lambda: torch.sparse.mm(csr, dense), 3)
+        del lib, dense, csr, vals, vis_of, jk
+        bound_ms, by, nbytes, nops = romein_work(plan, npol, nvis,
+                                                 hbm_rate(kind))
+        phase("kernels", f"{name} ({'K6b' if plan.separable else 'K6a'}) "
+              f"equal to plain (tolerance: bitwise) at {npol} planes x "
+              f"{nvis} vis -> {NGRID}x{NGRID}, {plan.ncontrib} in-grid "
+              f"contributions per plane (at most {plan.maxcount} in a "
+              f"cell); {ms:.4f} ms per frame (1 launch), plain "
+              f"{plain_ms:.4f} ms, SpMM {library_ms:.4f} ms (rel err "
+              f"{lib_err:.2e}), bound {bound_ms:.4f} ms ({by}: "
+              f"{nbytes / 1e9:.4f} GB, {nops / 1e9:.4f} G ops), {kind}")
+        recs.append({"name": name, "route": "cuda",
+                     "source": "bifrost_tpu_torch/csrc/romein.cu",
+                     "replaces": src, "launches": None,
+                     "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": by,
+                     "library_ms": library_ms,
+                     "library_call": "torch.sparse.mm (CSR cells x vis, "
+                                     "complex64) @ (vis, planes), cuSPARSE "
+                                     "SpMM"})
+        del out, plan
+    del raw, data
+    return recs
+
+
+def time_xstages(dev, kind):
+    """The X branch's other device stages at one integration's shapes:
+    the X-engine CGEMM (4096 x (512 x 16) @ (16 x 512), TF32 off), the
+    image_t transpose into the time-last layout (one complex64 every 16
+    bytes), the (4096, 128, 128) FFT, and the image's D2H into a pageable
+    host layout like the system ring's.  -> dict of ms."""
+    from bifrost_tpu_torch.blocks.correlate import xengine
+    nsp = NSTAND * NPOL
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 1)
+    x = torch.randn(N_INT, BCHAN, nsp, dtype=torch.complex64, device=dev,
+                    generator=gen)
+    vis = torch.empty(BCHAN, nsp, nsp, dtype=torch.complex64, device=dev)
+    t = {"xengine": cuda_time(lambda: xengine(x, out=vis), 3)}
+    ring = torch.empty(BCHAN * nsp * nsp, 2, dtype=torch.complex64,
+                       device=dev)
+    dst = ring[:, 0].view(vis.shape)
+    t["image_t"] = cuda_time(lambda: dst.copy_(vis), 3)
+    del ring, dst, vis, x
+    grid = torch.empty(BCHAN * NGRID * NGRID, 4, dtype=torch.complex64,
+                       device=dev)
+    g = grid[:, 0].view(BCHAN, NGRID, NGRID)
+    g.copy_(torch.randn(g.shape, dtype=torch.complex64, device=dev,
+                        generator=gen))
+    t["fft"] = cuda_time(lambda: torch.fft.fftn(g, dim=(1, 2)), 3)
+    host = torch.empty(BCHAN * NGRID * NGRID, 4, dtype=torch.complex64)
+    h = host[:, 0].view(g.shape)
+    h.copy_(g)
+    t0 = time.perf_counter()
+    for _ in range(2):
+        h.copy_(g)
+    t["image_d2h"] = (time.perf_counter() - t0) / 2 * 1e3
+    del grid, g, host, h
+    nbytes = 8 * BCHAN * nsp * nsp
+    xbound = bound(N_INT * BCHAN * nsp * 8 + nbytes,
+                   8 * N_INT * BCHAN * nsp * nsp, hbm_rate(kind))[0]
+    phase("kernels", f"X branch stages per integration: X-engine CGEMM "
+          f"{t['xengine']:.4f} ms (torch.matmul, TF32 off; bound "
+          f"{xbound:.4f} ms), "
+          f"image_t transpose {t['image_t']:.4f} ms ({nbytes / 1e9:.3f} GB "
+          f"each way), FFT {t['fft']:.4f} ms, image D2H (512 MiB to "
+          f"pageable host memory, synchronous) {t['image_d2h']:.2f} ms on "
+          f"the host clock, {kind}")
+    return t
+
+
+def instrument(dev, volt, gather=None, on_image=None, method=None,
+               kernels=None):
+    """`lwa_instrument_pipeline` at the flagship width over `volt`, with
+    every kernel method pinned to `method`."""
+    from bifrost_tpu_torch.service import lwa_instrument_pipeline
+    return lwa_instrument_pipeline(
+        volt, nstand=NSTAND, npol=NPOL, nchan=BCHAN, ntap=NTAP,
+        n_int=N_INT, nbeam=NBEAM, max_delay=B_MAX_DELAY, ngrid=NGRID,
+        f0_mhz=B_F0, dt_s=B_DT, gulp_nframe=B_GULP, kernels=kernels,
+        device=dev, pfb_method=method,
+        beamform_method=method, fdmt_method=method, romein_method=method,
+        gather=gather, on_image=on_image)
+
+
+class Images(list):
+    """An on_image callback: keeps host copies of the first `keep`
+    images and stamps the host clock at every one."""
+
+    def __init__(self, keep):
+        super().__init__()
+        self.keep, self.stamps = keep, []
+
+    def __call__(self, grid):
+        self.stamps.append(time.perf_counter())
+        if len(self) < self.keep:
+            self.append(grid[..., 0].clone(
+                memory_format=torch.contiguous_format))
+
+
+def images_equal(a, b, n):
+    if len(a) < n or len(b) < n:
+        raise AssertionError(f"kept {len(a)}/{len(b)} images, need {n}")
+    for x, y in zip(a[:n], b[:n]):
+        if x.shape != (BCHAN, NGRID, NGRID) or \
+                not torch.isfinite(torch.view_as_real(x)).all() or \
+                not bits_equal(torch.view_as_real(x), torch.view_as_real(y)):
+            raise AssertionError("images: kernels != plain")
+
+
+def instrument_path(dev, volt, bref, spec):
+    """The whole instrument at full width (module docstring, phase 6).
+    `bref`: [bengine]'s gathered outputs; `spec`: the first
+    integration's f64 golden spectra.  -> launch counts of the main run
+    and of the K6a run."""
+    from bifrost_tpu_torch.service import default_uvw
+    nsp = NSTAND * NPOL
+    got = {"beams": [], "dedispersed": []}
+    imgs = Images(X_PLAIN_NINT)
+    pipe, det, ledger = instrument(dev, volt, got, imgs)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    pipe.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    blocks = {b.name: b for b in pipe.blocks}
+    nfdmt = B_NINT - B_MAX_DELAY
+    expect = {"fir_mac": B_NINT, "beamform_power": B_NINT,
+              "fdmt_merge_step": nfdmt * NBEAM *
+              len(blocks["bdetect_fdmt"].fdmt._steps),
+              "romein_grid_general": 0, "romein_grid_separable": B_NINT}
+    if counts != expect:
+        raise AssertionError(f"launches {counts}, expected {expect}")
+    s = ledger.summary()
+    if s["lost_frames"] or s["duplicated_frames"] or \
+            s["committed_frames"] != nfdmt:
+        raise AssertionError(f"frame ledger: {s}")
+    for key in ("beams", "dedispersed"):
+        a, b = got[key], bref[key]
+        if len(a) != len(b) or not all(
+                np.array_equal(x.view(np.uint32), y.view(np.uint32))
+                for x, y in zip(a, b)):
+            raise AssertionError(f"{key}: instrument != [bengine]")
+    if len(imgs.stamps) != B_NINT:
+        raise AssertionError(f"{len(imgs.stamps)} images, expected "
+                             f"{B_NINT}")
+    nframe = len(volt)
+    st = imgs.stamps
+    per_int = (st[-1] - st[0]) / (len(st) - 1)
+    steady = B_GULP / per_int
+    perf = {b.name: {k: round(v, 4) for k, v in b.perf_totals.items()}
+            for b in pipe.blocks}
+    d2h = blocks["image_d2h"].perf_totals["process"] / B_NINT
+    rings = {r.name: round(r._buf.numel() * r._buf.element_size() / 2**30,
+                           3)
+             for r in pipe.rings if r._buf is not None and r._buf.is_cuda}
+    phase("instrument", f"LWA instrument {NSTAND}x{NPOL} inputs x {BCHAN} "
+          f"ch, {NBEAM} beams + imaging at ngrid {NGRID}, {nframe} frames "
+          f"({B_NINT} integrations): {wall:.3f} s, {nframe / wall:.1f} "
+          f"frames/s, {nframe * nsp / wall:.4g} station-pol samples/s "
+          f"with start-up; first image after {st[0] - t0:.3f} s; steady "
+          f"state {steady:.1f} frames/s ({per_int * 1e3:.1f} ms per "
+          f"integration, first to last image); launches {counts}; "
+          f"ledger {s}; candidates {len(det.candidates)}; peak device "
+          f"memory {peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated); "
+          f"device rings GiB {json.dumps(rings)}; image D2H {d2h * 1e3:.1f} "
+          f"ms per integration ({2**29 / d2h / 1e9:.2f} GB/s, host clock)")
+    phase("instrument", f"host seconds by block and phase: "
+          f"{json.dumps(perf)}")
+    del pipe, det, ledger, blocks
+    free_device()
+
+    ref = Images(X_PLAIN_NINT)
+    instrument(dev, volt[:X_PLAIN_NINT * B_GULP], on_image=ref,
+               method="plain")[0].run()
+    images_equal(imgs, ref, X_PLAIN_NINT)
+    del ref
+    free_device()
+
+    # The first image on 8 channels against the f64 golden: s^H s of the
+    # golden spectra, np.add.at gridding, np.fft.fft2.
+    s8 = spec[:, X_GOLDEN_CHANS, :]                     # (t, 8, nsp)
+    vis = np.einsum("tci,tcj->cij", np.conj(s8), s8).reshape(8, -1)
+    uvw = default_uvw(NSTAND, NPOL, NGRID, M_KERN)
+    grid = np.zeros((8, NGRID, NGRID), np.complex128)
+    for j in range(M_KERN):
+        for k in range(M_KERN):
+            yy, xx = uvw[1] + j, uvw[0] + k
+            ok = (yy >= 0) & (yy < NGRID) & (xx >= 0) & (xx < NGRID)
+            np.add.at(grid, (slice(None), yy[ok], xx[ok]), vis[:, ok])
+    golden = np.fft.fft2(grid, axes=(-2, -1))
+    first = imgs[0][torch.from_numpy(X_GOLDEN_CHANS)].numpy()
+    err = float(np.abs(first - golden).max() / np.abs(golden).max())
+    if not err <= 1e-4:
+        raise AssertionError(f"first image vs f64 golden: rel {err}")
+    phase("instrument", f"beam powers and dedispersed frames bitwise equal "
+          f"to [bengine]'s; the first {X_PLAIN_NINT} images ({BCHAN} x "
+          f"{NGRID} x {NGRID}) bitwise equal: kernels vs every method "
+          f"'plain'; the first image on channels {X_GOLDEN_CHANS.tolist()} "
+          f"vs the f64 numpy golden: max rel err {err:.3e} (limit 1e-4)")
+    del imgs
+    free_device()
+
+    # K6a on a path: a non-rank-1 kernel, 2 integrations deep.
+    kern = k6a_kernels(nsp * nsp)
+    short = volt[:X_PLAIN_NINT * B_GULP]
+    mine, ref = Images(X_PLAIN_NINT), Images(X_PLAIN_NINT)
+    pipe = instrument(dev, short, on_image=mine, kernels=kern)[0]
+    reset_counts()
+    pipe.run()
+    torch.cuda.synchronize()
+    kcounts = read_counts()
+    if kcounts["romein_grid_general"] != X_PLAIN_NINT or \
+            kcounts["romein_grid_separable"] != 0:
+        raise AssertionError(f"non-rank-1 run launches {kcounts}")
+    del pipe
+    free_device()
+    instrument(dev, short, on_image=ref, method="plain",
+               kernels=kern)[0].run()
+    images_equal(mine, ref, X_PLAIN_NINT)
+    phase("instrument", f"non-rank-1 kernel run ({X_PLAIN_NINT} "
+          f"integrations): launches {kcounts}; images bitwise equal: "
+          f"kernels vs every method 'plain'")
+    return counts, kcounts
 
 
 def main_path(dev):
@@ -510,7 +854,8 @@ def main_path(dev):
         raise AssertionError(f"device rings not in the cuda space: {spaces}")
     nsteps = len(det.iring.owner.fdmt._steps)    # 12 at full width
     if counts != {"fdmt_merge_step": nsteps * NGULP, "fir_mac": 0,
-                  "beamform_power": 0}:
+                  "beamform_power": 0, "romein_grid_general": 0,
+                  "romein_grid_separable": 0}:
         raise AssertionError(f"launches {counts}, expected "
                              f"{nsteps * NGULP} of fdmt_merge_step alone")
     s = ledger.summary()
@@ -595,18 +940,25 @@ def main():
     recs = [check_kernels(dev, kind), check_fir(dev, kind, rng),
             check_beamform(dev, kind, rng)]
     time_dft(dev, kind, rng)
-    torch.cuda.empty_cache()
+    recs += check_romein(dev, kind)
+    time_xstages(dev, kind)
+    free_device()
     t1 = time.perf_counter()
     frb_launches, _ = main_path(dev)
-    torch.cuda.empty_cache()
+    free_device()
     t2 = time.perf_counter()
-    bcounts = bengine_path(dev)
+    bcounts, volt, bgot, spec = bengine_path(dev)
+    free_device()
+    t3 = time.perf_counter()
+    icounts, kcounts = instrument_path(dev, volt, bgot, spec)
     phase("timing", f"build {secs:.1f} s, kernels {t1 - t0:.1f} s, main "
-          f"{t2 - t1:.1f} s, bengine {time.perf_counter() - t2:.1f} s")
-    by_path = {"fdmt_merge_step": {"frb": frb_launches,
-                                   "bengine": bcounts["fdmt_merge_step"]},
-               "fir_mac": {"bengine": bcounts["fir_mac"]},
-               "beamform_power": {"bengine": bcounts["beamform_power"]}}
+          f"{t2 - t1:.1f} s, bengine {t3 - t2:.1f} s, instrument "
+          f"{time.perf_counter() - t3:.1f} s")
+    by_path = {name: {"frb": frb_launches if name == "fdmt_merge_step"
+                      else 0, "bengine": bcounts[name],
+                      "instrument": icounts[name],
+                      "instrument_k6a": kcounts[name]}
+               for name in kernel_counters()}
     for rec in recs:
         rec["launches_by_path"] = by_path[rec["name"]]
         rec["launches"] = sum(by_path[rec["name"]].values())

@@ -130,3 +130,91 @@ def test_pfb_and_beamform_cuda_match_cpu(cuda):
     a = Beamform().init(w, method="cuda").execute_raw(xb.to(cuda), "ci8")
     b = Beamform().init(w, method="cuda").execute_raw(xb, "ci8")
     assert _bits_equal(a.cpu(), b)
+
+
+def _romein_case(npol, nvis, ngrid, m, rank1, per_pol, per_vis, seed):
+    """Seeded (data, plan, kernel planes) for K6a/K6b: positions that
+    straddle every edge of the grid."""
+    from bifrost_tpu_torch.ops.romein import (build_plan, kernel_planes,
+                                              separate_kernels)
+    rng = np.random.default_rng(seed)
+    pos = rng.integers(-m, ngrid + 1, (2, nvis))
+    shape = (npol if per_pol else 1, nvis if per_vis else 1)
+    if rank1:
+        u = rng.standard_normal(shape + (m,)) + \
+            1j * rng.standard_normal(shape + (m,))
+        v = rng.standard_normal(shape + (m,)) + \
+            1j * rng.standard_normal(shape + (m,))
+        kern = (u[..., :, None] * v[..., None, :]).astype(np.complex64)
+    else:
+        kern = (rng.standard_normal(shape + (m, m)) +
+                1j * rng.standard_normal(shape + (m, m))).astype(np.complex64)
+    planes = kernel_planes(kern, npol, nvis, m)
+    uv = separate_kernels(planes)
+    assert (uv is not None) == rank1
+    off, ent = build_plan(pos[0], pos[1], m, ngrid)
+    data = (rng.standard_normal((npol, nvis)) +
+            1j * rng.standard_normal((npol, nvis))).astype(np.complex64)
+    return data, off, ent, (uv if rank1 else (planes,))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rank1,per_pol,per_vis,strided,accumulate", [
+    (True, False, False, True, False), (True, True, True, False, True),
+    (False, False, True, True, False), (False, True, True, False, True),
+    (False, False, False, False, False)])
+def test_romein_kernels_bitwise_vs_plain(cuda, rank1, per_pol, per_vis,
+                                         strided, accumulate):
+    """K6b (rank-1) and K6a against their plain versions, bitwise: shared,
+    per-visibility and per-plane kernel planes, out-of-grid patches,
+    strided data and grids (a time-last ring span), overwrite and
+    accumulate."""
+    from bifrost_tpu_torch.ops import romein_kernel as rk
+    npol, nvis, ngrid, m = 3, 700, 40, 5
+    data, off, ent, planes = _romein_case(npol, nvis, ngrid, m, rank1,
+                                          per_pol, per_vis, seed=11)
+    off, ent = (torch.from_numpy(a).to(cuda) for a in (off, ent))
+    planes = [torch.from_numpy(np.ascontiguousarray(p)).to(cuda)
+              for p in planes]
+    d = torch.from_numpy(data).to(cuda)
+    if strided:
+        d = torch.stack([d, torch.zeros_like(d)], -1)[..., 0]
+    g0 = torch.from_numpy(np.full((npol, ngrid, ngrid, 2), 0.5 - 1j,
+                                  np.complex64)).to(cuda)
+    out, ref = g0.clone(), g0.clone()
+    if not strided:
+        out, ref = out[..., 0].contiguous(), ref[..., 0].contiguous()
+    else:
+        out, ref = out[..., 0], ref[..., 0]
+    kernel = rk.grid_separable if rank1 else rk.grid_general
+    plain = rk.grid_separable_plain if rank1 else rk.grid_general_plain
+    before = (rk.grid_general.launches, rk.grid_separable.launches)
+    kernel(d, off, ent, *planes, out, accumulate=accumulate)
+    plain(d, off, ent, *planes, ref, accumulate=accumulate)
+    after = (rk.grid_general.launches, rk.grid_separable.launches)
+    assert after == (before[0] + (not rank1), before[1] + rank1)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.view_as_real(out).view(torch.int32),
+                       torch.view_as_real(ref).view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_romein_plan_cuda_matches_cpu(cuda):
+    """The Romein plan on the card (kernels) against the CPU (plain),
+    bitwise, and two runs on the card bit-identical."""
+    from bifrost_tpu_torch.ops import Romein
+    rng = np.random.default_rng(12)
+    npol, nvis, ngrid = 4, 500, 32
+    pos = rng.integers(-3, ngrid, (2, 1, nvis)).astype(np.int32)
+    vis = torch.from_numpy((rng.standard_normal((npol, nvis)) +
+                            1j * rng.standard_normal((npol, nvis)))
+                           .astype(np.complex64))
+    for kern in (np.ones((3, 3), np.complex64),
+                 (rng.standard_normal((1, nvis, 3, 3)) + 1j)
+                 .astype(np.complex64)):
+        plan = Romein().init(pos, kern, ngrid)
+        a = plan.execute(vis.to(cuda)).cpu()
+        b = plan.execute(vis.to(cuda)).cpu()
+        c = plan.execute(vis)
+        assert torch.equal(torch.view_as_real(a), torch.view_as_real(c))
+        assert torch.equal(torch.view_as_real(a), torch.view_as_real(b))
