@@ -14,20 +14,30 @@ ci8 is read in raw storage form (`ReadSpan.data_storage`, 2 B/sample).
 Input axes: any order of (time, freq, station, pol) labels with time as
 the frame axis; output [-1, nbeam, nchan] f32 labelled (time, beam,
 freq), one frame per integration, with the time scale multiplied by the
-integration length and gulp_nframe 1.  Not ported: the mesh engines
-(ROADMAP A16), the data-quality gain and mask fold (A12) and the fused
-carry (A10).
+integration length and gulp_nframe 1.
+
+Data-quality fold (ops/calibrate.py): per-station (or per station*pol)
+complex gains, from `gains=`, a `gain_callback(header)` or the stream
+header's ``cal_gains`` table (skipped when an upstream GainCalBlock has
+stamped ``cal_applied``), and a boolean `station_mask` (True = flagged)
+are folded into the weights before they are staged, w' = w * g * ~mask:
+calibration and excision ride the one staged weight tensor, with no pass
+over the voltages.  `set_gains()` / `set_station_mask()` re-fold and
+re-stage at the next gulp boundary.  Not ported: the mesh engines
+(ROADMAP A16) and the fused carry (A10).
 """
 
 from __future__ import annotations
 
 import copy as _copy
+import threading
 import warnings
 
 import numpy as np
 
 from ..ndarray import complex_view
 from ..ops.beamform import Beamform
+from ..ops.calibrate import fold_gains, resolve_gains
 from ..pipeline import TransformBlock
 from ._common import (_canonical_permutation, deepcopy_header,
                       integrate_chunks, store)
@@ -43,10 +53,13 @@ class BeamformBlock(TransformBlock):
         return [(rel_frame0 + in_nframe) // n - rel_frame0 // n]
 
     def __init__(self, iring, weights, nframe_per_integration, *args,
-                 method=None, **kwargs):
+                 method=None, gains=None, gain_callback=None,
+                 station_mask=None, cal_header_key="cal_gains", **kwargs):
         """weights: (nbeam, nstation[, npol]) complex.  method: None
         resolves the `beamform_method` config flag at each sequence start
-        ('auto'/'cuda'/'plain'), latched for the sequence."""
+        ('auto'/'cuda'/'plain'), latched for the sequence.  gains,
+        gain_callback, station_mask, cal_header_key: the data-quality
+        fold (module docstring)."""
         super().__init__(iring, *args, **kwargs)
         w = np.asarray(weights)
         if w.ndim == 3:  # (nbeam, nstation, npol) -> (nbeam, nstation*npol)
@@ -58,6 +71,17 @@ class BeamformBlock(TransformBlock):
         self.nbeam = w.shape[0]
         self.nframe_per_integration = nframe_per_integration
         self.method = method
+        self.gains = None if gains is None \
+            else np.asarray(gains, dtype=np.complex64).reshape(-1)
+        self.gain_callback = gain_callback
+        self.station_mask = None if station_mask is None \
+            else np.asarray(station_mask, dtype=bool).reshape(-1)
+        self.cal_header_key = cal_header_key
+        self._dq_pending = False
+        self._pending_gains = self._pending_mask = None
+        self._pending_has_gains = self._pending_has_mask = False
+        self._dq_lock = threading.Lock()
+        self.gain_updates = 0
         self.bf = Beamform()
 
     def define_output_nframes(self, input_nframe):
@@ -79,10 +103,19 @@ class BeamformBlock(TransformBlock):
         self._dtype = iseq.tensor.dtype
         shape = [itensor["shape"][i] for i in self._perm]
         nsp = shape[2] * shape[3]
+        self._nstand = shape[2]
         if self.weights.shape[1] != nsp:
             raise ValueError(
                 f"weights expect {self.weights.shape[1]} inputs but the "
                 f"stream carries {shape[2]}x{shape[3]} station*pol")
+        g = resolve_gains(self.gains, self.gain_callback, ihdr,
+                          self.cal_header_key)
+        self._gvec = None if g is None \
+            else self._expand_sp(g, np.complex64, "gains")
+        self._mvec = None if self.station_mask is None \
+            else self._expand_sp(self.station_mask, bool, "station_mask")
+        self._dq_pending = False
+        self._weff = self._folded_weights()
         ohdr = deepcopy_header(ihdr)
         otensor = ohdr["_tensor"]
         otensor["dtype"] = "f32"
@@ -108,11 +141,71 @@ class BeamformBlock(TransformBlock):
         self.bf.method = self.method if self.method is not None else "auto"
         self.bf.method = self.bf._resolve()
         self._hold_flag_latch("beamform_method")
-        # Stage the weights on the device once per sequence.
-        self.bf.set_weights(self.weights, device=self.device)
+        # Stage the (folded) weights on the device once per sequence.
+        self.bf.set_weights(self._weff, device=self.device)
         return ohdr
 
+    # ------------------------------------------ data-quality weight fold
+    def set_gains(self, gains):
+        """Stage a new per-station (or per station*pol) gain table, or
+        None to clear it; re-folded and re-staged at the next gulp
+        boundary."""
+        with self._dq_lock:
+            self._pending_gains = None if gains is None \
+                else np.asarray(gains, dtype=np.complex64).reshape(-1)
+            self._pending_has_gains = True
+            self._dq_pending = True
+
+    def set_station_mask(self, mask):
+        """Stage a new boolean flag mask (True = excise), or None to
+        clear it, applied like `set_gains`."""
+        with self._dq_lock:
+            self._pending_mask = None if mask is None \
+                else np.asarray(mask, dtype=bool).reshape(-1)
+            self._pending_has_mask = True
+            self._dq_pending = True
+
+    def _expand_sp(self, v, dtype, what):
+        """-> flat (nstation*npol,) table: a full-size table passes
+        through, a per-station one repeats across pols."""
+        v = np.asarray(v, dtype=dtype).reshape(-1)
+        nsp = self.weights.shape[1]
+        if v.size == nsp:
+            return v
+        if v.size == self._nstand and nsp % self._nstand == 0:
+            return np.repeat(v, nsp // self._nstand)
+        raise ValueError(
+            f"{self.name}: {what} has {v.size} entries; expected "
+            f"{self._nstand} (per station) or {nsp} (per station*pol)")
+
+    def _folded_weights(self):
+        """w' = w * g * (~mask), the raw weights' shape and dtype."""
+        if self._gvec is None and self._mvec is None:
+            return self.weights
+        return fold_gains(self.weights, self._gvec, self._mvec)
+
+    def _restage_weights(self):
+        """Apply pending set_gains/set_station_mask updates: re-fold and
+        re-stage the weights, on the block thread at a gulp boundary."""
+        with self._dq_lock:
+            if self._pending_has_gains:
+                self._gvec = None if self._pending_gains is None \
+                    else self._expand_sp(self._pending_gains,
+                                         np.complex64, "gains")
+            if self._pending_has_mask:
+                self._mvec = None if self._pending_mask is None \
+                    else self._expand_sp(self._pending_mask, bool,
+                                         "station_mask")
+            self._pending_gains = self._pending_mask = None
+            self._pending_has_gains = self._pending_has_mask = False
+            self._dq_pending = False
+        self._weff = self._folded_weights()
+        self.bf.set_weights(self._weff, device=self.device)
+        self.gain_updates += 1
+
     def on_data(self, ispan, ospan):
+        if self._dq_pending:
+            self._restage_weights()
         nframe = ispan.nframe
         raw = ispan.data_storage
         if raw is not None:

@@ -14,27 +14,32 @@ the output span.  A gulp is split at integration boundaries, mid-gulp
 where the integration length is not a multiple of the gulp
 (`integrate_chunks`), and the partial sum carries across gulps.
 
-`gains=` ((nstand,) or (nstand * npol,) complex) scales the voltages
-before the product, x' = g * x, so v'_ij = conj(g_i) g_j v_ij.
+Gains ((nstand,) or (nstand * npol,) complex) scale the voltages before
+the product, x' = g * x, so v'_ij = conj(g_i) g_j v_ij.  They resolve per
+sequence from `gains=`, then a `gain_callback(header)`, then the stream
+header's ``cal_gains`` table, which is skipped when an upstream
+GainCalBlock has stamped ``cal_applied``; `set_gains()` stages a new table
+for the next gulp boundary.
 
 Input axes: any order of (time, freq, station, pol) labels with time as
 the frame axis; output [-1, nchan, nstand, npol, nstand, npol] cf32
 labelled (time, freq, station_i, pol_i, station_j, pol_j), one frame per
 integration, the time scale multiplied by the integration length,
 ``matrix_fill_mode`` 'full'.  Not ported yet (ROADMAP): the int8 engine,
-the raw ci* ingest, the `cal_gains` header and `gain_callback`,
-`set_gains`, the mesh engines and the fused-carry hooks.
+the raw ci* ingest, the mesh engines and the fused-carry hooks.
 """
 
 from __future__ import annotations
 
 import copy as _copy
+import threading
 import warnings
 
 import numpy as np
 import torch
 
 from ..ndarray import complex_view
+from ..ops.calibrate import resolve_gains
 from ..pipeline import TransformBlock
 from ._common import (_canonical_permutation, deepcopy_header,
                       integrate_chunks, store)
@@ -61,9 +66,11 @@ class CorrelateBlock(TransformBlock):
         return [(rel_frame0 + in_nframe) // n - rel_frame0 // n]
 
     def __init__(self, iring, nframe_per_integration, *args, engine="f32",
-                 gains=None, **kwargs):
-        """engine: 'f32' (the only engine ported).  gains: per-station or
-        per-station*pol complex gains folded into the voltages."""
+                 gains=None, gain_callback=None, cal_header_key="cal_gains",
+                 **kwargs):
+        """engine: 'f32' (the only engine ported).  gains,
+        gain_callback, cal_header_key: per-station or per-station*pol
+        complex gains folded into the voltages (module docstring)."""
         super().__init__(iring, *args, **kwargs)
         if engine == "int8":
             raise NotImplementedError(
@@ -74,6 +81,12 @@ class CorrelateBlock(TransformBlock):
         self.nframe_per_integration = nframe_per_integration
         self.gains = None if gains is None \
             else np.asarray(gains, dtype=np.complex64).reshape(-1)
+        self.gain_callback = gain_callback
+        self.cal_header_key = cal_header_key
+        self._dq_pending = False
+        self._pending_gains = None
+        self._dq_lock = threading.Lock()
+        self.gain_updates = 0
 
     def define_output_nframes(self, input_nframe):
         return [1]
@@ -114,22 +127,47 @@ class CorrelateBlock(TransformBlock):
                 f"gulp_nframe ({gulp_actual}) exceeds "
                 f"nframe_per_integration ({self.nframe_per_integration}); "
                 f"set gulp_nframe= on the correlate block")
-        nstand = int(itensor["shape"][self._perm[2]])
-        npol = int(itensor["shape"][self._perm[3]])
-        self._g = None
-        if self.gains is not None:
-            g = self.gains
-            if g.size == nstand and npol > 1:
-                g = np.repeat(g, npol)
-            if g.size != nstand * npol:
-                raise ValueError(
-                    f"{self.name}: gains have {self.gains.size} entries; "
-                    f"expected {nstand} (per station) or {nstand * npol} "
-                    f"(per station*pol)")
-            self._g = torch.from_numpy(g).to(self.device)
+        self._nstand = int(itensor["shape"][self._perm[2]])
+        self._npol = int(itensor["shape"][self._perm[3]])
+        g = resolve_gains(self.gains, self.gain_callback, ihdr,
+                          self.cal_header_key)
+        self._g = None if g is None else self._stage_gains(g)
+        self._dq_pending = False
         return ohdr
 
+    # ------------------------------------------ data-quality gain fold
+    def set_gains(self, gains):
+        """Stage a new per-station gain table (or None to clear it),
+        applied at the next gulp boundary on the block thread."""
+        with self._dq_lock:
+            self._pending_gains = None if gains is None \
+                else np.asarray(gains, dtype=np.complex64).reshape(-1)
+            self._dq_pending = True
+
+    def _stage_gains(self, g):
+        """-> the flat (nstand*npol,) complex64 gains on the device; a
+        per-station table repeats across pols."""
+        g = np.asarray(g, dtype=np.complex64).reshape(-1)
+        nsp = self._nstand * self._npol
+        if g.size == self._nstand and self._npol > 1:
+            g = np.repeat(g, self._npol)
+        if g.size != nsp:
+            raise ValueError(
+                f"{self.name}: gains have {g.size} entries; expected "
+                f"{self._nstand} (per station) or {nsp} (per station*pol)")
+        return torch.from_numpy(g).to(self.device)
+
+    def _apply_pending_gains(self):
+        with self._dq_lock:
+            pend = self._pending_gains
+            self._pending_gains = None
+            self._dq_pending = False
+        self._g = None if pend is None else self._stage_gains(pend)
+        self.gain_updates += 1
+
     def on_data(self, ispan, ospan):
+        if self._dq_pending:
+            self._apply_pending_gains()
         x = ispan.data
         if self._dtype.is_complex and self._dtype.is_integer:
             x = complex_view(x, self._dtype)

@@ -13,7 +13,8 @@ from ..ndarray import structured_to_pair
 from ..pipeline import SourceBlock, SinkBlock
 
 __all__ = ["ArraySourceBlock", "array_source",
-           "CallbackSinkBlock", "callback_sink", "gather_sink"]
+           "CallbackSinkBlock", "callback_sink", "gather_sink",
+           "inject_burst", "narrowband_storm", "inject_tone"]
 
 
 def _host_tensor(a):
@@ -147,3 +148,36 @@ def inject_burst(data, t0, dm_row, f0, df, amp, exponent=-2.0):
         vals = np.clip(vals, info.min, info.max)
     data[times, chans] = vals
     return times
+
+
+def narrowband_storm(data, frame0=0, n_storm=60, p_on=0.8, nb_amp=255,
+                     seed=0):
+    """Write a narrowband RFI storm into `data` ((time, freq) array, in
+    place), the narrowband part of the RFI storm recipe of
+    benchmarks/frb_service.py (`RFI_STORM`: 60 channels, p_on 0.8,
+    amplitude 255): `n_storm` channels drawn from a seeded generator
+    blink on with probability `p_on` per frame, from frame `frame0` on,
+    and an on channel's sample is overwritten with `nb_amp`.  The
+    recipe's full-band impulses and broadband lift are left out.
+    -> (channels (n_storm,) sorted, on (nframe - frame0, n_storm)
+    bool)."""
+    rng = np.random.default_rng(seed)
+    chans = np.sort(rng.choice(data.shape[1], n_storm, replace=False))
+    on = rng.random((len(data) - frame0, n_storm)) < p_on
+    block = data[frame0:, chans]
+    block[on] = nb_amp
+    data[frame0:, chans] = block
+    return chans, on
+
+
+def inject_tone(volt, t0, station, chan, nchan, amp):
+    """Add a complex tone at the centre of PFB channel `chan` (chan /
+    nchan cycles per frame) to every pol of one station of ci8 voltages
+    (`volt`: (time, station, pol, 2) int8 storage, in place) from frame
+    `t0` on, rounded and clipped to int8."""
+    t = np.arange(t0, len(volt), dtype=np.int64)
+    ph = 2.0 * np.pi * ((chan * t) % nchan) / nchan
+    v = volt[t0:, station].astype(np.int64)            # (n, pol, 2)
+    v[..., 0] += np.rint(amp * np.cos(ph)).astype(np.int64)[:, None]
+    v[..., 1] += np.rint(amp * np.sin(ph)).astype(np.int64)[:, None]
+    volt[t0:, station] = np.clip(v, -128, 127)

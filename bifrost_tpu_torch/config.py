@@ -50,6 +50,17 @@ FLAGS = {f.name: f for f in [
          "CUDA tensor, their plain PyTorch versions for a CPU tensor) or "
          "'plain' (the plain versions on any device).  Latched per "
          "sequence by GridderBlock."),
+    Flag("dq_flag_method", "auto",
+         "Default RFI-flagger apply method: 'auto'/'cuda' (kernel K5a for "
+         "a CUDA tensor, its plain PyTorch version for a CPU tensor) or "
+         "'plain' (the plain version on any device).  The window "
+         "statistics are shared by both.  Latched per sequence by "
+         "RfiFlagBlock."),
+    Flag("dq_cal_method", "auto",
+         "Default gain-calibration apply method: 'auto'/'cuda' (kernel "
+         "K5b for a CUDA tensor, its plain PyTorch version for a CPU "
+         "tensor) or 'plain' (the plain version on any device).  Latched "
+         "per sequence by GainCalBlock."),
     Flag("fft_method", "auto",
          "Default FFT engine: 'auto'/'torch' (torch.fft: cuFFT on the "
          "card).  The JAX package's 'xla' and MXU 'matmul*' engines are "

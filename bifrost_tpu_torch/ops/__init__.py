@@ -1,14 +1,19 @@
 """Device ops of the port (counterparts of bifrost_tpu/ops)."""
 
 from .beamform import Beamform
+from .calibrate import (GainCal, calibrate, decode_gains, encode_gains,
+                        fold_gains, gain_outer)
 from .fdmt import Fdmt, plan_from_reference
 from .fft import Fft
 from .fftshift import fftshift
+from .flag import Flag, flag
 from .pfb import Pfb, pfb, pfb_coeffs
 from .romein import Romein, separate_kernels
 from .transpose import transpose
 from . import stats
 
-__all__ = ["Beamform", "Fdmt", "plan_from_reference", "Fft", "fftshift",
+__all__ = ["Beamform", "GainCal", "calibrate", "decode_gains",
+           "encode_gains", "fold_gains", "gain_outer", "Fdmt",
+           "plan_from_reference", "Fft", "fftshift", "Flag", "flag",
            "Pfb", "pfb", "pfb_coeffs", "Romein", "separate_kernels",
            "transpose", "stats"]

@@ -1,5 +1,8 @@
-"""Robust statistics for candidate detection (counterpart of
-bifrost_tpu/ops/stats.py:40-53), on tensors with numpy's semantics.
+"""Robust statistics for candidate detection and the RFI flagger
+(counterpart of bifrost_tpu/ops/stats.py), on tensors with numpy's
+semantics.  The flagger's window-axis median/MAD is `median_mad(x,
+dim=0, keepdim=False)`; `spectral_kurtosis` and `sk_band` are the SK
+flagger's estimator and acceptance band.
 
 `torch.median` returns the LOWER middle value of an even count, where
 `np.median` averages the two middle values; every gulp of the FRB chain
@@ -13,9 +16,12 @@ input dtype (f32), as numpy computes it, so the SNR is bitwise numpy's.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-__all__ = ["MAD_SIGMA", "MAD_EPS", "median", "median_mad", "mad_snr"]
+__all__ = ["MAD_SIGMA", "MAD_EPS", "median", "median_mad", "mad_snr",
+           "spectral_kurtosis", "sk_band"]
 
 MAD_SIGMA = 1.4826   # Gaussian consistency factor: sigma ~= 1.4826 * MAD
 MAD_EPS = 1e-6       # guard against a zero MAD (constant rows)
@@ -45,3 +51,24 @@ def mad_snr(x, dim=-1):
     """Robust SNR: (x - median) / (MAD_SIGMA * MAD + MAD_EPS)."""
     mu, mad = median_mad(x, dim=dim, keepdim=True)
     return (x - mu) / (MAD_SIGMA * mad + MAD_EPS)
+
+
+def spectral_kurtosis(x, dim=0):
+    """Generalized spectral kurtosis of a power stream over its M samples
+    along `dim`, in x's dtype: SK = ((M+1)/(M-1)) * (M * S2 / (S1**2 +
+    MAD_EPS) - 1) with S1 = sum(p), S2 = sum(p**2).  Gaussian voltages
+    (exponential power) give SK ~= 1 with std sqrt(4 / M)."""
+    m = x.shape[dim]
+    if m < 2:
+        raise ValueError(f"spectral_kurtosis needs >= 2 samples, got {m}")
+    mf = float(m)
+    s1 = x.sum(dim=dim)
+    s2 = (x * x).sum(dim=dim)
+    return ((mf + 1.0) / (mf - 1.0)) * (mf * s2 / (s1 * s1 + MAD_EPS) - 1.0)
+
+
+def sk_band(m, thresh=3.0):
+    """The SK acceptance band (lo, hi) for M samples at `thresh` sigma:
+    1 -+ thresh * sqrt(4 / M)."""
+    half = float(thresh) * math.sqrt(4.0 / m)
+    return 1.0 - half, 1.0 + half

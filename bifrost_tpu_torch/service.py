@@ -6,7 +6,7 @@ source in place of UDP capture:
 - `frb_search_pipeline`, the body of `frb_search_spec`
   (service.py:294-315):
 
-      array_source (u8 [time, freq]) -> copy('cuda') ->
+      array_source (u8 [time, freq]) -> copy('cuda') [-> rfi_flag] ->
       transpose(['freq', 'time']) -> fdmt(max_delay) -> CandidateDetectBlock
 
 - `lwa_beam_search_pipeline`, the B-engine branch of
@@ -25,6 +25,9 @@ source in place of UDP capture:
       'pol_i', 'station_j', 'pol_j', 'time']) -> merge_axes x 3 ('vis')
       -> romein(ngrid) -> fft(['v', 'u']) -> copy('system') -> on_image
 
+The data-quality front end of the beam search (flag -> calibrate before
+the B-engine) is built from blocks (`rfi_flag`, `gaincal`), as the JAX
+package's benchmarks/dq_tpu.py builds it; it is not a spec of its own.
 `ServiceSpec`/`Service`, supervision, UDP capture and fusion are not
 ported yet.
 """
@@ -40,6 +43,7 @@ import torch
 from . import views
 from .blocks import (array_source, beamform, callback_sink, copy, correlate,
                      fdmt, fft, gather_sink, pfb, romein, transpose)
+from .blocks import rfi_flag as _rfi_flag
 from .ops.stats import mad_snr
 from .pipeline import Pipeline, SinkBlock, block_scope
 
@@ -189,11 +193,17 @@ class CandidateDetectBlock(SinkBlock):
 def frb_search_pipeline(data, gulp_nframe, max_delay, f0_mhz=40.0,
                         df_mhz=0.00928, dt_s=1e-3, threshold=8.0,
                         device=None, fdmt_method=None, on_candidate=None,
-                        gather=None):
+                        gather=None, rfi_flag=None):
     """Build the FRB-search chain over `data`, a (time, freq) u8 array of
     filterbank power replayed from memory.  The axes are scaled as
     `frb_search_spec` scales them (the defaults are
     `lwa_frb_search_spec`'s LWA band: 40 MHz + nfreq x 9.28 kHz, 1 ms).
+
+    `rfi_flag`: a dict of RfiFlagBlock parameters (e.g. dict(algo='mad',
+    thresh=6.0, mad_factor=4.0, window=16)) inserts the RFI flagger
+    (block "flag", gulp_nframe defaulting to the chain's) after the H2D
+    copy and before the transpose, as `frb_search_spec(rfi_flag=...)`
+    inserts it after capture.
 
     `device`: None runs on the card (raising where there is none);
     'cpu' runs every 'cuda'-space ring on the CPU.  `gather`: a list that
@@ -209,6 +219,11 @@ def frb_search_pipeline(data, gulp_nframe, max_delay, f0_mhz=40.0,
             "units": ["s", "MHz"],
         }, name="capture")
         dev = copy(src, space="cuda", name="h2d")
+        if rfi_flag is not None:
+            params = dict(rfi_flag)
+            params.setdefault("gulp_nframe", gulp_nframe)
+            params.setdefault("name", "flag")
+            dev = _rfi_flag(dev, **params)
         t = transpose(dev, ["freq", "time"], gulp_nframe=gulp_nframe,
                       name="transpose")
         d = fdmt(t, max_delay=max_delay, method=fdmt_method,

@@ -7,14 +7,16 @@ the 128-lane tile; `Pfb` folds the (ntap, nchan) prototype into an
 (ntap, lanes) bank, each channel's column repeated per stream and
 component; `Fdmt` holds its tables as numpy arrays; `Romein` keeps its
 host plan state as numpy (`_pos_np`, `_kern_np`); `CorrelateBlock` its
-gains as a flat complex table.  `carry_over` takes those numpy arrays and
-returns the port's arguments.  It needs nothing of
-the JAX package: the caller hands over numpy.
+gains as a flat complex table; `Flag` its carried (3, ncell) baseline
+beside its [thresh, mad_factor, alpha]; `GainCal` its (ncell,) gains.
+`carry_over` takes those numpy arrays and returns the port's arguments.
+It needs nothing of the JAX package: the caller hands over numpy.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .ops.fdmt import plan_from_reference
 
@@ -49,7 +51,8 @@ def prototype_from_bank(bank, nchan):
 
 def carry_over(weight_planes=None, nbeam=None, nsp=None, pfb_bank=None,
                nchan=None, fdmt_tables=None, fdmt_geometry=None,
-               romein_state=None, gains=None):
+               romein_state=None, gains=None, flag_state=None,
+               flag_params=None, cal_gains=None):
     """Numpy parameters of the JAX plans -> the port's arguments.
 
     weight_planes: (wr, wi) of a JAX `Beamform` (`_w_planes`), with the
@@ -58,12 +61,30 @@ def carry_over(weight_planes=None, nbeam=None, nsp=None, pfb_bank=None,
     `_init_perm`, `_init_chans_by_d` with fdmt_geometry = dict(nchan,
     max_delay, f0, df[, exponent]); romein_state: a JAX `Romein`'s host
     plan state (`_pos_np`, `_kern_np`); gains: the X-engine gains of the
-    spec (a JAX `CorrelateBlock`'s `gains`).  -> dict with 'weights'
+    spec (a JAX `CorrelateBlock`'s `gains`); flag_state: a JAX `Flag`'s
+    carried `_state`, with flag_params its [thresh, mad_factor, alpha];
+    cal_gains: a JAX `GainCal`'s `gains`.  -> dict with 'weights'
     ((nbeam, nsp) complex64), 'coeffs' ((ntap, nchan) f32 values), 'fdmt'
     (an `Fdmt` plan), 'positions' ((2, ..., nvis) int32), 'kernels'
-    (complex64, its broadcast shape kept) and 'gains' (complex64), for
-    the parts given."""
+    (complex64, its broadcast shape kept), 'gains' (complex64),
+    'flag_state' ((3, ncell) f32 tensor, for `Flag.load_state`),
+    'flag_params' (dict of thresh, mad_factor, alpha, for
+    `Flag.set_params`) and 'cal_gains' ((ncell,) complex64), for the
+    parts given."""
     out = {}
+    if flag_state is not None:
+        st = np.array(flag_state, dtype=np.float32)
+        if st.ndim != 2 or st.shape[0] != 3:
+            raise ValueError(f"flag_state must be (3, ncell), got "
+                             f"{st.shape}")
+        out["flag_state"] = torch.from_numpy(st)
+    if flag_params is not None:
+        out["flag_params"] = dict(zip(
+            ("thresh", "mad_factor", "alpha"),
+            (float(v) for v in np.asarray(flag_params, np.float32))))
+    if cal_gains is not None:
+        out["cal_gains"] = np.asarray(cal_gains).astype(
+            np.complex64).reshape(-1)
     if romein_state is not None:
         pos, kern = romein_state
         out["positions"] = np.asarray(pos).astype(np.int32)

@@ -43,9 +43,34 @@ Phases, one line each; any failure exits non-zero:
              2-integration run with a seeded non-rank-1 kernel puts
              kernel K6a on the path, its images compared bitwise with
              the same run with every method 'plain'.
+7. frbflag — the FRB search of phase 4 with the RFI flagger
+             (`frb_search_pipeline(rfi_flag=dict(algo='mad', thresh=6.0,
+             mad_factor=4.0, window=16))`, kernel K5a) on the same data
+             with a seeded narrowband storm from the third gulp on (60
+             channels blinking on with probability 0.8 per frame at
+             255).  Launch counts are read from this run alone; the
+             burst must be found, every storm cell on for more than half
+             of a window flagged in that window, and the dedispersed
+             gulps bitwise equal to the chain with dq_flag_method and
+             fdmt_method 'plain'.
+8. dq      — the flagged, calibrated beam search at the flagship width,
+             built from blocks: the voltages of phase 5 with a tone at
+             the centre of one PFB channel on one station from the 9th
+             integration on -> copy -> pfb -> rfi_flag(window=16) ->
+             gaincal(seeded per-station gains) (kernel K5b) -> beamform
+             -> transpose -> fdmt -> detect, 80 integrations.  Launch
+             counts are read from this run alone; the tone's cells must
+             be flagged in every window from its onset, the beam powers
+             and dedispersed frames bitwise equal to the same chain with
+             every method 'plain', the first integration within 1e-4 of
+             the f64 golden (gains applied, flagged cells zeroed), and
+             gaincal -> beamform within 1e-5 of beamform(gains=) over 4
+             integrations.
 
-The line before the last holds the kernel records as JSON; the last line
-is {"ok": true, "device": {...}}.
+The launch checks of every phase count all seven kernels (K1, K2, K4,
+K6a, K6b, K5a, K5b).  The line before the last two holds the kernel
+records as JSON, one for each of those kernels; then the card's name and
+power limit; the last line is {"ok": true, "device": {...}}.
 """
 
 import gc
@@ -76,6 +101,15 @@ B_GULP = N_INT * BCHAN
 # integrations are compared with the all-'plain' pipeline.
 NGRID, M_KERN, X_PLAIN_NINT = 128, 3, 2
 X_GOLDEN_CHANS = np.linspace(0, BCHAN - 1, 8).astype(np.int64)
+
+# The data-quality paths: the FRB storm (the narrowband part of
+# benchmarks/frb_service.py's RFI_STORM) from the third gulp on, the
+# flagger of its rfi_storm scenario; the DQ beam search's tone and gains.
+STORM = dict(n_storm=60, p_on=0.8, nb_amp=255)
+FRB_FLAG = dict(algo="mad", thresh=6.0, mad_factor=4.0, window=16)
+STORM_GULP0 = 2
+DQ_WINDOW, DQ_TONE_INT, DQ_STATION, DQ_CHAN, DQ_AMP = 16, 8, 17, 1000, 16
+DQ_FOLD = (6, 10)      # integrations of the fold-identity run
 
 # Device-memory rate by card (NVIDIA data sheets), bytes/s
 _HBM_RATE = (("H200", 4.8e12), ("H100 PCIe", 2.0e12), ("H100", 3.35e12))
@@ -184,13 +218,21 @@ class Stamped(list):
 
 
 def kernel_counters():
-    from bifrost_tpu_torch.ops import (beamform_kernel, fdmt_kernel,
-                                       fir_kernel, romein_kernel)
+    from bifrost_tpu_torch.ops import (beamform_kernel, dq_kernel,
+                                       fdmt_kernel, fir_kernel,
+                                       romein_kernel)
     return {"fdmt_merge_step": fdmt_kernel.merge_step,
             "fir_mac": fir_kernel.fir_mac,
             "beamform_power": beamform_kernel.beamform_power,
             "romein_grid_general": romein_kernel.grid_general,
-            "romein_grid_separable": romein_kernel.grid_separable}
+            "romein_grid_separable": romein_kernel.grid_separable,
+            "dq_masked_fill": dq_kernel.masked_fill,
+            "dq_gain_apply": dq_kernel.gain_apply}
+
+
+def expected(**nonzero):
+    """Launch counts: every kernel 0 but those named."""
+    return {name: nonzero.get(name, 0) for name in kernel_counters()}
 
 
 def reset_counts():
@@ -451,9 +493,8 @@ def bengine_path(dev):
     blocks = {b.name: b for b in pipe.blocks}
     fd = blocks["bdetect_fdmt"]
     nfdmt = B_NINT - B_MAX_DELAY           # FDMT gulps: one frame each
-    expect = {"fir_mac": B_NINT, "beamform_power": B_NINT,
-              "fdmt_merge_step": nfdmt * NBEAM * len(fd.fdmt._steps),
-              "romein_grid_general": 0, "romein_grid_separable": 0}
+    expect = expected(fir_mac=B_NINT, beamform_power=B_NINT,
+                      fdmt_merge_step=nfdmt * NBEAM * len(fd.fdmt._steps))
     if counts != expect:
         raise AssertionError(f"launches {counts}, expected {expect}")
     s = ledger.summary()
@@ -727,10 +768,10 @@ def instrument_path(dev, volt, bref, spec):
     peak = torch.cuda.max_memory_allocated()
     blocks = {b.name: b for b in pipe.blocks}
     nfdmt = B_NINT - B_MAX_DELAY
-    expect = {"fir_mac": B_NINT, "beamform_power": B_NINT,
-              "fdmt_merge_step": nfdmt * NBEAM *
-              len(blocks["bdetect_fdmt"].fdmt._steps),
-              "romein_grid_general": 0, "romein_grid_separable": B_NINT}
+    expect = expected(fir_mac=B_NINT, beamform_power=B_NINT,
+                      fdmt_merge_step=nfdmt * NBEAM *
+                      len(blocks["bdetect_fdmt"].fdmt._steps),
+                      romein_grid_separable=B_NINT)
     if counts != expect:
         raise AssertionError(f"launches {counts}, expected {expect}")
     s = ledger.summary()
@@ -813,7 +854,8 @@ def instrument_path(dev, volt, bref, spec):
     torch.cuda.synchronize()
     kcounts = read_counts()
     if kcounts["romein_grid_general"] != X_PLAIN_NINT or \
-            kcounts["romein_grid_separable"] != 0:
+            kcounts["romein_grid_separable"] != 0 or \
+            kcounts["dq_masked_fill"] or kcounts["dq_gain_apply"]:
         raise AssertionError(f"non-rank-1 run launches {kcounts}")
     del pipe
     free_device()
@@ -826,12 +868,34 @@ def instrument_path(dev, volt, bref, spec):
     return counts, kcounts
 
 
-def main_path(dev):
+def frb_data():
+    """The FRB search's seeded u8 noise with one dispersed burst."""
     from bifrost_tpu_torch.blocks.testing import inject_burst
-    from bifrost_tpu_torch.service import frb_search_pipeline
     rng = np.random.default_rng(SEED)
     data = rng.integers(0, 32, (GULP * NGULP, NCHAN)).astype(np.uint8)
     inject_burst(data, T0, DM_ROW, F0, DF, amp=60)
+    return data
+
+
+def check_burst(det):
+    """The strongest candidate must be the injected burst: the injected
+    curve rounds each channel's delay on its own, the FDMT splits delays
+    band by band, so the peak lands within two rows, and within two
+    frames of output frame T0 - MAX_DELAY (output frame k holds input
+    frame k + MAX_DELAY)."""
+    if not det.candidates:
+        raise AssertionError("no candidate: the injected burst was missed")
+    best = max(det.candidates, key=lambda c: c["snr"])
+    if abs(best["dm_index"] - DM_ROW) > 2 or \
+            abs(best["frame"] - (T0 - MAX_DELAY)) > 2:
+        raise AssertionError(f"burst at dm row {DM_ROW}, frame "
+                             f"{T0 - MAX_DELAY}; found {best}")
+    return best
+
+
+def main_path(dev):
+    from bifrost_tpu_torch.service import frb_search_pipeline
+    data = frb_data()
 
     pipe, det, ledger = frb_search_pipeline(data, GULP, MAX_DELAY, F0, DF,
                                             DT, device=dev)
@@ -853,9 +917,7 @@ def main_path(dev):
     if spaces["h2d.out0"] != "cuda" or spaces["transpose.out0"] != "cuda":
         raise AssertionError(f"device rings not in the cuda space: {spaces}")
     nsteps = len(det.iring.owner.fdmt._steps)    # 12 at full width
-    if counts != {"fdmt_merge_step": nsteps * NGULP, "fir_mac": 0,
-                  "beamform_power": 0, "romein_grid_general": 0,
-                  "romein_grid_separable": 0}:
+    if counts != expected(fdmt_merge_step=nsteps * NGULP):
         raise AssertionError(f"launches {counts}, expected "
                              f"{nsteps * NGULP} of fdmt_merge_step alone")
     s = ledger.summary()
@@ -863,17 +925,7 @@ def main_path(dev):
     if s["lost_frames"] or s["duplicated_frames"] or \
             s["committed_frames"] != nout:
         raise AssertionError(f"frame ledger: {s}")
-    if not det.candidates:
-        raise AssertionError("no candidate: the injected burst was missed")
-    best = max(det.candidates, key=lambda c: c["snr"])
-    # The injected curve rounds each channel's delay on its own, the FDMT
-    # splits delays band by band: the peak lands within two rows, and
-    # within two frames of output frame T0 - MAX_DELAY (output frame k
-    # holds input frame k + MAX_DELAY).
-    if abs(best["dm_index"] - DM_ROW) > 2 or \
-            abs(best["frame"] - (T0 - MAX_DELAY)) > 2:
-        raise AssertionError(f"burst at dm row {DM_ROW}, frame "
-                             f"{T0 - MAX_DELAY}; found {best}")
+    best = check_burst(det)
     nframe = GULP * NGULP
     phase("main", f"FRB chain {NCHAN} ch x {nframe} frames: {wall:.3f} s, "
           f"{nframe / wall:.1f} frames/s, {nframe * NCHAN / wall:.4g} "
@@ -913,7 +965,368 @@ def main_path(dev):
     phase("main", f"dedispersed gulps ({sum(x.shape[1] for x in a)} "
           f"frames x {MAX_DELAY} rows) bitwise equal: fdmt cuda vs plain; "
           f"the first gulp also equals the CPU's")
-    return launches, nframe / wall
+    return counts
+
+
+def dq_work(ntime, ncell, elt_bytes, nrows=0, fill=False, gains=False):
+    """Bytes and operations of one K5a or K5b call: the samples read
+    once and written once at `elt_bytes` each; K5a's mask rows (1 byte a
+    cell) and fill rows (4 bytes) or K5b's complex64 gains read once;
+    a select per sample for K5a, 6 operations per sample for K5b."""
+    nbytes = 2 * ntime * ncell * elt_bytes
+    if gains:
+        return nbytes + 8 * ncell, 6 * ntime * ncell
+    return nbytes + nrows * ncell * (5 if fill else 1), ntime * ncell
+
+
+def check_dq(dev, kind):
+    """K5a and K5b at the data-quality paths' shapes: K5a on [frbflag]'s
+    (4096 frames x 4096 channels) f32 gulp with 256 windows of 16, and
+    on [dq]'s (16 x 2,097,152) complex64 gulp with one window; K5b on
+    the same complex gulp.  Each against its plain version bitwise, timed
+    beside the bound and one PyTorch call for the same function
+    (`torch.where` over the window-broadcast mask; complex `x * g`).
+    -> the two kernel records, their primary numbers at [dq]'s shape."""
+    from bifrost_tpu_torch.ops import dq_kernel as dk
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 5)
+    rate = hbm_rate(kind)
+    ncell = BCHAN * NSTAND * NPOL
+    frb = torch.randn(GULP, NCHAN, device=dev, generator=gen)
+    frb[::7, ::3] = -0.0
+    cases = {
+        "frb": (frb, torch.rand(GULP // FRB_FLAG["window"], NCHAN,
+                                device=dev, generator=gen) < 0.05,
+                FRB_FLAG["window"]),
+        "dq": (torch.randn(N_INT, ncell, dtype=torch.complex64, device=dev,
+                           generator=gen),
+               torch.rand(1, ncell, device=dev, generator=gen) < 0.05,
+               DQ_WINDOW)}
+    fill = {}
+    for name, (x, mask, window) in cases.items():
+        out = torch.empty_like(x)
+        dk.masked_fill(x, mask, None, window, out=out)
+        want = dk.masked_fill_plain(x, mask, None, window)
+        torch.cuda.synchronize()
+        a, b = (torch.view_as_real(t) if t.is_complex() else t
+                for t in (out, want))
+        if not bits_equal(a, b):
+            raise AssertionError(f"masked_fill differs from plain ({name})")
+        ntime, nc = x.shape
+        nrows = mask.shape[0]
+        xw = x.view(nrows, window, nc)
+        mw = mask.view(nrows, 1, nc)
+        zero = torch.zeros((), dtype=x.dtype, device=dev)
+        lib = torch.where(mw, zero, xw).view(x.shape)
+        if not torch.equal(lib, out):
+            raise AssertionError(f"torch.where differs from K5a ({name})")
+        nbytes, nops = dq_work(ntime, nc, x.element_size(), nrows)
+        fill[name] = {
+            "ms": cuda_time(lambda: dk.masked_fill(x, mask, None, window,
+                                                   out=out), 20),
+            "plain_ms": cuda_time(
+                lambda: dk.masked_fill_plain(x, mask, None, window), 5),
+            "library_ms": cuda_time(lambda: torch.where(mw, zero, xw), 20),
+            "bound_ms": bound(nbytes, nops, rate)[0],
+            "bound_by": bound(nbytes, nops, rate)[1],
+            "max_abs_err": float((a - b).abs().max()), "gb": nbytes / 1e9}
+        del out, want, lib
+    x = cases["dq"][0]
+    g = torch.randn(ncell, dtype=torch.complex64, device=dev, generator=gen)
+    out = torch.empty_like(x)
+    dk.gain_apply(x, g, out=out)
+    want = dk.gain_apply_plain(x, g)
+    torch.cuda.synchronize()
+    if not bits_equal(torch.view_as_real(out), torch.view_as_real(want)):
+        raise AssertionError("gain_apply differs from plain")
+    lib = x * g
+    lib_err = float((lib - out).abs().max() / out.abs().max())
+    if not lib_err <= 1e-6:
+        raise AssertionError(f"x * g differs from K5b: rel {lib_err}")
+    nbytes, nops = dq_work(N_INT, ncell, 8, gains=True)
+    gain = {"ms": cuda_time(lambda: dk.gain_apply(x, g, out=out), 20),
+            "plain_ms": cuda_time(lambda: dk.gain_apply_plain(x, g), 5),
+            "library_ms": cuda_time(lambda: x * g, 20),
+            "bound_ms": bound(nbytes, nops, rate)[0],
+            "bound_by": bound(nbytes, nops, rate)[1],
+            "max_abs_err": float((out - want).abs().max()),
+            "gb": nbytes / 1e9}
+    del out, want, lib, cases, x, g, frb
+    for name, t in fill.items():
+        phase("kernels", f"dq_masked_fill (K5a) equal to plain (tolerance: "
+              f"bitwise) at [{'frbflag' if name == 'frb' else 'dq'}]'s "
+              f"gulp; {t['ms']:.4f} ms per gulp (1 launch), plain "
+              f"{t['plain_ms']:.4f} ms, torch.where {t['library_ms']:.4f} "
+              f"ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}: "
+              f"{t['gb']:.4f} GB), {kind}")
+    phase("kernels", f"dq_gain_apply (K5b) equal to plain (tolerance: "
+          f"bitwise) at ({N_INT}, {ncell}) complex64; {gain['ms']:.4f} ms "
+          f"per gulp (1 launch), plain {gain['plain_ms']:.4f} ms, complex "
+          f"x * g {gain['library_ms']:.4f} ms (rel err {lib_err:.2e}), "
+          f"bound {gain['bound_ms']:.4f} ms ({gain['bound_by']}: "
+          f"{gain['gb']:.4f} GB), {kind}")
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    rec_fill = {"name": "dq_masked_fill", "route": "cuda",
+                "source": "bifrost_tpu_torch/csrc/dq.cu",
+                "replaces": "bifrost_tpu/ops/dq_pallas.py:45",
+                "launches": None, **{k: fill["dq"][k] for k in keys},
+                "library_call": "torch.where(mask, 0, x) with the window "
+                                "mask broadcast",
+                "at_frbflag": {k: fill["frb"][k] for k in keys}}
+    rec_gain = {"name": "dq_gain_apply", "route": "cuda",
+                "source": "bifrost_tpu_torch/csrc/dq.cu",
+                "replaces": "bifrost_tpu/ops/dq_pallas.py:78",
+                "launches": None, **{k: gain[k] for k in keys},
+                "library_call": "complex64 x * g (a timing yardstick: "
+                                "another rounding)"}
+    return [rec_fill, rec_gain]
+
+
+def frbflag_path(dev):
+    """The FRB search with the RFI flagger (module docstring, phase 7).
+    -> the kernels' launch counts in the main run."""
+    from bifrost_tpu_torch import config
+    from bifrost_tpu_torch.blocks.testing import narrowband_storm
+    from bifrost_tpu_torch.service import frb_search_pipeline
+    data = frb_data()
+    frame0 = STORM_GULP0 * GULP
+    chans, on = narrowband_storm(data, frame0=frame0, seed=SEED + 7,
+                                 **STORM)
+    masks = []
+    chunks = []
+    pipe, det, ledger = frb_search_pipeline(
+        data, GULP, MAX_DELAY, F0, DF, DT, device=dev, gather=chunks,
+        rfi_flag=dict(FRB_FLAG, on_mask=masks.append))
+    reset_counts()
+    t0 = time.perf_counter()
+    pipe.run()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    counts = read_counts()
+    wall = t1 - t0
+    steady = (ledger.committed_frames - ledger.first_sink_nframe) / \
+        (t1 - ledger.first_sink_t)
+    blocks = {b.name: b for b in pipe.blocks}
+    nsteps = len(blocks["fdmt"].fdmt._steps)
+    expect = expected(fdmt_merge_step=nsteps * NGULP, dq_masked_fill=NGULP)
+    if counts != expect:
+        raise AssertionError(f"launches {counts}, expected {expect}")
+    s = ledger.summary()
+    if s["lost_frames"] or s["duplicated_frames"] or \
+            s["committed_frames"] != GULP * NGULP - MAX_DELAY:
+        raise AssertionError(f"frame ledger: {s}")
+    best = check_burst(det)
+    # Every storm cell on for more than half of a window's frames must be
+    # flagged in that window, in every window after the onset.
+    w = FRB_FLAG["window"]
+    m = np.concatenate(masks)[frame0 // w:]              # (nwin, NCHAN)
+    busy = on.reshape(-1, w, len(chans)).sum(axis=1) > w // 2
+    missed = int((busy & ~m[:, chans]).sum())
+    if missed or len(masks) != NGULP:
+        raise AssertionError(f"{missed} busy storm windows not flagged")
+    clean = np.ones(NCHAN, bool)
+    clean[chans] = False
+    allm = np.concatenate(masks)
+    clean_share = float(allm[:, clean].mean())
+    flag = blocks["flag"]
+    nframe = GULP * NGULP
+    phase("frbflag", f"flagged FRB chain {NCHAN} ch x {nframe} frames, "
+          f"storm of {len(chans)} channels (p_on {STORM['p_on']}) from "
+          f"gulp {STORM_GULP0}: {wall:.3f} s, {nframe / wall:.1f} frames/s "
+          f"with start-up; steady state {steady:.1f} frames/s (from the "
+          f"first committed gulp); launches {counts}; ledger {s}; "
+          f"candidate {best}; busy storm windows flagged "
+          f"{int(busy.sum())}/{int(busy.sum())}; flagged fraction "
+          f"{flag.flagged_fraction:.6f}; clean cells flagged "
+          f"{clean_share:.6f}")
+    perf = {b.name: {k: round(v, 4) for k, v in b.perf_totals.items()}
+            for b in pipe.blocks}
+    phase("frbflag", f"host seconds by block and phase: {json.dumps(perf)}")
+    del pipe, det, blocks, flag
+    ref = []
+    config.set("dq_flag_method", "plain")
+    try:
+        frb_search_pipeline(data, GULP, MAX_DELAY, F0, DF, DT, device=dev,
+                            gather=ref, fdmt_method="plain",
+                            rfi_flag=FRB_FLAG)[0].run()
+    finally:
+        config.reset("dq_flag_method")
+    if len(chunks) != NGULP or len(ref) != NGULP:
+        raise AssertionError(f"gathered {len(chunks)}/{len(ref)} gulps")
+    for x, y in zip(chunks, ref):
+        if x.shape != y.shape or not np.isfinite(x).all() or \
+                not np.array_equal(x.view(np.uint32), y.view(np.uint32)):
+            raise AssertionError("flagged dedispersed gulps: kernels != "
+                                 "plain")
+    phase("frbflag", f"dedispersed gulps ({NGULP} x {MAX_DELAY} x {GULP}) "
+          f"bitwise equal: K5a and K1 vs dq_flag_method and fdmt_method "
+          f"'plain'")
+    return counts
+
+
+def dq_chain(dev, volt, gains, method=None, gather=None, on_mask=None,
+             fold=False):
+    """The flagged, calibrated beam search built from blocks (module
+    docstring, phase 8), every kernel method pinned to `method`.  With
+    `fold`, the flagged stream instead feeds gaincal -> beamform and
+    beamform(gains=) side by side, gathered into gather['cal'] and
+    gather['fold'].  -> (pipeline, detector, ledger)."""
+    from bifrost_tpu_torch import blocks as bl
+    from bifrost_tpu_torch.pipeline import Pipeline
+    from bifrost_tpu_torch.service import (CandidateDetectBlock,
+                                           FrameLedger, default_beam_weights)
+    w = default_beam_weights(NBEAM, NSTAND * NPOL)
+    pipe = Pipeline(device=dev)
+    ledger = FrameLedger()
+    det = None
+    with pipe:
+        src = bl.array_source(volt, B_GULP, header={
+            "dtype": "ci8", "labels": ["time", "station", "pol"],
+            "scales": [[0.0, B_DT], None, None], "units": ["s", None, None],
+            "cfreq": B_F0, "cfreq_units": "MHz"}, name="ingest")
+        h2d = bl.copy(src, space="cuda", name="fengine_h2d")
+        f = bl.pfb(h2d, BCHAN, ntap=NTAP, method=method, name="fengine_pfb")
+        fl = bl.rfi_flag(f, window=DQ_WINDOW, algo="mad", method=method,
+                         on_mask=on_mask, name="dq_flag")
+        cal = bl.gaincal(fl, gains, axis="station", method=method,
+                         name="dq_cal")
+        b = bl.beamform(cal, w, N_INT, method=method, name="bengine")
+        if fold:
+            bl.gather_sink(b, gather["cal"], name="gather_cal")
+            bf = bl.beamform(fl, w, N_INT, gains=gains, method=method,
+                             name="bengine_fold")
+            bl.gather_sink(bf, gather["fold"], name="gather_fold")
+            return pipe, det, ledger
+        t = bl.transpose(b, ["beam", "freq", "time"], name="bdetect_t")
+        d = bl.fdmt(t, max_delay=B_MAX_DELAY, method=method,
+                    name="bdetect_fdmt")
+        det = CandidateDetectBlock(d, threshold=8.0, name="bdetect")
+        det.ledger = ledger
+        bl.gather_sink(b, gather["beams"], name="gather_beams")
+        bl.gather_sink(d, gather["dedispersed"], name="gather_dedispersed")
+    return pipe, det, ledger
+
+
+class ToneMasks(object):
+    """An on_mask callback: keeps the first window's whole mask and, for
+    every window, whether all of the tone's cells were flagged."""
+
+    def __init__(self):
+        self.first, self.tone = None, []
+
+    def __call__(self, m):
+        if self.first is None:
+            self.first = m[0].copy()
+        self.tone.append(bool(m[:, DQ_CHAN, DQ_STATION].all()))
+
+
+def dq_path(dev, volt, spec):
+    """The flagged, calibrated beam search at full width (module
+    docstring, phase 8).  `volt`: [bengine]'s voltages (changed in
+    place: the tone is added); `spec`: the first integration's f64
+    golden spectra.  -> the kernels' launch counts in the main run."""
+    from bifrost_tpu_torch.blocks.testing import inject_tone
+    from bifrost_tpu_torch.service import default_beam_weights
+    nsp = NSTAND * NPOL
+    inject_tone(volt, DQ_TONE_INT * B_GULP, DQ_STATION, DQ_CHAN, BCHAN,
+                DQ_AMP)
+    rng = np.random.default_rng(SEED + 8)
+    gains = (0.5 + rng.random(NSTAND) +
+             0.3j * rng.standard_normal(NSTAND)).astype(np.complex64)
+    got = {"beams": Stamped(), "dedispersed": []}
+    tm = ToneMasks()
+    pipe, det, ledger = dq_chain(dev, volt, gains, gather=got, on_mask=tm)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    pipe.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    blocks = {b.name: b for b in pipe.blocks}
+    nfdmt = B_NINT - B_MAX_DELAY
+    expect = expected(fir_mac=B_NINT, beamform_power=B_NINT,
+                      dq_masked_fill=B_NINT, dq_gain_apply=B_NINT,
+                      fdmt_merge_step=nfdmt * NBEAM *
+                      len(blocks["bdetect_fdmt"].fdmt._steps))
+    if counts != expect:
+        raise AssertionError(f"launches {counts}, expected {expect}")
+    s = ledger.summary()
+    if s["lost_frames"] or s["duplicated_frames"] or \
+            s["committed_frames"] != nfdmt:
+        raise AssertionError(f"frame ledger: {s}")
+    if len(tm.tone) != B_NINT or not all(tm.tone[DQ_TONE_INT:]):
+        raise AssertionError(f"tone cells unflagged in windows "
+                             f"{[i for i, t in enumerate(tm.tone) if not t]}")
+    stamps = got["beams"].stamps
+    steady = (len(stamps) - 1) * B_GULP / (stamps[-1] - stamps[0])
+    flag = blocks["dq_flag"]
+    nframe = len(volt)
+    phase("dq", f"flagged, calibrated beam search {NSTAND}x{NPOL} inputs "
+          f"x {BCHAN} ch, {NBEAM} beams, {nframe} frames, tone on station "
+          f"{DQ_STATION} channel {DQ_CHAN} from integration {DQ_TONE_INT}: "
+          f"{wall:.3f} s, {nframe / wall:.1f} frames/s with start-up; "
+          f"steady state {steady:.1f} frames/s, {steady * nsp:.4g} "
+          f"samples/s (first to last integration out); launches {counts}; "
+          f"ledger {s}; candidates {len(det.candidates)}; tone cells "
+          f"flagged in windows {DQ_TONE_INT}..{B_NINT - 1}: yes; flagged "
+          f"fraction {flag.flagged_fraction:.6f}; peak device memory "
+          f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated)")
+    perf = {b.name: {k: round(v, 4) for k, v in b.perf_totals.items()}
+            for b in pipe.blocks}
+    phase("dq", f"host seconds by block and phase: {json.dumps(perf)}")
+    del pipe, det, ledger, blocks, flag
+    free_device()
+
+    ref = {"beams": [], "dedispersed": []}
+    dq_chain(dev, volt, gains, method="plain", gather=ref)[0].run()
+    for key, n in (("beams", B_NINT), ("dedispersed", nfdmt)):
+        a, b = got[key], ref[key]
+        if len(a) != n or len(b) != n:
+            raise AssertionError(f"gathered {len(a)}/{len(b)} {key}")
+        for x, y in zip(a, b):
+            if x.shape != y.shape or not np.isfinite(x).all() or \
+                    not np.array_equal(x.view(np.uint32), y.view(np.uint32)):
+                raise AssertionError(f"{key}: kernels != plain")
+    free_device()
+
+    # The first integration against the f64 golden, the gains applied and
+    # the cells of the first window's mask zeroed.
+    g_sp = np.repeat(gains, NPOL).astype(np.complex128)
+    zeroed = tm.first.reshape(BCHAN, nsp)
+    sc = spec * g_sp[None, None, :]
+    sc[:, zeroed] = 0
+    w = default_beam_weights(NBEAM, nsp).astype(np.complex128)
+    beams = sc @ w.T
+    golden = (beams.real ** 2 + beams.imag ** 2).sum(axis=0).T
+    err = float(np.abs(got["beams"][0][0] - golden).max() /
+                np.abs(golden).max())
+    if not err <= 1e-4:
+        raise AssertionError(f"first integration vs f64 golden: rel {err}")
+
+    # The fold identity: K5b on the samples against the gains folded
+    # into the weights, on one flagged stream.
+    lo, hi = DQ_FOLD
+    fg = {"cal": [], "fold": []}
+    dq_chain(dev, volt[lo * B_GULP:hi * B_GULP], gains, gather=fg,
+             fold=True)[0].run()
+    a, b = np.concatenate(fg["cal"]), np.concatenate(fg["fold"])
+    if a.shape != (hi - lo, NBEAM, BCHAN) or a.shape != b.shape:
+        raise AssertionError(f"fold run shapes {a.shape} {b.shape}")
+    fold_err = float(np.abs(a - b).max() / np.abs(b).max())
+    if not fold_err <= 1e-5:
+        raise AssertionError(f"gaincal -> beamform vs beamform(gains=): rel "
+                             f"{fold_err}")
+    phase("dq", f"beam powers ({B_NINT} x {NBEAM} x {BCHAN}) and "
+          f"dedispersed frames ({nfdmt} x {NBEAM} x {B_MAX_DELAY}) bitwise "
+          f"equal: kernels vs every method 'plain'; first integration vs "
+          f"the f64 golden (gains applied, {int(zeroed.sum())} flagged "
+          f"cells zeroed): max rel err {err:.3e} (limit 1e-4); gaincal -> "
+          f"beamform vs beamform(gains=) over integrations {lo}..{hi - 1}: "
+          f"max rel err {fold_err:.3e} of the peak (limit 1e-5)")
+    return counts
 
 
 def main():
@@ -941,23 +1354,30 @@ def main():
             check_beamform(dev, kind, rng)]
     time_dft(dev, kind, rng)
     recs += check_romein(dev, kind)
+    recs += check_dq(dev, kind)
     time_xstages(dev, kind)
     free_device()
     t1 = time.perf_counter()
-    frb_launches, _ = main_path(dev)
+    counts = {"frb": main_path(dev)}
     free_device()
     t2 = time.perf_counter()
-    bcounts, volt, bgot, spec = bengine_path(dev)
+    counts["frbflag"] = frbflag_path(dev)
     free_device()
     t3 = time.perf_counter()
-    icounts, kcounts = instrument_path(dev, volt, bgot, spec)
+    counts["bengine"], volt, bgot, spec = bengine_path(dev)
+    free_device()
+    t4 = time.perf_counter()
+    counts["instrument"], counts["instrument_k6a"] = instrument_path(
+        dev, volt, bgot, spec)
+    del bgot
+    free_device()
+    t5 = time.perf_counter()
+    counts["dq"] = dq_path(dev, volt, spec)
     phase("timing", f"build {secs:.1f} s, kernels {t1 - t0:.1f} s, main "
-          f"{t2 - t1:.1f} s, bengine {t3 - t2:.1f} s, instrument "
-          f"{time.perf_counter() - t3:.1f} s")
-    by_path = {name: {"frb": frb_launches if name == "fdmt_merge_step"
-                      else 0, "bengine": bcounts[name],
-                      "instrument": icounts[name],
-                      "instrument_k6a": kcounts[name]}
+          f"{t2 - t1:.1f} s, frbflag {t3 - t2:.1f} s, bengine "
+          f"{t4 - t3:.1f} s, instrument {t5 - t4:.1f} s, dq "
+          f"{time.perf_counter() - t5:.1f} s")
+    by_path = {name: {path: c[name] for path, c in counts.items()}
                for name in kernel_counters()}
     for rec in recs:
         rec["launches_by_path"] = by_path[rec["name"]]

@@ -218,3 +218,88 @@ def test_romein_plan_cuda_matches_cpu(cuda):
         c = plan.execute(vis)
         assert torch.equal(torch.view_as_real(a), torch.view_as_real(c))
         assert torch.equal(torch.view_as_real(a), torch.view_as_real(b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cplx,baseline,ntime,window", [
+    (False, True, 37, 8), (False, False, 64, 16), (True, False, 37, 8),
+    (True, False, 16, 16)])
+def test_masked_fill_kernel_bitwise_vs_plain(cuda, cplx, baseline, ntime,
+                                             window):
+    """K5a against its plain version, bitwise: f32 with a baseline fill
+    and zero fill, complex64 (one launch for both components), a tail
+    window, -0.0 samples, and a strided output span."""
+    from bifrost_tpu_torch.ops import dq_kernel
+    rng = np.random.default_rng(13)
+    ncell = 300
+    nrows = -(-ntime // window)
+    x = rng.standard_normal((ntime, ncell)).astype(np.float32)
+    x[::3, ::5] = -0.0
+    if cplx:
+        x = (x + 1j * rng.standard_normal(x.shape)).astype(np.complex64)
+    x = torch.from_numpy(x).to(cuda)
+    mask = torch.from_numpy(rng.random((nrows, ncell)) < 0.3).to(cuda)
+    fill = torch.from_numpy(rng.standard_normal((nrows, ncell))
+                            .astype(np.float32)).to(cuda) \
+        if baseline else None
+    out = torch.empty(ntime, 3 * ncell, dtype=x.dtype, device=cuda)[:, ::3]
+    before = dq_kernel.masked_fill.launches
+    dq_kernel.masked_fill(x, mask, fill, window, out=out)
+    assert dq_kernel.masked_fill.launches == before + 1
+    want = dq_kernel.masked_fill_plain(x, mask, fill, window)
+    torch.cuda.synchronize()
+    got = out.contiguous()
+    if cplx:
+        got, want = torch.view_as_real(got), torch.view_as_real(want)
+    assert _bits_equal(got, want)
+
+
+@pytest.mark.gpu
+def test_gain_apply_kernel_bitwise_vs_plain(cuda):
+    """K5b against its plain version, bitwise, into a strided span."""
+    from bifrost_tpu_torch.ops import dq_kernel
+    rng = np.random.default_rng(14)
+    x = torch.from_numpy((rng.standard_normal((40, 700)) +
+                          1j * rng.standard_normal((40, 700)))
+                         .astype(np.complex64)).to(cuda)
+    g = torch.from_numpy((rng.standard_normal(700) +
+                          1j * rng.standard_normal(700))
+                         .astype(np.complex64)).to(cuda)
+    out = torch.empty(80, 700, dtype=torch.complex64, device=cuda)[::2]
+    before = dq_kernel.gain_apply.launches
+    dq_kernel.gain_apply(x, g, out=out)
+    assert dq_kernel.gain_apply.launches == before + 1
+    want = dq_kernel.gain_apply_plain(x, g)
+    torch.cuda.synchronize()
+    assert _bits_equal(torch.view_as_real(out.contiguous()),
+                       torch.view_as_real(want))
+    with pytest.raises(ValueError, match="overlaps"):
+        dq_kernel.gain_apply(x, g, out=x)
+    with pytest.raises(ValueError, match="complex64"):
+        dq_kernel.gain_apply(x, g.to(torch.complex128))
+
+
+@pytest.mark.gpu
+def test_flag_and_gaincal_cuda_match_cpu(cuda):
+    """The 'mad' flagger and the calibrator on the card (kernels) against
+    the CPU (plain versions), bitwise: the median/MAD statistics are
+    sorts and elementwise IEEE operations on both."""
+    from bifrost_tpu_torch.ops import Flag, GainCal
+    rng = np.random.default_rng(15)
+    x = (rng.standard_normal((150, 8, 5)) +
+         1j * rng.standard_normal((150, 8, 5))).astype(np.complex64)
+    x[96:, 3, 1] += 25.0
+    u8 = rng.integers(0, 32, (150, 40)).astype(np.uint8)
+    u8[64:, 5] = 250
+    for a in (x, u8):
+        p, q = Flag().init(16), Flag().init(16)
+        y1, m1 = p.execute(torch.from_numpy(a).to(cuda))
+        y2, m2 = q.execute(torch.from_numpy(a))
+        assert torch.equal(m1.cpu(), m2) and m2.any()
+        assert torch.equal(y1.cpu(), y2)
+        assert torch.equal(p._state.cpu(), q._state)
+    g = (rng.standard_normal(40) + 1j * rng.standard_normal(40)) \
+        .astype(np.complex64)
+    a = GainCal().init(gains=g).execute(torch.from_numpy(x).to(cuda))
+    b = GainCal().init(gains=g).execute(torch.from_numpy(x))
+    assert _bits_equal(torch.view_as_real(a.cpu()), torch.view_as_real(b))
