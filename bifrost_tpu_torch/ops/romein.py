@@ -23,7 +23,9 @@ rank-1 (u, v) pair, per distinct leading index, never the (npol, nvis, m,
 m) array the JAX host plan materialises.  Kernels that `separate_kernels`
 (copied verbatim) finds rank-1 take K6b, the others K6a
 (ops/romein_kernel.py, csrc/romein.cu); all planes of a call go in one
-launch.
+launch.  For the kernels the plan is also cut into tiles (`build_tiles`:
+tiles of cells, each tile's visibilities in chunks, each cell's list
+split by chunk), which keeps every cell's summation order.
 
 Methods (the `romein_method` config flag when None/'auto'): 'cuda' (what
 'auto' resolves to: K6a/K6b for a CUDA tensor, their plain versions for a
@@ -34,11 +36,14 @@ bitwise equal.  The JAX methods 'pallas', 'scatter' and 'sorted' and the
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
-from .romein_kernel import (grid_general, grid_general_plain,
-                            grid_separable, grid_separable_plain)
+from .romein_kernel import (TILE, WARPS, Tiles, chunk_slots, grid_general,
+                            grid_general_plain, grid_separable,
+                            grid_separable_plain)
 from .runtime import OpRuntime
 
 METHODS = ("cuda", "plain")
@@ -122,6 +127,106 @@ def build_plan(xs, ys, m, ngrid):
     return offsets.astype(np.int32), code[order].astype(np.int32)
 
 
+def build_tiles(offsets, entries, m, ngrid, ndata):
+    """The tiled plan of K6a/K6b (csrc/romein.cu), from the CSR plan of
+    `build_plan`, at the kernels' geometry (ops/romein_kernel.py reads it
+    from their source).  The grid is cut into TILE x TILE cells (ragged at
+    the edge); each tile's distinct visibilities S_T, ascending, are cut
+    into chunks of `chunk_slots(m)` slots; for each (chunk, cell) the
+    cell's contributions whose visibility falls in the chunk form one
+    item, and a chunk's items are dealt to WARPS warps, heaviest first in
+    snake order.  -> dict of int32 arrays:
+
+    - tile_chunk0 (ntile + 1,): tile t's chunks are tile_chunk0[t] ..
+      tile_chunk0[t + 1] - 1, tiles row-major;
+    - cellmap (ntile * TILE * TILE,): local cell (ly * TILE + lx) of
+      tile t -> its row among the tile's cells with contributions, in
+      row-major order, or -1;
+    - chunk_vis0 (nchunk + 1,): chunk g's slots s map to visibilities
+      svis[chunk_vis0[g] + s], s < chunk_vis0[g + 1] - chunk_vis0[g];
+    - svis: every tile's S_T, concatenated;
+    - wtab (nchunk * WARPS + 1, 2): warp w of chunk g walks items
+      wtab[g*WARPS + w, 0] .. wtab[g*WARPS + w + 1, 0] - 1, whose entries
+      start at tent[wtab[g*WARPS + w, 1]] and follow one another;
+    - items: the cell's row (cellmap) | count << 16;
+    - tent: one per contribution, off | j << 16 | k << 24, where off =
+      slot << 8 | (slot % 32) << 3 is the byte offset of the slot's row
+      of 32 planes in the kernel's chunk buffer, swizzled for lane 0
+      (lane l reads off ^ 8 l).
+
+    A cell's items, in chunk order, list its CSR entries in their order,
+    so a walk of the tiled plan sums each cell as the CSR walk does."""
+    if not 0 < m < 256:
+        raise ValueError(f"romein: a tiled plan needs m < 256 (got {m})")
+    tile, warps, chunk = TILE, WARPS, chunk_slots(m)
+    mm = m * m
+    off = np.asarray(offsets, np.int64)
+    ent = np.asarray(entries, np.int64)
+    ntx = -(-ngrid // tile)
+    ntile = ntx * ntx
+    cell = np.repeat(np.arange(ngrid * ngrid), np.diff(off))
+    y, x = cell // ngrid, cell % ngrid
+    tid = (y // tile) * ntx + x // tile
+    lc = (y % tile) * tile + x % tile
+    vis = ent // mm
+    jk = ent - vis * mm
+    # S_T: the distinct (tile, visibility) pairs, ascending.
+    uk, inv = np.unique(tid * ndata + vis, return_inverse=True)
+    st_tile = uk // ndata
+    st0 = np.searchsorted(st_tile, np.arange(ntile + 1))
+    slot = np.arange(uk.size) - st0[st_tile]
+    nchunk_t = -(-np.diff(st0) // chunk)
+    tile_chunk0 = np.zeros(ntile + 1, np.int64)
+    np.cumsum(nchunk_t, out=tile_chunk0[1:])
+    nchunk = int(tile_chunk0[-1])
+    g_t = np.repeat(np.arange(ntile), nchunk_t)
+    chunk_vis0 = np.append(st0[g_t] + (np.arange(nchunk) -
+                                       tile_chunk0[g_t]) * chunk, uk.size)
+    eg = (tile_chunk0[st_tile] + slot // chunk)[inv]
+    eslot = (slot % chunk)[inv]
+    # Each tile's cells with contributions, numbered in row-major order.
+    tcell = np.unique(tid * (tile * tile) + lc)
+    cellmap = np.full(ntile * tile * tile, -1, np.int64)
+    cellmap[tcell] = np.arange(tcell.size) - np.searchsorted(
+        tcell, tcell // (tile * tile) * (tile * tile))
+    # Items: the (chunk, cell) groups.  The stable sort keeps each
+    # group's entries in CSR order (ascending visibility).
+    order = np.lexsort((lc, eg))
+    ikey = eg[order] * (tile * tile) + lc[order]
+    first = np.flatnonzero(np.diff(ikey, prepend=-1))
+    icount = np.diff(np.append(first, ikey.size))
+    ig, ilc = ikey[first] // (tile * tile), ikey[first] % (tile * tile)
+    # Deal each chunk's items to the warps, heaviest first, in snake
+    # order (0..W-1, W-1..0, ...).
+    byweight = np.lexsort((ilc, -icount, ig))
+    istart = np.searchsorted(ig[byweight], np.arange(nchunk))
+    rank = np.arange(icount.size) - istart[ig[byweight]]
+    rnd, pos = rank // warps, rank % warps
+    warp = np.empty_like(rank)
+    warp[byweight] = np.where(rnd % 2 == 0, pos, warps - 1 - pos)
+    iorder = np.lexsort((ilc, warp, ig))
+    # Entries follow their items in the walk's order.
+    walk_rank = np.empty_like(iorder)
+    walk_rank[iorder] = np.arange(iorder.size)
+    tent_src = order[np.argsort(np.repeat(walk_rank, icount),
+                                kind="stable")]
+    es = eslot[tent_src]
+    tent = ((es << 8) | ((es % 32) << 3) | ((jk[tent_src] // m) << 16) |
+            ((jk[tent_src] % m) << 24)).astype(np.uint32).view(np.int32)
+    wkey = ig[iorder] * warps + warp[iorder]
+    wtab = np.zeros((nchunk * warps + 1, 2), np.int64)
+    wtab[:, 0] = np.searchsorted(wkey, np.arange(nchunk * warps + 1))
+    wtab[:, 1] = np.append(0, np.cumsum(icount[iorder]))[wtab[:, 0]]
+    ig_tile = np.searchsorted(tile_chunk0, ig[iorder], side="right") - 1
+    items = cellmap[ig_tile * (tile * tile) + ilc[iorder]] | \
+        (icount[iorder] << 16)
+    i32 = lambda a: np.ascontiguousarray(a, np.int32)
+    return {"tile_chunk0": i32(tile_chunk0), "cellmap": i32(cellmap),
+            "chunk_vis0": i32(chunk_vis0),
+            "svis": i32(uk % ndata), "wtab": i32(wtab), "items": i32(items),
+            "tent": i32(tent)}
+
+
 def kernel_planes(kern, npol, ndata, m):
     """Kernels -> their distinct planes (nk, nvk, m, m) complex64, nk in
     (1, npol), nvk in (1, ndata): a full (npol * ndata * m * m) array in
@@ -142,11 +247,15 @@ def kernel_planes(kern, npol, ndata, m):
 
 
 class RomeinPlan(object):
-    """A built plan on one device: the CSR lists and the kernel planes
-    (`kern`, or the rank-1 `u`, `v` when `separable`)."""
+    """A built plan on one device: the CSR lists, the kernel planes
+    (`kern`, or the rank-1 `u`, `v` when `separable`) and, for the
+    kernels ('cuda' on a CUDA device), the tiled plan `tiles` (else
+    None), built in `tiles_build_s` host seconds."""
 
-    def __init__(self, xs, ys, kern_np, ngrid, npol, ndata, device):
+    def __init__(self, xs, ys, kern_np, ngrid, npol, ndata, device,
+                 method="cuda"):
         m = kern_np.shape[-1]
+        device = torch.device(device)
         self.m, self.ngrid, self.npol, self.ndata = m, ngrid, npol, ndata
         offsets, entries = build_plan(xs, ys, m, ngrid)
         self.ncontrib = int(entries.size)
@@ -160,6 +269,12 @@ class RomeinPlan(object):
             return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
         self.offsets, self.entries = put(offsets), put(entries)
+        self.tiles, self.tiles_build_s = None, 0.0
+        if method == "cuda" and device.type == "cuda":
+            t0 = time.perf_counter()
+            self.tiles = Tiles(build_tiles(offsets, entries, m, ngrid, ndata),
+                               m, ngrid, ndata, device)
+            self.tiles_build_s = time.perf_counter() - t0
         if self.separable:
             self.u, self.v = put(uv[0]), put(uv[1])
             self.kern = None
@@ -170,13 +285,17 @@ class RomeinPlan(object):
     def grid(self, data, out, method, accumulate):
         """Grid data (npol, ndata) complex64 into out (npol, ngrid,
         ngrid) with K6a/K6b ('cuda') or their plain versions."""
-        if self.separable:
-            fn = grid_separable if method == "cuda" else grid_separable_plain
-            return fn(data, self.offsets, self.entries, self.u, self.v, out,
+        if method != "cuda":
+            fn = grid_separable_plain if self.separable else \
+                grid_general_plain
+            planes = (self.u, self.v) if self.separable else (self.kern,)
+            return fn(data, self.offsets, self.entries, *planes, out,
                       accumulate)
-        fn = grid_general if method == "cuda" else grid_general_plain
-        return fn(data, self.offsets, self.entries, self.kern, out,
-                  accumulate)
+        if self.separable:
+            return grid_separable(data, self.offsets, self.entries, self.u,
+                                  self.v, out, accumulate, self.tiles)
+        return grid_general(data, self.offsets, self.entries, self.kern, out,
+                            accumulate, self.tiles)
 
 
 class Romein(object):
@@ -247,7 +366,7 @@ class Romein(object):
                 raise ValueError(f"romein: {pos.shape[-1]} positions for "
                                  f"{ndata} visibilities")
             return RomeinPlan(pos[0, 0], pos[1, 0], self.kernels,
-                              self.ngrid, npol, ndata, device)
+                              self.ngrid, npol, ndata, device, method)
 
         plan = self._runtime.plan((method, npol, ndata, str(device)), build,
                                   method=method, origin="host")

@@ -10,7 +10,11 @@ Phases, one line each; any failure exits non-zero:
 3. kernels — hold each kernel against its plain PyTorch version at the
              shapes the main paths give it, bitwise, and time both, the
              bound and a library call for the same function; time the
-             PFB's DFT matmuls per gulp.
+             PFB's DFT matmuls per gulp.  The gridders K6a/K6b are also
+             held against a rerun, and their tiled plan's geometry,
+             sectors per plane, layout floor, host build time and each
+             kernel instantiation's registers and shared memory get a
+             line of their own.
 4. main    — drive the FRB-search chain (`frb_search_pipeline`) at full
              width: 4096 channels of u8 power at the LWA band (40 MHz,
              9.28 kHz, 1 ms), FDMT max_delay 2048, gulps of 4096 frames,
@@ -573,6 +577,23 @@ def romein_work(plan, npol, nvis, rate):
     return ms, by, nbytes, nops
 
 
+def romein_layout(plan, npol, vs_bytes, rate):
+    """The tiled plan's statistics and the floor that the data's layout
+    sets: each tile's visibilities S_T gathered as whole 32-byte sectors
+    at `vs_bytes` between visibilities (each sector read once a plane),
+    each grid cell written once.  -> dict (sum |S_T| / nvis, sectors per
+    plane, floor ms)."""
+    t = plan.tiles
+    tc, cv = t.tile_chunk0.cpu().numpy(), t.chunk_vis0.cpu().numpy()
+    sv = t.svis.cpu().numpy().astype(np.int64)
+    sectors = sum(np.unique(sv[cv[tc[i]]:cv[tc[i + 1]]] * vs_bytes // 32)
+                  .size for i in range(tc.size - 1))
+    ncell = plan.ngrid * plan.ngrid
+    floor = npol * (sectors * 32 + ncell * 8) / rate * 1e3
+    return {"st_ratio": sv.size / plan.ndata, "sectors": sectors,
+            "floor_ms": floor}
+
+
 def k6a_kernels(nvis):
     """The seeded non-rank-1 (1, nvis, 3, 3) kernel plane of K6a's
     check and run."""
@@ -587,10 +608,16 @@ def check_romein(dev, kind):
     planes x 262,144 visibilities, laid out as the time-last ring span
     gives them (one complex64 every 16 bytes), gridded onto 128 x 128;
     K6b with the default kernel, K6a with the seeded non-rank-1 plane.
-    Each against its plain version bitwise, timed beside the bound and
-    cuSPARSE SpMM (`torch.sparse.mm` with the plan as a CSR matrix).
-    -> the two kernel records."""
+    Each against its plain version bitwise and against a rerun, timed
+    beside the bound, the layout's floor and cuSPARSE SpMM
+    (`torch.sparse.mm` with the plan as a CSR matrix); the tiled plan's
+    geometry and statistics and each kernel instantiation's registers and
+    shared memory on a line of their own.  -> the two kernel records."""
+    from bifrost_tpu_torch import build
     from bifrost_tpu_torch.ops import Romein
+    from bifrost_tpu_torch.ops.romein_kernel import (TILE, WARPS,
+                                                     chunk_slots,
+                                                     kernel_info)
     from bifrost_tpu_torch.service import default_grid_kernel, default_uvw
     npol, nsp = BCHAN, NSTAND * NPOL
     nvis = nsp * nsp
@@ -605,19 +632,25 @@ def check_romein(dev, kind):
              "bifrost_tpu/ops/romein_pallas.py:505"),
             ("romein_grid_general", k6a_kernels(nvis),
              "bifrost_tpu/ops/romein_pallas.py:591")):
+        t0 = time.perf_counter()
         plan, _ = Romein().init(uvw, kern, NGRID).plan(npol, nvis, dev)
+        plan_s = time.perf_counter() - t0
         if plan.separable != (name == "romein_grid_separable"):
             raise AssertionError(f"{name}: wrong kernel chosen")
         out = torch.empty(npol, NGRID, NGRID, dtype=torch.complex64,
                           device=dev)
         plan.grid(data, out, "cuda", False)
+        again = torch.full_like(out, complex(-0.0, -0.0))
+        plan.grid(data, again, "cuda", False)
         want = plan.grid(data, torch.empty_like(out), "plain", False)
         torch.cuda.synchronize()
         if not bits_equal(torch.view_as_real(out), torch.view_as_real(want)):
             raise AssertionError(f"{name} differs from plain")
+        if not bits_equal(torch.view_as_real(out), torch.view_as_real(again)):
+            raise AssertionError(f"{name}: a rerun differs")
         worst = float((out - want).abs().max())
-        del want
-        ms = cuda_time(lambda: plan.grid(data, out, "cuda", False), 5)
+        del want, again
+        ms = cuda_time(lambda: plan.grid(data, out, "cuda", False), 20)
         plain_ms = cuda_time(
             lambda: plan.grid(data, torch.empty_like(out), "plain", False),
             1)
@@ -641,14 +674,37 @@ def check_romein(dev, kind):
         del lib, dense, csr, vals, vis_of, jk
         bound_ms, by, nbytes, nops = romein_work(plan, npol, nvis,
                                                  hbm_rate(kind))
+        lay = romein_layout(plan, npol, data.stride(1) * 8, hbm_rate(kind))
+        t = plan.tiles
+        info = {f"{'sep' if sep else 'gen'}_{src}":
+                kernel_info(sep, i, t.max_cells) for sep in (True, False)
+                for i, src in enumerate(("global", "table", "chunk"))}
+        spills = [ln.strip() for ln in
+                  build.build_log.get("romein", {}).get("ptxas",
+                                                        "").splitlines()
+                  if "spill" in ln]
+        phase("kernels", f"{name} tiled plan: tile {TILE}, chunk "
+              f"{chunk_slots(plan.m)}, {WARPS} warps a block; {t.nchunk} "
+              f"chunks, {t.items.numel()} items, at most {t.max_cells} "
+              f"cells with contributions in a tile; sum |S_T| / nvis "
+              f"{lay['st_ratio']:.4f}; {lay['sectors']} sectors of 32 B "
+              f"per plane ({lay['sectors'] / nvis:.4f} per visibility at "
+              f"{data.stride(1) * 8} B between visibilities); layout floor "
+              f"{lay['floor_ms']:.4f} ms; plan {plan_s:.3f} s on the host, "
+              f"{plan.tiles_build_s:.3f} s of it the tiled plan; "
+              f"instantiations (regs per thread, spilled bytes per "
+              f"thread, static + dynamic smem per block, blocks per SM): "
+              f"{json.dumps(info)}; ptxas: {spills}")
         phase("kernels", f"{name} ({'K6b' if plan.separable else 'K6a'}) "
-              f"equal to plain (tolerance: bitwise) at {npol} planes x "
+              f"equal to plain (tolerance: bitwise) and to a rerun at {npol} "
+              f"planes x "
               f"{nvis} vis -> {NGRID}x{NGRID}, {plan.ncontrib} in-grid "
               f"contributions per plane (at most {plan.maxcount} in a "
               f"cell); {ms:.4f} ms per frame (1 launch), plain "
               f"{plain_ms:.4f} ms, SpMM {library_ms:.4f} ms (rel err "
               f"{lib_err:.2e}), bound {bound_ms:.4f} ms ({by}: "
-              f"{nbytes / 1e9:.4f} GB, {nops / 1e9:.4f} G ops), {kind}")
+              f"{nbytes / 1e9:.4f} GB, {nops / 1e9:.4f} G ops), layout "
+              f"floor {lay['floor_ms']:.4f} ms, {kind}")
         recs.append({"name": name, "route": "cuda",
                      "source": "bifrost_tpu_torch/csrc/romein.cu",
                      "replaces": src, "launches": None,

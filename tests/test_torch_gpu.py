@@ -132,13 +132,15 @@ def test_pfb_and_beamform_cuda_match_cpu(cuda):
     assert _bits_equal(a.cpu(), b)
 
 
-def _romein_case(npol, nvis, ngrid, m, rank1, per_pol, per_vis, seed):
+def _romein_case(npol, nvis, ngrid, m, rank1, per_pol, per_vis, seed,
+                 empty=False):
     """Seeded (data, plan, kernel planes) for K6a/K6b: positions that
-    straddle every edge of the grid."""
+    straddle every edge of the grid (or, `empty`, all off it)."""
     from bifrost_tpu_torch.ops.romein import (build_plan, kernel_planes,
                                               separate_kernels)
     rng = np.random.default_rng(seed)
-    pos = rng.integers(-m, ngrid + 1, (2, nvis))
+    pos = rng.integers(ngrid + 1, 2 * ngrid, (2, nvis)) if empty else \
+        rng.integers(-m, ngrid + 1, (2, nvis))
     shape = (npol if per_pol else 1, nvis if per_vis else 1)
     if rank1:
         u = rng.standard_normal(shape + (m,)) + \
@@ -153,49 +155,93 @@ def _romein_case(npol, nvis, ngrid, m, rank1, per_pol, per_vis, seed):
     uv = separate_kernels(planes)
     assert (uv is not None) == rank1
     off, ent = build_plan(pos[0], pos[1], m, ngrid)
+    assert (ent.size == 0) == empty
     data = (rng.standard_normal((npol, nvis)) +
             1j * rng.standard_normal((npol, nvis))).astype(np.complex64)
     return data, off, ent, (uv if rank1 else (planes,))
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("rank1,per_pol,per_vis,strided,accumulate", [
-    (True, False, False, True, False), (True, True, True, False, True),
-    (False, False, True, True, False), (False, True, True, False, True),
-    (False, False, False, False, False)])
+@pytest.mark.parametrize(
+    "rank1,per_pol,per_vis,strided,accumulate,npol,empty", [
+        (True, False, False, True, False, 3, False),
+        (True, True, True, False, True, 3, False),
+        (False, False, True, True, False, 3, False),
+        (False, True, True, False, True, 3, False),
+        (False, False, False, False, False, 3, False),
+        (True, False, False, False, True, 1, False),
+        (False, True, False, True, True, 33, False),
+        (True, True, True, True, False, 33, False),
+        (False, False, True, False, True, 64, False),
+        (True, False, False, True, True, 3, True),
+        (False, True, True, False, False, 33, True)])
 def test_romein_kernels_bitwise_vs_plain(cuda, rank1, per_pol, per_vis,
-                                         strided, accumulate):
+                                         strided, accumulate, npol, empty):
     """K6b (rank-1) and K6a against their plain versions, bitwise: shared,
-    per-visibility and per-plane kernel planes, out-of-grid patches,
-    strided data and grids (a time-last ring span), overwrite and
-    accumulate."""
+    per-visibility and per-plane kernel planes, out-of-grid patches, an
+    ngrid (40) that the tile does not divide, tiles with more
+    visibilities than a chunk, plane counts that are not a multiple of 32,
+    an empty plan, strided data and grids (a time-last ring span),
+    overwrite and accumulate over -0.0 cells; a rerun bit-identical."""
     from bifrost_tpu_torch.ops import romein_kernel as rk
-    npol, nvis, ngrid, m = 3, 700, 40, 5
+    from bifrost_tpu_torch.ops.romein import build_tiles
+    nvis, ngrid, m = 700, 40, 5
     data, off, ent, planes = _romein_case(npol, nvis, ngrid, m, rank1,
-                                          per_pol, per_vis, seed=11)
+                                          per_pol, per_vis, seed=11,
+                                          empty=empty)
+    tb = build_tiles(off, ent, m, ngrid, nvis)
+    if not empty:
+        assert np.diff(tb["tile_chunk0"]).max() > 1
+    tiles = rk.Tiles(tb, m, ngrid, nvis, cuda)
     off, ent = (torch.from_numpy(a).to(cuda) for a in (off, ent))
     planes = [torch.from_numpy(np.ascontiguousarray(p)).to(cuda)
               for p in planes]
     d = torch.from_numpy(data).to(cuda)
     if strided:
         d = torch.stack([d, torch.zeros_like(d)], -1)[..., 0]
-    g0 = torch.from_numpy(np.full((npol, ngrid, ngrid, 2), 0.5 - 1j,
-                                  np.complex64)).to(cuda)
-    out, ref = g0.clone(), g0.clone()
+    g0 = np.full((npol, ngrid, ngrid, 2), 0.5 - 1j, np.complex64)
+    g0[:, ::3, 1::2] = np.complex64(complex(-0.0, -0.0))
+    g0 = torch.from_numpy(g0).to(cuda)
+    out, ref, again = g0.clone(), g0.clone(), g0.clone()
     if not strided:
-        out, ref = out[..., 0].contiguous(), ref[..., 0].contiguous()
+        out, ref, again = (t[..., 0].contiguous() for t in (out, ref, again))
     else:
-        out, ref = out[..., 0], ref[..., 0]
+        out, ref, again = out[..., 0], ref[..., 0], again[..., 0]
     kernel = rk.grid_separable if rank1 else rk.grid_general
     plain = rk.grid_separable_plain if rank1 else rk.grid_general_plain
     before = (rk.grid_general.launches, rk.grid_separable.launches)
-    kernel(d, off, ent, *planes, out, accumulate=accumulate)
+    kernel(d, off, ent, *planes, out, accumulate=accumulate, tiles=tiles)
+    kernel(d, off, ent, *planes, again, accumulate=accumulate, tiles=tiles)
     plain(d, off, ent, *planes, ref, accumulate=accumulate)
     after = (rk.grid_general.launches, rk.grid_separable.launches)
-    assert after == (before[0] + (not rank1), before[1] + rank1)
+    assert after == (before[0] + 2 * (not rank1), before[1] + 2 * rank1)
     torch.cuda.synchronize()
-    assert torch.equal(torch.view_as_real(out).view(torch.int32),
-                       torch.view_as_real(ref).view(torch.int32))
+    bits = lambda t: torch.view_as_real(t).contiguous().view(torch.int32)
+    assert torch.equal(bits(out), bits(ref))
+    assert torch.equal(bits(out), bits(again))
+
+
+@pytest.mark.gpu
+def test_romein_kernels_refuse_without_tiles(cuda):
+    """A CUDA launch without the tiled plan, or with one cut for another
+    grid, raises and launches nothing."""
+    from bifrost_tpu_torch.ops import romein_kernel as rk
+    from bifrost_tpu_torch.ops.romein import build_tiles
+    data, off, ent, planes = _romein_case(2, 50, 24, 3, True, False, False,
+                                          seed=16)
+    other = rk.Tiles(build_tiles(off, ent, 3, 24, 50), 3, 24, 50, cuda)
+    other.ngrid = 32
+    off, ent = (torch.from_numpy(a).to(cuda) for a in (off, ent))
+    u, v = (torch.from_numpy(np.ascontiguousarray(p)).to(cuda)
+            for p in planes)
+    d = torch.from_numpy(data).to(cuda)
+    out = torch.zeros(2, 24, 24, dtype=torch.complex64, device=cuda)
+    before = rk.grid_separable.launches
+    with pytest.raises(ValueError, match="needs the tiled plan"):
+        rk.grid_separable(d, off, ent, u, v, out)
+    with pytest.raises(ValueError, match="ngrid 32"):
+        rk.grid_separable(d, off, ent, u, v, out, tiles=other)
+    assert rk.grid_separable.launches == before
 
 
 @pytest.mark.gpu
