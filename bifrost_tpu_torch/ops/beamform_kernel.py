@@ -18,18 +18,52 @@ integer below 2**24, and otherwise agree to a tolerance.
 `beamform_power` launches the kernel for a CUDA tensor and runs
 `beamform_power_plain` only for a tensor on the CPU; any other device
 raises.  `beamform_power.launches` counts kernel launches (and nothing
-else).
+else).  `launch_geometry` is the launch's shape, decided here and read
+by the tests.
 """
 
 from __future__ import annotations
 
 import ctypes
+import re
 
 import torch
 
 from .. import build
 
-MAX_BEAMS = 128   # the kernel's (frame, beam) pairs per block
+
+def _constants():
+    """csrc/beamform.cu's compiled geometry (its constexprs kRows,
+    kGroup, kMaxBeams, kRowBytes, kStages), read from the source so that
+    the launch and the kernel cannot disagree."""
+    src = (build.CSRC / "beamform.cu").read_text()
+    val = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    return tuple(int(val[k]) for k in ("kRows", "kGroup", "kMaxBeams",
+                                        "kRowBytes", "kStages"))
+
+
+# Rows (frame, channel) a block, beams a block, beams a launch, bytes of
+# a row a chunk, chunks in the ring.
+ROWS, GROUP, MAX_BEAMS, ROW_BYTES, STAGES = _constants()
+SMEM_LIMIT = 232448   # shared memory a block may use on sm_90
+
+
+def launch_geometry(ntime, nchan, nsp, nbeam, elt_bytes, base=0):
+    """The kernel's launch for x (ntime, nchan, nsp) of `elt_bytes` a
+    sample (8 for complex64, 2 for ci8) at address `base`: frames a tile
+    (all of a short call's frames), channels a block, beam groups,
+    blocks, dynamic shared memory in bytes (the chunk ring with each
+    chunk's weights, which a tile's powers reuse, and the row offsets)
+    and whether
+    16-byte copies apply (x and a row's bytes 16-byte aligned)."""
+    frames = max(1, min(ntime, ROWS))
+    chans = ROWS // frames
+    groups = -(-nbeam // GROUP)
+    stations = ROW_BYTES // elt_bytes
+    smem = STAGES * (ROWS * ROW_BYTES + stations * GROUP * 8) + ROWS * 8
+    return {"frames": frames, "chans": chans, "groups": groups,
+            "blocks": -(-nchan // chans) * groups, "smem": smem,
+            "vec": base % 16 == 0 and nsp * elt_bytes % 16 == 0}
 
 
 def _planes(x):
@@ -73,12 +107,30 @@ def _library():
         lib = build.load("beamform")
         lib.beamform_power.argtypes = [ctypes.c_void_p, ctypes.c_int] + \
             [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 3 + \
-            [ctypes.c_int, ctypes.c_void_p]
+            [ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.beamform_power.restype = ctypes.c_int
+        lib.beamform_info.argtypes = [ctypes.c_int] * 2 + \
+            [ctypes.POINTER(ctypes.c_int)] * 4
+        lib.beamform_info.restype = ctypes.c_int
         lib.beamform_error_string.argtypes = [ctypes.c_int]
         lib.beamform_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def kernel_info(int8=False, vec=True):
+    """Registers, spilled bytes per thread, dynamic shared memory per
+    block and resident blocks per SM of the kernel's instantiation for
+    ci8 (`int8`) or complex64 voltages and 16-byte or element copies."""
+    lib = _library()
+    vals = [ctypes.c_int() for _ in range(4)]
+    err = lib.beamform_info(int(int8), int(vec),
+                            *(ctypes.byref(v) for v in vals))
+    if err:
+        raise RuntimeError("beamform_info failed: " +
+                           lib.beamform_error_string(err).decode())
+    return dict(zip(("regs", "local_bytes", "smem", "blocks_per_sm"),
+                    (v.value for v in vals)))
 
 
 def beamform_power(x, w, out=None):
@@ -116,10 +168,14 @@ def beamform_power(x, w, out=None):
         if t.device != x.device or not t.is_contiguous():
             raise ValueError(f"beamform_power: {name} must be contiguous on "
                              f"{x.device}")
+    geo = launch_geometry(ntime, nchan, nsp, nbeam, 2 if x_int8 else 8,
+                          x.data_ptr())
     lib = _library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.beamform_power(x.data_ptr(), x_int8, w.data_ptr(),
-                             out.data_ptr(), ntime, nchan, nsp, nbeam, stream)
+                             out.data_ptr(), ntime, nchan, nsp, nbeam,
+                             geo["frames"], geo["chans"], int(geo["vec"]),
+                             stream)
     if err:
         raise RuntimeError("beamform_power launch failed: " +
                            lib.beamform_error_string(err).decode())

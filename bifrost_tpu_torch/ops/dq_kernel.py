@@ -23,7 +23,10 @@ The wrappers launch the kernel for CUDA tensors and run the plain
 version only for tensors on the CPU; any other device raises.  ``x`` and
 ``out`` may have any element strides (a ring span is read and written in
 place).  `.launches` on each wrapper counts its kernel launches (and
-nothing else).
+nothing else).  K5a has two kernels, chosen by layout (`fill_vectors`):
+16-byte vectors where x and out hold their cells contiguously at
+16-byte aligned bases and row strides, one element a thread otherwise;
+`masked_fill.vector_launches` counts the vector kernel's launches.
 """
 
 from __future__ import annotations
@@ -72,7 +75,8 @@ def _library():
         lib.dq_masked_fill.argtypes = (
             [ctypes.c_void_p] + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] +
             [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 2 +
-            [ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_void_p])
+            [ctypes.c_longlong] * 3 + [ctypes.c_int] * 2 +
+            [ctypes.c_void_p])
         lib.dq_masked_fill.restype = ctypes.c_int
         lib.dq_gain_apply.argtypes = (
             [ctypes.c_void_p] + [ctypes.c_longlong] * 2 +
@@ -98,6 +102,14 @@ def _check_pair(name, x, out, dtypes):
         sum((n - 1) * s for n, s in zip(t.shape, t.stride())) + 1)
     if x.numel() and lo(x) < hi(out) and lo(out) < hi(x):
         raise ValueError(f"{name}: out overlaps x")
+
+
+def fill_vectors(x, out):
+    """Whether K5a moves x -> out in 16-byte vectors: both hold their
+    cells contiguously (cell stride 1) at 16-byte aligned bases and row
+    strides."""
+    return all(t.stride(1) == 1 and t.data_ptr() % 16 == 0 and
+               t.stride(0) * t.element_size() % 16 == 0 for t in (x, out))
 
 
 def _device_check(name, x):
@@ -134,17 +146,19 @@ def masked_fill(x, mask, fill, window, out=None):
                 not fill.is_contiguous() or fill.device != x.device:
             raise ValueError(f"masked_fill: fill must be contiguous float32 "
                              f"({nrows}, {ncell}) on {x.device}")
+    vec = fill_vectors(x, out)
     lib = _library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.dq_masked_fill(
         x.data_ptr(), x.stride(0), x.stride(1), out.data_ptr(),
         out.stride(0), out.stride(1), mask.data_ptr(),
         None if fill is None else fill.data_ptr(), ntime, ncell, window,
-        int(cplx), stream)
+        int(cplx), int(vec), stream)
     if err:
         raise RuntimeError("masked_fill launch failed: " +
                            lib.dq_error_string(err).decode())
     masked_fill.launches += 1
+    masked_fill.vector_launches += vec
     return out
 
 
@@ -176,4 +190,5 @@ def gain_apply(x, g, out=None):
 
 
 masked_fill.launches = 0
+masked_fill.vector_launches = 0
 gain_apply.launches = 0

@@ -9,7 +9,8 @@ Phases, one line each; any failure exits non-zero:
              parallel) from this checkout.
 3. kernels — hold each kernel against its plain PyTorch version at the
              shapes the main paths give it, bitwise, and time both, the
-             bound and a library call for the same function; time the
+             bound and a library call for the same function (K4 and K5a
+             also on their edge shapes, K4_EDGES and K5A_EDGES); time the
              PFB's DFT matmuls per gulp.  The gridders K6a/K6b are also
              held against a rerun, and their tiled plan's geometry,
              sectors per plane, layout floor, host build time and each
@@ -52,8 +53,9 @@ Phases, one line each; any failure exits non-zero:
              mad_factor=4.0, window=16))`, kernel K5a) on the same data
              with a seeded narrowband storm from the third gulp on (60
              channels blinking on with probability 0.8 per frame at
-             255).  Launch counts are read from this run alone; the
-             burst must be found, every storm cell on for more than half
+             255).  Launch counts are read from this run alone, every
+             K5a launch must take its vector kernel, the burst must be
+             found, every storm cell on for more than half
              of a window flagged in that window, and the dedispersed
              gulps bitwise equal to the chain with dq_flag_method and
              fdmt_method 'plain'.
@@ -63,7 +65,8 @@ Phases, one line each; any failure exits non-zero:
              integration on -> copy -> pfb -> rfi_flag(window=16) ->
              gaincal(seeded per-station gains) (kernel K5b) -> beamform
              -> transpose -> fdmt -> detect, 80 integrations.  Launch
-             counts are read from this run alone; the tone's cells must
+             counts are read from this run alone, every K5a launch must
+             take its vector kernel; the tone's cells must
              be flagged in every window from its onset, the beam powers
              and dedispersed frames bitwise equal to the same chain with
              every method 'plain', the first integration within 1e-4 of
@@ -242,6 +245,16 @@ def expected(**nonzero):
 def reset_counts():
     for fn in kernel_counters().values():
         fn.launches = 0
+    kernel_counters()["dq_masked_fill"].vector_launches = 0
+
+
+def check_fill_vectors(counts):
+    """Every K5a launch of the run just read took the vector kernel."""
+    nvec = kernel_counters()["dq_masked_fill"].vector_launches
+    if nvec != counts["dq_masked_fill"]:
+        raise AssertionError(f"{counts['dq_masked_fill']} K5a launches, "
+                             f"{nvec} of them vector")
+    return nvec
 
 
 def read_counts():
@@ -382,9 +395,41 @@ def check_fir(dev, kind, rng):
             "library_ms": library_ms}
 
 
+# K4's edge shapes: (nbeam, ci8, ntime, nchan, nsp, x offset in samples):
+# frames 0, 1 and across the 256-row frame tile, channels not a multiple
+# of a block's, stations 1 and across the 16 (c64) or 64 (ci8) station
+# chunks, beams across the groups of 8, element copies (rows or the base
+# not 16-byte aligned).
+K4_EDGES = ((1, False, 1, 5, 300, 0), (3, True, 5, 30, 1, 0),
+            (8, False, 16, 13, 513, 0), (9, True, 33, 5, 300, 0),
+            (128, False, 5, 7, 64, 0), (8, True, 260, 3, 520, 0),
+            (9, False, 260, 3, 40, 0), (8, False, 16, 9, 512, 1),
+            (8, True, 16, 9, 512, 1), (8, False, 0, 5, 300, 0))
+
+
+def check_beamform_edges(dev, rng):
+    """K4 bitwise against its plain version on K4_EDGES."""
+    from bifrost_tpu_torch.ops import beamform_kernel as bk
+    for nbeam, ci8, ntime, nchan, nsp, off in K4_EDGES:
+        n = ntime * nchan * nsp + off
+        if ci8:
+            x = torch.from_numpy(rng.integers(-128, 128, (n, 2)).astype(
+                np.int8)).to(dev)[off:].view(ntime, nchan, nsp, 2)
+        else:
+            x = torch.randn(n, dtype=torch.complex64, device=dev)[off:] \
+                .view(ntime, nchan, nsp)
+        w = torch.randn(nbeam, nsp, dtype=torch.complex64, device=dev)
+        got = bk.beamform_power(x, w)
+        torch.cuda.synchronize()
+        if not bits_equal(got, bk.beamform_power_plain(x, w)):
+            raise AssertionError(f"beamform_power differs from plain at "
+                                 f"{(nbeam, ci8, ntime, nchan, nsp, off)}")
+    return len(K4_EDGES)
+
+
 def check_beamform(dev, kind, rng):
     """K4 at the B-engine's shapes: one gulp of 16 spectra x 4096
-    channels x 512 inputs, 8 beams."""
+    channels x 512 inputs, 8 beams; then K4_EDGES."""
     from bifrost_tpu_torch.ops import beamform_kernel as bk
     from bifrost_tpu_torch.service import default_beam_weights
     shape = (N_INT, BCHAN, NSTAND * NPOL)
@@ -422,9 +467,18 @@ def check_beamform(dev, kind, rng):
     library_ms = cuda_time(lambda: torch.matmul(xp, wt), 10)
     nbytes, nops = beamform_work(*shape, NBEAM, 8)
     bound_ms, by = bound(nbytes, nops, hbm_rate(kind))
+    geo = bk.launch_geometry(*shape, NBEAM, 8, xf.data_ptr())
+    info = {f"{'ci8' if i8 else 'c64'} {'16-byte' if v else 'element'}":
+            bk.kernel_info(i8, v) for i8 in (False, True)
+            for v in (True, False)}
+    if info["c64 16-byte"]["smem"] != geo["smem"]:
+        raise AssertionError(f"launch_geometry's shared memory {geo} "
+                             f"differs from the kernel's {info}")
+    nedge = check_beamform_edges(dev, rng)
     phase("kernels", f"beamform_power equal to plain (tolerance: bitwise) "
           f"on integer-valued c64, ci8 storage and random f32 at "
-          f"{shape} x {NBEAM} beams; {ms:.4f} ms per gulp (1 launch), "
+          f"{shape} x {NBEAM} beams and on {nedge} edge shapes; launch "
+          f"{geo}; instantiations {info}; {ms:.4f} ms per gulp (1 launch), "
           f"plain {plain_ms:.4f} ms, complex matmul alone (the beams, no "
           f"detect or integrate) {library_ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms ({by}: {nbytes / 1e9:.4f} GB, "
@@ -1035,6 +1089,70 @@ def dq_work(ntime, ncell, elt_bytes, nrows=0, fill=False, gains=False):
     return nbytes + nrows * ncell * (5 if fill else 1), ntime * ncell
 
 
+# K5a's edge shapes: (complex, baseline fill, ntime, window, ncell, x
+# layout, out layout, vector kernel): window 1, a window longer than the
+# gulp, tail windows, windows longer than a thread's 16-frame group; the
+# vector kernel on contiguous and padded spans with cell counts that are
+# not a multiple of its width; the scalar kernel on a strided span, on a
+# base off 16-byte alignment and on a row stride off it.
+K5A_EDGES = ((False, True, 37, 8, 300, "contig", "contig", True),
+             (False, True, 64, 16, 301, "padded", "padded", True),
+             (False, False, 37, 8, 301, "contig", "contig", False),
+             (True, False, 37, 8, 301, "padded", "padded", True),
+             (True, False, 16, 1, 300, "contig", "contig", True),
+             (False, True, 10, 64, 300, "contig", "contig", True),
+             (False, True, 100, 40, 302, "padded", "padded", True),
+             (False, False, 37, 8, 300, "offset", "offset", False),
+             (True, False, 40, 16, 300, "contig", "offset", False),
+             (False, True, 37, 8, 300, "contig", "strided", False))
+
+
+def span(rows, cols, dtype, layout, dev):
+    """A (rows, cols) tensor in `layout`: 'contig'; 'strided' (every
+    third cell of a wider buffer); 'offset' (a buffer's cells from the
+    second on); 'padded' (the first cols cells of rows padded to a
+    16-byte stride)."""
+    if layout == "strided":
+        return torch.empty(rows, 3 * cols, dtype=dtype, device=dev)[:, ::3]
+    if layout == "offset":
+        return torch.empty(rows, cols + 1, dtype=dtype, device=dev)[:, 1:]
+    if layout == "padded":
+        per = 16 // torch.empty((), dtype=dtype).element_size()
+        return torch.empty(rows, -(-cols // per) * per, dtype=dtype,
+                           device=dev)[:, :cols]
+    return torch.empty(rows, cols, dtype=dtype, device=dev)
+
+
+def check_fill_edges(dev, gen):
+    """K5a bitwise against its plain version on K5A_EDGES, each launch's
+    kernel (vector or scalar) as the layout says."""
+    from bifrost_tpu_torch.ops import dq_kernel as dk
+    for cplx, baseline, ntime, window, ncell, xl, ol, vec in K5A_EDGES:
+        dtype = torch.complex64 if cplx else torch.float32
+        nrows = -(-ntime // window)
+        x = span(ntime, ncell, dtype, xl, dev)
+        x.copy_(torch.randn(ntime, ncell, dtype=dtype, device=dev,
+                            generator=gen))
+        x[::3, ::5] = -0.0
+        mask = torch.rand(nrows, ncell, device=dev, generator=gen) < 0.3
+        fill = torch.randn(nrows, ncell, device=dev, generator=gen) \
+            if baseline else None
+        out = span(ntime, ncell, dtype, ol, dev)
+        nvec = dk.masked_fill.vector_launches
+        dk.masked_fill(x, mask, fill, window, out=out)
+        want = dk.masked_fill_plain(x, mask, fill, window)
+        torch.cuda.synchronize()
+        a, b = (torch.view_as_real(t) if cplx else t
+                for t in (out.contiguous(), want))
+        if dk.masked_fill.vector_launches - nvec != vec or \
+                not bits_equal(a, b):
+            case = (cplx, baseline, ntime, window, ncell, xl, ol)
+            raise AssertionError(f"masked_fill at {case}: vector "
+                                 f"{dk.masked_fill.vector_launches - nvec}"
+                                 f", bitwise {bits_equal(a, b)}")
+    return len(K5A_EDGES)
+
+
 def check_dq(dev, kind):
     """K5a and K5b at the data-quality paths' shapes: K5a on [frbflag]'s
     (4096 frames x 4096 channels) f32 gulp with 256 windows of 16, and
@@ -1061,6 +1179,7 @@ def check_dq(dev, kind):
     fill = {}
     for name, (x, mask, window) in cases.items():
         out = torch.empty_like(x)
+        nvec = dk.masked_fill.vector_launches
         dk.masked_fill(x, mask, None, window, out=out)
         want = dk.masked_fill_plain(x, mask, None, window)
         torch.cuda.synchronize()
@@ -1068,6 +1187,9 @@ def check_dq(dev, kind):
                 for t in (out, want))
         if not bits_equal(a, b):
             raise AssertionError(f"masked_fill differs from plain ({name})")
+        if dk.masked_fill.vector_launches != nvec + 1:
+            raise AssertionError(f"masked_fill took its scalar kernel "
+                                 f"({name})")
         ntime, nc = x.shape
         nrows = mask.shape[0]
         xw = x.view(nrows, window, nc)
@@ -1108,10 +1230,12 @@ def check_dq(dev, kind):
             "max_abs_err": float((out - want).abs().max()),
             "gb": nbytes / 1e9}
     del out, want, lib, cases, x, g, frb
+    nedge = check_fill_edges(dev, gen)
     for name, t in fill.items():
         phase("kernels", f"dq_masked_fill (K5a) equal to plain (tolerance: "
               f"bitwise) at [{'frbflag' if name == 'frb' else 'dq'}]'s "
-              f"gulp; {t['ms']:.4f} ms per gulp (1 launch), plain "
+              f"gulp (vector kernel) and on {nedge} edge shapes; "
+              f"{t['ms']:.4f} ms per gulp (1 launch), plain "
               f"{t['plain_ms']:.4f} ms, torch.where {t['library_ms']:.4f} "
               f"ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}: "
               f"{t['gb']:.4f} GB), {kind}")
@@ -1168,6 +1292,7 @@ def frbflag_path(dev):
     expect = expected(fdmt_merge_step=nsteps * NGULP, dq_masked_fill=NGULP)
     if counts != expect:
         raise AssertionError(f"launches {counts}, expected {expect}")
+    nvec = check_fill_vectors(counts)
     s = ledger.summary()
     if s["lost_frames"] or s["duplicated_frames"] or \
             s["committed_frames"] != GULP * NGULP - MAX_DELAY:
@@ -1191,8 +1316,8 @@ def frbflag_path(dev):
           f"storm of {len(chans)} channels (p_on {STORM['p_on']}) from "
           f"gulp {STORM_GULP0}: {wall:.3f} s, {nframe / wall:.1f} frames/s "
           f"with start-up; steady state {steady:.1f} frames/s (from the "
-          f"first committed gulp); launches {counts}; ledger {s}; "
-          f"candidate {best}; busy storm windows flagged "
+          f"first committed gulp); launches {counts} (K5a: {nvec} "
+          f"vector); ledger {s}; candidate {best}; busy storm windows flagged "
           f"{int(busy.sum())}/{int(busy.sum())}; flagged fraction "
           f"{flag.flagged_fraction:.6f}; clean cells flagged "
           f"{clean_share:.6f}")
@@ -1309,6 +1434,7 @@ def dq_path(dev, volt, spec):
                       len(blocks["bdetect_fdmt"].fdmt._steps))
     if counts != expect:
         raise AssertionError(f"launches {counts}, expected {expect}")
+    nvec = check_fill_vectors(counts)
     s = ledger.summary()
     if s["lost_frames"] or s["duplicated_frames"] or \
             s["committed_frames"] != nfdmt:
@@ -1325,8 +1451,9 @@ def dq_path(dev, volt, spec):
           f"{DQ_STATION} channel {DQ_CHAN} from integration {DQ_TONE_INT}: "
           f"{wall:.3f} s, {nframe / wall:.1f} frames/s with start-up; "
           f"steady state {steady:.1f} frames/s, {steady * nsp:.4g} "
-          f"samples/s (first to last integration out); launches {counts}; "
-          f"ledger {s}; candidates {len(det.candidates)}; tone cells "
+          f"samples/s (first to last integration out); launches {counts} "
+          f"(K5a: {nvec} vector); ledger {s}; candidates "
+          f"{len(det.candidates)}; tone cells "
           f"flagged in windows {DQ_TONE_INT}..{B_NINT - 1}: yes; flagged "
           f"fraction {flag.flagged_fraction:.6f}; peak device memory "
           f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated)")

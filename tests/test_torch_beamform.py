@@ -26,7 +26,7 @@ from bifrost_tpu_torch import config
 from bifrost_tpu_torch.blocks._common import (_canonical_permutation,
                                               integrate_chunks)
 from bifrost_tpu_torch.ndarray import pair_to_structured
-from bifrost_tpu_torch.ops import Beamform
+from bifrost_tpu_torch.ops import Beamform, beamform_kernel
 from bifrost_tpu_torch.ops.beamform_kernel import beamform_power_plain
 
 EPS = 2.0 ** -24
@@ -100,6 +100,46 @@ def test_beamform_raw_perm_batch_and_report():
     assert torch.equal(plan.execute(real),
                        beamform_power_plain(real.to(torch.complex64),
                                             torch.from_numpy(w)))
+
+
+@pytest.mark.parametrize("ntime,nchan,nsp,nbeam,elt,base", [
+    (16, 4096, 512, 8, 8, 0), (16, 4096, 512, 8, 2, 0), (0, 5, 300, 1, 8, 0),
+    (1, 5, 300, 3, 8, 0), (33, 13, 513, 9, 8, 0), (260, 3, 520, 128, 2, 0),
+    (5, 30, 1, 2, 2, 0), (16, 9, 512, 8, 8, 8)])
+def test_launch_geometry(ntime, nchan, nsp, nbeam, elt, base):
+    """K4's launch: every frame of a channel in one block, all of a call's
+    frames in one tile up to the block's rows; channels a block filling
+    the rows; beam groups of GROUP up to 128 beams; 16-byte copies only
+    where x and a row's bytes are 16-byte aligned; shared memory within
+    the 227 KB a block may use, and two blocks an SM at the flagship's
+    complex64 gulp."""
+    g = beamform_kernel.launch_geometry(ntime, nchan, nsp, nbeam, elt, base)
+    k = beamform_kernel
+    assert (k.GROUP, k.MAX_BEAMS) == (8, 128)
+    assert g["frames"] == max(1, min(ntime, k.ROWS))
+    assert g["chans"] == k.ROWS // g["frames"] >= 1
+    assert (g["groups"] - 1) * k.GROUP < nbeam <= g["groups"] * k.GROUP
+    assert g["blocks"] == -(-nchan // g["chans"]) * g["groups"]
+    assert g["vec"] == (base % 16 == 0 and nsp * elt % 16 == 0)
+    assert g["smem"] <= k.SMEM_LIMIT
+    if (ntime, nchan, nsp, elt) == (16, 4096, 512, 8):
+        assert g["blocks"] == 4096 // (k.ROWS // 16)
+        assert 2 * (g["smem"] + 1024) <= 233472
+
+
+def test_kernel_wrapper_refusals():
+    """Off the CPU the K4 and K5a wrappers launch or raise: a device
+    that is neither CUDA nor the CPU is refused before any launch."""
+    from bifrost_tpu_torch.ops import dq_kernel
+    x = torch.zeros(2, 3, 4, dtype=torch.complex64, device="meta")
+    w = torch.zeros(1, 4, dtype=torch.complex64, device="meta")
+    before = beamform_kernel.beamform_power.launches
+    with pytest.raises(ValueError, match="unsupported device"):
+        beamform_kernel.beamform_power(x, w)
+    assert beamform_kernel.beamform_power.launches == before
+    with pytest.raises(ValueError, match="unsupported device"):
+        dq_kernel.masked_fill(x[0], torch.zeros(1, 4, dtype=torch.bool,
+                                                device="meta"), None, 2)
 
 
 def test_integrate_chunks_splits_at_boundaries():

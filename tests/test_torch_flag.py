@@ -25,7 +25,8 @@ from bifrost_tpu.ops import dq_pallas
 from bifrost_tpu.ops.flag import Flag as JFlag
 from bifrost_tpu.ops.stats import sk_band as j_sk_band
 from bifrost_tpu.ops.stats import spectral_kurtosis as j_sk
-from bifrost_tpu_torch.ops.dq_kernel import masked_fill, masked_fill_plain
+from bifrost_tpu_torch.ops.dq_kernel import (fill_vectors, masked_fill,
+                                             masked_fill_plain)
 from bifrost_tpu_torch.ops.flag import Flag, flag
 from bifrost_tpu_torch.ops.stats import sk_band, spectral_kurtosis
 from bifrost_tpu_torch.weights import carry_over
@@ -166,6 +167,40 @@ def test_masked_fill_plain_matches_dq_pallas(mode):
     masked_fill(torch.from_numpy(z), torch.from_numpy(mask), None, window,
                 out=out)
     np.testing.assert_array_equal(out.numpy(), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.complex64])
+@pytest.mark.parametrize("layout,vec", [
+    ("contig", True), ("padded", True), ("offset", False),
+    ("strided", False), ("rows", False), ("odd_rows", False)])
+def test_fill_vectors_predicate(layout, vec, dtype):
+    """K5a takes its 16-byte vector kernel only where x and out hold
+    their cells contiguously at 16-byte aligned bases and row strides:
+    contiguous gulps of 304 cells and the first 301 cells of padded rows
+    do; a base one element off alignment, every other cell, a row stride
+    off alignment (301 cells of f32 or complex64 rows, every 3rd row)
+    and a frame stride that is not a whole row of vectors do not."""
+    def span(shape):
+        base = torch.empty(0, dtype=dtype).new_empty(shape)
+        assert base.data_ptr() % 16 == 0
+        return base
+    if layout == "contig":
+        t = span((6, 304))
+    elif layout == "padded":
+        t = span((6, 304))[:, :301]
+    elif layout == "offset":
+        t = span((6, 305))[:, 1:]
+    elif layout == "strided":
+        t = span((6, 608))[:, ::2]
+    elif layout == "rows":
+        t = span((6, 301))
+    else:
+        t = span((18, 301))[::3]
+    n, per = t.shape[1], 16 // t.element_size()
+    good = span((t.shape[0], -(-n // per) * per))[:, :n]
+    assert fill_vectors(good, good)
+    assert fill_vectors(t, good) == vec
+    assert fill_vectors(good, t) == vec
 
 
 @pytest.mark.parametrize("algo", ["mad", "sk"])

@@ -88,25 +88,41 @@ def test_fir_mac_kernel_bitwise_vs_plain(cuda, decim, ntap, rep, int8):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("nbeam,int8,ntime", [
-    (1, False, 40), (2, True, 5), (8, False, 16), (8, True, 33)])
-def test_beamform_kernel_bitwise_vs_plain(cuda, nbeam, int8, ntime):
-    """K4 against its plain version, bitwise: f32 and int8 voltages,
-    station counts across the kernel's 128-station chunks, frame counts
-    across its tiles."""
+@pytest.mark.parametrize("nbeam,int8,ntime,nchan,nsp,offset", [
+    (1, False, 40, 5, 300, 0), (2, True, 5, 5, 300, 0),
+    (8, False, 16, 5, 300, 0), (8, True, 33, 5, 300, 0),
+    (1, False, 1, 5, 300, 0), (3, True, 5, 30, 1, 0),
+    (8, False, 16, 13, 513, 0), (9, True, 33, 5, 300, 0),
+    (128, False, 5, 7, 64, 0), (8, True, 260, 3, 520, 0),
+    (9, False, 260, 3, 40, 0), (8, False, 16, 9, 512, 1),
+    (8, True, 16, 9, 512, 1), (8, False, 0, 5, 300, 0)])
+def test_beamform_kernel_bitwise_vs_plain(cuda, nbeam, int8, ntime, nchan,
+                                          nsp, offset):
+    """K4 against its plain version, bitwise: f32 and int8 voltages;
+    frame counts of 0, 1 and across the kernel's frame tile (260 > 256
+    rows a block); channel counts that are not a multiple of a block's
+    channels; station counts of 1 and across its chunks (16 c64 or 64
+    ci8 stations) with a short last chunk; beams across its groups of 8;
+    16-byte copies and element copies (a row's bytes not 16-byte
+    aligned, or x offset by one sample)."""
     from bifrost_tpu_torch.ops import beamform_kernel
     rng = np.random.default_rng(7)
-    nchan, nsp = 5, 300
+    shape = (ntime, nchan, nsp)
     if int8:
-        x = torch.from_numpy(rng.integers(-128, 128, (ntime, nchan, nsp, 2))
-                             .astype(np.int8)).to(cuda)
+        buf = rng.integers(-128, 128, (np.prod(shape) + offset, 2))
+        x = torch.from_numpy(buf.astype(np.int8)).to(cuda)[offset:] \
+            .view(shape + (2,))
     else:
-        x = torch.from_numpy((rng.standard_normal((ntime, nchan, nsp)) +
-                              1j * rng.standard_normal((ntime, nchan, nsp)))
-                             .astype(np.complex64)).to(cuda)
+        buf = (rng.standard_normal(np.prod(shape) + offset) +
+               1j * rng.standard_normal(np.prod(shape) + offset))
+        x = torch.from_numpy(buf.astype(np.complex64)).to(cuda)[offset:] \
+            .view(shape)
     w = torch.from_numpy((rng.standard_normal((nbeam, nsp)) +
                           1j * rng.standard_normal((nbeam, nsp)))
                          .astype(np.complex64)).to(cuda)
+    geo = beamform_kernel.launch_geometry(ntime, nchan, nsp, nbeam,
+                                          2 if int8 else 8, x.data_ptr())
+    assert geo["vec"] == (offset == 0 and nsp * (2 if int8 else 8) % 16 == 0)
     before = beamform_kernel.beamform_power.launches
     p = beamform_kernel.beamform_power(x, w)
     assert beamform_kernel.beamform_power.launches == before + 1
@@ -266,32 +282,68 @@ def test_romein_plan_cuda_matches_cpu(cuda):
         assert torch.equal(torch.view_as_real(a), torch.view_as_real(b))
 
 
+def _span(rows, cols, dtype, layout, cuda):
+    """A (rows, cols) tensor on the card in `layout`: 'contig'; 'strided'
+    (every third cell of a wider buffer); 'offset' (a buffer's cells from
+    the second on: the base 4 or 8 bytes past 16-byte alignment);
+    'padded' (the first cols cells of rows padded to a 16-byte stride)."""
+    if layout == "strided":
+        return torch.empty(rows, 3 * cols, dtype=dtype, device=cuda)[:, ::3]
+    if layout == "offset":
+        return torch.empty(rows, cols + 1, dtype=dtype, device=cuda)[:, 1:]
+    if layout == "padded":
+        per = 16 // torch.empty((), dtype=dtype).element_size()
+        return torch.empty(rows, -(-cols // per) * per, dtype=dtype,
+                           device=cuda)[:, :cols]
+    return torch.empty(rows, cols, dtype=dtype, device=cuda)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("cplx,baseline,ntime,window", [
-    (False, True, 37, 8), (False, False, 64, 16), (True, False, 37, 8),
-    (True, False, 16, 16)])
+@pytest.mark.parametrize("cplx,baseline,ntime,window,ncell,xlay,olay,vec", [
+    (False, True, 37, 8, 300, "contig", "strided", False),
+    (False, False, 64, 16, 300, "contig", "strided", False),
+    (True, False, 37, 8, 300, "contig", "strided", False),
+    (True, False, 16, 16, 300, "contig", "strided", False),
+    (False, True, 37, 8, 300, "contig", "contig", True),
+    (False, True, 64, 16, 301, "padded", "padded", True),
+    (False, False, 37, 8, 301, "contig", "contig", False),
+    (True, False, 37, 8, 301, "padded", "padded", True),
+    (True, False, 16, 1, 300, "contig", "contig", True),
+    (False, True, 10, 64, 300, "contig", "contig", True),
+    (False, True, 100, 40, 302, "padded", "padded", True),
+    (False, False, 37, 8, 300, "offset", "offset", False),
+    (True, False, 40, 16, 300, "contig", "offset", False)])
 def test_masked_fill_kernel_bitwise_vs_plain(cuda, cplx, baseline, ntime,
-                                             window):
+                                             window, ncell, xlay, olay, vec):
     """K5a against its plain version, bitwise: f32 with a baseline fill
-    and zero fill, complex64 (one launch for both components), a tail
-    window, -0.0 samples, and a strided output span."""
+    and zero fill, complex64 (one launch for both components), -0.0
+    samples; window 1, a window longer than the gulp, a tail window,
+    windows longer than a thread's frame group; the vector kernel on
+    contiguous and padded spans, with cell counts that are not a multiple
+    of its width (a scalar tail), and the scalar kernel on a strided span,
+    on a base off 16-byte alignment and on a row stride off it.  Each
+    launch's kernel is asserted."""
     from bifrost_tpu_torch.ops import dq_kernel
     rng = np.random.default_rng(13)
-    ncell = 300
     nrows = -(-ntime // window)
-    x = rng.standard_normal((ntime, ncell)).astype(np.float32)
-    x[::3, ::5] = -0.0
+    dtype = torch.complex64 if cplx else torch.float32
+    xv = rng.standard_normal((ntime, ncell)).astype(np.float32)
+    xv[::3, ::5] = -0.0
     if cplx:
-        x = (x + 1j * rng.standard_normal(x.shape)).astype(np.complex64)
-    x = torch.from_numpy(x).to(cuda)
+        xv = (xv + 1j * rng.standard_normal(xv.shape)).astype(np.complex64)
+    x = _span(ntime, ncell, dtype, xlay, cuda)
+    x.copy_(torch.from_numpy(xv))
     mask = torch.from_numpy(rng.random((nrows, ncell)) < 0.3).to(cuda)
     fill = torch.from_numpy(rng.standard_normal((nrows, ncell))
                             .astype(np.float32)).to(cuda) \
         if baseline else None
-    out = torch.empty(ntime, 3 * ncell, dtype=x.dtype, device=cuda)[:, ::3]
+    out = _span(ntime, ncell, dtype, olay, cuda)
+    assert dq_kernel.fill_vectors(x, out) == vec
     before = dq_kernel.masked_fill.launches
+    vbefore = dq_kernel.masked_fill.vector_launches
     dq_kernel.masked_fill(x, mask, fill, window, out=out)
     assert dq_kernel.masked_fill.launches == before + 1
+    assert dq_kernel.masked_fill.vector_launches == vbefore + vec
     want = dq_kernel.masked_fill_plain(x, mask, fill, window)
     torch.cuda.synchronize()
     got = out.contiguous()
