@@ -14,11 +14,14 @@ JAX plan's default bucket budget).
 
 Execution follows the JAX fast path (`Fdmt._exec_scan_fn`): the init
 stage's shifted cumulative sums in the same order, as torch ops, then one
-merge-step call per step.  Each step is launched over its own exact
-row count (the first rows of its bucket's padded tables): the padding
-exists so that XLA compiles few shapes, and a launch here takes any row
-count.  A step reads only rows its predecessor wrote (the plan checks
-this), so rows past a step's count are never read.  Methods:
+merge-step call per step.  A batched (batch, nchan, ntime) input (the
+beam search's beams) runs as one block through every stage, one call per
+merge step for all slices: the port's counterpart of the JAX package's
+`vmap`.  Each step is launched over its own exact row count (the first
+rows of its bucket's padded tables): the padding exists so that XLA
+compiles few shapes, and a launch here takes any row count.  A step
+reads only rows its predecessor wrote (the plan checks this), so rows
+past a step's count are never read.  Methods:
 
 - 'cuda' (what 'auto' resolves to): every merge step goes through
   `fdmt_kernel.merge_step`, which launches the hand-written kernel for a
@@ -360,34 +363,37 @@ class Fdmt(object):
                                   method=method, origin="host")
 
     def _init_state(self, x, tabs, nrows):
-        """The init stage (ops/fdmt.py:398-411): row (c, d) = sum over
-        k <= d of x[c, t - k], one shifted add over the whole channel
-        block per depth, gathered back to chan-major rows, zero-padded to
-        `nrows` rows."""
-        ntime = x.shape[1]
+        """The init stage (ops/fdmt.py:398-411) on a (batch, nchan,
+        ntime) block: row (c, d) = sum over k <= d of x[..., c, t - k],
+        one shifted add over the whole block per depth, gathered back to
+        chan-major rows, zero-padded to `nrows` rows."""
+        ntime = x.shape[-1]
         acc = x
         parts = [acc]
         for d in range(1, self._init_depth):
-            shifted = F.pad(x[:, :ntime - d], (d, 0))
+            shifted = F.pad(x[..., :ntime - d], (d, 0))
             acc = acc + shifted
             chans = tabs["chans"][d]
-            parts.append(acc if len(chans) == self.nchan else acc[chans])
-        init = torch.cat(parts)[tabs["perm"]] if self._init_depth > 1 \
-            else parts[0]
-        state = x.new_zeros((nrows, ntime))
-        state[:init.shape[0]] = init
+            parts.append(acc if len(chans) == self.nchan
+                         else acc[..., chans, :])
+        init = torch.cat(parts, dim=-2)[..., tabs["perm"], :] \
+            if self._init_depth > 1 else parts[0]
+        state = x.new_zeros(x.shape[:-2] + (nrows, ntime))
+        state[..., :init.shape[-2], :] = init
         return state
 
     def _merge_steps(self, state, tabs, step):
-        """Every merge step from the initial `state` (rows x ntime, at
-        least `max(_step_need)` rows), through `step` (`merge_step` or
-        `merge_step_plain`), ping-ponging between `state` and a second
-        buffer; -> the final rows.  `state` is overwritten."""
+        """Every merge step from the initial `state` ((batch,) rows x
+        ntime, at least `max(_step_need)` rows), through `step`
+        (`merge_step` or `merge_step_plain`), one call per step for the
+        whole batch, ping-ponging between `state` and a second buffer;
+        -> the final rows.  `state` is overwritten."""
         cur, other = state, torch.empty_like(state)
         for rowA, rowB, delay in tabs["steps"]:
-            step(cur, rowA, rowB, delay, out=other[:rowA.shape[0]])
+            step(cur, rowA, rowB, delay,
+                 out=other.narrow(-2, 0, rowA.shape[0]))
             cur, other = other, cur
-        return cur[:self._final_ndelay]
+        return cur[..., :self._final_ndelay, :]
 
     def _exec_scan(self, x, method):
         tabs = self._device_tables(method, x.device)
@@ -401,28 +407,30 @@ class Fdmt(object):
         per-channel init loop, unpadded per-step tables, and rows with no
         partner copied rather than added to zero."""
         tabs = self._device_tables("naive", x.device)
-        ntime = x.shape[1]
+        ntime = x.shape[-1]
         rows = []
         for c, nd in enumerate(self._init_ndelay):
-            prev = x[c]
+            prev = x[..., c, :]
             rows.append(prev)
             for d in range(1, nd):
-                prev = prev + F.pad(x[c, :ntime - d], (d, 0))
+                prev = prev + F.pad(x[..., c, :ntime - d], (d, 0))
                 rows.append(prev)
-        state = torch.stack(rows)
+        state = torch.stack(rows, dim=-2)
         t = torch.arange(ntime, device=x.device)[None, :]
         for rowA, rowB, delay in tabs["steps"]:
-            a = state[rowA]
-            b = state[rowB.clamp(min=0)]
+            a = state[..., rowA, :]
+            b = state[..., rowB.clamp(min=0), :]
             src = t - delay[:, None]
-            bs = torch.gather(b, 1, src.clamp(0, ntime - 1))
+            bs = torch.gather(b, -1, src.clamp(0, ntime - 1).expand(b.shape))
             bs = torch.where(src >= 0, bs, 0.0)
             state = torch.where((rowB >= 0)[:, None], a + bs, a)
         return state
 
-    def _exec2d(self, x, method):
+    def _exec(self, x, method):
+        """Dedisperse a (batch, nchan, ntime) f32 block, every slice in
+        the same calls (the JAX package's vmap)."""
         if self._reversed:
-            x = x.flip(0)
+            x = x.flip(-2)
         x = x.contiguous()
         if method == "naive":
             return self._exec_naive(x)
@@ -430,7 +438,8 @@ class Fdmt(object):
 
     def execute(self, idata, odata=None, negative_delays=False):
         """Dedisperse `idata`, (nchan, ntime) or batched (batch, nchan,
-        ntime), on its device; -> (min(ndelay, max_delay), ntime) f32."""
+        ntime), on its device; -> (min(ndelay, max_delay), ntime) f32,
+        batched as the input."""
         x = prepare(idata)
         x = x.to(torch.float32)
         method = self._runtime.resolve_method(self.method)
@@ -438,9 +447,9 @@ class Fdmt(object):
             # Negative sweeps are the time-mirror of positive ones.
             x = x.flip(-1)
         if x.dim() == 2:
-            res = self._exec2d(x, method)
+            res = self._exec(x[None], method)[0]
         elif x.dim() == 3:   # batch axis first
-            res = torch.stack([self._exec2d(xi, method) for xi in x])
+            res = self._exec(x, method)
         else:
             raise ValueError(f"fdmt expects (nchan, ntime) or batched, "
                              f"got shape {tuple(x.shape)}")

@@ -10,18 +10,38 @@ sample delayed by ntap-1-k by the mirrored coefficient h[ntap-1-k], with
 strided select of output rows.  The kernel keeps that order and rounds
 every product and sum on its own, so the two are bitwise equal.
 
-`fir_mac` launches the kernel for a CUDA tensor and runs `fir_mac_plain`
-only for a tensor on the CPU; any other device raises.
-`fir_mac.launches` counts kernel launches (and nothing else).
+`fir_mac` launches a kernel for a CUDA tensor and runs `fir_mac_plain`
+only for a tensor on the CPU; any other device raises.  The source has
+two kernels, chosen by `fir_vectors`: the vector kernel (a thread owns
+8 int8 or 4 f32 lanes of every input row, one load a row, and walks up
+to 8 output frames) where the layout allows it, the scalar kernel (one
+output a thread) elsewhere.  `fir_mac.launches` counts kernel launches (and
+nothing else), `fir_mac.vector_launches` those of the vector kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import re
 
 import torch
 
 from .. import build
+
+
+def _constants():
+    """csrc/fir.cu's geometry of the vector kernel (its constexprs
+    kLanesInt8, kLanesF32 and kMaxTap), read from the source so that the
+    route decision and the kernel cannot disagree."""
+    src = (build.CSRC / "fir.cu").read_text()
+    val = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    return tuple(int(val[k]) for k in ("kLanesInt8", "kLanesF32",
+                                        "kMaxTap"))
+
+
+# Lanes of a row a vector thread owns (int8 x, f32 x); largest ntap of
+# the vector kernel.
+LANES_INT8, LANES_F32, MAX_TAP = _constants()
 
 
 def _check_geometry(x, coeffs, state, decim, rep):
@@ -61,6 +81,18 @@ def fir_mac_plain(x, coeffs, state, decim=1, rep=1):
     return acc
 
 
+def fir_vectors(x, state, out, ntap):
+    """Whether K2 takes its vector kernel: a thread owns V lanes of every
+    row (LANES_INT8 for int8 x, LANES_F32 for f32), so the lane count is
+    a multiple of V and x, out and (for ntap > 1) state start 16-byte
+    aligned; and ntap is one the kernel is instantiated for.  (`rep`
+    only decides whether a thread holds one coefficient column or V.)"""
+    v = LANES_INT8 if x.dtype == torch.int8 else LANES_F32
+    return (x.shape[1] % v == 0 and 1 <= ntap <= MAX_TAP and
+            x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0 and
+            (ntap == 1 or state.data_ptr() % 16 == 0))
+
+
 _lib = None
 
 
@@ -70,7 +102,8 @@ def _library():
         lib = build.load("fir")
         lib.fir_mac.argtypes = [ctypes.c_void_p, ctypes.c_int] + \
             [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 + \
-            [ctypes.c_int] * 2 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
+            [ctypes.c_int] * 2 + [ctypes.c_longlong] * 2 + [ctypes.c_int] + \
+            [ctypes.c_void_p]
         lib.fir_mac.restype = ctypes.c_int
         lib.fir_error_string.argtypes = [ctypes.c_int]
         lib.fir_error_string.restype = ctypes.c_char_p
@@ -102,19 +135,22 @@ def fir_mac(x, coeffs, state, decim=1, rep=1, out=None):
         raise ValueError("fir_mac: x must be contiguous")
     if tuple(out.shape) != (nout, lanes):
         raise ValueError(f"fir_mac: out must be ({nout}, {lanes})")
+    vec = fir_vectors(x, state, out, ntap)
     lib = _library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.fir_mac(x.data_ptr(), int(x.dtype == torch.int8),
                       state.data_ptr(), coeffs.data_ptr(), out.data_ptr(),
-                      nout, lanes, ntap, decim, rep, ncoef, stream)
+                      nout, lanes, ntap, decim, rep, ncoef, int(vec), stream)
     if err:
         raise RuntimeError("fir_mac launch failed: " +
                            lib.fir_error_string(err).decode())
     fir_mac.launches += 1
+    fir_mac.vector_launches += vec
     return out
 
 
 fir_mac.launches = 0
+fir_mac.vector_launches = 0
 
 
 def fir_tiled(x, coeffs, state, decim=1, rep=1, method="cuda"):

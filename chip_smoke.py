@@ -10,12 +10,15 @@ Phases, one line each; any failure exits non-zero:
 3. kernels — hold each kernel against its plain PyTorch version at the
              shapes the main paths give it, bitwise, and time both, the
              bound and a library call for the same function (K4 and K5a
-             also on their edge shapes, K4_EDGES and K5A_EDGES); time the
-             PFB's DFT matmuls per gulp.  The gridders K6a/K6b are also
-             held against a rerun, and their tiled plan's geometry,
-             sectors per plane, layout floor, host build time and each
-             kernel instantiation's registers and shared memory get a
-             line of their own.
+             also on their edge shapes, K4_EDGES and K5A_EDGES, each
+             launch's route asserted); K1 at the FRB
+             search's shape and at the beam search's (8 beams in one
+             launch a merge step); time the PFB's DFT matmuls per
+             gulp.  The gridders K6a/K6b are also held against a
+             rerun, and their tiled plan's geometry, sectors per plane,
+             layout floor, host build time and each kernel
+             instantiation's registers and shared memory get a line of
+             their own.
 4. main    — drive the FRB-search chain (`frb_search_pipeline`) at full
              width: 4096 channels of u8 power at the LWA band (40 MHz,
              9.28 kHz, 1 ms), FDMT max_delay 2048, gulps of 4096 frames,
@@ -29,7 +32,9 @@ Phases, one line each; any failure exits non-zero:
              integrated over 16 spectra, FDMT max_delay 64, one
              integration (65,536 frames) per gulp, 80 integrations (a
              16-integration block of seeded noise replayed 5 times).
-             Launch counts are read from this run alone; steady state
+             Launch counts are read from this run alone (K1: one launch
+             per merge step for all 8 beams; every K2 launch on its
+             vector kernel); steady state
              is timed from the first integration's beam powers to the
              last one's.  Its beam powers and dedispersed frames are
              compared bitwise against the chain with every method
@@ -41,9 +46,10 @@ Phases, one line each; any failure exits non-zero:
              branch (correlate -> transpose -> Romein grid at ngrid 128
              with the spec's rank-1 default kernel, kernel K6b -> FFT ->
              copy to the host).  Launch counts are read from this run
-             alone; the B branch's outputs are compared bitwise with
-             [bengine]'s, the first 2 images with the same pipeline run 2
-             integrations deep with every method 'plain', and the first
+             alone (K1 and K2 as in phase 5); the B branch's outputs
+             are compared bitwise with [bengine]'s, the first 2 images
+             with the same pipeline run 2 integrations deep with every
+             method 'plain', and the first
              image on 8 channels against an f64 numpy golden.  Then a
              2-integration run with a seeded non-rank-1 kernel puts
              kernel K6a on the path, its images compared bitwise with
@@ -65,8 +71,8 @@ Phases, one line each; any failure exits non-zero:
              integration on -> copy -> pfb -> rfi_flag(window=16) ->
              gaincal(seeded per-station gains) (kernel K5b) -> beamform
              -> transpose -> fdmt -> detect, 80 integrations.  Launch
-             counts are read from this run alone, every K5a launch must
-             take its vector kernel; the tone's cells must
+             counts are read from this run alone, every K5a and K2
+             launch must take its vector kernel; the tone's cells must
              be flagged in every window from its onset, the beam powers
              and dedispersed frames bitwise equal to the same chain with
              every method 'plain', the first integration within 1e-4 of
@@ -156,6 +162,22 @@ def cuda_time(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+def graph_time(fn, reps):
+    """Mean device milliseconds of the kernels fn() launches: fn is
+    captured once in a CUDA graph and the graph replayed `reps` times,
+    so the host's own time per launch drops out.  A measurement only:
+    the port launches eagerly."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_time(graph.replay, reps)
+
+
 def bits_equal(a, b):
     return a.shape == b.shape and torch.equal(a.view(torch.int32),
                                               b.view(torch.int32))
@@ -167,12 +189,21 @@ def merge_chain(plan, tabs, state0, step):
     return plan._merge_steps(state0.clone(), tabs, step)
 
 
-def merge_bound(plan, ntime, rate):
-    """Least milliseconds for one gulp's merge steps, launched at their
-    exact row counts: per step, each state row read once (a row read only
-    as a delayed partner needs ntime - min(delay) of its samples), each
-    output row written once, and the tables; the adds at the f32 rate.
-    -> (ms, bytes, adds)."""
+def time_chain(plan, tabs, state0, step, reps):
+    """Mean ms of one gulp's merge steps (the executor's loop, its
+    second buffer allocated from the cache) over a scratch copy of
+    `state0`: the work does not depend on the values, so the copy is
+    made once, outside the timing."""
+    scratch = state0.clone()
+    return cuda_time(lambda: plan._merge_steps(scratch, tabs, step), reps)
+
+
+def merge_bound(plan, ntime, rate, batch=1):
+    """Least milliseconds for one gulp's merge steps over `batch` slices,
+    launched at their exact row counts: per step and slice, each state
+    row read once (a row read only as a delayed partner needs ntime -
+    min(delay) of its samples), each output row written once; the tables
+    once a step; the adds at the f32 rate.  -> (ms, bytes, adds)."""
     nbytes = nadds = 0
     for rowA, rowB, delay in plan._steps:
         n = len(rowA)
@@ -180,8 +211,8 @@ def merge_bound(plan, ntime, rate):
         for r, d in zip(rowB.tolist(), delay.tolist()):
             if r >= 0:
                 need[r] = max(need.get(r, 0), ntime - d)
-        nbytes += 4 * (sum(need.values()) + n * ntime) + 12 * n
-        nadds += n * ntime
+        nbytes += 4 * batch * (sum(need.values()) + n * ntime) + 12 * n
+        nadds += batch * n * ntime
     return max(nbytes / rate, nadds / F32_PEAK) * 1e3, nbytes, nadds
 
 
@@ -245,16 +276,33 @@ def expected(**nonzero):
 def reset_counts():
     for fn in kernel_counters().values():
         fn.launches = 0
-    kernel_counters()["dq_masked_fill"].vector_launches = 0
+    for name in ("dq_masked_fill", "fir_mac"):
+        kernel_counters()[name].vector_launches = 0
 
 
-def check_fill_vectors(counts):
-    """Every K5a launch of the run just read took the vector kernel."""
-    nvec = kernel_counters()["dq_masked_fill"].vector_launches
-    if nvec != counts["dq_masked_fill"]:
-        raise AssertionError(f"{counts['dq_masked_fill']} K5a launches, "
-                             f"{nvec} of them vector")
+def check_vectors(counts, name="dq_masked_fill"):
+    """Every launch of kernel `name` (K5a or K2) in the run just read
+    took its vector kernel."""
+    nvec = kernel_counters()[name].vector_launches
+    if nvec != counts[name]:
+        raise AssertionError(f"{counts[name]} {name} launches, {nvec} of "
+                             f"them vector")
     return nvec
+
+
+def beam_fdmt_plan():
+    """The beam search's FDMT plan, as its `bdetect_fdmt` block builds it
+    from the PFB's header: 4096 channels from 40 MHz in steps of 1 /
+    (4096 x 1 us), max_delay 64."""
+    from bifrost_tpu_torch.ops import Fdmt
+    return Fdmt().init(BCHAN, B_MAX_DELAY, B_F0, 1e-6 / (B_DT * BCHAN),
+                       method="cuda")
+
+
+def same_plan(a, b):
+    return len(a._steps) == len(b._steps) and all(
+        np.array_equal(x, y) for s, t in zip(a._steps, b._steps)
+        for x, y in zip(s, t))
 
 
 def read_counts():
@@ -291,6 +339,21 @@ def check_kernels(dev, kind):
                 raise AssertionError(f"merge_step differs from plain at "
                                      f"({bnrows}, {ntime})")
             worst = max(worst, float((out - want).abs().max()))
+        # A batch of 3 slices in one launch, into a slice of a larger
+        # buffer (the executor's ping-pong layout), with random tables.
+        n = bnrows // 2
+        bstate = torch.stack([state[:n], state[n:2 * n].flip(0),
+                              state[:n].neg()])
+        rb = rand[1][:n]
+        tables = (rand[0][:n] % n, torch.where(rb < 0, rb, rb % n),
+                  rand[2][:n])
+        bout = torch.empty(3, n + 8, ntime, device=dev)[:, :n]
+        merge_step(bstate, *tables, out=bout)
+        want = merge_step_plain(bstate, *tables)
+        torch.cuda.synchronize()
+        if not bits_equal(bout.contiguous(), want):
+            raise AssertionError(f"batched merge_step differs from plain at "
+                                 f"(3, {n}, {ntime})")
     x = torch.from_numpy(rng.integers(0, 256, (NCHAN, ntime))
                          .astype(np.float32)).to(dev)
     xf = torch.from_numpy(rng.standard_normal((NCHAN, ntime))
@@ -310,35 +373,88 @@ def check_kernels(dev, kind):
           f"{[b['nrows'] for b in plan._buckets]} x {ntime}; Fdmt.execute "
           f"cuda == plain bitwise (u8-valued and random f32 with -0.0)")
 
-    # Time one gulp's merge steps (12 launches) at the main path's shapes.
-    state0 = torch.zeros(max(plan._step_need), ntime, device=dev)
-    state0[:len(plan._init_perm)] = torch.from_numpy(rng.integers(
-        0, 512, (len(plan._init_perm), ntime)).astype(np.float32)).to(dev)
+    # Time one gulp's merge steps (12 launches) at the main path's shapes,
+    # from the initial state the path builds: `ms` and `plain_ms` each
+    # with a clone of that state, as every K1 record has been timed;
+    # `steps_ms` the merge steps alone.
+    state0 = plan._init_state(x[None], tabs, max([len(plan._init_perm)] +
+                                                 plan._step_need))
     ptabs = plan._device_tables("plain", dev)
     ms = cuda_time(lambda: merge_chain(plan, tabs, state0, merge_step), 20)
     plain_ms = cuda_time(
         lambda: merge_chain(plan, ptabs, state0, merge_step_plain), 5)
+    steps_ms = time_chain(plan, tabs, state0, merge_step, 20)
     if not bits_equal(merge_chain(plan, tabs, state0, merge_step),
                       merge_chain(plan, ptabs, state0, merge_step_plain)):
         raise AssertionError("merge chain cuda != plain")
     bound_ms, nbytes, _ = merge_bound(plan, ntime, hbm_rate(kind))
-    phase("kernels", f"fdmt merge_step: {ms:.4f} ms per gulp "
-          f"({len(plan._steps)} launches, each at its step's exact row "
-          f"count), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({nbytes / 1e9:.3f} GB at {hbm_rate(kind) / 1e12:.2f} TB/s), "
-          f"{kind}")
+    phase("kernels", f"fdmt merge_step: {ms:.4f} ms per gulp with a clone "
+          f"of the {tuple(state0.shape)} initial state, {steps_ms:.4f} ms "
+          f"for the merge steps alone ({len(plan._steps)} launches, each "
+          f"at its step's exact row count), plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({nbytes / 1e9:.3f} GB at "
+          f"{hbm_rate(kind) / 1e12:.2f} TB/s), {kind}")
+    beam = check_fdmt_beams(dev, kind, rng)
     return {"name": "fdmt_merge_step", "route": "cuda",
             "source": "bifrost_tpu_torch/csrc/fdmt.cu",
             "replaces": "bifrost_tpu/ops/fdmt_pallas.py:43",
             "launches": None, "max_abs_err": worst, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes", "library_ms": None}
+            "bound_by": "bytes", "library_ms": None,
+            "steps_ms": steps_ms, "at_beam_search": beam}
+
+
+def check_fdmt_beams(dev, kind, rng):
+    """K1 at the beam search's shape: the 8 beams' (4096, 65) FDMT gulps
+    as one batch, one launch a merge step; Fdmt.execute 'cuda' against
+    'plain' bitwise, then one gulp's merge steps timed beside the plain
+    version and the bound.  -> the record's beam-search fields."""
+    from bifrost_tpu_torch.ops import fdmt_kernel
+    plan = beam_fdmt_plan()
+    ntime = B_MAX_DELAY + 1
+    x = torch.from_numpy(rng.standard_normal((NBEAM, BCHAN, ntime))
+                         .astype(np.float32)).to(dev)
+    x[..., ::3] = -0.0
+    plan.method = "plain"
+    want = plan.execute(x)
+    plan.method = "cuda"
+    before = fdmt_kernel.merge_step.launches
+    got = plan.execute(x)
+    torch.cuda.synchronize()
+    per_gulp = fdmt_kernel.merge_step.launches - before
+    if per_gulp != len(plan._steps) or not bits_equal(got, want):
+        raise AssertionError(f"beam-search FDMT: {per_gulp} launches, "
+                             f"bitwise {bits_equal(got, want)}")
+    tabs = plan._device_tables("cuda", dev)
+    ptabs = plan._device_tables("plain", dev)
+    state0 = plan._init_state(x, tabs, max([len(plan._init_perm)] +
+                                           plan._step_need))
+    ms = time_chain(plan, tabs, state0, fdmt_kernel.merge_step, 50)
+    plain_ms = time_chain(plan, ptabs, state0, fdmt_kernel.merge_step_plain,
+                          10)
+    scratch = state0.clone()
+    device_ms = graph_time(lambda: plan._merge_steps(
+        scratch, tabs, fdmt_kernel.merge_step), 50)
+    bound_ms, nbytes, _ = merge_bound(plan, ntime, hbm_rate(kind), NBEAM)
+    phase("kernels", f"fdmt merge_step at the beam search's shape "
+          f"({NBEAM} beams x {BCHAN} ch x {ntime} samples, the "
+          f"bdetect_fdmt plan): Fdmt.execute cuda == plain bitwise; "
+          f"{ms:.4f} ms per FDMT gulp ({per_gulp} launches for all "
+          f"{NBEAM} beams, launched from the host as the path does), "
+          f"{device_ms:.4f} ms of it on the card (the same launches "
+          f"replayed from a CUDA graph, a measurement only), plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({nbytes / 1e6:.3f} MB), {kind}")
+    return {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes",
+            "launches_per_gulp": per_gulp, "batch": NBEAM, "ntime": ntime}
 
 
 def check_fir(dev, kind, rng):
     """K2 at the B-engine PFB's MAC shapes: one gulp of 16 folded frames
     x (4096 channels x 512 inputs x 2) lanes, 3 history rows, the
-    (4, 4096) prototype shared by 1024 lanes each."""
+    (4, 4096) prototype shared by 1024 lanes each, on the vector kernel
+    (K2's edge shapes are card tests: tests/test_torch_gpu.py)."""
     from bifrost_tpu_torch.ops import fir_kernel, pfb_coeffs
     rep = NSTAND * NPOL * 2
     lanes = BCHAN * rep
@@ -356,11 +472,14 @@ def check_fir(dev, kind, rng):
     }
     worst = 0.0
     for name, (x, st) in cases.items():
+        nvec = fir_kernel.fir_mac.vector_launches
         got = fir_kernel.fir_mac(x, c, st, 1, rep)
         want = fir_kernel.fir_mac_plain(x, c, st, 1, rep)
         torch.cuda.synchronize()
         if not bits_equal(got, want):
             raise AssertionError(f"fir_mac differs from plain on {name}")
+        if fir_kernel.fir_mac.vector_launches != nvec + 1:
+            raise AssertionError(f"fir_mac took its scalar kernel on {name}")
         worst = max(worst, float((got - want).abs().max()))
     x8, st8 = cases["integer-valued int8 voltages"]
     out = torch.empty(N_INT, lanes, device=dev)
@@ -382,7 +501,8 @@ def check_fir(dev, kind, rng):
     nbytes, nops = fir_work(N_INT, lanes, NTAP, BCHAN, 1)
     bound_ms, by = bound(nbytes, nops, hbm_rate(kind))
     phase("kernels", f"fir_mac equal to plain (tolerance: bitwise) on "
-          f"{' and '.join(cases)} at ({N_INT}, {lanes}) lanes, rep {rep}; "
+          f"{' and '.join(cases)} at ({N_INT}, {lanes}) lanes, rep {rep} "
+          f"(vector kernel); "
           f"{ms:.4f} ms per gulp (1 launch), plain {plain_ms:.4f} ms, "
           f"conv1d {library_ms:.4f} ms (rel err {err:.2e}), bound "
           f"{bound_ms:.4f} ms ({by}: {nbytes / 1e9:.4f} GB, "
@@ -552,9 +672,13 @@ def bengine_path(dev):
     fd = blocks["bdetect_fdmt"]
     nfdmt = B_NINT - B_MAX_DELAY           # FDMT gulps: one frame each
     expect = expected(fir_mac=B_NINT, beamform_power=B_NINT,
-                      fdmt_merge_step=nfdmt * NBEAM * len(fd.fdmt._steps))
+                      fdmt_merge_step=nfdmt * len(fd.fdmt._steps))
     if counts != expect:
         raise AssertionError(f"launches {counts}, expected {expect}")
+    nvec = check_vectors(counts, "fir_mac")
+    if not same_plan(fd.fdmt, beam_fdmt_plan()):
+        raise AssertionError("bdetect_fdmt's plan differs from the one "
+                             "[kernels] timed")
     s = ledger.summary()
     if s["lost_frames"] or s["duplicated_frames"] or \
             s["committed_frames"] != nfdmt:
@@ -574,7 +698,8 @@ def bengine_path(dev):
           f"{ledger.first_sink_t - t0:.3f} s; steady state {steady:.1f} "
           f"frames/s, {steady * nsp:.4g} samples/s (first to last "
           f"integration out); launches {counts} (fdmt: {nfdmt} gulps x "
-          f"{NBEAM} beams x {len(fd.fdmt._steps)} steps); ledger {s}; "
+          f"{len(fd.fdmt._steps)} steps, {NBEAM} beams a launch; K2: "
+          f"{nvec} vector); ledger {s}; "
           f"candidates {len(det.candidates)}")
     perf = {b.name: {k: round(v, 4) for k, v in b.perf_totals.items()}
             for b in pipe.blocks}
@@ -879,11 +1004,12 @@ def instrument_path(dev, volt, bref, spec):
     blocks = {b.name: b for b in pipe.blocks}
     nfdmt = B_NINT - B_MAX_DELAY
     expect = expected(fir_mac=B_NINT, beamform_power=B_NINT,
-                      fdmt_merge_step=nfdmt * NBEAM *
+                      fdmt_merge_step=nfdmt *
                       len(blocks["bdetect_fdmt"].fdmt._steps),
                       romein_grid_separable=B_NINT)
     if counts != expect:
         raise AssertionError(f"launches {counts}, expected {expect}")
+    nvec = check_vectors(counts, "fir_mac")
     s = ledger.summary()
     if s["lost_frames"] or s["duplicated_frames"] or \
             s["committed_frames"] != nfdmt:
@@ -913,7 +1039,8 @@ def instrument_path(dev, volt, bref, spec):
           f"frames/s, {nframe * nsp / wall:.4g} station-pol samples/s "
           f"with start-up; first image after {st[0] - t0:.3f} s; steady "
           f"state {steady:.1f} frames/s ({per_int * 1e3:.1f} ms per "
-          f"integration, first to last image); launches {counts}; "
+          f"integration, first to last image); launches {counts} (K2: "
+          f"{nvec} vector); "
           f"ledger {s}; candidates {len(det.candidates)}; peak device "
           f"memory {peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated); "
           f"device rings GiB {json.dumps(rings)}; image D2H {d2h * 1e3:.1f} "
@@ -1292,7 +1419,7 @@ def frbflag_path(dev):
     expect = expected(fdmt_merge_step=nsteps * NGULP, dq_masked_fill=NGULP)
     if counts != expect:
         raise AssertionError(f"launches {counts}, expected {expect}")
-    nvec = check_fill_vectors(counts)
+    nvec = check_vectors(counts)
     s = ledger.summary()
     if s["lost_frames"] or s["duplicated_frames"] or \
             s["committed_frames"] != GULP * NGULP - MAX_DELAY:
@@ -1430,11 +1557,12 @@ def dq_path(dev, volt, spec):
     nfdmt = B_NINT - B_MAX_DELAY
     expect = expected(fir_mac=B_NINT, beamform_power=B_NINT,
                       dq_masked_fill=B_NINT, dq_gain_apply=B_NINT,
-                      fdmt_merge_step=nfdmt * NBEAM *
+                      fdmt_merge_step=nfdmt *
                       len(blocks["bdetect_fdmt"].fdmt._steps))
     if counts != expect:
         raise AssertionError(f"launches {counts}, expected {expect}")
-    nvec = check_fill_vectors(counts)
+    nvec = check_vectors(counts)
+    nvec_fir = check_vectors(counts, "fir_mac")
     s = ledger.summary()
     if s["lost_frames"] or s["duplicated_frames"] or \
             s["committed_frames"] != nfdmt:
@@ -1452,7 +1580,8 @@ def dq_path(dev, volt, spec):
           f"{wall:.3f} s, {nframe / wall:.1f} frames/s with start-up; "
           f"steady state {steady:.1f} frames/s, {steady * nsp:.4g} "
           f"samples/s (first to last integration out); launches {counts} "
-          f"(K5a: {nvec} vector); ledger {s}; candidates "
+          f"(K5a: {nvec} vector, K2: {nvec_fir} vector); ledger {s}; "
+          f"candidates "
           f"{len(det.candidates)}; tone cells "
           f"flagged in windows {DQ_TONE_INT}..{B_NINT - 1}: yes; flagged "
           f"fraction {flag.flagged_fraction:.6f}; peak device memory "

@@ -202,3 +202,46 @@ def test_merge_step_plain_semantics():
     np.testing.assert_array_equal(_bits(got), _bits(want))
     assert not np.signbit(got[0]).any()
 
+
+
+@pytest.mark.parametrize("method", ["cuda", "plain", "naive"])
+@pytest.mark.parametrize("nchan,max_delay,f0,df,exponent,ntime",
+                         EXEC_GEOMETRIES[:4] + EXEC_GEOMETRIES[5:])
+def test_batched_equals_per_slice(nchan, max_delay, f0, df, exponent, ntime,
+                                  method):
+    """A (batch, nchan, ntime) block runs through every stage as one
+    block (one merge-step call per step for the whole batch) and equals,
+    bitwise, each slice dedispersed on its own, for both delay signs."""
+    plan = Fdmt().init(nchan, max_delay, f0, df, exponent, method=method)
+    rng = np.random.default_rng(nchan + ntime)
+    xb = rng.standard_normal((3, nchan, ntime)).astype(np.float32)
+    xb[:, :, ::7] = -0.0
+    for neg in (False, True):
+        got = plan.execute(torch.from_numpy(xb), negative_delays=neg)
+        for i in range(3):
+            want = plan.execute(torch.from_numpy(xb[i]), negative_delays=neg)
+            np.testing.assert_array_equal(_bits(got[i].numpy()),
+                                          _bits(want.numpy()))
+
+
+def test_batched_one_call_per_step(monkeypatch):
+    """The beam search's FDMT (4096 channels from 40 MHz in steps of
+    1 / (4096 x 1 us), max_delay 64, 65 samples a row) over 8 beams makes
+    one merge-step call per step for all beams, and equals JAX
+    `Fdmt.execute` on the same batch bitwise."""
+    import bifrost_tpu_torch.ops.fdmt as port_fdmt
+    calls = []
+
+    def step(state, rowA, rowB, delay, out):
+        calls.append(state.shape[0])
+        return fdmt_kernel.merge_step(state, rowA, rowB, delay, out=out)
+
+    monkeypatch.setattr(port_fdmt, "merge_step", step)
+    geo = (4096, 64, 40.0, 1e-6 / (1e-6 * 4096))
+    ref, port = _plans(*geo, -2.0)
+    rng = np.random.default_rng(21)
+    xb = rng.integers(0, 64, (8, 4096, 65)).astype(np.float32)
+    got = port.execute(torch.from_numpy(xb))
+    assert calls == [8] * len(port._steps) and len(calls) == 12
+    np.testing.assert_array_equal(_bits(got.numpy()),
+                                  _bits(np.asarray(ref.execute(xb))))

@@ -44,6 +44,34 @@ def test_merge_step_kernel_bitwise_vs_plain(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("ntime", [300, 65])
+def test_merge_step_kernel_batched_bitwise_vs_plain(cuda, ntime):
+    """The kernel on a (3, rows, ntime) batch in one launch, into a slice
+    of a larger buffer (the executor's ping-pong layout), against its
+    plain version, bitwise: -0.0 inputs, partner-less rows, delays past
+    the row length, random and sorted (shared-row) tables; 16-byte
+    accesses (ntime 300) and element accesses (65)."""
+    rng = np.random.default_rng(16)
+    state = torch.from_numpy(
+        rng.standard_normal((3, 64, ntime)).astype(np.float32)).to(cuda)
+    state[:, 5] = -0.0
+    state[..., ::7] = -0.0
+    r = np.arange(48)
+    da = np.round(r * 0.55).astype(np.int64)
+    for tabs in ((rng.integers(0, 64, 48), rng.integers(-1, 64, 48),
+                  rng.integers(0, ntime + 20, 48)),
+                 (da, np.where(r % 11 == 3, -1, 20 + r - da), da)):
+        tabs = [torch.from_numpy(a.astype(np.int32)).to(cuda) for a in tabs]
+        out = torch.full((3, 56, ntime), float("nan"), device=cuda)[:, :48]
+        before = fdmt_kernel.merge_step.launches
+        fdmt_kernel.merge_step(state, *tabs, out=out)
+        assert fdmt_kernel.merge_step.launches == before + 1
+        want = fdmt_kernel.merge_step_plain(state, *tabs)
+        torch.cuda.synchronize()
+        assert _bits_equal(out.contiguous(), want)
+
+
+@pytest.mark.gpu
 def test_merge_step_rejects_bad_operands(cuda):
     state = torch.zeros(8, 16, device=cuda)
     tabs = [torch.zeros(8, dtype=torch.int32, device=cuda)] * 3
@@ -52,6 +80,17 @@ def test_merge_step_rejects_bad_operands(cuda):
     with pytest.raises(ValueError, match="int32"):
         fdmt_kernel.merge_step(state, *[t.long() for t in tabs],
                                out=torch.empty(8, 16, device=cuda))
+    # Batched operands: slices of one buffer whose spans interleave, a
+    # batch mismatch, rows that are not contiguous.
+    buf = torch.zeros(2, 16, 16, device=cuda)
+    with pytest.raises(ValueError, match="overlaps"):
+        fdmt_kernel.merge_step(buf[:, :8], *tabs, out=buf[:, 8:])
+    with pytest.raises(ValueError, match="does not match"):
+        fdmt_kernel.merge_step(torch.zeros(3, 8, 16, device=cuda), *tabs,
+                               out=torch.empty(2, 8, 16, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        fdmt_kernel.merge_step(state, *tabs,
+                               out=torch.empty(8, 32, device=cuda)[:, :16])
 
 
 @pytest.mark.gpu
@@ -65,26 +104,97 @@ def test_fdmt_cuda_matches_cpu(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("decim,ntap,rep,int8", [
-    (1, 4, 1, False), (2, 8, 1, False), (4, 1, 1, False), (1, 4, 6, True),
-    (1, 4, 6, False)])
-def test_fir_mac_kernel_bitwise_vs_plain(cuda, decim, ntap, rep, int8):
-    """K2 against its plain version, bitwise: decimation, a 1-tap
-    filter, shared coefficient columns (the PFB fold) and int8 input."""
-    from bifrost_tpu_torch.ops import fir_kernel
-    rng = np.random.default_rng(6)
-    lanes, ntime = 12 * 6, 40
-    x = (rng.integers(-128, 128, (ntime, lanes)).astype(np.int8) if int8
-         else rng.standard_normal((ntime, lanes)).astype(np.float32))
-    x = torch.from_numpy(x).to(cuda)
+def test_fdmt_batched_cuda_matches_cpu(cuda):
+    """A batch of beams on the card, one launch per merge step for the
+    whole batch, against the CPU, bitwise, and against each beam alone."""
+    rng = np.random.default_rng(17)
+    x = torch.from_numpy(rng.standard_normal((8, 256, 65))
+                         .astype(np.float32))
+    plan = Fdmt().init(256, 64, 40.0, 1e-6 / (1e-6 * 256))
+    before = fdmt_kernel.merge_step.launches
+    got = plan.execute(x.to(cuda)).cpu()
+    assert fdmt_kernel.merge_step.launches == before + len(plan._steps)
+    assert _bits_equal(got, plan.execute(x))
+    for i in (0, 7):
+        assert _bits_equal(got[i].contiguous(),
+                           plan.execute(x[i].to(cuda)).cpu())
+
+
+def _fir_case(rng, int8, ntap, rep, lanes, ntime, layout, cuda):
+    """Seeded (x, coeffs, state) for K2 on the card in `layout`:
+    'contig'; 'offset' (x one element past a buffer's start); 'oddrow'
+    (x from the second row of a buffer); 'state' (the state one element
+    past a buffer's start).  f32 samples and the state carry -0.0."""
+    dtype = torch.int8 if int8 else torch.float32
+    xv = rng.integers(-128, 128, (ntime, lanes)).astype(np.int8) if int8 \
+        else rng.standard_normal((ntime, lanes)).astype(np.float32)
+    if not int8:
+        xv[::3, ::5] = -0.0
+    if layout == "offset":
+        x = torch.empty(ntime * lanes + 1, dtype=dtype,
+                        device=cuda)[1:].view(ntime, lanes)
+    elif layout == "oddrow":
+        x = torch.empty(ntime + 1, lanes, dtype=dtype, device=cuda)[1:]
+    else:
+        x = torch.empty(ntime, lanes, dtype=dtype, device=cuda)
+    x.copy_(torch.from_numpy(xv))
+    sv = rng.standard_normal((ntap - 1, lanes)).astype(np.float32)
+    sv[:, ::4] = -0.0
+    skip = int(layout == "state")
+    st = torch.empty((ntap - 1) * lanes + skip, device=cuda)[skip:]
+    st = st.view(ntap - 1, lanes).copy_(torch.from_numpy(sv))
     c = torch.from_numpy(rng.standard_normal(
         (ntap, lanes // rep)).astype(np.float32)).to(cuda)
-    st = torch.from_numpy(rng.standard_normal(
-        (ntap - 1, lanes)).astype(np.float32)).to(cuda)
+    return x, c, st
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("decim,ntap,rep,int8,lanes,ntime,layout,vec", [
+    (1, 4, 1, False, 72, 40, "contig", True),
+    (2, 8, 1, False, 72, 40, "contig", True),
+    (4, 1, 1, False, 72, 40, "contig", True),
+    (1, 4, 6, True, 72, 40, "contig", True),
+    (1, 4, 6, False, 72, 40, "contig", True),
+    (1, 4, 1024, True, 2048, 16, "contig", True),
+    (1, 4, 1024, False, 2048, 16, "contig", True),
+    (1, 4, 1, True, 64, 16, "contig", True),
+    (1, 8, 1, True, 64, 16, "contig", True),
+    (1, 4, 2, True, 36, 16, "contig", False),
+    (1, 4, 2, False, 42, 16, "contig", False),
+    (1, 4, 16, True, 64, 16, "offset", False),
+    (1, 4, 4, False, 64, 16, "offset", False),
+    (1, 3, 1, False, 63, 16, "oddrow", False),
+    (1, 4, 4, False, 64, 16, "state", False),
+    (1, 8, 16, True, 64, 3, "contig", True),
+    (1, 1, 4, False, 64, 16, "contig", True),
+    (1, 9, 16, True, 64, 16, "contig", False),
+    (2, 4, 16, True, 64, 32, "contig", True),
+    (4, 4, 4, False, 64, 32, "contig", True),
+    (5, 3, 4, False, 64, 40, "contig", True)])
+def test_fir_mac_kernel_bitwise_vs_plain(cuda, decim, ntap, rep, int8, lanes,
+                                         ntime, layout, vec):
+    """K2 against its plain version, bitwise, each launch's kernel
+    asserted: decimation (2, 4 and past ntap, where rows are skipped), 1
+    and 9 taps (above the vector kernel's instantiations), coefficient
+    columns shared by a thread's lanes (the PFB's rep 1024) and per lane
+    (rep 1 and 6, 4 and 8 taps), frames across the vector kernel's
+    8-frame cut, a gulp shorter than ntap - 1, int8 and f32 input with
+    -0.0; the scalar kernel on lanes that are not a multiple of the
+    vector, a base off by one element, one row into a buffer of an odd
+    lane count and a state off 16-byte alignment."""
+    from bifrost_tpu_torch.ops import fir_kernel
+    rng = np.random.default_rng(6)
+    x, c, st = _fir_case(rng, int8, ntap, rep, lanes, ntime, layout, cuda)
+    out = torch.empty(ntime // decim, lanes, device=cuda)
+    assert fir_kernel.fir_vectors(x, st, out, ntap) == vec
     before = fir_kernel.fir_mac.launches
-    y = fir_kernel.fir_mac(x, c, st, decim, rep)
+    vbefore = fir_kernel.fir_mac.vector_launches
+    y = fir_kernel.fir_mac(x, c, st, decim, rep, out=out)
     assert fir_kernel.fir_mac.launches == before + 1
-    assert _bits_equal(y, fir_kernel.fir_mac_plain(x, c, st, decim, rep))
+    assert fir_kernel.fir_mac.vector_launches == vbefore + vec
+    want = fir_kernel.fir_mac_plain(x, c, st, decim, rep)
+    torch.cuda.synchronize()
+    assert _bits_equal(y, want)
 
 
 @pytest.mark.gpu

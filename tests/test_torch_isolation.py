@@ -45,7 +45,7 @@ def _imported_modules(path):
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) +
                          [ROOT / "chip_smoke.py", ROOT / "romein_bounds.py",
-                          ROOT / "kernel_variants.py"],
+                          ROOT / "kernel_variants.py", ROOT / "chain_ab.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_no_jax(path):
     for mod in _imported_modules(path):
