@@ -2,7 +2,8 @@
 only the flags the port reads so far.
 
 Call sites read through `config.get(name)`; `config.set(name, value)`
-overrides the default.
+overrides the default.  A flag may carry a `validate` callable: a bad
+value raises at `set` and again at `get`.
 Flags that steer per-sequence state are LATCHED by the blocks that read
 them (`hold_latch` / `release_latch`): while a sequence holds the latch,
 `set` and `reset` on that flag raise, naming the block, because a new
@@ -19,13 +20,38 @@ _latch_guards = {}   # name -> owners latching it, one entry per sequence
 
 
 class Flag(object):
-    def __init__(self, name, default, description):
+    def __init__(self, name, default, description, validate=None):
         self.name = name
         self.default = default
         self.description = description
+        self.validate = validate
 
     def value(self):
-        return _overrides.get(self.name, self.default)
+        value = _overrides.get(self.name, self.default)
+        if self.validate is not None:
+            self.validate(value)
+        return value
+
+
+# Deepest in-order queue a block's worker accepts (the JAX package's
+# MAX_ASYNC_DEPTH).
+MAX_ASYNC_DEPTH = 16
+
+
+def _validate_async_depth(value):
+    if not isinstance(value, int) or isinstance(value, bool) or \
+            not 1 <= value <= MAX_ASYNC_DEPTH:
+        raise ValueError(
+            f"pipeline_async_depth must be an integer in "
+            f"[1, {MAX_ASYNC_DEPTH}], got {value!r}")
+
+
+def _validate_chunk_nbyte(value):
+    if not isinstance(value, int) or isinstance(value, bool) or \
+            value < 0 or (value != 0 and value < 4096):
+        raise ValueError(
+            f"egress_chunk_nbyte must be 0 (whole-gulp staging) or an "
+            f"integer >= 4096 bytes, got {value!r}")
 
 
 FLAGS = {f.name: f for f in [
@@ -66,6 +92,22 @@ FLAGS = {f.name: f for f in [
          "card).  The JAX package's 'xla' and MXU 'matmul*' engines are "
          "TPU methods and are refused.  Latched per sequence by "
          "FftBlock."),
+    Flag("pipeline_async_depth", 1,
+         "In-order queue depth of a block's worker.  The egress stager "
+         "of a DeviceSinkBlock keeps max(2, depth) gulps in flight.  "
+         "Latched per sequence.", validate=_validate_async_depth),
+    Flag("egress_staging", True,
+         "Staged device->host egress for DeviceSinkBlock sinks on 'cuda' "
+         "rings (egress.py): copies into pooled pinned buffers on a side "
+         "stream while the consumer drains the gulp before.  Off = "
+         "one blocking copy per gulp on the block thread.  Latched per "
+         "sequence."),
+    Flag("egress_chunk_nbyte", 4 << 20,
+         "Egress staging chunk in bytes: a staged gulp bound for a sink's "
+         "own destination (open_dest) is copied to the host in "
+         "frame-aligned pieces of at most this size; a pooled gulp is one "
+         "copy.  0 stages whole gulps.  Latched per sequence.",
+         validate=_validate_chunk_nbyte),
 ]}
 
 
@@ -104,6 +146,8 @@ def get(name):
 def set(name, value):  # noqa: A001 — mirrors the JAX package's API
     if name not in FLAGS:
         raise KeyError(f"unknown flag {name!r}; known: {sorted(FLAGS)}")
+    if FLAGS[name].validate is not None:
+        FLAGS[name].validate(value)
     with _lock:
         _check_unlatched(name)
         _overrides[name] = value

@@ -8,6 +8,7 @@ from .fft import Fft
 from .fftshift import fftshift
 from .flag import Flag, flag
 from .pfb import Pfb, pfb, pfb_coeffs
+from .reduce import REDUCE_OPS, reduce, reduce_to
 from .romein import Romein, separate_kernels
 from .transpose import transpose
 from . import stats
@@ -15,5 +16,6 @@ from . import stats
 __all__ = ["Beamform", "GainCal", "calibrate", "decode_gains",
            "encode_gains", "fold_gains", "gain_outer", "Fdmt",
            "plan_from_reference", "Fft", "fftshift", "Flag", "flag",
-           "Pfb", "pfb", "pfb_coeffs", "Romein", "separate_kernels",
+           "Pfb", "pfb", "pfb_coeffs", "REDUCE_OPS", "reduce", "reduce_to",
+           "Romein", "separate_kernels",
            "transpose", "stats"]

@@ -8,6 +8,9 @@ synchronous gulp loop: input overlap (`define_input_overlap_nframe`),
 the exact emit schedule (`output_nframes_for_gulp`), and skip handling;
 and the header views (`RingView`, `SequenceView`, `block_view`).
 
+`_GulpDispatcher` is the bounded in-order worker that the egress
+stager (egress.py) runs its gulps on.
+
 Device handling: a pipeline runs on one torch device, the card unless
 the caller passes ``device='cpu'``; with no card and no device named,
 `Pipeline()` raises.  Each block thread runs on its own CUDA stream.
@@ -591,6 +594,131 @@ class SinkBlock(MultiTransformBlock):
 
     def on_data(self, ispan):
         raise NotImplementedError
+
+
+class _GulpDispatcher(object):
+    """One worker thread with a bounded in-order queue (counterpart of
+    bifrost_tpu/pipeline.py:2456-2618).
+
+    `submit(fn)` enqueues and returns once there is room; the worker runs
+    the items strictly in submission order.  A worker exception surfaces
+    on the submitting thread at the next `submit()` or `drain()`, and the
+    items queued behind the failed one are dropped (they are tagged with
+    an epoch that a fault bumps).  `on_worker_start` runs once on the
+    worker before any item (to bind the pipeline's device); if it fails
+    the dispatcher closes and every later submit raises.
+    """
+
+    DEPTH = 2
+
+    def __init__(self, name, depth=None, on_worker_start=None):
+        self.depth = int(depth) if depth else self.DEPTH
+        self._cv = threading.Condition()
+        self._queue = []          # [(epoch, fn)]
+        self._busy = False
+        self._exc = None
+        self._epoch = 0
+        self._closed = False
+        self._on_worker_start = on_worker_start
+        self._thread = threading.Thread(target=self._run, name=name[:15],
+                                        daemon=True)
+        self._thread.start()
+
+    def inflight(self):
+        """Items submitted but not yet finished (queued + running)."""
+        with self._cv:
+            return len(self._queue) + (1 if self._busy else 0)
+
+    def _run(self):
+        if self._on_worker_start is not None:
+            try:
+                self._on_worker_start()
+            except Exception as e:  # noqa: BLE001 — surfaces at submit
+                with self._cv:
+                    if self._exc is None:
+                        self._exc = e
+                    self._epoch += 1
+                    self._closed = True
+                    del self._queue[:]
+                    self._cv.notify_all()
+                return
+        while True:
+            with self._cv:
+                while not self._queue and not self._closed:
+                    self._cv.wait()
+                if self._closed:
+                    # Reached only after a drain that timed out: the
+                    # pipeline is tearing down, so the rest is dropped.
+                    del self._queue[:]
+                    self._cv.notify_all()
+                    return
+                if self._exc is not None or self._queue[0][0] != self._epoch:
+                    # Items queued behind a failed one must not run.
+                    self._queue = [it for it in self._queue
+                                   if it[0] == self._epoch]
+                    self._cv.notify_all()
+                    continue
+                fn = self._queue.pop(0)[1]
+                self._busy = True
+            exc = None
+            try:
+                fn()
+            except BaseException as e:  # noqa: BLE001 — surfaces on submit
+                exc = e
+            with self._cv:
+                self._busy = False
+                if exc is not None:
+                    self._epoch += 1
+                    if self._exc is None:
+                        self._exc = exc
+                self._cv.notify_all()
+
+    def _raise_pending_locked(self):
+        if self._exc is not None:
+            exc, self._exc = self._exc, None
+            raise exc
+
+    def submit(self, fn, abort=None):
+        """Enqueue `fn`; blocks while the queue is full.  `abort`
+        (optional callable) is polled during that wait: when it returns
+        True the submit gives up with RingInterrupted."""
+        with self._cv:
+            while len(self._queue) + (1 if self._busy else 0) >= self.depth:
+                self._raise_pending_locked()
+                if abort is not None and abort():
+                    raise RingInterrupted(
+                        "dispatch queue wait aborted (shutdown)")
+                self._cv.wait(None if abort is None else 0.05)
+            self._raise_pending_locked()
+            if self._closed:
+                raise RuntimeError("dispatcher closed")
+            self._queue.append((self._epoch, fn))
+            self._cv.notify_all()
+
+    def drain(self, raise_exc=True, timeout=None):
+        """Wait until every submitted item has finished; False if
+        `timeout` (seconds) ran out first."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        with self._cv:
+            while self._queue or self._busy:
+                if deadline is not None:
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        if raise_exc:
+                            self._raise_pending_locked()
+                        return False
+                    self._cv.wait(remaining)
+                else:
+                    self._cv.wait()
+            if raise_exc:
+                self._raise_pending_locked()
+        return True
+
+    def close(self):
+        with self._cv:
+            self._closed = True
+            self._cv.notify_all()
+        self._thread.join(timeout=5)
 
 
 # -------------------------------------------------------------------- views

@@ -93,6 +93,44 @@ class TensorInfo(object):
         return tuple(self.ringlet_shape) + (nframe,) + \
             tuple(self.frame_tensor_shape)
 
+    # ---------------------------------------------- host-destination views
+    @property
+    def host_view_dtype(self):
+        """numpy dtype of a span landed on the host in logical form (the
+        egress plane's form, bifrost_tpu/ring.py:257-266): complex
+        integers lift to complex64, packed types stay uint8 storage,
+        everything else is its storage type."""
+        dt = self.dtype
+        if dt.is_complex and dt.is_integer and dt.nbit >= 8:
+            return np.dtype(np.complex64)
+        return np.dtype(dt.as_jax_dtype())
+
+    def host_span_shape(self, nframe):
+        """Logical shape of an nframe span: the storage shape without the
+        (re, im) axis of complex integers."""
+        shape = self.span_shape(nframe)
+        dt = self.dtype
+        if dt.is_complex and dt.is_integer and dt.nbit >= 8:
+            shape = shape[:-1]
+        return tuple(shape)
+
+    def host_span_nbyte(self, nframe):
+        """Host bytes of an nframe span in logical form (the size of the
+        egress plane's staging buffer for the gulp)."""
+        return int(np.prod(self.host_span_shape(nframe))) * \
+            self.host_view_dtype.itemsize
+
+    def host_span_view(self, buf, nframe):
+        """`buf` (a C-contiguous byte buffer of at least
+        host_span_nbyte(nframe) bytes: numpy or a CPU uint8 tensor) as a
+        numpy array in this tensor's logical axis order."""
+        if isinstance(buf, torch.Tensor):
+            buf = buf.numpy()
+        flat = np.frombuffer(buf, dtype=np.uint8,
+                             count=self.host_span_nbyte(nframe))
+        return flat.view(self.host_view_dtype).reshape(
+            self.host_span_shape(nframe))
+
     def span_view(self, rows, nframe):
         """Typed view of `rows`, a (nringlet, nframe * frame_nbyte) uint8
         view of ring bytes, in the header's axis order."""

@@ -80,6 +80,48 @@ Phases, one line each; any failure exits non-zero:
              gaincal -> beamform within 1e-5 of beamform(gains=) over 4
              integrations.
 
+9. gpuspec — the gpuspec spectrometer (testbench/gpuspec_simple.py:
+             88-101), unfused, from the port's BlockChainer:
+             read_guppi_raw -> copy('cuda') -> transpose -> fft(fine_time,
+             fftshift) -> detect('stokes') -> merge_axes(freq, fine_freq)
+             -> reduce(freq, F_AVG) -> accumulate(N_INT) -> write_sigproc.
+             (a) File to file at the flagship geometry (GS_FLAGSHIP,
+             bench.py:259-274: 64 ch x 16,384 x 2 pol ci8 a frame,
+             F_AVG 64, N_INT 24, 64 frames; the GUPPI file written to a
+             temporary directory by the port's io) after copy('system'),
+             the .fil held against this script's numpy golden within the
+             testbench's FFT bound, 32 eps sqrt(nfft) max|want|.  (b)
+             The same with write_sigproc on the 'cuda' ring, the egress
+             stager on the path: its .fil byte-identical to (a)'s, every
+             output gulp staged.  (c) bench.py's run_framework shape,
+             array_source -> ... -> callback_sink on the card, at the
+             flagship and at a real 128 MiB GUPPI block (GS_GUPPI:
+             NTIME 524,288, N_INT 4, 8 blocks replayed 4 times):
+             samples/s whole and steady state, host seconds by block and
+             phase, peak device memory, each stage's CUDA-event time a
+             gulp; a second run bitwise equal to the first; on the real
+             block two channels of the first integration against an f64
+             numpy golden, at the flagship every integration against
+             (a)'s golden.  No hand kernel is on the path (asserted).
+10. egress — benchmarks/egress_tpu.py's run_chain shape, array_source
+             -> copy('cuda') -> a pooled DeviceSinkBlock, staged and
+             blocking in turns, EG_PAIRS pairs, at bench.py's dump shape
+             (EG_DUMP: 16 x (4, 16,384) f32, gulp 4, depth 8; every run
+             bitwise equal to the source) and at the instrument's image
+             frame (EG_IMAGE: 4096 x 128 x 128 cf32, 512 MiB a gulp, 32
+             gulps replaying 4 distinct frames), there beside
+             copy('system') -> callback_sink, the image egress's shape,
+             and fed two ways: from the host (the replaying source ->
+             copy('cuda'), run_chain's shape) and from frames already on
+             the card (the replaying source writing the 'cuda' ring, as
+             the instrument's FFT hands its image over; the sink then
+             paces the chain).  One more run of each, 8 gulps, is checked
+             gulp by gulp against the source.  Bytes/s on the host clock,
+             whole run and steady state (from the 9th gulp on the host
+             to the last, past the start-up backlog); one 512 MiB D2H
+             through the stager, a pageable copy_ (into a buffer used
+             before and into a new one) and a pinned copy_.
+
 The launch checks of every phase count all seven kernels (K1, K2, K4,
 K6a, K6b, K5a, K5b).  The line before the last two holds the kernel
 records as JSON, one for each of those kernels; then the card's name and
@@ -88,6 +130,7 @@ power limit; the last line is {"ok": true, "device": {...}}.
 
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -123,6 +166,34 @@ FRB_FLAG = dict(algo="mad", thresh=6.0, mad_factor=4.0, window=16)
 STORM_GULP0 = 2
 DQ_WINDOW, DQ_TONE_INT, DQ_STATION, DQ_CHAN, DQ_AMP = 16, 8, 17, 1000, 16
 DQ_FOLD = (6, 10)      # integrations of the fold-identity run
+
+# The gpuspec spectrometer (bench.py:259-274; testbench/gpuspec_simple.py:
+# 88-101): the repo's flagship, 64 channels x 16,384 fine samples x 2 pol
+# of ci8 a frame, F_AVG 64, N_INT 24, 64 frames; and a real GUPPI block of
+# the Breakthrough Listen recorder at the GBT (BLOCSIZE 134,217,728,
+# OBSNCHAN 64, 2 pol, 8 bit: NTIME 524,288), F_AVG 64, N_INT cut to 4,
+# 32 blocks (8 distinct, replayed 4 times).  Voltages are seeded integers
+# in [-8, 8).  GS_GOLDEN_CHANS are the real block's output channels held
+# against an f64 golden (one where the fftshift put a coarse channel's
+# DC bin).
+GS_FLAGSHIP = dict(name="flagship", nchan=64, ntime=16384, npol=2,
+                   f_avg=64, n_int=24, nframe=64, ndistinct=64)
+GS_GUPPI = dict(name="guppi_128MiB", nchan=64, ntime=524288, npol=2,
+                f_avg=64, n_int=4, nframe=32, ndistinct=8)
+GS_GOLDEN_CHANS = (1234, 32 * 8192 + 4096)
+
+# The egress plane (bench.py:537-566, benchmarks/egress_tpu.py:197-231):
+# array_source -> copy('cuda') -> a pooled DeviceSinkBlock, staged and
+# blocking in turns, at bench.py's dump shape (16 frames of (4, 16,384)
+# f32, gulp 4, depth 8) and at the instrument's image frame (4096 x 128 x
+# 128 cf32, 512 MiB a gulp; 32 gulps replaying 4 distinct frames, the
+# steady state from gulp `skip` on, a check run of 8 gulps), the latter
+# beside copy('system') -> callback_sink, the image egress's shape, fed
+# from the host and from the card.
+EG_DUMP = dict(shape=(16, 4, 16384), gulp=4, depth=8)
+EG_IMAGE = dict(shape=(4096, 128, 128), ndistinct=4, nframe=32,
+                check_nframe=8, skip=8, depth=2)
+EG_PAIRS = 3
 
 # Device-memory rate by card (NVIDIA data sheets), bytes/s
 _HBM_RATE = (("H200", 4.8e12), ("H100 PCIe", 2.0e12), ("H100", 3.35e12))
@@ -1641,6 +1712,562 @@ def dq_path(dev, volt, spec):
     return counts
 
 
+def gs_voltages(g, rng):
+    """`g['ndistinct']` frames of ci8 voltages in storage form, (frame,
+    chan, time, pol, (re, im)) int8: for the flagship the values of
+    bench.py:270-274 (re and im each drawn by `rng.integers(-8, 8,
+    shape)`), for the real block the same range drawn as int8."""
+    shape = (g["ndistinct"], g["nchan"], g["ntime"], g["npol"])
+    v = np.empty(shape + (2,), np.int8)
+    if g is GS_FLAGSHIP:
+        v[..., 0] = rng.integers(-8, 8, shape)
+        v[..., 1] = rng.integers(-8, 8, shape)
+    else:
+        v[...] = rng.integers(-8, 8, v.shape, dtype=np.int8)
+    return v
+
+
+def write_guppi(path, volt):
+    """`volt` (frame, chan, time, pol, 2) int8 as a GUPPI RAW file, one
+    block a frame, through the port's io."""
+    from bifrost_tpu_torch.io import guppi_raw
+    _, nchan, ntime, npol, _ = volt.shape
+    with open(path, "wb") as f:
+        for b, frame in enumerate(volt):
+            guppi_raw.write_header(f, {
+                "BLOCSIZE": frame.nbytes, "OBSNCHAN": nchan, "NPOL": npol,
+                "NBITS": 8, "OBSFREQ": 1420.0, "OBSBW": -187.5,
+                "PKTIDX": b, "SRC_NAME": "CHIPSMOKE", "TELESCOP": "GBT"})
+            f.write(frame.tobytes())
+
+
+def gs_stokes(x):
+    """numpy Stokes (I, Q, U, V) of (..., 2 pol, chan, fine) spectra."""
+    x0, x1 = x[..., 0, :, :], x[..., 1, :, :]
+    p0, p1 = np.abs(x0) ** 2, np.abs(x1) ** 2
+    xy = x0 * np.conj(x1)
+    return np.stack([p0 + p1, p0 - p1, 2 * xy.real, -2 * xy.imag], axis=-3)
+
+
+def gs_golden(volt, g):
+    """numpy golden of the gpuspec chain (testbench/gpuspec_simple.py:26,
+    which this script may not import): complex64 FFT of the whole fine
+    axis, fftshift, Stokes, (freq, fine) merged, F_AVG summed, N_INT
+    integrated, frame by frame.  -> (nint, 4, nchan * ntime / f_avg)."""
+    n_int, f_avg = g["n_int"], g["f_avg"]
+    out = []
+    for i in range(g["nframe"] // n_int):
+        acc = 0
+        for k in range(i * n_int, (i + 1) * n_int):
+            v = volt[k % len(volt)]
+            xc = (v[..., 0].astype(np.float32) +
+                  1j * v[..., 1].astype(np.float32)).transpose(2, 0, 1)
+            spec = np.fft.fftshift(np.fft.fft(xc, axis=-1), axes=-1)
+            s = gs_stokes(spec).reshape(4, -1)
+            acc = acc + s.reshape(4, -1, f_avg).sum(axis=-1)
+        out.append(acc)
+    return np.stack(out)
+
+
+def gs_bound(nfreq, f_avg, want):
+    """The testbench's FFT bound: 32 eps_f32 sqrt(nfft) max|want|."""
+    return 32 * np.finfo(np.float32).eps * np.sqrt(nfreq * f_avg) * \
+        np.abs(want).max()
+
+
+def gs_chain(bc, g, head):
+    """The testbench chain after its source, unfused, on the port's
+    BlockChainer (copy('cuda') for copy('tpu'))."""
+    head(bc)
+    bc.blocks.copy("cuda")
+    bc.blocks.transpose(["time", "pol", "freq", "fine_time"])
+    bc.blocks.fft(axes="fine_time", axis_labels="fine_freq",
+                  apply_fftshift=True)
+    bc.blocks.detect(mode="stokes")
+    bc.views.merge_axes("freq", "fine_freq", label="freq")
+    bc.blocks.reduce("freq", g["f_avg"])
+    bc.blocks.accumulate(g["n_int"])
+
+
+def gs_file_run(dev, g, raw, outdir, staged):
+    """(a)/(b): GUPPI file -> chain -> .fil; with `staged` the SIGPROC
+    sink reads the 'cuda' ring itself (the egress stager on the path),
+    else after copy('system').  -> (.fil bytes, staged gulps, drained
+    gulps, wall s)."""
+    import bifrost_tpu_torch as bt
+    from bifrost_tpu_torch.blocks import SigprocSinkBlock
+
+    class Sink(SigprocSinkBlock):
+        def on_sink_sequence_end(self, iseq):
+            self.staged = self._egress.staged_gulps \
+                if self._egress is not None else 0
+            super().on_sink_sequence_end(iseq)
+
+    with bt.Pipeline(device=dev) as pipe:
+        bc = bt.BlockChainer()
+        gs_chain(bc, g, lambda b: b.blocks.read_guppi_raw([raw],
+                                                          gulp_nframe=1))
+        if not staged:
+            bc.blocks.copy("system")
+        snk = bc.custom(Sink)(path=outdir)
+        t0 = time.perf_counter()
+        pipe.run()
+        wall = time.perf_counter() - t0
+    with open(snk.filename, "rb") as f:
+        return f.read(), snk.staged, snk._egress_drained_gulps, wall
+
+
+def gs_framework_run(dev, g, volt):
+    """(c): bench.py's run_framework shape, array_source -> ... ->
+    callback_sink on the card; the sink keeps each integrated spectrum
+    on the card and waits for it (the back-pressure of a dump).  ->
+    (outputs, stamps, wall s, peak bytes, host s by block and phase)."""
+    import bifrost_tpu_torch as bt
+    from bifrost_tpu_torch.blocks import array_source, callback_sink
+    src_data = volt if len(volt) == g["nframe"] else np.concatenate(
+        [volt] * (g["nframe"] // len(volt)))
+    outs = Stamped()
+
+    def keep(t):
+        outs.append(t.clone())
+        torch.cuda.current_stream().synchronize()
+        outs.stamps[-1] = time.perf_counter()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with bt.Pipeline(device=dev) as pipe:
+        bc = bt.BlockChainer()
+        gs_chain(bc, g, lambda b: b.custom(array_source)(
+            src_data, 1, header={
+                "dtype": "ci8",
+                "labels": ["time", "freq", "fine_time", "pol"]}))
+        bc.custom(callback_sink)(on_data=keep)
+        t0 = time.perf_counter()
+        pipe.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    perf = {b.name: {k: round(v, 4) for k, v in b.perf_totals.items()}
+            for b in pipe.blocks}
+    del src_data
+    return outs, outs.stamps, wall, \
+        torch.cuda.max_memory_allocated(dev), perf
+
+
+def gs_stage_times(dev, g, volt):
+    """CUDA-event ms of one gulp of each device stage, called as the
+    blocks call them: the transpose to (time, pol, freq, fine), the FFT
+    (complex lift, torch.fft, fftshift, into the span), Stokes detect,
+    the F_AVG reduce and the accumulate's add.  -> dict of ms."""
+    from bifrost_tpu_torch.blocks.detect import detect_fn
+    from bifrost_tpu_torch.ndarray import complex_view
+    from bifrost_tpu_torch.ops.fft import Fft
+    from bifrost_tpu_torch.ops.reduce import reduce_to
+    from bifrost_tpu_torch.ops.transpose import transpose
+    nchan, ntime, npol, f_avg = g["nchan"], g["ntime"], g["npol"], \
+        g["f_avg"]
+    x = torch.from_numpy(volt[:1]).to(dev)
+    xt = torch.empty(1, npol, nchan, ntime, 2, dtype=torch.int8,
+                     device=dev)
+    t = {"transpose": cuda_time(lambda: transpose(xt, x, [0, 3, 1, 2]), 5)}
+    fft = Fft()
+    fft.axes, fft.kind, fft.apply_fftshift = (3,), "c2c", True
+    spec = torch.empty(1, npol, nchan, ntime, dtype=torch.complex64,
+                       device=dev)
+    t["fft"] = cuda_time(lambda: fft.execute(complex_view(xt, "ci8"),
+                                             spec), 5)
+    st = torch.empty(1, 4, nchan, ntime, device=dev)
+    t["detect"] = cuda_time(lambda: detect_fn(spec, "stokes", 1, 2,
+                                              out=st), 5)
+    nf = nchan * ntime // f_avg
+    red = torch.empty(1, 4, nf, device=dev)
+    t["reduce"] = cuda_time(lambda: red.copy_(reduce_to(
+        st.view(1, 4, nchan * ntime), (1, 4, nf), "sum")), 5)
+    acc = red.clone()
+    t["accumulate"] = cuda_time(lambda: acc.add_(red), 5)
+    return t
+
+
+def gpuspec_path(dev, kind):
+    """The gpuspec spectrometer (module docstring, phase 9).  -> the
+    kernels' launch counts over (c)'s first run at both geometries."""
+    import shutil
+    import tempfile
+    rng = np.random.default_rng(0)
+    g = GS_FLAGSHIP
+    t0 = time.perf_counter()
+    volt = gs_voltages(g, rng)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_gpuspec_")
+    try:
+        raw = f"{tmp}/flagship.raw"
+        write_guppi(raw, volt)
+        phase("gpuspec", f"flagship GUPPI file: {g['nframe']} blocks of "
+              f"{volt[0].nbytes / 2**20:.0f} MiB ({g['nchan']} ch x "
+              f"{g['ntime']} x {g['npol']} pol ci8), "
+              f"{time.perf_counter() - t0:.1f} s")
+        runs = {}
+        for staged in (False, True):
+            out = f"{tmp}/{'b' if staged else 'a'}"
+            os.makedirs(out)
+            runs[staged] = gs_file_run(dev, g, raw, out, staged)
+        fil_a, _, _, wall_a = runs[False]
+        fil_b, nstaged, ndrained, wall_b = runs[True]
+        nint = g["nframe"] // g["n_int"]
+        if fil_a != fil_b:
+            raise AssertionError("staged .fil differs from copy('system')'s")
+        if nstaged != nint or ndrained != nint:
+            raise AssertionError(f"staged {nstaged}, drained {ndrained} "
+                                 f"gulps; {nint} output gulps")
+        from bifrost_tpu_torch.io import sigproc
+        with sigproc.SigprocFile(f"{tmp}/a/flagship.raw.fil") as sf:
+            data = np.array(sf.read(sf.nframe))
+        t1 = time.perf_counter()
+        want = gs_golden(volt, g)
+        nfreq = g["nchan"] * g["ntime"] // g["f_avg"]
+        err = float(np.abs(data.astype(np.float64) - want).max())
+        lim = gs_bound(nfreq, g["f_avg"], want)
+        if data.shape != want.shape or not np.isfinite(data).all() or \
+                not err <= lim:
+            raise AssertionError(f"(a) .fil {data.shape} vs golden "
+                                 f"{want.shape}: max err {err} > {lim}")
+        phase("gpuspec", f"(a) file to file {wall_a:.3f} s, (b) sink on the "
+              f"'cuda' ring {wall_b:.3f} s: .fil {data.shape} byte-identical"
+              f", {nstaged} of {nint} output gulps staged; vs the numpy "
+              f"golden max abs err {err:.4g} (bound {lim:.4g}, golden "
+              f"{time.perf_counter() - t1:.1f} s)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    counts = {}
+    for g in (GS_FLAGSHIP, GS_GUPPI):
+        t0 = time.perf_counter()
+        if g is not GS_FLAGSHIP:
+            del volt
+            volt = gs_voltages(g, rng)
+        gen_s = time.perf_counter() - t0
+        reset_counts()
+        outs, stamps, wall, peak, perf = gs_framework_run(dev, g, volt)
+        counts[g["name"]] = read_counts()
+        if counts[g["name"]] != expected():
+            raise AssertionError(f"launches {counts[g['name']]}: the "
+                                 f"gpuspec path runs no hand kernel")
+        outs2, stamps2, wall2, _, _ = gs_framework_run(dev, g, volt)
+        nint = g["nframe"] // g["n_int"]
+        if len(outs) != nint or len(outs2) != nint or not all(
+                bits_equal(a, b) for a, b in zip(outs, outs2)) or \
+                not all(torch.isfinite(a).all() for a in outs):
+            raise AssertionError("(c) second run differs from the first")
+        spf = g["nchan"] * g["ntime"] * g["npol"]
+        nsamp = g["nframe"] * spf
+
+        def steady(st):
+            return (len(st) - 1) * g["n_int"] * spf / (st[-1] - st[0]) \
+                if len(st) > 1 else float("nan")
+
+        stage = gs_stage_times(dev, g, volt)
+        phase("gpuspec", f"(c) {g['name']}: {g['nframe']} frames of "
+              f"{g['nchan']} ch x {g['ntime']} x {g['npol']} pol ci8 "
+              f"(F_AVG {g['f_avg']}, N_INT {g['n_int']}; voltages "
+              f"{gen_s:.1f} s): run 1 {wall:.3f} s, {nsamp / wall:.4g} "
+              f"samples/s whole, {steady(stamps):.4g} steady (first to "
+              f"last integration out); run 2 {wall2:.3f} s, "
+              f"{nsamp / wall2:.4g} whole, {steady(stamps2):.4g} steady; "
+              f"bitwise equal; peak {peak / 2**30:.2f} GiB; device ms a "
+              f"gulp " + ", ".join(f"{k} {v:.4f}" for k, v in stage.items())
+              + f" (sum {sum(stage.values()):.4f}); launches "
+              f"{counts[g['name']]}; {kind}")
+        phase("gpuspec", f"(c) {g['name']} host seconds by block and phase "
+              f"(run 1): {json.dumps(perf)}")
+        if g is GS_FLAGSHIP:
+            got = np.stack([o.reshape(4, -1).cpu().numpy() for o in outs])
+            err = float(np.abs(got.astype(np.float64) - want).max())
+            if got.shape != want.shape or not err <= lim:
+                raise AssertionError(f"(c) flagship {got.shape} vs (a)'s "
+                                     f"golden {want.shape}: max err {err} "
+                                     f"> {lim}")
+            phase("gpuspec", f"(c) flagship, {nint} integrations vs (a)'s "
+                  f"numpy golden: max abs err {err:.4g} (bound {lim:.4g})")
+        else:
+            gs_check_channels(g, volt, outs[0])
+        del outs, outs2
+        free_device()
+    return counts
+
+
+def gs_check_channels(g, volt, got):
+    """The real block's first integrated spectrum on GS_GOLDEN_CHANS
+    against an f64 numpy golden of the same chain."""
+    nchan, ntime, f_avg = g["nchan"], g["ntime"], g["f_avg"]
+    got = got.reshape(4, -1).cpu().numpy()
+    worst = 0.0
+    for k in GS_GOLDEN_CHANS:
+        ch, f0 = divmod(k * f_avg, ntime)
+        acc = 0
+        for fr in range(g["n_int"]):
+            v = volt[fr % len(volt), ch].astype(np.float64)   # (t, pol, 2)
+            xc = (v[..., 0] + 1j * v[..., 1]).T                # (pol, t)
+            spec = np.fft.fftshift(np.fft.fft(xc, axis=-1), axes=-1)
+            s = gs_stokes(spec[:, None, f0:f0 + f_avg])[:, 0]
+            acc = acc + s.sum(axis=-1)
+        lim = gs_bound(nchan * ntime // f_avg, f_avg, acc)
+        err = float(np.abs(got[:, k] - acc).max())
+        if not err <= lim:
+            raise AssertionError(f"channel {k}: {got[:, k]} vs f64 golden "
+                                 f"{acc}: err {err} > {lim}")
+        worst = max(worst, err / lim)
+    phase("gpuspec", f"(c) {g['name']} first integration on channels "
+          f"{GS_GOLDEN_CHANS} vs the f64 numpy golden: worst error "
+          f"{worst:.3g} of the FFT bound")
+
+
+class EgressSink(object):
+    """The pooled DeviceSinkBlock of benchmarks/egress_tpu.py: counts the
+    bytes handed to it and stamps the host clock at each gulp;
+    `check(frame_offset, arr)` (optional) verifies a gulp."""
+
+    def __new__(cls, iring, check=None):
+        from bifrost_tpu_torch.egress import DeviceSinkBlock
+
+        class Sink(DeviceSinkBlock):
+            def on_sink_sequence(self, iseq):
+                self.egressed_bytes = 0
+                self.bad = []
+                self.stamps = []
+
+            def on_sink_data(self, arr, frame_offset):
+                self.stamps.append(time.perf_counter())
+                self.egressed_bytes += arr.nbytes
+                if check is not None and not check(frame_offset, arr):
+                    self.bad.append(frame_offset)
+
+        return Sink(iring, name="egress_sink")
+
+
+class ReplaySource(object):
+    """A source of `nframe` one-frame gulps replaying `frames` in turn
+    (numpy into a 'system' ring, a tensor on the card into a 'cuda'
+    ring): the image stream without the memory of every frame."""
+
+    def __new__(cls, frames, nframe):
+        import contextlib
+
+        from bifrost_tpu_torch.pipeline import SourceBlock
+        on_card = isinstance(frames, torch.Tensor)
+        src = frames if on_card else torch.from_numpy(frames)
+
+        class Source(SourceBlock):
+            def create_reader(self, name):
+                @contextlib.contextmanager
+                def reader():
+                    self.i = 0
+                    yield self
+                return reader()
+
+            def on_sequence(self, reader, name):
+                return [{"name": name, "_tensor": {
+                    "dtype": "cf32", "shape": [-1] + list(src.shape[1:]),
+                    "labels": ["time", "chan", "v", "u"]}}]
+
+            def on_data(self, reader, ospans):
+                if self.i == nframe:
+                    return [0]
+                ospans[0].data[0].copy_(src[self.i % len(src)])
+                self.i += 1
+                return [1]
+
+        return Source(["images"], 1, space="cuda" if on_card else "system",
+                      name="replay")
+
+
+def eg_run(dev, feed, nbyte, mode, depth, check=None, skip=0):
+    """One timed run of feed() (the block whose output is the 'cuda'
+    ring) -> sink, `mode` 'staged' or 'blocking' (the DeviceSinkBlock) or
+    'copy' (copy('system') -> callback_sink); `nbyte` the stream's bytes.
+    -> ((bytes/s whole run, bytes/s from gulp `skip` on the host to the
+    last), sink, host s by block and phase)."""
+    import bifrost_tpu_torch as bt
+    from bifrost_tpu_torch import config
+    from bifrost_tpu_torch.blocks import callback_sink, copy
+    config.set("egress_staging", mode == "staged")
+    config.set("pipeline_async_depth", depth if mode == "staged" else 1)
+    try:
+        with bt.Pipeline(device=dev) as pipe:
+            d = feed()
+            if mode == "copy":
+                got = {"n": 0, "bad": [], "stamps": []}
+
+                def count(t):
+                    got["stamps"].append(time.perf_counter())
+                    off = got["n"] // (t.numel() * t.element_size() //
+                                       len(t)) if len(t) else 0
+                    got["n"] += t.numel() * t.element_size()
+                    if check is not None and not check(off, t.numpy()):
+                        got["bad"].append(off)
+                snk = callback_sink(copy(d, space="system", name="d2h"),
+                                    on_data=count, name="egress_sink")
+            else:
+                snk = EgressSink(d, check=check)
+            t0 = time.perf_counter()
+            pipe.run()
+            dt = time.perf_counter() - t0
+    finally:
+        config.reset("pipeline_async_depth")
+        config.reset("egress_staging")
+    if mode == "copy":
+        snk.egressed_bytes, snk.bad = got["n"], got["bad"]
+        snk.stamps = got["stamps"]
+    elif mode == "staged" and not snk._egress_drained_gulps:
+        raise AssertionError("the stager was not engaged")
+    perf = {b.name: {k: round(v, 4) for k, v in b.perf_totals.items()}
+            for b in pipe.blocks}
+    if snk.egressed_bytes != nbyte or snk.bad:
+        raise AssertionError(f"{mode}: {snk.egressed_bytes} of {nbyte} "
+                             f"bytes, gulps differing at {snk.bad}")
+    st = snk.stamps
+    steady = (len(st) - 1 - skip) * (nbyte / len(st)) / (st[-1] - st[skip]) \
+        if len(st) > skip + 1 else float("nan")
+    return (nbyte / dt, steady), snk, perf
+
+
+def eg_d2h_times(dev, nbyte, reps=3):
+    """Host ms of one `nbyte` device->host copy: the stager (one copy
+    into a pinned pool buffer on its stream, then the wait), a
+    pageable `copy_` into a buffer used before (the copy block's D2H
+    into its ring), into a new pageable buffer each time (the blocking
+    sink path's), and one pinned `copy_`."""
+    from bifrost_tpu_torch.egress import EgressStager
+    from bifrost_tpu_torch.ring import TensorInfo
+    x = torch.ones(nbyte // 4, device=dev)
+    tinfo = TensorInfo({"_tensor": {"dtype": "f32",
+                                    "shape": [-1, nbyte // 4 // 1024]}})
+    st = EgressStager("d2h", depth=2, device=dev)
+    pageable = torch.empty(nbyte // 4)
+    pinned = torch.empty(nbyte // 4, pin_memory=True)
+    t = {}
+    for name, fn in (
+            ("stager", lambda: st.release(_wait(st.stage(
+                x.view(1024, -1), tinfo, 1024, 0)))),
+            ("pageable", lambda: pageable.copy_(x)),
+            ("pageable_new", lambda: torch.empty(nbyte // 4).copy_(x)),
+            ("pinned", lambda: pinned.copy_(x))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        t[name] = (time.perf_counter() - t0) / reps * 1e3
+    st.close()
+    return t
+
+
+def _wait(ticket):
+    ticket.wait()
+    return ticket
+
+
+def egress_path(dev, kind):
+    """The egress plane (module docstring, phase 10).  -> the kernels'
+    launch counts over the runs."""
+    reset_counts()
+    rng = np.random.default_rng(0)
+    dump = rng.random(EG_DUMP["shape"]).astype(np.float32)
+    gulps = {}
+
+    def dump_feed():
+        from bifrost_tpu_torch.blocks import array_source, copy
+        return copy(array_source(dump, EG_DUMP["gulp"]), space="cuda",
+                    name="h2d")
+
+    def keep(mode):
+        def check(off, arr):
+            gulps.setdefault(mode, []).append(np.array(arr))
+            return True
+        return check
+
+    rates = {"staged": [], "blocking": []}
+    for _ in range(EG_PAIRS):
+        for mode in ("staged", "blocking"):
+            gulps.pop(mode, None)
+            bps, _, perf = eg_run(dev, dump_feed, dump.nbytes, mode,
+                                  EG_DUMP["depth"], keep(mode))
+            rates[mode].append(bps[0])
+            got = np.concatenate(gulps[mode])
+            if not np.array_equal(got.view(np.uint32),
+                                  dump.view(np.uint32)):
+                raise AssertionError(f"dump {mode}: output differs")
+    phase("egress", f"bench.py dump shape {EG_DUMP['shape']} f32, gulp "
+          f"{EG_DUMP['gulp']}, depth {EG_DUMP['depth']}, {EG_PAIRS} pairs "
+          f"in turns: staged " + ", ".join(f"{r:.4g}" for r in
+                                           rates["staged"]) +
+          " B/s; blocking " + ", ".join(f"{r:.4g}" for r in
+                                        rates["blocking"]) +
+          " B/s (host clock); every run bitwise equal to the source")
+
+    g = EG_IMAGE
+    gen = torch.Generator().manual_seed(SEED)
+    frame = torch.randn(g["shape"], dtype=torch.complex64,
+                        generator=gen).numpy()
+    frames = np.stack([frame * (i + 1) for i in range(g["ndistinct"])])
+    del frame
+    on_card = torch.from_numpy(frames).to(dev)
+    nb = frames[0].nbytes
+    from bifrost_tpu_torch.blocks import copy
+    feeds = {
+        "host": lambda n: lambda: copy(ReplaySource(frames, n),
+                                       space="cuda", name="h2d"),
+        "card": lambda n: lambda: ReplaySource(on_card, n)}
+
+    def same(off, arr):
+        return np.array_equal(arr.view(np.uint64),
+                              frames[off % len(frames)][None].view(np.uint64))
+
+    modes = ("staged", "blocking", "copy")
+    rates = {(f, m): [] for f in feeds for m in modes}
+    perfs = {}
+    for _ in range(EG_PAIRS):
+        for f in feeds:
+            for mode in modes:
+                bps, _, perfs[f"{f} {mode}"] = eg_run(
+                    dev, feeds[f](g["nframe"]), g["nframe"] * nb, mode,
+                    g["depth"], skip=g["skip"])
+                rates[f, mode].append(bps)
+    for f in feeds:
+        for mode in modes:
+            eg_run(dev, feeds[f](g["check_nframe"]), g["check_nframe"] * nb,
+                   mode, g["depth"], check=same)
+    del on_card
+    d2h = eg_d2h_times(dev, nb)
+    counts = read_counts()
+    if counts != expected():
+        raise AssertionError(f"launches {counts}: the egress runs no hand "
+                             f"kernel")
+
+    def fmt(rs):
+        return ", ".join(f"{w:.4g} / {st:.4g}" for w, st in rs)
+
+    for f, how in (("host", "from the host: replaying source -> "
+                    "copy('cuda')"),
+                   ("card", "from the card: replaying source on the "
+                    "'cuda' ring")):
+        phase("egress", f"image frame {g['shape']} cf32 ({nb / 2**20:.0f} "
+              f"MiB a gulp, {g['nframe']} gulps of {g['ndistinct']} "
+              f"distinct frames, depth {g['depth']}) fed {how}; "
+              f"{EG_PAIRS} rounds in turns, B/s on the host clock, whole "
+              f"run / steady from gulp {g['skip']} to the last: staged "
+              f"{fmt(rates[f, 'staged'])}; blocking "
+              f"{fmt(rates[f, 'blocking'])}; copy('system') -> "
+              f"callback_sink {fmt(rates[f, 'copy'])}; every gulp of one "
+              f"more run of each ({g['check_nframe']} gulps) bitwise equal "
+              f"to the source; {kind}")
+    phase("egress", f"one {nb / 2**20:.0f} MiB D2H alone: stager "
+          f"{d2h['stager']:.2f} ms, pageable copy_ {d2h['pageable']:.2f} "
+          f"ms (into a new buffer {d2h['pageable_new']:.2f} ms), pinned "
+          f"copy_ {d2h['pinned']:.2f} ms; {kind}")
+    phase("egress", f"image frame host seconds by block and phase (last "
+          f"round): {json.dumps(perfs)}")
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1685,10 +2312,19 @@ def main():
     free_device()
     t5 = time.perf_counter()
     counts["dq"] = dq_path(dev, volt, spec)
+    del volt, spec
+    free_device()
+    t6 = time.perf_counter()
+    for name, c in gpuspec_path(dev, kind).items():
+        counts[f"gpuspec_{name}"] = c
+    free_device()
+    t7 = time.perf_counter()
+    counts["egress"] = egress_path(dev, kind)
     phase("timing", f"build {secs:.1f} s, kernels {t1 - t0:.1f} s, main "
           f"{t2 - t1:.1f} s, frbflag {t3 - t2:.1f} s, bengine "
           f"{t4 - t3:.1f} s, instrument {t5 - t4:.1f} s, dq "
-          f"{time.perf_counter() - t5:.1f} s")
+          f"{t6 - t5:.1f} s, gpuspec {t7 - t6:.1f} s, egress "
+          f"{time.perf_counter() - t7:.1f} s")
     by_path = {name: {path: c[name] for path, c in counts.items()}
                for name in kernel_counters()}
     for rec in recs:

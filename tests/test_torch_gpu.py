@@ -511,3 +511,191 @@ def test_flag_and_gaincal_cuda_match_cpu(cuda):
     a = GainCal().init(gains=g).execute(torch.from_numpy(x).to(cuda))
     b = GainCal().init(gains=g).execute(torch.from_numpy(x))
     assert _bits_equal(torch.view_as_real(a.cpu()), torch.view_as_real(b))
+
+
+# ------------------------------------------------------------ egress plane
+
+class _Collect(object):
+    """A DeviceSinkBlock factory that keeps a copy of each gulp (or what
+    `check(i, arr)` says of it) and the address of the array it was
+    handed."""
+
+    def __new__(cls, iring, check=None):
+        from bifrost_tpu_torch.egress import DeviceSinkBlock
+
+        class Sink(DeviceSinkBlock):
+            def on_sink_sequence(self, iseq):
+                self.chunks, self.addrs = [], []
+
+            def on_sink_data(self, arr, frame_offset):
+                self.addrs.append(arr.ctypes.data)
+                if check is None:
+                    self.chunks.append(np.array(arr))
+                else:
+                    self.chunks.append(check(len(self.chunks), arr))
+
+        return Sink(iring)
+
+
+class _DeviceSource(object):
+    """A source writing a 'cuda' ring straight from the card: gulp i of
+    `ngulp` holds `pattern(i)` (a function of the gulp index)."""
+
+    def __new__(cls, shape, gulp, ngulp, pattern, **kwargs):
+        import contextlib
+
+        from bifrost_tpu_torch.pipeline import SourceBlock
+
+        class Source(SourceBlock):
+            def create_reader(self, name):
+                @contextlib.contextmanager
+                def reader():
+                    self.i = 0
+                    yield self
+                return reader()
+
+            def on_sequence(self, reader, name):
+                return [{"name": name, "_tensor": {
+                    "dtype": "f32", "shape": [-1] + list(shape),
+                    "labels": ["time"] + [f"ax{k}" for k in
+                                          range(len(shape))]}}]
+
+            def on_data(self, reader, ospans):
+                if self.i == ngulp:
+                    return [0]
+                ospans[0].data.copy_(pattern(self.i))
+                self.i += 1
+                return [gulp]
+
+        return Source(["devsrc"], gulp, space="cuda", **kwargs)
+
+
+def _egress_run(cuda, shape, gulp, ngulp, pattern, staged, **sink_kw):
+    from bifrost_tpu_torch import config
+    from bifrost_tpu_torch.pipeline import Pipeline
+    config.set("egress_staging", staged)
+    try:
+        with Pipeline(device=cuda) as pipe:
+            src = _DeviceSource(shape, gulp, ngulp, pattern,
+                                buffer_factor=2)
+            snk = _Collect(src, **sink_kw)
+            pipe.run()
+    finally:
+        config.reset("egress_staging")
+    return snk
+
+
+@pytest.mark.gpu
+def test_egress_staged_equals_blocking_512mib(cuda, monkeypatch):
+    """Staged and blocking egress are bitwise equal at 512 MiB gulps
+    (the instrument's image frame, 4096 x 128 x 128 cf32, as f32), and
+    every staged gulp is handed over in a pinned staging buffer."""
+    from bifrost_tpu_torch import egress
+    shape = (4096, 128, 256)
+    bufs = []
+    real = egress._alloc_staging_buffer
+
+    def alloc(nbyte, pin):
+        bufs.append(real(nbyte, pin))
+        return bufs[-1]
+
+    monkeypatch.setattr(egress, "_alloc_staging_buffer", alloc)
+
+    def pattern(i):
+        g = torch.Generator(device=cuda).manual_seed(100 + i)
+        return torch.randn((1,) + shape, generator=g, device=cuda)
+
+    stg = _egress_run(cuda, shape, 1, 3, pattern, True)
+    blk = _egress_run(cuda, shape, 1, 3, pattern, False)
+    assert stg._egress_drained_gulps == 3 and len(stg.chunks) == 3
+    assert bufs and all(b.is_pinned() for b in bufs)
+    assert set(stg.addrs) <= {b.data_ptr() for b in bufs}
+    for s, b in zip(stg.chunks, blk.chunks):
+        assert s.nbytes == 512 << 20
+        assert np.array_equal(s.view(np.uint32), b.view(np.uint32))
+    assert np.array_equal(stg.chunks[2], pattern(2).cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_egress_staging_pool_is_pinned(cuda):
+    from bifrost_tpu_torch.egress import EgressStager
+    st = EgressStager("pin", depth=2, device=cuda)
+    buf = st.pool.acquire(1 << 20)
+    assert buf.is_pinned()
+    st.pool.release(buf)
+    st.close()
+
+
+@pytest.mark.gpu
+def test_egress_span_reuse_stress(cuda, monkeypatch):
+    """A 'cuda' ring of buffer factor 2, 64 gulps of 32 MiB each with a
+    distinct seeded pattern, and each gulp's copy held back on the copy
+    stream by a sleep kernel of some 5 ms queued before it: every staged
+    gulp equals its source.  The writer reuses a span's bytes as soon as
+    the span's release event allows; were the copy not ordered before
+    that event, the writer would overwrite the bytes while the copy
+    waits, and the gulp would land a later gulp's pattern."""
+    from bifrost_tpu_torch import egress
+    shape = (1024, 8192)
+    real = egress._start_transfer
+
+    def held_back(dst, src):
+        torch.cuda._sleep(10_000_000)    # cycles on the copy stream
+        return real(dst, src)
+
+    monkeypatch.setattr(egress, "_start_transfer", held_back)
+
+    def pattern(i):
+        base = torch.arange(shape[0] * shape[1], device=cuda,
+                            dtype=torch.float32).view((1,) + shape)
+        return (base * 0.5 + float(i * 7919 % 65521)).remainder(1 << 20)
+
+    def check(i, arr):
+        return np.array_equal(arr, pattern(i).cpu().numpy())
+
+    snk = _egress_run(cuda, shape, 1, 64, pattern, True, check=check)
+    assert snk._egress_staging and len(snk.chunks) == 64
+    assert all(snk.chunks), [i for i, ok in enumerate(snk.chunks) if not ok]
+
+
+@pytest.mark.gpu
+def test_gpuspec_chain_cuda_matches_cpu(cuda, tmp_path):
+    """The gpuspec chain (GUPPI -> FFT -> Stokes -> reduce -> accumulate
+    -> SIGPROC) on the card equals the same chain on the CPU within the
+    testbench's FFT bound."""
+    import bifrost_tpu_torch as bt
+    from bifrost_tpu_torch.io import guppi_raw, sigproc
+    nblock, nchan, ntime, f_avg, n_int = 12, 8, 4096, 16, 3
+    raw = str(tmp_path / "v.raw")
+    rng = np.random.default_rng(8)
+    with open(raw, "wb") as f:
+        for b in range(nblock):
+            guppi_raw.write_header(f, {
+                "BLOCSIZE": nchan * ntime * 4, "OBSNCHAN": nchan, "NPOL": 2,
+                "NBITS": 8, "OBSFREQ": 1420.0, "OBSBW": 100.0, "PKTIDX": b})
+            f.write(rng.integers(-8, 8, nchan * ntime * 4,
+                                 dtype=np.int8).tobytes())
+    out = {}
+    for k, dev in enumerate((cuda, "cpu")):
+        d = tmp_path / f"run{k}"
+        d.mkdir()
+        with bt.Pipeline(device=dev) as pipe:
+            bc = bt.BlockChainer()
+            bc.custom(bt.blocks.read_guppi_raw([raw], gulp_nframe=1))
+            bc.blocks.copy("cuda")
+            bc.blocks.transpose(["time", "pol", "freq", "fine_time"])
+            bc.blocks.fft(axes="fine_time", axis_labels="fine_freq",
+                          apply_fftshift=True)
+            bc.blocks.detect(mode="stokes")
+            bc.views.merge_axes("freq", "fine_freq", label="freq")
+            bc.blocks.reduce("freq", f_avg)
+            bc.blocks.accumulate(n_int)
+            snk = bc.blocks.write_sigproc(path=str(d))
+            pipe.run()
+        with sigproc.SigprocFile(snk.filename) as sf:
+            out[k] = np.array(sf.read(sf.nframe))
+    a, b = out[0], out[1]
+    assert a.shape == b.shape == (nblock // n_int, 4, nchan * ntime // f_avg)
+    atol = 32 * np.finfo(np.float32).eps * np.sqrt(a.shape[-1] * f_avg) * \
+        np.abs(b).max()
+    assert np.isfinite(a).all() and np.abs(a - b).max() <= atol
