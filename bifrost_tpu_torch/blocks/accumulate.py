@@ -44,15 +44,22 @@ class AccumulateBlock(TransformBlock):
         self._acc = None
         return ohdr
 
-    def on_data(self, ispan, ospan):
-        x = ispan.data
+    def fold(self, acc, x):
+        """One frame `x` into the running sum `acc` (None at the start of
+        an integration) -> the new sum: the first frame is copied, the
+        later ones added in place.  A fused group ending in this block
+        folds its frames through here (fuse.py)."""
         dt = self._idtype
         if dt.is_complex and dt.is_integer:
             x = complex_view(x, dt)
-        if self.frame_count == 0 or self._acc is None:
-            self._acc = x.clone()
-        else:
-            self._acc += x
+        if acc is None:
+            return x.clone()
+        acc += x
+        return acc
+
+    def on_data(self, ispan, ospan):
+        self._acc = self.fold(self._acc if self.frame_count else None,
+                              ispan.data)
         self.frame_count += 1
         if self.frame_count == self.nframe:
             store(ospan, self._acc)

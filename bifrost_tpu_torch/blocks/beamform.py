@@ -24,7 +24,13 @@ are folded into the weights before they are staged, w' = w * g * ~mask:
 calibration and excision ride the one staged weight tensor, with no pass
 over the voltages.  `set_gains()` / `set_station_mask()` re-fold and
 re-stage at the next gulp boundary.  Not ported: the mesh engines
-(ROADMAP A16) and the fused carry (A10).
+(ROADMAP A16).
+
+Fusion: the beam-power integration is an accumulate carry, so the block
+joins fused groups (fuse.py) as an integrator stage: the group calls its
+step on the host, and the step runs this block's own engine over the
+same chunks through `integrate_chunks`, so a fused run is this block's,
+kernel for kernel.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ import threading
 import warnings
 
 import numpy as np
+import torch
 
 from ..ndarray import complex_view
 from ..ops.beamform import Beamform
@@ -203,23 +210,21 @@ class BeamformBlock(TransformBlock):
         self.bf.set_weights(self._weff, device=self.device)
         self.gain_updates += 1
 
-    def on_data(self, ispan, ospan):
+    def _integrate(self, x, raw, carry):
+        """One gulp into the integration `carry` ((acc, frames
+        integrated)): `x` the logical input, or with `raw` its ci8 ring
+        storage -> (emitted integrations, carry', nchan)."""
         if self._dq_pending:
             self._restage_weights()
-        nframe = ispan.nframe
-        raw = ispan.data_storage
-        if raw is not None:
-            nchan = raw.shape[self._perm[1]]
+        nframe = x.shape[0]
+        if raw:
+            nchan = x.shape[self._perm[1]]
             dts, perm = str(self._dtype), tuple(self._perm)
 
             def engine(k0, k1):
-                r = raw if k1 - k0 == nframe else raw[k0:k1]
+                r = x if k1 - k0 == nframe else x[k0:k1]
                 return self.bf.execute_raw(r, dts, perm)
-
-            self._raw_reads += 1
-            self._raw_read_nbyte += raw.numel() * raw.element_size()
         else:
-            x = ispan.data
             if self._dtype.is_complex and self._dtype.is_integer:
                 x = complex_view(x, self._dtype)
             if self._perm != [0, 1, 2, 3]:
@@ -231,9 +236,18 @@ class BeamformBlock(TransformBlock):
                 return self.bf.execute(
                     xm if k1 - k0 == nframe else xm[k0:k1])
 
-        outs, carry = integrate_chunks(
-            engine, nframe, (self._acc, self.nframe_integrated),
-            self.nframe_per_integration)
+        outs, carry = integrate_chunks(engine, nframe, carry,
+                                       self.nframe_per_integration)
+        return outs, carry, nchan
+
+    def on_data(self, ispan, ospan):
+        raw = ispan.data_storage
+        if raw is not None:
+            self._raw_reads += 1
+            self._raw_read_nbyte += raw.numel() * raw.element_size()
+        outs, carry, nchan = self._integrate(
+            ispan.data if raw is None else raw, raw is not None,
+            (self._acc, self.nframe_integrated))
         self._acc, self.nframe_integrated = carry
         if outs:
             store(ospan, outs[0].reshape(1, self.nbeam, nchan))
@@ -250,6 +264,46 @@ class BeamformBlock(TransformBlock):
                 f"frames) at sequence end", stacklevel=1)
             self.nframe_integrated = 0
             self._acc = None
+
+    # ------------------------------------------- fused-carry protocol
+    fused_carry_warmup_nframe = 0
+    fused_carry_stride = 1
+
+    @property
+    def fused_carry_nframe_per_integration(self):
+        """The integration length in stage-input frames (marks the
+        block as an integrator stage)."""
+        return self.nframe_per_integration
+
+    def _step(self, raw):
+        def step(x, carry, consts):
+            outs, carry, nchan = self._integrate(x, raw, carry)
+            if not outs:
+                return None, carry
+            return torch.cat([o.reshape(1, self.nbeam, nchan)
+                              for o in outs]), carry
+        return step
+
+    def device_kernel_carry(self):
+        """The integrator step(x, carry, consts) -> (the emitted
+        integrations as output frames or None, carry') on a logical
+        gulp: this block's gulp code.  Valid after on_sequence."""
+        return self._step(False)
+
+    def device_kernel_carry_raw(self, dtype):
+        """The same on ci8 ring storage (kernel K4 reading it at 2
+        B/sample)."""
+        return self._step(True)
+
+    def fused_carry_init(self):
+        """(acc, frames integrated): the start of an integration."""
+        return (None, 0)
+
+    def fused_carry_consts(self):
+        """No constants: the staged weights live on the plan
+        (re-staged by set_gains/set_station_mask at the next gulp
+        boundary)."""
+        return ()
 
 
 def beamform(iring, weights, nframe_per_integration, *args, **kwargs):

@@ -16,7 +16,14 @@ do not fold the same table again.  Output: cf32 for complex input
 
 For a B-engine consumer, folding the gains into the beamform weights
 (`BeamformBlock(gains=...)`) gives the same beams with no pass over the
-samples.  Not ported: the fused-carry hooks and the plan proclog.
+samples.
+
+Fusion: the block declares the fused-carry protocol with a trivial
+carry (the apply is stateless), so it joins fused groups (fuse.py)
+beside the flagger and the PFB.  Its step applies a pending
+`set_gains()` at the gulp boundary as this block does; the JAX group
+reads the gains once per sequence, its compiled program's constant.
+Not ported: the plan proclog.
 """
 
 from __future__ import annotations
@@ -178,6 +185,35 @@ class GainCalBlock(TransformBlock):
         """The plan's runtime accounting (ops/runtime.py schema +
         calibration config)."""
         return self.cal.plan_report()
+
+    # ------------------------------------------- fused-carry protocol
+    fused_carry_warmup_nframe = 0
+    fused_carry_stride = 1
+
+    def device_kernel_carry(self):
+        """The fused stage step(x, carry, consts) -> (y, carry) on a
+        logical gulp: the plan's `execute`, the unfused gulp's code, with
+        the (unused) carry threaded through.  Valid after on_sequence."""
+        def step(x, carry, consts):
+            self._apply_pending()
+            return self.cal.execute(x), carry
+        return step
+
+    def device_kernel_carry_raw(self, dtype):
+        """The same on ci8 ring storage (the plan's `execute_raw`)."""
+        def step(raw, carry, consts):
+            self._apply_pending()
+            return self.cal.execute_raw(raw, dtype), carry
+        return step
+
+    def fused_carry_init(self):
+        """The apply carries nothing."""
+        return None
+
+    def fused_carry_consts(self):
+        """No constants: the staged gain plane lives on the plan,
+        re-staged by a `set_gains()` at the next gulp boundary."""
+        return ()
 
 
 def gaincal(iring, gains=None, *args, **kwargs):

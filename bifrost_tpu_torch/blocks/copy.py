@@ -8,6 +8,9 @@ for the copy's event; a 'system' input is first copied into one of two
 pinned staging buffers, each reused only after its previous copy's event
 has completed.  The output span's commit event then orders the readers'
 streams after the copy.
+
+Fusion: as the head of a fused group (fuse.py), `device_kernel()` copies
+the host gulp to the card inside the group, by the same staging.
 """
 
 from __future__ import annotations
@@ -47,22 +50,41 @@ class CopyBlock(TransformBlock):
         buf.copy_(src)
         return slot, buf
 
+    def _h2d(self, src, dst):
+        """Start the copy of host tensor `src` into device tensor `dst`
+        on this thread's stream -> the event until which `src` must not
+        be released (a pinned span read in place), else None."""
+        if src.is_pinned():
+            dst.copy_(src, non_blocking=True)
+            return _device.record_event(self.device)
+        slot, buf = self._stage(src)
+        dst.copy_(buf, non_blocking=True)
+        self._staging[slot] = (buf, _device.record_event(self.device))
+        return None
+
     def on_data(self, ispan, ospan):
         ispace, ospace = self.iring.space, self.orings[0].space
         src, dst = ispan.data, ospan.data
         if ospace == "cuda" and ispace != "cuda" and dst.is_cuda:
-            if src.is_pinned():
-                dst.copy_(src, non_blocking=True)
-                ispan.hold_until(_device.record_event(self.device))
-            else:
-                slot, buf = self._stage(src)
-                dst.copy_(buf, non_blocking=True)
-                self._staging[slot] = (buf,
-                                       _device.record_event(self.device))
+            ispan.hold_until(self._h2d(src, dst))
         else:
             # Same-space copies, and D2H (host outputs are synchronised
             # before their commit).
             dst.copy_(src)
+
+    def device_kernel(self):
+        """The H2D head stage of a fused group: fn(host span tensor) ->
+        (its copy on the group's device, the event to hold the span
+        until or None).  On the CPU the copy is a snapshot (the ring
+        reuses the span's bytes)."""
+        dev = torch.device(self.device)
+
+        def h2d(x):
+            if dev.type != "cuda":
+                return x.clone(), None
+            y = torch.empty(x.shape, dtype=x.dtype, device=dev)
+            return y, self._h2d(x, y)
+        return h2d
 
 
 def copy(iring, space=None, *args, **kwargs):

@@ -26,7 +26,11 @@ the frame axis; output [-1, nchan, nstand, npol, nstand, npol] cf32
 labelled (time, freq, station_i, pol_i, station_j, pol_j), one frame per
 integration, the time scale multiplied by the integration length,
 ``matrix_fill_mode`` 'full'.  Not ported yet (ROADMAP): the int8 engine,
-the raw ci* ingest, the mesh engines and the fused-carry hooks.
+the raw ci* ingest and the mesh engines.
+
+Fusion: the visibility integration is an accumulate carry, so the block
+joins fused groups (fuse.py) as an integrator stage whose step is this
+block's own gulp code on the same chunks.
 """
 
 from __future__ import annotations
@@ -165,10 +169,10 @@ class CorrelateBlock(TransformBlock):
         self._g = None if pend is None else self._stage_gains(pend)
         self.gain_updates += 1
 
-    def on_data(self, ispan, ospan):
+    def _voltages(self, x):
+        """The gulp in canonical (time, freq, station*pol) complex64."""
         if self._dq_pending:
             self._apply_pending_gains()
-        x = ispan.data
         if self._dtype.is_complex and self._dtype.is_integer:
             x = complex_view(x, self._dtype)
         elif not x.is_complex():
@@ -176,21 +180,31 @@ class CorrelateBlock(TransformBlock):
         if self._perm != [0, 1, 2, 3]:
             x = x.permute(self._perm)
         ntime, nchan, nstand, npol = x.shape
-        nsp = nstand * npol
-        xm = x.reshape(ntime, nchan, nsp)
-        n = self.nframe_per_integration
-        if self._acc is None and self.nframe_integrated == 0 and ntime == n:
+        return x.reshape(ntime, nchan, nstand * npol)
+
+    def _integrate(self, xm, carry):
+        """One gulp into the integration `carry` ((acc, frames
+        integrated)) -> (emitted integrations, carry')."""
+        ntime = xm.shape[0]
+        return integrate_chunks(
+            lambda k0, k1: xengine(xm if k1 - k0 == ntime else xm[k0:k1],
+                                   self._g),
+            ntime, carry, self.nframe_per_integration)
+
+    def on_data(self, ispan, ospan):
+        xm = self._voltages(ispan.data)
+        ntime, nchan, nsp = xm.shape
+        if self._acc is None and self.nframe_integrated == 0 and \
+                ntime == self.nframe_per_integration:
             # One whole integration: the product lands in the span.
             xengine(xm, self._g, out=ospan.data.view(nchan, nsp, nsp))
             return 1
-        outs, carry = integrate_chunks(
-            lambda k0, k1: xengine(xm if k1 - k0 == ntime else xm[k0:k1],
-                                   self._g),
-            ntime, (self._acc, self.nframe_integrated), n)
+        outs, carry = self._integrate(xm, (self._acc,
+                                           self.nframe_integrated))
         self._acc, self.nframe_integrated = carry
         if outs:
-            store(ospan, outs[0].reshape(1, nchan, nstand, npol, nstand,
-                                         npol))
+            store(ospan, outs[0].reshape(1, nchan, self._nstand, self._npol,
+                                         self._nstand, self._npol))
             return 1
         return 0
 
@@ -204,6 +218,40 @@ class CorrelateBlock(TransformBlock):
                 f"frames) at sequence end", stacklevel=1)
             self.nframe_integrated = 0
             self._acc = None
+
+    # ------------------------------------------- fused-carry protocol
+    fused_carry_warmup_nframe = 0
+    fused_carry_stride = 1
+
+    @property
+    def fused_carry_nframe_per_integration(self):
+        """The integration length in stage-input frames (marks the
+        block as an integrator stage)."""
+        return self.nframe_per_integration
+
+    def device_kernel_carry(self):
+        """The integrator step(x, carry, consts) -> (the emitted
+        visibility frames or None, carry'): this block's gulp code on
+        the same chunks (ci8 storage is lifted as this block lifts it).
+        Valid after on_sequence."""
+        def step(x, carry, consts):
+            xm = self._voltages(x)
+            outs, carry = self._integrate(xm, carry)
+            if not outs:
+                return None, carry
+            shape = (1, xm.shape[1], self._nstand, self._npol,
+                     self._nstand, self._npol)
+            return torch.cat([o.reshape(shape) for o in outs]), carry
+        return step
+
+    def fused_carry_init(self):
+        """(acc, frames integrated): the start of an integration."""
+        return (None, 0)
+
+    def fused_carry_consts(self):
+        """No constants: the staged gains live on the block
+        (re-staged by set_gains at the next gulp boundary)."""
+        return ()
 
 
 def correlate(iring, nframe_per_integration, *args, **kwargs):

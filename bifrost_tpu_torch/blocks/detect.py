@@ -81,15 +81,28 @@ class DetectBlock(TransformBlock):
         else:
             otype = itype.as_real()
         otensor["dtype"] = str(otype.as_floating_point())
+        self._oshape = list(otensor["shape"])
+        self._otorch = DataType(otensor["dtype"]).as_torch_dtype()
         return ohdr
 
-    def on_data(self, ispan, ospan):
-        x = ispan.data
+    def _detect(self, x, out=None):
         if self._idtype.is_integer:
             x = complex_view(x, self._idtype)
-        detect_fn(x, self.mode if self.npol == 2 else "scalar",
-                  self.axis if self.axis is not None else 0, self.npol,
-                  out=ospan.data)
+        if out is None:
+            shape = list(x.shape)
+            if self.axis is not None:
+                shape[self.axis] = self._oshape[self.axis]
+            out = torch.empty(shape, dtype=self._otorch, device=x.device)
+        return detect_fn(x, self.mode if self.npol == 2 else "scalar",
+                         self.axis if self.axis is not None else 0,
+                         self.npol, out=out)
+
+    def on_data(self, ispan, ospan):
+        self._detect(ispan.data, out=ospan.data)
+
+    def device_kernel(self):
+        """The stage function for a fused group (fuse.py)."""
+        return self._detect
 
 
 def detect(iring, mode, axis=None, *args, **kwargs):

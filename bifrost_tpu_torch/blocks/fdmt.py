@@ -5,13 +5,21 @@ python/bifrost/blocks/fdmt.py).  Input axes [..., 'freq', 'time'], output
 between gulps so each output gulp has its full dispersion history.
 
 The JAX block's host-ring tail carry (staging only the new frames of a
-host-space input) and its fused-carry protocol are not ported yet: this
-block reads the whole overlapped span from its input ring.
+host-space input) is not ported yet: this block reads the whole
+overlapped span from its input ring.
+
+Fusion: in a fused group (fuse.py) the ring overlap becomes a carry of
+the last max_delay input frames, zeros at the sequence start; the group
+drops the first max_delay output frames (`fused_carry_warmup_nframe`),
+the frames the overlap never emits, so the fused stream equals this
+block's.
 """
 
 from __future__ import annotations
 
 import math
+
+import torch
 
 from ..pipeline import TransformBlock
 from ..ops.fdmt import Fdmt
@@ -74,6 +82,8 @@ class FdmtBlock(TransformBlock):
         self.fdmt._runtime.resolve_method(self.fdmt.method)
         self._hold_flag_latch("fdmt_method")
         self.plan_report = self.fdmt.plan_report()
+        self._lead_shape = tuple(int(s) for s in itensor["shape"][:-2])
+        self._nchan = int(nchan)
         ohdr = deepcopy_header(ihdr)
         refdm = convert_units(ihdr.get("refdm", 0.0),
                               ihdr.get("refdm_units", self.dm_units),
@@ -97,19 +107,60 @@ class FdmtBlock(TransformBlock):
         has complete dispersion history (reference blocks/fdmt.py)."""
         return self.max_delay
 
-    def on_data(self, ispan, ospan):
-        # ispan.data: (..., nchan, ntime + overlap), time last; the output
-        # drops the overlap (warm-up) frames.
-        res = self.fdmt.execute(ispan.data,
-                                negative_delays=self.negative_delays)
-        n = ospan.nframe
+    def _dedisperse(self, x, n):
+        """The last `n` complete frames of the transform of `x`, (...,
+        nchan, ntime) with `max_delay` frames of history."""
+        res = self.fdmt.execute(x, negative_delays=self.negative_delays)
         if self.negative_delays:
             # Negative sweeps read *future* samples: the warm-up region
             # sits at the END of each gulp, so keep the head.
-            store(ospan, res[..., :n])
-        else:
-            store(ospan, res[..., res.shape[-1] - n:])
+            return res[..., :n]
+        return res[..., res.shape[-1] - n:]
+
+    def on_data(self, ispan, ospan):
+        # ispan.data: (..., nchan, ntime + overlap), time last; the output
+        # drops the overlap (warm-up) frames.
+        n = ospan.nframe
+        store(ospan, self._dedisperse(ispan.data, n))
         return n
+
+    # ------------------------------------------- fused-carry protocol
+    @property
+    def fused_carry_warmup_nframe(self):
+        """Output frames the group drops at a sequence start: those of
+        the zero carry, which the ring overlap never emits."""
+        return self.max_delay
+
+    def _with_carry(self, x, carry):
+        return torch.cat([carry, x.to(torch.float32)], dim=-1)
+
+    def device_kernel_carry(self):
+        """The fused stage step(x, tail, consts) -> (y, tail'): the
+        transform of [carried max_delay input frames || this gulp],
+        keeping this gulp's frames (the unfused gulp's code on the same
+        window).  Valid after on_sequence."""
+        md = self.max_delay
+
+        def step(x, carry, consts):
+            full = self._with_carry(x, carry)
+            return (self._dedisperse(full, x.shape[-1]),
+                    full[..., full.shape[-1] - md:])
+        return step
+
+    def fused_carry_advance(self, x, carry):
+        """The carry after a gulp whose whole output is warm-up, without
+        the transform (so that the fused run launches no merge step the
+        unfused one does not)."""
+        full = self._with_carry(x, carry)
+        return full[..., full.shape[-1] - self.max_delay:]
+
+    def fused_carry_init(self):
+        """A zero input tail: (..., nchan, max_delay) f32."""
+        return torch.zeros(self._lead_shape + (self._nchan, self.max_delay),
+                           dtype=torch.float32, device=self.device)
+
+    def fused_carry_consts(self):
+        return ()
 
 
 def fdmt(iring, max_dm=None, max_delay=None, max_diagonal=None,

@@ -78,14 +78,22 @@ class FftBlock(TransformBlock):
         self.fft._real_out_n = tuple(shape) if self.mode == "c2r" else None
         return ohdr
 
-    def on_data(self, ispan, ospan):
-        x = ispan.data
+    def _lift(self, x):
         dt = self._idtype
         if dt.is_complex and dt.is_integer:
-            x = complex_view(x, dt)
-        elif dt.is_integer:
-            x = x.float()
-        self.fft.execute(x, ospan.data, inverse=self.inverse)
+            return complex_view(x, dt)
+        return x.float() if dt.is_integer else x
+
+    def on_data(self, ispan, ospan):
+        self.fft.execute(self._lift(ispan.data), ospan.data,
+                         inverse=self.inverse)
+
+    def device_kernel(self):
+        """The stage function for a fused group (fuse.py): the same
+        planned transform into a new tensor."""
+        inverse = self.inverse
+        return lambda x: self.fft.execute(self._lift(x), None,
+                                          inverse=inverse)
 
     def plan_report(self):
         return self.fft.plan_report()

@@ -41,6 +41,11 @@ class FftShiftBlock(TransformBlock):
         bf_fftshift(ispan.data, tuple(self.axes), dst=ospan.data,
                     inverse=self.inverse)
 
+    def device_kernel(self):
+        """The stage function for a fused group (fuse.py)."""
+        axes, inverse = tuple(self.axes), self.inverse
+        return lambda x: bf_fftshift(x, axes, inverse=inverse)
+
 
 def fftshift(iring, axes, inverse=False, *args, **kwargs):
     """Apply an FFT shift along the given axes

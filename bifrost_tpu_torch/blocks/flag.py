@@ -20,9 +20,12 @@ observer: its errors are swallowed) and counted in
 ``flagged_fraction``; ``baseline_resets`` counts the cold starts (one
 per sequence).
 
-Not ported: the fused-carry hooks (no fusion compiler yet) and the
-plan proclog (no proclog yet); `plan_report()` returns the same
-accounting.
+Fusion: the block declares the fused-carry protocol, so a fused group
+(fuse.py) threads the baseline through its carry step, the plan's own
+`step`/`step_raw`.  As in the JAX group, a fused gulp's mask is not
+observed: ``last_mask``, ``on_mask`` and ``flagged_fraction`` follow the
+unfused block only.  Not ported: the plan proclog (no proclog yet);
+`plan_report()` returns the same accounting.
 """
 
 from __future__ import annotations
@@ -99,6 +102,7 @@ class RfiFlagBlock(TransformBlock):
         self.baseline_resets += 1
         self.last_mask = None
         self._cell_shape = tuple(int(s) for s in itensor["shape"][1:])
+        self._ncell = int(np.prod(self._cell_shape))
         ohdr = deepcopy_header(ihdr)
         if self._dtype.is_complex:
             ohdr["_tensor"]["dtype"] = "cf32"
@@ -136,6 +140,38 @@ class RfiFlagBlock(TransformBlock):
         """The plan's runtime accounting (ops/runtime.py schema +
         flagger config)."""
         return self.flagger.plan_report()
+
+    # ------------------------------------------- fused-carry protocol
+    # No warm-up: a cell's first window is its own baseline, fused and
+    # unfused alike.
+    fused_carry_warmup_nframe = 0
+    fused_carry_stride = 1
+
+    def device_kernel_carry(self):
+        """The fused stage step(x, baseline, consts) -> (y, baseline') on
+        a logical gulp: the plan's `step`, the unfused gulp's code.
+        Valid after on_sequence."""
+        def step(x, state, consts):
+            y, _, state = self.flagger.step(x, state)
+            return y, state
+        return step
+
+    def device_kernel_carry_raw(self, dtype):
+        """The same on ci8 ring storage (the plan's `step_raw`); the
+        baseline is shared with the logical form."""
+        def step(raw, state, consts):
+            y, _, state = self.flagger.step_raw(raw, dtype, state)
+            return y, state
+        return step
+
+    def fused_carry_init(self):
+        """A cold baseline: (3, ncell) f32 zeros."""
+        return self.flagger.init_state(self._ncell, self.device)
+
+    def fused_carry_consts(self):
+        """No constants: the thresholds live on the plan (`set_params`
+        applies at the next window, as unfused)."""
+        return ()
 
 
 def rfi_flag(iring, algo="mad", thresh=6.0, mad_factor=4.0, alpha=0.25,

@@ -17,8 +17,11 @@ other axis is a stream sharing the prototype.  Output: [-1, nchan,
 scale coarsened by nchan and the freq axis anchored at the header's
 `cfreq`.  gulp_nframe must be a multiple of nchan; trailing frames of a
 final partial gulp that do not fill a spectrum are dropped with a
-warning.  The JAX block's fused-carry hooks are not ported (no fusion
-compiler yet).
+warning.
+
+Fusion: the block declares the fused-carry protocol, so a fused group
+(fuse.py) threads the (ntap-1)-spectrum history through its carry step,
+the plan's own `step`/`step_raw` with the history passed in.
 """
 
 from __future__ import annotations
@@ -83,6 +86,9 @@ class PfbBlock(TransformBlock):
         self._raw_reads = 0        # gulps read in raw int storage form
         self._raw_read_nbyte = 0   # bytes those reads covered
         self._dropped_tail = 0
+        chan_shape = itensor["shape"][1:]
+        self._nstream = int(np.prod(chan_shape)) if chan_shape else 1
+        self._ncomp = 2 if self._dtype.is_complex else 1
         ohdr = deepcopy_header(ihdr)
         ot = ohdr["_tensor"]
         ot["dtype"] = "cf32"
@@ -115,15 +121,21 @@ class PfbBlock(TransformBlock):
             ohdr["gulp_nframe"] = max(ihdr["gulp_nframe"] // self.nchan, 1)
         return ohdr
 
-    def on_data(self, ispan, ospan):
-        n = (ispan.nframe // self.nchan) * self.nchan
-        if n < ispan.nframe:
-            # final partial gulp: no output slot for the remainder
-            self._dropped_tail = ispan.nframe - n
+    def _whole(self, nframe):
+        """The frames of an `nframe` gulp that fill whole spectra: a
+        final partial gulp's remainder has no output slot and is dropped,
+        with a warning."""
+        n = (nframe // self.nchan) * self.nchan
+        if n < nframe:
+            self._dropped_tail = nframe - n
             warnings.warn(
                 f"{self.name}: dropping {self._dropped_tail} trailing "
                 f"frame(s) not filling a spectrum at sequence end",
                 stacklevel=1)
+        return n
+
+    def on_data(self, ispan, ospan):
+        n = self._whole(ispan.nframe)
         if n == 0:
             return 0
         out = ospan.data[:n // self.nchan]
@@ -144,6 +156,45 @@ class PfbBlock(TransformBlock):
         """The plan's runtime accounting (ops/runtime.py schema +
         channelizer config)."""
         return self.pfb.plan_report()
+
+    # ------------------------------------------- fused-carry protocol
+    # No warm-up: the channelizer starts from a zero history fused and
+    # unfused alike.
+    fused_carry_warmup_nframe = 0
+
+    @property
+    def fused_carry_stride(self):
+        """Input frames per output frame."""
+        return self.nchan
+
+    def device_kernel_carry(self):
+        """The fused stage step(x, history, consts) -> (y, history') on
+        a logical gulp: the plan's `step`, the unfused gulp's code.
+        Valid after on_sequence."""
+        def step(x, state, consts):
+            n = self._whole(x.shape[0])
+            return (None, state) if n == 0 else \
+                self.pfb.step(x[:n], state)
+        return step
+
+    def device_kernel_carry_raw(self, dtype):
+        """The same on ci8 ring storage (the plan's `step_raw`, kernel
+        K2 reading the voltages at 2 B/sample); the history is shared
+        with the logical form."""
+        def step(raw, state, consts):
+            n = self._whole(raw.shape[0])
+            return (None, state) if n == 0 else \
+                self.pfb.step_raw(raw[:n], dtype, state)
+        return step
+
+    def fused_carry_init(self):
+        """A fresh zero (ntap-1)-spectrum history."""
+        return self.pfb.init_state(self._nstream, self._ncomp, self.device)
+
+    def fused_carry_consts(self):
+        """The staged prototype and DFT matrices: the plan stages them
+        once and its step reads them from its own cache."""
+        return self.pfb.staged(self.device)
 
 
 def pfb(iring, nchan, ntap=4, coeffs=None, window="hamming", *args,

@@ -57,14 +57,20 @@ class ReduceBlock(TransformBlock):
             return [input_nframe // self.factor]
         return [input_nframe]
 
-    def on_data(self, ispan, ospan):
-        x = ispan.data
+    def _reduce(self, x):
         dt = self._idtype
         if dt.is_complex and dt.is_integer:
             x = complex_view(x, dt)
         oshape = list(x.shape)
         oshape[self.axis] = oshape[self.axis] // self.factor
-        store(ospan, reduce_to(x, tuple(oshape), self.op))
+        return reduce_to(x, tuple(oshape), self.op)
+
+    def on_data(self, ispan, ospan):
+        store(ospan, self._reduce(ispan.data))
+
+    def device_kernel(self):
+        """The stage function for a fused group (fuse.py)."""
+        return self._reduce
 
 
 def reduce(iring, axis, factor=None, op="sum", *args, **kwargs):

@@ -36,6 +36,11 @@ class ReverseBlock(TransformBlock):
     def on_data(self, ispan, ospan):
         store(ospan, torch.flip(ispan.data, dims=tuple(self.axes)))
 
+    def device_kernel(self):
+        """The stage function for a fused group (fuse.py)."""
+        axes = tuple(self.axes)
+        return lambda x: torch.flip(x, dims=axes)
+
 
 def reverse(iring, axes, *args, **kwargs):
     """Reverse the data along the given axes (reference blocks/reverse.py)."""

@@ -30,13 +30,18 @@ class ScrunchBlock(TransformBlock):
             ohdr["_tensor"]["scales"][fax][1] *= self.factor
         return ohdr
 
-    def on_data(self, ispan, ospan):
-        x = ispan.data
-        out_nframe = ispan.nframe // self.factor
+    def _scrunch(self, x):
         oshape = list(x.shape)
-        oshape[self.frame_axis] = out_nframe
-        store(ospan, reduce_to(x, tuple(oshape), "mean"))
-        return out_nframe
+        oshape[self.frame_axis] //= self.factor
+        return reduce_to(x, tuple(oshape), "mean")
+
+    def on_data(self, ispan, ospan):
+        store(ospan, self._scrunch(ispan.data))
+        return ispan.nframe // self.factor
+
+    def device_kernel(self):
+        """The stage function for a fused group (fuse.py)."""
+        return self._scrunch
 
 
 def scrunch(iring, factor, *args, **kwargs):

@@ -31,6 +31,12 @@ class TransposeBlock(TransformBlock):
         # place, so the permutation applies directly
         bf_transpose(ospan.data, ispan.data, self.axes)
 
+    def device_kernel(self):
+        """The stage function for a fused group (fuse.py): the same
+        permutation into a new contiguous tensor."""
+        axes = list(self.axes)
+        return lambda x: bf_transpose(None, x, axes)
+
 
 def transpose(iring, axes, *args, **kwargs):
     """Transpose the data stream to a new axis order

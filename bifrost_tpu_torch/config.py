@@ -92,6 +92,18 @@ FLAGS = {f.name: f for f in [
          "card).  The JAX package's 'xla' and MXU 'matmul*' engines are "
          "TPU methods and are refused.  Latched per sequence by "
          "FftBlock."),
+    Flag("pipeline_fuse", True,
+         "Pipeline-graph fusion (fuse.py): at Pipeline.run each maximal "
+         "run of fuse-scoped device blocks becomes one fused group, one "
+         "block on one thread and one CUDA stream with no rings between "
+         "its stages.  Off keeps every block, the unfused baseline.  "
+         "Latched per sequence by every fused group."),
+    Flag("fused_async", True,
+         "A fused group with an accumulate tail and a guaranteed reader "
+         "hands the gulps that complete no integration to its worker "
+         "thread, which runs them on the group's stream while the block "
+         "thread goes on to the next gulp's ring work.  Latched per "
+         "sequence."),
     Flag("pipeline_async_depth", 1,
          "In-order queue depth of a block's worker.  The egress stager "
          "of a DeviceSinkBlock keeps max(2, depth) gulps in flight.  "

@@ -235,7 +235,10 @@ class Flag(object):
             return dq_kernel.masked_fill(x, mask, fill, self.window, out)
         return dq_kernel.masked_fill_plain(x, mask, fill, self.window, out)
 
-    def _run(self, pwr, x, key, out):
+    def _run(self, pwr, x, key, state, out):
+        """The windows and the fill of one gulp from baseline `state`;
+        with `state` None, from the plan's own baseline, which it then
+        carries -> (y, mask, state')."""
         if self.fill == "baseline" and x.is_complex():
             raise ValueError("flag: fill='baseline' is defined for real "
                              "streams only (an excised complex sample has "
@@ -243,9 +246,13 @@ class Flag(object):
         method = self._resolve()
         self._runtime.last_method = method
         self._runtime.last_origin = "device"
-        state = self._ensure_state(key, pwr.shape[1], pwr.device)
-        mask, fillr, self._state = self._windows(pwr, state)
-        return self._apply(x, mask, fillr, out), mask
+        own = state is None
+        if own:
+            state = self._ensure_state(key, pwr.shape[1], pwr.device)
+        mask, fillr, state = self._windows(pwr, state)
+        if own:
+            self._state = state
+        return self._apply(x, mask, fillr, out), mask, state
 
     def execute(self, idata, out=None):
         """Flag one logical gulp: (ntime, ...cell...) -> (y, mask) with
@@ -255,6 +262,11 @@ class Flag(object):
         is (nwindows, ncell) bool, one row per closed window, cells in C
         order of the non-time axes.  `out`: a tensor of y's shape and
         dtype to write into (a ring span)."""
+        return self.step(idata, None, out)[:2]
+
+    def step(self, idata, state, out=None):
+        """`execute` from an explicit baseline `state` (None: the plan's
+        own) -> (y, mask, state'): the fused group's carry step."""
         if self.window is None:
             raise ValueError("flag: init(window, ...) first")
         x = prepare(idata)
@@ -268,19 +280,22 @@ class Flag(object):
             xm = x.reshape(ntime, -1).to(torch.complex64)
             re, im = xm.real, xm.imag
             o = None if out is None else out.view(ntime, -1)
-            y, mask = self._run(re * re + im * im, xm, key, o)
-            return (out if out is not None else y.view(x.shape)), mask
+            y, mask, state = self._run(re * re + im * im, xm, key, state, o)
+            return (out if out is not None else y.view(x.shape)), mask, \
+                state
         x32 = x.reshape(ntime, -1).to(torch.float32)
         if x.dtype == torch.float32 and out is not None:
-            return out, self._run(x32, x32, key, out.view(ntime, -1))[1]
-        y32, mask = self._run(x32, x32, key, None)
+            _, mask, state = self._run(x32, x32, key, state,
+                                       out.view(ntime, -1))
+            return out, mask, state
+        y32, mask, state = self._run(x32, x32, key, state, None)
         if x.dtype.is_floating_point:
             y = y32.to(x.dtype)
         else:
             info = torch.iinfo(x.dtype)
             y = y32.round().clamp(info.min, info.max).to(x.dtype)
         y = y.view(x.shape)
-        return (y if out is None else out.copy_(y)), mask
+        return (y if out is None else out.copy_(y)), mask, state
 
     def execute_raw(self, raw, dtype, out=None):
         """Raw ring storage of a complex-integer gulp (time-first header
@@ -288,6 +303,11 @@ class Flag(object):
         complex64 of the logical shape, mask); unpacked with
         `staged_unpack_canonical`, then flagged as `execute` flags a
         complex gulp (the same carried baseline)."""
+        return self.step_raw(raw, dtype, None, out)[:2]
+
+    def step_raw(self, raw, dtype, state, out=None):
+        """`execute_raw` from an explicit baseline `state` (None: the
+        plan's own) -> (y, mask, state')."""
         if self.window is None:
             raise ValueError("flag: init(window, ...) first")
         dt = DataType(dtype)
@@ -300,9 +320,9 @@ class Flag(object):
         ntime = shape[0]
         re, im = re.reshape(ntime, -1), im.reshape(ntime, -1)
         o = None if out is None else out.view(ntime, -1)
-        y, mask = self._run(re * re + im * im, torch.complex(re, im),
-                            (tuple(shape[1:]), True), o)
-        return (out if out is not None else y.view(shape)), mask
+        y, mask, state = self._run(re * re + im * im, torch.complex(re, im),
+                                   (tuple(shape[1:]), True), state, o)
+        return (out if out is not None else y.view(shape)), mask, state
 
     def plan_report(self):
         """Uniform runtime accounting (ops/runtime.py schema) + the

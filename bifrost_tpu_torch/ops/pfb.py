@@ -151,20 +151,33 @@ class Pfb(object):
             self._state_key = key
         return self._state
 
-    def _run(self, xf, nstream, ncomp, key, out):
-        method = self._resolve()
+    def _run(self, xf, nstream, ncomp, key, state, out):
+        """The MAC and the DFT of one folded gulp from history `state`;
+        with `state` None, from the plan's own history, which it then
+        carries -> (y, state')."""
         dev = xf.device
         coeffs, wre, wim = self.staged(dev)
-        state = self._ensure_state(key, nstream, ncomp, dev)
-        y, self._state = pfb_tiled(xf, coeffs, state, wre, wim, self.nchan,
-                                   nstream, ncomp, method=method, out=out)
-        return y
+        own = state is None
+        if own:
+            state = self._ensure_state(key, nstream, ncomp, dev)
+        y, state = pfb_tiled(xf, coeffs, state, wre, wim, self.nchan,
+                             nstream, ncomp, method=self._resolve(), out=out)
+        if own:
+            self._state = state
+        return y, state
 
     def execute(self, idata, odata=None):
         """Channelize one logical gulp: (ntime, ...stream...) real or
         complex -> (ntime // nchan, nchan, ...stream...) complex64,
         carrying the (ntap-1)-frame history.  ntime must be a multiple
         of nchan."""
+        y, _ = self.step(idata, None)
+        return finalize(y, out=odata)
+
+    def step(self, idata, state):
+        """`execute` from an explicit history `state` (None: the plan's
+        own) -> (y, state'): the fused group's carry step (the block's
+        `device_kernel_carry`)."""
         x = _as_tensor(idata)
         ntime = x.shape[0]
         if ntime % self.nchan:
@@ -180,15 +193,20 @@ class Pfb(object):
         else:
             ncomp = 1
             xf = fold_frames(xm.float(), None, self.nchan).contiguous()
-        y = self._run(xf, nstream, ncomp, (chan_shape, ncomp), None)
-        y = y.reshape((y.shape[0], self.nchan) + chan_shape)
-        return finalize(y, out=odata)
+        y, state = self._run(xf, nstream, ncomp, (chan_shape, ncomp),
+                             state, None)
+        return y.reshape((y.shape[0], self.nchan) + chan_shape), state
 
     def execute_raw(self, raw, dtype, out=None):
         """Raw ring-storage gulp (time-first, ci8 or wider with its
         trailing (re, im) axis) -> complex64 (ntime // nchan, nchan,
         ...stream...), into `out` when given, carrying the state shared
         with `execute` for the same stream."""
+        return self.step_raw(raw, dtype, None, out)[0]
+
+    def step_raw(self, raw, dtype, state, out=None):
+        """`execute_raw` from an explicit history `state` (None: the
+        plan's own) -> (y, state')."""
         dt = DataType(dtype)
         if not (dt.is_complex and dt.is_integer):
             raise ValueError(f"pfb: execute_raw expects a complex-integer "
@@ -213,10 +231,10 @@ class Pfb(object):
         if xf.dtype != torch.int8:
             xf = xf.float()
         m = ntime // self.nchan
-        y = self._run(xf, nstream, 2, (chan_shape, 2),
-                      None if out is None else out.view(m, self.nchan,
-                                                        nstream))
-        return y.view((m, self.nchan) + chan_shape)
+        y, state = self._run(
+            xf, nstream, 2, (chan_shape, 2), state,
+            None if out is None else out.view(m, self.nchan, nstream))
+        return y.view((m, self.nchan) + chan_shape), state
 
     def plan_report(self):
         """Uniform runtime accounting (ops/runtime.py schema) + the PFB

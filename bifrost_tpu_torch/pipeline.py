@@ -9,7 +9,12 @@ the exact emit schedule (`output_nframes_for_gulp`), and skip handling;
 and the header views (`RingView`, `SequenceView`, `block_view`).
 
 `_GulpDispatcher` is the bounded in-order worker that the egress
-stager (egress.py) runs its gulps on.
+stager (egress.py) and the fused groups' asynchronous gulps run on.
+
+Fusion: `Pipeline.run` first runs the fusion compiler (fuse.py), which
+replaces each maximal run of fuse-scoped device blocks
+(`block_scope(fuse=True)`) with one `FusedTransformBlock`;
+`Pipeline.fusion_report()` returns its decisions.
 
 Device handling: a pipeline runs on one torch device, the card unless
 the caller passes ``device='cpu'``; with no card and no device named,
@@ -27,6 +32,8 @@ import json
 import queue
 import threading
 import time
+
+import torch
 
 from . import device as _device
 from .ring import (EndOfDataStop, ReadSequence, Ring, RingInterrupted,
@@ -65,7 +72,8 @@ class BlockScope(object):
     """Hierarchical defaults resolved by parent walk
     (reference pipeline.py:87-165)."""
 
-    _settable = ("gulp_nframe", "buffer_nframe", "buffer_factor", "device")
+    _settable = ("gulp_nframe", "buffer_nframe", "buffer_factor", "device",
+                 "fuse")
     instance_count = 0
 
     def __init__(self, name=None, parent=None, **kwargs):
@@ -116,7 +124,8 @@ class BlockScope(object):
 
 
 def block_scope(**kwargs):
-    """`with bf.block_scope(gulp_nframe=4096): ...`"""
+    """`with bf.block_scope(gulp_nframe=4096): ...`; `fuse=True` marks
+    the blocks built inside as candidates for the fusion compiler."""
     return BlockScope(**kwargs)
 
 
@@ -139,6 +148,7 @@ class Pipeline(BlockScope):
         self._init_queue = queue.Queue()
         self._all_initialized = threading.Event()
         self._threads = []
+        self._fusion_plan = None
 
     def __enter__(self):
         _default_pipelines.append(self)
@@ -166,10 +176,27 @@ class Pipeline(BlockScope):
                     f"block {block.name} failed to initialize: {err}")
         self._all_initialized.set()
 
+    def _fuse_device_chains(self):
+        """Run the fusion compiler (fuse.py) over the block graph.
+        Idempotent: a caller may run it before `run()`, which runs it
+        again, to inspect the fused topology."""
+        from . import fuse
+        return fuse.apply(self)
+
+    def fusion_report(self):
+        """The fusion compiler's decisions for this pipeline: the groups
+        (rule, constituents, ring hops eliminated) and every refused
+        block with its reason (fuse.REASONS).  Applies fusion first if
+        it has not run yet."""
+        if self._fusion_plan is None:
+            self._fuse_device_chains()
+        return self._fusion_plan.report()
+
     def run(self):
-        """Run every block on its own thread until the sources end and
-        the end of data has flowed through; re-raise the first block
-        error."""
+        """Fuse the device chains, then run every block on its own thread
+        until the sources end and the end of data has flowed through;
+        re-raise the first block error."""
+        self._fuse_device_chains()
         self._threads = []
         for b in self.blocks:
             t = threading.Thread(target=b._run, name=b.name, daemon=True)
@@ -681,7 +708,9 @@ class _GulpDispatcher(object):
     def submit(self, fn, abort=None):
         """Enqueue `fn`; blocks while the queue is full.  `abort`
         (optional callable) is polled during that wait: when it returns
-        True the submit gives up with RingInterrupted."""
+        True the submit gives up with RingInterrupted.  -> the epoch the
+        item was queued in (it runs unless a failure moves the epoch on
+        first)."""
         with self._cv:
             while len(self._queue) + (1 if self._busy else 0) >= self.depth:
                 self._raise_pending_locked()
@@ -694,6 +723,7 @@ class _GulpDispatcher(object):
                 raise RuntimeError("dispatcher closed")
             self._queue.append((self._epoch, fn))
             self._cv.notify_all()
+            return self._epoch
 
     def drain(self, raise_exc=True, timeout=None):
         """Wait until every submitted item has finished; False if
@@ -789,3 +819,391 @@ def block_view(block, header_transform):
     proxy = _copy.copy(block)
     proxy.orings = [RingView(r, header_transform) for r in block.orings]
     return proxy
+
+
+# ------------------------------------------------------- block-chain fusion
+def _view_transforms(ring):
+    """Header transforms of the RingView stack over `ring`, in the order
+    they apply (the innermost view first)."""
+    ts = []
+    v = ring
+    while isinstance(v, RingView):
+        ts.append(v.header_transform)
+        v = v._parent
+    return list(reversed(ts))
+
+
+class _HeaderSeq(object):
+    """The sequence a constituent's `on_sequence` sees inside a fused
+    group: a header and its tensor info."""
+
+    def __init__(self, header):
+        self.header = header
+        self.tensor = TensorInfo(header) if "_tensor" in header else None
+
+
+def _constituent_on_sequence(group, c, hdr):
+    """Run constituent `c`'s `on_sequence` for the header flow; a fault
+    names the constituent as well as the group."""
+    try:
+        oh = c.on_sequence(_HeaderSeq(hdr))
+    except Exception as e:
+        if getattr(e, "_bt_fused_constituent", None) is None:
+            e._bt_fused_constituent = c.name
+            if hasattr(e, "add_note"):
+                e.add_note(f"[fused group {group.name}: fault in "
+                           f"constituent {c.name}.on_sequence]")
+        raise
+    return oh[0] if isinstance(oh, (list, tuple)) else oh
+
+
+def _reshape_frames(x, shape):
+    """`x` reshaped to `shape`, a span shape with -1 at the frame axis:
+    the physical side of the header views between two stages."""
+    per = 1
+    for n in shape:
+        if n != -1:
+            per *= n
+    return x.reshape([x.numel() // per if n == -1 else n for n in shape])
+
+
+class _GulpHold(object):
+    """Holds an input span whose gulp runs on a group's worker
+    (`ReadSpan.hold_until`): `synchronize()` returns once the worker has
+    enqueued the gulp's work on the group's stream, which the span's
+    release event then follows, after waiting for `event`, the copy of
+    a pinned host span read in place, where the worker set one.  An item
+    that never ran (not queued, or dropped behind a failed one) read
+    nothing, and the hold lets go."""
+
+    def __init__(self):
+        self.event = None
+        self._disp = None
+        self._epoch = None
+        self._done = threading.Event()
+
+    def queued(self, disp, epoch):
+        self._disp, self._epoch = disp, epoch
+
+    def set(self):
+        self._done.set()
+
+    def synchronize(self):
+        d = self._disp
+        if d is None:
+            return
+        while not self._done.wait(0.05):
+            if d._epoch != self._epoch or d._closed:
+                return
+        if self.event is not None:
+            self.event.synchronize()
+
+
+class FusedTransformBlock(TransformBlock):
+    """A run of fuse-scoped device blocks executed as one block
+    (counterpart of bifrost_tpu/pipeline.py:2624-3023): one thread, one
+    CUDA stream, and no ring between its stages.
+
+    Built by the fusion compiler (fuse.py) from fully constructed
+    blocks: it adopts the first constituent's input ring and the last's
+    output ring (the tail's, where an accumulate ends the run), runs
+    each constituent's `on_sequence` for the header flow, applying the
+    header views between stages, and per gulp calls the constituents'
+    `device_kernel()` functions back to back.  Each stage gets what its
+    ring read would have handed it: the stage before's output cast to
+    its ring's storage type, contiguous, and reshaped by the views in
+    between.  The JAX group compiles the chain into one XLA program;
+    here the stages are the blocks' own eager calls, so a fused run
+    launches the unfused run's kernels, one for one.
+
+    Input spans: a span is a view of ring bytes the writer reuses.  A
+    device span is read by work on the group's stream, which its release
+    event follows; an H2D head that copies a pinned host span in place
+    holds the span until the copy's event (`ReadSpan.hold_until`).
+
+    Accumulate tail: the integration is carried by the group and folded
+    frame by frame as `AccumulateBlock.fold` folds it.  Under
+    `fused_async` (guaranteed readers) a gulp that completes no
+    integration goes to the group's worker (`_GulpDispatcher`), which
+    runs it on the group's stream while this thread goes on to the next
+    gulp's ring work; its span is held until the worker has enqueued it
+    (`_GulpHold`).  Gulps that emit drain the worker first.
+    """
+
+    def __init__(self, constituents, pre_transforms, tail=None,
+                 tail_transforms=None):
+        first = constituents[0]
+        last = tail if tail is not None else constituents[-1]
+        # No super().__init__: the rings exist already, and the blocks
+        # around the group hold references to them.
+        self.pipeline = first.pipeline
+        self.type = type(self).__name__
+        self.name = "Fused_" + "+".join(
+            c.name for c in list(constituents) + ([tail] if tail else []))
+        self.error = None
+        self._thread = None
+        self._init_reported = False
+        self._held_latches = []
+        self.perf_totals = {}
+        self.constituents = list(constituents)
+        self._pre_transforms = list(pre_transforms)
+        self.tail = tail
+        self._tail_transforms = list(tail_transforms or [])
+        self.irings = list(first.irings)
+        self.iring = self.irings[0]
+        self.orings = list(last.orings)
+        self.guarantee = first.guarantee
+        # Scope settings (gulp_nframe, buffers, device, fuse) resolve from
+        # the first constituent's place in the scope tree.
+        self._lookup = first._lookup
+        self._dispatcher = None
+        self._async_latched = None
+        self._stream = None
+
+    # ------------------------------------------------------- dispatching
+    def _resolve_async(self):
+        """The worker serves guaranteed readers only: a lossy reader
+        checks for overwritten input right after on_data."""
+        from . import config
+        return bool(self.guarantee and config.get("fused_async"))
+
+    def _use_async(self):
+        if self._async_latched is not None:
+            return self._async_latched
+        return self._resolve_async()
+
+    def _bind_worker_thread(self):
+        """The worker runs on the group's device and stream."""
+        _device.set_device(self.device)
+        if self._stream is not None:
+            torch.cuda.set_stream(self._stream)
+
+    def _drain_dispatcher(self, raise_exc=True):
+        if self._dispatcher is not None:
+            self._dispatcher.drain(raise_exc=raise_exc)
+
+    def _close_dispatcher(self):
+        if self._dispatcher is not None:
+            self._dispatcher.close()
+            self._dispatcher = None
+
+    def main(self):
+        try:
+            super().main()
+        finally:
+            self._close_dispatcher()
+
+    def _sequence_loop(self, *args, **kwargs):
+        # The worker must be idle before the sequence's output spans end.
+        try:
+            super()._sequence_loop(*args, **kwargs)
+        except BaseException:
+            self._drain_dispatcher(raise_exc=False)
+            raise
+        self._drain_dispatcher()
+
+    # ------------------------------------------------------- composition
+    def on_sequence(self, iseq):
+        from . import config
+        from .blocks.copy import CopyBlock
+        # In-flight work and the carried integration land before the
+        # stages are rebuilt.
+        self._drain_dispatcher()
+        self._async_latched = self._resolve_async()
+        depth = _GulpDispatcher.DEPTH
+        if self._async_latched:
+            depth = max(depth, config.get("pipeline_async_depth"))
+            self._hold_flag_latch("fused_async")
+            if depth > _GulpDispatcher.DEPTH:
+                self._hold_flag_latch("pipeline_async_depth")
+        if self._dispatcher is not None and self._dispatcher.depth != depth:
+            self._close_dispatcher()
+        self._async_depth = depth
+        dev = torch.device(self.device)
+        self._stream = torch.cuda.current_stream(dev) \
+            if dev.type == "cuda" else None
+        self._head = isinstance(self.constituents[0], CopyBlock)
+        hdr = iseq.header
+        self._shapes = []              # stage input span shapes (-1: frames)
+        self._in_fax = []              # stage input frame axes
+        self._in_dtypes = []           # stage input DataTypes
+        self._out_torch = []           # stage output storage torch dtypes
+        self._stage_out_frame_axes = []
+        self._stage_pre_ratios = []    # per-stage view gulp ratios
+        self._stage_gulp_ratios = []
+        for i, (c, transforms) in enumerate(zip(self.constituents,
+                                                self._pre_transforms)):
+            pre = []
+            for t in transforms:
+                g0 = hdr.get("gulp_nframe")
+                h = json.loads(json.dumps(hdr))
+                hdr = t(h) or h
+                g1 = hdr.get("gulp_nframe")
+                if g0 and g1 and g0 != g1:
+                    self._stage_gulp_ratios.append((g1, g0))
+                    pre.append((g1, g0))
+            self._stage_pre_ratios.append(pre)
+            ti = TensorInfo(hdr)
+            self._shapes.append(ti.span_shape(-1))
+            self._in_fax.append(ti.frame_axis)
+            self._in_dtypes.append(ti.dtype)
+            hdr = _constituent_on_sequence(self, c, hdr)
+            to = TensorInfo(hdr)
+            self._out_torch.append(to.torch_dtype)
+            self._stage_out_frame_axes.append(to.frame_axis)
+        if self.tail is not None:
+            for t in self._tail_transforms:
+                h = json.loads(json.dumps(hdr))
+                hdr = t(h) or h
+            ti = TensorInfo(hdr)
+            self._tail_frame_axis = ti.frame_axis
+            self._tail_in_shape = ti.span_shape(-1)
+            hdr = _constituent_on_sequence(self, self.tail, hdr)
+            self._acc = None
+            self._acc_phase = 0
+        self._fns = self._build_stage_fns()
+        self._nfr_cache = {}
+        return hdr
+
+    def _build_stage_fns(self):
+        """The stages' functions: each constituent's `device_kernel()`,
+        the H2D head's returning (tensor, hold event)."""
+        return tuple(c.device_kernel() for c in self.constituents)
+
+    def _release_flag_latches(self):
+        # The constituents latched their flags under their own names in
+        # their on_sequence; they release with the group's.
+        super()._release_flag_latches()
+        for c in self.constituents:
+            c._release_flag_latches()
+        if self.tail is not None:
+            self.tail._release_flag_latches()
+
+    def _chain_out_nframes(self, in_nframe):
+        """Chain-output frames for an `in_nframe` input gulp (before any
+        accumulate tail)."""
+        n = in_nframe
+        for g1, g0 in self._stage_gulp_ratios:
+            n = n * g1 // g0
+        for c in self.constituents:
+            n = c.define_output_nframes(n)[0]
+        return n
+
+    def define_output_nframes(self, input_nframe):
+        n = self._chain_out_nframes(input_nframe)
+        if self.tail is not None:
+            # The most integrations one gulp can complete.
+            n = max(1, (n + self.tail.nframe - 1) // self.tail.nframe)
+        return [n]
+
+    # ------------------------------------------------------------ stages
+    def _take(self, i, x):
+        """Stage `i`'s input from the stage before's output: reshaped to
+        the stage's input header, or None where it holds no frames (the
+        unfused block would get no gulp)."""
+        x = _reshape_frames(x, self._shapes[i])
+        return None if x.shape[self._in_fax[i]] == 0 else x
+
+    def _put(self, i, y):
+        """Stage `i`'s output as its ring would store it: the ring's
+        storage type, contiguous."""
+        if y.dtype != self._out_torch[i]:
+            y = y.to(self._out_torch[i])
+        return y.contiguous()
+
+    def _gulp_input(self, ispan, hold=None):
+        """The chain's input for one gulp: the H2D head's device copy of
+        the host span (its hold event on `hold`, or on the span), or the
+        device span as its ring read presents it."""
+        x = ispan.data
+        if not self._head:
+            return x
+        y, ev = self._fns[0](x)
+        if ev is not None:
+            if hold is not None:
+                hold.event = ev
+            else:
+                ispan.hold_until(ev)
+        return self._put(0, y)
+
+    def _plan_gulp(self, ispan):
+        """-> (chain-output frames of this gulp, the chain's per-gulp
+        arguments)."""
+        nfr = self._nfr_cache.get(ispan.nframe)
+        if nfr is None:
+            nfr = self._nfr_cache[ispan.nframe] = \
+                self._chain_out_nframes(ispan.nframe)
+        return nfr, None
+
+    def _run_chain(self, x, ctx):
+        """The stages after the input, back to back -> the chain's
+        output, or None where a stage got no frames."""
+        for i in range(1 if self._head else 0, len(self._fns)):
+            x = self._take(i, x)
+            if x is None:
+                return None
+            x = self._put(i, self._fns[i](x))
+        return x
+
+    def _fold(self, y, phase, nfr, ospan):
+        """Fold the chain's `nfr` output frames into the carried
+        integration, frame by frame as the unfused tail does, and store
+        the completed integrations -> their number."""
+        if not nfr:
+            return 0
+        from .blocks._common import store
+        y = _reshape_frames(y, self._tail_in_shape)
+        fax, nacc = self._tail_frame_axis, self.tail.nframe
+        outs, acc, cnt = [], self._acc, phase
+        for i in range(nfr):
+            acc = self.tail.fold(acc, y.narrow(fax, i, 1))
+            cnt += 1
+            if cnt == nacc:
+                outs.append(acc)
+                acc, cnt = None, 0
+        self._acc = acc
+        if outs:
+            store(ospan, outs[0] if len(outs) == 1 else
+                  torch.cat(outs, dim=fax))
+        return len(outs)
+
+    def on_data(self, ispan, ospan):
+        from .blocks._common import store
+        nfr, ctx = self._plan_gulp(ispan)
+        if self.tail is None:
+            y = self._run_chain(self._gulp_input(ispan), ctx)
+            if nfr:
+                store(ospan, y)
+            return nfr
+        nacc = self.tail.nframe
+        phase = self._acc_phase
+        self._acc_phase = (phase + nfr) % nacc
+        if self._use_async() and 0 < nfr and phase + nfr <= nacc:
+            # No integration boundary inside this gulp: the worker runs
+            # it.  It alone touches the carried integration and carries
+            # until the next drain.
+            emit = phase + nfr == nacc
+            hold = _GulpHold()
+            ispan.hold_until(hold)
+
+            def work():
+                try:
+                    y = self._run_chain(self._gulp_input(ispan, hold), ctx)
+                    self._fold(y, phase, nfr, ospan)
+                finally:
+                    hold.set()
+
+            if self._dispatcher is None:
+                self._dispatcher = _GulpDispatcher(
+                    f"{self.name}.disp", depth=self._async_depth,
+                    on_worker_start=self._bind_worker_thread)
+            hold.queued(self._dispatcher, self._dispatcher.submit(
+                work, abort=lambda: self.pipeline.shutdown_requested))
+            if emit:
+                # The loop commits the output span when this returns.
+                self._dispatcher.drain()
+                return 1
+            return 0
+        self._drain_dispatcher()
+        y = self._run_chain(self._gulp_input(ispan), ctx)
+        return self._fold(y, phase, nfr, ospan)

@@ -10,7 +10,7 @@ source in place of UDP capture:
       transpose(['freq', 'time']) -> fdmt(max_delay) -> CandidateDetectBlock
 
 - `lwa_beam_search_pipeline`, the B-engine branch of
-  `lwa_instrument_spec` (service.py:443-534, its unfused form):
+  `lwa_instrument_spec` (service.py:443-534):
 
       array_source (ci8 [time, station, pol]) -> copy('cuda') ->
       pfb(nchan, ntap) -> beamform(weights, n_int) ->
@@ -18,22 +18,31 @@ source in place of UDP capture:
       CandidateDetectBlock
 
 - `lwa_instrument_pipeline`, the whole instrument of
-  `lwa_instrument_spec` (service.py:355-550, its unfused topology): the
-  B branch above and the X/imaging branch, both reading one PFB ring:
+  `lwa_instrument_spec` (service.py:355-550): the B branch above and the
+  X/imaging branch, both reading one PFB ring:
 
       ... pfb -> correlate(n_int) -> transpose(['freq', 'station_i',
       'pol_i', 'station_j', 'pol_j', 'time']) -> merge_axes x 3 ('vis')
       -> romein(ngrid) -> fft(['v', 'u']) -> copy('system') -> on_image
 
+Both build their blocks inside `block_scope(fuse=True)` where the spec's
+`scope()` puts them (`fuse=True`, the default, as the spec's): the
+fusion compiler (fuse.py) then runs the instrument's copy -> pfb,
+correlate -> transpose and beamform -> transpose -> fdmt as one fused
+group each, and the whole beam search, whose PFB ring has one reader,
+as one group.  `fuse=False` builds the unfused topology.  The FRB
+search stays unfused, as `frb_search_spec` builds no fuse scope.
+
 The data-quality front end of the beam search (flag -> calibrate before
 the B-engine) is built from blocks (`rfi_flag`, `gaincal`), as the JAX
 package's benchmarks/dq_tpu.py builds it; it is not a spec of its own.
-`ServiceSpec`/`Service`, supervision, UDP capture and fusion are not
-ported yet.
+`ServiceSpec`/`Service`, supervision and UDP capture are not ported
+yet.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 
@@ -256,8 +265,14 @@ def _lwa_gulp(gulp_nframe, nchan, n_int):
     return gulp
 
 
+def _fuse_scope(fuse):
+    """`lwa_instrument_spec`'s scope(): `block_scope(fuse=True)` where
+    the chains fuse, else no scope."""
+    return block_scope(fuse=True) if fuse else contextlib.nullcontext()
+
+
 def _lwa_fengine(voltages, gulp, nchan, ntap, coeffs, f0_mhz, dt_s,
-                 pfb_method):
+                 pfb_method, fuse):
     """The replay source, the H2D copy and the PFB: the F-engine ring both
     engine branches read."""
     src = array_source(voltages, gulp, header={
@@ -268,19 +283,22 @@ def _lwa_fengine(voltages, gulp, nchan, ntap, coeffs, f0_mhz, dt_s,
         "cfreq": f0_mhz,
         "cfreq_units": "MHz",
     }, name="ingest")
-    dev = copy(src, space="cuda", name="fengine_h2d")
-    return pfb(dev, nchan, ntap=ntap, coeffs=coeffs, method=pfb_method,
-               name="fengine_pfb")
+    with _fuse_scope(fuse):
+        dev = copy(src, space="cuda", name="fengine_h2d")
+        return pfb(dev, nchan, ntap=ntap, coeffs=coeffs, method=pfb_method,
+                   name="fengine_pfb")
 
 
 def _lwa_bbranch(f, weights, n_int, max_delay, threshold, on_candidate,
-                 ledger, gather, beamform_method, fdmt_method):
+                 ledger, gather, beamform_method, fdmt_method, fuse):
     """beamform -> transpose -> FDMT -> candidate detect."""
-    b = beamform(f, weights, nframe_per_integration=n_int,
-                 method=beamform_method, name="bengine")
-    t = transpose(b, ["beam", "freq", "time"], name="bdetect_t")
-    d = fdmt(t, max_delay=max_delay, method=fdmt_method,
-             name="bdetect_fdmt")
+    with _fuse_scope(fuse):
+        b = beamform(f, weights, nframe_per_integration=n_int,
+                     method=beamform_method, name="bengine")
+    with _fuse_scope(fuse):
+        t = transpose(b, ["beam", "freq", "time"], name="bdetect_t")
+        d = fdmt(t, max_delay=max_delay, method=fdmt_method,
+                 name="bdetect_fdmt")
     det = CandidateDetectBlock(d, threshold=threshold,
                                on_candidate=on_candidate, name="bdetect")
     det.ledger = ledger
@@ -297,7 +315,7 @@ def lwa_beam_search_pipeline(voltages, nstand=256, npol=2, nchan=4096,
                              dt_s=1e-6, gulp_nframe=None, coeffs=None,
                              device=None, pfb_method=None,
                              beamform_method=None, fdmt_method=None,
-                             on_candidate=None, gather=None):
+                             on_candidate=None, gather=None, fuse=True):
     """Build the LWA beam-search chain over `voltages`, ci8 [time,
     station, pol] replayed from memory: the JAX package's structured
     (re, im) array or its int8 storage form with a trailing axis of 2.
@@ -312,7 +330,10 @@ def lwa_beam_search_pipeline(voltages, nstand=256, npol=2, nchan=4096,
     arguments pin the PFB, beamform and FDMT methods (None reads their
     config flags).  `gather`: a dict whose 'beams' and 'dedispersed'
     lists, where present, receive the beam-power frames and the
-    dedispersed gulps as numpy.  -> (pipeline, detector, ledger); call
+    dedispersed gulps as numpy (a 'beams' reader is a second reader of
+    the beamformer's ring, which then ends its fused group).  `fuse`:
+    build the chain inside `block_scope(fuse=True)` as the spec does
+    (module docstring).  -> (pipeline, detector, ledger); call
     `pipeline.run()`."""
     gulp = _lwa_gulp(gulp_nframe, nchan, n_int)
     if weights is None:
@@ -321,10 +342,10 @@ def lwa_beam_search_pipeline(voltages, nstand=256, npol=2, nchan=4096,
     ledger = FrameLedger()
     with pipe:
         f = _lwa_fengine(voltages, gulp, nchan, ntap, coeffs, f0_mhz, dt_s,
-                         pfb_method)
+                         pfb_method, fuse)
         det = _lwa_bbranch(f, weights, n_int, max_delay, threshold,
                            on_candidate, ledger, gather or {},
-                           beamform_method, fdmt_method)
+                           beamform_method, fdmt_method, fuse)
     return pipe, det, ledger
 
 
@@ -358,16 +379,19 @@ def lwa_instrument_pipeline(voltages, nstand=256, npol=2, nchan=4096,
                             device=None, pfb_method=None,
                             beamform_method=None, fdmt_method=None,
                             romein_method=None, fft_method=None,
-                            gather=None):
+                            gather=None, fuse=True):
     """Build the whole LWA instrument of `lwa_instrument_spec` over
     `voltages` (ci8 [time, station, pol], as `lwa_beam_search_pipeline`
-    takes them), unfused: replay -> H2D -> PFB, then from the one PFB
-    ring both the B branch (beamform -> transpose -> FDMT -> detect) and
-    the X branch (correlate -> transpose -> merge_axes into 'vis' ->
-    Romein grid -> FFT over (v, u) -> copy to the host -> `on_image`).
+    takes them): replay -> H2D -> PFB, then from the one PFB ring both
+    the B branch (beamform -> transpose -> FDMT -> detect) and the X
+    branch (correlate -> transpose -> merge_axes into 'vis' -> Romein
+    grid -> FFT over (v, u) -> copy to the host -> `on_image`).
 
-    Arguments as the spec's (minus its capture, fusion and interpret
-    options): `gains` ((nstand[, npol]) complex) fold into the X-engine's
+    Arguments as the spec's (minus its capture and interpret options):
+    `fuse` builds the blocks inside `block_scope(fuse=True)` where the
+    spec's scope() puts them, so that copy -> pfb, correlate -> image_t
+    and bengine -> bdetect_t -> bdetect_fdmt fuse (the default, as the
+    spec's); `gains` ((nstand[, npol]) complex) fold into the X-engine's
     voltages; `uvw` ((2, nvis) int grid positions) and `kernels`
     (broadcastable to (nchan, nvis, m, m)) default to `default_uvw` and
     `default_grid_kernel`; `weights` and `coeffs` as in
@@ -398,13 +422,15 @@ def lwa_instrument_pipeline(voltages, nstand=256, npol=2, nchan=4096,
     ledger = FrameLedger()
     with pipe:
         f = _lwa_fengine(voltages, gulp, nchan, ntap, coeffs, f0_mhz, dt_s,
-                         pfb_method)
-        x = correlate(f, n_int, engine=engine, gains=gains, buffer_factor=1,
-                      name="xengine")
+                         pfb_method, fuse)
+        with _fuse_scope(fuse):
+            x = correlate(f, n_int, engine=engine, gains=gains,
+                          buffer_factor=1, name="xengine")
         with block_scope(gulp_nframe=1):
-            t = transpose(x, ["freq", "station_i", "pol_i", "station_j",
-                              "pol_j", "time"], buffer_factor=1,
-                          name="image_t")
+            with _fuse_scope(fuse):
+                t = transpose(x, ["freq", "station_i", "pol_i", "station_j",
+                                  "pol_j", "time"], buffer_factor=1,
+                              name="image_t")
             v = views.merge_axes(t, "station_i", "pol_i", label="inp_i")
             v = views.merge_axes(v, "inp_i", "station_j", label="inp_ij")
             v = views.merge_axes(v, "inp_ij", "pol_j", label="vis")
@@ -417,5 +443,5 @@ def lwa_instrument_pipeline(voltages, nstand=256, npol=2, nchan=4096,
             callback_sink(host, on_data=on_image, name="image_sink")
         det = _lwa_bbranch(f, weights, n_int, max_delay, threshold,
                            on_candidate, ledger, gather or {},
-                           beamform_method, fdmt_method)
+                           beamform_method, fdmt_method, fuse)
     return pipe, det, ledger

@@ -26,8 +26,9 @@ Phases, one line each; any failure exits non-zero:
              The kernels' launch counts are read from this run alone.
              The dedispersed gulps of the same chain are then compared
              bitwise against the chain with fdmt_method='plain'.
-5. bengine — drive the LWA beam-search chain (`lwa_beam_search_pipeline`)
-             at `lwa_instrument_spec`'s flagship width: ci8 voltages of
+5. bengine — drive the LWA beam-search chain (`lwa_beam_search_pipeline`,
+             unfused: fuse=False; phase 11 runs the fused form) at
+             `lwa_instrument_spec`'s flagship width: ci8 voltages of
              256 stations x 2 pol, PFB 4096 channels x 4 taps, 8 beams
              integrated over 16 spectra, FDMT max_delay 64, one
              integration (65,536 frames) per gulp, 80 integrations (a
@@ -40,9 +41,10 @@ Phases, one line each; any failure exits non-zero:
              compared bitwise against the chain with every method
              'plain', and the first integration's powers against an
              f64 numpy golden.
-6. instrument — drive the whole LWA instrument (`lwa_instrument_pipeline`)
-             on the same voltages at the same width, both branches fanned
-             out from one PFB ring: the B branch above and the X/imaging
+6. instrument — drive the whole LWA instrument (`lwa_instrument_pipeline`,
+             unfused) on the same voltages at the same width, both
+             branches fanned out from one PFB ring: the B branch above
+             and the X/imaging
              branch (correlate -> transpose -> Romein grid at ngrid 128
              with the spec's rank-1 default kernel, kernel K6b -> FFT ->
              copy to the host).  Launch counts are read from this run
@@ -122,6 +124,24 @@ Phases, one line each; any failure exits non-zero:
              through the stager, a pageable copy_ (into a buffer used
              before and into a new one) and a pinned copy_.
 
+11. fusion — after [dq], on its voltages: the four chains the reference
+             fuses by default, each fused (its blocks in
+             `block_scope(fuse=True)` where the reference builds them
+             so) and unfused in FUSION_PAIRS turns: the beam search
+             (`lwa_beam_search_pipeline(fuse=)`, 80 integrations), the
+             DQ beam search of [dq] with copy -> pfb -> rfi_flag ->
+             gaincal -> beamform -> transpose -> fdmt in one fuse scope
+             (80), the instrument (`lwa_instrument_pipeline(fuse=)`, cut
+             to FX_NINT = 8 integrations, the first FX_KEEP images
+             compared) and gpuspec (c) at GS_FLAGSHIP and GS_GUPPI.
+             Each fused run prints its `fusion_report()` (groups,
+             constituents, ring hops eliminated, refusals); every run's
+             launch counts must equal the unfused run's and its outputs
+             (dedispersed frames, images, integrated spectra) be bitwise
+             the unfused run's.  Rates whole and steady, host seconds by
+             block and phase, peak device memory; one beam gulp's pinned
+             H2D time.
+
 The launch checks of every phase count all seven kernels (K1, K2, K4,
 K6a, K6b, K5a, K5b).  The line before the last two holds the kernel
 records as JSON, one for each of those kernels; then the card's name and
@@ -194,6 +214,12 @@ EG_DUMP = dict(shape=(16, 4, 16384), gulp=4, depth=8)
 EG_IMAGE = dict(shape=(4096, 128, 128), ndistinct=4, nframe=32,
                 check_nframe=8, skip=8, depth=2)
 EG_PAIRS = 3
+
+# The fusion phase: the beam search and the DQ beam search over [dq]'s
+# voltages (B_NINT integrations), the instrument cut to FX_NINT
+# integrations (the first FX_KEEP images compared), gpuspec (c) at both
+# geometries; FUSION_PAIRS turns of a fused and an unfused run each.
+FUSION_PAIRS, FX_NINT, FX_KEEP = 2, 8, 2
 
 # Device-memory rate by card (NVIDIA data sheets), bytes/s
 _HBM_RATE = (("H200", 4.8e12), ("H100 PCIe", 2.0e12), ("H100", 3.35e12))
@@ -728,7 +754,7 @@ def bengine_path(dev):
             n_int=N_INT, nbeam=NBEAM, max_delay=B_MAX_DELAY,
             f0_mhz=B_F0, dt_s=B_DT, gulp_nframe=B_GULP, device=dev,
             pfb_method=method, beamform_method=method, fdmt_method=method,
-            gather=gather)
+            gather=gather, fuse=False)
 
     got = {"beams": Stamped(), "dedispersed": []}
     pipe, det, ledger = build(None, got)
@@ -1016,9 +1042,9 @@ def time_xstages(dev, kind):
 
 
 def instrument(dev, volt, gather=None, on_image=None, method=None,
-               kernels=None):
+               kernels=None, fuse=False):
     """`lwa_instrument_pipeline` at the flagship width over `volt`, with
-    every kernel method pinned to `method`."""
+    every kernel method pinned to `method`; unfused unless `fuse`."""
     from bifrost_tpu_torch.service import lwa_instrument_pipeline
     return lwa_instrument_pipeline(
         volt, nstand=NSTAND, npol=NPOL, nchan=BCHAN, ntap=NTAP,
@@ -1026,7 +1052,7 @@ def instrument(dev, volt, gather=None, on_image=None, method=None,
         f0_mhz=B_F0, dt_s=B_DT, gulp_nframe=B_GULP, kernels=kernels,
         device=dev, pfb_method=method,
         beamform_method=method, fdmt_method=method, romein_method=method,
-        gather=gather, on_image=on_image)
+        gather=gather, on_image=on_image, fuse=fuse)
 
 
 class Images(list):
@@ -1545,21 +1571,25 @@ def frbflag_path(dev):
 
 
 def dq_chain(dev, volt, gains, method=None, gather=None, on_mask=None,
-             fold=False):
+             fold=False, fuse=False):
     """The flagged, calibrated beam search built from blocks (module
     docstring, phase 8), every kernel method pinned to `method`.  With
     `fold`, the flagged stream instead feeds gaincal -> beamform and
     beamform(gains=) side by side, gathered into gather['cal'] and
-    gather['fold'].  -> (pipeline, detector, ledger)."""
+    gather['fold'].  With `fuse`, the blocks from the H2D copy to the
+    FDMT are built in one `block_scope(fuse=True)` (phase 11).  ->
+    (pipeline, detector, ledger)."""
+    import contextlib
     from bifrost_tpu_torch import blocks as bl
-    from bifrost_tpu_torch.pipeline import Pipeline
+    from bifrost_tpu_torch.pipeline import Pipeline, block_scope
     from bifrost_tpu_torch.service import (CandidateDetectBlock,
                                            FrameLedger, default_beam_weights)
     w = default_beam_weights(NBEAM, NSTAND * NPOL)
     pipe = Pipeline(device=dev)
     ledger = FrameLedger()
     det = None
-    with pipe:
+    with pipe, (block_scope(fuse=True) if fuse
+                else contextlib.nullcontext()):
         src = bl.array_source(volt, B_GULP, header={
             "dtype": "ci8", "labels": ["time", "station", "pol"],
             "scales": [[0.0, B_DT], None, None], "units": ["s", None, None],
@@ -1582,7 +1612,8 @@ def dq_chain(dev, volt, gains, method=None, gather=None, on_mask=None,
                     name="bdetect_fdmt")
         det = CandidateDetectBlock(d, threshold=8.0, name="bdetect")
         det.ledger = ledger
-        bl.gather_sink(b, gather["beams"], name="gather_beams")
+        if "beams" in gather:
+            bl.gather_sink(b, gather["beams"], name="gather_beams")
         bl.gather_sink(d, gather["dedispersed"], name="gather_dedispersed")
     return pipe, det, ledger
 
@@ -1712,6 +1743,185 @@ def dq_path(dev, volt, spec):
     return counts
 
 
+def fusion_report_line(rep):
+    """The fused groups (rule, constituents, ring hops) and refusals."""
+    groups = "; ".join(f"{g['name']} [{g['rule']}, "
+                       f"{g['ring_hops_eliminated']} hops]"
+                       for g in rep["groups"])
+    return (f"{len(rep['groups'])} group(s): {groups}; ring hops "
+            f"eliminated {rep['ring_hops_eliminated']}; refused "
+            f"{json.dumps(rep['refused'])}")
+
+
+def fusion_run(dev, build, fused):
+    """One timed run of build(fused) -> (pipeline, stamped outputs):
+    -> dict of its outputs, launch counts, wall, stamps, peak bytes,
+    host seconds by block and phase and fusion report."""
+    pipe, outs = build(fused)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    pipe.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    rep = pipe.fusion_report()
+    if bool(rep["groups"]) != fused:
+        raise AssertionError(f"fused={fused} run: {fusion_report_line(rep)}")
+    return {"fused": fused, "outs": outs, "counts": counts, "wall": wall,
+            "t0": t0, "peak": torch.cuda.max_memory_allocated(dev),
+            "report": rep,
+            "perf": {b.name: {k: round(v, 4)
+                              for k, v in b.perf_totals.items()}
+                     for b in pipe.blocks}}
+
+
+def fusion_chain(dev, tag, build, nframe, per_out, unit, scale, equal):
+    """FUSION_PAIRS turns of a fused and an unfused run of build(fused);
+    every run's outputs equal the first unfused run's (`equal`), and its
+    launch counts too.  `nframe` input frames, `per_out` of them an
+    output; rates in `unit` are frames times `scale`.  -> the first
+    fused run's launch counts."""
+    runs = []
+    for _ in range(FUSION_PAIRS):
+        for fused in (True, False):
+            runs.append(fusion_run(dev, build, fused))
+            free_device()
+    ref = runs[1]
+    for r in runs:
+        if r["counts"] != ref["counts"]:
+            raise AssertionError(f"{tag}: fused={r['fused']} launches "
+                                 f"{r['counts']}, unfused {ref['counts']}")
+        equal(r["outs"], ref["outs"])
+    rates = []
+    for r in runs:
+        st = r["outs"].stamps
+        steady = (len(st) - 1) * per_out / (st[-1] - st[0]) \
+            if len(st) > 1 else float("nan")
+        rates.append(f"{'fused' if r['fused'] else 'unfused'} "
+                     f"{nframe * scale / r['wall']:.4g} whole, "
+                     f"{steady * scale:.4g} steady "
+                     f"({1e3 * per_out / steady:.2f} ms an output), peak "
+                     f"{r['peak'] / 2**30:.2f} GiB")
+    phase("fusion", f"{tag}: {fusion_report_line(runs[0]['report'])}")
+    phase("fusion", f"{tag}: {nframe} frames, {unit} (whole run; steady "
+          f"from the first output to the last), in turns: "
+          f"{'; '.join(rates)}; launches equal fused and unfused: "
+          f"{ref['counts']}; outputs equal: every run bitwise the first "
+          f"unfused run's")
+    for r in runs[:2]:
+        phase("fusion", f"{tag}: host seconds by block and phase, "
+              f"{'fused' if r['fused'] else 'unfused'}: "
+              f"{json.dumps(r['perf'])}")
+    return runs[0]["counts"]
+
+
+def equal_arrays(a, b):
+    if len(a) != len(b) or not len(a):
+        raise AssertionError(f"{len(a)} outputs against {len(b)}")
+    for x, y in zip(a, b):
+        x, y = (t.cpu().numpy() if isinstance(t, torch.Tensor) else t
+                for t in (x, y))
+        if x.shape != y.shape or not np.isfinite(x).all() or \
+                not np.array_equal(x.view(np.uint8), y.view(np.uint8)):
+            raise AssertionError("fused != unfused")
+
+
+def fusion_path(dev, kind, volt):
+    """The four chains the reference fuses by default, fused and unfused
+    in turns (module docstring, phase 11).  `volt`: [dq]'s voltages.
+    -> the kernels' launch counts of each chain's first fused run."""
+    from bifrost_tpu_torch.service import lwa_beam_search_pipeline
+    nsp = NSTAND * NPOL
+    counts = {}
+
+    def bsearch(fused):
+        got = {"dedispersed": Stamped()}
+        pipe = lwa_beam_search_pipeline(
+            volt, nstand=NSTAND, npol=NPOL, nchan=BCHAN, ntap=NTAP,
+            n_int=N_INT, nbeam=NBEAM, max_delay=B_MAX_DELAY, f0_mhz=B_F0,
+            dt_s=B_DT, gulp_nframe=B_GULP, device=dev, gather=got,
+            fuse=fused)[0]
+        return pipe, got["dedispersed"]
+
+    counts["fusion_bsearch"] = fusion_chain(
+        dev, "beam search", bsearch, len(volt), B_GULP,
+        "station-pol samples/s", nsp, equal_arrays)
+    # A fused group runs its H2D head and its stages on one stream, so
+    # a gulp's copy no longer overlaps the gulp before's compute: one
+    # gulp's pinned H2D, the time that exposes.
+    src = torch.from_numpy(volt[:B_GULP]).pin_memory()
+    dst = torch.empty(src.shape, dtype=src.dtype, device=dev)
+    phase("fusion", f"one beam-search gulp's H2D ({src.numel() / 2**20:.0f}"
+          f" MiB, pinned): "
+          f"{cuda_time(lambda: dst.copy_(src, non_blocking=True), 10):.3f} "
+          f"ms")
+    del src, dst
+
+    gains = (0.5 + np.random.default_rng(SEED + 8).random(NSTAND) +
+             0.3j * np.random.default_rng(SEED + 9).standard_normal(
+                 NSTAND)).astype(np.complex64)
+
+    def dq(fused):
+        got = {"dedispersed": Stamped()}
+        pipe = dq_chain(dev, volt, gains, gather=got, fuse=fused)[0]
+        return pipe, got["dedispersed"]
+
+    counts["fusion_dq"] = fusion_chain(
+        dev, "DQ beam search", dq, len(volt), B_GULP,
+        "station-pol samples/s", nsp, equal_arrays)
+
+    short = volt[:FX_NINT * B_GULP]
+
+    def instr(fused):
+        imgs = Images(FX_KEEP)
+        pipe = instrument(dev, short, gather={"dedispersed": []},
+                          on_image=imgs, fuse=fused)[0]
+        return pipe, imgs
+
+    counts["fusion_instrument"] = fusion_chain(
+        dev, f"instrument ({FX_NINT} integrations)", instr, len(short),
+        B_GULP, "station-pol samples/s", nsp,
+        lambda a, b: images_equal(a, b, FX_KEEP))
+
+    rng = np.random.default_rng(0)
+    for g in (GS_FLAGSHIP, GS_GUPPI):
+        gv = gs_voltages(g, rng)
+        src = gv if len(gv) == g["nframe"] else np.concatenate(
+            [gv] * (g["nframe"] // len(gv)))
+
+        def spectro(fused):
+            import bifrost_tpu_torch as bt
+            from bifrost_tpu_torch.blocks import array_source, callback_sink
+            outs = Stamped()
+
+            def keep(t):
+                outs.append(t.clone())
+                torch.cuda.current_stream().synchronize()
+                outs.stamps[-1] = time.perf_counter()
+
+            with bt.Pipeline(device=dev) as pipe:
+                bc = bt.BlockChainer()
+                gs_chain(bc, g, lambda b: b.custom(array_source)(
+                    src, 1, header={
+                        "dtype": "ci8",
+                        "labels": ["time", "freq", "fine_time", "pol"]}),
+                    fused)
+                bc.custom(callback_sink)(on_data=keep)
+            return pipe, outs
+
+        c = fusion_chain(
+            dev, f"gpuspec {g['name']}", spectro, g["nframe"], g["n_int"],
+            "samples/s", g["nchan"] * g["ntime"] * g["npol"], equal_arrays)
+        if any(c.values()):
+            raise AssertionError(f"gpuspec launched hand kernels: {c}")
+        counts[f"fusion_gpuspec_{g['name']}"] = c
+        del gv, src
+        free_device()
+    return counts
+
+
 def gs_voltages(g, rng):
     """`g['ndistinct']` frames of ci8 voltages in storage form, (frame,
     chan, time, pol, (re, im)) int8: for the flagship the values of
@@ -1775,18 +1985,23 @@ def gs_bound(nfreq, f_avg, want):
         np.abs(want).max()
 
 
-def gs_chain(bc, g, head):
-    """The testbench chain after its source, unfused, on the port's
-    BlockChainer (copy('cuda') for copy('tpu'))."""
+def gs_chain(bc, g, head, fuse=False):
+    """The testbench chain after its source on the port's BlockChainer
+    (copy('cuda') for copy('tpu')): unfused, or with `fuse` its device
+    blocks in `block_scope(fuse=True)` as testbench/gpuspec_simple.py:
+    89-98 builds them."""
+    import contextlib
+    import bifrost_tpu_torch as bt
     head(bc)
-    bc.blocks.copy("cuda")
-    bc.blocks.transpose(["time", "pol", "freq", "fine_time"])
-    bc.blocks.fft(axes="fine_time", axis_labels="fine_freq",
-                  apply_fftshift=True)
-    bc.blocks.detect(mode="stokes")
-    bc.views.merge_axes("freq", "fine_freq", label="freq")
-    bc.blocks.reduce("freq", g["f_avg"])
-    bc.blocks.accumulate(g["n_int"])
+    with bt.block_scope(fuse=True) if fuse else contextlib.nullcontext():
+        bc.blocks.copy("cuda")
+        bc.blocks.transpose(["time", "pol", "freq", "fine_time"])
+        bc.blocks.fft(axes="fine_time", axis_labels="fine_freq",
+                      apply_fftshift=True)
+        bc.blocks.detect(mode="stokes")
+        bc.views.merge_axes("freq", "fine_freq", label="freq")
+        bc.blocks.reduce("freq", g["f_avg"])
+        bc.blocks.accumulate(g["n_int"])
 
 
 def gs_file_run(dev, g, raw, outdir, staged):
@@ -1817,11 +2032,12 @@ def gs_file_run(dev, g, raw, outdir, staged):
         return f.read(), snk.staged, snk._egress_drained_gulps, wall
 
 
-def gs_framework_run(dev, g, volt):
+def gs_framework_run(dev, g, volt, fuse=False):
     """(c): bench.py's run_framework shape, array_source -> ... ->
-    callback_sink on the card; the sink keeps each integrated spectrum
-    on the card and waits for it (the back-pressure of a dump).  ->
-    (outputs, stamps, wall s, peak bytes, host s by block and phase)."""
+    callback_sink on the card (fused with `fuse`); the sink keeps each
+    integrated spectrum on the card and waits for it (the back-pressure
+    of a dump).  -> (outputs, stamps, wall s, peak bytes, host s by
+    block and phase)."""
     import bifrost_tpu_torch as bt
     from bifrost_tpu_torch.blocks import array_source, callback_sink
     src_data = volt if len(volt) == g["nframe"] else np.concatenate(
@@ -1840,7 +2056,7 @@ def gs_framework_run(dev, g, volt):
         gs_chain(bc, g, lambda b: b.custom(array_source)(
             src_data, 1, header={
                 "dtype": "ci8",
-                "labels": ["time", "freq", "fine_time", "pol"]}))
+                "labels": ["time", "freq", "fine_time", "pol"]}), fuse)
         bc.custom(callback_sink)(on_data=keep)
         t0 = time.perf_counter()
         pipe.run()
@@ -2312,6 +2528,9 @@ def main():
     free_device()
     t5 = time.perf_counter()
     counts["dq"] = dq_path(dev, volt, spec)
+    free_device()
+    t5b = time.perf_counter()
+    counts.update(fusion_path(dev, kind, volt))
     del volt, spec
     free_device()
     t6 = time.perf_counter()
@@ -2323,7 +2542,8 @@ def main():
     phase("timing", f"build {secs:.1f} s, kernels {t1 - t0:.1f} s, main "
           f"{t2 - t1:.1f} s, frbflag {t3 - t2:.1f} s, bengine "
           f"{t4 - t3:.1f} s, instrument {t5 - t4:.1f} s, dq "
-          f"{t6 - t5:.1f} s, gpuspec {t7 - t6:.1f} s, egress "
+          f"{t5b - t5:.1f} s, fusion {t6 - t5b:.1f} s, gpuspec "
+          f"{t7 - t6:.1f} s, egress "
           f"{time.perf_counter() - t7:.1f} s")
     by_path = {name: {path: c[name] for path, c in counts.items()}
                for name in kernel_counters()}

@@ -71,11 +71,13 @@ def _jax_chain(volt, w):
 
 
 def _port_chain(volt, gulp=GULP, **kwargs):
+    # The unfused chain, the JAX chain's topology (test_torch_fusion.py
+    # holds the fused one).
     g = {"beams": [], "dedispersed": []}
     pipe, det, ledger = lwa_beam_search_pipeline(
         volt, nstand=NSTAND, npol=NPOL, nchan=NCHAN, ntap=NTAP, n_int=N_INT,
         nbeam=NBEAM, max_delay=MAX_DELAY, f0_mhz=F0, dt_s=DT,
-        gulp_nframe=gulp, device="cpu", gather=g, **kwargs)
+        gulp_nframe=gulp, device="cpu", gather=g, fuse=False, **kwargs)
     pipe.run()
     return dict(g, det=det, ledger=ledger, pipe=pipe)
 

@@ -699,3 +699,75 @@ def test_gpuspec_chain_cuda_matches_cpu(cuda, tmp_path):
     atol = 32 * np.finfo(np.float32).eps * np.sqrt(a.shape[-1] * f_avg) * \
         np.abs(b).max()
     assert np.isfinite(a).all() and np.abs(a - b).max() <= atol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tail", [False, True])
+def test_fused_group_span_reuse_under_fused_async(cuda, monkeypatch, tail):
+    """A fused copy -> transpose -> reduce group (with `tail`, ending in
+    an accumulate, whose gulps then run on the group's worker under
+    fused_async) reads a pinned host ring of buffer factor 2 for 64
+    gulps of seeded patterns, each gulp's H2D copy held back on the
+    group's stream by a sleep kernel of some 5 ms queued before it:
+    every output equals its source.  The group copies a pinned span in
+    place, so it holds the span until the copy's event; were it
+    released at once, the source would overwrite it while the copy
+    waits, and the gulp would carry a later gulp's pattern."""
+    import bifrost_tpu_torch as bt
+    from bifrost_tpu_torch import config
+    from bifrost_tpu_torch.blocks.copy import CopyBlock
+    from bifrost_tpu_torch.pipeline import Pipeline, SourceBlock
+    ngulp, shape = 64, (64, 4096)
+    real = CopyBlock._h2d
+
+    def held_back(self, src, dst):
+        torch.cuda._sleep(10_000_000)        # cycles on the group's stream
+        return real(self, src, dst)
+
+    monkeypatch.setattr(CopyBlock, "_h2d", held_back)
+
+    def pattern(i):
+        return np.random.default_rng(1000 + i).integers(
+            0, 1000, (1,) + shape).astype(np.float32)
+
+    class Source(SourceBlock):
+        def create_reader(self, name):
+            import contextlib
+            self.i = 0
+            return contextlib.nullcontext(self)
+
+        def on_sequence(self, reader, name):
+            return [{"name": name, "_tensor": {
+                "dtype": "f32", "shape": [-1, *shape],
+                "labels": ["time", "a", "b"]}}]
+
+        def on_data(self, reader, ospans):
+            if self.i == ngulp:
+                return [0]
+            ospans[0].data.copy_(torch.from_numpy(pattern(self.i)))
+            self.i += 1
+            return [1]
+
+    got = []
+    assert config.get("fused_async")
+    with Pipeline(device=cuda) as pipe:
+        src = Source(["host"], 1, space="cuda_host", buffer_factor=2)
+        with bt.block_scope(fuse=True):
+            d = bt.blocks.copy(src, space="cuda")
+            t = bt.blocks.transpose(d, ["time", "b", "a"])
+            out = bt.blocks.reduce(t, "a", op="sum")
+            if tail:
+                out = bt.blocks.accumulate(out, 2)
+        bt.blocks.gather_sink(out, got)
+        pipe.run()
+        rep = pipe.fusion_report()
+    assert len(rep["groups"]) == 1 and \
+        len(rep["groups"][0]["constituents"]) == 3 + tail
+    want = [pattern(i).sum(axis=1).reshape(1, shape[1], 1)
+            for i in range(ngulp)]
+    if tail:
+        want = [want[i] + want[i + 1] for i in range(0, ngulp, 2)]
+    assert len(got) == len(want)
+    bad = [i for i, (a, b) in enumerate(zip(got, want))
+           if not np.array_equal(np.asarray(a), b)]
+    assert not bad, f"gulps {bad} differ from their source"

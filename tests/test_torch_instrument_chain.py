@@ -82,7 +82,8 @@ def _port(volt, **kwargs):
     gather = {"beams": [], "dedispersed": []}
     pipe, det, ledger = lwa_instrument_pipeline(
         volt, device="cpu", on_image=lambda d: images.append(d.numpy().copy()),
-        on_candidate=cands.append, gather=gather, **GEOM, **kwargs)
+        on_candidate=cands.append, gather=gather, fuse=False, **GEOM,
+        **kwargs)
     pipe.run()
     return dict(gather, images=images, candidates=cands, ledger=ledger,
                 det=det, pipe=pipe)
@@ -143,7 +144,8 @@ def test_b_branch_candidates_and_ledger_match_jax(runs):
     # the B branch, fanned out beside the X branch, is the beam search
     g = {"beams": [], "dedispersed": []}
     geom = {k: v for k, v in GEOM.items() if k != "ngrid"}
-    lwa_beam_search_pipeline(volt, device="cpu", gather=g, **geom)[0].run()
+    lwa_beam_search_pipeline(volt, device="cpu", gather=g, fuse=False,
+                             **geom)[0].run()
     for key in ("beams", "dedispersed"):
         assert len(p[key]) == len(g[key]) > 0
         for a, b in zip(p[key], g[key]):
