@@ -54,6 +54,24 @@ def _validate_chunk_nbyte(value):
             f"integer >= 4096 bytes, got {value!r}")
 
 
+def _validate_nonneg_int(name, value):
+    if not isinstance(value, int) or isinstance(value, bool) or value < 0:
+        raise ValueError(f"{name} must be a non-negative integer, "
+                         f"got {value!r}")
+
+
+def _validate_ge_one(name, value):
+    if not isinstance(value, (int, float)) or isinstance(value, bool) or \
+            value < 1.0:
+        raise ValueError(f"{name} must be a number >= 1, got {value!r}")
+
+
+def _validate_pos_float(name, value):
+    if not isinstance(value, (int, float)) or isinstance(value, bool) or \
+            not value > 0:
+        raise ValueError(f"{name} must be a positive number, got {value!r}")
+
+
 FLAGS = {f.name: f for f in [
     Flag("fdmt_method", "auto",
          "Default FDMT executor: 'auto'/'cuda' (the merge step runs on "
@@ -120,6 +138,25 @@ FLAGS = {f.name: f for f in [
          "frame-aligned pieces of at most this size; a pooled gulp is one "
          "copy.  0 stages whole gulps.  Latched per sequence.",
          validate=_validate_chunk_nbyte),
+    Flag("service_degrade_margin", 1,
+         "Service degraded-mode trigger: when a supervised stage's "
+         "remaining restart budget (within its sliding window) drops to "
+         "this value or below, the service degrades (detect-threshold "
+         "raise, optional gulp shedding) instead of riding the budget "
+         "into a SupervisorEscalation.  0 degrades only on the last "
+         "restart.",
+         validate=lambda v: _validate_nonneg_int("service_degrade_margin",
+                                                 v)),
+    Flag("service_degrade_detect_factor", 2.0,
+         "Multiplier applied to candidate-detection thresholds while a "
+         "service runs degraded (restored on recovery).  Must be >= 1.",
+         validate=lambda v: _validate_ge_one(
+             "service_degrade_detect_factor", v)),
+    Flag("service_health_interval_s", 2.0,
+         "Seconds between service health-snapshot pushes to the "
+         "<pipeline>/service ProcLog.",
+         validate=lambda v: _validate_pos_float(
+             "service_health_interval_s", v)),
 ]}
 
 

@@ -43,8 +43,12 @@ the JAX package's host form).
 Staging buffers on a CUDA pipeline are pinned (`torch.empty(...,
 pin_memory=True)`): a failure to pin raises, there is no fallback to
 pageable memory.  A staging fault surfaces on the block thread at the
-next in-order handoff and fails the run; the gulps staged before it are
-still emitted at the sequence-end drain.
+next in-order handoff and fails the run (or, supervised, restarts the
+sink); the gulps staged before it are still emitted at the sequence-end
+drain.  The fault-injection sites `egress.stage` / `egress.drain`
+(faultinject.py) fire on the sink's thread just before a gulp is handed
+to / retired from the stager, and the stager's counters go to the
+`<sink>/egress` ProcLog at each sequence end.
 """
 
 from __future__ import annotations
@@ -61,6 +65,7 @@ from . import config
 from . import device as _device
 from .ndarray import complex_view
 from .pipeline import SinkBlock, _GulpDispatcher
+from .proclog import ProcLog
 from .ring import RingInterrupted
 
 __all__ = ["EgressStager", "EgressTicket", "EgressDest", "DeviceSinkBlock"]
@@ -412,6 +417,8 @@ class DeviceSinkBlock(SinkBlock):
         self._egress_pending = []     # staged, not yet drained, in order
         self._egress_staging = False
         self._egress_drained_gulps = 0
+        self._egress_fault_hook = None   # fault injection (faultinject.py)
+        self.egress_proclog = ProcLog(f"{self.name}/egress")
 
     # -- subclass interface
     def on_sink_sequence(self, iseq):
@@ -435,6 +442,8 @@ class DeviceSinkBlock(SinkBlock):
         return self.iring.space == "cuda"
 
     def _bind_worker(self):
+        # The stager's worker counts as one of the sink's threads.
+        self._thread_idents.add(threading.get_ident())
         _device.set_device(self.device)
 
     def on_sequence(self, iseq):
@@ -464,6 +473,9 @@ class DeviceSinkBlock(SinkBlock):
             self.on_sink_data(_blocking_materialize(ispan),
                               ispan.frame_offset)
             return
+        hook = self._egress_fault_hook
+        if hook is not None:
+            hook("egress.stage", self)
         tensor, nframe = ispan.tensor, ispan.nframe
         data = ispan.data
         t0 = time.perf_counter()
@@ -485,6 +497,9 @@ class DeviceSinkBlock(SinkBlock):
             self._drain_one_egress()
 
     def _drain_one_egress(self):
+        hook = self._egress_fault_hook
+        if hook is not None:
+            hook("egress.drain", self)
         ticket = self._egress_pending[0]
         ticket.wait(abort=lambda: self.pipeline.shutdown_requested)
         self._egress_pending.pop(0)
@@ -521,7 +536,28 @@ class DeviceSinkBlock(SinkBlock):
         # propagates, a collateral egress fault must not mask it.
         propagating = sys.exc_info()[0] is not None
         self._flush_egress(emit=True, raise_exc=not propagating)
-        self.on_sink_sequence_end(iseqs[0] if iseqs else None)
+        try:
+            self.on_sink_sequence_end(iseqs[0] if iseqs else None)
+        finally:
+            self._update_egress_proclog()
+
+    def _update_egress_proclog(self):
+        """The stager's counters (bifrost_tpu/egress.py:662-675)."""
+        e = self._egress
+        self.egress_proclog.update({
+            "staging": int(self._egress_staging),
+            "depth": e.depth if e is not None else 0,
+            "chunk_nbyte": e.chunk_nbyte if e is not None else 0,
+            "staged_gulps": e.staged_gulps if e is not None else 0,
+            "staged_bytes": e.staged_bytes if e is not None else 0,
+            "drained_gulps": self._egress_drained_gulps,
+            "pool_allocs": e.pool.allocated if e is not None else 0,
+        })
+
+    def _async_queue_depth(self):
+        """Staged gulps not yet retired: the in-flight work a bounded
+        quiesce reports as `queued_gulps` for this sink."""
+        return len(self._egress_pending) if self._egress_staging else None
 
     def main(self):
         try:

@@ -61,11 +61,24 @@ are never given.  The port has no strict-sync mode, so ``strict_sync``
 is never given either.
 
 Every block the planner considered and did not fuse carries its reason
-(``REASONS``); ``Pipeline.fusion_report()`` returns the plan.
+(``REASONS``); ``Pipeline.fusion_report()`` returns the plan, and
+:func:`apply` publishes it on the ``<pipeline>/fusion_plan`` ProcLog.
+
+Supervision (bifrost_tpu/fuse.py:95-105): a group's supervise events
+carry its ``constituents``; a constituent ``on_sequence`` fault names
+the stage; a fault point armed on a constituent's name fires on the
+group (faultinject.py); a bounded quiesce reports the group with its
+constituents; and a supervised restart re-runs the group's
+``on_sequence``, which resets every carry and the carried integration.
+A fault on the group's ``fused_async`` worker surfaces on the group's
+thread at its next hand-off and restarts the group: the worker finishes
+the item it runs, the items behind it are dropped (their span holds let
+go, as they read nothing), and the surfaced exception is cleared.
 """
 
 from __future__ import annotations
 
+import json
 import warnings
 
 from .pipeline import FusedTransformBlock
@@ -170,9 +183,22 @@ class FusionPlan(object):
         }
 
     def publish(self):
-        """The JAX plan flattens itself onto a ProcLog channel; the port
-        has no proclog yet (ROADMAP A3), so this does nothing and the
-        plan is read through ``Pipeline.fusion_report()``."""
+        """Flatten onto the ``<pipeline>/fusion_plan`` ProcLog, with the
+        JAX plan's keys (``mesh_defer_reduce`` is 0: no mesh rule)."""
+        from .proclog import ProcLog
+        entry = {
+            "pipeline_fuse": int(self.flags["pipeline_fuse"]),
+            "mesh_defer_reduce": 0,
+            "groups": len(self.groups),
+            "ring_hops_eliminated": self.ring_hops_eliminated,
+            "refused": json.dumps(self.refused),
+        }
+        for i, g in enumerate(self.groups):
+            entry[f"group{i}"] = json.dumps(
+                {"name": g["name"], "rule": g["rule"],
+                 "constituents": g["constituents"],
+                 "ring_hops_eliminated": g["ring_hops_eliminated"]})
+        ProcLog(f"{self.pipeline_name}/fusion_plan").update(entry)
 
 
 # ----------------------------------------------------- device-chain rule

@@ -16,6 +16,17 @@ replaces each maximal run of fuse-scoped device blocks
 (`block_scope(fuse=True)`) with one `FusedTransformBlock`;
 `Pipeline.fusion_report()` returns its decisions.
 
+Supervision (supervise.py): `Pipeline.run(supervise=...)` attaches a
+Supervisor; every block then stamps `_heartbeat` once a gulp, a
+supervised block that faults is torn down and restarted per its policy
+(`_supervised_sequence`, the source's restart loop), and a source may
+shed or refuse load under back-pressure (`SourceBlock(on_overrun=)`).
+With `supervise=None` a block error still shuts the pipeline down.
+`shutdown(timeout=)` is the bounded quiesce, returning a `DrainReport`;
+`quiesce_block` stops one block at a gulp edge.  Each block writes its
+`bind`, `in`, `out`, `sequence0` and (at most every
+`proclog.PERF_FLUSH_S`) `perf` logs (proclog.py).
+
 Device handling: a pipeline runs on one torch device, the card unless
 the caller passes ``device='cpu'``; with no card and no device named,
 `Pipeline()` raises.  Each block thread runs on its own CUDA stream.
@@ -36,17 +47,67 @@ import time
 import torch
 
 from . import device as _device
+from .proclog import PERF_FLUSH_S, ProcLog
 from .ring import (EndOfDataStop, ReadSequence, Ring, RingInterrupted,
                    TensorInfo)
 
 __all__ = ["Pipeline", "get_default_pipeline", "block_scope", "BlockScope",
            "Block", "SourceBlock", "SinkBlock", "TransformBlock",
            "MultiTransformBlock", "PipelineInitError", "RingView",
-           "SequenceView", "block_view"]
+           "SequenceView", "block_view", "DrainReport", "OverrunError"]
 
 
 class PipelineInitError(RuntimeError):
     pass
+
+
+class OverrunError(RuntimeError):
+    """A source with on_overrun='fail' hit downstream back-pressure."""
+
+
+class DrainReport(object):
+    """Outcome of a bounded quiesce (`Pipeline.shutdown(timeout=)`),
+    bifrost_tpu/pipeline.py:44-100.
+
+    `blocks` maps block name -> {"outcome", "wait_s"[, "queued_gulps"]
+    [, "constituents"]}: "drained" (exited in the cooperative window),
+    "interrupted" (exited after the deadline's interrupts), "wedged"
+    (still running when the quiesce returned; its daemon thread is
+    abandoned).  "queued_gulps" counts a straggler's gulps in flight on
+    its worker or egress stager at the deadline; a fused group lists its
+    "constituents"."""
+
+    def __init__(self, timeout):
+        self.timeout = float(timeout)
+        self.started = time.monotonic()
+        self.elapsed_s = None
+        self.blocks = {}
+
+    def _record(self, name, outcome, queued=None, constituents=None):
+        entry = {"outcome": outcome,
+                 "wait_s": round(time.monotonic() - self.started, 3)}
+        if queued is not None:
+            entry["queued_gulps"] = queued
+        if constituents:
+            entry["constituents"] = list(constituents)
+        self.blocks[name] = entry
+
+    @property
+    def clean(self):
+        """Every block drained cooperatively."""
+        return all(v["outcome"] == "drained" for v in self.blocks.values())
+
+    @property
+    def wedged(self):
+        return [name for name, v in self.blocks.items()
+                if v["outcome"] == "wedged"]
+
+    def as_dict(self):
+        return {"timeout_s": self.timeout, "elapsed_s": self.elapsed_s,
+                "clean": self.clean, "blocks": dict(self.blocks)}
+
+    def __repr__(self):
+        return f"DrainReport({self.as_dict()!r})"
 
 
 _tls = threading.local()
@@ -145,10 +206,17 @@ class Pipeline(BlockScope):
         self.blocks = []
         self.rings = []
         self._shutdown_event = threading.Event()
+        self._quiesce_event = threading.Event()
+        self._quiesce_lock = threading.Lock()
         self._init_queue = queue.Queue()
         self._all_initialized = threading.Event()
         self._threads = []
         self._fusion_plan = None
+        self.drain_report = None
+        # The Supervisor of a supervised run, for a controller thread
+        # (service.py) to read while run() blocks; None when fail-fast.
+        self.supervisor = None
+        self.proclog = ProcLog(f"{self.pname}/info")
 
     def __enter__(self):
         _default_pipelines.append(self)
@@ -192,41 +260,166 @@ class Pipeline(BlockScope):
             self._fuse_device_chains()
         return self._fusion_plan.report()
 
-    def run(self):
+    def run(self, supervise=None):
         """Fuse the device chains, then run every block on its own thread
-        until the sources end and the end of data has flowed through;
-        re-raise the first block error."""
-        self._fuse_device_chains()
-        self._threads = []
-        for b in self.blocks:
-            t = threading.Thread(target=b._run, name=b.name, daemon=True)
-            b._thread = t
-            self._threads.append(t)
-            t.start()
-        try:
-            self.synchronize_block_initializations()
-        finally:
-            for t in self._threads:
-                while t.is_alive():
-                    t.join(timeout=0.25)
-                    if self._shutdown_event.is_set():
-                        t.join(timeout=5.0)
-                        break
-        errs = [b for b in self.blocks if b.error is not None]
-        if errs:
-            raise errs[0].error
+        until the sources end and the end of data has flowed through.
 
-    def shutdown(self):
-        """Stop the pipeline: interrupt every ring so blocked blocks
-        exit; whatever the rings buffer is abandoned."""
+        `supervise`: None (fail-fast: the first block error shuts the
+        pipeline down and is re-raised here), a `supervise.RestartPolicy`
+        (every block restarts per that policy, the watchdog at its
+        defaults) or a `supervise.Supervisor`; a supervised run that
+        escalates raises its `SupervisorEscalation`."""
+        self._fuse_device_chains()
+        supervisor = None
+        if supervise is not None:
+            from .supervise import Supervisor
+            supervisor = supervise if isinstance(supervise, Supervisor) \
+                else Supervisor(policy=supervise)
+            supervisor.attach(self)      # after fusion: the final blocks
+            self.supervisor = supervisor
+        try:
+            self._threads = []
+            for b in self.blocks:
+                t = threading.Thread(target=b._run, name=b.name,
+                                     daemon=True)
+                b._thread = t
+                self._threads.append(t)
+                t.start()
+            # The watchdog starts before the init barrier: a block wedged
+            # in its first sequence's set-up is then seen too.
+            if supervisor is not None:
+                supervisor.start()
+            try:
+                self.synchronize_block_initializations()
+            finally:
+                for t in self._threads:
+                    while t.is_alive():
+                        t.join(timeout=0.25)
+                        if self._shutdown_event.is_set():
+                            t.join(timeout=5.0)
+                            break
+            if supervisor is not None:
+                supervisor.stop()
+                if supervisor.failure is not None:
+                    raise supervisor.failure
+            errs = [b for b in self.blocks if b.error is not None]
+            if errs:
+                raise errs[0].error
+        finally:
+            if supervisor is not None:
+                supervisor.stop()
+
+    def shutdown(self, timeout=None, join_grace=1.0):
+        """Stop the pipeline.
+
+        With no `timeout`: interrupt every ring (a broadcast generation)
+        and run the blocks' `on_shutdown` hooks; whatever the rings hold
+        is abandoned.  -> None.
+
+        With `timeout` (seconds), the bounded quiesce: (a) sources end
+        their sequences at the next gulp edge, (b) the end of data drains
+        downstream while every block thread is joined until the deadline,
+        (c) stragglers then get the interrupts above, (d) and `join_grace`
+        seconds more.  -> a `DrainReport`; it returns within timeout +
+        join_grace and scheduling slack, from any thread."""
+        if timeout is not None:
+            return self._quiesce(float(timeout), float(join_grace))
         self._shutdown_event.set()
         self._all_initialized.set()
         for ring in self.rings:
             ring.interrupt()
+        for b in self.blocks:
+            hook = getattr(b, "on_shutdown", None)
+            if hook is not None:
+                try:
+                    hook()
+                except Exception:  # noqa: BLE001 — best effort on shutdown
+                    pass
+        return None
+
+    def _quiesce(self, timeout, join_grace):
+        with self._quiesce_lock:
+            report = DrainReport(timeout)
+            deadline = report.started + timeout
+            self._quiesce_event.set()          # (a) sources only
+
+            def names(b):
+                return getattr(b, "constituent_names", None)
+
+            pending = [b for b in self.blocks
+                       if b._thread is not None and b._thread.is_alive()]
+            for b in self.blocks:
+                if b not in pending:
+                    report._record(b.name, "drained", constituents=names(b))
+            while pending:                     # (b)
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                pending[0]._thread.join(timeout=min(0.05, remaining))
+                still = []
+                for b in pending:
+                    if b._thread.is_alive():
+                        still.append(b)
+                    else:
+                        report._record(b.name, "drained",
+                                       constituents=names(b))
+                pending = still
+            if pending:                        # (c), (d)
+                queued = {b.name: b._async_queue_depth() for b in pending}
+                self.shutdown()
+                grace = time.monotonic() + join_grace
+                for b in pending:
+                    b._thread.join(timeout=max(0.0,
+                                               grace - time.monotonic()))
+                for b in pending:
+                    report._record(
+                        b.name, "wedged" if b._thread.is_alive()
+                        else "interrupted", queued=queued.get(b.name),
+                        constituents=names(b))
+            # The pipeline is down either way: release a run() still at
+            # the init barrier (a source stopped before its first
+            # sequence never reports).
+            self._shutdown_event.set()
+            self._all_initialized.set()
+            report.elapsed_s = round(time.monotonic() - report.started, 3)
+            self.drain_report = report
+            return report
+
+    def quiesce_block(self, block, timeout=5.0, join_grace=1.0):
+        """Stop one block at a gulp edge (bifrost_tpu/pipeline.py:
+        525-572): its sequence loops exit and end their output
+        sequences, not its output rings' writing.  Past `timeout` the
+        block's rings get one interrupt generation each, aimed at it, and
+        acknowledged after the join.  -> "drained", "interrupted" or
+        "wedged" (still running: it must not be replaced)."""
+        block._splice_stop = True
+        t = block._thread
+        if t is None or not t.is_alive():
+            return "drained"
+        deadline = time.monotonic() + float(timeout)
+        while t.is_alive() and time.monotonic() < deadline:
+            t.join(timeout=0.05)
+        if not t.is_alive():
+            return "drained"
+        gens = []
+        for r in list(block.irings) + list(block.orings):
+            base = getattr(r, "base_ring", r)
+            gens.append((base, base.interrupt(target=block._intr_token)))
+        grace = time.monotonic() + float(join_grace)
+        while t.is_alive() and time.monotonic() < grace:
+            t.join(timeout=0.05)
+        for base, gen in gens:
+            base.ack_interrupt(gen)
+        return "wedged" if t.is_alive() else "interrupted"
 
     @property
     def shutdown_requested(self):
         return self._shutdown_event.is_set()
+
+    @property
+    def quiesce_requested(self):
+        """True once a bounded shutdown asked the sources to wind down."""
+        return self._quiesce_event.is_set()
 
 
 class Block(BlockScope):
@@ -247,7 +440,6 @@ class Block(BlockScope):
         self.name = name
         self.type = type_
         self.error = None
-        self._thread = None
         self._init_reported = False
         self._held_latches = []
         # Cumulative host seconds per loop phase (acquire = waiting for
@@ -255,11 +447,48 @@ class Block(BlockScope):
         # to the commit-ready point, commit).  Device work is
         # asynchronous: `process` counts its enqueue, not its run.
         self.perf_totals = {}
+        self._init_supervision_state()
         # Inputs may be Rings or other Blocks (their first output ring).
         self.irings = [i.orings[0] if isinstance(i, Block) else i
                        for i in irings]
         self.orings = []
         self.pipeline.blocks.append(self)
+        self._init_proclogs()
+
+    def _init_supervision_state(self):
+        """Supervision bookkeeping (supervise.py); None/False is the
+        fail-fast default.  Shared with FusedTransformBlock, which skips
+        Block.__init__."""
+        self._supervisor = None
+        self._intr_token = 0         # interrupt target token (attach)
+        self._heartbeat = None
+        self._deadman_fired = False
+        self._thread = None
+        self._thread_ident = None
+        # The block thread and its worker threads (fused groups, egress):
+        # supervision and fault injection attribute a thread to its block
+        # through this set.
+        self._thread_idents = set()
+        self._thread_done = False
+        self._splice_stop = False    # quiesce_block: exit at a gulp edge
+        # True inside a restartable sequence; a deadman landing outside
+        # one (waiting for the next input sequence) is absorbed in place.
+        self._supervised_region = False
+        self._loop_frame = 0         # input frame of the gulp in hand
+        self._loop_gulp = None
+        self._perf_flush_t = 0.0
+
+    def _init_proclogs(self):
+        """The block's logs (bifrost_tpu/pipeline.py:651-661); the input
+        log names the base rings, so tools can join the graph."""
+        self.bind_proclog = ProcLog(f"{self.name}/bind")
+        self.in_proclog = ProcLog(f"{self.name}/in")
+        self.out_proclog = ProcLog(f"{self.name}/out")
+        self.sequence_proclog = ProcLog(f"{self.name}/sequence0")
+        self.perf_proclog = ProcLog(f"{self.name}/perf")
+        self.in_proclog.update({
+            f"ring{i}": getattr(getattr(r, "base_ring", r), "name", "?")
+            for i, r in enumerate(self.irings)})
 
     def create_ring(self, space="system"):
         ring = Ring(space=space, name=f"{self.name}.out{len(self.orings)}",
@@ -277,6 +506,17 @@ class Block(BlockScope):
 
     def _run(self):
         try:
+            self._thread_ident = threading.get_ident()
+            self._thread_idents.add(self._thread_ident)
+            # No core affinity in the port: core -1, as the JAX package
+            # logs an unbound block.
+            self.bind_proclog.update({"core": -1,
+                                      "device": str(self.device)})
+            if self.orings:
+                self.out_proclog.update({
+                    f"ring{i}": getattr(getattr(r, "base_ring", r),
+                                        "name", "?")
+                    for i, r in enumerate(self.orings)})
             _device.set_device(self.device)
             with _device.block_stream(self.device):
                 self.main()
@@ -288,11 +528,57 @@ class Block(BlockScope):
             self.mark_initialized(ok=False, err=e)
             self.pipeline.shutdown()
         finally:
+            # A finished block's heartbeat freezes: the watchdog must not
+            # deadman it.
+            self._thread_done = True
             self._release_flag_latches()
             self.mark_initialized()   # unblock the barrier on early exit
 
     def main(self):
         raise NotImplementedError
+
+    # -- supervision seams
+    def owns_thread(self, ident):
+        """Is `ident` this block's thread or one of its workers?"""
+        return ident == self._thread_ident or ident in self._thread_idents
+
+    def _async_queue_depth(self):
+        """Gulps in flight on this block's worker, or None without one."""
+        d = getattr(self, "_dispatcher", None)
+        return d.inflight() if d is not None else None
+
+    def _supervised_resume(self, exc):
+        """Ask the supervisor, if any, to absorb a fault: -> the input
+        frame to resume the sequence at, or None to propagate."""
+        sup = self._supervisor
+        if sup is None:
+            return None
+        return sup.on_block_fault(self, exc)
+
+    def _gulp_done(self, t_end, instant):
+        """After each gulp: the heartbeat, the throttled perf log and the
+        supervisor's progress note."""
+        self._heartbeat = time.monotonic()
+        if t_end - self._perf_flush_t > PERF_FLUSH_S:
+            self._perf_flush_t = t_end
+            self._flush_perf_proclog(instant)
+        sup = self._supervisor
+        if sup is not None:
+            sup.note_progress(self)
+
+    def _flush_perf_proclog(self, instant=None):
+        """Cumulative (and, given, this gulp's) phase times to the perf
+        log; callers throttle, and a sequence's end writes the totals."""
+        entry = {f"total_{k}_time": v for k, v in self.perf_totals.items()}
+        if instant:
+            entry.update(instant)
+        if entry:
+            self.perf_proclog.update(entry)
+
+    def _fault_fence(self):
+        """An event after the stream work this thread has queued, or None
+        on the CPU: the spans a fault gives back wait on it (ring.py)."""
+        return _device.record_event(self.device)
 
     def _hold_flag_latch(self, flag):
         """Latch a config flag for the current sequence (config.py)."""
@@ -316,25 +602,74 @@ class Block(BlockScope):
             _device.stream_synchronize(self.device)
 
 
-def _cancel_reservations(spans):
-    """Commit(0) uncommitted reservations, newest first, so a fault
-    leaves no reservation that would wedge the ring's in-order commit."""
+def _cancel_reservations(spans, fence=None):
+    """Cancel uncommitted reservations, newest first (each is then the
+    ring's final one), so a fault leaves none that would wedge the ring's
+    in-order commit; the bytes go back behind `fence` (ring.py)."""
     for sp in reversed(spans):
         try:
-            sp.commit(0)
+            sp.cancel(fence)
         except Exception:  # noqa: BLE001 — best effort on a fault path
-            pass
+            try:
+                sp.commit(0)
+            except Exception:  # noqa: BLE001
+                pass
+
+
+def _abandon_gulp(block, ispans, ospans):
+    """A gulp faulted: hold its input spans until the fence and cancel
+    its output reservations behind it."""
+    fence = block._fault_fence()
+    for sp in ispans:
+        sp.hold_until(fence)
+    _cancel_reservations(ospans, fence)
+
+
+class _ShedSpan(object):
+    """A stand-in write span for a gulp that a source's overrun policy
+    sheds: `on_data` writes it like a WriteSpan, nothing is committed."""
+
+    def __init__(self, oseq, nframe):
+        self.ring = oseq.ring
+        self.tensor = oseq.tensor
+        self.nframe = nframe
+        self.commit_nframe = nframe
+        self.frame_offset = 0
+        dev = self.ring.device if self.ring.space == "cuda" else "cpu"
+        self.data = torch.empty(self.tensor.span_shape(nframe),
+                                dtype=self.tensor.torch_dtype, device=dev)
+
+    def commit(self, nframe=None):
+        pass
 
 
 class SourceBlock(Block):
     """Generates sequences from external sources
-    (reference pipeline.py:442-521)."""
+    (reference pipeline.py:442-521).
+
+    `on_overrun`, the overload policy when downstream back-pressure
+    would stall the source (bifrost_tpu/pipeline.py:1010-1023):
+    'backpressure' (default) blocks in the output reserve; 'drop_oldest'
+    reserves without blocking and, when that fails, lets `on_data` write
+    a throwaway span and drops the gulp (counted in `shed_frames` and as
+    supervise events); 'fail' raises `OverrunError`, a restartable fault
+    under supervision.  Under supervision a fault re-creates the reader
+    and starts the source's sequence over (a reader cannot be seeked)."""
+
+    _restart_semantics = "reader_rebuild"
 
     def __init__(self, sourcenames, gulp_nframe, space="system", name=None,
-                 **kwargs):
+                 on_overrun="backpressure", **kwargs):
+        if on_overrun not in ("backpressure", "drop_oldest", "fail"):
+            raise ValueError(f"unknown on_overrun policy {on_overrun!r}")
         super().__init__(irings=[], name=name, gulp_nframe=gulp_nframe,
                          **kwargs)
         self.sourcenames = sourcenames
+        self.on_overrun = on_overrun
+        self.shed_frames = 0
+        self._shed_pending = 0
+        self._shed_flush_t = 0.0
+        self._shed_cache = None
         self.orings = [self.create_ring(space=space)]
 
     # -- subclass interface
@@ -353,32 +688,105 @@ class SourceBlock(Block):
         self.orings[0].begin_writing()
         try:
             for sourcename in self.sourcenames:
-                if self.pipeline.shutdown_requested:
+                if self.pipeline.shutdown_requested or \
+                        self.pipeline.quiesce_requested:
                     break
-                self._run_source_sequence(sourcename)
+                self._supervised_region = True
+                try:
+                    while True:
+                        try:
+                            self._run_source_sequence(sourcename)
+                            break
+                        except (EndOfDataStop, StopIteration):
+                            raise
+                        except BaseException as e:  # noqa: BLE001
+                            if self._supervised_resume(e) is None:
+                                raise
+                finally:
+                    self._supervised_region = False
         finally:
             self.orings[0].end_writing()
 
+    def _reserve_or_shed(self, oseqs, gulp):
+        """-> (spans, shed) per the overrun policy.  A deadman wakeup of
+        the blocking reserve is absorbed here, in place: the sequence is
+        intact, and restarting it would replay the stream."""
+        got = []
+        if self.on_overrun == "backpressure":
+            while True:
+                try:
+                    for oseq in oseqs:
+                        got.append(oseq.reserve(gulp))
+                    return got, False
+                except RingInterrupted as e:
+                    _cancel_reservations(got)
+                    del got[:]
+                    if self._supervised_resume(e) is None:
+                        raise
+                except BaseException:
+                    _cancel_reservations(got)
+                    raise
+        try:
+            for oseq in oseqs:
+                got.append(oseq.reserve(gulp, nonblocking=True))
+        except BlockingIOError:
+            _cancel_reservations(got)
+            if self.on_overrun == "fail":
+                raise OverrunError(
+                    f"{self.name}: output ring full (downstream "
+                    f"back-pressure) with on_overrun='fail'") from None
+            c = self._shed_cache
+            if c is None or c[1] != gulp or len(c[0]) != len(oseqs) or \
+                    any(a is not b for a, b in zip(c[0], oseqs)):
+                c = self._shed_cache = (list(oseqs), gulp,
+                                        [_ShedSpan(o, gulp) for o in oseqs])
+            return c[2], True
+        except BaseException:
+            _cancel_reservations(got)
+            raise
+        return got, False
+
+    def _note_shed(self, nframe, flush=False):
+        """Count shed frames; report them to the supervisor at most every
+        0.25 s (and at the sequence's end)."""
+        self.shed_frames += nframe
+        self._shed_pending += nframe
+        now = time.monotonic()
+        if self._shed_pending and (flush or
+                                   now - self._shed_flush_t > 0.25):
+            sup = self._supervisor
+            if sup is not None:
+                sup.record_shed(self, self._shed_pending)
+            self._shed_pending = 0
+            self._shed_flush_t = now
+
     def _run_source_sequence(self, sourcename):
+        self._loop_frame = 0
+        self._loop_gulp = None
         with self.create_reader(sourcename) as reader:
             oheaders = self.on_sequence(reader, sourcename)
             for oh in oheaders:
                 oh.setdefault("name", str(sourcename))
                 oh.setdefault("time_tag", 0)
                 oh.setdefault("gulp_nframe", self.gulp_nframe)
-            gulp = self.gulp_nframe
+            self.sequence_proclog.update(
+                {"header": json.dumps(oheaders[0])})
+            gulp = self._loop_gulp = self.gulp_nframe
             buf_nframe = self.buffer_nframe or gulp * self.buffer_factor
             oseqs = [ring.begin_sequence(oh, gulp, buf_nframe)
                      for ring, oh in zip(self.orings, oheaders)]
             self.mark_initialized()
             try:
-                while not self.pipeline.shutdown_requested:
+                while not (self.pipeline.shutdown_requested or
+                           self.pipeline.quiesce_requested):
+                    self._heartbeat = time.monotonic()
                     t0 = time.perf_counter()
-                    ospans = [oseq.reserve(gulp) for oseq in oseqs]
+                    ospans, shed = self._reserve_or_shed(oseqs, gulp)
                     try:
                         t1 = time.perf_counter()
                         ostrides = self.on_data(reader, ospans)
-                        self._sync_before_commit(ospans)
+                        if not shed:
+                            self._sync_before_commit(ospans)
                         t2 = time.perf_counter()
                         done = False
                         for ospan, n in zip(ospans, ostrides):
@@ -386,15 +794,25 @@ class SourceBlock(Block):
                             ospan.commit(n)
                             done = done or n < gulp
                     except BaseException:
-                        _cancel_reservations(ospans)
+                        if not shed:
+                            _abandon_gulp(self, [], ospans)
                         raise
+                    if shed:
+                        self._note_shed((ostrides[0] or 0) if ostrides else 0)
+                    t3 = time.perf_counter()
                     self._perf_add(reserve=t1 - t0, process=t2 - t1,
-                                   commit=time.perf_counter() - t2)
+                                   commit=t3 - t2)
+                    self._loop_frame += gulp
+                    self._gulp_done(t3, {"reserve_time": t1 - t0,
+                                         "process_time": t2 - t1,
+                                         "commit_time": t3 - t2})
                     if done:
                         break
             finally:
                 for oseq in oseqs:
                     oseq.end()
+                self._note_shed(0, flush=True)
+                self._flush_perf_proclog()
 
 
 class MultiTransformBlock(Block):
@@ -450,13 +868,15 @@ class MultiTransformBlock(Block):
         began_writing = False
         try:
             for iseqs in zip(*readers):
-                if self.pipeline.shutdown_requested:
+                if self.pipeline.shutdown_requested or self._splice_stop:
                     break
                 if not began_writing:
                     for oring in self.orings:
                         oring.begin_writing()
                     began_writing = True
-                self._run_sequence(iseqs)
+                self._supervised_sequence(iseqs)
+                if self._splice_stop:
+                    break
         finally:
             for r in readers:
                 r.close()
@@ -464,7 +884,37 @@ class MultiTransformBlock(Block):
                 for oring in self.orings:
                     oring.end_writing()
 
-    def _run_sequence(self, iseqs):
+    def _supervised_sequence(self, iseqs):
+        """One input sequence.  Under supervision a fault is absorbed per
+        the restart policy: the output sequences end, `on_sequence` runs
+        again and the loop resumes at the frame the supervisor chose.
+        Unsupervised this is one `_run_sequence` call."""
+        resume = 0
+        self._supervised_region = True
+        sup = self._supervisor
+        if sup is not None:
+            sup.absorb_stale_deadman(self)
+        try:
+            while True:
+                try:
+                    self._run_sequence(iseqs, resume)
+                    return
+                except (EndOfDataStop, StopIteration):
+                    raise
+                except BaseException as e:  # noqa: BLE001 — policy decides
+                    if self._splice_stop:
+                        raise
+                    resume = self._supervised_resume(e)
+                    if resume is None:
+                        raise
+        finally:
+            self._supervised_region = False
+
+    def _run_sequence(self, iseqs, begin_nframe=0):
+        self._loop_frame = begin_nframe
+        self._loop_gulp = None
+        self.sequence_proclog.update(
+            {"header": json.dumps(iseqs[0].header)})
         oheaders = self._on_sequence(iseqs)
         for oh in oheaders:
             oh.setdefault("name", iseqs[0].header.get("name", ""))
@@ -482,14 +932,15 @@ class MultiTransformBlock(Block):
         for iseq in iseqs:
             # Sized from this reader's span plus overlap (bfRingResize):
             # the ghost covers the largest span, so a wrapped read stays
-            # one view.
+            # one view.  A restart finds the rings sized already.
             iseq.resize(gulp + overlap, (gulp + overlap) * in_buf_factor)
         oseqs = [oring.begin_sequence(oh, onframe, onframe * buf_factor)
                  for oring, oh, onframe in
                  zip(self.orings, oheaders, onframes)]
         self.mark_initialized()
         try:
-            self._sequence_loop(iseqs, oseqs, gulp, overlap, onframes)
+            self._sequence_loop(iseqs, oseqs, gulp, overlap, onframes,
+                                begin_nframe)
         finally:
             # Output sequences END even on a fault: downstream readers
             # must see end-of-sequence, never a dangling hang.
@@ -497,9 +948,13 @@ class MultiTransformBlock(Block):
             for oseq in oseqs:
                 oseq.end()
             self._release_flag_latches()
+            self._flush_perf_proclog()
 
-    def _sequence_loop(self, iseqs, oseqs, gulp, overlap, onframes):
-        span_gens = [iseq.read(gulp + overlap, gulp) for iseq in iseqs]
+    def _sequence_loop(self, iseqs, oseqs, gulp, overlap, onframes,
+                       begin_nframe=0):
+        self._loop_gulp = gulp
+        span_gens = [iseq.read(gulp + overlap, gulp, begin_nframe)
+                     for iseq in iseqs]
         # Exact-schedule phase emitters (guaranteed readers only: the
         # schedule is relative to sequence entry).
         emit_hook = getattr(self, "output_nframes_for_gulp", None) \
@@ -507,6 +962,7 @@ class MultiTransformBlock(Block):
         rel_frame = 0
         try:
             while True:
+                self._heartbeat = time.monotonic()
                 t_acq = time.perf_counter()
                 ispans = []
                 for g in span_gens:
@@ -514,7 +970,7 @@ class MultiTransformBlock(Block):
                         ispans.append(next(g))
                     except StopIteration:
                         return
-                if self.pipeline.shutdown_requested:
+                if self.pipeline.shutdown_requested or self._splice_stop:
                     return
                 in_nframe = max(0, ispans[0].nframe - overlap)
                 if in_nframe == 0:
@@ -557,12 +1013,17 @@ class MultiTransformBlock(Block):
                     for ospan, n in zip(ospans, ostrides):
                         ospan.commit(n)
                 except BaseException:
-                    _cancel_reservations(ospans)
+                    _abandon_gulp(self, ispans, ospans)
                     raise
+                t3 = time.perf_counter()
                 self._perf_add(acquire=t0 - t_acq, reserve=t1 - t0,
-                               process=t2 - t1,
-                               commit=time.perf_counter() - t2)
+                               process=t2 - t1, commit=t3 - t2)
                 rel_frame += gulp
+                self._loop_frame += gulp
+                self._gulp_done(t3, {"acquire_time": t0 - t_acq,
+                                     "reserve_time": t1 - t0,
+                                     "process_time": t2 - t1,
+                                     "commit_time": t3 - t2})
                 if ispans[0].nframe < gulp + overlap:
                     return   # partial gulp == sequence end
         finally:
@@ -725,9 +1186,11 @@ class _GulpDispatcher(object):
             self._cv.notify_all()
             return self._epoch
 
-    def drain(self, raise_exc=True, timeout=None):
+    def drain(self, raise_exc=True, timeout=None, clear_exc=False):
         """Wait until every submitted item has finished; False if
-        `timeout` (seconds) ran out first."""
+        `timeout` (seconds) ran out first.  `clear_exc` drops a worker
+        exception that is not raised (a restart already handles the
+        fault that surfaced it)."""
         deadline = None if timeout is None else time.monotonic() + timeout
         with self._cv:
             while self._queue or self._busy:
@@ -742,6 +1205,8 @@ class _GulpDispatcher(object):
                     self._cv.wait()
             if raise_exc:
                 self._raise_pending_locked()
+            elif clear_exc:
+                self._exc = None
         return True
 
     def close(self):
@@ -941,10 +1406,10 @@ class FusedTransformBlock(TransformBlock):
         self.name = "Fused_" + "+".join(
             c.name for c in list(constituents) + ([tail] if tail else []))
         self.error = None
-        self._thread = None
         self._init_reported = False
         self._held_latches = []
         self.perf_totals = {}
+        self._init_supervision_state()
         self.constituents = list(constituents)
         self._pre_transforms = list(pre_transforms)
         self.tail = tail
@@ -959,6 +1424,7 @@ class FusedTransformBlock(TransformBlock):
         self._dispatcher = None
         self._async_latched = None
         self._stream = None
+        self._init_proclogs()
 
     # ------------------------------------------------------- dispatching
     def _resolve_async(self):
@@ -973,7 +1439,9 @@ class FusedTransformBlock(TransformBlock):
         return self._resolve_async()
 
     def _bind_worker_thread(self):
-        """The worker runs on the group's device and stream."""
+        """The worker runs on the group's device and stream, and counts
+        as one of the group's threads (supervision, fault injection)."""
+        self._thread_idents.add(threading.get_ident())
         _device.set_device(self.device)
         if self._stream is not None:
             torch.cuda.set_stream(self._stream)
@@ -995,10 +1463,15 @@ class FusedTransformBlock(TransformBlock):
 
     def _sequence_loop(self, *args, **kwargs):
         # The worker must be idle before the sequence's output spans end.
+        # On a fault it finishes what it runs, the items behind a failed
+        # one are dropped (their spans' holds let go: they read nothing),
+        # and the exception that surfaced the fault is not raised again
+        # into a restarted sequence.
         try:
             super()._sequence_loop(*args, **kwargs)
         except BaseException:
-            self._drain_dispatcher(raise_exc=False)
+            if self._dispatcher is not None:
+                self._dispatcher.drain(raise_exc=False, clear_exc=True)
             raise
         self._drain_dispatcher()
 

@@ -1,0 +1,205 @@
+"""ProcLog: write and read the per-process metrics tree (counterpart of
+bifrost_tpu/proclog.py; its writer is the C engine's cpp/src/proclog.cpp,
+restated here in Python).
+
+Layout: ``<root>/<pid>/<logname>``, where a log name may hold '/'
+(``<block>/perf``, ``<pipeline>/supervise``).  Each log is a small text
+file of ``key : value`` lines, rewritten whole through a ``.tmp`` file
+and a rename, so a reader never sees a torn write.  The process's
+directory is removed at a clean exit, and directories of processes that
+are gone are removed when the first log of a process is created.
+
+The root is the port's own (`proclog_root`): ``$BT_TORCH_PROCLOG_DIR``
+when set, else ``bifrost_tpu_torch_proclog`` in the temporary directory
+(``tempfile.gettempdir()``).  The JAX package writes its tree elsewhere
+and removes its pid directory at its own exit, so the two packages never
+share a directory, even in one process.
+
+Writers throttle themselves: a block's per-gulp perf update is written
+at most every `PERF_FLUSH_S` seconds (pipeline.py), as the JAX package's
+callers throttle theirs.
+"""
+
+from __future__ import annotations
+
+import atexit
+import fcntl
+import os
+import shutil
+import tempfile
+import threading
+
+__all__ = ["ProcLog", "proclog_root", "proclog_dir", "load_by_pid",
+           "supervise_metrics", "service_metrics", "PERF_FLUSH_S"]
+
+PERF_FLUSH_S = 0.25   # least seconds between two perf-log writes of a block
+
+_lock = threading.Lock()
+_pid_dir = None
+
+
+def proclog_root():
+    """The directory that holds one directory per writing process."""
+    env = os.environ.get("BT_TORCH_PROCLOG_DIR")
+    if env:
+        return env
+    return os.path.join(tempfile.gettempdir(), "bifrost_tpu_torch_proclog")
+
+
+def _pid_alive(pid):
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    except PermissionError:
+        return True
+    return True
+
+
+def _cleanup_stale(root):
+    """Remove the directories of processes that are gone, serialised
+    across processes by a lock file (cpp/src/proclog.cpp cleanup_stale)."""
+    try:
+        fd = os.open(os.path.join(root, ".lock"), os.O_CREAT | os.O_RDWR,
+                     0o666)
+    except OSError:
+        return
+    try:
+        fcntl.flock(fd, fcntl.LOCK_EX | fcntl.LOCK_NB)
+    except OSError:
+        os.close(fd)
+        return
+    try:
+        for name in os.listdir(root):
+            if name.isdigit() and not _pid_alive(int(name)):
+                shutil.rmtree(os.path.join(root, name), ignore_errors=True)
+    finally:
+        fcntl.flock(fd, fcntl.LOCK_UN)
+        os.close(fd)
+
+
+def _remove_pid_dir():
+    d = _pid_dir
+    if d is not None and os.path.basename(d) == str(os.getpid()):
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def proclog_dir():
+    """This process's directory, made (and stale ones cleaned) at first
+    use."""
+    global _pid_dir
+    with _lock:
+        if _pid_dir is None or \
+                os.path.basename(_pid_dir) != str(os.getpid()):
+            root = proclog_root()
+            os.makedirs(root, exist_ok=True)
+            _cleanup_stale(root)
+            _pid_dir = os.path.join(root, str(os.getpid()))
+            os.makedirs(_pid_dir, exist_ok=True)
+            atexit.register(_remove_pid_dir)
+        return _pid_dir
+
+
+class ProcLog(object):
+    """One log of the tree: `update(dict or str)` rewrites it."""
+
+    def __init__(self, name):
+        self.name = name
+        self.path = os.path.join(proclog_dir(), name)
+        os.makedirs(os.path.dirname(self.path), exist_ok=True)
+        with open(self.path, "w"):
+            pass
+
+    def update(self, contents):
+        """contents: dict -> 'key : value' lines, or a raw string."""
+        if isinstance(contents, dict):
+            contents = "".join(f"{k} : {v}\n" for k, v in contents.items())
+        tmp = f"{self.path}.{threading.get_ident()}.tmp"
+        try:
+            with open(tmp, "w") as f:
+                f.write(contents)
+            os.replace(tmp, self.path)
+        except FileNotFoundError:
+            # The directory went away under a live writer (a clean exit
+            # racing a daemon thread): observability only.
+            pass
+
+
+# ------------------------------------------------------------------ readers
+def _parse_value(v):
+    v = v.strip()
+    for cast in (int, float):
+        try:
+            return cast(v)
+        except ValueError:
+            pass
+    return v
+
+
+def load_by_pid(pid, include_rings=True, root=None):
+    """Parse a process's tree into {block: {log: {key: value}}}
+    (bifrost_tpu/proclog.py:42-70).  `root`: the tree's root directory
+    (default: the port's, `proclog_root()`); pass the JAX package's to
+    read the tree it writes."""
+    piddir = os.path.join(root or proclog_root(), str(pid))
+    contents = {}
+    if not os.path.isdir(piddir):
+        return contents
+    for base, _dirs, files in os.walk(piddir):
+        for fname in files:
+            if fname.endswith(".tmp"):
+                continue
+            path = os.path.join(base, fname)
+            parts = os.path.relpath(path, piddir).split(os.sep)
+            if not include_rings and parts[0] == "rings":
+                continue
+            block = os.sep.join(parts[:-1]) if len(parts) > 1 else parts[0]
+            entry = {}
+            try:
+                with open(path, "r") as f:
+                    for line in f:
+                        if ":" not in line:
+                            continue
+                        k, _, v = line.partition(":")
+                        entry[k.strip()] = _parse_value(v)
+            except OSError:
+                continue
+            contents.setdefault(block, {})[parts[-1]] = entry
+    return contents
+
+
+def supervise_metrics(tree):
+    """Supervision rows from a load_by_pid tree (one `<pipeline>/supervise`
+    log per supervised pipeline, written by supervise.Supervisor)."""
+    rows = []
+    for block, logs in sorted(tree.items()):
+        kv = logs.get("supervise", {})
+        if not kv or "restarts" not in kv:
+            continue
+        rows.append({"name": block,
+                     "faults": kv.get("faults", 0),
+                     "restarts": kv.get("restarts", 0),
+                     "heartbeat_misses": kv.get("heartbeat_misses", 0),
+                     "deadman_interrupts": kv.get("deadman_interrupts", 0),
+                     "shed_frames": kv.get("shed_frames", 0),
+                     "escalations": kv.get("escalations", 0),
+                     "recoveries": kv.get("recoveries", 0),
+                     "recovery_p50_s": kv.get("recovery_p50_s", None),
+                     "recovery_p99_s": kv.get("recovery_p99_s", None),
+                     "last_event": kv.get("last_event", "")})
+    return rows
+
+
+def service_metrics(tree):
+    """Service health rows from a load_by_pid tree (one
+    `<pipeline>/service` log per running service, written by
+    service.Service's health pusher); the JSON snapshot is left out."""
+    rows = []
+    for block, logs in sorted(tree.items()):
+        kv = logs.get("service", {})
+        if not kv or "state" not in kv:
+            continue
+        row = {"name": block}
+        row.update({k: v for k, v in kv.items() if k != "snapshot"})
+        rows.append(row)
+    return rows

@@ -25,6 +25,22 @@ events keep streams apart: each commit records one on the writer's
 stream, which a reader's stream waits on before it reads the span; each
 release records one on the reader's stream, which the writer's stream
 waits on before it writes the bytes it reclaimed.
+
+Interrupts are generation-counted (cpp/src/ring.cpp btRingInterruptGen /
+btRingAckInterrupt): `interrupt(target=)` fires generation g and wakes
+every waiter with RingInterrupted while g is pending, `ack_interrupt(g)`
+retires every generation up to g and no later one, so an ack bounded by
+the generation its issuer saw never retires a fire aimed at a peer.  A
+supervisor installs `_interrupt_retry`, which a woken waiter asks
+whether the fire was meant for its thread (supervise.py); with no hook,
+every pending fire raises (the shutdown path).  A reader waiting for
+data while the writer commits is alive: `_progress_hook` stamps its
+heartbeat at each such commit.  `_fault_hook`
+(faultinject.py) fires before the ring.open / ring.reserve /
+ring.acquire waits.  `WriteSpan.cancel(fence)` retires the ring's final
+reservation without committing it; the writer's next reservation of
+those bytes waits on `fence`, an event after the stream work that
+touched them.
 """
 
 from __future__ import annotations
@@ -178,7 +194,14 @@ class Ring(object):
         self.reserve_head = 0    # reserved frontier
         self._writing = False
         self._writing_ended = False
-        self._interrupted = False
+        self._intr_fired = 0          # latest fired generation (0: never)
+        self._intr_acked = 0          # generations <= this are retired
+        self._intr_target = 0         # target token of the latest fire
+        # Supervision and fault-injection hooks (module docstring).
+        self._interrupt_retry = None
+        self._progress_hook = None
+        self._fault_hook = None
+        self._ncommit = 0             # commits so far, empty ones included
         self._next_seq_id = 0
         self._sequences = collections.deque()
         self._open_wseq = None
@@ -194,19 +217,67 @@ class Ring(object):
         return self._buf is not None and self._buf.is_cuda
 
     # ----------------------------------------------------------- waiting
-    def _wait_for(self, pred):
-        """Condition wait that honours interrupts (caller holds _cond)."""
-        if pred():
-            return
-        self._cond.wait_for(lambda: self._interrupted or pred())
-        if self._interrupted:
-            raise RingInterrupted(f"ring {self.name} interrupted")
+    def _intr_pending(self):
+        return self._intr_fired > self._intr_acked
 
-    def interrupt(self):
-        """Wake every blocked caller with RingInterrupted (shutdown)."""
+    def _wait_for(self, pred, reader=False):
+        """Condition wait that honours interrupts (caller holds _cond
+        once).  A pending interrupt surfaces only where the call really
+        blocks; a supervised waiter woken by a fire that was not meant
+        for it asks `_interrupt_retry` (without the lock) and waits
+        again.  A `reader` waiting for data is alive while the writer
+        commits, even empty spans (an FDMT's warm-up): each commit that
+        does not end its wait calls `_progress_hook`, which stamps its
+        heartbeat."""
+        while True:
+            if pred():
+                return
+            n0 = self._ncommit
+            self._cond.wait_for(lambda: self._intr_pending() or pred() or
+                                (reader and self._ncommit != n0))
+            if not self._intr_pending():
+                if pred():
+                    return
+                hook = self._progress_hook
+                if hook is not None:
+                    hook()
+                continue
+            retry = self._interrupt_retry
+            if retry is None:
+                raise RingInterrupted(f"ring {self.name} interrupted")
+            self._cond.release()
+            try:
+                again = retry()
+            finally:
+                self._cond.acquire()
+            if not again:
+                raise RingInterrupted(f"ring {self.name} interrupted")
+
+    def interrupt(self, target=0):
+        """Fire a generation-counted interrupt: every blocked caller wakes
+        with RingInterrupted until the generation is acknowledged.
+        `target` is an opaque token (0: everyone) naming whom the fire is
+        for.  -> the fired generation."""
         with self._cond:
-            self._interrupted = True
+            self._intr_fired += 1
+            self._intr_target = int(target)
+            gen = self._intr_fired
             self._cond.notify_all()
+        return gen
+
+    def ack_interrupt(self, gen):
+        """Retire every generation <= `gen` (never past the latest fire):
+        a later fire stays pending for its own target."""
+        with self._cond:
+            bound = min(int(gen), self._intr_fired)
+            if bound > self._intr_acked:
+                self._intr_acked = bound
+            self._cond.notify_all()
+
+    def interrupt_info(self):
+        """-> (fired generation, acked generation, latest fire's target)."""
+        with self._cond:
+            return self._intr_fired, self._intr_acked, self._intr_target
 
     # ----------------------------------------------------------- geometry
     def resize(self, contiguous_bytes, total_bytes=None, nringlet=1,
@@ -376,6 +447,26 @@ class Ring(object):
                                                 ev))
             self.head = begin + commit_size
             self._open_wspans.popleft()
+            self._ncommit += 1
+            self._cond.notify_all()
+
+    def _cancel(self, token, begin, size, fence):
+        """Retire the final reservation uncommitted (btRingSpanCancel).
+        On a 'cuda' ring the writer's next reservation waits on `fence`;
+        on a host ring the fence has completed before the bytes go back."""
+        if fence is not None and not self._on_cuda:
+            fence.synchronize()
+        with self._cond:
+            if begin + size != self.reserve_head:
+                raise RuntimeError(f"ring {self.name!r}: cancel of a "
+                                   f"non-final span")
+            self.reserve_head = begin
+            for s in self._sequences:
+                if s.finished and s.end > self.reserve_head:
+                    s.end = self.reserve_head
+            self._open_wspans.remove(token)
+            if fence is not None and self._on_cuda:
+                self._release_events.append(fence)
             self._cond.notify_all()
 
     def _sync_ghost(self, begin, n):
@@ -397,6 +488,9 @@ class Ring(object):
 
     # ------------------------------------------------------------ reading
     def open_sequence(self, which="earliest", guarantee=True, cur=None):
+        hook = self._fault_hook
+        if hook is not None:
+            hook("ring.open", self)
         with self._cond:
             def find():
                 if which == "earliest":
@@ -417,7 +511,7 @@ class Ring(object):
                 found[0] = find()
                 return found[0] is not None or self._writing_ended
 
-            self._wait_for(ready)
+            self._wait_for(ready, reader=True)
             if found[0] is None:
                 raise EndOfDataStop(f"ring {self.name}: no more sequences")
             seq = found[0]
@@ -501,6 +595,9 @@ class WriteSpan(object):
         self.tensor = wseq.tensor
         self.nframe = nframe
         self.nbyte = nframe * self.tensor.frame_nbyte
+        hook = ring._fault_hook
+        if hook is not None:
+            hook("ring.reserve", ring)
         self.offset, self._token, released = ring._reserve(self.nbyte,
                                                            nonblocking)
         for ev in released:   # readers' streams are done with these bytes
@@ -528,6 +625,17 @@ class WriteSpan(object):
             nframe = self.commit_nframe
         self.ring._commit(self._token, self.offset, self.nbyte,
                           nframe * self.tensor.frame_nbyte)
+        self._committed = True
+
+    def cancel(self, fence=None):
+        """Retire this reservation uncommitted, without the in-order
+        commit wait; legal for the ring's final reservation only (a batch
+        is cancelled newest first).  `fence`: an event recorded after the
+        stream work that may still write these bytes (module docstring).
+        A committed span is left as it is."""
+        if self._committed:
+            return
+        self.ring._cancel(self._token, self.offset, self.nbyte, fence)
         self._committed = True
 
     def __enter__(self):
@@ -610,7 +718,7 @@ class ReadSequence(object):
                 if nonblocking:
                     raise BlockingIOError(f"ring {ring.name}: acquire "
                                           f"would block")
-                ring._wait_for(ready)
+                ring._wait_for(ready, reader=True)
             limit = s.end if s.finished else \
                 ring.head if ring._writing_ended else offset + size
             if offset >= limit:
@@ -646,6 +754,9 @@ class ReadSpan(object):
         self.rseq = rseq
         self.ring = rseq.ring
         self.tensor = t = rseq.tensor
+        hook = self.ring._fault_hook
+        if hook is not None:
+            hook("ring.acquire", self.ring)
         eff, overwritten, waits = rseq._acquire(offset, size, nonblocking)
         self.offset = offset
         self.nframe = eff // t.frame_nbyte

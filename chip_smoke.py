@@ -142,6 +142,33 @@ Phases, one line each; any failure exits non-zero:
              block and phase, peak device memory; one beam gulp's pinned
              H2D time.
 
+12. service — after [fusion], on [bengine]'s voltages, SV_NINT = 80
+             integrations (the FDMT's max_delay is 64, so K1 is on the
+             path): (a) `Service(lwa_instrument_spec(voltages=...))`
+             and `lwa_instrument_pipeline`, both fused as the spec
+             builds them, in SV_PAIRS turns: exit code 0, every block
+             "drained", lost == dup == 0, no fault, restart, heartbeat
+             miss or deadman, images (checksummed, the first SV_KEEP
+             whole) and candidates bitwise the bare run's, launches
+             equal; steady frames/s, peak memory, start() and stop()
+             seconds.  (b) The e2e fault, `FaultPlan(seed=7).raise_at(
+             "block.on_data", block="bengine", nth=1)`: one restart
+             naming bengine among its constituents, lost == dup == 0,
+             the X images bitwise (a)'s, exit code 0, peak within 1 GiB
+             of (a)'s; the recovery time.  (c) The image sink waiting in
+             its ring for the last image of SV_WEDGE_NINT while the D2H
+             copy is parked, heartbeat 0.25 s x 8: the deadman's
+             interrupt restarts the sink once, the parked copy goes on
+             0.2 s after it; deadman -> restart time, stop() within its
+             timeout.  (d) The FRB search of [main] built from the
+             registry (a custom source, copy, transpose, fdmt, detect):
+             candidates bitwise `frb_search_pipeline`'s.  (e) A
+             mid-stream stop(timeout=SV_QUIESCE) after SV_STOP_AFTER
+             images: no block wedged, the card synchronises, and
+             memory_allocated returns within 1 GiB once the service is
+             dropped.  Its launches go into `launches_by_path` as
+             `service` (a's first run) and `service_fault` (b).
+
 The launch checks of every phase count all seven kernels (K1, K2, K4,
 K6a, K6b, K5a, K5b).  The line before the last two holds the kernel
 records as JSON, one for each of those kernels; then the card's name and
@@ -220,6 +247,15 @@ EG_PAIRS = 3
 # integrations (the first FX_KEEP images compared), gpuspec (c) at both
 # geometries; FUSION_PAIRS turns of a fused and an unfused run each.
 FUSION_PAIRS, FX_NINT, FX_KEEP = 2, 8, 2
+
+# The service phase: the instrument as one supervised Service at the
+# flagship width on [bengine]'s voltages, SV_NINT integrations deep (the
+# FDMT's max_delay is 64 integrations, so it emits from the 65th: K1 is
+# on the path), Service and bare pipeline in SV_PAIRS turns, SV_KEEP
+# images compared whole; the wedge run SV_WEDGE_NINT deep; the
+# mid-stream stop after SV_STOP_AFTER images with a SV_QUIESCE s quiesce.
+SV_NINT, SV_PAIRS, SV_KEEP = 80, 2, 2
+SV_WEDGE_NINT, SV_STOP_AFTER, SV_QUIESCE = 4, 3, 30.0
 
 # Device-memory rate by card (NVIDIA data sheets), bytes/s
 _HBM_RATE = (("H200", 4.8e12), ("H100 PCIe", 2.0e12), ("H100", 3.35e12))
@@ -1922,6 +1958,320 @@ def fusion_path(dev, kind, volt):
     return counts
 
 
+# ----------------------------------------------------------------- service
+class Fingerprints(Images):
+    """An on_image callback for the service phase: keeps host copies of
+    the first `keep` images (compared bitwise) and two checksums of
+    every image's words (their sum and a position-weighted sum, mod
+    2**64), stamping the host clock at each."""
+
+    def __init__(self, keep):
+        super().__init__(keep)
+        self.sums = []
+
+    weights = None       # 1, 2, 3, ... as int64, cached
+
+    def __call__(self, grid):
+        super().__call__(grid)
+        w = torch.view_as_real(grid).reshape(-1).view(torch.int64)
+        if Fingerprints.weights is None or \
+                Fingerprints.weights.numel() != w.numel():
+            Fingerprints.weights = torch.arange(1, w.numel() + 1,
+                                                dtype=torch.int64)
+        self.sums.append((int(w.sum()), int((w * Fingerprints.weights)
+                                            .sum())))
+
+
+def sv_spec(volt, imgs, cands, **kw):
+    """`lwa_instrument_spec` at the flagship width over `volt`."""
+    from bifrost_tpu_torch.service import lwa_instrument_spec
+    return lwa_instrument_spec(
+        voltages=volt, nstand=NSTAND, npol=NPOL, nchan=BCHAN, ntap=NTAP,
+        n_int=N_INT, nbeam=NBEAM, max_delay=B_MAX_DELAY, ngrid=NGRID,
+        f0_mhz=B_F0, dt_s=B_DT, gulp_nframe=B_GULP, on_image=imgs,
+        on_candidate=cands.append, **kw)
+
+
+def sv_run(dev, volt, service, plan=None):
+    """One instrument run, as a supervised Service or the bare pipeline
+    -> dict of images, candidates, ledger summary, launches, wall, the
+    steady rate, peak bytes, start()/stop() seconds, events, report."""
+    from bifrost_tpu_torch.service import Service
+    imgs, cands, events = Fingerprints(SV_KEEP), [], []
+    if service:
+        svc = Service(sv_spec(volt, imgs, cands), name="sv", device=dev)
+        svc.on_event(events.append)
+        if plan is not None:
+            svc.pipeline._fuse_device_chains()
+            plan.attach(svc.pipeline)
+    else:
+        pipe, det, ledger = instrument(dev, volt, on_image=imgs, fuse=True)
+        det.on_candidate = cands.append
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = {}
+    try:
+        if service:
+            svc.start()
+            if not svc.wait(timeout=600):
+                raise AssertionError("service run did not finish")
+            t1 = time.perf_counter()
+            report = svc.stop()
+            out["stop_s"] = time.perf_counter() - t1
+            out["start_s"] = svc.start_s
+            out["report"] = report
+            out["ledger"] = report.ledger
+            if svc._run_error is not None:
+                raise svc._run_error
+        else:
+            pipe.run()
+            out["ledger"] = ledger.summary()
+    finally:
+        if plan is not None:
+            plan.detach()
+    torch.cuda.synchronize()
+    out["wall"] = time.perf_counter() - t0
+    out["counts"] = read_counts()
+    out["peak"] = torch.cuda.max_memory_allocated(dev)
+    st = imgs.stamps
+    out["steady"] = B_GULP * (len(st) - 1) / (st[-1] - st[0]) \
+        if len(st) > 1 else float("nan")
+    out.update(imgs=imgs, cands=cands, events=events)
+    return out
+
+
+def sv_check_clean(r):
+    rep = r["report"]
+    c = rep.counters
+    if rep.exit_code != 0 or not rep.drain.clean or \
+            any(v["outcome"] != "drained"
+                for v in rep.drain.blocks.values()):
+        raise AssertionError(f"clean service run: {rep!r}")
+    if c["faults"] or c["restarts"] or c["heartbeat_misses"] or \
+            c["deadman_interrupts"] or c["escalations"]:
+        raise AssertionError(f"clean service run counters {c}; events "
+                             f"{[e.as_dict() for e in r['events']]}")
+
+
+def sv_same_images(a, b, what):
+    if len(a.sums) != SV_NINT or a.sums != b.sums:
+        raise AssertionError(f"{what}: image checksums differ "
+                             f"({len(a.sums)}/{len(b.sums)} images)")
+    images_equal(a, b, SV_KEEP)
+
+
+def service_path(dev, volt):
+    """The instrument as one supervised Service (module docstring, phase
+    12).  `volt`: [bengine]'s voltages.  -> launch counts of the clean
+    service run and of the faulted one."""
+    from bifrost_tpu_torch.faultinject import FaultPlan
+    nsp = NSTAND * NPOL
+    volt = volt[:SV_NINT * B_GULP]
+    nfdmt = SV_NINT - B_MAX_DELAY
+
+    # (a) Clean runs, Service and bare pipeline in turns.
+    runs = []
+    for _ in range(SV_PAIRS):
+        for service in (True, False):
+            runs.append(sv_run(dev, volt, service))
+            free_device()
+    ref = runs[1]
+    want = expected(fir_mac=SV_NINT, beamform_power=SV_NINT,
+                    romein_grid_separable=SV_NINT,
+                    fdmt_merge_step=ref["counts"]["fdmt_merge_step"])
+    if ref["counts"] != want or not ref["counts"]["fdmt_merge_step"]:
+        raise AssertionError(f"bare launches {ref['counts']}")
+    for r in runs:
+        if r["counts"] != ref["counts"]:
+            raise AssertionError(f"launches {r['counts']} != bare "
+                                 f"{ref['counts']}")
+        s = r["ledger"]
+        if s["lost_frames"] or s["duplicated_frames"] or \
+                s["committed_frames"] != nfdmt:
+            raise AssertionError(f"ledger {s}")
+        sv_same_images(r["imgs"], ref["imgs"], "service vs bare")
+        if r["cands"] != ref["cands"]:
+            raise AssertionError("candidates differ")
+        if "report" in r:
+            sv_check_clean(r)
+    clean = runs[0]
+    rates = "; ".join(
+        f"{'service' if 'report' in r else 'bare'} "
+        f"{r['steady']:.1f} steady ({SV_NINT * B_GULP / r['wall']:.1f} "
+        f"whole), peak {r['peak'] / 2**30:.2f} GiB"
+        + (f", start() {r['start_s']:.3f} s, stop() {r['stop_s']:.3f} s"
+           if "report" in r else "") for r in runs)
+    phase("service", f"(a) clean: Service(lwa_instrument_spec) and "
+          f"lwa_instrument_pipeline (fused) in turns, {SV_NINT} "
+          f"integrations, frames/s: {rates}; launches equal "
+          f"{ref['counts']}; images ({SV_NINT} checksummed, the first "
+          f"{SV_KEEP} compared whole) and {len(ref['cands'])} candidates "
+          f"bitwise equal; exit code 0, every block drained, ledger "
+          f"{clean['ledger']}, no fault, restart, heartbeat miss or "
+          f"deadman")
+    phase("service", f"(a) drain report of the first service run: "
+          f"{json.dumps(clean['report'].drain.as_dict()['blocks'])}")
+
+    # (b) One injected fault, as benchmarks/e2e_tpu.py:189-191 arms it.
+    plan = FaultPlan(seed=7)
+    plan.raise_at("block.on_data", block="bengine", nth=1)
+    f = sv_run(dev, volt, True, plan)
+    free_device()
+    rep = f["report"]
+    restarts = [e for e in f["events"] if e.kind == "restart"]
+    if not plan.fired(site="block.on_data") or len(restarts) != 1 or \
+            "bengine" not in restarts[0].details.get("constituents", ()):
+        raise AssertionError(f"fault run events "
+                             f"{[e.as_dict() for e in f['events']]}")
+    s = f["ledger"]
+    if s["lost_frames"] or s["duplicated_frames"] or rep.exit_code != 0:
+        raise AssertionError(f"fault run: {rep!r}")
+    sv_same_images(f["imgs"], clean["imgs"], "X branch, fault vs clean")
+    if f["peak"] > clean["peak"] + 2**30:
+        raise AssertionError(f"fault run peak {f['peak']} > clean "
+                             f"{clean['peak']} + 1 GiB")
+    rec = rep.recovery
+    phase("service", f"(b) FaultPlan(seed=7).raise_at('block.on_data', "
+          f"block='bengine', nth=1): fired {len(plan.fired())}; one "
+          f"restart of {restarts[0].block} "
+          f"(constituents {restarts[0].details['constituents']}, "
+          f"shed {restarts[0].details.get('shed_nframe')} frames); "
+          f"recovery (fault -> first healthy gulp) {rec['last_s']:.4f} s; "
+          f"exit code {rep.exit_code}; ledger {s}; X-branch images "
+          f"bitwise the clean run's; {f['steady']:.1f} frames/s steady; "
+          f"peak {f['peak'] / 2**30:.2f} GiB (clean "
+          f"{clean['peak'] / 2**30:.2f}); launches {f['counts']}")
+
+    # (c) A block wedged in a ring wait: the image sink waits for the
+    # last image while the D2H copy is parked (stamping its heartbeat,
+    # scaffolding), until the supervisor's deadman_interrupt releases
+    # it; upstream has finished, so only the sink goes stale.
+    from bifrost_tpu_torch.service import Service
+    short = volt[:SV_WEDGE_NINT * B_GULP]
+    import threading
+    release, marks = threading.Event(), {}
+
+    def on_ev(ev):
+        if ev.kind == "deadman_interrupt" and ev.block == "image_sink":
+            marks["deadman"] = ev.time
+            # The parked copy goes on 0.2 s later: the sink's interrupt
+            # surfaces before its gulp could arrive.
+            threading.Timer(0.2, release.set).start()
+        if ev.kind == "restart" and ev.block == "image_sink":
+            marks["restart"] = ev.time
+
+    imgs = Fingerprints(0)
+    svc = Service(sv_spec(short, imgs, [], heartbeat_interval_s=0.25,
+                          heartbeat_misses=8, quiesce_timeout_s=10.0),
+                  name="sv_wedge", device=dev)
+    svc.on_event(on_ev)
+    svc.pipeline._fuse_device_chains()
+    plan = FaultPlan(seed=7)
+    plan.wedge_at("block.on_data", block="image_d2h",
+                  nth=SV_WEDGE_NINT - 1, release=release, timeout=60.0,
+                  stamp_heartbeat=True)
+    plan.attach(svc.pipeline)
+    try:
+        svc.start()
+        if not svc.wait(timeout=120):
+            raise AssertionError("wedge run did not finish")
+        t1 = time.perf_counter()
+        rep = svc.stop()
+        stop_s = time.perf_counter() - t1
+    finally:
+        plan.detach()
+        release.set()
+    c = rep.counters
+    if c["restarts"] != 1 or c["deadman_interrupts"] < 1 or \
+            c["escalations"] or "restart" not in marks or \
+            len(imgs.stamps) != SV_WEDGE_NINT or stop_s > 10.0 + 1.0 or \
+            rep.ledger["lost_frames"] or rep.ledger["duplicated_frames"]:
+        raise AssertionError(f"wedge run: {rep!r}; {len(imgs.stamps)} "
+                             f"images; stop {stop_s:.3f} s")
+    phase("service", f"(c) image_d2h parked before its last gulp, "
+          f"image_sink waiting in its ring: heartbeat 0.25 s x 8; "
+          f"counters {c}; deadman -> restart "
+          f"{marks['restart'] - marks['deadman']:.4f} s; "
+          f"{len(imgs.stamps)} images; exit code {rep.exit_code}; stop() "
+          f"{stop_s:.3f} s")
+    del svc, imgs
+    free_device()
+
+    # (d) The FRB search as a registry-built service.
+    from bifrost_tpu_torch.blocks import array_source
+    from bifrost_tpu_torch.service import (ServiceSpec, StageSpec,
+                                           frb_search_pipeline)
+    data = frb_data()
+    cands = []
+    spec = ServiceSpec([
+        StageSpec("custom", name="capture", params=dict(
+            factory=lambda up: array_source(data, GULP, header={
+                "labels": ["time", "freq"],
+                "scales": [[0.0, DT], [F0, DF]],
+                "units": ["s", "MHz"]}))),
+        StageSpec("copy"),
+        StageSpec("transpose", params=dict(axes=["freq", "time"],
+                                           gulp_nframe=GULP)),
+        StageSpec("fdmt", params=dict(max_delay=MAX_DELAY,
+                                      gulp_nframe=GULP)),
+        StageSpec("detect", params=dict(on_candidate=cands.append,
+                                        gulp_nframe=GULP)),
+    ])
+    svc = Service(spec, name="sv_frb", device=dev)
+    t0 = time.perf_counter()
+    svc.start()
+    if not svc.wait(timeout=300):
+        raise AssertionError("FRB service did not finish")
+    rep = svc.stop()
+    wall = time.perf_counter() - t0
+    bare = []
+    frb_search_pipeline(data, GULP, MAX_DELAY, F0, DF, DT, device=dev,
+                        on_candidate=bare.append)[0].run()
+    if rep.exit_code != 0 or cands != bare or not cands or \
+            rep.ledger["committed_frames"] != GULP * NGULP - MAX_DELAY:
+        raise AssertionError(f"FRB service: {rep!r}")
+    check_burst(svc.blocks["detect"])
+    phase("service", f"(d) FRB search from the registry (custom source, "
+          f"copy, transpose, fdmt, detect): {wall:.3f} s; exit code 0; "
+          f"{len(cands)} candidates bitwise frb_search_pipeline's; the "
+          f"burst found")
+    del svc, data
+    free_device()
+
+    # (e) A mid-stream stop(timeout=) of the instrument.
+    free_device()
+    before = torch.cuda.memory_allocated(dev)
+    imgs = Fingerprints(0)
+    svc = Service(sv_spec(volt, imgs, []), name="sv_stop", device=dev)
+    svc.start()
+    while len(imgs.stamps) < SV_STOP_AFTER and svc.running:
+        time.sleep(0.01)
+    t1 = time.perf_counter()
+    rep = svc.stop(timeout=SV_QUIESCE)
+    stop_s = time.perf_counter() - t1
+    torch.cuda.synchronize()
+    drain = rep.drain.as_dict()
+    del svc
+    free_device()
+    after = torch.cuda.memory_allocated(dev)
+    if rep.drain.wedged or rep.exit_code == 2 or \
+            after > before + 2**30 or stop_s > SV_QUIESCE + 2.0:
+        raise AssertionError(f"mid-stream stop: {rep!r}; memory "
+                             f"{before} -> {after}")
+    outcomes = {}
+    for v in drain["blocks"].values():
+        outcomes[v["outcome"]] = outcomes.get(v["outcome"], 0) + 1
+    phase("service", f"(e) stop(timeout={SV_QUIESCE}) after "
+          f"{SV_STOP_AFTER} images: {stop_s:.3f} s (drain elapsed "
+          f"{drain['elapsed_s']} s), outcomes {outcomes}, exit code "
+          f"{rep.exit_code}, {len(imgs.stamps)} images; "
+          f"torch.cuda.synchronize() ok; memory_allocated "
+          f"{before / 2**30:.3f} -> {after / 2**30:.3f} GiB once dropped")
+    return runs[0]["counts"], f["counts"]
+
+
 def gs_voltages(g, rng):
     """`g['ndistinct']` frames of ci8 voltages in storage form, (frame,
     chan, time, pol, (re, im)) int8: for the flagship the values of
@@ -2531,6 +2881,9 @@ def main():
     free_device()
     t5b = time.perf_counter()
     counts.update(fusion_path(dev, kind, volt))
+    free_device()
+    t5c = time.perf_counter()
+    counts["service"], counts["service_fault"] = service_path(dev, volt)
     del volt, spec
     free_device()
     t6 = time.perf_counter()
@@ -2542,7 +2895,8 @@ def main():
     phase("timing", f"build {secs:.1f} s, kernels {t1 - t0:.1f} s, main "
           f"{t2 - t1:.1f} s, frbflag {t3 - t2:.1f} s, bengine "
           f"{t4 - t3:.1f} s, instrument {t5 - t4:.1f} s, dq "
-          f"{t5b - t5:.1f} s, fusion {t6 - t5b:.1f} s, gpuspec "
+          f"{t5b - t5:.1f} s, fusion {t5c - t5b:.1f} s, service "
+          f"{t6 - t5c:.1f} s, gpuspec "
           f"{t7 - t6:.1f} s, egress "
           f"{time.perf_counter() - t7:.1f} s")
     by_path = {name: {path: c[name] for path, c in counts.items()}

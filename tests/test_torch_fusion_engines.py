@@ -194,3 +194,76 @@ def test_beamform_with_accumulate_tail_bitwise():
     _, jrep = _run("jax", data, True, chain)
     assert [g["constituents"] for g in jrep["groups"]] == \
         [g["constituents"] for g in rep["groups"]]
+
+
+# ----------------------------------------------------- supervised groups
+def _restart_run(side, data, n_int, gulp):
+    """A fault armed on the CONSTITUENT correlate name (gulp 1) of a
+    fused copy -> correlate group, supervised -> (frames, events, plan,
+    the fused groups' constituent lists)."""
+    if side == "jax":
+        from bifrost_tpu.faultinject import FaultPlan
+        from bifrost_tpu.supervise import RestartPolicy, Supervisor
+        pipe, bfm, blk, src_fn, snk_fn, space = \
+            JaxPipeline(), jbf, jblocks, j_array_source, j_gather_sink, "tpu"
+        data = pair_to_structured(data)
+    else:
+        from bifrost_tpu_torch.faultinject import FaultPlan
+        from bifrost_tpu_torch.supervise import RestartPolicy, Supervisor
+        pipe, bfm, blk, src_fn, snk_fn, space = \
+            PortPipeline(device="cpu"), pbf, pblocks, p_array_source, \
+            p_gather_sink, "cuda"
+    got, events = [], []
+    with pipe:
+        src = src_fn(data, gulp, header={"dtype": "ci8",
+                                         "labels": HDR_LABELS})
+        with bfm.block_scope(fuse=True):
+            dev = blk.copy(src, space=space)
+            cor = blk.correlate(dev, nframe_per_integration=n_int,
+                                engine="f32")
+        back = blk.copy(cor, space="system")
+        snk_fn(back, got)
+        pipe._fuse_device_chains()     # fuse first, then arm/attach
+        sup = Supervisor(policy=RestartPolicy(max_restarts=3, backoff=0.01),
+                         on_event=events.append)
+        plan = FaultPlan(seed=3)
+        plan.raise_at("block.on_data", block=cor.name, nth=1)
+        plan.attach(pipe)
+        try:
+            pipe.run(supervise=sup)
+        finally:
+            plan.detach()
+        groups = [list(b.constituent_names) for b in pipe.blocks
+                  if getattr(b, "constituent_names", None)]
+    return np.concatenate(got, axis=0), events, plan, groups, cor.name
+
+
+def test_fused_integrator_restart_resets_carry_with_attribution():
+    """tests/test_fusion_engines.py's case on the port (its 'f32'
+    engine: the int8 X-engine is not ported): a fault armed on the
+    constituent correlate name fires on the fused group; the supervised
+    restart sheds the faulted gulp and RESETS the integration carry (the
+    surviving frames integrate from zero, bitwise the f64 golden of
+    small integers), the restart event names the constituents, and the
+    JAX group under the same plan gives the same frames and events."""
+    data = _volt(40, seed=5)
+    n_int = gulp = 8                   # aligned: one emission per gulp
+    out, events, plan, groups, cor = _restart_run("port", data, n_int, gulp)
+    assert any(cor in g for g in groups)
+    assert plan.fired(site="block.on_data")
+    x = (data[..., 0].astype(np.float64) + 1j * data[..., 1]) \
+        .reshape(len(data), data.shape[1], -1)
+    keep = np.concatenate([x[:8], x[16:]], axis=0)
+    golden = np.stack([
+        np.einsum("tci,tcj->cij", np.conj(keep[t:t + 8]), keep[t:t + 8])
+        for t in range(0, len(keep) - 7, 8)])
+    assert np.array_equal(out.reshape(golden.shape),
+                          golden.astype(np.complex64))
+    restarts = [ev for ev in events if ev.kind == "restart"]
+    assert restarts, [e.as_dict() for e in events]
+    assert cor in restarts[0].details["constituents"]
+    j_out, j_events, _, _, j_cor = _restart_run("jax", data, n_int, gulp)
+    assert _bits(out, j_out.reshape(out.shape))
+    assert [(e.kind, len(e.details.get("constituents", ())))
+            for e in events] == \
+        [(e.kind, len(e.details.get("constituents", ()))) for e in j_events]

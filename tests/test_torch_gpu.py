@@ -5,6 +5,8 @@ JAX, it runs without the suite's conftest:
     python -m pytest --noconftest -q tests/test_torch_gpu.py
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -771,3 +773,162 @@ def test_fused_group_span_reuse_under_fused_async(cuda, monkeypatch, tail):
     bad = [i for i, (a, b) in enumerate(zip(got, want))
            if not np.array_equal(np.asarray(a), b)]
     assert not bad, f"gulps {bad} differ from their source"
+
+
+@pytest.mark.gpu
+def test_supervised_fused_group_restart_with_held_spans(cuda, monkeypatch):
+    """A fused copy -> transpose -> reduce -> accumulate(2) group under
+    `fused_async`, reading a pinned host ring of buffer factor 2 for 64
+    gulps of seeded patterns, each gulp's H2D copy held back on the
+    group's stream by a sleep kernel of some 5 ms (the span-reuse test's
+    model), faults on its 12th gulp after the gulp's work is enqueued
+    and before its commit.  The supervised restart sheds that gulp and
+    the integration it ends, resets the carry, and every output before
+    and after it equals its source's.  The faulted output reservation
+    goes back behind a fence recorded after its still-running stream
+    work, and the fence is handed to the ring for the writer's next
+    reservation of those bytes."""
+    import bifrost_tpu_torch as bt
+    from bifrost_tpu_torch import config
+    from bifrost_tpu_torch.blocks.copy import CopyBlock
+    from bifrost_tpu_torch.pipeline import Pipeline, SourceBlock
+    from bifrost_tpu_torch.ring import Ring
+    from bifrost_tpu_torch.supervise import RestartPolicy, Supervisor
+    ngulp, shape, fault_gulp = 64, (64, 4096), 11
+    real_h2d, real_cancel = CopyBlock._h2d, Ring._cancel
+    cancels = []
+
+    def held_back(self, src, dst):
+        torch.cuda._sleep(10_000_000)        # cycles on the group's stream
+        return real_h2d(self, src, dst)
+
+    def watched_cancel(self, token, begin, size, fence):
+        pending = fence is not None and not fence.query()
+        real_cancel(self, token, begin, size, fence)
+        cancels.append((self.space, fence is not None, pending,
+                        fence is not None and fence in self._release_events))
+
+    monkeypatch.setattr(CopyBlock, "_h2d", held_back)
+    monkeypatch.setattr(Ring, "_cancel", watched_cancel)
+
+    def pattern(i):
+        return np.random.default_rng(1000 + i).integers(
+            0, 1000, (1,) + shape).astype(np.float32)
+
+    class Source(SourceBlock):
+        def create_reader(self, name):
+            import contextlib
+            self.i = 0
+            return contextlib.nullcontext(self)
+
+        def on_sequence(self, reader, name):
+            return [{"name": name, "_tensor": {
+                "dtype": "f32", "shape": [-1, *shape],
+                "labels": ["time", "a", "b"]}}]
+
+        def on_data(self, reader, ospans):
+            if self.i == ngulp:
+                return [0]
+            ospans[0].data.copy_(torch.from_numpy(pattern(self.i)))
+            self.i += 1
+            return [1]
+
+    got = []
+    assert config.get("fused_async")
+    with Pipeline(device=cuda) as pipe:
+        src = Source(["host"], 1, space="cuda_host", buffer_factor=2)
+        with bt.block_scope(fuse=True):
+            d = bt.blocks.copy(src, space="cuda")
+            t = bt.blocks.transpose(d, ["time", "b", "a"])
+            r = bt.blocks.reduce(t, "a", op="sum")
+            acc = bt.blocks.accumulate(r, 2)
+        bt.blocks.gather_sink(acc, got)
+        pipe._fuse_device_chains()
+        group = [b for b in pipe.blocks
+                 if getattr(b, "constituent_names", None)][0]
+        calls = []
+
+        def on_data(ispan, ospan, orig=group.on_data):
+            n = orig(ispan, ospan)
+            calls.append(n)
+            if len(calls) == fault_gulp + 1:
+                raise RuntimeError("fault after the gulp's work is queued")
+            return n
+
+        group.on_data = on_data
+        sup = Supervisor(policy=RestartPolicy(max_restarts=3, backoff=0.01))
+        pipe.run(supervise=sup)
+    assert sup.counters["restarts"] == 1 and sup.counters["escalations"] == 0
+    # The faulted gulp emitted: its reservation was cancelled on the
+    # 'cuda' ring behind a fence its held-back work had not yet passed.
+    assert ("cuda", True, True, True) in cancels, cancels
+    want = [pattern(i).sum(axis=1).reshape(1, shape[1], 1) +
+            pattern(i + 1).sum(axis=1).reshape(1, shape[1], 1)
+            for i in list(range(0, fault_gulp - 1, 2)) +
+            list(range(fault_gulp + 1, ngulp, 2))]
+    assert len(got) == len(want)
+    bad = [i for i, (a, b) in enumerate(zip(got, want))
+           if not np.array_equal(np.asarray(a), b)]
+    assert not bad, f"outputs {bad} differ from their source"
+
+
+@pytest.mark.gpu
+def test_deadman_on_a_block_waiting_in_a_cuda_ring(cuda):
+    """The H2D copy is parked before its last gulp (stamping its
+    heartbeat: scaffolding), so the sink waits in an acquire on the
+    copy's 'cuda' ring and misses its heartbeats; the deadman's targeted
+    interrupt wakes it out of that wait, the supervisor counts one
+    restart at the same frame, the copy goes on 0.2 s after the deadman,
+    and every frame reaches the sink once, bitwise."""
+    import threading
+    from bifrost_tpu_torch import blocks
+    from bifrost_tpu_torch.blocks.testing import array_source
+    from bifrost_tpu_torch.faultinject import FaultPlan
+    from bifrost_tpu_torch.pipeline import Pipeline, SinkBlock
+    from bifrost_tpu_torch.supervise import RestartPolicy, Supervisor
+    data = np.random.default_rng(5).standard_normal((32, 1024)) \
+        .astype(np.float32)
+
+    class Sink(SinkBlock):
+        def __init__(self, iring, **kwargs):
+            super().__init__(iring, **kwargs)
+            self.chunks, self.nseqs = [], 0
+
+        def on_sequence(self, iseq):
+            self.nseqs += 1
+
+        def on_data(self, ispan):
+            self.chunks.append(ispan.data.cpu().numpy().copy())
+
+    release, marks = threading.Event(), {}
+
+    def on_ev(ev):
+        marks.setdefault(ev.kind, ev.block)
+        if ev.kind == "deadman_interrupt":
+            threading.Timer(0.2, release.set).start()
+
+    t0 = time.monotonic()
+    with Pipeline(device=cuda) as pipe:
+        src = array_source(data, 8)
+        dev = blocks.copy(src, space="cuda")
+        sink = Sink(dev)
+        sup = Supervisor(policy=RestartPolicy(max_restarts=3, backoff=0.01),
+                         heartbeat_interval_s=0.2, heartbeat_misses=5,
+                         on_event=on_ev)
+        plan = FaultPlan()
+        plan.wedge_at("block.on_data", block=dev.name, nth=3,
+                      release=release, timeout=60.0, stamp_heartbeat=True)
+        pipe._fuse_device_chains()
+        plan.attach(pipe)
+        try:
+            pipe.run(supervise=sup)
+        finally:
+            plan.detach()
+            release.set()
+    assert time.monotonic() - t0 < 30
+    c = sup.counters
+    assert c["deadman_interrupts"] == 1 and c["restarts"] == 1 and \
+        c["escalations"] == 0, c
+    assert marks["deadman_interrupt"] == marks["restart"] == sink.name
+    assert sink.nseqs == 2
+    assert np.array_equal(np.concatenate(sink.chunks, axis=0), data)

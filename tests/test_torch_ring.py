@@ -2,7 +2,10 @@
 tests/test_ring.py: wrap through the ghost region, a guaranteed reader's
 back-pressure, overlapped reads and several sequences, checked with
 checksums.  Each runs on the host spaces and on a 'cuda'-space ring,
-which a CPU-bound pipeline keeps on the CPU."""
+which a CPU-bound pipeline keeps on the CPU.  Then what supervision
+needs: generation-counted interrupts and their bounded ack, the retry
+hook of an innocent waiter, `WriteSpan.cancel` with its fence, and the
+fault-injection hooks."""
 
 import threading
 import time
@@ -259,3 +262,141 @@ def test_interrupt_unblocks_reader():
     t.join(timeout=5)
     assert not t.is_alive()
     assert exc == ["interrupted"]
+
+
+# --------------------------------------- generation interrupts, cancel
+def test_interrupt_generations_and_bounded_ack():
+    """interrupt() fires numbered generations; ack_interrupt(g) retires
+    every generation <= g and never a later one (btRingAckInterrupt)."""
+    ring = _ring("system", "gens")
+    assert ring.interrupt_info() == (0, 0, 0)
+    g1 = ring.interrupt(target=7)
+    g2 = ring.interrupt(target=9)
+    assert (g1, g2) == (1, 2)
+    assert ring.interrupt_info() == (2, 0, 9)
+    ring.ack_interrupt(g1)
+    assert ring.interrupt_info()[:2] == (2, 1)
+    assert ring._intr_pending()                # g2 is still pending
+    ring.ack_interrupt(100)                    # bounded by the latest fire
+    assert ring.interrupt_info()[:2] == (2, 2)
+    assert not ring._intr_pending()
+
+
+def test_pending_generation_wakes_only_real_waits():
+    """A pending interrupt surfaces where a call really blocks, not where
+    its predicate already holds; a later fire survives an ack of an
+    earlier one, so a reader still wakes with RingInterrupted."""
+    ring = _ring("system", "pending")
+    ring.begin_writing()
+    wseq = ring.begin_sequence(_hdr(), 4, 16)
+    with wseq.reserve(4) as sp:
+        sp.data.fill_(1.0)
+    g1 = ring.interrupt(target=1)
+    g2 = ring.interrupt(target=2)
+    ring.ack_interrupt(g1)
+    iseq = ring.open_sequence("earliest")      # ready: no wait, no raise
+    span = iseq.acquire(0, 4)                  # committed: no wait
+    span.release()
+    with pytest.raises(RingInterrupted):       # frames 4..8 would block
+        iseq.acquire(4, 4)
+    ring.ack_interrupt(g2)
+    got = []
+    t = threading.Thread(target=lambda: got.append(
+        iseq.acquire(4, 4).nframe), daemon=True)
+    t.start()
+    time.sleep(0.05)
+    with wseq.reserve(4) as sp:
+        sp.data.fill_(2.0)
+    t.join(5)
+    assert got == [4]
+
+
+def test_interrupt_retry_hook_keeps_an_innocent_waiter():
+    """A supervised waiter asks `_interrupt_retry` whether a fire was
+    meant for it (without the ring's lock): True waits again until the
+    data comes; False raises RingInterrupted."""
+    ring = _ring("system", "retry")
+    ring.begin_writing()
+    wseq = ring.begin_sequence(_hdr(), 4, 16)
+    iseq = ring.open_sequence("earliest")
+    asked = []
+
+    def retry():
+        assert not ring._cond._is_owned()
+        asked.append(1)
+        time.sleep(0.01)
+        return True
+
+    ring._interrupt_retry = retry
+    got = []
+    t = threading.Thread(target=lambda: got.append(
+        iseq.acquire(0, 4).nframe), daemon=True)
+    t.start()
+    time.sleep(0.05)
+    gen = ring.interrupt(target=12345)         # aimed at nobody
+    time.sleep(0.05)
+    ring.ack_interrupt(gen)
+    with wseq.reserve(4) as sp:
+        sp.data.fill_(3.0)
+    t.join(5)
+    assert got == [4] and asked
+    ring._interrupt_retry = lambda: False
+    ring.interrupt()
+    with pytest.raises(RingInterrupted):
+        iseq.acquire(4, 4)
+
+
+class _Fence(object):
+    def __init__(self):
+        self.synced = 0
+
+    def synchronize(self):
+        self.synced += 1
+
+
+@pytest.mark.parametrize("space", SPACES)
+def test_cancel_final_reservations_newest_first(space):
+    """cancel() retires uncommitted reservations without the in-order
+    commit wait, newest first; a non-final one refuses.  The next
+    reservation reuses the bytes, and a host ring's fence has completed
+    before they go back (a 'cuda' ring on the CPU has no stream)."""
+    ring = _ring(space, "cancel")
+    ring.begin_writing()
+    wseq = ring.begin_sequence(_hdr(), 4, 16)
+    with wseq.reserve(4) as sp:
+        sp.data.fill_(1.0)
+    head = ring.reserve_head
+    a, b = wseq.reserve(4), wseq.reserve(4)
+    with pytest.raises(RuntimeError, match="non-final"):
+        a.cancel()
+    fence = _Fence()
+    b.cancel(fence)
+    a.cancel(fence)
+    a.cancel(fence)                            # idempotent
+    assert ring.reserve_head == head and not ring._open_wspans
+    assert fence.synced == 2
+    c = wseq.reserve(4)
+    assert c.offset == a.offset
+    c.data.fill_(2.0)
+    c.commit()
+    wseq.end()
+    ring.end_writing()
+    iseq = ring.open_sequence("earliest")
+    spans = [iseq.acquire(0, 4), iseq.acquire(4, 4)]
+    assert [float(s.data.sum()) for s in spans] == [16.0, 32.0]
+    with pytest.raises(EndOfDataStop):
+        iseq.acquire(8, 4)
+
+
+def test_fault_hooks_fire_before_each_wait():
+    ring = _ring("system", "hooks")
+    seen = []
+    ring._fault_hook = lambda site, r: seen.append((site, r is ring))
+    ring.begin_writing()
+    wseq = ring.begin_sequence(_hdr(), 4, 16)
+    with wseq.reserve(4) as sp:
+        sp.data.fill_(1.0)
+    iseq = ring.open_sequence("earliest")
+    iseq.acquire(0, 4).release()
+    assert seen == [("ring.reserve", True), ("ring.open", True),
+                    ("ring.acquire", True)]
