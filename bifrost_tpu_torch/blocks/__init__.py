@@ -22,6 +22,7 @@ from .sigproc import (read_sigproc, SigprocSourceBlock, write_sigproc,
 from .testing import (array_source, ArraySourceBlock, callback_sink,
                       CallbackSinkBlock, gather_sink)
 from .transpose import transpose, TransposeBlock
+from .udp_capture import udp_capture, UDPCaptureBlock
 
 __all__ = ["accumulate", "AccumulateBlock", "beamform", "BeamformBlock",
            "broadcast_gains", "gaincal", "GainCalBlock", "copy",
@@ -34,4 +35,5 @@ __all__ = ["accumulate", "AccumulateBlock", "beamform", "BeamformBlock",
            "ScrunchBlock", "read_sigproc", "SigprocSourceBlock",
            "write_sigproc", "SigprocSinkBlock", "array_source",
            "ArraySourceBlock", "callback_sink", "CallbackSinkBlock",
-           "gather_sink", "transpose", "TransposeBlock"]
+           "gather_sink", "transpose", "TransposeBlock", "udp_capture",
+           "UDPCaptureBlock"]

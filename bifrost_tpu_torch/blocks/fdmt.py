@@ -4,9 +4,15 @@ python/bifrost/blocks/fdmt.py).  Input axes [..., 'freq', 'time'], output
 [..., 'dispersion', 'time'], with `max_delay` frames of input overlap
 between gulps so each output gulp has its full dispersion history.
 
-The JAX block's host-ring tail carry (staging only the new frames of a
-host-space input) is not ported yet: this block reads the whole
-overlapped span from its input ring.
+Host-ring input (bifrost_tpu/blocks/fdmt.py:179-212): the transform runs
+on the pipeline's device wherever the input ring lies.  A span of a
+'system' ring is staged onto the device, and the block keeps the last
+`max_delay` staged frames there as a carried tail, so after a sequence's
+first gulp only the new frames cross (`gulp` frames a gulp instead of
+`gulp + max_delay`); a frame-offset guard stages the whole span again
+whenever continuity breaks (a sequence start, frames a lossy reader
+skipped).  `_frames_staged` counts the frames staged in the sequence.
+The output ring stays in the input's space, as in the reference.
 
 Fusion: in a fused group (fuse.py) the ring overlap becomes a carry of
 the last max_delay input frames, zeros at the sequence start; the group
@@ -82,6 +88,11 @@ class FdmtBlock(TransformBlock):
         self.fdmt._runtime.resolve_method(self.fdmt.method)
         self._hold_flag_latch("fdmt_method")
         self.plan_report = self.fdmt.plan_report()
+        # The carried input tail of a host-ring input (module docstring),
+        # reset per sequence.
+        self._tail = None
+        self._tail_off = None
+        self._frames_staged = 0
         self._lead_shape = tuple(int(s) for s in itensor["shape"][:-2])
         self._nchan = int(nchan)
         ohdr = deepcopy_header(ihdr)
@@ -117,11 +128,37 @@ class FdmtBlock(TransformBlock):
             return res[..., :n]
         return res[..., res.shape[-1] - n:]
 
+    def _stage_gulp(self, ispan):
+        """The span's (..., nchan, ntime + overlap) input on the block's
+        device: a 'cuda' ring's span as it is, a host ring's staged,
+        only the frames the carried tail does not already hold."""
+        x = ispan.data
+        if ispan.ring.space == "cuda":
+            return x
+        overlap = self.max_delay
+        foff = ispan.frame_offset
+        if self._tail is not None and foff == self._tail_off and \
+                ispan.nframe > overlap:
+            x = torch.cat([self._tail, x[..., overlap:].to(self.device)],
+                          dim=-1)
+            self._frames_staged += ispan.nframe - overlap
+        else:
+            # A copy even on the CPU: the tail must not alias ring bytes.
+            x = x.to(self.device, copy=True)
+            self._frames_staged += ispan.nframe
+        if overlap > 0 and ispan.nframe >= overlap:
+            self._tail = x[..., x.shape[-1] - overlap:]
+            self._tail_off = foff + ispan.nframe - overlap
+        else:
+            self._tail = None
+            self._tail_off = None
+        return x
+
     def on_data(self, ispan, ospan):
         # ispan.data: (..., nchan, ntime + overlap), time last; the output
         # drops the overlap (warm-up) frames.
         n = ospan.nframe
-        store(ospan, self._dedisperse(ispan.data, n))
+        store(ospan, self._dedisperse(self._stage_gulp(ispan), n))
         return n
 
     # ------------------------------------------- fused-carry protocol

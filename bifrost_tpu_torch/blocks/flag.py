@@ -10,8 +10,11 @@ long gulp.  ``window=None`` makes one window per gulp.
 
 Output: the input stream with flagged (window, cell) regions excised,
 zero-filled by default (the multiplicative mask the B/X engines
-assume).  A real integer stream is rounded and clipped back to its
-dtype (unflagged samples pass through exactly), another real stream
+assume).  A gulp of a host ('system') ring, as `frb_search_spec` builds
+the flagger after the capture, is staged onto the block's device,
+flagged there and copied back into the host output span.  A real
+integer stream is rounded and clipped back to its dtype (unflagged
+samples pass through exactly), another real stream
 keeps its dtype, and a complex stream becomes cf32.  A 'cuda' ring
 carrying ci8 is read in raw storage form (`ReadSpan.data_storage`) and
 unpacked before the fill.  Each gulp's boolean mask (nwindows,
@@ -31,6 +34,7 @@ unfused block only.  Not ported: the plan proclog (no proclog yet);
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..DataType import DataType
 from ..ndarray import complex_view
@@ -121,9 +125,17 @@ class RfiFlagBlock(TransformBlock):
             self._raw_read_nbyte += raw.numel() * raw.element_size()
         else:
             x = ispan.data
+            # A host ring's gulp is flagged on the block's device (K5a on
+            # the card) and the result copied back into the host span.
+            stage = ispan.ring.space != "cuda" and \
+                x.device != torch.device(self.device)
+            if stage:
+                x = x.to(self.device)
             if self._dtype.is_complex and self._dtype.is_integer:
                 x = complex_view(x, self._dtype)
-            _, mask = self.flagger.execute(x, out=out)
+            y, mask = self.flagger.execute(x, out=None if stage else out)
+            if stage:
+                out.copy_(y)
         m = mask.cpu().numpy()
         self.last_mask = m.reshape((m.shape[0],) + self._cell_shape)
         self.cells_seen += m.size

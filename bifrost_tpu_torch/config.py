@@ -54,6 +54,14 @@ def _validate_chunk_nbyte(value):
             f"integer >= 4096 bytes, got {value!r}")
 
 
+def _validate_batch_npkt(value):
+    if not isinstance(value, int) or isinstance(value, bool) or \
+            not 1 <= value <= 4096:
+        raise ValueError(
+            f"capture_batch_npkt must be an integer in [1, 4096] "
+            f"(recvmmsg packets per socket call), got {value!r}")
+
+
 def _validate_nonneg_int(name, value):
     if not isinstance(value, int) or isinstance(value, bool) or value < 0:
         raise ValueError(f"{name} must be a non-negative integer, "
@@ -138,6 +146,12 @@ FLAGS = {f.name: f for f in [
          "frame-aligned pieces of at most this size; a pooled gulp is one "
          "copy.  0 stages whole gulps.  Latched per sequence.",
          validate=_validate_chunk_nbyte),
+    Flag("capture_batch_npkt", 64,
+         "recvmmsg batch depth of the UDP capture engine (packets per "
+         "socket call, [1, 4096]): per-batch bookkeeping amortises over "
+         "this many packets.  Read by UDPCaptureBlock when it builds its "
+         "engine (a new value applies to the next engine, not "
+         "mid-stream).", validate=_validate_batch_npkt),
     Flag("service_degrade_margin", 1,
          "Service degraded-mode trigger: when a supervised stage's "
          "remaining restart budget (within its sliding window) drops to "

@@ -30,7 +30,8 @@ import tempfile
 import threading
 
 __all__ = ["ProcLog", "proclog_root", "proclog_dir", "load_by_pid",
-           "supervise_metrics", "service_metrics", "PERF_FLUSH_S"]
+           "capture_metrics", "supervise_metrics", "service_metrics",
+           "PERF_FLUSH_S"]
 
 PERF_FLUSH_S = 0.25   # least seconds between two perf-log writes of a block
 
@@ -166,6 +167,41 @@ def load_by_pid(pid, include_rings=True, root=None):
                 continue
             contents.setdefault(block, {})[parts[-1]] = entry
     return contents
+
+
+def capture_metrics(tree):
+    """UDP-capture rows from a load_by_pid tree (bifrost_tpu/proclog.py:
+    103-135).  The JAX engine keeps a throttled byte-count `stats` log of
+    its own beside the per-sequence `packet_stats` push; the port's engine
+    writes only the push (udp.UDPCapture(stats_name=...)), with the same
+    keys, so a `stats` log is read the same way where one exists: the row
+    with more observed traffic wins.
+
+    -> [{name, good_bytes, missing_bytes, invalid, late, repeat
+         [, good, missing, nsequence]}]."""
+    rows = []
+    for block, logs in sorted(tree.items()):
+        stats = logs.get("stats", {})
+        push = logs.get("packet_stats", {})
+        if push and "ngood_bytes" in push and \
+                push.get("ngood_bytes", 0) >= stats.get("ngood_bytes", 0):
+            rows.append({"name": block,
+                         "good_bytes": push.get("ngood_bytes", 0),
+                         "missing_bytes": push.get("nmissing_bytes", 0),
+                         "invalid": push.get("ninvalid", 0),
+                         "late": push.get("nlate", 0),
+                         "repeat": push.get("nrepeat", 0),
+                         "good": push.get("ngood", 0),
+                         "missing": push.get("nmissing", 0),
+                         "nsequence": push.get("nsequence", 0)})
+        elif stats and "ngood_bytes" in stats:
+            rows.append({"name": block,
+                         "good_bytes": stats.get("ngood_bytes", 0),
+                         "missing_bytes": stats.get("nmissing_bytes", 0),
+                         "invalid": stats.get("ninvalid", 0),
+                         "late": stats.get("nlate", 0),
+                         "repeat": stats.get("nrepeat", 0)})
+    return rows
 
 
 def supervise_metrics(tree):

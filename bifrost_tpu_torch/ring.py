@@ -351,7 +351,12 @@ class Ring(object):
     def begin_sequence(self, header, gulp_nframe=1, buf_nframe=None):
         return WriteSequence(self, header, gulp_nframe, buf_nframe)
 
-    def _sequence_begin(self, header, nringlet):
+    def _sequence_begin(self, header, nringlet, time_tag=None):
+        """Open a sequence; its time tag is the header's "time_tag" unless
+        `time_tag` is given (a writer that passes it separately, as the
+        capture engine does)."""
+        if time_tag is None:
+            time_tag = header.get("time_tag", 0)
         with self._cond:
             if not self._writing:
                 raise RuntimeError(
@@ -364,7 +369,7 @@ class Ring(object):
                     f"sequence nringlet {nringlet} exceeds ring nringlet "
                     f"{self.nringlet} — resize first")
             seq = _Sequence(self._next_seq_id, str(header.get("name", "")),
-                            int(header.get("time_tag", 0)),
+                            int(time_tag),
                             json.dumps(header), nringlet, self.reserve_head)
             self._next_seq_id += 1
             self._sequences.append(seq)

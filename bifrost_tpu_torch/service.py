@@ -5,14 +5,16 @@ build, as bare pipelines.
 
 The runtime (bifrost_tpu/service.py:1-60, 813-1489): `Service(spec)`
 builds a pipeline from the spec's ordered `StageSpec`s (registry kinds
-copy, transpose, fdmt, flag, calibrate, detect, or a `custom` factory),
+capture, copy, transpose, fdmt, flag, calibrate, detect, or a `custom`
+factory),
 runs it under a `supervise.Supervisor` with per-stage restart tiers
 (`DEFAULT_TIERS`), and answers what an operator asks:
 
 - `health()`: a structured snapshot (per-stage heartbeat age, stall %,
-  queued gulps, restart budget left; supervise counters; recovery
-  percentiles; the frame ledger; detection; degraded state), pushed
-  every `service_health_interval_s` to a `<pipeline>/service` ProcLog.
+  queued gulps, restart budget left; the UDP capture's packet counters;
+  supervise counters; recovery percentiles; the frame ledger; detection;
+  degraded state), pushed every `service_health_interval_s` to a
+  `<pipeline>/service` ProcLog (the capture counters as `capture_*`).
 - The `FrameLedger` at the detect sink: committed, lost and duplicated
   frames, and the frames restarts and sheds skipped (lost == dup == 0
   is the invariant).
@@ -36,13 +38,23 @@ clean run sees no heartbeat miss; `device='cpu'` runs every 'cuda'
 ring on the CPU (the tests).  There is no fallback from one to the
 other.
 
-`lwa_instrument_spec(voltages=...)` is the whole instrument as one
-spec, the topology `lwa_instrument_pipeline` builds (one set of
-builders): replay -> H2D -> PFB, the X branch (correlate -> transpose
--> merge_axes into 'vis' -> Romein grid -> FFT -> host -> `on_image`)
-and the B branch (beamform -> transpose -> FDMT -> candidate detect),
-fused as `block_scope(fuse=True)` puts them (copy -> pfb, correlate ->
-image_t and bengine -> bdetect_t -> bdetect_fdmt each one group).
+The socket-fed specs (bifrost_tpu/service.py:260-352), the 24/7 way the
+reference runs its FRB search: `frb_search_spec(sock, ...)` is UDP
+capture [-> rfi flag] -> transpose -> FDMT -> candidate detect on host
+('system') rings, as the reference builds it; the FDMT (and the
+flagger) stage each host gulp onto the pipeline's device and run their
+kernels there (blocks/fdmt.py, blocks/flag.py).  `lwa_frb_search_spec`
+is its LWA geometry (64 sources x 64 B = 4096 channels), a list of
+reuseport sockets giving a list of specs.
+
+`lwa_instrument_spec(voltages=... | sock=...)` is the whole instrument
+as one spec, the topology `lwa_instrument_pipeline` builds (one set of
+builders): replay or UDP capture -> H2D -> PFB, the X branch (correlate
+-> transpose -> merge_axes into 'vis' -> Romein grid -> FFT -> host ->
+`on_image`) and the B branch (beamform -> transpose -> FDMT -> candidate
+detect), fused as `block_scope(fuse=True)` puts them (copy -> pfb,
+correlate -> image_t and bengine -> bdetect_t -> bdetect_fdmt each one
+group).
 
 The bare chains, each -> (pipeline, detector, ledger):
 
@@ -54,9 +66,8 @@ The bare chains, each -> (pipeline, detector, ledger):
 - `lwa_instrument_pipeline`, the whole instrument.
 
 Not ported yet, each raising NotImplementedError where it is asked for:
-UDP capture (the `capture` kind, `sock=`), `frb_search_spec`,
-`lwa_frb_search_spec` and the chaos harness (the rest of ROADMAP A14);
-the `unpack` kind (A1/A5); `map` (A13); `Service.respec` (A15).
+the `unpack` kind and sub-byte capture (A1/A5); `map` (A13);
+`Service.respec` (A15).
 `degrade_shards` is accepted, but with no mesh no shard is ever evicted
 (A16).  The data-quality front end of the beam search (flag -> calibrate
 before the B-engine) is built from blocks, as benchmarks/dq_tpu.py
@@ -84,8 +95,9 @@ from .proclog import ProcLog
 from .supervise import RestartPolicy, Supervisor
 
 __all__ = ["Service", "ServiceSpec", "StageSpec", "FrameLedger",
-           "CandidateDetectBlock", "ServiceExitReport",
-           "lwa_instrument_spec", "frb_search_pipeline",
+           "CandidateDetectBlock", "ServiceExitReport", "frb_search_spec",
+           "lwa_frb_search_spec", "lwa_instrument_spec",
+           "frb_search_pipeline",
            "lwa_beam_search_pipeline", "lwa_instrument_pipeline",
            "DEFAULT_TIERS", "EXIT_CLEAN", "EXIT_DEGRADED", "EXIT_ESCALATED"]
 
@@ -181,7 +193,6 @@ _KIND_TIERS = {
 
 # Kinds the registry knows but the port does not build yet.
 _NOT_PORTED = {
-    "capture": "UDP capture is the next slice (the rest of ROADMAP A14)",
     "unpack": "the unpack block waits for ROADMAP A1/A5",
     "map": "bf.map waits for ROADMAP A13",
 }
@@ -436,6 +447,95 @@ class CandidateDetectBlock(SinkBlock):
                     pass
 
 
+def frb_search_spec(sock, nsrc, max_payload_size, buffer_ntime, slot_ntime,
+                    gulp_nframe, max_delay, threshold=8.0, fmt="simple",
+                    f0_mhz=60.0, df_mhz=0.024, dt_s=1e-3, packet_dtype="u8",
+                    on_candidate=None, rfi_flag=None, **service_kwargs):
+    """The FRB search as a ServiceSpec fed by a socket
+    (bifrost_tpu/service.py:260-316): UDP capture [-> rfi flag] ->
+    transpose -> FDMT -> candidate detect, every ring in the capture's
+    'system' space as the reference builds it; the FDMT and the flagger
+    run on the pipeline's device (module docstring).
+
+    One captured time frame is `nsrc * max_payload_size` bytes of
+    filterbank power, one `packet_dtype` sample per channel;
+    `f0_mhz`/`df_mhz`/`dt_s` scale the axes so the FDMT dedisperses in
+    physical units.  `rfi_flag`: a dict of RfiFlagBlock parameters (e.g.
+    dict(algo='mad', thresh=6.0, window=16)) inserting the flagger
+    between capture and transpose.  A sub-byte `packet_dtype` needs the
+    unpack stage, which is not ported (ROADMAP A1/A5)."""
+    from .DataType import DataType
+    nbit = DataType(packet_dtype).itemsize_bits
+    if nbit < 8:
+        raise NotImplementedError(
+            f"frb_search_spec: packet_dtype {packet_dtype!r} is sub-byte "
+            f"and needs the unpack stage, which is not ported yet "
+            f"(ROADMAP A1/A5)")
+    nchan = int(nsrc) * int(max_payload_size) * 8 // nbit
+
+    def header_cb(seq0):
+        return seq0, {
+            "_tensor": {
+                "dtype": str(packet_dtype),
+                "shape": [-1, nchan],
+                "labels": ["time", "freq"],
+                "scales": [[seq0 * dt_s, dt_s], [f0_mhz, df_mhz]],
+                "units": ["s", "MHz"],
+            },
+        }
+
+    stages = [
+        StageSpec("capture", params=dict(
+            fmt=fmt, sock=sock, nsrc=nsrc, src0=0,
+            max_payload_size=max_payload_size, buffer_ntime=buffer_ntime,
+            slot_ntime=slot_ntime, header_callback=header_cb,
+            reader_gulp_nframe=gulp_nframe)),
+    ]
+    if rfi_flag is not None:
+        flag_params = dict(rfi_flag)
+        flag_params.setdefault("gulp_nframe", gulp_nframe)
+        stages.append(StageSpec("flag", params=flag_params))
+    stages += [
+        StageSpec("transpose", params=dict(axes=["freq", "time"],
+                                           gulp_nframe=gulp_nframe)),
+        StageSpec("fdmt", params=dict(max_delay=max_delay,
+                                      gulp_nframe=gulp_nframe)),
+        StageSpec("detect", params=dict(threshold=threshold,
+                                        on_candidate=on_candidate,
+                                        gulp_nframe=gulp_nframe)),
+    ]
+    return ServiceSpec(stages, **service_kwargs)
+
+
+def lwa_frb_search_spec(sock, nsrc=64, max_payload_size=64,
+                        buffer_ntime=8192, slot_ntime=16, gulp_nframe=64,
+                        max_delay=64, threshold=8.0, f0_mhz=40.0,
+                        df_mhz=0.00928, dt_s=1e-3, **kwargs):
+    """The FRB search at the LWA geometry (bifrost_tpu/service.py:
+    319-352): 64 sources x 64-byte payloads = 4096 channels a frame, the
+    LWA band (40 MHz + 4096 x 9.28 kHz).
+
+    `sock` is one bound capture socket, or a LIST of sockets bound with
+    `UDPSocket.bind(addr, port, reuseport=True)`: then one spec per
+    fanout shard is returned (list in, list out).  Each shard's capture
+    spans the whole source range (the kernel hashes flows, not sources,
+    across the group) into a ring of its own."""
+    if isinstance(sock, (list, tuple)):
+        return [lwa_frb_search_spec(
+                    s, nsrc=nsrc, max_payload_size=max_payload_size,
+                    buffer_ntime=buffer_ntime, slot_ntime=slot_ntime,
+                    gulp_nframe=gulp_nframe, max_delay=max_delay,
+                    threshold=threshold, f0_mhz=f0_mhz, df_mhz=df_mhz,
+                    dt_s=dt_s, **kwargs)
+                for s in sock]
+    return frb_search_spec(sock, nsrc, max_payload_size,
+                           buffer_ntime=buffer_ntime,
+                           slot_ntime=slot_ntime, gulp_nframe=gulp_nframe,
+                           max_delay=max_delay, threshold=threshold,
+                           f0_mhz=f0_mhz, df_mhz=df_mhz, dt_s=dt_s,
+                           **kwargs)
+
+
 def frb_search_pipeline(data, gulp_nframe, max_delay, f0_mhz=40.0,
                         df_mhz=0.00928, dt_s=1e-3, threshold=8.0,
                         device=None, fdmt_method=None, on_candidate=None,
@@ -520,6 +620,45 @@ def _lwa_ingest(voltages, gulp, f0_mhz, dt_s):
         "cfreq": f0_mhz,
         "cfreq_units": "MHz",
     }, name="ingest")
+
+
+def _lwa_capture(sock, capture, nstand, npol, gulp, f0_mhz, dt_s):
+    """The UDP capture of ci8 [time, station, pol] voltages
+    (bifrost_tpu/service.py:443-484), its header naming the spec's gulp
+    (`lwa_instrument_spec`)."""
+    from .blocks import UDPCaptureBlock
+    nsp = int(nstand) * int(npol)
+    cap = dict(capture or {})
+    nsrc = int(cap.pop("nsrc", nstand))
+    payload = int(cap.pop("max_payload_size", max(nsp * 2 // max(nsrc, 1),
+                                                  1)))
+    if nsrc * payload != nsp * 2:
+        raise ValueError(
+            f"capture geometry nsrc*max_payload_size ({nsrc}*{payload}) "
+            f"!= nstand*npol*2 B ({nsp * 2}) of ci8 voltages per time "
+            f"frame")
+
+    def header_cb(seq0):
+        return seq0, {
+            "_tensor": {
+                "dtype": "ci8",
+                "shape": [-1, int(nstand), int(npol)],
+                "labels": ["time", "station", "pol"],
+                "scales": [[seq0 * dt_s, dt_s], None, None],
+                "units": ["s", None, None],
+            },
+            "cfreq": f0_mhz,
+            "cfreq_units": "MHz",
+            "gulp_nframe": gulp,
+        }
+
+    cap.setdefault("fmt", "simple")
+    cap.setdefault("buffer_ntime", 8192)
+    cap.setdefault("slot_ntime", 16)
+    return UDPCaptureBlock(sock=sock, nsrc=nsrc, src0=0,
+                           max_payload_size=payload,
+                           header_callback=header_cb,
+                           reader_gulp_nframe=gulp, name="ingest", **cap)
 
 
 def _lwa_fengine(src, nchan, ntap, coeffs, pfb_method, fuse):
@@ -733,7 +872,8 @@ def lwa_instrument_spec(voltages=None, sock=None, nstand=256, npol=2,
     """The telescope in a box (bifrost_tpu/service.py:355-550): the whole
     instrument as one supervised ServiceSpec, six stages —
 
-        ingest (replay of ci8 [time, station, pol], tier 'capture')
+        ingest (replay or UDP capture of ci8 [time, station, pol],
+                tier 'capture')
           -> fengine: H2D copy -> PFB                    [fused group]
           -> xengine: correlate                          [fused with image_t]
                -> image: transpose -> Romein grid -> FFT -> host
@@ -743,15 +883,21 @@ def lwa_instrument_spec(voltages=None, sock=None, nstand=256, npol=2,
     Both branches read the one F-engine ring: the fengine factory parks
     its block in a closure that the branch factories read (a service
     chain is a list; the branches live in the closure).  Arguments are
-    `lwa_instrument_pipeline`'s; `sock=` / `capture=` (UDP ingest) are
-    not ported yet, so `voltages` is required.  `service_kwargs` go to
-    ServiceSpec.  The detect sink feeds the Service's FrameLedger."""
-    if sock is not None or capture is not None:
-        raise NotImplementedError(
-            "lwa_instrument_spec: UDP capture ingest (sock=) is not "
-            "ported yet (the rest of ROADMAP A14); pass voltages=")
-    if voltages is None:
-        raise ValueError("lwa_instrument_spec needs `voltages` (replay)")
+    `lwa_instrument_pipeline`'s.  Ingest replays `voltages` unless `sock`
+    is given: then a UDP capture stage at the same geometry takes its
+    place, `capture` (a dict) overriding nsrc (default nstand),
+    max_payload_size (default nstand*npol*2 // nsrc), fmt ('simple'),
+    buffer_ntime (8192) and slot_ntime (16); nsrc * max_payload_size
+    must be the nstand*npol*2 bytes of ci8 voltages of one time frame.
+    The capture's header names the spec's gulp as the stream's
+    `gulp_nframe`, so the H2D copy reads the PFB's whole spectra whatever
+    the slot (the JAX spec leaves the capture's slot hint there, which
+    the PFB refuses unless slot_ntime is a multiple of nchan).
+    `service_kwargs` go to ServiceSpec.  The detect sink feeds the
+    Service's FrameLedger."""
+    if (voltages is None) == (sock is None):
+        raise ValueError("lwa_instrument_spec needs exactly one of "
+                         "`voltages` (replay) or `sock` (UDP capture)")
     _check_engine(engine)
     gulp = _lwa_gulp(gulp_nframe, nchan, n_int)
     weights, uvw, kernels = _lwa_planes(nstand, npol, nbeam, ngrid, weights,
@@ -759,7 +905,9 @@ def lwa_instrument_spec(voltages=None, sock=None, nstand=256, npol=2,
     taps = {}
 
     def _ingest(upstream):
-        return _lwa_ingest(voltages, gulp, f0_mhz, dt_s)
+        if sock is None:
+            return _lwa_ingest(voltages, gulp, f0_mhz, dt_s)
+        return _lwa_capture(sock, capture, nstand, npol, gulp, f0_mhz, dt_s)
 
     def _fengine(upstream):
         taps["fengine"] = _lwa_fengine(upstream, nchan, ntap, coeffs,
@@ -926,6 +1074,10 @@ class Service(object):
             return factory(upstream, **params)
         params["name"] = _claim_block_name(
             params.get("name", stage.name), self.name, self._ns_names)
+        if kind == "capture":
+            if upstream is not None:
+                raise ValueError("capture must be the first stage")
+            return blk.UDPCaptureBlock(**params)
         if upstream is None:
             raise ValueError(f"stage {stage.name!r} needs an upstream "
                              f"stage (only 'capture' or a 'custom' "
@@ -1162,6 +1314,12 @@ class Service(object):
                 "budget_remaining": sup.budget_remaining(b),
                 "tier": stage.tier,
             }
+        capture_stats = None
+        for b in self.blocks.values():
+            stats = getattr(b, "stats", None)
+            if isinstance(stats, dict) and "ngood" in stats:
+                capture_stats = stats
+                break
         detect = {}
         for det in self._detect_blocks():
             detect = {"ncandidates": det.ncandidates,
@@ -1178,7 +1336,7 @@ class Service(object):
             "degraded": self.degraded,
             "degrade_episodes": self.degrade_episodes,
             "shard_degraded": False,
-            "capture": None,
+            "capture": capture_stats,
             "blocks": blocks,
             "counters": sup.counters,
             "recovery": sup.recovery_stats(),
@@ -1214,6 +1372,9 @@ class Service(object):
                 entry["recovery_p99_s"] = round(rec["p99_s"], 6)
             entry["availability_pct"] = \
                 snap["availability"]["availability_pct"]
+            cap = snap["capture"]
+            if cap:
+                entry.update({f"capture_{k}": v for k, v in cap.items()})
             entry["snapshot"] = json.dumps(snap, default=str)
             self._proclog.update(entry)
         except Exception:  # noqa: BLE001 — observability only

@@ -169,6 +169,42 @@ Phases, one line each; any failure exits non-zero:
              dropped.  Its launches go into `launches_by_path` as
              `service` (a's first run) and `service_fault` (b).
 
+13. capture — after [service], on its voltages, everything fed from a
+             real UDP socket on loopback through the port's capture
+             engine, packets sent by the port's schedule walker:
+             (a) `Service(lwa_frb_search_spec(rx, gulp_nframe=4096,
+             max_delay=2048))` at [main]'s geometry (64 sources x 64 B =
+             4096 u8 channels) on the first CP_NGULP = 4 gulps of
+             frb_data() (16,384 frames, 1,048,576 packets of 76 B) at
+             64,000 packets/s, real time: nmissing == ninvalid == nlate
+             == 0, every packet landed, lost == dup == 0, every ring in
+             the capture's 'system' space and the FDMT on the card
+             (K1 12 merge steps x 4 gulps, nothing else; the whole
+             stream staged once), the candidates (frame, dm_index)
+             those of frb_search_pipeline on the same frames, SNRs
+             within 1e-5 (the detector runs on a host ring here, on a
+             'cuda' ring there; the FDMT input is the same bytes), the
+             burst found; packets/s sent and ingested, frames/s, host
+             seconds by block.  (b) The same stream asked for at 4x and
+             16x real time (256,000 and 1,024,000 packets/s; one walker
+             thread sends what loopback takes): ngood, nmissing and the
+             rates reported, not asserted, and the highest rate sent
+             without loss named the sustained rate.  (c)
+             `Service(lwa_instrument_spec(sock=rx, capture=CP_X))` at
+             the flagship width, fused as the spec builds it, on the
+             first CP_NINT = 4 integrations of [bengine]'s voltages
+             (262,144 frames, 1,048,576 packets of 268 B) asked at
+             CP_X_RATE packets/s, slots of 4096 frames and a capture
+             ring holding the stream: no packet lost, exit code 0,
+             every image bitwise the replay Service's on the same
+             integrations, launches equal (K2, K4, K6b 4 each).  (d)
+             `benchmarks_torch/frb_service.py`'s `--check` matrix on
+             the card: every scenario passes, the restart storm's
+             replay signature equal across its two runs; its wall
+             time.  Launches go into `launches_by_path` as
+             `capture_frb` (a), `capture_instrument` (c) and `chaos`
+             (d).
+
 The launch checks of every phase count all seven kernels (K1, K2, K4,
 K6a, K6b, K5a, K5b).  The line before the last two holds the kernel
 records as JSON, one for each of those kernels; then the card's name and
@@ -254,8 +290,24 @@ FUSION_PAIRS, FX_NINT, FX_KEEP = 2, 8, 2
 # on the path), Service and bare pipeline in SV_PAIRS turns, SV_KEEP
 # images compared whole; the wedge run SV_WEDGE_NINT deep; the
 # mid-stream stop after SV_STOP_AFTER images with a SV_QUIESCE s quiesce.
-SV_NINT, SV_PAIRS, SV_KEEP = 80, 2, 2
+SV_NINT, SV_PAIRS, SV_KEEP = 80, 1, 2
 SV_WEDGE_NINT, SV_STOP_AFTER, SV_QUIESCE = 4, 3, 30.0
+
+# The capture phase: the FRB search over UDP at [main]'s geometry
+# (lwa_frb_search_spec: 64 sources x 64 B = 4096 u8 channels) on the
+# first CP_NGULP gulps of frb_data(), at real time (1,000 frames/s =
+# 64,000 packets/s) and 4x and 16x; the instrument over UDP
+# (CP_X: 4 sources x 256 B = one 256 x 2 ci8 frame) on the first CP_NINT
+# integrations of [bengine]'s voltages at CP_X_RATE packets/s (about
+# what one schedule walker sends over loopback), slots of 4096 frames
+# (the engine's ring callbacks take the GIL once a slot, and large slots
+# keep the waits on the instrument's host threads few;
+# capture_slots.py compares slot sizes) and a capture ring holding the
+# whole stream; the chaos harness's --check.
+CP_NGULP, CP_NSRC, CP_PAYLOAD = 4, 64, 64
+CP_RATES = (64_000, 256_000, 1_024_000)
+CP_NINT, CP_X_RATE = 4, 100_000
+CP_X = dict(nsrc=4, max_payload_size=256, slot_ntime=4096)
 
 # Device-memory rate by card (NVIDIA data sheets), bytes/s
 _HBM_RATE = (("H200", 4.8e12), ("H100 PCIe", 2.0e12), ("H100", 3.35e12))
@@ -2272,6 +2324,273 @@ def service_path(dev, volt):
     return runs[0]["counts"], f["counts"]
 
 
+def cp_packets(frames, nsrc, rate_pps):
+    """A compiled schedule of `frames` ((nframe, nsrc * payload) uint8)
+    as 'simple' packets, packet (t, s) carrying bytes [s * payload,
+    (s + 1) * payload) of frame t, in order, one every 1 / rate_pps s.
+    -> (slab bytes, records)."""
+    nframe, nbyte = frames.shape
+    payload = nbyte // nsrc
+    pkt = np.empty((nframe, nsrc), dtype=[
+        ("seq", "<u8"), ("src", "<u2"), ("pad", "<u2"),
+        ("payload", "u1", payload)])
+    pkt["seq"] = np.arange(nframe)[:, None]
+    pkt["src"] = np.arange(nsrc)[None, :]
+    pkt["pad"] = 0
+    pkt["payload"] = frames.reshape(nframe, nsrc, payload)
+    return pkt.tobytes(), cp_records(pkt.size, pkt.dtype.itemsize, rate_pps)
+
+
+def cp_records(n, size, rate_pps):
+    from bifrost_tpu_torch.udp import TRANSMIT_RECORD_DTYPE
+    recs = np.zeros(n, dtype=TRANSMIT_RECORD_DTYPE)
+    recs["offset"] = np.arange(n, dtype=np.uint64) * size
+    recs["size"] = size
+    recs["t_ns"] = (np.arange(n) * (1e9 / rate_pps)).astype(np.uint64)
+    return recs
+
+
+def cp_socket():
+    """A capture socket on loopback, port 0, 0.05 s receive timeout;
+    -> (socket, SO_RCVBUF bytes as the kernel granted it)."""
+    import socket as pysock
+    from bifrost_tpu_torch.udp import UDPSocket
+    rx = UDPSocket().bind("127.0.0.1", 0)
+    rx.set_timeout(0.05)
+    s = pysock.socket(fileno=os.dup(rx.fileno()))
+    rcvbuf = s.getsockopt(pysock.SOL_SOCKET, pysock.SO_RCVBUF)
+    s.close()
+    return rx, rcvbuf
+
+
+def cp_drive(svc, capb, rx, slab, recs):
+    """Start `svc`, walk the schedule into `rx`, wait until the capture
+    has drained the socket (its counters still for 0.5 s), stop (the
+    quiesce ends the capture, committing its last windows, and drains the
+    chain).  -> dict of walker stats, the stop's report, wall seconds."""
+    from bifrost_tpu_torch.udp import UDPSocket, UDPTransmit
+    tx_sock = UDPSocket().connect("127.0.0.1", rx.port)
+    tx = UDPTransmit(tx_sock)
+    svc.start()
+    t0 = time.perf_counter()
+    try:
+        tx.start_schedule(slab, recs, batch_npkt=64)
+        walk = tx.wait_schedule()
+        last, still = None, time.perf_counter()
+        deadline = still + 120.0
+        while time.perf_counter() < deadline:
+            cur = capb.stats
+            if cur != last:
+                last, still = cur, time.perf_counter()
+            elif time.perf_counter() - still > 0.5:
+                break
+            time.sleep(0.05)
+        report = svc.stop(timeout=60.0)
+        torch.cuda.synchronize()
+    finally:
+        tx_sock.shutdown()
+        rx.shutdown()
+    wall = time.perf_counter() - t0
+    if svc._run_error is not None:
+        raise svc._run_error
+    return {"walk": walk, "report": report, "wall": wall,
+            "stats": capb.final_stats}
+
+
+def cp_frb_run(dev, slab, recs):
+    """One FRB search over UDP (`Service(lwa_frb_search_spec(rx,
+    gulp_nframe=GULP, max_delay=MAX_DELAY))`) -> run dict."""
+    from bifrost_tpu_torch.service import Service, lwa_frb_search_spec
+    rx, rcvbuf = cp_socket()
+    cands = []
+    svc = Service(lwa_frb_search_spec(
+        rx, nsrc=CP_NSRC, max_payload_size=CP_PAYLOAD, gulp_nframe=GULP,
+        max_delay=MAX_DELAY, f0_mhz=F0, df_mhz=DF, dt_s=DT,
+        on_candidate=cands.append), name="cp_frb", device=dev)
+    reset_counts()
+    r = cp_drive(svc, svc.blocks["capture"], rx, slab, recs)
+    r.update(counts=read_counts(), cands=cands, svc=svc, rcvbuf=rcvbuf)
+    return r
+
+
+def cp_rates(r):
+    """-> (packets/s the walker sent, packets/s the engine landed), both
+    over the walk's wall time."""
+    w = r["walk"]
+    return (w["nsent"] / w["wall_s"], r["stats"]["ngood"] / w["wall_s"])
+
+
+def capture_path(dev, volt):
+    """The socket-fed paths (module docstring, phase 13).  `volt`:
+    [bengine]'s voltages.  -> launch counts of (a) at real time, (c) and
+    (d)."""
+    import importlib.util
+    from bifrost_tpu_torch.service import (Service, frb_search_pipeline,
+                                           lwa_instrument_spec)
+    out = {}
+
+    # (a) The FRB search over UDP at real time, against the replay.
+    data = frb_data()[:CP_NGULP * GULP]
+    nframe = len(data)
+    npkt = nframe * CP_NSRC
+    slab, recs = cp_packets(data, CP_NSRC, CP_RATES[0])
+    a = cp_frb_run(dev, slab, recs)
+    svc = a["svc"]
+    st, rep = a["stats"], a["report"]
+    if st != {"ngood": npkt, "nmissing": 0, "ninvalid": 0, "nlate": 0,
+              "nrepeat": 0}:
+        raise AssertionError(f"capture at {CP_RATES[0]} packets/s: {st}")
+    s = rep.ledger
+    if rep.exit_code != 0 or s["lost_frames"] or s["duplicated_frames"] \
+            or s["committed_frames"] != nframe - MAX_DELAY:
+        raise AssertionError(f"FRB over UDP: {rep!r}")
+    spaces = {r.name: r.space for r in svc.pipeline.rings}
+    fd = svc.blocks["fdmt"]
+    if set(spaces.values()) != {"system"} or \
+            torch.device(fd.device).type != dev.type:
+        raise AssertionError(f"rings {spaces}, fdmt on {fd.device}")
+    nsteps = len(fd.fdmt._steps)
+    if a["counts"] != expected(fdmt_merge_step=nsteps * CP_NGULP) or \
+            fd._frames_staged != nframe:
+        raise AssertionError(f"launches {a['counts']}, expected "
+                             f"{nsteps * CP_NGULP} of K1; staged "
+                             f"{fd._frames_staged} frames")
+    ref = []
+    frb_search_pipeline(data, GULP, MAX_DELAY, F0, DF, DT, device=dev,
+                        on_candidate=ref.append)[0].run()
+    got = a["cands"]
+    if [(c["frame"], c["dm_index"]) for c in got] != \
+            [(c["frame"], c["dm_index"]) for c in ref] or not ref or \
+            any(abs(x["snr"] - y["snr"]) > 1e-5 * abs(y["snr"])
+                for x, y in zip(got, ref)):
+        raise AssertionError(f"candidates over UDP {got} != replay {ref}")
+    best = check_burst(svc.blocks["detect"])
+    sent, ingested = cp_rates(a)
+    perf = {b.name: {k: round(v, 4) for k, v in b.perf_totals.items()}
+            for b in svc.pipeline.blocks}
+    phase("capture", f"(a) Service(lwa_frb_search_spec(rx, gulp_nframe="
+          f"{GULP}, max_delay={MAX_DELAY})): {nframe} frames of {NCHAN} "
+          f"ch as {npkt} packets of {12 + CP_PAYLOAD} B at "
+          f"{CP_RATES[0]} packets/s (SO_RCVBUF {a['rcvbuf']} B): sent "
+          f"{sent:.1f} packets/s, ingested {ingested:.1f}; "
+          f"{nframe / a['wall']:.1f} frames/s through stop(); stats {st}; "
+          f"ledger {s}; rings {sorted(set(spaces.values()))}, the FDMT "
+          f"on {fd.device} ({fd._frames_staged} frames staged); launches "
+          f"{a['counts']}; {len(got)} candidates equal to "
+          f"frb_search_pipeline's in (frame, dm_index), SNR within 1e-5 "
+          f"(largest difference "
+          f"{max(abs(x['snr'] - y['snr']) for x, y in zip(got, ref)):.3g}"
+          f"); burst {best}")
+    phase("capture", f"(a) host seconds by block and phase: "
+          f"{json.dumps(perf)}")
+    out["capture_frb"] = a["counts"]
+    del svc, a
+    free_device()
+
+    # (b) The same stream asked for at 4x and 16x real time: reported
+    # only.  The sustained rate is the highest rate SENT without loss.
+    sustained = sent
+    for rate in CP_RATES[1:]:
+        b = cp_frb_run(dev, slab, cp_records(npkt, 12 + CP_PAYLOAD, rate))
+        sent, ingested = cp_rates(b)
+        st = b["stats"]
+        if st["nmissing"] == 0 and st["ngood"] == npkt:
+            sustained = max(sustained, sent)
+        phase("capture", f"(b) asked {rate} packets/s ({rate // CP_RATES[0]}"
+              f"x real time): sent {sent:.1f} packets/s (walker "
+              f"{b['walk']}), ingested {ingested:.1f}; ngood {st['ngood']}, "
+              f"nmissing {st['nmissing']}, ninvalid {st['ninvalid']}, "
+              f"nlate {st['nlate']}; ledger {b['report'].ledger}; exit "
+              f"code {b['report'].exit_code}")
+        del b
+        free_device()
+    phase("capture", f"(b) sustained capture rate (the highest sent with "
+          f"nmissing == 0): {sustained:.1f} packets/s, "
+          f"{sustained / CP_NSRC:.1f} frames/s of {NCHAN} ch")
+    del slab, recs
+
+    # (c) The instrument over UDP against its replay Service.
+    volt = volt[:CP_NINT * B_GULP]
+    frames = volt.reshape(len(volt), -1).view(np.uint8)
+    npkt = len(volt) * CP_X["nsrc"]
+    slab, recs = cp_packets(frames, CP_X["nsrc"], CP_X_RATE)
+    rx, rcvbuf = cp_socket()
+    imgs, cands = Fingerprints(CP_NINT), []
+    spec = lwa_instrument_spec(
+        sock=rx, capture=dict(CP_X, buffer_ntime=len(volt)),
+        nstand=NSTAND, npol=NPOL, nchan=BCHAN, ntap=NTAP, n_int=N_INT,
+        nbeam=NBEAM, max_delay=B_MAX_DELAY, ngrid=NGRID, f0_mhz=B_F0,
+        dt_s=B_DT, gulp_nframe=B_GULP, on_image=imgs,
+        on_candidate=cands.append)
+    svc = Service(spec, name="cp_x", device=dev)
+    reset_counts()
+    c = cp_drive(svc, svc.blocks["ingest"], rx, slab, recs)
+    counts = read_counts()
+    del slab, recs, svc
+    free_device()
+    rimgs, rcands = Fingerprints(CP_NINT), []
+    rsvc = Service(sv_spec(volt, rimgs, rcands), name="cp_x_replay",
+                   device=dev)
+    reset_counts()
+    rsvc.start()
+    if not rsvc.wait(timeout=600):
+        raise AssertionError("replay service run did not finish")
+    rrep = rsvc.stop()
+    torch.cuda.synchronize()
+    rcounts = read_counts()
+    del rsvc
+    free_device()
+    st, rep = c["stats"], c["report"]
+    want = expected(fir_mac=CP_NINT, beamform_power=CP_NINT,
+                    romein_grid_separable=CP_NINT)
+    if st != {"ngood": npkt, "nmissing": 0, "ninvalid": 0, "nlate": 0,
+              "nrepeat": 0} or rep.exit_code != 0 or \
+            rrep.exit_code != 0 or counts != rcounts or counts != want:
+        raise AssertionError(f"instrument over UDP: stats {st}, launches "
+                             f"{counts} (replay {rcounts}), {rep!r}")
+    if len(imgs.sums) != CP_NINT or imgs.sums != rimgs.sums:
+        raise AssertionError(f"instrument over UDP: {len(imgs.sums)} "
+                             f"images, checksums differ from the replay's")
+    images_equal(imgs, rimgs, CP_NINT)
+    if cands != rcands:
+        raise AssertionError("instrument over UDP: candidates differ")
+    sent, ingested = cp_rates(c)
+    phase("capture", f"(c) Service(lwa_instrument_spec(sock=rx, capture="
+          f"{CP_X} + buffer_ntime {len(volt)})): {CP_NINT} integrations, "
+          f"{len(volt)} frames as {npkt} packets of "
+          f"{12 + CP_X['max_payload_size']} B asked at {CP_X_RATE} "
+          f"packets/s (SO_RCVBUF {rcvbuf} B): sent {sent:.1f}, ingested "
+          f"{ingested:.1f} packets/s; {len(volt) / c['wall']:.1f} frames/s "
+          f"through stop() (real time would be {4 * 10**6} packets/s); "
+          f"stats {st}; exit code 0; {CP_NINT} images bitwise the replay "
+          f"Service's; launches {counts}, the replay's")
+    out["capture_instrument"] = counts
+    del imgs, rimgs
+    free_device()
+
+    # (d) The port's chaos matrix on the card.
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "benchmarks_torch", "frb_service.py")
+    spec_ = importlib.util.spec_from_file_location("torch_frb_service", path)
+    harness = importlib.util.module_from_spec(spec_)
+    spec_.loader.exec_module(harness)
+    reset_counts()
+    t0 = time.perf_counter()
+    rc = harness._check(0, str(dev))
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    if rc != 0 or not counts["fdmt_merge_step"] or \
+            not counts["dq_masked_fill"] or \
+            counts != expected(fdmt_merge_step=counts["fdmt_merge_step"],
+                               dq_masked_fill=counts["dq_masked_fill"]):
+        raise AssertionError(f"chaos --check: rc {rc}, launches {counts}")
+    phase("capture", f"(d) benchmarks_torch/frb_service.py --check on "
+          f"{dev}: every scenario passed, the restart storm's signature "
+          f"equal across its two runs; {wall:.1f} s; launches {counts}")
+    out["chaos"] = counts
+    return out
+
+
 def gs_voltages(g, rng):
     """`g['ndistinct']` frames of ci8 voltages in storage form, (frame,
     chan, time, pol, (re, im)) int8: for the flagship the values of
@@ -2884,6 +3203,9 @@ def main():
     free_device()
     t5c = time.perf_counter()
     counts["service"], counts["service_fault"] = service_path(dev, volt)
+    free_device()
+    t5d = time.perf_counter()
+    counts.update(capture_path(dev, volt))
     del volt, spec
     free_device()
     t6 = time.perf_counter()
@@ -2896,7 +3218,7 @@ def main():
           f"{t2 - t1:.1f} s, frbflag {t3 - t2:.1f} s, bengine "
           f"{t4 - t3:.1f} s, instrument {t5 - t4:.1f} s, dq "
           f"{t5b - t5:.1f} s, fusion {t5c - t5b:.1f} s, service "
-          f"{t6 - t5c:.1f} s, gpuspec "
+          f"{t5d - t5c:.1f} s, capture {t6 - t5d:.1f} s, gpuspec "
           f"{t7 - t6:.1f} s, egress "
           f"{time.perf_counter() - t7:.1f} s")
     by_path = {name: {path: c[name] for path, c in counts.items()}

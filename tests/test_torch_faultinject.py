@@ -5,7 +5,8 @@ counted restart, deterministic replay, a permafault exhausting the
 budget, the source.reserve alias with a delay, an injected interrupt
 absorbed under supervision, a wedge escalating through the deadman, the
 bounded quiesce past a wedge, detach, and the UDP sites through a
-stand-in capture block (no socket).  Then the port's own: the egress
+stand-in capture block (no socket); then a udp.recv raise through a real
+UDPCaptureBlock over loopback.  Then the port's own: the egress
 sites on a DeviceSinkBlock, and the mesh sites, which are refused
 (ROADMAP A16).
 """
@@ -314,6 +315,99 @@ def test_udp_site_unknown_still_rejected():
     plan = FaultPlan()
     with pytest.raises(ValueError):
         plan.raise_at("udp.bogus")
+
+
+def test_udp_recv_raise_through_a_capture_block():
+    """A udp.recv raise through a real UDPCaptureBlock over loopback: one
+    counted restart that ends only the current packet sequence; the
+    engine begins a fresh sequence at the next packet and the sink, which
+    kept its reader, sees it.  The raise is armed once the first
+    sequence's frames reached the sink (a 'call' point whose function
+    raises once), so it lands between the two packet bursts."""
+    import struct
+
+    from bifrost_tpu_torch.blocks.udp_capture import udp_capture
+    from bifrost_tpu_torch.udp import UDPSocket, UDPTransmit
+
+    payload = 64
+
+    def header_cb(seq0):
+        return seq0, {"_tensor": {
+            "dtype": "u8", "shape": [-1, payload], "labels": ["time", "b"],
+            "scales": [[0, 1], [0, 1]], "units": [None, None]}}
+
+    class SeqSink(SinkBlock):
+        def __init__(self, iring, **kwargs):
+            super().__init__(iring, **kwargs)
+            self.seqs = []      # (time_tag, [frames])
+
+        def on_sequence(self, iseq):
+            self.seqs.append((iseq.time_tag, []))
+
+        def on_data(self, ispan):
+            self.seqs[-1][1].append(np.array(ispan.data))
+
+        def nframe(self):
+            return sum(len(c) for _, cs in self.seqs for c in cs)
+
+    rx = UDPSocket().bind("127.0.0.1", 0)
+    rx.set_timeout(0.05)
+    with Pipeline() as pipe:
+        cap = udp_capture("simple", rx, 1, 0, payload, buffer_ntime=256,
+                          slot_ntime=8, header_callback=header_cb,
+                          name="capture")
+        sink = SeqSink(cap, gulp_nframe=8)
+    armed = threading.Event()
+    fired = []
+
+    def raise_once(site, block, obj):
+        if armed.is_set() and not fired:
+            fired.append(site)
+            raise InjectedFault("udp.recv")
+
+    plan = FaultPlan(seed=5)
+    plan.call_at("udp.recv", raise_once, block="capture", count=None)
+    plan.attach(pipe)
+    sup = Supervisor(policy=RestartPolicy(max_restarts=3, backoff=0.01))
+    runner = threading.Thread(target=pipe.run, kwargs={"supervise": sup},
+                              daemon=True)
+    runner.start()
+    tx_sock = UDPSocket().connect("127.0.0.1", rx.port)
+    tx = UDPTransmit(tx_sock)
+
+    def send(seqs):
+        for t in seqs:
+            tx.send(struct.pack("<QHH", t, 0, 0) + bytes([t % 256]) * payload)
+
+    def wait(pred, what):
+        deadline = time.monotonic() + 10
+        while not pred():
+            assert time.monotonic() < deadline, what
+            time.sleep(0.02)
+
+    try:
+        send(range(32))
+        wait(lambda: sink.nframe() >= 16, "first sequence never arrived")
+        armed.set()
+        wait(lambda: sup.counters["restarts"] == 1, "no restart")
+        send(range(1000, 1032))
+        wait(lambda: len(sink.seqs) == 2 and sink.nframe() >= 32 + 16,
+             "no fresh sequence downstream")
+    finally:
+        drain = pipe.shutdown(timeout=5.0)
+        runner.join(timeout=10)
+        plan.detach()
+        rx.shutdown()
+    assert drain.clean
+    assert fired == ["udp.recv"]
+    assert sup.counters["restarts"] == 1 and sup.counters["escalations"] == 0
+    assert cap.nrestart_sequences == 1
+    (t0, a), (t1, b) = sink.seqs
+    assert (t0, t1) == (0, 1000)
+    a, b = np.concatenate(a), np.concatenate(b)
+    assert len(a) == 32 and len(b) == 32
+    for t in range(32):
+        assert (a[t] == t).all() and (b[t] == (1000 + t) % 256).all()
 
 
 @pytest.mark.parametrize("site", ["collective.enter", "shard.dispatch",

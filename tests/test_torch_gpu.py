@@ -932,3 +932,56 @@ def test_deadman_on_a_block_waiting_in_a_cuda_ring(cuda):
     assert marks["deadman_interrupt"] == marks["restart"] == sink.name
     assert sink.nseqs == 2
     assert np.array_equal(np.concatenate(sink.chunks, axis=0), data)
+
+
+@pytest.mark.gpu
+def test_socket_fed_frb_search_dedisperses_on_the_card(cuda):
+    """frb_search_spec over loopback: its rings stay in the capture's
+    'system' space, as the reference builds them, while the FDMT stages
+    each host gulp onto the card and runs kernel K1 there (one launch a
+    merge step a gulp; no CPU fallback), its carried tail holding the
+    staged frames to the stream's length, and the flagger (rfi_flag)
+    runs K5a there too."""
+    import struct
+
+    from bifrost_tpu_torch.ops import dq_kernel
+    from bifrost_tpu_torch.service import Service, frb_search_spec
+    from bifrost_tpu_torch.udp import UDPSocket, UDPTransmit
+
+    nframe, gulp, max_delay = 512, 64, 16
+    rx = UDPSocket().bind("127.0.0.1", 0)
+    rx.set_timeout(0.05)
+    spec = frb_search_spec(rx, 1, 64, buffer_ntime=4096, slot_ntime=16,
+                           gulp_nframe=gulp, max_delay=max_delay,
+                           rfi_flag=dict(algo="mad", window=16))
+    svc = Service(spec, name="frb_sock_card")
+    fdmt_block = svc.blocks["fdmt"]
+    svc.start()
+    k1 = fdmt_kernel.merge_step.launches
+    k5a = dq_kernel.masked_fill.launches
+    tx_sock = UDPSocket().connect("127.0.0.1", rx.port)
+    tx = UDPTransmit(tx_sock)
+    for t in range(nframe):
+        tx.send(struct.pack("<QHH", t, 0, 0) +
+                bytes((t * 7 + 13 * c) % 23 + 10 for c in range(64)))
+        if t % 64 == 63:
+            time.sleep(0.01)
+    # The capture commits its last two windows at its end, so the stream's
+    # last gulp waits for stop(); every gulp before it arrives first.
+    det = svc.blocks["detect"]
+    deadline = time.monotonic() + 30
+    while det.frames_seen < nframe - 2 * gulp - max_delay:
+        assert time.monotonic() < deadline, det.frames_seen
+        time.sleep(0.05)
+    time.sleep(0.5)
+    report = svc.stop(timeout=30.0)
+    rx.shutdown()
+    assert report.exit_code == 0
+    assert {r.space for r in svc.pipeline.rings} == {"system"}
+    assert svc.pipeline.device.type == "cuda"
+    nsteps = len(fdmt_block.fdmt._steps)
+    ngulp = nframe // gulp
+    assert fdmt_kernel.merge_step.launches - k1 == nsteps * ngulp
+    assert dq_kernel.masked_fill.launches - k5a > 0
+    assert fdmt_block._frames_staged == nframe
+    assert report.ledger["committed_frames"] == nframe - max_delay

@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither JAX nor the JAX package (nor
-loads its native library), its CUDA sources include nothing of it, and
-its entry points refuse to run without a card unless asked for the CPU."""
+loads its native library), its CUDA and host C++ sources include nothing
+of it, its harness (benchmarks_torch/) imports neither, and its entry
+points refuse to run without a card unless asked for the CPU."""
 
 import ast
 import os
@@ -45,7 +46,9 @@ def _imported_modules(path):
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) +
                          [ROOT / "chip_smoke.py", ROOT / "romein_bounds.py",
-                          ROOT / "kernel_variants.py", ROOT / "chain_ab.py"],
+                          ROOT / "kernel_variants.py", ROOT / "chain_ab.py",
+                          ROOT / "capture_slots.py"] +
+                         sorted((ROOT / "benchmarks_torch").glob("*.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_no_jax(path):
     for mod in _imported_modules(path):
@@ -65,6 +68,28 @@ def test_cuda_sources_include_nothing_of_the_reference(path):
         if line.lstrip().startswith("#include"):
             assert "jax" not in line and "bifrost" not in line, line
             assert line.split()[1][0] == "<", line
+
+
+@pytest.mark.parametrize("path", sorted((PKG / "csrc").glob("*.cpp")) +
+                         sorted((PKG / "csrc").glob("*.h")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_host_sources_include_nothing_of_the_reference(path):
+    """The UDP data plane's C++ sources are the port's own copies: they
+    include system headers and the port's own header beside them, nothing
+    of cpp/, and name no symbol of the JAX package's library."""
+    text = path.read_text()
+    assert "libbifrost_tpu" not in text, path
+    for line in text.splitlines():
+        if line.lstrip().startswith("#include"):
+            inc = line.split()[1]
+            assert "bifrost" not in inc and "jax" not in inc, line
+            assert "btcore" not in inc and "internal.hpp" not in inc, line
+            if inc[0] == '"':
+                assert (PKG / "csrc" / inc.strip('"')).exists(), line
+            else:
+                assert inc[0] == "<", line
+    for sym in ("btRing", "btSocket", "btUdp", "btProcLog"):
+        assert sym not in text, (path, sym)
 
 
 def test_pipeline_without_device_needs_a_card(monkeypatch):

@@ -6,8 +6,8 @@ tests/test_service.py on the port (`device='cpu'`), on small chains of
 ledger, the health snapshot and its ProcLog, a restart's ledger
 accounting, degraded mode, the shed path, escalation, the detector, and
 the proclog namespace guard.  The twelfth JAX case,
-`test_lwa_frb_search_spec_geometry_and_shards`, needs UDP sockets and
-waits for the capture slice.
+`test_lwa_frb_search_spec_geometry_and_shards`, needs UDP sockets: it is
+in test_torch_capture_service.py.
 
 Then the whole instrument: the port's `Service(lwa_instrument_spec(
 voltages=...), device='cpu')` against the JAX `Service` of the same spec
@@ -330,9 +330,18 @@ def test_service_needs_a_card_or_a_device(monkeypatch):
 
 @pytest.mark.parametrize("kind", ["capture", "unpack", "map"])
 def test_unported_kinds_raise(kind):
+    """unpack and map raise NotImplementedError naming their ROADMAP
+    item.  capture is ported: a capture stage without its socket and
+    geometry raises TypeError, and one after another stage ValueError
+    (it can only start a chain), as the JAX registry does."""
+    if kind == "capture":
+        with pytest.raises(TypeError):
+            _service(_spec([StageSpec(kind)]))
+        with pytest.raises(ValueError, match="first stage"):
+            _service(_spec([_source_stage(), StageSpec(kind)]))
+        return
     params = {"func": None} if kind == "map" else {}
-    stages = [_source_stage(), StageSpec(kind, params=params)] \
-        if kind != "capture" else [StageSpec(kind)]
+    stages = [_source_stage(), StageSpec(kind, params=params)]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _service(_spec(stages))
 
