@@ -13,6 +13,7 @@ from .flag import rfi_flag, RfiFlagBlock
 from .guppi_raw import (read_guppi_raw, GuppiRawSourceBlock,
                         write_guppi_raw, GuppiRawSinkBlock)
 from .pfb import pfb, PfbBlock
+from .quantize import quantize, QuantizeBlock
 from .reduce import reduce, ReduceBlock
 from .reverse import reverse, ReverseBlock
 from .romein import romein, GridderBlock
@@ -23,6 +24,9 @@ from .testing import (array_source, ArraySourceBlock, callback_sink,
                       CallbackSinkBlock, gather_sink)
 from .transpose import transpose, TransposeBlock
 from .udp_capture import udp_capture, UDPCaptureBlock
+from .unpack import unpack, UnpackBlock
+from .convert_visibilities import (convert_visibilities,
+                                   ConvertVisibilitiesBlock)
 
 __all__ = ["accumulate", "AccumulateBlock", "beamform", "BeamformBlock",
            "broadcast_gains", "gaincal", "GainCalBlock", "copy",
@@ -36,4 +40,6 @@ __all__ = ["accumulate", "AccumulateBlock", "beamform", "BeamformBlock",
            "write_sigproc", "SigprocSinkBlock", "array_source",
            "ArraySourceBlock", "callback_sink", "CallbackSinkBlock",
            "gather_sink", "transpose", "TransposeBlock", "udp_capture",
-           "UDPCaptureBlock"]
+           "UDPCaptureBlock", "quantize", "QuantizeBlock", "unpack",
+           "UnpackBlock", "convert_visibilities",
+           "ConvertVisibilitiesBlock"]

@@ -9,7 +9,8 @@ device once per sequence.  A gulp is split at integration boundaries,
 mid-gulp where the integration length is not a multiple of the gulp
 (`integrate_chunks`), and the partial sum carries across gulps, so the
 powers do not depend on how the stream is cut.  A 'cuda' ring carrying
-ci8 is read in raw storage form (`ReadSpan.data_storage`, 2 B/sample).
+ci8 or ci4 is read in raw storage form (`ReadSpan.data_storage`, 2 or 1
+B/sample).
 
 Input axes: any order of (time, freq, station, pol) labels with time as
 the frame axis; output [-1, nbeam, nchan] f32 labelled (time, beam,
@@ -292,7 +293,7 @@ class BeamformBlock(TransformBlock):
 
     def device_kernel_carry_raw(self, dtype):
         """The same on ci8 ring storage (kernel K4 reading it at 2
-        B/sample)."""
+        B/sample) or packed ci4 (unpacked to ci8 first)."""
         return self._step(True)
 
     def fused_carry_init(self):

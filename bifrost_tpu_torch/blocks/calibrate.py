@@ -12,7 +12,8 @@ a full-size table applies per cell.  `set_gains()` stages a table that
 applies at the next gulp boundary.  The output header loses the
 ``cal_gains`` key and gains ``cal_applied``, so the engines downstream
 do not fold the same table again.  Output: cf32 for complex input
-(ci8 on a 'cuda' ring is read in raw storage form), f32 for real input.
+(ci8 or ci4 on a 'cuda' ring is read in raw storage form), f32 for real
+input.
 
 For a B-engine consumer, folding the gains into the beamform weights
 (`BeamformBlock(gains=...)`) gives the same beams with no pass over the
@@ -200,7 +201,8 @@ class GainCalBlock(TransformBlock):
         return step
 
     def device_kernel_carry_raw(self, dtype):
-        """The same on ci8 ring storage (the plan's `execute_raw`)."""
+        """The same on ci8 or ci4 ring storage (the plan's
+        `execute_raw`)."""
         def step(raw, carry, consts):
             self._apply_pending()
             return self.cal.execute_raw(raw, dtype), carry

@@ -16,8 +16,8 @@ flagged there and copied back into the host output span.  A real
 integer stream is rounded and clipped back to its dtype (unflagged
 samples pass through exactly), another real stream
 keeps its dtype, and a complex stream becomes cf32.  A 'cuda' ring
-carrying ci8 is read in raw storage form (`ReadSpan.data_storage`) and
-unpacked before the fill.  Each gulp's boolean mask (nwindows,
+carrying ci8 or ci4 is read in raw storage form (`ReadSpan.data_storage`)
+and unpacked before the fill.  Each gulp's boolean mask (nwindows,
 *cell_shape) is kept on ``last_mask``, handed to ``on_mask`` (an
 observer: its errors are swallowed) and counted in
 ``flagged_fraction``; ``baseline_resets`` counts the cold starts (one
@@ -169,7 +169,7 @@ class RfiFlagBlock(TransformBlock):
         return step
 
     def device_kernel_carry_raw(self, dtype):
-        """The same on ci8 ring storage (the plan's `step_raw`); the
+        """The same on ci8 or ci4 ring storage (the plan's `step_raw`); the
         baseline is shared with the logical form."""
         def step(raw, state, consts):
             y, _, state = self.flagger.step_raw(raw, dtype, state)

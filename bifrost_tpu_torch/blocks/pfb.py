@@ -7,9 +7,10 @@ version for the MAC; the DFT matmuls are shared; the (ntap-1)-frame
 history carries between gulps inside the plan, so split gulps are
 bitwise equal to one long gulp.
 
-ci8 ingest: a 'cuda' ring carrying ci8 is read in raw storage form
+ci8/ci4 ingest: a 'cuda' ring carrying ci8 is read in raw storage form
 (`ReadSpan.data_storage`, 2 B/sample), which the MAC kernel reads as it
-lies; the channelized gulp is written straight into the output span.
+lies; packed ci4 (1 B/sample) is unpacked to that form first.  The
+channelized gulp is written straight into the output span.
 
 Layout: the frame (streaming) axis must be time and must lead; every
 other axis is a stream sharing the prototype.  Output: [-1, nchan,
@@ -179,8 +180,8 @@ class PfbBlock(TransformBlock):
 
     def device_kernel_carry_raw(self, dtype):
         """The same on ci8 ring storage (the plan's `step_raw`, kernel
-        K2 reading the voltages at 2 B/sample); the history is shared
-        with the logical form."""
+        K2 reading the voltages at 2 B/sample) or packed ci4 (unpacked
+        to ci8 first); the history is shared with the logical form."""
         def step(raw, state, consts):
             n = self._whole(raw.shape[0])
             return (None, state) if n == 0 else \

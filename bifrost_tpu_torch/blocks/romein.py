@@ -14,7 +14,9 @@ computed on the device (the JAX `bin_to_tiles_device` path) are not
 ported yet.  `method=` (None reads the `romein_method` config flag) is
 resolved once per sequence and latched.  Every frame is one launch of
 K6b (rank-1 kernels) or K6a (any other kernel) over all planes, written
-straight into the output span.  The raw ci4 read waits for ci4.
+straight into the output span.  A 'cuda' ring carrying ci4 or ci8 is read
+in raw storage form (`ReadSpan.data_storage`, 1 or 2 B/sample), unpacked
+to complex and then gridded, as the JAX block's raw ingest does.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 
 from ..ndarray import complex_view
 from ..ops.romein import Romein
+from ..ops.runtime import staged_unpack
 from ..pipeline import TransformBlock
 from ._common import deepcopy_header
 
@@ -77,6 +80,8 @@ class GridderBlock(TransformBlock):
         # Resolved once per sequence, the flag latched.
         self.romein.method = self.romein._resolve()
         self._hold_flag_latch("romein_method")
+        self._raw_reads = 0        # gulps read in raw storage form
+        self._raw_read_nbyte = 0   # bytes those reads covered
         ohdr = deepcopy_header(ihdr)
         ot = ohdr["_tensor"]
         ot["dtype"] = "cf32"
@@ -90,10 +95,18 @@ class GridderBlock(TransformBlock):
 
     def on_data(self, ispan, ospan):
         nframe = min(ispan.nframe, ospan.nframe)
-        x, out = ispan.data, ospan.data
-        if self._dtype.is_complex and self._dtype.is_integer:
-            x = complex_view(x, self._dtype)
-        elif not x.is_complex():
+        out = ospan.data
+        raw = ispan.data_storage
+        if raw is not None:
+            re, im = staged_unpack(raw, self._dtype)
+            x = torch.complex(re, im)
+            self._raw_reads += 1
+            self._raw_read_nbyte += raw.numel() * raw.element_size()
+        elif self._dtype.is_complex and self._dtype.is_integer:
+            x = complex_view(ispan.data, self._dtype)
+        else:
+            x = ispan.data
+        if not x.is_complex():
             x = x.to(torch.complex64)
         n = self.ngrid
         for f in range(nframe):

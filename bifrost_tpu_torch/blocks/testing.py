@@ -9,7 +9,7 @@ import numpy as np
 import torch
 
 from ..DataType import DataType
-from ..ndarray import structured_to_pair
+from ..ndarray import logical_shape, structured_to_pair
 from ..pipeline import SourceBlock, SinkBlock
 
 __all__ = ["ArraySourceBlock", "array_source",
@@ -44,7 +44,7 @@ class ArraySourceBlock(SourceBlock):
         dt = self.header_override.get("dtype")
         self._pairs = (self.data_arr.dtype.names is None and dt is not None
                        and DataType(dt).is_complex and
-                       DataType(dt).is_integer)
+                       DataType(dt).is_integer and DataType(dt).nbit >= 8)
         if self._pairs and self.data_arr.shape[-1] != 2:
             raise ValueError(f"{dt} storage needs a trailing (re, im) axis "
                              f"of 2, got shape {self.data_arr.shape}")
@@ -60,6 +60,10 @@ class ArraySourceBlock(SourceBlock):
         arr = self.data_arr
         ov = self.header_override
         shape = arr.shape[:-1] if self._pairs else arr.shape
+        dt = ov.get("dtype")
+        if dt is not None and DataType(dt).itemsize_bits < 8:
+            # Packed storage folds the last axis: the header's is logical.
+            shape = logical_shape(shape, dt)
         ndim = len(shape)
         hdr = {
             "name": str(name),

@@ -113,6 +113,12 @@ FLAGS = {f.name: f for f in [
          "K5b for a CUDA tensor, its plain PyTorch version for a CPU "
          "tensor) or 'plain' (the plain version on any device).  Latched "
          "per sequence by GainCalBlock."),
+    Flag("xengine_method", "auto",
+         "Default int8 X-engine method: 'auto'/'cuda' (kernel X1 for a "
+         "CUDA tensor, its plain PyTorch version for a CPU tensor) or "
+         "'plain' (the plain version on any device).  The port's kernel "
+         "selector only: the JAX engine is jnp, with no such flag.  "
+         "Latched per sequence by CorrelateBlock(engine='int8')."),
     Flag("fft_method", "auto",
          "Default FFT engine: 'auto'/'torch' (torch.fft: cuFFT on the "
          "card).  The JAX package's 'xla' and MXU 'matmul*' engines are "

@@ -51,9 +51,19 @@ Rules, as the JAX planner's
     (``gulp_pinned``).  A gulp on which an integrator emits nothing ends
     the chain there: the unfused blocks downstream get no gulp either.
 
-A stage whose input is complex-integer ring storage (ci8 from an H2D
-head or a device ring) takes the block's ``device_kernel_carry_raw``
-form, as its unfused ``on_data`` reads ``ReadSpan.data_storage``.
+A stage whose input is complex-integer ring storage (ci8 pairs or
+packed ci4, from an H2D head or a device ring) takes the block's
+``device_kernel_carry_raw`` form, as its unfused ``on_data`` reads
+``ReadSpan.data_storage``.
+
+Storage-form stages: every stage's input is what its ring read would
+hand it, the ring's storage form, so a quantize stage
+(``fused_output_form = "storage"``) feeds its successor as its ring
+would, and an unpack may take packed storage from any predecessor (the
+JAX group lifts packed H2D input in-program, so there an unpack must
+follow a sub-byte quantize).  A quantize to a sub-byte REAL type folds
+several values a byte, which the next stage's header shape cannot hold:
+it may end a group, not extend one (``dtype_incompatible``).
 
 The JAX planner's third rule, ``mesh_chain``, needs the mesh layer
 (parallel/, not ported): its ``mesh_*`` reasons stay in ``REASONS`` and
@@ -279,10 +289,8 @@ def _tail_ok(b):
 
 def _boundary_extends(b):
     """May the chain extend past `b`?  A stage handing on storage the
-    next stage's header reshape cannot represent (the JAX quantize
-    block's sub-byte real output) may end a chain, not continue it.  No
-    block of the port hands on storage form yet (quantize is not
-    ported)."""
+    next stage's header reshape cannot represent (a quantize to a
+    sub-byte real type) may end a chain, not continue it."""
     if getattr(b, "fused_output_form", "logical") == "storage":
         return _boundary_reshape_safe(b.dtype)
     return True
@@ -540,12 +548,13 @@ def _segment_fn(group, stages, stateful, drop):
 
 
 def _lift_step(step, dtype):
-    """A logical-form carry step fed complex-integer ring storage: the
-    lift its unfused block applies (`ndarray.complex_view`)."""
-    from .ndarray import complex_view
+    """A logical-form carry step fed complex-integer ring storage (ci8
+    and wider pairs, packed ci4): lifted to complex64 first."""
+    import torch
+    from .ops.runtime import staged_unpack
 
     def lifted(x, carry, consts):
-        return step(complex_view(x, dtype), carry, consts)
+        return step(torch.complex(*staged_unpack(x, dtype)), carry, consts)
     return lifted
 
 
@@ -579,7 +588,7 @@ class StatefulChainBlock(FusedChainBlock):
                 kinds.append("plain")
                 continue
             dt = self._in_dtypes[i]
-            if dt.is_complex and dt.is_integer and dt.nbit >= 8:
+            if dt.is_complex and dt.is_integer:
                 raw = getattr(c, "device_kernel_carry_raw", None)
                 fns.append(raw(str(dt)) if raw is not None else
                            _lift_step(c.device_kernel_carry(), dt))
@@ -615,7 +624,7 @@ class StatefulChainBlock(FusedChainBlock):
         dt = self._in_dtypes[0]
         self._raw_head = self.constituents[0] \
             if self._stage_kinds[0] != "plain" and dt.is_complex and \
-            dt.is_integer and dt.nbit >= 8 else None
+            dt.is_integer else None
         self._raw_reads = 0        # gulps read in raw int storage form
         self._raw_read_nbyte = 0   # bytes those reads covered
         return hdr

@@ -21,7 +21,7 @@ from .memory import Space, space_device
 def _storage_shape(shape, dtype):
     """Logical shape -> storage shape for packed types (fold last axis)."""
     dtype = DataType(dtype)
-    if dtype.nbit >= 8:
+    if dtype.itemsize_bits >= 8:        # ci4 packs one sample a byte
         return tuple(shape)
     vals_per_byte = 8 // dtype.itemsize_bits
     shape = tuple(shape)
@@ -72,20 +72,24 @@ def logical_shape(storage_shape, dtype):
             raise ValueError(f"{dt} storage needs a trailing (re, im) axis "
                              f"of 2, got shape {shape}")
         return shape[:-1]
-    if dt.nbit < 8:
+    if dt.itemsize_bits < 8:
         return shape[:-1] + (shape[-1] * (8 // dt.itemsize_bits),)
     return shape
 
 
 def complex_view(t, dtype):
     """The logical complex64 value of a complex-integer storage tensor
-    (ci8/ci16/ci32: trailing (re, im) axis of 2), lifted exactly; a
-    complex tensor passes through."""
+    (ci8/ci16/ci32: trailing (re, im) axis of 2; ci4: packed bytes, one
+    sample a byte), lifted exactly; a complex tensor passes through."""
     dt = DataType(dtype)
     if t.is_complex():
         return t
-    if not (dt.is_complex and dt.is_integer and dt.nbit >= 8):
-        raise ValueError(f"complex_view expects ci8 or wider, got {dt}")
+    if not (dt.is_complex and dt.is_integer):
+        raise ValueError(f"complex_view expects a complex-integer type, "
+                         f"got {dt}")
+    if dt.nbit < 8:
+        from .ops.unpack import unpack_pairs
+        t = unpack_pairs(t, dt)
     return torch.complex(t[..., 0].float(), t[..., 1].float())
 
 

@@ -7,10 +7,13 @@ from .fdmt import Fdmt, plan_from_reference
 from .fft import Fft
 from .fftshift import fftshift
 from .flag import Flag, flag
+from .linalg import LinAlg
 from .pfb import Pfb, pfb, pfb_coeffs
+from .quantize import Quantize, quantize, quantize_to
 from .reduce import REDUCE_OPS, reduce, reduce_to
 from .romein import Romein, separate_kernels
 from .transpose import transpose
+from .unpack import Unpack, unpack
 from . import stats
 
 __all__ = ["Beamform", "GainCal", "calibrate", "decode_gains",
@@ -18,4 +21,5 @@ __all__ = ["Beamform", "GainCal", "calibrate", "decode_gains",
            "plan_from_reference", "Fft", "fftshift", "Flag", "flag",
            "Pfb", "pfb", "pfb_coeffs", "REDUCE_OPS", "reduce", "reduce_to",
            "Romein", "separate_kernels",
-           "transpose", "stats"]
+           "transpose", "stats", "LinAlg", "Quantize", "quantize",
+           "quantize_to", "Unpack", "unpack"]

@@ -22,7 +22,7 @@ no padding, so none of that is ported.  Weights are staged to the device
 once per `set_weights` (once per block sequence) as one (nbeam, nsp)
 complex64 tensor.  ``execute_raw`` takes ci8 ring storage in header axis
 order and hands it to the kernel at 2 B/sample after at most one
-transpose.  The mesh variants (station tensor parallelism, beam
+transpose; packed ci4 storage is unpacked to that form first.  The mesh variants (station tensor parallelism, beam
 sharding) are not ported.
 """
 
@@ -35,6 +35,7 @@ from ..DataType import DataType
 from .beamform_kernel import beamform_power, beamform_power_plain
 from .common import finalize
 from .runtime import OpRuntime
+from .unpack import unpack_pairs
 
 
 def tiled_power(x, w, method="cuda"):
@@ -124,16 +125,19 @@ class Beamform(object):
         return finalize(res, out=odata)
 
     def execute_raw(self, raw, dtype, perm=(0, 1, 2, 3)):
-        """Raw ci8 ring storage in header axis order (4 logical axes and
-        the trailing (re, im) axis); ``perm`` takes it to (time, freq,
+        """Raw ring storage in header axis order: packed ci4 (4 logical
+        axes) or ci8 (4 logical axes and the trailing (re, im) axis); ``perm`` takes it to (time, freq,
         station, pol).  -> (nbeam, nchan) f32."""
         dt = DataType(dtype)
         if not (dt.is_complex and dt.is_integer):
             raise ValueError(f"beamform: execute_raw expects a "
                              f"complex-integer dtype, got {dt}")
-        if dt.nbit != 8:
-            raise NotImplementedError(f"beamform: {dt} storage is not "
-                                      f"ported yet (ci8 only)")
+        if dt.nbit == 4:
+            # Packed ci4 becomes its ci8 pair form, which K4 reads as is.
+            raw = unpack_pairs(raw, dt)
+        elif dt.nbit != 8:
+            raise ValueError(f"beamform: execute_raw takes ci4 or ci8 "
+                             f"storage, got {dt}")
         perm = tuple(perm)
         if perm != (0, 1, 2, 3):
             raw = raw.permute(perm + (4,))

@@ -29,7 +29,7 @@ import torch
 from ..DataType import DataType
 from . import dq_kernel
 from .common import prepare
-from .runtime import OpRuntime, staged_unpack_canonical
+from .runtime import OpRuntime, staged_unpack
 
 
 def fold_gains(weights, gains=None, mask=None):
@@ -177,10 +177,9 @@ class GainCal(object):
 
     def execute_raw(self, raw, dtype, out=None):
         """Raw ring storage of a complex-integer gulp (time-first header
-        order, ci8 and wider) -> complex64 of the logical shape, unpacked
-        with `staged_unpack_canonical` and then calibrated."""
-        re, im = staged_unpack_canonical(raw, DataType(dtype),
-                                         range(raw.dim() - 1))
+        order: packed ci4, or ci8 and wider) -> complex64 of the logical
+        shape, unpacked with `staged_unpack` and then calibrated."""
+        re, im = staged_unpack(raw, DataType(dtype))
         shape = re.shape
         ntime = shape[0]
         x = torch.complex(re.reshape(ntime, -1), im.reshape(ntime, -1))

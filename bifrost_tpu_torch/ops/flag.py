@@ -50,7 +50,7 @@ import torch
 from ..DataType import DataType
 from . import dq_kernel
 from .common import prepare
-from .runtime import OpRuntime, staged_unpack_canonical
+from .runtime import OpRuntime, staged_unpack
 from .stats import MAD_EPS, MAD_SIGMA, median, spectral_kurtosis
 
 WARM_CAP = 2.0 ** 20
@@ -299,9 +299,9 @@ class Flag(object):
 
     def execute_raw(self, raw, dtype, out=None):
         """Raw ring storage of a complex-integer gulp (time-first header
-        order, ci8 and wider: the trailing (re, im) axis of 2) -> (y
-        complex64 of the logical shape, mask); unpacked with
-        `staged_unpack_canonical`, then flagged as `execute` flags a
+        order: packed ci4 bytes, or ci8 and wider with the trailing (re,
+        im) axis of 2) -> (y complex64 of the logical shape, mask);
+        unpacked with `staged_unpack`, then flagged as `execute` flags a
         complex gulp (the same carried baseline)."""
         return self.step_raw(raw, dtype, None, out)[:2]
 
@@ -315,7 +315,7 @@ class Flag(object):
             raise ValueError(f"flag: execute_raw expects (ntime, "
                              f"...cell...) storage, got shape "
                              f"{tuple(raw.shape)}")
-        re, im = staged_unpack_canonical(raw, dt, range(raw.dim() - 1))
+        re, im = staged_unpack(raw, dt)
         shape = re.shape
         ntime = shape[0]
         re, im = re.reshape(ntime, -1), im.reshape(ntime, -1)

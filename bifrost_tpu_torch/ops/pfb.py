@@ -22,7 +22,9 @@ full nchan-point complex DFT.  Raw ci8 ring storage (`execute_raw`, the
 trailing (re, im) axis of 2) folds into the MAC's lane layout as it lies,
 so the kernel reads the voltages at 2 B/sample and lifts them to f32 in
 registers (the JAX package's storage-width ingest, ops/pfb.py:37-41).
-ci4 storage is not ported yet.
+Packed ci4 storage is first unpacked to that (re, im) int8 form
+(`ops.unpack.unpack_pairs`), the values the JAX package's
+`staged_unpack_canonical` gives its MAC.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from ..ndarray import complex_view, structured_to_pair
 from .common import finalize
 from .pfb_kernel import _dft_mats, fold_frames, pfb_tiled
 from .runtime import OpRuntime
+from .unpack import unpack_pairs
 
 
 def pfb_coeffs(nchan, ntap, window="hamming"):
@@ -198,8 +201,8 @@ class Pfb(object):
         return y.reshape((y.shape[0], self.nchan) + chan_shape), state
 
     def execute_raw(self, raw, dtype, out=None):
-        """Raw ring-storage gulp (time-first, ci8 or wider with its
-        trailing (re, im) axis) -> complex64 (ntime // nchan, nchan,
+        """Raw ring-storage gulp (time-first: packed ci4 bytes, or ci8
+        or wider with its trailing (re, im) axis) -> complex64 (ntime // nchan, nchan,
         ...stream...), into `out` when given, carrying the state shared
         with `execute` for the same stream."""
         return self.step_raw(raw, dtype, None, out)[0]
@@ -212,8 +215,8 @@ class Pfb(object):
             raise ValueError(f"pfb: execute_raw expects a complex-integer "
                              f"dtype, got {dt}")
         if dt.nbit < 8:
-            raise NotImplementedError(f"pfb: packed {dt} storage is not "
-                                      f"ported yet")
+            # Packed ci4 becomes its ci8 pair form, which K2 reads as is.
+            raw = unpack_pairs(raw, dt)
         if raw.dim() < 2 or raw.shape[-1] != 2:
             raise ValueError(
                 f"pfb: execute_raw expects (ntime, ...stream..., 2) "

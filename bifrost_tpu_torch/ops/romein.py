@@ -41,10 +41,12 @@ import time
 import numpy as np
 import torch
 
+from ..DataType import DataType
 from .romein_kernel import (TILE, WARPS, Tiles, chunk_slots, grid_general,
                             grid_general_plain, grid_separable,
                             grid_separable_plain)
 from .runtime import OpRuntime
+from .unpack import unpack_logical
 
 METHODS = ("cuda", "plain")
 _TPU_METHODS = ("pallas", "scatter", "sorted")
@@ -373,13 +375,18 @@ class Romein(object):
         self._last_plan = plan
         return plan, method
 
-    def execute(self, idata, odata=None, accumulate=True):
+    def execute(self, idata, odata=None, accumulate=True, dtype=None):
         """Grid `idata` ((npol, ndata), or (..., ndata) complex) onto
         `odata` ((npol, ngrid, ngrid) complex64 tensor, a new zero grid
         when None): the result is added to the grid (`accumulate`, the
-        JAX execute's ``grid + gridded``) or replaces it.  -> the grid."""
+        JAX execute's ``grid + gridded``) or replaces it.  `dtype` names
+        a packed input's storage type: packed ci4 bytes (one visibility
+        a byte) are unpacked to their complex values first, as the JAX
+        plan unpacks them before its gridding kernel.  -> the grid."""
         data = idata if isinstance(idata, torch.Tensor) else \
             torch.from_numpy(np.ascontiguousarray(idata))
+        if dtype is not None and DataType(dtype).nbit < 8:
+            data = unpack_logical(data, dtype)
         data = data.reshape(-1, data.shape[-1])
         if data.dtype != torch.complex64:
             data = data.to(torch.complex64)

@@ -8,8 +8,8 @@ keyed by the RESOLVED method, and the uniform `report()` core every op's
      "cache": {"entries", "capacity", "hits", "misses", "evictions"}}
 
 It also holds the staged-unpack helpers (bifrost_tpu/ops/runtime.py:
-266-308), for ci8 and wider: a raw ring-storage gulp becomes f32 (re,
-im) planes.  ci4 (packed bytes) is not ported yet.
+266-320): a raw ring-storage gulp (packed ci4 bytes, or ci8 and wider
+(re, im) pairs) becomes f32 (re, im) planes.
 """
 
 from __future__ import annotations
@@ -23,17 +23,18 @@ DEFAULT_CAPACITY = 64
 
 
 def staged_unpack(raw, dtype):
-    """Raw ring storage of a complex-integer stream (ci8/ci16/ci32: the
-    integer component type with a trailing (re, im) axis of 2) -> f32
-    (re, im) planes of its logical shape.  The lift is exact."""
+    """Raw ring storage of a complex-integer stream (packed ci4 bytes,
+    one sample a byte; ci8/ci16/ci32: the integer component type with a
+    trailing (re, im) axis of 2) -> f32 (re, im) planes of its logical
+    shape.  The lift is exact."""
     dt = DataType(dtype)
     if not (dt.is_complex and dt.is_integer):
         raise ValueError(f"staged_unpack expects a complex-integer ring "
                          f"dtype, got {dt}")
     if dt.nbit < 8:
-        raise NotImplementedError(f"staged_unpack: packed {dt} storage is "
-                                  f"not ported yet")
-    if raw.shape[-1] != 2:
+        from .unpack import unpack_pairs
+        raw = unpack_pairs(raw, dt)
+    elif raw.shape[-1] != 2:
         raise ValueError(f"{dt} storage needs a trailing (re, im) axis of "
                          f"2, got shape {tuple(raw.shape)}")
     return raw[..., 0].float(), raw[..., 1].float()
@@ -46,6 +47,16 @@ def staged_unpack_canonical(raw, dtype, perm):
     re, im = staged_unpack(raw, dtype)
     perm = tuple(perm)
     return re.permute(perm), im.permute(perm)
+
+
+def storage_nbyte_per_sample(dtype):
+    """Ring bytes a logical sample of a complex-integer stream read in
+    storage form: 1 for ci4, 2 for ci8, 4 for ci16..."""
+    dt = DataType(dtype)
+    if not (dt.is_complex and dt.is_integer):
+        raise ValueError(f"storage form is defined for complex-integer "
+                         f"dtypes, got {dt}")
+    return max(2 * dt.nbit // 8, 1)
 
 
 class OpRuntime(object):

@@ -93,7 +93,8 @@ class TensorInfo(object):
         self.nringlet = int(np.prod(self.ringlet_shape)) \
             if self.ringlet_shape else 1
         self.torch_dtype = self.dtype.as_torch_dtype()
-        if not self.frame_shape and self.dtype.nbit < 8:
+        if not self.frame_shape and self.dtype.itemsize_bits < 8:
+            # ci4 packs one sample a byte, so its frame axis may be last.
             raise ValueError("packed dtype requires a non-frame last axis")
         # Tensor shape of one frame: storage shape plus the (re, im) axis
         # of complex integers.
@@ -797,13 +798,14 @@ class ReadSpan(object):
 
     @property
     def data_storage(self):
-        """The span in raw storage form for a complex-integer stream of 8
-        bits or more on a 'cuda' ring (the int (re, im)-pair tensor the
-        H2D copy committed), else None (the JAX ReadSpan.data_storage
-        contract).  Storage here is already that form, so this is `data`."""
+        """The span in raw storage form for a complex-integer stream on a
+        'cuda' ring (the int (re, im)-pair tensor of ci8 and wider, the
+        packed uint8 bytes of ci4, as the H2D copy committed them), else
+        None (the JAX ReadSpan.data_storage contract).  Storage here is
+        already that form, so this is `data`."""
         dt = self.tensor.dtype
         if self.ring.space != "cuda" or not (dt.is_complex and
-                                             dt.is_integer and dt.nbit >= 8):
+                                             dt.is_integer):
             return None
         return self.data
 

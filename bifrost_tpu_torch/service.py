@@ -66,8 +66,8 @@ The bare chains, each -> (pipeline, detector, ledger):
 - `lwa_instrument_pipeline`, the whole instrument.
 
 Not ported yet, each raising NotImplementedError where it is asked for:
-the `unpack` kind and sub-byte capture (A1/A5); `map` (A13);
-`Service.respec` (A15).
+`map` (A13); `Service.respec` (A15).  Sub-byte capture runs through the
+`unpack` kind, and the instrument takes `engine='int8'`.
 `degrade_shards` is accepted, but with no mesh no shard is ever evicted
 (A16).  The data-quality front end of the beam search (flag -> calibrate
 before the B-engine) is built from blocks, as benchmarks/dq_tpu.py
@@ -193,7 +193,6 @@ _KIND_TIERS = {
 
 # Kinds the registry knows but the port does not build yet.
 _NOT_PORTED = {
-    "unpack": "the unpack block waits for ROADMAP A1/A5",
     "map": "bf.map waits for ROADMAP A13",
 }
 
@@ -462,15 +461,11 @@ def frb_search_spec(sock, nsrc, max_payload_size, buffer_ntime, slot_ntime,
     `f0_mhz`/`df_mhz`/`dt_s` scale the axes so the FDMT dedisperses in
     physical units.  `rfi_flag`: a dict of RfiFlagBlock parameters (e.g.
     dict(algo='mad', thresh=6.0, window=16)) inserting the flagger
-    between capture and transpose.  A sub-byte `packet_dtype` needs the
-    unpack stage, which is not ported (ROADMAP A1/A5)."""
+    between capture and transpose.  A sub-byte `packet_dtype` (i4)
+    inserts an `unpack` stage to i8 after the capture, as the reference
+    does."""
     from .DataType import DataType
     nbit = DataType(packet_dtype).itemsize_bits
-    if nbit < 8:
-        raise NotImplementedError(
-            f"frb_search_spec: packet_dtype {packet_dtype!r} is sub-byte "
-            f"and needs the unpack stage, which is not ported yet "
-            f"(ROADMAP A1/A5)")
     nchan = int(nsrc) * int(max_payload_size) * 8 // nbit
 
     def header_cb(seq0):
@@ -491,6 +486,8 @@ def frb_search_spec(sock, nsrc, max_payload_size, buffer_ntime, slot_ntime,
             slot_ntime=slot_ntime, header_callback=header_cb,
             reader_gulp_nframe=gulp_nframe)),
     ]
+    if nbit < 8:
+        stages.append(StageSpec("unpack", params=dict(dtype="i8")))
     if rfi_flag is not None:
         flag_params = dict(rfi_flag)
         flag_params.setdefault("gulp_nframe", gulp_nframe)
@@ -610,10 +607,22 @@ def _fuse_scope(fuse):
 
 # The instrument's builders, one per stage of `lwa_instrument_spec`; the
 # bare pipelines call the same ones, so both build one topology.
-def _lwa_ingest(voltages, gulp, f0_mhz, dt_s):
-    """The replay source of ci8 [time, station, pol] voltages."""
+def _lwa_ingest(voltages, voltage_dtype, gulp, f0_mhz, dt_s):
+    """The replay source of [time, station, pol] voltages of
+    `voltage_dtype`: 'ci8' (the structured array or int8 pairs) or
+    'ci4' (packed uint8 bytes, one sample a byte, re in the high
+    nibble)."""
+    packed = np.asarray(voltages).dtype == np.uint8
+    if voltage_dtype not in ("ci8", "ci4"):
+        raise ValueError(f"voltage_dtype must be 'ci8' or 'ci4', got "
+                         f"{voltage_dtype!r}")
+    if packed != (voltage_dtype == "ci4"):
+        want = "uint8 bytes" if voltage_dtype == "ci4" else \
+            "the structured (re, im) array or int8 pairs"
+        raise TypeError(f"voltage_dtype={voltage_dtype!r} takes {want}, "
+                        f"got {np.asarray(voltages).dtype}")
     return array_source(voltages, gulp, header={
-        "dtype": "ci8",
+        "dtype": voltage_dtype,
         "labels": ["time", "station", "pol"],
         "scales": [[0.0, dt_s], None, None],
         "units": ["s", None, None],
@@ -727,10 +736,13 @@ def lwa_beam_search_pipeline(voltages, nstand=256, npol=2, nchan=4096,
                              dt_s=1e-6, gulp_nframe=None, coeffs=None,
                              device=None, pfb_method=None,
                              beamform_method=None, fdmt_method=None,
-                             on_candidate=None, gather=None, fuse=True):
-    """Build the LWA beam-search chain over `voltages`, ci8 [time,
-    station, pol] replayed from memory: the JAX package's structured
-    (re, im) array or its int8 storage form with a trailing axis of 2.
+                             on_candidate=None, gather=None, fuse=True,
+                             voltage_dtype="ci8"):
+    """Build the LWA beam-search chain over `voltages`, [time, station,
+    pol] replayed from memory, of `voltage_dtype`: 'ci8', the JAX
+    package's structured (re, im) array or its int8 storage form with a
+    trailing axis of 2; or 'ci4', a uint8 [time, station, pol] array of
+    packed bytes with re in the high nibble (the PFB reads either raw).
     The defaults are `lwa_instrument_spec`'s flagship geometry; `weights`
     ((nbeam, nstand*npol) complex) default to its small-integer planes,
     `coeffs` (the (ntap, nchan) PFB prototype) to `pfb_coeffs`.  A gulp
@@ -753,8 +765,8 @@ def lwa_beam_search_pipeline(voltages, nstand=256, npol=2, nchan=4096,
     pipe = Pipeline(device=device)
     ledger = FrameLedger()
     with pipe:
-        f = _lwa_fengine(_lwa_ingest(voltages, gulp, f0_mhz, dt_s), nchan,
-                         ntap, coeffs, pfb_method, fuse)
+        ingest = _lwa_ingest(voltages, voltage_dtype, gulp, f0_mhz, dt_s)
+        f = _lwa_fengine(ingest, nchan, ntap, coeffs, pfb_method, fuse)
         b = _lwa_bengine(f, weights, n_int, beamform_method, fuse)
         det, d = _lwa_bdetect(b, max_delay, threshold, on_candidate,
                               fdmt_method, fuse)
@@ -797,10 +809,9 @@ def _lwa_planes(nstand, npol, nbeam, ngrid, weights, uvw, kernels):
 
 
 def _check_engine(engine):
-    if engine != "f32":
-        raise NotImplementedError(
-            f"lwa instrument: engine={engine!r} is not ported yet "
-            f"(ROADMAP: the int8 X-engine); use engine='f32'")
+    if engine not in ("f32", "int8"):
+        raise ValueError(f"lwa instrument: unknown engine {engine!r} "
+                         f"(expected 'f32' or 'int8')")
 
 
 def lwa_instrument_pipeline(voltages, nstand=256, npol=2, nchan=4096,
@@ -812,10 +823,10 @@ def lwa_instrument_pipeline(voltages, nstand=256, npol=2, nchan=4096,
                             device=None, pfb_method=None,
                             beamform_method=None, fdmt_method=None,
                             romein_method=None, fft_method=None,
-                            gather=None, fuse=True):
+                            gather=None, fuse=True, voltage_dtype="ci8"):
     """Build the whole LWA instrument of `lwa_instrument_spec` over
-    `voltages` (ci8 [time, station, pol], as `lwa_beam_search_pipeline`
-    takes them) as a bare pipeline: replay -> H2D -> PFB, then from the
+    `voltages` ([time, station, pol] of `voltage_dtype`, as
+    `lwa_beam_search_pipeline` takes them) as a bare pipeline: replay -> H2D -> PFB, then from the
     one PFB ring both the B branch (beamform -> transpose -> FDMT ->
     detect) and the X branch (correlate -> transpose -> merge_axes into
     'vis' -> Romein grid -> FFT over (v, u) -> copy to the host ->
@@ -829,7 +840,8 @@ def lwa_instrument_pipeline(voltages, nstand=256, npol=2, nchan=4096,
     ((2, nvis) int grid positions) and `kernels` (broadcastable to
     (nchan, nvis, m, m)) default to `default_uvw` and
     `default_grid_kernel`; `weights` and `coeffs` as in
-    `lwa_beam_search_pipeline`.  `engine='int8'` is not ported yet.
+    `lwa_beam_search_pipeline`.  `engine` is the X-engine's, 'f32' or
+    'int8' (the PFB's output cast to int8 as the reference casts it).
     `device`, the `*_method` pins and `gather` ('beams', 'dedispersed')
     as in `lwa_beam_search_pipeline`.  `on_image(grid)` gets each image
     frame, an (nchan, ngrid, ngrid, 1) host view valid during the call.
@@ -846,8 +858,8 @@ def lwa_instrument_pipeline(voltages, nstand=256, npol=2, nchan=4096,
     pipe = Pipeline(device=device)
     ledger = FrameLedger()
     with pipe:
-        f = _lwa_fengine(_lwa_ingest(voltages, gulp, f0_mhz, dt_s), nchan,
-                         ntap, coeffs, pfb_method, fuse)
+        ingest = _lwa_ingest(voltages, voltage_dtype, gulp, f0_mhz, dt_s)
+        f = _lwa_fengine(ingest, nchan, ntap, coeffs, pfb_method, fuse)
         x = _lwa_xengine(f, n_int, engine, gains, fuse)
         _lwa_image(x, ngrid, kernels, uvw, romein_method, fft_method,
                    on_image, fuse)
@@ -868,7 +880,8 @@ def lwa_instrument_spec(voltages=None, sock=None, nstand=256, npol=2,
                         capture=None, fuse=True, coeffs=None,
                         pfb_method=None, beamform_method=None,
                         fdmt_method=None, romein_method=None,
-                        fft_method=None, **service_kwargs):
+                        fft_method=None, voltage_dtype="ci8",
+                        **service_kwargs):
     """The telescope in a box (bifrost_tpu/service.py:355-550): the whole
     instrument as one supervised ServiceSpec, six stages —
 
@@ -906,7 +919,8 @@ def lwa_instrument_spec(voltages=None, sock=None, nstand=256, npol=2,
 
     def _ingest(upstream):
         if sock is None:
-            return _lwa_ingest(voltages, gulp, f0_mhz, dt_s)
+            return _lwa_ingest(voltages, voltage_dtype, gulp, f0_mhz,
+                               dt_s)
         return _lwa_capture(sock, capture, nstand, npol, gulp, f0_mhz, dt_s)
 
     def _fengine(upstream):
@@ -1092,6 +1106,8 @@ class Service(object):
             return blk.FdmtBlock(upstream, **params)
         if kind == "flag":
             return blk.RfiFlagBlock(upstream, **params)
+        if kind == "unpack":
+            return blk.UnpackBlock(upstream, **params)
         if kind == "calibrate":
             return blk.GainCalBlock(upstream, **params)
         return CandidateDetectBlock(upstream, **params)      # "detect"

@@ -205,8 +205,44 @@ Phases, one line each; any failure exits non-zero:
              `capture_frb` (a), `capture_instrument` (c) and `chaos`
              (d).
 
-The launch checks of every phase count all seven kernels (K1, K2, K4,
-K6a, K6b, K5a, K5b).  The line before the last two holds the kernel
+             (e) The FRB search fed i4 packets
+             (`frb_search_spec(packet_dtype='i4')`, the registry's
+             unpack stage on the host) at [main]'s 4096 channels (64
+             sources x 32 B) on CP_I4_NGULP gulps of frb_data() mapped
+             to [-8, 7] at real time: nothing lost, candidates those of
+             frb_search_pipeline fed the same values as i8.  Launches go
+             into `launches_by_path` as `capture_i4`.
+
+14. xengine — the exact int8 X-engine (kernel X1) at the repo's int8
+             configuration (benchmarks/XENGINE_TPU.md:59): 128 channels x
+             512 inputs (256 stations x 2 pol), gulps of 1024 frames,
+             one visibility frame (128 x 512 x 512 cf32) per 8192
+             frames.  (a) XE_DISTINCT seeded ci4 frames (1 GiB, every
+             byte a pair of values in [-8, 7]) replayed XE_REPLAY times,
+             65,536 frames, 64 gulps, 8 integrations, three topologies:
+             the raw head array_source(ci4) -> copy('cuda') ->
+             correlate(8192, engine='int8') fused and unfused, and the
+             reference's bench chain array_source(ci4) -> unpack (host,
+             ci8) -> copy('cuda') -> correlate, cut to XE_CUT
+             integrations.  All bitwise equal to each other, the first
+             integration on XE_GOLDEN_CHANS bitwise an exact int64 numpy
+             golden, an unfused run with xengine_method='plain' (XE_CUT
+             integrations) bitwise too; frames/s steady (first
+             visibility frame to last), the raw reads and the bytes they
+             covered, X1's launches (fused == unfused).  (b) The ci4
+             F-engine: `lwa_beam_search_pipeline` at [bengine]'s width
+             on FE_NINT integrations of its voltages, given as packed ci4
+             and as ci8: beam powers bitwise equal, K2 and K4 launches
+             equal and every K2 launch vector.  (c) The instrument with
+             engine='int8' on XI_NINT integrations: images bitwise the
+             same run with xengine_method='plain', X1 and K6b launched.
+             Launches go into `launches_by_path` as `xengine_fused`,
+             `xengine_unfused`, `xengine_unpack`, `xengine_plain`,
+             `fengine_ci4`, `fengine_ci8`, `instrument_int8` and
+             `instrument_int8_plain`.
+
+The launch checks of every phase count all eight kernels (K1, K2, K4,
+K6a, K6b, K5a, K5b, X1).  The line before the last two holds the kernel
 records as JSON, one for each of those kernels; then the card's name and
 power limit; the last line is {"ok": true, "device": {...}}.
 """
@@ -309,9 +345,27 @@ CP_RATES = (64_000, 256_000, 1_024_000)
 CP_NINT, CP_X_RATE = 4, 100_000
 CP_X = dict(nsrc=4, max_payload_size=256, slot_ntime=4096)
 
+# The int8 X-engine (benchmarks/XENGINE_TPU.md:59, the repo's int8
+# configuration for ci8/ci4 streams): 128 channels x 256 stations x 2
+# pol, gulps of 1024 frames (the contraction depth), one visibility
+# frame per 8192 frames; XE_DISTINCT seeded ci4 frames (1 GiB) replayed
+# XE_REPLAY times.  The host-unpack chain and the 'plain' run are cut to
+# XE_CUT integrations; XE_GOLDEN_CHANS of the first integration are held
+# against an exact numpy golden; XE_EDGES are X1's edge shapes (ntime,
+# nchan, nsp).  The ci4 F-engine runs FE_NINT integrations of
+# [bengine]'s voltages, the int8 instrument XI_NINT; the i4 FRB capture
+# CP_I4_NGULP gulps of 64 sources x 32 B (4096 i4 channels).
+XE_NCHAN, XE_NSTAND, XE_NPOL, XE_GULP, XE_NINT = 128, 256, 2, 1024, 8192
+XE_DISTINCT, XE_REPLAY, XE_CUT = 16384, 4, 2
+XE_GOLDEN_CHANS = (0, 37, 64, 127)
+XE_EDGES = ((64, 2, 100), (45, 3, 64), (1, 2, 70), (200, 1, 130))
+FE_NINT, XI_NINT = 4, 2
+CP_I4_NSRC, CP_I4_PAYLOAD, CP_I4_NGULP = 64, 32, 2
+
 # Device-memory rate by card (NVIDIA data sheets), bytes/s
 _HBM_RATE = (("H200", 4.8e12), ("H100 PCIe", 2.0e12), ("H100", 3.35e12))
 F32_PEAK = 67e12   # H100 SXM f32 outside the tensor cores, operations/s
+INT8_PEAK = 1979e12   # H100 SXM dense int8 tensor cores, operations/s
 
 
 def phase(name, msg):
@@ -443,14 +497,15 @@ class Stamped(list):
 def kernel_counters():
     from bifrost_tpu_torch.ops import (beamform_kernel, dq_kernel,
                                        fdmt_kernel, fir_kernel,
-                                       romein_kernel)
+                                       romein_kernel, xengine_kernel)
     return {"fdmt_merge_step": fdmt_kernel.merge_step,
             "fir_mac": fir_kernel.fir_mac,
             "beamform_power": beamform_kernel.beamform_power,
             "romein_grid_general": romein_kernel.grid_general,
             "romein_grid_separable": romein_kernel.grid_separable,
             "dq_masked_fill": dq_kernel.masked_fill,
-            "dq_gain_apply": dq_kernel.gain_apply}
+            "dq_gain_apply": dq_kernel.gain_apply,
+            "xengine_int8": xengine_kernel.xengine_int8}
 
 
 def expected(**nonzero):
@@ -798,6 +853,96 @@ def check_beamform(dev, kind, rng):
                             "matmul part only"}
 
 
+def xe_work(ntime, nchan, nsp, kind):
+    """Bytes and operations of one X1 call on ci4: the voltages read once
+    (1 B a sample), the complex64 matrix written once; 8 int8 operations
+    per frame and pair i <= j (four products, each a multiply and an
+    add), the function's need, since v[c, j, i] = conj(v[c, i, j]).
+    -> (ms bound, 'bytes' or 'operations', bytes, ops, the operations
+    X1 does on the full matrix)."""
+    nbytes = ntime * nchan * nsp + 8 * nchan * nsp * nsp
+    nops = 8 * nchan * (nsp * (nsp + 1) // 2) * ntime
+    tb, to = nbytes / hbm_rate(kind), nops / INT8_PEAK
+    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations"), \
+        nbytes, nops, 8 * nchan * nsp * nsp * ntime
+
+
+def check_xengine(dev, kind):
+    """X1 at the int8 configuration's gulp (1024 frames x 128 channels x
+    512 inputs) on ci4 and ci8 storage, and on XE_EDGES, bitwise against
+    its plain version (f64 matmul, exact); timed beside the plain
+    version and `torch._int_mm`."""
+    from bifrost_tpu_torch import build
+    from bifrost_tpu_torch.ops import xengine_kernel as xk
+    nsp = XE_NSTAND * XE_NPOL
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def data(shape, fmt):
+        if fmt == "ci4":
+            return torch.randint(0, 256, shape, device=dev,
+                                 dtype=torch.uint8, generator=gen)
+        return torch.randint(-128, 128, shape + (2,), device=dev,
+                             dtype=torch.int8, generator=gen)
+
+    worst = 0.0
+    shapes = ((XE_GULP, XE_NCHAN, nsp),) + XE_EDGES
+    for shape in shapes:
+        for fmt in ("ci4", "ci8"):
+            x = data(shape, fmt)
+            got = xk.xengine_int8(x, fmt)
+            want = xk.xengine_int8_plain(x, fmt)
+            torch.cuda.synchronize()
+            if not bits_equal(torch.view_as_real(got),
+                              torch.view_as_real(want)):
+                raise AssertionError(f"xengine_int8 differs from plain on "
+                                     f"{fmt} {shape}")
+            worst = max(worst, float((got - want).abs().max()))
+    x4 = data((XE_GULP, XE_NCHAN, nsp), "ci4")
+    out = torch.empty(XE_NCHAN, nsp, nsp, dtype=torch.complex64, device=dev)
+    ms = cuda_time(lambda: xk.xengine_int8(x4, "ci4", out), 20)
+    plain_ms = cuda_time(lambda: xk.xengine_int8_plain(x4, "ci4"), 2)
+    # The library yardstick: torch._int_mm (cuBLASLt int8 -> int32), the
+    # four products of every channel over planes unpacked beforehand into
+    # the layouts it takes; it leaves out the unpack, the sums rr + ii
+    # and ri - ir, the f32 conversion and the complex interleave.
+    re, im = xk.planes(x4, "ci4")
+    ar, ai = (p.permute(1, 2, 0).contiguous() for p in (re, im))
+    br, bi = (p.permute(1, 0, 2).contiguous() for p in (re, im))
+    del re, im
+
+    def library():
+        for c in range(XE_NCHAN):
+            for a, b in ((ar, br), (ai, bi), (ar, bi), (ai, br)):
+                torch._int_mm(a[c], b[c])
+    library_ms = cuda_time(library, 5)
+    del ar, ai, br, bi
+    bound_ms, by, nbytes, nops, full_ops = xe_work(XE_GULP, XE_NCHAN, nsp,
+                                                   kind)
+    regs = [ln.strip() for ln in
+            build.build_log.get("xengine", {}).get("ptxas", "").splitlines()
+            if "registers" in ln]
+    phase("kernels", f"xengine_int8 (X1) equal to plain (tolerance: "
+          f"bitwise, max abs err {worst}) on ci4 and ci8 at "
+          f"{(XE_GULP, XE_NCHAN, nsp)} and on edge shapes {XE_EDGES}; "
+          f"{ms:.4f} ms per gulp (1 launch), plain (f64 matmul) "
+          f"{plain_ms:.4f} ms, torch._int_mm x 4 x {XE_NCHAN} channels on "
+          f"pre-unpacked planes {library_ms:.4f} ms, bound {bound_ms:.4f} "
+          f"ms ({by}: {nbytes / 1e9:.4f} GB at {hbm_rate(kind) / 1e12} "
+          f"TB/s, {nops / 1e12:.4f} T int8 ops (pairs i <= j) at "
+          f"{INT8_PEAK / 1e12} TOPS; as computed on the full matrix "
+          f"{full_ops / 1e12:.4f} T ops, "
+          f"{full_ops / INT8_PEAK * 1e3:.4f} ms); {regs}; {kind}")
+    return {"name": "xengine_int8", "route": "cuda",
+            "source": "bifrost_tpu_torch/csrc/xengine.cu",
+            "replaces": "bifrost_tpu/blocks/correlate.py:516",
+            "launches": None, "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+            "library_ms": library_ms,
+            "library_call": "torch._int_mm, 4 products a channel on "
+                            "pre-unpacked int8 planes"}
+
+
+
 def time_dft(dev, kind, rng):
     """The PFB's DFT stage at one gulp's shapes: 4 x 16 f32 matmuls of
     (4096, 4096) @ (4096, 512), TF32 off."""
@@ -1130,7 +1275,7 @@ def time_xstages(dev, kind):
 
 
 def instrument(dev, volt, gather=None, on_image=None, method=None,
-               kernels=None, fuse=False):
+               kernels=None, fuse=False, engine="f32"):
     """`lwa_instrument_pipeline` at the flagship width over `volt`, with
     every kernel method pinned to `method`; unfused unless `fuse`."""
     from bifrost_tpu_torch.service import lwa_instrument_pipeline
@@ -1140,7 +1285,7 @@ def instrument(dev, volt, gather=None, on_image=None, method=None,
         f0_mhz=B_F0, dt_s=B_DT, gulp_nframe=B_GULP, kernels=kernels,
         device=dev, pfb_method=method,
         beamform_method=method, fdmt_method=method, romein_method=method,
-        gather=gather, on_image=on_image, fuse=fuse)
+        gather=gather, on_image=on_image, fuse=fuse, engine=engine)
 
 
 class Images(list):
@@ -2588,6 +2733,317 @@ def capture_path(dev, volt):
           f"{dev}: every scenario passed, the restart storm's signature "
           f"equal across its two runs; {wall:.1f} s; launches {counts}")
     out["chaos"] = counts
+    out["capture_i4"] = cp_i4_path(dev)
+    return out
+
+
+def cp_i4_path(dev):
+    """(e) The FRB search fed i4 packets (module docstring, phase 13):
+    seeded noise in [-8, 3] with a dispersed burst of 4 (so every value
+    fits i4) on CP_I4_NGULP gulps of 4096 channels, packed two a byte,
+    MSB-first.  -> launch counts."""
+    from bifrost_tpu_torch.blocks.testing import inject_burst
+    from bifrost_tpu_torch.service import (Service, frb_search_pipeline,
+                                           frb_search_spec)
+    rng = np.random.default_rng(SEED + 4)
+    nframe = CP_I4_NGULP * GULP
+    vals = rng.integers(-8, 4, (nframe, NCHAN)).astype(np.int8)
+    inject_burst(vals, GULP + GULP // 3, DM_ROW, F0, DF, amp=4)
+    packed = ((vals[:, 0::2] & 0xF).astype(np.uint8) << 4) | \
+        (vals[:, 1::2] & 0xF).astype(np.uint8)
+    npkt = nframe * CP_I4_NSRC
+    slab, recs = cp_packets(packed, CP_I4_NSRC, CP_RATES[0])
+    rx, rcvbuf = cp_socket()
+    cands = []
+    svc = Service(frb_search_spec(
+        rx, CP_I4_NSRC, CP_I4_PAYLOAD, buffer_ntime=8192, slot_ntime=16,
+        gulp_nframe=GULP, max_delay=MAX_DELAY, f0_mhz=F0, df_mhz=DF,
+        dt_s=DT, packet_dtype="i4", on_candidate=cands.append),
+        name="cp_i4", device=dev)
+    reset_counts()
+    r = cp_drive(svc, svc.blocks["capture"], rx, slab, recs)
+    counts = read_counts()
+    st, rep = r["stats"], r["report"]
+    nsteps = len(svc.blocks["fdmt"].fdmt._steps)
+    if st != {"ngood": npkt, "nmissing": 0, "ninvalid": 0, "nlate": 0,
+              "nrepeat": 0} or rep.exit_code != 0 or \
+            rep.ledger["lost_frames"] or \
+            counts != expected(fdmt_merge_step=nsteps * CP_I4_NGULP):
+        raise AssertionError(f"i4 capture: stats {st}, launches {counts}, "
+                             f"{rep!r}")
+    ref = []
+    frb_search_pipeline(vals, GULP, MAX_DELAY, F0, DF, DT, device=dev,
+                        on_candidate=ref.append)[0].run()
+    if not ref or [(c["frame"], c["dm_index"]) for c in cands] != \
+            [(c["frame"], c["dm_index"]) for c in ref] or \
+            any(abs(x["snr"] - y["snr"]) > 1e-5 * abs(y["snr"])
+                for x, y in zip(cands, ref)):
+        raise AssertionError(f"i4 candidates {cands} != replay {ref}")
+    sent, ingested = cp_rates(r)
+    phase("capture", f"(e) Service(frb_search_spec(rx, {CP_I4_NSRC}, "
+          f"{CP_I4_PAYLOAD}, packet_dtype='i4')): stages "
+          f"{[b.name for b in svc.pipeline.blocks]}; {nframe} frames of "
+          f"{NCHAN} i4 ch as {npkt} packets of {12 + CP_I4_PAYLOAD} B "
+          f"(SO_RCVBUF {rcvbuf} B): sent {sent:.1f}, ingested "
+          f"{ingested:.1f} packets/s; stats {st}; ledger {rep.ledger}; "
+          f"launches {counts}; {len(cands)} candidates equal to "
+          f"frb_search_pipeline's on the same values as i8 (best "
+          f"{max(cands, key=lambda c: c['snr'])})")
+    del svc
+    free_device()
+    return counts
+
+
+def xe_source(frames, nframe):
+    """A source of `nframe` ci4 [time, freq, station, pol] frames in gulps
+    of XE_GULP, replaying `frames` (uint8, one sample a byte) in turn."""
+    import contextlib
+
+    from bifrost_tpu_torch.pipeline import SourceBlock
+    src = torch.from_numpy(frames)
+
+    class Source(SourceBlock):
+        def create_reader(self, name):
+            @contextlib.contextmanager
+            def reader():
+                self.i = 0
+                yield self
+            return reader()
+
+        def on_sequence(self, reader, name):
+            return [{"name": name, "_tensor": {
+                "dtype": "ci4", "shape": [-1] + list(src.shape[1:]),
+                "labels": ["time", "freq", "station", "pol"],
+                "scales": [[0.0, 1e-6], [0.0, 1.0], None, None],
+                "units": ["s", None, None, None]}}]
+
+        def on_data(self, reader, ospans):
+            if self.i >= nframe:
+                return [0]
+            a = self.i % len(src)
+            ospans[0].data.copy_(src[a:a + XE_GULP])
+            self.i += XE_GULP
+            return [XE_GULP]
+
+    return Source(["ci4"], XE_GULP, name="xe_replay")
+
+
+def xe_run(dev, frames, nframe, topo, method=None):
+    """One X-engine run over `nframe` replayed frames: topo 'fused' or
+    'unfused' (the raw head) or 'unpack' (the host unpack first).  -> dict
+    of the visibility frames (on the card), the host clock when each was
+    done, wall seconds, launch counts and the raw reads (count, bytes)."""
+    import contextlib
+
+    from bifrost_tpu_torch import block_scope, config
+    from bifrost_tpu_torch.blocks import (callback_sink, copy, correlate,
+                                          unpack)
+    from bifrost_tpu_torch.pipeline import FusedTransformBlock, Pipeline
+    outs, stamps = [], []
+
+    def keep(a):
+        outs.append(a.clone())
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    if method is not None:
+        config.set("xengine_method", method)
+    try:
+        with Pipeline(device=dev) as pipe:
+            src = xe_source(frames, nframe)
+            if topo == "unpack":
+                src = unpack(src)
+            scope = block_scope(fuse=True) if topo == "fused" else \
+                contextlib.nullcontext()
+            with scope:
+                x = correlate(copy(src, space="cuda"), XE_NINT,
+                              engine="int8")
+            callback_sink(x, on_data=keep, gulp_nframe=1)
+            reset_counts()
+            t0 = time.perf_counter()
+            pipe.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        if method is not None:
+            config.reset("xengine_method")
+    groups = [b for b in pipe.blocks if isinstance(b, FusedTransformBlock)]
+    if bool(groups) != (topo == "fused"):
+        raise AssertionError(f"{topo} run: fused groups {groups}")
+    # The correlate block counts its storage-form reads fused (its raw
+    # step, behind the group's H2D head) and unfused alike.
+    return {"outs": outs, "stamps": stamps, "wall": wall,
+            "counts": read_counts(),
+            "raw": (x._raw_reads, x._raw_read_nbyte)}
+
+
+def xe_golden(frames, chans):
+    """The first integration's visibilities on `chans`, exact: the int8
+    planes as f64 (every partial sum an integer below 2**53), held as
+    int64 -> {chan: (vr, vi)}."""
+    out = {}
+    for c in chans:
+        b = frames[:XE_NINT, c].reshape(XE_NINT, -1).view(np.int8)
+        re = (b >> 4).astype(np.float64)
+        im = ((b << 4).astype(np.int8) >> 4).astype(np.float64)
+        out[c] = (np.rint(re.T @ re + im.T @ im).astype(np.int64),
+                  np.rint(re.T @ im - im.T @ re).astype(np.int64))
+    return out
+
+
+def xengine_path(dev, kind, volt):
+    """The int8 X-engine paths (module docstring, phase 14).  `volt`:
+    [bengine]'s voltages.  -> launch counts by path."""
+    from bifrost_tpu_torch import config
+    from bifrost_tpu_torch.service import lwa_beam_search_pipeline
+    nsp = XE_NSTAND * XE_NPOL
+    out = {}
+
+    # (a) The channelized ci4 correlator.
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 12)
+    frames = rng.integers(0, 256, (XE_DISTINCT, XE_NCHAN, XE_NSTAND,
+                                   XE_NPOL), dtype=np.uint8)
+    nframe = XE_DISTINCT * XE_REPLAY
+    ngulp, nint = nframe // XE_GULP, nframe // XE_NINT
+    phase("xengine", f"voltages: {frames.nbytes / 2**30:.2f} GiB of ci4 "
+          f"({XE_DISTINCT} frames of {XE_NCHAN} x {nsp}), replayed "
+          f"{XE_REPLAY} times; {time.perf_counter() - t0:.1f} s")
+    runs = {topo: xe_run(dev, frames, nframe, topo)
+            for topo in ("fused", "unfused")}
+    cut = XE_CUT * XE_NINT
+    runs["unpack"] = xe_run(dev, frames, cut, "unpack")
+    runs["plain"] = xe_run(dev, frames, cut, "unfused", method="plain")
+    ref = runs["fused"]["outs"]
+    if len(ref) != nint or len(runs["unfused"]["outs"]) != nint:
+        raise AssertionError(f"{len(ref)} visibility frames, expected "
+                             f"{nint}")
+    for topo, r in runs.items():
+        for k, v in enumerate(r["outs"]):
+            if v.shape != (1, XE_NCHAN, XE_NSTAND, XE_NPOL, XE_NSTAND,
+                           XE_NPOL) or \
+                    not bits_equal(torch.view_as_real(v),
+                                   torch.view_as_real(ref[k])):
+                raise AssertionError(f"xengine {topo} frame {k} differs "
+                                     f"from the fused run's")
+    first = ref[0][0].reshape(XE_NCHAN, nsp, nsp)
+    for c, (vr, vi) in xe_golden(frames, XE_GOLDEN_CHANS).items():
+        v = first[c].cpu()
+        if not (np.array_equal(v.real.numpy().astype(np.int64), vr) and
+                np.array_equal(v.imag.numpy().astype(np.int64), vi) and
+                np.array_equal(v.real.numpy(), vr.astype(np.float32))):
+            raise AssertionError(f"xengine: channel {c} differs from the "
+                                 f"int64 golden")
+    want = {"fused": expected(xengine_int8=ngulp),
+            "unfused": expected(xengine_int8=ngulp),
+            "unpack": expected(xengine_int8=cut // XE_GULP),
+            "plain": expected()}
+    rate = {}
+    for topo, r in runs.items():
+        if r["counts"] != want[topo]:
+            raise AssertionError(f"xengine {topo}: launches {r['counts']}, "
+                                 f"expected {want[topo]}")
+        st = r["stamps"]
+        rate[topo] = ((len(st) - 1) * XE_NINT / (st[-1] - st[0]),
+                      len(r["outs"]) * XE_NINT / r["wall"])
+        out[f"xengine_{topo}"] = r["counts"]
+    nbyte = {"fused": nframe * XE_NCHAN * nsp,
+             "unfused": nframe * XE_NCHAN * nsp,
+             "unpack": 2 * cut * XE_NCHAN * nsp,
+             "plain": cut * XE_NCHAN * nsp}
+    for topo, r in runs.items():
+        if r["raw"] != (nbyte[topo] // (XE_GULP * XE_NCHAN * nsp *
+                                       (2 if topo == "unpack" else 1)),
+                        nbyte[topo]):
+            raise AssertionError(f"xengine {topo}: raw reads {r['raw']}")
+    phase("xengine", f"(a) ci4 correlator {XE_NCHAN} ch x {nsp} inputs, "
+          f"gulp {XE_GULP}, {XE_NINT} frames an integration, {nframe} "
+          f"frames: fused, unfused and (first {XE_CUT} integrations) "
+          f"host-unpack and xengine_method='plain' runs bitwise equal; "
+          f"integration 0 on channels {XE_GOLDEN_CHANS} bitwise the int64 "
+          f"golden; frames/s (steady, whole) "
+          f"{ {k: (round(a, 1), round(b, 1)) for k, (a, b) in rate.items()} }"
+          f"; raw reads (gulps, bytes) "
+          f"{ {k: r['raw'] for k, r in runs.items()} }; X1 launches "
+          f"{ {k: r['counts']['xengine_int8'] for k, r in runs.items()} }; "
+          f"{kind}")
+    del runs, ref, first, frames
+    free_device()
+
+    # (b) The ci4 F-engine against its ci8 twin.
+    v8 = volt[:FE_NINT * B_GULP]
+    v4 = ((v8[..., 0] & 0xF).astype(np.uint8) << 4) | \
+        (v8[..., 1] & 0xF).astype(np.uint8)
+    beams, counts, vec = {}, {}, {}
+    for name, v in (("ci4", v4), ("ci8", v8)):
+        got = {"beams": []}
+        pipe = lwa_beam_search_pipeline(
+            v, nstand=NSTAND, npol=NPOL, nchan=BCHAN, ntap=NTAP,
+            n_int=N_INT, nbeam=NBEAM, max_delay=B_MAX_DELAY, f0_mhz=B_F0,
+            dt_s=B_DT, gulp_nframe=B_GULP, device=dev, gather=got,
+            fuse=False, voltage_dtype=name)[0]
+        reset_counts()
+        t0 = time.perf_counter()
+        pipe.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts[name] = read_counts()
+        vec[name] = check_vectors(counts[name], "fir_mac")
+        beams[name] = np.concatenate(got["beams"])
+        out[f"fengine_{name}"] = counts[name]
+        phase("xengine", f"(b) beam search on {FE_NINT} integrations of "
+              f"{name} voltages: {wall:.2f} s, launches {counts[name]}")
+        del pipe, got
+        free_device()
+    if counts["ci4"] != counts["ci8"] or \
+            counts["ci4"]["fir_mac"] != FE_NINT or \
+            counts["ci4"]["beamform_power"] != FE_NINT or \
+            vec["ci4"] != FE_NINT or \
+            beams["ci4"].shape != (FE_NINT, NBEAM, BCHAN) or \
+            not np.array_equal(beams["ci4"].view(np.int32),
+                               beams["ci8"].view(np.int32)):
+        raise AssertionError(f"ci4 F-engine: launches {counts}, vector "
+                             f"{vec}, beams equal "
+                             f"{np.array_equal(beams['ci4'], beams['ci8'])}")
+    phase("xengine", f"(b) ci4 F-engine: {FE_NINT} x {NBEAM} x {BCHAN} beam "
+          f"powers bitwise the ci8 run's; K2 and K4 {FE_NINT} launches "
+          f"each, every K2 launch vector, as ci8")
+
+    # (c) The instrument with the int8 X-engine against xengine 'plain'.
+    v = volt[:XI_NINT * B_GULP]
+    imgs, icounts = {}, {}
+    for method in (None, "plain"):
+        im = Images(XI_NINT)
+        if method is not None:
+            config.set("xengine_method", method)
+        try:
+            pipe = instrument(dev, v, on_image=im, engine="int8")[0]
+            reset_counts()
+            t0 = time.perf_counter()
+            pipe.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            if method is not None:
+                config.reset("xengine_method")
+        key = "instrument_int8" + ("_plain" if method else "")
+        icounts[key], imgs[key] = read_counts(), im
+        out[key] = icounts[key]
+        del pipe
+        free_device()
+        phase("xengine", f"(c) {key}: {XI_NINT} integrations, {wall:.2f} "
+              f"s, launches {icounts[key]}")
+    common = dict(fir_mac=XI_NINT, beamform_power=XI_NINT,
+                  romein_grid_separable=XI_NINT)
+    if icounts["instrument_int8"] != expected(xengine_int8=XI_NINT,
+                                              **common) or \
+            icounts["instrument_int8_plain"] != expected(**common):
+        raise AssertionError(f"int8 instrument launches {icounts}")
+    images_equal(imgs["instrument_int8"], imgs["instrument_int8_plain"],
+                 XI_NINT)
+    phase("xengine", f"(c) instrument engine='int8': {XI_NINT} images "
+          f"bitwise the xengine_method='plain' run's; X1 {XI_NINT} "
+          f"launches, K6b {XI_NINT}")
     return out
 
 
@@ -3175,7 +3631,7 @@ def main():
     rng = np.random.default_rng(SEED)
     t0 = time.perf_counter()
     recs = [check_kernels(dev, kind), check_fir(dev, kind, rng),
-            check_beamform(dev, kind, rng)]
+            check_beamform(dev, kind, rng), check_xengine(dev, kind)]
     time_dft(dev, kind, rng)
     recs += check_romein(dev, kind)
     recs += check_dq(dev, kind)
@@ -3206,6 +3662,9 @@ def main():
     free_device()
     t5d = time.perf_counter()
     counts.update(capture_path(dev, volt))
+    free_device()
+    t5e = time.perf_counter()
+    counts.update(xengine_path(dev, kind, volt))
     del volt, spec
     free_device()
     t6 = time.perf_counter()
@@ -3218,7 +3677,8 @@ def main():
           f"{t2 - t1:.1f} s, frbflag {t3 - t2:.1f} s, bengine "
           f"{t4 - t3:.1f} s, instrument {t5 - t4:.1f} s, dq "
           f"{t5b - t5:.1f} s, fusion {t5c - t5b:.1f} s, service "
-          f"{t5d - t5c:.1f} s, capture {t6 - t5d:.1f} s, gpuspec "
+          f"{t5d - t5c:.1f} s, capture {t5e - t5d:.1f} s, xengine "
+          f"{t6 - t5e:.1f} s, gpuspec "
           f"{t7 - t6:.1f} s, egress "
           f"{time.perf_counter() - t7:.1f} s")
     by_path = {name: {path: c[name] for path, c in counts.items()}

@@ -248,3 +248,47 @@ def test_beamform_block_latches_method_and_checks_gulp():
         with pytest.raises((PipelineInitError, ValueError),
                            match="exceeds"):
             pipe.run()
+
+
+def test_beamform_ci4_raw_read_matches_ci8_twin_and_jax():
+    """Packed ci4 voltages through `execute_raw` (another header order
+    too) and through the block's raw read: bitwise their ci8 twin and
+    the JAX plan and block fed the ci4 bytes (integer voltages and
+    weights), at 1 B/sample."""
+    rng = np.random.default_rng(22)
+    ntime, nchan = 13, 4
+    raw = rng.integers(-8, 8, (ntime, nchan, 3, 2, 2)).astype(np.int8)
+    packed = (((raw[..., 0] & 0xF).astype(np.uint8) << 4) |
+              (raw[..., 1] & 0xF).astype(np.uint8))
+    w = (rng.integers(-3, 4, (2, 6)) +
+         1j * rng.integers(-3, 4, (2, 6))).astype(np.complex64)
+    plan = Beamform().init(w, method="plain")
+    p4 = plan.execute_raw(torch.from_numpy(packed), "ci4")
+    assert torch.equal(p4, plan.execute_raw(torch.from_numpy(raw), "ci8"))
+    np.testing.assert_array_equal(
+        p4.numpy(), np.asarray(_jax(w, "jnp").execute_raw(packed, "ci4")))
+    perm = (0, 3, 1, 2)                    # header (time, stand, pol, chan)
+    hp = np.ascontiguousarray(packed.transpose(0, 2, 3, 1))
+    assert torch.equal(plan.execute_raw(torch.from_numpy(hp), "ci4", perm),
+                       p4)
+    with pytest.raises(ValueError, match="ci4 or ci8"):
+        plan.execute_raw(torch.zeros(2, 1, 1, 1, 2, dtype=torch.int16),
+                         "ci16")
+    saved = _HDR.copy()
+    try:
+        _HDR["dtype"] = "ci4"
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            want, jhdr = _jax_block_chain(packed, w, 3, 2)
+        with pytest.warns(UserWarning, match="partial integration"):
+            got, phdr, blk = _port_block_chain(packed, w, 3, 2)
+    finally:
+        _HDR.clear()
+        _HDR.update(saved)
+    with pytest.warns(UserWarning, match="partial integration"):
+        got8, _, _ = _port_block_chain(raw, w, 3, 2)
+    assert phdr["_tensor"] == jhdr["_tensor"]
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, got8)
+    assert blk._raw_reads == 7
+    assert blk._raw_read_nbyte == ntime * nchan * 6

@@ -124,6 +124,26 @@ def test_candidates_ledger_and_rings(runs):
     assert blocks["fengine_pfb"].plan_report()["method"] == "cuda"
 
 
+def test_ci4_voltages_match_their_ci8_twin(runs):
+    """The same values as packed ci4 bytes, stated by voltage_dtype='ci4':
+    beam powers and dedispersed gulps bitwise the ci8 run's, the PFB
+    reading both raw.  A dtype that does not match the array raises."""
+    volt, _, p = runs
+    packed = ((volt[..., 0] & 0xF).astype(np.uint8) << 4) | \
+        (volt[..., 1] & 0xF).astype(np.uint8)
+    q = _port_chain(packed, voltage_dtype="ci4")
+    for key in ("beams", "dedispersed"):
+        assert len(q[key]) == len(p[key])
+        assert all(np.array_equal(a, b) for a, b in zip(q[key], p[key]))
+    blocks = {b.name: b for b in q["pipe"].blocks}
+    assert blocks["fengine_pfb"]._raw_reads == NINT
+    for v, dt in ((packed, "ci8"), (volt, "ci4")):
+        with pytest.raises(TypeError, match="voltage_dtype"):
+            _port_chain(v, voltage_dtype=dt)
+    with pytest.raises(ValueError, match="voltage_dtype"):
+        _port_chain(volt, voltage_dtype="ci2")
+
+
 def test_beam_power_golden(runs):
     """p[b, c] = sum_t |sum_i w[b, i] s[t, c, i]|**2 per integration over
     the f64 scipy + np.fft PFB golden (benchmarks/e2e_tpu.py:286-298,

@@ -140,9 +140,20 @@ def test_lwa_frb_search_spec_geometry_and_shards():
 
 
 def test_sub_byte_packets_need_the_unported_unpack():
-    with pytest.raises(NotImplementedError, match="A1/A5"):
-        service.frb_search_spec(None, 1, 64, 4096, 16, 64, 16,
-                                packet_dtype="i4")
+    """i4 packets: the spec inserts an unpack stage to i8 after the
+    capture, with the JAX spec's stage list and parameters."""
+    from bifrost_tpu import service as jservice
+    for flag in (None, dict(algo="mad", window=16)):
+        p = service.frb_search_spec(None, 1, 64, 4096, 16, 64, 16,
+                                    packet_dtype="i4", rfi_flag=flag)
+        j = jservice.frb_search_spec(None, 1, 64, 4096, 16, 64, 16,
+                                     packet_dtype="i4", rfi_flag=flag)
+        assert [s.kind for s in p.stages] == [s.kind for s in j.stages]
+        assert p.stages[1].kind == "unpack"
+        assert p.stages[1].params == j.stages[1].params == {"dtype": "i8"}
+        hp = p.stages[0].params["header_callback"](0)[1]
+        hj = j.stages[0].params["header_callback"](0)[1]
+        assert hp == hj and hp["_tensor"]["shape"] == [-1, 128]
 
 
 # ------------------------------------------------------- the FRB search
@@ -203,6 +214,58 @@ def test_frb_search_spec_rings_and_health(frb_runs):
     assert cap["ngood"] > 0
     assert set(runs["jax"]["health"]["capture"]) == set(cap)
     assert {f"capture_{k}" for k in cap} <= set(p["log"])
+
+
+def test_i4_frb_search_over_udp_matches_replay():
+    """i4 packets over loopback: the capture's packed bytes go through
+    the spec's unpack stage (i4 -> i8, 2 channels a byte) and the FDMT;
+    nothing is lost, and the candidates are those of
+    `frb_search_pipeline` replaying the same values as i8."""
+    from bifrost_tpu_torch import udp as udp_mod
+    from bifrost_tpu_torch.ops.unpack import unpack as p_unpack
+    import torch
+    nframe = 1024
+
+    def payload(t):
+        # The harness's noise rows, and a positive i4 burst (7, 7 a
+        # byte) on the frames where its u8 burst sits.
+        if t % H.BURST_PERIOD < H.BURST_LEN:
+            return b"\x77" * H.PAYLOAD
+        return H.frame_payload(t)
+
+    pkts = [H.HDR.pack(t, 0, 0) + payload(t) for t in range(nframe)]
+    size = len(pkts[0])
+    slab = b"".join(pkts)
+    recs = udp_mod.pack_transmit_records(
+        [(k * size, size, k * 50_000) for k in range(nframe)])
+    sent = nframe
+    rx = _rx(udp_mod)
+    cands = []
+    spec = service.frb_search_spec(
+        rx, H.NSRC, H.PAYLOAD, buffer_ntime=H.BUFFER_NTIME,
+        slot_ntime=H.SLOT_NTIME, gulp_nframe=H.GULP_NFRAME,
+        max_delay=H.MAX_DELAY, threshold=8.0, packet_dtype="i4",
+        on_candidate=cands.append)
+    svc = service.Service(spec, name="frb_sock_i4", device="cpu")
+    det = svc.blocks["detect"]
+    health, report, _ = _run(svc, rx, slab, recs, lambda: det.frames_seen)
+    assert report.exit_code == service.EXIT_CLEAN
+    assert health["capture"]["nmissing"] == 0
+    assert report.ledger["lost_frames"] == 0
+    assert report.ledger["committed_frames"] == sent - H.MAX_DELAY
+    packed = np.stack([np.frombuffer(payload(t), np.uint8)
+                       for t in range(nframe)])
+    vals = p_unpack(torch.from_numpy(packed), "i4").numpy()
+    assert vals.shape == (nframe, 2 * H.NSRC * H.PAYLOAD)
+    want = []
+    pipe, _, _ = service.frb_search_pipeline(
+        vals, H.GULP_NFRAME, H.MAX_DELAY, f0_mhz=60.0, df_mhz=0.024,
+        threshold=8.0, device="cpu", on_candidate=want.append)
+    pipe.run()
+    assert len(cands) == len(want) > 0
+    for a, b in zip(cands, want):
+        assert (a["frame"], a["dm_index"]) == (b["frame"], b["dm_index"])
+        assert abs(a["snr"] - b["snr"]) <= TOL * abs(b["snr"])
 
 
 # --------------------------------------------- the instrument over UDP

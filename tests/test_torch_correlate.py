@@ -137,15 +137,23 @@ def test_correlate_axis_order_and_gains():
 
 
 def test_correlate_drops_partial_tail_and_refuses_int8():
+    """The trailing partial integration is dropped, with a warning; the
+    int8 engine (no longer refused) matches the JAX engine bitwise on
+    the same frames, its products exact integers
+    (test_torch_xengine.py holds the rest of it)."""
     x = _fx_input(40)
     with pytest.warns(UserWarning, match="partial integration"):
         chunks, _ = _port_run(x, dict(HDR, _gulp=8),
                               lambda d: correlate(d, 16, gulp_nframe=8))
     assert np.concatenate(chunks).shape[0] == 2
-    with Pipeline(device="cpu"):
-        src = array_source(x, 8, header=HDR)
-        with pytest.raises(NotImplementedError, match="int8"):
-            correlate(src, 16, engine="int8")
+    x8 = (x * 40).astype(np.complex64)
+    with pytest.warns(UserWarning, match="partial integration"):
+        (jc, jh), (pc, ph) = _both(
+            x8, dict(HDR, _gulp=8),
+            lambda b, d: b.correlate(d, 16, engine="int8"),
+            lambda d: correlate(d, 16, engine="int8"))
+    assert np.array_equal(np.concatenate(pc), np.concatenate(jc))
+    assert ph[0]["_tensor"] == jh[0]["_tensor"]
 
 
 def _fft_bound(x, axes):

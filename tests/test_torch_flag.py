@@ -281,9 +281,17 @@ def test_flag_one_shot_report_and_refusals():
         Flag().init(16, algo="kurt")
     with pytest.raises(ValueError, match="method"):
         Flag(method="pallas")
-    with pytest.raises(NotImplementedError):
-        Flag().init(16).execute_raw(torch.zeros(16, 4, dtype=torch.uint8),
-                                    "ci4")
+    # ci4 storage through execute_raw: bitwise its ci8 twin.
+    rng = np.random.default_rng(2)
+    re = rng.integers(-8, 8, (64, 3, 2)).astype(np.int8)
+    im = rng.integers(-8, 8, (64, 3, 2)).astype(np.int8)
+    packed = torch.from_numpy(((re & 0xF).astype(np.uint8) << 4) |
+                              (im & 0xF).astype(np.uint8))
+    pairs = torch.from_numpy(np.stack([re, im], -1))
+    y4, m4 = Flag(method="plain").init(16).execute_raw(packed, "ci4")
+    y8, m8 = Flag(method="plain").init(16).execute_raw(pairs, "ci8")
+    assert y4.shape == (64, 3, 2) and y4.dtype == torch.complex64
+    assert torch.equal(y4, y8) and torch.equal(m4, m8)
 
 
 def test_spectral_kurtosis_and_band_vs_jax():

@@ -108,6 +108,28 @@ def test_correlate_joins_fused_chain_bitwise(ntime, gulp, n_int):
 
 
 @pytest.mark.parametrize("ntime,gulp,n_int", GRID)
+def test_correlate_int8_joins_fused_chain_bitwise(ntime, gulp, n_int):
+    """The int8 cases of tests/test_fusion_engines.py's
+    test_correlate_joins_fused_chain_bitwise: the raw ci8 head fused
+    (one group, as the JAX planner's), bitwise the unfused run and the
+    JAX fused chain."""
+    data = _volt(ntime)
+
+    def corr(blk, dev):
+        return blk.correlate(dev, n_int, engine="int8", name="xengine")
+
+    fused, rep = _run("port", data, True, corr, gulp)
+    unfused, _ = _run("port", data, False, corr, gulp)
+    assert [g["constituents"] for g in rep["groups"]] == [["h2d",
+                                                          "xengine"]]
+    assert _bits(fused, unfused)
+    jfused, jrep = _run("jax", data, True, corr, gulp)
+    assert [g["constituents"] for g in jrep["groups"]] == \
+        [g["constituents"] for g in rep["groups"]]
+    assert _bits(fused, jfused)
+
+
+@pytest.mark.parametrize("ntime,gulp,n_int", GRID)
 def test_beamform_joins_fused_chain_bitwise(ntime, gulp, n_int):
     data = _volt(ntime)
     nbeam, nsp = 3, 3 * 2

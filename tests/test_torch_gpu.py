@@ -985,3 +985,67 @@ def test_socket_fed_frb_search_dedisperses_on_the_card(cuda):
     assert dq_kernel.masked_fill.launches - k5a > 0
     assert fdmt_block._frames_staged == nframe
     assert report.ledger["committed_frames"] == nframe - max_delay
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["ci8", "ci4"])
+@pytest.mark.parametrize("ntime,nchan,nsp", [
+    (64, 2, 100),      # nsp not a multiple of the 64-station tile
+    (45, 3, 64),       # T not a multiple of the 32-deep mma step
+    (1, 2, 70),        # T = 1
+    (200, 1, 130),     # nchan 1, two ragged edges
+    (1024, 4, 512)])   # the main path's depth and width
+def test_xengine_kernel_bitwise_vs_plain(cuda, fmt, ntime, nchan, nsp):
+    """X1 against its plain version (f64 matmul, exact), bitwise, on
+    full-range voltages, with its launch counted once."""
+    from bifrost_tpu_torch.ops import xengine_kernel as xk
+    g = torch.Generator().manual_seed(ntime * nsp + nchan)
+    if fmt == "ci8":
+        x = torch.randint(-128, 128, (ntime, nchan, nsp, 2), generator=g,
+                          dtype=torch.int8)
+    else:
+        x = torch.randint(0, 256, (ntime, nchan, nsp), generator=g,
+                          dtype=torch.uint8)
+    x = x.to(cuda)
+    before = xk.xengine_int8.launches
+    got = xk.xengine_int8(x, fmt)
+    assert xk.xengine_int8.launches == before + 1
+    want = xk.xengine_int8_plain(x, fmt)
+    assert _bits_equal(torch.view_as_real(got), torch.view_as_real(want))
+    cpu = xk.xengine_int8_plain(x.cpu(), fmt)
+    assert torch.equal(got.cpu(), cpu)
+    with pytest.raises(ValueError, match="contiguous"):
+        xk.xengine_int8(x[:, :, ::2], fmt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gulp", [8, 16])
+@pytest.mark.parametrize("fmt", ["ci8", "ci4"])
+def test_correlate_host_ring_runs_x1_on_the_card(cuda, fmt, gulp):
+    """A complex-integer stream on a host ring, with no copy: the int8
+    correlate stages each gulp onto the card and launches X1 there (a
+    gulp of 16 is one whole integration, landing in the host span), and
+    its visibilities equal the CPU pipeline's."""
+    from bifrost_tpu_torch import blocks
+    from bifrost_tpu_torch.ops import xengine_kernel as xk
+    from bifrost_tpu_torch.pipeline import Pipeline
+    rng = np.random.default_rng(7)
+    if fmt == "ci8":
+        data = rng.integers(-128, 128, (32, 4, 8, 2, 2)).astype(np.int8)
+    else:
+        data = rng.integers(0, 256, (32, 4, 8, 2)).astype(np.uint8)
+    runs = {}
+    for dev in (None, "cpu"):
+        chunks = []
+        with Pipeline(device=dev) as pipe:
+            src = blocks.array_source(data, gulp, header={
+                "dtype": fmt, "labels": ["time", "freq", "station", "pol"]})
+            x = blocks.correlate(src, 16, engine="int8")
+            blocks.gather_sink(x, chunks)
+            before = xk.xengine_int8.launches
+            pipe.run()
+        runs[dev] = (np.concatenate(chunks), xk.xengine_int8.launches -
+                     before, x._raw_reads)
+    assert runs[None][1:] == (32 // gulp, 0)
+    assert runs["cpu"][1:] == (0, 0)
+    assert np.array_equal(runs[None][0], runs["cpu"][0])

@@ -200,5 +200,62 @@ def test_defaults_are_the_specs():
     np.testing.assert_array_equal(uvw, r._pos_np)
     assert uvw.dtype == r._pos_np.dtype
     np.testing.assert_array_equal(default_grid_kernel(), r._kern_np)
-    with pytest.raises(NotImplementedError, match="int8"):
-        lwa_instrument_pipeline(volt, device="cpu", engine="int8", **GEOM)
+    pipe = lwa_instrument_pipeline(volt, device="cpu", engine="int8",
+                                   fuse=False, **GEOM)[0]
+    x = {b.name: b for b in pipe.blocks}["xengine"]
+    assert x.engine == "int8"
+    with pytest.raises(ValueError, match="engine"):
+        lwa_instrument_pipeline(volt, device="cpu", engine="bf16", **GEOM)
+
+
+def _pfb_int8(volt):
+    """The F-engine's output cast to int8 as the X-engine casts it, from
+    the JAX `Pfb` and the port's, on the same voltages."""
+    import torch
+    from bifrost_tpu.ops.pfb import Pfb as JPfb
+    from bifrost_tpu_torch.blocks.correlate import int8_pairs
+    from bifrost_tpu_torch.ops.pfb import Pfb as PPfb
+    x = (volt[..., 0] + 1j * volt[..., 1].astype(np.float32)) \
+        .astype(np.complex64)
+    jp = JPfb(method="jnp")
+    jp.init(GEOM["nchan"], ntap=GEOM["ntap"])
+    jy = np.array(jp.execute(x))
+    pp = PPfb(method="plain")
+    pp.init(GEOM["nchan"], ntap=GEOM["ntap"])
+    py = pp.execute(torch.from_numpy(x))
+    return (int8_pairs(torch.from_numpy(jy)), int8_pairs(py),
+            np.abs(jy).max())
+
+
+def test_int8_engine_matches_jax():
+    """engine='int8' end to end against JAX lwa_instrument_spec(engine=
+    'int8'): full-range ci8 voltages drive the PFB output past +-127 and
+    through fractions, so the X-engine's saturating, truncating cast is
+    exercised.  The two PFBs round apart (their DFTs sum in other
+    orders), and a cast can flip where an output lies within that
+    rounding of an integer; the test first checks that the two casts
+    agree on this input, so the X-engine sees the same int8 planes and
+    the images fall within TOL as the f32 engine's do."""
+    rng = np.random.default_rng(17)
+    volt = rng.integers(-128, 128, (NFRAME, GEOM["nstand"], GEOM["npol"],
+                                    2)).astype(np.int8)
+    j8, p8, peak = _pfb_int8(volt)
+    assert peak > 127 and (np.abs(p8.numpy()) == 127).any()
+    assert np.array_equal(j8.numpy(), p8.numpy())
+    from bifrost_tpu import service
+    images = []
+    spec = service.lwa_instrument_spec(
+        voltages=pair_to_structured(volt), fuse=False, engine="int8",
+        pallas_interpret=True, on_image=lambda d: images.append(np.array(d)),
+        **GEOM)
+    svc = service.Service(spec, name="instrument_int8_ref")
+    svc.start()
+    assert svc.wait(timeout=300)
+    svc.stop()
+    assert svc._run_error is None
+    r = {b.name: b for b in svc.pipeline.blocks}["image_grid"].romein
+    args = carry_over(romein_state=(r._pos_np, r._kern_np))
+    p = _port(volt, uvw=args["positions"], kernels=args["kernels"],
+              engine="int8")
+    assert len(p["images"]) == len(images) == NINT
+    _close(p["images"], images, TOL)

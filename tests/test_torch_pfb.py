@@ -319,3 +319,48 @@ def test_fir_vectors_route(int8, ntap):
         xo = torch.zeros(9, n, dtype=dt)[1:]
         assert not fir_vectors(xo, torch.zeros(max(ntap - 1, 1), n),
                                torch.zeros(8, n), ntap)
+
+
+def _ci4_of(pairs):
+    """ci8 (re, im) int8 pairs with values in [-8, 7] -> the packed ci4
+    bytes of the same values (re in the high nibble)."""
+    return (((pairs[..., 0] & 0xF).astype(np.uint8) << 4) |
+            (pairs[..., 1] & 0xF).astype(np.uint8))
+
+
+def test_pfb_ci4_raw_read_matches_ci8_twin_and_jax():
+    """Packed ci4 voltages through `execute_raw` and through the block's
+    raw read: bitwise their ci8 twin (the same values), within the DFT
+    tolerance of the JAX plan and block fed the ci4 bytes, and the block
+    reads 1 B/sample."""
+    rng = np.random.default_rng(15)
+    nchan = 8
+    raw = _ci8(rng, nchan * 11 + 3)
+    packed = _ci4_of(raw)
+    whole8 = Pfb().init(nchan, ntap=4).execute_raw(
+        torch.from_numpy(raw[:nchan * 11]), "ci8")
+    whole4 = Pfb().init(nchan, ntap=4).execute_raw(
+        torch.from_numpy(packed[:nchan * 11]), "ci4")
+    assert torch.equal(whole4, whole8)
+    jp = JPfb(method="jnp")
+    want = np.asarray(jp.init(nchan, ntap=4).execute_raw(
+        packed[:nchan * 11], "ci4"))
+    assert np.abs(whole4.numpy() - want).max() <= \
+        _pfb_tol(nchan, np.abs(want).max())
+    hdr = dict(_HDR, dtype="ci4")
+    saved = _HDR.copy()
+    try:
+        _HDR.update(hdr)
+        jwant, jhdr = _jax_pfb_chain(packed, nchan, 2 * nchan)
+        with pytest.warns(UserWarning, match="dropping 3 trailing"):
+            got, phdr, blk = _port_pfb_chain(packed, nchan, 2 * nchan)
+    finally:
+        _HDR.clear()
+        _HDR.update(saved)
+    with pytest.warns(UserWarning, match="dropping 3 trailing"):
+        got8, _, _ = _port_pfb_chain(raw, nchan, 2 * nchan)
+    assert phdr["_tensor"] == jhdr["_tensor"]
+    assert np.array_equal(got, got8)
+    assert np.abs(got - jwant).max() <= _pfb_tol(nchan, np.abs(jwant).max())
+    assert blk._raw_reads == 6
+    assert blk._raw_read_nbyte == nchan * 11 * 3 * 2

@@ -367,3 +367,79 @@ def test_gridder_and_fft_blocks_match_jax_and_latch():
             2 * np.log2(ngrid * ngrid) * np.abs(gk).sum(axis=(1, 2)))
     assert np.isfinite(mine).all()
     assert (np.abs(mine - want) <= 2 * bound).all()
+
+
+def test_gridding_packed_ci4_matches_logical_and_jax():
+    """Mirrors tests/test_ops.py:610 and :749: packed ci4 visibilities
+    grid bitwise as their logical values (`execute(..., dtype='ci4')`),
+    within the bound of the golden and of the JAX plan fed the same ci4
+    bytes ('scatter' and 'pallas' interpret), host positions."""
+    from bifrost_tpu.ops import quantize as jq
+    import bifrost_tpu as jbf
+    np.random.seed(3)
+    ngrid, m, ndata = 32, 4, 16
+    re = np.random.randint(-8, 8, (1, ndata)).astype(np.float32)
+    im = np.random.randint(-8, 8, (1, ndata)).astype(np.float32)
+    vis = (re + 1j * im).astype(np.complex64)
+    q = jbf.empty((1, ndata), dtype="ci4")
+    jq(vis, q, scale=1.0)
+    packed = np.asarray(q)
+    xs = np.random.randint(0, ngrid - m, (2, 1, ndata)).astype(np.int32)
+    kern = np.ones((1, ndata, m, m), dtype=np.complex64)
+    plan = Romein().init(xs, kern, ngrid)
+    got = plan.execute(torch.from_numpy(packed), dtype="ci4").numpy()
+    logical = Romein().init(xs, kern, ngrid).execute(
+        torch.from_numpy(vis)).numpy()
+    assert np.array_equal(got, logical)
+    golden, mag, _, nmax = _golden(vis, xs[0, 0], xs[1, 0], kern, ngrid)
+    bound = (nmax + 6) * EPS * mag
+    assert (np.abs(got - golden) <= bound).all()
+    for method in ("scatter", "pallas"):
+        jplan = JRomein()
+        jplan.pallas_interpret = True
+        jplan.init(xs, kern, ngrid, method=method)
+        jgrid = np.zeros((1, ngrid, ngrid), np.complex64).view(ndarray)
+        jplan.execute(q, jgrid)
+        assert (np.abs(got - np.asarray(jgrid)) <= 2 * bound).all()
+
+
+def test_gridder_block_raw_ci4_ingest():
+    """Mirrors tests/test_blocks.py:445: a ci4 [pol, vis, time] stream on
+    a 'cuda' ring is read in storage form (1 B/sample; the counters book
+    storage bytes) and grids bitwise as the same values in complex64."""
+    from bifrost_tpu.ops import quantize as jq
+    import bifrost_tpu as jbf
+    from bifrost_tpu_torch import blocks
+    from bifrost_tpu_torch.ops.runtime import storage_nbyte_per_sample
+    from bifrost_tpu_torch.pipeline import Pipeline
+    rng = np.random.default_rng(47)
+    ngrid, m, nvis, ntime = 32, 3, 10, 8
+    vis = (rng.integers(-7, 8, (ntime, 1, nvis)) +
+           1j * rng.integers(-7, 8, (ntime, 1, nvis))).astype(np.complex64)
+    q = jbf.empty(vis.shape, dtype="ci4")
+    jq(vis, q, scale=1.0)
+    packed = np.asarray(q)
+    xs = rng.integers(0, ngrid - m, (2, 1, nvis)).astype(np.int32)
+    kern = (rng.standard_normal((1, nvis, m, m)) +
+            1j * rng.standard_normal((1, nvis, m, m))).astype(np.complex64)
+
+    def run(data, dtype):
+        got = []
+        hdr = {"labels": ["time", "pol", "vis"], "uvw": xs.tolist()}
+        if dtype:
+            hdr["dtype"] = dtype
+        with Pipeline(device="cpu") as pipe:
+            t = blocks.transpose(
+                blocks.copy(blocks.array_source(data, 4, header=hdr),
+                            space="cuda"), ["pol", "vis", "time"])
+            g = blocks.romein(t, ngrid, kern)
+            blocks.gather_sink(g, got)
+            pipe.run()
+        return np.concatenate(got, axis=-1), g
+
+    out4, g4 = run(packed, "ci4")
+    outc, gc = run(vis, None)
+    assert np.array_equal(out4, outc)
+    assert g4._raw_reads == 2 and gc._raw_reads == 0
+    assert g4._raw_read_nbyte == \
+        storage_nbyte_per_sample("ci4") * nvis * ntime

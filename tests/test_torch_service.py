@@ -330,15 +330,23 @@ def test_service_needs_a_card_or_a_device(monkeypatch):
 
 @pytest.mark.parametrize("kind", ["capture", "unpack", "map"])
 def test_unported_kinds_raise(kind):
-    """unpack and map raise NotImplementedError naming their ROADMAP
-    item.  capture is ported: a capture stage without its socket and
+    """map raises NotImplementedError naming its ROADMAP item.  capture
+    and unpack are ported: a capture stage without its socket and
     geometry raises TypeError, and one after another stage ValueError
-    (it can only start a chain), as the JAX registry does."""
+    (it can only start a chain), as the JAX registry does; an unpack
+    stage builds an UnpackBlock."""
     if kind == "capture":
         with pytest.raises(TypeError):
             _service(_spec([StageSpec(kind)]))
         with pytest.raises(ValueError, match="first stage"):
             _service(_spec([_source_stage(), StageSpec(kind)]))
+        return
+    if kind == "unpack":
+        from bifrost_tpu_torch.blocks import UnpackBlock
+        svc = _service(_spec([_source_stage(),
+                              StageSpec(kind, params=dict(dtype="i8"))]))
+        b = svc.blocks[kind]
+        assert isinstance(b, UnpackBlock) and b.dtype == "i8"
         return
     params = {"func": None} if kind == "map" else {}
     stages = [_source_stage(), StageSpec(kind, params=params)]
