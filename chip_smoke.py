@@ -11,7 +11,9 @@ Phases, one line each; any failure exits non-zero:
              shapes the main paths give it, bitwise, and time both, the
              bound and a library call for the same function (K4 and K5a
              also on their edge shapes, K4_EDGES and K5A_EDGES, each
-             launch's route asserted); K1 at the FRB
+             launch's route asserted; X1 on XE_EDGES and at the gulp
+             guard's edge XE_GUARD, into outputs prefilled with NaN,
+             its corner turn and tiles also timed apart); K1 at the FRB
              search's shape and at the beam search's (8 beams in one
              launch a merge step); time the PFB's DFT matmuls per
              gulp.  The gridders K6a/K6b are also held against a
@@ -229,7 +231,13 @@ Phases, one line each; any failure exits non-zero:
              golden, an unfused run with xengine_method='plain' (XE_CUT
              integrations) bitwise too; frames/s steady (first
              visibility frame to last), the raw reads and the bytes they
-             covered, X1's launches (fused == unfused).  (b) The ci4
+             covered, X1's launches (fused == unfused); then
+             XE_TRACE_NINT integrations of the fused raw head under
+             torch.profiler, bitwise the fused run: over the steady
+             window between X1 launches, the device's busy time and
+             idle share, its ms a gulp by kind (H2D, X1, other kernels)
+             and each host thread's top-level ops (the Chrome trace in
+             traces/xengine_trace.json).  (b) The ci4
              F-engine: `lwa_beam_search_pipeline` at [bengine]'s width
              on FE_NINT integrations of its voltages, given as packed ci4
              and as ci8: beam powers bitwise equal, K2 and K4 launches
@@ -238,6 +246,7 @@ Phases, one line each; any failure exits non-zero:
              same run with xengine_method='plain', X1 and K6b launched.
              Launches go into `launches_by_path` as `xengine_fused`,
              `xengine_unfused`, `xengine_unpack`, `xengine_plain`,
+             `xengine_trace`,
              `fengine_ci4`, `fengine_ci8`, `instrument_int8` and
              `instrument_int8_plain`.
 
@@ -253,6 +262,7 @@ import os
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -352,13 +362,21 @@ CP_X = dict(nsrc=4, max_payload_size=256, slot_ntime=4096)
 # XE_REPLAY times.  The host-unpack chain and the 'plain' run are cut to
 # XE_CUT integrations; XE_GOLDEN_CHANS of the first integration are held
 # against an exact numpy golden; XE_EDGES are X1's edge shapes (ntime,
-# nchan, nsp).  The ci4 F-engine runs FE_NINT integrations of
+# nchan, nsp): around its 64-row warpgroups, its 128-station tiles, its
+# 32-sample wgmma step and its 16-sample pitch; XE_GUARD the gulp
+# guard's edge (ci8, every value -128, the largest sums); XE_TRACE_NINT
+# integrations of the fused run are traced.  The ci4 F-engine runs
+# FE_NINT integrations of
 # [bengine]'s voltages, the int8 instrument XI_NINT; the i4 FRB capture
 # CP_I4_NGULP gulps of 64 sources x 32 B (4096 i4 channels).
 XE_NCHAN, XE_NSTAND, XE_NPOL, XE_GULP, XE_NINT = 128, 256, 2, 1024, 8192
 XE_DISTINCT, XE_REPLAY, XE_CUT = 16384, 4, 2
 XE_GOLDEN_CHANS = (0, 37, 64, 127)
-XE_EDGES = ((64, 2, 100), (45, 3, 64), (1, 2, 70), (200, 1, 130))
+XE_EDGES = ((64, 2, 100), (45, 3, 64), (1, 2, 70), (200, 1, 130),
+            (1, 1, 1), (31, 2, 63), (33, 2, 65), (45, 1, 127),
+            (200, 1, 128), (200, 2, 129), (129, 2, 200), (300, 2, 384))
+XE_GUARD = (65535, 1, 64)     # the gulp guard's edge, every value -128
+XE_TRACE_NINT = 2
 FE_NINT, XI_NINT = 4, 2
 CP_I4_NSRC, CP_I4_PAYLOAD, CP_I4_NGULP = 64, 32, 2
 
@@ -869,10 +887,11 @@ def xe_work(ntime, nchan, nsp, kind):
 
 def check_xengine(dev, kind):
     """X1 at the int8 configuration's gulp (1024 frames x 128 channels x
-    512 inputs) on ci4 and ci8 storage, and on XE_EDGES, bitwise against
-    its plain version (f64 matmul, exact); timed beside the plain
-    version and `torch._int_mm`."""
-    from bifrost_tpu_torch import build
+    512 inputs) on ci4 and ci8 storage, on XE_EDGES and at XE_GUARD,
+    bitwise against its plain version (f64 matmul, exact), each into an
+    output prefilled with NaN, so that a tile left unwritten fails; timed
+    as a whole call (`ms`, the corner turn and the tiles) and each kernel
+    apart, beside the plain version and `torch._int_mm`."""
     from bifrost_tpu_torch.ops import xengine_kernel as xk
     nsp = XE_NSTAND * XE_NPOL
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -885,21 +904,44 @@ def check_xengine(dev, kind):
                              dtype=torch.int8, generator=gen)
 
     worst = 0.0
-    shapes = ((XE_GULP, XE_NCHAN, nsp),) + XE_EDGES
-    for shape in shapes:
-        for fmt in ("ci4", "ci8"):
+    cases = [(shape, fmt) for shape in ((XE_GULP, XE_NCHAN, nsp),) + XE_EDGES
+             for fmt in ("ci4", "ci8")] + [(XE_GUARD, "guard")]
+    for shape, fmt in cases:
+        if fmt == "guard":
+            fmt, x = "ci8", torch.full(shape + (2,), -128, device=dev,
+                                       dtype=torch.int8)
+        else:
             x = data(shape, fmt)
-            got = xk.xengine_int8(x, fmt)
-            want = xk.xengine_int8_plain(x, fmt)
-            torch.cuda.synchronize()
-            if not bits_equal(torch.view_as_real(got),
-                              torch.view_as_real(want)):
-                raise AssertionError(f"xengine_int8 differs from plain on "
-                                     f"{fmt} {shape}")
-            worst = max(worst, float((got - want).abs().max()))
+        got = torch.full(shape[1:] + shape[2:], complex(np.nan, np.nan),
+                         dtype=torch.complex64, device=dev)
+        xk.xengine_int8(x, fmt, got)
+        want = xk.xengine_int8_plain(x, fmt)
+        torch.cuda.synchronize()
+        if not bits_equal(torch.view_as_real(got),
+                          torch.view_as_real(want)):
+            raise AssertionError(f"xengine_int8 differs from plain on "
+                                 f"{fmt} {shape}")
+        worst = max(worst, float((got - want).abs().max()))
     x4 = data((XE_GULP, XE_NCHAN, nsp), "ci4")
     out = torch.empty(XE_NCHAN, nsp, nsp, dtype=torch.complex64, device=dev)
     ms = cuda_time(lambda: xk.xengine_int8(x4, "ci4", out), 20)
+    # Each kernel apart, through the library (uncounted: timing only).
+    lib, tp = xk._library(), xk.pitch(XE_GULP)
+    planes = torch.empty((2 * XE_NCHAN, nsp, tp), dtype=torch.int8,
+                         device=dev)
+
+    def checked(err):
+        if err:
+            raise RuntimeError(lib.xengine_error_string(err).decode())
+
+    def stream():
+        return torch.cuda.current_stream(dev).cuda_stream
+    turn_ms = cuda_time(lambda: checked(lib.xengine_corner_turn(
+        x4.data_ptr(), 1, XE_GULP, XE_NCHAN, nsp, planes.data_ptr(), tp,
+        stream())), 20)
+    tiles_ms = cuda_time(lambda: checked(lib.xengine_tiles(
+        planes.data_ptr(), tp, XE_NCHAN, nsp, out.data_ptr(), stream())), 20)
+    del planes
     plain_ms = cuda_time(lambda: xk.xengine_int8_plain(x4, "ci4"), 2)
     # The library yardstick: torch._int_mm (cuBLASLt int8 -> int32), the
     # four products of every channel over planes unpacked beforehand into
@@ -918,20 +960,26 @@ def check_xengine(dev, kind):
     del ar, ai, br, bi
     bound_ms, by, nbytes, nops, full_ops = xe_work(XE_GULP, XE_NCHAN, nsp,
                                                    kind)
-    regs = [ln.strip() for ln in
-            build.build_log.get("xengine", {}).get("ptxas", "").splitlines()
-            if "registers" in ln]
+    info = xk.kernel_info()
     phase("kernels", f"xengine_int8 (X1) equal to plain (tolerance: "
-          f"bitwise, max abs err {worst}) on ci4 and ci8 at "
-          f"{(XE_GULP, XE_NCHAN, nsp)} and on edge shapes {XE_EDGES}; "
-          f"{ms:.4f} ms per gulp (1 launch), plain (f64 matmul) "
-          f"{plain_ms:.4f} ms, torch._int_mm x 4 x {XE_NCHAN} channels on "
-          f"pre-unpacked planes {library_ms:.4f} ms, bound {bound_ms:.4f} "
-          f"ms ({by}: {nbytes / 1e9:.4f} GB at {hbm_rate(kind) / 1e12} "
-          f"TB/s, {nops / 1e12:.4f} T int8 ops (pairs i <= j) at "
-          f"{INT8_PEAK / 1e12} TOPS; as computed on the full matrix "
+          f"bitwise, max abs err {worst}, outputs prefilled with NaN) on "
+          f"ci4 and ci8 at {(XE_GULP, XE_NCHAN, nsp)}, on edge shapes "
+          f"{XE_EDGES} and at the guard's edge {XE_GUARD} (ci8, all "
+          f"-128); {ms:.4f} ms per gulp (1 call: corner turn alone "
+          f"{turn_ms:.4f} ms, tiles alone {tiles_ms:.4f} ms), "
+          f"{bound_ms / ms:.1%} of the bound, {nops / ms / 1e9:.1f} int8 "
+          f"TOPS on the pairs i <= j ({nops / tiles_ms / 1e9:.1f} in the "
+          f"tiles alone); plain (f64 matmul) {plain_ms:.4f} ms, "
+          f"torch._int_mm x 4 x {XE_NCHAN} channels on pre-unpacked "
+          f"planes {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}: "
+          f"{nbytes / 1e9:.4f} GB at {hbm_rate(kind) / 1e12} TB/s, "
+          f"{nops / 1e12:.4f} T int8 ops (pairs i <= j) at "
+          f"{INT8_PEAK / 1e12} TOPS; the full matrix "
           f"{full_ops / 1e12:.4f} T ops, "
-          f"{full_ops / INT8_PEAK * 1e3:.4f} ms); {regs}; {kind}")
+          f"{full_ops / INT8_PEAK * 1e3:.4f} ms); kernels (registers at "
+          f"launch, local bytes, shared memory static / dynamic a block) "
+          f"{info}; the tiles' consumers raised to 240 registers by "
+          f"setmaxnreg; {kind}")
     return {"name": "xengine_int8", "route": "cuda",
             "source": "bifrost_tpu_torch/csrc/xengine.cu",
             "replaces": "bifrost_tpu/blocks/correlate.py:516",
@@ -939,8 +987,8 @@ def check_xengine(dev, kind):
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
             "library_ms": library_ms,
             "library_call": "torch._int_mm, 4 products a channel on "
-                            "pre-unpacked int8 planes"}
-
+                            "pre-unpacked int8 planes",
+            "corner_turn_ms": turn_ms, "tiles_ms": tiles_ms}
 
 
 def time_dft(dev, kind, rng):
@@ -2828,11 +2876,13 @@ def xe_source(frames, nframe):
     return Source(["ci4"], XE_GULP, name="xe_replay")
 
 
-def xe_run(dev, frames, nframe, topo, method=None):
+def xe_run(dev, frames, nframe, topo, method=None, profile=False):
     """One X-engine run over `nframe` replayed frames: topo 'fused' or
     'unfused' (the raw head) or 'unpack' (the host unpack first).  -> dict
     of the visibility frames (on the card), the host clock when each was
-    done, wall seconds, launch counts and the raw reads (count, bytes)."""
+    done, wall seconds, launch counts and the raw reads (count, bytes);
+    with `profile`, the run under torch.profiler (CPU and CUDA) and its
+    blocks' host seconds by phase too ('prof', 'blocks')."""
     import contextlib
 
     from bifrost_tpu_torch import block_scope, config
@@ -2860,10 +2910,12 @@ def xe_run(dev, frames, nframe, topo, method=None):
                               engine="int8")
             callback_sink(x, on_data=keep, gulp_nframe=1)
             reset_counts()
-            t0 = time.perf_counter()
-            pipe.run()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+            prof = xe_profiler() if profile else contextlib.nullcontext()
+            with prof:
+                t0 = time.perf_counter()
+                pipe.run()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
     finally:
         if method is not None:
             config.reset("xengine_method")
@@ -2872,9 +2924,94 @@ def xe_run(dev, frames, nframe, topo, method=None):
         raise AssertionError(f"{topo} run: fused groups {groups}")
     # The correlate block counts its storage-form reads fused (its raw
     # step, behind the group's H2D head) and unfused alike.
-    return {"outs": outs, "stamps": stamps, "wall": wall,
-            "counts": read_counts(),
-            "raw": (x._raw_reads, x._raw_read_nbyte)}
+    run = {"outs": outs, "stamps": stamps, "wall": wall,
+           "counts": read_counts(), "raw": (x._raw_reads, x._raw_read_nbyte)}
+    if profile:
+        run["prof"] = prof
+        run["blocks"] = {b.name: dict(b.perf_totals) for b in pipe.blocks}
+    return run
+
+
+def xe_profiler():
+    """torch.profiler over CPU and CUDA, recording the host ops of every
+    thread (the pipeline's blocks run on their own) where this PyTorch
+    offers it."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    try:
+        cfg = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    except (AttributeError, TypeError):
+        return torch.profiler.profile(activities=acts)
+    return torch.profiler.profile(activities=acts, experimental_config=cfg)
+
+
+def xe_trace_summary(run, ngulp):
+    """Where one profiled X-engine run's time went, read from the
+    profiler's Chrome trace (written to traces/xengine_trace.json)
+    over the steady window from the first gulp's X1 tiles kernel to the
+    last's (ngulp - 1 gulps): the device's busy time there (the union of
+    kernels, copies and sets) and idle share, its ms a gulp by kind (H2D,
+    D2H, D2D, X1, other kernels), and each host thread's top-level ops
+    with the most time (ms a gulp); and the blocks' host seconds by
+    phase over the whole run -> dict."""
+    path = Path("traces") / "xengine_trace.json"
+    path.parent.mkdir(exist_ok=True)
+    run["prof"].export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    dev_ev = [e for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    tiles = sorted(e["ts"] for e in dev_ev if "tiles_kernel" in
+                   e.get("name", ""))
+    out = {"gulps": ngulp, "wall_ms_a_gulp": run["wall"] * 1e3 / ngulp,
+           "x1_tiles_launches_traced": len(tiles)}
+    if len(tiles) >= 2:
+        lo, hi = tiles[0], tiles[-1]
+        n = len(tiles) - 1
+
+        def clip(e):
+            return max(0.0, min(e["ts"] + e["dur"], hi) - max(e["ts"], lo))
+        kinds = {}
+        for e in dev_ev:
+            name = e.get("name", "")
+            if e["cat"] == "kernel":
+                k = "X1" if ("corner_turn" in name or "tiles_kernel" in
+                             name) else "other kernels"
+            elif e["cat"] == "gpu_memset":
+                k = "memset"
+            else:
+                k = next((d for d in ("HtoD", "DtoH", "DtoD") if d in name),
+                         "memcpy")
+            kinds[k] = kinds.get(k, 0.0) + clip(e) / 1e3 / n
+        busy, end = 0.0, lo
+        for a, b in sorted((max(e["ts"], lo), min(e["ts"] + e["dur"], hi))
+                           for e in dev_ev):
+            if b > max(a, end):
+                busy += b - max(a, end)
+                end = b
+        host = {}
+        for tid in sorted({e["tid"] for e in events
+                           if e.get("cat") == "cpu_op"}, key=str):
+            tops, end = {}, None
+            for e in sorted((e for e in events if e.get("cat") == "cpu_op"
+                             and e["tid"] == tid), key=lambda e: e["ts"]):
+                if end is not None and e["ts"] < end:
+                    continue          # nested in a top-level op
+                end = e["ts"] + e["dur"]
+                tops[e["name"]] = tops.get(e["name"], 0.0) + clip(e) / 1e3 / n
+            top = sorted(((k, round(v, 4)) for k, v in tops.items()
+                          if v > 0.01), key=lambda kv: -kv[1])[:4]
+            if top:
+                host[f"thread {tid}"] = dict(top)
+        out.update({"steady_ms_a_gulp": (hi - lo) / 1e3 / n,
+                    "device_busy_ms_a_gulp": busy / 1e3 / n,
+                    "idle_share": 1 - busy / (hi - lo),
+                    "device_ms_a_gulp": {k: round(v, 4)
+                                         for k, v in kinds.items()},
+                    "host_top_level_ms_a_gulp": host})
+    out["blocks_host_s"] = {b: {k: round(v, 4) for k, v in t.items()}
+                            for b, t in run["blocks"].items()}
+    return out
 
 
 def xe_golden(frames, chans):
@@ -2967,6 +3104,24 @@ def xengine_path(dev, kind, volt):
           f"{ {k: r['raw'] for k, r in runs.items()} }; X1 launches "
           f"{ {k: r['counts']['xengine_int8'] for k, r in runs.items()} }; "
           f"{kind}")
+
+    # The fused raw head again, under torch.profiler: where a gulp's time
+    # goes (H2D, X1, the chunk add, the host).
+    ntr = XE_TRACE_NINT * XE_NINT
+    tr = xe_run(dev, frames, ntr, "fused", profile=True)
+    if tr["counts"] != expected(xengine_int8=ntr // XE_GULP) or \
+            len(tr["outs"]) != XE_TRACE_NINT or \
+            not all(bits_equal(torch.view_as_real(v),
+                               torch.view_as_real(ref[k]))
+                    for k, v in enumerate(tr["outs"])):
+        raise AssertionError(f"xengine trace run: launches {tr['counts']}, "
+                             f"{len(tr['outs'])} frames, or differs")
+    out["xengine_trace"] = tr["counts"]
+    summary = xe_trace_summary(tr, ntr // XE_GULP)
+    phase("xengine", f"(a) trace of the fused raw head, {XE_TRACE_NINT} "
+          f"integrations ({ntr // XE_GULP} gulps) under torch.profiler, "
+          f"bitwise the fused run's: {json.dumps(summary)}; {kind}")
+    del tr
     del runs, ref, first, frames
     free_device()
 

@@ -1,14 +1,15 @@
 """Time the port's redesigned kernels against variants of their sources on
-a CUDA card: the FIR MAC K2, the FDMT merge step K1, the B-engine K4 and
-the masked fill K5a.
+a CUDA card: the FIR MAC K2, the FDMT merge step K1, the B-engine K4, the
+masked fill K5a and the int8 X-engine X1.
 
     python3 kernel_variants.py [--rounds N] [--only K2,K1]
 
 Each variant is the port's source (bifrost_tpu_torch/csrc/fir.cu,
-fdmt.cu, beamform.cu or dq.cu) with a few lines replaced (VARIANTS below:
-every replaced text must occur exactly once) or, for a first design no
-longer in the source, a whole source kept here (K1's first design: one
-thread per output sample, launched once per beam).  K1's staged design
+fdmt.cu, beamform.cu, dq.cu or xengine.cu) with a few lines replaced
+(VARIANTS below: every replaced text must occur exactly once) or, for a
+first design no longer in the source, a whole source kept here (K1's
+first design: one thread per output sample, launched once per beam; X1's:
+mma.sync from staged scalar loads over the full matrix).  K1's staged design
 (FDMT_STAGED: a block stages a group of rows' distinct input rows in
 shared memory) is a kernel kept here and put into the source by
 substitution.  Each is compiled with the port's nvcc flags into
@@ -22,8 +23,11 @@ held, untimed, on one step with random tables) and on one beam-search
 FDMT gulp's 12 (8 beams x 4096 channels x 65 samples); K4 on one
 beam-search gulp (16 x 4096 x 512 complex64, 8 beams); K5a on
 [frbflag]'s gulp (4096 x 4096 f32, windows of 16) and [dq]'s (16 x
-2,097,152 complex64, one window).  F.conv1d, torch.matmul
-and torch.where are timed in the same rounds.  Prints each variant's
+2,097,152 complex64, one window); X1 on the int8 X-engine's gulp (1024
+frames x 128 channels x 512 inputs ci4; also held, untimed, on ci8 and
+at 200 x 2 x 129, into outputs prefilled with NaN).  F.conv1d,
+torch.matmul, torch.where and torch._int_mm are timed in the same
+rounds.  Prints each variant's
 registers and spilled bytes by kernel from ptxas, one line per round, and
 last the card's name and power limit and a JSON object of the times
 (ms).
@@ -47,6 +51,7 @@ from bifrost_tpu_torch.ops import beamform_kernel as bk
 from bifrost_tpu_torch.ops import dq_kernel as dk
 from bifrost_tpu_torch.ops import fdmt_kernel as fdk
 from bifrost_tpu_torch.ops import fir_kernel as fk
+from bifrost_tpu_torch.ops import xengine_kernel as xk
 
 # K1 as first built: one thread per (row, sample), grid.y over rows,
 # one launch per slice of a batch (the per-beam loop it ran under).
@@ -272,6 +277,196 @@ STAGED = [("}  // namespace\n", FDMT_STAGED.lstrip("\n")),
            "        launch_staged(state, out, rowA, rowB, delay, batch, "
            "nrows, ntime, sbs,\n                      obs, st);")]
 
+# X1 as first built (csrc/xengine.cu before its redesign): a block a
+# channel and a 64 x 64 tile of the full matrix, staging one sample at a
+# time into shared memory, mma.sync.m16n8k32 s8; its entry point takes
+# the scratch planes of the wrapper and ignores them, and it has no
+# kernels apart.
+XENGINE_FIRST = r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kTile = 64;      // stations a block side
+constexpr int kDepth = 64;     // time samples a shared-memory stage
+constexpr int kPitch = 80;     // bytes a shared row: kDepth + 16
+constexpr int kThreads = 128;  // four warps, 2 x 2 over the tile
+constexpr int kQuads = kTile * kDepth / 4 / kThreads;  // words a thread a side
+
+__device__ __forceinline__ void mma_s8(int* d, const uint32_t* a,
+                                       const uint32_t* b) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// One sample's (re, im) as int8, zero past the edges.
+__device__ __forceinline__ void sample(const uint8_t* x, int fmt, int64_t idx,
+                                       bool ok, int& re, int& im) {
+    re = 0;
+    im = 0;
+    if (!ok) return;
+    if (fmt == 0) {
+        char2 v = reinterpret_cast<const char2*>(x)[idx];
+        re = v.x;
+        im = v.y;
+    } else {
+        int b = x[idx];
+        re = static_cast<int8_t>(b) >> 4;
+        im = static_cast<int8_t>(b << 4) >> 4;
+    }
+}
+
+// Stage `t0`'s samples of stations [s0, s0 + kTile) into re/im rows.
+__device__ __forceinline__ void load_side(const uint8_t* x, int fmt,
+                                          int64_t ntime, int64_t tstride,
+                                          int64_t cbase, int64_t nsp,
+                                          int64_t s0, int64_t t0,
+                                          int8_t* sr, int8_t* si) {
+    const int s = threadIdx.x % kTile;
+    const int h = threadIdx.x / kTile;
+    const bool sok = s0 + s < nsp;
+#pragma unroll
+    for (int k = 0; k < kQuads; ++k) {
+        const int tq = h + (kThreads / kTile) * k;
+        uint32_t wr = 0, wi = 0;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+            const int64_t t = t0 + tq * 4 + u;
+            int re, im;
+            sample(x, fmt, t * tstride + cbase + s0 + s, sok && t < ntime,
+                   re, im);
+            wr |= (uint32_t)(re & 0xff) << (8 * u);
+            wi |= (uint32_t)(im & 0xff) << (8 * u);
+        }
+        *reinterpret_cast<uint32_t*>(sr + s * kPitch + tq * 4) = wr;
+        *reinterpret_cast<uint32_t*>(si + s * kPitch + tq * 4) = wi;
+    }
+}
+
+__global__ void __launch_bounds__(kThreads)
+xengine_kernel(const uint8_t* __restrict__ x, int fmt, int64_t ntime,
+               int64_t nchan, int64_t nsp, float2* __restrict__ out) {
+    __shared__ __align__(16) int8_t sAr[kTile * kPitch];
+    __shared__ __align__(16) int8_t sAi[kTile * kPitch];
+    __shared__ __align__(16) int8_t sBr[kTile * kPitch];
+    __shared__ __align__(16) int8_t sBi[kTile * kPitch];
+
+    const int64_t c = blockIdx.z;
+    const int64_t i0 = (int64_t)blockIdx.y * kTile;
+    const int64_t j0 = (int64_t)blockIdx.x * kTile;
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
+    const int g = lane >> 2, q = lane & 3;
+    const int64_t tstride = nchan * nsp;
+    const int64_t cbase = c * nsp;
+
+    int accr[2][4][4], accp[2][4][4], accq[2][4][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+                accr[mi][ni][e] = accp[mi][ni][e] = accq[mi][ni][e] = 0;
+
+    for (int64_t t0 = 0; t0 < ntime; t0 += kDepth) {
+        __syncthreads();
+        load_side(x, fmt, ntime, tstride, cbase, nsp, i0, t0, sAr, sAi);
+        load_side(x, fmt, ntime, tstride, cbase, nsp, j0, t0, sBr, sBi);
+        __syncthreads();
+#pragma unroll
+        for (int kk = 0; kk < kDepth; kk += 32) {
+            uint32_t ar[2][4], ai[2][4], br[4][2], bi[4][2];
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi) {
+                const int r = (wm + mi * 16 + g) * kPitch + kk + q * 4;
+                ar[mi][0] = *reinterpret_cast<const uint32_t*>(sAr + r);
+                ar[mi][1] = *reinterpret_cast<const uint32_t*>(sAr + r + 8 * kPitch);
+                ar[mi][2] = *reinterpret_cast<const uint32_t*>(sAr + r + 16);
+                ar[mi][3] = *reinterpret_cast<const uint32_t*>(sAr + r + 8 * kPitch + 16);
+                ai[mi][0] = *reinterpret_cast<const uint32_t*>(sAi + r);
+                ai[mi][1] = *reinterpret_cast<const uint32_t*>(sAi + r + 8 * kPitch);
+                ai[mi][2] = *reinterpret_cast<const uint32_t*>(sAi + r + 16);
+                ai[mi][3] = *reinterpret_cast<const uint32_t*>(sAi + r + 8 * kPitch + 16);
+            }
+#pragma unroll
+            for (int ni = 0; ni < 4; ++ni) {
+                const int r = (wn + ni * 8 + g) * kPitch + kk + q * 4;
+                br[ni][0] = *reinterpret_cast<const uint32_t*>(sBr + r);
+                br[ni][1] = *reinterpret_cast<const uint32_t*>(sBr + r + 16);
+                bi[ni][0] = *reinterpret_cast<const uint32_t*>(sBi + r);
+                bi[ni][1] = *reinterpret_cast<const uint32_t*>(sBi + r + 16);
+            }
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+                for (int ni = 0; ni < 4; ++ni) {
+                    mma_s8(accr[mi][ni], ar[mi], br[ni]);
+                    mma_s8(accr[mi][ni], ai[mi], bi[ni]);
+                    mma_s8(accp[mi][ni], ar[mi], bi[ni]);
+                    mma_s8(accq[mi][ni], ai[mi], br[ni]);
+                }
+        }
+    }
+
+    float2* oc = out + c * nsp * nsp;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int64_t i = i0 + wm + mi * 16 + g + (e >= 2 ? 8 : 0);
+                const int64_t j = j0 + wn + ni * 8 + q * 2 + (e & 1);
+                if (i < nsp && j < nsp)
+                    oc[i * nsp + j] = make_float2(
+                        __int2float_rn(accr[mi][ni][e]),
+                        __int2float_rn(accp[mi][ni][e] - accq[mi][ni][e]));
+            }
+}
+
+}  // namespace
+
+extern "C" {
+int xengine_int8(const void* x, int fmt, long long ntime, long long nchan,
+                 long long nsp, void* planes, long long tp, void* out,
+                 void* stream) {
+    if (ntime < 1 || nchan < 1 || nsp < 1) return 0;
+    if (nchan > 65535) return (int)cudaErrorInvalidConfiguration;
+    const unsigned nt = (unsigned)((nsp + kTile - 1) / kTile);
+    dim3 grid(nt, nt, (unsigned)nchan);
+    xengine_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)x, fmt, ntime, nchan, nsp, (float2*)out);
+    return (int)cudaGetLastError();
+}
+int xengine_corner_turn(const void*, int, long long, long long, long long,
+                        void*, long long, void*) {
+    return (int)cudaErrorNotSupported;
+}
+int xengine_tiles(void*, long long, long long, long long, void*, void*) {
+    return (int)cudaErrorNotSupported;
+}
+int xengine_kernel_info(int, int* regs, int* local_bytes, int* static_smem,
+                        int* dynamic_smem) {
+    cudaFuncAttributes attr;
+    const cudaError_t e = cudaFuncGetAttributes(&attr, xengine_kernel);
+    if (e != cudaSuccess) return (int)e;
+    *regs = attr.numRegs;
+    *local_bytes = (int)attr.localSizeBytes;
+    *static_smem = (int)attr.sharedSizeBytes;
+    *dynamic_smem = 0;
+    return 0;
+}
+const char* xengine_error_string(int err) {
+    return cudaGetErrorString((cudaError_t)err);
+}
+}  // extern "C"
+"""
+
 # name -> (source, [(text, replacement), ...] or a whole source); "as
 # built" first.
 VARIANTS = {
@@ -348,6 +543,33 @@ VARIANTS = {
     "K5a 2 in flight": ("dq", [("kUnroll = 4;", "kUnroll = 2;")]),
     "K5a 8 in flight": ("dq", [("kUnroll = 4;", "kUnroll = 8;")]),
     "K5a 128 threads": ("dq", [("kThreads = 256;", "kThreads = 128;")]),
+    "X1 as built": ("xengine", []),
+    "X1 first design": ("xengine", XENGINE_FIRST),
+    "X1 one wgmma group in flight": ("xengine", [
+        ("            wgmma_wait<0>();\n            fence_acc(accr);\n"
+         "            fence_acc(accp);\n            fence_acc(accq);\n"
+         "            mbar_arrive(&empty[s]);\n",
+         "            wgmma_wait<1>();\n            fence_acc(accr);\n"
+         "            fence_acc(accp);\n            fence_acc(accq);\n"
+         "            if (kt > 0) mbar_arrive(&empty[(s + kStages - 1) % "
+         "kStages]);\n"),
+        ("        // Accumulator layout of m64nN",
+         "        wgmma_wait<0>();\n        fence_acc(accr);\n"
+         "        fence_acc(accp);\n        fence_acc(accq);\n"
+         "        // Accumulator layout of m64nN")]),
+    "X1 2 stages": ("xengine", [("kStages = 3;", "kStages = 2;")]),
+    "X1 128 x 64 tiles, 4 stages": ("xengine", [
+        ("kTileN = 128;", "kTileN = 64;"), ("kStages = 3;", "kStages = 4;")]),
+    "X1 64 x 128 tiles, 2 stages, 2 blocks an SM": ("xengine", [
+        ("kTileM = 128;", "kTileM = 64;"), ("kStages = 3;", "kStages = 2;"),
+        ("kConsumerRegs = 240;", "kConsumerRegs = 232;"),
+        ("__launch_bounds__(kThreads, 1)", "__launch_bounds__(kThreads, 2)")]),
+    "X1 corner turn swizzled": ("xengine", [
+        ("tile[0][16 * q + 4 * g + s][r]",
+         "tile[0][16 * q + 4 * g + s][r ^ 4 * q]"),
+        ("tile[1][16 * q + 4 * g + s][r]",
+         "tile[1][16 * q + 4 * g + s][r ^ 4 * q]"),
+        ("&tile[pl][st][4 * m]", "&tile[pl][st][4 * (m ^ (st / 16))]")]),
 }
 
 
@@ -400,13 +622,15 @@ def ptxas_summary(log):
     return info
 
 
-MODULES = {"beamform": bk, "dq": dk, "fir": fk, "fdmt": fdk}
+MODULES = {"beamform": bk, "dq": dk, "fir": fk, "fdmt": fdk,
+           "xengine": xk}
 
 
 @contextlib.contextmanager
 def swapped(name, lib):
     """The port's wrapper of `name`'s kernel running `lib` (and, for K4,
-    that build's geometry constants)."""
+    that build's geometry constants).  X1's wrapper reads only the
+    planes' pitch from its source, which no variant changes."""
     mod = MODULES[VARIANTS[name][0]]
     saved = {k: getattr(mod, k) for k in
              ("_lib", "ROWS", "GROUP", "MAX_BEAMS", "ROW_BYTES", "STAGES")
@@ -480,11 +704,41 @@ def k1_cases(dev, gen):
     return cases, rand
 
 
+def x1_cases(dev, gen):
+    """X1's gulp of the int8 X-engine (ci4) with outputs, the plain
+    version's results and the torch._int_mm yardstick (chip_smoke's:
+    four products a channel on planes unpacked beforehand); ci8 at the
+    same shape and ci4 at 200 x 2 x 129 for the bitwise check alone."""
+    nsp = cs.XE_NSTAND * cs.XE_NPOL
+    shapes = {"ci4": (cs.XE_GULP, cs.XE_NCHAN, nsp),
+              "ci8": (cs.XE_GULP, cs.XE_NCHAN, nsp),
+              "ci4 edge": (200, 2, 129)}
+    cases = {}
+    for key, shape in shapes.items():
+        fmt = key.split()[0]
+        x = (torch.randint(0, 256, shape, dtype=torch.uint8, device=dev,
+                           generator=gen) if fmt == "ci4" else
+             torch.randint(-128, 128, shape + (2,), dtype=torch.int8,
+                           device=dev, generator=gen))
+        out = torch.empty(shape[1], shape[2], shape[2],
+                          dtype=torch.complex64, device=dev)
+        cases[key] = (x, fmt, out, xk.xengine_int8_plain(x, fmt))
+    re, im = xk.planes(cases["ci4"][0], "ci4")
+    ar, ai = (p.permute(1, 2, 0).contiguous() for p in (re, im))
+    br, bi = (p.permute(1, 0, 2).contiguous() for p in (re, im))
+
+    def library():
+        for c in range(cs.XE_NCHAN):
+            for a, b in ((ar, br), (ai, bi), (ar, bi), (ai, br)):
+                torch._int_mm(a[c], b[c])
+    return cases, library
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--only", default="",
-                    help="comma-separated kernel IDs (K2,K1,K4,K5a)")
+                    help="comma-separated kernel IDs (K2,K1,K4,K5a,X1)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA device", file=sys.stderr)
@@ -542,6 +796,10 @@ def main():
             lib_calls[f"torch.where {k}"] = (
                 lambda mw=mw, xw=xw, zero=zero: torch.where(mw, zero, xw), 20)
 
+    if "X1" in kernels:
+        x1, x1_library = x1_cases(dev, gen)
+        lib_calls["torch._int_mm x 4 x 128"] = (x1_library, 5)
+
     def run(name, row):
         """Check variant `name` bitwise on its shapes and time it."""
         kid = name.split()[0]
@@ -581,6 +839,18 @@ def main():
                 raise AssertionError(f"{name} differs from plain")
             row[name] = cs.cuda_time(
                 lambda: bk.beamform_power(x, w, out=pout), 20)
+        elif kid == "X1":
+            for key, (xx, fmt, xout, xwant) in x1.items():
+                xout.fill_(complex(float("nan"), float("nan")))
+                xk.xengine_int8(xx, fmt, xout)
+                torch.cuda.synchronize()
+                if not cs.bits_equal(torch.view_as_real(xout),
+                                     torch.view_as_real(xwant)):
+                    raise AssertionError(f"{name} differs from plain "
+                                         f"({key})")
+            xx, fmt, xout, _ = x1["ci4"]
+            row[name] = cs.cuda_time(lambda: xk.xengine_int8(xx, fmt, xout),
+                                     20)
         else:
             for k, (fx, fm, win) in fills.items():
                 dk.masked_fill(fx, fm, None, win, out=fout[k])

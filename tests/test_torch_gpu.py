@@ -989,33 +989,72 @@ def test_socket_fed_frb_search_dedisperses_on_the_card(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("fmt", ["ci8", "ci4"])
-@pytest.mark.parametrize("ntime,nchan,nsp", [
-    (64, 2, 100),      # nsp not a multiple of the 64-station tile
-    (45, 3, 64),       # T not a multiple of the 32-deep mma step
-    (1, 2, 70),        # T = 1
-    (200, 1, 130),     # nchan 1, two ragged edges
-    (1024, 4, 512)])   # the main path's depth and width
-def test_xengine_kernel_bitwise_vs_plain(cuda, fmt, ntime, nchan, nsp):
-    """X1 against its plain version (f64 matmul, exact), bitwise, on
-    full-range voltages, with its launch counted once."""
+@pytest.mark.parametrize("ntime,nchan,nsp,values", [
+    (64, 2, 100, "random"),      # nsp not a multiple of the tiles
+    (45, 3, 64, "random"),       # T not a multiple of the 32-deep step
+    (1, 2, 70, "random"),        # T = 1
+    (200, 1, 130, "random"),     # nchan 1, two ragged edges
+    (1024, 4, 512, "random")] +  # the main path's depth and width
+    # Around the 64-row warpgroups and 128-station tiles, the 32-sample
+    # wgmma step and the 16-sample pitch, on full-range voltages.
+    [(t, 2, n, "random") for n in (1, 63, 64, 65, 127, 128, 129, 200)
+     for t in (1, 31, 33, 45, 200)] +
+    # Extreme values: every sample at the type's minimum or maximum, and
+    # alternating extremes (re and im opposite).
+    [(t, c, n, v) for v in ("min", "max", "alternating")
+     for t, c, n in ((200, 2, 129), (33, 1, 64))])
+def test_xengine_kernel_bitwise_vs_plain(cuda, fmt, ntime, nchan, nsp,
+                                         values):
+    """X1 against its plain version (f64 matmul, exact), bitwise, into
+    an output prefilled with NaN (a tile the Hermitian grid forgot to
+    compute or mirror fails), with its launch counted once."""
     from bifrost_tpu_torch.ops import xengine_kernel as xk
     g = torch.Generator().manual_seed(ntime * nsp + nchan)
-    if fmt == "ci8":
-        x = torch.randint(-128, 128, (ntime, nchan, nsp, 2), generator=g,
-                          dtype=torch.int8)
+    lo, hi = (-128, 127) if fmt == "ci8" else (-8, 7)
+    shape = (ntime, nchan, nsp)
+    if values == "random":
+        re = torch.randint(lo, hi + 1, shape, generator=g)
+        im = torch.randint(lo, hi + 1, shape, generator=g)
+    elif values in ("min", "max"):
+        re = im = torch.full(shape, lo if values == "min" else hi)
     else:
-        x = torch.randint(0, 256, (ntime, nchan, nsp), generator=g,
-                          dtype=torch.uint8)
+        up = (torch.arange(ntime)[:, None, None] +
+              torch.arange(nsp)[None, None, :]) % 2 == 0
+        re = torch.where(up, hi, lo).expand(shape)
+        im = torch.where(up, lo, hi).expand(shape)
+    if fmt == "ci8":
+        x = torch.stack([re, im], -1).to(torch.int8)
+    else:
+        x = (((re & 0xF) << 4) | (im & 0xF)).to(torch.uint8)
     x = x.to(cuda)
+    got = torch.full((nchan, nsp, nsp), complex(np.nan, np.nan),
+                     dtype=torch.complex64, device=cuda)
     before = xk.xengine_int8.launches
-    got = xk.xengine_int8(x, fmt)
+    assert xk.xengine_int8(x, fmt, got) is got
     assert xk.xengine_int8.launches == before + 1
     want = xk.xengine_int8_plain(x, fmt)
     assert _bits_equal(torch.view_as_real(got), torch.view_as_real(want))
     cpu = xk.xengine_int8_plain(x.cpu(), fmt)
     assert torch.equal(got.cpu(), cpu)
+    strided = torch.cat([x, x], dim=2)[:, :, :nsp]
+    assert not strided.is_contiguous()
     with pytest.raises(ValueError, match="contiguous"):
-        xk.xengine_int8(x[:, :, ::2], fmt)
+        xk.xengine_int8(strided, fmt)
+
+
+@pytest.mark.gpu
+def test_xengine_kernel_at_the_gulp_guard(cuda):
+    """X1 at the correlate block's gulp guard (65,535 frames), every ci8
+    value -128: rr + ii reaches 2 * 128**2 * 65,535, the largest sum
+    int32 must hold; bitwise the plain version, into NaN."""
+    from bifrost_tpu_torch.ops import xengine_kernel as xk
+    x = torch.full((65535, 1, 64, 2), -128, dtype=torch.int8, device=cuda)
+    got = torch.full((1, 64, 64), complex(np.nan, np.nan),
+                     dtype=torch.complex64, device=cuda)
+    xk.xengine_int8(x, "ci8", got)
+    want = xk.xengine_int8_plain(x, "ci8")
+    assert _bits_equal(torch.view_as_real(got), torch.view_as_real(want))
+    assert got[0, 0, 0].real.item() == float(2 * 128 ** 2 * 65535)
 
 
 @pytest.mark.gpu

@@ -242,30 +242,104 @@ def test_int8_engine_gains_within_fold_bound():
     assert np.allclose(got.reshape(v.shape), exact, rtol=1e-5, atol=1e-3)
 
 
-@pytest.mark.parametrize("fmt", ["ci8", "ci4"])
-def test_x1_plain_vs_int64_golden(fmt):
-    rng = np.random.default_rng(12)
-    re = rng.integers(-128 if fmt == "ci8" else -8,
-                      128 if fmt == "ci8" else 8, (37, 3, 70))
-    im = rng.integers(-128 if fmt == "ci8" else -8,
-                      128 if fmt == "ci8" else 8, (37, 3, 70))
+def _x1_input(fmt, ntime, nchan, nsp, values="random", seed=12):
+    """A storage-form gulp and its int planes: seeded full-range values,
+    all at the type's minimum or maximum, or alternating extremes (signs
+    flip along time and stations, re and im opposite)."""
+    lo, hi = (-128, 127) if fmt == "ci8" else (-8, 7)
+    shape = (ntime, nchan, nsp)
+    if values == "random":
+        rng = np.random.default_rng(seed)
+        re = rng.integers(lo, hi + 1, shape)
+        im = rng.integers(lo, hi + 1, shape)
+    elif values in ("min", "max"):
+        re = im = np.full(shape, lo if values == "min" else hi)
+    else:
+        up = (np.arange(ntime)[:, None, None] +
+              np.arange(nsp)[None, None, :]) % 2 == 0
+        re = np.broadcast_to(np.where(up, hi, lo), shape)
+        im = np.broadcast_to(np.where(up, lo, hi), shape)
     if fmt == "ci8":
         x = torch.from_numpy(np.stack([re, im], -1).astype(np.int8))
     else:
         x = torch.from_numpy((((re & 0xF) << 4) | (im & 0xF))
                              .astype(np.uint8))
+    return x, re, im
+
+
+# X1's boundaries: stations around its 64-row warpgroup and 128-station
+# tiles, frames around its 32-sample wgmma step and the 16-sample pitch;
+# extreme values at two of them.  The first two cases are the original
+# ones.
+X1_CASES = ([("ci8", 37, 3, 70, "random"), ("ci4", 37, 3, 70, "random")] +
+            [(fmt, t, 2, n, "random") for fmt in ("ci8", "ci4")
+             for n in (1, 63, 64, 65, 127, 128, 129, 200)
+             for t in (1, 31, 33, 45, 200)] +
+            [(fmt, t, c, n, v) for fmt in ("ci8", "ci4")
+             for v in ("min", "max", "alternating")
+             for t, c, n in ((200, 2, 129), (33, 1, 64))])
+
+
+@pytest.mark.parametrize(
+    "fmt,ntime,nchan,nsp,values", X1_CASES,
+    ids=["ci8", "ci4"] + ["-".join(map(str, c)) for c in X1_CASES[2:]])
+def test_x1_plain_vs_int64_golden(fmt, ntime, nchan, nsp, values):
+    """X1's plain version, the wrapper on the CPU and the plain twin of
+    the kernel's decomposition against an int64 golden; the twin
+    bitwise the plain version, into an `out` prefilled with NaN."""
+    x, re, im = _x1_input(fmt, ntime, nchan, nsp, values)
     z = (re + 1j * im).astype(np.complex128)
     golden = np.einsum("tci,tcj->cij", np.conj(z), z)
-    for fn in (xengine_int8, xengine_int8_plain):
+    for fn in (xengine_int8, xengine_int8_plain,
+               xengine_kernel.xengine_int8_tiled):
         v = fn(x, fmt)
-        assert v.dtype == torch.complex64 and v.shape == (3, 70, 70)
+        assert v.dtype == torch.complex64 and v.shape == (nchan, nsp, nsp)
         assert np.array_equal(v.numpy(), golden.astype(np.complex64))
-    out = torch.empty(3, 70, 70, dtype=torch.complex64)
+    out = torch.empty(nchan, nsp, nsp, dtype=torch.complex64)
     assert xengine_int8(x, fmt, out=out) is out
+    nan = torch.full((nchan, nsp, nsp), complex(np.nan, np.nan))
+    assert xengine_kernel.xengine_int8_tiled(x, fmt, out=nan) is nan
+    assert torch.equal(torch.view_as_real(nan).view(torch.int32),
+                       torch.view_as_real(out).view(torch.int32))
     with pytest.raises(TypeError):
         xengine_int8(x.float(), fmt)
     with pytest.raises(ValueError, match="storage form"):
         xengine_int8(x, "ci2")
+
+
+@pytest.mark.parametrize("fmt", ["ci8", "ci4"])
+@pytest.mark.parametrize("ntime,nsp,values", [
+    (45, 129, "random"), (1, 200, "random"), (33, 64, "min"),
+    (200, 65, "alternating")])
+def test_x1_hermitian(fmt, ntime, nsp, values):
+    """v[c, j, i] == conj(v[c, i, j]) on the plain version and on the
+    twin that writes the lower triangle as mirrors: the real parts
+    bitwise, the imaginary parts equal as values (a zero is +0.0 on
+    both sides, where conj gives -0.0)."""
+    x, _, _ = _x1_input(fmt, ntime, 2, nsp, values, seed=ntime + nsp)
+    for fn in (xengine_int8_plain, xengine_kernel.xengine_int8_tiled):
+        v = fn(x, fmt)
+        assert torch.equal(v.real.mT.contiguous().view(torch.int32),
+                           v.real.contiguous().view(torch.int32))
+        assert torch.equal(v.imag.mT, -v.imag)
+        assert (v.imag.diagonal(dim1=1, dim2=2) == 0).all()
+
+
+@pytest.mark.parametrize("nsp", [1, 63, 64, 65, 127, 128, 129, 200, 512,
+                                 1000])
+def test_x1_tile_pairs_cover_the_upper_triangle_once(nsp):
+    """The tiles X1 launches hold every pair i <= j exactly once, and
+    no tile lies wholly below the diagonal (10 of 16 at 512 stations)."""
+    tm, tn = xengine_kernel.TILE_M, xengine_kernel.TILE_N
+    hits = np.zeros((nsp, nsp), dtype=np.int64)
+    pairs = xengine_kernel.tile_pairs(nsp)
+    for i0, j0 in pairs:
+        assert i0 <= j0 + tn - 1 and i0 < nsp and j0 < nsp
+        hits[i0:i0 + tm, j0:j0 + tn] += 1
+    assert (np.triu(hits) == np.triu(np.ones_like(hits))).all()
+    assert len(set(pairs)) == len(pairs)
+    if nsp == 512 and tm == tn == 128:
+        assert len(pairs) == 10
 
 
 def test_int8_gulp_guard():
