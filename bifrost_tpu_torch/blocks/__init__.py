@@ -9,6 +9,7 @@ from .detect import detect, DetectBlock
 from .fdmt import fdmt, FdmtBlock
 from .fft import fft, FftBlock
 from .fftshift import fftshift, FftShiftBlock
+from .fir import fir, FirBlock
 from .flag import rfi_flag, RfiFlagBlock
 from .guppi_raw import (read_guppi_raw, GuppiRawSourceBlock,
                         write_guppi_raw, GuppiRawSinkBlock)
@@ -32,7 +33,8 @@ __all__ = ["accumulate", "AccumulateBlock", "beamform", "BeamformBlock",
            "broadcast_gains", "gaincal", "GainCalBlock", "copy",
            "CopyBlock", "correlate", "CorrelateBlock", "detect",
            "DetectBlock", "fdmt", "FdmtBlock", "fft", "FftBlock",
-           "fftshift", "FftShiftBlock", "rfi_flag", "RfiFlagBlock",
+           "fftshift", "FftShiftBlock", "fir", "FirBlock", "rfi_flag",
+           "RfiFlagBlock",
            "read_guppi_raw", "GuppiRawSourceBlock", "write_guppi_raw",
            "GuppiRawSinkBlock", "pfb", "PfbBlock", "reduce", "ReduceBlock",
            "reverse", "ReverseBlock", "romein", "GridderBlock", "scrunch",

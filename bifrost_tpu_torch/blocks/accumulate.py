@@ -15,6 +15,12 @@ from ._common import deepcopy_header, store
 
 class AccumulateBlock(TransformBlock):
 
+    # Under the async executor the worker reserves this block's output
+    # (its commit may shrink on a gulp), except that the exact
+    # `output_nframes_for_gulp` below restores the reserve-ahead
+    # (pipeline.py, async_reserve_ahead).
+    async_reserve_ahead = False
+
     def output_nframes_for_gulp(self, rel_frame0, in_nframe):
         """The exact emit schedule: the gulp is one frame and
         `on_sequence` zeroes the count, so an integration ends every

@@ -82,6 +82,12 @@ def broadcast_gains(gains, cell_shape, labels=None, axis=None):
 
 class GainCalBlock(TransformBlock):
 
+    # Under the async executor the worker reserves this block's output
+    # (its commit may shrink on a gulp), except that the exact
+    # `output_nframes_for_gulp` below restores the reserve-ahead
+    # (pipeline.py, async_reserve_ahead).
+    async_reserve_ahead = False
+
     def __init__(self, iring, gains=None, *args, method=None, axis=None,
                  gain_callback=None, header_key="cal_gains", **kwargs):
         """gains: a complex table (full cell size or one axis, see

@@ -112,6 +112,12 @@ def fold_int8_gains(v, g):
 
 class CorrelateBlock(TransformBlock):
 
+    # Under the async executor the worker reserves this block's output
+    # (its commit may shrink on a gulp), except that the exact
+    # `output_nframes_for_gulp` below restores the reserve-ahead
+    # (pipeline.py, async_reserve_ahead).
+    async_reserve_ahead = False
+
     def output_nframes_for_gulp(self, rel_frame0, in_nframe):
         """Exact emit schedule: one output frame for each integration
         boundary the gulp crosses."""

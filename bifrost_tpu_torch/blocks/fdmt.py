@@ -35,6 +35,11 @@ from ._common import deepcopy_header, store
 
 class FdmtBlock(TransformBlock):
 
+    # Under the async executor the worker reserves this block's output,
+    # one open reservation at a time (pipeline.py,
+    # async_reserve_ahead).
+    async_reserve_ahead = False
+
     kdm = 4.148741601e3  # MHz^2 cm^3 s / pc
     dm_units = "pc cm^-3"
 

@@ -45,6 +45,12 @@ from ._common import deepcopy_header
 
 class RfiFlagBlock(TransformBlock):
 
+    # Under the async executor the worker reserves this block's output
+    # (its commit may shrink on a gulp), except that the exact
+    # `output_nframes_for_gulp` below restores the reserve-ahead
+    # (pipeline.py, async_reserve_ahead).
+    async_reserve_ahead = False
+
     def __init__(self, iring, algo="mad", thresh=6.0, mad_factor=4.0,
                  alpha=0.25, window=None, fill="zero", *args, method=None,
                  on_mask=None, **kwargs):

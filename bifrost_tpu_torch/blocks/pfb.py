@@ -41,6 +41,12 @@ from ._common import deepcopy_header, store
 
 class PfbBlock(TransformBlock):
 
+    # Under the async executor the worker reserves this block's output
+    # (its commit may shrink on a gulp), except that the exact
+    # `output_nframes_for_gulp` below restores the reserve-ahead
+    # (pipeline.py, async_reserve_ahead).
+    async_reserve_ahead = False
+
     def __init__(self, iring, nchan, ntap=4, coeffs=None, window="hamming",
                  *args, method=None, **kwargs):
         """nchan: channels per spectrum (one output spectrum per nchan

@@ -33,6 +33,11 @@ from ._common import deepcopy_header
 
 class GridderBlock(TransformBlock):
 
+    # Under the async executor the worker reserves this block's output,
+    # one open reservation at a time (pipeline.py,
+    # async_reserve_ahead).
+    async_reserve_ahead = False
+
     def __init__(self, iring, ngrid, kernels, positions=None,
                  positions_key="uvw", method=None, precision="f32", *args,
                  **kwargs):

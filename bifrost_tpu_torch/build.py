@@ -3,7 +3,10 @@
 Each source ``csrc/<name>.cu`` has a plain C interface and is compiled
 with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared library
 in ``build/`` inside the package (listed in .gitignore), named by a hash
-of the source and flags so an edited source rebuilds.  The build happens
+of the source and flags so an edited source rebuilds.  A library of
+`DERIVED` is a source built with extra flags (``fir_long``: ``fir.cu``
+with its long form), so that one source's instantiations build in two
+nvcc processes at once.  The build happens
 at first use and `build_all` starts one nvcc per source at once.  A build
 that fails raises with the compiler's output; nothing falls back.
 
@@ -27,9 +30,12 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("fdmt", "fir", "beamform", "romein", "dq", "xengine")
+SOURCES = ("fdmt", "fir", "fir_long", "beamform", "romein", "dq",
+           "xengine")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+DERIVED = {"fir_long": ("fir", ("-DFIR_LONG_FORM",))}
 
 HOST_LIBS = {"udp": ("socket.cpp", "udp_capture.cpp", "udp_transmit.cpp")}
 HOST_HEADERS = ("udp_host.h",)
@@ -54,19 +60,21 @@ def nvcc_path():
 
 
 def _target(name):
-    src = CSRC / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes() +
-                         " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return src, BUILD_DIR / f"lib{name}-{key}.so"
+    """-> (source, extra nvcc flags, library path)."""
+    base, extra = DERIVED.get(name, (name, ()))
+    src = CSRC / f"{base}.cu"
+    key = hashlib.sha256(src.read_bytes() + " ".join(
+        NVCC_FLAGS + extra).encode()).hexdigest()[:16]
+    return src, extra, BUILD_DIR / f"lib{name}-{key}.so"
 
 
 def _start(name):
-    src, lib = _target(name)
+    src, extra, lib = _target(name)
     if lib.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    cmd = [nvcc_path(), *NVCC_FLAGS, *extra, "-o", str(tmp), str(src)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, lib, time.perf_counter()
@@ -101,7 +109,7 @@ def load(name):
         lib = _libs.get(name)
         if lib is None:
             _finish(name, _start(name))
-            lib = _libs[name] = ctypes.CDLL(str(_target(name)[1]))
+            lib = _libs[name] = ctypes.CDLL(str(_target(name)[2]))
         return lib
 
 

@@ -137,9 +137,42 @@ FLAGS = {f.name: f for f in [
          "thread goes on to the next gulp's ring work.  Latched per "
          "sequence."),
     Flag("pipeline_async_depth", 1,
-         "In-order queue depth of a block's worker.  The egress stager "
-         "of a DeviceSinkBlock keeps max(2, depth) gulps in flight.  "
-         "Latched per sequence.", validate=_validate_async_depth),
+         "Async gulp executor depth for base source, transform and sink "
+         "blocks: with depth > 1 a block that touches the card runs up to "
+         "this many gulps in order on its worker thread, on the block's "
+         "CUDA stream, while the block thread reserves, acquires (and a "
+         "source stages) the next gulp's spans.  1 (default) keeps the "
+         "synchronous reserve -> compute -> commit loop; lossy readers, "
+         "sources that shed or fail on overrun, host-only blocks and "
+         "strict_sync stay synchronous.  Fused groups with an accumulate "
+         "tail take max(2, depth) as their worker's depth, and the "
+         "egress stager of a DeviceSinkBlock keeps max(2, depth) gulps "
+         "in flight.  Latched per sequence.",
+         validate=_validate_async_depth),
+    Flag("strict_sync", False,
+         "Leave nothing in flight when a block's device scope ends: each "
+         "gulp synchronises the block's CUDA stream before its commit, "
+         "the async gulp executor and fused_async stay off, and the "
+         "fusion planner keeps every block on its own (fully synchronous "
+         "per-gulp mode; slower, simplest timing)."),
+    Flag("serialize_dispatch", False,
+         "One process-wide lock around every block's device scope, so "
+         "one block's device work is issued at a time.  The JAX "
+         "package's default probes the backend and turns this on only "
+         "for a tunneled PJRT client; the port has no such backend, so "
+         "its default is off."),
+    Flag("fir_method", "auto",
+         "Default FIR engine: 'auto'/'cuda' (kernel K2 for a CUDA tensor, "
+         "its plain PyTorch version for a CPU tensor), 'plain' (the plain "
+         "MAC on any device), or 'conv' (F.conv1d with groups=lanes, the "
+         "JAX package's grouped-convolution benchmark baseline; not "
+         "bitwise).  The JAX package's 'pallas' and 'jnp' are refused "
+         "with the name of their counterpart.  The legacy fir_pallas bool "
+         "forces 'cuda'.  Latched per sequence by FirBlock."),
+    Flag("fir_pallas", False,
+         "Legacy bool of the JAX package: when set, 'auto' FIR plans take "
+         "kernel K2 ('cuda'), the port's counterpart of the Pallas "
+         "kernel."),
     Flag("egress_staging", True,
          "Staged device->host egress for DeviceSinkBlock sinks on 'cuda' "
          "rings (egress.py): copies into pooled pinned buffers on a side "

@@ -1,5 +1,11 @@
 // Per-lane FIR multiply-accumulate for Hopper (sm_90a).
 //
+// One source, two libraries: built as is it holds the vector kernel's
+// short form (ntap 1 .. kShortTap) and the scalar kernel (`fir_mac`);
+// built with -DFIR_LONG_FORM (build.py's `fir_long`) the long form (int8
+// x, ntap kShortTap + 1 .. kMaxTap, `fir_mac_long`), so that nvcc builds
+// the two sets of instantiations at once.
+//
 // Replaces bifrost_tpu/ops/fir_pallas.py::_fir_fn, the Pallas TPU
 // channels-on-lanes FIR tile walk (and, through it, the MAC stage of
 // bifrost_tpu/ops/pfb_pallas.py::pfb_tiled).  For output frame j and lane L,
@@ -14,7 +20,7 @@
 // folded lanes are (chan * nstream + stream) * ncomp + comp, so the kernel
 // indexes the (ntap, nchan) prototype rather than a folded bank.  Products
 // and sums are rounded separately (__fmul_rn, __fadd_rn, which nvcc never
-// contracts into an FMA), so both kernels below are bitwise the plain
+// contracts into an FMA), so both kernels are bitwise the plain
 // PyTorch version's (ops/fir_kernel.py).  Element offsets are 64-bit.
 //
 // Bound: HBM bytes.  Each output costs ntap multiplies and adds against one
@@ -23,8 +29,9 @@
 //
 // The vector kernel (every main path's call): a thread owns V lanes of
 // every row, kLanesInt8 of int8 x (one 8-byte load a row) or kLanesF32 of
-// f32 x (one 16-byte load), and walks the rows of xh in order, from its
-// first output frame's window to its last.  The TPU kernel's property is
+// f32 x (one 16-byte load) up to kShortTap taps, kLanesLong of int8 x
+// above (to kMaxTap), and walks the rows of xh in order, from its first
+// output frame's window to its last.  The TPU kernel's property is
 // kept: each input byte and each history row is read from device memory
 // once, by one load a row, and each output is stored once, by 16-byte
 // stores.  The last ntap rows stay in registers as f32 (a ring whose slots
@@ -35,23 +42,30 @@
 // stored as soon as the row that closes its window has arrived.  The
 // coefficients are read once, before the row loop: where `rep` is a
 // multiple of V all V lanes share one column and a thread holds ntap
-// scalars, else ntap x V.  Rows that lie in no output's window (decim >
-// ntap) are not loaded.  A gulp of more than kFrameCut output frames is
-// cut among threads along grid.y; each cut re-reads the ntap - 1 rows in
-// front of its first frame.  Eight int8 lanes and eight frames a thread,
-// with all of a thread's rows loaded at once, measured fastest (PERF.md
+// scalars (CPT, columns a thread, 1); above kShortTap, where rep divides
+// V (the complex FIR's rep 2: re and im of a channel), a thread holds
+// ntap x V / rep; else ntap x V.  Rows that lie in no output's window
+// (decim > ntap) are not loaded.  A gulp of more than kFrameCut output
+// frames (kFrameCutLong above kShortTap) is cut among threads along
+// grid.y; each cut re-reads the ntap - 1 rows in front of its first
+// frame, so the long form walks more frames a thread.  Eight int8 lanes
+// and eight frames a thread, with all of a thread's rows loaded at once, measured fastest (PERF.md
 // §6): sixteen lanes or sixteen frames hold more registers a thread and
 // leave fewer warps an SM to hide the loads.  Asking ptxas for three
 // blocks of 128 threads an SM lets the int8 4-tap kernel use 152
 // registers (126 unasked), and it ran 3 % faster with 12 warps an SM
-// than with 16.
+// than with 16.  Above kShortTap the window of ntap x V f32 registers
+// halves V (kLanesLong) so that the form at 16 taps fits the same cap
+// without spilling (PERF.md §6, PR 14); f32 x there takes the scalar
+// kernel: its form spilled (ptxas: 56 and 184 bytes of spill stores a
+// thread at two and four columns a thread).
 //
 // The scalar kernel (the second route, the first design): one thread per
 // (output frame, lane), one 1- or 4-byte load per tap.  It takes what the
 // vector kernel cannot prove it can: lanes not a multiple of V, a base of
-// x, state or out that is not 16-byte aligned, or ntap above kMaxTap.  The
-// wrapper decides the route and counts the vector launches; the launch
-// checks the proof again.
+// x, state or out that is not 16-byte aligned, f32 x above kShortTap taps
+// or ntap above kMaxTap.  The wrapper decides the route and counts the
+// vector launches; the launch checks the proof again.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -61,14 +75,18 @@ constexpr int kThreads = 128;   // threads a block, both kernels
 constexpr int kBlocksPerSM = 3; // vector blocks an SM: ptxas's register cap
 constexpr int kLanesInt8 = 8;   // lanes of a row a vector thread owns: int8
 constexpr int kLanesF32 = 4;    // ... and f32
+constexpr int kLanesLong = 4;   // ... int8, above kShortTap taps
 constexpr int kRowsAhead = 16;  // rows whose loads a thread issues at once
 constexpr int kFrameCut = 8;    // output frames a vector thread walks
-constexpr int kMaxTap = 8;      // ntap 1 .. kMaxTap take the vector kernel
+constexpr int kFrameCutLong = 32;  // ... above kShortTap taps
+constexpr int kShortTap = 8;    // ntap 1 .. kShortTap: the short form
+constexpr int kMaxTap = 16;     // int8 x: ntap 1 .. kMaxTap are vector
 constexpr int64_t kMaxGridY = 65535;
 
-// The V lanes a vector thread owns of x's rows, and their bytes as loaded.
-template <typename T>
-constexpr int kLanes = sizeof(T) == 1 ? kLanesInt8 : kLanesF32;
+// The V lanes a vector thread owns of x's rows at NTAP taps.
+template <typename T, int NTAP>
+constexpr int kLanes = NTAP > kShortTap
+    ? kLanesLong : (sizeof(T) == 1 ? kLanesInt8 : kLanesF32);
 template <int B> struct Piece;
 template <> struct Piece<16> { using type = uint4; };
 template <> struct Piece<8> { using type = uint2; };
@@ -124,18 +142,22 @@ __device__ __forceinline__ void store_lanes(float* p, const float (&w)[V]) {
             w[4 * q], w[4 * q + 1], w[4 * q + 2], w[4 * q + 3]);
 }
 
-template <typename T, int NTAP, bool SHARED>
+// CPT: coefficient columns a thread holds, 1 (every lane's column the
+// same), V / rep (rep dividing V) or V; lane v's is c[.][v / (V / CPT)].
+template <typename T, int NTAP, int CPT>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 fir_mac_vec_kernel(const T* __restrict__ x, const float* __restrict__ state,
                    const float* __restrict__ coeffs, float* __restrict__ out,
                    int64_t nout, int64_t lanes, int decim, int64_t rep,
                    int64_t ncoef, int64_t jper) {
-    constexpr int V = kLanes<T>;
+    constexpr int V = kLanes<T, NTAP>;
     static_assert(V % 4 == 0, "a thread's lanes are whole 16-byte stores");
+    static_assert(V % CPT == 0, "a column serves V / CPT lanes");
     using Raw = typename Piece<V * sizeof(T)>::type;
     constexpr int HIST = NTAP - 1;
     constexpr int U = NTAP * ((kRowsAhead + NTAP - 1) / NTAP);
-    constexpr int NC = SHARED ? 1 : V;
+    constexpr int NC = CPT;
+    constexpr int PER = V / CPT;    // lanes a held column serves
     const int64_t vi = (int64_t)blockIdx.x * kThreads + threadIdx.x;
     if (vi >= lanes / V) return;
     const int64_t lane0 = vi * V;
@@ -149,7 +171,8 @@ fir_mac_vec_kernel(const T* __restrict__ x, const float* __restrict__ state,
     for (int k = 0; k < NTAP; ++k)
 #pragma unroll
         for (int v = 0; v < NC; ++v)
-            c[k][v] = coeffs[(int64_t)(HIST - k) * ncoef + (lane0 + v) / rep];
+            c[k][v] = coeffs[(int64_t)(HIST - k) * ncoef +
+                             (lane0 + v * PER) / rep];
 
     // xh rows Rs .. Re: the windows of outputs j0 .. j1-1.  A row's ring
     // slot is (R - Rs) % NTAP; Rb - Rs is a multiple of U, hence of NTAP.
@@ -192,8 +215,8 @@ fir_mac_vec_kernel(const T* __restrict__ x, const float* __restrict__ state,
                     const float (&r)[V] = win[(u + 1 + k) % NTAP];
 #pragma unroll
                     for (int v = 0; v < V; ++v)
-                        acc[v] = __fadd_rn(
-                            acc[v], __fmul_rn(r[v], c[k][SHARED ? 0 : v]));
+                        acc[v] = __fadd_rn(acc[v],
+                                           __fmul_rn(r[v], c[k][v / PER]));
                 }
                 store_lanes<V>(op, acc);
                 op += lanes;
@@ -202,6 +225,36 @@ fir_mac_vec_kernel(const T* __restrict__ x, const float* __restrict__ state,
         }
     }
 }
+
+template <typename T, int NTAP>
+void launch_vec(const void* x, const float* state, const float* coeffs,
+                float* out, int64_t nout, int64_t lanes, int decim,
+                int64_t rep, int64_t ncoef, cudaStream_t st) {
+    constexpr int V = kLanes<T, NTAP>;
+    constexpr int64_t cut = NTAP > kShortTap ? kFrameCutLong : kFrameCut;
+    int64_t jper = (nout + kMaxGridY - 1) / kMaxGridY;
+    if (jper < cut) jper = cut;
+    const dim3 grid((unsigned)((lanes / V + kThreads - 1) / kThreads),
+                    (unsigned)((nout + jper - 1) / jper));
+#define FIR_VEC(cpt)                                                        \
+    fir_mac_vec_kernel<T, NTAP, cpt><<<grid, kThreads, 0, st>>>(            \
+        (const T*)x, state, coeffs, out, nout, lanes, decim, rep, ncoef,    \
+        jper)
+    if (rep % V == 0) {
+        FIR_VEC(1);
+        return;
+    }
+    if constexpr (NTAP > kShortTap) {
+        if (rep == 2) {           // re and im of a channel share a column
+            FIR_VEC(V / 2);
+            return;
+        }
+    }
+    FIR_VEC(V);
+#undef FIR_VEC
+}
+
+#ifndef FIR_LONG_FORM
 
 template <typename T>
 __global__ void fir_mac_kernel(const T* __restrict__ x,
@@ -229,41 +282,21 @@ __global__ void fir_mac_kernel(const T* __restrict__ x,
     }
 }
 
-template <typename T, int NTAP>
-void launch_vec(const void* x, const float* state, const float* coeffs,
-                float* out, int64_t nout, int64_t lanes, int decim,
-                int64_t rep, int64_t ncoef, bool shared, cudaStream_t st) {
-    constexpr int V = kLanes<T>;
-    int64_t jper = (nout + kMaxGridY - 1) / kMaxGridY;
-    if (jper < kFrameCut) jper = kFrameCut;
-    const dim3 grid((unsigned)((lanes / V + kThreads - 1) / kThreads),
-                    (unsigned)((nout + jper - 1) / jper));
-    if (shared)
-        fir_mac_vec_kernel<T, NTAP, true><<<grid, kThreads, 0, st>>>(
-            (const T*)x, state, coeffs, out, nout, lanes, decim, rep, ncoef,
-            jper);
-    else
-        fir_mac_vec_kernel<T, NTAP, false><<<grid, kThreads, 0, st>>>(
-            (const T*)x, state, coeffs, out, nout, lanes, decim, rep, ncoef,
-            jper);
-}
-
 template <typename T>
 int launch(const void* x, const float* state, const float* coeffs,
            float* out, long long nout, long long lanes, int ntap, int decim,
            long long rep, long long ncoef, int vec, void* stream) {
     const cudaStream_t st = (cudaStream_t)stream;
     if (vec) {
-        constexpr int V = kLanes<T>;
-        const bool shared = rep % V == 0;
-        if (lanes % V || ntap > kMaxTap || (uintptr_t)x % 16 ||
+        constexpr int V = kLanes<T, 1>;
+        if (lanes % V || ntap > kShortTap || (uintptr_t)x % 16 ||
             (uintptr_t)out % 16 || (ntap > 1 && (uintptr_t)state % 16))
             return (int)cudaErrorInvalidValue;
         switch (ntap) {
 #define FIR_TAP(n)                                                          \
     case n:                                                                 \
         launch_vec<T, n>(x, state, coeffs, out, nout, lanes, decim, rep,    \
-                         ncoef, shared, st);                                \
+                         ncoef, st);                                        \
         break;
             FIR_TAP(1) FIR_TAP(2) FIR_TAP(3) FIR_TAP(4)
             FIR_TAP(5) FIR_TAP(6) FIR_TAP(7) FIR_TAP(8)
@@ -279,7 +312,7 @@ int launch(const void* x, const float* state, const float* coeffs,
     return (int)cudaGetLastError();
 }
 
-static_assert(kMaxTap == 8, "fir_mac's switch instantiates ntap 1 .. 8");
+static_assert(kShortTap == 8, "fir_mac's switch instantiates ntap 1 .. 8");
 
 }  // namespace
 
@@ -289,9 +322,10 @@ extern "C" {
 // (0 on success).  x: (nin, lanes) f32 (x_int8 == 0) or int8 (x_int8 != 0),
 // nin = (nout - 1) * decim + 1 at least; state: (ntap - 1, lanes) f32, unused
 // when ntap == 1; coeffs: (ntap, ncoef) f32 with ncoef * rep == lanes;
-// out: (nout, lanes) f32; all contiguous.  vec != 0 takes the vector
-// kernel, which needs lanes a multiple of its width V (kLanesInt8 or
-// kLanesF32), x, state and out 16-byte aligned and 1 <= ntap <= kMaxTap;
+// out: (nout, lanes) f32; all contiguous.  vec != 0 takes the short form of
+// the vector kernel, which needs lanes a multiple of its width V (kLanesInt8
+// or kLanesF32), x, state and out 16-byte aligned and 1 <= ntap <=
+// kShortTap (the long form is fir_mac_long, built with -DFIR_LONG_FORM);
 // else it returns cudaErrorInvalidValue and launches nothing.
 int fir_mac(const void* x, int x_int8, const float* state,
             const float* coeffs, float* out, long long nout,
@@ -311,3 +345,42 @@ const char* fir_error_string(int err) {
 }
 
 }  // extern "C"
+
+#else  // FIR_LONG_FORM
+
+static_assert(kShortTap == 8 && kMaxTap == 16,
+              "fir_mac_long's switch instantiates ntap 9 .. 16");
+
+}  // namespace
+
+extern "C" {
+
+// Launch the long form on `stream`, as fir_mac with x int8 and vec != 0:
+// lanes a multiple of kLanesLong, x, state and out 16-byte aligned,
+// kShortTap < ntap <= kMaxTap; else cudaErrorInvalidValue and nothing is
+// launched.  Returns cudaGetLastError() after the launch.
+int fir_mac_long(const void* x, const float* state, const float* coeffs,
+                 float* out, long long nout, long long lanes, int ntap,
+                 int decim, long long rep, long long ncoef, void* stream) {
+    if (nout <= 0 || lanes <= 0) return 0;
+    if (ntap <= kShortTap || ntap > kMaxTap || decim < 1 || rep < 1 ||
+        lanes % kLanesLong || (uintptr_t)x % 16 || (uintptr_t)out % 16 ||
+        (uintptr_t)state % 16)
+        return (int)cudaErrorInvalidValue;
+    const cudaStream_t st = (cudaStream_t)stream;
+    switch (ntap) {
+#define FIR_TAP(n)                                                          \
+    case n:                                                                 \
+        launch_vec<int8_t, n>(x, state, coeffs, out, nout, lanes, decim,    \
+                              rep, ncoef, st);                              \
+        break;
+        FIR_TAP(9) FIR_TAP(10) FIR_TAP(11) FIR_TAP(12)
+        FIR_TAP(13) FIR_TAP(14) FIR_TAP(15) FIR_TAP(16)
+#undef FIR_TAP
+    }
+    return (int)cudaGetLastError();
+}
+
+}  // extern "C"
+
+#endif  // FIR_LONG_FORM

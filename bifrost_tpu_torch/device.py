@@ -11,6 +11,13 @@ Completion tracking: the JAX package keeps a per-thread registry of
 in-flight ``jax.Array`` futures.  Here every block thread owns a CUDA
 stream (`block_stream`); `stream_record` records an event on it and
 `stream_synchronize` waits for the thread's recorded events and stream.
+
+Dispatch discipline (bifrost_tpu/device.py:19,59-146): `dispatch_lock()`
+is the scope of a block's device work.  Under the `serialize_dispatch`
+flag it is one process-wide lock, so one block's device scope runs at a
+time; under `strict_sync` (`needs_strict_sync`) a block synchronises its
+stream before the scope ends, so nothing is left in flight.  Both are
+off by default.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ import threading
 import torch
 
 _tls = threading.local()
+_dispatch_lock = threading.RLock()
 
 
 def resolve_device(device=None):
@@ -113,3 +121,28 @@ def stream_synchronize(device=None):
         getattr(_tls, "device", None)
     if device is not None and device.type == "cuda":
         torch.cuda.current_stream(device).synchronize()
+
+
+def needs_serialized_dispatch():
+    """One block's device scope at a time?  (The `serialize_dispatch`
+    flag; the port has no backend that needs it by default.)"""
+    from . import config
+    return bool(config.get("serialize_dispatch"))
+
+
+def needs_strict_sync():
+    """Leave nothing in flight when a block's device scope ends?  (The
+    `strict_sync` flag.)"""
+    from . import config
+    return bool(config.get("strict_sync"))
+
+
+@contextlib.contextmanager
+def dispatch_lock():
+    """Scope of a block's device work: the process-wide lock under
+    `serialize_dispatch`, else nothing."""
+    if needs_serialized_dispatch():
+        with _dispatch_lock:
+            yield
+    else:
+        yield

@@ -15,7 +15,8 @@ bifrost_tpu/egress.py).
   for the call only) and optionally `on_sink_sequence_end(iseq)` and the
   destination protocol `open_dest(nbyte, nframe, frame_offset)` -> an
   `EgressDest`.  Staging engages per sequence when the `egress_staging`
-  flag is on and the input ring is in the 'cuda' space; anything else
+  flag is on, `strict_sync` is off and the input ring is in the 'cuda'
+  space; anything else
   takes the blocking path, one whole-gulp copy on the block thread,
   byte-identical to the staged one.
 - `_materialize` and `_start_transfer`: the module-level seams every
@@ -403,9 +404,9 @@ class DeviceSinkBlock(SinkBlock):
     `EgressDest` to land the gulp in, in which case `on_sink_data` is not
     called for it, or None for the pooled path).
 
-    Staging engages per sequence when `egress_staging` is on and the
-    input ring is in the 'cuda' space, with depth max(2,
-    `pipeline_async_depth`) and a destination's chunks of
+    Staging engages per sequence when `egress_staging` is on,
+    `strict_sync` off and the input ring in the 'cuda' space, with depth
+    max(2, `pipeline_async_depth`) and a destination's chunks of
     `egress_chunk_nbyte`; the three flags are latched for the sequence.
     Otherwise the gulp is copied whole on the block thread.  Subclasses
     that override `shutdown()` call `super().shutdown()`.
@@ -437,7 +438,9 @@ class DeviceSinkBlock(SinkBlock):
 
     # -- egress plumbing
     def _resolve_egress(self, iseq):
-        if not bool(config.get("egress_staging")):
+        # strict_sync leaves nothing in flight: the blocking copy.
+        if not bool(config.get("egress_staging")) or \
+                _device.needs_strict_sync():
             return False
         return self.iring.space == "cuda"
 
@@ -555,9 +558,14 @@ class DeviceSinkBlock(SinkBlock):
         })
 
     def _async_queue_depth(self):
-        """Staged gulps not yet retired: the in-flight work a bounded
-        quiesce reports as `queued_gulps` for this sink."""
-        return len(self._egress_pending) if self._egress_staging else None
+        """Gulps on the executor's worker plus staged gulps not yet
+        retired: the in-flight work a bounded quiesce reports as
+        `queued_gulps` for this sink."""
+        base = super()._async_queue_depth()
+        pending = len(self._egress_pending) if self._egress_staging else None
+        if base is None and pending is None:
+            return None
+        return (base or 0) + (pending or 0)
 
     def main(self):
         try:

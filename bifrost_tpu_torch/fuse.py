@@ -67,8 +67,9 @@ it may end a group, not extend one (``dtype_incompatible``).
 
 The JAX planner's third rule, ``mesh_chain``, needs the mesh layer
 (parallel/, not ported): its ``mesh_*`` reasons stay in ``REASONS`` and
-are never given.  The port has no strict-sync mode, so ``strict_sync``
-is never given either.
+are never given.  Under the ``strict_sync`` config flag nothing is
+fused: every block the planner considers gets the ``strict_sync``
+reason and runs on its own, synchronised each gulp.
 
 Every block the planner considered and did not fuse carries its reason
 (``REASONS``); ``Pipeline.fusion_report()`` returns the plan, and
@@ -301,11 +302,12 @@ def _apply_device_rule(pipeline, fplan, build=True):
     ``build=False`` (:func:`plan`) the decisions are recorded and the
     pipeline is left alone."""
     from . import config
+    from . import device as _device
     from .pipeline import TransformBlock, _view_transforms
     from .blocks.copy import CopyBlock
 
     enabled = bool(config.get("pipeline_fuse"))
-    strict = False      # the port has no strict-sync mode
+    strict = _device.needs_strict_sync()
     readers = _readers_map(pipeline)
     used = set()
     chains = []

@@ -6,6 +6,7 @@ from .calibrate import (GainCal, calibrate, decode_gains, encode_gains,
 from .fdmt import Fdmt, plan_from_reference
 from .fft import Fft
 from .fftshift import fftshift
+from .fir import Fir
 from .flag import Flag, flag
 from .linalg import LinAlg
 from .pfb import Pfb, pfb, pfb_coeffs
@@ -18,7 +19,7 @@ from . import stats
 
 __all__ = ["Beamform", "GainCal", "calibrate", "decode_gains",
            "encode_gains", "fold_gains", "gain_outer", "Fdmt",
-           "plan_from_reference", "Fft", "fftshift", "Flag", "flag",
+           "plan_from_reference", "Fft", "fftshift", "Fir", "Flag", "flag",
            "Pfb", "pfb", "pfb_coeffs", "REDUCE_OPS", "reduce", "reduce_to",
            "Romein", "separate_kernels",
            "transpose", "stats", "LinAlg", "Quantize", "quantize",

@@ -1,5 +1,6 @@
 """Per-lane FIR multiply-accumulate: the hand-written CUDA kernel
-(csrc/fir.cu) and its plain PyTorch version.
+(csrc/fir.cu, built twice: `fir` and, with its long form, `fir_long`) and
+its plain PyTorch version.
 
 Replaces bifrost_tpu/ops/fir_pallas.py::_fir_fn (the channels-on-lanes
 tile walk behind `fir_tiled`), and through it the MAC stage of
@@ -11,11 +12,13 @@ strided select of output rows.  The kernel keeps that order and rounds
 every product and sum on its own, so the two are bitwise equal.
 
 `fir_mac` launches a kernel for a CUDA tensor and runs `fir_mac_plain`
-only for a tensor on the CPU; any other device raises.  The source has
-two kernels, chosen by `fir_vectors`: the vector kernel (a thread owns
-8 int8 or 4 f32 lanes of every input row, one load a row, and walks up
-to 8 output frames) where the layout allows it, the scalar kernel (one
-output a thread) elsewhere.  `fir_mac.launches` counts kernel launches (and
+only for a tensor on the CPU; any other device raises.  There are two
+kernels, chosen by `fir_vectors`: the vector kernel (a thread owns 8
+int8 or 4 f32 lanes of every input row up to 8 taps, and, in its long
+form from 9 to 16 taps, 4 int8 lanes; one load a row; up to 8 output
+frames a thread, 32 in the long form) where the layout allows it, the
+scalar kernel (one output a thread) elsewhere, f32 input above 8 taps
+included.  `fir_mac.launches` counts kernel launches (and
 nothing else), `fir_mac.vector_launches` those of the vector kernel.
 """
 
@@ -31,17 +34,20 @@ from .. import build
 
 def _constants():
     """csrc/fir.cu's geometry of the vector kernel (its constexprs
-    kLanesInt8, kLanesF32 and kMaxTap), read from the source so that the
-    route decision and the kernel cannot disagree."""
+    kLanesInt8, kLanesF32, kLanesLong, kShortTap and kMaxTap), read from
+    the source so that the route decision and the kernel cannot
+    disagree."""
     src = (build.CSRC / "fir.cu").read_text()
     val = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
     return tuple(int(val[k]) for k in ("kLanesInt8", "kLanesF32",
+                                        "kLanesLong", "kShortTap",
                                         "kMaxTap"))
 
 
-# Lanes of a row a vector thread owns (int8 x, f32 x); largest ntap of
-# the vector kernel.
-LANES_INT8, LANES_F32, MAX_TAP = _constants()
+# Lanes of a row a vector thread owns (int8 x, f32 x up to SHORT_TAP
+# taps; int8 x above, the long form); largest ntap of the short form and
+# of the vector kernel.
+LANES_INT8, LANES_F32, LANES_LONG, SHORT_TAP, MAX_TAP = _constants()
 
 
 def _check_geometry(x, coeffs, state, decim, rep):
@@ -83,17 +89,24 @@ def fir_mac_plain(x, coeffs, state, decim=1, rep=1):
 
 def fir_vectors(x, state, out, ntap):
     """Whether K2 takes its vector kernel: a thread owns V lanes of every
-    row (LANES_INT8 for int8 x, LANES_F32 for f32), so the lane count is
-    a multiple of V and x, out and (for ntap > 1) state start 16-byte
-    aligned; and ntap is one the kernel is instantiated for.  (`rep`
-    only decides whether a thread holds one coefficient column or V.)"""
-    v = LANES_INT8 if x.dtype == torch.int8 else LANES_F32
+    row (LANES_INT8 for int8 x, LANES_F32 for f32 up to SHORT_TAP taps;
+    LANES_LONG for int8 x above, where f32 x takes the scalar kernel), so
+    the lane count is a multiple of V and x, out and (for ntap > 1)
+    state start 16-byte aligned; and ntap is one the kernel is
+    instantiated for.  (`rep` only decides how many coefficient columns
+    a thread holds.)"""
+    int8 = x.dtype == torch.int8
+    if ntap > SHORT_TAP and not int8:
+        return False
+    v = LANES_LONG if ntap > SHORT_TAP else LANES_INT8 if int8 else \
+        LANES_F32
     return (x.shape[1] % v == 0 and 1 <= ntap <= MAX_TAP and
             x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0 and
             (ntap == 1 or state.data_ptr() % 16 == 0))
 
 
 _lib = None
+_lib_long = None
 
 
 def _library():
@@ -109,6 +122,20 @@ def _library():
         lib.fir_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def _library_long():
+    """The `fir_long` build of csrc/fir.cu: the vector kernel's long
+    form."""
+    global _lib_long
+    if _lib_long is None:
+        lib = build.load("fir_long")
+        lib.fir_mac_long.argtypes = [ctypes.c_void_p] * 4 + \
+            [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2 + \
+            [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
+        lib.fir_mac_long.restype = ctypes.c_int
+        _lib_long = lib
+    return _lib_long
 
 
 def fir_mac(x, coeffs, state, decim=1, rep=1, out=None):
@@ -138,9 +165,15 @@ def fir_mac(x, coeffs, state, decim=1, rep=1, out=None):
     vec = fir_vectors(x, state, out, ntap)
     lib = _library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.fir_mac(x.data_ptr(), int(x.dtype == torch.int8),
-                      state.data_ptr(), coeffs.data_ptr(), out.data_ptr(),
-                      nout, lanes, ntap, decim, rep, ncoef, int(vec), stream)
+    if vec and ntap > SHORT_TAP:
+        err = _library_long().fir_mac_long(
+            x.data_ptr(), state.data_ptr(), coeffs.data_ptr(),
+            out.data_ptr(), nout, lanes, ntap, decim, rep, ncoef, stream)
+    else:
+        err = lib.fir_mac(x.data_ptr(), int(x.dtype == torch.int8),
+                          state.data_ptr(), coeffs.data_ptr(),
+                          out.data_ptr(), nout, lanes, ntap, decim, rep,
+                          ncoef, int(vec), stream)
     if err:
         raise RuntimeError("fir_mac launch failed: " +
                            lib.fir_error_string(err).decode())
@@ -165,10 +198,16 @@ def fir_tiled(x, coeffs, state, decim=1, rep=1, method="cuda"):
         y = fir_mac_plain(x, coeffs, state, decim, rep)
     else:
         raise ValueError(f"fir: unknown method {method!r}")
-    hist = coeffs.shape[0] - 1
+    return y, next_state(x, state)
+
+
+def next_state(x, state):
+    """The (ntap-1)-row f32 history after gulp `x`: the last rows of
+    `state` followed by `x`, a copy (x may be ring memory that the writer
+    reuses)."""
+    hist = state.shape[0]
     if hist == 0:
-        return y, state
+        return state
     if x.shape[0] >= hist:
-        # A copy: x may be ring memory that the writer reuses.
-        return y, x[x.shape[0] - hist:].to(torch.float32, copy=True)
-    return y, torch.cat([state, x.float()])[-hist:]
+        return x[x.shape[0] - hist:].to(torch.float32, copy=True)
+    return torch.cat([state, x.float()])[-hist:]

@@ -140,3 +140,16 @@ class OpRuntime(object):
                 "evictions": self.evictions,
             },
         }
+
+    def publish_proclog(self, proclog, extra=None):
+        """`report()` flattened onto a block's `<name>/<op>_plan` ProcLog
+        (bifrost_tpu/ops/runtime.py:244-262): method, origin, build
+        seconds and the cache's counters, plus `extra`."""
+        rep = self.report()
+        row = {"method": rep["method"], "origin": rep["origin"],
+               "plan_build_s": round(rep["plan_build_s"], 6)}
+        row.update({f"cache_{k}": v for k, v in rep["cache"].items()})
+        if extra:
+            row.update(extra)
+        proclog.update(row)
+        return row

@@ -8,8 +8,15 @@ synchronous gulp loop: input overlap (`define_input_overlap_nframe`),
 the exact emit schedule (`output_nframes_for_gulp`), and skip handling;
 and the header views (`RingView`, `SequenceView`, `block_view`).
 
-`_GulpDispatcher` is the bounded in-order worker that the egress
-stager (egress.py) and the fused groups' asynchronous gulps run on.
+The async gulp executor (`pipeline_async_depth` > 1): a source,
+transform or sink that touches the card runs its gulps, in order, on a
+worker thread (`_GulpDispatcher`) bound to the block's CUDA stream,
+while the block thread reserves and acquires the next gulp's spans (a
+source also stages it: `_source_loop_async`; transforms and sinks:
+`_sequence_loop_async`).  `strict_sync` keeps every block synchronous
+and synchronised each gulp; `serialize_dispatch` puts one lock around
+every block's device scope (`_device_lock`).  The same worker class
+carries the egress stager (egress.py) and the fused groups' gulps.
 
 Fusion: `Pipeline.run` first runs the fusion compiler (fuse.py), which
 replaces each maximal run of fuse-scoped device blocks
@@ -38,11 +45,13 @@ synchronised before its commit.
 
 from __future__ import annotations
 
+import contextlib
 import copy as _copy
 import json
 import queue
 import threading
 import time
+import warnings
 
 import torch
 
@@ -427,6 +436,7 @@ class Block(BlockScope):
     (reference pipeline.py:329-441)."""
 
     instance_count = 0
+    _exec_async_depth = 0        # the executor's depth this sequence
 
     def __init__(self, irings, name=None, type_=None, **kwargs):
         self.pipeline = get_default_pipeline()
@@ -477,6 +487,15 @@ class Block(BlockScope):
         self._loop_frame = 0         # input frame of the gulp in hand
         self._loop_gulp = None
         self._perf_flush_t = 0.0
+        # The async gulp executor (base blocks' `pipeline_async_depth`
+        # loops and the fused groups' worker): its worker, the block's
+        # CUDA stream the worker runs on, whether the block has a 'cuda'
+        # ring on either side (`_device_lock`), and a lock for the perf
+        # totals both threads write.
+        self._dispatcher = None
+        self._stream = None
+        self._touches_device = None
+        self._perf_lock = threading.Lock()
 
     def _init_proclogs(self):
         """The block's logs (bifrost_tpu/pipeline.py:651-661); the input
@@ -518,7 +537,8 @@ class Block(BlockScope):
                                         "name", "?")
                     for i, r in enumerate(self.orings)})
             _device.set_device(self.device)
-            with _device.block_stream(self.device):
+            with _device.block_stream(self.device) as stream:
+                self._stream = stream
                 self.main()
                 _device.stream_synchronize(self.device)
         except (EndOfDataStop, RingInterrupted):
@@ -531,6 +551,7 @@ class Block(BlockScope):
             # A finished block's heartbeat freezes: the watchdog must not
             # deadman it.
             self._thread_done = True
+            self._close_dispatcher()
             self._release_flag_latches()
             self.mark_initialized()   # unblock the barrier on early exit
 
@@ -592,14 +613,103 @@ class Block(BlockScope):
             config.release_latch(self._held_latches.pop(), self.name)
 
     def _perf_add(self, **phases):
-        for k, v in phases.items():
-            self.perf_totals[k] = self.perf_totals.get(k, 0.0) + v
+        # The async executor books acquire/reserve on the block thread and
+        # process/commit on its worker.
+        with self._perf_lock:
+            for k, v in phases.items():
+                self.perf_totals[k] = self.perf_totals.get(k, 0.0) + v
+
+    def _device_lock(self):
+        """Scope of this block's gulp work (bifrost_tpu/pipeline.py:728):
+        the dispatch lock (`device.dispatch_lock`) for a block with a
+        'cuda' ring on either side; a host-only block does no device work
+        and skips it."""
+        if self._touches_device is None:
+            self._touches_device = any(
+                getattr(r, "space", None) == "cuda"
+                for r in list(self.irings) + list(self.orings)
+                if r is not None)
+        if self._touches_device:
+            return _device.dispatch_lock()
+        return contextlib.nullcontext()
+
+    def _sink_gulp_sync(self):
+        """Does a gulp with no output rings synchronise before its input
+        spans go back?  (MultiTransformBlock decides for sinks.)"""
+        return False
 
     def _sync_before_commit(self, ospans):
         """Host-space outputs must hold their bytes before the commit
-        hands them on; device outputs ride the ring's commit event."""
-        if any(os_.ring.space != "cuda" for os_ in ospans):
+        hands them on; device outputs ride the ring's commit event.  A
+        sink synchronises where its reader needs it (`_sink_gulp_sync`),
+        and under `strict_sync` every gulp leaves nothing in flight."""
+        if any(os_.ring.space != "cuda" for os_ in ospans) or \
+                (not ospans and self._sink_gulp_sync()) or \
+                _device.needs_strict_sync():
             _device.stream_synchronize(self.device)
+
+    def _bind_worker_thread(self):
+        """Executor worker start: the worker counts as one of the block's
+        threads (supervision, fault injection) and runs on the block's
+        device and CUDA stream, so its launches, commit and release
+        events follow the block thread's work on that stream."""
+        self._thread_idents.add(threading.get_ident())
+        _device.set_device(self.device)
+        if self._stream is not None:
+            torch.cuda.set_stream(self._stream)
+
+    def _executor(self, depth):
+        """The block's worker at `depth`, made anew where the depth
+        changed between sequences (the old one is idle by then)."""
+        if self._dispatcher is not None and self._dispatcher.depth != depth:
+            self._close_dispatcher()
+        if self._dispatcher is None:
+            self._dispatcher = _GulpDispatcher(
+                f"{self.name}.exec", depth=depth,
+                on_worker_start=self._bind_worker_thread)
+        return self._dispatcher
+
+    def _close_dispatcher(self):
+        """Drain and close the worker (idempotent).  A worker still in a
+        hung call after the drain's 5 s is left behind as a daemon, with
+        a warning, as is a worker exception the drain swallowed."""
+        d = self._dispatcher
+        if d is None:
+            return
+        d.drain(raise_exc=False, timeout=5)
+        d.close()
+        if d._thread.is_alive():
+            warnings.warn(f"{self.name}: executor worker still alive after "
+                          f"its 5 s shutdown drain (a hung device call?); "
+                          f"leaving the daemon thread", RuntimeWarning,
+                          stacklevel=2)
+        if d._exc is not None:
+            warnings.warn(f"{self.name}: executor worker held an exception "
+                          f"at shutdown: {d._exc!r}", RuntimeWarning,
+                          stacklevel=2)
+        self._dispatcher = None
+
+    def _retire_outstanding(self, outstanding, drained):
+        """Teardown of an executor loop: the gulps its worker did not
+        retire are given back, newest first (a cancel is legal only for a
+        ring's final reservation), behind a fence after the stream work
+        already queued; their input spans are held until the fence and
+        released.  A worker that never went idle may still use them: they
+        are left to it, with a warning."""
+        if not outstanding:
+            return
+        if not drained:
+            warnings.warn(f"{self.name}: abandoning {len(outstanding)} "
+                          f"in-flight gulp(s) behind an undrained executor "
+                          f"worker", RuntimeWarning, stacklevel=2)
+            return
+        fence = self._fault_fence()
+        for ispans, ospans in reversed(list(outstanding)):
+            _cancel_reservations(ospans, fence)
+            for sp in ispans:
+                sp.hold_until(fence)
+                sp.release()
+        del outstanding[:]
 
 
 def _cancel_reservations(spans, fence=None):
@@ -760,6 +870,21 @@ class SourceBlock(Block):
             self._shed_pending = 0
             self._shed_flush_t = now
 
+    def _resolve_exec_async(self):
+        """The async executor's depth for the next sequence, or 0 for the
+        synchronous loop (bifrost_tpu/pipeline.py:1129-1146): only under
+        the 'backpressure' policy (shedding must see the nonblocking
+        reserve's outcome at once), only for a block that touches the
+        card (eager staging overlaps a copy; a host-only source would
+        only pay the hand-off), never under `strict_sync`."""
+        from . import config
+        depth = config.get("pipeline_async_depth")
+        if depth <= 1 or self.on_overrun != "backpressure" or \
+                _device.needs_strict_sync():
+            return 0
+        self._device_lock()          # resolves _touches_device
+        return depth if self._touches_device else 0
+
     def _run_source_sequence(self, sourcename):
         self._loop_frame = 0
         self._loop_gulp = None
@@ -772,47 +897,135 @@ class SourceBlock(Block):
             self.sequence_proclog.update(
                 {"header": json.dumps(oheaders[0])})
             gulp = self._loop_gulp = self.gulp_nframe
+            # Latched for the sequence: a toggle mid-stream cannot move
+            # later gulps onto the other loop.
+            depth = self._exec_async_depth = self._resolve_exec_async()
+            if depth:
+                self._hold_flag_latch("pipeline_async_depth")
             buf_nframe = self.buffer_nframe or gulp * self.buffer_factor
+            if depth:
+                # The stager runs up to `depth` gulps ahead of the
+                # worker's commits: that much more room, so the lookahead
+                # does not eat the readers' share.
+                buf_nframe += gulp * depth
             oseqs = [ring.begin_sequence(oh, gulp, buf_nframe)
                      for ring, oh in zip(self.orings, oheaders)]
             self.mark_initialized()
             try:
-                while not (self.pipeline.shutdown_requested or
-                           self.pipeline.quiesce_requested):
-                    self._heartbeat = time.monotonic()
-                    t0 = time.perf_counter()
-                    ospans, shed = self._reserve_or_shed(oseqs, gulp)
-                    try:
-                        t1 = time.perf_counter()
-                        ostrides = self.on_data(reader, ospans)
-                        if not shed:
-                            self._sync_before_commit(ospans)
-                        t2 = time.perf_counter()
-                        done = False
-                        for ospan, n in zip(ospans, ostrides):
-                            n = 0 if n is None else n
-                            ospan.commit(n)
-                            done = done or n < gulp
-                    except BaseException:
-                        if not shed:
-                            _abandon_gulp(self, [], ospans)
-                        raise
-                    if shed:
-                        self._note_shed((ostrides[0] or 0) if ostrides else 0)
-                    t3 = time.perf_counter()
-                    self._perf_add(reserve=t1 - t0, process=t2 - t1,
-                                   commit=t3 - t2)
-                    self._loop_frame += gulp
-                    self._gulp_done(t3, {"reserve_time": t1 - t0,
-                                         "process_time": t2 - t1,
-                                         "commit_time": t3 - t2})
-                    if done:
-                        break
+                if depth:
+                    self._source_loop_async(reader, oseqs, gulp, depth)
+                else:
+                    self._source_loop_sync(reader, oseqs, gulp)
             finally:
                 for oseq in oseqs:
                     oseq.end()
+                self._release_flag_latches()
                 self._note_shed(0, flush=True)
                 self._flush_perf_proclog()
+
+    def _source_loop_sync(self, reader, oseqs, gulp):
+        while not (self.pipeline.shutdown_requested or
+                   self.pipeline.quiesce_requested):
+            self._heartbeat = time.monotonic()
+            t0 = time.perf_counter()
+            ospans, shed = self._reserve_or_shed(oseqs, gulp)
+            try:
+                t1 = time.perf_counter()
+                with self._device_lock():
+                    ostrides = self.on_data(reader, ospans)
+                    if not shed:
+                        self._sync_before_commit(ospans)
+                t2 = time.perf_counter()
+                done = False
+                for ospan, n in zip(ospans, ostrides):
+                    n = 0 if n is None else n
+                    ospan.commit(n)
+                    done = done or n < gulp
+            except BaseException:
+                if not shed:
+                    _abandon_gulp(self, [], ospans)
+                raise
+            if shed:
+                self._note_shed((ostrides[0] or 0) if ostrides else 0)
+            t3 = time.perf_counter()
+            self._perf_add(reserve=t1 - t0, process=t2 - t1,
+                           commit=t3 - t2)
+            self._loop_frame += gulp
+            self._gulp_done(t3, {"reserve_time": t1 - t0,
+                                 "process_time": t2 - t1,
+                                 "commit_time": t3 - t2})
+            if done:
+                break
+
+    def _source_loop_async(self, reader, oseqs, gulp, depth):
+        """The eager-staging loop (`pipeline_async_depth` > 1;
+        bifrost_tpu/pipeline.py:1251-1346).  The block thread reserves
+        gulp N+1's spans and runs `on_data`, which for a 'cuda' ring is
+        the staging copy onto the card, on the block's stream, while the
+        worker commits gulp N, in order.  A host output ring is
+        synchronised before its gulp goes to the worker.  Quiesce stops
+        the loop at a gulp edge; the worker then retires what is queued.
+        On a fault the worker finishes what it runs, and the gulps it did
+        not commit are cancelled, newest first."""
+        disp = self._executor(depth)
+        outstanding = []             # (ispans, ospans), retired in order
+        host = any(o.ring.space != "cuda" for o in oseqs)
+
+        def abort():
+            return self.pipeline.shutdown_requested
+        drained = False
+        try:
+            while not (self.pipeline.shutdown_requested or
+                       self.pipeline.quiesce_requested):
+                self._heartbeat = time.monotonic()
+                t0 = time.perf_counter()
+                ospans, _ = self._reserve_or_shed(oseqs, gulp)
+                t1 = time.perf_counter()
+                rec = ([], list(ospans))
+                outstanding.append(rec)
+                with self._device_lock():
+                    ostrides = self.on_data(reader, ospans)
+                    if host:
+                        _device.stream_synchronize(self.device)
+                commit = [0 if n is None else n
+                          for n in (ostrides or [0] * len(ospans))]
+                done = any(n < gulp for n in commit)
+                t2 = time.perf_counter()
+                disp.submit(self._async_source_item(rec, commit,
+                                                    outstanding),
+                            abort=abort)
+                t3 = time.perf_counter()
+                # A full queue's wait is downstream back-pressure: booked
+                # as 'reserve'; the worker books the commits.
+                self._perf_add(reserve=(t1 - t0) + (t3 - t2),
+                               process=t2 - t1)
+                self._loop_frame += gulp
+                self._gulp_done(t3, {"reserve_time": t1 - t0,
+                                     "process_time": t2 - t1})
+                if done:
+                    break
+            disp.drain()
+            drained = True
+        except BaseException:
+            drained = disp.drain(raise_exc=False, clear_exc=True,
+                                 timeout=5.0)
+            raise
+        finally:
+            self._retire_outstanding(outstanding, drained)
+
+    def _async_source_item(self, rec, commit, outstanding):
+        """The worker's part of one staged source gulp: the in-order
+        commits (their events recorded on the block's stream, after the
+        staging copy), then the gulp leaves the teardown registry."""
+        def item():
+            self._heartbeat = time.monotonic()
+            t0 = time.perf_counter()
+            for ospan, n in zip(rec[1], commit):
+                ospan.commit(n)
+            if outstanding and outstanding[0] is rec:
+                outstanding.pop(0)
+            self._perf_add(commit=time.perf_counter() - t0)
+        return item
 
 
 class MultiTransformBlock(Block):
@@ -862,6 +1075,17 @@ class MultiTransformBlock(Block):
         """Space for created output rings: input space by default."""
         return self.irings[0].space
 
+    def _sink_gulp_sync(self):
+        """A sink gulp synchronises before its spans go back where its
+        reader needs it (bifrost_tpu/pipeline.py:1928-1944): a lossy
+        reader checks for overwritten input only after its reads are done,
+        and a host input ring has no release event to hold the writer off
+        device work still reading it.  A guaranteed reader of a 'cuda'
+        ring does not: the release event orders the writer."""
+        if not self.guarantee:
+            return True
+        return getattr(self.irings[0], "space", None) != "cuda"
+
     def main(self):
         readers = [iring.read(guarantee=self.guarantee)
                    for iring in self.irings]
@@ -878,6 +1102,9 @@ class MultiTransformBlock(Block):
                 if self._splice_stop:
                     break
         finally:
+            # The worker lets go of its spans before their sequences
+            # close.
+            self._close_dispatcher()
             for r in readers:
                 r.close()
             if began_writing:
@@ -922,11 +1149,22 @@ class MultiTransformBlock(Block):
         gulp = self.gulp_nframe or iseqs[0].header.get("gulp_nframe", 1)
         overlap = self.define_input_overlap_nframe(iseqs)
         onframes = self.define_output_nframes(gulp)
+        # The executor, resolved and latched for the sequence: it carries
+        # spans across gulps, so a toggle mid-sequence cannot apply.
+        depth = self._exec_async_depth = self._resolve_exec_async(iseqs)
+        if depth:
+            self._hold_flag_latch("pipeline_async_depth")
         buf_factor = self.buffer_factor
         # An overlap reader's first acquire wants gulp + overlap committed
         # frames while the writer needs room for its next gulp: two
         # windows at least.
         in_buf_factor = max(buf_factor, 2) if overlap else buf_factor
+        if depth:
+            # The block thread acquires and reserves up to `depth` gulps
+            # ahead of the worker's releases and commits: both rings get
+            # that much more room.
+            in_buf_factor = max(in_buf_factor, buf_factor + depth)
+            buf_factor += depth
         for oh, onf in zip(oheaders, onframes):
             oh.setdefault("gulp_nframe", onf)
         for iseq in iseqs:
@@ -950,9 +1188,44 @@ class MultiTransformBlock(Block):
             self._release_flag_latches()
             self._flush_perf_proclog()
 
+    # FusedTransformBlock runs its own worker discipline: False there.
+    _base_async_ok = True
+
+    # The executor's reservation discipline (bifrost_tpu/pipeline.py:
+    # 1579-1604).  True: the block thread reserves gulp N+1's output
+    # spans while gulp N is in flight, which needs `on_data` to commit the
+    # whole reservation of a whole gulp (a shrinking commit is legal only
+    # for a ring's final reservation).  Blocks that emit on an
+    # integration phase set it False, and the worker reserves, one open
+    # reservation at a time; an exact `output_nframes_for_gulp` hook
+    # restores the reserve-ahead (the worker's commit must then equal the
+    # hook's count on every gulp).
+    async_reserve_ahead = True
+
+    def _resolve_exec_async(self, iseqs):
+        """The executor's depth for this sequence, or 0 for the
+        synchronous loop (bifrost_tpu/pipeline.py:1606-1635): only for a
+        guaranteed reader (a lossy one checks for overwritten input right
+        after its gulp), whose sequences can hold a manual guarantee, in a
+        block that touches the card (a host-only block would only pay the
+        hand-off), never under `strict_sync`."""
+        from . import config
+        depth = config.get("pipeline_async_depth")
+        if depth <= 1 or not self._base_async_ok or not self.guarantee or \
+                _device.needs_strict_sync():
+            return 0
+        if any(not hasattr(iseq, "set_guarantee_manual") for iseq in iseqs):
+            return 0
+        self._device_lock()          # resolves _touches_device
+        return depth if self._touches_device else 0
+
     def _sequence_loop(self, iseqs, oseqs, gulp, overlap, onframes,
                        begin_nframe=0):
         self._loop_gulp = gulp
+        if self._exec_async_depth:
+            self._sequence_loop_async(iseqs, oseqs, gulp, overlap,
+                                      onframes, begin_nframe)
+            return
         span_gens = [iseq.read(gulp + overlap, gulp, begin_nframe)
                      for iseq in iseqs]
         # Exact-schedule phase emitters (guaranteed readers only: the
@@ -988,23 +1261,10 @@ class MultiTransformBlock(Block):
                     for oseq, onf in zip(oseqs, out_nframes):
                         ospans.append(oseq.reserve(onf))
                     t1 = time.perf_counter()
-                    if any(isp.nframe_skipped > 0 for isp in ispans):
-                        self.on_skip(ispans, ospans)
-                        ostrides = out_nframes
-                    else:
-                        ostrides = self._on_data(list(ispans), ospans)
-                        if ostrides is None:
-                            ostrides = out_nframes
-                        ostrides = [o if o is not None else onf
-                                    for o, onf in zip(ostrides, out_nframes)]
-                        if emit_hook is not None and \
-                                list(ostrides) != list(out_nframes):
-                            raise RuntimeError(
-                                f"{self.name}: output_nframes_for_gulp "
-                                f"promised {list(out_nframes)} output "
-                                f"frame(s) but on_data committed "
-                                f"{list(ostrides)}")
-                    self._sync_before_commit(ospans)
+                    with self._device_lock():
+                        ostrides = self._run_gulp(ispans, ospans,
+                                                  out_nframes,
+                                                  emit_hook is not None)
                     if not self.guarantee and any(
                             isp.nframe_overwritten > 0 for isp in ispans):
                         # Lossy catch-up: input overwritten while read.
@@ -1029,6 +1289,170 @@ class MultiTransformBlock(Block):
         finally:
             for g in span_gens:
                 g.close()
+
+    def _run_gulp(self, ispans, ospans, out_nframes, exact):
+        """One gulp's `on_data` (`on_skip` over overwritten input) and the
+        synchronisation its commit needs -> frames to commit per output.
+        `exact`: the exact emit schedule's count must be what `on_data`
+        committed."""
+        if any(isp.nframe_skipped > 0 for isp in ispans):
+            self.on_skip(ispans, ospans)
+            ostrides = list(out_nframes)
+        else:
+            ostrides = self._on_data(list(ispans), ospans)
+            if ostrides is None:
+                ostrides = out_nframes
+            ostrides = [o if o is not None else onf
+                        for o, onf in zip(ostrides, out_nframes)]
+            if exact and list(ostrides) != list(out_nframes):
+                raise RuntimeError(
+                    f"{self.name}: output_nframes_for_gulp promised "
+                    f"{list(out_nframes)} output frame(s) but on_data "
+                    f"committed {list(ostrides)}")
+        self._sync_before_commit(ospans)
+        return ostrides
+
+    def _sequence_loop_async(self, iseqs, oseqs, gulp, overlap, onframes,
+                             begin_nframe=0):
+        """The double-buffered loop (`pipeline_async_depth` > 1;
+        bifrost_tpu/pipeline.py:1664-1849).  The block thread acquires
+        gulp N+1's input spans (and, with reserve-ahead, reserves its
+        output spans) while up to `depth` gulps run on the worker, in
+        order, on the block's CUDA stream: each item runs `on_data`, the
+        synchronisation its commit needs, the commits and releases, and
+        moves the input guarantee on by one gulp's stride (an overlap
+        tail stays pinned).  Spans are acquired directly, not through the
+        read generators, whose release on the next pull would free bytes
+        the worker still reads; and the readers hold a manual guarantee,
+        since an acquire ahead would otherwise let the writer reclaim
+        them.
+
+        A worker fault surfaces on the block thread at its next submit or
+        drain: the gulps behind the faulted one are dropped and cancelled
+        newest first, and a supervised restart resumes past the dispatch
+        frontier (`_loop_frame`), so no frame is committed twice.  A ring
+        wait's deadman or quiesce lands in the block thread's acquire or
+        reserve as in the synchronous loop; a full queue's wait polls the
+        pipeline's shutdown, so a wedged worker cannot make the block
+        unkillable."""
+        disp = self._executor(self._exec_async_depth)
+        outstanding = []             # (ispans, ospans), retired in order
+        for iseq in iseqs:
+            iseq.set_guarantee_manual()
+
+        def abort():
+            return self.pipeline.shutdown_requested
+        emit_hook = getattr(self, "output_nframes_for_gulp", None)
+        reserve_ahead = self.async_reserve_ahead or emit_hook is not None
+        frame = begin_nframe
+        drained = False
+        try:
+            while True:
+                self._heartbeat = time.monotonic()
+                t_acq = time.perf_counter()
+                ispans = []
+                stop = False
+                for iseq in iseqs:
+                    try:
+                        ispans.append(iseq.acquire(frame, gulp + overlap))
+                    except EndOfDataStop:
+                        stop = True
+                        break
+                in_nframe = max(0, ispans[0].nframe - overlap) \
+                    if ispans and not stop else 0
+                if in_nframe == 0 or self.pipeline.shutdown_requested or \
+                        self._splice_stop:
+                    for sp in ispans:
+                        sp.release()
+                    break
+                t0 = time.perf_counter()
+                frac = in_nframe / gulp
+                if emit_hook is not None:
+                    # Frames relative to this loop's entry: on_sequence
+                    # has just reset the block's phase.
+                    out_nframes = [int(n) for n in
+                                   emit_hook(frame - begin_nframe,
+                                             in_nframe)]
+                else:
+                    out_nframes = [max(1, int(round(onf * frac)))
+                                   if frac < 1 else onf for onf in onframes]
+                ospans = []
+                if reserve_ahead:
+                    try:
+                        for oseq, onf in zip(oseqs, out_nframes):
+                            ospans.append(oseq.reserve(onf))
+                    except BaseException:
+                        # Each ring's newest reservations: cancellable
+                        # without the in-order commit wait.
+                        _cancel_reservations(ospans)
+                        for sp in ispans:
+                            sp.release()
+                        raise
+                rec = (ispans, ospans)
+                outstanding.append(rec)
+                partial = ispans[0].nframe < gulp + overlap
+                t1 = time.perf_counter()
+                disp.submit(self._async_gulp_item(
+                    rec, out_nframes, outstanding, gulp,
+                    None if reserve_ahead else oseqs, emit_hook is not None),
+                    abort=abort)
+                # A full queue's wait is downstream back-pressure, booked
+                # as 'reserve'.
+                self._perf_add(acquire=t0 - t_acq,
+                               reserve=time.perf_counter() - t0)
+                # The dispatch frontier: a worker fault resumes past it, a
+                # deadman in this thread's wait resumes at it.
+                self._loop_frame = frame + gulp
+                if partial:
+                    break
+                frame += gulp
+            disp.drain()
+            drained = True
+        except BaseException:
+            drained = disp.drain(raise_exc=False, clear_exc=True,
+                                 timeout=5.0)
+            raise
+        finally:
+            self._retire_outstanding(outstanding, drained)
+            for iseq in iseqs:
+                iseq.set_guarantee_manual(False)
+
+    def _async_gulp_item(self, rec, out_nframes, outstanding, gulp,
+                         reserve_oseqs, exact):
+        """The worker's part of one gulp: the output reservations where
+        the block thread did not reserve ahead (`reserve_oseqs`), the
+        gulp under the device scope, the in-order commits and releases,
+        and the input guarantee moved on by one stride."""
+        ispans, ospans = rec
+
+        def item():
+            self._heartbeat = time.monotonic()
+            t0 = time.perf_counter()
+            if reserve_oseqs is not None:
+                # Into the shared record: a fault before the commit is
+                # then cancelled by the teardown.
+                for oseq, onf in zip(reserve_oseqs, out_nframes):
+                    ospans.append(oseq.reserve(onf))
+                self._perf_add(reserve=time.perf_counter() - t0)
+            t1 = time.perf_counter()
+            with self._device_lock():
+                ostrides = self._run_gulp(ispans, ospans, out_nframes, exact)
+            t2 = time.perf_counter()
+            for ospan, n in zip(ospans, ostrides):
+                ospan.commit(n)
+            for sp in ispans:
+                sp.release()
+                if sp.rseq.guarantee:
+                    sp.rseq.advance_guarantee(
+                        sp.offset + min(gulp * sp.tensor.frame_nbyte,
+                                        sp.nbyte))
+            if outstanding and outstanding[0] is rec:
+                outstanding.pop(0)
+            t3 = time.perf_counter()
+            self._perf_add(process=t2 - t1, commit=t3 - t2)
+            self._gulp_done(t3, {"process_time": t2 - t1,
+                                 "commit_time": t3 - t2})
+        return item
 
 
 class TransformBlock(MultiTransformBlock):
@@ -1277,6 +1701,12 @@ class SequenceView(ReadSequence):
     def _acquire(self, offset, size, nonblocking):
         return self.base._acquire(offset, size, nonblocking)
 
+    def set_guarantee_manual(self, manual=True):
+        self.base.set_guarantee_manual(manual)
+
+    def advance_guarantee(self, offset):
+        self.base.advance_guarantee(offset)
+
 
 def block_view(block, header_transform):
     """Wrap a block so that its output rings present transformed headers
@@ -1421,45 +1851,38 @@ class FusedTransformBlock(TransformBlock):
         # Scope settings (gulp_nframe, buffers, device, fuse) resolve from
         # the first constituent's place in the scope tree.
         self._lookup = first._lookup
-        self._dispatcher = None
         self._async_latched = None
-        self._stream = None
         self._init_proclogs()
+
+    # The base blocks' executor loops would drive the group's worker a
+    # second way: the group hands gulps to it itself (`fused_async`).
+    _base_async_ok = False
 
     # ------------------------------------------------------- dispatching
     def _resolve_async(self):
-        """The worker serves guaranteed readers only: a lossy reader
-        checks for overwritten input right after on_data."""
+        """The worker serves guaranteed readers only (a lossy reader
+        checks for overwritten input right after on_data), and never
+        under `strict_sync`."""
         from . import config
-        return bool(self.guarantee and config.get("fused_async"))
+        return bool(self.guarantee and config.get("fused_async") and
+                    not _device.needs_strict_sync())
 
     def _use_async(self):
         if self._async_latched is not None:
             return self._async_latched
         return self._resolve_async()
 
-    def _bind_worker_thread(self):
-        """The worker runs on the group's device and stream, and counts
-        as one of the group's threads (supervision, fault injection)."""
-        self._thread_idents.add(threading.get_ident())
-        _device.set_device(self.device)
-        if self._stream is not None:
-            torch.cuda.set_stream(self._stream)
+    def _device_lock(self):
+        # With the worker on, its items take the dispatch lock: held here
+        # around the hand-off, it would stall this thread behind the
+        # worker's gulp and undo the overlap.
+        if self._use_async():
+            return contextlib.nullcontext()
+        return super()._device_lock()
 
     def _drain_dispatcher(self, raise_exc=True):
         if self._dispatcher is not None:
             self._dispatcher.drain(raise_exc=raise_exc)
-
-    def _close_dispatcher(self):
-        if self._dispatcher is not None:
-            self._dispatcher.close()
-            self._dispatcher = None
-
-    def main(self):
-        try:
-            super().main()
-        finally:
-            self._close_dispatcher()
 
     def _sequence_loop(self, *args, **kwargs):
         # The worker must be idle before the sequence's output spans end.
@@ -1661,8 +2084,10 @@ class FusedTransformBlock(TransformBlock):
 
             def work():
                 try:
-                    y = self._run_chain(self._gulp_input(ispan, hold), ctx)
-                    self._fold(y, phase, nfr, ospan)
+                    with _device.dispatch_lock():
+                        y = self._run_chain(self._gulp_input(ispan, hold),
+                                            ctx)
+                        self._fold(y, phase, nfr, ospan)
                 finally:
                     hold.set()
 

@@ -665,6 +665,25 @@ class ReadSequence(object):
             if "_tensor" in self.header else None
         self._closed = False
         self._open_spans = []
+        self._manual = False
+
+    def set_guarantee_manual(self, manual=True):
+        """Stop span acquires from moving this reader's guarantee forward;
+        the reader moves it itself with `advance_guarantee` (the async
+        gulp executor acquires ahead of the gulps its worker still
+        reads; bifrost_tpu/ring.py:835-842)."""
+        self._manual = bool(manual)
+
+    def advance_guarantee(self, offset):
+        """Move this reader's guarantee forward to byte `offset`: the
+        bytes before it become the writer's to reclaim."""
+        ring = self.ring
+        with ring._cond:
+            if self._gpos is not None and offset > self._gpos:
+                ring._guarantees.remove(self._gpos)
+                self._gpos = int(offset)
+                ring._guarantees.append(self._gpos)
+                ring._cond.notify_all()
 
     def close(self):
         # Outstanding spans release before the guarantee goes away.
@@ -707,7 +726,8 @@ class ReadSequence(object):
         """-> (bytes available, bytes overwritten) at `offset`."""
         ring, s = self.ring, self._seq
         with ring._cond:
-            if self._gpos is not None and offset > self._gpos:
+            if self._gpos is not None and offset > self._gpos and \
+                    not self._manual:
                 # Guarantee follows the read position forward.
                 ring._guarantees.remove(self._gpos)
                 self._gpos = offset

@@ -250,6 +250,39 @@ Phases, one line each; any failure exits non-zero:
              `fengine_ci4`, `fengine_ci8`, `instrument_int8` and
              `instrument_int8_plain`.
 
+15. fir    — after [capture], on [bengine]'s voltages: FirBlock
+             (benchmarks/fir_tpu.py's 16 taps at --nchan 1024) on the
+             ci8 voltages read raw from the 'cuda' ring, 256 stations x
+             2 pol = 1024 real lanes, seeded per-channel banks (16, 512),
+             FIR_NGULP = 8 gulps of 65,536 frames, at decim 1 and 4
+             (benchmarks/FIR_TPU.md's --decim 4): bitwise the same run
+             with fir_method 'plain', the same frames in 2 gulps of 4x
+             the length, and the fused group (copy -> fir,
+             stateful_chain, the raw head) with the same K2 launches
+             (8, every one vector); the first 4096 outputs on 4 channels
+             within 2 ntap u M of an f64 golden; frames/s whole and
+             steady.  `check_fir` times K2 at this shape (vector and
+             scalar kernels, plain, F.conv1d, the bound) and reads
+             ptxas's registers and spills of the 16-tap instantiations
+             (the kernel record's `at_fir`).  Launches go into
+             `launches_by_path` as `fir`, `fir_plain`, `fir_long`,
+             `fir_fused` and their `fir_decim4*` twins.
+
+16. async  — after [xengine]: the async gulp executor on [xengine]'s
+             seeded ci4 replay at its configuration, cut to AS_NINT = 2
+             integrations (16 gulps): (a) the raw head array_source(ci4)
+             -> copy('cuda') -> correlate(8192, engine='int8') and (b)
+             benchmarks/pipeline_async.py's chain, the host unpack
+             first, each serialized (strict_sync + serialize_dispatch),
+             sync (pipeline_async_depth 1) and async (depth 4), in
+             AS_TURNS = 2 turns: every run's visibilities bitwise the
+             sync raw head's (its first integration on channel 0 the
+             int64 golden), X1 16 launches in each, the executor on the
+             copy, correlate and sink blocks at depth 4 only; frames/s
+             whole and steady, the per-block acquire/reserve stall map.
+             Launches go into `launches_by_path` as
+             `async_<chain>_<discipline>` (the first turn's).
+
 The launch checks of every phase count all eight kernels (K1, K2, K4,
 K6a, K6b, K5a, K5b, X1).  The line before the last two holds the kernel
 records as JSON, one for each of those kernels; then the card's name and
@@ -380,6 +413,22 @@ XE_TRACE_NINT = 2
 FE_NINT, XI_NINT = 4, 2
 CP_I4_NSRC, CP_I4_PAYLOAD, CP_I4_NGULP = 64, 32, 2
 
+# The streaming FIR (benchmarks/fir_tpu.py's defaults: 16 taps, --nchan
+# 1024; benchmarks/FIR_TPU.md's --decim 4): FirBlock on [bengine]'s ci8
+# voltages (256 stations x 2 pol, 1024 real lanes) read raw from the
+# 'cuda' ring, seeded per-channel banks (FIR_NTAP, 512), FIR_NGULP gulps
+# of B_GULP frames at each of FIR_DECIMS, and the same frames as gulps
+# FIR_LONG times as long; the first FIR_GOLDEN_NOUT outputs on channels
+# FIR_GOLDEN_CHANS against an f64 golden.
+FIR_NTAP, FIR_DECIMS, FIR_NGULP, FIR_LONG = 16, (1, 4), 8, 4
+FIR_GOLDEN_CHANS, FIR_GOLDEN_NOUT = (0, 1, 137, 511), 4096
+
+# The async gulp executor: [xengine]'s seeded ci4 replay at its
+# configuration, cut to AS_NINT integrations; the raw head and the host-
+# unpack chain, each serialized (strict_sync + serialize_dispatch), sync
+# (depth 1) and async (depth AS_DEPTH), in AS_TURNS turns.
+AS_NINT, AS_TURNS, AS_DEPTH = 2, 2, 4
+
 # Device-memory rate by card (NVIDIA data sheets), bytes/s
 _HBM_RATE = (("H200", 4.8e12), ("H100 PCIe", 2.0e12), ("H100", 3.35e12))
 F32_PEAK = 67e12   # H100 SXM f32 outside the tensor cores, operations/s
@@ -480,11 +529,12 @@ def bound(nbytes, nops, rate):
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
 
-def fir_work(nout, lanes, ntap, ncoef, in_bytes):
-    """Bytes and operations of one FIR MAC call (decim 1): x read once at
-    its storage width, the f32 history and prototype, the f32 output;
-    a multiply and an add per tap and output."""
-    nbytes = (nout * lanes * in_bytes + (ntap - 1) * lanes * 4 +
+def fir_work(nout, lanes, ntap, ncoef, in_bytes, decim=1):
+    """Bytes and operations of one FIR MAC call: x (nout * decim rows)
+    read once at its storage width (every row lies in a window while
+    decim <= ntap), the f32 history and coefficients, the f32 output; a
+    multiply and an add per tap and output."""
+    nbytes = (nout * decim * lanes * in_bytes + (ntap - 1) * lanes * 4 +
               ntap * ncoef * 4 + nout * lanes * 4)
     return nbytes, 2 * ntap * nout * lanes
 
@@ -765,12 +815,125 @@ def check_fir(dev, kind, rng):
           f"conv1d {library_ms:.4f} ms (rel err {err:.2e}), bound "
           f"{bound_ms:.4f} ms ({by}: {nbytes / 1e9:.4f} GB, "
           f"{nops / 1e9:.4f} G ops), {kind}")
+    fir16 = check_fir16(dev, kind, rng)
     return {"name": "fir_mac", "route": "cuda",
             "source": "bifrost_tpu_torch/csrc/fir.cu",
             "replaces": "bifrost_tpu/ops/fir_pallas.py:47",
-            "launches": None, "max_abs_err": worst, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
-            "library_ms": library_ms}
+            "launches": None, "max_abs_err": max(worst, fir16["max_abs_err"]),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": by, "library_ms": library_ms, "at_fir": fir16}
+
+
+def fir16_ptxas():
+    """ptxas's registers and spilled bytes of K2's long-form
+    instantiations at FIR_NTAP taps (the `fir_long` build), from this
+    process's build log -> {'int8 cpt 4': (registers, spill stores,
+    spill loads), ...}."""
+    import re
+
+    from bifrost_tpu_torch import build
+    out, name = {}, None
+    for ln in build.build_log.get("fir_long", {}).get("ptxas",
+                                                      "").splitlines():
+        m = re.search(r"fir_mac_vec_kernelI([af])Li(\d+)ELi(\d+)E", ln)
+        if "Compiling entry function" in ln or "Function properties" in ln:
+            name = None
+            if m and int(m.group(2)) == FIR_NTAP:
+                name = (f"{'int8' if m.group(1) == 'a' else 'f32'} cpt "
+                        f"{m.group(3)}")
+                out.setdefault(name, [None, None, None])
+        elif name is not None and "spill stores" in ln:
+            v = re.findall(r"(\d+) bytes spill (?:stores|loads)", ln)
+            out[name][1:] = [int(x) for x in v[:2]]
+        elif name is not None and "Used" in ln and "registers" in ln:
+            out[name][0] = int(re.search(r"Used (\d+) registers",
+                                         ln).group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def check_fir16(dev, kind, rng):
+    """K2 at [fir]'s shape: one gulp of B_GULP frames x 1024 lanes (256
+    stations x 2 pol x (re, im)), FIR_NTAP taps, a column for each (re,
+    im) pair (rep 2), at each of FIR_DECIMS: int8 input on the vector
+    kernel's long form, f32 on the scalar kernel, and an unaligned copy
+    of either (the scalar kernel), bitwise their plain version; int8
+    timed by the vector and scalar kernels, the plain version and the
+    conv1d yardstick, beside the bound; ptxas's registers and spills of
+    the 16-tap instantiations.  -> the kernel record's `at_fir`
+    fields."""
+    from bifrost_tpu_torch.ops import fir_kernel
+    lanes = NSTAND * NPOL * 2
+    ncoef = lanes // 2
+    c = torch.from_numpy(rng.standard_normal((FIR_NTAP, ncoef))
+                         .astype(np.float32)).to(dev)
+    st = torch.from_numpy(rng.standard_normal((FIR_NTAP - 1, lanes))
+                          .astype(np.float32)).to(dev)
+    x8 = torch.from_numpy(rng.integers(-128, 128, (B_GULP, lanes))
+                          .astype(np.int8)).to(dev)
+    xf = torch.from_numpy(rng.standard_normal((B_GULP, lanes))
+                          .astype(np.float32)).to(dev)
+    xf[::3, ::5] = -0.0
+
+    def unaligned(x):
+        y = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)[1:]
+        return y.view(x.shape).copy_(x)
+    worst, out = 0.0, {"ptxas": fir16_ptxas()}
+    torch.backends.cudnn.allow_tf32 = False
+    for decim in FIR_DECIMS:
+        nout = B_GULP // decim
+        for name, x in (("int8", x8), ("f32", xf)):
+            want = fir_kernel.fir_mac_plain(x, c, st, decim, 2)
+            xs = unaligned(x)
+            nvec = fir_kernel.fir_mac.vector_launches
+            got = fir_kernel.fir_mac(x, c, st, decim, 2)
+            gots = fir_kernel.fir_mac(xs, c, st, decim, 2)
+            torch.cuda.synchronize()
+            if fir_kernel.fir_mac.vector_launches != \
+                    nvec + (name == "int8") or \
+                    not bits_equal(got, want) or not bits_equal(gots, want):
+                raise AssertionError(f"fir_mac at {FIR_NTAP} taps, decim "
+                                     f"{decim}, {name}: a kernel differs "
+                                     f"from plain, or the route")
+            worst = max(worst, float((got - want).abs().max()))
+            del want, got, gots, xs
+        y = torch.empty(nout, lanes, device=dev)
+        xs = unaligned(x8)
+        ms = cuda_time(lambda: fir_kernel.fir_mac(x8, c, st, decim, 2,
+                                                  out=y), 20)
+        scalar_ms = cuda_time(lambda: fir_kernel.fir_mac(xs, c, st, decim, 2,
+                                                         out=y), 5)
+        plain_ms = cuda_time(
+            lambda: fir_kernel.fir_mac_plain(x8, c, st, decim, 2), 3)
+        xin = torch.cat([st, x8.float()]).T.contiguous()[None]
+        wconv = c.flip(0).T.repeat_interleave(2, 0)[:, None, :].contiguous()
+        lib = F.conv1d(xin, wconv, stride=decim, groups=lanes)[0].T
+        fir_kernel.fir_mac(x8, c, st, decim, 2, out=y)
+        err = float((lib - y).abs().max() / y.abs().max())
+        if err > 1e-5:
+            raise AssertionError(f"conv1d differs from the MAC: rel {err}")
+        library_ms = cuda_time(
+            lambda: F.conv1d(xin, wconv, stride=decim, groups=lanes), 3)
+        nbytes, nops = fir_work(nout, lanes, FIR_NTAP, ncoef, 1, decim)
+        bound_ms, by = bound(nbytes, nops, hbm_rate(kind))
+        out[f"decim{decim}"] = {
+            "ms": ms, "scalar_ms": scalar_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": by,
+            "share_of_bound": bound_ms / ms}
+        phase("kernels", f"fir_mac at [fir]'s shape ({B_GULP} x {lanes} "
+              f"lanes, {FIR_NTAP} taps, rep 2, decim {decim}) equal to "
+              f"plain (tolerance: bitwise): int8 on the vector kernel's "
+              f"long form, f32 with -0.0 and unaligned copies of both on the "
+              f"scalar kernel; int8: vector {ms:.4f} ms, scalar "
+              f"{scalar_ms:.4f} ms, plain {plain_ms:.4f} ms, conv1d "
+              f"{library_ms:.4f} ms (rel err {err:.2e}), bound "
+              f"{bound_ms:.4f} ms ({by}: {nbytes / 1e9:.4f} GB, "
+              f"{nops / 1e9:.4f} G ops), {100 * bound_ms / ms:.1f} % of it; "
+              f"{kind}")
+        del y, xs, xin, wconv, lib
+    phase("kernels", f"fir_mac {FIR_NTAP}-tap instantiations (registers, "
+          f"spill stores, spill loads): {out['ptxas']}")
+    out["max_abs_err"] = worst
+    return out
 
 
 # K4's edge shapes: (nbeam, ci8, ntime, nchan, nsp, x offset in samples):
@@ -2876,13 +3039,25 @@ def xe_source(frames, nframe):
     return Source(["ci4"], XE_GULP, name="xe_replay")
 
 
-def xe_run(dev, frames, nframe, topo, method=None, profile=False):
+def discipline_flags(mode):
+    """The config flags of an executor discipline: 'serialized'
+    (strict_sync + serialize_dispatch), 'sync' (depth 1) or 'async'
+    (depth AS_DEPTH)."""
+    if mode == "serialized":
+        return {"strict_sync": True, "serialize_dispatch": True}
+    return {"pipeline_async_depth": AS_DEPTH if mode == "async" else 1}
+
+
+def xe_run(dev, frames, nframe, topo, method=None, profile=False,
+           discipline=None):
     """One X-engine run over `nframe` replayed frames: topo 'fused' or
     'unfused' (the raw head) or 'unpack' (the host unpack first).  -> dict
     of the visibility frames (on the card), the host clock when each was
-    done, wall seconds, launch counts and the raw reads (count, bytes);
-    with `profile`, the run under torch.profiler (CPU and CUDA) and its
-    blocks' host seconds by phase too ('prof', 'blocks')."""
+    done, wall seconds, launch counts, the raw reads (count, bytes), each
+    block's share of host seconds waiting in acquire and reserve and its
+    executor depth; with `profile`, the run under torch.profiler (CPU and
+    CUDA) and its blocks' host seconds by phase too ('prof', 'blocks').
+    `discipline`: an executor discipline (discipline_flags) for the run."""
     import contextlib
 
     from bifrost_tpu_torch import block_scope, config
@@ -2896,8 +3071,11 @@ def xe_run(dev, frames, nframe, topo, method=None, profile=False):
         torch.cuda.synchronize()
         stamps.append(time.perf_counter())
 
+    flags = dict(discipline_flags(discipline) if discipline else {})
     if method is not None:
-        config.set("xengine_method", method)
+        flags["xengine_method"] = method
+    for k, v in flags.items():
+        config.set(k, v)
     try:
         with Pipeline(device=dev) as pipe:
             src = xe_source(frames, nframe)
@@ -2917,15 +3095,24 @@ def xe_run(dev, frames, nframe, topo, method=None, profile=False):
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
     finally:
-        if method is not None:
-            config.reset("xengine_method")
+        for k in flags:
+            config.reset(k)
     groups = [b for b in pipe.blocks if isinstance(b, FusedTransformBlock)]
     if bool(groups) != (topo == "fused"):
         raise AssertionError(f"{topo} run: fused groups {groups}")
+    stall = {}
+    for b in pipe.blocks:
+        tot = sum(b.perf_totals.values())
+        if tot > 0:
+            stall[b.name] = round(100 * (b.perf_totals.get("acquire", 0) +
+                                         b.perf_totals.get("reserve", 0)) /
+                                  tot, 1)
     # The correlate block counts its storage-form reads fused (its raw
     # step, behind the group's H2D head) and unfused alike.
     run = {"outs": outs, "stamps": stamps, "wall": wall,
-           "counts": read_counts(), "raw": (x._raw_reads, x._raw_read_nbyte)}
+           "counts": read_counts(), "raw": (x._raw_reads, x._raw_read_nbyte),
+           "stall": stall,
+           "depths": {b.name: b._exec_async_depth for b in pipe.blocks}}
     if profile:
         run["prof"] = prof
         run["blocks"] = {b.name: dict(b.perf_totals) for b in pipe.blocks}
@@ -3199,6 +3386,210 @@ def xengine_path(dev, kind, volt):
     phase("xengine", f"(c) instrument engine='int8': {XI_NINT} images "
           f"bitwise the xengine_method='plain' run's; X1 {XI_NINT} "
           f"launches, K6b {XI_NINT}")
+    return out
+
+
+def fir_run(dev, volt, nframe, gulp, decim, coeffs, method=None,
+            fuse=False):
+    """One FirBlock run over the first `nframe` of [bengine]'s voltages,
+    array_source -> copy('cuda') -> fir (in a fuse scope when `fuse`) ->
+    callback_sink on the card.  -> dict of the output gulps (on the
+    card), the host clock when each was done, wall seconds, launch counts
+    and the raw reads (count, bytes)."""
+    import contextlib
+
+    from bifrost_tpu_torch import block_scope
+    from bifrost_tpu_torch.blocks import (array_source, callback_sink, copy,
+                                          fir)
+    from bifrost_tpu_torch.pipeline import FusedTransformBlock, Pipeline
+    outs, stamps = [], []
+
+    def keep(a):
+        outs.append(a.clone())
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    with Pipeline(device=dev) as pipe:
+        src = array_source(volt[:nframe], gulp, header={
+            "dtype": "ci8", "labels": ["time", "station", "pol"],
+            "scales": [[0.0, B_DT], None, None],
+            "units": ["s", None, None]})
+        with block_scope(fuse=True) if fuse else contextlib.nullcontext():
+            f = fir(copy(src, space="cuda"), coeffs, decim=decim,
+                    method=method)
+        callback_sink(f, on_data=keep)
+        reset_counts()
+        t0 = time.perf_counter()
+        pipe.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    groups = [b for b in pipe.blocks if isinstance(b, FusedTransformBlock)]
+    if bool(groups) != fuse:
+        raise AssertionError(f"fir run (fuse {fuse}): groups {groups}")
+    # The FIR block counts its storage-form reads fused (its raw step,
+    # behind the group's H2D head) and unfused alike.
+    return {"outs": outs, "stamps": stamps, "wall": wall,
+            "counts": read_counts(), "raw": (f._raw_reads, f._raw_read_nbyte)}
+
+
+def fir_golden(volt, coeffs, decim, nout, chans):
+    """The first `nout` outputs of the FIR on flat channels `chans` of
+    the ci8 voltages, from a zero history, in f64, and the magnitude
+    filter M (sum |x| |c|, the scale of the f32 rounding bound)."""
+    ntap = coeffs.shape[0]
+    n = nout * decim
+    v = volt[:n].reshape(n, -1, 2)[:, chans].astype(np.float64)
+    x = np.concatenate([np.zeros((ntap - 1,) + v.shape[1:]), v])
+    c = coeffs[:, chans].astype(np.float32).astype(np.float64)[..., None]
+    y = sum(x[k:k + n] * c[ntap - 1 - k] for k in range(ntap))
+    m = sum(np.abs(x[k:k + n]) * np.abs(c[ntap - 1 - k])
+            for k in range(ntap))
+    return y[::decim], m[::decim]
+
+
+def fir_path(dev, kind, volt, at_fir):
+    """The streaming FIR (module docstring, phase 15).  `volt`:
+    [bengine]'s voltages; `at_fir`: check_fir16's timings.  -> launch
+    counts by path."""
+    nsp = NSTAND * NPOL
+    rng = np.random.default_rng(SEED + 14)
+    coeffs = rng.standard_normal((FIR_NTAP, nsp))
+    nframe = FIR_NGULP * B_GULP
+    chans, ng = np.array(FIR_GOLDEN_CHANS), FIR_GOLDEN_NOUT
+    out = {}
+    for decim in FIR_DECIMS:
+        nout = nframe // decim
+        runs = {"unfused": fir_run(dev, volt, nframe, B_GULP, decim,
+                                   coeffs)}
+        ref = torch.cat(runs["unfused"]["outs"])
+        if ref.shape != (nout, NSTAND, NPOL) or \
+                ref.dtype != torch.complex64 or \
+                not bool(torch.isfinite(torch.view_as_real(ref)).all()):
+            raise AssertionError(f"fir decim {decim}: output {ref.shape} "
+                                 f"{ref.dtype}")
+        g, m = fir_golden(volt, coeffs, decim, ng, chans)
+        y = ref[:ng].reshape(ng, -1)[:, chans].cpu().numpy()
+        err = np.maximum(np.abs(y.real - g[..., 0]), np.abs(y.imag -
+                                                          g[..., 1]))
+        if not np.all(err <= 2 * FIR_NTAP * 2.0 ** -24 * m.max(-1)):
+            raise AssertionError(f"fir decim {decim}: beyond the f32 "
+                                 f"rounding bound of the f64 golden")
+        for name, kw in (("plain", dict(method="plain")),
+                         ("long", dict(gulp=FIR_LONG * B_GULP)),
+                         ("fused", dict(fuse=True))):
+            gulp = kw.pop("gulp", B_GULP)
+            runs[name] = fir_run(dev, volt, nframe, gulp, decim, coeffs,
+                                 **kw)
+            got = torch.cat(runs[name]["outs"])
+            if not bits_equal(torch.view_as_real(got),
+                              torch.view_as_real(ref)):
+                raise AssertionError(f"fir decim {decim}: the {name} run "
+                                     f"differs from the unfused run")
+            del got
+            runs[name]["outs"] = None
+        want = {"unfused": FIR_NGULP, "fused": FIR_NGULP, "plain": 0,
+                "long": FIR_NGULP // FIR_LONG}
+        tag = "fir" if decim == 1 else f"fir_decim{decim}"
+        for name, r in runs.items():
+            if r["counts"] != expected(fir_mac=want[name]):
+                raise AssertionError(f"fir decim {decim} {name}: launches "
+                                     f"{r['counts']}")
+            nreads = FIR_NGULP // FIR_LONG if name == "long" else FIR_NGULP
+            if r["raw"] != (nreads, nframe * nsp * 2):
+                raise AssertionError(f"fir decim {decim} {name}: raw reads "
+                                     f"{r['raw']}")
+            out[tag + ("" if name == "unfused" else f"_{name}")] = \
+                r["counts"]
+        reset_counts()
+        runs["unfused"]["outs"] = None
+        st = runs["unfused"]["stamps"]
+        rates = {k: round(nframe / r["wall"], 1) for k, r in runs.items()}
+        t = at_fir[f"decim{decim}"]
+        phase("fir", f"FirBlock, ci8 {NSTAND} x {NPOL} read raw from the "
+              f"'cuda' ring ({2 * nsp} lanes), {FIR_NTAP} taps, decim "
+              f"{decim}, {FIR_NGULP} gulps of {B_GULP} frames: bitwise the "
+              f"'plain' run on the card, {FIR_NGULP // FIR_LONG} gulps of "
+              f"{FIR_LONG * B_GULP} and the fused group (K2 launches equal, "
+              f"{want['fused']}), the first {ng} outputs within 2 ntap u M "
+              f"of an f64 golden on channels {chans.tolist()}; K2 launches "
+              f"{ {k: r['counts']['fir_mac'] for k, r in runs.items()} }, "
+              f"every one vector; frames/s whole {rates}, steady "
+              f"{(len(st) - 1) * B_GULP / (st[-1] - st[0]):.1f}; K2 at "
+              f"this shape (check_fir16): {t['ms']:.4f} ms a gulp, "
+              f"{100 * t['share_of_bound']:.1f} % of its {t['bound_ms']:.4f} "
+              f"ms bound, F.conv1d {t['library_ms']:.4f} ms; {kind}")
+        del runs, ref
+        free_device()
+    return out
+
+
+def async_path(dev, kind):
+    """The async gulp executor (module docstring, phase 16): [xengine]'s
+    replay cut to AS_NINT integrations, the raw head and the host-unpack
+    chain under the three disciplines in AS_TURNS turns.  -> launch
+    counts by path (the first turn's)."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 12)      # [xengine]'s frames
+    frames = rng.integers(0, 256, (XE_DISTINCT, XE_NCHAN, XE_NSTAND,
+                                   XE_NPOL), dtype=np.uint8)
+    nframe = AS_NINT * XE_NINT
+    ngulp = nframe // XE_GULP
+    phase("async", f"voltages: [xengine]'s {XE_DISTINCT} ci4 frames, "
+          f"{time.perf_counter() - t0:.1f} s")
+    modes = ("serialized", "sync", "async")
+    topos = ("unfused", "unpack")
+    runs = {(t, m): [] for t in topos for m in modes}
+    for turn in range(AS_TURNS):
+        for topo in topos:
+            for mode in modes:
+                r = xe_run(dev, frames, nframe, topo, discipline=mode)
+                if turn:
+                    r["outs"] = [o.cpu() for o in r["outs"]]
+                runs[(topo, mode)].append(r)
+    ref = runs[("unfused", "sync")][0]["outs"]
+    first = ref[0][0].reshape(XE_NCHAN, -1, XE_NSTAND * XE_NPOL)[0].cpu()
+    (vr, vi), = xe_golden(frames, (0,)).values()
+    if len(ref) != AS_NINT or \
+            not np.array_equal(first.real.numpy().astype(np.int64), vr) or \
+            not np.array_equal(first.imag.numpy().astype(np.int64), vi):
+        raise AssertionError("async: the sync run's first integration "
+                             "differs from the int64 golden")
+    out, lines = {}, {}
+    for (topo, mode), rs in runs.items():
+        for turn, r in enumerate(rs):
+            if len(r["outs"]) != AS_NINT or not all(
+                    bits_equal(torch.view_as_real(v.to(dev)),
+                               torch.view_as_real(ref[k]))
+                    for k, v in enumerate(r["outs"])):
+                raise AssertionError(f"async {topo} {mode} turn {turn}: "
+                                     f"visibilities differ from the sync "
+                                     f"raw head's")
+            if r["counts"] != expected(xengine_int8=ngulp):
+                raise AssertionError(f"async {topo} {mode}: launches "
+                                     f"{r['counts']}")
+            on = sorted(n for n, d in r["depths"].items() if d)
+            want = 3 if mode == "async" else 0     # copy, correlate, sink
+            if len(on) != want or any(r["depths"][n] != AS_DEPTH
+                                      for n in on):
+                raise AssertionError(f"async {topo} {mode}: executor "
+                                     f"depths {r['depths']}")
+        out[f"async_{topo}_{mode}"] = rs[0]["counts"]
+        lines[f"{topo} {mode}"] = {
+            "frames_per_s_whole": [round(nframe / r["wall"], 1)
+                                   for r in rs],
+            "frames_per_s_steady": [round(
+                (len(r["stamps"]) - 1) * XE_NINT /
+                (r["stamps"][-1] - r["stamps"][0]), 1) for r in rs],
+            "stall_pct": rs[-1]["stall"],
+            "x1_launches": rs[0]["counts"]["xengine_int8"]}
+    phase("async", f"ci4 correlator at [xengine]'s configuration, "
+          f"{AS_NINT} integrations ({ngulp} gulps), raw head and host "
+          f"unpack, serialized / sync / async (depth {AS_DEPTH}) in "
+          f"{AS_TURNS} turns: every run bitwise the sync raw head's "
+          f"(integration 0, channel 0 the int64 golden), X1 {ngulp} "
+          f"launches each; {json.dumps(lines)}; {kind}")
+    del runs, ref, frames
+    free_device()
     return out
 
 
@@ -3819,8 +4210,14 @@ def main():
     counts.update(capture_path(dev, volt))
     free_device()
     t5e = time.perf_counter()
+    counts.update(fir_path(dev, kind, volt, recs[1]["at_fir"]))
+    free_device()
+    t5f = time.perf_counter()
     counts.update(xengine_path(dev, kind, volt))
     del volt, spec
+    free_device()
+    t5g = time.perf_counter()
+    counts.update(async_path(dev, kind))
     free_device()
     t6 = time.perf_counter()
     for name, c in gpuspec_path(dev, kind).items():
@@ -3832,8 +4229,9 @@ def main():
           f"{t2 - t1:.1f} s, frbflag {t3 - t2:.1f} s, bengine "
           f"{t4 - t3:.1f} s, instrument {t5 - t4:.1f} s, dq "
           f"{t5b - t5:.1f} s, fusion {t5c - t5b:.1f} s, service "
-          f"{t5d - t5c:.1f} s, capture {t5e - t5d:.1f} s, xengine "
-          f"{t6 - t5e:.1f} s, gpuspec "
+          f"{t5d - t5c:.1f} s, capture {t5e - t5d:.1f} s, fir "
+          f"{t5f - t5e:.1f} s, xengine {t5g - t5f:.1f} s, async "
+          f"{t6 - t5g:.1f} s, gpuspec "
           f"{t7 - t6:.1f} s, egress "
           f"{time.perf_counter() - t7:.1f} s")
     by_path = {name: {path: c[name] for path, c in counts.items()}

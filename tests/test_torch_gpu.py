@@ -169,15 +169,17 @@ def _fir_case(rng, int8, ntap, rep, lanes, ntime, layout, cuda):
     (1, 4, 4, False, 64, 16, "state", False),
     (1, 8, 16, True, 64, 3, "contig", True),
     (1, 1, 4, False, 64, 16, "contig", True),
-    (1, 9, 16, True, 64, 16, "contig", False),
+    (1, 9, 16, True, 64, 16, "contig", True),
+    (1, 17, 16, True, 64, 16, "contig", False),
     (2, 4, 16, True, 64, 32, "contig", True),
     (4, 4, 4, False, 64, 32, "contig", True),
     (5, 3, 4, False, 64, 40, "contig", True)])
 def test_fir_mac_kernel_bitwise_vs_plain(cuda, decim, ntap, rep, int8, lanes,
                                          ntime, layout, vec):
     """K2 against its plain version, bitwise, each launch's kernel
-    asserted: decimation (2, 4 and past ntap, where rows are skipped), 1
-    and 9 taps (above the vector kernel's instantiations), coefficient
+    asserted: decimation (2, 4 and past ntap, where rows are skipped), 1,
+    9 (the long form) and 17 taps (above the vector kernel's
+    instantiations), coefficient
     columns shared by a thread's lanes (the PFB's rep 1024) and per lane
     (rep 1 and 6, 4 and 8 taps), frames across the vector kernel's
     8-frame cut, a gulp shorter than ntap - 1, int8 and f32 input with
@@ -197,6 +199,112 @@ def test_fir_mac_kernel_bitwise_vs_plain(cuda, decim, ntap, rep, int8, lanes,
     want = fir_kernel.fir_mac_plain(x, c, st, decim, rep)
     torch.cuda.synchronize()
     assert _bits_equal(y, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ntap", list(range(9, 17)))
+@pytest.mark.parametrize("decim", [1, 4])
+@pytest.mark.parametrize("rep", [1, 2, 64])
+@pytest.mark.parametrize("int8", [True, False])
+def test_fir_mac_long_taps_bitwise_vs_plain(cuda, int8, rep, decim, ntap):
+    """K2 at 9 to 16 taps against its plain version, bitwise: int8 input
+    on the vector kernel's long form (the `fir_long` build, 4 lanes a
+    thread), f32 input with -0.0 on the scalar kernel; decim 1 and 4, a
+    column a lane (rep 1), one for each (re, im) pair (rep 2, the
+    complex FIR) and one for all of a thread's lanes (rep 64); 75 output
+    frames, across the 32-frame cut."""
+    from bifrost_tpu_torch.ops import fir_kernel
+    rng = np.random.default_rng(ntap * 100 + decim * 10 + rep)
+    lanes, nout = 128, 75
+    x, c, st = _fir_case(rng, int8, ntap, rep, lanes, nout * decim,
+                         "contig", cuda)
+    out = torch.full((nout, lanes), float("nan"), device=cuda)
+    assert fir_kernel.fir_vectors(x, st, out, ntap) == int8
+    vbefore = fir_kernel.fir_mac.vector_launches
+    y = fir_kernel.fir_mac(x, c, st, decim, rep, out=out)
+    assert fir_kernel.fir_mac.vector_launches == vbefore + int8
+    want = fir_kernel.fir_mac_plain(x, c, st, decim, rep)
+    torch.cuda.synchronize()
+    assert _bits_equal(y, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("decim", [1, 4])
+def test_fir_block_on_a_cuda_ring_matches_plain(cuda, decim):
+    """FirBlock reading ci8 raw from a 'cuda' ring, 16 taps: K2 on every
+    gulp, all on its vector kernel, bitwise the block with
+    method='plain' on the card and the same block on the CPU."""
+    from bifrost_tpu_torch import blocks
+    from bifrost_tpu_torch.ops import fir_kernel
+    from bifrost_tpu_torch.pipeline import Pipeline
+    rng = np.random.default_rng(40 + decim)
+    raw = rng.integers(-128, 128, (512, 64, 2, 2)).astype(np.int8)
+    c = rng.standard_normal((16, 128))
+
+    def run(device, method):
+        outs = []
+        with Pipeline(device=device) as pipe:
+            src = blocks.array_source(raw, 128, header={
+                "dtype": "ci8", "labels": ["time", "station", "pol"]})
+            f = blocks.fir(blocks.copy(src, space="cuda"), c, decim=decim,
+                           method=method)
+            blocks.callback_sink(f, on_data=lambda a: outs.append(
+                a.cpu().clone()))
+            pipe.run()
+        return torch.cat(outs), f
+
+    before = fir_kernel.fir_mac.launches
+    vbefore = fir_kernel.fir_mac.vector_launches
+    got, f = run(cuda, None)
+    assert fir_kernel.fir_mac.launches - before == 4
+    assert fir_kernel.fir_mac.vector_launches - vbefore == 4
+    assert f._raw_reads == 4
+    plain, _ = run(cuda, "plain")
+    cpu, _ = run("cpu", None)
+    assert got.shape == (512 // decim, 64, 2)
+    assert _bits_equal(torch.view_as_real(got), torch.view_as_real(plain))
+    assert _bits_equal(torch.view_as_real(got), torch.view_as_real(cpu))
+
+
+@pytest.mark.gpu
+def test_async_executor_depth4_bitwise_depth1_on_the_card(cuda):
+    """The executor on the card: ci4 capture -> host unpack -> H2D ->
+    int8 correlate (X1), and the raw head, at depth 4 bitwise depth 1
+    with X1 launched as often; at depth 4 the H2D copy and the correlate
+    ran on their workers, on their blocks' streams."""
+    from bifrost_tpu_torch import blocks, config
+    from bifrost_tpu_torch.ops import xengine_kernel
+    from bifrost_tpu_torch.pipeline import Pipeline
+    rng = np.random.default_rng(44)
+    frames = rng.integers(0, 256, (2048, 8, 16, 2), dtype=np.uint8)
+    hdr = {"dtype": "ci4", "labels": ["time", "freq", "station", "pol"]}
+
+    def run(depth, unpack):
+        config.set("pipeline_async_depth", depth)
+        outs = []
+        try:
+            with Pipeline(device=cuda) as pipe:
+                src = blocks.array_source(frames, 256, header=dict(hdr))
+                if unpack:
+                    src = blocks.unpack(src)
+                dev = blocks.copy(src, space="cuda")
+                x = blocks.correlate(dev, 512, engine="int8")
+                blocks.callback_sink(x, on_data=lambda a: outs.append(
+                    a.clone()))
+                before = xengine_kernel.xengine_int8.launches
+                pipe.run()
+                torch.cuda.synchronize()
+        finally:
+            config.reset("pipeline_async_depth")
+        return (torch.cat(outs), xengine_kernel.xengine_int8.launches -
+                before, (dev._exec_async_depth, x._exec_async_depth))
+
+    for unpack in (False, True):
+        a, na, da = run(1, unpack)
+        b, nb, db = run(4, unpack)
+        assert na == nb == 8 and da == (0, 0) and db == (4, 4)
+        assert a.shape == (4, 8, 16, 2, 16, 2)
+        assert _bits_equal(torch.view_as_real(a), torch.view_as_real(b))
 
 
 @pytest.mark.gpu

@@ -284,20 +284,25 @@ def test_pfb_block_latches_method():
     config.reset("pfb_method")
 
 
-@pytest.mark.parametrize("ntap", [1, 2, 4, 8, 9])
+@pytest.mark.parametrize("ntap", [1, 2, 4, 8, 9, 16, 17])
 @pytest.mark.parametrize("int8", [True, False])
 def test_fir_vectors_route(int8, ntap):
     """K2's route decision: the vector kernel where a thread's V lanes
-    (LANES_INT8 or LANES_F32) tile every row (a lane count that is a
-    multiple of V) and x, out and state start 16-byte aligned, for ntap
-    within the instantiated range; the scalar kernel otherwise.  decim
-    and the coefficient columns do not enter it."""
+    (LANES_INT8 or LANES_F32 up to SHORT_TAP taps, LANES_LONG for int8
+    above) tile every row (a lane count that is a multiple of V) and x,
+    out and state start 16-byte aligned, for ntap within the
+    instantiated range (1 to 16 for int8 x, 1 to 8 for f32); the scalar
+    kernel otherwise.  decim and the coefficient columns do not enter
+    it."""
     from bifrost_tpu_torch.ops.fir_kernel import (LANES_F32, LANES_INT8,
-                                                  MAX_TAP, fir_vectors)
-    v = LANES_INT8 if int8 else LANES_F32
+                                                  LANES_LONG, MAX_TAP,
+                                                  SHORT_TAP, fir_vectors)
+    assert (SHORT_TAP, MAX_TAP) == (8, 16)
+    v = LANES_LONG if ntap > SHORT_TAP else \
+        LANES_INT8 if int8 else LANES_F32
     dt = torch.int8 if int8 else torch.float32
     lanes = 4 * v
-    tap_ok = 1 <= ntap <= MAX_TAP
+    tap_ok = 1 <= ntap <= (MAX_TAP if int8 else SHORT_TAP)
 
     def x_at(offset, lanes=lanes, rows=8):
         return torch.zeros(rows * lanes + offset, dtype=dt)[offset:] \
@@ -312,7 +317,7 @@ def test_fir_vectors_route(int8, ntap):
     assert not fir_vectors(x_at(0), st, torch.zeros(8 * lanes + 1)[1:]
                            .view(8, lanes), ntap)
     st_off = torch.zeros((ntap - 1) * lanes + 1)[1:].view(ntap - 1, lanes)
-    assert fir_vectors(x_at(0), st_off, out, ntap) == (ntap == 1)
+    assert fir_vectors(x_at(0), st_off, out, ntap) == (ntap == 1 and tap_ok)
     # lane counts that are not a multiple of V, odd ones, and a base one
     # row into a buffer of an odd lane count
     for n in (v + 2, 2 * v - 1, 63):
