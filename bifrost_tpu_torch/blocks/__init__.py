@@ -11,6 +11,7 @@ from .fft import fft, FftBlock
 from .fftshift import fftshift, FftShiftBlock
 from .fir import fir, FirBlock
 from .flag import rfi_flag, RfiFlagBlock
+from .map import map_block, MapBlock
 from .guppi_raw import (read_guppi_raw, GuppiRawSourceBlock,
                         write_guppi_raw, GuppiRawSinkBlock)
 from .pfb import pfb, PfbBlock
@@ -36,7 +37,7 @@ __all__ = ["accumulate", "AccumulateBlock", "beamform", "BeamformBlock",
            "fftshift", "FftShiftBlock", "fir", "FirBlock", "rfi_flag",
            "RfiFlagBlock",
            "read_guppi_raw", "GuppiRawSourceBlock", "write_guppi_raw",
-           "GuppiRawSinkBlock", "pfb", "PfbBlock", "reduce", "ReduceBlock",
+           "GuppiRawSinkBlock", "map_block", "MapBlock", "pfb", "PfbBlock", "reduce", "ReduceBlock",
            "reverse", "ReverseBlock", "romein", "GridderBlock", "scrunch",
            "ScrunchBlock", "read_sigproc", "SigprocSourceBlock",
            "write_sigproc", "SigprocSinkBlock", "array_source",

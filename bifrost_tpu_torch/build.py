@@ -15,6 +15,16 @@ The host libraries (`HOST_LIBS`: the UDP data plane, ``csrc/*.cpp`` and
 C++ compiler (``c++``) the same way, hash-named, at first use, through a
 temporary file renamed into place, so processes building at once do not
 collide.
+
+Generated sources (bf.map's kernel M1, ops/map_codegen.py): `load_generated`
+compiles one ``.cu`` that includes ``csrc/map_common.cuh`` with
+``--fmad=false`` (no multiply and add contracted: the plain engine rounds
+each operator on its own) into ``build/map/lib<sha256>.so``, named by the
+source, the flags and the header, through a temporary file and a rename.
+It has its own lock, so a map build never holds `_lock` against the
+fixed kernels, and an in-process LRU of `GENERATED_CAPACITY` loaded
+libraries.  `load_generated_host` builds the same source with the host
+C++ compiler (its ``map_host`` entry), for the CPU tests.
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ import shutil
 import subprocess
 import threading
 import time
+from collections import OrderedDict
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -41,9 +52,21 @@ HOST_LIBS = {"udp": ("socket.cpp", "udp_capture.cpp", "udp_transmit.cpp")}
 HOST_HEADERS = ("udp_host.h",)
 HOST_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
+MAP_BUILD_DIR = BUILD_DIR / "map"
+MAP_HEADER = "map_common.cuh"
+MAP_NVCC_FLAGS = NVCC_FLAGS + ("--fmad=false", "-I", str(CSRC))
+MAP_HOST_FLAGS = HOST_FLAGS + ("-ffp-contract=off", "-I", str(CSRC))
+GENERATED_CAPACITY = 64
+
 _lock = threading.Lock()
 _libs = {}
 build_log = {}    # name -> {"seconds", "ptxas"} of builds in this process
+_gen_lock = threading.Lock()
+_gen_libs = OrderedDict()   # (kind, target path) -> ctypes library
+# One entry per generated library loaded in this process: {"name",
+# "seconds" (0.0 where the built library was on disk), "nvcc" (whether a
+# compiler ran), "ptxas" (its -v output, "" when none ran)}.
+generated_log = []
 
 
 def nvcc_path():
@@ -146,3 +169,78 @@ def load_host(name):
             os.replace(tmp, target)
         lib = _libs[name] = ctypes.CDLL(str(target))
         return lib
+
+
+def _generated_target(name, source, flags, suffix):
+    h = hashlib.sha256(source.encode())
+    h.update(" ".join(flags).encode())
+    h.update((CSRC / MAP_HEADER).read_bytes())
+    return MAP_BUILD_DIR / f"lib{h.hexdigest()[:24]}{suffix}.so"
+
+
+def _load_generated(kind, name, source, compiler, flags, suffix):
+    target = _generated_target(name, source, flags, suffix)
+    key = (kind, str(target))
+    with _gen_lock:
+        lib = _gen_libs.get(key)
+        if lib is not None:
+            _gen_libs.move_to_end(key)
+            return lib
+        entry = {"name": name, "kind": kind, "seconds": 0.0,
+                 "nvcc": False, "ptxas": ""}
+        if not target.exists():
+            MAP_BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tag = f"{os.getpid()}.{threading.get_ident()}"
+            src = target.with_suffix(f".{tag}.cu")
+            tmp = target.with_suffix(f".{tag}.tmp")
+            src.write_text(source)
+            t0 = time.perf_counter()
+            try:
+                res = subprocess.run([compiler, *flags, "-o", str(tmp),
+                                      str(src)], capture_output=True,
+                                     text=True)
+            finally:
+                src.unlink(missing_ok=True)
+            if res.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(
+                    f"{os.path.basename(compiler)} failed for the generated "
+                    f"map kernel {name} (exit {res.returncode}):\n"
+                    f"{res.stdout}{res.stderr}\n--- source ---\n{source}")
+            os.replace(tmp, target)
+            entry.update(seconds=time.perf_counter() - t0, nvcc=True,
+                         ptxas=res.stdout + res.stderr)
+        lib = ctypes.CDLL(str(target))
+        generated_log.append(entry)
+        _gen_libs[key] = lib
+        while len(_gen_libs) > GENERATED_CAPACITY:
+            _gen_libs.popitem(last=False)
+        return lib
+
+
+def load_generated(name, source):
+    """The ctypes library of a generated CUDA source (bf.map's M1): built
+    with nvcc for sm_90a and ``--fmad=false`` at first use, or loaded from
+    ``build/map/`` where a process built it before.  A failed build
+    raises with nvcc's output."""
+    return _load_generated("cuda", name, source, nvcc_path(),
+                           MAP_NVCC_FLAGS + ("-x", "cu"), "")
+
+
+def load_generated_host(name, source):
+    """The same generated source built with the host C++ compiler (its
+    ``map_host`` entry runs the kernel's body over every element on the
+    CPU), for the tests that have no card."""
+    cxx = shutil.which("c++")
+    if cxx is None:
+        raise RuntimeError("no host C++ compiler (c++) found: the generated "
+                           "map bodies are checked on the host with it")
+    return _load_generated("host", name, source, cxx,
+                           MAP_HOST_FLAGS + ("-x", "c++"), "-host")
+
+
+def clear_generated():
+    """Forget the loaded generated libraries (the next load reads the
+    built library from disk, or builds it)."""
+    with _gen_lock:
+        _gen_libs.clear()

@@ -119,6 +119,24 @@ FLAGS = {f.name: f for f in [
          "'plain' (the plain version on any device).  The port's kernel "
          "selector only: the JAX engine is jnp, with no such flag.  "
          "Latched per sequence by CorrelateBlock(engine='int8')."),
+    Flag("map_method", "auto",
+         "Default bf.map engine (ops/map.py): 'auto'/'cuda' (kernel M1, "
+         "one CUDA kernel generated per expression and built by nvcc, "
+         "for a CUDA tensor; the plain PyTorch engine for a CPU tensor) "
+         "or 'plain' (the plain engine on any device).  Three forms the "
+         "generator refuses by design (extra_code, the eager "
+         "explicit-index and scatter forms, forward or unbounded "
+         "streams): 'auto' resolves them to 'plain', 'cuda' raises.  "
+         "What the kernel does not implement yet raises for a CUDA "
+         "tensor under 'auto' and 'cuda' alike (map_codegen.Unsupported: "
+         "half types; sub-byte real storage and packed complex types "
+         "other than ci4; complex transcendentals other than exp and "
+         "abs, complex pow; shifts and 'not'; chained comparisons; ** of "
+         "two run-time scalars; statements that do not depend on an "
+         "array; constant arrays; eager statements of different shapes; "
+         "ranks above 8); 'plain' runs those.  The JAX package's 'jnp' "
+         "and 'pallas' are refused with the name of their counterpart.  "
+         "Latched per sequence by MapBlock."),
     Flag("fft_method", "auto",
          "Default FFT engine: 'auto'/'torch' (torch.fft: cuFFT on the "
          "card).  The JAX package's 'xla' and MXU 'matmul*' engines are "

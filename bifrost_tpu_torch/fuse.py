@@ -16,7 +16,8 @@ Rules, as the JAX planner's
     A maximal run of fuse-scoped (``block_scope(fuse=True)``) device
     transforms with one reader each (transpose, fft, detect, reduce,
     fftshift, reverse, scrunch: any block with a ``device_kernel()``
-    hook) becomes a :class:`FusedChainBlock`.  An H2D ``CopyBlock`` may
+    hook; an elementwise or local ``MapBlock`` too) becomes a
+    :class:`FusedChainBlock`.  An H2D ``CopyBlock`` may
     start the run (the host gulp is copied to the card in the group) and
     an ``AccumulateBlock`` may end it, its integration carried by the
     group.  Gated on the ``pipeline_fuse`` config flag (default on; off
@@ -28,9 +29,11 @@ Rules, as the JAX planner's
     fused-carry protocol, ``device_kernel_carry() -> step(x, carry,
     consts) -> (y, carry')`` with ``fused_carry_init()`` and
     ``fused_carry_consts()``: the PFB's (ntap-1)-spectrum tail, the
-    flagger's baseline, the calibrator (a trivial carry) and the FDMT's
-    dispersion tail.  The FDMT trades its ring overlap for a carry of
-    its last max_delay input frames that starts at zeros; the group
+    flagger's baseline, the calibrator (a trivial carry), the FDMT's
+    dispersion tail and a stencil map's ``noffset``-frame input history
+    (a forward or unbounded map is refused, ``map_unbounded_index``).
+    The FDMT trades its ring overlap for a carry of its last max_delay
+    input frames that starts at zeros; the group
     drops its first ``fused_carry_warmup_nframe`` output frames per
     sequence, the frames the unfused overlap never emits, and does not
     compute a gulp whose whole output is warm-up (it advances the carry

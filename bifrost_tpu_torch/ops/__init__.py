@@ -9,6 +9,7 @@ from .fftshift import fftshift
 from .fir import Fir
 from .flag import Flag, flag
 from .linalg import LinAlg
+from .map import Map, map  # noqa: A004 — the reference's bf.map
 from .pfb import Pfb, pfb, pfb_coeffs
 from .quantize import Quantize, quantize, quantize_to
 from .reduce import REDUCE_OPS, reduce, reduce_to
@@ -20,7 +21,7 @@ from . import stats
 __all__ = ["Beamform", "GainCal", "calibrate", "decode_gains",
            "encode_gains", "fold_gains", "gain_outer", "Fdmt",
            "plan_from_reference", "Fft", "fftshift", "Fir", "Flag", "flag",
-           "Pfb", "pfb", "pfb_coeffs", "REDUCE_OPS", "reduce", "reduce_to",
+           "Map", "map", "Pfb", "pfb", "pfb_coeffs", "REDUCE_OPS", "reduce", "reduce_to",
            "Romein", "separate_kernels",
            "transpose", "stats", "LinAlg", "Quantize", "quantize",
            "quantize_to", "Unpack", "unpack"]

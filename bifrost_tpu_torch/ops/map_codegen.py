@@ -1,0 +1,917 @@
+"""bf.map's code generator: one CUDA C++ kernel (M1) per user expression.
+
+The JAX package translates a map program into one jnp closure and XLA
+compiles it into one device program (bifrost_tpu/ops/map.py:421-511);
+the reference it follows compiled one CUDA kernel per expression
+through NVRTC (src/map.cpp).  Here `generate` walks the Python AST of
+the TRANSLATED statements, ``ast.parse`` on what ``_translate_expr``
+and ``_rewrite_indexing`` produced (ops/map.py), and emits one kernel
+over ``csrc/map_common.cuh``: a thread owns output elements through a
+grid-stride loop and computes every statement for them in registers.
+It never re-parses the C, so the kernel inherits exactly the parse the
+plain engine evaluates, quirks included (``&&`` becomes ``&``, which
+binds tighter than ``<`` in Python: ROADMAP Queue C).
+
+Types.  Each node's type is what the plain engine's own operator gives
+on representative values: the namespace function or Python operator is
+applied to one-element tensors of the operands' dtypes (0-d tensors for
+0-d values) and to Python scalars for weakly typed operands, so the
+promotion rules are PyTorch's, which for these operators are JAX's:
+``2.0*x`` on f32 stays f32, ``x*2`` on int8 stays int8 and wraps, ``/``
+is true division (int -> f32), ``%`` and ``//`` floor, ``**`` is pow.
+Subtrees of literals alone are evaluated with the plain namespace at
+generation time and embedded exactly (a hex literal of the value the
+plain engine computes on the CPU).  Scalars bound by name are run-time
+parameters of the kernel (a new value needs no new build); sizes
+``n<axis>`` are run-time too.
+
+Forms (`Map.fuse_form` and the eager call):
+
+- ``elementwise``: one streaming input, no indexing;
+- ``local``: explicit indexing, every time index the time axis itself;
+  index expressions are computed per element with jnp's gather
+  semantics (a negative index wraps once, then it is clamped);
+  temporaries indexed at other coordinates are recomputed there (each
+  statement is a function of the coordinates);
+- ``stencil``: bounded negative time offsets, read from the
+  ``noffset``-frame carry for ``t < k`` and from the gulp otherwise (two
+  pointers, no concatenated copy); the same launch writes the next carry,
+  the last ``noffset`` frames of ``[carry; gulp]``;
+- ``eager``: the eager ``map()``'s broadcasting form, each input read
+  through its own strides (0 on a broadcast axis).
+
+Refused by design, with the reason `Refusal` carries (the only forms
+'auto' runs on the plain engine): ``extra_code`` (Python helpers have no
+CUDA form), the eager explicit-index and scatter forms, and the
+``forward`` and ``unbounded`` streaming forms.
+
+Not implemented yet, `Unsupported` with its reason (raised for a CUDA
+tensor whatever the method: ROADMAP Queue A lists them): half-precision
+types and packed complex types other than ci4;
+complex transcendentals other than exp and abs, complex ``**``/pow;
+``not``; chained comparisons; ``**`` and shifts of two run-time
+scalars; statements whose value does not depend on an array; constant
+arrays; eager statements of differing shapes; ranks above `MAX_RANK`.
+Where the plain engine itself raises on the program's types (complex
+``%``, ``<``, min/max, rounding; an index that is not an integer), the
+generator raises the same way.
+"""
+
+from __future__ import annotations
+
+import ast
+import hashlib
+import warnings
+
+import torch
+
+MAX_RANK = 8
+
+C_TYPES = {
+    torch.bool: "bool", torch.int8: "int8_t", torch.uint8: "uint8_t",
+    torch.int16: "int16_t", torch.int32: "int32_t", torch.int64: "int64_t",
+    torch.float32: "float", torch.float64: "double",
+    torch.complex64: "cx<float>", torch.complex128: "cx<double>",
+}
+PY_C = {bool: "bool", int: "long long", float: "double",
+        complex: "cx<double>"}
+_COMPLEX_PART = {torch.complex64: "float", torch.complex128: "double"}
+
+# Storage forms of an input: 'real' and 'complex' tensors of the logical
+# dtype, 'pair' complex-integer storage (integer component type with a
+# trailing (re, im) axis), 'ci4' packed bytes, one sample a byte, and
+# 'packed' real storage, 8 // nbit samples a byte along the last axis.
+STORAGES = ("real", "complex", "pair", "ci4", "packed")
+
+_UNARY_MATH = {"exp": "std::exp", "log": "std::log", "log2": "std::log2",
+               "log10": "std::log10", "sin": "std::sin", "cos": "std::cos",
+               "tan": "std::tan", "asin": "std::asin", "acos": "std::acos",
+               "atan": "std::atan", "sinh": "std::sinh",
+               "cosh": "std::cosh", "tanh": "std::tanh",
+               "sqrt": "std::sqrt", "rsqrt": "mrsqrt", "erf": "std::erf",
+               "erfc": "std::erfc"}
+_ROUNDING = {"floor": "mfloor", "ceil": "mceil", "round": "mrint",
+             "rint": "mrint"}
+_BINOPS = {ast.Add: ("+", "op_add"), ast.Sub: ("-", "op_sub"),
+           ast.Mult: ("*", "op_mul"), ast.Div: ("/", "op_div"),
+           ast.FloorDiv: ("//", "op_floordiv"), ast.Mod: ("%", "op_mod"),
+           ast.Pow: ("**", "op_pow"), ast.BitAnd: ("&", "op_and"),
+           ast.BitOr: ("|", "op_or"), ast.BitXor: ("^", "op_xor"),
+           ast.LShift: ("<<", "op_shl"), ast.RShift: (">>", "op_shr")}
+_CMPOPS = {ast.Lt: "<", ast.LtE: "<=", ast.Gt: ">", ast.GtE: ">=",
+           ast.Eq: "==", ast.NotEq: "!="}
+_PYOPS = {ast.Add: lambda a, b: a + b, ast.Sub: lambda a, b: a - b,
+          ast.Mult: lambda a, b: a * b, ast.Div: lambda a, b: a / b,
+          ast.FloorDiv: lambda a, b: a // b, ast.Mod: lambda a, b: a % b,
+          ast.Pow: lambda a, b: a ** b, ast.BitAnd: lambda a, b: a & b,
+          ast.BitOr: lambda a, b: a | b, ast.BitXor: lambda a, b: a ^ b,
+          ast.LShift: lambda a, b: a << b, ast.RShift: lambda a, b: a >> b,
+          ast.Lt: lambda a, b: a < b, ast.LtE: lambda a, b: a <= b,
+          ast.Gt: lambda a, b: a > b, ast.GtE: lambda a, b: a >= b,
+          ast.Eq: lambda a, b: a == b, ast.NotEq: lambda a, b: a != b}
+# torch's float pow special-cases these scalar exponents (x*x for 2, ...).
+_POW_SPECIAL = {2.0: "({a} * {a})", 3.0: "({a} * {a} * {a})",
+                0.5: "std::sqrt({a})", -0.5: "mrsqrt({a})",
+                -1.0: "(({t})1 / {a})", -2.0: "(({t})1 / ({a} * {a}))"}
+
+
+class Refusal(Exception):
+    """A form the generator refuses by design (extra_code, the eager
+    explicit-index and scatter forms, forward and unbounded streams):
+    'auto' runs it on the plain engine.  `reason` says why."""
+
+    @property
+    def reason(self):
+        return self.args[0]
+
+
+class Unsupported(NotImplementedError):
+    """What the kernel does not implement yet: raised for a CUDA tensor
+    under either method (never a silent fall back to the plain engine).
+    `reason` says what."""
+
+    @property
+    def reason(self):
+        return self.args[0]
+
+
+class Input(object):
+    """One array the kernel reads: its name, storage form (`STORAGES`),
+    logical torch dtype, logical rank, for a complex-integer storage its
+    integer component type, and for a packed real storage its bits a
+    sample."""
+
+    def __init__(self, name, storage, dtype, rank, int_dtype=None,
+                 nbit=None):
+        if storage not in STORAGES:
+            raise ValueError(f"unknown storage form {storage!r}")
+        self.name = name
+        self.storage = storage
+        self.dtype = dtype
+        self.rank = int(rank)
+        self.int_dtype = int_dtype
+        self.nbit = nbit
+
+    @property
+    def per_byte(self):
+        """Samples a storage byte along the last axis (packed: 8 // nbit)."""
+        return 8 // self.nbit if self.storage == "packed" else 1
+
+
+def input_for(name, dtype_str, rank):
+    """The `Input` of a stream of DataType string `dtype_str` read in its
+    ring storage form, logical rank `rank` -> Input; raises Unsupported."""
+    from ..DataType import DataType
+    dt = DataType(dtype_str)
+    if dt.is_complex and dt.is_integer:
+        lt = torch.complex64 if dt.nbit <= 16 else torch.complex128
+        if dt.nbit == 4:
+            return Input(name, "ci4", lt, rank)
+        if dt.nbit < 8:
+            raise Unsupported(f"{dt}: packed complex types other than ci4 have "
+                          f"no generated form")
+        return Input(name, "pair", lt, rank, dt.as_torch_dtype())
+    if dt.nbit < 8:
+        return Input(name, "packed", torch.int8 if dt.is_signed
+                     else torch.uint8, rank, nbit=dt.nbit)
+    return input_for_tensor(name, dt.as_torch_dtype(), rank)
+
+
+def input_for_tensor(name, dtype, rank):
+    """The `Input` of a logical tensor of torch `dtype`."""
+    if dtype not in C_TYPES:
+        raise Unsupported(f"{dtype}: no generated form for this type")
+    return Input(name, "complex" if dtype.is_complex else "real", dtype,
+                 rank)
+
+
+# ------------------------------------------------------------ the values
+class _Val(object):
+    """A node's C expression `code`, its representative `rep` (a Python
+    scalar for a weakly typed value, else a CPU tensor: 0-d for a 0-d
+    value, one element for an array), and whether it is a literal."""
+
+    __slots__ = ("code", "rep", "const")
+
+    def __init__(self, code, rep, const=False):
+        self.code = code
+        self.rep = rep
+        self.const = const
+
+    @property
+    def is_tensor(self):
+        return isinstance(self.rep, torch.Tensor)
+
+    @property
+    def dim0(self):
+        return not self.is_tensor or self.rep.dim() == 0
+
+
+def _ctype(dtype):
+    ct = C_TYPES.get(dtype)
+    if ct is None:
+        raise Unsupported(f"{dtype}: no generated form for this type")
+    return ct
+
+
+def _float_lit(v):
+    if v != v:
+        return "NAN"
+    if v in (float("inf"), float("-inf")):
+        return "INFINITY" if v > 0 else "(-INFINITY)"
+    return v.hex()
+
+
+def literal(value):
+    """The exact C literal of a Python scalar or 0-d tensor value ->
+    (code, rep)."""
+    if isinstance(value, torch.Tensor):
+        if value.dim() != 0:
+            raise Unsupported("a constant array has no generated form")
+        ct = _ctype(value.dtype)
+        if value.dtype.is_complex:
+            z = complex(value.item())
+            part = _COMPLEX_PART[value.dtype]
+            return (f"{ct}(({part}){_float_lit(z.real)}, "
+                    f"({part}){_float_lit(z.imag)})"), value
+        if value.dtype == torch.bool:
+            return ("true" if bool(value) else "false"), value
+        if value.dtype.is_floating_point:
+            return f"(({ct}){_float_lit(float(value.item()))})", value
+        return f"(({ct}){int(value.item())}LL)", value
+    if isinstance(value, bool):
+        return ("true" if value else "false"), value
+    if isinstance(value, int):
+        if not -2 ** 63 <= value < 2 ** 63:
+            raise Unsupported(f"integer literal {value} exceeds 64 bits")
+        return f"((long long){value}LL)", value
+    if isinstance(value, float):
+        return f"((double){_float_lit(value)})", value
+    if isinstance(value, complex):
+        return (f"cx<double>({_float_lit(value.real)}, "
+                f"{_float_lit(value.imag)})"), value
+    raise Unsupported(f"constant {value!r} has no generated form")
+
+
+def _rep_of(dtype, dim0=False):
+    return torch.ones((), dtype=dtype) if dim0 else \
+        torch.ones(1, dtype=dtype)
+
+
+def _rep_like(value):
+    """A representative of a run-time weak scalar: the type, not the
+    value, matters."""
+    return {bool: True, int: 1, float: 1.0, complex: 1j}[type(value)]
+
+
+class _Func(object):
+    """The SSA lines of one generated function."""
+
+    def __init__(self, gen):
+        self.gen = gen
+        self.lines = []
+
+    def let(self, ctype, code):
+        name = f"v{self.gen.counter}"
+        self.gen.counter += 1
+        self.lines.append(f"  const {ctype} {name} = {code};")
+        return name
+
+
+# ---------------------------------------------------------- the generator
+class _Gen(object):
+    def __init__(self, statements, form, axis_names, inputs, scalars,
+                 noffset, ns, arrays, out_names):
+        self.statements = statements
+        self.form = form
+        self.axis_names = tuple(axis_names or ())
+        self.inputs = list(inputs)
+        self.scalars = dict(scalars)
+        self.noffset = int(noffset)
+        self.ns = ns
+        self.arrays = arrays
+        self.out_names = list(out_names)
+        self.counter = 0
+        self.funcs = []              # C source of the statement functions
+        self.stmt_types = []         # rep of each statement's value
+        # Meta layout (offsets into P::m), in the packing order of
+        # map_kernel.pack.
+        self.R = None
+        self.scalar_slots = {}
+        self.input_index = {inp.name: k for k, inp in enumerate(inputs)}
+        self.bare_input = False      # a whole-array read in a local form
+
+    # ------------------------------------------------------- bindings
+    def layout(self, rank):
+        self.R = rank
+        off = 2 + rank                     # n, ncarry, out shape
+        self.out_off = []
+        for _ in self.out_names:
+            self.out_off.append(off)
+            off += rank
+        self.in_off = []
+        for inp in self.inputs:
+            shape_off = off
+            stride_off = off + inp.rank
+            cs_off = stride_off + inp.rank
+            off = cs_off + 1
+            bs_off = None
+            if self.form == "eager":
+                bs_off = off
+                off += rank
+            self.in_off.append((shape_off, stride_off, cs_off, bs_off))
+        for name, v in self.scalars.items():
+            self.scalar_slots[name] = off
+            off += 2 if isinstance(v, complex) else 1
+        self.nmeta = off
+        self.nptr = len(self.inputs) + len(self.out_names) + 2
+
+    def _env(self, upto):
+        """name -> binding for statement `upto`'s rhs, in the order the
+        plain engine's namespace is built (later entries win)."""
+        env = {}
+        for name, v in self.ns.items():
+            if not callable(v):
+                env[name] = ("const", v)
+        for name, v in self.scalars.items():
+            env[name] = ("scalar", v)
+        for inp in self.inputs:
+            env[inp.name] = ("input", inp)
+        for d, ax in enumerate(self.axis_names):
+            env[ax] = ("axis", d)
+            env[f"n{ax}"] = ("size", d)
+        for k in range(upto):
+            env[self.statements[k][0]] = ("stmt", k)
+        return env
+
+    # ---------------------------------------------------------- loads
+    def load(self, f, inp, idx, bare=False):
+        """The value of input `inp` at logical index C array `idx`; a
+        `bare` (whole-array) read is at the output coordinates, through
+        the broadcast strides in the eager form."""
+        k = self.input_index[inp.name]
+        _, _, cs, bs = self.in_off[k]
+        ptr = f"p.ptr[{k}]"
+        if self.form == "stencil":
+            return self._load_stencil(f, inp, idx, k)
+        if bare and bs is not None:
+            off = " + ".join(f"c[{d}] * p.m[{bs + d}]"
+                             for d in range(self.R))
+            return f.let(C_TYPES[inp.dtype],
+                         self._ld_off(inp, ptr, f"({off})", cs))
+        if bare and inp.rank != self.R:
+            raise Unsupported(f"a whole-array read of {inp.name!r} (rank "
+                              f"{inp.rank}) into a rank-{self.R} output")
+        self.bare_input = self.bare_input or bare
+        return f.let(C_TYPES[inp.dtype], self._ld(
+            k, ptr, [f"{idx}[{d}]" for d in range(inp.rank)]))
+
+    def _ld(self, k, ptr, terms):
+        """Input `k`'s element at the logical index C expressions `terms`
+        (one an axis), through its strides."""
+        inp = self.inputs[k]
+        _, st, cs, _ = self.in_off[k]
+        if inp.storage == "packed":
+            per = inp.per_byte
+            last = terms[-1]
+            off = " + ".join(
+                [f"({t}) * p.m[{st + d}]" for d, t in enumerate(terms[:-1])]
+                + [f"(({last}) / {per}) * p.m[{st + len(terms) - 1}]"])
+            return (f"ld_packed<{C_TYPES[inp.dtype]}, {inp.nbit}>({ptr}, "
+                    f"{off}, ({last}) % {per})")
+        off = " + ".join(f"({t}) * p.m[{st + d}]"
+                         for d, t in enumerate(terms)) or "0"
+        return self._ld_off(inp, ptr, f"({off})", cs)
+
+    def _ld_off(self, inp, ptr, off, cs):
+        if inp.storage == "real":
+            return f"ld_real<{C_TYPES[inp.dtype]}>({ptr}, {off})"
+        part = _COMPLEX_PART[inp.dtype]
+        if inp.storage == "complex":
+            return f"ld_cx<{part}>({ptr}, {off})"
+        if inp.storage == "pair":
+            return (f"ld_pair<{part}, {C_TYPES[inp.int_dtype]}>({ptr}, "
+                    f"{off}, p.m[{cs}])")
+        return f"ld_ci4<{part}>({ptr}, {off})"
+
+    def _load_stencil(self, f, inp, idx, k):
+        """[carry; gulp] read through two pointers: history frame
+        ``idx[0] < NOFF`` from the contiguous carry, else the gulp's
+        frame ``idx[0] - NOFF``."""
+        so = self.in_off[k][0]
+        ct = C_TYPES[inp.dtype]
+        carry_off = f"{idx}[0]"
+        for d in range(1, inp.rank):
+            carry_off = f"({carry_off}) * p.m[{so + d}] + {idx}[{d}]"
+        carry_ld = ("ld_cx<{}>(p.ptr[CARRY_IN], {})".format(
+            _COMPLEX_PART[inp.dtype], carry_off) if inp.dtype.is_complex
+            else f"ld_real<{ct}>(p.ptr[CARRY_IN], {carry_off})")
+        gulp_ld = self._ld(k, f"p.ptr[{k}]", [f"({idx}[0] - NOFF)"] + [
+            f"{idx}[{d}]" for d in range(1, inp.rank)])
+        return f.let(ct, f"({idx}[0] < NOFF) ? {carry_ld} : {gulp_ld}")
+
+    # ------------------------------------------------------ the walk
+    def expr(self, f, node, env):
+        meth = getattr(self, "_" + type(node).__name__, None)
+        if meth is None:
+            raise Unsupported(f"{type(node).__name__} ({ast.unparse(node)!r}) "
+                          f"has no generated form")
+        return meth(f, node, env)
+
+    def _Expression(self, f, node, env):
+        return self.expr(f, node.body, env)
+
+    def _Constant(self, f, node, env):
+        code, rep = literal(node.value)
+        return _Val(code, rep, True)
+
+    def _Name(self, f, node, env):
+        b = env.get(node.id)
+        if b is None:
+            raise Unsupported(f"unbound name {node.id!r}")
+        kind, v = b
+        if kind == "const":
+            code, rep = literal(v)
+            return _Val(code, rep, True)
+        if kind == "scalar":
+            off = self.scalar_slots[node.id]
+            if isinstance(v, bool):
+                code = f"(p.m[{off}] != 0)"
+            elif isinstance(v, int):
+                code = f"p.m[{off}]"
+            elif isinstance(v, float):
+                code = f"bits_f64(p.m[{off}])"
+            elif isinstance(v, complex):
+                code = (f"cx<double>(bits_f64(p.m[{off}]), "
+                        f"bits_f64(p.m[{off + 1}]))")
+            else:
+                raise Unsupported(f"scalar {node.id!r} of type "
+                              f"{type(v).__name__} has no generated form")
+            return _Val(code, _rep_like(v))
+        if kind == "axis":
+            pad = " + NOFF" if v == 0 and self.form == "stencil" else ""
+            return _Val(f"((int32_t)(c[{v}]{pad}))", _rep_of(torch.int32))
+        if kind == "size":
+            return _Val(f"p.m[{2 + v}]", 1)
+        if kind == "input":
+            if self.form == "stencil":
+                raise Unsupported("a whole-array reference in a stencil")
+            return _Val(self.load(f, v, "c", bare=True), _rep_of(v.dtype))
+        # an earlier statement, at this element's coordinates
+        rep = self.stmt_types[v]
+        return _Val(f.let(C_TYPES[rep.dtype], f"s{v}(p, c)"), rep)
+
+    def _Subscript(self, f, node, env):
+        if not isinstance(node.value, ast.Name):
+            raise Unsupported(f"indexing {ast.unparse(node.value)!r}")
+        b = env.get(node.value.id)
+        if b is None or b[0] not in ("input", "stmt"):
+            raise TypeError(f"map: indexing {node.value.id!r}, which is not "
+                            f"an array")
+        sl = node.slice
+        idx_nodes = sl.elts if isinstance(sl, ast.Tuple) else [sl]
+        idx = [self.expr(f, n, env) for n in idx_nodes]
+        for n, v in zip(idx_nodes, idx):
+            dt = v.rep.dtype if v.is_tensor else type(v.rep)
+            if dt in (bool, torch.bool) or dt in (float, complex) or \
+                    (v.is_tensor and (dt.is_floating_point or
+                                      dt.is_complex)):
+                raise IndexError(f"map: index {ast.unparse(n)!r} is not "
+                                 f"an integer")
+        dim0 = all(v.dim0 for v in idx)
+        name = f"g{self.counter}"
+        self.counter += 1
+        if b[0] == "input":
+            inp = b[1]
+            if len(idx) != inp.rank:
+                raise IndexError(f"map: {inp.name!r} takes {inp.rank} "
+                                 f"indices, got {len(idx)}")
+            k = self.input_index[inp.name]
+            so = self.in_off[k][0]
+            dims = [f"p.m[{so + d}]" for d in range(inp.rank)]
+            if self.form == "stencil":
+                dims[0] = f"(p.m[{so}] + NOFF)"
+            f.lines.append(f"  long long {name}[{max(len(idx), 1)}] = {{" +
+                           ", ".join(f"wrapclamp((long long)({v.code}), {n})"
+                                     for v, n in zip(idx, dims)) + "};")
+            return _Val(self.load(f, inp, name), _rep_of(inp.dtype, dim0))
+        k = b[1]                         # an earlier statement
+        if len(idx) != self.R:
+            raise IndexError(f"map: {node.value.id!r} takes {self.R} "
+                             f"indices, got {len(idx)}")
+        f.lines.append(f"  long long {name}[{self.R}] = {{" + ", ".join(
+            f"wrapclamp((long long)({v.code}), p.m[{2 + d}])"
+            for d, v in enumerate(idx)) + "};")
+        rep = self.stmt_types[k]
+        return _Val(f.let(C_TYPES[rep.dtype], f"s{k}(p, {name})"),
+                    _rep_of(rep.dtype, dim0))
+
+    def _UnaryOp(self, f, node, env):
+        a = self.expr(f, node.operand, env)
+        if isinstance(node.op, ast.UAdd):
+            return a
+        pyop = {ast.USub: lambda x: -x, ast.Invert: lambda x: ~x,
+                ast.Not: None}[type(node.op)]
+        if pyop is None:
+            raise Unsupported("'not' has no generated form")
+        rep = self._apply(ast.unparse(node), pyop, a.rep)
+        if a.const:
+            return _Val(*literal(rep), True)
+        if not isinstance(rep, torch.Tensor):
+            if isinstance(node.op, ast.USub):
+                return _Val(f"(-{a.code})" if not isinstance(rep, complex)
+                            else f"op_neg<cx<double>>({a.code})", rep)
+            return _Val(f"(~{a.code})" if isinstance(rep, int) and
+                        not isinstance(rep, bool) else f"(!{a.code})", rep)
+        t = _ctype(rep.dtype)
+        fn = "op_neg" if isinstance(node.op, ast.USub) else "op_invert"
+        return _Val(f.let(t, f"{fn}<{t}>(cvt<{t}>({a.code}))"), rep)
+
+    def _BinOp(self, f, node, env):
+        if type(node.op) not in _BINOPS:
+            raise Unsupported(f"operator in {ast.unparse(node)!r} has no "
+                          f"generated form")
+        a = self.expr(f, node.left, env)
+        b = self.expr(f, node.right, env)
+        rep = self._apply(ast.unparse(node), _PYOPS[type(node.op)],
+                          a.rep, b.rep)
+        if a.const and b.const:
+            return _Val(*literal(rep), True)
+        if not isinstance(rep, torch.Tensor):
+            return _Val(self._py_binop(node.op, a, b, rep), rep)
+        t = _ctype(rep.dtype)
+        sym, fn = _BINOPS[type(node.op)]
+        if rep.dtype.is_complex and fn in ("op_floordiv", "op_mod",
+                                           "op_pow"):
+            raise Unsupported(f"complex {sym} has no generated form")
+        if fn == "op_pow":
+            base = f.let(t, f"cvt<{t}>({a.code})")
+            return _Val(f.let(t, self._pow(t, rep.dtype, base, b)), rep)
+        if fn in ("op_shl", "op_shr") and rep.dtype == torch.bool:
+            raise Unsupported(f"a shift of bools ({ast.unparse(node)!r})")
+        return _Val(f.let(t, f"{fn}<{t}>(cvt<{t}>({a.code}), "
+                             f"cvt<{t}>({b.code}))"), rep)
+
+    @staticmethod
+    def _pow(t, dtype, base, b):
+        """``base ** b`` in type `t`, `base` already of that type: torch's
+        integer power, and its float forms for scalar exponents."""
+        if not dtype.is_floating_point:
+            if b.const and isinstance(b.rep, int):
+                return f"powi<{t}, long long>({base}, {b.code})"
+            return f"op_pow<{t}>({base}, cvt<{t}>({b.code}))"
+        if b.const and not isinstance(b.rep, (complex, torch.Tensor)) and \
+                float(b.rep) in _POW_SPECIAL:
+            return _POW_SPECIAL[float(b.rep)].format(a=base, t=t)
+        return f"op_pow<{t}>({base}, cvt<{t}>({b.code}))"
+
+    def _py_binop(self, op, a, b, rep):
+        """Python arithmetic on weakly typed (run-time scalar) operands,
+        in C on long long / double / cx<double>."""
+        sym, fn = _BINOPS[type(op)]
+        t = PY_C[type(rep)]
+        if isinstance(op, ast.Div):
+            return f"((double)({a.code}) / (double)({b.code}))"
+        if isinstance(op, ast.Pow):
+            raise Unsupported("** of two run-time scalars has no generated form")
+        if fn in ("op_shl", "op_shr"):
+            raise Unsupported("a shift of two run-time scalars (Python "
+                              "integers have no width) has no generated form")
+        if fn in ("op_floordiv", "op_mod"):
+            if t == "cx<double>":
+                raise Unsupported(f"complex {sym} has no generated form")
+            return f"{fn}<{t}>(({t})({a.code}), ({t})({b.code}))"
+        if t == "cx<double>":
+            return f"{fn}<{t}>(cvt<{t}>({a.code}), cvt<{t}>({b.code}))"
+        return f"(({t})({a.code}) {sym} ({t})({b.code}))"
+
+    def _Compare(self, f, node, env):
+        if len(node.ops) != 1:
+            raise Unsupported(f"chained comparison {ast.unparse(node)!r}")
+        op = node.ops[0]
+        a = self.expr(f, node.left, env)
+        b = self.expr(f, node.comparators[0], env)
+        rep = self._apply(ast.unparse(node), _PYOPS[type(op)], a.rep, b.rep)
+        if a.const and b.const:
+            return _Val(*literal(rep), True)
+        sym = _CMPOPS[type(op)]
+        if not isinstance(rep, torch.Tensor):
+            if isinstance(a.rep, complex) or isinstance(b.rep, complex):
+                # Python allows only == and != on complex numbers.
+                fn = "op_eq" if sym == "==" else "op_ne"
+                return _Val(f"{fn}<cx<double>>(cvt<cx<double>>({a.code}), "
+                            f"cvt<cx<double>>({b.code}))", rep)
+            return _Val(f"(({a.code}) {sym} ({b.code}))", rep)
+        dt = torch.result_type(a.rep, b.rep)
+        t = _ctype(dt)
+        ca, cb = f"cvt<{t}>({a.code})", f"cvt<{t}>({b.code})"
+        if dt.is_complex:
+            code = {"==": f"op_eq<{t}>({ca}, {cb})",
+                    "!=": f"op_ne<{t}>({ca}, {cb})"}.get(sym)
+            if code is None:
+                raise Unsupported(f"complex {sym} has no generated form")
+        else:
+            code = f"({ca} {sym} {cb})"
+        return _Val(f.let("bool", code), rep)
+
+    def _Call(self, f, node, env):
+        if not isinstance(node.func, ast.Name) or node.keywords:
+            raise Unsupported(f"call {ast.unparse(node)!r} has no generated "
+                          f"form")
+        fname = node.func.id
+        b = env.get(fname)
+        fn = self.ns.get(fname)
+        if (b is not None and b[0] != "const") or not callable(fn):
+            raise Unsupported(f"{fname!r} is not a function of the map "
+                          f"namespace")
+        args = [self.expr(f, a, env) for a in node.args]
+        rep = self._apply(ast.unparse(node), fn, *[a.rep for a in args])
+        if all(a.const for a in args):
+            return _Val(*literal(rep), True)
+        if not isinstance(rep, torch.Tensor):
+            raise Unsupported(f"{fname} of run-time scalars returned "
+                          f"{type(rep).__name__}")
+        t = _ctype(rep.dtype)
+        return _Val(f.let(t, self._call_code(fname, t, rep.dtype, args)),
+                    rep)
+
+    def _call_code(self, fname, t, dtype, args):
+        a = args[0].code if args else None
+        if fname in ("f32cast", "f64cast", "i32cast"):
+            return f"cvt<{t}>({a})"
+        if fname == "real":
+            return f"cvt<{t}>({a})"
+        if fname == "imag":
+            src = args[0].rep
+            if isinstance(src, torch.Tensor) and src.dtype.is_complex:
+                return f"({a}).im"
+            return f"cvt<{t}>(0)"
+        if fname == "conj":
+            if dtype.is_complex:
+                return f"mconj(cvt<{t}>({a}))"
+            return f"cvt<{t}>({a})"
+        if fname == "mag2":
+            src = args[0].rep
+            if isinstance(src, torch.Tensor) and src.dtype.is_complex:
+                st = C_TYPES[src.dtype]
+                return f"mmag2(cvt<{st}>({a}))"
+            return f"op_mul<{t}>(cvt<{t}>({a}), cvt<{t}>({a}))"
+        if fname == "Complex":
+            part = _COMPLEX_PART[dtype]
+            return (f"{t}(cvt<{part}>({args[0].code}), "
+                    f"cvt<{part}>({args[1].code}))")
+        if fname == "where":
+            return (f"(truth({a}) ? cvt<{t}>({args[1].code}) : "
+                    f"cvt<{t}>({args[2].code}))")
+        if fname in ("min", "max", "fmin", "fmax"):
+            fn = "mmin" if fname in ("min", "fmin") else "mmax"
+            if dtype.is_complex:
+                raise Unsupported(f"complex {fname} has no generated form")
+            return (f"{fn}<{t}>(cvt<{t}>({a}), "
+                    f"cvt<{t}>({args[1].code}))")
+        if fname == "pow":
+            if dtype.is_complex:
+                raise Unsupported("complex pow has no generated form")
+            return self._pow(t, dtype, f"cvt<{t}>({a})", args[1])
+        if fname == "atan2":
+            return (f"std::atan2(cvt<{t}>({a}), "
+                    f"cvt<{t}>({args[1].code}))")
+        if fname in ("abs", "fabs"):
+            src = args[0].rep
+            if isinstance(src, torch.Tensor) and src.dtype.is_complex:
+                return f"mabs(cvt<{C_TYPES[src.dtype]}>({a}))"
+            if dtype == torch.bool:
+                raise Unsupported("abs of a bool has no generated form")
+            return f"mabs<{t}>(cvt<{t}>({a}))"
+        if fname in _ROUNDING:
+            if dtype.is_complex:
+                raise Unsupported(f"complex {fname} has no generated form")
+            return f"{_ROUNDING[fname]}<{t}>(cvt<{t}>({a}))"
+        if fname in _UNARY_MATH:
+            if dtype.is_complex:
+                if fname == "exp":
+                    return f"mexp(cvt<{t}>({a}))"
+                raise Unsupported(f"complex {fname} has no generated form")
+            if not dtype.is_floating_point:
+                raise Unsupported(f"{fname} to {dtype} has no generated form")
+            return f"{_UNARY_MATH[fname]}(cvt<{t}>({a}))"
+        raise Unsupported(f"{fname!r} has no generated form")
+
+    def _apply(self, what, fn, *reps):
+        """The plain engine's operator on representatives -> the node's
+        representative (its type).  Where the engine raises on these
+        types, so does the generator; an integer division by a
+        representative that happens to be 0 is retried on ones (the
+        type does not depend on the value)."""
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            try:
+                out = fn(*reps)
+            except (ZeroDivisionError, RuntimeError) as exc:
+                if "ZeroDivision" not in f"{type(exc).__name__}{exc}":
+                    raise
+                out = fn(*[torch.ones_like(r) if isinstance(r, torch.Tensor)
+                           else type(r)(1) for r in reps])
+        if isinstance(out, torch.Tensor):
+            if out.dtype not in C_TYPES:
+                raise Unsupported(f"{what}: {out.dtype} has no generated form")
+            if out.dim() > 1:
+                out = out.reshape(-1)[:1]
+        elif type(out) not in PY_C:
+            raise Unsupported(f"{what}: value of type {type(out).__name__}")
+        return out
+
+    # --------------------------------------------------- statements
+    def statement(self, k, tree):
+        f = _Func(self)
+        env = self._env(k)
+        v = self.expr(f, tree, env)
+        if not v.is_tensor or v.rep.dim() == 0:
+            raise Unsupported(f"statement {self.statements[k][0]!r} does not "
+                          f"depend on an array")
+        t = _ctype(v.rep.dtype)
+        body = "\n".join(f.lines)
+        self.funcs.append(
+            f"MAP_HD {t} s{k}(const P& p, const long long* c) {{\n"
+            f"{body}\n  return cvt<{t}>({v.code});\n}}\n")
+        self.stmt_types.append(v.rep)
+        return v.rep
+
+
+def _trees(statements, arrays, reserved):
+    from .map import _rewrite_indexing
+    out = []
+    for _lhs, _idx, rhs in statements:
+        expr = _rewrite_indexing(rhs, arrays, reserved)
+        out.append(ast.parse(expr, mode="eval"))
+    return out
+
+
+def generate(statements, form, inputs, ns, arrays, out_names,
+             axis_names=None, scalars=None, noffset=0, extra_code=None,
+             out_rank=None):
+    """Translated `statements` (ops/map.py `_CompiledMap.statements`) ->
+    a `Program`; raises `Refusal` for a form refused by design and
+    `Unsupported` for what the kernel does not implement.
+
+    form: 'elementwise', 'local', 'stencil' or 'eager'; inputs: the
+    `Input`s the kernel reads (the streaming input first); ns: the plain
+    engine's namespace (its functions give every node's type); arrays:
+    the names `_rewrite_indexing` rewrites; out_names: the statements
+    written out (the last one for a stream, every one for the eager
+    call); scalars: name -> value of the run-time scalars; out_rank: the
+    output rank."""
+    if extra_code:
+        raise Refusal("extra_code: Python helpers have no CUDA form")
+    if form in ("forward", "unbounded"):
+        raise Refusal(f"the {form} streaming form: its frames are not "
+                      f"gulp-resident")
+    if form not in ("elementwise", "local", "stencil", "eager"):
+        raise ValueError(f"unknown map form {form!r}")
+    explicit = any(s[1] is not None for s in statements)
+    if form == "eager" and explicit:
+        raise Refusal("the eager explicit-index and scatter forms run on "
+                      "the plain engine")
+    rank = int(out_rank)
+    if not 1 <= rank <= MAX_RANK or \
+            any(inp.rank > MAX_RANK for inp in inputs):
+        raise Unsupported(f"rank above {MAX_RANK}")
+    for inp in inputs:
+        if inp.dtype not in C_TYPES:
+            raise Unsupported(f"{inp.dtype}: no generated form for this type")
+    gen = _Gen(statements, form, axis_names, inputs, scalars or {},
+               noffset, ns, arrays, out_names)
+    gen.layout(rank)
+    reserved = frozenset(k for k, v in ns.items())
+    for k, tree in enumerate(_trees(statements, arrays, reserved)):
+        gen.statement(k, tree)
+    out_idx = [max(i for i, s in enumerate(statements) if s[0] == n)
+               for n in out_names]
+    return Program(gen, out_idx)
+
+
+class Program(object):
+    """A generated kernel: its CUDA C++ source and the layout its launch
+    packs (ops/map_kernel.py)."""
+
+    def __init__(self, gen, out_idx):
+        self.form = gen.form
+        self.inputs = gen.inputs
+        self.noffset = gen.noffset
+        self.rank = gen.R
+        self.out_names = gen.out_names
+        self.out_dtypes = [gen.stmt_types[k].dtype for k in out_idx]
+        self.scalar_names = list(gen.scalars)
+        self.scalar_types = [type(v) for v in gen.scalars.values()]
+        self.nmeta = gen.nmeta
+        self.nptr = gen.nptr
+        # A local form reading its input whole needs the output's
+        # non-frame shape to equal the input's (checked by the caller).
+        self.bare_input = gen.bare_input
+        self.source = self._source(gen, out_idx)
+        self.key = hashlib.sha256(self.source.encode()).hexdigest()[:16]
+        self.name = f"map_{self.key}"
+
+    def _source(self, gen, out_idx):
+        R = gen.R
+        nin = len(gen.inputs)
+        nout = len(gen.out_names)
+        lines = [
+            "// Generated by bifrost_tpu_torch/ops/map_codegen.py: kernel "
+            "M1 for one bf.map",
+            "// program (the port's counterpart of the jnp closure of",
+            "// bifrost_tpu/ops/map.py:421-511).  Statements:",
+        ]
+        for lhs, idx, rhs in gen.statements:
+            lhs_s = lhs + (f"({', '.join(idx)})" if idx else "")
+            lines.append(f"//   {lhs_s} = {rhs}".replace("\n", " "))
+        lines += [
+            '#include "map_common.cuh"',
+            "using namespace bfmap;",
+            f"#define NOFF {gen.noffset}LL",
+            f"#define CARRY_IN {nin + nout}",
+            f"#define CARRY_OUT {nin + nout + 1}",
+            f"struct P {{ long long m[{gen.nmeta}]; void* ptr[{gen.nptr}]; "
+            f"}};",
+        ]
+        body = "\n".join(gen.funcs)
+        stores = []
+        for j, k in enumerate(out_idx):
+            t = C_TYPES[gen.stmt_types[k].dtype]
+            off = " + ".join(f"c[{d}] * p.m[{gen.out_off[j] + d}]"
+                             for d in range(R))
+            stores.append(f"    st<{t}>(p.ptr[{nin + j}], {off}, "
+                          f"s{k}(p, c));")
+        decomp = "\n".join(
+            f"    c[{d}] = r % p.m[{2 + d}]; r /= p.m[{2 + d}];"
+            for d in reversed(range(R)))
+        carry = "    (void)0;"
+        if gen.form == "stencil":
+            inp = gen.inputs[0]
+            so = gen.in_off[0][0]
+            ct = C_TYPES[inp.dtype]
+            cdec = "\n".join(
+                f"    c[{d}] = r % p.m[{so + d}]; r /= p.m[{so + d}];"
+                for d in reversed(range(1, inp.rank)))
+            gulp_terms = ["(s - NOFF)"] + [f"c[{d}]"
+                                           for d in range(1, inp.rank)]
+            carry_ld = (f"ld_cx<{_COMPLEX_PART[inp.dtype]}>"
+                        if inp.dtype.is_complex else f"ld_real<{ct}>")
+            carry = (
+                f"    // the next carry: frame f of the last NOFF of "
+                f"[carry; gulp]\n"
+                f"    long long j = i - p.m[0];\n"
+                f"    long long chan = p.m[1] / NOFF;\n"
+                f"    long long f = j / chan, r = j % chan;\n"
+                f"    long long c[{inp.rank}];\n"
+                f"{cdec}\n"
+                f"    long long s = p.m[{so}] + f;\n"
+                f"    {ct} v = s < NOFF ? {carry_ld}(p.ptr[CARRY_IN], "
+                f"s * chan + j % chan) : "
+                f"{gen._ld(0, 'p.ptr[0]', gulp_terms)};\n"
+                f"    st<{ct}>(p.ptr[CARRY_OUT], j, v);")
+        lines += [body, f"""MAP_HD void map_item(const P& p, long long i) {{
+  if (i < p.m[0]) {{
+    long long c[{R}];
+    long long r = i;
+{decomp}
+{chr(10).join(stores)}
+  }} else {{
+{carry}
+  }}
+}}
+
+#ifdef __CUDACC__
+__global__ void __launch_bounds__(256) map_kernel(const P p) {{
+  const long long total = p.m[0] + p.m[1];
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < total; i += (long long)gridDim.x * blockDim.x) {{
+    map_item(p, i);
+  }}
+}}
+
+extern "C" int map_launch(const long long* m, void* const* ptr, int grid,
+                          int block, void* stream) {{
+  P p;
+  for (int k = 0; k < {gen.nmeta}; ++k) p.m[k] = m[k];
+  for (int k = 0; k < {gen.nptr}; ++k) p.ptr[k] = ptr[k];
+  if (p.m[0] + p.m[1] == 0) return 0;
+  map_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
+}}
+
+extern "C" const char* map_error_string(int e) {{
+  return cudaGetErrorString((cudaError_t)e);
+}}
+#else
+extern "C" int map_host(const long long* m, void* const* ptr) {{
+  P p;
+  for (int k = 0; k < {gen.nmeta}; ++k) p.m[k] = m[k];
+  for (int k = 0; k < {gen.nptr}; ++k) p.ptr[k] = ptr[k];
+  const long long total = p.m[0] + p.m[1];
+  for (long long i = 0; i < total; ++i) map_item(p, i);
+  return 0;
+}}
+#endif
+"""]
+        return "\n".join(lines)

@@ -191,11 +191,6 @@ _KIND_TIERS = {
     "custom": "compute",
 }
 
-# Kinds the registry knows but the port does not build yet.
-_NOT_PORTED = {
-    "map": "bf.map waits for ROADMAP A13",
-}
-
 
 class StageSpec(object):
     """One stage of a service chain: a registry `kind`, its constructor
@@ -1076,10 +1071,6 @@ class Service(object):
         from . import blocks as blk
         params = dict(stage.params)
         kind = stage.kind
-        if kind in _NOT_PORTED:
-            raise NotImplementedError(
-                f"stage {stage.name!r}: kind {kind!r} is not ported yet "
-                f"({_NOT_PORTED[kind]})")
         if kind == "custom":
             # Any block factory, anywhere in the chain (upstream is None
             # for a chain-starting source); claimed after the build.
@@ -1110,6 +1101,8 @@ class Service(object):
             return blk.UnpackBlock(upstream, **params)
         if kind == "calibrate":
             return blk.GainCalBlock(upstream, **params)
+        if kind == "map":
+            return blk.MapBlock(upstream, params.pop("func"), **params)
         return CandidateDetectBlock(upstream, **params)      # "detect"
 
     # -------------------------------------------------------- lifecycle

@@ -283,8 +283,31 @@ Phases, one line each; any failure exits non-zero:
              Launches go into `launches_by_path` as
              `async_<chain>_<discipline>` (the first turn's).
 
-The launch checks of every phase count all eight kernels (K1, K2, K4,
-K6a, K6b, K5a, K5b, X1).  The line before the last two holds the kernel
+17. map    — after [xengine], on [bengine]'s voltages: bf.map's kernel M1,
+             one CUDA kernel generated per expression and built by nvcc
+             (ops/map_codegen.py over csrc/map_common.cuh).  check_map
+             holds M1 against its plain version at one B_GULP gulp of
+             ci8 read raw (bitwise) and times it against its bytes bound
+             (64 MiB in, 256 MiB out).  (a) benchmarks/map_tpu.py's
+             MAP_FUNC ``y = 2.0f*x*x.conj() + 1.0f`` in its chain
+             copy('cuda') -> map_block -> detect(scalar) -> sink on
+             MAP_NGULP gulps of B_GULP frames, unfused and fused in
+             MAP_TURNS turns and with map_method 'plain'; (b) its stencil
+             ``y(t,s,p) = x(t,s,p) - x(t-1,s,p)`` (copy -> map -> sink),
+             unfused and fused (stateful_chain) at gulps of B_GULP and
+             B_GULP / MAP_SPLIT, and 'plain'; (c) MAP_FUNC on
+             MAP_CI4_NGULP gulps of [xengine]'s seeded ci4 replay, and
+             'plain'.  Each program: every run bitwise the first, the
+             method 'cuda' (the plain runs 'plain'), one M1 launch a gulp
+             fused and unfused, the raw reads counted, the first frames
+             against an exact golden; frames/s whole and steady.  Then
+             nvcc's seconds and ptxas's registers and spills of each
+             generated kernel, and a second Map on MAP_FUNC loading the
+             built library with no nvcc run.  Launches go into
+             `launches_by_path` as `map_<program>_<run>`.
+
+The launch checks of every phase count all nine kernels (K1, K2, K4,
+K6a, K6b, K5a, K5b, X1, M1).  The line before the last two holds the kernel
 records as JSON, one for each of those kernels; then the card's name and
 power limit; the last line is {"ok": true, "device": {...}}.
 """
@@ -429,6 +452,17 @@ FIR_GOLDEN_CHANS, FIR_GOLDEN_NOUT = (0, 1, 137, 511), 4096
 # (depth 1) and async (depth AS_DEPTH), in AS_TURNS turns.
 AS_NINT, AS_TURNS, AS_DEPTH = 2, 2, 4
 
+# bf.map (benchmarks/map_tpu.py's programs, kernel M1): [bengine]'s ci8
+# voltages read raw from the 'cuda' ring, MAP_NGULP gulps of B_GULP
+# frames; MAP_FUNC in copy -> map -> detect(scalar), unfused and fused in
+# MAP_TURNS turns, and 'plain'; the stencil MAP_STENCIL unfused and fused
+# at gulps of B_GULP and B_GULP // MAP_SPLIT, and 'plain'; MAP_FUNC on
+# MAP_CI4_NGULP gulps of [xengine]'s seeded ci4 replay.
+MAP_FUNC = "y = 2.0f*x*x.conj() + 1.0f"
+MAP_STENCIL = "y(t,s,p) = x(t,s,p) - x(t-1,s,p)"
+MAP_AXES = ("t", "s", "p")
+MAP_NGULP, MAP_TURNS, MAP_SPLIT, MAP_CI4_NGULP = 8, 2, 4, 8
+
 # Device-memory rate by card (NVIDIA data sheets), bytes/s
 _HBM_RATE = (("H200", 4.8e12), ("H100 PCIe", 2.0e12), ("H100", 3.35e12))
 F32_PEAK = 67e12   # H100 SXM f32 outside the tensor cores, operations/s
@@ -565,7 +599,8 @@ class Stamped(list):
 def kernel_counters():
     from bifrost_tpu_torch.ops import (beamform_kernel, dq_kernel,
                                        fdmt_kernel, fir_kernel,
-                                       romein_kernel, xengine_kernel)
+                                       map_kernel, romein_kernel,
+                                       xengine_kernel)
     return {"fdmt_merge_step": fdmt_kernel.merge_step,
             "fir_mac": fir_kernel.fir_mac,
             "beamform_power": beamform_kernel.beamform_power,
@@ -573,7 +608,8 @@ def kernel_counters():
             "romein_grid_separable": romein_kernel.grid_separable,
             "dq_masked_fill": dq_kernel.masked_fill,
             "dq_gain_apply": dq_kernel.gain_apply,
-            "xengine_int8": xengine_kernel.xengine_int8}
+            "xengine_int8": xengine_kernel.xengine_int8,
+            "map_apply": map_kernel.map_apply}
 
 
 def expected(**nonzero):
@@ -3215,6 +3251,13 @@ def xe_golden(frames, chans):
     return out
 
 
+def xe_frames():
+    """[xengine]'s seeded ci4 frames (also [async]'s and [map]'s)."""
+    rng = np.random.default_rng(SEED + 12)
+    return rng.integers(0, 256, (XE_DISTINCT, XE_NCHAN, XE_NSTAND,
+                                 XE_NPOL), dtype=np.uint8)
+
+
 def xengine_path(dev, kind, volt):
     """The int8 X-engine paths (module docstring, phase 14).  `volt`:
     [bengine]'s voltages.  -> launch counts by path."""
@@ -3225,9 +3268,7 @@ def xengine_path(dev, kind, volt):
 
     # (a) The channelized ci4 correlator.
     t0 = time.perf_counter()
-    rng = np.random.default_rng(SEED + 12)
-    frames = rng.integers(0, 256, (XE_DISTINCT, XE_NCHAN, XE_NSTAND,
-                                   XE_NPOL), dtype=np.uint8)
+    frames = xe_frames()
     nframe = XE_DISTINCT * XE_REPLAY
     ngulp, nint = nframe // XE_GULP, nframe // XE_NINT
     phase("xengine", f"voltages: {frames.nbytes / 2**30:.2f} GiB of ci4 "
@@ -3523,15 +3564,312 @@ def fir_path(dev, kind, volt, at_fir):
     return out
 
 
+def map_program_info():
+    """nvcc's seconds and ptxas's registers, spills and stack of each
+    generated M1 library built in this process -> {name: (seconds,
+    registers, spill stores, spill loads)}."""
+    import re
+
+    from bifrost_tpu_torch import build
+    out = {}
+    for e in build.generated_log:
+        if e["kind"] != "cuda" or not e["nvcc"]:
+            continue
+        text = e["ptxas"]
+        regs = re.findall(r"Used (\d+) registers", text)
+        spill = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", text)
+        out[e["name"]] = (round(e["seconds"], 2),
+                          int(regs[0]) if regs else None,
+                          int(spill[0][0]) if spill else None,
+                          int(spill[0][1]) if spill else None)
+    return out
+
+
+def check_map(dev, kind, volt):
+    """M1 at the [map] phase's main-path shape: one gulp of B_GULP frames
+    of [bengine]'s ci8 voltages (NSTAND x NPOL) read raw through
+    MAP_FUNC, against its plain version (bitwise: the input is
+    integer-exact), the stencil and the ci4 program too; M1's ms a gulp
+    by CUDA events, the plain version's, the bytes bound (2 B in and 8 B
+    out a sample)."""
+    from bifrost_tpu_torch.ops import map_kernel
+    from bifrost_tpu_torch.ops.map import Map
+    raw = torch.from_numpy(volt[:B_GULP]).to(dev)
+    nsamp = B_GULP * NSTAND * NPOL
+    worst = 0.0
+    times = {}
+    for tag, func, axes in (("elementwise", MAP_FUNC, None),
+                            ("stencil", MAP_STENCIL, MAP_AXES)):
+        op = Map(func, axis_names=axes)
+        prog = op.program("ci8", 3)
+        carry = op.carry_init((NSTAND, NPOL), torch.complex64, dev) \
+            if op.fuse_form == "stencil" else None
+        out_shape = (B_GULP, NSTAND, NPOL)
+        got, gc = map_kernel.map_apply(prog, [raw], out_shape, [], carry)
+        want, wc = map_kernel.map_apply_plain(prog, [raw], out_shape, [],
+                                              carry)
+        torch.cuda.synchronize()
+        if not bits_equal(torch.view_as_real(got[0]),
+                          torch.view_as_real(want[0])) or \
+                (gc is not None and not bits_equal(torch.view_as_real(gc),
+                                                   torch.view_as_real(wc))):
+            raise AssertionError(f"M1 ({tag}) differs from its plain "
+                                 f"version at ({B_GULP}, {NSTAND}, {NPOL})")
+        worst = max(worst, float((got[0] - want[0]).abs().max()))
+        outs = [got[0]]
+        times[tag] = (
+            cuda_time(lambda: map_kernel.map_apply(
+                prog, [raw], out_shape, [], carry, outs), 20),
+            cuda_time(lambda: map_kernel.map_apply_plain(
+                prog, [raw], out_shape, [], carry), 5))
+        del got, want, outs
+    # Packed real storage read in the kernel (an i4 stencil, bitwise),
+    # and no silent fall back: a program M1 does not implement raises
+    # for a card tensor under 'auto'.
+    raw4 = torch.from_numpy(np.random.default_rng(SEED + 15).integers(
+        0, 256, (4096, 256), dtype=np.uint8)).to(dev)
+    op = Map("y(t,c) = x(t,c) * 3 - x(t-1, c+1)", axis_names=("t", "c"))
+    prog = op.program("i4", 2)
+    carry = op.carry_init((512,), torch.int8, dev)
+    got, gc = map_kernel.map_apply(prog, [raw4], (4096, 512), [], carry)
+    want, wc = map_kernel.map_apply_plain(prog, [raw4], (4096, 512), [],
+                                          carry)
+    if not (bits_equal(got[0], want[0]) and bits_equal(gc, wc)):
+        raise AssertionError("M1 (i4 stencil) differs from its plain "
+                             "version")
+    try:
+        Map("y = sin(x)").execute(torch.complex(raw4.float(), raw4.float()))
+    except NotImplementedError:
+        pass
+    else:
+        raise AssertionError("map: a program M1 does not implement ran on "
+                             "the card")
+    del raw4, got, want
+    nbytes = nsamp * (2 + 8)
+    # 14 f32 operations a sample: 2 x (complex x real), x x* (complex),
+    # + 1
+    bound_ms, by = bound(nbytes, 14 * nsamp, hbm_rate(kind))
+    ms, plain_ms = times["elementwise"]
+    phase("map", f"map_apply (M1) equal to plain (tolerance: bitwise, "
+          f"integer-exact ci8) on {MAP_FUNC!r} and the stencil "
+          f"{MAP_STENCIL!r} at ({B_GULP}, {NSTAND}, {NPOL}) ci8 read raw: "
+          f"{ms:.4f} ms a gulp (1 launch), plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({by}: {nsamp * 2 / 2**20:.0f} MiB in, "
+          f"{nsamp * 8 / 2**20:.0f} MiB out), {100 * bound_ms / ms:.1f} % "
+          f"of it; stencil "
+          f"{times['stencil'][0]:.4f} ms, plain {times['stencil'][1]:.4f} "
+          f"ms; library: none (no single PyTorch call computes a user "
+          f"expression); an i4 stencil read packed bitwise its plain "
+          f"version; 'auto' on a program M1 does not implement (complex "
+          f"sin) raised; {kind}")
+    return {"name": "map_apply", "route": "cuda",
+            "source": "bifrost_tpu_torch/csrc/map_common.cuh",
+            "replaces": "bifrost_tpu/ops/map.py:421",
+            "launches": None, "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+            "library_ms": None, "at_stencil_ms": times["stencil"][0]}
+
+
+def map_run(dev, source, func, axes=None, fuse=False, detect=True,
+            method=None):
+    """One map chain, `source` -> copy('cuda') -> map_block(func) (->
+    detect(scalar)) -> callback_sink on the card, in one fuse scope when
+    `fuse` (the chain of benchmarks/map_tpu.py:97-130).  -> dict of the
+    output gulps (on the card), the host clock when each was done, wall
+    seconds, launch counts, the map block's raw reads (count, bytes) and
+    plan report, and the fusion report."""
+    import contextlib
+
+    from bifrost_tpu_torch import block_scope
+    from bifrost_tpu_torch.blocks import (callback_sink, copy,
+                                          detect as detect_block, map_block)
+    from bifrost_tpu_torch.pipeline import FusedTransformBlock, Pipeline
+    outs, stamps = [], []
+
+    def keep(a):
+        outs.append(a.clone())
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    with Pipeline(device=dev) as pipe:
+        src = source()
+        with block_scope(fuse=True) if fuse else contextlib.nullcontext():
+            m = map_block(copy(src, space="cuda"), func, axis_names=axes,
+                          method=method)
+            out = detect_block(m, mode="scalar") if detect else m
+        callback_sink(out, on_data=keep)
+        reset_counts()
+        t0 = time.perf_counter()
+        pipe.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    groups = [b for b in pipe.blocks if isinstance(b, FusedTransformBlock)]
+    if bool(groups) != fuse:
+        raise AssertionError(f"map run (fuse {fuse}): groups {groups}")
+    return {"outs": outs, "stamps": stamps, "wall": wall,
+            "counts": read_counts(), "raw": (m._raw_reads,
+                                             m._raw_read_nbyte),
+            "report": m.plan_report(), "fusion": pipe.fusion_report()}
+
+
+def map_same(a, b):
+    a, b = torch.cat(a), torch.cat(b)
+    if a.is_complex():
+        a, b = torch.view_as_real(a), torch.view_as_real(b)
+    return bits_equal(a, b)
+
+
+def map_chains(tag, runs, ngulp, nframe, storage_nbyte, kind):
+    """Hold every run of one program against the first (bitwise), its M1
+    launches (one a gulp; none for 'plain') and raw reads, and print its
+    rates -> launch counts by run name."""
+    ref = runs[next(iter(runs))]
+    out = {}
+    for name, r in runs.items():
+        if not map_same(r["outs"], ref["outs"]):
+            raise AssertionError(f"map {tag}: the {name} run differs from "
+                                 f"the {next(iter(runs))} run")
+        plain = name.startswith("plain")
+        n = r["gulps"]
+        if r["counts"] != expected(map_apply=0 if plain else n):
+            raise AssertionError(f"map {tag} {name}: launches "
+                                 f"{r['counts']}")
+        if r["raw"] != (n, storage_nbyte):
+            raise AssertionError(f"map {tag} {name}: raw reads {r['raw']}")
+        want = "plain" if plain else "cuda"
+        if r["report"]["method"] != want:
+            raise AssertionError(f"map {tag} {name}: method "
+                                 f"{r['report']['method']}")
+        out[f"map_{tag}_{name}"] = r["counts"]
+    rates = {name: round(nframe / r["wall"], 1) for name, r in runs.items()}
+    steady = {name: round((len(r["stamps"]) - 1) * (nframe // r["gulps"]) /
+                          (r["stamps"][-1] - r["stamps"][0]), 1)
+              for name, r in runs.items() if len(r["stamps"]) > 1}
+    fused = next((r["fusion"] for r in runs.values()
+                  if r["fusion"]["groups"]), None)
+    phase("map", f"{tag}: {len(runs)} runs bitwise equal ({list(runs)}), "
+          f"M1 launches "
+          f"{ {k: r['counts']['map_apply'] for k, r in runs.items()} } "
+          f"(one a gulp, {ngulp} gulps of {nframe // ngulp} frames), raw "
+          f"reads {ref['raw']}; frames/s whole {rates}, steady {steady}; "
+          f"fused group "
+          f"{[(g['rule'], g['constituents']) for g in fused['groups']] if fused else None}; "
+          f"{kind}")
+    return out
+
+
+def map_path(dev, kind, volt):
+    """bf.map on the card (module docstring, phase 17).  `volt`:
+    [bengine]'s voltages.  -> launch counts by path."""
+    from bifrost_tpu_torch import build
+    from bifrost_tpu_torch.blocks import array_source
+    from bifrost_tpu_torch.ops.map import Map
+    nframe = MAP_NGULP * B_GULP
+    hdr = {"dtype": "ci8", "labels": ["time", "station", "pol"],
+           "scales": [[0.0, B_DT], None, None], "units": ["s", None, None]}
+    raw_nbyte = nframe * NSTAND * NPOL * 2
+
+    def source(gulp):
+        return lambda: array_source(volt[:nframe], gulp, header=hdr)
+    out = {}
+
+    # (a) The elementwise program, copy -> map -> detect, in turns.
+    runs = {}
+    for turn in range(MAP_TURNS):
+        for fuse in (False, True):
+            name = f"{'fused' if fuse else 'unfused'}{turn + 1}"
+            runs[name] = map_run(dev, source(B_GULP), MAP_FUNC, fuse=fuse)
+            runs[name]["gulps"] = MAP_NGULP
+    runs["plain"] = map_run(dev, source(B_GULP), MAP_FUNC, method="plain")
+    runs["plain"]["gulps"] = MAP_NGULP
+    y = torch.cat(runs["unfused1"]["outs"])
+    if y.shape != (nframe, NSTAND, NPOL) or y.dtype != torch.float32 or \
+            not bool(torch.isfinite(y).all()):
+        raise AssertionError(f"map elementwise: output {y.shape} {y.dtype}")
+    # golden on the first frames: |2 x x* + 1|^2 in f64
+    x = volt[:256].astype(np.float64)
+    g = 2 * (x[..., 0] ** 2 + x[..., 1] ** 2) + 1
+    if not np.array_equal(y[:256].cpu().numpy(), (g * g).astype(np.float32)):
+        raise AssertionError("map elementwise: differs from the exact golden")
+    del y
+    out.update(map_chains("elementwise", runs, MAP_NGULP, nframe,
+                          raw_nbyte, kind))
+    del runs
+    free_device()
+
+    # (b) The stencil, fused and unfused, at gulps of B_GULP and of
+    # B_GULP // MAP_SPLIT.
+    runs = {}
+    for gulp, tag in ((B_GULP, ""), (B_GULP // MAP_SPLIT, "_split")):
+        for fuse in (False, True):
+            name = f"{'fused' if fuse else 'unfused'}{tag}"
+            runs[name] = map_run(dev, source(gulp), MAP_STENCIL, MAP_AXES,
+                                 fuse=fuse, detect=False)
+            runs[name]["gulps"] = nframe // gulp
+            if fuse and not any(gr["rule"] == "stateful_chain" for gr in
+                                runs[name]["fusion"]["groups"]):
+                raise AssertionError(f"map stencil: {runs[name]['fusion']}")
+    runs["plain"] = map_run(dev, source(B_GULP), MAP_STENCIL, MAP_AXES,
+                            detect=False, method="plain")
+    runs["plain"]["gulps"] = MAP_NGULP
+    y = torch.cat(runs["unfused"]["outs"])[:B_GULP + 4]
+    xs = volt[:B_GULP + 4].astype(np.float32)
+    xz = xs[..., 0] + 1j * xs[..., 1]
+    d = xz - np.concatenate([np.zeros_like(xz[:1]), xz[:-1]])
+    if not np.array_equal(y.cpu().numpy(), d.astype(np.complex64)):
+        raise AssertionError("map stencil: differs from the exact golden")
+    del y
+    out.update(map_chains("stencil", runs, MAP_NGULP, nframe, raw_nbyte,
+                          kind))
+    del runs
+    free_device()
+
+    # (c) The elementwise program on [xengine]'s seeded ci4 replay.
+    frames = xe_frames()
+    ci4_nframe = MAP_CI4_NGULP * XE_GULP
+    nsp = XE_NSTAND * XE_NPOL
+    runs = {}
+    for name, method in (("unfused", None), ("plain", "plain")):
+        runs[name] = map_run(dev, lambda: xe_source(frames, ci4_nframe),
+                             MAP_FUNC, method=method)
+        runs[name]["gulps"] = MAP_CI4_NGULP
+    b = frames[:4].astype(np.int16)
+    re_, im_ = (b.astype(np.int8) >> 4).astype(np.float64), \
+        ((b << 4).astype(np.uint8).astype(np.int8) >> 4).astype(np.float64)
+    g = 2 * (re_ ** 2 + im_ ** 2) + 1
+    y = torch.cat(runs["unfused"]["outs"])[:4].cpu().numpy()
+    if not np.array_equal(y, (g * g).astype(np.float32)):
+        raise AssertionError("map ci4: differs from the exact golden")
+    out.update(map_chains("ci4", runs, MAP_CI4_NGULP, ci4_nframe,
+                          ci4_nframe * XE_NCHAN * nsp, kind))
+    del runs, frames
+    free_device()
+
+    # The generated kernels' builds, and a second Map on the same
+    # expression: its library loads from build/map/ with no nvcc run.
+    info = map_program_info()
+    build.clear_generated()
+    nlog = len(build.generated_log)
+    again = Map(MAP_FUNC)
+    again.prepare("ci8", 3, device=dev)
+    warm = build.generated_log[nlog:]
+    if len(warm) != 1 or warm[0]["nvcc"]:
+        raise AssertionError(f"map: the second Map rebuilt: {warm}")
+    phase("map", f"generated kernels (nvcc s, registers, spill stores, "
+          f"spill loads): {info}; a second Map({MAP_FUNC!r}) loaded the "
+          f"built library with no nvcc run ({warm[0]['seconds']} s); "
+          f"{kind}")
+    return out
+
+
 def async_path(dev, kind):
     """The async gulp executor (module docstring, phase 16): [xengine]'s
     replay cut to AS_NINT integrations, the raw head and the host-unpack
     chain under the three disciplines in AS_TURNS turns.  -> launch
     counts by path (the first turn's)."""
     t0 = time.perf_counter()
-    rng = np.random.default_rng(SEED + 12)      # [xengine]'s frames
-    frames = rng.integers(0, 256, (XE_DISTINCT, XE_NCHAN, XE_NSTAND,
-                                   XE_NPOL), dtype=np.uint8)
+    frames = xe_frames()
     nframe = AS_NINT * XE_NINT
     ngulp = nframe // XE_GULP
     phase("async", f"voltages: [xengine]'s {XE_DISTINCT} ci4 frames, "
@@ -4214,6 +4552,10 @@ def main():
     free_device()
     t5f = time.perf_counter()
     counts.update(xengine_path(dev, kind, volt))
+    free_device()
+    t5h = time.perf_counter()
+    recs.append(check_map(dev, kind, volt))
+    counts.update(map_path(dev, kind, volt))
     del volt, spec
     free_device()
     t5g = time.perf_counter()
@@ -4230,7 +4572,8 @@ def main():
           f"{t4 - t3:.1f} s, instrument {t5 - t4:.1f} s, dq "
           f"{t5b - t5:.1f} s, fusion {t5c - t5b:.1f} s, service "
           f"{t5d - t5c:.1f} s, capture {t5e - t5d:.1f} s, fir "
-          f"{t5f - t5e:.1f} s, xengine {t5g - t5f:.1f} s, async "
+          f"{t5f - t5e:.1f} s, xengine {t5h - t5f:.1f} s, map "
+          f"{t5g - t5h:.1f} s, async "
           f"{t6 - t5g:.1f} s, gpuspec "
           f"{t7 - t6:.1f} s, egress "
           f"{time.perf_counter() - t7:.1f} s")

@@ -1196,3 +1196,161 @@ def test_correlate_host_ring_runs_x1_on_the_card(cuda, fmt, gulp):
     assert runs[None][1:] == (32 // gulp, 0)
     assert runs["cpu"][1:] == (0, 0)
     assert np.array_equal(runs[None][0], runs["cpu"][0])
+
+
+# ------------------------------------------- bf.map's generated kernel M1
+
+def _m1_case(op, x, dtype, ocs=None, carry=None):
+    """M1 and its plain version on the same card operands -> (kernel
+    outputs, plain outputs, launches of the call)."""
+    from bifrost_tpu_torch.ops import map_kernel
+    prog = op.program(dtype if dtype is not None else x.dtype,
+                      x.dim() - (1 if dtype in ("ci8", "ci16") else 0), ocs)
+    lshape = map_kernel.logical_shape(x, prog.inputs[0])
+    out_shape = lshape if not op.explicit else \
+        (lshape[0],) + (tuple(ocs) if ocs is not None else lshape[1:])
+    scal = [op.scalars[n] for n in prog.scalar_names]
+    if op.fuse_form == "stencil" and carry is None:
+        carry = op.carry_init(lshape[1:], prog.inputs[0].dtype, x.device)
+    before = map_kernel.map_apply.launches
+    got = map_kernel.map_apply(prog, [x], out_shape, scal, carry)
+    n = map_kernel.map_apply.launches - before
+    want = map_kernel.map_apply_plain(prog, [x], out_shape, scal, carry)
+    torch.cuda.synchronize()
+    return got, want, n
+
+
+def _same_bits(a, b):
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("func,dtype,axes,ocs", [
+    # integer-exact complex input, raw ci8 pairs and packed ci4: bitwise
+    ("y = 2.0f*x*x.conj() + 1.0f", "ci8", None, None),
+    ("y = 2.0f*x*x.conj() + 1.0f", "ci4", None, None),
+    ("y = mag2(v) - v.real * 3", "ci8", None, None),
+    # packed real storage read in the kernel, integer arithmetic: bitwise
+    ("y = (x << 2) - x * 3 + (x >> 1)", "i4", None, None),
+    ("y(t,c) = (float)(x(t, nc-1-c)) * 0.5 + x(t, c)", "u2", ("t", "c"),
+     None),
+    # real f32 arithmetic (fmad off; division by a scalar divides on
+    # both sides): bitwise
+    ("y = (x*x - 0.1) / 3 + x % 1.5 - sqrt(fabs(x))", None, None, None),
+    ("y = x > 0 ? x // 0.75 : round(x * 2) - x**2", None, None, None),
+    ("y(t,c) = x(t, c-9) + x(t, nc-1-c) * 2", None, ("t", "c"), None),
+    ("y(t,c) = x(t, 2*c) - c", None, ("t", "c"), (300,)),
+])
+def test_map_kernel_bitwise_vs_plain(cuda, func, dtype, axes, ocs):
+    """M1 against its plain version on the card, bitwise: integer-exact
+    complex input (ci8 and ci4 read in the kernel), packed real storage
+    (i4, u2) and real f32 arithmetic (fmad off, true division); one
+    launch a call."""
+    from bifrost_tpu_torch.ops.map import Map
+    rng = np.random.default_rng(21)
+    if dtype == "ci8":
+        x = torch.from_numpy(rng.integers(-128, 128, (4096, 600, 2))
+                             .astype(np.int8)).to(cuda)
+    elif dtype in ("ci4", "i4", "u2"):
+        x = torch.from_numpy(rng.integers(0, 256, (4096, 600))
+                             .astype(np.uint8)).to(cuda)
+    else:
+        x = torch.from_numpy((rng.standard_normal((4096, 600)) * 4)
+                             .astype(np.float32)).to(cuda)
+    op = Map(func, axis_names=axes)
+    (got, _), (want, _), n = _m1_case(op, x, dtype, ocs)
+    assert n == 1
+    assert _same_bits(got[0], want[0]), \
+        (got[0].float() - want[0].float()).abs().max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [None, "ci8", "i4"])
+def test_map_kernel_stencil_carry_on_the_card(cuda, dtype):
+    """The stencil's two-pointer reads and its next carry, chained over
+    gulps of 1000, 2 (shorter than the carry) and 333 frames read
+    through a strided span: bitwise the plain engine's concatenation."""
+    from bifrost_tpu_torch.ops.map import Map
+    rng = np.random.default_rng(22)
+    op = Map("y(t,c) = x(t,c) - x(t-3,c) * 0.5 + x(t-1, c+1)",
+             axis_names=("t", "c"))
+    if dtype == "ci8":
+        frames = torch.from_numpy(rng.integers(-100, 100, (1335, 64, 2))
+                                  .astype(np.int8)).to(cuda)
+    elif dtype == "i4":
+        frames = torch.from_numpy(rng.integers(0, 256, (1335, 32))
+                                  .astype(np.uint8)).to(cuda)
+    else:
+        big = torch.from_numpy(rng.standard_normal((1335, 80))
+                               .astype(np.float32)).to(cuda)
+        frames = big[:, 8:72]          # a strided view, as a ring span
+    carry = None
+    for a, b in ((0, 1000), (1000, 1002), (1002, 1335)):
+        (got, gc), (want, wc), n = _m1_case(op, frames[a:b], dtype,
+                                            carry=carry)
+        assert n == 1 and _same_bits(got[0], want[0])
+        assert _same_bits(gc, wc)
+        carry = gc
+
+
+@pytest.mark.gpu
+def test_map_kernel_tolerance_tiers(cuda):
+    """Transcendentals (libdevice against PyTorch's kernels) and complex
+    products of arbitrary values (PyTorch's kernels are built with fmad
+    on): within 4 ulps of the larger magnitude."""
+    from bifrost_tpu_torch.ops.map import Map
+    rng = np.random.default_rng(23)
+    x = torch.from_numpy((rng.standard_normal((2048, 256)) * 1.5)
+                         .astype(np.float32)).to(cuda)
+    z = torch.complex(x, x.flip(0))
+    for func, arg in (("y = exp(x) + sin(x) * cos(x)", x),
+                      ("y = log(fabs(x) + 1) - tanh(x)", x),
+                      ("y = x * x.conj() * (0.3 + 0.7j) + x / (x - 2j)", z)):
+        (got, _), (want, _), n = _m1_case(Map(func), arg, None)
+        g = torch.view_as_real(got[0]) if got[0].is_complex() else got[0]
+        w = torch.view_as_real(want[0]) if want[0].is_complex() else want[0]
+        scale = torch.maximum(g.abs(), w.abs()) + 1
+        assert n == 1
+        assert float(((g - w).abs() / scale).max()) <= 4 * 2.0 ** -24 * 8
+
+
+@pytest.mark.gpu
+def test_map_kernel_eager_broadcast_and_failures(cuda):
+    """The eager call's broadcasting form on M1 (each input through its
+    own strides), bitwise the plain engine; 'cuda' on a refused form
+    raises with the reason; a program the kernel does not implement
+    raises under 'auto' on a card tensor; a generated source nvcc
+    refuses raises with nvcc's output (nothing falls back)."""
+    from bifrost_tpu_torch import build
+    from bifrost_tpu_torch.ops import map_kernel
+    from bifrost_tpu_torch.ops.map import Map, map as eager_map
+    rng = np.random.default_rng(24)
+    big = torch.from_numpy(rng.integers(-50, 50, (300, 80))
+                           .astype(np.float32)).to(cuda)
+    a = big[:, 8:72]                    # strided rows
+    b = torch.from_numpy(rng.integers(-50, 50, (64,))
+                         .astype(np.float32)).to(cuda)
+    before = map_kernel.map_apply.launches
+    got = eager_map("c = a*s - b; d = c / 7", {"a": a, "b": b, "s": 3.0})
+    assert map_kernel.map_apply.launches == before + 1
+    from bifrost_tpu_torch import config
+    config.set("map_method", "plain")
+    try:
+        want = eager_map("c = a*s - b; d = c / 7", {"a": a, "b": b,
+                                                     "s": 3.0})
+    finally:
+        config.reset("map_method")
+    for k in ("c", "d"):
+        assert _same_bits(got[k], want[k])
+    with pytest.raises(ValueError, match="forward"):
+        Map("y(t) = x(t+1)", axis_names=("t",),
+            method="cuda").execute(a[:, 0])
+    before = map_kernel.map_apply.launches
+    with pytest.raises(NotImplementedError, match="complex sin"):
+        Map("y = sin(x)").execute(torch.complex(a, a))
+    with pytest.raises(NotImplementedError, match="different shapes"):
+        eager_map("c = a + 1; d = b * 2", {"a": a, "b": b})
+    assert map_kernel.map_apply.launches == before
+    with pytest.raises(RuntimeError, match="nvcc"):
+        build.load_generated("broken", "this is not CUDA;")

@@ -57,7 +57,8 @@ def test_source_imports_no_jax(path):
     assert "libbifrost_tpu" not in path.read_text(), path
 
 
-@pytest.mark.parametrize("path", sorted((PKG / "csrc").glob("*.cu")),
+@pytest.mark.parametrize("path", sorted((PKG / "csrc").glob("*.cu")) +
+                         sorted((PKG / "csrc").glob("*.cuh")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_cuda_sources_include_nothing_of_the_reference(path):
     """A kernel source names the TPU kernel it replaces in a comment, and

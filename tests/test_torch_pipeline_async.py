@@ -340,9 +340,29 @@ def test_source_on_cuda_ring_runs_the_executor():
 # ------------------------------------------- syncs that remain
 
 class _DeviceSink(SinkBlock):
+    """A bare 'cuda'-ring sink that keeps its threads' objects: its block
+    thread and its executor worker.  Syncs are attributed to thread
+    objects, never to raw idents, which Python reuses once a thread has
+    exited (another block's thread could otherwise count as the
+    sink's)."""
+
     def __init__(self, iring, **kwargs):
         super().__init__(iring, **kwargs)
         self.ngulps = 0
+        self.thread_objs = []
+
+    def _run(self):
+        self.thread_objs.append(threading.current_thread())
+        super()._run()
+
+    def _bind_worker_thread(self):
+        self.thread_objs.append(threading.current_thread())
+        super()._bind_worker_thread()
+
+    def syncs(self, calls):
+        """Syncs made on this sink's threads."""
+        return sum(n for t, n in calls.items()
+                   if any(t is o for o in self.thread_objs))
 
     def on_sequence(self, iseq):
         pass
@@ -353,7 +373,7 @@ class _DeviceSink(SinkBlock):
 
 
 def _run_device_sink(guarantee, depth, monkeypatch):
-    """ci8 -> 'cuda' ring -> a bare sink -> (sink, {thread ident: calls
+    """ci8 -> 'cuda' ring -> a bare sink -> (sink, {thread object: calls
     of device.stream_synchronize})."""
     raw = np.zeros((32, 2, 2), dtype=[("re", "i1"), ("im", "i1")])
     raw["re"] = np.arange(128, dtype=np.int8).reshape(32, 2, 2) % 7
@@ -361,8 +381,8 @@ def _run_device_sink(guarantee, depth, monkeypatch):
     real_sync = device_mod.stream_synchronize
 
     def counting_sync(device=None):
-        i = threading.get_ident()
-        calls[i] = calls.get(i, 0) + 1
+        t = threading.current_thread()
+        calls[t] = calls.get(t, 0) + 1
         real_sync(device)
 
     monkeypatch.setattr(device_mod, "stream_synchronize", counting_sync)
@@ -383,8 +403,7 @@ def test_release_never_host_syncs(monkeypatch):
     sink, calls = _run_device_sink(True, 4, monkeypatch)
     assert sink.ngulps == 4
     assert sink._exec_async_depth == 4
-    assert sum(n for t, n in calls.items()
-               if t in sink._thread_idents) == 1, calls
+    assert sink.syncs(calls) == 1, calls
 
 
 def test_lossy_sink_still_syncs(monkeypatch):
@@ -394,8 +413,7 @@ def test_lossy_sink_still_syncs(monkeypatch):
     sink, calls = _run_device_sink(False, 4, monkeypatch)
     assert sink.ngulps >= 1
     assert sink._exec_async_depth == 0
-    assert sum(n for t, n in calls.items()
-               if t in sink._thread_idents) >= sink.ngulps + 1, calls
+    assert sink.syncs(calls) >= sink.ngulps + 1, calls
 
 
 def test_readspan_release_no_block_until_ready(monkeypatch):

@@ -330,11 +330,12 @@ def test_service_needs_a_card_or_a_device(monkeypatch):
 
 @pytest.mark.parametrize("kind", ["capture", "unpack", "map"])
 def test_unported_kinds_raise(kind):
-    """map raises NotImplementedError naming its ROADMAP item.  capture
-    and unpack are ported: a capture stage without its socket and
-    geometry raises TypeError, and one after another stage ValueError
-    (it can only start a chain), as the JAX registry does; an unpack
-    stage builds an UnpackBlock."""
+    """Every kind of the JAX registry builds here now.  A capture stage
+    without its socket and geometry raises TypeError, and one after
+    another stage ValueError (it can only start a chain), as the JAX
+    registry does; an unpack stage builds an UnpackBlock, a map stage a
+    MapBlock (bifrost_tpu/service.py:942-943), and a map stage without
+    its program raises KeyError, as there."""
     if kind == "capture":
         with pytest.raises(TypeError):
             _service(_spec([StageSpec(kind)]))
@@ -348,10 +349,13 @@ def test_unported_kinds_raise(kind):
         b = svc.blocks[kind]
         assert isinstance(b, UnpackBlock) and b.dtype == "i8"
         return
-    params = {"func": None} if kind == "map" else {}
-    stages = [_source_stage(), StageSpec(kind, params=params)]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _service(_spec(stages))
+    from bifrost_tpu_torch.blocks import MapBlock
+    svc = _service(_spec([_source_stage(),
+                          StageSpec(kind, params=dict(func="y = x*x"))]))
+    b = svc.blocks[kind]
+    assert isinstance(b, MapBlock) and b.op.fuse_form == "elementwise"
+    with pytest.raises(KeyError, match="func"):
+        _service(_spec([_source_stage(), StageSpec(kind)]))
 
 
 @pytest.mark.parametrize("flag,bad,good,default", [
