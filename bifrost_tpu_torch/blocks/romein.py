@@ -9,14 +9,20 @@ plane per leading plane: output axes [..., 'v', 'u', 'time'].
 
 Positions and kernels are plan state, set once per sequence: an array, a
 callable ``f(header)`` returning one, or (positions only) the header key
-`positions_key` (default 'uvw').  They must be host arrays; positions
-computed on the device (the JAX `bin_to_tiles_device` path) are not
-ported yet.  `method=` (None reads the `romein_method` config flag) is
-resolved once per sequence and latched.  Every frame is one launch of
-K6b (rank-1 kernels) or K6a (any other kernel) over all planes, written
-straight into the output span.  A 'cuda' ring carrying ci4 or ci8 is read
-in raw storage form (`ReadSpan.data_storage`, 1 or 2 B/sample), unpacked
-to complex and then gridded, as the JAX block's raw ingest does.
+`positions_key` (default 'uvw'), from either origin (ops/romein.py):
+numpy arrays or lists take the host plan builders, a tensor (a callable
+returning card tensors: UVW computed on the card by an earlier stage)
+the torch builders on its device, with bitwise the same tables.  The
+resolved method, the plan's origin and its build time are published
+once per sequence, after the first execute, on the `<name>/romein_plan`
+proclog channel (the JAX block's keys: method, origin, plan_build_s,
+ngrid, m).  `method=` (None reads the
+`romein_method` config flag) is resolved once per sequence and latched.
+Every frame is one launch of K6b (rank-1 kernels) or K6a (any other
+kernel) over all planes, written straight into the output span.  A
+'cuda' ring carrying ci4 or ci8 is read in raw storage form
+(`ReadSpan.data_storage`, 1 or 2 B/sample), unpacked to complex and then
+gridded, as the JAX block's raw ingest does.
 """
 
 from __future__ import annotations
@@ -42,8 +48,9 @@ class GridderBlock(TransformBlock):
                  positions_key="uvw", method=None, precision="f32", *args,
                  **kwargs):
         """kernels: complex kernels broadcastable to (npol, nvis, m, m),
-        or a callable(hdr) returning them.  positions: (2, ..., nvis) int
-        grid positions (patch corners) or a callable(hdr); None reads
+        or a callable(hdr) returning them (numpy or a tensor).
+        positions: (2, ..., nvis) int grid positions (patch corners),
+        numpy or a tensor, or a callable(hdr) returning them; None reads
         `positions_key` from the input header.  method: None resolves the
         `romein_method` config flag ('auto'/'cuda'/'plain') per
         sequence."""
@@ -85,6 +92,7 @@ class GridderBlock(TransformBlock):
         # Resolved once per sequence, the flag latched.
         self.romein.method = self.romein._resolve()
         self._hold_flag_latch("romein_method")
+        self._reported = False     # the plan's proclog row, once
         self._raw_reads = 0        # gulps read in raw storage form
         self._raw_read_nbyte = 0   # bytes those reads covered
         ohdr = deepcopy_header(ihdr)
@@ -118,7 +126,22 @@ class GridderBlock(TransformBlock):
             self.romein.execute(
                 x[..., f].reshape(self._npol, self._nvis),
                 out[..., f].view(self._npol, n, n), accumulate=False)
+            if not self._reported:
+                # Right after the first execute, while plan_build_s
+                # still holds the build (later frames hit the cache).
+                self._report_plan()
         return nframe
+
+    def _report_plan(self):
+        rep = self.romein.plan_report()
+        if not hasattr(self, "_plan_proclog"):
+            from ..proclog import ProcLog
+            self._plan_proclog = ProcLog(f"{self.name}/romein_plan")
+        self._plan_proclog.update({
+            "method": rep["method"], "origin": rep["origin"],
+            "plan_build_s": round(rep["plan_build_s"], 6),
+            "ngrid": self.ngrid, "m": self.romein.m})
+        self._reported = True
 
     def plan_report(self):
         return self.romein.plan_report()

@@ -186,35 +186,41 @@ def _load_generated(kind, name, source, compiler, flags, suffix):
         if lib is not None:
             _gen_libs.move_to_end(key)
             return lib
-        entry = {"name": name, "kind": kind, "seconds": 0.0,
-                 "nvcc": False, "ptxas": ""}
-        if not target.exists():
-            MAP_BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tag = f"{os.getpid()}.{threading.get_ident()}"
-            src = target.with_suffix(f".{tag}.cu")
-            tmp = target.with_suffix(f".{tag}.tmp")
-            src.write_text(source)
-            t0 = time.perf_counter()
-            try:
-                res = subprocess.run([compiler, *flags, "-o", str(tmp),
-                                      str(src)], capture_output=True,
-                                     text=True)
-            finally:
-                src.unlink(missing_ok=True)
-            if res.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                raise RuntimeError(
-                    f"{os.path.basename(compiler)} failed for the generated "
-                    f"map kernel {name} (exit {res.returncode}):\n"
-                    f"{res.stdout}{res.stderr}\n--- source ---\n{source}")
-            os.replace(tmp, target)
-            entry.update(seconds=time.perf_counter() - t0, nvcc=True,
-                         ptxas=res.stdout + res.stderr)
-        lib = ctypes.CDLL(str(target))
-        generated_log.append(entry)
-        _gen_libs[key] = lib
-        while len(_gen_libs) > GENERATED_CAPACITY:
-            _gen_libs.popitem(last=False)
+    # The compiler runs outside the lock, so that threads build different
+    # programs at once; each writes its own temporary files and renames
+    # the library into place (a concurrent build of the same source
+    # renames an identical file).
+    entry = {"name": name, "kind": kind, "seconds": 0.0, "nvcc": False,
+             "ptxas": ""}
+    if not target.exists():
+        MAP_BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tag = f"{os.getpid()}.{threading.get_ident()}"
+        src = target.with_suffix(f".{tag}.cu")
+        tmp = target.with_suffix(f".{tag}.tmp")
+        src.write_text(source)
+        t0 = time.perf_counter()
+        try:
+            res = subprocess.run([compiler, *flags, "-o", str(tmp),
+                                  str(src)], capture_output=True, text=True)
+        finally:
+            src.unlink(missing_ok=True)
+        if res.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"{os.path.basename(compiler)} failed for the generated "
+                f"map kernel {name} (exit {res.returncode}):\n"
+                f"{res.stdout}{res.stderr}\n--- source ---\n{source}")
+        os.replace(tmp, target)
+        entry.update(seconds=time.perf_counter() - t0, nvcc=True,
+                     ptxas=res.stdout + res.stderr)
+    with _gen_lock:
+        lib = _gen_libs.get(key)
+        if lib is None:
+            lib = ctypes.CDLL(str(target))
+            generated_log.append(entry)
+            _gen_libs[key] = lib
+            while len(_gen_libs) > GENERATED_CAPACITY:
+                _gen_libs.popitem(last=False)
         return lib
 
 

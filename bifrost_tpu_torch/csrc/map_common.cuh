@@ -19,6 +19,19 @@
 //   type keeps its real part, a real value cast to complex gets a zero
 //   imaginary part, a float cast to an integer truncates.
 //
+// - f16 and bf16 are storage types: every operator converts its
+//   operands to f32, computes there and rounds the result back to the
+//   storage type (round to nearest even), as PyTorch's kernels do with
+//   their f32 "opmath"; a Python scalar that PyTorch's card kernels read
+//   straight into f32 (+, -, * with a CPU scalar) is passed to the f32
+//   operator unrounded by the generator;
+// - the complex transcendentals (sqrt, log, log2, log10, sin, cos, tan,
+//   asin, acos, atan, sinh, cosh, tanh, rsqrt, pow) are computed in f64
+//   and rounded to the component type, with the formulas named at each:
+//   within a few ulps of |z| (or of the result where it is larger) of
+//   PyTorch's c10::complex / thrust kernels away from the branch cuts,
+//   not bitwise.
+//
 // Every function is __host__ __device__, so a generated source also
 // compiles with the host C++ compiler: the CPU tests run the generated
 // statement bodies against the plain engine with no card.  Kernels are
@@ -30,7 +43,17 @@
 
 #include <cmath>
 #include <cstdint>
+#include <cstring>
 #include <type_traits>
+
+// A generated source that uses f16 or bf16 defines MAP_HALF_TYPES first:
+// the card's conversion instructions come from CUDA's half headers, which
+// cost every other kernel's build a second.
+#if defined(__CUDACC__) && defined(MAP_HALF_TYPES)
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#define MAP_HALF_INTRINSICS 1
+#endif
 
 #ifdef __CUDACC__
 #define MAP_HD __host__ __device__ __forceinline__
@@ -39,6 +62,115 @@
 #endif
 
 namespace bfmap {
+
+// ------------------------------------------------- half storage types
+MAP_HD uint32_t f32_bits(float f) {
+  uint32_t u;
+  std::memcpy(&u, &f, 4);
+  return u;
+}
+MAP_HD float bits_f32(uint32_t u) {
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+
+// f32 -> f16 bits, round to nearest even; a NaN becomes the quiet NaN
+// 0x7e00 with its sign (c10::Half's host conversion).
+MAP_HD uint16_t f16_from_f32(float f) {
+#if defined(__CUDA_ARCH__) && defined(MAP_HALF_INTRINSICS)
+  return __half_as_ushort(__float2half_rn(f));
+#else
+  const uint32_t x = f32_bits(f);
+  const uint32_t sign = (x >> 16) & 0x8000u;
+  const uint32_t ax = x & 0x7fffffffu;
+  if (ax > 0x7f800000u) return static_cast<uint16_t>(sign | 0x7e00u);
+  if (ax >= 0x477ff000u) return static_cast<uint16_t>(sign | 0x7c00u);
+  if (ax >= 0x38800000u) {              // a normal half
+    const uint32_t r = ax - 0x38000000u;
+    return static_cast<uint16_t>(
+        sign | ((r + 0xfffu + ((r >> 13) & 1u)) >> 13));
+  }
+  // below 2**-14: a multiple of 2**-24, rounded to nearest even (v and
+  // its fraction are exact in f32)
+  const float v = bits_f32(ax) * 16777216.0f;
+  uint32_t m = static_cast<uint32_t>(v);
+  const float frac = v - static_cast<float>(m);
+  if (frac > 0.5f || (frac == 0.5f && (m & 1u))) ++m;
+  return static_cast<uint16_t>(sign | m);
+#endif
+}
+MAP_HD float f16_to_f32(uint16_t h) {
+#if defined(__CUDA_ARCH__) && defined(MAP_HALF_INTRINSICS)
+  return __half2float(__ushort_as_half(h));
+#else
+  const uint32_t sign = static_cast<uint32_t>(h & 0x8000u) << 16;
+  const uint32_t e = (h >> 10) & 0x1fu, m = h & 0x3ffu;
+  if (e == 0x1f) return bits_f32(sign | 0x7f800000u | (m << 13));
+  if (e) return bits_f32(sign | ((e + 112u) << 23) | (m << 13));
+  const float v = static_cast<float>(m) * 5.9604644775390625e-8f;
+  return sign ? -v : v;
+#endif
+}
+// f32 -> bf16 bits, round to nearest even; a NaN becomes 0x7fc0
+// (c10::BFloat16's host conversion).
+MAP_HD uint16_t bf16_from_f32(float f) {
+#if defined(__CUDA_ARCH__) && defined(MAP_HALF_INTRINSICS)
+  return __bfloat16_as_ushort(__float2bfloat16_rn(f));
+#else
+  const uint32_t x = f32_bits(f);
+  if ((x & 0x7fffffffu) > 0x7f800000u) return 0x7fc0u;
+  return static_cast<uint16_t>((x + 0x7fffu + ((x >> 16) & 1u)) >> 16);
+#endif
+}
+MAP_HD float bf16_to_f32(uint16_t h) {
+  return bits_f32(static_cast<uint32_t>(h) << 16);
+}
+
+// A 16-bit float in storage: constructed from an f32 (rounded), read as
+// an f32 (exact).  Its operators round each result, as c10::Half's do.
+template <int KIND>  // 0 f16, 1 bf16
+struct half_t {
+  uint16_t bits;
+  MAP_HD half_t() : bits(0) {}
+  MAP_HD explicit half_t(float v)
+      : bits(KIND == 0 ? f16_from_f32(v) : bf16_from_f32(v)) {}
+  MAP_HD operator float() const {
+    return KIND == 0 ? f16_to_f32(bits) : bf16_to_f32(bits);
+  }
+};
+using f16 = half_t<0>;
+using bf16 = half_t<1>;
+
+template <int K>
+MAP_HD half_t<K> operator+(half_t<K> a, half_t<K> b) {
+  return half_t<K>(float(a) + float(b));
+}
+template <int K>
+MAP_HD half_t<K> operator-(half_t<K> a, half_t<K> b) {
+  return half_t<K>(float(a) - float(b));
+}
+template <int K>
+MAP_HD half_t<K> operator*(half_t<K> a, half_t<K> b) {
+  return half_t<K>(float(a) * float(b));
+}
+template <int K>
+MAP_HD half_t<K> operator/(half_t<K> a, half_t<K> b) {
+  return half_t<K>(float(a) / float(b));
+}
+template <int K>
+MAP_HD half_t<K> operator-(half_t<K> a) {
+  half_t<K> r;
+  r.bits = static_cast<uint16_t>(a.bits ^ 0x8000u);
+  return r;
+}
+
+template <typename T> struct is_half : std::false_type {};
+template <int K> struct is_half<half_t<K>> : std::true_type {};
+// Floating point, the storage halves included.
+template <typename T>
+struct is_fp : std::integral_constant<bool, std::is_floating_point<T>::value ||
+                                                is_half<T>::value> {};
 
 template <typename T>
 struct cx {
@@ -88,7 +220,9 @@ using uns = typename std::make_unsigned<
 // ----------------------------------------------------- the operators
 template <typename T>
 MAP_HD T op_add(T a, T b) {
-  if constexpr (is_cx<T>::value) {
+  if constexpr (is_half<T>::value) {
+    return T(float(a) + float(b));
+  } else if constexpr (is_cx<T>::value) {
     return T(a.re + b.re, a.im + b.im);
   } else if constexpr (std::is_integral<T>::value) {
     return static_cast<T>(static_cast<uns<T>>(
@@ -100,7 +234,9 @@ MAP_HD T op_add(T a, T b) {
 
 template <typename T>
 MAP_HD T op_sub(T a, T b) {
-  if constexpr (is_cx<T>::value) {
+  if constexpr (is_half<T>::value) {
+    return T(float(a) - float(b));
+  } else if constexpr (is_cx<T>::value) {
     return T(a.re - b.re, a.im - b.im);
   } else if constexpr (std::is_integral<T>::value) {
     return static_cast<T>(static_cast<uns<T>>(
@@ -112,7 +248,9 @@ MAP_HD T op_sub(T a, T b) {
 
 template <typename T>
 MAP_HD T op_mul(T a, T b) {
-  if constexpr (is_cx<T>::value) {
+  if constexpr (is_half<T>::value) {
+    return T(float(a) * float(b));
+  } else if constexpr (is_cx<T>::value) {
     return T(a.re * b.re - a.im * b.im, a.re * b.im + a.im * b.re);
   } else if constexpr (std::is_integral<T>::value) {
     return static_cast<T>(static_cast<uns<T>>(
@@ -124,7 +262,9 @@ MAP_HD T op_mul(T a, T b) {
 
 template <typename T>
 MAP_HD T op_neg(T a) {
-  if constexpr (is_cx<T>::value) {
+  if constexpr (is_half<T>::value) {
+    return -a;
+  } else if constexpr (is_cx<T>::value) {
     return T(-a.re, -a.im);
   } else if constexpr (std::is_integral<T>::value) {
     return static_cast<T>(static_cast<uns<T>>(
@@ -138,7 +278,9 @@ MAP_HD T op_neg(T a) {
 // operands float first).  The complex quotient is c10::complex's.
 template <typename T>
 MAP_HD T op_div(T a, T b) {
-  if constexpr (is_cx<T>::value) {
+  if constexpr (is_half<T>::value) {
+    return T(float(a) / float(b));
+  } else if constexpr (is_cx<T>::value) {
     using C = typename comp<T>::type;
     C ar = a.re, ai = a.im, c = b.re, d = b.im;
     C abs_c = c < 0 ? -c : c;
@@ -162,7 +304,9 @@ MAP_HD T op_div(T a, T b) {
 // Floor division: Python's and torch.floor_divide's.
 template <typename T>
 MAP_HD T op_floordiv(T a, T b) {
-  if constexpr (std::is_integral<T>::value) {
+  if constexpr (is_half<T>::value) {
+    return T(op_floordiv<float>(float(a), float(b)));
+  } else if constexpr (std::is_integral<T>::value) {
     if ((a < 0) != (b < 0)) {
       T q = static_cast<T>(a / b);
       T r = static_cast<T>(a % b);
@@ -188,7 +332,9 @@ MAP_HD T op_floordiv(T a, T b) {
 // Floor modulo: the result takes the divisor's sign.
 template <typename T>
 MAP_HD T op_mod(T a, T b) {
-  if constexpr (std::is_integral<T>::value) {
+  if constexpr (is_half<T>::value) {
+    return T(op_mod<float>(float(a), float(b)));
+  } else if constexpr (std::is_integral<T>::value) {
     T m = static_cast<T>(a % b);
     if ((m != 0) && ((b < 0) != (m < 0))) m = static_cast<T>(m + b);
     return m;
@@ -219,7 +365,9 @@ MAP_HD T powi(T a, E b) {
 
 template <typename T>
 MAP_HD T op_pow(T a, T b) {
-  if constexpr (std::is_integral<T>::value) {
+  if constexpr (is_half<T>::value) {
+    return T(std::pow(float(a), float(b)));
+  } else if constexpr (std::is_integral<T>::value) {
     return powi<T, T>(a, b);
   } else {
     return std::pow(a, b);
@@ -272,7 +420,7 @@ MAP_HD bool op_ne(T a, T b) { return !op_eq<T>(a, b); }
 // -------------------------------------------------- the math functions
 template <typename T>
 MAP_HD T mmin(T a, T b) {
-  if constexpr (std::is_floating_point<T>::value) {
+  if constexpr (is_fp<T>::value) {
     if (a != a) return a;
     if (b != b) return b;
   }
@@ -280,7 +428,7 @@ MAP_HD T mmin(T a, T b) {
 }
 template <typename T>
 MAP_HD T mmax(T a, T b) {
-  if constexpr (std::is_floating_point<T>::value) {
+  if constexpr (is_fp<T>::value) {
     if (a != a) return a;
     if (b != b) return b;
   }
@@ -289,7 +437,11 @@ MAP_HD T mmax(T a, T b) {
 
 template <typename T>
 MAP_HD T mabs(T a) {
-  if constexpr (std::is_integral<T>::value) {
+  if constexpr (is_half<T>::value) {
+    T r;
+    r.bits = static_cast<uint16_t>(a.bits & 0x7fffu);
+    return r;
+  } else if constexpr (std::is_integral<T>::value) {
     return a < 0 ? op_neg<T>(a) : a;
   } else {
     return std::fabs(a);
@@ -300,18 +452,30 @@ MAP_HD C mabs(cx<C> a) { return std::hypot(a.re, a.im); }
 
 template <typename T> MAP_HD T mfloor(T a) {
   if constexpr (std::is_integral<T>::value) return a;
+  else if constexpr (is_half<T>::value) return T(std::floor(float(a)));
   else return std::floor(a);
 }
 template <typename T> MAP_HD T mceil(T a) {
   if constexpr (std::is_integral<T>::value) return a;
+  else if constexpr (is_half<T>::value) return T(std::ceil(float(a)));
   else return std::ceil(a);
 }
 // Half to even, as jnp.round and torch.round.
 template <typename T> MAP_HD T mrint(T a) {
   if constexpr (std::is_integral<T>::value) return a;
+  else if constexpr (is_half<T>::value) return T(std::rint(float(a)));
   else return std::rint(a);
 }
-template <typename T> MAP_HD T mrsqrt(T a) { return T(1) / std::sqrt(a); }
+template <typename T> MAP_HD T msqrt(T a) {
+  if constexpr (is_half<T>::value) return T(std::sqrt(float(a)));
+  else return std::sqrt(a);
+}
+// 1/sqrt: the square root rounded to T first, as the plain engine
+// divides 1 by torch.sqrt's result.
+template <typename T> MAP_HD T mrsqrt(T a) {
+  if constexpr (is_half<T>::value) return T(1.0f / float(msqrt<T>(a)));
+  else return T(1) / std::sqrt(a);
+}
 
 template <typename C>
 MAP_HD cx<C> mexp(cx<C> a) {
@@ -319,6 +483,161 @@ MAP_HD cx<C> mexp(cx<C> a) {
   return cx<C>(m * std::cos(a.im), m * std::sin(a.im));
 }
 template <typename T> MAP_HD T mexp(T a) { return std::exp(a); }
+
+// --------------------------------------------- complex transcendentals
+// Each is computed on cx<double> and rounded to the component type.
+using cxd = cx<double>;
+
+template <typename C>
+MAP_HD cx<C> cx_round(cxd a) {
+  return cx<C>(static_cast<C>(a.re), static_cast<C>(a.im));
+}
+template <typename C>
+MAP_HD cxd cx_wide(cx<C> a) { return cxd(a.re, a.im); }
+
+// Principal square root (Kahan): no cancellation on either half-plane.
+MAP_HD cxd csqrt_d(cxd z) {
+  const double x = z.re, y = z.im;
+  if (x == 0 && y == 0) return cxd(0.0, y);
+  if (std::isinf(y)) return cxd(INFINITY, y);
+  const double t = std::sqrt((std::fabs(x) + std::hypot(x, y)) * 0.5);
+  if (x >= 0) return cxd(t, y / (2 * t));
+  return cxd(std::fabs(y) / (2 * t), std::copysign(t, y));
+}
+MAP_HD cxd clog_d(cxd z) {
+  return cxd(std::log(std::hypot(z.re, z.im)), std::atan2(z.im, z.re));
+}
+// log(1 + d) for small d without the cancellation of 1 + d.
+MAP_HD cxd clog1p_d(cxd d) {
+  return cxd(0.5 * std::log1p(2 * d.re + (d.re * d.re + d.im * d.im)),
+             std::atan2(d.im, 1 + d.re));
+}
+MAP_HD cxd cexp_d(cxd z) {
+  const double m = std::exp(z.re);
+  return cxd(m * std::cos(z.im), m * std::sin(z.im));
+}
+MAP_HD cxd csinh_d(cxd z) {
+  return cxd(std::sinh(z.re) * std::cos(z.im),
+             std::cosh(z.re) * std::sin(z.im));
+}
+MAP_HD cxd ccosh_d(cxd z) {
+  return cxd(std::cosh(z.re) * std::cos(z.im),
+             std::sinh(z.re) * std::sin(z.im));
+}
+// tanh (Kahan's formula; the large-|x| limit where it would overflow).
+MAP_HD cxd ctanh_d(cxd z) {
+  const double x = z.re, y = z.im;
+  if (std::fabs(x) > 22) {
+    const double e = std::exp(-std::fabs(x));
+    return cxd(std::copysign(1.0, x), 4 * std::sin(y) * std::cos(y) * e * e);
+  }
+  const double t = std::tan(y), b = 1 + t * t, s = std::sinh(x);
+  const double r = std::sqrt(1 + s * s), d = 1 + b * s * s;
+  return cxd(b * r * s / d, t / d);
+}
+// asinh(w) = log(w + sqrt(w^2 + 1)) on Re w >= 0 (odd otherwise), as
+// log1p(w + w^2 / (sqrt(w^2 + 1) + 1)) so a small w keeps its digits.
+MAP_HD cxd casinh_d(cxd w) {
+  if (std::signbit(w.re)) {
+    const cxd r = casinh_d(cxd(-w.re, -w.im));
+    return cxd(-r.re, -r.im);
+  }
+  const cxd w2(w.re * w.re - w.im * w.im, 2 * w.re * w.im);
+  const cxd s = csqrt_d(cxd(w2.re + 1, w2.im));
+  const cxd q = op_div<cxd>(w2, cxd(s.re + 1, s.im));
+  return clog1p_d(cxd(w.re + q.re, w.im + q.im));
+}
+// s = a + b and its rounding error e (Knuth's TwoSum).
+MAP_HD double two_sum(double a, double b, double& e) {
+  const double s = a + b, bb = s - a;
+  e = (a - (s - bb)) + (b - bb);
+  return s;
+}
+// atanh(w) = (log(1 + w) - log(1 - w)) / 2, in the forms without
+// cancellation: Re = log1p(4u / ((1 - u)^2 + v^2)) / 4,
+// Im = atan2(2v, 1 - u^2 - v^2) / 2, 1 - u^2 - v^2 summed from the
+// exact squares (fma) so it keeps its digits near |w| = 1; on Re w >= 0
+// (odd otherwise), where the log1p argument is not near -1.
+MAP_HD cxd catanh_d(cxd w) {
+  if (std::signbit(w.re)) {
+    const cxd r = catanh_d(cxd(-w.re, -w.im));
+    return cxd(-r.re, -r.im);
+  }
+  const double u = w.re, v = w.im, a = 1 - u;
+  const double uh = u * u, ul = std::fma(u, u, -uh);
+  const double vh = v * v, vl = std::fma(v, v, -vh);
+  double e1, e2;
+  const double s1 = two_sum(1.0, -uh, e1);
+  const double s2 = two_sum(s1, -vh, e2);
+  const double d = s2 + (((e1 + e2) - ul) - vl);
+  return cxd(0.25 * std::log1p(4 * u / (a * a + v * v)),
+             0.5 * std::atan2(2 * v, d));
+}
+
+template <typename C>
+MAP_HD cx<C> msqrt(cx<C> a) { return cx_round<C>(csqrt_d(cx_wide(a))); }
+template <typename C>
+MAP_HD cx<C> mlog(cx<C> a) { return cx_round<C>(clog_d(cx_wide(a))); }
+template <typename C>
+MAP_HD cx<C> mlog2(cx<C> a) {
+  const cxd l = clog_d(cx_wide(a));
+  const double k = 1.4426950408889634;          // 1 / log(2)
+  return cx_round<C>(cxd(l.re * k, l.im * k));
+}
+template <typename C>
+MAP_HD cx<C> mlog10(cx<C> a) {
+  const cxd l = clog_d(cx_wide(a));
+  const double k = 0.43429448190325176;         // 1 / log(10)
+  return cx_round<C>(cxd(l.re * k, l.im * k));
+}
+template <typename C>
+MAP_HD cx<C> msinh(cx<C> a) { return cx_round<C>(csinh_d(cx_wide(a))); }
+template <typename C>
+MAP_HD cx<C> mcosh(cx<C> a) { return cx_round<C>(ccosh_d(cx_wide(a))); }
+template <typename C>
+MAP_HD cx<C> mtanh(cx<C> a) { return cx_round<C>(ctanh_d(cx_wide(a))); }
+// sin z = -i sinh(iz), cos z = cosh(iz), tan z = -i tanh(iz).
+template <typename C>
+MAP_HD cx<C> msin(cx<C> a) {
+  const cxd r = csinh_d(cxd(-double(a.im), a.re));
+  return cx_round<C>(cxd(r.im, -r.re));
+}
+template <typename C>
+MAP_HD cx<C> mcos(cx<C> a) {
+  return cx_round<C>(ccosh_d(cxd(-double(a.im), a.re)));
+}
+template <typename C>
+MAP_HD cx<C> mtan(cx<C> a) {
+  const cxd r = ctanh_d(cxd(-double(a.im), a.re));
+  return cx_round<C>(cxd(r.im, -r.re));
+}
+// asin z = -i asinh(iz), acos z = pi/2 - asin z, atan z = -i atanh(iz).
+template <typename C>
+MAP_HD cx<C> masin(cx<C> a) {
+  const cxd r = casinh_d(cxd(-double(a.im), a.re));
+  return cx_round<C>(cxd(r.im, -r.re));
+}
+template <typename C>
+MAP_HD cx<C> macos(cx<C> a) {
+  const cxd r = casinh_d(cxd(-double(a.im), a.re));
+  return cx_round<C>(cxd(1.5707963267948966 - r.im, r.re));
+}
+template <typename C>
+MAP_HD cx<C> matan(cx<C> a) {
+  const cxd r = catanh_d(cxd(-double(a.im), a.re));
+  return cx_round<C>(cxd(r.im, -r.re));
+}
+template <typename C>
+MAP_HD cx<C> mrsqrt(cx<C> a) {
+  return op_div<cx<C>>(cx<C>(C(1), C(0)), msqrt(a));
+}
+// z ** w = exp(w log z), as thrust::pow.
+template <typename C>
+MAP_HD cx<C> mpow(cx<C> z, cx<C> w) {
+  const cxd l = clog_d(cx_wide(z)), e = cx_wide(w);
+  return cx_round<C>(cexp_d(cxd(e.re * l.re - e.im * l.im,
+                                e.re * l.im + e.im * l.re)));
+}
 
 template <typename C>
 MAP_HD cx<C> mconj(cx<C> a) { return cx<C>(a.re, -a.im); }
@@ -350,6 +669,20 @@ MAP_HD cx<C> ld_ci4(const void* p, long long off) {
   uint8_t b = static_cast<const uint8_t*>(p)[off];
   int re = static_cast<int8_t>(b & 0xF0) >> 4;
   int im = static_cast<int8_t>(static_cast<uint8_t>(b << 4)) >> 4;
+  return cx<C>(static_cast<C>(re), static_cast<C>(im));
+}
+// Packed ci2 and ci1: 8 / (2 NBIT) samples a byte along the last axis,
+// each (re, im) pair of fields MSB first and sign-extended (the field
+// order of ops/unpack.py).  `off` is the byte, `pos` the sample in it.
+template <typename C, int NBIT>
+MAP_HD cx<C> ld_cpacked(const void* p, long long off, long long pos) {
+  constexpr int PER = 8 / NBIT;
+  const uint8_t b = static_cast<const uint8_t*>(p)[off];
+  const int sh = 8 - NBIT;
+  const uint8_t fr = static_cast<uint8_t>(b >> ((PER - 1 - 2 * pos) * NBIT));
+  const uint8_t fi = static_cast<uint8_t>(b >> ((PER - 2 - 2 * pos) * NBIT));
+  const int re = static_cast<int8_t>(static_cast<uint8_t>(fr << sh)) >> sh;
+  const int im = static_cast<int8_t>(static_cast<uint8_t>(fi << sh)) >> sh;
   return cx<C>(static_cast<C>(re), static_cast<C>(im));
 }
 // Packed real storage (i4/u4, i2/u2, i1/u1): 8 / NBIT samples a byte

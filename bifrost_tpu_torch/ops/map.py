@@ -39,8 +39,10 @@ Two entry points share one translator:
   the fused-carry protocol, so split gulps == one long gulp bitwise.
   Forward (``x(i+1)``) or unbounded (``x(n-1-i)``) time indexing cannot
   stream gulp-resident and is refused from fusion (reason
-  ``map_unbounded_index``); ci4/ci8 ring storage is read raw (in the
-  kernel, or lifted by the plain engine).
+  ``map_unbounded_index``); ci8 and wider pairs and packed ci4, ci2
+  and ci1 ring storage is read raw (in the kernel, or lifted by the
+  plain engine).  A tensor bound as a scalar is a constant array of the
+  program (0-d: a scalar read at each call).
 
 Methods (the ``map_method`` config flag when None/'auto'): 'auto'
 resolves to 'cuda' (M1) for a CUDA tensor and to 'plain' for a CPU one;
@@ -49,9 +51,10 @@ plain engine on any device.  Three forms the generator refuses by
 design (``extra_code``, the eager explicit-index and scatter forms, the
 forward and unbounded streaming forms; `codegen_refusal`): 'auto'
 resolves them to 'plain' and says why in ``plan_report()``, 'cuda'
-raises with the reason.  What the kernel does not implement yet
-(`map_codegen.Unsupported`, listed there and in ROADMAP Queue A) raises
-for a CUDA tensor under 'auto' and 'cuda' alike; 'plain' runs it.  The
+raises with the reason.  What the kernel does not implement
+(`map_codegen.Unsupported`, listed there: a type with no C form, an
+indexed form of rank above 8) raises for a CUDA tensor under 'auto' and
+'cuda' alike; 'plain' runs it.  The
 JAX package's 'jnp' and 'pallas' are refused with the name of their
 counterparts here.
 
@@ -815,6 +818,15 @@ def _number(v):
     return isinstance(v, (bool, int, float, complex))
 
 
+def _scalars_key(scalars):
+    """What a generated program depends on in its scalars: each number's
+    type, each tensor's dtype, shape and device type (not the values,
+    which are read at each launch)."""
+    return tuple((k, (str(v.dtype), tuple(v.shape), v.device.type)
+                  if isinstance(v, torch.Tensor) else type(v).__name__)
+                 for k, v in scalars.items())
+
+
 def _unsupported(func_string, reason):
     """The error for a program the kernel does not implement yet."""
     return map_codegen.Unsupported(
@@ -915,7 +927,16 @@ class Map(object):
         self.scalars = {k: _py_scalar(v) for k, v in scalars.items()}
 
     def _gen_scalars(self):
-        return {k: v for k, v in self.scalars.items() if _number(v)}
+        """The run-time scalars of a program: numbers, and 0-d tensors
+        (read at each launch)."""
+        return {k: v for k, v in self.scalars.items() if _number(v) or (
+            isinstance(v, torch.Tensor) and v.dim() == 0)}
+
+    def _const_arrays(self):
+        """Tensors of one axis or more bound as scalars: the kernel reads
+        them as buffers, broadcast at the output's coordinates."""
+        return {k: v for k, v in self.scalars.items()
+                if isinstance(v, torch.Tensor) and v.dim() > 0}
 
     def form_refusal(self):
         """Why the generator refuses this program whatever its input, or
@@ -935,8 +956,7 @@ class Map(object):
         `map_codegen.Unsupported` (what the kernel does not implement)."""
         scal = self._gen_scalars()
         ocs = tuple(out_chan_shape) if out_chan_shape is not None else None
-        key = (str(dtype), int(rank), ocs,
-               tuple((k, type(v).__name__) for k, v in scal.items()))
+        key = (str(dtype), int(rank), ocs, _scalars_key(self.scalars))
         prog = self._programs.get(key)
         if prog is None:
             prog = self._programs[key] = self._generate(dtype, rank, ocs,
@@ -952,14 +972,22 @@ class Map(object):
             reason = self.form_refusal()
             if reason is not None:
                 raise map_codegen.Refusal(reason)
+            out_rank = rank if not self.explicit else \
+                1 + (len(ocs) if ocs is not None else rank - 1)
+            collapsed = self.fuse_form == "elementwise" and \
+                rank > map_codegen.MAX_RANK
+            if collapsed:
+                # every operand collapsed at launch (map_kernel.collapse)
+                rank = out_rank = map_codegen.MAX_RANK
             if isinstance(dtype, torch.dtype):
                 inp = map_codegen.input_for_tensor(self.in_name, dtype, rank)
             else:
                 inp = map_codegen.input_for(self.in_name, dtype, rank)
-            out_rank = rank if not self.explicit else \
-                1 + (len(ocs) if ocs is not None else rank - 1)
+            consts = [map_codegen.input_for_tensor(
+                k, v.dtype, out_rank if collapsed else v.dim(), bcast=True)
+                for k, v in self._const_arrays().items()]
             prog = map_codegen.generate(
-                self.statements, self.fuse_form, [inp], self._ns,
+                self.statements, self.fuse_form, [inp] + consts, self._ns,
                 self._arrays, [self.out_name],
                 axis_names=self.compiled.axis_names, scalars=scal,
                 noffset=self.noffset, out_rank=out_rank)
@@ -976,7 +1004,7 @@ class Map(object):
 
         def plain(ins, out_shape, scal, carry):
             x = ins[0]
-            if storage in ("pair", "ci4", "packed"):
+            if storage in ("pair", "ci4", "cpacked", "packed"):
                 x = _lift(x, dtype)
             scalars = dict(self.scalars)
             scalars.update(zip(names, scal))
@@ -1037,18 +1065,19 @@ class Map(object):
         `device`, cached on the runtime under the resolved method."""
         ocs = tuple(out_chan_shape) if out_chan_shape is not None else None
         method = self._resolve(dtype, rank, ocs, device)
-        scal_types = tuple((k, type(v).__name__)
-                           for k, v in self.scalars.items())
         key = (method, "raw" if raw else "plain", str(dtype), rank, ocs,
-               scal_types)
+               _scalars_key(self.scalars))
 
         def build():
             if method == "cuda":
                 prog = self.program(dtype, rank, ocs)
 
+                consts = [inp.name for inp in prog.inputs[1:]]
+
                 def fn(x, carry=None, out=None):
                     ys, c2 = map_apply(
-                        prog, [x], self._out_shape(x, prog, ocs),
+                        prog, [x] + [self.scalars[n] for n in consts],
+                        self._out_shape(x, prog, ocs),
                         [self.scalars[n] for n in prog.scalar_names],
                         carry, None if out is None else [out])
                     return ys[0], c2
@@ -1226,6 +1255,9 @@ def _eager_cuda(compiled, arrs, scalar_names, method):
     """The eager broadcasting form on M1 -> results dict, or None for a
     form the generator refuses by design under 'auto' (extra_code, the
     explicit-index and scatter forms; 'cuda' raises with the reason).
+    Statements of any shape that broadcasts to the inputs' are outputs of
+    one launch (each written once); a statement that depends on no array
+    is the plain engine's own value, as the plain engine returns it.
     What the kernel does not implement raises `map_codegen.Unsupported`
     under either method."""
     tens = {k: v for k, v in arrs.items() if isinstance(v, torch.Tensor)}
@@ -1242,9 +1274,25 @@ def _eager_cuda(compiled, arrs, scalar_names, method):
         return None
     names = sorted(tens)
     scal = {k: arrs[k] for k in sorted(scalar_names) if _number(arrs[k])}
-    out_names = list(dict.fromkeys(s[0] for s in compiled.statements))
+    stmt_names = list(dict.fromkeys(s[0] for s in compiled.statements))
     out_shape = tuple(torch.broadcast_shapes(*[tens[k].shape
                                                for k in names]))
+    # Each statement's value on meta tensors (the plain engine): its
+    # shape, or the value itself where it depends on no array.
+    meta = {k: (torch.empty(v.shape, dtype=v.dtype, device="meta")
+                if isinstance(v, torch.Tensor) else v)
+            for k, v in arrs.items()}
+    vals = compiled.get_fn(
+        {k: (tuple(v.shape) if isinstance(v, torch.Tensor) else None)
+         for k, v in arrs.items()},
+        None, frozenset(scalar_names), None)(**meta)
+    arrays = [n for n in stmt_names if isinstance(vals[n], torch.Tensor)
+              and vals[n].device.type == "meta"]
+    results = {n: vals[n] for n in stmt_names if n not in arrays}
+    if not arrays:
+        return results
+    collapsed = len(out_shape) > map_codegen.MAX_RANK
+    rank = min(max(len(out_shape), 1), map_codegen.MAX_RANK)
     key = ("cuda", tuple((k, str(tens[k].dtype), tens[k].dim())
                          for k in names),
            tuple((k, type(v).__name__) for k, v in scal.items()),
@@ -1254,29 +1302,23 @@ def _eager_cuda(compiled, arrs, scalar_names, method):
         try:
             return map_codegen.generate(
                 compiled.statements, "eager",
-                [map_codegen.input_for_tensor(k, tens[k].dtype,
-                                              tens[k].dim())
+                [map_codegen.input_for_tensor(
+                    k, tens[k].dtype, rank if collapsed else tens[k].dim())
                  for k in names], _full_namespace(None), frozenset(arrs),
-                out_names, scalars=scal, out_rank=max(len(out_shape), 1))
+                arrays, scalars=scal, out_rank=rank)
         except map_codegen.Unsupported as u:
             raise _unsupported(compiled.func_string, u.reason) from None
     prog = compiled._cached(key, gen)
-    # Every statement must span the whole broadcast shape: the plain
-    # engine on meta tensors says what each one's shape is.
-    meta = {k: (torch.empty(v.shape, dtype=v.dtype, device="meta")
-                if isinstance(v, torch.Tensor) else v)
-            for k, v in arrs.items()}
-    shapes = compiled.get_fn(
-        {k: (tuple(v.shape) if isinstance(v, torch.Tensor) else None)
-         for k, v in arrs.items()},
-        None, frozenset(scalar_names), None)(**meta)
-    if any(tuple(getattr(shapes[n], "shape", ())) != out_shape
-           for n in out_names):
-        raise _unsupported(compiled.func_string,
-                           "statements of different shapes")
-    ys, _ = map_apply(prog, [tens[k] for k in names], out_shape,
-                      [scal[k] for k in prog.scalar_names])
-    return dict(zip(out_names, ys))
+    dev = tens[names[0]].device
+    outs = [torch.empty(vals[n].shape, dtype=dt, device=dev)
+            for n, dt in zip(arrays, prog.out_dtypes)]
+    try:
+        map_apply(prog, [tens[k] for k in names], out_shape or (1,),
+                  [scal[k] for k in prog.scalar_names], outs=outs)
+    except map_codegen.Unsupported as u:
+        raise _unsupported(compiled.func_string, u.reason) from None
+    results.update(zip(arrays, outs))
+    return results
 
 
 def map(func_string, data, axis_names=None, shape=None, func_name=None,
@@ -1288,9 +1330,10 @@ def map(func_string, data, axis_names=None, shape=None, func_name=None,
     (source with `torch` and `np` in scope) callable from func_string.
     Tensors are used where they lie, numpy arrays go to this thread's
     device.  The `map_method` flag: 'auto' and 'cuda' run the
-    broadcasting form on M1 for CUDA tensors (the explicit-index,
-    scatter and extra_code forms: the plain engine under 'auto', an
-    error under 'cuda'), 'plain' the plain engine.
+    broadcasting form on M1 for CUDA tensors, every statement that
+    depends on an array written by one launch at its own shape (the
+    explicit-index, scatter and extra_code forms: the plain engine under
+    'auto', an error under 'cuda'), 'plain' the plain engine.
     """
     compiled = _compile_map(func_string, tuple(sorted(data.keys())),
                             tuple(axis_names) if axis_names else None,

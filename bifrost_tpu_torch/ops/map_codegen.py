@@ -23,11 +23,23 @@ Subtrees of literals alone are evaluated with the plain namespace at
 generation time and embedded exactly (a hex literal of the value the
 plain engine computes on the CPU).  Scalars bound by name are run-time
 parameters of the kernel (a new value needs no new build); sizes
-``n<axis>`` are run-time too.
+``n<axis>`` are run-time too.  What the plain engine computes on the
+host from scalars and sizes alone, where C arithmetic would not be
+exact (Python's ``**`` and shifts, torch on 0-d CPU tensors, a 0-d
+tensor bound as a scalar) is hoisted: the launch evaluates it with the
+plain engine itself and passes the value (`Program.derive`).
+
+f16 and bf16 are storage types (csrc/map_common.cuh): every operator
+computes in f32 and rounds, as PyTorch's card kernels do; a CPU scalar
+(a Python number or a 0-d CPU tensor) enters ``+``, ``-`` and ``*``
+unrounded, as those kernels read it, and the other operators rounded
+to the result type.  Complex transcendentals are computed in f64 and
+rounded (not bitwise PyTorch's: a tolerance, stated in the tests).
 
 Forms (`Map.fuse_form` and the eager call):
 
-- ``elementwise``: one streaming input, no indexing;
+- ``elementwise``: one streaming input, no indexing; ranks above
+  `MAX_RANK` collapse at launch (`map_kernel.collapse`);
 - ``local``: explicit indexing, every time index the time axis itself;
   index expressions are computed per element with jnp's gather
   semantics (a negative index wraps once, then it is clamped);
@@ -38,29 +50,36 @@ Forms (`Map.fuse_form` and the eager call):
   pointers, no concatenated copy); the same launch writes the next carry,
   the last ``noffset`` frames of ``[carry; gulp]``;
 - ``eager``: the eager ``map()``'s broadcasting form, each input read
-  through its own strides (0 on a broadcast axis).
+  through its own strides (0 on a broadcast axis), each statement
+  written to an output of its own shape (once: an axis the output lacks
+  at coordinate 0 only).
+
+In every form a tensor of one axis or more bound as a scalar is a
+constant array, read at the output's coordinates through its broadcast
+strides (`Input.bcast`), and a statement that depends on no array is a
+scalar (broadcast to the output grid in the explicit forms, as the
+plain engine broadcasts it).
 
 Refused by design, with the reason `Refusal` carries (the only forms
 'auto' runs on the plain engine): ``extra_code`` (Python helpers have no
 CUDA form), the eager explicit-index and scatter forms, and the
 ``forward`` and ``unbounded`` streaming forms.
 
-Not implemented yet, `Unsupported` with its reason (raised for a CUDA
-tensor whatever the method: ROADMAP Queue A lists them): half-precision
-types and packed complex types other than ci4;
-complex transcendentals other than exp and abs, complex ``**``/pow;
-``not``; chained comparisons; ``**`` and shifts of two run-time
-scalars; statements whose value does not depend on an array; constant
-arrays; eager statements of differing shapes; ranks above `MAX_RANK`.
-Where the plain engine itself raises on the program's types (complex
-``%``, ``<``, min/max, rounding; an index that is not an integer), the
-generator raises the same way.
+`Unsupported`, with its reason (raised for a CUDA tensor whatever the
+method): a type with no C form (complex32); an indexed form of rank
+above `MAX_RANK`, and strides that cannot be collapsed to it.  Where
+the plain engine itself raises on the program's types (complex ``%``,
+``<``, min/max, rounding, erf; an index that is not an integer; a
+chained comparison of arrays; ``not`` of an array), the generator
+raises the same way.
 """
 
 from __future__ import annotations
 
 import ast
 import hashlib
+import re
+import struct
 import warnings
 
 import torch
@@ -71,27 +90,40 @@ C_TYPES = {
     torch.bool: "bool", torch.int8: "int8_t", torch.uint8: "uint8_t",
     torch.int16: "int16_t", torch.int32: "int32_t", torch.int64: "int64_t",
     torch.float32: "float", torch.float64: "double",
+    torch.float16: "f16", torch.bfloat16: "bf16",
     torch.complex64: "cx<float>", torch.complex128: "cx<double>",
 }
+_HALF = (torch.float16, torch.bfloat16)
+# Binary operators whose PyTorch card kernels read a CPU scalar operand
+# straight into their f32 opmath, unrounded to the half type (the others,
+# % and // and / among them, round it to the result type first).
+_OPMATH_SCALAR = ("op_add", "op_sub", "op_mul")
 PY_C = {bool: "bool", int: "long long", float: "double",
         complex: "cx<double>"}
 _COMPLEX_PART = {torch.complex64: "float", torch.complex128: "double"}
 
 # Storage forms of an input: 'real' and 'complex' tensors of the logical
 # dtype, 'pair' complex-integer storage (integer component type with a
-# trailing (re, im) axis), 'ci4' packed bytes, one sample a byte, and
-# 'packed' real storage, 8 // nbit samples a byte along the last axis.
-STORAGES = ("real", "complex", "pair", "ci4", "packed")
+# trailing (re, im) axis), 'ci4' packed bytes, one sample a byte,
+# 'cpacked' ci2/ci1, 8 // (2 nbit) samples a byte along the last axis,
+# and 'packed' real storage, 8 // nbit samples a byte along the last axis.
+STORAGES = ("real", "complex", "pair", "ci4", "cpacked", "packed")
 
 _UNARY_MATH = {"exp": "std::exp", "log": "std::log", "log2": "std::log2",
                "log10": "std::log10", "sin": "std::sin", "cos": "std::cos",
                "tan": "std::tan", "asin": "std::asin", "acos": "std::acos",
                "atan": "std::atan", "sinh": "std::sinh",
                "cosh": "std::cosh", "tanh": "std::tanh",
-               "sqrt": "std::sqrt", "rsqrt": "mrsqrt", "erf": "std::erf",
+               "sqrt": "msqrt", "rsqrt": "mrsqrt", "erf": "std::erf",
                "erfc": "std::erfc"}
 _ROUNDING = {"floor": "mfloor", "ceil": "mceil", "round": "mrint",
              "rint": "mrint"}
+# The complex forms (csrc/map_common.cuh, computed in f64).
+_CX_MATH = {"exp": "mexp", "log": "mlog", "log2": "mlog2",
+            "log10": "mlog10", "sin": "msin", "cos": "mcos", "tan": "mtan",
+            "asin": "masin", "acos": "macos", "atan": "matan",
+            "sinh": "msinh", "cosh": "mcosh", "tanh": "mtanh",
+            "sqrt": "msqrt", "rsqrt": "mrsqrt"}
 _BINOPS = {ast.Add: ("+", "op_add"), ast.Sub: ("-", "op_sub"),
            ast.Mult: ("*", "op_mul"), ast.Div: ("/", "op_div"),
            ast.FloorDiv: ("//", "op_floordiv"), ast.Mod: ("%", "op_mod"),
@@ -110,9 +142,16 @@ _PYOPS = {ast.Add: lambda a, b: a + b, ast.Sub: lambda a, b: a - b,
           ast.Gt: lambda a, b: a > b, ast.GtE: lambda a, b: a >= b,
           ast.Eq: lambda a, b: a == b, ast.NotEq: lambda a, b: a != b}
 # torch's float pow special-cases these scalar exponents (x*x for 2, ...).
+# (The f16/bf16 operators round each product and quotient, as the card
+# kernels' scalar_t arithmetic does.)
 _POW_SPECIAL = {2.0: "({a} * {a})", 3.0: "({a} * {a} * {a})",
-                0.5: "std::sqrt({a})", -0.5: "mrsqrt({a})",
+                0.5: "msqrt({a})", -0.5: "mrsqrt({a})",
                 -1.0: "(({t})1 / {a})", -2.0: "(({t})1 / ({a} * {a}))"}
+_CX_POW_SPECIAL = {2.0: "op_mul<{t}>({a}, {a})",
+                   3.0: "op_mul<{t}>(op_mul<{t}>({a}, {a}), {a})",
+                   0.5: "msqrt({a})", -0.5: "mrsqrt({a})",
+                   -1.0: "op_div<{t}>({t}(1, 0), {a})",
+                   -2.0: "op_div<{t}>({t}(1, 0), op_mul<{t}>({a}, {a}))"}
 
 
 class Refusal(Exception):
@@ -138,11 +177,12 @@ class Unsupported(NotImplementedError):
 class Input(object):
     """One array the kernel reads: its name, storage form (`STORAGES`),
     logical torch dtype, logical rank, for a complex-integer storage its
-    integer component type, and for a packed real storage its bits a
-    sample."""
+    integer component type, for a packed storage its bits a field, and
+    whether it is read whole at the output's coordinates through its
+    broadcast strides (`bcast`: a constant array bound as a scalar)."""
 
     def __init__(self, name, storage, dtype, rank, int_dtype=None,
-                 nbit=None):
+                 nbit=None, bcast=False):
         if storage not in STORAGES:
             raise ValueError(f"unknown storage form {storage!r}")
         self.name = name
@@ -151,11 +191,17 @@ class Input(object):
         self.rank = int(rank)
         self.int_dtype = int_dtype
         self.nbit = nbit
+        self.bcast = bool(bcast)
 
     @property
     def per_byte(self):
-        """Samples a storage byte along the last axis (packed: 8 // nbit)."""
-        return 8 // self.nbit if self.storage == "packed" else 1
+        """Samples a storage byte along the last axis (packed: 8 // nbit,
+        cpacked: 8 // (2 nbit))."""
+        if self.storage == "packed":
+            return 8 // self.nbit
+        if self.storage == "cpacked":
+            return 4 // self.nbit
+        return 1
 
 
 def input_for(name, dtype_str, rank):
@@ -168,8 +214,7 @@ def input_for(name, dtype_str, rank):
         if dt.nbit == 4:
             return Input(name, "ci4", lt, rank)
         if dt.nbit < 8:
-            raise Unsupported(f"{dt}: packed complex types other than ci4 have "
-                          f"no generated form")
+            return Input(name, "cpacked", lt, rank, nbit=dt.nbit)
         return Input(name, "pair", lt, rank, dt.as_torch_dtype())
     if dt.nbit < 8:
         return Input(name, "packed", torch.int8 if dt.is_signed
@@ -177,26 +222,30 @@ def input_for(name, dtype_str, rank):
     return input_for_tensor(name, dt.as_torch_dtype(), rank)
 
 
-def input_for_tensor(name, dtype, rank):
+def input_for_tensor(name, dtype, rank, bcast=False):
     """The `Input` of a logical tensor of torch `dtype`."""
     if dtype not in C_TYPES:
         raise Unsupported(f"{dtype}: no generated form for this type")
     return Input(name, "complex" if dtype.is_complex else "real", dtype,
-                 rank)
+                 rank, bcast=bcast)
 
 
 # ------------------------------------------------------------ the values
 class _Val(object):
     """A node's C expression `code`, its representative `rep` (a Python
     scalar for a weakly typed value, else a CPU tensor: 0-d for a 0-d
-    value, one element for an array), and whether it is a literal."""
+    value, one element for an array), whether it is a literal, and
+    whether the plain engine holds it on the host (`host`: a Python
+    scalar or a 0-d CPU tensor, computed from literals, run-time scalars
+    and sizes alone)."""
 
-    __slots__ = ("code", "rep", "const")
+    __slots__ = ("code", "rep", "const", "host")
 
-    def __init__(self, code, rep, const=False):
+    def __init__(self, code, rep, const=False, host=None):
         self.code = code
         self.rep = rep
         self.const = const
+        self.host = const if host is None else host
 
     @property
     def is_tensor(self):
@@ -258,6 +307,26 @@ def _rep_of(dtype, dim0=False):
         torch.ones(1, dtype=dtype)
 
 
+def _ctype_of(rep):
+    """The C type of a value of representative `rep`."""
+    if isinstance(rep, torch.Tensor):
+        return _ctype(rep.dtype)
+    return PY_C[type(rep)]
+
+
+# jnp.broadcast_to of a Python scalar (ops/map.py `_broadcast`): the
+# default dtype of its kind.
+_BROADCAST_DTYPE = {bool: torch.bool, int: torch.int32,
+                    float: torch.float32, complex: torch.complex64}
+
+
+def _value_dtype(rep):
+    """The dtype an array holding a value of representative `rep` has."""
+    if isinstance(rep, torch.Tensor):
+        return rep.dtype
+    return _BROADCAST_DTYPE[type(rep)]
+
+
 def _rep_like(value):
     """A representative of a run-time weak scalar: the type, not the
     value, matters."""
@@ -294,6 +363,11 @@ class _Gen(object):
         self.counter = 0
         self.funcs = []              # C source of the statement functions
         self.stmt_types = []         # rep of each statement's value
+        self.stmt_host = []          # whether the plain engine holds it
+        # Values the plain engine computes on the host from scalars alone
+        # (hoisted): (meta offset, expression, representative), evaluated
+        # by the plain engine at each launch (`Program.derive`).
+        self.derived = []
         # Meta layout (offsets into P::m), in the packing order of
         # map_kernel.pack.
         self.R = None
@@ -308,7 +382,9 @@ class _Gen(object):
         self.out_off = []
         for _ in self.out_names:
             self.out_off.append(off)
-            off += rank
+            # the eager form: a mask of the axes an output of a smaller
+            # shape is written at coordinate 0 only
+            off += rank + (self.form == "eager")
         self.in_off = []
         for inp in self.inputs:
             shape_off = off
@@ -316,11 +392,13 @@ class _Gen(object):
             cs_off = stride_off + inp.rank
             off = cs_off + 1
             bs_off = None
-            if self.form == "eager":
+            if self.form == "eager" or inp.bcast:
                 bs_off = off
                 off += rank
             self.in_off.append((shape_off, stride_off, cs_off, bs_off))
         for name, v in self.scalars.items():
+            if isinstance(v, torch.Tensor):
+                continue                   # 0-d: hoisted (`_hoist`)
             self.scalar_slots[name] = off
             off += 2 if isinstance(v, complex) else 1
         self.nmeta = off
@@ -352,7 +430,7 @@ class _Gen(object):
         k = self.input_index[inp.name]
         _, _, cs, bs = self.in_off[k]
         ptr = f"p.ptr[{k}]"
-        if self.form == "stencil":
+        if self.form == "stencil" and not inp.bcast:
             return self._load_stencil(f, inp, idx, k)
         if bare and bs is not None:
             off = " + ".join(f"c[{d}] * p.m[{bs + d}]"
@@ -371,14 +449,16 @@ class _Gen(object):
         (one an axis), through its strides."""
         inp = self.inputs[k]
         _, st, cs, _ = self.in_off[k]
-        if inp.storage == "packed":
+        if inp.storage in ("packed", "cpacked"):
             per = inp.per_byte
             last = terms[-1]
             off = " + ".join(
                 [f"({t}) * p.m[{st + d}]" for d, t in enumerate(terms[:-1])]
                 + [f"(({last}) / {per}) * p.m[{st + len(terms) - 1}]"])
-            return (f"ld_packed<{C_TYPES[inp.dtype]}, {inp.nbit}>({ptr}, "
-                    f"{off}, ({last}) % {per})")
+            fn = f"ld_packed<{C_TYPES[inp.dtype]}, {inp.nbit}>" \
+                if inp.storage == "packed" else \
+                f"ld_cpacked<{_COMPLEX_PART[inp.dtype]}, {inp.nbit}>"
+            return f"{fn}({ptr}, {off}, ({last}) % {per})"
         off = " + ".join(f"({t}) * p.m[{st + d}]"
                          for d, t in enumerate(terms)) or "0"
         return self._ld_off(inp, ptr, f"({off})", cs)
@@ -434,6 +514,12 @@ class _Gen(object):
             code, rep = literal(v)
             return _Val(code, rep, True)
         if kind == "scalar":
+            if isinstance(v, torch.Tensor):
+                # a 0-d tensor: its value read at launch, as the plain
+                # engine reads it (a CPU scalar when on the CPU)
+                val = self._hoist(node, _rep_of(v.dtype, dim0=True))
+                val.host = v.device.type == "cpu"
+                return val
             off = self.scalar_slots[node.id]
             if isinstance(v, bool):
                 code = f"(p.m[{off}] != 0)"
@@ -447,19 +533,20 @@ class _Gen(object):
             else:
                 raise Unsupported(f"scalar {node.id!r} of type "
                               f"{type(v).__name__} has no generated form")
-            return _Val(code, _rep_like(v))
+            return _Val(code, _rep_like(v), host=True)
         if kind == "axis":
             pad = " + NOFF" if v == 0 and self.form == "stencil" else ""
             return _Val(f"((int32_t)(c[{v}]{pad}))", _rep_of(torch.int32))
         if kind == "size":
-            return _Val(f"p.m[{2 + v}]", 1)
+            return _Val(f"p.m[{2 + v}]", 1, host=True)
         if kind == "input":
-            if self.form == "stencil":
+            if self.form == "stencil" and not v.bcast:
                 raise Unsupported("a whole-array reference in a stencil")
             return _Val(self.load(f, v, "c", bare=True), _rep_of(v.dtype))
         # an earlier statement, at this element's coordinates
         rep = self.stmt_types[v]
-        return _Val(f.let(C_TYPES[rep.dtype], f"s{v}(p, c)"), rep)
+        return _Val(f.let(_ctype_of(rep), f"s{v}(p, c)"), rep,
+                    host=self.stmt_host[v])
 
     def _Subscript(self, f, node, env):
         if not isinstance(node.value, ast.Name):
@@ -510,19 +597,31 @@ class _Gen(object):
         a = self.expr(f, node.operand, env)
         if isinstance(node.op, ast.UAdd):
             return a
-        pyop = {ast.USub: lambda x: -x, ast.Invert: lambda x: ~x,
-                ast.Not: None}[type(node.op)]
-        if pyop is None:
-            raise Unsupported("'not' has no generated form")
+        if isinstance(node.op, ast.Not):
+            # Python's `not`: a bool of the operand's truth, which the
+            # plain engine refuses for an array of more than one element.
+            if a.is_tensor and not a.dim0:
+                raise RuntimeError("map: 'not' of an array: Boolean value "
+                                   "of Tensor with more than one value is "
+                                   "ambiguous")
+            if a.const:
+                return _Val(*literal(not a.rep), True)
+            return _Val(f"(!truth({a.code}))", True, host=True)
+        pyop = {ast.USub: lambda x: -x, ast.Invert: lambda x: ~x}[
+            type(node.op)]
         rep = self._apply(ast.unparse(node), pyop, a.rep)
         if a.const:
             return _Val(*literal(rep), True)
+        if a.host and isinstance(rep, torch.Tensor):
+            return self._hoist(node, rep)
         if not isinstance(rep, torch.Tensor):
             if isinstance(node.op, ast.USub):
                 return _Val(f"(-{a.code})" if not isinstance(rep, complex)
-                            else f"op_neg<cx<double>>({a.code})", rep)
+                            else f"op_neg<cx<double>>({a.code})", rep,
+                            host=True)
             return _Val(f"(~{a.code})" if isinstance(rep, int) and
-                        not isinstance(rep, bool) else f"(!{a.code})", rep)
+                        not isinstance(rep, bool) else f"(!{a.code})", rep,
+                        host=True)
         t = _ctype(rep.dtype)
         fn = "op_neg" if isinstance(node.op, ast.USub) else "op_invert"
         return _Val(f.let(t, f"{fn}<{t}>(cvt<{t}>({a.code}))"), rep)
@@ -533,29 +632,47 @@ class _Gen(object):
                           f"generated form")
         a = self.expr(f, node.left, env)
         b = self.expr(f, node.right, env)
-        rep = self._apply(ast.unparse(node), _PYOPS[type(node.op)],
-                          a.rep, b.rep)
+        pyop = _PYOPS[type(node.op)]
+        if isinstance(node.op, ast.Pow):
+            from .map import _pow as pyop   # the plain engine's ``**``
+        rep = self._apply(ast.unparse(node), pyop, a.rep, b.rep)
         if a.const and b.const:
             return _Val(*literal(rep), True)
-        if not isinstance(rep, torch.Tensor):
-            return _Val(self._py_binop(node.op, a, b, rep), rep)
-        t = _ctype(rep.dtype)
         sym, fn = _BINOPS[type(node.op)]
-        if rep.dtype.is_complex and fn in ("op_floordiv", "op_mod",
-                                           "op_pow"):
+        if a.host and b.host and (isinstance(rep, torch.Tensor) or fn in (
+                "op_pow", "op_shl", "op_shr")):
+            # Python's ** and shifts, and torch on 0-d CPU tensors: the
+            # plain engine's own result, computed at launch.
+            return self._hoist(node, rep)
+        if not isinstance(rep, torch.Tensor):
+            return _Val(self._py_binop(node.op, a, b, rep), rep, host=True)
+        t = _ctype(rep.dtype)
+        if rep.dtype.is_complex and fn in ("op_floordiv", "op_mod"):
             raise Unsupported(f"complex {sym} has no generated form")
         if fn == "op_pow":
             base = f.let(t, f"cvt<{t}>({a.code})")
             return _Val(f.let(t, self._pow(t, rep.dtype, base, b)), rep)
         if fn in ("op_shl", "op_shr") and rep.dtype == torch.bool:
             raise Unsupported(f"a shift of bools ({ast.unparse(node)!r})")
+        if rep.dtype in _HALF and fn in _OPMATH_SCALAR and \
+                (a.host or b.host):
+            ops = [f"cvt<float>({v.code})" if v.host else
+                   f"cvt<float>(cvt<{t}>({v.code}))" for v in (a, b)]
+            return _Val(f.let(t, f"{t}({fn}<float>({ops[0]}, {ops[1]}))"),
+                        rep)
         return _Val(f.let(t, f"{fn}<{t}>(cvt<{t}>({a.code}), "
                              f"cvt<{t}>({b.code}))"), rep)
 
     @staticmethod
     def _pow(t, dtype, base, b):
         """``base ** b`` in type `t`, `base` already of that type: torch's
-        integer power, and its float forms for scalar exponents."""
+        integer power, and its float and complex forms for scalar
+        exponents."""
+        special = b.const and not isinstance(b.rep, (complex, torch.Tensor))
+        if dtype.is_complex:
+            if special and float(b.rep) in _CX_POW_SPECIAL:
+                return _CX_POW_SPECIAL[float(b.rep)].format(a=base, t=t)
+            return f"mpow({base}, cvt<{t}>({b.code}))"
         if not dtype.is_floating_point:
             if b.const and isinstance(b.rep, int):
                 return f"powi<{t}, long long>({base}, {b.code})"
@@ -572,11 +689,6 @@ class _Gen(object):
         t = PY_C[type(rep)]
         if isinstance(op, ast.Div):
             return f"((double)({a.code}) / (double)({b.code}))"
-        if isinstance(op, ast.Pow):
-            raise Unsupported("** of two run-time scalars has no generated form")
-        if fn in ("op_shl", "op_shr"):
-            raise Unsupported("a shift of two run-time scalars (Python "
-                              "integers have no width) has no generated form")
         if fn in ("op_floordiv", "op_mod"):
             if t == "cx<double>":
                 raise Unsupported(f"complex {sym} has no generated form")
@@ -594,14 +706,16 @@ class _Gen(object):
         rep = self._apply(ast.unparse(node), _PYOPS[type(op)], a.rep, b.rep)
         if a.const and b.const:
             return _Val(*literal(rep), True)
+        if a.host and b.host and isinstance(rep, torch.Tensor):
+            return self._hoist(node, rep)
         sym = _CMPOPS[type(op)]
         if not isinstance(rep, torch.Tensor):
             if isinstance(a.rep, complex) or isinstance(b.rep, complex):
                 # Python allows only == and != on complex numbers.
                 fn = "op_eq" if sym == "==" else "op_ne"
                 return _Val(f"{fn}<cx<double>>(cvt<cx<double>>({a.code}), "
-                            f"cvt<cx<double>>({b.code}))", rep)
-            return _Val(f"(({a.code}) {sym} ({b.code}))", rep)
+                            f"cvt<cx<double>>({b.code}))", rep, host=True)
+            return _Val(f"(({a.code}) {sym} ({b.code}))", rep, host=True)
         dt = torch.result_type(a.rep, b.rep)
         t = _ctype(dt)
         ca, cb = f"cvt<{t}>({a.code})", f"cvt<{t}>({b.code})"
@@ -628,6 +742,8 @@ class _Gen(object):
         rep = self._apply(ast.unparse(node), fn, *[a.rep for a in args])
         if all(a.const for a in args):
             return _Val(*literal(rep), True)
+        if all(a.host for a in args):
+            return self._hoist(node, rep)
         if not isinstance(rep, torch.Tensor):
             raise Unsupported(f"{fname} of run-time scalars returned "
                           f"{type(rep).__name__}")
@@ -670,10 +786,11 @@ class _Gen(object):
             return (f"{fn}<{t}>(cvt<{t}>({a}), "
                     f"cvt<{t}>({args[1].code}))")
         if fname == "pow":
-            if dtype.is_complex:
-                raise Unsupported("complex pow has no generated form")
             return self._pow(t, dtype, f"cvt<{t}>({a})", args[1])
         if fname == "atan2":
+            if dtype in _HALF:
+                return (f"cvt<{t}>(std::atan2(cvt<float>(cvt<{t}>({a})), "
+                        f"cvt<float>(cvt<{t}>({args[1].code}))))")
             return (f"std::atan2(cvt<{t}>({a}), "
                     f"cvt<{t}>({args[1].code}))")
         if fname in ("abs", "fabs"):
@@ -689,11 +806,16 @@ class _Gen(object):
             return f"{_ROUNDING[fname]}<{t}>(cvt<{t}>({a}))"
         if fname in _UNARY_MATH:
             if dtype.is_complex:
-                if fname == "exp":
-                    return f"mexp(cvt<{t}>({a}))"
-                raise Unsupported(f"complex {fname} has no generated form")
+                if fname not in _CX_MATH:
+                    raise Unsupported(f"complex {fname} has no generated "
+                                      f"form")
+                return f"{_CX_MATH[fname]}(cvt<{t}>({a}))"
             if not dtype.is_floating_point:
                 raise Unsupported(f"{fname} to {dtype} has no generated form")
+            if dtype in _HALF and fname != "rsqrt":
+                # In f32, rounded once, as PyTorch's half kernels compute.
+                return (f"cvt<{t}>({_UNARY_MATH[fname]}(cvt<float>("
+                        f"cvt<{t}>({a}))))")
             return f"{_UNARY_MATH[fname]}(cvt<{t}>({a}))"
         raise Unsupported(f"{fname!r} has no generated form")
 
@@ -726,16 +848,50 @@ class _Gen(object):
         f = _Func(self)
         env = self._env(k)
         v = self.expr(f, tree, env)
-        if not v.is_tensor or v.rep.dim() == 0:
-            raise Unsupported(f"statement {self.statements[k][0]!r} does not "
-                          f"depend on an array")
-        t = _ctype(v.rep.dtype)
+        rep, host = v.rep, v.host
+        if v.dim0 and self.form in ("local", "stencil"):
+            # The explicit forms broadcast every statement's value to the
+            # output grid (ops/map.py `_stream_eval`): an array.
+            rep, host = _rep_of(_value_dtype(rep)), False
+        t = _ctype_of(rep)
         body = "\n".join(f.lines)
         self.funcs.append(
             f"MAP_HD {t} s{k}(const P& p, const long long* c) {{\n"
             f"{body}\n  return cvt<{t}>({v.code});\n}}\n")
-        self.stmt_types.append(v.rep)
-        return v.rep
+        self.stmt_types.append(rep)
+        self.stmt_host.append(host)
+        return rep
+
+    def _hoist(self, node, rep):
+        """A value the plain engine computes on the host from scalars and
+        sizes alone (Python's ``**`` and shifts, torch on 0-d CPU
+        tensors): a meta word the launch fills with the plain engine's own
+        result (`Program.derive`), so it is exact."""
+        if isinstance(rep, torch.Tensor):
+            if rep.dtype not in C_TYPES:
+                raise Unsupported(f"{ast.unparse(node)}: {rep.dtype} has no "
+                                  f"generated form")
+            dt = rep.dtype
+            kind = complex if dt.is_complex else float \
+                if dt.is_floating_point else bool if dt == torch.bool else int
+        else:
+            kind = type(rep)
+        off = self.nmeta
+        self.nmeta += 2 if kind is complex else 1
+        self.derived.append((off, ast.unparse(node), rep))
+        code = {bool: f"(p.m[{off}] != 0)", int: f"p.m[{off}]",
+                float: f"bits_f64(p.m[{off}])",
+                complex: f"cx<double>(bits_f64(p.m[{off}]), "
+                         f"bits_f64(p.m[{off + 1}]))"}[kind]
+        if isinstance(rep, torch.Tensor):
+            code = f"cvt<{_ctype(rep.dtype)}>({code})"
+        return _Val(code, rep, host=True)
+
+
+def _f64_word(v):
+    """A float's IEEE bits as the signed 64-bit meta word `bits_f64`
+    reads."""
+    return struct.unpack("<q", struct.pack("<d", float(v)))[0]
 
 
 def _trees(statements, arrays, reserved):
@@ -775,7 +931,9 @@ def generate(statements, form, inputs, ns, arrays, out_names,
     rank = int(out_rank)
     if not 1 <= rank <= MAX_RANK or \
             any(inp.rank > MAX_RANK for inp in inputs):
-        raise Unsupported(f"rank above {MAX_RANK}")
+        raise Unsupported(f"rank above {MAX_RANK}: an indexed form reads "
+                          f"every axis (the elementwise and eager forms "
+                          f"collapse contiguous axes)")
     for inp in inputs:
         if inp.dtype not in C_TYPES:
             raise Unsupported(f"{inp.dtype}: no generated form for this type")
@@ -783,7 +941,8 @@ def generate(statements, form, inputs, ns, arrays, out_names,
                noffset, ns, arrays, out_names)
     gen.layout(rank)
     reserved = frozenset(k for k, v in ns.items())
-    for k, tree in enumerate(_trees(statements, arrays, reserved)):
+    gen.trees = _trees(statements, arrays, reserved)
+    for k, tree in enumerate(gen.trees):
         gen.statement(k, tree)
     out_idx = [max(i for i, s in enumerate(statements) if s[0] == n)
                for n in out_names]
@@ -800,9 +959,18 @@ class Program(object):
         self.noffset = gen.noffset
         self.rank = gen.R
         self.out_names = gen.out_names
-        self.out_dtypes = [gen.stmt_types[k].dtype for k in out_idx]
+        self.out_dtypes = [_value_dtype(gen.stmt_types[k]) for k in out_idx]
         self.scalar_names = list(gen.scalars)
-        self.scalar_types = [type(v) for v in gen.scalars.values()]
+        self.scalar_types = [torch.Tensor if isinstance(v, torch.Tensor)
+                             else type(v) for v in gen.scalars.values()]
+        # What `derive` evaluates at each launch.
+        self._derived = list(gen.derived)
+        self._host_stmts = [(gen.statements[k][0], ast.unparse(tree))
+                            for k, tree in enumerate(gen.trees)
+                            if gen.stmt_host[k]]
+        self._axis_names = gen.axis_names
+        self._ns = gen.ns
+        self._arrays = gen.arrays
         self.nmeta = gen.nmeta
         self.nptr = gen.nptr
         # A local form reading its input whole needs the output's
@@ -811,6 +979,42 @@ class Program(object):
         self.source = self._source(gen, out_idx)
         self.key = hashlib.sha256(self.source.encode()).hexdigest()[:16]
         self.name = f"map_{self.key}"
+
+    def derive(self, scalars, out_shape):
+        """The meta words of the hoisted values: each evaluated by the
+        plain engine on the host from the run-time `scalars` (name ->
+        value) and the output's sizes, after the array-independent
+        statements it may read -> list of int."""
+        if not self._derived:
+            return []
+        from .map import _HOOKS, _eval
+        ns = dict(self._ns)
+        ns.update(_HOOKS)
+        ns.update(scalars)
+        for d, ax in enumerate(self._axis_names):
+            ns[f"n{ax}"] = int(out_shape[d])
+        for name, expr in self._host_stmts:
+            ns[name] = _eval(expr, self._arrays, ns)
+        words = []
+        for _off, expr, rep in self._derived:
+            v = _eval(expr, self._arrays, ns)
+            if isinstance(rep, torch.Tensor):
+                if not isinstance(v, torch.Tensor) or v.dim() != 0 or \
+                        v.dtype != rep.dtype:
+                    raise TypeError(f"map: {expr!r} was generated as a 0-d "
+                                    f"{rep.dtype}, the scalars give {v!r}")
+                v = v.item()
+            elif type(v) is not type(rep):
+                raise TypeError(f"map: {expr!r} was generated as "
+                                f"{type(rep).__name__}, the scalars give "
+                                f"{type(v).__name__} {v!r}")
+            if isinstance(v, complex):
+                words += [_f64_word(v.real), _f64_word(v.imag)]
+            elif isinstance(v, float):
+                words.append(_f64_word(v))
+            else:
+                words.append(int(v))
+        return words
 
     def _source(self, gen, out_idx):
         R = gen.R
@@ -836,12 +1040,18 @@ class Program(object):
         ]
         body = "\n".join(gen.funcs)
         stores = []
+        if gen.form == "eager":
+            stores.append("    long long nz = 0;\n" + "\n".join(
+                f"    nz |= (long long)(c[{d}] != 0) << {d};"
+                for d in range(R)))
         for j, k in enumerate(out_idx):
-            t = C_TYPES[gen.stmt_types[k].dtype]
+            t = C_TYPES[_value_dtype(gen.stmt_types[k])]
             off = " + ".join(f"c[{d}] * p.m[{gen.out_off[j] + d}]"
                              for d in range(R))
-            stores.append(f"    st<{t}>(p.ptr[{nin + j}], {off}, "
-                          f"s{k}(p, c));")
+            guard = f"if (!(nz & p.m[{gen.out_off[j] + R}])) " \
+                if gen.form == "eager" else ""
+            stores.append(f"    {guard}st<{t}>(p.ptr[{nin + j}], {off}, "
+                          f"cvt<{t}>(s{k}(p, c)));")
         decomp = "\n".join(
             f"    c[{d}] = r % p.m[{2 + d}]; r /= p.m[{2 + d}];"
             for d in reversed(range(R)))
@@ -914,4 +1124,10 @@ extern "C" int map_host(const long long* m, void* const* ptr) {{
 }}
 #endif
 """]
-        return "\n".join(lines)
+        text = "\n".join(lines)
+        if re.search(r"\bb?f16\b", text):
+            # CUDA's half headers only where a half type is used
+            text = text.replace('#include "map_common.cuh"',
+                                '#define MAP_HALF_TYPES 1\n'
+                                '#include "map_common.cuh"', 1)
+        return text

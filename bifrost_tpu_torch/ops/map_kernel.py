@@ -59,20 +59,21 @@ def _storage_strides(t, inp):
 def logical_shape(t, inp):
     if inp.storage == "pair":
         return tuple(t.shape[:-1])
-    if inp.storage == "packed":
+    if inp.storage in ("packed", "cpacked"):
         return tuple(t.shape[:-1]) + (t.shape[-1] * inp.per_byte,)
     return tuple(t.shape)
 
 
-def _check_input(t, inp):
+def _check_input(t, inp, collapsed=False):
     want = {"real": inp.dtype, "complex": inp.dtype,
             "pair": inp.int_dtype, "ci4": torch.uint8,
-            "packed": torch.uint8}[inp.storage]
-    if t.dtype != want and not (inp.storage in ("ci4", "packed") and
+            "cpacked": torch.uint8, "packed": torch.uint8}[inp.storage]
+    if t.dtype != want and not (inp.storage in ("ci4", "cpacked",
+                                                "packed") and
                                 t.dtype == torch.int8):
         raise TypeError(f"map: input {inp.name!r} must be {want} "
                         f"({inp.storage} storage), got {t.dtype}")
-    if len(logical_shape(t, inp)) != inp.rank:
+    if len(logical_shape(t, inp)) != inp.rank and not collapsed:
         raise ValueError(f"map: input {inp.name!r} must have logical rank "
                          f"{inp.rank}, got shape {tuple(t.shape)}")
 
@@ -91,13 +92,46 @@ def _bcast_strides(shape, strides, out_shape):
     return bs
 
 
+def collapse(out_shape, strides, rank, keep_last=False):
+    """Merge adjacent axes of `out_shape` that every operand's strides
+    (each list aligned with `out_shape`) walk as one, drop axes of
+    extent 1, and pad at the front to `rank` axes -> (shape, strides);
+    raises `Unsupported` where more than `rank` axes remain.  With
+    `keep_last` the last axis stays apart (a packed storage addresses it
+    by byte)."""
+    from .map_codegen import Unsupported
+    dims = [(n, [s[d] for s in strides]) for d, n in enumerate(out_shape)]
+    last = dims.pop() if keep_last and dims else None
+    out = []
+    for n, st in dims:
+        if n == 1:
+            continue
+        if out:
+            pn, pst = out[-1]
+            if all(a == b * n for a, b in zip(pst, st)):
+                out[-1] = (pn * n, st)
+                continue
+        out.append((n, st))
+    if last is not None:
+        out.append(last)
+    if len(out) > rank:
+        raise Unsupported(f"map: the strides of a rank-{len(out_shape)} "
+                          f"call cannot be collapsed to {rank} axes")
+    out = [(1, [0] * len(strides))] * (rank - len(out)) + out
+    return ([n for n, _ in out],
+            [[st[k] for _, st in out] for k in range(len(strides))])
+
+
 def _scalar_slots(prog, scalars):
     m = []
     for name, want, v in zip(prog.scalar_names, prog.scalar_types,
                              scalars):
-        if type(v) is not want:
+        if not (isinstance(v, torch.Tensor) if want is torch.Tensor
+                else type(v) is want):
             raise TypeError(f"map: scalar {name!r} was generated as "
                             f"{want.__name__}, got {type(v).__name__}")
+        if isinstance(v, torch.Tensor):
+            continue                       # read by `Program.derive`
         if isinstance(v, complex):
             m += [struct.unpack("<q", struct.pack("<d", v.real))[0],
                   struct.unpack("<q", struct.pack("<d", v.imag))[0]]
@@ -109,35 +143,67 @@ def _scalar_slots(prog, scalars):
 
 
 def pack(prog, ins, out_shape, scalars, carry, outs, carry_out):
-    """The kernel's meta words and pointers, in map_codegen's layout."""
+    """The kernel's meta words and pointers, in map_codegen's layout.  An
+    eager call's outputs may be of any shape that broadcasts to
+    `out_shape` (each written once); a call of more axes than the
+    program has is collapsed (`collapse`)."""
     if len(ins) != len(prog.inputs) or len(outs) != len(prog.out_names):
         raise ValueError("map: inputs or outputs do not match the program")
+    out_shape = tuple(out_shape)
     n = math.prod(out_shape)
     ncarry = carry_out.numel() if carry_out is not None else 0
-    m = [n, ncarry] + list(out_shape)
+    eager = prog.form == "eager"
+    ostr = []
     for o in outs:
-        if tuple(o.shape) != tuple(out_shape):
+        if eager:
+            ostr.append(_bcast_strides(o.shape, o.stride(), out_shape))
+        elif tuple(o.shape) != out_shape:
             raise ValueError(f"map: output shape {tuple(o.shape)} != "
-                             f"{tuple(out_shape)}")
-        m += list(o.stride())
+                             f"{out_shape}")
+        else:
+            ostr.append(list(o.stride()))
+    views = []                   # (shape, strides, cs, bcast strides)
     for t, inp in zip(ins, prog.inputs):
-        _check_input(t, inp)
+        _check_input(t, inp, len(out_shape) > prog.rank)
         strides, cs = _storage_strides(t, inp)
         shape = logical_shape(t, inp)
-        m += list(shape) + strides + [cs]
-        if prog.form == "eager":
-            m += _bcast_strides(shape, strides, out_shape)
-    if prog.form != "eager":
+        bs = _bcast_strides(shape, strides, out_shape) \
+            if eager or inp.bcast else None
+        views.append([shape, strides, cs, bs])
+    if not eager:
         # The streaming forms read their input at the output's frames (a
         # whole-array read at the output's coordinates too): the shapes
         # must agree as the plain engine's broadcast requires.
         lshape = logical_shape(ins[0], prog.inputs[0])
         if lshape[0] != out_shape[0] or (
                 (prog.form == "elementwise" or prog.bare_input) and
-                lshape != tuple(out_shape)):
+                lshape != out_shape):
             raise ValueError(f"map: input {lshape} does not match the "
-                             f"output {tuple(out_shape)}")
+                             f"output {out_shape}")
+    if len(out_shape) > prog.rank:
+        # The elementwise and eager forms read every input at the
+        # output's coordinates: collapse them all alike.
+        walks = ostr + [v[3] if v[3] is not None else v[1] for v in views]
+        keep = any(inp.storage in ("packed", "cpacked")
+                   for inp in prog.inputs)
+        out_shape, walks = collapse(out_shape, walks, prog.rank, keep)
+        ostr = walks[:len(outs)]
+        for v, w in zip(views, walks[len(outs):]):
+            v[0], v[1] = out_shape, w
+            if v[3] is not None:
+                v[3] = w
+    m = [n, ncarry] + list(out_shape)
+    for st in ostr:
+        m += list(st)
+        if eager:
+            m.append(sum(1 << d for d, (a, e) in enumerate(zip(st, out_shape))
+                         if a == 0 and e != 1))
+    for shape, strides, cs, bs in views:
+        m += list(shape) + list(strides) + [cs]
+        if bs is not None:
+            m += list(bs)
     m += _scalar_slots(prog, scalars)
+    m += prog.derive(dict(zip(prog.scalar_names, scalars)), out_shape)
     if len(m) != prog.nmeta:
         raise ValueError(f"map: packed {len(m)} meta words, the program "
                          f"takes {prog.nmeta}")

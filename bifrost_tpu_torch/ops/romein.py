@@ -10,12 +10,25 @@ here they never enter the plan).
 API as in the JAX package: ``init(positions, kernels, ngrid, method=)``,
 ``set_positions``, ``set_kernels``, ``execute(data, grid)``,
 ``plan_report()``.  Positions (2, ..., nvis) and kernels (broadcastable to
-(npol, nvis, m, m)) are plan state given as host arrays; device-resident
-positions (the JAX `bin_to_tiles_device` path) are not ported yet and
-raise.
+(npol, nvis, m, m)) are plan state from either origin, as in the JAX
+package (bifrost_tpu/ops/romein.py:209-235):
 
-The plan, built once on the host per positions and kernels and cached per
-(method, npol, nvis, device), lists every in-grid contribution sorted by
+- 'host': numpy arrays or lists; the plan is built in numpy
+  (`build_plan`, `build_tiles`, `kernel_planes`, `separate_kernels`
+  below);
+- 'device': a `torch.Tensor` given for either (UVW computed on the card
+  by an earlier stage); the plan is built on the tensor's device by the
+  torch builders of ops/romein_plan.py, bitwise equal to the host
+  builders' tables (the JAX `bin_to_tiles_device` path).  A tensor on
+  another device than the data's is moved once, when the plan is built.
+
+`plan_report()["origin"]` says which origin built the last plan and
+`plan_build_s` how long it took.
+
+The plan, built once per positions and kernels and cached per (method,
+npol, nvis, device, origin) and, for a device origin, the tensors'
+identity and version (an in-place edit never serves a stale plan), lists
+every in-grid contribution sorted by
 destination cell (`build_plan`, the destination sort of the JAX 'sorted'
 method, ops/romein.py:311-330, with CSR offsets per cell).  It keeps
 broadcast kernel planes as broadcasts: one (m, m) kernel plane, or one
@@ -42,6 +55,7 @@ import numpy as np
 import torch
 
 from ..DataType import DataType
+from . import romein_plan
 from .romein_kernel import (TILE, WARPS, Tiles, chunk_slots, grid_general,
                             grid_general_plain, grid_separable,
                             grid_separable_plain)
@@ -252,30 +266,49 @@ class RomeinPlan(object):
     """A built plan on one device: the CSR lists, the kernel planes
     (`kern`, or the rank-1 `u`, `v` when `separable`) and, for the
     kernels ('cuda' on a CUDA device), the tiled plan `tiles` (else
-    None), built in `tiles_build_s` host seconds."""
+    None), built in `tiles_build_s` seconds.  Positions `xs`, `ys` and
+    kernels `kern` given as tensors take the torch builders on `device`
+    (`origin` 'device'); numpy arrays take the host builders ('host')."""
 
-    def __init__(self, xs, ys, kern_np, ngrid, npol, ndata, device,
+    def __init__(self, xs, ys, kern, ngrid, npol, ndata, device,
                  method="cuda"):
-        m = kern_np.shape[-1]
+        m = int(kern.shape[-1])
         device = torch.device(device)
         self.m, self.ngrid, self.npol, self.ndata = m, ngrid, npol, ndata
-        offsets, entries = build_plan(xs, ys, m, ngrid)
-        self.ncontrib = int(entries.size)
-        self.maxcount = int(np.diff(offsets).max()) if offsets.size > 1 \
-            else 0
-        planes = kernel_planes(kern_np, npol, ndata, m)
-        uv = separate_kernels(planes)
+        on_device = any(isinstance(a, torch.Tensor) for a in (xs, ys, kern))
+        self.origin = "device" if on_device else "host"
+        if on_device:
+            builders = (romein_plan.build_plan, romein_plan.build_tiles,
+                        romein_plan.kernel_planes,
+                        romein_plan.separate_kernels)
+
+            def put(a):
+                if not isinstance(a, torch.Tensor):
+                    a = torch.from_numpy(np.ascontiguousarray(a))
+                return a.to(device)
+            xs, ys, kern = put(xs), put(ys), put(kern)
+        else:
+            builders = (build_plan, build_tiles, kernel_planes,
+                        separate_kernels)
+
+            def put(a):
+                return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        plan_fn, tiles_fn, planes_fn, separate_fn = builders
+        offsets, entries = plan_fn(xs, ys, m, ngrid)
+        self.ncontrib = int(entries.shape[0])
+        self.maxcount = int((offsets[1:] - offsets[:-1]).max()) \
+            if offsets.shape[0] > 1 else 0
+        planes = planes_fn(kern, npol, ndata, m)
+        uv = separate_fn(planes)
         self.separable = uv is not None
-
-        def put(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
         self.offsets, self.entries = put(offsets), put(entries)
         self.tiles, self.tiles_build_s = None, 0.0
         if method == "cuda" and device.type == "cuda":
             t0 = time.perf_counter()
-            self.tiles = Tiles(build_tiles(offsets, entries, m, ngrid, ndata),
+            self.tiles = Tiles(tiles_fn(offsets, entries, m, ngrid, ndata),
                                m, ngrid, ndata, device)
+            if on_device:
+                torch.cuda.synchronize(device)
             self.tiles_build_s = time.perf_counter() - t0
         if self.separable:
             self.u, self.v = put(uv[0]), put(uv[1])
@@ -283,6 +316,8 @@ class RomeinPlan(object):
         else:
             self.kern = put(planes)
             self.u = self.v = None
+        if on_device and device.type == "cuda":
+            torch.cuda.synchronize(device)
 
     def grid(self, data, out, method, accumulate):
         """Grid data (npol, ndata) complex64 into out (npol, ngrid,
@@ -304,8 +339,8 @@ class Romein(object):
     """Plan API (counterpart of bifrost_tpu/ops/romein.py `Romein`)."""
 
     def __init__(self):
-        self.positions = None   # host (2, ..., ndata) int
-        self.kernels = None     # host complex kernels
+        self.positions = None   # (2, ..., ndata) int: numpy or a tensor
+        self.kernels = None     # complex kernels: numpy or a tensor
         self.ngrid = None
         self.m = None
         self.method = "auto"
@@ -337,30 +372,36 @@ class Romein(object):
         return self._runtime.resolve_method(self.method)
 
     @staticmethod
-    def _host(a, what):
-        if isinstance(a, torch.Tensor) and a.device.type != "cpu":
-            raise NotImplementedError(
-                f"romein: device-resident {what} (the JAX "
-                f"bin_to_tiles_device path) are not ported yet; pass them "
-                f"as host arrays")
-        return a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    def _state(a):
+        """Plan state as given: a tensor stays where it is (the device
+        origin), anything else becomes a numpy array (the host origin)."""
+        return a if isinstance(a, torch.Tensor) else np.asarray(a)
 
     def set_positions(self, positions):
-        self.positions = self._host(positions, "positions")
+        self.positions = self._state(positions)
         self._runtime.invalidate()
         self._last_plan = None
 
     def set_kernels(self, kernels):
-        self.kernels = self._host(kernels, "kernels")
+        self.kernels = self._state(kernels)
         self.m = int(self.kernels.shape[-1])
         self._runtime.invalidate()
         self._last_plan = None
+
+    @property
+    def state_origin(self):
+        """'device' when positions or kernels are a tensor (the torch
+        builders derive the plan), else 'host' (numpy), as the JAX
+        `Romein.state_origin`."""
+        return "device" if any(isinstance(a, torch.Tensor) for a in
+                               (self.positions, self.kernels)) else "host"
 
     def plan(self, npol, ndata, device):
         """The built plan for `npol` planes of `ndata` visibilities on
         `device` (cached)."""
         method = self._resolve()
         device = torch.device(device)
+        origin = self.state_origin
 
         def build():
             pos = self.positions.reshape(2, -1, self.positions.shape[-1])
@@ -370,8 +411,11 @@ class Romein(object):
             return RomeinPlan(pos[0, 0], pos[1, 0], self.kernels,
                               self.ngrid, npol, ndata, device, method)
 
-        plan = self._runtime.plan((method, npol, ndata, str(device)), build,
-                                  method=method, origin="host")
+        key = (method, npol, ndata, str(device), origin)
+        if origin == "device":
+            key += tuple((id(a), a._version) if isinstance(a, torch.Tensor)
+                         else None for a in (self.positions, self.kernels))
+        plan = self._runtime.plan(key, build, method=method, origin=origin)
         self._last_plan = plan
         return plan, method
 

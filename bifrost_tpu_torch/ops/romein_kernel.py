@@ -165,7 +165,8 @@ def grid_separable_plain(data, offsets, entries, u, v, out,
 
 class Tiles(object):
     """The tiled plan of one CSR plan on one device: the tables of
-    ops/romein.py `build_tiles` as int32 tensors, with the grid side
+    ops/romein.py `build_tiles` (numpy arrays, or the tensors of
+    ops/romein_plan.py `build_tiles`) as int32 tensors, with the grid side
     `ngrid`, the kernel support `m` and the visibility count `ndata` they
     were cut for, the number of chunks `nchunk` and the most cells with
     contributions in a tile, `max_cells`."""
@@ -175,10 +176,14 @@ class Tiles(object):
 
     def __init__(self, tables, m, ngrid, ndata, device):
         self.m, self.ngrid, self.ndata = int(m), int(ngrid), int(ndata)
-        self.nchunk = int(tables["chunk_vis0"].size) - 1
-        self.max_cells = int(tables["cellmap"].max(initial=-1)) + 1
         for name in self.NAMES:
-            setattr(self, name, torch.from_numpy(tables[name]).to(device))
+            t = tables[name]
+            if not isinstance(t, torch.Tensor):
+                t = torch.from_numpy(t)
+            setattr(self, name, t.to(device))
+        self.nchunk = int(self.chunk_vis0.shape[0]) - 1
+        self.max_cells = int(self.cellmap.max()) + 1 \
+            if self.cellmap.numel() else 0
 
 
 def _declare(lib):

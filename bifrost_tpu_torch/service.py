@@ -65,8 +65,8 @@ The bare chains, each -> (pipeline, detector, ledger):
 - `lwa_beam_search_pipeline`, the B branch of the instrument.
 - `lwa_instrument_pipeline`, the whole instrument.
 
-Not ported yet, each raising NotImplementedError where it is asked for:
-`map` (A13); `Service.respec` (A15).  Sub-byte capture runs through the
+Not ported yet, raising NotImplementedError where it is asked for:
+`Service.respec` (A15).  Sub-byte capture runs through the
 `unpack` kind, and the instrument takes `engine='int8'`.
 `degrade_shards` is accepted, but with no mesh no shard is ever evicted
 (A16).  The data-quality front end of the beam search (flag -> calibrate
@@ -833,8 +833,10 @@ def lwa_instrument_pipeline(voltages, nstand=256, npol=2, nchan=4096,
     bdetect_t -> bdetect_fdmt fuse (the default, as the spec's); `gains`
     ((nstand[, npol]) complex) fold into the X-engine's voltages; `uvw`
     ((2, nvis) int grid positions) and `kernels` (broadcastable to
-    (nchan, nvis, m, m)) default to `default_uvw` and
-    `default_grid_kernel`; `weights` and `coeffs` as in
+    (nchan, nvis, m, m)) default to the host arrays `default_uvw` and
+    `default_grid_kernel`; given as card tensors they stay on the card
+    and the gridder builds its plan there (origin 'device',
+    ops/romein.py); `weights` and `coeffs` as in
     `lwa_beam_search_pipeline`.  `engine` is the X-engine's, 'f32' or
     'int8' (the PFB's output cast to int8 as the reference casts it).
     `device`, the `*_method` pins and `gather` ('beams', 'dedispersed')

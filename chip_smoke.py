@@ -20,7 +20,13 @@ Phases, one line each; any failure exits non-zero:
              rerun, and their tiled plan's geometry, sectors per plane,
              layout floor, host build time and each kernel
              instantiation's registers and shared memory get a line of
-             their own.
+             their own.  The same plans are built from card tensors
+             (origin 'device', ops/romein_plan.py), held bitwise against
+             the host-built plans table by table, and K6a/K6b launched
+             from them bitwise their host-origin launches, both build
+             times and both kernels' times a frame beside each other;
+             K6b's plan is also rebuilt for RM_NSEQ sequences of new
+             positions from each origin.
 4. main    — drive the FRB-search chain (`frb_search_pipeline`) at full
              width: 4096 channels of u8 power at the LWA band (40 MHz,
              9.28 kHz, 1 ms), FDMT max_delay 2048, gulps of 4096 frames,
@@ -54,8 +60,11 @@ Phases, one line each; any failure exits non-zero:
              are compared bitwise with [bengine]'s, the first 2 images
              with the same pipeline run 2 integrations deep with every
              method 'plain', and the first
-             image on 8 channels against an f64 numpy golden.  Then a
-             2-integration run with a seeded non-rank-1 kernel puts
+             image on 8 channels against an f64 numpy golden, and a
+             2-integration run with `uvw` a card tensor (the gridder's
+             plan built on the card, origin 'device' asserted, its
+             proclog row read back) bitwise against the first 2 images.
+             Then a 2-integration run with a seeded non-rank-1 kernel puts
              kernel K6a on the path, its images compared bitwise with
              the same run with every method 'plain'.
 7. frbflag — the FRB search of phase 4 with the RFI flagger
@@ -303,7 +312,14 @@ Phases, one line each; any failure exits non-zero:
              against an exact golden; frames/s whole and steady.  Then
              nvcc's seconds and ptxas's registers and spills of each
              generated kernel, and a second Map on MAP_FUNC loading the
-             built library with no nvcc run.  Launches go into
+             built library with no nvcc run.  check_map also holds M1's
+             half, packed-complex and complex-math forms at the gulp's
+             shape: f16 and bf16 programs and ci2 and ci1 reads
+             (bitwise, timed against their bytes bound), the complex
+             transcendentals on complex64 (within MAP_CX_ULP ulps of
+             max(|z|, |w|); sqrt timed), and (d) runs the f16 program as
+             a map_block chain over MAP_HALF_NGULP gulps, one M1 launch a
+             gulp, bitwise its 'plain' run.  Launches go into
              `launches_by_path` as `map_<program>_<run>`.
 
 The launch checks of every phase count all nine kernels (K1, K2, K4,
@@ -462,6 +478,17 @@ MAP_FUNC = "y = 2.0f*x*x.conj() + 1.0f"
 MAP_STENCIL = "y(t,s,p) = x(t,s,p) - x(t-1,s,p)"
 MAP_AXES = ("t", "s", "p")
 MAP_NGULP, MAP_TURNS, MAP_SPLIT, MAP_CI4_NGULP = 8, 2, 4, 8
+# The half-type and packed-complex programs of [map],
+# the half chains' gulps, and the complex transcendentals' tolerance in
+# complex64 ulps of max(|z|, |w|) against PyTorch's kernels
+# (tests/test_torch_gpu.py states why).
+MAP_HALF_FUNC = "y = v * v - v * 0.5 + 1.25"
+MAP_CPK_FUNC = "y = v * v.conj() + v * 2"
+MAP_CX_FUNCS = ("sqrt", "log", "log2", "log10", "sin", "cos", "tan", "asin",
+                "acos", "atan", "sinh", "cosh", "tanh", "rsqrt")
+MAP_HALF_NGULP, MAP_CX_ULP = 4, 24
+# K6b's plan rebuilt per sequence: this many sequences of new positions.
+RM_NSEQ = 4
 
 # Device-memory rate by card (NVIDIA data sheets), bytes/s
 _HBM_RATE = (("H200", 4.8e12), ("H100 PCIe", 2.0e12), ("H100", 3.35e12))
@@ -1359,6 +1386,41 @@ def k6a_kernels(nvis):
         .astype(np.complex64)
 
 
+def same_romein_plans(a, b, name):
+    """Hold a device-origin plan `b` against the host-origin plan `a`,
+    table by table, bitwise."""
+    from bifrost_tpu_torch.ops.romein_kernel import Tiles
+    if (a.origin, b.origin) != ("host", "device") or \
+            a.separable != b.separable:
+        raise AssertionError(f"{name}: plans {a.origin}/{b.origin}, "
+                             f"separable {a.separable}/{b.separable}")
+    names = ["offsets", "entries"] + (["u", "v"] if a.separable else
+                                      ["kern"])
+    tabs = [(n, getattr(a, n), getattr(b, n)) for n in names] + \
+        [(n, getattr(a.tiles, n), getattr(b.tiles, n)) for n in Tiles.NAMES]
+    for n, x, y in tabs:
+        if x.dtype != y.dtype or x.shape != y.shape or not bits_equal(
+                x.view(torch.int32), y.view(torch.int32)):
+            raise AssertionError(f"{name}: device-origin table {n} differs "
+                                 f"from the host-built one")
+
+
+def romein_rebuilds(dev, uvw, kern, npol, nvis):
+    """K6b's plan rebuilt for RM_NSEQ sequences, each with new positions
+    (the patch corners shifted by the sequence number), from host arrays
+    and from card tensors -> (host s, device s) in all."""
+    from bifrost_tpu_torch.ops import Romein
+    secs = [0.0, 0.0]
+    for k in range(RM_NSEQ):
+        pos = (uvw + k) % (NGRID - M_KERN)
+        for i, p in enumerate((pos, torch.from_numpy(pos).to(dev))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            Romein().init(p, kern, NGRID).plan(npol, nvis, dev)
+            secs[i] += time.perf_counter() - t0
+    return secs
+
+
 def check_romein(dev, kind):
     """K6a and K6b at the imaging branch's shapes: one frame of 4096
     planes x 262,144 visibilities, laid out as the time-last ring span
@@ -1393,6 +1455,14 @@ def check_romein(dev, kind):
         plan_s = time.perf_counter() - t0
         if plan.separable != (name == "romein_grid_separable"):
             raise AssertionError(f"{name}: wrong kernel chosen")
+        # The same plan from card tensors (origin 'device').
+        uvw_d = torch.from_numpy(uvw).to(dev)
+        kern_d = torch.from_numpy(kern).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dplan, _ = Romein().init(uvw_d, kern_d, NGRID).plan(npol, nvis, dev)
+        dplan_s = time.perf_counter() - t0
+        same_romein_plans(plan, dplan, name)
         out = torch.empty(npol, NGRID, NGRID, dtype=torch.complex64,
                           device=dev)
         plan.grid(data, out, "cuda", False)
@@ -1406,7 +1476,20 @@ def check_romein(dev, kind):
             raise AssertionError(f"{name}: a rerun differs")
         worst = float((out - want).abs().max())
         del want, again
+        dout = torch.empty_like(out)
+        dplan.grid(data, dout, "cuda", False)
+        torch.cuda.synchronize()
+        if not bits_equal(torch.view_as_real(out), torch.view_as_real(dout)):
+            raise AssertionError(f"{name}: the device-origin plan's grid "
+                                 f"differs from the host-origin plan's")
+        del dout
         ms = cuda_time(lambda: plan.grid(data, out, "cuda", False), 20)
+        dms = cuda_time(lambda: dplan.grid(data, out, "cuda", False), 20)
+        seq = romein_rebuilds(dev, uvw, kern, npol, nvis) \
+            if plan.separable else None
+        seq_line = "" if seq is None else (
+            f"rebuilt for {RM_NSEQ} sequences of new positions: host "
+            f"{seq[0]:.3f} s, device {seq[1]:.3f} s in all; ")
         plain_ms = cuda_time(
             lambda: plan.grid(data, torch.empty_like(out), "plain", False),
             1)
@@ -1447,7 +1530,11 @@ def check_romein(dev, kind):
               f"per plane ({lay['sectors'] / nvis:.4f} per visibility at "
               f"{data.stride(1) * 8} B between visibilities); layout floor "
               f"{lay['floor_ms']:.4f} ms; plan {plan_s:.3f} s on the host, "
-              f"{plan.tiles_build_s:.3f} s of it the tiled plan; "
+              f"{plan.tiles_build_s:.3f} s of it the tiled plan; from card "
+              f"tensors (origin 'device') {dplan_s:.3f} s, "
+              f"{dplan.tiles_build_s:.3f} s of it the tiled plan, every "
+              f"table bitwise the host-built plan's; "
+              f"{seq_line}"
               f"instantiations (regs per thread, spilled bytes per "
               f"thread, static + dynamic smem per block, blocks per SM): "
               f"{json.dumps(info)}; ptxas: {spills}")
@@ -1456,7 +1543,9 @@ def check_romein(dev, kind):
               f"planes x "
               f"{nvis} vis -> {NGRID}x{NGRID}, {plan.ncontrib} in-grid "
               f"contributions per plane (at most {plan.maxcount} in a "
-              f"cell); {ms:.4f} ms per frame (1 launch), plain "
+              f"cell); {ms:.4f} ms per frame (1 launch), from the "
+              f"device-origin plan {dms:.4f} ms ({100 * (dms / ms - 1):+.2f} "
+              f"%, grid bitwise equal), plain "
               f"{plain_ms:.4f} ms, SpMM {library_ms:.4f} ms (rel err "
               f"{lib_err:.2e}), bound {bound_ms:.4f} ms ({by}: "
               f"{nbytes / 1e9:.4f} GB, {nops / 1e9:.4f} G ops), layout "
@@ -1469,8 +1558,13 @@ def check_romein(dev, kind):
                      "library_ms": library_ms,
                      "library_call": "torch.sparse.mm (CSR cells x vis, "
                                      "complex64) @ (vis, planes), cuSPARSE "
-                                     "SpMM"})
-        del out, plan
+                                     "SpMM",
+                     "plan_host_s": plan_s, "plan_device_s": dplan_s,
+                     "ms_device_origin": dms,
+                     "plan_rebuilds_s": None if seq is None else
+                     {"sequences": RM_NSEQ, "host": seq[0],
+                      "device": seq[1]}})
+        del out, plan, dplan, uvw_d, kern_d
     del raw, data
     return recs
 
@@ -1522,7 +1616,7 @@ def time_xstages(dev, kind):
 
 
 def instrument(dev, volt, gather=None, on_image=None, method=None,
-               kernels=None, fuse=False, engine="f32"):
+               kernels=None, fuse=False, engine="f32", uvw=None):
     """`lwa_instrument_pipeline` at the flagship width over `volt`, with
     every kernel method pinned to `method`; unfused unless `fuse`."""
     from bifrost_tpu_torch.service import lwa_instrument_pipeline
@@ -1530,7 +1624,7 @@ def instrument(dev, volt, gather=None, on_image=None, method=None,
         volt, nstand=NSTAND, npol=NPOL, nchan=BCHAN, ntap=NTAP,
         n_int=N_INT, nbeam=NBEAM, max_delay=B_MAX_DELAY, ngrid=NGRID,
         f0_mhz=B_F0, dt_s=B_DT, gulp_nframe=B_GULP, kernels=kernels,
-        device=dev, pfb_method=method,
+        uvw=uvw, device=dev, pfb_method=method,
         beamform_method=method, fdmt_method=method, romein_method=method,
         gather=gather, on_image=on_image, fuse=fuse, engine=engine)
 
@@ -1655,7 +1749,31 @@ def instrument_path(dev, volt, bref, spec):
           f"{NGRID} x {NGRID}) bitwise equal: kernels vs every method "
           f"'plain'; the first image on channels {X_GOLDEN_CHANS.tolist()} "
           f"vs the f64 numpy golden: max rel err {err:.3e} (limit 1e-4)")
-    del imgs
+
+    # `uvw` as a card tensor: the gridder builds its plan on the card.
+    from bifrost_tpu_torch import proclog
+    mine = Images(X_PLAIN_NINT)
+    pipe = instrument(dev, volt[:X_PLAIN_NINT * B_GULP], on_image=mine,
+                      uvw=torch.from_numpy(uvw).to(dev))[0]
+    reset_counts()
+    pipe.run()
+    torch.cuda.synchronize()
+    dcounts = read_counts()
+    grid = next(b for b in pipe.blocks if b.name == "image_grid")
+    rep = grid.plan_report()
+    row = proclog.load_by_pid(os.getpid()).get("image_grid", {}).get(
+        "romein_plan", {})
+    if rep["origin"] != "device" or row.get("origin") != "device" or \
+            dcounts["romein_grid_separable"] != X_PLAIN_NINT:
+        raise AssertionError(f"device-origin uvw run: report {rep}, "
+                             f"proclog {row}, launches {dcounts}")
+    images_equal(mine, imgs, X_PLAIN_NINT)
+    phase("instrument", f"uvw as a card tensor ({X_PLAIN_NINT} "
+          f"integrations): the gridder's plan built on the card (origin "
+          f"{rep['origin']}, {row.get('plan_build_s')} s, proclog "
+          f"image_grid/romein_plan {row}); images bitwise the host-origin "
+          f"run's; launches {dcounts}")
+    del pipe, grid, mine, imgs
     free_device()
 
     # K6a on a path: a non-rank-1 kernel, 2 integrations deep.
@@ -3639,13 +3757,14 @@ def check_map(dev, kind, volt):
         raise AssertionError("M1 (i4 stencil) differs from its plain "
                              "version")
     try:
-        Map("y = sin(x)").execute(torch.complex(raw4.float(), raw4.float()))
+        Map("y = Complex(v, v)").execute(raw4.half())
     except NotImplementedError:
         pass
     else:
         raise AssertionError("map: a program M1 does not implement ran on "
                              "the card")
     del raw4, got, want
+    new = check_map_new_forms(dev, kind)
     nbytes = nsamp * (2 + 8)
     # 14 f32 operations a sample: 2 x (complex x real), x x* (complex),
     # + 1
@@ -3661,14 +3780,131 @@ def check_map(dev, kind, volt):
           f"{times['stencil'][0]:.4f} ms, plain {times['stencil'][1]:.4f} "
           f"ms; library: none (no single PyTorch call computes a user "
           f"expression); an i4 stencil read packed bitwise its plain "
-          f"version; 'auto' on a program M1 does not implement (complex "
-          f"sin) raised; {kind}")
-    return {"name": "map_apply", "route": "cuda",
-            "source": "bifrost_tpu_torch/csrc/map_common.cuh",
-            "replaces": "bifrost_tpu/ops/map.py:421",
-            "launches": None, "max_abs_err": worst, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
-            "library_ms": None, "at_stencil_ms": times["stencil"][0]}
+          f"version; 'auto' on a program M1 does not implement "
+          f"(Complex of f16: complex32) raised; {kind}")
+    rec = {"name": "map_apply", "route": "cuda",
+           "source": "bifrost_tpu_torch/csrc/map_common.cuh",
+           "replaces": "bifrost_tpu/ops/map.py:421",
+           "launches": None, "max_abs_err": worst, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+           "library_ms": None, "at_stencil_ms": times["stencil"][0]}
+    rec.update(new)
+    return rec
+
+
+def check_map_new_forms(dev, kind):
+    """M1's half, packed-complex and complex-math forms at [map]'s gulp
+    shape (B_GULP, NSTAND, NPOL):
+    MAP_HALF_FUNC on f16 and bf16, MAP_CPK_FUNC on ci2 and ci1 bytes
+    (bitwise their plain versions), `sqrt` on complex64 (within
+    MAP_CX_ULP), each timed beside its plain version and its bytes bound;
+    every complex transcendental of MAP_CX_FUNCS within MAP_CX_ULP at a
+    quarter of the gulp, as the outputs of one eager call (one launch).
+    The programs are built in parallel first (one nvcc each).  -> {'at_
+    <form>': {ms, plain_ms, bound_ms, bound_by}}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from bifrost_tpu_torch import config
+    from bifrost_tpu_torch.ops import map_kernel
+    from bifrost_tpu_torch.ops.map import Map, map as eager_map
+    shape = (B_GULP, NSTAND, NPOL)
+    nsamp = B_GULP * NSTAND * NPOL
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 16)
+    # (tag, func, input, DataType or None, logical shape, bytes in and
+    # out a sample, f32 operations a sample, bitwise)
+    cases = []
+    for tag, dt in (("f16", torch.float16), ("bf16", torch.bfloat16)):
+        x = (torch.randn(shape, device=dev, generator=gen) * 3).to(dt)
+        # v*v, v*0.5, -, +: 4 f32 operations
+        cases.append((tag, MAP_HALF_FUNC, x, None, shape, 2, 2, 4, True))
+    for tag, nbit in (("ci2", 2), ("ci1", 1)):
+        # [station * pol] inputs of a frame, packed 4 // nbit a byte;
+        # v v* (complex, 6), v*2 (2), + (2): 10 operations
+        per = 4 // nbit
+        x = torch.randint(0, 256, (B_GULP, NSTAND * NPOL // per),
+                          device=dev, generator=gen, dtype=torch.uint8)
+        cases.append((tag, MAP_CPK_FUNC, x, tag, (B_GULP, NSTAND * NPOL),
+                      1.0 / per, 8, 10, True))
+    z = torch.polar(torch.exp(torch.empty(shape, device=dev).uniform_(
+        np.log(0.1), np.log(10), generator=gen)),
+        torch.empty(shape, device=dev).uniform_(-np.pi, np.pi,
+                                                generator=gen))
+    # the bound is the bytes' (the f64 arithmetic is not counted: the data
+    # sheet's table has no f64 rate)
+    cases.append(("csqrt", "y = sqrt(v)", z, None, shape, 8, 8, 0, False))
+    progs = [Map(func, in_name="v").program(
+        dt if dt is not None else x.dtype, x.dim())
+        for _, func, x, dt, *_ in cases]
+    zq = z[:B_GULP // 4]
+    cx_func = "; ".join(f"{fn}_ = {fn}(v)" for fn in MAP_CX_FUNCS)
+    with ThreadPoolExecutor(len(progs) + 1) as pool:
+        builds = [pool.submit(map_kernel.prepare, p) for p in progs]
+        before = map_kernel.map_apply.launches
+        cx_got = pool.submit(eager_map, cx_func, {"v": zq})
+        for b in builds:
+            b.result()
+        cx_got = cx_got.result()
+    cx_launches = map_kernel.map_apply.launches - before
+    config.set("map_method", "plain")
+    try:
+        cx_want = eager_map(cx_func, {"v": zq})
+    finally:
+        config.reset("map_method")
+    worst = {fn: round(cx_ulps(cx_got[f"{fn}_"], cx_want[f"{fn}_"], zq), 2)
+             for fn in MAP_CX_FUNCS}
+    if cx_launches != 1 or not max(worst.values()) <= MAP_CX_ULP:
+        raise AssertionError(f"M1 complex transcendentals: {cx_launches} "
+                             f"launches, ulps {worst}")
+    del cx_got, cx_want, zq
+    out, lines = {}, []
+    for (tag, func, x, _, oshape, in_b, out_b, ops, exact), prog in zip(
+            cases, progs):
+        before = map_kernel.map_apply.launches
+        got, _ = map_kernel.map_apply(prog, [x], oshape, [])
+        if map_kernel.map_apply.launches != before + 1:
+            raise AssertionError(f"map {tag}: not one M1 launch")
+        want, _ = map_kernel.map_apply_plain(prog, [x], oshape, [])
+        torch.cuda.synchronize()
+        g, w = got[0], want[0]
+        if exact:
+            if not bits_equal(g.view(torch.uint8), w.view(torch.uint8)):
+                raise AssertionError(f"M1 ({tag}) differs from its plain "
+                                     f"version")
+            err = "bitwise"
+        else:
+            err = cx_ulps(g, w, x)
+            if not err <= MAP_CX_ULP:
+                raise AssertionError(f"M1 ({tag}): {err} ulps")
+            err = f"{err:.2f} ulps"
+        outs = [g]
+        ms = cuda_time(lambda: map_kernel.map_apply(prog, [x], oshape, [],
+                                                    None, outs), 20)
+        plain_ms = cuda_time(lambda: map_kernel.map_apply_plain(
+            prog, [x], oshape, []), 5)
+        bound_ms, by = bound(nsamp * (in_b + out_b), nsamp * ops,
+                             hbm_rate(kind))
+        out[f"at_{tag}"] = {"ms": ms, "plain_ms": plain_ms,
+                            "bound_ms": bound_ms, "bound_by": by}
+        lines.append(f"{tag} {func!r}: {err}, {ms:.4f} ms a gulp, plain "
+                     f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}, "
+                     f"{100 * bound_ms / ms:.1f} %)")
+        del got, want, outs, g, w
+    del cases, z
+    phase("map", f"half, packed-complex, complex-math forms at {shape}: "
+          + "; ".join(lines) +
+          f"; complex64 transcendentals (one eager call, one launch) vs "
+          f"PyTorch's kernels, ulps of max(|z|, |w|) at |z| in (0.1, 10) "
+          f"(limit {MAP_CX_ULP}): {worst}; {kind}")
+    return out
+
+
+def cx_ulps(got, want, z):
+    """max |got - want| in complex64 ulps of max(|z|, |want|)."""
+    scale = torch.maximum(z.abs(), want.abs()).double()[..., None]
+    d = (torch.view_as_real(got).double() -
+         torch.view_as_real(want).double()).abs() / scale
+    return float(d.max()) / 2.0 ** -24
 
 
 def map_run(dev, source, func, axes=None, fuse=False, detect=True,
@@ -3845,6 +4081,41 @@ def map_path(dev, kind, volt):
                           ci4_nframe * XE_NCHAN * nsp, kind))
     del runs, frames
     free_device()
+
+    # (d) The f16 program as a map_block chain on the card: one M1 launch
+    # a gulp, bitwise its 'plain' run (a numpy source has no bf16: bf16
+    # is held at the kernel level in check_map).
+    hnframe = MAP_HALF_NGULP * B_GULP
+    rng = np.random.default_rng(SEED + 17)
+    base = (rng.standard_normal((hnframe, NSTAND, NPOL)) * 3).astype(
+        np.float32)
+    for tag in ("f16",):
+        data = base.astype(np.float16)
+        hhdr = {"labels": ["time", "station", "pol"]}
+        runs = {}
+        for name, method in (("unfused", None), ("plain", "plain")):
+            runs[name] = map_run(
+                dev, lambda: array_source(data, B_GULP, header=dict(hhdr)),
+                MAP_HALF_FUNC, detect=False, method=method)
+        for name, r in runs.items():
+            n = 0 if name == "plain" else MAP_HALF_NGULP
+            if r["counts"] != expected(map_apply=n):
+                raise AssertionError(f"map {tag} {name}: launches "
+                                     f"{r['counts']}")
+            out[f"map_{tag}_{name}"] = r["counts"]
+        y = torch.cat(runs["unfused"]["outs"])
+        if y.shape != (hnframe, NSTAND, NPOL) or not map_same(
+                runs["unfused"]["outs"], runs["plain"]["outs"]):
+            raise AssertionError(f"map {tag}: M1 chain != plain chain")
+        rates = {k: round(hnframe / r["wall"], 1) for k, r in runs.items()}
+        phase("map", f"{tag} chain {MAP_HALF_FUNC!r} (copy -> map_block, "
+              f"{MAP_HALF_NGULP} gulps of {B_GULP} frames): bitwise its "
+              f"'plain' run, one M1 launch a gulp "
+              f"({runs['unfused']['counts']['map_apply']}), output "
+              f"{y.dtype}; frames/s whole {rates}; {kind}")
+        del runs, y, data
+        free_device()
+    del base
 
     # The generated kernels' builds, and a second Map on the same
     # expression: its library loads from build/map/ with no nvcc run.

@@ -502,6 +502,53 @@ def test_romein_plan_cuda_matches_cpu(cuda):
         assert torch.equal(torch.view_as_real(a), torch.view_as_real(b))
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["separable", "general", "shared"])
+def test_romein_device_origin_plan_on_the_card(cuda, kind):
+    """Positions and kernels given as card tensors: the plan is built on
+    the card (origin 'device'), every table (CSR, the seven tiled-plan
+    tables, the kernel or u/v planes) bitwise the host-built plan's, and
+    K6a/K6b launched from it bitwise their host-origin launches."""
+    from bifrost_tpu_torch.ops import Romein
+    from bifrost_tpu_torch.ops import romein_kernel as rk
+    rng = np.random.default_rng(31)
+    npol, nvis, ngrid, m = 2, 3000, 150, 4
+    pos = rng.integers(-m, ngrid + 2, (2, 1, nvis)).astype(np.int32)
+    if kind == "separable":
+        u = (rng.standard_normal((npol, nvis, m)) + 1j).astype(np.complex64)
+        kern = (u[..., :, None] * u[..., None, :]).astype(np.complex64)
+    elif kind == "general":
+        kern = (rng.standard_normal((npol, nvis, m, m)) + 1j *
+                rng.standard_normal((npol, nvis, m, m))).astype(np.complex64)
+    else:
+        kern = np.ones((m, m), np.complex64)
+    vis = torch.from_numpy((rng.standard_normal((npol, nvis)) + 1j *
+                            rng.standard_normal((npol, nvis)))
+                           .astype(np.complex64)).to(cuda)
+    host = Romein().init(pos, kern, ngrid)
+    dev = Romein().init(torch.from_numpy(pos).to(cuda),
+                        torch.from_numpy(kern).to(cuda), ngrid)
+    before = rk.grid_general.launches + rk.grid_separable.launches
+    a = host.execute(vis)
+    b = dev.execute(vis)
+    assert rk.grid_general.launches + rk.grid_separable.launches == \
+        before + 2
+    assert dev.plan_report()["origin"] == "device"
+    assert host.plan_report()["origin"] == "host"
+    ph, pd = host._last_plan, dev._last_plan
+    assert ph.separable == pd.separable == (kind != "general")
+    names = ["offsets", "entries"] + (["u", "v"] if ph.separable
+                                      else ["kern"])
+    for name in names:
+        x, y = getattr(ph, name), getattr(pd, name)
+        assert x.device == y.device and x.dtype == y.dtype
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32)), name
+    for name in rk.Tiles.NAMES:
+        x, y = getattr(ph.tiles, name), getattr(pd.tiles, name)
+        assert torch.equal(x, y), name
+    assert torch.equal(torch.view_as_real(a), torch.view_as_real(b))
+
+
 def _span(rows, cols, dtype, layout, cuda):
     """A (rows, cols) tensor on the card in `layout`: 'contig'; 'strided'
     (every third cell of a wider buffer); 'offset' (a buffer's cells from
@@ -1212,10 +1259,11 @@ def _m1_case(op, x, dtype, ocs=None, carry=None):
     scal = [op.scalars[n] for n in prog.scalar_names]
     if op.fuse_form == "stencil" and carry is None:
         carry = op.carry_init(lshape[1:], prog.inputs[0].dtype, x.device)
+    ins = [x] + [op.scalars[i.name] for i in prog.inputs[1:]]
     before = map_kernel.map_apply.launches
-    got = map_kernel.map_apply(prog, [x], out_shape, scal, carry)
+    got = map_kernel.map_apply(prog, ins, out_shape, scal, carry)
     n = map_kernel.map_apply.launches - before
-    want = map_kernel.map_apply_plain(prog, [x], out_shape, scal, carry)
+    want = map_kernel.map_apply_plain(prog, ins, out_shape, scal, carry)
     torch.cuda.synchronize()
     return got, want, n
 
@@ -1347,10 +1395,143 @@ def test_map_kernel_eager_broadcast_and_failures(cuda):
         Map("y(t) = x(t+1)", axis_names=("t",),
             method="cuda").execute(a[:, 0])
     before = map_kernel.map_apply.launches
-    with pytest.raises(NotImplementedError, match="complex sin"):
-        Map("y = sin(x)").execute(torch.complex(a, a))
-    with pytest.raises(NotImplementedError, match="different shapes"):
-        eager_map("c = a + 1; d = b * 2", {"a": a, "b": b})
+    with pytest.raises(NotImplementedError, match="complex32"):
+        Map("y = Complex(v, v)").execute(a.half())
     assert map_kernel.map_apply.launches == before
     with pytest.raises(RuntimeError, match="nvcc"):
         build.load_generated("broken", "this is not CUDA;")
+
+
+def _m1_plain_method(fn):
+    from bifrost_tpu_torch import config
+    config.set("map_method", "plain")
+    try:
+        return fn()
+    finally:
+        config.reset("map_method")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("func,dtype,scalars,axes", [
+    # half storage types: f32 opmath, rounded after each operator; CPU
+    # scalars read unrounded by +, -, *, %, rounded by / and comparisons
+    ("y = v * v - v / 3 + 1.5", "f16", None, None),
+    ("y = v * 0.1 + 0.3 - s * v", "f16", {"s": 0.7}, None),
+    ("y = v > 0.1 ? v // 0.75 : v % 1.3", "f16", None, None),
+    ("y = v ** 3 - v ** 2 + v ** -2 + sqrt(fabs(v))", "f16", None, None),
+    ("y = max(v, 0.5) + round(v * 4) + rsqrt(fabs(v) + 1)", "bf16", None,
+     None),
+    ("y = v * 0.1 + 0.3 - v % 0.7", "bf16", None, None),
+    ("y = exp(v) * sin(v)", "f16", None, None),
+    ("y = (float)(v) * 3 + v", "bf16", None, None),
+    # packed complex ci2 / ci1 read in the kernel
+    ("y = v * v.conj() + v * 2", "ci2", None, None),
+    ("y(t,c) = v(t,c) - v(t-1,c) * 0.5", "ci1", None, ("t", "c")),
+    # scalars: ** and shifts (the plain engine's own values), 0-d tensors
+    ("y = v * (s ** t) + (k << j) - (k >> j) + f32cast(s) ** 2.5",
+     "f32", {"s": 2.5, "t": 1.5, "k": 37, "j": 3}, None),
+    ("y = v * w0 + exp(f32cast(s))", "f32",
+     {"w0": "tensor0", "s": 1.3}, None),
+    # statements that depend on no array, constant arrays
+    ("a = s * 2; y(t,c) = v(t,c) * a + 3", "f32", {"s": 1.5}, ("t", "c")),
+    ("y = v * w + 1", "f32", {"w": "array"}, None),
+    ("y(t,c) = v(t,c) - v(t-2,c) * w", "f32", {"w": "array"}, ("t", "c")),
+])
+def test_map_kernel_new_forms_bitwise_vs_plain(cuda, func, dtype, scalars,
+                                               axes):
+    """M1 on its half, packed-complex, hoisted-scalar, constant-array and
+    array-independent forms, against the plain engine on the card,
+    bitwise; one launch a call."""
+    from bifrost_tpu_torch.ops.map import Map
+    rng = np.random.default_rng(41)
+    scal = dict(scalars or {})
+    for k, v in scal.items():
+        if v == "array":
+            scal[k] = torch.from_numpy(rng.standard_normal(600).astype(
+                np.float32)).to(cuda)
+        elif v == "tensor0":
+            scal[k] = torch.tensor(0.3)
+    if dtype in ("ci2", "ci1"):
+        x = torch.from_numpy(rng.integers(0, 256, (4096, 600))
+                             .astype(np.uint8)).to(cuda)
+    else:
+        x = torch.from_numpy((rng.standard_normal((4096, 600)) * 4)
+                             .astype(np.float32)).to(cuda)
+        x = x.to({"f16": torch.float16, "bf16": torch.bfloat16,
+                  "f32": torch.float32}[dtype])
+        dtype = None
+    op = Map(func, axis_names=axes, scalars=scal, in_name="v")
+    (got, gc), (want, wc), n = _m1_case(op, x, dtype)
+    assert n == 1
+    assert _same_bits(got[0], want[0]), \
+        (got[0].double() - want[0].double()).abs().max()
+
+
+@pytest.mark.gpu
+def test_map_kernel_rank_and_eager_forms_on_the_card(cuda):
+    """A rank-10 elementwise call (contiguous and strided, collapsed to 8
+    axes), the eager call with outputs of differing shapes, ``not`` and a
+    statement that depends on no array: bitwise the plain engine, one
+    launch each; strides that cannot be collapsed raise."""
+    from bifrost_tpu_torch.ops import map_codegen
+    from bifrost_tpu_torch.ops import map_kernel
+    from bifrost_tpu_torch.ops.map import Map, map as eager_map
+    rng = np.random.default_rng(42)
+    shape = (2, 3, 2, 2, 3, 2, 2, 2, 3, 64)
+    big = torch.from_numpy(rng.standard_normal(shape[:-1] + (128,))
+                           .astype(np.float32)).to(cuda)
+    for x in (big[..., :64].contiguous(), big[..., ::2]):
+        (got, _), (want, _), n = _m1_case(Map("y = v * 3 - 1"), x, None)
+        assert n == 1 and _same_bits(got[0], want[0])
+    bad = big.permute(9, 8, 7, 6, 5, 4, 3, 2, 1, 0)[:, ::2]
+    with pytest.raises(map_codegen.Unsupported, match="collapsed"):
+        Map("y = v * 3 - 1").execute(bad)
+    a = torch.from_numpy(rng.standard_normal((300, 64)).astype(np.float32)
+                         ).to(cuda)
+    b = torch.from_numpy(rng.standard_normal(64).astype(np.float32)).to(cuda)
+    func = "c = a + 1; d = b * 2; e = s * 3; f = a * (not s)"
+    before = map_kernel.map_apply.launches
+    got = eager_map(func, {"a": a, "b": b, "s": 0})
+    assert map_kernel.map_apply.launches == before + 1
+    want = _m1_plain_method(lambda: eager_map(func, {"a": a, "b": b,
+                                                     "s": 0}))
+    assert got["e"] == want["e"] == 0
+    for k in ("c", "d", "f"):
+        assert _same_bits(got[k], want[k]), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_map_kernel_complex_transcendentals_within_tolerance(cuda, dtype):
+    """The complex transcendentals (f64 formulas, csrc/map_common.cuh)
+    against PyTorch's card kernels (thrust's) on |z| in (0.1, 10), random
+    phases (never on a branch cut: the cuts of sqrt, log, pow and rsqrt
+    on the negative real axis, of asin and acos on the real axis beyond
+    +-1, of atan on the imaginary axis beyond +-i): within 24 ulps of
+    max(|z|, |w|) in the component type, pow within 48.  M1 computes in
+    f64 and rounds once, so for complex64 it is within an ulp of the
+    true value and the spread is thrust's float formulas (atan 18.5 ulps,
+    pow 16, the rest under 6 on an H100); tests/test_torch_map_codegen.py
+    holds the complex128 bodies within 8 ulps of a 120-bit mpmath
+    reference."""
+    from bifrost_tpu_torch.ops.map import Map
+    rng = np.random.default_rng(43)
+    mag = np.exp(rng.uniform(np.log(0.1), np.log(10), (2048, 256)))
+    ph = rng.uniform(-np.pi, np.pi, (2048, 256))
+    z = torch.from_numpy(mag * np.exp(1j * ph)).to(dtype).to(cuda)
+    eps = 2.0 ** -24 if dtype == torch.complex64 else 2.0 ** -53
+    tol = 24
+    worst = {}
+    for fn in ("sqrt", "log", "log2", "log10", "sin", "cos", "tan", "asin",
+               "acos", "atan", "sinh", "cosh", "tanh", "rsqrt",
+               "pow(v, 2.5)", "v ** (0.5 + 1.5j)"):
+        func = f"y = {fn}(v)" if "v" not in fn else f"y = {fn}"
+        (got, _), (want, _), n = _m1_case(Map(func, in_name="v"), z, None)
+        assert n == 1
+        g = torch.view_as_real(got[0]).double()
+        w = torch.view_as_real(want[0]).double()
+        scale = torch.maximum(z.abs().double(), want[0].abs().double())
+        worst[fn] = float(((g - w).abs() / scale[..., None]).max()) / eps
+    print("M1 complex ulps", dtype, worst)
+    assert all(err <= tol * (2 if "v" in fn else 1)
+               for fn, err in worst.items()), worst

@@ -10,12 +10,23 @@ the card by tests/test_torch_gpu.py and chip_smoke's [map].
 
 Parity tiers, as stated in each test:
 - real f32/f64/integer arithmetic, casts, comparisons, rounding, floor
-  ``%``/``//``, gathers, stencils, integer-exact complex input: bitwise;
+  ``%``/``//``, gathers, stencils, integer-exact complex input (ci8,
+  ci4, ci2, ci1), scalars computed on the host (``**`` and shifts of
+  run-time scalars, 0-d tensors), constant arrays, statements that
+  depend on no array, collapsed ranks above 8: bitwise;
+- f16/bf16 (f32 opmath, rounded after each operator): bitwise where the
+  CPU kernels and the card kernels agree (half-representable scalars);
+  within one half ulp where the CPU rounds a CPU scalar the card reads
+  unrounded (+, -), and for x**3 (the CPU cubes in f32, the card rounds
+  x*x first); the plain engine against JAX within HALF_JAX_ULP half ulps;
 - transcendentals (exp, log, sin, ...; the host's libm against
   PyTorch's vectorized kernels): within TRANS_ULP ulps of the larger
   magnitude;
 - complex products and quotients of arbitrary values: within CX_ULP
-  ulps of the largest term.
+  ulps of the largest term;
+- complex transcendentals (f64 formulas): within CX_FN_ULP ulps of
+  max(|z|, |w|) of PyTorch's CPU kernels, and of a 120-bit mpmath
+  reference for complex128.
 """
 
 import numpy as np
@@ -30,6 +41,8 @@ from bifrost_tpu_torch.ops.map import Map
 
 TRANS_ULP = 4
 CX_ULP = 4
+CX_FN_ULP = 8
+HALF_JAX_ULP = 4
 
 
 @pytest.fixture(autouse=True)
@@ -59,14 +72,13 @@ def _ulps(a, b, scale=None):
 
 
 def _run(func, x, dtype=None, axis_names=None, scalars=None, ocs=None,
-         carry=None):
+         carry=None, in_name=None):
     """The program of `func` on input `x` (storage form of DataType
     `dtype`, or a logical tensor): host-compiled body and plain engine
     -> (host outputs, plain outputs, program)."""
-    op = Map(func, axis_names=axis_names, scalars=scalars)
+    op = Map(func, axis_names=axis_names, scalars=scalars, in_name=in_name)
     dkey = dtype if dtype is not None else x.dtype
-    rank = x.dim() - (1 if dtype is not None and dtype.startswith("ci")
-                      and dtype != "ci4" else 0)
+    rank = x.dim() - (1 if dtype in ("ci8", "ci16", "ci32") else 0)
     prog = op.program(dkey, rank, ocs)
     lshape = map_kernel.logical_shape(x, prog.inputs[0])
     out_shape = lshape if not op.explicit else \
@@ -74,8 +86,9 @@ def _run(func, x, dtype=None, axis_names=None, scalars=None, ocs=None,
     scal = [op.scalars[n] for n in prog.scalar_names]
     if op.fuse_form == "stencil" and carry is None:
         carry = op.carry_init(lshape[1:], prog.inputs[0].dtype)
-    host, hc = map_kernel.map_apply_host(prog, [x], out_shape, scal, carry)
-    plain, pc = map_kernel.map_apply_plain(prog, [x], out_shape, scal,
+    ins = [x] + [op.scalars[i.name] for i in prog.inputs[1:]]
+    host, hc = map_kernel.map_apply_host(prog, ins, out_shape, scal, carry)
+    plain, pc = map_kernel.map_apply_plain(prog, ins, out_shape, scal,
                                            carry)
     return (host[0], hc), (plain[0], pc), prog
 
@@ -114,12 +127,8 @@ def test_forms_and_refusal_reasons(func, axes, form, reason):
 @pytest.mark.parametrize("func,dtype,kwargs,reason", [
     ("y = helper(x)", "f32", dict(extra_code="def helper(v):\n"
                                   "    return v * 2\n"), "extra_code"),
-    ("y = sin(x)", "cf32", {}, "complex sin"),
     ("y = x > 0 && x < 1", "f32", {}, "chained comparison"),
-    ("y = sqrt(x)", "cf32", {}, "complex sqrt"),
-    ("y = x * 2", "f16", {}, "torch.float16"),
-    ("y = x * 2", "ci2", {}, "packed complex"),
-    ("y = 3.0", "f32", dict(in_name="x"), "does not depend on an array"),
+    ("y = Complex(v, v)", "f16", {}, "complex32"),
     ("y = x % 2", "cf32", {}, "remainder"),
 ])
 def test_refused_programs_name_their_reason(func, dtype, kwargs, reason):
@@ -479,3 +488,290 @@ def test_generated_source_is_deterministic_and_keyed():
     d = Map("y = s*x + 1", scalars={"s": 2.0}).program(torch.float64, 2)
     assert a.key == b.key and len({a.key, c.key, d.key}) == 3
     assert "map_common.cuh" in a.source and "__launch_bounds__" in a.source
+
+
+# ------------------- half types, ci2/ci1, complex math, scalars, shapes
+
+def _half(dtype, shape=(9, 33), seed=14):
+    return (_f32(shape, seed, scale=3.0)).to(dtype)
+
+
+def _jax_half(x):
+    import jax.numpy as jnp
+    return jnp.asarray(x.float().numpy()).astype(
+        jnp.float16 if x.dtype == torch.float16 else jnp.bfloat16)
+
+
+def _half_ulps(a, b):
+    """max |a - b| in half ulps (10 or 7 mantissa bits) of max(|a|, |b|,
+    1), the size of the programs' terms: a sum that cancels is held to
+    its terms' rounding; NaNs at the same places equal."""
+    bits = 10 if a.dtype == torch.float16 else 7
+    a, b = a.double(), b.double()
+    nan = torch.isnan(a) & torch.isnan(b)
+    scale = torch.maximum(a.abs(), b.abs()).clamp_min(1.0)
+    ulp = 2.0 ** (torch.floor(torch.log2(scale)) - bits)
+    d = torch.where(nan, 0, (a - b).abs()) / ulp
+    return float(d.max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("func,exact", [
+    ("y = v * v - v / 3 + 1.5", True),
+    ("y = v * 0.5 - 0.25 * v + 2", True),
+    ("y = v > 0.5 ? v // 0.75 : v % 1.25", True),
+    ("y = max(v, 0.5) + round(v * 4) - min(v, -1)", True),
+    ("y = sqrt(fabs(v)) + rsqrt(fabs(v) + 1)", True),
+    ("y = v ** 2 + v ** -1 + fabs(v) ** 0.5", True),
+    ("y = (float)(v) * 3 + v", True),
+    ("y = v + (v < 1) * 2", True),
+    ("y = v * 0.1 + 0.3", False),
+    ("y = v ** 3", False),
+    ("y = v ** -2", False),
+])
+def test_half_bodies(dtype, func, exact):
+    """f16 and bf16 as storage types, f32 arithmetic rounded after each
+    operator: the host body is bitwise the plain engine where the CPU and
+    card kernels agree (`exact`), within one half ulp where they do not
+    (the CPU's + and - round a Python scalar to the half type first, the
+    card's do not and M1 follows the card; the CPU's f16 x**3 and x**-2
+    compute x*x in f32, the card's round it first); the plain engine
+    within HALF_JAX_ULP half ulps of the JAX Map on the same data
+    (XLA:CPU may keep f32 across a fusion of the program's few
+    operators).  Ulps of max(|y|, 1) (`_half_ulps`)."""
+    x = _half(dtype)
+    (h, _), (p, _), prog = _run(func, x)
+    assert h.dtype == p.dtype == prog.out_dtypes[0]
+    if exact:
+        assert _bits(h, p), (h.double() - p.double()).abs().max()
+    else:
+        assert _half_ulps(h, p) <= 1
+    if h.dtype in (torch.float16, torch.bfloat16):
+        j = torch.from_numpy(np.asarray(
+            JMap(func, in_name="v").execute(_jax_half(x)), np.float32))
+        assert _half_ulps(p, j.to(p.dtype)) <= HALF_JAX_ULP, func
+
+
+@pytest.mark.parametrize("dtype,per", [("ci2", 2), ("ci1", 4)])
+def test_raw_cpacked_heads_bitwise(dtype, per):
+    """Packed ci2 and ci1 (8 // (2 nbit) samples a byte, each (re, im)
+    pair of fields MSB first, sign-extended: ops/unpack.py's order) read
+    in the kernel: elementwise, a gather along the packed axis and a
+    stencil over gulps of 3, 2 and 3 frames: bitwise the plain engine,
+    whose lift is bitwise the JAX Map's `_lift` (and its program on the
+    same bytes)."""
+    rng = np.random.default_rng(15)
+    x = torch.from_numpy(rng.integers(0, 256, (8, 3)).astype(np.uint8))
+    for func, axes in (("y = v * v.conj() + v * 2", None),
+                       ("y(t,c) = v(t, nc-1-c) - v(t, c+5) * 1j",
+                        ("t", "c"))):
+        op = Map(func, axis_names=axes, in_name="v")
+        (h, _), (p, _), prog = _run(func, x, dtype=dtype, axis_names=axes)
+        assert prog.inputs[0].storage == "cpacked"
+        assert h.shape == (8, 3 * per) and _bits(h, p), func
+        j = np.asarray(JMap(func, axis_names=axes, in_name="v")
+                       .execute_raw(x.numpy(), dtype))
+        assert np.array_equal(p.numpy(), j), func
+        assert op.fuse_form in ("elementwise", "local")
+    hc = None
+    for chunk in (x[:3], x[3:5], x[5:]):
+        (h, hc), (p, pc), _ = _run("y(t,c) = v(t,c) - v(t-2,c) * 0.5",
+                                   chunk, dtype=dtype, axis_names=("t", "c"),
+                                   carry=hc)
+        assert _bits(h, p) and _bits(hc, pc)
+
+
+_CX_FUNCS = ("sqrt", "log", "log2", "log10", "sin", "cos", "tan", "asin",
+             "acos", "atan", "sinh", "cosh", "tanh", "rsqrt")
+
+
+def _cx_points(dtype, shape=(24, 16), seed=16):
+    """|z| in (0.1, 10), random phases: never on a branch cut."""
+    rng = np.random.default_rng(seed)
+    mag = np.exp(rng.uniform(np.log(0.1), np.log(10), shape))
+    z = torch.from_numpy(mag * np.exp(1j * rng.uniform(-np.pi, np.pi,
+                                                        shape)))
+    return z.to(dtype)
+
+
+def _cx_ulps(got, want, z):
+    eps = 2.0 ** -24 if got.dtype == torch.complex64 else 2.0 ** -53
+    scale = torch.maximum(z.abs().double(), want.abs().double())[..., None]
+    g = torch.view_as_real(got).double()
+    w = torch.view_as_real(want).double()
+    return float(((g - w).abs() / scale).max()) / eps
+
+
+@pytest.mark.parametrize("fn", _CX_FUNCS + ("pow", "cpow"))
+def test_complex_transcendental_bodies_within_tolerance(fn):
+    """Complex sqrt, log, log2, log10, the trigonometric and hyperbolic
+    functions, the inverse trigonometric ones, rsqrt and pow (the
+    formulas of csrc/map_common.cuh, computed in f64; branch cuts: sqrt,
+    log, rsqrt and pow on the negative real axis, asin and acos on the
+    real axis beyond +-1, atan on the imaginary axis beyond +-i): within
+    CX_FN_ULP ulps of max(|z|, |w|) of PyTorch's CPU kernels (pow: 2x:
+    PyTorch's complex64 pow is float exp(w log z), 12 ulps off)
+    for complex64 and complex128; against a 120-bit mpmath reference
+    the complex64 body within 2 ulps (f64, rounded once), the complex128
+    body within CX_FN_ULP (pow: 2x, exp(w log z) in f64); the plain
+    engine on complex64 within 4 CX_FN_ULP of the JAX Map's (two float
+    formulas)."""
+    mpmath = pytest.importorskip("mpmath")
+    func = {"pow": "y = v ** 2.5", "cpow": "y = pow(v, 0.5 + 1.5j)"}.get(
+        fn, f"y = {fn}(v)")
+    tol = CX_FN_ULP * (2 if "pow" in fn else 1)
+    f = {"log2": lambda v: mpmath.log(v, 2),
+         "rsqrt": lambda v: 1 / mpmath.sqrt(v),
+         "pow": lambda v: mpmath.power(v, 2.5),
+         "cpow": lambda v: mpmath.power(v, mpmath.mpc(0.5, 1.5))}.get(
+        fn, getattr(mpmath, fn, None))
+    for dtype, exact in ((torch.complex64, 2), (torch.complex128, tol)):
+        z = _cx_points(dtype)
+        (h, _), (p, _), _ = _run(func, z)
+        assert h.dtype == p.dtype == dtype
+        assert _cx_ulps(h, p, z) <= tol, (dtype, _cx_ulps(h, p, z))
+        with mpmath.workprec(120):
+            ref = torch.tensor([[complex(f(mpmath.mpc(complex(v))))
+                                 for v in row] for row in z.numpy()],
+                               dtype=torch.complex128)
+        err = _cx_ulps(h.to(torch.complex128), ref, z)
+        if dtype == torch.complex64:
+            err *= 2.0 ** -29          # in complex64 ulps
+        assert err <= exact, (dtype, err)
+    z = _cx_points(torch.complex64)
+    (_, _), (p, _), _ = _run(func, z)
+    j = torch.from_numpy(np.asarray(JMap(func, in_name="v").execute(
+        z.numpy())))
+    assert _cx_ulps(p, j, z) <= 4 * tol, _cx_ulps(p, j, z)
+
+
+@pytest.mark.parametrize("func,scalars", [
+    # Python's ** and shifts of run-time scalars, and torch's ** of them
+    ("y = v * (s ** t) + (k << j) - (k >> j)",
+     {"s": 2.5, "t": 1.5, "k": 37, "j": 3}),
+    ("y = v * (k ** j) - f32cast(s) ** 2.5", {"s": 1.7, "k": 3, "j": 5}),
+    # torch on 0-d CPU tensors: computed by the plain engine itself
+    ("y = v * exp(f32cast(s)) + sqrt(f32cast(s) * 0.1)", {"s": 1.3}),
+    ("y = v * w0 + (w0 > 0.2)", {"w0": torch.tensor(0.3)}),
+    ("y = v * (not s) + (not t) * 2", {"s": 0, "t": 2.5}),
+])
+def test_host_scalar_values_bitwise(func, scalars):
+    """What the plain engine computes on the host from run-time scalars
+    alone (Python's ``**``, shifts and ``not``, torch on 0-d CPU tensors,
+    a 0-d tensor bound as a scalar) is its own value, computed at launch:
+    bitwise, and a new value of the same type needs no new program."""
+    x = _f32((6, 5), 17)
+    if "not" in func:
+        # `not` reads as a name to the streaming form's input inference:
+        # the eager call takes it (the JAX eager map too).
+        from bifrost_tpu_torch.ops.map import _compile_map, \
+            _full_namespace
+        cm = _compile_map(func, ("s", "t", "v", "y"), None)
+        prog = map_codegen.generate(
+            cm.statements, "eager",
+            [map_codegen.input_for_tensor("v", x.dtype, 2)],
+            _full_namespace(None), frozenset("stvy"), ["y"],
+            scalars=scalars, out_rank=2)
+        h, _ = map_kernel.map_apply_host(prog, [x], tuple(x.shape),
+                                         [scalars[k] for k in
+                                          prog.scalar_names])
+        assert _bits(h[0], x * True + False * 2)
+        return
+    (h, _), (p, _), prog = _run(func, x, scalars=scalars)
+    assert _bits(h, p)
+    other = {k: (v + 1 if not isinstance(v, torch.Tensor) else v * 2)
+             for k, v in scalars.items()}
+    op = Map(func, scalars=other, in_name="v")
+    assert op.program(torch.float32, 2).key == prog.key
+    (h, _), (p, _), _ = _run(func, x, scalars=other)
+    assert _bits(h, p)
+
+
+def test_statements_that_depend_on_no_array():
+    """A statement whose value depends on no array: an intermediate of
+    the elementwise form stays a weakly typed scalar, in the explicit
+    forms it is broadcast to the output grid (ops/map.py `_broadcast`:
+    int32 for an int); bitwise the plain engine."""
+    x = _f32((6, 5), 18)
+    for func, axes, want in (("a = s * 2; y = v * a", None, torch.float32),
+                             ("y(t,c) = 3", ("t", "c"), torch.int32),
+                             ("a = s * 2; y(t,c) = v(t,c) * a + a",
+                              ("t", "c"), torch.float32)):
+        (h, _), (p, _), prog = _run(func, x, axis_names=axes,
+                                    scalars={"s": 1.5}, in_name="v")
+        assert prog.out_dtypes[0] == h.dtype == want
+        assert _bits(h, p), func
+
+
+@pytest.mark.parametrize("func,axes", [
+    ("y = v * w + 1", None),
+    ("y(t,c) = v(t, nc-1-c) * w", ("t", "c")),
+    ("y(t,c) = v(t,c) - v(t-2,c) * w", ("t", "c")),
+])
+def test_constant_arrays_bitwise(func, axes):
+    """A tensor bound as a scalar is a constant array: read as a buffer
+    at the output's coordinates through its broadcast strides (a new
+    value of the same shape needs no new program): bitwise the plain
+    engine, in the elementwise, local and stencil forms."""
+    x = _f32((6, 5), 19)
+    w = _f32((5,), 20)
+    (h, _), (p, _), prog = _run(func, x, axis_names=axes,
+                                scalars={"w": w})
+    assert [i.name for i in prog.inputs[1:]] == ["w"] and _bits(h, p)
+    (h, _), (p, _), prog2 = _run(func, x, axis_names=axes,
+                                 scalars={"w": w * 3})
+    assert prog2.key == prog.key and _bits(h, p)
+
+
+def test_eager_statements_of_differing_shapes():
+    """The eager call: statements of any shape that broadcasts to the
+    inputs' are outputs of one kernel, each written once (an output of a
+    smaller shape at coordinate 0 of the axes it lacks); ``not`` of a
+    scalar; a statement that depends on no array is the plain engine's
+    own value.  Bitwise the plain engine."""
+    from bifrost_tpu_torch.ops.map import _compile_map, _full_namespace
+    a = _f32((7, 6), 21)
+    b = _f32((6,), 22)
+    cm = _compile_map("c = a + 1; d = b * 2; e = s * 3; f = a * (not s)",
+                      ("a", "b", "s"), None)
+    prog = map_codegen.generate(
+        cm.statements, "eager",
+        [map_codegen.input_for_tensor(k, v.dtype, v.dim())
+         for k, v in (("a", a), ("b", b))], _full_namespace(None),
+        frozenset("abcdefs"), ["c", "d", "f"], scalars={"s": 0},
+        out_rank=2)
+    outs = [torch.full((7, 6), -7.0), torch.full((6,), -7.0),
+            torch.full((7, 6), -7.0)]
+    map_kernel.map_apply_host(prog, [a, b], (7, 6), [0], outs=outs)
+    for got, want in zip(outs, (a + 1, b * 2, a * True)):
+        assert _bits(got, want)
+
+
+def test_ranks_above_eight_collapse():
+    """Rank 10: the elementwise form and the eager call collapse the
+    axes every operand walks as one to 8 (contiguous, and strided along
+    the last axis); strides that cannot be collapsed raise Unsupported
+    at launch; an indexed form of rank 9 raises when generated."""
+    from bifrost_tpu_torch.ops.map import _compile_map, _full_namespace
+    shape = (2, 3, 2, 2, 3, 2, 2, 2, 3, 4)
+    big = _f32(shape[:-1] + (8,), 23)
+    for x in (big[..., :4].contiguous(), big[..., ::2]):
+        (h, _), (p, _), prog = _run("y = v * 3 - 1", x)
+        assert prog.rank == map_codegen.MAX_RANK and _bits(h, p)
+    bad = big.permute(9, 8, 7, 6, 5, 4, 3, 2, 1, 0)[::2]
+    with pytest.raises(map_codegen.Unsupported, match="collapsed"):
+        _run("y = v * 3 - 1", bad)
+    b = _f32((4,), 24)
+    cm = _compile_map("c = a * b; d = b - 1", ("a", "b"), None)
+    prog = map_codegen.generate(
+        cm.statements, "eager",
+        [map_codegen.input_for_tensor(k, torch.float32, 8)
+         for k in ("a", "b")], _full_namespace(None), frozenset("abcd"),
+        ["c", "d"], out_rank=8)
+    a = big[..., :4].contiguous()
+    outs = [torch.empty(shape), torch.empty(4)]
+    map_kernel.map_apply_host(prog, [a, b], shape, [], outs=outs)
+    assert _bits(outs[0], a * b) and _bits(outs[1], b - 1)
+    with pytest.raises(map_codegen.Unsupported, match="rank above"):
+        Map("y(a,b,c,d,e,f,g,h,i) = v(a,b,c,d,e,f,g,h,i)",
+            axis_names=tuple("abcdefghi")).program(torch.float32, 9)

@@ -260,9 +260,11 @@ def test_methods_and_refusals():
             Romein().init(pos, kern, ngrid, method=method)
     with pytest.raises(ValueError, match="f32 only"):
         Romein().init(pos, kern, ngrid, precision="bf16")
-    with pytest.raises(NotImplementedError, match="device-resident"):
-        Romein().init(torch.zeros(2, nd, dtype=torch.int32,
-                                  device="meta"), kern, ngrid)
+    # Positions given as a tensor build the plan where the tensor lies
+    # (origin 'device'), the same plan as from host arrays.
+    d = Romein().init(torch.zeros(2, nd, dtype=torch.int32), kern, ngrid)
+    assert torch.equal(d.execute(vis), b)
+    assert d.plan_report()["origin"] == "device"
     config.set("romein_method", "plain")
     try:
         plan = Romein().init(pos, kern, ngrid)
