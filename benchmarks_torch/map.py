@@ -19,7 +19,7 @@ The op and the chain run on the card unless `--device cpu` is given.
 goldens (scalars, ternary, multi-statement, sqrt), fused against unfused
 bitwise on the chain (a partial final gulp, raw ci8 ingest), the
 stencil's split gulps against one long gulp, the map_unbounded_index
-refusal, the plan report; no timing.  Prints ONE JSON line (map_*
+refusal, the plan report, a numpy array bound as a scalar; no timing.  Prints ONE JSON line (map_*
 fields).
 """
 
@@ -253,10 +253,31 @@ def _check_plan_report(failures, dev):
         pass
 
 
+def _check_numpy_scalar(failures, dev):
+    """A numpy array bound as a scalar (a constant array), at
+    construction and by set_scalars, against the exact numpy product."""
+    import torch
+    from bifrost_tpu_torch.ops.map import Map
+    rng = np.random.default_rng(13)
+    x = rng.integers(-64, 64, (48, 5)).astype(np.float32)
+    w = rng.integers(-8, 8, 5).astype(np.float32)
+    op = Map("y = x * w + 1", scalars={"w": w})
+    xt = torch.from_numpy(x).to(dev)
+    for want in (x * w + 1, None):
+        if want is None:
+            w2 = (w * 3).astype(np.float32)
+            op.set_scalars({"w": w2})
+            want = x * w2 + 1
+        got = op.execute(xt).cpu().numpy()
+        if got.dtype != np.float32 or not np.array_equal(got, want):
+            failures.append("map numpy-array scalar differs from numpy")
+
+
 def run_check(dev):
     failures = []
     for check in (_check_translator_goldens, _check_fused_parity,
-                  _check_stencil_carry, _check_refusal, _check_plan_report):
+                  _check_stencil_carry, _check_refusal, _check_plan_report,
+                  _check_numpy_scalar):
         check(failures, dev)
     for f in failures:
         print(f"map --check: {f}", file=sys.stderr)

@@ -11,7 +11,8 @@ ring).  Where the generator refuses the program's form by design
 engine and says why; what the kernel does not implement yet raises at
 on_sequence (ops/map_codegen.py `Unsupported`).  The resolved method, the generator's
 refusal, the fusion form and the cache accounting land on the
-`<name>/map_plan` proclog channel (the fir_plan pattern).  M1 is built
+`<name>/map_plan` proclog channel (the fir_plan pattern), with M1's V
+and the note of a build that spilled.  M1 is built
 in `on_sequence`, so the first gulp (and the deadman watching it) does
 not wait for nvcc.
 
@@ -195,6 +196,7 @@ class MapBlock(TransformBlock):
         self.op.method = resolved
         self._hold_flag_latch("map_method")
         out_dtype, out_chan = self._probe(max(2, self.op.noffset + 1))
+        prog = None
         if resolved == "cuda":
             prog = self.op.program(self._dkey, self._rank,
                                    self._out_chan_shape)
@@ -237,6 +239,10 @@ class MapBlock(TransformBlock):
             "stencil_noffset": self.op.noffset,
             "statements": len(self.op.statements),
             "codegen_refusal": self.op.codegen_refusal or "",
+            # M1's samples a thread on its vector path, and why a spilling
+            # build cut it ("" where it did not)
+            "vec": prog.vec if prog is not None else 0,
+            "vec_note": (prog.vec_note or "") if prog is not None else "",
         })
         return ohdr
 

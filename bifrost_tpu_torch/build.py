@@ -23,8 +23,11 @@ each operator on its own) into ``build/map/lib<sha256>.so``, named by the
 source, the flags and the header, through a temporary file and a rename.
 It has its own lock, so a map build never holds `_lock` against the
 fixed kernels, and an in-process LRU of `GENERATED_CAPACITY` loaded
-libraries.  `load_generated_host` builds the same source with the host
-C++ compiler (its ``map_host`` entry), for the CPU tests.
+libraries.  ptxas's report is kept beside the library
+(``lib<sha256>.ptxas``), so a library loaded from disk still tells its
+registers and spills (`generated_log`).  `load_generated_host` builds
+the same source with the host C++ compiler (its ``map_host`` entry), for
+the CPU tests.
 """
 
 from __future__ import annotations
@@ -65,7 +68,8 @@ _gen_lock = threading.Lock()
 _gen_libs = OrderedDict()   # (kind, target path) -> ctypes library
 # One entry per generated library loaded in this process: {"name",
 # "seconds" (0.0 where the built library was on disk), "nvcc" (whether a
-# compiler ran), "ptxas" (its -v output, "" when none ran)}.
+# compiler ran), "ptxas" (its -v output, kept beside the library; "" for
+# a host build)}.
 generated_log = []
 
 
@@ -192,6 +196,7 @@ def _load_generated(kind, name, source, compiler, flags, suffix):
     # renames an identical file).
     entry = {"name": name, "kind": kind, "seconds": 0.0, "nvcc": False,
              "ptxas": ""}
+    report = target.with_suffix(".ptxas")
     if not target.exists():
         MAP_BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tag = f"{os.getpid()}.{threading.get_ident()}"
@@ -210,9 +215,15 @@ def _load_generated(kind, name, source, compiler, flags, suffix):
                 f"{os.path.basename(compiler)} failed for the generated "
                 f"map kernel {name} (exit {res.returncode}):\n"
                 f"{res.stdout}{res.stderr}\n--- source ---\n{source}")
+        out = res.stdout + res.stderr
+        rtmp = report.with_suffix(f".{tag}.ptxtmp")
+        rtmp.write_text(out)
+        os.replace(rtmp, report)
         os.replace(tmp, target)
         entry.update(seconds=time.perf_counter() - t0, nvcc=True,
-                     ptxas=res.stdout + res.stderr)
+                     ptxas=out)
+    elif report.exists():
+        entry["ptxas"] = report.read_text()
     with _gen_lock:
         lib = _gen_libs.get(key)
         if lib is None:
@@ -222,6 +233,12 @@ def _load_generated(kind, name, source, compiler, flags, suffix):
             while len(_gen_libs) > GENERATED_CAPACITY:
                 _gen_libs.popitem(last=False)
         return lib
+
+
+def generated_path(name, source):
+    """Where `load_generated` puts the library of `source`."""
+    return _generated_target(name, source, MAP_NVCC_FLAGS + ("-x", "cu"),
+                             "")
 
 
 def load_generated(name, source):

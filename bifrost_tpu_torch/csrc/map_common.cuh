@@ -25,12 +25,13 @@
 //   their f32 "opmath"; a Python scalar that PyTorch's card kernels read
 //   straight into f32 (+, -, * with a CPU scalar) is passed to the f32
 //   operator unrounded by the generator;
-// - the complex transcendentals (sqrt, log, log2, log10, sin, cos, tan,
-//   asin, acos, atan, sinh, cosh, tanh, rsqrt, pow) are computed in f64
-//   and rounded to the component type, with the formulas named at each:
-//   within a few ulps of |z| (or of the result where it is larger) of
-//   PyTorch's c10::complex / thrust kernels away from the branch cuts,
-//   not bitwise.
+// - the complex transcendentals (log, log2, log10, sin, cos, tan, asin,
+//   acos, atan, sinh, cosh, tanh, pow, rsqrt's square root, and sqrt of
+//   complex128) are computed in f64 and rounded to the component type,
+//   with the formulas named at each; sqrt of complex64 is computed in f32
+//   (`csqrt_f`: Kahan's algorithm, scaled by powers of two).  Within
+//   a few ulps of |z| (or of the result where it is larger) of PyTorch's
+//   c10::complex / thrust kernels away from the branch cuts.
 //
 // Every function is __host__ __device__, so a generated source also
 // compiles with the host C++ compiler: the CPU tests run the generated
@@ -38,6 +39,15 @@
 // built with --fmad=false (and the host build with -ffp-contract=off),
 // so no multiply and add are contracted: the plain engine rounds each
 // operator on its own.
+//
+// Index arithmetic (the generated kernel is instantiated for a 32-bit and
+// a 64-bit index type, `I`): no division by a run-time extent; `div_magic`
+// divides by a host-computed multiply-and-shift pair (ops/map_kernel.py
+// `magic`, PyTorch's IntDivider method: q = (umulhi(n, m) + n) >> s,
+// exact for every n of the index type's non-negative range).  Vector
+// access: `vld_words` / `vst_words` move NB bytes as 16-, 8-, 4-, 2- or
+// 1-byte words (`memcpy` on the host) and the `vl_*` / `vs` helpers
+// unpack and pack the storage forms in registers.
 
 #pragma once
 
@@ -172,8 +182,10 @@ template <typename T>
 struct is_fp : std::integral_constant<bool, std::is_floating_point<T>::value ||
                                                 is_half<T>::value> {};
 
+// Aligned to its size, so a complex value is one 8-byte (complex64) or
+// 16-byte (complex128) access.
 template <typename T>
-struct cx {
+struct alignas(2 * sizeof(T)) cx {
   T re, im;
   MAP_HD cx() : re(0), im(0) {}
   MAP_HD cx(T r, T i) : re(r), im(i) {}
@@ -574,8 +586,52 @@ MAP_HD cxd catanh_d(cxd w) {
              0.5 * std::atan2(2 * v, d));
 }
 
+// complex64 sqrt in f32: Kahan's algorithm as thrust's csqrtf arranges
+// it (Algorithm 312, CACM 10, 1967), |z| as sqrt(a*a + b*b) with the
+// operands scaled by an even power of two so that the squares stay
+// normal and finite: by 2^-66 when max(|a|, |b|) >= 2^60 (the parts
+// then lie in [2^-6, 2^62], the sum of squares below 2^125), by 2^100
+// when it is below 2^-60 (a subnormal part becomes at least 2^-49,
+// exactly, its square at least 2^-98); the root is scaled back by the
+// square root of the factor (within 2 ulps of max(|z|, |w|) of the true
+// value; hypot would cost some twenty instructions more a sample).
+MAP_HD cx<float> csqrt_f(cx<float> z) {
+  float a = z.re, b = z.im;
+  if (a == 0.0f && b == 0.0f) return cx<float>(0.0f, b);
+  if (std::isinf(b)) return cx<float>(INFINITY, b);
+  if (std::isnan(a)) return cx<float>(a, (b - b) / (b - b));
+  if (std::isinf(a)) {
+    if (std::signbit(a)) return cx<float>(std::fabs(b - b), std::copysign(a, b));
+    return cx<float>(a, std::copysign(b - b, b));
+  }
+  const float big = std::fabs(a) > std::fabs(b) ? std::fabs(a) : std::fabs(b);
+  float back = 1.0f;
+  if (big >= 0x1p+60f) {
+    a *= 0x1p-66f;
+    b *= 0x1p-66f;
+    back = 0x1p+33f;
+  } else if (big < 0x1p-60f) {
+    a *= 0x1p+100f;
+    b *= 0x1p+100f;
+    back = 0x1p-50f;
+  }
+  const float h = std::sqrt(a * a + b * b);
+  cx<float> r;
+  if (a >= 0) {
+    const float t = std::sqrt((a + h) * 0.5f);
+    r = cx<float>(t, b / (2.0f * t));
+  } else {
+    const float t = std::sqrt((-a + h) * 0.5f);
+    r = cx<float>(std::fabs(b) / (2.0f * t), std::copysign(t, b));
+  }
+  return cx<float>(r.re * back, r.im * back);
+}
+
 template <typename C>
-MAP_HD cx<C> msqrt(cx<C> a) { return cx_round<C>(csqrt_d(cx_wide(a))); }
+MAP_HD cx<C> msqrt(cx<C> a) {
+  if constexpr (std::is_same<C, float>::value) return csqrt_f(a);
+  else return cx_round<C>(csqrt_d(cx_wide(a)));
+}
 template <typename C>
 MAP_HD cx<C> mlog(cx<C> a) { return cx_round<C>(clog_d(cx_wide(a))); }
 template <typename C>
@@ -627,9 +683,13 @@ MAP_HD cx<C> matan(cx<C> a) {
   const cxd r = catanh_d(cxd(-double(a.im), a.re));
   return cx_round<C>(cxd(r.im, -r.re));
 }
+// 1 / sqrt: c10's quotient of 1 by the square root rounded from f64 (for
+// complex64 too: over the f32 sqrt the quotient reads 2.04-2.53 ulps of a
+// 120-bit reference, above the 2 ulps the CPU tests hold complex64
+// bodies to).
 template <typename C>
 MAP_HD cx<C> mrsqrt(cx<C> a) {
-  return op_div<cx<C>>(cx<C>(C(1), C(0)), msqrt(a));
+  return op_div<cx<C>>(cx<C>(C(1), C(0)), cx_round<C>(csqrt_d(cx_wide(a))));
 }
 // z ** w = exp(w log z), as thrust::pow.
 template <typename C>
@@ -644,40 +704,80 @@ MAP_HD cx<C> mconj(cx<C> a) { return cx<C>(a.re, -a.im); }
 template <typename C>
 MAP_HD C mmag2(cx<C> a) { return a.re * a.re + a.im * a.im; }
 
+// ------------------------------------------------------ index arithmetic
+MAP_HD uint32_t umulhi32(uint32_t a, uint32_t b) {
+#ifdef __CUDA_ARCH__
+  return __umulhi(a, b);
+#else
+  return static_cast<uint32_t>((static_cast<uint64_t>(a) * b) >> 32);
+#endif
+}
+MAP_HD uint64_t umulhi64(uint64_t a, uint64_t b) {
+#ifdef __CUDA_ARCH__
+  return __umul64hi(a, b);
+#else
+  return static_cast<uint64_t>(
+      (static_cast<unsigned __int128>(a) * b) >> 64);
+#endif
+}
+// n / d for 0 <= n <= the index type's maximum, by the magic word `m` and
+// shift `s` the host computed for d (a d of 1 has m 1, s 0).
+template <typename I>
+MAP_HD I div_magic(I n, long long m, long long s) {
+  if constexpr (sizeof(I) == 4) {
+    const uint32_t u = static_cast<uint32_t>(n);
+    return static_cast<I>((umulhi32(u, static_cast<uint32_t>(m)) + u) >>
+                          static_cast<int>(s));
+  } else {
+    const uint64_t u = static_cast<uint64_t>(n);
+    return static_cast<I>((umulhi64(u, static_cast<uint64_t>(m)) + u) >>
+                          static_cast<int>(s));
+  }
+}
+
+// A gather index as jnp indexing takes it: a negative index wraps once,
+// then the index is clamped to the axis (computed in the index
+// expression's own type, returned as the kernel's index type).
+template <typename I, typename T>
+MAP_HD I wrapclamp(T i, I n) {
+  using W = decltype(i + n);
+  W w = static_cast<W>(i);
+  if (w < 0) w += static_cast<W>(n);
+  return static_cast<I>(w < 0 ? W(0) : (w >= static_cast<W>(n)
+                                        ? static_cast<W>(n) - 1 : w));
+}
+
 // ----------------------------------------------- loads by storage form
-template <typename T>
-MAP_HD T ld_real(const void* p, long long off) {
+template <typename T, typename O>
+MAP_HD T ld_real(const void* p, O off) {
   return static_cast<const T*>(p)[off];
 }
-// A complex tensor: (re, im) pairs of its component type.
-template <typename C>
-MAP_HD cx<C> ld_cx(const void* p, long long off) {
-  const C* q = static_cast<const C*>(p) + 2 * off;
-  return cx<C>(q[0], q[1]);
+// A complex tensor: (re, im) pairs of its component type, one access.
+template <typename C, typename O>
+MAP_HD cx<C> ld_cx(const void* p, O off) {
+  return static_cast<const cx<C>*>(p)[off];
 }
 // Complex-integer ring storage (ci8, ci16, ci32): the integer component
 // type with a trailing (re, im) axis, `cs` elements between the two.
-template <typename C, typename I>
-MAP_HD cx<C> ld_pair(const void* p, long long off, long long cs) {
+template <typename C, typename I, typename O, typename S>
+MAP_HD cx<C> ld_pair(const void* p, O off, S cs) {
   const I* q = static_cast<const I*>(p) + off;
   return cx<C>(static_cast<C>(q[0]), static_cast<C>(q[cs]));
 }
 // Packed ci4: one sample a byte, the real part in the high nibble
 // (MSB first), each nibble sign-extended (ops/unpack.py).
 template <typename C>
-MAP_HD cx<C> ld_ci4(const void* p, long long off) {
-  uint8_t b = static_cast<const uint8_t*>(p)[off];
-  int re = static_cast<int8_t>(b & 0xF0) >> 4;
-  int im = static_cast<int8_t>(static_cast<uint8_t>(b << 4)) >> 4;
+MAP_HD cx<C> ci4_of(uint32_t b) {
+  const int re = static_cast<int8_t>(static_cast<uint8_t>(b & 0xF0u)) >> 4;
+  const int im = static_cast<int8_t>(static_cast<uint8_t>(b << 4)) >> 4;
   return cx<C>(static_cast<C>(re), static_cast<C>(im));
 }
 // Packed ci2 and ci1: 8 / (2 NBIT) samples a byte along the last axis,
 // each (re, im) pair of fields MSB first and sign-extended (the field
-// order of ops/unpack.py).  `off` is the byte, `pos` the sample in it.
+// order of ops/unpack.py); `pos` the sample in the byte.
 template <typename C, int NBIT>
-MAP_HD cx<C> ld_cpacked(const void* p, long long off, long long pos) {
+MAP_HD cx<C> cpacked_of(uint32_t b, int pos) {
   constexpr int PER = 8 / NBIT;
-  const uint8_t b = static_cast<const uint8_t*>(p)[off];
   const int sh = 8 - NBIT;
   const uint8_t fr = static_cast<uint8_t>(b >> ((PER - 1 - 2 * pos) * NBIT));
   const uint8_t fi = static_cast<uint8_t>(b >> ((PER - 2 - 2 * pos) * NBIT));
@@ -687,13 +787,12 @@ MAP_HD cx<C> ld_cpacked(const void* p, long long off, long long pos) {
 }
 // Packed real storage (i4/u4, i2/u2, i1/u1): 8 / NBIT samples a byte
 // along the last axis, MSB first; a signed field is sign-extended by
-// the shifts of ops/unpack.py.  `off` is the byte, `pos` the field.
+// the shifts of ops/unpack.py.  `pos` the field in the byte.
 template <typename T, int NBIT>
-MAP_HD T ld_packed(const void* p, long long off, long long pos) {
+MAP_HD T packed_of(uint32_t b, int pos) {
   constexpr int PER = 8 / NBIT;
-  const uint8_t b = static_cast<const uint8_t*>(p)[off];
   const uint8_t v = static_cast<uint8_t>(
-      (b >> ((PER - 1 - pos) * NBIT)) & ((1 << NBIT) - 1));
+      (b >> ((PER - 1 - pos) * NBIT)) & ((1u << NBIT) - 1));
   if constexpr (std::is_signed<T>::value) {
     return static_cast<T>(
         static_cast<int8_t>(static_cast<uint8_t>(v << (8 - NBIT))) >>
@@ -702,24 +801,258 @@ MAP_HD T ld_packed(const void* p, long long off, long long pos) {
     return static_cast<T>(v);
   }
 }
+template <typename C, typename O>
+MAP_HD cx<C> ld_ci4(const void* p, O off) {
+  return ci4_of<C>(static_cast<const uint8_t*>(p)[off]);
+}
+// `off` is the byte, `pos` the sample in it (a shift and a mask of the
+// logical index: PER is a power of two).
+template <typename C, int NBIT, typename O>
+MAP_HD cx<C> ld_cpacked(const void* p, O off, int pos) {
+  return cpacked_of<C, NBIT>(static_cast<const uint8_t*>(p)[off], pos);
+}
+template <typename T, int NBIT, typename O>
+MAP_HD T ld_packed(const void* p, O off, int pos) {
+  return packed_of<T, NBIT>(static_cast<const uint8_t*>(p)[off], pos);
+}
 
-template <typename T>
-MAP_HD void st(void* p, long long off, T v) {
-  if constexpr (is_cx<T>::value) {
-    using C = typename comp<T>::type;
-    C* q = static_cast<C*>(p) + 2 * off;
-    q[0] = v.re;
-    q[1] = v.im;
+template <typename T, typename O>
+MAP_HD void st(void* p, O off, T v) {
+  static_cast<T*>(p)[off] = v;
+}
+
+// --------------------------------------------------------- vector access
+// NB bytes at `q` (aligned to min(NB, 16)) to and from 32-bit words (a
+// whole number of them, or one word holding 1 or 2 bytes).
+#ifdef __CUDACC__
+using w16_t = uint4;
+using w8_t = uint2;
+#else
+struct alignas(16) w16_t { uint32_t x, y, z, w; };
+struct alignas(8) w8_t { uint32_t x, y; };
+#endif
+
+template <int NB>
+MAP_HD void vld_words(uint32_t* wd, const void* q) {
+  if constexpr (NB >= 16) {
+    static_assert(NB % 16 == 0, "vector of a whole number of 16 bytes");
+#pragma unroll
+    for (int k = 0; k < NB / 16; ++k) {
+#ifdef __CUDA_ARCH__
+      const w16_t v = static_cast<const w16_t*>(q)[k];
+#else
+      w16_t v;
+      std::memcpy(&v, static_cast<const char*>(q) + 16 * k, 16);
+#endif
+      wd[4 * k] = v.x;
+      wd[4 * k + 1] = v.y;
+      wd[4 * k + 2] = v.z;
+      wd[4 * k + 3] = v.w;
+    }
+  } else if constexpr (NB == 8) {
+#ifdef __CUDA_ARCH__
+    const w8_t v = *static_cast<const w8_t*>(q);
+#else
+    w8_t v;
+    std::memcpy(&v, q, 8);
+#endif
+    wd[0] = v.x;
+    wd[1] = v.y;
+  } else if constexpr (NB == 4) {
+    wd[0] = *static_cast<const uint32_t*>(q);
+  } else if constexpr (NB == 2) {
+    wd[0] = *static_cast<const uint16_t*>(q);
   } else {
-    static_cast<T*>(p)[off] = v;
+    static_assert(NB == 1, "vector of 1, 2, 4, 8 or 16k bytes");
+    wd[0] = *static_cast<const uint8_t*>(q);
   }
 }
 
-// A gather index as jnp indexing takes it: a negative index wraps once,
-// then the index is clamped to the axis.
-MAP_HD long long wrapclamp(long long i, long long n) {
-  if (i < 0) i += n;
-  return i < 0 ? 0 : (i >= n ? n - 1 : i);
+template <int NB>
+MAP_HD void vst_words(void* q, const uint32_t* wd) {
+  if constexpr (NB >= 16) {
+    static_assert(NB % 16 == 0, "vector of a whole number of 16 bytes");
+#pragma unroll
+    for (int k = 0; k < NB / 16; ++k) {
+      w16_t v;
+      v.x = wd[4 * k];
+      v.y = wd[4 * k + 1];
+      v.z = wd[4 * k + 2];
+      v.w = wd[4 * k + 3];
+#ifdef __CUDA_ARCH__
+      // the streaming hint: an output is not read again by the kernel
+      __stcs(static_cast<w16_t*>(q) + k, v);
+#else
+      std::memcpy(static_cast<char*>(q) + 16 * k, &v, 16);
+#endif
+    }
+  } else if constexpr (NB == 8) {
+    w8_t v;
+    v.x = wd[0];
+    v.y = wd[1];
+#ifdef __CUDA_ARCH__
+    *static_cast<w8_t*>(q) = v;
+#else
+    std::memcpy(q, &v, 8);
+#endif
+  } else if constexpr (NB == 4) {
+    *static_cast<uint32_t*>(q) = wd[0];
+  } else if constexpr (NB == 2) {
+    *static_cast<uint16_t*>(q) = static_cast<uint16_t>(wd[0]);
+  } else {
+    static_assert(NB == 1, "vector of 1, 2, 4, 8 or 16k bytes");
+    *static_cast<uint8_t*>(q) = static_cast<uint8_t>(wd[0]);
+  }
+}
+
+// Slot k of SZ bytes in the words (little-endian, as on the card and the
+// host); the indices are constants once the vector loops unroll.
+template <int SZ>
+MAP_HD uint64_t slot(const uint32_t* wd, int k) {
+  if constexpr (SZ == 1) return (wd[k >> 2] >> (8 * (k & 3))) & 0xffu;
+  else if constexpr (SZ == 2) return (wd[k >> 1] >> (16 * (k & 1))) & 0xffffu;
+  else if constexpr (SZ == 4) return wd[k];
+  else return wd[2 * k] | (static_cast<uint64_t>(wd[2 * k + 1]) << 32);
+}
+template <int SZ>
+MAP_HD void put_slot(uint32_t* wd, int k, uint64_t u) {
+  if constexpr (SZ == 1) wd[k >> 2] |= static_cast<uint32_t>(u) << (8 * (k & 3));
+  else if constexpr (SZ == 2) wd[k >> 1] |= static_cast<uint32_t>(u) << (16 * (k & 1));
+  else if constexpr (SZ == 4) wd[k] = static_cast<uint32_t>(u);
+  else {
+    wd[2 * k] = static_cast<uint32_t>(u);
+    wd[2 * k + 1] = static_cast<uint32_t>(u >> 32);
+  }
+}
+template <int SZ> struct uint_of;
+template <> struct uint_of<1> { using type = uint8_t; };
+template <> struct uint_of<2> { using type = uint16_t; };
+template <> struct uint_of<4> { using type = uint32_t; };
+template <> struct uint_of<8> { using type = uint64_t; };
+
+template <typename T>
+MAP_HD T from_slot(const uint32_t* wd, int k) {
+  const uint64_t u = slot<sizeof(T)>(wd, k);
+  if constexpr (std::is_same<T, bool>::value) {
+    return u != 0;
+  } else if constexpr (is_half<T>::value) {
+    T r;
+    r.bits = static_cast<uint16_t>(u);
+    return r;
+  } else {
+    const typename uint_of<sizeof(T)>::type b =
+        static_cast<typename uint_of<sizeof(T)>::type>(u);
+    T r;
+    std::memcpy(&r, &b, sizeof(T));
+    return r;
+  }
+}
+template <typename T>
+MAP_HD uint64_t to_slot(T v) {
+  if constexpr (std::is_same<T, bool>::value) {
+    return v ? 1u : 0u;
+  } else if constexpr (is_half<T>::value) {
+    return v.bits;
+  } else {
+    typename uint_of<sizeof(T)>::type b;
+    std::memcpy(&b, &v, sizeof(T));
+    return b;
+  }
+}
+
+// Sample j of a vector of each storage form held in 32-bit words (as
+// `vld_words` loads it; the packed forms' first sample at the start of
+// a byte).
+template <typename T>
+MAP_HD T ex_real(const uint32_t* wd, int j) { return from_slot<T>(wd, j); }
+template <typename C>
+MAP_HD cx<C> ex_cx(const uint32_t* wd, int j) {
+  return cx<C>(from_slot<C>(wd, 2 * j), from_slot<C>(wd, 2 * j + 1));
+}
+template <typename C, typename I>
+MAP_HD cx<C> ex_pair(const uint32_t* wd, int j) {
+  return cx<C>(static_cast<C>(from_slot<I>(wd, 2 * j)),
+               static_cast<C>(from_slot<I>(wd, 2 * j + 1)));
+}
+template <typename C>
+MAP_HD cx<C> ex_ci4(const uint32_t* wd, int j) {
+  return ci4_of<C>(static_cast<uint32_t>(slot<1>(wd, j)));
+}
+template <typename C, int NBIT>
+MAP_HD cx<C> ex_cpacked(const uint32_t* wd, int j) {
+  constexpr int PER = 4 / NBIT;
+  return cpacked_of<C, NBIT>(static_cast<uint32_t>(slot<1>(wd, j / PER)),
+                             j % PER);
+}
+template <typename T, int NBIT>
+MAP_HD T ex_packed(const uint32_t* wd, int j) {
+  constexpr int PER = 8 / NBIT;
+  return packed_of<T, NBIT>(static_cast<uint32_t>(slot<1>(wd, j / PER)),
+                            j % PER);
+}
+
+// V logical values from V consecutive samples at storage offset `off`,
+// one vector access (the stencil's register window).
+template <int V, typename T, typename O>
+MAP_HD void vl_real(T* x, const void* p, O off) {
+  uint32_t wd[(V * sizeof(T) + 3) / 4];
+  vld_words<V * sizeof(T)>(wd, static_cast<const T*>(p) + off);
+#pragma unroll
+  for (int j = 0; j < V; ++j) x[j] = ex_real<T>(wd, j);
+}
+template <int V, typename C, typename O>
+MAP_HD void vl_cx(cx<C>* x, const void* p, O off) {
+  uint32_t wd[V * sizeof(C) / 2];
+  vld_words<2 * V * sizeof(C)>(wd, static_cast<const cx<C>*>(p) + off);
+#pragma unroll
+  for (int j = 0; j < V; ++j) x[j] = ex_cx<C>(wd, j);
+}
+template <int V, typename C, typename I, typename O>
+MAP_HD void vl_pair(cx<C>* x, const void* p, O off) {
+  uint32_t wd[(2 * V * sizeof(I) + 3) / 4];
+  vld_words<2 * V * sizeof(I)>(wd, static_cast<const I*>(p) + off);
+#pragma unroll
+  for (int j = 0; j < V; ++j) x[j] = ex_pair<C, I>(wd, j);
+}
+template <int V, typename C, typename O>
+MAP_HD void vl_ci4(cx<C>* x, const void* p, O off) {
+  uint32_t wd[(V + 3) / 4];
+  vld_words<V>(wd, static_cast<const uint8_t*>(p) + off);
+#pragma unroll
+  for (int j = 0; j < V; ++j) x[j] = ex_ci4<C>(wd, j);
+}
+template <int V, typename C, int NBIT, typename O>
+MAP_HD void vl_cpacked(cx<C>* x, const void* p, O off) {
+  uint32_t wd[(V / (4 / NBIT) + 3) / 4];
+  vld_words<V / (4 / NBIT)>(wd, static_cast<const uint8_t*>(p) + off);
+#pragma unroll
+  for (int j = 0; j < V; ++j) x[j] = ex_cpacked<C, NBIT>(wd, j);
+}
+template <int V, typename T, int NBIT, typename O>
+MAP_HD void vl_packed(T* x, const void* p, O off) {
+  uint32_t wd[(V / (8 / NBIT) + 3) / 4];
+  vld_words<V / (8 / NBIT)>(wd, static_cast<const uint8_t*>(p) + off);
+#pragma unroll
+  for (int j = 0; j < V; ++j) x[j] = ex_packed<T, NBIT>(wd, j);
+}
+
+// N values of T (a real type or cx) stored at element offset `off` in
+// one vector access (N sizeof(T) bytes, aligned to min(that, 16)).
+template <int N, typename T, typename O>
+MAP_HD void vst(void* p, O off, const T* v) {
+  constexpr int NB = N * static_cast<int>(sizeof(T));
+  uint32_t wd[(NB + 3) / 4] = {};
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    if constexpr (is_cx<T>::value) {
+      using C = typename comp<T>::type;
+      put_slot<sizeof(C)>(wd, 2 * j, to_slot<C>(v[j].re));
+      put_slot<sizeof(C)>(wd, 2 * j + 1, to_slot<C>(v[j].im));
+    } else {
+      put_slot<sizeof(T)>(wd, j, to_slot<T>(v[j]));
+    }
+  }
+  vst_words<NB>(static_cast<T*>(p) + off, wd);
 }
 
 MAP_HD double bits_f64(long long v) {

@@ -814,6 +814,16 @@ def _py_scalar(v):
     return v
 
 
+def _bound(v):
+    """A planned Map's scalar binding -> what the engines read: a numpy
+    array of one axis or more becomes a CPU tensor of its dtype (a
+    copy: a constant array, as a bound tensor is), anything else
+    `_py_scalar`'s value."""
+    if isinstance(v, np.ndarray) and v.ndim > 0:
+        return torch.from_numpy(np.array(v))
+    return _py_scalar(v)
+
+
 def _number(v):
     return isinstance(v, (bool, int, float, complex))
 
@@ -873,7 +883,8 @@ class Map(object):
                  axis_names=None, extra_code=None, method=None):
         self.func_string = func_string
         self.extra_code = extra_code
-        self.scalars = {k: _py_scalar(v) for k, v in (scalars or {}).items()}
+        self.scalars = {k: _bound(v) for k, v in (scalars or {}).items()}
+        self._moved = {}                # constant arrays copied to a device
         self.method = method if method is not None else "auto"
         self._runtime = OpRuntime("map", MAP_METHODS,
                                   config_flag="map_method", default="cuda")
@@ -917,6 +928,7 @@ class Map(object):
             self.compiled, in_name, reserved)
         self._arrays = frozenset([in_name] + [s[0] for s in self.statements])
         self._programs = OrderedDict()  # program key -> Program | Refusal
+        self._last_program = None       # the last program M1 ran
         self.codegen_refusal = None     # the last resolution's reason
 
     # ------------------------------------------------------- plumbing
@@ -924,7 +936,21 @@ class Map(object):
         """Rebind scalar values (header-resolved bindings).  Safe at any
         time: programs read the values at each call, and key on their
         types."""
-        self.scalars = {k: _py_scalar(v) for k, v in scalars.items()}
+        self.scalars = {k: _bound(v) for k, v in scalars.items()}
+
+    def _scalars_on(self, device):
+        """The scalars with each constant array on `device` (a copy, made
+        again when the bound tensor changes)."""
+        out = dict(self.scalars)
+        for k, v in self.scalars.items():
+            if isinstance(v, torch.Tensor) and v.dim() > 0 and \
+                    v.device != device:
+                hit = self._moved.get((k, str(device)))
+                if hit is None or hit[0] is not v or hit[1] != v._version:
+                    hit = (v, v._version, v.to(device))
+                    self._moved[(k, str(device))] = hit
+                out[k] = hit[2]
+        return out
 
     def _gen_scalars(self):
         """The run-time scalars of a program: numbers, and 0-d tensors
@@ -1006,7 +1032,7 @@ class Map(object):
             x = ins[0]
             if storage in ("pair", "ci4", "cpacked", "packed"):
                 x = _lift(x, dtype)
-            scalars = dict(self.scalars)
+            scalars = self._scalars_on(x.device)
             scalars.update(zip(names, scal))
             y, c2 = self._plain_eval(x, carry, out_shape[1:], scalars)
             return [y], c2
@@ -1075,8 +1101,10 @@ class Map(object):
                 consts = [inp.name for inp in prog.inputs[1:]]
 
                 def fn(x, carry=None, out=None):
+                    self._last_program = prog
+                    scal = self._scalars_on(x.device)
                     ys, c2 = map_apply(
-                        prog, [x] + [self.scalars[n] for n in consts],
+                        prog, [x] + [scal[n] for n in consts],
                         self._out_shape(x, prog, ocs),
                         [self.scalars[n] for n in prog.scalar_names],
                         carry, None if out is None else [out])
@@ -1088,7 +1116,7 @@ class Map(object):
                 lx = _lift(x, dtype) if raw else x
                 y, c2 = self._plain_eval(
                     lx, carry, ocs if ocs is not None else
-                    tuple(lx.shape[1:]), self.scalars)
+                    tuple(lx.shape[1:]), self._scalars_on(lx.device))
                 if out is not None:
                     y = out.copy_(y)
                 return y, c2
@@ -1196,8 +1224,11 @@ class Map(object):
     def plan_report(self):
         """Uniform runtime schema + map specifics (the JAX report's keys)
         and the generator's verdict (`codegen_refusal`: None where M1
-        runs the program)."""
+        runs the program); `kernel`: the last program M1 ran, its V, run,
+        the note of a build that spilled and its last launch's plan (path,
+        index type, grid), or None."""
         rep = self._runtime.report()
+        prog = self._last_program
         rep.update({
             "statements": len(self.statements),
             "fuse_form": self.fuse_form,
@@ -1205,6 +1236,10 @@ class Map(object):
             "in_name": self.in_name,
             "out_name": self.out_name,
             "codegen_refusal": self.codegen_refusal,
+            "kernel": None if prog is None else {
+                "vec": prog.vec, "run": prog.run,
+                "vec_note": prog.vec_note,
+                "last_launch": prog.last_launch},
         })
         return rep
 

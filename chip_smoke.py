@@ -308,18 +308,21 @@ Phases, one line each; any failure exits non-zero:
              MAP_CI4_NGULP gulps of [xengine]'s seeded ci4 replay, and
              'plain'.  Each program: every run bitwise the first, the
              method 'cuda' (the plain runs 'plain'), one M1 launch a gulp
-             fused and unfused, the raw reads counted, the first frames
-             against an exact golden; frames/s whole and steady.  Then
-             nvcc's seconds and ptxas's registers and spills of each
-             generated kernel, and a second Map on MAP_FUNC loading the
-             built library with no nvcc run.  check_map also holds M1's
-             half, packed-complex and complex-math forms at the gulp's
-             shape: f16 and bf16 programs and ci2 and ci1 reads
-             (bitwise, timed against their bytes bound), the complex
-             transcendentals on complex64 (within MAP_CX_ULP ulps of
-             max(|z|, |w|); sqrt timed), and (d) runs the f16 program as
-             a map_block chain over MAP_HALF_NGULP gulps, one M1 launch a
-             gulp, bitwise its 'plain' run.  Launches go into
+             fused and unfused (for MAP_FUNC and the stencil each on the
+             vector path with 32-bit indices), the raw reads counted, the
+             first frames against an exact golden; frames/s whole and
+             steady.  Then nvcc's seconds and ptxas's registers and
+             spills of each generated kernel, and a second Map on
+             MAP_FUNC loading the built library with no nvcc run.
+             check_map times every form of MAP_FORMS at the gulp's shape
+             (the two main programs, f16, bf16, ci2, ci1 and complex64
+             sqrt, the last beside `torch.sqrt`): bitwise (sqrt within
+             MAP_CX_ULP ulps of max(|z|, |w|)), with the path taken, V,
+             the index type, registers, spills, the bound and the share
+             of it; the complex transcendentals on complex64 (within
+             MAP_CX_ULP), and (d) runs the f16 program as a map_block
+             chain over MAP_HALF_NGULP gulps, one M1 launch a gulp,
+             bitwise its 'plain' run.  Launches go into
              `launches_by_path` as `map_<program>_<run>`.
 
 The launch checks of every phase count all nine kernels (K1, K2, K4,
@@ -330,6 +333,7 @@ power limit; the last line is {"ok": true, "device": {...}}.
 
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -487,6 +491,12 @@ MAP_CPK_FUNC = "y = v * v.conj() + v * 2"
 MAP_CX_FUNCS = ("sqrt", "log", "log2", "log10", "sin", "cos", "tan", "asin",
                 "acos", "atan", "sinh", "cosh", "tanh", "rsqrt")
 MAP_HALF_NGULP, MAP_CX_ULP = 4, 24
+# complex64 sqrt at the ends of the f32 range (its scaled branches):
+# FLT_MAX-sized parts, subnormal parts, zero against a tiny part.
+MAP_SQRT_EDGES = ((3e38, 3e38), (-3.4028234e38, -3.4028234e38),
+                  (3.4028234e38, 0.0), (-3.4e38, 1e-30), (1e30, 1e-30),
+                  (0.0, 1e-44), (1e-44, 0.0), (-1e-44, 0.0), (1e-45, 1e-45),
+                  (-1e-40, 3e-42), (2.0 ** 60, 1.0), (-(2.0 ** -60), 1e-21))
 # K6b's plan rebuilt per sequence: this many sequences of new positions.
 RM_NSEQ = 4
 
@@ -647,8 +657,9 @@ def expected(**nonzero):
 def reset_counts():
     for fn in kernel_counters().values():
         fn.launches = 0
-    for name in ("dq_masked_fill", "fir_mac"):
+    for name in ("dq_masked_fill", "fir_mac", "map_apply"):
         kernel_counters()[name].vector_launches = 0
+    kernel_counters()["map_apply"].index64_launches = 0
 
 
 def check_vectors(counts, name="dq_masked_fill"):
@@ -3682,80 +3693,210 @@ def fir_path(dev, kind, volt, at_fir):
     return out
 
 
-def map_program_info():
-    """nvcc's seconds and ptxas's registers, spills and stack of each
-    generated M1 library built in this process -> {name: (seconds,
-    registers, spill stores, spill loads)}."""
+def ptxas_kernels(text):
+    """{mangled kernel: (registers, spill-store bytes)} from ptxas -v."""
     import re
+    out, kernel = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            kernel = m.group(1)
+            out[kernel] = [None, 0]
+            continue
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m and kernel:
+            out[kernel][1] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and kernel:
+            out[kernel][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
 
+
+def map_program_info():
+    """nvcc's seconds (0.0 where the library was on disk) and ptxas's
+    registers and spill stores of each generated M1 library loaded in
+    this process, by index type -> {name: (seconds, {'int32': (registers,
+    spill bytes), 'int64': ...})}."""
     from bifrost_tpu_torch import build
     out = {}
     for e in build.generated_log:
-        if e["kind"] != "cuda" or not e["nvcc"]:
+        if e["kind"] != "cuda":
             continue
-        text = e["ptxas"]
-        regs = re.findall(r"Used (\d+) registers", text)
-        spill = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                           r"loads", text)
-        out[e["name"]] = (round(e["seconds"], 2),
-                          int(regs[0]) if regs else None,
-                          int(spill[0][0]) if spill else None,
-                          int(spill[0][1]) if spill else None)
+        ks = ptxas_kernels(e["ptxas"])
+        out[e["name"]] = (round(e["seconds"], 2), {
+            idx: next((v for k, v in ks.items() if f"map_kernelI{c}E" in k),
+                      (None, None))
+            for idx, c in (("int32", "i"), ("int64", "x"))})
     return out
+
+
+# [map]'s timed forms at the gulp (B_GULP, NSTAND, NPOL): (tag, program,
+# axis names, input name, input DataType (None: a logical tensor),
+# logical rank, bytes in and out a sample, f32 operations a sample,
+# bitwise its plain version).  ci8 and the stencil are the main programs,
+# on [bengine]'s voltages read raw.
+MAP_FORMS = (
+    ("ci8", MAP_FUNC, None, None, "ci8", 3, 2, 8, 14, True),
+    ("stencil", MAP_STENCIL, MAP_AXES, None, "ci8", 3, 2, 8, 2, True),
+    ("f16", MAP_HALF_FUNC, None, "v", None, 3, 2, 2, 4, True),
+    ("bf16", MAP_HALF_FUNC, None, "v", None, 3, 2, 2, 4, True),
+    ("ci2", MAP_CPK_FUNC, None, "v", "ci2", 2, 0.5, 8, 10, True),
+    ("ci1", MAP_CPK_FUNC, None, "v", "ci1", 2, 0.25, 8, 10, True),
+    ("csqrt", "y = sqrt(v)", None, "v", None, 3, 8, 8, 0, False),
+)
+
+
+def map_form_inputs(dev, raw):
+    """The input of each of MAP_FORMS: `raw` (the ci8 gulp) for the main
+    programs, seeded tensors on the card for the rest (f16 and bf16 of
+    3 sigma, ci2 and ci1 bytes, complex64 of |z| in (0.1, 10))."""
+    shape = (B_GULP, NSTAND, NPOL)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 16)
+    x = {"ci8": raw, "stencil": raw}
+    for tag, dt in (("f16", torch.float16), ("bf16", torch.bfloat16)):
+        x[tag] = (torch.randn(shape, device=dev, generator=gen) * 3).to(dt)
+    for tag, nbit in (("ci2", 2), ("ci1", 1)):
+        x[tag] = torch.randint(0, 256, (B_GULP, NSTAND * NPOL * nbit // 4),
+                               device=dev, generator=gen, dtype=torch.uint8)
+    x["csqrt"] = torch.polar(torch.exp(torch.empty(shape, device=dev).uniform_(
+        np.log(0.1), np.log(10), generator=gen)),
+        torch.empty(shape, device=dev).uniform_(-np.pi, np.pi,
+                                                generator=gen))
+    return x
+
+
+def map_programs(inputs):
+    """MAP_FORMS' programs -> {tag: (Map, Program)}."""
+    from bifrost_tpu_torch.ops.map import Map
+    out = {}
+    for tag, func, axes, in_name, dt, rank, *_ in MAP_FORMS:
+        op = Map(func, axis_names=axes, in_name=in_name)
+        out[tag] = (op, op.program(dt if dt is not None else
+                                   inputs[tag].dtype, rank))
+    return out
+
+
+def time_map_form(dev, kind, form, op, prog, x):
+    """One of MAP_FORMS: M1 (one launch) against its plain version
+    (bitwise, or within MAP_CX_ULP), timed with the plain version and
+    its bound -> record {ms, plain_ms, bound_ms, bound_by, share, path,
+    vec, index, registers, spill_bytes, err}, M1's output)."""
+    from bifrost_tpu_torch.ops import map_kernel
+    tag, _, _, _, _, _, in_b, out_b, ops, exact = form
+    out_shape = map_kernel.logical_shape(x, prog.inputs[0])
+    carry = op.carry_init(out_shape[1:], prog.inputs[0].dtype, dev) \
+        if op.fuse_form == "stencil" else None
+    before = map_kernel.map_apply.launches
+    got, gc = map_kernel.map_apply(prog, [x], out_shape, [], carry)
+    if map_kernel.map_apply.launches != before + 1:
+        raise AssertionError(f"map {tag}: not one M1 launch")
+    plan = dict(map_kernel.map_apply.last)
+    want, wc = map_kernel.map_apply_plain(prog, [x], out_shape, [], carry)
+    torch.cuda.synchronize()
+    g, w = got[0], want[0]
+    abs_err = max_abs_diff(g, w)
+    if gc is not None:
+        abs_err = max(abs_err, max_abs_diff(gc, wc))
+    if exact:
+        if not bits_equal(g.view(torch.uint8), w.view(torch.uint8)) or (
+                gc is not None and not bits_equal(gc.view(torch.uint8),
+                                                  wc.view(torch.uint8))):
+            raise AssertionError(f"M1 ({tag}) differs from its plain "
+                                 f"version")
+        err = 0.0
+    else:
+        err = cx_ulps(g, w, x)
+        if not err <= MAP_CX_ULP:
+            raise AssertionError(f"M1 ({tag}): {err} ulps")
+    outs = [g]
+    ms = cuda_time(lambda: map_kernel.map_apply(prog, [x], out_shape, [],
+                                                carry, outs), 20)
+    plain_ms = cuda_time(lambda: map_kernel.map_apply_plain(
+        prog, [x], out_shape, [], carry), 5)
+    nsamp = math.prod(out_shape)
+    bound_ms, by = bound(nsamp * (in_b + out_b), nsamp * ops,
+                         hbm_rate(kind))
+    regs, spill = map_program_info().get(prog.name, (0, {}))[1].get(
+        plan["index"], (None, None))
+    del got, want, w
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": by, "share": bound_ms / ms, "path": plan["path"],
+            "vec": plan["vec"], "index": plan["index"],
+            "grid": plan["grid"], "block": plan["block"],
+            "registers": regs, "spill_bytes": spill, "err": err,
+            "max_abs_err": abs_err}, g
+
+
+def max_abs_diff(got, want):
+    """max |got - want| over every component, in f64."""
+    g = torch.view_as_real(got) if got.is_complex() else got
+    w = torch.view_as_real(want) if want.is_complex() else want
+    return float((g.double() - w.double()).abs().max())
+
+
+def map_form_line(tag, form, r):
+    err = "bitwise" if form[-1] else f"{r['err']:.2f} ulps"
+    return (f"{tag} {form[1]!r}: {err}; {r['path']} path, V {r['vec']}, "
+            f"{r['index']} ({r['registers']} registers, "
+            f"{r['spill_bytes']} B spilled; grid {r['grid']} x block "
+            f"{r['block']}); {r['ms']:.4f} ms a gulp, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), {100 * r['share']:.1f} % of it")
 
 
 def check_map(dev, kind, volt):
     """M1 at the [map] phase's main-path shape: one gulp of B_GULP frames
     of [bengine]'s ci8 voltages (NSTAND x NPOL) read raw through
-    MAP_FUNC, against its plain version (bitwise: the input is
-    integer-exact), the stencil and the ci4 program too; M1's ms a gulp
-    by CUDA events, the plain version's, the bytes bound (2 B in and 8 B
-    out a sample)."""
+    MAP_FUNC and the stencil, against their plain version (bitwise: the
+    input is integer-exact), each on the vector path and 32-bit indices;
+    M1's ms a gulp by CUDA events, the plain version's, the bytes bound
+    (2 B in and 8 B out a sample); an i4 stencil read packed, and no
+    silent fall back.  Builds every [map] program in parallel first (one
+    nvcc each) and runs check_map_new_forms."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from bifrost_tpu_torch.ops import map_kernel
-    from bifrost_tpu_torch.ops.map import Map
+    from bifrost_tpu_torch.ops.map import Map, map as eager_map
     raw = torch.from_numpy(volt[:B_GULP]).to(dev)
-    nsamp = B_GULP * NSTAND * NPOL
-    worst = 0.0
-    times = {}
-    for tag, func, axes in (("elementwise", MAP_FUNC, None),
-                            ("stencil", MAP_STENCIL, MAP_AXES)):
-        op = Map(func, axis_names=axes)
-        prog = op.program("ci8", 3)
-        carry = op.carry_init((NSTAND, NPOL), torch.complex64, dev) \
-            if op.fuse_form == "stencil" else None
-        out_shape = (B_GULP, NSTAND, NPOL)
-        got, gc = map_kernel.map_apply(prog, [raw], out_shape, [], carry)
-        want, wc = map_kernel.map_apply_plain(prog, [raw], out_shape, [],
-                                              carry)
-        torch.cuda.synchronize()
-        if not bits_equal(torch.view_as_real(got[0]),
-                          torch.view_as_real(want[0])) or \
-                (gc is not None and not bits_equal(torch.view_as_real(gc),
-                                                   torch.view_as_real(wc))):
-            raise AssertionError(f"M1 ({tag}) differs from its plain "
-                                 f"version at ({B_GULP}, {NSTAND}, {NPOL})")
-        worst = max(worst, float((got[0] - want[0]).abs().max()))
-        outs = [got[0]]
-        times[tag] = (
-            cuda_time(lambda: map_kernel.map_apply(
-                prog, [raw], out_shape, [], carry, outs), 20),
-            cuda_time(lambda: map_kernel.map_apply_plain(
-                prog, [raw], out_shape, [], carry), 5))
-        del got, want, outs
+    inputs = map_form_inputs(dev, raw)
+    progs = map_programs(inputs)
+    op4 = Map("y(t,c) = x(t,c) * 3 - x(t-1, c+1)", axis_names=("t", "c"))
+    prog4 = op4.program("i4", 2)
+    zq = inputs["csqrt"][:B_GULP // 4]
+    cx_func = "; ".join(f"{fn}_ = {fn}(v)" for fn in MAP_CX_FUNCS)
+    # map_path's ci4 chain (its frames [time, freq, station, pol]) builds
+    # here too
+    extra = [prog4, Map(MAP_FUNC).program("ci4", 4)]
+    with ThreadPoolExecutor(len(progs) + 3) as pool:
+        builds = [pool.submit(map_kernel.prepare, p) for p in
+                  [p for _, p in progs.values()] + extra]
+        before = map_kernel.map_apply.launches
+        cx_got = pool.submit(eager_map, cx_func, {"v": zq})
+        for b in builds:
+            b.result()
+        cx_got = cx_got.result()
+    cx_launches = map_kernel.map_apply.launches - before
+    recs = {}
+    for form in MAP_FORMS[:2]:
+        tag = form[0]
+        recs[tag] = time_map_form(dev, kind, form, *progs[tag], raw)[0]
+        if recs[tag]["path"] != "vector" or recs[tag]["index"] != "int32":
+            raise AssertionError(f"M1 ({tag}): {recs[tag]['path']} path, "
+                                 f"{recs[tag]['index']}")
     # Packed real storage read in the kernel (an i4 stencil, bitwise),
     # and no silent fall back: a program M1 does not implement raises
     # for a card tensor under 'auto'.
     raw4 = torch.from_numpy(np.random.default_rng(SEED + 15).integers(
         0, 256, (4096, 256), dtype=np.uint8)).to(dev)
-    op = Map("y(t,c) = x(t,c) * 3 - x(t-1, c+1)", axis_names=("t", "c"))
-    prog = op.program("i4", 2)
-    carry = op.carry_init((512,), torch.int8, dev)
-    got, gc = map_kernel.map_apply(prog, [raw4], (4096, 512), [], carry)
-    want, wc = map_kernel.map_apply_plain(prog, [raw4], (4096, 512), [],
+    carry = op4.carry_init((512,), torch.int8, dev)
+    got, gc = map_kernel.map_apply(prog4, [raw4], (4096, 512), [], carry)
+    want, wc = map_kernel.map_apply_plain(prog4, [raw4], (4096, 512), [],
                                           carry)
     if not (bits_equal(got[0], want[0]) and bits_equal(gc, wc)):
         raise AssertionError("M1 (i4 stencil) differs from its plain "
                              "version")
+    i4_path = map_kernel.map_apply.last["path"]
     try:
         Map("y = Complex(v, v)").execute(raw4.half())
     except NotImplementedError:
@@ -3764,88 +3905,47 @@ def check_map(dev, kind, volt):
         raise AssertionError("map: a program M1 does not implement ran on "
                              "the card")
     del raw4, got, want
-    new = check_map_new_forms(dev, kind)
-    nbytes = nsamp * (2 + 8)
-    # 14 f32 operations a sample: 2 x (complex x real), x x* (complex),
-    # + 1
-    bound_ms, by = bound(nbytes, 14 * nsamp, hbm_rate(kind))
-    ms, plain_ms = times["elementwise"]
-    phase("map", f"map_apply (M1) equal to plain (tolerance: bitwise, "
-          f"integer-exact ci8) on {MAP_FUNC!r} and the stencil "
-          f"{MAP_STENCIL!r} at ({B_GULP}, {NSTAND}, {NPOL}) ci8 read raw: "
-          f"{ms:.4f} ms a gulp (1 launch), plain {plain_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({by}: {nsamp * 2 / 2**20:.0f} MiB in, "
-          f"{nsamp * 8 / 2**20:.0f} MiB out), {100 * bound_ms / ms:.1f} % "
-          f"of it; stencil "
-          f"{times['stencil'][0]:.4f} ms, plain {times['stencil'][1]:.4f} "
-          f"ms; library: none (no single PyTorch call computes a user "
+    new = check_map_new_forms(dev, kind, progs, inputs, cx_func, cx_got,
+                              cx_launches)
+    phase("map", "map_apply (M1) against plain at "
+          f"({B_GULP}, {NSTAND}, {NPOL}) ci8 read raw (64 MiB in, 256 MiB "
+          f"out; tolerance: bitwise, integer-exact ci8): " +
+          "; ".join(map_form_line(f[0], f, recs[f[0]])
+                    for f in MAP_FORMS[:2]) +
+          f"; library: none (no single PyTorch call computes a user "
           f"expression); an i4 stencil read packed bitwise its plain "
-          f"version; 'auto' on a program M1 does not implement "
-          f"(Complex of f16: complex32) raised; {kind}")
+          f"version ({i4_path} path); 'auto' on a program M1 does not "
+          f"implement (Complex of f16: complex32) raised; {kind}")
+    ci8, st = recs["ci8"], recs["stencil"]
     rec = {"name": "map_apply", "route": "cuda",
            "source": "bifrost_tpu_torch/csrc/map_common.cuh",
            "replaces": "bifrost_tpu/ops/map.py:421",
-           "launches": None, "max_abs_err": worst, "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
-           "library_ms": None, "at_stencil_ms": times["stencil"][0]}
+           "launches": None, "max_abs_err": None, "ms": ci8["ms"],
+           "plain_ms": ci8["plain_ms"], "bound_ms": ci8["bound_ms"],
+           "bound_by": ci8["bound_by"], "library_ms": None,
+           "path": ci8["path"], "vec": ci8["vec"], "index": ci8["index"],
+           "registers": ci8["registers"], "spill_bytes": ci8["spill_bytes"],
+           "at_stencil_ms": st["ms"], "at_stencil": st}
     rec.update(new)
+    # every timed form's max |M1 - plain| (csqrt's within MAP_CX_ULP)
+    rec["max_abs_err"] = max(r["max_abs_err"] for r in
+                             [ci8, st] + list(new.values()))
     return rec
 
 
-def check_map_new_forms(dev, kind):
-    """M1's half, packed-complex and complex-math forms at [map]'s gulp
-    shape (B_GULP, NSTAND, NPOL):
-    MAP_HALF_FUNC on f16 and bf16, MAP_CPK_FUNC on ci2 and ci1 bytes
-    (bitwise their plain versions), `sqrt` on complex64 (within
-    MAP_CX_ULP), each timed beside its plain version and its bytes bound;
-    every complex transcendental of MAP_CX_FUNCS within MAP_CX_ULP at a
-    quarter of the gulp, as the outputs of one eager call (one launch).
-    The programs are built in parallel first (one nvcc each).  -> {'at_
-    <form>': {ms, plain_ms, bound_ms, bound_by}}."""
-    from concurrent.futures import ThreadPoolExecutor
-
+def check_map_new_forms(dev, kind, progs, inputs, cx_func, cx_got,
+                        cx_launches):
+    """M1's half, packed-complex and complex-math forms of MAP_FORMS at
+    [map]'s gulp shape: f16 and bf16, ci2 and ci1 bytes (bitwise their
+    plain versions), `sqrt` on complex64 (within MAP_CX_ULP, timed beside
+    `torch.sqrt` on the same tensor), each with its path, V, index type,
+    registers and spills, ms, plain ms and bound; every complex
+    transcendental of MAP_CX_FUNCS within MAP_CX_ULP at a quarter of the
+    gulp, as the outputs of one eager call (`cx_got`, one launch).  ->
+    {'at_<form>': record}."""
     from bifrost_tpu_torch import config
-    from bifrost_tpu_torch.ops import map_kernel
-    from bifrost_tpu_torch.ops.map import Map, map as eager_map
-    shape = (B_GULP, NSTAND, NPOL)
-    nsamp = B_GULP * NSTAND * NPOL
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(SEED + 16)
-    # (tag, func, input, DataType or None, logical shape, bytes in and
-    # out a sample, f32 operations a sample, bitwise)
-    cases = []
-    for tag, dt in (("f16", torch.float16), ("bf16", torch.bfloat16)):
-        x = (torch.randn(shape, device=dev, generator=gen) * 3).to(dt)
-        # v*v, v*0.5, -, +: 4 f32 operations
-        cases.append((tag, MAP_HALF_FUNC, x, None, shape, 2, 2, 4, True))
-    for tag, nbit in (("ci2", 2), ("ci1", 1)):
-        # [station * pol] inputs of a frame, packed 4 // nbit a byte;
-        # v v* (complex, 6), v*2 (2), + (2): 10 operations
-        per = 4 // nbit
-        x = torch.randint(0, 256, (B_GULP, NSTAND * NPOL // per),
-                          device=dev, generator=gen, dtype=torch.uint8)
-        cases.append((tag, MAP_CPK_FUNC, x, tag, (B_GULP, NSTAND * NPOL),
-                      1.0 / per, 8, 10, True))
-    z = torch.polar(torch.exp(torch.empty(shape, device=dev).uniform_(
-        np.log(0.1), np.log(10), generator=gen)),
-        torch.empty(shape, device=dev).uniform_(-np.pi, np.pi,
-                                                generator=gen))
-    # the bound is the bytes' (the f64 arithmetic is not counted: the data
-    # sheet's table has no f64 rate)
-    cases.append(("csqrt", "y = sqrt(v)", z, None, shape, 8, 8, 0, False))
-    progs = [Map(func, in_name="v").program(
-        dt if dt is not None else x.dtype, x.dim())
-        for _, func, x, dt, *_ in cases]
-    zq = z[:B_GULP // 4]
-    cx_func = "; ".join(f"{fn}_ = {fn}(v)" for fn in MAP_CX_FUNCS)
-    with ThreadPoolExecutor(len(progs) + 1) as pool:
-        builds = [pool.submit(map_kernel.prepare, p) for p in progs]
-        before = map_kernel.map_apply.launches
-        cx_got = pool.submit(eager_map, cx_func, {"v": zq})
-        for b in builds:
-            b.result()
-        cx_got = cx_got.result()
-    cx_launches = map_kernel.map_apply.launches - before
+    from bifrost_tpu_torch.ops.map import map as eager_map
+    zq = inputs["csqrt"][:B_GULP // 4]
     config.set("map_method", "plain")
     try:
         cx_want = eager_map(cx_func, {"v": zq})
@@ -3858,45 +3958,66 @@ def check_map_new_forms(dev, kind):
                              f"launches, ulps {worst}")
     del cx_got, cx_want, zq
     out, lines = {}, []
-    for (tag, func, x, _, oshape, in_b, out_b, ops, exact), prog in zip(
-            cases, progs):
-        before = map_kernel.map_apply.launches
-        got, _ = map_kernel.map_apply(prog, [x], oshape, [])
-        if map_kernel.map_apply.launches != before + 1:
-            raise AssertionError(f"map {tag}: not one M1 launch")
-        want, _ = map_kernel.map_apply_plain(prog, [x], oshape, [])
-        torch.cuda.synchronize()
-        g, w = got[0], want[0]
-        if exact:
-            if not bits_equal(g.view(torch.uint8), w.view(torch.uint8)):
-                raise AssertionError(f"M1 ({tag}) differs from its plain "
-                                     f"version")
-            err = "bitwise"
-        else:
-            err = cx_ulps(g, w, x)
-            if not err <= MAP_CX_ULP:
-                raise AssertionError(f"M1 ({tag}): {err} ulps")
-            err = f"{err:.2f} ulps"
-        outs = [g]
-        ms = cuda_time(lambda: map_kernel.map_apply(prog, [x], oshape, [],
-                                                    None, outs), 20)
-        plain_ms = cuda_time(lambda: map_kernel.map_apply_plain(
-            prog, [x], oshape, []), 5)
-        bound_ms, by = bound(nsamp * (in_b + out_b), nsamp * ops,
-                             hbm_rate(kind))
-        out[f"at_{tag}"] = {"ms": ms, "plain_ms": plain_ms,
-                            "bound_ms": bound_ms, "bound_by": by}
-        lines.append(f"{tag} {func!r}: {err}, {ms:.4f} ms a gulp, plain "
-                     f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}, "
-                     f"{100 * bound_ms / ms:.1f} %)")
-        del got, want, outs, g, w
-    del cases, z
-    phase("map", f"half, packed-complex, complex-math forms at {shape}: "
-          + "; ".join(lines) +
+    for form in MAP_FORMS[2:]:
+        tag = form[0]
+        r, y = time_map_form(dev, kind, form, *progs[tag], inputs[tag])
+        if tag == "csqrt":
+            z = inputs[tag]
+            zs = torch.empty_like(z)
+            r["library_ms"] = cuda_time(lambda: torch.sqrt(z, out=zs), 20)
+            r["bitwise_torch_sqrt"] = bool(bits_equal(
+                zs.view(torch.uint8), y.view(torch.uint8)))
+            r["ulps_torch_sqrt"] = cx_ulps(y, zs, z)
+            (r["edge_ulps"], r["edge_ulps_torch_sqrt"],
+             r["edge_nonfinite_torch_sqrt"]) = sqrt_edges_ulps(
+                dev, progs[tag][1])
+            del zs
+        del y
+        out[f"at_{tag}"] = r
+        lines.append(map_form_line(tag, form, r) + (
+            f"; torch.sqrt {r['library_ms']:.4f} ms (M1 bitwise it: "
+            f"{r['bitwise_torch_sqrt']}, {r['ulps_torch_sqrt']:.2f} ulps; "
+            f"at {len(MAP_SQRT_EDGES)} points at the ends of the f32 "
+            f"range, against torch.sqrt in complex128: M1 "
+            f"{r['edge_ulps']:.2f} ulps, torch.sqrt in complex64 "
+            f"{r['edge_ulps_torch_sqrt']:.4g} where finite, not finite at "
+            f"{r['edge_nonfinite_torch_sqrt']})"
+            if tag == "csqrt" else ""))
+    phase("map", f"half, packed-complex, complex-math forms at "
+          f"({B_GULP}, {NSTAND}, {NPOL}): " + "; ".join(lines) +
           f"; complex64 transcendentals (one eager call, one launch) vs "
           f"PyTorch's kernels, ulps of max(|z|, |w|) at |z| in (0.1, 10) "
           f"(limit {MAP_CX_ULP}): {worst}; {kind}")
     return out
+
+
+def sqrt_edges_ulps(dev, prog):
+    """M1's complex64 sqrt (`prog`, MAP_FORMS' csqrt) at MAP_SQRT_EDGES
+    against torch.sqrt of the same points in complex128 on the card (the
+    complex64 kernel overflows and loses subnormals there): finite,
+    within MAP_CX_ULP complex64 ulps of max(|z|, |w|), taken in
+    complex128. -> (M1's ulps, torch.sqrt's complex64 ulps where it is
+    finite, the points where it is not)."""
+    from bifrost_tpu_torch.ops import map_kernel
+    rank = prog.inputs[0].rank
+    z = torch.tensor([complex(a, b) for a, b in MAP_SQRT_EDGES],
+                     dtype=torch.complex64, device=dev)
+    z = z.reshape((1,) * (rank - 1) + (-1,))
+    got = map_kernel.map_apply(prog, [z], tuple(z.shape), [], None)[0][0]
+    z2 = z.to(torch.complex128)
+    want = torch.sqrt(z2)
+    scale = torch.maximum(z2.abs(), want.abs())[..., None]
+
+    def ulps(y):
+        d = (torch.view_as_real(y).double() - torch.view_as_real(want)).abs()
+        ok = torch.isfinite(torch.view_as_real(y)).all(-1, keepdim=True)
+        d = torch.where(ok, d / scale, 0.0)
+        return float(d.max()) / 2.0 ** -24, int((~ok).sum())
+    err, bad = ulps(got)
+    if bad or not err <= MAP_CX_ULP:
+        raise AssertionError(f"M1 complex64 sqrt at the ends of the f32 "
+                             f"range: {got.tolist()} vs {want.tolist()}")
+    return (err,) + ulps(torch.sqrt(z))
 
 
 def cx_ulps(got, want, z):
@@ -3943,9 +4064,11 @@ def map_run(dev, source, func, axes=None, fuse=False, detect=True,
     groups = [b for b in pipe.blocks if isinstance(b, FusedTransformBlock)]
     if bool(groups) != fuse:
         raise AssertionError(f"map run (fuse {fuse}): groups {groups}")
+    m1 = kernel_counters()["map_apply"]
     return {"outs": outs, "stamps": stamps, "wall": wall,
             "counts": read_counts(), "raw": (m._raw_reads,
                                              m._raw_read_nbyte),
+            "vector": m1.vector_launches, "index64": m1.index64_launches,
             "report": m.plan_report(), "fusion": pipe.fusion_report()}
 
 
@@ -3956,10 +4079,12 @@ def map_same(a, b):
     return bits_equal(a, b)
 
 
-def map_chains(tag, runs, ngulp, nframe, storage_nbyte, kind):
+def map_chains(tag, runs, ngulp, nframe, storage_nbyte, kind,
+               vector=False):
     """Hold every run of one program against the first (bitwise), its M1
-    launches (one a gulp; none for 'plain') and raw reads, and print its
-    rates -> launch counts by run name."""
+    launches (one a gulp; none for 'plain'; with `vector` each on the
+    vector path with 32-bit indices) and raw reads, and print its rates
+    -> launch counts by run name."""
     ref = runs[next(iter(runs))]
     out = {}
     for name, r in runs.items():
@@ -3971,6 +4096,12 @@ def map_chains(tag, runs, ngulp, nframe, storage_nbyte, kind):
         if r["counts"] != expected(map_apply=0 if plain else n):
             raise AssertionError(f"map {tag} {name}: launches "
                                  f"{r['counts']}")
+        if vector and (r["vector"] != r["counts"]["map_apply"] or
+                       r["index64"]):
+            raise AssertionError(f"map {tag} {name}: {r['vector']} of "
+                                 f"{r['counts']['map_apply']} launches on "
+                                 f"the vector path, {r['index64']} with "
+                                 f"64-bit indices")
         if r["raw"] != (n, storage_nbyte):
             raise AssertionError(f"map {tag} {name}: raw reads {r['raw']}")
         want = "plain" if plain else "cuda"
@@ -3987,7 +4118,8 @@ def map_chains(tag, runs, ngulp, nframe, storage_nbyte, kind):
     phase("map", f"{tag}: {len(runs)} runs bitwise equal ({list(runs)}), "
           f"M1 launches "
           f"{ {k: r['counts']['map_apply'] for k, r in runs.items()} } "
-          f"(one a gulp, {ngulp} gulps of {nframe // ngulp} frames), raw "
+          f"(one a gulp, {ngulp} gulps of {nframe // ngulp} frames; on the "
+          f"vector path { {k: r['vector'] for k, r in runs.items()} }), raw "
           f"reads {ref['raw']}; frames/s whole {rates}, steady {steady}; "
           f"fused group "
           f"{[(g['rule'], g['constituents']) for g in fused['groups']] if fused else None}; "
@@ -4030,7 +4162,7 @@ def map_path(dev, kind, volt):
         raise AssertionError("map elementwise: differs from the exact golden")
     del y
     out.update(map_chains("elementwise", runs, MAP_NGULP, nframe,
-                          raw_nbyte, kind))
+                          raw_nbyte, kind, vector=True))
     del runs
     free_device()
 
@@ -4057,7 +4189,7 @@ def map_path(dev, kind, volt):
         raise AssertionError("map stencil: differs from the exact golden")
     del y
     out.update(map_chains("stencil", runs, MAP_NGULP, nframe, raw_nbyte,
-                          kind))
+                          kind, vector=True))
     del runs
     free_device()
 
@@ -4127,8 +4259,8 @@ def map_path(dev, kind, volt):
     warm = build.generated_log[nlog:]
     if len(warm) != 1 or warm[0]["nvcc"]:
         raise AssertionError(f"map: the second Map rebuilt: {warm}")
-    phase("map", f"generated kernels (nvcc s, registers, spill stores, "
-          f"spill loads): {info}; a second Map({MAP_FUNC!r}) loaded the "
+    phase("map", f"generated kernels (nvcc s, by index type registers "
+          f"and spill stores): {info}; a second Map({MAP_FUNC!r}) loaded the "
           f"built library with no nvcc run ({warm[0]['seconds']} s); "
           f"{kind}")
     return out

@@ -1,8 +1,8 @@
 """Time the port's redesigned kernels against variants of their sources on
 a CUDA card: the FIR MAC K2, the FDMT merge step K1, the B-engine K4, the
-masked fill K5a and the int8 X-engine X1.
+masked fill K5a, the int8 X-engine X1 and bf.map's generated kernel M1.
 
-    python3 kernel_variants.py [--rounds N] [--only K2,K1]
+    python3 kernel_variants.py [--rounds N] [--only K2,K1,M1]
 
 Each variant is the port's source (bifrost_tpu_torch/csrc/fir.cu,
 fdmt.cu, beamform.cu, dq.cu or xengine.cu) with a few lines replaced
@@ -27,7 +27,18 @@ beam-search gulp (16 x 4096 x 512 complex64, 8 beams); K5a on
 frames x 128 channels x 512 inputs ci4; also held, untimed, on ci8 and
 at 200 x 2 x 129, into outputs prefilled with NaN).  F.conv1d,
 torch.matmul, torch.where and torch._int_mm are timed in the same
-rounds.  Prints each variant's
+rounds.  M1 (--only M1) runs chip_smoke.py's MAP_FORMS (the ci8
+program, the stencil, f16, bf16, ci2, ci1, complex64 sqrt) at [map]'s
+gulp (65,536 x 256 x 2): its first design (M1_FIRST_HEADER and
+M1_FIRST_BODIES below, built with the same flags and launched with its
+own launch words), the port's generator, and variants of it (twice the
+V: a thread's span of the widest operand 32 bytes; one wave of blocks;
+stores without the streaming hint); each held against the plain (the
+port's also timed as a CUDA graph, its device time without the host's
+launch cost) version (bitwise; sqrt within chip_smoke.MAP_CX_ULP ulps), timed with
+`torch.sqrt` beside sqrt, and counted in SASS (cuobjdump): each loop's
+instructions, loads, stores and calls, and the kernel's 64-bit divide
+sequences (I2F.U64.RP).  Prints each variant's
 registers and spilled bytes by kernel from ptxas, one line per round, and
 last the card's name and power limit and a JSON object of the times
 (ms).
@@ -40,6 +51,7 @@ import json
 import re
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -734,11 +746,1268 @@ def x1_cases(dev, gen):
     return cases, library
 
 
+# M1's first design (the generator's output before its Hopper redesign):
+# one output element a grid-stride loop step, the element's coordinates
+# by a 64-bit `%` and `/` of every axis' extent, 64-bit offsets, scalar
+# loads and stores, the complex transcendentals in f64.  M1_FIRST_HEADER
+# is its csrc/map_common.cuh; m1_first_source(tag) is the kernel its
+# generator wrote for chip_smoke.MAP_FORMS' program `tag`: the common
+# preamble and launch code around M1_FIRST_BODIES[tag] (the statements,
+# the per-element function and map_item).  m1_first_meta packs its launch
+# words: n, ncarry, the output shape and strides, the input's logical
+# shape, strides and component stride; a launch takes a grid of
+# ceil((n + ncarry) / 256) blocks, at most 132 * 64.
+M1_FIRST_BLOCK, M1_FIRST_MAX_GRID = 256, 132 * 64
+
+
+def m1_first_meta(out, x, storage_strides, ncarry=0):
+    """The launch words of a rank-r program: output tensor `out`, input
+    of logical shape x[0] read through (strides, component stride)
+    `storage_strides`."""
+    shape, (strides, cs_) = x, storage_strides
+    m = [out.numel(), ncarry] + list(out.shape) + list(out.stride())
+    return m + list(shape) + list(strides) + [cs_]
+
+
+def m1_first_grid(n):
+    return max(1, min(-(-n // M1_FIRST_BLOCK), M1_FIRST_MAX_GRID))
+
+
+def m1_first_source(tag):
+    body = M1_FIRST_BODIES[tag]
+    nm = re.search(r"struct P \{ long long m\[(\d+)\]", body).group(1)
+    return M1_FIRST_PREAMBLE + body + M1_FIRST_LAUNCH.replace("@NM@", nm)
+
+
+M1_FIRST_HEADER = r'''// The run-time support of bf.map's generated kernels (kernel M1).
+//
+// ops/map_codegen.py turns one user expression of the map mini-language
+// into a CUDA C++ source that includes this header: a complex type, the
+// operators on it, the loads of every storage form a stream arrives in,
+// and the math functions with the semantics of the port's plain engine
+// (PyTorch's operators, which for these functions are JAX's):
+//
+// - `/` on integers is true division (the operands become float first,
+//   the code generator casts them); `//` and `%` floor, as Python does;
+// - integer +, -, *, negation and powers wrap (computed unsigned);
+// - round and rint round half to even (rint), as jnp.round does;
+// - mmin/mmax propagate a NaN, as jnp.minimum/maximum and
+//   torch.minimum/maximum do (C's fminf does not);
+// - rsqrt is 1/sqrt, not the approximate rsqrtf;
+// - the complex product is (ac - bd, ad + bc) and the quotient follows
+//   c10::complex's (numpy's) scaled algorithm;
+// - cvt<T> follows astype / Tensor.to: a complex value cast to a real
+//   type keeps its real part, a real value cast to complex gets a zero
+//   imaginary part, a float cast to an integer truncates.
+//
+// - f16 and bf16 are storage types: every operator converts its
+//   operands to f32, computes there and rounds the result back to the
+//   storage type (round to nearest even), as PyTorch's kernels do with
+//   their f32 "opmath"; a Python scalar that PyTorch's card kernels read
+//   straight into f32 (+, -, * with a CPU scalar) is passed to the f32
+//   operator unrounded by the generator;
+// - the complex transcendentals (sqrt, log, log2, log10, sin, cos, tan,
+//   asin, acos, atan, sinh, cosh, tanh, rsqrt, pow) are computed in f64
+//   and rounded to the component type, with the formulas named at each:
+//   within a few ulps of |z| (or of the result where it is larger) of
+//   PyTorch's c10::complex / thrust kernels away from the branch cuts,
+//   not bitwise.
+//
+// Every function is __host__ __device__, so a generated source also
+// compiles with the host C++ compiler: the CPU tests run the generated
+// statement bodies against the plain engine with no card.  Kernels are
+// built with --fmad=false (and the host build with -ffp-contract=off),
+// so no multiply and add are contracted: the plain engine rounds each
+// operator on its own.
+
+#pragma once
+
+#include <cmath>
+#include <cstdint>
+#include <cstring>
+#include <type_traits>
+
+// A generated source that uses f16 or bf16 defines MAP_HALF_TYPES first:
+// the card's conversion instructions come from CUDA's half headers, which
+// cost every other kernel's build a second.
+#if defined(__CUDACC__) && defined(MAP_HALF_TYPES)
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#define MAP_HALF_INTRINSICS 1
+#endif
+
+#ifdef __CUDACC__
+#define MAP_HD __host__ __device__ __forceinline__
+#else
+#define MAP_HD inline
+#endif
+
+namespace bfmap {
+
+// ------------------------------------------------- half storage types
+MAP_HD uint32_t f32_bits(float f) {
+  uint32_t u;
+  std::memcpy(&u, &f, 4);
+  return u;
+}
+MAP_HD float bits_f32(uint32_t u) {
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+
+// f32 -> f16 bits, round to nearest even; a NaN becomes the quiet NaN
+// 0x7e00 with its sign (c10::Half's host conversion).
+MAP_HD uint16_t f16_from_f32(float f) {
+#if defined(__CUDA_ARCH__) && defined(MAP_HALF_INTRINSICS)
+  return __half_as_ushort(__float2half_rn(f));
+#else
+  const uint32_t x = f32_bits(f);
+  const uint32_t sign = (x >> 16) & 0x8000u;
+  const uint32_t ax = x & 0x7fffffffu;
+  if (ax > 0x7f800000u) return static_cast<uint16_t>(sign | 0x7e00u);
+  if (ax >= 0x477ff000u) return static_cast<uint16_t>(sign | 0x7c00u);
+  if (ax >= 0x38800000u) {              // a normal half
+    const uint32_t r = ax - 0x38000000u;
+    return static_cast<uint16_t>(
+        sign | ((r + 0xfffu + ((r >> 13) & 1u)) >> 13));
+  }
+  // below 2**-14: a multiple of 2**-24, rounded to nearest even (v and
+  // its fraction are exact in f32)
+  const float v = bits_f32(ax) * 16777216.0f;
+  uint32_t m = static_cast<uint32_t>(v);
+  const float frac = v - static_cast<float>(m);
+  if (frac > 0.5f || (frac == 0.5f && (m & 1u))) ++m;
+  return static_cast<uint16_t>(sign | m);
+#endif
+}
+MAP_HD float f16_to_f32(uint16_t h) {
+#if defined(__CUDA_ARCH__) && defined(MAP_HALF_INTRINSICS)
+  return __half2float(__ushort_as_half(h));
+#else
+  const uint32_t sign = static_cast<uint32_t>(h & 0x8000u) << 16;
+  const uint32_t e = (h >> 10) & 0x1fu, m = h & 0x3ffu;
+  if (e == 0x1f) return bits_f32(sign | 0x7f800000u | (m << 13));
+  if (e) return bits_f32(sign | ((e + 112u) << 23) | (m << 13));
+  const float v = static_cast<float>(m) * 5.9604644775390625e-8f;
+  return sign ? -v : v;
+#endif
+}
+// f32 -> bf16 bits, round to nearest even; a NaN becomes 0x7fc0
+// (c10::BFloat16's host conversion).
+MAP_HD uint16_t bf16_from_f32(float f) {
+#if defined(__CUDA_ARCH__) && defined(MAP_HALF_INTRINSICS)
+  return __bfloat16_as_ushort(__float2bfloat16_rn(f));
+#else
+  const uint32_t x = f32_bits(f);
+  if ((x & 0x7fffffffu) > 0x7f800000u) return 0x7fc0u;
+  return static_cast<uint16_t>((x + 0x7fffu + ((x >> 16) & 1u)) >> 16);
+#endif
+}
+MAP_HD float bf16_to_f32(uint16_t h) {
+  return bits_f32(static_cast<uint32_t>(h) << 16);
+}
+
+// A 16-bit float in storage: constructed from an f32 (rounded), read as
+// an f32 (exact).  Its operators round each result, as c10::Half's do.
+template <int KIND>  // 0 f16, 1 bf16
+struct half_t {
+  uint16_t bits;
+  MAP_HD half_t() : bits(0) {}
+  MAP_HD explicit half_t(float v)
+      : bits(KIND == 0 ? f16_from_f32(v) : bf16_from_f32(v)) {}
+  MAP_HD operator float() const {
+    return KIND == 0 ? f16_to_f32(bits) : bf16_to_f32(bits);
+  }
+};
+using f16 = half_t<0>;
+using bf16 = half_t<1>;
+
+template <int K>
+MAP_HD half_t<K> operator+(half_t<K> a, half_t<K> b) {
+  return half_t<K>(float(a) + float(b));
+}
+template <int K>
+MAP_HD half_t<K> operator-(half_t<K> a, half_t<K> b) {
+  return half_t<K>(float(a) - float(b));
+}
+template <int K>
+MAP_HD half_t<K> operator*(half_t<K> a, half_t<K> b) {
+  return half_t<K>(float(a) * float(b));
+}
+template <int K>
+MAP_HD half_t<K> operator/(half_t<K> a, half_t<K> b) {
+  return half_t<K>(float(a) / float(b));
+}
+template <int K>
+MAP_HD half_t<K> operator-(half_t<K> a) {
+  half_t<K> r;
+  r.bits = static_cast<uint16_t>(a.bits ^ 0x8000u);
+  return r;
+}
+
+template <typename T> struct is_half : std::false_type {};
+template <int K> struct is_half<half_t<K>> : std::true_type {};
+// Floating point, the storage halves included.
+template <typename T>
+struct is_fp : std::integral_constant<bool, std::is_floating_point<T>::value ||
+                                                is_half<T>::value> {};
+
+template <typename T>
+struct cx {
+  T re, im;
+  MAP_HD cx() : re(0), im(0) {}
+  MAP_HD cx(T r, T i) : re(r), im(i) {}
+};
+
+template <typename T> struct is_cx : std::false_type {};
+template <typename T> struct is_cx<cx<T>> : std::true_type {};
+template <typename T> struct comp { using type = T; };
+template <typename T> struct comp<cx<T>> { using type = T; };
+
+// ------------------------------------------------------------- casts
+template <typename To, typename From>
+MAP_HD To cvt(From v) {
+  if constexpr (is_cx<To>::value) {
+    using C = typename comp<To>::type;
+    if constexpr (is_cx<From>::value) {
+      return To(static_cast<C>(v.re), static_cast<C>(v.im));
+    } else {
+      return To(static_cast<C>(v), C(0));
+    }
+  } else if constexpr (std::is_same<To, bool>::value) {
+    if constexpr (is_cx<From>::value) {
+      return v.re != 0 || v.im != 0;
+    } else {
+      return v != 0;
+    }
+  } else if constexpr (is_cx<From>::value) {
+    return static_cast<To>(v.re);
+  } else {
+    return static_cast<To>(v);
+  }
+}
+
+template <typename T>
+MAP_HD bool truth(T v) { return cvt<bool>(v); }
+
+// Integer arithmetic that wraps: computed on the unsigned type of the
+// same width, then converted back (two's complement).
+template <typename T>
+using uns = typename std::make_unsigned<
+    typename std::conditional<std::is_same<T, bool>::value, uint8_t,
+                              T>::type>::type;
+
+// ----------------------------------------------------- the operators
+template <typename T>
+MAP_HD T op_add(T a, T b) {
+  if constexpr (is_half<T>::value) {
+    return T(float(a) + float(b));
+  } else if constexpr (is_cx<T>::value) {
+    return T(a.re + b.re, a.im + b.im);
+  } else if constexpr (std::is_integral<T>::value) {
+    return static_cast<T>(static_cast<uns<T>>(
+        static_cast<uns<T>>(a) + static_cast<uns<T>>(b)));
+  } else {
+    return a + b;
+  }
+}
+
+template <typename T>
+MAP_HD T op_sub(T a, T b) {
+  if constexpr (is_half<T>::value) {
+    return T(float(a) - float(b));
+  } else if constexpr (is_cx<T>::value) {
+    return T(a.re - b.re, a.im - b.im);
+  } else if constexpr (std::is_integral<T>::value) {
+    return static_cast<T>(static_cast<uns<T>>(
+        static_cast<uns<T>>(a) - static_cast<uns<T>>(b)));
+  } else {
+    return a - b;
+  }
+}
+
+template <typename T>
+MAP_HD T op_mul(T a, T b) {
+  if constexpr (is_half<T>::value) {
+    return T(float(a) * float(b));
+  } else if constexpr (is_cx<T>::value) {
+    return T(a.re * b.re - a.im * b.im, a.re * b.im + a.im * b.re);
+  } else if constexpr (std::is_integral<T>::value) {
+    return static_cast<T>(static_cast<uns<T>>(
+        static_cast<uns<T>>(a) * static_cast<uns<T>>(b)));
+  } else {
+    return a * b;
+  }
+}
+
+template <typename T>
+MAP_HD T op_neg(T a) {
+  if constexpr (is_half<T>::value) {
+    return -a;
+  } else if constexpr (is_cx<T>::value) {
+    return T(-a.re, -a.im);
+  } else if constexpr (std::is_integral<T>::value) {
+    return static_cast<T>(static_cast<uns<T>>(
+        uns<T>(0) - static_cast<uns<T>>(a)));
+  } else {
+    return -a;
+  }
+}
+
+// True division (floats and complex; the generator makes integer
+// operands float first).  The complex quotient is c10::complex's.
+template <typename T>
+MAP_HD T op_div(T a, T b) {
+  if constexpr (is_half<T>::value) {
+    return T(float(a) / float(b));
+  } else if constexpr (is_cx<T>::value) {
+    using C = typename comp<T>::type;
+    C ar = a.re, ai = a.im, c = b.re, d = b.im;
+    C abs_c = c < 0 ? -c : c;
+    C abs_d = d < 0 ? -d : d;
+    if (abs_c >= abs_d) {
+      if (abs_c == C(0) && abs_d == C(0)) {
+        return T(ar / abs_c, ai / abs_d);
+      }
+      C rat = d / c;
+      C scl = C(1.0) / (c + d * rat);
+      return T((ar + ai * rat) * scl, (ai - ar * rat) * scl);
+    }
+    C rat = c / d;
+    C scl = C(1.0) / (d + c * rat);
+    return T((ar * rat + ai) * scl, (ai * rat - ar) * scl);
+  } else {
+    return a / b;
+  }
+}
+
+// Floor division: Python's and torch.floor_divide's.
+template <typename T>
+MAP_HD T op_floordiv(T a, T b) {
+  if constexpr (is_half<T>::value) {
+    return T(op_floordiv<float>(float(a), float(b)));
+  } else if constexpr (std::is_integral<T>::value) {
+    if ((a < 0) != (b < 0)) {
+      T q = static_cast<T>(a / b);
+      T r = static_cast<T>(a % b);
+      return r ? static_cast<T>(q - 1) : q;
+    }
+    return static_cast<T>(a / b);
+  } else {
+    if (b == T(0)) return a / b;
+    T mod = std::fmod(a, b);
+    T div = (a - mod) / b;
+    if ((mod != 0) && ((b < 0) != (mod < 0))) div -= T(1);
+    T fl;
+    if (div != 0) {
+      fl = std::floor(div);
+      if (div - fl > T(0.5)) fl += T(1.0);
+    } else {
+      fl = std::copysign(T(0), a / b);
+    }
+    return fl;
+  }
+}
+
+// Floor modulo: the result takes the divisor's sign.
+template <typename T>
+MAP_HD T op_mod(T a, T b) {
+  if constexpr (is_half<T>::value) {
+    return T(op_mod<float>(float(a), float(b)));
+  } else if constexpr (std::is_integral<T>::value) {
+    T m = static_cast<T>(a % b);
+    if ((m != 0) && ((b < 0) != (m < 0))) m = static_cast<T>(m + b);
+    return m;
+  } else {
+    T m = std::fmod(a, b);
+    if ((m != 0) && ((b < 0) != (m < 0))) m += b;
+    return m;
+  }
+}
+
+// Integer power by squaring, wrapping; a negative exponent gives what
+// torch's integer pow gives (1 for a base of 1, +-1 for -1, else 0).
+template <typename T, typename E>
+MAP_HD T powi(T a, E b) {
+  if (b < 0) {
+    if (a == 1) return T(1);
+    if (a == -1) return (b % 2 == 0) ? T(1) : T(-1);
+    return T(0);
+  }
+  T r = 1;
+  while (b) {
+    if (b & 1) r = op_mul<T>(r, a);
+    b /= 2;
+    a = op_mul<T>(a, a);
+  }
+  return r;
+}
+
+template <typename T>
+MAP_HD T op_pow(T a, T b) {
+  if constexpr (is_half<T>::value) {
+    return T(std::pow(float(a), float(b)));
+  } else if constexpr (std::is_integral<T>::value) {
+    return powi<T, T>(a, b);
+  } else {
+    return std::pow(a, b);
+  }
+}
+
+template <typename T>
+MAP_HD T op_and(T a, T b) {
+  if constexpr (std::is_same<T, bool>::value) return a && b;
+  else return static_cast<T>(a & b);
+}
+template <typename T>
+MAP_HD T op_or(T a, T b) {
+  if constexpr (std::is_same<T, bool>::value) return a || b;
+  else return static_cast<T>(a | b);
+}
+template <typename T>
+MAP_HD T op_xor(T a, T b) {
+  if constexpr (std::is_same<T, bool>::value) return a != b;
+  else return static_cast<T>(a ^ b);
+}
+// Shifts as PyTorch's: a shift by a negative amount or by the width or
+// more gives 0 to the left and the sign fill to the right; a left shift
+// wraps (computed on the unsigned type).
+template <typename T>
+MAP_HD T op_shl(T a, T b) {
+  if (b < 0 || b >= T(8 * sizeof(T))) return T(0);
+  return static_cast<T>(static_cast<uns<T>>(static_cast<uns<T>>(a)
+                                            << static_cast<int>(b)));
+}
+template <typename T>
+MAP_HD T op_shr(T a, T b) {
+  if (b < 0 || b >= T(8 * sizeof(T))) return a < 0 ? T(-1) : T(0);
+  return static_cast<T>(a >> static_cast<int>(b));
+}
+template <typename T>
+MAP_HD T op_invert(T a) {
+  if constexpr (std::is_same<T, bool>::value) return !a;
+  else return static_cast<T>(~a);
+}
+
+template <typename T>
+MAP_HD bool op_eq(T a, T b) {
+  if constexpr (is_cx<T>::value) return a.re == b.re && a.im == b.im;
+  else return a == b;
+}
+template <typename T>
+MAP_HD bool op_ne(T a, T b) { return !op_eq<T>(a, b); }
+
+// -------------------------------------------------- the math functions
+template <typename T>
+MAP_HD T mmin(T a, T b) {
+  if constexpr (is_fp<T>::value) {
+    if (a != a) return a;
+    if (b != b) return b;
+  }
+  return a < b ? a : b;
+}
+template <typename T>
+MAP_HD T mmax(T a, T b) {
+  if constexpr (is_fp<T>::value) {
+    if (a != a) return a;
+    if (b != b) return b;
+  }
+  return a > b ? a : b;
+}
+
+template <typename T>
+MAP_HD T mabs(T a) {
+  if constexpr (is_half<T>::value) {
+    T r;
+    r.bits = static_cast<uint16_t>(a.bits & 0x7fffu);
+    return r;
+  } else if constexpr (std::is_integral<T>::value) {
+    return a < 0 ? op_neg<T>(a) : a;
+  } else {
+    return std::fabs(a);
+  }
+}
+template <typename C>
+MAP_HD C mabs(cx<C> a) { return std::hypot(a.re, a.im); }
+
+template <typename T> MAP_HD T mfloor(T a) {
+  if constexpr (std::is_integral<T>::value) return a;
+  else if constexpr (is_half<T>::value) return T(std::floor(float(a)));
+  else return std::floor(a);
+}
+template <typename T> MAP_HD T mceil(T a) {
+  if constexpr (std::is_integral<T>::value) return a;
+  else if constexpr (is_half<T>::value) return T(std::ceil(float(a)));
+  else return std::ceil(a);
+}
+// Half to even, as jnp.round and torch.round.
+template <typename T> MAP_HD T mrint(T a) {
+  if constexpr (std::is_integral<T>::value) return a;
+  else if constexpr (is_half<T>::value) return T(std::rint(float(a)));
+  else return std::rint(a);
+}
+template <typename T> MAP_HD T msqrt(T a) {
+  if constexpr (is_half<T>::value) return T(std::sqrt(float(a)));
+  else return std::sqrt(a);
+}
+// 1/sqrt: the square root rounded to T first, as the plain engine
+// divides 1 by torch.sqrt's result.
+template <typename T> MAP_HD T mrsqrt(T a) {
+  if constexpr (is_half<T>::value) return T(1.0f / float(msqrt<T>(a)));
+  else return T(1) / std::sqrt(a);
+}
+
+template <typename C>
+MAP_HD cx<C> mexp(cx<C> a) {
+  C m = std::exp(a.re);
+  return cx<C>(m * std::cos(a.im), m * std::sin(a.im));
+}
+template <typename T> MAP_HD T mexp(T a) { return std::exp(a); }
+
+// --------------------------------------------- complex transcendentals
+// Each is computed on cx<double> and rounded to the component type.
+using cxd = cx<double>;
+
+template <typename C>
+MAP_HD cx<C> cx_round(cxd a) {
+  return cx<C>(static_cast<C>(a.re), static_cast<C>(a.im));
+}
+template <typename C>
+MAP_HD cxd cx_wide(cx<C> a) { return cxd(a.re, a.im); }
+
+// Principal square root (Kahan): no cancellation on either half-plane.
+MAP_HD cxd csqrt_d(cxd z) {
+  const double x = z.re, y = z.im;
+  if (x == 0 && y == 0) return cxd(0.0, y);
+  if (std::isinf(y)) return cxd(INFINITY, y);
+  const double t = std::sqrt((std::fabs(x) + std::hypot(x, y)) * 0.5);
+  if (x >= 0) return cxd(t, y / (2 * t));
+  return cxd(std::fabs(y) / (2 * t), std::copysign(t, y));
+}
+MAP_HD cxd clog_d(cxd z) {
+  return cxd(std::log(std::hypot(z.re, z.im)), std::atan2(z.im, z.re));
+}
+// log(1 + d) for small d without the cancellation of 1 + d.
+MAP_HD cxd clog1p_d(cxd d) {
+  return cxd(0.5 * std::log1p(2 * d.re + (d.re * d.re + d.im * d.im)),
+             std::atan2(d.im, 1 + d.re));
+}
+MAP_HD cxd cexp_d(cxd z) {
+  const double m = std::exp(z.re);
+  return cxd(m * std::cos(z.im), m * std::sin(z.im));
+}
+MAP_HD cxd csinh_d(cxd z) {
+  return cxd(std::sinh(z.re) * std::cos(z.im),
+             std::cosh(z.re) * std::sin(z.im));
+}
+MAP_HD cxd ccosh_d(cxd z) {
+  return cxd(std::cosh(z.re) * std::cos(z.im),
+             std::sinh(z.re) * std::sin(z.im));
+}
+// tanh (Kahan's formula; the large-|x| limit where it would overflow).
+MAP_HD cxd ctanh_d(cxd z) {
+  const double x = z.re, y = z.im;
+  if (std::fabs(x) > 22) {
+    const double e = std::exp(-std::fabs(x));
+    return cxd(std::copysign(1.0, x), 4 * std::sin(y) * std::cos(y) * e * e);
+  }
+  const double t = std::tan(y), b = 1 + t * t, s = std::sinh(x);
+  const double r = std::sqrt(1 + s * s), d = 1 + b * s * s;
+  return cxd(b * r * s / d, t / d);
+}
+// asinh(w) = log(w + sqrt(w^2 + 1)) on Re w >= 0 (odd otherwise), as
+// log1p(w + w^2 / (sqrt(w^2 + 1) + 1)) so a small w keeps its digits.
+MAP_HD cxd casinh_d(cxd w) {
+  if (std::signbit(w.re)) {
+    const cxd r = casinh_d(cxd(-w.re, -w.im));
+    return cxd(-r.re, -r.im);
+  }
+  const cxd w2(w.re * w.re - w.im * w.im, 2 * w.re * w.im);
+  const cxd s = csqrt_d(cxd(w2.re + 1, w2.im));
+  const cxd q = op_div<cxd>(w2, cxd(s.re + 1, s.im));
+  return clog1p_d(cxd(w.re + q.re, w.im + q.im));
+}
+// s = a + b and its rounding error e (Knuth's TwoSum).
+MAP_HD double two_sum(double a, double b, double& e) {
+  const double s = a + b, bb = s - a;
+  e = (a - (s - bb)) + (b - bb);
+  return s;
+}
+// atanh(w) = (log(1 + w) - log(1 - w)) / 2, in the forms without
+// cancellation: Re = log1p(4u / ((1 - u)^2 + v^2)) / 4,
+// Im = atan2(2v, 1 - u^2 - v^2) / 2, 1 - u^2 - v^2 summed from the
+// exact squares (fma) so it keeps its digits near |w| = 1; on Re w >= 0
+// (odd otherwise), where the log1p argument is not near -1.
+MAP_HD cxd catanh_d(cxd w) {
+  if (std::signbit(w.re)) {
+    const cxd r = catanh_d(cxd(-w.re, -w.im));
+    return cxd(-r.re, -r.im);
+  }
+  const double u = w.re, v = w.im, a = 1 - u;
+  const double uh = u * u, ul = std::fma(u, u, -uh);
+  const double vh = v * v, vl = std::fma(v, v, -vh);
+  double e1, e2;
+  const double s1 = two_sum(1.0, -uh, e1);
+  const double s2 = two_sum(s1, -vh, e2);
+  const double d = s2 + (((e1 + e2) - ul) - vl);
+  return cxd(0.25 * std::log1p(4 * u / (a * a + v * v)),
+             0.5 * std::atan2(2 * v, d));
+}
+
+template <typename C>
+MAP_HD cx<C> msqrt(cx<C> a) { return cx_round<C>(csqrt_d(cx_wide(a))); }
+template <typename C>
+MAP_HD cx<C> mlog(cx<C> a) { return cx_round<C>(clog_d(cx_wide(a))); }
+template <typename C>
+MAP_HD cx<C> mlog2(cx<C> a) {
+  const cxd l = clog_d(cx_wide(a));
+  const double k = 1.4426950408889634;          // 1 / log(2)
+  return cx_round<C>(cxd(l.re * k, l.im * k));
+}
+template <typename C>
+MAP_HD cx<C> mlog10(cx<C> a) {
+  const cxd l = clog_d(cx_wide(a));
+  const double k = 0.43429448190325176;         // 1 / log(10)
+  return cx_round<C>(cxd(l.re * k, l.im * k));
+}
+template <typename C>
+MAP_HD cx<C> msinh(cx<C> a) { return cx_round<C>(csinh_d(cx_wide(a))); }
+template <typename C>
+MAP_HD cx<C> mcosh(cx<C> a) { return cx_round<C>(ccosh_d(cx_wide(a))); }
+template <typename C>
+MAP_HD cx<C> mtanh(cx<C> a) { return cx_round<C>(ctanh_d(cx_wide(a))); }
+// sin z = -i sinh(iz), cos z = cosh(iz), tan z = -i tanh(iz).
+template <typename C>
+MAP_HD cx<C> msin(cx<C> a) {
+  const cxd r = csinh_d(cxd(-double(a.im), a.re));
+  return cx_round<C>(cxd(r.im, -r.re));
+}
+template <typename C>
+MAP_HD cx<C> mcos(cx<C> a) {
+  return cx_round<C>(ccosh_d(cxd(-double(a.im), a.re)));
+}
+template <typename C>
+MAP_HD cx<C> mtan(cx<C> a) {
+  const cxd r = ctanh_d(cxd(-double(a.im), a.re));
+  return cx_round<C>(cxd(r.im, -r.re));
+}
+// asin z = -i asinh(iz), acos z = pi/2 - asin z, atan z = -i atanh(iz).
+template <typename C>
+MAP_HD cx<C> masin(cx<C> a) {
+  const cxd r = casinh_d(cxd(-double(a.im), a.re));
+  return cx_round<C>(cxd(r.im, -r.re));
+}
+template <typename C>
+MAP_HD cx<C> macos(cx<C> a) {
+  const cxd r = casinh_d(cxd(-double(a.im), a.re));
+  return cx_round<C>(cxd(1.5707963267948966 - r.im, r.re));
+}
+template <typename C>
+MAP_HD cx<C> matan(cx<C> a) {
+  const cxd r = catanh_d(cxd(-double(a.im), a.re));
+  return cx_round<C>(cxd(r.im, -r.re));
+}
+template <typename C>
+MAP_HD cx<C> mrsqrt(cx<C> a) {
+  return op_div<cx<C>>(cx<C>(C(1), C(0)), msqrt(a));
+}
+// z ** w = exp(w log z), as thrust::pow.
+template <typename C>
+MAP_HD cx<C> mpow(cx<C> z, cx<C> w) {
+  const cxd l = clog_d(cx_wide(z)), e = cx_wide(w);
+  return cx_round<C>(cexp_d(cxd(e.re * l.re - e.im * l.im,
+                                e.re * l.im + e.im * l.re)));
+}
+
+template <typename C>
+MAP_HD cx<C> mconj(cx<C> a) { return cx<C>(a.re, -a.im); }
+template <typename C>
+MAP_HD C mmag2(cx<C> a) { return a.re * a.re + a.im * a.im; }
+
+// ----------------------------------------------- loads by storage form
+template <typename T>
+MAP_HD T ld_real(const void* p, long long off) {
+  return static_cast<const T*>(p)[off];
+}
+// A complex tensor: (re, im) pairs of its component type.
+template <typename C>
+MAP_HD cx<C> ld_cx(const void* p, long long off) {
+  const C* q = static_cast<const C*>(p) + 2 * off;
+  return cx<C>(q[0], q[1]);
+}
+// Complex-integer ring storage (ci8, ci16, ci32): the integer component
+// type with a trailing (re, im) axis, `cs` elements between the two.
+template <typename C, typename I>
+MAP_HD cx<C> ld_pair(const void* p, long long off, long long cs) {
+  const I* q = static_cast<const I*>(p) + off;
+  return cx<C>(static_cast<C>(q[0]), static_cast<C>(q[cs]));
+}
+// Packed ci4: one sample a byte, the real part in the high nibble
+// (MSB first), each nibble sign-extended (ops/unpack.py).
+template <typename C>
+MAP_HD cx<C> ld_ci4(const void* p, long long off) {
+  uint8_t b = static_cast<const uint8_t*>(p)[off];
+  int re = static_cast<int8_t>(b & 0xF0) >> 4;
+  int im = static_cast<int8_t>(static_cast<uint8_t>(b << 4)) >> 4;
+  return cx<C>(static_cast<C>(re), static_cast<C>(im));
+}
+// Packed ci2 and ci1: 8 / (2 NBIT) samples a byte along the last axis,
+// each (re, im) pair of fields MSB first and sign-extended (the field
+// order of ops/unpack.py).  `off` is the byte, `pos` the sample in it.
+template <typename C, int NBIT>
+MAP_HD cx<C> ld_cpacked(const void* p, long long off, long long pos) {
+  constexpr int PER = 8 / NBIT;
+  const uint8_t b = static_cast<const uint8_t*>(p)[off];
+  const int sh = 8 - NBIT;
+  const uint8_t fr = static_cast<uint8_t>(b >> ((PER - 1 - 2 * pos) * NBIT));
+  const uint8_t fi = static_cast<uint8_t>(b >> ((PER - 2 - 2 * pos) * NBIT));
+  const int re = static_cast<int8_t>(static_cast<uint8_t>(fr << sh)) >> sh;
+  const int im = static_cast<int8_t>(static_cast<uint8_t>(fi << sh)) >> sh;
+  return cx<C>(static_cast<C>(re), static_cast<C>(im));
+}
+// Packed real storage (i4/u4, i2/u2, i1/u1): 8 / NBIT samples a byte
+// along the last axis, MSB first; a signed field is sign-extended by
+// the shifts of ops/unpack.py.  `off` is the byte, `pos` the field.
+template <typename T, int NBIT>
+MAP_HD T ld_packed(const void* p, long long off, long long pos) {
+  constexpr int PER = 8 / NBIT;
+  const uint8_t b = static_cast<const uint8_t*>(p)[off];
+  const uint8_t v = static_cast<uint8_t>(
+      (b >> ((PER - 1 - pos) * NBIT)) & ((1 << NBIT) - 1));
+  if constexpr (std::is_signed<T>::value) {
+    return static_cast<T>(
+        static_cast<int8_t>(static_cast<uint8_t>(v << (8 - NBIT))) >>
+        (8 - NBIT));
+  } else {
+    return static_cast<T>(v);
+  }
+}
+
+template <typename T>
+MAP_HD void st(void* p, long long off, T v) {
+  if constexpr (is_cx<T>::value) {
+    using C = typename comp<T>::type;
+    C* q = static_cast<C*>(p) + 2 * off;
+    q[0] = v.re;
+    q[1] = v.im;
+  } else {
+    static_cast<T*>(p)[off] = v;
+  }
+}
+
+// A gather index as jnp indexing takes it: a negative index wraps once,
+// then the index is clamped to the axis.
+MAP_HD long long wrapclamp(long long i, long long n) {
+  if (i < 0) i += n;
+  return i < 0 ? 0 : (i >= n ? n - 1 : i);
+}
+
+MAP_HD double bits_f64(long long v) {
+  union { long long i; double d; } u;
+  u.i = v;
+  return u.d;
+}
+
+}  // namespace bfmap
+'''
+
+M1_FIRST_PREAMBLE = r'''// Generated by bifrost_tpu_torch/ops/map_codegen.py: kernel M1 for one bf.map
+// program (the port's counterpart of the jnp closure of
+// bifrost_tpu/ops/map.py:421-511).  Statements:
+'''
+
+M1_FIRST_LAUNCH = r'''
+#ifdef __CUDACC__
+__global__ void __launch_bounds__(256) map_kernel(const P p) {
+  const long long total = p.m[0] + p.m[1];
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < total; i += (long long)gridDim.x * blockDim.x) {
+    map_item(p, i);
+  }
+}
+
+extern "C" int map_launch(const long long* m, void* const* ptr, int grid,
+                          int block, void* stream) {
+  P p;
+  for (int k = 0; k < @NM@; ++k) p.m[k] = m[k];
+  for (int k = 0; k < 4; ++k) p.ptr[k] = ptr[k];
+  if (p.m[0] + p.m[1] == 0) return 0;
+  map_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* map_error_string(int e) {
+  return cudaGetErrorString((cudaError_t)e);
+}
+#else
+extern "C" int map_host(const long long* m, void* const* ptr) {
+  P p;
+  for (int k = 0; k < @NM@; ++k) p.m[k] = m[k];
+  for (int k = 0; k < 4; ++k) p.ptr[k] = ptr[k];
+  const long long total = p.m[0] + p.m[1];
+  for (long long i = 0; i < total; ++i) map_item(p, i);
+  return 0;
+}
+#endif
+'''
+
+M1_FIRST_BODIES = {
+    'ci8': r'''//   y = 2.0*x*conj(x) + 1.0
+#include "map_common.cuh"
+using namespace bfmap;
+#define NOFF 0LL
+#define CARRY_IN 2
+#define CARRY_OUT 3
+struct P { long long m[15]; void* ptr[4]; };
+MAP_HD cx<float> s0(const P& p, const long long* c) {
+  const cx<float> v0 = ld_pair<float, int8_t>(p.ptr[0], ((c[0]) * p.m[11] + (c[1]) * p.m[12] + (c[2]) * p.m[13]), p.m[14]);
+  const cx<float> v1 = op_mul<cx<float>>(cvt<cx<float>>(((double)0x1.0000000000000p+1)), cvt<cx<float>>(v0));
+  const cx<float> v2 = ld_pair<float, int8_t>(p.ptr[0], ((c[0]) * p.m[11] + (c[1]) * p.m[12] + (c[2]) * p.m[13]), p.m[14]);
+  const cx<float> v3 = mconj(cvt<cx<float>>(v2));
+  const cx<float> v4 = op_mul<cx<float>>(cvt<cx<float>>(v1), cvt<cx<float>>(v3));
+  const cx<float> v5 = op_add<cx<float>>(cvt<cx<float>>(v4), cvt<cx<float>>(((double)0x1.0000000000000p+0)));
+  return cvt<cx<float>>(v5);
+}
+
+MAP_HD void map_item(const P& p, long long i) {
+  if (i < p.m[0]) {
+    long long c[3];
+    long long r = i;
+    c[2] = r % p.m[4]; r /= p.m[4];
+    c[1] = r % p.m[3]; r /= p.m[3];
+    c[0] = r % p.m[2]; r /= p.m[2];
+    st<cx<float>>(p.ptr[1], c[0] * p.m[5] + c[1] * p.m[6] + c[2] * p.m[7], cvt<cx<float>>(s0(p, c)));
+  } else {
+    (void)0;
+  }
+}
+''',
+    'stencil': r'''//   y(t, s, p) = x(t,s,p) - x(t-1,s,p)
+#include "map_common.cuh"
+using namespace bfmap;
+#define NOFF 1LL
+#define CARRY_IN 2
+#define CARRY_OUT 3
+struct P { long long m[15]; void* ptr[4]; };
+MAP_HD cx<float> s0(const P& p, const long long* c) {
+  long long g0[3] = {wrapclamp((long long)(((int32_t)(c[0] + NOFF))), (p.m[8] + NOFF)), wrapclamp((long long)(((int32_t)(c[1]))), p.m[9]), wrapclamp((long long)(((int32_t)(c[2]))), p.m[10])};
+  const cx<float> v1 = (g0[0] < NOFF) ? ld_cx<float>(p.ptr[CARRY_IN], ((g0[0]) * p.m[9] + g0[1]) * p.m[10] + g0[2]) : ld_pair<float, int8_t>(p.ptr[0], (((g0[0] - NOFF)) * p.m[11] + (g0[1]) * p.m[12] + (g0[2]) * p.m[13]), p.m[14]);
+  const int32_t v2 = op_sub<int32_t>(cvt<int32_t>(((int32_t)(c[0] + NOFF))), cvt<int32_t>(((long long)1LL)));
+  long long g3[3] = {wrapclamp((long long)(v2), (p.m[8] + NOFF)), wrapclamp((long long)(((int32_t)(c[1]))), p.m[9]), wrapclamp((long long)(((int32_t)(c[2]))), p.m[10])};
+  const cx<float> v4 = (g3[0] < NOFF) ? ld_cx<float>(p.ptr[CARRY_IN], ((g3[0]) * p.m[9] + g3[1]) * p.m[10] + g3[2]) : ld_pair<float, int8_t>(p.ptr[0], (((g3[0] - NOFF)) * p.m[11] + (g3[1]) * p.m[12] + (g3[2]) * p.m[13]), p.m[14]);
+  const cx<float> v5 = op_sub<cx<float>>(cvt<cx<float>>(v1), cvt<cx<float>>(v4));
+  return cvt<cx<float>>(v5);
+}
+
+MAP_HD void map_item(const P& p, long long i) {
+  if (i < p.m[0]) {
+    long long c[3];
+    long long r = i;
+    c[2] = r % p.m[4]; r /= p.m[4];
+    c[1] = r % p.m[3]; r /= p.m[3];
+    c[0] = r % p.m[2]; r /= p.m[2];
+    st<cx<float>>(p.ptr[1], c[0] * p.m[5] + c[1] * p.m[6] + c[2] * p.m[7], cvt<cx<float>>(s0(p, c)));
+  } else {
+    // the next carry: frame f of the last NOFF of [carry; gulp]
+    long long j = i - p.m[0];
+    long long chan = p.m[1] / NOFF;
+    long long f = j / chan, r = j % chan;
+    long long c[3];
+    c[2] = r % p.m[10]; r /= p.m[10];
+    c[1] = r % p.m[9]; r /= p.m[9];
+    long long s = p.m[8] + f;
+    cx<float> v = s < NOFF ? ld_cx<float>(p.ptr[CARRY_IN], s * chan + j % chan) : ld_pair<float, int8_t>(p.ptr[0], (((s - NOFF)) * p.m[11] + (c[1]) * p.m[12] + (c[2]) * p.m[13]), p.m[14]);
+    st<cx<float>>(p.ptr[CARRY_OUT], j, v);
+  }
+}
+''',
+    'f16': r'''//   y = v * v - v * 0.5 + 1.25
+#define MAP_HALF_TYPES 1
+#include "map_common.cuh"
+using namespace bfmap;
+#define NOFF 0LL
+#define CARRY_IN 2
+#define CARRY_OUT 3
+struct P { long long m[15]; void* ptr[4]; };
+MAP_HD f16 s0(const P& p, const long long* c) {
+  const f16 v0 = ld_real<f16>(p.ptr[0], ((c[0]) * p.m[11] + (c[1]) * p.m[12] + (c[2]) * p.m[13]));
+  const f16 v1 = ld_real<f16>(p.ptr[0], ((c[0]) * p.m[11] + (c[1]) * p.m[12] + (c[2]) * p.m[13]));
+  const f16 v2 = op_mul<f16>(cvt<f16>(v0), cvt<f16>(v1));
+  const f16 v3 = ld_real<f16>(p.ptr[0], ((c[0]) * p.m[11] + (c[1]) * p.m[12] + (c[2]) * p.m[13]));
+  const f16 v4 = f16(op_mul<float>(cvt<float>(cvt<f16>(v3)), cvt<float>(((double)0x1.0000000000000p-1))));
+  const f16 v5 = op_sub<f16>(cvt<f16>(v2), cvt<f16>(v4));
+  const f16 v6 = f16(op_add<float>(cvt<float>(cvt<f16>(v5)), cvt<float>(((double)0x1.4000000000000p+0))));
+  return cvt<f16>(v6);
+}
+
+MAP_HD void map_item(const P& p, long long i) {
+  if (i < p.m[0]) {
+    long long c[3];
+    long long r = i;
+    c[2] = r % p.m[4]; r /= p.m[4];
+    c[1] = r % p.m[3]; r /= p.m[3];
+    c[0] = r % p.m[2]; r /= p.m[2];
+    st<f16>(p.ptr[1], c[0] * p.m[5] + c[1] * p.m[6] + c[2] * p.m[7], cvt<f16>(s0(p, c)));
+  } else {
+    (void)0;
+  }
+}
+''',
+    'bf16': r'''//   y = v * v - v * 0.5 + 1.25
+#define MAP_HALF_TYPES 1
+#include "map_common.cuh"
+using namespace bfmap;
+#define NOFF 0LL
+#define CARRY_IN 2
+#define CARRY_OUT 3
+struct P { long long m[15]; void* ptr[4]; };
+MAP_HD bf16 s0(const P& p, const long long* c) {
+  const bf16 v0 = ld_real<bf16>(p.ptr[0], ((c[0]) * p.m[11] + (c[1]) * p.m[12] + (c[2]) * p.m[13]));
+  const bf16 v1 = ld_real<bf16>(p.ptr[0], ((c[0]) * p.m[11] + (c[1]) * p.m[12] + (c[2]) * p.m[13]));
+  const bf16 v2 = op_mul<bf16>(cvt<bf16>(v0), cvt<bf16>(v1));
+  const bf16 v3 = ld_real<bf16>(p.ptr[0], ((c[0]) * p.m[11] + (c[1]) * p.m[12] + (c[2]) * p.m[13]));
+  const bf16 v4 = bf16(op_mul<float>(cvt<float>(cvt<bf16>(v3)), cvt<float>(((double)0x1.0000000000000p-1))));
+  const bf16 v5 = op_sub<bf16>(cvt<bf16>(v2), cvt<bf16>(v4));
+  const bf16 v6 = bf16(op_add<float>(cvt<float>(cvt<bf16>(v5)), cvt<float>(((double)0x1.4000000000000p+0))));
+  return cvt<bf16>(v6);
+}
+
+MAP_HD void map_item(const P& p, long long i) {
+  if (i < p.m[0]) {
+    long long c[3];
+    long long r = i;
+    c[2] = r % p.m[4]; r /= p.m[4];
+    c[1] = r % p.m[3]; r /= p.m[3];
+    c[0] = r % p.m[2]; r /= p.m[2];
+    st<bf16>(p.ptr[1], c[0] * p.m[5] + c[1] * p.m[6] + c[2] * p.m[7], cvt<bf16>(s0(p, c)));
+  } else {
+    (void)0;
+  }
+}
+''',
+    'ci2': r'''//   y = v * conj(v) + v * 2
+#include "map_common.cuh"
+using namespace bfmap;
+#define NOFF 0LL
+#define CARRY_IN 2
+#define CARRY_OUT 3
+struct P { long long m[11]; void* ptr[4]; };
+MAP_HD cx<float> s0(const P& p, const long long* c) {
+  const cx<float> v0 = ld_cpacked<float, 2>(p.ptr[0], (c[0]) * p.m[8] + ((c[1]) / 2) * p.m[9], (c[1]) % 2);
+  const cx<float> v1 = ld_cpacked<float, 2>(p.ptr[0], (c[0]) * p.m[8] + ((c[1]) / 2) * p.m[9], (c[1]) % 2);
+  const cx<float> v2 = mconj(cvt<cx<float>>(v1));
+  const cx<float> v3 = op_mul<cx<float>>(cvt<cx<float>>(v0), cvt<cx<float>>(v2));
+  const cx<float> v4 = ld_cpacked<float, 2>(p.ptr[0], (c[0]) * p.m[8] + ((c[1]) / 2) * p.m[9], (c[1]) % 2);
+  const cx<float> v5 = op_mul<cx<float>>(cvt<cx<float>>(v4), cvt<cx<float>>(((long long)2LL)));
+  const cx<float> v6 = op_add<cx<float>>(cvt<cx<float>>(v3), cvt<cx<float>>(v5));
+  return cvt<cx<float>>(v6);
+}
+
+MAP_HD void map_item(const P& p, long long i) {
+  if (i < p.m[0]) {
+    long long c[2];
+    long long r = i;
+    c[1] = r % p.m[3]; r /= p.m[3];
+    c[0] = r % p.m[2]; r /= p.m[2];
+    st<cx<float>>(p.ptr[1], c[0] * p.m[4] + c[1] * p.m[5], cvt<cx<float>>(s0(p, c)));
+  } else {
+    (void)0;
+  }
+}
+''',
+    'ci1': r'''//   y = v * conj(v) + v * 2
+#include "map_common.cuh"
+using namespace bfmap;
+#define NOFF 0LL
+#define CARRY_IN 2
+#define CARRY_OUT 3
+struct P { long long m[11]; void* ptr[4]; };
+MAP_HD cx<float> s0(const P& p, const long long* c) {
+  const cx<float> v0 = ld_cpacked<float, 1>(p.ptr[0], (c[0]) * p.m[8] + ((c[1]) / 4) * p.m[9], (c[1]) % 4);
+  const cx<float> v1 = ld_cpacked<float, 1>(p.ptr[0], (c[0]) * p.m[8] + ((c[1]) / 4) * p.m[9], (c[1]) % 4);
+  const cx<float> v2 = mconj(cvt<cx<float>>(v1));
+  const cx<float> v3 = op_mul<cx<float>>(cvt<cx<float>>(v0), cvt<cx<float>>(v2));
+  const cx<float> v4 = ld_cpacked<float, 1>(p.ptr[0], (c[0]) * p.m[8] + ((c[1]) / 4) * p.m[9], (c[1]) % 4);
+  const cx<float> v5 = op_mul<cx<float>>(cvt<cx<float>>(v4), cvt<cx<float>>(((long long)2LL)));
+  const cx<float> v6 = op_add<cx<float>>(cvt<cx<float>>(v3), cvt<cx<float>>(v5));
+  return cvt<cx<float>>(v6);
+}
+
+MAP_HD void map_item(const P& p, long long i) {
+  if (i < p.m[0]) {
+    long long c[2];
+    long long r = i;
+    c[1] = r % p.m[3]; r /= p.m[3];
+    c[0] = r % p.m[2]; r /= p.m[2];
+    st<cx<float>>(p.ptr[1], c[0] * p.m[4] + c[1] * p.m[5], cvt<cx<float>>(s0(p, c)));
+  } else {
+    (void)0;
+  }
+}
+''',
+    'csqrt': r'''//   y = sqrt(v)
+#include "map_common.cuh"
+using namespace bfmap;
+#define NOFF 0LL
+#define CARRY_IN 2
+#define CARRY_OUT 3
+struct P { long long m[15]; void* ptr[4]; };
+MAP_HD cx<float> s0(const P& p, const long long* c) {
+  const cx<float> v0 = ld_cx<float>(p.ptr[0], ((c[0]) * p.m[11] + (c[1]) * p.m[12] + (c[2]) * p.m[13]));
+  const cx<float> v1 = msqrt(cvt<cx<float>>(v0));
+  return cvt<cx<float>>(v1);
+}
+
+MAP_HD void map_item(const P& p, long long i) {
+  if (i < p.m[0]) {
+    long long c[3];
+    long long r = i;
+    c[2] = r % p.m[4]; r /= p.m[4];
+    c[1] = r % p.m[3]; r /= p.m[3];
+    c[0] = r % p.m[2]; r /= p.m[2];
+    st<cx<float>>(p.ptr[1], c[0] * p.m[5] + c[1] * p.m[6] + c[2] * p.m[7], cvt<cx<float>>(s0(p, c)));
+  } else {
+    (void)0;
+  }
+}
+''',
+}
+
+
+def m1_build_first(out_dir):
+    """M1's first design for every form of M1_FIRST_BODIES, one nvcc
+    each, all at once -> {tag: (library, ptxas)}."""
+    (out_dir / "map_common.cuh").write_text(M1_FIRST_HEADER)
+    flags = [f if f != str(build.CSRC) else str(out_dir)
+             for f in build.MAP_NVCC_FLAGS]
+    procs = {}
+    for tag in M1_FIRST_BODIES:
+        cu = out_dir / f"m1_first_{tag}.cu"
+        cu.write_text(m1_first_source(tag))
+        lib = cu.with_suffix(".so")
+        procs[tag] = (lib, subprocess.Popen(
+            [build.nvcc_path(), *flags, "-o", str(lib), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    out = {}
+    for tag, (lib, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for M1 first {tag}:\n{log}")
+        dll = ctypes.CDLL(str(lib))
+        dll.map_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_void_p]
+        dll.map_launch.restype = ctypes.c_int
+        out[tag] = (lib, dll, ptxas_summary(log))
+    return out
+
+
+def m1_first_launch(dll, prog, x, out, carry, carry_out):
+    """One launch of M1's first design on the port's operands."""
+    from bifrost_tpu_torch.ops import map_kernel as mk
+    ncarry = carry_out.numel() if carry_out is not None else 0
+    m = m1_first_meta(out, mk.logical_shape(x, prog.inputs[0]),
+                      mk._storage_strides(x, prog.inputs[0]), ncarry)
+    ptrs = [x.data_ptr(), out.data_ptr(),
+            carry.data_ptr() if carry is not None else 0,
+            carry_out.data_ptr() if carry_out is not None else 0]
+    err = dll.map_launch((ctypes.c_longlong * len(m))(*m),
+                         (ctypes.c_void_p * 4)(*ptrs),
+                         m1_first_grid(out.numel() + ncarry),
+                         M1_FIRST_BLOCK,
+                         torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"M1 first design: launch error {err}")
+
+
+def sass_loops(lib, part):
+    """The SASS (cuobjdump) of the kernel whose name holds `part` in
+    library `lib` -> (instructions, 64-bit divide sequences (I2F.U64.RP),
+    32-bit ones (I2F.U32.RP), [(instructions, loads, stores, calls,
+    divide sequences) of each loop, a backward branch's body])."""
+    tool = Path(build.nvcc_path()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(lib)],
+                          capture_output=True, text=True, timeout=120).stdout
+    for sec in text.split("Function : ")[1:]:
+        if part not in sec.split("\n", 1)[0]:
+            continue
+        ins = [(int(a, 16), body.strip()) for a, body in re.findall(
+            r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", sec)]
+        loops = []
+        for addr, body in ins:
+            m = re.search(r"\bBRA\s+(?:\S+\s+)?0x([0-9a-f]+)", body)
+            if m and int(m.group(1), 16) <= addr:
+                lo = int(m.group(1), 16)
+                seg = [b for a, b in ins if lo <= a <= addr]
+                loops.append((len(seg), sum("LDG" in b for b in seg),
+                              sum("STG" in b for b in seg),
+                              sum("CALL" in b for b in seg),
+                              sum(".RP" in b and "I2F" in b for b in seg)))
+        return (len(ins), sum("I2F.U64.RP" in b for _, b in ins),
+                sum("I2F.U32.RP" in b for _, b in ins), loops)
+    return None
+
+
+# M1's variants: name -> (V from the port's program's, a text
+# substitution in the generated source or None).
+M1_VARIANTS = {
+    "M1": (lambda v: v, None),
+    "M1 2V": (lambda v: min(32, 2 * v), None),
+    "M1 grid x1": (lambda v: v, ("* occ * 4;", "* occ;")),
+    # the 16-byte stores without the streaming hint: the header inlined
+    # into the source, its store replaced
+    "M1 plain stores": (lambda v: v, (
+        '#include "map_common.cuh"',
+        (build.CSRC / "map_common.cuh").read_text().replace(
+            "      __stcs(static_cast<w16_t*>(q) + k, v);",
+            "      static_cast<w16_t*>(q)[k] = v;"))),
+}
+
+
+def m1_yardsticks(inputs, dev):
+    """One PyTorch call per form moving the same bytes (a measure of
+    what the card's memory delivers for that traffic, not the same
+    function; torch.sqrt is the same function) -> {tag: (name, fn)}."""
+    raw = inputs["ci8"]
+    f32 = torch.empty(raw.shape, dtype=torch.float32, device=dev)
+    out = {"ci8": ("copy_ int8 -> f32", lambda: f32.copy_(raw))}
+    out["stencil"] = out["ci8"]
+    for tag in ("f16", "bf16"):
+        x = inputs[tag]
+        y = torch.empty_like(x)
+        out[tag] = (f"add {tag}", lambda x=x, y=y: torch.add(x, 1.25, out=y))
+    c64 = torch.empty(raw.shape[:-1], dtype=torch.complex64, device=dev)
+    for tag in ("ci2", "ci1"):
+        out[tag] = ("fill_ complex64", lambda: c64.fill_(1))
+    z = inputs["csqrt"]
+    zs = torch.empty_like(z)
+    out["csqrt"] = ("torch.sqrt", lambda: torch.sqrt(z, out=zs))
+    return out
+
+
+def m1_cases(dev, gen):
+    """MAP_FORMS at [map]'s gulp: inputs (a seeded ci8 gulp for the main
+    programs), the port's programs and M1_VARIANTS of them, plain outputs
+    -> dict."""
+    from concurrent.futures import ThreadPoolExecutor
+    from bifrost_tpu_torch.ops import map_kernel as mk
+    raw = torch.randint(-128, 128, (cs.B_GULP, cs.NSTAND, cs.NPOL, 2),
+                        dtype=torch.int8, device=dev, generator=gen)
+    inputs = cs.map_form_inputs(dev, raw)
+    variants = {}
+    for name, (shape, sub) in M1_VARIANTS.items():
+        variants[name] = cs.map_programs(inputs)
+        for _, prog in variants[name].values():
+            prog.set_vec(shape(prog.vec))
+            if sub is not None:
+                if prog.source.count(sub[0]) != 1:
+                    raise RuntimeError(f"{name}: {sub[0]!r} not once")
+                prog.source = prog.source.replace(*sub)
+                prog.name = f"map_{name.split()[-1]}_{prog.key}"
+    allp = [pr for v in variants.values() for _, pr in v.values()]
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(mk.prepare, allp))
+    progs = variants["M1"]
+    cases = {}
+    for form in cs.MAP_FORMS:
+        tag = form[0]
+        op, prog = progs[tag]
+        x = inputs[tag]
+        shape = mk.logical_shape(x, prog.inputs[0])
+        carry = op.carry_init(shape[1:], prog.inputs[0].dtype, dev) \
+            if op.fuse_form == "stencil" else None
+        want, wc = mk.map_apply_plain(prog, [x], shape, [], carry)
+        cases[tag] = {"form": form, "op": op, "x": x, "shape": shape,
+                      "carry": carry, "want": want[0], "wc": wc,
+                      "progs": {name: v[tag][1]
+                                for name, v in variants.items()}}
+    cases["yardsticks"] = m1_yardsticks(inputs, dev)
+    return cases
+
+
+def m1_check(tag, case, got, gc):
+    """Hold one M1 output (and next carry) against the plain version."""
+    want, wc = case["want"], case["wc"]
+    if case["form"][-1]:
+        ok = cs.bits_equal(got.view(torch.uint8), want.view(torch.uint8))
+        if gc is not None:
+            ok = ok and cs.bits_equal(gc.view(torch.uint8),
+                                      wc.view(torch.uint8))
+    else:
+        ok = cs.cx_ulps(got, want, case["x"]) <= cs.MAP_CX_ULP
+    if not ok:
+        raise AssertionError(f"{tag} differs from plain")
+
+
+def m1_run(dev, gen, rounds, out_dir):
+    """M1's designs in turns (first, the port's, its variants, then back)
+    on each form; SASS counts -> {name: [ms a round]}."""
+    from bifrost_tpu_torch.ops import map_kernel as mk
+    firsts = m1_build_first(out_dir)
+    cases = m1_cases(dev, gen)
+    yards = cases.pop("yardsticks")
+    for tag, case in cases.items():
+        print(f"[ptxas] M1 first {tag}: {firsts[tag][2]}", flush=True)
+        for name, prog in case["progs"].items():
+            info = cs.map_program_info().get(prog.name)
+            print(f"[ptxas] {name} {tag} (V {prog.vec}, run {prog.run}"
+                  f"{', ' + prog.vec_note if prog.vec_note else ''}): "
+                  f"{info}", flush=True)
+        for name, lib, part in (
+                ("M1 first", firsts[tag][0], "map_kernel1P"),
+                ("M1", build.generated_path(case["progs"]["M1"].name,
+                                            case["progs"]["M1"].source),
+                 "map_kernelIiE")):
+            print(f"[sass] {name} {tag} ({Path(lib).name}): "
+                  f"{sass_loops(lib, part)}", flush=True)
+    times = {}
+    for rnd in range(rounds):
+        row = {}
+        for tag, case in cases.items():
+            x, shape, carry = case["x"], case["shape"], case["carry"]
+            out = torch.empty_like(case["want"])
+            cfirst = torch.empty_like(carry) if carry is not None else None
+            dll = firsts[tag][1]
+            order = ["M1 first"] + list(M1_VARIANTS)
+            for name in order + order[::-1]:
+                out.fill_(0)
+                if name == "M1 first":
+                    def fn():
+                        m1_first_launch(dll, case["progs"]["M1"], x, out,
+                                        carry, cfirst)
+                    fn()
+                    gc = cfirst
+                else:
+                    def fn(prog=case["progs"][name]):
+                        return mk.map_apply(prog, [x], shape, [], carry,
+                                            [out])
+                    gc = fn()[1]
+                torch.cuda.synchronize()
+                m1_check(f"{name} {tag}", case, out, gc)
+                row.setdefault(f"{name} {tag}", []).append(
+                    cs.cuda_time(fn, 20))
+            yname, yfn = yards[tag]
+            row[f"{yname} ({tag})"] = [cs.cuda_time(yfn, 20)]
+            # the port's launches captured in a CUDA graph: device time,
+            # without the host's time a launch
+            row[f"M1 graph {tag}"] = [cs.graph_time(
+                lambda prog=case["progs"]["M1"]: mk.map_apply(
+                    prog, [x], shape, [], carry, [out]), 20)]
+        row = {k: sum(v) / len(v) for k, v in row.items()}
+        print(f"[round {rnd}] " + ", ".join(f"{k} {v:.4f}"
+                                             for k, v in row.items()),
+              flush=True)
+        for k, v in row.items():
+            times.setdefault(k, []).append(v)
+    return times
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--only", default="",
-                    help="comma-separated kernel IDs (K2,K1,K4,K5a,X1)")
+                    help="comma-separated kernel IDs (K2,K1,K4,K5a,X1,M1)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA device", file=sys.stderr)
@@ -753,6 +2022,12 @@ def main():
     kernels = {n.split()[0] for n in names}
     out_dir = build.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
+    m1_times = {}
+    if not only or "M1" in only:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(cs.SEED)
+        m1_times = m1_run(dev, gen, args.rounds, out_dir)
+        cs.free_device()
     libs = compile_all(out_dir, names)
     for name, (_, ptxas) in libs.items():
         print(f"[ptxas] {name}: {ptxas}", flush=True)
@@ -874,6 +2149,7 @@ def main():
               flush=True)
         for k, v in row.items():
             times.setdefault(k, []).append(v)
+    times.update(m1_times)
     print(smi)
     print(json.dumps({"device": kind, "ms": times}))
     return 0

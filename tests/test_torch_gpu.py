@@ -13,6 +13,8 @@ import torch
 
 from bifrost_tpu_torch.ops import Fdmt
 from bifrost_tpu_torch.ops import fdmt_kernel
+from torch_map_forms import (FORMS, SQRT_EDGES, layout as layout_input,
+                             sqrt_edge_ulps, storage, ulps_of)
 
 
 @pytest.fixture
@@ -1535,3 +1537,213 @@ def test_map_kernel_complex_transcendentals_within_tolerance(cuda, dtype):
     print("M1 complex ulps", dtype, worst)
     assert all(err <= tol * (2 if "v" in fn else 1)
                for fn, err in worst.items()), worst
+
+
+@pytest.mark.gpu
+def test_map_kernel_complex64_sqrt_at_the_ends_of_the_range(cuda):
+    """complex64 sqrt on M1 (csqrt_f) at SQRT_EDGES (FLT_MAX-sized parts,
+    subnormal parts, zero against a tiny part, the scaling thresholds):
+    finite, within 2 ulps of max(|z|, |w|) of a 120-bit mpmath reference
+    and of torch.sqrt of the same points in complex128 on the card.
+    PyTorch's complex64 card kernel is no reference here: on an H100 it
+    returns inf at (3e38, 3e38), a negative real part at (-3.4e38,
+    1e-30) and loses subnormal parts."""
+    pytest.importorskip("mpmath")
+    from bifrost_tpu_torch.ops.map import Map
+    z = torch.tensor([complex(a, b) for a, b in SQRT_EDGES],
+                     dtype=torch.complex64)[None, :].to(cuda)
+    (got, _), _, n = _m1_case(Map("y = sqrt(v)", in_name="v"), z, None)
+    got = got[0]
+    assert n == 1 and torch.isfinite(torch.view_as_real(got)).all(), got
+    err = sqrt_edge_ulps(got, z)
+    assert float(err.max()) <= 2, dict(zip(SQRT_EDGES, err.tolist()))
+    err = ulps_of(got.cpu(), torch.sqrt(z.to(torch.complex128)).cpu(),
+                  z.cpu())
+    assert float(err.max()) <= 2, dict(zip(SQRT_EDGES, err.tolist()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wdtype", [np.float32, np.int32])
+def test_map_numpy_array_scalar_on_the_card(cuda, wdtype):
+    """A numpy array of one axis or more bound as a scalar, on a card
+    tensor: M1's constant-array route (one launch a call) for the eager
+    call, a Map over a stream, set_scalars after construction and a
+    stencil over split gulps, bitwise the same Map on the CPU (which
+    tests/test_torch_map.py holds against the JAX Map)."""
+    from bifrost_tpu_torch import device
+    from bifrost_tpu_torch.ops import map_kernel
+    from bifrost_tpu_torch.ops.map import Map, map as eager_map
+    rng = np.random.default_rng(47)
+    x = rng.integers(-60, 60, (4099, 37)).astype(np.float32)
+    w = rng.integers(-6, 6, (37,)).astype(wdtype)
+    xc, xg = torch.from_numpy(x), torch.from_numpy(x).to(cuda)
+
+    def one_launch(fn):
+        before = map_kernel.map_apply.launches
+        out = fn()
+        assert map_kernel.map_apply.launches == before + 1
+        return out
+
+    got = one_launch(lambda: eager_map("y = x * w + 1", {"x": xg, "w": w}))
+    device.set_device("cpu")       # the eager call's numpy operands too
+    try:
+        want = eager_map("y = x * w + 1", {"x": xc, "w": w})
+    finally:
+        device._tls.device = None
+    assert got.is_cuda and not want.is_cuda
+    assert _same_bits(got.cpu(), want)
+    op = Map("y = x * w + 1", scalars={"w": w})
+    for w_new in (None, (w * 3).astype(wdtype)):
+        if w_new is not None:
+            op.set_scalars({"w": w_new})
+        got = one_launch(lambda: op.execute(xg))
+        assert _same_bits(got.cpu(), op.execute(xc))
+    st = Map("y(t,c) = x(t,c) - x(t-2,c) * w", scalars={"w": w},
+             axis_names=("t", "c"))
+    cg = st.carry_init((37,), torch.float32, cuda)
+    cc = st.carry_init((37,), torch.float32)
+    for a, b in ((0, 1000), (1000, 1001), (1001, 4099)):
+        yg, cg = one_launch(lambda: st.execute_carry(xg[a:b], cg))
+        yc, cc = st.execute_carry(xc[a:b], cc)
+        assert _same_bits(yg.cpu(), yc) and _same_bits(cg.cpu(), cc)
+
+
+# M1's two paths and two index types on the card (the CPU twins are in
+# tests/test_torch_map_codegen.py; the forms and layouts in
+# tests/torch_map_forms.py).
+def _m1_storage(form, frames, chan, dev):
+    return storage(form, frames, chan, 51, dev)
+
+
+def _m1_layout(form, kind, dev):
+    return layout_input(form, kind, 4095, (300, 96), 51, dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["vector", "tail", "unaligned",
+                                    "transposed"])
+@pytest.mark.parametrize("form", list(FORMS))
+def test_map_kernel_paths_bitwise_vs_plain(cuda, form, layout):
+    """Each storage form on M1's vector path (contiguous; the ragged
+    tail on the element path) and element path (a span from an
+    unaligned frame, a transposed operand): bitwise the plain version,
+    one launch, the path and the 32-bit index type counted on
+    map_apply.  A one-byte vector (ci2, ci1) is aligned anywhere."""
+    from bifrost_tpu_torch.ops import map_codegen, map_kernel
+    from bifrost_tpu_torch.ops.map import Map
+    func, dt, _ = FORMS[form]
+    x = _m1_layout(form, layout, cuda)
+    vec0 = map_kernel.map_apply.vector_launches
+    op = Map(func, in_name="v")
+    (got, _), (want, _), n = _m1_case(op, x,
+                                      dt if isinstance(dt, str) else None)
+    last = map_kernel.map_apply.last
+    prog = op.program(dt if isinstance(dt, str) else x.dtype,
+                      x.dim() - (dt == "ci8"))
+    nb = map_codegen.storage_bytes(prog.inputs[0]) * prog.vec
+    path = "element" if layout == "transposed" or (
+        layout == "unaligned" and nb > 1) else "vector"
+    assert n == 1 and (last["path"], last["index"]) == (path, "int32")
+    assert map_kernel.map_apply.vector_launches == vec0 + (path == "vector")
+    assert _same_bits(got[0], want[0]), (form, layout)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("noff", [1, 3])
+@pytest.mark.parametrize("dtype", [None, "ci8"])
+@pytest.mark.parametrize("layout", ["vector", "element"])
+def test_map_kernel_stencil_window_on_the_card(cuda, noff, dtype, layout):
+    """The stencil's register window over gulps of 1000, 2 (shorter than
+    the carry at noffset 3), 333 and 17 frames (runs that do not divide
+    the gulp; a run at frame 0 reads the carry), a gather beside the
+    window reads; on a strided span from an unaligned column the element
+    path: bitwise the plain version, next carry included."""
+    from bifrost_tpu_torch.ops import map_kernel
+    from bifrost_tpu_torch.ops.map import Map
+    rng = np.random.default_rng(52)
+    op = Map(f"y(t,c) = x(t,c) - x(t-{noff},c) * 0.5 + x(t-1,c) * "
+             f"x(t-1, c+1)", axis_names=("t", "c"))
+    n = 1000 + 2 + 333 + 17
+    shape = (n, 72) if dtype is None else (n, 72, 2)
+    big = torch.from_numpy(rng.integers(-60, 60, shape).astype(
+        np.float32 if dtype is None else np.int8)).to(cuda)
+    frames = big[:, :64].contiguous() if layout == "vector" else \
+        big[:, 3:67]
+    carry, a = None, 0
+    for g in (1000, 2, 333, 17):
+        (got, gc), (want, wc), k = _m1_case(op, frames[a:a + g], dtype,
+                                            carry=carry)
+        a += g
+        assert k == 1 and map_kernel.map_apply.last["path"] == layout
+        assert _same_bits(got[0], want[0]) and _same_bits(gc, wc), g
+        carry = gc
+
+
+@pytest.mark.gpu
+def test_map_kernel_eager_broadcast_paths(cuda):
+    """The eager call on M1 with a broadcast operand along the outer axis
+    and along the innermost one (the vector path, an output of a smaller
+    shape written once), and with an output broadcast along the
+    innermost axis or an innermost extent V does not divide (the element
+    path): bitwise the plain engine, one launch each."""
+    from bifrost_tpu_torch import config
+    from bifrost_tpu_torch.ops import map_kernel
+    from bifrost_tpu_torch.ops.map import map as eager_map
+    rng = np.random.default_rng(53)
+    for bshape, func, path in (
+            ((256,), "c = a*b - 1; d = b * 2", "vector"),
+            ((3000, 1), "c = a*b - 1; d = a - b", "vector"),
+            ((3000, 1), "c = a*b - 1; d = b * 2", "element"),
+            ((255,), "c = a*b - 1; d = b * 2", "element")):
+        cols = bshape[-1] if bshape[-1] != 1 else 256
+        a = torch.from_numpy(rng.standard_normal((3000, cols)).astype(
+            np.float32)).to(cuda)
+        b = torch.from_numpy(rng.standard_normal(bshape).astype(
+            np.float32)).to(cuda)
+        before = map_kernel.map_apply.launches
+        got = eager_map(func, {"a": a, "b": b})
+        assert map_kernel.map_apply.launches == before + 1
+        assert map_kernel.map_apply.last["path"] == path, (bshape, func)
+        config.set("map_method", "plain")
+        try:
+            want = eager_map(func, {"a": a, "b": b})
+        finally:
+            config.reset("map_method")
+        for k in ("c", "d"):
+            assert _same_bits(got[k], want[k]), (bshape, func, k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["elementwise", "stencil", "local",
+                                  "packed"])
+def test_map_kernel_index64_form(cuda, case, monkeypatch):
+    """M1's 64-bit index type, taken where an index or offset reaches
+    map_kernel.INDEX32_LIMIT (lowered here to 16): bitwise the plain
+    version on both paths, counted on map_apply."""
+    from bifrost_tpu_torch.ops import map_kernel
+    from bifrost_tpu_torch.ops.map import Map
+    monkeypatch.setattr(map_kernel, "INDEX32_LIMIT", 16)
+    before = map_kernel.map_apply.index64_launches
+    x = _m1_storage("ci8", 1000, 64, cuda)
+    if case == "elementwise":
+        runs = [(Map("y = 2.0f*x*x.conj() + 1.0f"), x, "ci8", None)]
+    elif case == "local":
+        runs = [(Map("y(t,c) = x(t, nc-1-c) * 2 + x(t,c)",
+                     axis_names=("t", "c")), x, "ci8", None)]
+    elif case == "packed":
+        runs = [(Map("y = v * 3 - (v >> 1)", in_name="v"),
+                 _m1_storage("i4", 1000, 36, cuda)[1:], "i4", None)]
+    else:
+        op = Map("y(t,c) = x(t,c) - x(t-3,c) + x(t-1, c+1)",
+                 axis_names=("t", "c"))
+        runs = [(op, x[a:b], "ci8", None) for a, b in ((0, 500), (500, 502),
+                                                        (502, 1000))]
+    carry = None
+    for op, xi, dt, _ in runs:
+        (got, gc), (want, wc), n = _m1_case(op, xi, dt, carry=carry)
+        assert n == 1 and map_kernel.map_apply.last["index"] == "int64"
+        assert _same_bits(got[0], want[0])
+        if gc is not None:
+            assert _same_bits(gc, wc)
+            carry = gc
+    assert map_kernel.map_apply.index64_launches == before + len(runs)

@@ -643,6 +643,56 @@ def test_service_map_stage_kind():
     assert report.ledger["committed_frames"] == len(data)
 
 
+# ------------------------------------- a numpy array bound as a scalar
+
+def _jax_closure(func, scalars, x, axis_names=None, carry=None):
+    """The JAX Map's own closure on numpy `x`: the function its
+    `kernel()` / `kernel_carry()` cache (`Map._build`).  Its executors
+    key their plan cache on the scalar items, which a numpy array cannot
+    be (TypeError: unhashable), so the closure is the JAX Map's
+    result."""
+    import jax.numpy as jnp
+    op = JMap(func, scalars=scalars, axis_names=axis_names)
+    if carry is None:
+        return _jnp(op._build(False, None, None)(jnp.asarray(x)))
+    y, c2 = op._build(True, None, None)(jnp.asarray(x), jnp.asarray(carry),
+                                        ())
+    return _jnp(y), _jnp(c2)
+
+
+@pytest.mark.parametrize("wdtype", [np.float32, np.int32])
+def test_map_numpy_array_scalar_as_jax(wdtype, on_cpu):
+    """A numpy array of one axis or more bound as a scalar is a
+    constant array (a CPU tensor of its dtype): the eager call, a Map
+    over a stream (elementwise and stencil, split gulps), and
+    set_scalars after construction give the JAX Map's result on the
+    same numpy input, bitwise (integer-exact values)."""
+    rng = np.random.default_rng(47)
+    x = rng.integers(-60, 60, (9, 5)).astype(np.float32)
+    w = rng.integers(-6, 6, (5,)).astype(wdtype)
+    got = eager_map("y = x * w + 1", {"x": x, "w": w})
+    assert _bits(got.numpy(), _jnp(j_map("y = x * w + 1",
+                                         {"x": x, "w": w})))
+    op = Map("y = x * w + 1", scalars={"w": w})
+    assert isinstance(op.scalars["w"], torch.Tensor) and \
+        op.scalars["w"].dtype == torch.from_numpy(w).dtype
+    want = _jax_closure("y = x * w + 1", {"w": w}, x)
+    got = op.execute(torch.from_numpy(x)).numpy()
+    assert got.dtype == want.dtype and _bits(got, want)
+    w2 = (w * 3).astype(wdtype)
+    op.set_scalars({"w": w2})
+    got = op.execute(torch.from_numpy(x)).numpy()
+    assert _bits(got, _jax_closure("y = x * w + 1", {"w": w2}, x))
+    func, axes = "y(t,c) = x(t,c) - x(t-2,c) * w", ("t", "c")
+    st = Map(func, scalars={"w": w}, axis_names=axes)
+    carry = st.carry_init((5,), torch.float32)
+    jcarry = np.zeros((2, 5), np.float32)
+    for a, b in ((0, 4), (4, 5), (5, 9)):
+        y, carry = st.execute_carry(torch.from_numpy(x[a:b]), carry)
+        jy, jcarry = _jax_closure(func, {"w": w}, x[a:b], axes, jcarry)
+        assert _bits(y.numpy(), jy) and _bits(carry.numpy(), jcarry)
+
+
 # ------------------------------------------------ the eager call's forms
 
 def _jnp(a):

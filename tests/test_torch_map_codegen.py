@@ -32,12 +32,15 @@ Parity tiers, as stated in each test:
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 from bifrost_tpu.ops.map import Map as JMap
 
 from bifrost_tpu_torch import config
 from bifrost_tpu_torch.ops import map_codegen, map_kernel
 from bifrost_tpu_torch.ops.map import Map
+from torch_map_forms import (FORMS, SQRT_EDGES, layout as layout_input,
+                             sqrt_edge_ulps, storage, ulps_of)
 
 TRANS_ULP = 4
 CX_ULP = 4
@@ -645,6 +648,23 @@ def test_complex_transcendental_bodies_within_tolerance(fn):
     assert _cx_ulps(p, j, z) <= 4 * tol, _cx_ulps(p, j, z)
 
 
+def test_complex64_sqrt_at_the_ends_of_the_range():
+    """complex64 sqrt (csqrt_f, f32 with its operands scaled by powers
+    of two) on SQRT_EDGES (FLT_MAX-sized parts, subnormal parts, zero
+    against a tiny part, the scaling thresholds): finite, within 2 ulps
+    of max(|z|, |w|) of a 120-bit mpmath reference, and within CX_FN_ULP
+    of PyTorch's CPU kernel, which the plain engine runs."""
+    pytest.importorskip("mpmath")
+    z = torch.tensor([complex(a, b) for a, b in SQRT_EDGES],
+                     dtype=torch.complex64)[None, :]
+    (h, _), (p, _), _ = _run("y = sqrt(v)", z)
+    assert torch.isfinite(torch.view_as_real(h)).all(), h
+    err = sqrt_edge_ulps(h, z)
+    assert float(err.max()) <= 2, dict(zip(SQRT_EDGES, err.tolist()))
+    err = ulps_of(h, p, z)
+    assert float(err.max()) <= CX_FN_ULP, dict(zip(SQRT_EDGES, err.tolist()))
+
+
 @pytest.mark.parametrize("func,scalars", [
     # Python's ** and shifts of run-time scalars, and torch's ** of them
     ("y = v * (s ** t) + (k << j) - (k >> j)",
@@ -775,3 +795,306 @@ def test_ranks_above_eight_collapse():
     with pytest.raises(map_codegen.Unsupported, match="rank above"):
         Map("y(a,b,c,d,e,f,g,h,i) = v(a,b,c,d,e,f,g,h,i)",
             axis_names=tuple("abcdefghi")).program(torch.float32, 9)
+
+
+# ------------------- the Hopper design: paths, index types, dividers
+#
+# M1 takes its vector path (V consecutive samples a thread, one vector
+# access an operand) where every operand's innermost stride is one sample
+# of its storage form and the pointers are aligned, the element path
+# otherwise (and for the ragged tail); 32-bit indices below
+# map_kernel.INDEX32_LIMIT.  The host build runs the same split, so these
+# hold both paths and both index types against the plain engine, bitwise.
+
+def _layout(form, kind):
+    return layout_input(form, kind, 13, (3, 12))
+
+
+@pytest.mark.parametrize("layout", ["vector", "tail", "unaligned",
+                                    "transposed"])
+@pytest.mark.parametrize("form", list(FORMS))
+def test_vector_and_element_paths_bitwise(form, layout):
+    """Each storage form on the vector path (contiguous; with a ragged
+    tail the last n % V samples on the element path) and on the element
+    path (a span from an unaligned frame, a transposed operand): bitwise
+    the plain engine, the path as the layout decides, 32-bit indices.  A
+    one-byte vector (ci2, ci1: V samples fill a byte) is aligned
+    anywhere, and has no ragged tail."""
+    func, dt, per = FORMS[form]
+    x = _layout(form, layout)
+    (h, _), (p, _), prog = _run(func, x, dtype=dt if isinstance(dt, str)
+                                else None, in_name="v")
+    nb = map_codegen.storage_bytes(prog.inputs[0]) * prog.vec
+    path = "element" if layout == "transposed" or (
+        layout == "unaligned" and nb > 1) else "vector"
+    last = map_kernel.map_apply_host.last
+    assert (last["path"], last["index"]) == (path, "int32"), last
+    if layout == "tail":
+        assert (h.numel() % prog.vec != 0) == (prog.vec > per)
+    assert h.dtype == p.dtype and _bits(h, p), (form, layout)
+
+
+def test_vector_widths():
+    """V: the widest streamed operand moves 16 bytes a thread (in a
+    window at least the samples a packed byte holds; an elementwise item
+    may start inside a byte); no vector path where the stencil's window
+    would not fit map_codegen.VEC_BYTES, nor for a form with no channel
+    axis."""
+    def prog(func, dt, rank=2, axes=None):
+        return Map(func, axis_names=axes, in_name="v").program(dt, rank)
+    for func, dt, axes, vec in (
+            ("y = 2.0f*v*v.conj() + 1.0f", "ci8", None, 2),
+            ("y = v * v - v * 0.5 + 1.25", torch.float16, None, 8),
+            ("y = v * v.conj() + v * 2", "ci2", None, 2),
+            ("y = v * v.conj() + v * 2", "ci1", None, 2),
+            ("y = v * 3 - (v >> 1)", "i4", None, 16),
+            ("y = sqrt(v)", torch.complex64, None, 2),
+            ("y = v * 2", torch.float32, None, 4),
+            ("y(t,c) = v(t,c) - v(t-1,c)", "ci8", ("t", "c"), 2),
+            ("y(t,c) = v(t,c) - v(t-3,c)", torch.complex64, ("t", "c"), 2),
+            # a window of 16 complex frames of ci1's 4 samples: 512 B
+            ("y(t,c) = v(t,c) - v(t-15,c)", "ci1", ("t", "c"), 1)):
+        assert prog(func, dt, axes=axes).vec == vec, (func, dt)
+    assert prog("y(t) = v(t) - v(t-1)", torch.float32, 1, ("t",)).vec == 1
+
+
+@pytest.mark.parametrize("noff", [1, 3])
+@pytest.mark.parametrize("dtype", ["f32", "ci8"])
+@pytest.mark.parametrize("layout", ["vector", "element"])
+def test_stencil_register_window(noff, dtype, layout):
+    """The stencil's register window: runs of RUN frames over gulps of
+    37, 2 (shorter than the carry at noffset 3), 50 and 17 frames (runs
+    that do not divide the gulp; a run starting at frame 0 reads its
+    history from the carry), a gather beside the window reads; on a
+    strided span from an unaligned column the element path: bitwise the
+    plain engine's concatenation, next carry included."""
+    rng = np.random.default_rng(32)
+    func = (f"y(t,c) = x(t,c) - x(t-{noff},c) * 0.5 + x(t-1,c) * "
+            f"x(t-1, c+1)")
+    n = 37 + 2 + 50 + 17
+    if dtype == "f32":
+        big = torch.from_numpy(rng.integers(-60, 60, (n, 72))
+                               .astype(np.float32))
+    else:
+        big = torch.from_numpy(rng.integers(-60, 60, (n, 72, 2))
+                               .astype(np.int8))
+    frames = big[:, :64].contiguous() if layout == "vector" else \
+        big[:, 3:67]
+    hc = pc = None
+    a = 0
+    for g in (37, 2, 50, 17):
+        (h, hc), (p, pc), prog = _run(
+            func, frames[a:a + g], dtype=None if dtype == "f32" else "ci8",
+            axis_names=("t", "c"), carry=hc)
+        a += g
+        assert prog.window and prog.noffset == noff and g % prog.run
+        assert map_kernel.map_apply_host.last["path"] == layout
+        assert _bits(h, p) and _bits(hc, pc), g
+
+
+@pytest.mark.parametrize("func,ocs,window", [
+    ("y(t,c) = x(t,c) * 2 + x(t, nc-1-c)", None, True),
+    ("y(t,c) = x(t, 2*c) - c", (32,), False),
+    ("a(t,c) = x(t,c) * 3; y(t,c) = a(t, c+1) - x", None, True),
+])
+def test_local_form_paths_bitwise(func, ocs, window):
+    """The local form: a run of frames a thread, its channel decomposed
+    once; reads of frame t at the output's channels from the vector load,
+    gathers per sample, vector stores: bitwise the plain engine on both
+    paths (a contiguous input and a strided span)."""
+    big = _f32((21, 72), 33)
+    for x, path in ((big[:, :64].contiguous(), "vector"),
+                    (big[:, 1:65], "vector" if not window else "element")):
+        (h, _), (p, _), prog = _run(func, x, axis_names=("t", "c"), ocs=ocs)
+        assert prog.window == window
+        assert map_kernel.map_apply_host.last["path"] == path
+        assert h.shape == p.shape and _bits(h, p), func
+
+
+@pytest.mark.parametrize("bshape,func,path", [
+    ((64,), "c = a*b - 1; d = b * 2", "vector"),
+    ((300, 1), "c = a*b - 1; d = a - b", "vector"),
+    ((300, 1), "c = a*b - 1; d = b * 2", "element"),
+    ((63,), "c = a*b - 1; d = b * 2", "element")])
+def test_eager_broadcast_paths(bshape, func, path):
+    """The eager call with a broadcast operand: along the outer axis
+    (innermost stride 1: an output of its smaller shape written once) and
+    along the innermost axis (stride 0: one load a vector) on the vector
+    path; an output broadcast along the innermost axis, or an innermost
+    extent that V does not divide (the axes cannot be collapsed), on the
+    element path.  Bitwise the plain engine."""
+    from bifrost_tpu_torch.ops.map import _compile_map, _full_namespace
+    a = _f32((300, bshape[-1] if bshape[-1] != 1 else 64), 34)
+    b = _f32(bshape, 35)
+    cm = _compile_map(func, ("a", "b"), None)
+    prog = map_codegen.generate(
+        cm.statements, "eager",
+        [map_codegen.input_for_tensor(k, v.dtype, v.dim())
+         for k, v in (("a", a), ("b", b))], _full_namespace(None),
+        frozenset("abcd"), ["c", "d"], out_rank=2)
+    want = [a * b - 1, a - b if "a - b" in func else b * 2]
+    outs = [torch.full(w.shape, -7.0) for w in want]
+    map_kernel.map_apply_host(prog, [a, b], tuple(a.shape), [], outs=outs)
+    assert map_kernel.map_apply_host.last["path"] == path
+    assert all(_bits(o, w) for o, w in zip(outs, want))
+
+
+@pytest.mark.parametrize("case", ["elementwise", "stencil", "local",
+                                  "packed", "eager"])
+def test_index64_form_bitwise(case, monkeypatch):
+    """The 64-bit index type, taken where an index or offset reaches
+    map_kernel.INDEX32_LIMIT (lowered here to 16): bitwise the plain
+    engine on both paths, and counted."""
+    monkeypatch.setattr(map_kernel, "INDEX32_LIMIT", 16)
+    before = map_kernel.map_apply_host.index64_launches
+    x = storage("ci8", 13, 64)
+    if case == "elementwise":
+        (h, _), (p, _), _ = _run("y = 2.0f*x*x.conj() + 1.0f", x, "ci8")
+        assert _bits(h, p)
+    elif case == "stencil":
+        hc = None
+        for a, b in ((0, 5), (5, 7), (7, 13)):
+            (h, hc), (p, pc), _ = _run(
+                "y(t,c) = x(t,c) - x(t-3,c) + x(t-1, c+1)", x[a:b], "ci8",
+                axis_names=("t", "c"), carry=hc)
+            assert _bits(h, p) and _bits(hc, pc)
+    elif case == "local":
+        (h, _), (p, _), _ = _run("y(t,c) = x(t, nc-1-c) * 2 + x(t,c)", x,
+                                 "ci8", axis_names=("t", "c"))
+        assert _bits(h, p)
+    elif case == "packed":
+        (h, _), (p, _), _ = _run("y = v * 3 - (v >> 1)",
+                                 storage("i4", 13, 36)[1:], "i4",
+                                 in_name="v")
+        assert _bits(h, p)
+    else:
+        test_eager_broadcast_paths((64,), "c = a*b - 1; d = b * 2",
+                                   "vector")
+    assert map_kernel.map_apply_host.last["index"] == "int64"
+    assert map_kernel.map_apply_host.index64_launches > before
+
+
+def test_path_counter():
+    """map_apply_host counts its launches, those on the vector path and
+    those with 64-bit indices (map_apply counts the card's the same way,
+    tests/test_torch_gpu.py), and keeps the last launch's plan."""
+    fn = map_kernel.map_apply_host
+    start = (fn.launches, fn.vector_launches, fn.index64_launches)
+    _run("y = v * 2", _f32((8, 16), 36), in_name="v")
+    assert fn.last["path"] == "vector" and fn.last["vec"] == 4
+    _run("y = v * 2", _f32((16, 8), 37).T, in_name="v")
+    assert fn.last["path"] == "element"
+    assert (fn.launches, fn.vector_launches, fn.index64_launches) == (
+        start[0] + 2, start[1] + 1, start[2])
+
+
+def test_layout_words_kept_by_layout():
+    """pack keeps a program's layout words (shape, dividers, strides,
+    path) by its operands' layout: another gulp of the same layout
+    reuses them, a span of another alignment gets its own (and its own
+    path); the results stay bitwise the plain engine."""
+    big = _f32((41, 16), 38)
+    op = Map("y = v * 2 + s", in_name="v", scalars={"s": 1.5})
+    prog = op.program(torch.float32, 2)
+    for x, n, path in ((big[:20], 1, "vector"), (big[20:40], 1, "vector"),
+                       (big[1:21][:, :15], 2, "element")):
+        y, _ = map_kernel.map_apply_host(prog, [x], tuple(x.shape), [1.5])
+        assert len(prog.layouts) == n
+        assert map_kernel.map_apply_host.last["path"] == path
+        assert _bits(y[0], x * 2 + 1.5)
+
+
+def test_spilling_build_halves_v(monkeypatch):
+    """A build whose kernels spill is redone with half the V, and the
+    program says so (`vec_note`); nvcc is stood in for here."""
+    from bifrost_tpu_torch import build
+
+    class Lib(object):
+        class Fn(object):
+            pass
+
+        def __init__(self):
+            self.map_launch, self.map_error_string = self.Fn(), self.Fn()
+
+    prog = Map("y = x * x - x * 0.5").program(torch.float16, 3)
+    assert prog.vec == 8
+
+    def load(name, source):
+        spill = 24 if prog.vec > 2 else 0
+        build.generated_log.append({
+            "name": name, "kind": "cuda", "seconds": 0.0, "nvcc": True,
+            "ptxas": f"ptxas info : Function properties for k\n"
+                     f"    0 bytes stack frame, {spill} bytes spill stores, "
+                     f"{spill} bytes spill loads\n"})
+        return Lib()
+    monkeypatch.setattr(build, "load_generated", load)
+    map_kernel.prepare(prog)
+    assert prog.vec == 2 and prog.vec_note == (
+        "V 8 spilled 24 bytes, rebuilt with V 4; "
+        "V 4 spilled 24 bytes, rebuilt with V 2")
+
+
+_DIV_SOURCE = """#include "map_common.cuh"
+using namespace bfmap;
+extern "C" void divide(const long long* n, const long long* m,
+                       const long long* s, long long* q, int count,
+                       int bits) {
+  for (int i = 0; i < count; ++i)
+    q[i] = bits == 32 ? (long long)div_magic<int>((int)n[i], m[i], s[i])
+                      : div_magic<long long>(n[i], m[i], s[i]);
+}
+"""
+
+
+def _c_divide(n, d, bits):
+    """csrc/map_common.cuh's div_magic (host build) on the words of
+    map_kernel.magic."""
+    import ctypes
+    from bifrost_tpu_torch import build
+    lib = build.load_generated_host("map_divide", _DIV_SOURCE)
+    m, s = map_kernel.magic(d, bits)
+    arr = [(ctypes.c_longlong * 1)(v) for v in (n, m, s)]
+    q = (ctypes.c_longlong * 1)()
+    lib.divide(*arr, q, 1, bits)
+    return q[0]
+
+
+# The edges of each index type: 1, 2, 3, powers of two and their
+# neighbours, the type's largest value (2**31 - 1, 2**63 - 1).
+_EDGES = {bits: sorted({1, 2, 3} | {2 ** k + e for k in range(2, bits - 1)
+                                    for e in (-1, 0, 1)} | {2 ** (bits - 1) - 1})
+          for bits in (32, 64)}
+
+
+@pytest.mark.parametrize("bits", [32, 64])
+def test_divider_at_the_edges(bits):
+    """The multiply-and-shift divider (map_kernel.magic, its Python model
+    magic_div and the header's div_magic) is n // d at the edges: d and n
+    among 1, 2, 3, the powers of two and their neighbours and the index
+    type's largest value, and n at d - 1, d, d + 1."""
+    top = 2 ** (bits - 1) - 1
+    for d in _EDGES[bits]:
+        m, s = map_kernel.magic(d, bits)
+        ns = {n for n in _EDGES[bits] + [0, d - 1, d, d + 1, top]
+              if 0 <= n <= top}
+        for n in ns:
+            assert map_kernel.magic_div(n, m, s, bits) == n // d, (n, d)
+    for d, n in ((1, top), (top, top), (top, top - 1), (3, top),
+                 (2 ** (bits - 2) + 1, top)):
+        assert _c_divide(n, d, bits) == n // d, (n, d)
+
+
+@settings(max_examples=400, deadline=None)
+@given(bits=st.sampled_from([32, 64]), data=st.data())
+def test_divider_property(bits, data):
+    """Over the whole range of each index type: n // d and n % d, from
+    the divider's words, in the Python model and in the header's C."""
+    top = 2 ** (bits - 1) - 1
+    d = data.draw(st.one_of(st.integers(1, top), st.sampled_from(
+        _EDGES[bits])), label="d")
+    n = data.draw(st.one_of(st.integers(0, top), st.sampled_from(
+        [0, top, d - 1, d, min(top, d + 1)])), label="n")
+    m, s = map_kernel.magic(d, bits)
+    q = map_kernel.magic_div(n, m, s, bits)
+    assert (q, n - q * d) == divmod(n, d)
+    assert _c_divide(n, d, bits) == n // d
