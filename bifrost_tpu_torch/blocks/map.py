@@ -14,7 +14,9 @@ refusal, the fusion form and the cache accounting land on the
 `<name>/map_plan` proclog channel (the fir_plan pattern), with M1's V
 and the note of a build that spilled.  M1 is built
 in `on_sequence`, so the first gulp (and the deadman watching it) does
-not wait for nvcc.
+not wait for nvcc; a respec's replacement builds it earlier, in
+`preflight`, so that a failed build raises in the respec, which rolls
+back.
 
 The output type and shape come from the plain engine run on a probe of
 max(2, noffset + 1) frames on the 'meta' device (the CPU where a
@@ -151,6 +153,32 @@ class MapBlock(TransformBlock):
                 last = exc
         raise last
 
+    @staticmethod
+    def _input_form(itensor):
+        """-> (DataType, channel shape, storage form?, the Map's dtype
+        key, rank) of an input sequence's tensor header.  Complex
+        integers and packed types arrive in storage form, which M1 reads
+        as it lies and the plain engine lifts."""
+        idt = DataType(itensor["dtype"])
+        chan = tuple(int(s) for s in itensor["shape"][1:])
+        storage = (idt.is_complex and idt.is_integer) or idt.nbit < 8
+        return (idt, chan, storage,
+                str(idt) if storage else idt.as_torch_dtype(), 1 + len(chan))
+
+    def _data_device_of(self):
+        """The gulps are computed where the input ring holds them."""
+        return torch.device(self.device) if self.iring.space == "cuda" \
+            else torch.device("cpu")
+
+    def preflight(self, iseq):
+        """Build M1 for input sequence `iseq` before the block runs: a
+        respec's replacement (service.Service.respec), whose input is
+        its predecessor's open sequence."""
+        _, _, storage, dkey, rank = self._input_form(iseq.header["_tensor"])
+        self.op.method = self.method if self.method is not None else "auto"
+        self.op.prepare(dkey, rank, self._out_chan_shape, raw=storage,
+                        device=self._data_device_of())
+
     def on_sequence(self, iseq):
         ihdr = iseq.header
         itensor = ihdr["_tensor"]
@@ -158,16 +186,11 @@ class MapBlock(TransformBlock):
             raise ValueError(
                 f"map: the frame (streaming) axis must lead (time-first), "
                 f"got shape {itensor['shape']}")
-        idt = DataType(itensor["dtype"])
+        idt, self._in_chan_shape, self._storage, self._dkey, self._rank = \
+            self._input_form(itensor)
         self._idt = idt
-        self._in_chan_shape = tuple(int(s) for s in itensor["shape"][1:])
         self._ldtype = _logical_dtype(idt)
         self._ltorch = _torch_dtype(self._ldtype)
-        # Complex integers and packed types arrive in storage form, which
-        # M1 reads as it lies and the plain engine lifts.
-        self._storage = (idt.is_complex and idt.is_integer) or idt.nbit < 8
-        self._dkey = str(idt) if self._storage else idt.as_torch_dtype()
-        self._rank = 1 + len(self._in_chan_shape)
         if self._header_scalars:
             scal = dict(self.op.scalars)
             for k, hk in self._header_scalars.items():
@@ -188,9 +211,7 @@ class MapBlock(TransformBlock):
         # Resolve the engine ONCE per sequence and latch the config flag
         # (the fir_method latch contract).
         self.op.method = self.method if self.method is not None else "auto"
-        # The gulps are computed where the input ring holds them.
-        self._data_device = torch.device(self.device) \
-            if self.iring.space == "cuda" else torch.device("cpu")
+        self._data_device = self._data_device_of()
         resolved = self.op._resolve(self._dkey, self._rank,
                                     self._out_chan_shape, self._data_device)
         self.op.method = resolved

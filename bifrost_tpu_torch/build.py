@@ -16,14 +16,20 @@ C++ compiler (``c++``) the same way, hash-named, at first use, through a
 temporary file renamed into place, so processes building at once do not
 collide.
 
+The directory the builds go to is `BUILD_DIR` (generated libraries under
+`MAP_BUILD_DIR`, its ``map/``): the package's ``build/`` by default, or the
+`kernel_cache` flag's directory once cache.py switches it there
+(`set_build_dir`), so a later process loads what an earlier one built.
+
 Generated sources (bf.map's kernel M1, ops/map_codegen.py): `load_generated`
 compiles one ``.cu`` that includes ``csrc/map_common.cuh`` with
 ``--fmad=false`` (no multiply and add contracted: the plain engine rounds
 each operator on its own) into ``build/map/lib<sha256>.so``, named by the
 source, the flags and the header, through a temporary file and a rename.
 It has its own lock, so a map build never holds `_lock` against the
-fixed kernels, and an in-process LRU of `GENERATED_CAPACITY` loaded
-libraries.  ptxas's report is kept beside the library
+fixed kernels, a lock per library, so that threads asking for one
+program at once run one compiler, and an in-process LRU of
+`GENERATED_CAPACITY` loaded libraries.  ptxas's report is kept beside the library
 (``lib<sha256>.ptxas``), so a library loaded from disk still tells its
 registers and spills (`generated_log`).  `load_generated_host` builds
 the same source with the host C++ compiler (its ``map_host`` entry), for
@@ -43,7 +49,8 @@ from collections import OrderedDict
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent / "build"
+DEFAULT_BUILD_DIR = Path(__file__).resolve().parent / "build"
+BUILD_DIR = DEFAULT_BUILD_DIR
 SOURCES = ("fdmt", "fir", "fir_long", "beamform", "romein", "dq",
            "xengine")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -55,7 +62,7 @@ HOST_LIBS = {"udp": ("socket.cpp", "udp_capture.cpp", "udp_transmit.cpp")}
 HOST_HEADERS = ("udp_host.h",)
 HOST_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
-MAP_BUILD_DIR = BUILD_DIR / "map"
+MAP_BUILD_DIR = DEFAULT_BUILD_DIR / "map"
 MAP_HEADER = "map_common.cuh"
 MAP_NVCC_FLAGS = NVCC_FLAGS + ("--fmad=false", "-I", str(CSRC))
 MAP_HOST_FLAGS = HOST_FLAGS + ("-ffp-contract=off", "-I", str(CSRC))
@@ -66,11 +73,24 @@ _libs = {}
 build_log = {}    # name -> {"seconds", "ptxas"} of builds in this process
 _gen_lock = threading.Lock()
 _gen_libs = OrderedDict()   # (kind, target path) -> ctypes library
+_gen_build_locks = {}       # target path -> lock held while it builds
 # One entry per generated library loaded in this process: {"name",
 # "seconds" (0.0 where the built library was on disk), "nvcc" (whether a
 # compiler ran), "ptxas" (its -v output, kept beside the library; "" for
 # a host build)}.
 generated_log = []
+
+
+def set_build_dir(path=None):
+    """Send later builds to `path` (its ``map/`` for the generated ones),
+    or back to the package's ``build/`` with None -> the directory.
+    Libraries loaded already stay loaded."""
+    global BUILD_DIR, MAP_BUILD_DIR
+    path = DEFAULT_BUILD_DIR if path is None else Path(path)
+    with _lock, _gen_lock:
+        BUILD_DIR = path
+        MAP_BUILD_DIR = path / "map"
+    return path
 
 
 def nvcc_path():
@@ -190,15 +210,28 @@ def _load_generated(kind, name, source, compiler, flags, suffix):
         if lib is not None:
             _gen_libs.move_to_end(key)
             return lib
-    # The compiler runs outside the lock, so that threads build different
-    # programs at once; each writes its own temporary files and renames
-    # the library into place (a concurrent build of the same source
-    # renames an identical file).
+        build_lock = _gen_build_locks.setdefault(str(target),
+                                                 threading.Lock())
+    # The compiler runs outside `_gen_lock`, so that threads build
+    # different programs at once, and under the library's own lock, so
+    # that threads asking for one program run one compiler; it writes
+    # temporary files and renames the library into place, so no process
+    # loads a half-written one.
+    with build_lock:
+        return _build_generated(kind, key, name, source, compiler, flags,
+                                target)
+
+
+def _build_generated(kind, key, name, source, compiler, flags, target):
+    with _gen_lock:
+        lib = _gen_libs.get(key)
+        if lib is not None:
+            return lib
     entry = {"name": name, "kind": kind, "seconds": 0.0, "nvcc": False,
              "ptxas": ""}
     report = target.with_suffix(".ptxas")
     if not target.exists():
-        MAP_BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        target.parent.mkdir(parents=True, exist_ok=True)
         tag = f"{os.getpid()}.{threading.get_ident()}"
         src = target.with_suffix(f".{tag}.cu")
         tmp = target.with_suffix(f".{tag}.tmp")

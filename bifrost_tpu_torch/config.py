@@ -2,8 +2,10 @@
 only the flags the port reads so far.
 
 Call sites read through `config.get(name)`; `config.set(name, value)`
-overrides the default.  A flag may carry a `validate` callable: a bad
-value raises at `set` and again at `get`.
+overrides the default.  A flag that names an environment variable (the
+JAX package's name for it) reads it when no override is set: override >
+environment > default, as the JAX registry does.  A flag may carry a
+`validate` callable: a bad value raises at `set` and again at `get`.
 Flags that steer per-sequence state are LATCHED by the blocks that read
 them (`hold_latch` / `release_latch`): while a sequence holds the latch,
 `set` and `reset` on that flag raise, naming the block, because a new
@@ -12,6 +14,7 @@ value could only half-apply mid-stream.
 
 from __future__ import annotations
 
+import os
 import threading
 
 _lock = threading.Lock()
@@ -19,15 +22,28 @@ _overrides = {}
 _latch_guards = {}   # name -> owners latching it, one entry per sequence
 
 
+def _parse_bool(s):
+    return str(s).lower() in ("1", "true", "yes", "on")
+
+
 class Flag(object):
-    def __init__(self, name, default, description, validate=None):
+    def __init__(self, name, default, description, validate=None, env=None):
         self.name = name
         self.default = default
         self.description = description
         self.validate = validate
+        self.env = env
 
     def value(self):
-        value = _overrides.get(self.name, self.default)
+        if self.name in _overrides:
+            value = _overrides[self.name]
+        else:
+            raw = os.environ.get(self.env, "") if self.env else ""
+            if raw != "":
+                kind = type(self.default)
+                value = _parse_bool(raw) if kind is bool else kind(raw)
+            else:
+                value = self.default
         if self.validate is not None:
             self.validate(value)
         return value
@@ -72,6 +88,13 @@ def _validate_ge_one(name, value):
     if not isinstance(value, (int, float)) or isinstance(value, bool) or \
             value < 1.0:
         raise ValueError(f"{name} must be a number >= 1, got {value!r}")
+
+
+def _validate_nonneg_float(name, value):
+    if not isinstance(value, (int, float)) or isinstance(value, bool) or \
+            value < 0:
+        raise ValueError(f"{name} must be a non-negative number, "
+                         f"got {value!r}")
 
 
 def _validate_pos_float(name, value):
@@ -228,6 +251,44 @@ FLAGS = {f.name: f for f in [
          "<pipeline>/service ProcLog.",
          validate=lambda v: _validate_pos_float(
              "service_health_interval_s", v)),
+    Flag("kernel_cache", "",
+         "Where the nvcc builds of build.py persist across processes "
+         "(cache.py), enabled at Service/FleetScheduler start.  Empty "
+         "(default) = off: the builds go to bifrost_tpu_torch/build/; "
+         "\"1\"/\"on\" = ~/.bifrost_tpu_torch/kernel_cache; any other "
+         "value = that directory.  kernel_cache_info() shows the resolved "
+         "state in the fleet health snapshot.",
+         env="BIFROST_TPU_KERNEL_CACHE"),
+    Flag("fleet_health_interval_s", 1.0,
+         "Seconds between fleet-scheduler control-loop passes (queued-"
+         "tenant admission, finished-tenant reaping, eviction-driven "
+         "preemption, usage sampling, and the fleet health-snapshot push "
+         "to the <fleet>/fleet ProcLog).  A device-registry eviction "
+         "pokes the loop at once regardless.",
+         validate=lambda v: _validate_pos_float(
+             "fleet_health_interval_s", v),
+         env="BIFROST_TPU_FLEET_HEALTH_INTERVAL"),
+    Flag("fleet_max_queue", 16,
+         "Admission queue depth of the fleet scheduler: tenants beyond "
+         "this many waiting for resources are rejected at submit time "
+         "instead of queued (FleetScheduler(max_queue=...) overrides).",
+         validate=lambda v: _validate_nonneg_int("fleet_max_queue", v),
+         env="BIFROST_TPU_FLEET_MAX_QUEUE"),
+    Flag("fleet_preempt_quiesce_s", 5.0,
+         "Bounded-quiesce timeout of a tenant the fleet scheduler "
+         "preempts or retires: its pipeline gets this long to drain "
+         "before the deadline interrupts.",
+         validate=lambda v: _validate_pos_float(
+             "fleet_preempt_quiesce_s", v),
+         env="BIFROST_TPU_FLEET_PREEMPT_QUIESCE"),
+    Flag("fleet_starvation_s", 0.0,
+         "Queue starvation guard: a tenant waiting longer than this many "
+         "seconds has its effective priority aged up one step per "
+         "elapsed window (the starvation_promotions counter records each "
+         "step).  0 (default) keeps strict priority order.",
+         validate=lambda v: _validate_nonneg_float("fleet_starvation_s",
+                                                   v),
+         env="BIFROST_TPU_FLEET_STARVATION"),
 ]}
 
 

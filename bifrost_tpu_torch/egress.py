@@ -161,7 +161,14 @@ class _StagingPool(object):
     Steady streaming cycles through at most depth+1 buffers of one size;
     a new size (a partial final gulp) allocates once, and at most
     MAX_SIZES sizes are kept, the least recently used dropped first.
-    `allocated` counts lifetime allocations.  Safe across threads."""
+    `allocated` counts lifetime allocations.  Safe across threads.
+
+    This is also the protocol of a pool handed in from outside
+    (`EgressStager(pool=...)`, a fleet tenant's view of the fleet pool,
+    fleet.py): `acquire(nbyte)`, `release(buf)` and an `allocated`
+    lifetime counter, safe under concurrent stagers.  A pool knows
+    whether its buffers are pinned: a CUDA stager's private pool pins,
+    and a fleet pins where its tenants run on the card."""
 
     MAX_SIZES = 2
 
@@ -262,10 +269,12 @@ class EgressStager(object):
     is egress back-pressure (`DeviceSinkBlock` books it as the sink's
     'reserve' phase).  `device` is the pipeline's device: on a CUDA
     device the copies run on a stream of the stager's own and the pool
-    pins its buffers."""
+    pins its buffers.  `pool`: a staging pool owned outside (the
+    `_StagingPool` protocol; a fleet scheduler hands each tenant's sinks
+    a quota-accounted view of the fleet's pool), else a private one."""
 
     def __init__(self, name, depth=2, chunk_nbyte=None,
-                 on_worker_start=None, device="cpu"):
+                 on_worker_start=None, device="cpu", pool=None):
         self.name = name
         self.depth = max(2, int(depth))
         # The chunk size of a gulp bound for a destination; a sink sets
@@ -274,7 +283,8 @@ class EgressStager(object):
                                if chunk_nbyte is None else chunk_nbyte)
         self.device = torch.device(device)
         cuda = self.device.type == "cuda"
-        self.pool = _StagingPool(max_free=self.depth + 1, pin=cuda)
+        self.pool = pool if pool is not None \
+            else _StagingPool(max_free=self.depth + 1, pin=cuda)
         self.staged_gulps = 0
         self.staged_bytes = 0
         self._stream = torch.cuda.Stream(self.device) if cuda else None
@@ -409,7 +419,10 @@ class DeviceSinkBlock(SinkBlock):
     max(2, `pipeline_async_depth`) and a destination's chunks of
     `egress_chunk_nbyte`; the three flags are latched for the sequence.
     Otherwise the gulp is copied whole on the block thread.  Subclasses
-    that override `shutdown()` call `super().shutdown()`.
+    that override `shutdown()` call `super().shutdown()`.  `egress_pool`
+    (None: a private pool), set before the sequence opens (a fleet
+    scheduler sets it at admission), is the pool the stager draws its
+    buffers from.
     """
 
     def __init__(self, iring, *args, **kwargs):
@@ -419,6 +432,7 @@ class DeviceSinkBlock(SinkBlock):
         self._egress_staging = False
         self._egress_drained_gulps = 0
         self._egress_fault_hook = None   # fault injection (faultinject.py)
+        self.egress_pool = None
         self.egress_proclog = ProcLog(f"{self.name}/egress")
 
     # -- subclass interface
@@ -466,6 +480,7 @@ class DeviceSinkBlock(SinkBlock):
             if self._egress is None:
                 self._egress = EgressStager(
                     self.name, depth=depth, device=self.device,
+                    pool=self.egress_pool,
                     on_worker_start=self._bind_worker)
             self._egress.chunk_nbyte = chunk_nbyte
         self._egress_staging = staging

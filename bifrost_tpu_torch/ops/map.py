@@ -79,6 +79,7 @@ from __future__ import annotations
 import ast
 import functools
 import re
+import threading
 import warnings
 from collections import OrderedDict
 
@@ -716,18 +717,23 @@ class _CompiledMap(object):
             self.statements.append((lhs_name, lhs_idx, _translate_expr(rhs)))
         # Closure cache per call signature, LRU-bounded (retention
         # contract: an evicted signature is rebuilt on next use).  The
-        # eager call's generated programs live here too.
+        # eager call's generated programs live here too.  Translations
+        # are shared (lru_cache), so blocks on several threads (fleet
+        # tenants, a respec's replacement) use one cache: the lock makes
+        # one build per signature.
         self._fn_cache = OrderedDict()
+        self._fn_lock = threading.RLock()
 
     def _cached(self, key, build):
-        fn = self._fn_cache.get(key)
-        if fn is None:
-            fn = self._fn_cache[key] = build()
-            while len(self._fn_cache) > _FN_CACHE_CAPACITY:
-                self._fn_cache.popitem(last=False)
-        else:
-            self._fn_cache.move_to_end(key)
-        return fn
+        with self._fn_lock:
+            fn = self._fn_cache.get(key)
+            if fn is None:
+                fn = self._fn_cache[key] = build()
+                while len(self._fn_cache) > _FN_CACHE_CAPACITY:
+                    self._fn_cache.popitem(last=False)
+            else:
+                self._fn_cache.move_to_end(key)
+            return fn
 
     def get_fn(self, shapes, dtypes, scalar_names, shape):
         key = (tuple(sorted((k, v) for k, v in shapes.items())), shape)

@@ -66,6 +66,7 @@ import ctypes
 import math
 import re
 import struct
+import threading
 
 import torch
 
@@ -487,11 +488,25 @@ def _spill_bytes(name):
     return 0
 
 
+_lib_lock = threading.Lock()
+
+
 def _library(prog):
     """The program's loaded library, kept on the program after its first
     load (build.py keys the load on a hash of the source and header).  A
     build whose kernels spill is redone with half the V (no vector path
-    below a window's packed byte), and `prog.vec_note` says so."""
+    below a window's packed byte), and `prog.vec_note` says so.  Threads
+    asking for one program wait on its lock: one load, one V."""
+    lib = getattr(prog, "lib", None)
+    if lib is not None:
+        return lib
+    with _lib_lock:
+        lock = prog.__dict__.setdefault("_lib_lock", threading.Lock())
+    with lock:
+        return _load_library(prog)
+
+
+def _load_library(prog):
     lib = getattr(prog, "lib", None)
     if lib is not None:
         return lib

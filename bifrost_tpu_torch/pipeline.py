@@ -30,7 +30,24 @@ supervised block that faults is torn down and restarted per its policy
 shed or refuse load under back-pressure (`SourceBlock(on_overrun=)`).
 With `supervise=None` a block error still shuts the pipeline down.
 `shutdown(timeout=)` is the bounded quiesce, returning a `DrainReport`;
-`quiesce_block` stops one block at a gulp edge.  Each block writes its
+`quiesce_block` stops one block at a gulp edge.
+
+The live splice (service.Service.respec; bifrost_tpu/pipeline.py:
+525-595, 703-725): `quiesce_block` stops one block at a gulp edge and
+leaves its output rings' writing open; a replacement built under a
+`Pipeline._ring_adoptions` entry takes those rings over in
+`create_ring` (refusing another space), inherits the open writing
+(`_adopted_began_writing`), and takes over its predecessor's place in
+the input stream: its sequence cursors (`ring.SequenceCursor`, so the read
+guarantee is held across the splice), the open input sequences where
+the quiesce broke out of one (`_splice_mid_sequence`), and the frame to
+resume them at (`_splice_resume_frame`: the sync loop's next gulp, the
+async executor's dispatch frontier after its worker drained).  A
+spliced-out block synchronises its CUDA stream before its thread ends,
+so nothing it queued is still running when the replacement starts;
+`splice_forget` and `splice_start` swap the blocks in the roster.
+
+Each block writes its
 `bind`, `in`, `out`, `sequence0` and (at most every
 `proclog.PERF_FLUSH_S`) `perf` logs (proclog.py).
 
@@ -58,7 +75,7 @@ import torch
 from . import device as _device
 from .proclog import PERF_FLUSH_S, ProcLog
 from .ring import (EndOfDataStop, ReadSequence, Ring, RingInterrupted,
-                   TensorInfo)
+                   SequenceCursor, TensorInfo)
 
 __all__ = ["Pipeline", "get_default_pipeline", "block_scope", "BlockScope",
            "Block", "SourceBlock", "SinkBlock", "TransformBlock",
@@ -128,11 +145,25 @@ def _scope_stack():
     return _tls.scopes
 
 
+# The pipeline made where a block is built with none entered, shared by
+# every thread.
 _default_pipelines = []
+
+
+def _pipeline_stack():
+    """The pipelines this thread has entered: one thread's `with pipe:`
+    (a fleet admitting a tenant, a respec building a stage) never
+    captures the blocks another thread builds at the same time."""
+    if not hasattr(_tls, "pipelines"):
+        _tls.pipelines = []
+    return _tls.pipelines
 
 
 def get_default_pipeline():
     """The innermost active Pipeline (reference pipeline.py:74)."""
+    stack = _pipeline_stack()
+    if stack:
+        return stack[-1]
     if not _default_pipelines:
         _default_pipelines.append(Pipeline())
     return _default_pipelines[-1]
@@ -222,17 +253,20 @@ class Pipeline(BlockScope):
         self._threads = []
         self._fusion_plan = None
         self.drain_report = None
+        # Live splice: block name -> the output rings its replacement
+        # adopts in create_ring (service.Service._splice_build).
+        self._ring_adoptions = {}
         # The Supervisor of a supervised run, for a controller thread
         # (service.py) to read while run() blocks; None when fail-fast.
         self.supervisor = None
         self.proclog = ProcLog(f"{self.pname}/info")
 
     def __enter__(self):
-        _default_pipelines.append(self)
+        _pipeline_stack().append(self)
         return super().__enter__()
 
     def __exit__(self, *exc):
-        _default_pipelines.pop()
+        _pipeline_stack().pop()
         return super().__exit__(*exc)
 
     def synchronize_block_initializations(self):
@@ -421,6 +455,24 @@ class Pipeline(BlockScope):
             base.ack_interrupt(gen)
         return "wedged" if t.is_alive() else "interrupted"
 
+    def splice_start(self, block):
+        """Start a replacement block's thread in the running pipeline; it
+        joins the threads `run()` waits for."""
+        t = threading.Thread(target=block._run, name=block.name,
+                             daemon=True)
+        block._thread = t
+        self._threads.append(t)
+        t.start()
+        return t
+
+    def splice_forget(self, block):
+        """Drop a spliced-out block from the roster (its thread has
+        exited; its rings stay, adopted by the replacement)."""
+        try:
+            self.blocks.remove(block)
+        except ValueError:
+            pass
+
     @property
     def shutdown_requested(self):
         return self._shutdown_event.is_set()
@@ -480,7 +532,21 @@ class Block(BlockScope):
         # through this set.
         self._thread_idents = set()
         self._thread_done = False
-        self._splice_stop = False    # quiesce_block: exit at a gulp edge
+        # The live splice (module docstring): quiesce_block asks the block
+        # to exit at a gulp edge, leaving its output rings' writing open
+        # for the replacement, which inherits it (_adopted_began_writing),
+        # takes over its sequence cursors and, where the quiesce broke out
+        # of an input sequence, that sequence and the frame to resume it
+        # at.
+        self._splice_stop = False
+        self._began_writing = False
+        self._adopted_began_writing = False
+        self._splice_mid_sequence = False
+        self._splice_resume_frame = None
+        # (sequence cursors, open input sequences or None): handed out at
+        # a splice exit, taken over by the replacement.
+        self._splice_handoff = None
+        self._adopted_handoff = None
         # True inside a restartable sequence; a deadman landing outside
         # one (waiting for the next input sequence) is absorbed in place.
         self._supervised_region = False
@@ -510,6 +576,20 @@ class Block(BlockScope):
             for i, r in enumerate(self.irings)})
 
     def create_ring(self, space="system"):
+        # A replacement built under a ring-adoption entry takes over the
+        # spliced-out block's output ring: downstream readers hold it.
+        pend = self.pipeline._ring_adoptions.get(self.name)
+        if pend:
+            ring = pend.pop(0)
+            base = getattr(ring, "base_ring", ring)
+            if base.space != space:
+                raise ValueError(
+                    f"{self.name}: splice replacement wants a {space!r}-"
+                    f"space output ring but the adopted ring {base.name!r} "
+                    f"is {base.space!r}: a respec cannot change a stage's "
+                    f"output space")
+            ring.owner = self
+            return ring
         ring = Ring(space=space, name=f"{self.name}.out{len(self.orings)}",
                     device=self.device)
         ring.owner = self
@@ -539,8 +619,16 @@ class Block(BlockScope):
             _device.set_device(self.device)
             with _device.block_stream(self.device) as stream:
                 self._stream = stream
-                self.main()
-                _device.stream_synchronize(self.device)
+                returned = False
+                try:
+                    self.main()
+                    returned = True
+                finally:
+                    # On a splice exit too: the replacement runs on a
+                    # stream of its own, so nothing of this block's may
+                    # still be queued.
+                    if returned or self._splice_stop:
+                        _device.stream_synchronize(self.device)
         except (EndOfDataStop, RingInterrupted):
             pass
         except Exception as e:  # noqa: BLE001 — block errors surface in run()
@@ -1087,27 +1175,50 @@ class MultiTransformBlock(Block):
         return getattr(self.irings[0], "space", None) != "cuda"
 
     def main(self):
-        readers = [iring.read(guarantee=self.guarantee)
-                   for iring in self.irings]
-        began_writing = False
+        cursors, pending = self._adopted_handoff or (
+            [iring.cursor(self.guarantee) for iring in self.irings],
+            None)
+        self._adopted_handoff = None
+        self._began_writing = self._adopted_began_writing
+        iseqs = None
         try:
-            for iseqs in zip(*readers):
+            while True:
+                if pending is not None:
+                    iseqs, pending = pending, None
+                else:
+                    iseqs = [c.next() for c in cursors]
                 if self.pipeline.shutdown_requested or self._splice_stop:
+                    if self._splice_stop:
+                        # Opened, not begun: the replacement begins it
+                        # where this block would have.
+                        self._splice_mid_sequence = True
+                        self._loop_frame = self._splice_resume_frame or 0
                     break
-                if not began_writing:
+                if not self._began_writing:
                     for oring in self.orings:
                         oring.begin_writing()
-                    began_writing = True
+                    self._began_writing = True
                 self._supervised_sequence(iseqs)
                 if self._splice_stop:
                     break
+        except StopIteration:
+            pass
         finally:
             # The worker lets go of its spans before their sequences
             # close.
             self._close_dispatcher()
-            for r in readers:
-                r.close()
-            if began_writing:
+            if self._splice_stop and not self.pipeline.shutdown_requested:
+                # A splice exit hands the read position on, guarantees
+                # held: the cursors, and the input sequences where the
+                # quiesce broke out of one.
+                self._splice_handoff = (
+                    cursors, iseqs if self._splice_mid_sequence else None)
+            else:
+                for c in cursors:
+                    c.close()
+            # A splice target leaves writing open: its replacement
+            # adopts the rings and ends writing when it finishes.
+            if self._began_writing and not self._splice_stop:
                 for oring in self.orings:
                     oring.end_writing()
 
@@ -1117,6 +1228,11 @@ class MultiTransformBlock(Block):
         again and the loop resumes at the frame the supervisor chose.
         Unsupervised this is one `_run_sequence` call."""
         resume = 0
+        if self._splice_resume_frame is not None:
+            # A spliced-in replacement resumes its predecessor's sequence
+            # where it stopped, as a supervised restart resumes its own.
+            resume = self._splice_resume_frame
+            self._splice_resume_frame = None
         self._supervised_region = True
         sup = self._supervisor
         if sup is not None:
@@ -1130,6 +1246,10 @@ class MultiTransformBlock(Block):
                     raise
                 except BaseException as e:  # noqa: BLE001 — policy decides
                     if self._splice_stop:
+                        # A splice quiesce interrupted this sequence: exit
+                        # it, unrestarted, to be resumed by the
+                        # replacement.
+                        self._splice_mid_sequence = True
                         raise
                     resume = self._supervised_resume(e)
                     if resume is None:
@@ -1244,6 +1364,7 @@ class MultiTransformBlock(Block):
                     except StopIteration:
                         return
                 if self.pipeline.shutdown_requested or self._splice_stop:
+                    self._splice_mid_sequence = self._splice_stop
                     return
                 in_nframe = max(0, ispans[0].nframe - overlap)
                 if in_nframe == 0:
@@ -1362,6 +1483,11 @@ class MultiTransformBlock(Block):
                     if ispans and not stop else 0
                 if in_nframe == 0 or self.pipeline.shutdown_requested or \
                         self._splice_stop:
+                    if self._splice_stop and in_nframe:
+                        # The replacement resumes at the dispatch
+                        # frontier, once the drain below has committed
+                        # every gulp dispatched before it.
+                        self._splice_mid_sequence = True
                     for sp in ispans:
                         sp.release()
                     break
@@ -1665,9 +1791,16 @@ class RingView(object):
         out = self.header_transform(hdr)
         return hdr if out is None else out
 
+    def cursor(self, guarantee=True):
+        """-> a `SequenceCursor` over the base ring showing each sequence
+        through this view."""
+        return SequenceCursor(
+            self.base_ring, guarantee,
+            wrap=lambda seq: SequenceView(seq,
+                                          self.transform_header(seq.header)))
+
     def read(self, guarantee=True):
-        for iseq in self.base_ring.read(guarantee):
-            yield SequenceView(iseq, self.transform_header(iseq.header))
+        return self.cursor(guarantee).sequences()
 
 
 class SequenceView(ReadSequence):

@@ -31,7 +31,7 @@ import threading
 
 __all__ = ["ProcLog", "proclog_root", "proclog_dir", "load_by_pid",
            "capture_metrics", "supervise_metrics", "service_metrics",
-           "PERF_FLUSH_S"]
+           "fleet_metrics", "PERF_FLUSH_S"]
 
 PERF_FLUSH_S = 0.25   # least seconds between two perf-log writes of a block
 
@@ -234,6 +234,26 @@ def service_metrics(tree):
     for block, logs in sorted(tree.items()):
         kv = logs.get("service", {})
         if not kv or "state" not in kv:
+            continue
+        row = {"name": block}
+        row.update({k: v for k, v in kv.items() if k != "snapshot"})
+        rows.append(row)
+    return rows
+
+
+def fleet_metrics(tree):
+    """Fleet-scheduler health rows from a load_by_pid tree (one
+    `<fleet>/fleet` log per running scheduler, written by
+    fleet.FleetScheduler's health pusher); the JSON snapshot is left out.
+
+    -> [{name, state, uptime_s, tenants_running, tenants_queued,
+         admitted, rejected, preempted, completed, quota_violations,
+         restarts, availability_pct, committed_frames, lost_frames,
+         duplicated_frames[, recovery_p50_s, recovery_p99_s]}]."""
+    rows = []
+    for block, logs in sorted(tree.items()):
+        kv = logs.get("fleet", {})
+        if not kv or "tenants_running" not in kv:
             continue
         row = {"name": block}
         row.update({k: v for k, v in kv.items() if k != "snapshot"})

@@ -527,25 +527,69 @@ class Ring(object):
                 self._guarantees.append(pos)
         return ReadSequence(self, seq, guarantee, pos)
 
+    def cursor(self, guarantee=True):
+        """-> a `SequenceCursor` over this ring's sequences."""
+        return SequenceCursor(self, guarantee)
+
     def read(self, guarantee=True):
         """Generator over sequences as they appear (reference
         ring2.py:149); closes each sequence as it advances."""
-        cur = None
+        return self.cursor(guarantee).sequences()
+
+
+class SequenceCursor(object):
+    """One reader's walk through a ring's sequences: open the earliest,
+    then each next one, closing the one before, until writing has ended.
+    The position is held in the object rather than in a generator's
+    frame, so a pipeline splice can hand it to a replacement block: the
+    current sequence, and its read guarantee, stay open across the
+    hand-off, and a wait interrupted in `next` leaves the position as it
+    was.  `wrap`, where given, maps each opened sequence to what the
+    reader sees (a header view's `SequenceView`)."""
+
+    def __init__(self, ring, guarantee=True, wrap=None):
+        self.ring = ring
+        self.guarantee = guarantee
+        self.wrap = wrap
+        self.cur = None
+        self.done = False
+
+    def next(self):
+        """-> the next sequence (StopIteration at the end of writing)."""
+        if self.done:
+            raise StopIteration
+        try:
+            if self.cur is None:
+                nxt = self.ring.open_sequence("earliest", self.guarantee)
+            else:
+                nxt = self.ring.open_sequence("next", self.guarantee,
+                                              cur=self.cur)
+        except EndOfDataStop:
+            self.done = True
+            raise StopIteration from None
+        if self.cur is not None:
+            self.cur.close()
+        self.cur = nxt
+        return nxt if self.wrap is None else self.wrap(nxt)
+
+    def close(self):
+        if self.cur is not None:
+            self.cur.close()
+            self.cur = None
+        self.done = True
+
+    def sequences(self):
+        """Generator over the remaining sequences; closes the cursor when
+        it ends or is closed."""
         try:
             while True:
                 try:
-                    if cur is None:
-                        nxt = self.open_sequence("earliest", guarantee)
-                    else:
-                        nxt = self.open_sequence("next", guarantee, cur=cur)
-                        cur.close()
-                except EndOfDataStop:
+                    seq = self.next()
+                except StopIteration:
                     return
-                cur = nxt
-                yield cur
+                yield seq
         finally:
-            if cur is not None:
-                cur.close()
+            self.close()
 
 
 class RingWriter(object):

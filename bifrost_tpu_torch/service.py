@@ -27,10 +27,26 @@ runs it under a `supervise.Supervisor` with per-stage restart tiers
   code is 0 (clean), 1 (degraded at stop, or the quiesce needed its
   deadline interrupts) or 2 (escalated, a wedged block, a pipeline
   error).
+- `respec(stage, new_stage)`: live respec (bifrost_tpu/service.py:
+  1055-1234).  One stage of the running pipeline is replaced at a gulp
+  edge: the block is quiesced (pipeline.quiesce_block), the replacement
+  is built onto the same input and output rings, takes over the block's
+  place in the input stream and its supervision
+  (Supervisor.replace_block), and starts; the rest of the chain streams
+  on.  The FrameLedger keeps lost == dup == 0 across the splice.  The
+  stop lock is held throughout, so a concurrent `stop()` waits for the
+  splice.  Sources, capture stages and fused stages are refused; the
+  replacement keeps the block's name and output rings; a build error
+  (a map stage's M1 build included: `MapBlock.preflight` builds it for
+  the open input sequence) rebuilds the old stage and re-raises; a
+  wedged quiesce aborts.
+  `respecs` and `respec_downtime_s` keep the records, which `health()`,
+  the exit report and the fleet (fleet.py) publish.
 
 Block names are the proclog namespace, so every live service claims its
 blocks' names: a registry stage whose name is taken is suffixed
-`<name>@<service>` with a warning, a custom block's taken name raises.
+`<name>@<service>` with a warning, a custom block's taken name raises; a
+respec's replacement takes its predecessor's claim.
 
 `Service(spec, device=None)` runs on the card, building the CUDA
 kernels (build.py) in `start()` before the watchdog is armed, so a
@@ -65,13 +81,12 @@ The bare chains, each -> (pipeline, detector, ledger):
 - `lwa_beam_search_pipeline`, the B branch of the instrument.
 - `lwa_instrument_pipeline`, the whole instrument.
 
-Not ported yet, raising NotImplementedError where it is asked for:
-`Service.respec` (A15).  Sub-byte capture runs through the
-`unpack` kind, and the instrument takes `engine='int8'`.
-`degrade_shards` is accepted, but with no mesh no shard is ever evicted
-(A16).  The data-quality front end of the beam search (flag -> calibrate
-before the B-engine) is built from blocks, as benchmarks/dq_tpu.py
-builds it.
+Sub-byte capture runs through the `unpack` kind, and the instrument
+takes `engine='int8'`.  `degrade_shards` is accepted, but with no mesh
+no shard is ever evicted (ROADMAP item 17, A16); the availability
+summary reads the device registry (parallel/faultdomain.py).  The
+data-quality front end of the beam search (flag -> calibrate before the
+B-engine) is built from blocks, as benchmarks/dq_tpu.py builds it.
 """
 
 from __future__ import annotations
@@ -1032,6 +1047,12 @@ class Service(object):
         self._user_on_event = None
         self.exit_report = None
         self.start_s = None           # seconds start() took (kernel build)
+        # Live respec: one record per respec() call (stage, outcome,
+        # rolled_back, splice_s, downtime_s) and their downtime sum, which
+        # the availability summary and the fleet's per-tenant accounting
+        # read.
+        self.respecs = []
+        self.respec_downtime_s = 0.0
         self._degrade_margin = spec.degrade_margin \
             if spec.degrade_margin is not None \
             else config.get("service_degrade_margin")
@@ -1115,6 +1136,10 @@ class Service(object):
         if self._run_thread is not None:
             raise RuntimeError("service already started")
         t0 = time.perf_counter()
+        # The kernel_cache flag sends the builds where later processes
+        # find them (cache.py).
+        from . import cache as _kcache
+        _kcache.maybe_enable_from_config()
         if self.pipeline.device.type == "cuda":
             # The counterpart of the JAX package's compilation-cache warm
             # start: no kernel is built inside the watchdog's horizon.
@@ -1210,10 +1235,166 @@ class Service(object):
         _release_block_names(self._ns_names)
         return self.exit_report
 
+    # ------------------------------------------------------ live respec
     def respec(self, stage_name, new_stage, timeout=None):
-        """Live replacement of a stage is not ported (ROADMAP A15)."""
-        raise NotImplementedError(
-            "Service.respec: live respec is not ported yet (ROADMAP A15)")
+        """Replace stage `stage_name` of the running pipeline with
+        `new_stage` (a StageSpec) at a gulp edge (module docstring).
+        `timeout`: the quiesce's (default the spec's quiesce_timeout_s).
+        -> the record (also appended to `respecs`): stage, outcome
+        ('drained' / 'interrupted'), rolled_back, splice_s (quiesce start
+        to the replacement's start) and downtime_s (to its first gulp;
+        None where none came within `timeout`)."""
+        from .pipeline import SourceBlock
+        if not isinstance(new_stage, StageSpec):
+            raise TypeError("respec() replaces a stage with a StageSpec")
+        with self._stop_lock:
+            if self.exit_report is not None:
+                raise RuntimeError("service already stopped")
+            if self._run_thread is None:
+                raise RuntimeError("service not started")
+            idx = next((i for i, st in enumerate(self.spec.stages)
+                        if st.name == stage_name), None)
+            if idx is None:
+                raise KeyError(f"no stage named {stage_name!r}")
+            old_stage = self.spec.stages[idx]
+            old = self.blocks[stage_name]
+            if old not in self.pipeline.blocks:
+                raise ValueError(
+                    f"stage {stage_name!r} (block {old.name!r}) was "
+                    f"absorbed into a fused group: respec needs a "
+                    f"standalone block (build that stage outside "
+                    f"block_scope(fuse=True))")
+            if isinstance(old, SourceBlock) or not old.irings:
+                raise ValueError(
+                    f"stage {stage_name!r} is a source: respec splices at "
+                    f"the input ring; sources restart through the "
+                    f"supervisor instead")
+            if new_stage.kind == "capture":
+                raise ValueError("a capture stage cannot be spliced in")
+            if old._thread_done:
+                raise RuntimeError(f"stage {stage_name!r} has finished its "
+                                   f"stream: there is nothing to respec")
+            timeout = self.spec.quiesce_timeout_s if timeout is None \
+                else float(timeout)
+            t0 = time.monotonic()
+            rec = {"stage": stage_name, "outcome": None,
+                   "rolled_back": False, "splice_s": None,
+                   "downtime_s": None}
+            rec["outcome"] = self.pipeline.quiesce_block(old,
+                                                         timeout=timeout)
+            if rec["outcome"] == "wedged":
+                # The block ignored the stop and the interrupts: nothing
+                # was spliced; only a stop or an escalation can follow.
+                self.respecs.append(rec)
+                raise RuntimeError(
+                    f"respec of {stage_name!r}: stage wedged during "
+                    f"quiesce (timeout {timeout}s): respec aborted")
+            if old._splice_handoff is None:
+                # Its stream ended before the stop reached it.
+                self.respecs.append(rec)
+                raise RuntimeError(f"stage {stage_name!r} finished its "
+                                   f"stream during the quiesce: there is "
+                                   f"nothing to respec")
+            build_error = None
+            try:
+                new = self._splice_build(new_stage, old)
+                used_stage = new_stage
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                # Rollback: the old stage, rebuilt through the same
+                # splice, keeps the service streaming under its spec.
+                build_error = e
+                rec["rolled_back"] = True
+                new = self._splice_build(old_stage, old)
+                used_stage = old_stage
+            if isinstance(new, CandidateDetectBlock):
+                new.ledger = self.ledger
+                if self.degraded:
+                    new.raise_threshold(self._degrade_factor)
+                    if self.spec.degrade_shed_every > 0:
+                        new.shed_every = self.spec.degrade_shed_every
+            # The replacement inherits the open writing of the rings and
+            # the predecessor's place in the input stream.
+            new._adopted_began_writing = old._began_writing
+            new._adopted_handoff, old._splice_handoff = \
+                old._splice_handoff, None
+            if old._splice_mid_sequence:
+                new._splice_resume_frame = int(old._loop_frame or 0)
+            self.supervisor.replace_block(old, new,
+                                          policy=used_stage.policy())
+            self.pipeline.splice_forget(old)
+            self.blocks[stage_name] = new
+            self.spec.stages[idx] = used_stage
+            self.pipeline.splice_start(new)
+            rec["splice_s"] = round(time.monotonic() - t0, 6)
+            deadline = time.monotonic() + timeout
+            while time.monotonic() < deadline:
+                if self._block_progressed(new):
+                    rec["downtime_s"] = round(time.monotonic() - t0, 6)
+                    break
+                time.sleep(0.005)
+            self.respec_downtime_s += rec["downtime_s"] \
+                if rec["downtime_s"] is not None else rec["splice_s"]
+            self.respecs.append(rec)
+            self.supervisor.record_respec(
+                new, stage=stage_name, outcome=rec["outcome"],
+                rolled_back=rec["rolled_back"], splice_s=rec["splice_s"],
+                downtime_s=rec["downtime_s"])
+            if build_error is not None:
+                raise build_error
+            return rec
+
+    def _splice_build(self, stage, old):
+        """Build `stage` as the replacement of the quiesced block `old`,
+        adopting old's output rings.  -> the new block; on a failure the
+        partial build is undone (block list, adopted ring ownership,
+        stray fresh rings) and the error re-raised."""
+        pipe = self.pipeline
+        n0 = len(pipe.blocks)
+        pipe._ring_adoptions[old.name] = list(old.orings)
+        try:
+            with pipe:
+                new = self._build_stage(stage, old.irings[0])
+            added = pipe.blocks[n0:]
+            if len(added) != 1 or added[0] is not new:
+                raise ValueError(
+                    f"respec of {old.name!r}: the replacement factory "
+                    f"built {len(added)} blocks; a live splice replaces "
+                    f"exactly one")
+            if new.name != old.name:
+                raise ValueError(
+                    f"respec of {old.name!r}: the replacement block is "
+                    f"named {new.name!r}; a live splice keeps the block "
+                    f"name (rings and supervision key on it: a custom "
+                    f"factory passes name=)")
+            if list(new.orings) != list(old.orings):
+                raise ValueError(
+                    f"respec of {old.name!r}: the replacement must adopt "
+                    f"the stage's output rings exactly (it has "
+                    f"{len(new.orings)}, the stage {len(old.orings)})")
+            # What the replacement builds for its input (M1 for a map
+            # stage) is built here, where a failure rolls back.
+            iseqs = old._splice_handoff[1] if old._splice_handoff else None
+            preflight = getattr(new, "preflight", None)
+            if iseqs is not None and preflight is not None:
+                preflight(iseqs[0])
+            return new
+        except BaseException:
+            for b in pipe.blocks[n0:]:
+                for r in list(b.orings):
+                    if r in old.orings:
+                        r.owner = old
+                    elif r in pipe.rings:
+                        pipe.rings.remove(r)
+            del pipe.blocks[n0:]
+            raise
+        finally:
+            pipe._ring_adoptions.pop(old.name, None)
+
+    @staticmethod
+    def _block_progressed(block):
+        if getattr(block, "gulps_seen", 0) > 0:
+            return True
+        return block.perf_totals.get("process", 0.0) > 0.0
 
     # ----------------------------------------------------- event policy
     def _on_supervise_event(self, ev):
@@ -1289,18 +1470,20 @@ class Service(object):
 
     # ----------------------------------------------------------- health
     def _availability(self):
-        """The JAX report's mesh availability summary; with no mesh
-        (ROADMAP A16) nothing is ever evicted: 100 %."""
+        """The JAX report's availability summary, from the device
+        registry (parallel/faultdomain.py; no mesh is registered, ROADMAP
+        item 17, so it reads 100 %), and the live respecs' downtime."""
+        from .parallel import faultdomain
         counters = self.supervisor.counters
         return {
-            "availability_pct": 100.0,
+            "availability_pct": round(faultdomain.availability_pct(), 4),
             "shard_recovery": self.supervisor.shard_recovery_stats(),
             "shard_evictions": counters.get("shard_evictions", 0),
             "shard_restores": counters.get("shard_restores", 0),
-            "downtime_s_by_shard": {},
+            "downtime_s_by_shard": faultdomain.downtime_by_device(),
             "shard_degrade_episodes": 0,
-            "respecs": 0,
-            "respec_downtime_s": 0.0,
+            "respecs": len(self.respecs),
+            "respec_downtime_s": round(self.respec_downtime_s, 6),
         }
 
     def health(self):
@@ -1340,6 +1523,7 @@ class Service(object):
                       "last_candidate": det.candidates[-1]
                       if det.candidates else None}
         failure = sup.failure
+        from .parallel import faultdomain
         return {
             "state": self.state,
             "uptime_s": round(now - self._started_t, 3)
@@ -1353,10 +1537,14 @@ class Service(object):
             "recovery": sup.recovery_stats(),
             "detect": detect,
             "ledger": self.ledger.summary(),
-            "shards": {},
+            "shards": faultdomain.shard_health(),
             "availability": self._availability(),
-            "elastic": {"respecs": 0, "respec_downtime_s": 0.0,
-                        "last_respec": None},
+            "elastic": {
+                "respecs": len(self.respecs),
+                "respec_downtime_s": round(self.respec_downtime_s, 6),
+                "last_respec": dict(self.respecs[-1])
+                if self.respecs else None,
+            },
             "last_escalation": dict(failure.report)
             if failure is not None else None,
         }

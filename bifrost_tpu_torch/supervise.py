@@ -33,9 +33,14 @@ Every event is kept in `Supervisor.events`, counted in a
 `<pipeline>/supervise` ProcLog (proclog.supervise_metrics) and tracked
 in `telemetry`.  A fused group's events name its `constituents`.
 
-The mesh fault domains of the JAX package (`record_shard_fault`,
-`record_shard_restore`, shard evictions; ROADMAP A16) and live respec
-(`record_respec`, A15) are not ported: those methods raise.
+Live respec (service.Service.respec) rides `replace_block`, which hands
+a spliced-out block's watchdog slot to its replacement, and
+`record_respec`, which books the splice.  A controller over many
+supervisors (fleet.FleetScheduler) reads `budget_remaining()` (every
+block at once) and merges `recovery_samples()` across tenants with
+`Supervisor.aggregate_recovery_stats`.  The mesh fault domains of the
+JAX package (`record_shard_fault`, `record_shard_restore`, shard
+evictions) are ROADMAP item 17 (A16): those methods raise.
 
 Heartbeat tuning: a block idle in a ring wait behind a slow upstream
 looks like a wedged one, so `heartbeat_interval_s * heartbeat_misses`
@@ -174,9 +179,10 @@ class Supervisor(object):
                           "shard_restores": 0, "respecs": 0}
         # Recovery times (fault -> first healthy gulp after the restart),
         # bounded like the event ring; recovery_stats() summarizes.  The
-        # counters keep the JAX package's keys, the shard and respec ones
-        # included (they stay 0 here).
+        # counters keep the JAX package's keys, the shard ones included
+        # (they stay 0 here: no mesh, ROADMAP item 17).
         self._recovery_times = []
+        self._shard_recovery_times = []
         self._by_name = {}          # block name -> _BlockState
 
     # ------------------------------------------------------------ lifecycle
@@ -227,6 +233,32 @@ class Supervisor(object):
             ring._progress_hook = self._note_alive
         self._flush_proclog()
         return self
+
+    def replace_block(self, old, new, policy=None):
+        """Hand `old`'s watchdog slot to its replacement across a live
+        splice (service.Service.respec): `new` gets a fresh restart
+        budget under `policy` (default: old's policy; a respec is a
+        deliberate replacement, not a fault, so its strikes do not carry
+        over) and old's interrupt token, which names the pipeline slot."""
+        with self._lock:
+            st = self._states.pop(id(old), None)
+            pol = policy if policy is not None else \
+                (st.policy if st is not None else self.policy)
+            state = _BlockState(pol)
+            self._states[id(new)] = state
+            self._by_name[new.name] = state
+            self.policies[new.name] = pol
+        new._supervisor = self
+        new._intr_token = getattr(old, "_intr_token", 0) or \
+            (len(self.pipeline.blocks) + 1 if self.pipeline else 0)
+        new._heartbeat = time.monotonic()
+        # The adopted rings carry the hooks already; a ring the
+        # replacement made afresh gets them too.
+        if self.pipeline is not None:
+            for ring in self.pipeline.rings:
+                ring._interrupt_retry = self._spurious_retry
+                ring._progress_hook = self._note_alive
+        return state
 
     def _block_of_thread(self):
         pipe = self.pipeline
@@ -404,15 +436,45 @@ class Supervisor(object):
 
     def shard_recovery_stats(self):
         """Shard-fault recoveries: none without mesh fault domains
-        (ROADMAP A16); the service's availability summary reads it."""
-        return self._summarize_times([])
+        (ROADMAP item 17); the service's availability summary reads it."""
+        with self._lock:
+            times = list(self._shard_recovery_times)
+        return self._summarize_times(times)
 
-    def budget_remaining(self, block):
+    def recovery_samples(self, shard_only=False):
+        """A copy of the raw recovery-time samples, for a controller over
+        many supervisors to merge (`aggregate_recovery_stats`)."""
+        with self._lock:
+            return list(self._shard_recovery_times if shard_only
+                        else self._recovery_times)
+
+    @staticmethod
+    def aggregate_recovery_stats(supervisors, shard_only=False):
+        """One recovery summary over many supervisors (None entries
+        skipped): their samples merged, summarised with
+        `recovery_stats()`'s schema; `last_s` is the last sample of the
+        last supervisor that has any."""
+        merged = []
+        for sup in supervisors:
+            if sup is not None:
+                merged.extend(sup.recovery_samples(shard_only=shard_only))
+        return Supervisor._summarize_times(merged)
+
+    def budget_remaining(self, block=None):
         """Restarts left in `block`'s sliding policy window right now
         (block object or name; None for an unknown block).  The service
         layer reads this to enter degraded mode BEFORE the budget
-        exhausts and escalates."""
+        exhausts and escalates.  With `block=None`: {block name:
+        restarts left} of every supervised block, in one pass under one
+        lock (a fleet snapshot's per-tenant budgets)."""
         now = time.monotonic()
+        if block is None:
+            with self._lock:
+                return {
+                    name: max(0, st.policy.max_restarts -
+                              sum(1 for t in st.restart_times
+                                  if now - t < st.policy.window_s))
+                    for name, st in self._by_name.items()}
         state = self._states.get(id(block)) if not isinstance(block, str) \
             else self._by_name.get(block)
         if state is None and not isinstance(block, str):
@@ -440,10 +502,10 @@ class Supervisor(object):
         self._emit(kind, block, **details)
 
     def record_respec(self, block, **details):
-        """Live respec is not ported (ROADMAP A15)."""
-        raise NotImplementedError(
-            "record_respec: live respec (Service.respec) is not ported "
-            "yet (ROADMAP A15)")
+        """A policy layer (service.Service.respec) replaced `block` at a
+        gulp edge; the event stream and the `respecs` counter record the
+        splice."""
+        self._emit("respec", block, **details)
 
     def on_block_fault(self, block, exc):
         """Decide a faulted supervised block's fate.
@@ -489,16 +551,16 @@ class Supervisor(object):
         return self._count_restart(block, state, exc, resume, shed_nframe)
 
     def record_shard_fault(self, block, fault, timeout_s=None):
-        """Mesh fault domains are not ported (ROADMAP A16)."""
+        """Mesh fault domains are not ported (ROADMAP item 17, A16)."""
         raise NotImplementedError(
             "record_shard_fault: mesh fault domains are not ported yet "
-            "(ROADMAP A16)")
+            "(ROADMAP item 17, A16)")
 
     def record_shard_restore(self, device, block="mesh"):
-        """Mesh fault domains are not ported (ROADMAP A16)."""
+        """Mesh fault domains are not ported (ROADMAP item 17, A16)."""
         raise NotImplementedError(
             "record_shard_restore: mesh fault domains are not ported yet "
-            "(ROADMAP A16)")
+            "(ROADMAP item 17, A16)")
 
     def _count_restart(self, block, state, exc, resume, shed_nframe=0):
         now = time.monotonic()

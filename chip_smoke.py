@@ -324,6 +324,36 @@ Phases, one line each; any failure exits non-zero:
              chain over MAP_HALF_NGULP gulps, one M1 launch a gulp,
              bitwise its 'plain' run.  Launches go into
              `launches_by_path` as `map_<program>_<run>`.
+18. fleet  — after [map], on [bengine]'s voltages: one FleetScheduler
+             (fleet.py) on the card, tenants submitted in order: inst
+             (lwa_instrument_spec at the flagship width, FL_INST_NINT
+             integrations, priority 2), frb ([service] (d)'s registry
+             FRB search, NGULP gulps, 1), map (MAP_FUNC on FL_MAP_NGULP
+             gulps of [map]'s ci8 frames paced FL_MAP_PACE s a gulp,
+             copy -> map -> a DeviceSinkBlock staged through the fleet
+             pool with a quota of one output gulp, 0), flaky (the FRB
+             search cut to FL_FLAKY_NGULP gulps, one fault in its FDMT,
+             0) and huge (a ring demand above the fleet's).  The ring
+             budget is the first three's rings, measured from their
+             bare runs: flaky queues and is admitted when one completes;
+             huge is rejected.  The map stage is respecced live to
+             FL_MAP_FUNC2 (M1 builds a new kernel: cold) and back (the
+             built library: warm).  Checks: inst's images, dedispersed
+             beams (a gather sink on its FDMT, in both runs) and
+             candidates bitwise its bare fused pipeline's; frb's
+             dedispersed gulps and candidates bitwise [main]'s, the
+             burst found; every map gulp bitwise the plain engine of the
+             program live for it, lost == dup == 0; flaky restarts once,
+             the others no fault and full budgets; the staging view
+             never keeps more than its quota; the fleet's counters and
+             exit code 0; each kernel's launches the sum of the tenants'
+             bare runs less flaky's shed gulp, K5a/K5b/K6a/X1 none.
+             Prints each tenant's steady frames/s beside its solo rate
+             ([main], [service], [map]), the respecs' splice and
+             downtime seconds and the cold nvcc seconds, admission p50
+             and p99, the pool's stats, the peak device memory and
+             `kernel_cache_info()`.  Launches go into `launches_by_path`
+             as `fleet`.
 
 The launch checks of every phase count all nine kernels (K1, K2, K4,
 K6a, K6b, K5a, K5b, X1, M1).  The line before the last two holds the kernel
@@ -497,6 +527,23 @@ MAP_SQRT_EDGES = ((3e38, 3e38), (-3.4028234e38, -3.4028234e38),
                   (3.4028234e38, 0.0), (-3.4e38, 1e-30), (1e30, 1e-30),
                   (0.0, 1e-44), (1e-44, 0.0), (-1e-44, 0.0), (1e-45, 1e-45),
                   (-1e-40, 3e-42), (2.0 ** 60, 1.0), (-(2.0 ** -60), 1e-21))
+# The fleet (fleet.FleetScheduler, phase 18): on [bengine]'s voltages,
+# four tenants sharing the card.  inst: lwa_instrument_spec at the
+# flagship width cut to FL_INST_NINT integrations (the FDMT's
+# B_MAX_DELAY-integration delay plus 4 that it emits, so K1 is on the
+# tenant's path); frb: [service] (d)'s registry FRB search, all NGULP
+# gulps; map: [map]'s ci8 frames, FL_MAP_NGULP gulps of B_GULP paced
+# FL_MAP_PACE s a gulp, copy -> map (MAP_FUNC, respecced to FL_MAP_FUNC2
+# after FL_RESPEC_AT[0] gulps and back after FL_RESPEC_AT[1]) -> a
+# DeviceSinkBlock whose staging quota is one output gulp; flaky: the FRB
+# search cut to FL_FLAKY_NGULP gulps with one fault in its FDMT (its
+# gulp of index FL_FLAKY_NTH); huge: a ring demand above the fleet's.
+FL_INST_NINT = B_MAX_DELAY + 4
+FL_MAP_NGULP, FL_MAP_PACE, FL_RESPEC_AT = 8, 0.25, (2, 5)
+FL_MAP_FUNC2 = "y = x * x.conj()"
+FL_FLAKY_NGULP, FL_FLAKY_NTH = 4, 2
+FL_STAGING = 1 << 30
+
 # K6b's plan rebuilt per sequence: this many sequences of new positions.
 RM_NSEQ = 4
 
@@ -504,6 +551,11 @@ RM_NSEQ = 4
 _HBM_RATE = (("H200", 4.8e12), ("H100 PCIe", 2.0e12), ("H100", 3.35e12))
 F32_PEAK = 67e12   # H100 SXM f32 outside the tensor cores, operations/s
 INT8_PEAK = 1979e12   # H100 SXM dense int8 tensor cores, operations/s
+
+
+# Solo rates and outputs of earlier phases that [fleet] compares against
+# (main_path, service_path, map_path fill it).
+SOLO = {}
 
 
 def phase(name, msg):
@@ -1908,6 +1960,8 @@ def main_path(dev):
     phase("main", f"dedispersed gulps ({sum(x.shape[1] for x in a)} "
           f"frames x {MAX_DELAY} rows) bitwise equal: fdmt cuda vs plain; "
           f"the first gulp also equals the CPU's")
+    SOLO["frb"] = dict(steady=steady, gathered=a,
+                       cands=list(det.candidates), counts=counts)
     return counts
 
 
@@ -2565,6 +2619,22 @@ def sv_spec(volt, imgs, cands, **kw):
         on_candidate=cands.append, **kw)
 
 
+def gather_dedispersed(spec, gather):
+    """`spec` (sv_spec's) with a gather sink on its beam FDMT's output,
+    where `lwa_instrument_pipeline(gather={'dedispersed': ...})` puts
+    one."""
+    from bifrost_tpu_torch.blocks.testing import gather_sink
+    stage = spec.stages[-1]
+    make = stage.params["factory"]
+
+    def factory(up):
+        det = make(up)
+        gather_sink(det.irings[0].owner, gather, name="gather_dedispersed")
+        return det
+    stage.params["factory"] = factory
+    return spec
+
+
 def sv_run(dev, volt, service, plan=None):
     """One instrument run, as a supervised Service or the bare pipeline
     -> dict of images, candidates, ledger summary, launches, wall, the
@@ -2651,6 +2721,7 @@ def service_path(dev, volt):
             runs.append(sv_run(dev, volt, service))
             free_device()
     ref = runs[1]
+    SOLO["inst"] = dict(steady=ref["steady"])
     want = expected(fir_mac=SV_NINT, beamform_power=SV_NINT,
                     romein_grid_separable=SV_NINT,
                     fdmt_merge_step=ref["counts"]["fdmt_merge_step"])
@@ -4161,6 +4232,8 @@ def map_path(dev, kind, volt):
     if not np.array_equal(y[:256].cpu().numpy(), (g * g).astype(np.float32)):
         raise AssertionError("map elementwise: differs from the exact golden")
     del y
+    st = runs["unfused1"]["stamps"]
+    SOLO["map"] = dict(steady=(len(st) - 1) * B_GULP / (st[-1] - st[0]))
     out.update(map_chains("elementwise", runs, MAP_NGULP, nframe,
                           raw_nbyte, kind, vector=True))
     del runs
@@ -4264,6 +4337,419 @@ def map_path(dev, kind, volt):
           f"built library with no nvcc run ({warm[0]['seconds']} s); "
           f"{kind}")
     return out
+
+
+def frb_spec(tag, data, gather, cands, plan=None):
+    """[service] (d)'s registry FRB search over `data`, its blocks named
+    `<stage>` for the tenant 'frb' and `<tag>_<stage>` otherwise; the
+    detect stage also gathers the dedispersed gulps (`gather`, host
+    copies, stamped).  With `plan`, the FDMT stage is built by a factory
+    that attaches the plan to the pipeline as it is built."""
+    from bifrost_tpu_torch.blocks import FdmtBlock, array_source
+    from bifrost_tpu_torch.blocks.testing import gather_sink
+    from bifrost_tpu_torch.pipeline import get_default_pipeline
+    from bifrost_tpu_torch.service import (CandidateDetectBlock,
+                                           ServiceSpec, StageSpec)
+
+    def named(stage):
+        return stage if tag == "frb" else f"{tag}_{stage}"
+
+    def fdmt(up):
+        b = FdmtBlock(up, max_delay=MAX_DELAY, gulp_nframe=GULP,
+                      name=named("fdmt"))
+        plan.attach(get_default_pipeline())
+        return b
+
+    def detect(up):
+        gather_sink(up, gather, name=named("gather"))
+        return CandidateDetectBlock(up, on_candidate=cands.append,
+                                    gulp_nframe=GULP, name=named("detect"))
+
+    fdmt_stage = StageSpec("custom", name="fdmt", params=dict(
+        factory=fdmt)) if plan is not None else \
+        StageSpec("fdmt", name=named("fdmt"), params=dict(
+            max_delay=MAX_DELAY, gulp_nframe=GULP))
+    return ServiceSpec([
+        StageSpec("custom", name="capture", params=dict(
+            factory=lambda up: array_source(data, GULP, header={
+                "labels": ["time", "freq"],
+                "scales": [[0.0, DT], [F0, DF]],
+                "units": ["s", "MHz"]}, name=named("capture")))),
+        StageSpec("copy", name=named("copy")),
+        StageSpec("transpose", name=named("transpose"), params=dict(
+            axes=["freq", "time"], gulp_nframe=GULP)),
+        fdmt_stage,
+        StageSpec("custom", name="detect", tier="detect",
+                  params=dict(factory=detect)),
+    ])
+
+
+def fleet_path(dev, kind, volt):
+    """Four tenants sharing the card under one FleetScheduler (module
+    docstring, phase 18).  `volt`: [bengine]'s voltages.  -> launch
+    counts by path."""
+    import threading
+    from types import SimpleNamespace
+
+    from bifrost_tpu_torch import build
+    from bifrost_tpu_torch.blocks.testing import ArraySourceBlock
+    from bifrost_tpu_torch.cache import kernel_cache_info
+    from bifrost_tpu_torch.egress import DeviceSinkBlock
+    from bifrost_tpu_torch.faultinject import FaultPlan
+    from bifrost_tpu_torch.fleet import (FleetScheduler, TenantSpec,
+                                         pipeline_ring_bytes)
+    from bifrost_tpu_torch.service import (FrameLedger, ServiceSpec,
+                                           StageSpec, frb_search_pipeline)
+    ivolt = volt[:FL_INST_NINT * B_GULP]
+    mnframe = FL_MAP_NGULP * B_GULP
+    mvolt = volt[:mnframe]
+    hdr = {"dtype": "ci8", "labels": ["time", "station", "pol"],
+           "scales": [[0.0, B_DT], None, None], "units": ["s", None, None]}
+    data = frb_data()
+    fdata = data[:FL_FLAKY_NGULP * GULP]
+    nfdmt = FL_INST_NINT - B_MAX_DELAY
+
+    # ---- the tenants alone: outputs, launches, ring bytes
+    bimgs, bcands, bded = Fingerprints(SV_KEEP), [], []
+    pipe, det, _ = instrument(dev, ivolt, on_image=bimgs, fuse=True,
+                              gather={"dedispersed": bded})
+    det.on_candidate = bcands.append
+    reset_counts()
+    pipe.run()
+    torch.cuda.synchronize()
+    bare_inst = read_counts()
+    rb_inst = pipeline_ring_bytes(pipe)
+    del pipe, det
+    free_device()
+    fgather = []
+    pipe, det, _ = frb_search_pipeline(fdata, GULP, MAX_DELAY, F0, DF, DT,
+                                       device=dev, gather=fgather)
+    reset_counts()
+    pipe.run()
+    torch.cuda.synchronize()
+    bare_flaky = read_counts()
+    nsteps = len(det.iring.owner.fdmt._steps)
+    rb_frb = pipeline_ring_bytes(pipe)
+    del pipe, det, fgather
+    free_device()
+    plain = {}
+    for func in (MAP_FUNC, FL_MAP_FUNC2):
+        r = map_run(dev, lambda: ArraySourceBlock(mvolt, B_GULP, header=hdr),
+                    func, detect=False, method="plain")
+        plain[func] = [o.cpu() for o in r["outs"]]
+        del r
+        free_device()
+    r = map_run(dev, lambda: ArraySourceBlock(mvolt, B_GULP, header=hdr),
+                MAP_FUNC, detect=False)
+    bare_map = r["counts"]
+    del r
+    free_device()
+    k1 = bare_inst["fdmt_merge_step"]        # the beam FDMT's steps
+    if bare_inst != expected(fir_mac=FL_INST_NINT,
+                             beamform_power=FL_INST_NINT,
+                             romein_grid_separable=FL_INST_NINT,
+                             fdmt_merge_step=k1) or not k1 or k1 % nfdmt or \
+            bare_flaky != expected(fdmt_merge_step=FL_FLAKY_NGULP * nsteps) \
+            or bare_map != expected(map_apply=FL_MAP_NGULP):
+        raise AssertionError(f"bare launches: inst {bare_inst}, flaky "
+                             f"{bare_flaky}, map {bare_map}")
+
+    # ---- the map tenant: a paced replay -> copy -> map -> a staged sink
+    class PacedReplay(ArraySourceBlock):
+        def on_data(self, reader, ospans):
+            time.sleep(FL_MAP_PACE)
+            return super().on_data(reader, ospans)
+
+    gulp_nbyte = B_GULP * NSTAND * NPOL * 8          # one complex64 gulp
+    sink_log = SimpleNamespace(outs=[], stamps=[], frames=[], retained=[],
+                               ledger=FrameLedger(), view=None, seq=-1)
+
+    class Sink(DeviceSinkBlock):
+        def on_sink_sequence(self, iseq):
+            sink_log.seq += 1
+            sink_log.ledger.note_sequence(sink_log.seq)
+
+        def on_sink_data(self, arr, frame_offset):
+            sink_log.outs.append(np.array(arr))
+            sink_log.stamps.append(time.perf_counter())
+            sink_log.frames.append(frame_offset)
+            sink_log.ledger.note_sink(sink_log.seq, frame_offset,
+                                      len(arr))
+            if self.egress_pool is not None:
+                sink_log.view = self.egress_pool
+                sink_log.retained.append(
+                    self.egress_pool.stats()["retained_bytes"])
+
+    def map_stage(func):
+        return StageSpec("map", name="map", params=dict(func=func))
+
+    map_spec = ServiceSpec([
+        StageSpec("custom", name="replay", params=dict(
+            factory=lambda up: PacedReplay(mvolt, B_GULP, header=hdr,
+                                           name="map_replay"))),
+        StageSpec("copy", name="map_copy"),
+        map_stage(MAP_FUNC),
+        StageSpec("custom", name="sink", tier="detect", params=dict(
+            factory=lambda up: Sink(up, name="map_sink"))),
+    ])
+
+    # ---- the fleet
+    icands, fcands, lcands, ided = [], [], [], []
+    iimgs = Fingerprints(SV_KEEP)
+    fgather, lgather = Stamped(), Stamped()
+    plan = FaultPlan(seed=7)
+    plan.raise_at("block.on_data", block="flaky_fdmt", nth=FL_FLAKY_NTH)
+    # The map pipeline's rings are sized at its first sequence: declare
+    # its demand from a bare build of the same topology.
+    from bifrost_tpu_torch.blocks import copy as copy_block, map_block
+    from bifrost_tpu_torch.blocks.testing import callback_sink
+    from bifrost_tpu_torch.pipeline import Pipeline
+    with Pipeline(device=dev) as p:
+        s_ = ArraySourceBlock(mvolt[:2 * B_GULP], B_GULP, header=hdr)
+        callback_sink(map_block(copy_block(s_, space="cuda"), MAP_FUNC),
+                      on_data=lambda a: None)
+        p.run()
+    rb_map = pipeline_ring_bytes(p)
+    del p, s_
+    free_device()
+    R = rb_inst + rb_frb + rb_map + rb_frb // 2
+    fleet = FleetScheduler(name="fl", device=dev, ring_bytes_total=R,
+                           staging_bytes_total=FL_STAGING,
+                           health_interval_s=0.05)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    tenants = {}
+    tenants["inst"] = fleet.submit(TenantSpec(
+        "inst", gather_dedispersed(sv_spec(ivolt, iimgs, icands), ided),
+        priority=2,
+        ring_bytes=rb_inst))
+    tenants["frb"] = fleet.submit(TenantSpec(
+        "frb", lambda: frb_spec("frb", data, fgather, fcands), priority=1,
+        ring_bytes=rb_frb))
+    map_tenant = tenants["map"] = fleet.submit(TenantSpec(
+        "map", map_spec, priority=0, ring_bytes=rb_map,
+        staging_bytes=gulp_nbyte))
+    tenants["flaky"] = fleet.submit(TenantSpec(
+        "flaky", lambda: frb_spec("flaky", fdata, lgather, lcands, plan),
+        priority=0, ring_bytes=rb_frb))
+    tenants["huge"] = fleet.submit(TenantSpec(
+        "huge", lambda: frb_spec("huge", fdata, [], []), ring_bytes=R + 1))
+    states = {n: t.state for n, t in tenants.items()}
+    if states != {"inst": "running", "frb": "running", "map": "running",
+                  "flaky": "queued", "huge": "rejected"}:
+        raise AssertionError(f"admission: {states}")
+    fleet.start()
+
+    # The respecs land mid-stream, keyed to the sink's gulp count; the
+    # tenants that do not fault keep every block's budget full.
+    nbudget = [0]
+    olds, recs, builds = [], [], []
+
+    def check_budgets():
+        for n in ("inst", "frb", "map"):
+            sup = tenants[n].supervisor()
+            if sup is None:
+                continue
+            rem = sup.budget_remaining()
+            if any(v != sup.policies.get(b, sup.policy).max_restarts
+                   for b, v in rem.items()):
+                raise AssertionError(f"tenant {n}'s budgets {rem}")
+            nbudget[0] += 1
+
+    def wait_gulps(n):
+        """Until the map stage has done `n` gulps (the sink, which copies
+        each 256 MiB gulp to the host, may lag it by the rings' depth)."""
+        deadline = time.monotonic() + 300
+        while True:
+            svc = map_tenant.service
+            blk = svc.blocks["map"] if svc is not None else None
+            if blk is not None and blk._loop_frame >= n * B_GULP:
+                return len(sink_log.outs)
+            if time.monotonic() > deadline or map_tenant.state != "running":
+                raise AssertionError(f"map tenant at {len(sink_log.outs)} "
+                                     f"gulps, {map_tenant.state}")
+            check_budgets()
+            time.sleep(0.002)
+
+    at_sink = []
+    for n, func in zip(FL_RESPEC_AT, (FL_MAP_FUNC2, MAP_FUNC)):
+        at_sink.append(wait_gulps(n))
+        olds.append(map_tenant.service.blocks["map"])
+        nlog = len(build.generated_log)
+        # The wait for the replacement's first gulp covers a cold nvcc.
+        recs.append(fleet.respec("map", "map", map_stage(func),
+                                 timeout=120.0))
+        builds.append(build.generated_log[nlog:])
+    deadline = time.monotonic() + 600
+    while not fleet.wait(timeout=0.2, drain_queue=True):
+        check_budgets()
+        if time.monotonic() > deadline:
+            raise AssertionError("the fleet did not finish")
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.synchronize()
+    snap = fleet.snapshot()
+    rep = fleet.stop()
+    plan.detach()
+
+    # ---- checks: the scheduler's decisions and counters
+    c = rep.counters
+    want_c = {"submitted": 5, "admitted": 4, "queued": 1, "rejected": 1,
+              "preempted": 0, "completed": 4, "respecs": 2,
+              "quota_violations": 0, "queued_at_stop": 0}
+    if any(c[k] != v for k, v in want_c.items()) or rep.exit_code != 0:
+        raise AssertionError(f"fleet counters {c}, exit {rep.exit_code}; "
+                             f"{rep!r}")
+    kinds = [e["kind"] for e in fleet.events_for(tenant="flaky")]
+    if kinds[:2] != ["queue", "admit"] or tenants["flaky"].admissions != 1:
+        raise AssertionError(f"flaky's events {kinds}")
+    ex = {n: rep.tenants[n]["exit"] for n in ("inst", "frb", "map",
+                                              "flaky")}
+    for n, e in ex.items():
+        led = e["ledger"]
+        if e["exit_code"] != 0 or led["lost_frames"] or \
+                led["duplicated_frames"]:
+            raise AssertionError(f"tenant {n}: {e}")
+        want_restarts = 1 if n == "flaky" else 0
+        if e["counters"]["restarts"] != want_restarts or \
+                e["counters"]["faults"] != want_restarts:
+            raise AssertionError(f"tenant {n} counters {e['counters']}")
+    if ex["flaky"]["ledger"]["restart_shed_frames"] != GULP or \
+            not plan.fired(site="block.on_data"):
+        raise AssertionError(f"flaky: {ex['flaky']}")
+    if not nbudget[0]:
+        raise AssertionError("no budget sample")
+    # ---- inst: images, dedispersed beams and candidates bitwise the bare
+    # fused pipeline's
+    if len(iimgs.sums) != FL_INST_NINT or iimgs.sums != bimgs.sums:
+        raise AssertionError(f"inst: image checksums differ "
+                             f"({len(iimgs.sums)}/{len(bimgs.sums)})")
+    images_equal(iimgs, bimgs, SV_KEEP)
+    if sum(x.shape[-1] for x in bded) != nfdmt or len(ided) != len(bded) \
+            or any(x.shape != y.shape or not np.array_equal(
+                x.view(np.uint32), y.view(np.uint32))
+                for x, y in zip(ided, bded)):
+        raise AssertionError("inst: dedispersed beams differ from the bare "
+                             "run's")
+    if icands != bcands or ex["inst"]["ledger"]["committed_frames"] != \
+            nfdmt:
+        raise AssertionError(f"inst: candidates {icands} != {bcands}")
+    # ---- frb: dedispersed output and candidates bitwise [main]'s
+    main = SOLO["frb"]
+    if len(fgather) != NGULP or any(
+            not np.array_equal(x.view(np.uint32), y.view(np.uint32))
+            for x, y in zip(fgather, main["gathered"])):
+        raise AssertionError("frb: dedispersed gulps differ from [main]'s")
+    if fcands != main["cands"] or not fcands:
+        raise AssertionError("frb: candidates differ from [main]'s")
+    best = check_burst(SimpleNamespace(candidates=fcands))
+    # ---- map: every gulp the plain engine of the program live for it
+    seams = [o._loop_frame for o in olds]
+    if len(sink_log.outs) != FL_MAP_NGULP or \
+            sum(len(o) for o in sink_log.outs) != mnframe or \
+            any(s % B_GULP for s in seams) or \
+            not 0 < seams[0] < seams[1] < mnframe:
+        raise AssertionError(f"map: {len(sink_log.outs)} gulps, seams "
+                             f"{seams}")
+    live = []
+    for g, y in enumerate(sink_log.outs):
+        f = g * B_GULP
+        func = MAP_FUNC if f < seams[0] or f >= seams[1] else FL_MAP_FUNC2
+        live.append(func)
+        want = plain[func][g].numpy()
+        if y.shape != want.shape or not np.array_equal(
+                y.view(np.uint32), want.view(np.uint32)):
+            raise AssertionError(f"map gulp {g}: differs from the plain "
+                                 f"engine of {func!r}")
+    mled = sink_log.ledger.summary()
+    if mled["lost_frames"] or mled["duplicated_frames"] or \
+            mled["committed_frames"] != mnframe or \
+            ex["map"]["counters"]["respecs"] != 2:
+        raise AssertionError(f"map ledger {mled}; {ex['map']}")
+    cold = [e for e in builds[0] if e["nvcc"]]
+    if len(cold) != 1 or any(e["nvcc"] for e in builds[1]):
+        raise AssertionError(f"map builds: cold {builds[0]}, warm "
+                             f"{builds[1]}")
+    # ---- staging: the view never kept more than its quota
+    st = sink_log.view.stats() if sink_log.view is not None else None
+    if st is None or max(sink_log.retained) > gulp_nbyte or \
+            st["over_quota_allocs"] < 1 or st["quota_bytes"] != gulp_nbyte:
+        raise AssertionError(f"staging view {st}, retained "
+                             f"{sink_log.retained}")
+    # ---- launches: the sum of the tenants' bare runs, flaky's shed gulp
+    # out (its FDMT gulp faulted before the kernel)
+    want = {k: bare_inst[k] + main["counts"][k] + bare_flaky[k] +
+            bare_map[k] for k in bare_inst}
+    want["fdmt_merge_step"] -= nsteps
+    if counts != want:
+        raise AssertionError(f"fleet launches {counts}, expected {want}")
+    for k in ("dq_masked_fill", "dq_gain_apply", "romein_grid_general",
+              "xengine_int8"):
+        if counts[k]:
+            raise AssertionError(f"fleet: {k} launched")
+
+    # ---- the readings
+    def steady(stamps, unit):
+        return (len(stamps) - 1) * unit / (stamps[-1] - stamps[0]) \
+            if len(stamps) > 1 else float("nan")
+    rates = {
+        "inst": (steady(iimgs.stamps, B_GULP), SOLO["inst"]["steady"]),
+        "frb": (steady(fgather.stamps, GULP), main["steady"]),
+        "map": (steady(sink_log.stamps, B_GULP), SOLO["map"]["steady"]),
+        "flaky": (steady(lgather.stamps, GULP), main["steady"]),
+    }
+    total = (FL_INST_NINT * B_GULP + NGULP * GULP + mnframe +
+             FL_FLAKY_NGULP * GULP) / wall
+    phase("fleet", f"FleetScheduler('fl', ring_bytes_total {R / 2**30:.2f} "
+          f"GiB, staging {FL_STAGING >> 20} MiB) on {kind}: inst "
+          f"(lwa_instrument_spec, {FL_INST_NINT} integrations, priority 2), "
+          f"frb ({NGULP} gulps, 1), map ({FL_MAP_NGULP} gulps paced "
+          f"{FL_MAP_PACE} s, 0) admitted; flaky queued, then admitted "
+          f"({kinds}); huge rejected ({tenants['huge'].reject_reason}); "
+          f"{wall:.3f} s; exit code {rep.exit_code} (the JAX contract: 0 "
+          f"with no preemption, no degraded exit and none queued); "
+          f"counters {c}")
+    phase("fleet", "steady frames/s, fleet against solo (earlier phases of "
+          "this run): " + "; ".join(
+              f"{n} {a:.1f} against {b:.1f}" for n, (a, b) in rates.items())
+          + f"; the fleet's total {total:.1f} frames/s (all frames over "
+          f"the fleet's wall)")
+    phase("fleet", "respecs of map (cold, then warm): " + "; ".join(
+        f"{r['stage']} -> {f!r}: outcome {r['outcome']}, splice_s "
+        f"{r['splice_s']}, downtime_s {r['downtime_s']}, resumed at frame "
+        f"{s} (the sink then at {k} gulps)" for r, f, s, k in
+        zip(recs, (FL_MAP_FUNC2, MAP_FUNC), seams, at_sink))
+        + f"; the cold build's nvcc {cold[0]['seconds']:.2f} s, the warm "
+        f"one loaded ({len(builds[1])} library loads, no nvcc)")
+    el = snap["elastic"]
+    phase("fleet", f"admission -> first gulp p50 {el['admission_p50_s']} "
+          f"s, p99 {el['admission_p99_s']} s ({el['admission_samples']} "
+          f"samples); the map view's stats {st} (retained at most "
+          f"{max(sink_log.retained)} of quota {gulp_nbyte}); the pool "
+          f"{ {k: v for k, v in rep_pool(fleet).items()} }; "
+          f"torch.cuda.max_memory_allocated {peak / 2**30:.2f} GiB; "
+          f"kernel_cache_info {kernel_cache_info()}")
+    phase("fleet", f"checks: inst's {FL_INST_NINT} images (checksums; the "
+          f"first {SV_KEEP} whole), {len(ided)} dedispersed gulps "
+          f"({nfdmt} frames of {NBEAM} beams) and {len(icands)} candidates "
+          f"bitwise its bare fused run; frb's {NGULP} dedispersed gulps and "
+          f"{len(fcands)} candidates bitwise [main]'s, the burst {best}; "
+          f"map's {FL_MAP_NGULP} gulps bitwise the plain engine of the "
+          f"live program ({[f == MAP_FUNC for f in live]}), ledger "
+          f"{mled}; flaky one restart (shed {GULP} frames), the others "
+          f"no fault, no restart, budgets full; launches {counts} == "
+          f"inst + frb + map + flaky alone, less flaky's shed gulp "
+          f"({nsteps} K1 steps); {nbudget[0]} budget samples")
+    return {"fleet": counts}
+
+
+def rep_pool(fleet):
+    s = fleet.staging_pool.stats()
+    return {k: s[k] for k in ("total_bytes", "retained_bytes", "allocated",
+                              "dropped")}
 
 
 def async_path(dev, kind):
@@ -4959,7 +5445,11 @@ def main():
     t5h = time.perf_counter()
     recs.append(check_map(dev, kind, volt))
     counts.update(map_path(dev, kind, volt))
+    free_device()
+    t5i = time.perf_counter()
+    counts.update(fleet_path(dev, kind, volt))
     del volt, spec
+    SOLO.clear()
     free_device()
     t5g = time.perf_counter()
     counts.update(async_path(dev, kind))
@@ -4976,7 +5466,7 @@ def main():
           f"{t5b - t5:.1f} s, fusion {t5c - t5b:.1f} s, service "
           f"{t5d - t5c:.1f} s, capture {t5e - t5d:.1f} s, fir "
           f"{t5f - t5e:.1f} s, xengine {t5h - t5f:.1f} s, map "
-          f"{t5g - t5h:.1f} s, async "
+          f"{t5i - t5h:.1f} s, fleet {t5g - t5i:.1f} s, async "
           f"{t6 - t5g:.1f} s, gpuspec "
           f"{t7 - t6:.1f} s, egress "
           f"{time.perf_counter() - t7:.1f} s")

@@ -1747,3 +1747,149 @@ def test_map_kernel_index64_form(cuda, case, monkeypatch):
             assert _same_bits(gc, wc)
             carry = gc
     assert map_kernel.map_apply.index64_launches == before + len(runs)
+
+
+# ------------------------------------------------------------ the fleet
+FLEET_GULP = 4096
+
+
+def _fleet_map_spec(func, volt, sink_outs, pace_s=0.05):
+    """A paced ci8 replay -> copy('cuda') -> map(func) -> a staged
+    DeviceSinkBlock keeping host copies of its gulps."""
+    from bifrost_tpu_torch.blocks.testing import ArraySourceBlock
+    from bifrost_tpu_torch.egress import DeviceSinkBlock
+    from bifrost_tpu_torch.service import ServiceSpec, StageSpec
+
+    class Paced(ArraySourceBlock):
+        def on_data(self, reader, ospans):
+            time.sleep(pace_s)
+            return super().on_data(reader, ospans)
+
+    class Sink(DeviceSinkBlock):
+        def on_sink_sequence(self, iseq):
+            pass
+
+        def on_sink_data(self, arr, frame_offset):
+            sink_outs.append(np.array(arr))
+
+    hdr = {"dtype": "ci8", "labels": ["time", "station", "pol"]}
+    return ServiceSpec([
+        StageSpec("custom", name="replay", params=dict(
+            factory=lambda up: Paced(volt, FLEET_GULP, header=hdr,
+                                     name="fl_replay"))),
+        StageSpec("copy", name="fl_copy"),
+        StageSpec("map", name="map", params=dict(func=func)),
+        StageSpec("custom", name="sink", params=dict(
+            factory=lambda up: Sink(up, name="fl_sink"))),
+    ])
+
+
+@pytest.mark.gpu
+def test_fleet_two_tenants_map_respec_cold_then_warm(cuda):
+    """Two tenants on the card: an FRB-shaped FDMT chain and a map chain
+    whose map stage is respecced mid-stream to a program no process has
+    built (M1 is compiled: cold) and back (the library is loaded: warm).
+    Every map gulp is bitwise the plain engine of the program live for
+    it; the other tenant's dedispersed output is bitwise its bare run."""
+    from bifrost_tpu_torch import build
+    from bifrost_tpu_torch.blocks.testing import array_source, gather_sink
+    from bifrost_tpu_torch.blocks import copy, map_block
+    from bifrost_tpu_torch.fleet import FleetScheduler, TenantSpec
+    from bifrost_tpu_torch.pipeline import Pipeline
+    from bifrost_tpu_torch.service import (ServiceSpec, StageSpec,
+                                           frb_search_pipeline)
+    build.build_all()
+    rng = np.random.default_rng(18)
+    ngulp = 10
+    volt = rng.integers(-8, 8, (ngulp * FLEET_GULP, 16, 2, 2),
+                        dtype=np.int8)
+    # A program of its own (a constant drawn per run): its M1 library is
+    # on no disk yet, so the first respec compiles it.
+    k = float(rng.integers(3, 1 << 20))
+    funcs = ("y = x * x.conj()", f"y = x * {k}f")
+    fdata = rng.integers(0, 32, (6 * 256, 128)).astype(np.uint8)
+    bare = []
+    frb_search_pipeline(fdata, 256, 64, device=cuda, gather=bare)[0].run()
+    got, outs = [], []
+    fspec = ServiceSpec([
+        StageSpec("custom", name="capture", params=dict(
+            factory=lambda up: array_source(fdata, 256, header={
+                "labels": ["time", "freq"],
+                "scales": [[0.0, 1e-3], [40.0, 0.00928]]},
+                name="fl_capture"))),
+        StageSpec("copy", name="fl_fcopy"),
+        StageSpec("transpose", name="fl_t", params=dict(
+            axes=["freq", "time"], gulp_nframe=256)),
+        StageSpec("fdmt", name="fl_fdmt", params=dict(max_delay=64,
+                                                      gulp_nframe=256)),
+        StageSpec("custom", name="gather", params=dict(
+            factory=lambda up: gather_sink(up, got, name="fl_gather"))),
+    ])
+    fleet = FleetScheduler(device=cuda, staging_bytes_total=1 << 30)
+    fleet.submit(TenantSpec("frb", fspec, priority=1))
+    mt = fleet.submit(TenantSpec("map", _fleet_map_spec(
+        funcs[0], volt, outs), staging_bytes=FLEET_GULP * 16 * 2 * 8))
+    recs, olds, logs = [], [], []
+    for n, func in ((2, funcs[1]), (5, funcs[0])):
+        deadline = time.monotonic() + 120
+        while len(outs) < n:
+            assert time.monotonic() < deadline and mt.state == "running"
+            time.sleep(0.01)
+        olds.append(mt.service.blocks["map"])
+        nlog = len(build.generated_log)
+        recs.append(fleet.respec("map", "map", StageSpec(
+            "map", name="map", params=dict(func=func)), timeout=120.0))
+        logs.append(build.generated_log[nlog:])
+    assert fleet.wait(timeout=300)
+    rep = fleet.stop()
+    assert rep.exit_code == 0 and rep.counters["respecs"] == 2
+    assert [e["nvcc"] for e in logs[0]] == [True]
+    assert not any(e["nvcc"] for e in logs[1])
+    seams = [o._loop_frame for o in olds]
+    assert 0 < seams[0] < seams[1] < len(volt)
+    assert len(outs) == ngulp
+    plain = {}
+    for func in funcs:
+        plain[func] = []
+        with Pipeline(device=cuda) as pipe:
+            src = array_source(volt, FLEET_GULP, header={
+                "dtype": "ci8", "labels": ["time", "station", "pol"]})
+            gather_sink(map_block(copy(src, space="cuda"), func,
+                                  method="plain"), plain[func])
+        pipe.run()
+    for g, y in enumerate(outs):
+        f = g * FLEET_GULP
+        func = funcs[1] if seams[0] <= f < seams[1] else funcs[0]
+        assert np.array_equal(y.view(np.uint32),
+                              plain[func][g].view(np.uint32)), g
+    assert len(got) == len(bare)
+    for a, b in zip(got, bare):
+        assert np.array_equal(a.view(np.uint32), b.view(np.uint32))
+
+
+@pytest.mark.gpu
+def test_fleet_staging_view_on_a_cuda_stager_is_pinned_and_quota_held(cuda):
+    """A view of the staging pool of a fleet on the card, behind a CUDA
+    EgressStager, hands out pinned buffers; releases past the view's
+    quota are dropped, so the view never keeps more than its quota."""
+    from bifrost_tpu_torch.egress import EgressStager
+    from bifrost_tpu_torch.fleet import FleetScheduler
+    fleet = FleetScheduler(name="fleetpin", device=cuda,
+                           staging_bytes_total=8 << 20)
+    pool = fleet.staging_pool
+    view = pool.view("t", quota_bytes=2 << 20)
+    st = EgressStager("fleetpin", depth=2, device=cuda, pool=view)
+    assert st.pool is view
+    bufs = [st.pool.acquire(1 << 20) for _ in range(4)]
+    assert all(b.is_pinned() for b in bufs)
+    assert view.stats()["over_quota_allocs"] == 2
+    for b in bufs:
+        st.pool.release(b)
+        assert view.stats()["retained_bytes"] <= view.quota_bytes
+    assert view.stats()["retained_bytes"] == 2 << 20
+    assert pool.stats()["dropped"] == 2
+    again = st.pool.acquire(1 << 20)
+    assert again.is_pinned() and view.stats()["allocated"] == 4
+    st.pool.release(again)
+    st.close()
+    fleet.stop()

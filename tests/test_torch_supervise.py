@@ -664,14 +664,28 @@ def test_record_degrade_event_and_counter():
     assert ev.details["budget_remaining"] == 1
 
 
-def test_shard_and_respec_seams_are_not_ported():
+def test_shard_seams_are_not_ported():
     sup = Supervisor()
     for call in (lambda: sup.record_shard_fault("b", None),
-                 lambda: sup.record_shard_restore("dev"),
-                 lambda: sup.record_respec("b")):
-        with pytest.raises(NotImplementedError, match="ROADMAP A1[56]"):
+                 lambda: sup.record_shard_restore("dev")):
+        with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
             call()
     assert sup.shard_recovery_stats()["count"] == 0
+
+
+def test_record_respec_event_and_counter():
+    with Pipeline() as pipe:
+        src = array_source(DATA, 8)
+        sink = GatherSink(src)
+        sup = Supervisor(policy=RestartPolicy(max_restarts=3))
+        sup.attach(pipe)
+        sup.record_respec(sink, stage="sink", outcome="drained",
+                          rolled_back=False, splice_s=0.01)
+        pipe.shutdown()
+    assert sup.counters["respecs"] == 1
+    ev = sup.events_for(sink.name, "respec")[0]
+    assert ev.details["outcome"] == "drained"
+    assert ev.details["rolled_back"] is False
 
 
 def test_reader_behind_an_empty_warm_up_stays_alive():
