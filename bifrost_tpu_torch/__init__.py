@@ -5,7 +5,8 @@ of it (nor JAX).  Entry points run on the card unless the caller passes
 
 import importlib
 
-from . import blocks, config, device, egress, io, ops, views
+from . import (affinity, blocks, config, device, egress, interop, io,
+               ops, shmring, temp_storage, views)
 from .block_chainer import BlockChainer
 from .DataType import DataType
 from .pipeline import (Block, BlockScope, MultiTransformBlock, Pipeline,
@@ -16,7 +17,8 @@ from .ring import EndOfDataStop, Ring, RingInterrupted
 # bifrost_tpu exposes .ops.map.
 map = importlib.import_module(".ops.map", __name__)  # noqa: A001
 
-__all__ = ["blocks", "config", "device", "egress", "io", "ops", "views",
+__all__ = ["affinity", "blocks", "config", "device", "egress", "interop",
+           "io", "ops", "shmring", "temp_storage", "views",
            "BlockChainer", "DataType", "Block",
            "BlockScope", "MultiTransformBlock", "Pipeline", "SinkBlock",
            "SourceBlock", "TransformBlock", "block_scope",

@@ -29,6 +29,19 @@ from .udp_capture import udp_capture, UDPCaptureBlock
 from .unpack import unpack, UnpackBlock
 from .convert_visibilities import (convert_visibilities,
                                    ConvertVisibilitiesBlock)
+from .print_header import print_header, PrintHeaderBlock
+from .binary_io import (BinaryFileReadBlock, BinaryFileWriteBlock,
+                        binary_read, binary_write)
+from .wav import read_wav, WavSourceBlock, write_wav, WavSinkBlock
+from .serialize import (serialize, SerializeBlock, deserialize,
+                        DeserializeBlock)
+from .shmring import shm_send, ShmSendBlock, shm_receive, ShmReceiveBlock
+# Live audio: PortAudio resolved at first use, raising clearly without it.
+from .audio import read_audio, AudioSourceBlock
+from .psrdada import (read_psrdada_buffer, PsrDadaSourceBlock,
+                      dada_shm_send, DadaShmSendBlock, dada_ipc_send,
+                      DadaIpcSinkBlock, parse_dada_header,
+                      serialize_dada_header)
 
 __all__ = ["accumulate", "AccumulateBlock", "beamform", "BeamformBlock",
            "broadcast_gains", "gaincal", "GainCalBlock", "copy",
@@ -45,4 +58,12 @@ __all__ = ["accumulate", "AccumulateBlock", "beamform", "BeamformBlock",
            "gather_sink", "transpose", "TransposeBlock", "udp_capture",
            "UDPCaptureBlock", "quantize", "QuantizeBlock", "unpack",
            "UnpackBlock", "convert_visibilities",
-           "ConvertVisibilitiesBlock"]
+           "ConvertVisibilitiesBlock", "print_header", "PrintHeaderBlock",
+           "BinaryFileReadBlock", "BinaryFileWriteBlock", "binary_read",
+           "binary_write", "read_wav", "WavSourceBlock", "write_wav",
+           "WavSinkBlock", "serialize", "SerializeBlock", "deserialize",
+           "DeserializeBlock", "shm_send", "ShmSendBlock", "shm_receive",
+           "ShmReceiveBlock", "read_audio", "AudioSourceBlock",
+           "read_psrdada_buffer", "PsrDadaSourceBlock", "dada_shm_send",
+           "DadaShmSendBlock", "dada_ipc_send", "DadaIpcSinkBlock",
+           "parse_dada_header", "serialize_dada_header"]

@@ -65,7 +65,7 @@ class UDPCaptureBlock(Block):
                  buffer_ntime, slot_ntime, header_callback=None,
                  space="system", name=None, reader_gulp_nframe=None,
                  batch_npkt=None, core=None, **kwargs):
-        super().__init__(irings=[], name=name, **kwargs)
+        super().__init__(irings=[], name=name, core=core, **kwargs)
         self.reader_gulp_nframe = int(reader_gulp_nframe) \
             if reader_gulp_nframe is not None else 4 * int(slot_ntime)
         self.fmt = str(fmt)
@@ -79,7 +79,6 @@ class UDPCaptureBlock(Block):
         # recvmmsg depth: the argument, else the `capture_batch_npkt` flag
         # read when main() builds the engine.
         self.batch_npkt = int(batch_npkt) if batch_npkt is not None else None
-        self.core = core
         self.capture = None
         self.final_stats = None       # the counters at the engine's end
         self.nrestart_sequences = 0   # sequences ended by restarts

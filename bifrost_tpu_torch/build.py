@@ -11,7 +11,8 @@ at first use and `build_all` starts one nvcc per source at once.  A build
 that fails raises with the compiler's output; nothing falls back.
 
 The host libraries (`HOST_LIBS`: the UDP data plane, ``csrc/*.cpp`` and
-``csrc/udp_host.h``) need no CUDA: `load_host` compiles them with the host
+``csrc/udp_host.h``; the shm ring over ``csrc/host_status.h``) need no
+CUDA: `load_host` compiles them with the host
 C++ compiler (``c++``) the same way, hash-named, at first use, through a
 temporary file renamed into place, so processes building at once do not
 collide.
@@ -58,8 +59,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 DERIVED = {"fir_long": ("fir", ("-DFIR_LONG_FORM",))}
 
-HOST_LIBS = {"udp": ("socket.cpp", "udp_capture.cpp", "udp_transmit.cpp")}
-HOST_HEADERS = ("udp_host.h",)
+HOST_LIBS = {"udp": ("socket.cpp", "udp_capture.cpp", "udp_transmit.cpp"),
+             "shmring": ("shmring.cpp",)}
+HOST_HEADERS = ("udp_host.h", "host_status.h")
 HOST_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 MAP_BUILD_DIR = DEFAULT_BUILD_DIR / "map"

@@ -259,6 +259,11 @@ FLAGS = {f.name: f for f in [
          "value = that directory.  kernel_cache_info() shows the resolved "
          "state in the fleet health snapshot.",
          env="BIFROST_TPU_KERNEL_CACHE"),
+    Flag("portaudio_lib", "",
+         "Path to the PortAudio shared library (portaudio.py); empty "
+         "resolves it with ctypes.util.find_library and the common "
+         "sonames.",
+         env="BIFROST_TPU_PORTAUDIO_LIB"),
     Flag("fleet_health_interval_s", 1.0,
          "Seconds between fleet-scheduler control-loop passes (queued-"
          "tenant admission, finished-tenant reaping, eviction-driven "

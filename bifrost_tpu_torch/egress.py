@@ -41,6 +41,14 @@ device before the copy.  A host ('system') ring hands over its span as a
 zero-copy numpy view (complex integers as the structured (re, im) array,
 the JAX package's host form).
 
+Wire order.  A sink whose transport is one byte stream
+(`DeviceSinkBlock.wire_frame_major`: shm, DADA) receives a stream with
+ringlets (frame axis not first) frame by frame, in time order: the gulp is
+moved to frame-major on the card before its copy (on the host on the
+blocking path), so the bytes on the wire do not depend on the gulp sizes,
+and the sink's header says so (`DeviceSinkBlock.wire_header`: the
+`_tensor` with its frame axis first, `ring.frame_major_header`).
+
 Staging buffers on a CUDA pipeline are pinned (`torch.empty(...,
 pin_memory=True)`): a failure to pin raises, there is no fallback to
 pageable memory.  A staging fault surfaces on the block thread at the
@@ -67,7 +75,7 @@ from . import device as _device
 from .ndarray import complex_view
 from .pipeline import SinkBlock, _GulpDispatcher
 from .proclog import ProcLog
-from .ring import RingInterrupted
+from .ring import RingInterrupted, TensorInfo, frame_major_header
 
 __all__ = ["EgressStager", "EgressTicket", "EgressDest", "DeviceSinkBlock"]
 
@@ -333,8 +341,9 @@ class EgressStager(object):
                 copied = torch.cuda.Event()
                 copied.record()
         if cuda:
-            if src is not data:
-                src.record_stream(self._stream)   # the lifted copy
+            # The copies read `src` on the stager stream: a lifted or
+            # moved copy is kept until they are done.
+            src.record_stream(self._stream)
             # The span's release event, recorded on the block stream,
             # then follows the copies: the writer cannot reuse the bytes
             # before they have left.
@@ -422,8 +431,20 @@ class DeviceSinkBlock(SinkBlock):
     that override `shutdown()` call `super().shutdown()`.  `egress_pool`
     (None: a private pool), set before the sequence opens (a fleet
     scheduler sets it at admission), is the pool the stager draws its
-    buffers from.
+    buffers from.  `wire_frame_major` (class attribute): hand a stream
+    with ringlets on frame-major, and describe it so in `wire_header`
+    (module docstring, wire order).
     """
+
+    wire_frame_major = False
+
+    def wire_header(self, header):
+        """The sequence header as the sink puts it on its wire: with
+        `wire_frame_major` and ringlets, the `_tensor` with its frame axis
+        first, as the bytes are sent; else `header` itself."""
+        if self.wire_frame_major and TensorInfo(header).frame_axis > 0:
+            return frame_major_header(header)
+        return header
 
     def __init__(self, iring, *args, **kwargs):
         super().__init__(iring, *args, **kwargs)
@@ -487,15 +508,22 @@ class DeviceSinkBlock(SinkBlock):
         self.on_sink_sequence(iseq)
 
     def on_data(self, ispan):
+        tensor, nframe = ispan.tensor, ispan.nframe
+        moved = self.wire_frame_major and tensor.frame_axis > 0
         if not self._egress_staging:
-            self.on_sink_data(_blocking_materialize(ispan),
-                              ispan.frame_offset)
+            arr = _blocking_materialize(ispan)
+            if moved:
+                arr = np.ascontiguousarray(
+                    np.moveaxis(arr, tensor.frame_axis, 0))
+            self.on_sink_data(arr, ispan.frame_offset)
             return
         hook = self._egress_fault_hook
         if hook is not None:
             hook("egress.stage", self)
-        tensor, nframe = ispan.tensor, ispan.nframe
         data = ispan.data
+        if moved:
+            data = data.movedim(tensor.frame_axis, 0).contiguous()
+            tensor = tensor.frame_major()
         t0 = time.perf_counter()
         dest = self.open_dest(tensor.host_span_nbyte(nframe), nframe,
                               ispan.frame_offset)

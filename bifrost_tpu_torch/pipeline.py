@@ -72,6 +72,7 @@ import warnings
 
 import torch
 
+from . import affinity
 from . import device as _device
 from .proclog import PERF_FLUSH_S, ProcLog
 from .ring import (EndOfDataStop, ReadSequence, Ring, RingInterrupted,
@@ -173,8 +174,8 @@ class BlockScope(object):
     """Hierarchical defaults resolved by parent walk
     (reference pipeline.py:87-165)."""
 
-    _settable = ("gulp_nframe", "buffer_nframe", "buffer_factor", "device",
-                 "fuse")
+    _settable = ("gulp_nframe", "buffer_nframe", "buffer_factor", "core",
+                 "device", "fuse", "share_temp_storage")
     instance_count = 0
 
     def __init__(self, name=None, parent=None, **kwargs):
@@ -223,10 +224,22 @@ class BlockScope(object):
         """The torch device this scope's blocks run on."""
         return self._lookup("device")
 
+    @property
+    def core(self):
+        """The CPU core this scope's block threads are pinned to, or None."""
+        return self._lookup("core")
+
+    @property
+    def share_temp_storage(self):
+        """Accepted for the reference's API: the port's blocks keep no
+        shared scratch (temp_storage.TempStorage is the allocator)."""
+        return self._lookup("share_temp_storage")
+
 
 def block_scope(**kwargs):
-    """`with bf.block_scope(gulp_nframe=4096): ...`; `fuse=True` marks
-    the blocks built inside as candidates for the fusion compiler."""
+    """`with bf.block_scope(gulp_nframe=4096, core=2): ...`; `core` pins
+    the threads of the blocks built inside to that CPU core; `fuse=True`
+    marks them as candidates for the fusion compiler."""
     return BlockScope(**kwargs)
 
 
@@ -591,7 +604,7 @@ class Block(BlockScope):
             ring.owner = self
             return ring
         ring = Ring(space=space, name=f"{self.name}.out{len(self.orings)}",
-                    device=self.device)
+                    device=self.device, core=self.core)
         ring.owner = self
         self.pipeline.rings.append(ring)
         return ring
@@ -607,10 +620,12 @@ class Block(BlockScope):
         try:
             self._thread_ident = threading.get_ident()
             self._thread_idents.add(self._thread_ident)
-            # No core affinity in the port: core -1, as the JAX package
-            # logs an unbound block.
-            self.bind_proclog.update({"core": -1,
-                                      "device": str(self.device)})
+            core = self.core
+            if core is not None:
+                affinity.set_core(core)
+            affinity.set_thread_name(self.name[:15])
+            self.bind_proclog.update({"core": core if core is not None
+                                      else -1, "device": str(self.device)})
             if self.orings:
                 self.out_proclog.update({
                     f"ring{i}": getattr(getattr(r, "base_ring", r),

@@ -72,6 +72,23 @@ def _round_up(n, m):
     return (int(n) + m - 1) // m * m
 
 
+def frame_major_header(header):
+    """A copy of `header` whose `_tensor` has its frame axis moved first,
+    the ringlet axes after it; `labels`, `scales` and `units` move with
+    their axes."""
+    tensor = dict(header["_tensor"])
+    shape = list(tensor["shape"])
+    fax = shape.index(-1)
+    order = [fax] + [i for i in range(len(shape)) if i != fax]
+    for key in ("shape", "labels", "scales", "units"):
+        axes = tensor.get(key)
+        if isinstance(axes, (list, tuple)) and len(axes) == len(shape):
+            tensor[key] = [axes[i] for i in order]
+    out = dict(header)
+    out["_tensor"] = tensor
+    return out
+
+
 class TensorInfo(object):
     """Parsed `_tensor` header info (frame axis, ringlets, byte sizes)."""
 
@@ -104,6 +121,13 @@ class TensorInfo(object):
             .element_size()
         self.frame_nbyte = int(np.prod(self.frame_tensor_shape)) * \
             self.itemsize
+
+    def frame_major(self):
+        """This tensor with its frame axis moved first, the ringlet axes
+        after it: the layout of a stream put on a wire frame by frame
+        (egress.DeviceSinkBlock.wire_frame_major)."""
+        return TensorInfo(frame_major_header({"_tensor": {
+            "dtype": str(self.dtype), "shape": self.shape}}))
 
     def span_shape(self, nframe):
         """Tensor shape of an nframe span in the header's axis order."""
@@ -175,8 +199,12 @@ class _Sequence(object):
 class Ring(object):
     instance_count = 0
 
-    def __init__(self, space="system", name=None, device=None):
+    def __init__(self, space="system", name=None, device=None, core=None):
         self.space = str(Space(space))
+        # The CPU core of the block that writes it (a scope's `core`),
+        # recorded: the ring's memory is placed by PyTorch's allocator,
+        # not bound to that core's NUMA node.
+        self.core = core
         if name is None:
             name = f"ring_{Ring.instance_count}"
         Ring.instance_count += 1

@@ -564,30 +564,55 @@ def frb_search_pipeline(data, gulp_nframe, max_delay, f0_mhz=40.0,
     ledger); call `pipeline.run()`."""
     data = np.asarray(data)
     pipe = Pipeline(device=device)
-    ledger = FrameLedger()
     with pipe:
         src = array_source(data, gulp_nframe, header={
             "labels": ["time", "freq"],
             "scales": [[0.0, dt_s], [f0_mhz, df_mhz]],
             "units": ["s", "MHz"],
         }, name="capture")
+        det, ledger = frb_search_chain(
+            src, gulp_nframe, max_delay, threshold=threshold,
+            fdmt_method=fdmt_method, on_candidate=on_candidate,
+            gather=gather, rfi_flag=rfi_flag)
+    return pipe, det, ledger
+
+
+def frb_search_chain(src, gulp_nframe, max_delay, threshold=8.0,
+                     fdmt_method=None, on_candidate=None, gather=None,
+                     rfi_flag=None, scope=None):
+    """The FRB search's chain after its source, built in the current
+    pipeline: `src` (a (time, freq) filterbank ring in host memory) ->
+    copy('cuda') -> [RFI flagger] -> transpose -> FDMT -> detect, as
+    `frb_search_pipeline` builds it after its replay.  `scope(name)`, if
+    given, is the context each block is built in (a `block_scope`, e.g.
+    to pin it to a core).  -> (detector, ledger)."""
+    ledger = FrameLedger()
+
+    def at(name):
+        return scope(name) if scope is not None else contextlib.nullcontext()
+    with at("h2d"):
         dev = copy(src, space="cuda", name="h2d")
-        if rfi_flag is not None:
-            params = dict(rfi_flag)
-            params.setdefault("gulp_nframe", gulp_nframe)
-            params.setdefault("name", "flag")
+    if rfi_flag is not None:
+        params = dict(rfi_flag)
+        params.setdefault("gulp_nframe", gulp_nframe)
+        params.setdefault("name", "flag")
+        with at(params["name"]):
             dev = _rfi_flag(dev, **params)
+    with at("transpose"):
         t = transpose(dev, ["freq", "time"], gulp_nframe=gulp_nframe,
                       name="transpose")
+    with at("fdmt"):
         d = fdmt(t, max_delay=max_delay, method=fdmt_method,
                  gulp_nframe=gulp_nframe, name="fdmt")
+    with at("detect"):
         det = CandidateDetectBlock(d, threshold=threshold,
                                    on_candidate=on_candidate,
                                    gulp_nframe=gulp_nframe, name="detect")
-        det.ledger = ledger
-        if gather is not None:
+    det.ledger = ledger
+    if gather is not None:
+        with at("gather"):
             gather_sink(d, gather, gulp_nframe=gulp_nframe, name="gather")
-    return pipe, det, ledger
+    return det, ledger
 
 
 def default_beam_weights(nbeam, nsp):

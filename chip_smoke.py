@@ -354,6 +354,39 @@ Phases, one line each; any failure exits non-zero:
              and p99, the pool's stats, the peak device memory and
              `kernel_cache_info()`.  Launches go into `launches_by_path`
              as `fleet`.
+19. ipc   — after [egress], at the end: the inter-process and file I/O
+             plane on [main]'s FRB search at full width.  (d) First the
+             limits, read and never changed: the free bytes of /dev/shm
+             and /proc/sys/kernel/{shmmax,shmall,sem}; the shm ring is
+             sized to IPC_RING_GULPS dedispersed gulps (32 MiB each) or
+             what /dev/shm holds, the DADA ring to IPC_DADA_NBUFS buffers
+             of a gulp or what shmmax and shmall allow.  (a) The FRB
+             search with three sinks on its FDMT's 'cuda' ring: shm_send
+             (min_readers 1), dada_ipc_send and serialize (IPC_FILE_SIZE:
+             three sets of files), beside a gather_sink; two consumer
+             processes (fresh interpreters that import only
+             bifrost_tpu_torch) run shm_receive and a DadaHDU reader and
+             print a checksum a gulp (a buffer) and the header; the files
+             are read back with deserialize -> copy('cuda'); all three
+             bitwise the gather (shm and DADA frame-major, their headers
+             the gather's with the frame axis first), headers intact.  (b) A
+             producer process writes frb_data()'s u8 frames into a DADA
+             HDU, `python -m bifrost_tpu_torch.dada_bridge` forwards it
+             into a shm ring, and the FRB search runs from
+             read_psrdada_buffer -> copy('cuda') -> ...: dedispersed
+             gulps and candidates bitwise [main]'s, the burst found.  (c)
+             The FRB search without sinks, unpinned and with each block
+             pinned to its own core (block_scope(core=) through
+             frb_search_chain's `scope`, cores from
+             os.sched_getaffinity), IPC_TURNS turns: each pinned thread's
+             core read by affinity.get_core() inside it and from its bind
+             proclog, outputs bitwise the unpinned run's.  K1 launches
+             144 in every FRB run, every other kernel 0 (asserted);
+             launches go into `launches_by_path` as `ipc`,
+             `ipc_dada_ingest` and `ipc_affinity`.  Prints the producer's
+             steady frames/s against [main]'s, each sink's bytes/s, the
+             consumers' received bytes/s, the DADA-fed and the pinned and
+             unpinned rates, with the card's name and power limit.
 
 The launch checks of every phase count all nine kernels (K1, K2, K4,
 K6a, K6b, K5a, K5b, X1, M1).  The line before the last two holds the kernel
@@ -361,10 +394,13 @@ records as JSON, one for each of those kernels; then the card's name and
 power limit; the last line is {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import gc
+import glob
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -546,6 +582,12 @@ FL_STAGING = 1 << 30
 
 # K6b's plan rebuilt per sequence: this many sequences of new positions.
 RM_NSEQ = 4
+
+# [ipc]: dedispersed gulps the shm ring holds, the DADA ring's buffers (a
+# gulp each), the serializer's file size (bytes a ringlet: 4 gulps of a
+# DM row), pinned/unpinned turns, a consumer's time limit in seconds.
+IPC_RING_GULPS, IPC_DADA_NBUFS, IPC_FILE_SIZE = 4, 4, 4 * GULP * 4
+IPC_TURNS, IPC_CHILD_TIMEOUT = 2, 300
 
 # Device-memory rate by card (NVIDIA data sheets), bytes/s
 _HBM_RATE = (("H200", 4.8e12), ("H100 PCIe", 2.0e12), ("H100", 3.35e12))
@@ -5382,6 +5424,535 @@ def egress_path(dev, kind):
     return counts
 
 
+IPC_SHM_CONSUMER = r"""
+import hashlib, json, sys, time
+import numpy as np
+from bifrost_tpu_torch import Pipeline
+from bifrost_tpu_torch.blocks import callback_sink, shm_receive
+name, gulp = sys.argv[1], int(sys.argv[2])
+stamps, sizes, spent = [], [], [0.0]
+def on_sequence(h):
+    print("HEADER " + json.dumps(h, sort_keys=True), flush=True)
+def on_data(d):
+    t0 = time.perf_counter()
+    a = np.ascontiguousarray(d.numpy())
+    digest = hashlib.sha256(a).hexdigest()
+    stamps.append(time.perf_counter())
+    spent[0] += stamps[-1] - t0
+    sizes.append(a.nbytes)
+    print("GULP %d %s" % (a.nbytes, digest), flush=True)
+with Pipeline(device="cpu") as pipe:
+    callback_sink(shm_receive(name, gulp_nframe=gulp),
+                  on_sequence=on_sequence, on_data=on_data)
+    pipe.run()
+print("DONE %d %d %.6f %.6f" % (sum(sizes), sizes[0],
+                                stamps[-1] - stamps[0], spent[0]),
+      flush=True)
+"""
+
+IPC_DADA_CONSUMER = r"""
+import hashlib, sys, time
+from bifrost_tpu_torch.io.dada_ipc import DadaHDU
+key, timeout = int(sys.argv[1], 0), float(sys.argv[2])
+deadline = time.monotonic() + timeout
+while True:
+    try:
+        hdu = DadaHDU(key, create=False)
+        break
+    except (OSError, RuntimeError):
+        if time.monotonic() > deadline:
+            raise
+        time.sleep(0.05)
+try:
+    header = hdu.read_header(timeout=timeout)
+    if header is None:
+        raise SystemExit("no DADA header")
+    print("HEADER " + header.replace("\n", "\\n"), flush=True)
+    stamps, sizes, spent = [], [], 0.0
+    while True:
+        got = hdu.data.open_read_buf(timeout=timeout)
+        if got is None:
+            raise SystemExit("no DADA buffer within the timeout")
+        if got == "EOD":
+            break
+        buf, nbyte = got
+        t0 = time.perf_counter()
+        digest = hashlib.sha256(buf[:nbyte]).hexdigest()
+        hdu.data.mark_cleared()
+        stamps.append(time.perf_counter())
+        spent += stamps[-1] - t0
+        sizes.append(nbyte)
+        print("GULP %d %s" % (nbyte, digest), flush=True)
+finally:
+    hdu.close()
+print("DONE %d %d %.6f %.6f" % (sum(sizes), sizes[0], stamps[-1] - stamps[0],
+                                spent), flush=True)
+"""
+
+IPC_DADA_PRODUCER = r"""
+import sys
+import numpy as np
+from bifrost_tpu_torch.blocks.testing import inject_burst
+from bifrost_tpu_torch.io.dada_ipc import DadaHDU
+key = int(sys.argv[1], 0)
+seed, gulp, ngulp, nchan, t0, dm_row, f0, df, dt = (
+    int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), int(sys.argv[5]),
+    int(sys.argv[6]), int(sys.argv[7]), float(sys.argv[8]),
+    float(sys.argv[9]), float(sys.argv[10]))
+rng = np.random.default_rng(seed)
+data = rng.integers(0, 32, (gulp * ngulp, nchan)).astype(np.uint8)
+inject_burst(data, t0, dm_row, f0, df, amp=60)
+raw = memoryview(data).cast("B")
+hdu = DadaHDU(key, create=False)
+try:
+    hdu.write_header(
+        "HDR_VERSION 1.0\nOBS_ID frb_ipc\nNBIT 8\nNDIM 1\nNPOL 1\n"
+        "NCHAN %d\nFREQ %r\nCHAN_BW %r\nTSAMP %r\n" % (nchan, f0, df,
+                                                     dt * 1e6))
+    hdu.data.start_of_data()
+    off = 0
+    while off < len(raw):
+        buf, _ = hdu.data.open_write_buf(timeout=120)
+        n = min(len(buf), len(raw) - off)
+        buf[:n] = raw[off:off + n]
+        hdu.data.mark_filled(n)
+        off += n
+    hdu.data.end_of_data()
+finally:
+    hdu.close()
+print("PRODUCER-DONE %d" % len(raw), flush=True)
+"""
+
+
+def ipc_limits():
+    """The limits of /dev/shm and SysV IPC, read (never changed)."""
+    st = os.statvfs("/dev/shm")
+    lim = {"dev_shm_free": st.f_bavail * st.f_frsize}
+    for key in ("shmmax", "shmall", "sem"):
+        with open(f"/proc/sys/kernel/{key}") as f:
+            lim[key] = f.read().split()
+    lim["shmmax"] = int(lim["shmmax"][0])
+    lim["shmall_bytes"] = int(lim["shmall"][0]) * os.sysconf("SC_PAGE_SIZE")
+    return lim
+
+
+def ipc_sizes(lim, gulp_nbyte, wire_frame):
+    """-> (shm ring bytes, DADA nbufs, DADA bufsz) within the limits: aim
+    for IPC_RING_GULPS and IPC_DADA_NBUFS gulps; a ring smaller than a
+    gulp still carries it (the wrap), never a frame cut."""
+    cap = min(IPC_RING_GULPS * gulp_nbyte, lim["dev_shm_free"] // 2)
+    cap = cap // wire_frame * wire_frame
+    if cap < wire_frame:
+        raise AssertionError(f"/dev/shm has {lim['dev_shm_free']} bytes "
+                             f"free: no room for a shm ring")
+    bufsz = min(gulp_nbyte, lim["shmmax"]) // wire_frame * wire_frame
+    nbufs = min(IPC_DADA_NBUFS, lim["shmall_bytes"] // 2 // max(1, bufsz))
+    if bufsz < wire_frame or nbufs < 2:
+        raise AssertionError(f"SysV limits {lim}: no room for a DADA ring "
+                             f"of 2 buffers of a frame")
+    return cap, nbufs, bufsz
+
+
+def ipc_child(code, args, out_path):
+    """A fresh interpreter running `code` (only bifrost_tpu_torch is
+    imported there), its output to `out_path`."""
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+    return subprocess.Popen([sys.executable, "-c", code, *map(str, args)],
+                            stdout=open(out_path, "w"),
+                            stderr=subprocess.STDOUT, env=env,
+                            cwd=str(Path(__file__).resolve().parent))
+
+
+def ipc_wait(proc, out_path, what):
+    """Wait for a child within IPC_CHILD_TIMEOUT; -> its output lines.  A
+    child that fails or overruns fails the phase."""
+    try:
+        rc = proc.wait(timeout=IPC_CHILD_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    text = Path(out_path).read_text()
+    if rc != 0:
+        raise AssertionError(f"{what} exited {rc}:\n{text[-3000:]}")
+    return text.splitlines()
+
+
+def ipc_kill(procs):
+    for proc in procs:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+
+
+def ipc_remove_dada(key, nbufs):
+    """Remove an HDU's SysV segments and semaphores where they are left
+    (a run that failed before its sink's shutdown)."""
+    from bifrost_tpu_torch.io import dada_ipc as di
+    for base, n in ((key, nbufs), (key + di.HDR_KEY_OFFSET, 2)):
+        for k in range(base, base + n + 1):
+            try:
+                di._shm_rm(di._shmget(k, 0, 0))
+            except OSError:
+                pass
+        try:
+            di._sem_rm(di._semget(base, 0, 0))
+        except OSError:
+            pass
+
+
+def ipc_digests(lines):
+    """-> (header line, [(nbyte, sha256)], (total bytes, first gulp's
+    bytes, seconds first to last gulp, seconds copying and hashing))."""
+    head = [ln[7:] for ln in lines if ln.startswith("HEADER ")]
+    gulps = [(int(ln.split()[1]), ln.split()[2]) for ln in lines
+             if ln.startswith("GULP ")]
+    done = [ln.split()[1:] for ln in lines if ln.startswith("DONE ")]
+    if len(head) != 1 or not done:
+        raise AssertionError(f"consumer output: {lines[-5:]}")
+    total, first, secs, spent = int(done[0][0]), int(done[0][1]), \
+        float(done[0][2]), float(done[0][3])
+    return head[0], gulps, (total, first, secs, spent)
+
+
+def sha(a):
+    import hashlib
+    return hashlib.sha256(np.ascontiguousarray(a)).hexdigest()
+
+
+def ipc_pinned(cores):
+    """A scope factory that pins the i-th block built to cores[i % n]."""
+    import itertools
+    import bifrost_tpu_torch as bt
+    it = itertools.cycle(cores)
+    return lambda name: bt.block_scope(core=next(it))
+
+
+def ipc_frb(dev, src_fn, gather, headers=None, cores=None, sinks=None):
+    """One FRB search in a new pipeline: `src_fn()` the source block,
+    then frb_search_chain; `sinks(fdmt_block)` adds sinks on the FDMT's
+    ring; `cores`: the i-th block built is pinned to cores[i % n].  ->
+    (detector, ledger, pipeline, seconds, steady frames/s)."""
+    import bifrost_tpu_torch as bt
+    from bifrost_tpu_torch.blocks import gather_sink
+    from bifrost_tpu_torch.service import frb_search_chain
+    scope = ipc_pinned(cores) if cores else None
+
+    def at(name):
+        return scope(name) if scope else contextlib.nullcontext()
+    pipe = bt.Pipeline(device=dev)
+    with pipe:
+        with at("capture"):
+            src = src_fn()
+        det, ledger = frb_search_chain(src, GULP, MAX_DELAY, scope=scope)
+        fd = det.iring.owner
+        with at("ipc_gather"):
+            gather_sink(fd, gather, headers, name="ipc_gather")
+        if sinks is not None:
+            sinks(fd)
+    reset_counts()
+    t0 = time.perf_counter()
+    pipe.run()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    counts = read_counts()
+    nsteps = len(fd.fdmt._steps)
+    if counts != expected(fdmt_merge_step=nsteps * NGULP):
+        raise AssertionError(f"launches {counts}: expected "
+                             f"{nsteps * NGULP} of fdmt_merge_step alone")
+    steady = (ledger.committed_frames - ledger.first_sink_nframe) / \
+        (t1 - ledger.first_sink_t)
+    return det, ledger, pipe, t1 - t0, steady, counts
+
+
+def frb_src(data):
+    from bifrost_tpu_torch.blocks import array_source
+    return lambda: array_source(data, GULP, header={
+        "labels": ["time", "freq"], "scales": [[0.0, DT], [F0, DF]],
+        "units": ["s", "MHz"]}, name="capture")
+
+
+def same_gulps(a, b):
+    return len(a) == len(b) and all(
+        x.shape == y.shape and np.array_equal(x.view(np.uint32),
+                                              y.view(np.uint32))
+        for x, y in zip(a, b))
+
+
+def ipc_stamp(sink):
+    """Note the host clock at each gulp the sink retires."""
+    sink.stamps = []
+    drain = sink._drain_one_egress
+
+    def stamped():
+        drain()
+        sink.stamps.append(time.perf_counter())
+    sink._drain_one_egress = stamped
+
+
+def ipc_rate(sink, nbyte_after_first):
+    st = sink.stamps
+    return nbyte_after_first / (st[-1] - st[0]) if len(st) > 1 \
+        else float("nan")
+
+
+def ipc_path(dev, kind, smi, ref):
+    """The inter-process and file I/O plane (module docstring, phase 19).
+    `ref`: [main]'s steady rate, dedispersed gulps and candidates.  ->
+    launch counts by path."""
+    import tempfile
+    from bifrost_tpu_torch import affinity, proclog, shmring
+    from bifrost_tpu_torch.blocks import (copy, dada_ipc_send, deserialize,
+                                          gather_sink, read_psrdada_buffer,
+                                          serialize, shm_send)
+    from bifrost_tpu_torch.io import dada_ipc
+    from bifrost_tpu_torch.ring import frame_major_header
+
+    data = frb_data()
+    pid = os.getpid()
+    shm_name, bridge_name = f"ipc_{pid}", f"ipc_bridge_{pid}"
+    key = 0x51000000 + (pid & 0xFFFF) * 0x400
+    key_in = key + 0x200
+    gulp_nbyte = MAX_DELAY * GULP * 4
+    wire_frame = MAX_DELAY * 4
+    lim = ipc_limits()
+    cap, nbufs, bufsz = ipc_sizes(lim, gulp_nbyte, wire_frame)
+    phase("ipc", f"limits: /dev/shm {lim['dev_shm_free']} B free, shmmax "
+          f"{lim['shmmax']}, shmall {lim['shmall'][0]} pages "
+          f"({lim['shmall_bytes']} B), sem {' '.join(lim['sem'])}; chose "
+          f"a shm ring of {cap} B ({cap / gulp_nbyte:.2f} gulps of "
+          f"{gulp_nbyte} B) and a DADA ring of {nbufs} x {bufsz} B")
+    tmp = tempfile.mkdtemp(prefix="ipc_")
+    procs = []
+    counts = {}
+    try:
+        # (a) three sinks on the FDMT's ring, two consumer processes.
+        shm_out, dada_out = f"{tmp}/shm.out", f"{tmp}/dada.out"
+        procs.append(ipc_child(IPC_SHM_CONSUMER, [shm_name, GULP], shm_out))
+        procs.append(ipc_child(IPC_DADA_CONSUMER, [hex(key),
+                                                  IPC_CHILD_TIMEOUT],
+                               dada_out))
+        sinks = {}
+
+        def add_sinks(fd):
+            sinks["shm"] = shm_send(fd, shm_name, data_capacity=cap,
+                                    min_readers=1,
+                                    reader_timeout=IPC_CHILD_TIMEOUT)
+            sinks["dada"] = dada_ipc_send(fd, key, nbufs=nbufs, bufsz=bufsz,
+                                          write_timeout=IPC_CHILD_TIMEOUT,
+                                          name="ipc_dada")
+            sinks["serialize"] = serialize(fd, path=f"{tmp}/ser",
+                                           max_file_size=IPC_FILE_SIZE,
+                                           name="ipc_serialize")
+            for snk in sinks.values():
+                ipc_stamp(snk)
+        os.makedirs(f"{tmp}/ser")
+        gather, headers = [], []
+        det, ledger, pipe, wall, steady, counts["ipc"] = ipc_frb(
+            dev, frb_src(data), gather, headers, sinks=add_sinks)
+        shm_lines = ipc_wait(procs[0], shm_out, "shm consumer")
+        dada_lines = ipc_wait(procs[1], dada_out, "DADA consumer")
+        if not same_gulps(gather, ref["gathered"]):
+            raise AssertionError("[ipc] gather differs from [main]'s")
+        hdr = headers[0]
+        wire_hdr = json.loads(json.dumps(frame_major_header(hdr)))
+        logical = np.concatenate(gather, axis=1)          # (dm, frames)
+        wire = [np.ascontiguousarray(g.T) for g in gather]
+        frames = np.concatenate(wire)                     # (frames, dm)
+        # shm: the consumer's frame-major gulps of GULP frames.
+        shm_head, shm_gulps, shm_done = ipc_digests(shm_lines)
+        want = [(frames[f:f + GULP].nbytes, sha(frames[f:f + GULP]))
+                for f in range(0, len(frames), GULP)]
+        if shm_gulps != want:
+            raise AssertionError(f"shm stream differs: {len(shm_gulps)} "
+                                 f"gulps against {len(want)}")
+        if json.loads(shm_head) != wire_hdr:
+            raise AssertionError(f"shm header {shm_head} != {wire_hdr}")
+        # DADA: buffers of bufsz within each gulp, frame-major.
+        dada_head, dada_bufs, dada_done = ipc_digests(dada_lines)
+        want = [(len(w.reshape(-1)[o:o + bufsz // 4]) * 4,
+                 sha(w.reshape(-1)[o:o + bufsz // 4]))
+                for w in wire for o in range(0, w.size, bufsz // 4)]
+        if dada_bufs != want:
+            raise AssertionError(f"DADA stream differs: {len(dada_bufs)} "
+                                 f"buffers against {len(want)}")
+        dada_hdr = dict(ln.split(" ", 1) for ln in
+                        dada_head.split("\\n") if " " in ln)
+        if json.loads(dada_hdr["TENSOR_JSON"]) != wire_hdr["_tensor"] or \
+                dada_hdr.get("NAME") != str(hdr["name"]):
+            raise AssertionError(f"DADA header {dada_hdr} != {wire_hdr}")
+        # serialize: three or more sets of files, read back on the card.
+        names = glob.glob(f"{tmp}/ser/*.bf.json")
+        dats = glob.glob(f"{tmp}/ser/*.dat")
+        nsets = len({os.path.basename(f).split(".")[2] for f in dats})
+        if len(names) != 1 or nsets < 3:
+            raise AssertionError(f"serialized {names}, {nsets} file sets")
+        with open(names[0]) as f:
+            if json.load(f) != json.loads(json.dumps(hdr)):
+                raise AssertionError("serialized header differs")
+        back = []
+        import bifrost_tpu_torch as bt
+        with bt.Pipeline(device=dev) as rpipe:
+            gather_sink(copy(deserialize([names[0][:-5]], GULP),
+                             space="cuda", name="ipc_h2d"), back,
+                        name="ipc_back")
+            rpipe.run()
+        torch.cuda.synchronize()
+        if not np.array_equal(np.concatenate(back, axis=1).view(np.uint32),
+                              logical.view(np.uint32)):
+            raise AssertionError("deserialized stream differs")
+        check_burst(det)
+        after = sum(g.nbytes for g in gather[1:])
+        rates = {k: ipc_rate(v, after) for k, v in sinks.items()}
+        phase("ipc", f"(a) FRB search {NCHAN} ch x {GULP * NGULP} frames "
+              f"with shm_send, dada_ipc_send and serialize on its FDMT's "
+              f"'cuda' ring: {wall:.3f} s, steady {steady:.1f} frames/s "
+              f"against [main]'s {ref['steady']:.1f} "
+              f"({steady / ref['steady'] * 100:.1f} %); sink B/s on the "
+              f"host clock, first to last gulp: " +
+              ", ".join(f"{k} {v:.4g}" for k, v in rates.items()) +
+              f"; consumers received shm {shm_done[0]} B at "
+              f"{(shm_done[0] - shm_done[1]) / shm_done[2]:.4g} B/s, DADA "
+              f"{dada_done[0]} B at "
+              f"{(dada_done[0] - dada_done[1]) / dada_done[2]:.4g} B/s; "
+              f"the consumers' own copy and hash seconds shm "
+              f"{shm_done[3]:.3f}, DADA {dada_done[3]:.3f} of "
+              f"{shm_done[2]:.3f}, {dada_done[2]:.3f}; "
+              f"{len(shm_gulps)} shm gulps, {len(dada_bufs)} DADA buffers "
+              f"and {len(dats)} files in {nsets} sets bitwise the gather; "
+              f"staged {sinks['shm']._egress_drained_gulps} / "
+              f"{sinks['dada']._egress_drained_gulps} gulps; launches "
+              f"{counts['ipc']['fdmt_merge_step']}; {smi}")
+        if not sinks["shm"]._egress_drained_gulps or \
+                not sinks["dada"]._egress_drained_gulps:
+            raise AssertionError("shm/DADA sinks did not take the staged "
+                                 "path")
+        perf = {b.name: {k: round(v, 4) for k, v in b.perf_totals.items()}
+                for b in pipe.blocks}
+        phase("ipc", f"(a) host seconds by block and phase: "
+              f"{json.dumps(perf)}")
+        del pipe, sinks, gather, back, logical, wire, frames
+        free_device()
+
+        # (b) a DADA producer -> the bridge -> read_psrdada_buffer.
+        hdu = dada_ipc.DadaHDU(key_in, nbufs=4,
+                               bufsz=min(GULP * NCHAN, lim["shmmax"]),
+                               create=True)
+        try:
+            prod_out, br_out = f"{tmp}/producer.out", f"{tmp}/bridge.out"
+            procs.append(ipc_child(IPC_DADA_PRODUCER, [
+                hex(key_in), SEED, GULP, NGULP, NCHAN, T0, DM_ROW, F0, DF,
+                DT], prod_out))
+            env = dict(os.environ,
+                       PYTHONPATH=str(Path(__file__).resolve().parent))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "bifrost_tpu_torch.dada_bridge",
+                 "--key", hex(key_in), "--name", bridge_name, "--oneshot",
+                 "--gulp-frames", str(GULP), "--timeout",
+                 str(IPC_CHILD_TIMEOUT), "--capacity",
+                 str(min(4 * GULP * NCHAN, cap))],
+                stdout=open(br_out, "w"), stderr=subprocess.STDOUT,
+                env=env, cwd=str(Path(__file__).resolve().parent)))
+
+            def typed(dada):
+                return {"_tensor": {
+                    "dtype": "u8", "shape": [-1, int(dada["NCHAN"])],
+                    "labels": ["time", "freq"],
+                    "scales": [[0.0, float(dada["TSAMP"]) / 1e6],
+                               [float(dada["FREQ"]),
+                                float(dada["CHAN_BW"])]],
+                    "units": ["s", "MHz"]}}
+            got = []
+            det2, _, _, wall2, steady2, counts["ipc_dada_ingest"] = ipc_frb(
+                dev, lambda: read_psrdada_buffer(bridge_name, typed, GULP),
+                got)
+            ipc_wait(procs[2], prod_out, "DADA producer")
+            br = ipc_wait(procs[3], br_out, "dada_bridge")
+        finally:
+            hdu.close()
+        if not same_gulps(got, ref["gathered"]):
+            raise AssertionError("DADA-fed dedispersed gulps differ from "
+                                 "[main]'s")
+        if det2.candidates != ref["cands"]:
+            raise AssertionError("DADA-fed candidates differ from [main]'s")
+        best = check_burst(det2)
+        phase("ipc", f"(b) DADA HDU -> dada_bridge -> read_psrdada_buffer "
+              f"-> FRB search: {wall2:.3f} s, steady {steady2:.1f} "
+              f"frames/s against [main]'s {ref['steady']:.1f}; "
+              f"dedispersed gulps and candidates bitwise [main]'s, "
+              f"candidate {best}; bridge: {br[-1]}; launches "
+              f"{counts['ipc_dada_ingest']['fdmt_merge_step']}; {smi}")
+        del got
+        free_device()
+
+        # (c) unpinned against every block on its own core, in turns.
+        avail = sorted(os.sched_getaffinity(0))
+        rates = {"unpinned": [], "pinned": []}
+        outs = {}
+        total = None
+        for _ in range(IPC_TURNS):
+            for mode in ("unpinned", "pinned"):
+                cores = avail if mode == "pinned" else None
+                seen = {}
+                out = []
+                det3, _, pipe3, _, st3, c3 = ipc_frb(
+                    dev, frb_src(data), out, cores=cores,
+                    sinks=lambda fd: ipc_cores(fd.pipeline, seen))
+                total = c3 if total is None else \
+                    {k: total[k] + c3[k] for k in total}
+                rates[mode].append(st3)
+                outs.setdefault(mode, out)
+                if not same_gulps(out, outs["unpinned"]):
+                    raise AssertionError(f"{mode} run differs")
+                if mode == "pinned":
+                    tree = proclog.load_by_pid(os.getpid())
+                    for i, b in enumerate(pipe3.blocks):
+                        core = avail[i % len(avail)]
+                        bind = tree.get(b.name, {}).get("bind", {})
+                        if seen.get(b.name) != core or \
+                                bind.get("core") != core:
+                            raise AssertionError(
+                                f"{b.name}: pinned to {core}, get_core "
+                                f"{seen.get(b.name)}, bind {bind}")
+                elif any(v != -1 for v in seen.values()):
+                    raise AssertionError(f"unpinned threads: {seen}")
+                del pipe3
+        counts["ipc_affinity"] = total
+        if not same_gulps(outs["pinned"], ref["gathered"]):
+            raise AssertionError("pinned run differs from [main]'s")
+        phase("ipc", f"(c) FRB search without sinks, {IPC_TURNS} turns, "
+              f"steady frames/s unpinned " +
+              ", ".join(f"{r:.1f}" for r in rates["unpinned"]) +
+              "; each block on its own core of " + str(avail) + " " +
+              ", ".join(f"{r:.1f}" for r in rates["pinned"]) +
+              f"; every pinned thread's core from affinity.get_core() and "
+              f"its bind proclog, outputs bitwise; {smi}")
+    finally:
+        ipc_kill(procs)
+        for name in (shm_name, bridge_name):
+            try:
+                shmring.unlink(name)
+            except Exception:  # noqa: BLE001 — already gone
+                pass
+        ipc_remove_dada(key, nbufs)
+        ipc_remove_dada(key_in, 4)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return counts
+
+
+def ipc_cores(pipe, seen):
+    """Have each block of `pipe` note, from inside its thread, the core
+    affinity.get_core() reads there."""
+    from bifrost_tpu_torch import affinity
+    for b in list(pipe.blocks):
+        run = b.main
+
+        def main(b=b, run=run):
+            seen[b.name] = affinity.get_core()
+            return run()
+        b.main = main
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5449,6 +6020,7 @@ def main():
     t5i = time.perf_counter()
     counts.update(fleet_path(dev, kind, volt))
     del volt, spec
+    ipc_ref = SOLO["frb"]
     SOLO.clear()
     free_device()
     t5g = time.perf_counter()
@@ -5460,6 +6032,10 @@ def main():
     free_device()
     t7 = time.perf_counter()
     counts["egress"] = egress_path(dev, kind)
+    free_device()
+    t8 = time.perf_counter()
+    counts.update(ipc_path(dev, kind, smi, ipc_ref))
+    del ipc_ref
     phase("timing", f"build {secs:.1f} s, kernels {t1 - t0:.1f} s, main "
           f"{t2 - t1:.1f} s, frbflag {t3 - t2:.1f} s, bengine "
           f"{t4 - t3:.1f} s, instrument {t5 - t4:.1f} s, dq "
@@ -5469,7 +6045,7 @@ def main():
           f"{t5i - t5h:.1f} s, fleet {t5g - t5i:.1f} s, async "
           f"{t6 - t5g:.1f} s, gpuspec "
           f"{t7 - t6:.1f} s, egress "
-          f"{time.perf_counter() - t7:.1f} s")
+          f"{t8 - t7:.1f} s, ipc {time.perf_counter() - t8:.1f} s")
     by_path = {name: {path: c[name] for path, c in counts.items()}
                for name in kernel_counters()}
     for rec in recs:

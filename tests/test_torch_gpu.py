@@ -1893,3 +1893,154 @@ def test_fleet_staging_view_on_a_cuda_stager_is_pinned_and_quota_held(cuda):
     st.pool.release(again)
     st.close()
     fleet.stop()
+
+
+# -------------------------------------------- the inter-process plane
+_IPC_SHM_READER = r"""
+import json, sys
+import numpy as np
+from bifrost_tpu_torch.shmring import ShmRingReader
+with ShmRingReader(sys.argv[1]) as r:
+    hdr, _ = r.read_sequence()
+    with open(sys.argv[2] + ".json", "w") as f:
+        json.dump(hdr, f)
+    chunks = []
+    buf = np.empty(1 << 20, np.uint8)
+    while True:
+        n = r.readinto(buf)
+        if n == 0:
+            break
+        chunks.append(buf[:n].copy())
+np.concatenate(chunks).tofile(sys.argv[2])
+"""
+
+
+def _ipc_stream(shape, ngulp, seed):
+    """A seeded f32 stream of `ngulp` gulps of `shape` (frame axis 0)."""
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((ngulp * shape[0],) + shape[1:]) \
+        .astype(np.float32)
+
+
+def _ipc_pipeline(cuda, data, gulp, sink, ringlets=False):
+    """array_source -> copy('cuda') [-> transpose to ringlets] ->
+    sink(ring); -> the sink."""
+    import bifrost_tpu_torch as bt
+    from bifrost_tpu_torch.blocks import array_source, copy
+    with bt.Pipeline(device=cuda) as pipe:
+        d = copy(array_source(data, gulp, header={"labels": ["time", "x"]}),
+                 space="cuda")
+        if ringlets:
+            d = bt.blocks.transpose(d, ["x", "time"])
+        snk = sink(d)
+        pipe.run()
+    return snk
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ringlets", [False, True],
+                         ids=["frames", "ringlets"])
+def test_shm_send_from_a_cuda_ring_lands_bitwise_in_another_process(
+        cuda, tmp_path, ringlets):
+    """shm_send on a 'cuda' ring takes the staged path through the wrap
+    (the ring holds 1.5 gulps), and a reader process receives every byte.
+    A stream with ringlets (x, time) goes on frame-major, under a header
+    whose frame axis is first: the bytes and header of the (time, x)
+    source."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from bifrost_tpu_torch.blocks import shm_send
+    data = _ipc_stream((256, 1024), 8, 1)
+    name = f"gpu_shm_{os.getpid()}"
+    out = tmp_path / "got.bin"
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    reader = subprocess.Popen(
+        [sys.executable, "-c", _IPC_SHM_READER, name, str(out)],
+        env=dict(os.environ, PYTHONPATH=root), cwd=root)
+    try:
+        snk = _ipc_pipeline(cuda, data, 256, lambda d: shm_send(
+            d, name, data_capacity=3 * 256 * 1024 * 4 // 2, min_readers=1,
+            reader_timeout=120), ringlets=ringlets)
+        assert reader.wait(timeout=120) == 0
+    finally:
+        if reader.poll() is None:
+            reader.kill()
+            reader.wait(timeout=30)
+    assert snk._egress_drained_gulps == 8
+    got = np.fromfile(out, np.float32).reshape(data.shape)
+    assert np.array_equal(got.view(np.uint32), data.view(np.uint32))
+    with open(str(out) + ".json") as f:
+        tensor = json.load(f)["_tensor"]
+    assert tensor["shape"] == [-1, 1024] and \
+        tensor["labels"] == ["time", "x"]
+
+
+@pytest.mark.gpu
+def test_dada_ipc_send_from_a_cuda_ring_lands_bitwise(cuda):
+    """dada_ipc_send on a 'cuda' ring: staged, gulps spanning buffers (bufsz 1.5 gulps a frame short), every byte
+    read back through the DADA reader."""
+    import os
+    import threading
+    from bifrost_tpu_torch.blocks import dada_ipc_send
+    from bifrost_tpu_torch.io.dada_ipc import DadaHDU
+    data = _ipc_stream((128, 512), 6, 2)
+    key = 0x52000000 + (os.getpid() & 0xFFFF) * 0x400
+    bufsz = 3 * 128 * 512 * 4 // 2 - 512 * 4
+    got, err = [], []
+
+    def read():
+        try:
+            deadline = time.monotonic() + 60
+            while True:
+                try:
+                    hdu = DadaHDU(key, create=False)
+                    break
+                except (OSError, RuntimeError):
+                    if time.monotonic() > deadline:
+                        raise
+                    time.sleep(0.02)
+            try:
+                assert "TENSOR_JSON" in hdu.read_header(timeout=60)
+                while True:
+                    r = hdu.data.open_read_buf(timeout=60)
+                    if r == "EOD":
+                        break
+                    buf, nbyte = r
+                    got.append(bytes(buf[:nbyte]))
+                    hdu.data.mark_cleared()
+            finally:
+                hdu.close()
+        except Exception as e:  # noqa: BLE001 — asserted below
+            err.append(e)
+
+    t = threading.Thread(target=read)
+    t.start()
+    snk = _ipc_pipeline(cuda, data, 128, lambda d: dada_ipc_send(
+        d, key, nbufs=3, bufsz=bufsz))
+    t.join(timeout=120)
+    assert not t.is_alive() and not err, err
+    assert snk._egress_drained_gulps == 6
+    assert b"".join(got) == data.tobytes()
+
+
+@pytest.mark.gpu
+def test_serialize_from_a_cuda_ring_equals_the_system_ring(cuda, tmp_path):
+    """serialize on a 'cuda' ring writes the files the same stream from a
+    'system' ring writes, byte for byte, ringlets and rotation included."""
+    import bifrost_tpu_torch as bt
+    from bifrost_tpu_torch.blocks import array_source, copy, serialize
+    data = _ipc_stream((64, 32), 8, 3)
+    files = {}
+    for space in ("system", "cuda"):
+        out = tmp_path / space
+        out.mkdir()
+        with bt.Pipeline(device=cuda) as pipe:
+            src = array_source(data, 64, header={"labels": ["time", "x"]})
+            d = copy(src, space=space) if space == "cuda" else src
+            t = bt.blocks.transpose(d, ["x", "time"])
+            serialize(t, path=str(out), max_file_size=3 * 64 * 4)
+            pipe.run()
+        files[space] = {p.name: p.read_bytes() for p in out.iterdir()}
+    assert len(files["cuda"]) > 64 and files["cuda"] == files["system"]
