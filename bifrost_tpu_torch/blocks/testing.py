@@ -33,12 +33,22 @@ class ArraySourceBlock(SourceBlock):
     Complex-integer voltages (ci8) come either as the JAX package's
     structured [("re", "i1"), ("im", "i1")] array or, with
     ``header={"dtype": "ci8"}``, as their storage form: an int8 array
-    with a trailing (re, im) axis of 2."""
+    with a trailing (re, im) axis of 2.
+
+    `zero_copy` (default): on a host ring of one ringlet, a gulp whose
+    slice of `data` already is the span's storage (its type and shape)
+    is published as a view of `data` (`WriteSpan.publish_external`), with
+    no copy into the ring; anything else is copied.  `data` must then
+    stay unmodified for the run, and its readers must not write the
+    tensors they are given: those are `data`'s own memory, and a write
+    would change the caller's array.  `zero_copy=False`, or setting the
+    attribute to False before the run, copies every gulp."""
 
     def __init__(self, data, gulp_nframe, header=None, name="testdata",
-                 **kwargs):
+                 zero_copy=True, **kwargs):
         super().__init__([name], gulp_nframe, **kwargs)
         self.data_arr = np.asarray(data)
+        self.zero_copy = bool(zero_copy)
         self.header_override = dict(header or {})
         self._cursor = 0
         dt = self.header_override.get("dtype")
@@ -86,8 +96,14 @@ class ArraySourceBlock(SourceBlock):
         ospan = ospans[0]
         n = min(ospan.nframe, len(self.data_arr) - self._cursor)
         if n > 0:
-            src = self.data_arr[self._cursor:self._cursor + n]
-            ospan.data[:n].copy_(_host_tensor(src))
+            src = _host_tensor(self.data_arr[self._cursor:self._cursor + n])
+            dst = ospan.data[:n]
+            if self.zero_copy and ospan.ring.space != "cuda" and \
+                    ospan.tensor.nringlet == 1 and \
+                    src.dtype == dst.dtype and src.shape == dst.shape:
+                ospan.publish_external(src, n)
+            else:
+                dst.copy_(src)
         self._cursor += n
         return [n]
 
@@ -116,8 +132,11 @@ class CallbackSinkBlock(SinkBlock):
 
 def callback_sink(iring, on_sequence=None, on_data=None, *args, **kwargs):
     """Call `on_sequence(header)` / `on_data(span_tensor)` per gulp.  The
-    tensor is a view of ring memory, valid only during the callback: a
-    callback that keeps it must copy it."""
+    tensor is a view of ring memory, or, where the writer published the
+    span (`WriteSpan.publish_external`, e.g. a zero-copy `array_source`),
+    of the publisher's own memory.  It is valid only during the callback:
+    a callback that keeps it must copy it, and one that writes it must
+    write a copy."""
     return CallbackSinkBlock(iring, on_sequence, on_data, *args, **kwargs)
 
 

@@ -251,6 +251,17 @@ FLAGS = {f.name: f for f in [
          "<pipeline>/service ProcLog.",
          validate=lambda v: _validate_pos_float(
              "service_health_interval_s", v)),
+    Flag("trace", False,
+         "Named trace ranges around block and gulp work (trace.py): "
+         "torch.profiler.record_function ranges, and NVTX ranges on the "
+         "card, visible in a start_profile capture and in Nsight.  Off "
+         "(default): trace_scope costs nothing.  Read per call.",
+         env="BIFROST_TPU_TRACE"),
+    Flag("telemetry_endpoint", "",
+         "URL the usage counters are POSTed to at exit (telemetry.py); "
+         "empty (default) sends nothing, the counters still aggregate "
+         "in the process.",
+         env="BIFROST_TPU_TELEMETRY_ENDPOINT"),
     Flag("kernel_cache", "",
          "Where the nvcc builds of build.py persist across processes "
          "(cache.py), enabled at Service/FleetScheduler start.  Empty "

@@ -77,6 +77,7 @@ from . import device as _device
 from .proclog import PERF_FLUSH_S, ProcLog
 from .ring import (EndOfDataStop, ReadSequence, Ring, RingInterrupted,
                    SequenceCursor, TensorInfo)
+from .trace import trace_scope
 
 __all__ = ["Pipeline", "get_default_pipeline", "block_scope", "BlockScope",
            "Block", "SourceBlock", "SinkBlock", "TransformBlock",
@@ -496,6 +497,13 @@ class Pipeline(BlockScope):
         return self._quiesce_event.is_set()
 
 
+def _ring_log_name(ring):
+    """The log name (`Ring.log_name`) of `ring` or of the ring a view
+    wraps, which the tools join a block's in/out logs by."""
+    base = getattr(ring, "base_ring", ring)
+    return getattr(base, "log_name", getattr(base, "name", "?"))
+
+
 class Block(BlockScope):
     """Base block: owns output rings and a thread
     (reference pipeline.py:329-441)."""
@@ -585,8 +593,7 @@ class Block(BlockScope):
         self.sequence_proclog = ProcLog(f"{self.name}/sequence0")
         self.perf_proclog = ProcLog(f"{self.name}/perf")
         self.in_proclog.update({
-            f"ring{i}": getattr(getattr(r, "base_ring", r), "name", "?")
-            for i, r in enumerate(self.irings)})
+            f"ring{i}": _ring_log_name(r) for i, r in enumerate(self.irings)})
 
     def create_ring(self, space="system"):
         # A replacement built under a ring-adoption entry takes over the
@@ -628,11 +635,11 @@ class Block(BlockScope):
                                       else -1, "device": str(self.device)})
             if self.orings:
                 self.out_proclog.update({
-                    f"ring{i}": getattr(getattr(r, "base_ring", r),
-                                        "name", "?")
+                    f"ring{i}": _ring_log_name(r)
                     for i, r in enumerate(self.orings)})
             _device.set_device(self.device)
-            with _device.block_stream(self.device) as stream:
+            with _device.block_stream(self.device) as stream, \
+                    trace_scope(f"block:{self.name}"):
                 self._stream = stream
                 returned = False
                 try:
@@ -840,7 +847,8 @@ def _abandon_gulp(block, ispans, ospans):
 
 class _ShedSpan(object):
     """A stand-in write span for a gulp that a source's overrun policy
-    sheds: `on_data` writes it like a WriteSpan, nothing is committed."""
+    sheds: `on_data` writes or publishes it like a WriteSpan, nothing is
+    committed."""
 
     def __init__(self, oseq, nframe):
         self.ring = oseq.ring
@@ -851,6 +859,10 @@ class _ShedSpan(object):
         dev = self.ring.device if self.ring.space == "cuda" else "cpu"
         self.data = torch.empty(self.tensor.span_shape(nframe),
                                 dtype=self.tensor.torch_dtype, device=dev)
+
+    def publish_external(self, arr, nframe=None):
+        if nframe is not None:
+            self.commit_nframe = nframe
 
     def commit(self, nframe=None):
         pass

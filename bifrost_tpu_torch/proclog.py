@@ -24,14 +24,16 @@ from __future__ import annotations
 
 import atexit
 import fcntl
+import json
 import os
 import shutil
 import tempfile
 import threading
 
 __all__ = ["ProcLog", "proclog_root", "proclog_dir", "load_by_pid",
-           "capture_metrics", "supervise_metrics", "service_metrics",
-           "fleet_metrics", "PERF_FLUSH_S"]
+           "ring_metrics", "capture_metrics", "stall_pct",
+           "supervise_metrics", "service_metrics", "fusion_metrics",
+           "fleet_metrics", "cmdline", "list_pids", "PERF_FLUSH_S"]
 
 PERF_FLUSH_S = 0.25   # least seconds between two perf-log writes of a block
 
@@ -125,6 +127,13 @@ class ProcLog(object):
             # racing a daemon thread): observability only.
             pass
 
+    def remove(self):
+        """Unlink the log (cpp/src/proclog.cpp btProcLogDestroy)."""
+        try:
+            os.unlink(self.path)
+        except OSError:
+            pass
+
 
 # ------------------------------------------------------------------ readers
 def _parse_value(v):
@@ -169,6 +178,32 @@ def load_by_pid(pid, include_rings=True, root=None):
     return contents
 
 
+def ring_metrics(tree):
+    """One geometry row per ring of a load_by_pid tree (bifrost_tpu/
+    proclog.py:73-100): every ring logs under the shared `rings`
+    directory, so each of its logs is a row.  The backlog is read from
+    the slowest guaranteed reader's frontier (`guarantee`), not the tail,
+    which moves only at reserve time.
+
+    -> [{name, capacity_total, nringlet, head, backlog_frac}]."""
+    rows = []
+    for block, logs in sorted(tree.items()):
+        for log, kv in sorted(logs.items()):
+            if "capacity" not in kv or "reserve_head" not in kv:
+                continue
+            cap = kv.get("capacity", 0) or 0
+            guarantee = kv.get("guarantee", kv.get("head", 0))
+            backlog = ((kv.get("reserve_head", 0) - guarantee) / cap
+                       if cap else 0.0)
+            name = log if block == "rings" else f"{block}/{log}"
+            rows.append({"name": name,
+                         "capacity_total": cap * kv.get("nringlet", 1),
+                         "nringlet": kv.get("nringlet", 1),
+                         "head": kv.get("head", 0),
+                         "backlog_frac": max(0.0, min(1.0, backlog))})
+    return rows
+
+
 def capture_metrics(tree):
     """UDP-capture rows from a load_by_pid tree (bifrost_tpu/proclog.py:
     103-135).  The JAX engine keeps a throttled byte-count `stats` log of
@@ -202,6 +237,18 @@ def capture_metrics(tree):
                          "late": stats.get("nlate", 0),
                          "repeat": stats.get("nrepeat", 0)})
     return rows
+
+
+def stall_pct(perf):
+    """A block's ring stall in %% of its loop time, from its perf log:
+    the time blocked acquiring input and reserving output over the sum
+    of its phase totals; None before the block has written totals.  The
+    one definition the tools share."""
+    stall = perf.get("total_acquire_time", 0.0) + \
+        perf.get("total_reserve_time", 0.0)
+    total = sum(v for k, v in perf.items()
+                if k.startswith("total_") and isinstance(v, (int, float)))
+    return 100.0 * stall / total if total else None
 
 
 def supervise_metrics(tree):
@@ -241,6 +288,38 @@ def service_metrics(tree):
     return rows
 
 
+def fusion_metrics(tree):
+    """The fusion planner's decision rows from a load_by_pid tree (one
+    `<pipeline>/fusion_plan` log per pipeline, written by fuse.py).
+
+    -> [{name, pipeline_fuse, groups, ring_hops_eliminated,
+         refused: {block: reason}, group_rows: [{name, rule,
+         constituents, ring_hops_eliminated}]}]."""
+    rows = []
+    for block, logs in sorted(tree.items()):
+        kv = logs.get("fusion_plan", {})
+        if not kv or "groups" not in kv:
+            continue
+        group_rows = []
+        for i in range(int(kv.get("groups", 0) or 0)):
+            try:
+                group_rows.append(json.loads(kv.get(f"group{i}") or ""))
+            except (TypeError, ValueError):
+                continue
+        try:
+            refused = json.loads(kv.get("refused", "{}") or "{}")
+        except (TypeError, ValueError):
+            refused = {}
+        rows.append({"name": block,
+                     "pipeline_fuse": kv.get("pipeline_fuse", 0),
+                     "groups": kv.get("groups", 0),
+                     "ring_hops_eliminated":
+                         kv.get("ring_hops_eliminated", 0),
+                     "refused": refused,
+                     "group_rows": group_rows})
+    return rows
+
+
 def fleet_metrics(tree):
     """Fleet-scheduler health rows from a load_by_pid tree (one
     `<fleet>/fleet` log per running scheduler, written by
@@ -259,3 +338,32 @@ def fleet_metrics(tree):
         row.update({k: v for k, v in kv.items() if k != "snapshot"})
         rows.append(row)
     return rows
+
+
+def cmdline(pid):
+    """The process's command line, space-joined ('?' if unreadable)."""
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as f:
+            return f.read().replace(b"\0", b" ").decode().strip()
+    except OSError:
+        return "?"
+
+
+def list_pids(pipelines_only=False, root=None):
+    """The live processes with a tree under `root` (default: the port's),
+    never this process (a tool reading the tree).  `pipelines_only`
+    keeps those with a block's `in` log: every block writes one."""
+    base = root or proclog_root()
+    pids = []
+    if not os.path.isdir(base):
+        return pids
+    for name in os.listdir(base):
+        if not name.isdigit() or int(name) == os.getpid() or \
+                not _pid_alive(int(name)):
+            continue
+        if pipelines_only and not any(
+                "in" in files and os.path.basename(d) != "rings"
+                for d, _dirs, files in os.walk(os.path.join(base, name))):
+            continue
+        pids.append(int(name))
+    return sorted(pids)

@@ -41,6 +41,21 @@ ring.acquire waits.  `WriteSpan.cancel(fence)` retires the ring's final
 reservation without committing it; the writer's next reservation of
 those bytes waits on `fence`, an event after the stream work that
 touched them.
+
+The zero-copy host plane (bifrost_tpu/ring.py:322-329): a writer on a
+host ring may `WriteSpan.publish_external` a buffer of its own instead of
+writing the ring's bytes; the commit files (offset, nbyte, buffer) in a
+side plane keyed by byte offset, and readers of those bytes get a tensor
+that aliases the publisher's memory.  The ring's control plane is
+unchanged: only the payload lives elsewhere.
+
+Every ring writes the ProcLog `rings/<name>` (cpp/src/ring.cpp:183-207):
+its geometry at each resize, and its frontiers at commits, at most every
+`GEOMETRY_LOG_S` seconds; the snapshot is taken under the ring's lock and
+written after it is released.  The log's name (`Ring.log_name`) is unique
+among the process's live rings: where a live ring already logs as
+`<name>` (two pipelines of one topology in one process), the next logs
+as `<name>#2`, `<name>#3`, ...; a ring unlinks only its own log.
 """
 
 from __future__ import annotations
@@ -48,16 +63,43 @@ from __future__ import annotations
 import collections
 import json
 import threading
+import time
 
 import numpy as np
 import torch
 
 from . import device as _device
 from .DataType import DataType
-from .memory import Space, alloc_bytes
+from .memory import SPACEMAP, Space, alloc_bytes
 from .ndarray import tensor_shape
+from .proclog import ProcLog
 
 _ALIGN = 16   # default capacity/ghost granularity: every element divides it
+GEOMETRY_LOG_S = 0.25   # least seconds between two commit-time ring logs
+_LOG_NAMES = set()      # the log names of the process's live rings
+_LOG_NAMES_LOCK = threading.Lock()
+
+
+def _claim_log_name(name):
+    """`name`, else `name#k` for the least k >= 2 that no live ring of
+    this process logs as; claimed until `_release_log_name`."""
+    with _LOG_NAMES_LOCK:
+        cand, k = name, 1
+        while cand in _LOG_NAMES:
+            k += 1
+            cand = f"{name}#{k}"
+        _LOG_NAMES.add(cand)
+        return cand
+
+
+def _release_log_name(name):
+    # No lock: Ring.__del__ calls this whenever the collector runs, which
+    # may be inside _claim_log_name on the same thread; set.discard is
+    # atomic on its own.
+    _LOG_NAMES.discard(name)
+
+
+_OPEN_MODES = ("earliest", "latest", "name", "at", "next")
 
 
 class EndOfDataStop(Exception):
@@ -196,6 +238,17 @@ class _Sequence(object):
         return self.end is not None
 
 
+class _HostBytes(object):
+    """`nbyte` bytes of host memory at `ptr` for np.asarray, holding
+    `keep` (the buffers that own them) as long as the array lives."""
+
+    def __init__(self, ptr, nbyte, keep):
+        self.__array_interface__ = {"data": (int(ptr), False),
+                                    "shape": (int(nbyte),),
+                                    "typestr": "|u1", "version": 3}
+        self._keep = keep
+
+
 class Ring(object):
     instance_count = 0
 
@@ -240,6 +293,27 @@ class Ring(object):
         # CUDA stream handoff (module docstring)
         self._commit_events = collections.deque()   # (begin, end, event)
         self._release_events = []
+        # The zero-copy host plane: sorted (offset, nbyte, ptr, keepref) of
+        # published payloads, and how many spans were published.
+        self._ext_store = []
+        self.published_spans = 0
+        self.log_name = _claim_log_name(name)
+        try:
+            self._proclog = ProcLog(f"rings/{self.log_name}")
+        except OSError:
+            self._proclog = None          # the log is best-effort
+        self._geom_log_t = 0.0
+
+    def __del__(self):
+        # A ring's log goes with it, as the C engine's ring destroys its
+        # ProcLog (cpp/src/ring.cpp ~BTring_impl); the name is this
+        # ring's alone, so no live ring's log is unlinked.
+        log = getattr(self, "_proclog", None)
+        if log is not None:
+            log.remove()
+        log_name = getattr(self, "log_name", None)
+        if log_name is not None:
+            _release_log_name(log_name)
 
     @property
     def _on_cuda(self):
@@ -308,6 +382,32 @@ class Ring(object):
         with self._cond:
             return self._intr_fired, self._intr_acked, self._intr_target
 
+    # ----------------------------------------------------------- ring log
+    def _geometry(self):
+        """The ring log's text (cpp/src/ring.cpp format_geometry; caller
+        holds _cond).  `guarantee` is the slowest guaranteed reader's
+        frontier, else the head: tools read the backlog as reserve_head
+        - guarantee.  `space` is numbered as the JAX engine logs it."""
+        g = self._min_guarantee()
+        return (f"capacity : {self.capacity}\nghost : {self.ghost}\n"
+                f"nringlet : {self.nringlet}\ntail : {self.tail}\n"
+                f"head : {self.head}\nreserve_head : {self.reserve_head}\n"
+                f"guarantee : {self.head if g is None else g}\n"
+                f"space : {SPACEMAP[self.space]}\n")
+
+    def _log(self, text):
+        if self._proclog is not None:
+            self._proclog.update(text)
+
+    def _geometry_if_due(self):
+        """The ring log's text if the last commit-time write is older than
+        GEOMETRY_LOG_S, else None (caller holds _cond)."""
+        now = time.monotonic()
+        if now - self._geom_log_t <= GEOMETRY_LOG_S:
+            return None
+        self._geom_log_t = now
+        return self._geometry()
+
     # ----------------------------------------------------------- geometry
     def resize(self, contiguous_bytes, total_bytes=None, nringlet=1,
                align=_ALIGN):
@@ -357,6 +457,8 @@ class Ring(object):
             self._buf = nbuf
             self.capacity, self.ghost, self.nringlet = cap, ghost, nring
             self._cond.notify_all()
+            text = self._geometry()
+        self._log(text)
 
     # ------------------------------------------------------------ writing
     def begin_writing(self):
@@ -459,7 +561,11 @@ class Ring(object):
             self._cond.notify_all()
         return begin, token, released
 
-    def _commit(self, token, begin, size, commit_size):
+    def _commit(self, token, begin, size, commit_size, ext=None):
+        """Commit `commit_size` bytes of the reservation at `begin`;
+        `ext`: (ptr, keepref) of a published payload (WriteSpan.
+        publish_external), filed in the side plane instead of the ring's
+        bytes, whose ghost mirror it then needs no copy for."""
         with self._cond:
             if commit_size > size:
                 raise ValueError("commit larger than the reservation")
@@ -472,7 +578,10 @@ class Ring(object):
                 for s in self._sequences:
                     if s.finished and s.end > self.reserve_head:
                         s.end = self.reserve_head
-            if commit_size and self._buf is not None:
+            if commit_size and ext is not None:
+                self._plane_put((begin, commit_size) + tuple(ext))
+                self.published_spans += 1
+            elif commit_size and self._buf is not None:
                 self._sync_ghost(begin, commit_size)
                 ev = _device.record_event(self.device) if self._on_cuda \
                     else None
@@ -483,6 +592,66 @@ class Ring(object):
             self._open_wspans.popleft()
             self._ncommit += 1
             self._cond.notify_all()
+            text = self._geometry_if_due()
+        if text is not None:
+            self._log(text)
+
+    # ------------------------------------------------- zero-copy host plane
+    def _plane_put(self, entry):
+        """File (offset, nbyte, ptr, keepref) in the side plane and expire
+        the entries the tail has passed, which pin their buffers
+        (bifrost_tpu/ring.py:395-411; caller holds _cond).  Commits come
+        in offset order, so this appends."""
+        store = self._ext_store
+        store.append(entry)
+        while store and store[0][0] + store[0][1] <= self.tail:
+            store.pop(0)
+
+    def _ext_get(self, offset, nbyte):
+        """-> a uint8 CPU tensor of [offset, offset + nbyte) where published
+        payload covers any of it, else None (bifrost_tpu/ring.py:462-520).
+        Entries that are consecutive slices of one buffer give a view of
+        the publisher's memory; anything else (separate buffers, a span
+        published only in part) is assembled into a copy, the ring's bytes
+        first and the published ranges laid over them, so a published
+        range is never served from unwritten ring bytes.  The tensor keeps
+        the buffers alive while it lives."""
+        if not self._ext_store:
+            return None
+        with self._cond:
+            entries = [e for e in self._ext_store
+                       if e[0] < offset + nbyte and e[0] + e[1] > offset]
+            rows = self._rows(offset, nbyte)[0] if entries else None
+        if not entries:
+            return None
+        covered, ptr0, keep, alias = offset, None, [], True
+        for eoff, enb, eptr, ref in entries:
+            if eoff > covered:
+                alias = False                 # a gap: copied ring bytes
+            lo = max(offset, covered, eoff)
+            hi = min(offset + nbyte, eoff + enb)
+            if hi <= lo:
+                continue
+            p = eptr + (lo - eoff)
+            if ptr0 is None:
+                alias = alias and lo == offset
+                ptr0 = p
+            elif p != ptr0 + (lo - offset):
+                alias = False                 # separate source buffers
+            keep.append(ref)
+            covered = hi
+        if alias and covered >= offset + nbyte:
+            return torch.from_numpy(np.asarray(_HostBytes(ptr0, nbyte,
+                                                          keep)))
+        buf = rows.clone()
+        out = buf.numpy()
+        for eoff, enb, eptr, ref in entries:
+            lo = max(offset, eoff)
+            hi = min(offset + nbyte, eoff + enb)
+            if hi > lo:
+                out[lo - offset:hi - offset] = np.asarray(
+                    _HostBytes(eptr + (lo - eoff), hi - lo, ref))
+        return buf
 
     def _cancel(self, token, begin, size, fence):
         """Retire the final reservation uncommitted (btRingSpanCancel).
@@ -521,31 +690,54 @@ class Ring(object):
         return self._buf[:, p:p + size]
 
     # ------------------------------------------------------------ reading
-    def open_sequence(self, which="earliest", guarantee=True, cur=None):
+    def open_sequence(self, which="earliest", name=None, time_tag=0,
+                      guarantee=True, nonblocking=False, cur=None):
+        """Open a sequence for reading (cpp/src/ring.cpp
+        btRingSequenceOpen): 'earliest' (the first not yet overwritten),
+        'latest', 'name' (the first named `name`), 'at' (the sequence
+        containing `time_tag`: the latest whose tag is <= it; a tag before
+        every live sequence raises ValueError) or 'next' (after `cur`).
+        Waits for such a sequence unless `nonblocking`, which raises
+        BlockingIOError instead; EndOfDataStop once writing has ended."""
+        if which not in _OPEN_MODES:
+            raise ValueError(f"unknown open mode {which!r}")
         hook = self._fault_hook
         if hook is not None:
             hook("ring.open", self)
         with self._cond:
             def find():
+                seqs = self._sequences
                 if which == "earliest":
-                    for s in self._sequences:
-                        if not (s.finished and s.end <= self.tail):
-                            return s
-                    return None
-                if which == "next":
-                    for s in self._sequences:
-                        if s.id > cur._seq.id:
-                            return s
-                    return None
-                raise ValueError(f"unknown open mode {which!r}")
+                    return next((s for s in seqs if not (
+                        s.finished and s.end <= self.tail)), None)
+                if which == "latest":
+                    return seqs[-1] if seqs else None
+                if which == "name":
+                    return next((s for s in seqs if name and
+                                 s.name == name), None)
+                if which == "at":
+                    best = None
+                    for s in seqs:
+                        if s.time_tag <= time_tag:
+                            best = s
+                    return best
+                return next((s for s in seqs if cur is not None and
+                             s.id > cur._seq.id), None)
 
             found = [find()]
+            if found[0] is None and which == "at" and self._sequences:
+                raise ValueError(f"ring {self.name}: time_tag {time_tag} "
+                                 f"precedes every live sequence")
 
             def ready():
                 found[0] = find()
                 return found[0] is not None or self._writing_ended
 
-            self._wait_for(ready, reader=True)
+            if not ready():
+                if nonblocking:
+                    raise BlockingIOError(f"ring {self.name}: open would "
+                                          f"block")
+                self._wait_for(ready, reader=True)
             if found[0] is None:
                 raise EndOfDataStop(f"ring {self.name}: no more sequences")
             seq = found[0]
@@ -554,6 +746,19 @@ class Ring(object):
                 pos = max(self.tail, seq.begin)
                 self._guarantees.append(pos)
         return ReadSequence(self, seq, guarantee, pos)
+
+    def open_earliest_sequence(self, guarantee=True):
+        return self.open_sequence("earliest", guarantee=guarantee)
+
+    def open_latest_sequence(self, guarantee=True):
+        return self.open_sequence("latest", guarantee=guarantee)
+
+    def open_sequence_by_name(self, name, guarantee=True):
+        return self.open_sequence("name", name=name, guarantee=guarantee)
+
+    def open_sequence_at(self, time_tag, guarantee=True):
+        return self.open_sequence("at", time_tag=time_tag,
+                                  guarantee=guarantee)
 
     def cursor(self, guarantee=True):
         """-> a `SequenceCursor` over this ring's sequences."""
@@ -588,10 +793,11 @@ class SequenceCursor(object):
             raise StopIteration
         try:
             if self.cur is None:
-                nxt = self.ring.open_sequence("earliest", self.guarantee)
+                nxt = self.ring.open_sequence("earliest",
+                                              guarantee=self.guarantee)
             else:
-                nxt = self.ring.open_sequence("next", self.guarantee,
-                                              cur=self.cur)
+                nxt = self.ring.open_sequence("next", cur=self.cur,
+                                              guarantee=self.guarantee)
         except EndOfDataStop:
             self.done = True
             raise StopIteration from None
@@ -684,6 +890,7 @@ class WriteSpan(object):
             self.tensor.frame_nbyte
         self.commit_nframe = nframe
         self._committed = False
+        self._ext = None
 
     @property
     def data(self):
@@ -696,13 +903,46 @@ class WriteSpan(object):
     def data(self, value):
         self.data.copy_(value)
 
+    def publish_external(self, arr, nframe=None):
+        """Commit `arr`'s bytes instead of the ring's: readers of this span
+        get a tensor aliasing `arr` (the zero-copy host plane,
+        bifrost_tpu/ring.py:703-733).  `arr`: a C-contiguous numpy array
+        or CPU tensor in the span's storage layout (frame-major,
+        frame_nbyte a frame) covering the frames to commit.  The caller
+        keeps it alive and unmodified until the ring's tail has passed the
+        span (an in-memory source: the run).  Host rings of one ringlet
+        only; every span of a sequence is either published or written."""
+        if self.ring.space == "cuda":
+            raise ValueError("publish_external is for host rings; device "
+                             "rings commit tensors via span.data")
+        if self.tensor.nringlet != 1:
+            raise ValueError("publish_external requires nringlet == 1")
+        if isinstance(arr, torch.Tensor):
+            if arr.device.type != "cpu":
+                raise ValueError("publish_external needs a CPU tensor")
+            contiguous = arr.is_contiguous()
+            ptr, nbyte = arr.data_ptr(), arr.numel() * arr.element_size()
+        else:
+            arr = np.asarray(arr)
+            contiguous = arr.flags.c_contiguous
+            ptr, nbyte = arr.ctypes.data, arr.nbytes
+        if not contiguous:
+            raise ValueError("publish_external needs a C-contiguous buffer")
+        n = self.commit_nframe if nframe is None else nframe
+        need = n * self.tensor.frame_nbyte
+        if nbyte < need:
+            raise ValueError(f"external buffer holds {nbyte} bytes; span "
+                             f"commit needs {need}")
+        self._ext = (ptr, arr)
+        self.commit_nframe = n
+
     def commit(self, nframe=None):
         if self._committed:
             return
         if nframe is None:
             nframe = self.commit_nframe
         self.ring._commit(self._token, self.offset, self.nbyte,
-                          nframe * self.tensor.frame_nbyte)
+                          nframe * self.tensor.frame_nbyte, self._ext)
         self._committed = True
 
     def cancel(self, fence=None):
@@ -880,10 +1120,15 @@ class ReadSpan(object):
     def data(self):
         """Tensor view of the span in the header's axis order.  On a cuda
         ring the caller's stream first waits for the commits that wrote
-        these bytes."""
+        these bytes.  Where the writer published the span
+        (`WriteSpan.publish_external`), the view may alias the
+        publisher's own memory: a reader must not write it."""
         for ev in self._waits:
             _device.wait_event(ev, self.ring.device)
         self._waits = []
+        ext = self.ring._ext_get(self.offset, self.nbyte)
+        if ext is not None:
+            return self.tensor.span_view(ext.view(1, -1), self.nframe)
         rows = self.ring._rows(self.offset, self.nbyte)
         return self.tensor.span_view(rows[:self.tensor.nringlet],
                                      self.nframe)

@@ -121,7 +121,7 @@ Phases, one line each; any failure exits non-zero:
              blocking in turns, EG_PAIRS pairs, at bench.py's dump shape
              (EG_DUMP: 16 x (4, 16,384) f32, gulp 4, depth 8; every run
              bitwise equal to the source) and at the instrument's image
-             frame (EG_IMAGE: 4096 x 128 x 128 cf32, 512 MiB a gulp, 32
+             frame (EG_IMAGE: 4096 x 128 x 128 cf32, 512 MiB a gulp, 16
              gulps replaying 4 distinct frames), there beside
              copy('system') -> callback_sink, the image egress's shape,
              and fed two ways: from the host (the replaying source ->
@@ -153,9 +153,9 @@ Phases, one line each; any failure exits non-zero:
              block and phase, peak device memory; one beam gulp's pinned
              H2D time.
 
-12. service — after [fusion], on [bengine]'s voltages, SV_NINT = 80
+12. service — after [fusion], on [bengine]'s voltages, SV_NINT = 68
              integrations (the FDMT's max_delay is 64, so K1 is on the
-             path): (a) `Service(lwa_instrument_spec(voltages=...))`
+             path: 4 outputs, 2 in the faulted run, which sheds one): (a) `Service(lwa_instrument_spec(voltages=...))`
              and `lwa_instrument_pipeline`, both fused as the spec
              builds them, in SV_PAIRS turns: exit code 0, every block
              "drained", lost == dup == 0, no fault, restart, heartbeat
@@ -196,9 +196,9 @@ Phases, one line each; any failure exits non-zero:
              within 1e-5 (the detector runs on a host ring here, on a
              'cuda' ring there; the FDMT input is the same bytes), the
              burst found; packets/s sent and ingested, frames/s, host
-             seconds by block.  (b) The same stream asked for at 4x and
-             16x real time (256,000 and 1,024,000 packets/s; one walker
-             thread sends what loopback takes): ngood, nmissing and the
+             seconds by block.  (b) The same stream asked for at 4x
+             real time (256,000 packets/s; one walker thread sends what
+             loopback takes): ngood, nmissing and the
              rates reported, not asserted, and the highest rate sent
              without loss named the sustained rate.  (c)
              `Service(lwa_instrument_spec(sock=rx, capture=CP_X))` at
@@ -284,7 +284,7 @@ Phases, one line each; any failure exits non-zero:
              benchmarks/pipeline_async.py's chain, the host unpack
              first, each serialized (strict_sync + serialize_dispatch),
              sync (pipeline_async_depth 1) and async (depth 4), in
-             AS_TURNS = 2 turns: every run's visibilities bitwise the
+             AS_TURNS = 1 turn: every run's visibilities bitwise the
              sync raw head's (its first integration on channel 0 the
              int64 golden), X1 16 launches in each, the executor on the
              copy, correlate and sink blocks at depth 4 only; frames/s
@@ -388,6 +388,30 @@ Phases, one line each; any failure exits non-zero:
              consumers' received bytes/s, the DADA-fed and the pinned and
              unpinned rates, with the card's name and power limit.
 
+20. observe — after [main], at its full width: (a) [main]'s search
+             with its detect sink held OB_HOLD s a gulp while the five
+             tools (like_top, like_ps, like_pmap, like_bmon,
+             pipeline2dot and pipeline2dot --rings), each started as
+             ``python -m bifrost_tpu_torch.tools.<name>`` against this
+             process, read its proclog tree: like_top's ring rows name
+             every ring, like_pmap and pipeline2dot's ring nodes show
+             h2d.out0 and transpose.out0 in 'cuda', like_bmon's rates are
+             above 0, like_ps names the source and the sink, pipeline2dot
+             draws every block edge.  (b) The unpaced search with the
+             `trace` flag on inside trace.start_profile / stop_profile
+             and one trace_scope: the Chrome trace (OB_TRACE_DIR) holds
+             the range and one fdmt_merge_step_kernel event a counted K1
+             launch; the card's idle share over the steady window, first
+             to last K1 event, is printed.  (c) [main] with its source
+             publishing its gulps (ArraySourceBlock.zero_copy, True by
+             default) and copying them (the attribute set to False on
+             the built pipeline), OB_TURNS turns: NGULP spans published by each
+             zero-copy run, none by the others; steady frames/s and the
+             source's and H2D's host seconds by phase.  Every run's
+             dedispersed gulps are bitwise [main]'s, K1 144 launches
+             each; launches go into `launches_by_path` as
+             `observe_tools`, `observe_trace` and `observe_zc<0|1>_t<turn>`.
+
 The launch checks of every phase count all nine kernels (K1, K2, K4,
 K6a, K6b, K5a, K5b, X1, M1).  The line before the last two holds the kernel
 records as JSON, one for each of those kernels; then the card's name and
@@ -457,20 +481,20 @@ GS_GOLDEN_CHANS = (1234, 32 * 8192 + 4096)
 # array_source -> copy('cuda') -> a pooled DeviceSinkBlock, staged and
 # blocking in turns, at bench.py's dump shape (16 frames of (4, 16,384)
 # f32, gulp 4, depth 8) and at the instrument's image frame (4096 x 128 x
-# 128 cf32, 512 MiB a gulp; 32 gulps replaying 4 distinct frames, the
+# 128 cf32, 512 MiB a gulp; 16 gulps replaying 4 distinct frames, the
 # steady state from gulp `skip` on, a check run of 8 gulps), the latter
 # beside copy('system') -> callback_sink, the image egress's shape, fed
 # from the host and from the card.
 EG_DUMP = dict(shape=(16, 4, 16384), gulp=4, depth=8)
-EG_IMAGE = dict(shape=(4096, 128, 128), ndistinct=4, nframe=32,
+EG_IMAGE = dict(shape=(4096, 128, 128), ndistinct=4, nframe=16,
                 check_nframe=8, skip=8, depth=2)
-EG_PAIRS = 3
+EG_PAIRS = 1
 
 # The fusion phase: the beam search and the DQ beam search over [dq]'s
 # voltages (B_NINT integrations), the instrument cut to FX_NINT
 # integrations (the first FX_KEEP images compared), gpuspec (c) at both
 # geometries; FUSION_PAIRS turns of a fused and an unfused run each.
-FUSION_PAIRS, FX_NINT, FX_KEEP = 2, 8, 2
+FUSION_PAIRS, FX_NINT, FX_KEEP = 1, 8, 2
 
 # The service phase: the instrument as one supervised Service at the
 # flagship width on [bengine]'s voltages, SV_NINT integrations deep (the
@@ -478,13 +502,13 @@ FUSION_PAIRS, FX_NINT, FX_KEEP = 2, 8, 2
 # on the path), Service and bare pipeline in SV_PAIRS turns, SV_KEEP
 # images compared whole; the wedge run SV_WEDGE_NINT deep; the
 # mid-stream stop after SV_STOP_AFTER images with a SV_QUIESCE s quiesce.
-SV_NINT, SV_PAIRS, SV_KEEP = 80, 1, 2
+SV_NINT, SV_PAIRS, SV_KEEP = 68, 1, 2
 SV_WEDGE_NINT, SV_STOP_AFTER, SV_QUIESCE = 4, 3, 30.0
 
 # The capture phase: the FRB search over UDP at [main]'s geometry
 # (lwa_frb_search_spec: 64 sources x 64 B = 4096 u8 channels) on the
 # first CP_NGULP gulps of frb_data(), at real time (1,000 frames/s =
-# 64,000 packets/s) and 4x and 16x; the instrument over UDP
+# 64,000 packets/s) and 4x; the instrument over UDP
 # (CP_X: 4 sources x 256 B = one 256 x 2 ci8 frame) on the first CP_NINT
 # integrations of [bengine]'s voltages at CP_X_RATE packets/s (about
 # what one schedule walker sends over loopback), slots of 4096 frames
@@ -493,7 +517,7 @@ SV_WEDGE_NINT, SV_STOP_AFTER, SV_QUIESCE = 4, 3, 30.0
 # capture_slots.py compares slot sizes) and a capture ring holding the
 # whole stream; the chaos harness's --check.
 CP_NGULP, CP_NSRC, CP_PAYLOAD = 4, 64, 64
-CP_RATES = (64_000, 256_000, 1_024_000)
+CP_RATES = (64_000, 256_000)
 CP_NINT, CP_X_RATE = 4, 100_000
 CP_X = dict(nsrc=4, max_payload_size=256, slot_ntime=4096)
 
@@ -536,7 +560,7 @@ FIR_GOLDEN_CHANS, FIR_GOLDEN_NOUT = (0, 1, 137, 511), 4096
 # configuration, cut to AS_NINT integrations; the raw head and the host-
 # unpack chain, each serialized (strict_sync + serialize_dispatch), sync
 # (depth 1) and async (depth AS_DEPTH), in AS_TURNS turns.
-AS_NINT, AS_TURNS, AS_DEPTH = 2, 2, 4
+AS_NINT, AS_TURNS, AS_DEPTH = 2, 1, 4
 
 # bf.map (benchmarks/map_tpu.py's programs, kernel M1): [bengine]'s ci8
 # voltages read raw from the 'cuda' ring, MAP_NGULP gulps of B_GULP
@@ -547,7 +571,7 @@ AS_NINT, AS_TURNS, AS_DEPTH = 2, 2, 4
 MAP_FUNC = "y = 2.0f*x*x.conj() + 1.0f"
 MAP_STENCIL = "y(t,s,p) = x(t,s,p) - x(t-1,s,p)"
 MAP_AXES = ("t", "s", "p")
-MAP_NGULP, MAP_TURNS, MAP_SPLIT, MAP_CI4_NGULP = 8, 2, 4, 8
+MAP_NGULP, MAP_TURNS, MAP_SPLIT, MAP_CI4_NGULP = 8, 1, 4, 8
 # The half-type and packed-complex programs of [map],
 # the half chains' gulps, and the complex transcendentals' tolerance in
 # complex64 ulps of max(|z|, |w|) against PyTorch's kernels
@@ -566,7 +590,7 @@ MAP_SQRT_EDGES = ((3e38, 3e38), (-3.4028234e38, -3.4028234e38),
 # The fleet (fleet.FleetScheduler, phase 18): on [bengine]'s voltages,
 # four tenants sharing the card.  inst: lwa_instrument_spec at the
 # flagship width cut to FL_INST_NINT integrations (the FDMT's
-# B_MAX_DELAY-integration delay plus 4 that it emits, so K1 is on the
+# B_MAX_DELAY-integration delay plus 2 that it emits, so K1 is on the
 # tenant's path); frb: [service] (d)'s registry FRB search, all NGULP
 # gulps; map: [map]'s ci8 frames, FL_MAP_NGULP gulps of B_GULP paced
 # FL_MAP_PACE s a gulp, copy -> map (MAP_FUNC, respecced to FL_MAP_FUNC2
@@ -574,7 +598,7 @@ MAP_SQRT_EDGES = ((3e38, 3e38), (-3.4028234e38, -3.4028234e38),
 # DeviceSinkBlock whose staging quota is one output gulp; flaky: the FRB
 # search cut to FL_FLAKY_NGULP gulps with one fault in its FDMT (its
 # gulp of index FL_FLAKY_NTH); huge: a ring demand above the fleet's.
-FL_INST_NINT = B_MAX_DELAY + 4
+FL_INST_NINT = B_MAX_DELAY + 2
 FL_MAP_NGULP, FL_MAP_PACE, FL_RESPEC_AT = 8, 0.25, (2, 5)
 FL_MAP_FUNC2 = "y = x * x.conj()"
 FL_FLAKY_NGULP, FL_FLAKY_NTH = 4, 2
@@ -587,7 +611,17 @@ RM_NSEQ = 4
 # gulp each), the serializer's file size (bytes a ringlet: 4 gulps of a
 # DM row), pinned/unpinned turns, a consumer's time limit in seconds.
 IPC_RING_GULPS, IPC_DADA_NBUFS, IPC_FILE_SIZE = 4, 4, 4 * GULP * 4
-IPC_TURNS, IPC_CHILD_TIMEOUT = 2, 300
+IPC_TURNS, IPC_CHILD_TIMEOUT = 1, 300
+
+# [observe]: [main]'s search with its detect sink held OB_HOLD s a gulp
+# while the five tools read it from OB_TOOL_AFTER s on (each a process of
+# its own, OB_TOOL_TIMEOUT s at most); the traced run's Chrome trace
+# under OB_TRACE_DIR; OB_TURNS turns of zero-copy and copying runs.
+OB_HOLD, OB_TOOL_TIMEOUT, OB_TURNS = 0.5, 120, 2
+OB_TRACE_DIR = Path("traces") / "observe"
+OB_TOOLS = (("like_top",), ("like_ps",), ("like_pmap",),
+            ("like_bmon", "-i", "1.0"), ("pipeline2dot",),
+            ("pipeline2dot", "--rings"))
 
 # Device-memory rate by card (NVIDIA data sheets), bytes/s
 _HBM_RATE = (("H200", 4.8e12), ("H100 PCIe", 2.0e12), ("H100", 3.35e12))
@@ -2007,6 +2041,283 @@ def main_path(dev):
     return counts
 
 
+def ob_tools(pid):
+    """Start the five tools (OB_TOOLS) against process `pid`, all at
+    once, each through ``python -m`` from this checkout -> their
+    processes."""
+    root = str(Path(__file__).resolve().parent)
+    env = dict(os.environ, PYTHONPATH=root)
+    return [(args, subprocess.Popen(
+        [sys.executable, "-m", f"bifrost_tpu_torch.tools.{args[0]}",
+         *args[1:], str(pid)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=root, env=env))
+        for args in OB_TOOLS]
+
+
+def ob_check_tools(outs, pipe):
+    """The tools' outputs against the live pipeline they read: every
+    ring in like_top's ring rows, h2d.out0 and transpose.out0 in the
+    'cuda' space in like_pmap and pipeline2dot's ring nodes, like_bmon's
+    rates above 0, like_ps's roles, every block edge in pipeline2dot.
+    -> a summary dict."""
+    pid = os.getpid()
+    top, ps, pmap, bmon, dot, dot_rings = outs
+    # The tools name a ring by its log name, unique among live rings.
+    log = {r.name: r.log_name for r in pipe.rings}
+    rings = set(log.values())
+    top_rings = {ln.split("name=")[1] for ln in top.splitlines()
+                 if ln.startswith("ring ")}
+    if not rings <= top_rings:
+        raise AssertionError(f"like_top ring rows {sorted(top_rings)}, "
+                             f"pipeline rings {sorted(rings)}")
+    spaces = {}
+    for ln in pmap.splitlines():
+        f = ln.split()
+        if len(f) > 2 and f[0] in rings:
+            spaces[f[0]] = f[1]
+    if not rings <= spaces.keys() or spaces[log["h2d.out0"]] != "cuda" or \
+            spaces[log["transpose.out0"]] != "cuda":
+        raise AssertionError(f"like_pmap spaces {spaces}")
+    rates = {}
+    for ln in bmon.splitlines():
+        if ln.startswith("rate ") and f"({pid}," in ln:
+            rates[ln.split("'")[1]] = float(ln.rsplit(None, 1)[1])
+    if not rates or max(rates.values()) <= 0:
+        raise AssertionError(f"like_bmon rates {rates}:\n{bmon}")
+    if str(pid) not in ps or "source" not in ps or "sink" not in ps:
+        raise AssertionError(f"like_ps:\n{ps}")
+    edges = set()
+    for b in pipe.blocks:
+        for r in b.irings:
+            src = getattr(r, "base_ring", r).owner.name
+            edges.add(f'"{pid}.{src}" -> "{pid}.{b.name}"')
+    missing = [e for e in edges if e not in dot]
+    if missing:
+        raise AssertionError(f"pipeline2dot lacks {missing}:\n{dot}")
+    for name in (log["h2d.out0"], log["transpose.out0"]):
+        node = next((ln for ln in dot_rings.splitlines()
+                     if f"ring.{name}\" [label=" in ln), "")
+        if " cuda" not in node:
+            raise AssertionError(f"pipeline2dot --rings: {name}: {node!r}")
+    return {"rings": sorted(rings), "spaces": spaces,
+            "bmon_MB_s": rates, "edges": len(edges)}
+
+
+def ob_idle(path, ngulp):
+    """The card's idle share over the traced run's steady window, from
+    its first K1 launch to its last (xe_trace_summary's method: the
+    union of kernels, copies and sets) -> (K1 events, idle share, busy
+    ms a gulp, device ms a gulp by kind)."""
+    events = [e for e in json.loads(Path(path).read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    dev_ev = [e for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    k1 = sorted(e["ts"] for e in dev_ev
+                if "fdmt_merge_step_kernel" in e.get("name", ""))
+    if len(k1) < 2:
+        return len(k1), None, None, {}
+    lo, hi = k1[0], k1[-1]
+    busy, end, kinds = 0.0, lo, {}
+    for e in dev_ev:
+        name = e.get("name", "")
+        if e["cat"] == "kernel":
+            k = "K1" if "fdmt_merge_step_kernel" in name else \
+                "other kernels"
+        elif e["cat"] == "gpu_memset":
+            k = "memset"
+        else:
+            k = next((d for d in ("HtoD", "DtoH", "DtoD") if d in name),
+                     "memcpy")
+        clip = max(0.0, min(e["ts"] + e["dur"], hi) - max(e["ts"], lo))
+        kinds[k] = kinds.get(k, 0.0) + clip / 1e3 / (ngulp - 1)
+    for a, b in sorted((max(e["ts"], lo), min(e["ts"] + e["dur"], hi))
+                       for e in dev_ev):
+        if b > max(a, end):
+            busy += b - max(a, end)
+            end = b
+    return (len(k1), 1 - busy / (hi - lo), busy / 1e3 / (ngulp - 1),
+            {k: round(v, 4) for k, v in kinds.items()})
+
+
+def ob_run(dev, data, zero_copy=True, hold=0.0, on_start=None):
+    """One FRB search as [main] runs it (`zero_copy` set on its source
+    block), its
+    detect sink held `hold` s a gulp; `on_start(pipe)` runs in this
+    thread once the sink has its first gulp, while the pipeline runs on
+    a thread of its own.  -> dict of the gathered dedispersed gulps,
+    launches, wall and steady frames/s, the spans the source published,
+    the source's and H2D's host seconds by phase, on_start's result."""
+    import threading
+
+    from bifrost_tpu_torch.service import frb_search_pipeline
+    chunks = []
+    pipe, det, ledger = frb_search_pipeline(data, GULP, MAX_DELAY, F0, DF,
+                                            DT, device=dev, gather=chunks)
+    src = next(r for r in pipe.rings
+               if type(r.owner).__name__ == "ArraySourceBlock")
+    src.owner.zero_copy = zero_copy
+    if hold:
+        on_data = det.on_data
+
+        def held(ispan):
+            time.sleep(hold)
+            return on_data(ispan)
+        det.on_data = held
+    reset_counts()
+    t0 = time.perf_counter()
+    err, got = [], None
+    if on_start is None:
+        pipe.run()
+    else:
+        def drive():
+            try:
+                pipe.run()
+            except BaseException as e:  # noqa: BLE001 — raised below
+                err.append(e)
+        th = threading.Thread(target=drive)
+        th.start()
+        try:
+            while ledger.first_sink_t is None and th.is_alive():
+                time.sleep(0.01)
+            got = on_start(pipe)
+        finally:
+            th.join()
+        if err:
+            raise err[0]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    counts = read_counts()
+    nframe = GULP * NGULP
+    perf = {b.name: {k: round(v, 4) for k, v in b.perf_totals.items()}
+            for b in pipe.blocks if b is src.owner or b.name == "h2d"}
+    if ledger.committed_frames != nframe - MAX_DELAY:
+        raise AssertionError(f"frame ledger: {ledger.summary()}")
+    return {"chunks": chunks, "counts": counts, "wall": t1 - t0,
+            "frames_s": nframe / (t1 - t0),
+            "steady": (ledger.committed_frames - ledger.first_sink_nframe)
+            / (t1 - ledger.first_sink_t),
+            "published": src.published_spans, "perf": perf,
+            "nsteps": len(det.iring.owner.fdmt._steps), "got": got,
+            "pipe": pipe}
+
+
+def ob_same(run, ref, what):
+    if len(run["chunks"]) != len(ref) or not all(
+            a.shape == b.shape and np.array_equal(a.view(np.uint32),
+                                                  b.view(np.uint32))
+            for a, b in zip(run["chunks"], ref)):
+        raise AssertionError(f"{what}: dedispersed gulps differ from "
+                             f"[main]'s")
+
+
+def observe_path(dev, ref):
+    """[observe]: (a) the five tools against the live FRB search, its
+    detect sink held OB_HOLD s a gulp; (b) the unpaced search traced
+    (`trace` on, inside start_profile / stop_profile), the Chrome trace
+    holding the trace_scope range and one fdmt_merge_step_kernel event a
+    counted launch, the card's idle share over the steady window; (c)
+    [main] zero-copy and copying in OB_TURNS turns.  `ref`: [main]'s
+    dedispersed gulps, which every run equals bitwise.  -> launch counts
+    by run."""
+    from bifrost_tpu_torch import config, trace
+    data = frb_data()
+    counts = {}
+
+    def tools(pipe):
+        procs = ob_tools(os.getpid())
+        outs = []
+        for args, p in procs:
+            out, err = p.communicate(timeout=OB_TOOL_TIMEOUT)
+            if p.returncode != 0:
+                raise AssertionError(f"{' '.join(args)}: exit "
+                                     f"{p.returncode}: {err[-2000:]}")
+            outs.append(out)
+        return outs
+
+    t0 = time.perf_counter()
+    run = ob_run(dev, data, hold=OB_HOLD, on_start=tools)
+    want = expected(fdmt_merge_step=run["nsteps"] * NGULP)
+    if run["counts"] != want:
+        raise AssertionError(f"(a) launches {run['counts']}, expected "
+                             f"{want}")
+    ob_same(run, ref, "(a)")
+    summary = ob_check_tools(run["got"], run["pipe"])
+    counts["observe_tools"] = run["counts"]
+    phase("observe", f"(a) like_top, like_ps, like_pmap, like_bmon, "
+          f"pipeline2dot (python -m, each a process) against the live "
+          f"FRB search, detect held {OB_HOLD} s a gulp ({run['wall']:.1f} "
+          f"s): rings {summary['rings']}; spaces {summary['spaces']}; "
+          f"like_bmon MB/s {summary['bmon_MB_s']}; {summary['edges']} "
+          f"block edges drawn; launches {run['counts']['fdmt_merge_step']}"
+          f"; outputs bitwise [main]'s ({time.perf_counter() - t0:.1f} s)")
+    del run
+    free_device()
+
+    t0 = time.perf_counter()
+    shutil.rmtree(OB_TRACE_DIR, ignore_errors=True)
+    config.set("trace", True)
+    try:
+        trace.start_profile(str(OB_TRACE_DIR), device=dev)
+        try:
+            with trace.trace_scope("observe.frb_search"):
+                run = ob_run(dev, data)
+        finally:
+            path = trace.stop_profile()
+    finally:
+        config.reset("trace")
+    names = {}
+    for e in json.loads(Path(path).read_text())["traceEvents"]:
+        n = e.get("name", "")
+        if n == "observe.frb_search" or n.startswith("block:"):
+            names[n] = names.get(n, 0) + 1
+    nk1, idle, busy, kinds = ob_idle(path, NGULP)
+    launches = run["counts"]["fdmt_merge_step"]
+    if run["counts"] != want or nk1 != launches:
+        raise AssertionError(f"(b) fdmt_merge_step_kernel events {nk1}, "
+                             f"launches {run['counts']}")
+    if "observe.frb_search" not in names:
+        raise AssertionError(f"(b) no trace_scope range in {path}: "
+                             f"{sorted(names)}")
+    ob_same(run, ref, "(b)")
+    counts["observe_trace"] = run["counts"]
+    phase("observe", f"(b) traced run ({Path(path).stat().st_size / 2**20:.1f}"
+          f" MiB Chrome trace, {path}): ranges {names}; "
+          f"fdmt_merge_step_kernel events {nk1} = launches {launches}; "
+          f"steady {run['steady']:.1f} frames/s under the profiler; "
+          f"outputs bitwise [main]'s ({time.perf_counter() - t0:.1f} s)")
+    phase("observe", f"(b) the card over the steady window (first to last "
+          f"K1 launch): idle share {idle:.4f}, busy {busy:.4f} ms a gulp; "
+          f"device ms a gulp by kind {kinds} (the gather sink's D2H "
+          f"included; a reading, not a check)")
+    del run
+    free_device()
+
+    t0 = time.perf_counter()
+    rows = []
+    for turn in range(OB_TURNS):
+        for zc in (True, False):
+            run = ob_run(dev, data, zero_copy=zc)
+            if run["counts"] != want:
+                raise AssertionError(f"(c) launches {run['counts']}")
+            if run["published"] != (NGULP if zc else 0):
+                raise AssertionError(f"(c) zero_copy={zc}: "
+                                     f"{run['published']} spans published")
+            ob_same(run, ref, f"(c) zero_copy={zc}")
+            counts[f"observe_zc{int(zc)}_t{turn}"] = run["counts"]
+            rows.append({"turn": turn, "zero_copy": zc,
+                         "steady_frames_s": round(run["steady"], 1),
+                         "frames_s": round(run["frames_s"], 1),
+                         "published": run["published"],
+                         "host_s": run["perf"]})
+            del run
+            free_device()
+    phase("observe", f"(c) [main] zero-copy and copying in {OB_TURNS} "
+          f"turns, every run bitwise [main]'s, {NGULP} spans published "
+          f"by each zero-copy run: {json.dumps(rows)} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    return counts
+
+
 def dq_work(ntime, ncell, elt_bytes, nrows=0, fill=False, gains=False):
     """Bytes and operations of one K5a or K5b call: the samples read
     once and written once at `elt_bytes` each; K5a's mask rows (1 byte a
@@ -3121,7 +3432,7 @@ def capture_path(dev, volt):
     del svc, a
     free_device()
 
-    # (b) The same stream asked for at 4x and 16x real time: reported
+    # (b) The same stream asked for at 4x real time: reported
     # only.  The sustained rate is the highest rate SENT without loss.
     sustained = sent
     for rate in CP_RATES[1:]:
@@ -5984,6 +6295,9 @@ def main():
     t1 = time.perf_counter()
     counts = {"frb": main_path(dev)}
     free_device()
+    t1b = time.perf_counter()
+    counts.update(observe_path(dev, SOLO["frb"]["gathered"]))
+    free_device()
     t2 = time.perf_counter()
     counts["frbflag"] = frbflag_path(dev)
     free_device()
@@ -6037,7 +6351,7 @@ def main():
     counts.update(ipc_path(dev, kind, smi, ipc_ref))
     del ipc_ref
     phase("timing", f"build {secs:.1f} s, kernels {t1 - t0:.1f} s, main "
-          f"{t2 - t1:.1f} s, frbflag {t3 - t2:.1f} s, bengine "
+          f"{t1b - t1:.1f} s, observe {t2 - t1b:.1f} s, frbflag {t3 - t2:.1f} s, bengine "
           f"{t4 - t3:.1f} s, instrument {t5 - t4:.1f} s, dq "
           f"{t5b - t5:.1f} s, fusion {t5c - t5b:.1f} s, service "
           f"{t5d - t5c:.1f} s, capture {t5e - t5d:.1f} s, fir "

@@ -38,6 +38,16 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _jax_fft_method_default():
+    """The JAX references run at the JAX package's default `fft_method`:
+    tests/test_fusion.py's latch test sets it from a sink callback, and
+    under load a call that lands after the latch is released succeeds and
+    stays set in that process ('matmul', 4e-3 off the 'xla' images)."""
+    from bifrost_tpu import config as jconfig
+    jconfig.reset("fft_method")
+
+
 def _port_harness():
     path = os.path.join(ROOT, "benchmarks_torch", "frb_service.py")
     spec = importlib.util.spec_from_file_location("torch_frb_service", path)

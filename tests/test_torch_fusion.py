@@ -66,6 +66,16 @@ KERNELS = {
 }
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _jax_fft_method_default():
+    """The JAX references run at the JAX package's default `fft_method`:
+    tests/test_fusion.py's latch test sets it from a sink callback, and
+    under load a call that lands after the latch is released succeeds and
+    stays set in that process ('matmul', 4e-3 off the 'xla' images)."""
+    from bifrost_tpu import config as jconfig
+    jconfig.reset("fft_method")
+
+
 @pytest.fixture
 def calls(monkeypatch):
     """Counts of the kernel wrappers' calls (on the CPU each wrapper

@@ -50,6 +50,16 @@ NBLOCK, NCHAN, NTIME, NPOL = 12, 4, 256, 2
 F_AVG, N_INT = 4, 3
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _jax_fft_method_default():
+    """The JAX references run at the JAX package's default `fft_method`:
+    tests/test_fusion.py's latch test sets it from a sink callback, and
+    under load a call that lands after the latch is released succeeds and
+    stays set in that process ('matmul', 4e-3 off the 'xla' images)."""
+    from bifrost_tpu import config as jconfig
+    jconfig.reset("fft_method")
+
+
 def write_guppi(path, io, nblock=NBLOCK, nchan=NCHAN, ntime=NTIME,
                 npol=NPOL, seed=0):
     """A GUPPI RAW file of seeded ci8 voltages in [-8, 8), written with

@@ -45,6 +45,16 @@ NFRAME = NINT * GEOM["n_int"] * GEOM["nchan"]
 TOL = 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _jax_fft_method_default():
+    """The JAX references run at the JAX package's default `fft_method`:
+    tests/test_fusion.py's latch test sets it from a sink callback, and
+    under load a call that lands after the latch is released succeeds and
+    stays set in that process ('matmul', 4e-3 off the 'xla' images)."""
+    from bifrost_tpu import config as jconfig
+    jconfig.reset("fft_method")
+
+
 def _voltages(seed=7):
     rng = np.random.default_rng(seed)
     return rng.integers(-8, 8, (NFRAME, GEOM["nstand"], GEOM["npol"], 2)) \

@@ -349,7 +349,10 @@ def _stencil_run(which):
     entered, release = threading.Event(), threading.Event()
     parked, unpark = threading.Event(), threading.Event()
     plan = FaultPlan(seed=5)
-    plan.wedge_at("block.on_data", block="map", nth=WEDGE_GULP,
+    # The map block's own name: "map@<service>" where a live service of
+    # an earlier test still holds "map".
+    plan.wedge_at("block.on_data", block=svc.blocks["map"].name,
+                  nth=WEDGE_GULP,
                   release=release, entered=entered, timeout=30.0,
                   stamp_heartbeat=True)
     plan.wedge_at("block.on_data", block=f"pace_{which}",

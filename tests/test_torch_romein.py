@@ -36,6 +36,16 @@ from bifrost_tpu_torch.ops.romein_kernel import (grid_general,
 EPS = 2.0 ** -24
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _jax_fft_method_default():
+    """The JAX references run at the JAX package's default `fft_method`:
+    tests/test_fusion.py's latch test sets it from a sink callback, and
+    under load a call that lands after the latch is released succeeds and
+    stays set in that process ('matmul', 4e-3 off the 'xla' images)."""
+    from bifrost_tpu import config as jconfig
+    jconfig.reset("fft_method")
+
+
 def _golden(vis, xs, ys, kern, ngrid):
     """f64 brute force -> (grid, S, D, nmax): the grid, the per-cell sums
     of |d| |K| and of |d|, and the largest number of contributions in a

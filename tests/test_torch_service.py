@@ -41,6 +41,16 @@ DATA = (np.arange(256 * 8, dtype=np.float32).reshape(256, 8) % 23)
 GULP = 16
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _jax_fft_method_default():
+    """The JAX references run at the JAX package's default `fft_method`:
+    tests/test_fusion.py's latch test sets it from a sink callback, and
+    under load a call that lands after the latch is released succeeds and
+    stays set in that process ('matmul', 4e-3 off the 'xla' images)."""
+    from bifrost_tpu import config as jconfig
+    jconfig.reset("fft_method")
+
+
 class FlakyTransform(TransformBlock):
     """Copy transform raising `nfaults` times at gulp `fault_gulp`."""
 
