@@ -21,6 +21,9 @@ class AccumulateBlock(TransformBlock):
     # (pipeline.py, async_reserve_ahead).
     async_reserve_ahead = False
 
+    # The one-frame loop pins the gulp: `mesh_gulp_factor` leaves it be.
+    mesh_gulp_scale_ok = False
+
     def output_nframes_for_gulp(self, rel_frame0, in_nframe):
         """The exact emit schedule: the gulp is one frame and
         `on_sequence` zeroes the count, so an integration ends every

@@ -11,6 +11,16 @@ streams after the copy.
 
 Fusion: as the head of a fused group (fuse.py), `device_kernel()` copies
 the host gulp to the card inside the group, by the same staging.
+
+The sharded copy (bifrost_tpu/blocks/copy.py:69-88): under a `mesh=`
+scope a copy into a 'cuda' ring lays the stream out over the mesh by its
+header labels (`shard=` overrides): the {label: mesh axis} map goes into
+the output header (`parallel.shard.AXES_KEY`), where the transforms
+after it carry it and readers resolve it (`ReadSpan.sharding`), and each
+gulp's copy runs as a guarded sharded dispatch (`Block.mesh_dispatch`),
+so a transfer that never lands surfaces as a supervised ShardFault.  The
+ring holds every shard of a virtual mesh in one buffer, so one copy of
+the gulp places all of them.  A copy back to the host drops the map.
 """
 
 from __future__ import annotations
@@ -36,7 +46,23 @@ class CopyBlock(TransformBlock):
         return super()._output_space()
 
     def on_sequence(self, iseq):
-        return deepcopy_header(iseq.header)
+        from ..parallel.shard import AXES_KEY, mesh_axes_for
+        hdr = deepcopy_header(iseq.header)
+        hdr.pop(AXES_KEY, None)
+        mesh = self.bound_mesh
+        self._mesh = mesh if self.orings[0].space == "cuda" else None
+        if self._mesh is not None and "_tensor" in hdr:
+            t = hdr["_tensor"]
+            gulp = self.gulp_nframe or hdr.get("gulp_nframe", 1)
+            shape = [gulp if n == -1 else n for n in t["shape"]]
+            labels = list(t.get("labels") or [])
+            # strict="axes": a scope-wide shard= override may name labels
+            # other headers of the chain carry; a bad mesh axis raises.
+            axes = mesh_axes_for(mesh, labels, self.shard_labels,
+                                 shape=shape, strict="axes")
+            hdr[AXES_KEY] = {lbl: a for lbl, a in zip(labels, axes)
+                             if a is not None}
+        return hdr
 
     def _stage(self, src):
         """A pinned buffer holding `src`, free of earlier copies."""
@@ -63,6 +89,13 @@ class CopyBlock(TransformBlock):
         return None
 
     def on_data(self, ispan, ospan):
+        if self._mesh is not None:
+            # The mesh as of this gulp: an eviction is seen at once.
+            self.mesh_dispatch(self._copy, ispan, ospan)
+        else:
+            self._copy(ispan, ospan)
+
+    def _copy(self, ispan, ospan):
         ispace, ospace = self.iring.space, self.orings[0].space
         src, dst = ispan.data, ospan.data
         if ospace == "cuda" and ispace != "cuda" and dst.is_cuda:

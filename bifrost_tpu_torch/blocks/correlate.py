@@ -48,7 +48,22 @@ permuted to canonical order when the header's is another, and handed to
 X1 as it lies (the 'f32' engine lifts it to complex64).  A host ring's
 gulp is staged onto the block's device first (in storage form for a
 complex-integer stream), so the engine runs on the card in a card
-pipeline.  Not ported: the mesh engines (ROADMAP A16).
+pipeline.
+
+The mesh (bifrost_tpu/blocks/correlate.py:621-780): under a `mesh=`
+scope the gulp (its storage form, as above) is sharded over the mesh's
+'time' and 'freq' axes (`shard=` maps other labels); each shard runs the
+block's engine on its local block (X1 a shard with `engine='int8'` on
+the card, the f32 product otherwise) and 'freq' shards never
+communicate.  With `mesh_defer_reduce` (the default, latched per
+sequence) every gulp's per-shard partial visibilities are carried
+across the integration with shape-strict adds, no collective, and the
+one psum over 'time' runs at the emit (`mesh_chain_plan`,
+`_CorrelateMeshPlan`, which pipeline.MeshFusedBlock also drives across a
+fused accumulate tail); with it off each gulp's engine psums at once
+(`_xengine_mesh`, the collective-count baseline).  Under a mesh the
+gulp must divide the integration.  A geometry no mesh axis divides runs
+the single-device engine.  Gains fold per shard before the psum.
 
 Fusion: the visibility integration is an accumulate carry, so the block
 joins fused groups (fuse.py) as an integrator stage whose step is this
@@ -69,6 +84,8 @@ from ..ndarray import complex_view
 from ..ops.calibrate import resolve_gains
 from ..ops.runtime import staged_unpack_canonical
 from ..ops.xengine_kernel import xengine_int8, xengine_int8_plain
+from ..parallel.collective import psum, strict_add
+from ..parallel.shard import contiguous, mesh_axes_for, shard_views
 from ..pipeline import TransformBlock
 from ._common import (_canonical_permutation, deepcopy_header,
                       integrate_chunks, store)
@@ -153,12 +170,20 @@ class CorrelateBlock(TransformBlock):
         self._acc = None
         ihdr = iseq.header
         itensor = ihdr["_tensor"]
-        self._perm, _ = _canonical_permutation(itensor.get("labels"))
+        self._perm, self._role_labels = _canonical_permutation(
+            itensor.get("labels"))
         if self._perm[0] != 0:
             raise ValueError(
                 "correlate: the frame (streaming) axis must be time, got "
                 f"labels {itensor['labels']}")
         self._dtype = iseq.tensor.dtype
+        mesh = self.bound_mesh
+        if mesh is not None:
+            # Latched before the gulp checks below read gulp_nframe: the
+            # validated and the executed gulp stay one, and a carried
+            # partial cannot change reduction discipline mid-stream.
+            self._hold_flag_latch("mesh_gulp_factor")
+            self._hold_flag_latch("mesh_defer_reduce")
         ohdr = deepcopy_header(ihdr)
         otensor = ohdr["_tensor"]
         otensor["dtype"] = "cf32"
@@ -184,6 +209,14 @@ class CorrelateBlock(TransformBlock):
                 f"gulp_nframe ({gulp_actual}) exceeds "
                 f"nframe_per_integration ({self.nframe_per_integration}); "
                 f"set gulp_nframe= on the correlate block")
+        if mesh is not None and self.nframe_per_integration % gulp_actual:
+            # The sharded engines take whole gulps: a mid-gulp split
+            # would re-chunk each shard's local time contraction.
+            raise ValueError(
+                f"gulp_nframe ({gulp_actual}) does not divide "
+                f"nframe_per_integration ({self.nframe_per_integration}) "
+                f"under a mesh scope; set gulp_nframe= on the correlate "
+                f"block")
         if self.engine == "int8":
             if gulp_actual >= INT8_MAX_GULP:
                 raise ValueError(
@@ -207,7 +240,18 @@ class CorrelateBlock(TransformBlock):
                           self.cal_header_key)
         self._g = None if g is None else self._stage_gains(g)
         self._dq_pending = False
+        self._mesh_plan = None
+        if mesh is not None:
+            from .. import config
+            if config.get("mesh_defer_reduce"):
+                self._mesh_plan = self.mesh_chain_plan()
         return ohdr
+
+    def mesh_chain_plan(self):
+        """The deferred-reduction plan (the mesh-fusion protocol of
+        pipeline.MeshFusedBlock): per-shard partial visibilities carried
+        across gulps, one psum at each emit.  Valid after on_sequence."""
+        return _CorrelateMeshPlan(self)
 
     # ------------------------------------------ data-quality gain fold
     def set_gains(self, gains):
@@ -299,10 +343,10 @@ class CorrelateBlock(TransformBlock):
             x = x.to(self.device)
         return x, self._dtype.is_complex and self._dtype.is_integer
 
-    def _chunks(self, x, raw):
+    def _prepare(self, x, raw):
         """A gulp (`x` on the block's device, complex-integer storage
-        form when `raw`) -> (the engine over frames [k0, k1), frames,
-        nchan)."""
+        form when `raw`) -> (the engine's input in canonical (time, freq,
+        station*pol[, 2]) order, its X1 form or None)."""
         if self._dq_pending:
             self._apply_pending_gains()
         if raw:
@@ -316,10 +360,35 @@ class CorrelateBlock(TransformBlock):
             xs, fmt = self._voltages(x), None
         if self.engine == "int8" and fmt is None:
             xs, fmt = int8_pairs(xs), "ci8"
+        return xs, fmt
+
+    def _mesh_axes(self, mesh, shape):
+        """(tax, fax) of a gulp of `shape` over `mesh`.  strict="axes":
+        only the time and freq role labels are mapped; a scope-wide
+        shard= override naming other labels falls through, an unknown
+        mesh axis raises."""
+        return tuple(mesh_axes_for(mesh, self._role_labels[:2],
+                                   self.shard_labels, shape=shape[:2],
+                                   strict="axes"))
+
+    def _chunks(self, x, raw):
+        """A gulp -> (the engine over frames [k0, k1), frames, nchan):
+        the sharded engine under a mesh scope (psum per call), else the
+        single-device one."""
+        xs, fmt = self._prepare(x, raw)
         ntime, nchan = xs.shape[0], xs.shape[1]
+        mesh = self.bound_mesh
 
         def engine(k0, k1, out=None):
             xk = xs if k1 - k0 == ntime else xs[k0:k1]
+            if mesh is not None:
+                tax, fax = self._mesh_axes(mesh, xk.shape)
+                if tax is not None or fax is not None:
+                    fn = _xengine_mesh(mesh, tax, fax, self.engine,
+                                       self._g is not None, fmt,
+                                       self._xmethod)
+                    args = (xk,) if self._g is None else (xk, self._g)
+                    return self.mesh_dispatch(fn, *args, mesh=mesh)
             if self.engine == "int8":
                 return self._x8(xk, fmt, out)
             return xengine(xk, self._g, out=out)
@@ -331,6 +400,17 @@ class CorrelateBlock(TransformBlock):
 
     def on_data(self, ispan, ospan):
         x, raw = self._read(ispan)
+        if self._mesh_plan is not None:
+            # Deferred reduction: one collective-free sharded step per
+            # gulp; the one psum runs at the emit.
+            plan = self._mesh_plan
+            plan.step(self, x, raw)
+            self.nframe_integrated += ispan.nframe
+            if self.nframe_integrated >= self.nframe_per_integration:
+                store(ospan, plan.emit(self))
+                self.nframe_integrated = 0
+                return 1
+            return 0
         engine, ntime, nchan = self._chunks(x, raw)
         nsp = self._nstand * self._npol
         if self._acc is None and self.nframe_integrated == 0 and \
@@ -361,6 +441,8 @@ class CorrelateBlock(TransformBlock):
                 f"frames) at sequence end", stacklevel=1)
             self.nframe_integrated = 0
             self._acc = None
+            if self._mesh_plan is not None:
+                self._mesh_plan.reset()
 
     # ------------------------------------------- fused-carry protocol
     fused_carry_warmup_nframe = 0
@@ -405,6 +487,130 @@ class CorrelateBlock(TransformBlock):
         """No constants: the staged gains live on the block
         (re-staged by set_gains at the next gulp boundary)."""
         return ()
+
+
+def _xengine_local(x, engine, gains=None, fmt=None, method="cuda"):
+    """One shard's visibilities (lchan, nsp, nsp) complex64 from its
+    local block `x` (canonical storage of X1 form `fmt`, or complex):
+    the block's single-device engine, X1 on the card for 'int8'."""
+    if engine == "int8":
+        if fmt is None:
+            x, fmt = int8_pairs(x), "ci8"
+        if method == "plain":
+            v = xengine_int8_plain(x, fmt)
+        else:
+            v = xengine_int8(contiguous(x), fmt)
+        return v if gains is None else fold_int8_gains(v, gains)
+    return xengine(x, gains)
+
+
+def _gains_on(gains, x):
+    return gains if gains is None or gains.device == x.device \
+        else gains.to(x.device)
+
+
+def _xengine_mesh(mesh, tax, fax, engine="f32", with_gains=False, fmt=None,
+                  method="cuda"):
+    """The per-gulp-psum mesh X-engine: fn(xm[, gains]) -> (nchan, nsp,
+    nsp) on xm's device.  Each distinct shard of xm (sharded (tax, fax)
+    on its time and freq axes) runs `_xengine_local`, gains folded per
+    shard, then one psum over `tax` (none without one); 'freq' shards
+    never communicate."""
+    def run(xm, *g):
+        gains = g[0] if with_gains else None
+        v = shard_views(mesh, xm, (tax, fax)).map(
+            lambda x: _xengine_local(x, engine, _gains_on(gains, x), fmt,
+                                     method), spec=(fax, None, None))
+        return psum(v, tax).assemble(device=xm.device)
+    return run
+
+
+def _xengine_mesh_partial(mesh, tax, fax, engine="f32", with_acc=False,
+                          with_gains=False, fmt=None, method="cuda"):
+    """The deferred mesh X-engine: fn(xm[, gains][, acc]) -> per-shard
+    partial visibilities (a ShardValues of (1, lchan, nsp, nsp), spec
+    (tax, fax, None, None)), no collective; with `with_acc` the gulp's
+    partials are added to the carried `acc` with shape-strict adds, so a
+    partial carried across a mesh re-factor faults."""
+    def run(xm, *rest):
+        gains = rest[0] if with_gains else None
+        p = shard_views(mesh, xm, (tax, fax)).map(
+            lambda x: _xengine_local(x, engine, _gains_on(gains, x), fmt,
+                                     method)[None],
+            spec=(tax, fax, None, None))
+        return rest[-1].add(p) if with_acc else p
+    return run
+
+
+class _CorrelateMeshPlan(object):
+    """Deferred-reduction state of the mesh X-engine (the mesh-fusion
+    protocol driven by CorrelateBlock's own deferred path and by
+    pipeline.MeshFusedBlock).  `step(owner, x, raw)` folds one gulp into
+    the per-shard partials with one collective-free sharded dispatch
+    (`owner.mesh_dispatch`, so the collective watchdog and the fault
+    seams guard it); `emit(owner)` runs the one deferred psum and
+    returns the output frame.  A geometry no mesh axis divides runs the
+    single-device engine with a replicated length-1 carry.  `owner` is
+    the dispatching block (the fused group when fused)."""
+
+    def __init__(self, block):
+        self.block = block      # the CorrelateBlock (roles, engine, gains)
+        self.pacc = None        # carried partials
+        self.nchan = None
+        self._axes = None       # (tax, fax) the carry was built under
+
+    def reset(self):
+        self.pacc = None
+        self._axes = None
+
+    def step(self, owner, x, raw):
+        b = self.block
+        xs, fmt = b._prepare(x, raw)
+        self.nchan = xs.shape[1]
+        mesh = owner.bound_mesh
+        axes = b._mesh_axes(mesh, xs.shape)
+        if self.pacc is not None and axes != self._axes:
+            # The geometry changed under a carried partial (an eviction
+            # re-factored the mesh): mixing layouts would be wrong, so
+            # fault into the supervised restart, which sheds it.
+            raise RuntimeError(
+                f"{owner.name}: mesh axes changed mid-integration "
+                f"({self._axes} -> {axes}); shedding the carried partial "
+                f"via supervised restart")
+        tax, fax = axes
+        g = b._g
+        if tax is None and fax is None:
+            v = (b._x8(xs, fmt) if b.engine == "int8"
+                 else xengine(xs, g))[None]
+            self.pacc = v if self.pacc is None \
+                else strict_add(self.pacc, v)
+        else:
+            fn = _xengine_mesh_partial(mesh, tax, fax, b.engine,
+                                       with_acc=self.pacc is not None,
+                                       with_gains=g is not None, fmt=fmt,
+                                       method=b._xmethod)
+            args = (xs,) + ((g,) if g is not None else ())
+            if self.pacc is not None:
+                args += (self.pacc,)
+            self.pacc = owner.mesh_dispatch(fn, *args, mesh=mesh)
+        self._axes = axes
+        return self.pacc
+
+    def emit(self, owner):
+        """The deferred reduction: one psum when 'time' is sharded, none
+        on a freq-only mesh -> one output frame (1, nchan, nstand, npol,
+        nstand, npol)."""
+        tax, fax = self._axes
+        if tax is None and fax is None:
+            v = self.pacc[0]
+        else:
+            from ..parallel import fuse
+            mesh = owner.bound_mesh
+            v = owner.mesh_dispatch(
+                fuse.make_reduce(mesh, tax, (fax, None, None)), self.pacc,
+                mesh=mesh)
+        self.reset()
+        return v.reshape(self.block._emit_shape(self.nchan))
 
 
 def correlate(iring, nframe_per_integration, *args, **kwargs):

@@ -93,7 +93,7 @@ class FirBlock(TransformBlock):
             ohdr["gulp_nframe"] = max(ihdr["gulp_nframe"] // self.decim, 1)
         if not hasattr(self, "_plan_proclog"):
             from ..proclog import ProcLog
-            self._plan_proclog = ProcLog(f"{self.name}/fir_plan")
+            self._plan_proclog = ProcLog(f"{self.log_name}/fir_plan")
         self.fir._runtime.publish_proclog(self._plan_proclog, extra={
             "method": self.fir.method, "origin": "host",
             "ntap": self.fir.ntap, "decim": self.decim})

@@ -252,7 +252,7 @@ class MapBlock(TransformBlock):
                     ot[k] = None
         if not hasattr(self, "_plan_proclog"):
             from ..proclog import ProcLog
-            self._plan_proclog = ProcLog(f"{self.name}/map_plan")
+            self._plan_proclog = ProcLog(f"{self.log_name}/map_plan")
         self.op._runtime.publish_proclog(self._plan_proclog, extra={
             "method": resolved,
             "origin": "host",

@@ -23,6 +23,15 @@ warning.
 Fusion: the block declares the fused-carry protocol, so a fused group
 (fuse.py) threads the (ntap-1)-spectrum history through its carry step,
 the plan's own `step`/`step_raw` with the history passed in.
+
+The mesh: under a `mesh=` scope the gulp is sharded over the time
+label's mesh axis (where it divides the gulp's spectra and every shard
+holds the ntap-1 spectra of history): each time shard runs the MAC (K2)
+and the DFT on its own frames, from the last ntap-1 folded frames of the
+shard before it (`parallel.collective.halo`, one collective-permute a
+gulp; the first shard from the carried history), as a guarded dispatch.
+The same MAC rows in the same order as the whole gulp, so bitwise it.
+The JAX block has no mesh code: XLA partitions its jitted program.
 """
 
 from __future__ import annotations
@@ -34,6 +43,8 @@ import numpy as np
 from ..DataType import DataType
 from ..ndarray import complex_view
 from ..ops.pfb import Pfb
+from ..parallel.collective import halo
+from ..parallel.shard import mesh_axes_for, shard_views
 from ..pipeline import TransformBlock
 from ..units import convert_units, transform_units
 from ._common import deepcopy_header, store
@@ -78,6 +89,9 @@ class PfbBlock(TransformBlock):
             raise ValueError(
                 f"pfb: the frame (streaming) axis must lead (time-first), "
                 f"got shape {itensor['shape']}")
+        if self.bound_mesh is not None:
+            # The gulp checked below is the gulp the loop reads.
+            self._hold_flag_latch("mesh_gulp_factor")
         gulp_actual = self.gulp_nframe or ihdr.get("gulp_nframe", 1)
         if gulp_actual % self.nchan:
             raise ValueError(
@@ -101,6 +115,7 @@ class PfbBlock(TransformBlock):
         ot["dtype"] = "cf32"
         ot["shape"] = [-1, self.nchan] + list(itensor["shape"][1:])
         labels = itensor.get("labels")
+        self._time_label = labels[0] if labels else "time"
         if labels is not None:
             ot["labels"] = [labels[0], "freq"] + list(labels[1:])
         scales = itensor.get("scales")
@@ -141,22 +156,58 @@ class PfbBlock(TransformBlock):
                 stacklevel=1)
         return n
 
+    def _mesh_tax(self, mesh, nspec):
+        """The time label's mesh axis for a gulp of `nspec` spectra, where
+        it divides them and each shard holds the ntap-1 spectra of
+        history; else None (the whole gulp at once)."""
+        tax = mesh_axes_for(mesh, [self._time_label], self.shard_labels,
+                            shape=(nspec,), strict="axes")[0]
+        if tax is not None and nspec // mesh.shape[tax] < self.pfb.ntap - 1:
+            return None
+        return tax
+
+    def _run_shards(self, xf, nstream, ncomp, chan_shape, out, mesh, tax):
+        """One folded gulp over the time shards of `mesh` (module
+        docstring), into `out`."""
+        xs = shard_views(mesh, xf, (tax,))
+        ai = mesh.axis_names.index(tax)
+        first = {}
+        for flat in range(mesh.size):
+            c = mesh.coords(flat)
+            if not any(v for i, v in enumerate(c) if i != ai):
+                first[c[ai]] = xs.values[flat]
+        shards = [first[k] for k in range(mesh.shape[tax])]
+        self.pfb.run_shards(shards, halo(shards, self.pfb.ntap - 1),
+                            nstream, ncomp, chan_shape, out)
+
     def on_data(self, ispan, ospan):
         n = self._whole(ispan.nframe)
         if n == 0:
             return 0
         out = ospan.data[:n // self.nchan]
         raw = ispan.data_storage
+        mesh = self.bound_mesh
+        tax = None if mesh is None else self._mesh_tax(mesh, n // self.nchan)
         if raw is not None:
             raw = raw[:n]
-            self.pfb.execute_raw(raw, str(self._dtype), out=out)
             self._raw_reads += 1
             self._raw_read_nbyte += raw.numel() * raw.element_size()
+            if tax is None:
+                self.pfb.execute_raw(raw, str(self._dtype), out=out)
+            else:
+                xf, nstream, chan_shape = self.pfb.fold_raw(
+                    raw, str(self._dtype))
+                self.mesh_dispatch(self._run_shards, xf, nstream, 2,
+                                   chan_shape, out, mesh, tax, mesh=mesh)
         else:
             x = ispan.data[:n]
             if self._dtype.is_complex and self._dtype.is_integer:
                 x = complex_view(x, self._dtype)
-            store(ospan, self.pfb.execute(x))
+            if tax is None:
+                store(ospan, self.pfb.execute(x))
+            else:
+                self.mesh_dispatch(self._run_shards, *self.pfb.fold(x), out,
+                                   mesh, tax, mesh=mesh)
         return n // self.nchan
 
     def plan_report(self):

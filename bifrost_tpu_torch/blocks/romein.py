@@ -136,7 +136,7 @@ class GridderBlock(TransformBlock):
         rep = self.romein.plan_report()
         if not hasattr(self, "_plan_proclog"):
             from ..proclog import ProcLog
-            self._plan_proclog = ProcLog(f"{self.name}/romein_plan")
+            self._plan_proclog = ProcLog(f"{self.log_name}/romein_plan")
         self._plan_proclog.update({
             "method": rep["method"], "origin": rep["origin"],
             "plan_build_s": round(rep["plan_build_s"], 6),

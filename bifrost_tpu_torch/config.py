@@ -97,6 +97,11 @@ def _validate_nonneg_float(name, value):
                          f"got {value!r}")
 
 
+def _validate_pos_int(name, value):
+    if not isinstance(value, int) or isinstance(value, bool) or value < 1:
+        raise ValueError(f"{name} must be a positive integer, got {value!r}")
+
+
 def _validate_pos_float(name, value):
     if not isinstance(value, (int, float)) or isinstance(value, bool) or \
             not value > 0:
@@ -171,6 +176,35 @@ FLAGS = {f.name: f for f in [
          "block on one thread and one CUDA stream with no rings between "
          "its stages.  Off keeps every block, the unfused baseline.  "
          "Latched per sequence by every fused group."),
+    Flag("mesh_defer_reduce", True,
+         "Defer mesh reduction collectives to emit boundaries: the "
+         "sharded X- and B-engines carry per-shard partials across gulps "
+         "(and across fused chains, pipeline.MeshFusedBlock) and run ONE "
+         "psum per emitted integration instead of one per gulp "
+         "(parallel/fuse.py).  Off = the per-gulp-psum engines, the "
+         "collective-count baseline.  Latched per sequence by the mesh "
+         "compute blocks: a carried partial cannot change reduction "
+         "discipline mid-stream.",
+         env="BIFROST_TPU_MESH_DEFER_REDUCE"),
+    Flag("mesh_gulp_factor", 1,
+         "Multiply the resolved gulp_nframe by this factor for blocks "
+         "under a `mesh=` scope (blocks that pin their gulp, accumulate, "
+         "are exempt through Block.mesh_gulp_scale_ok): larger sharded "
+         "gulps amortize the per-gulp work of every shard.  Chain "
+         "geometry must still divide (integration length % gulp == 0).  "
+         "Latched per sequence by the mesh compute blocks.  1 is inert.",
+         validate=lambda v: _validate_pos_int("mesh_gulp_factor", v),
+         env="BIFROST_TPU_MESH_GULP_FACTOR"),
+    Flag("mesh_collective_timeout_s", 0.0,
+         "Mesh collective watchdog deadline in seconds: a sharded "
+         "dispatch (Block.mesh_dispatch, parallel.fx.make_fx_step) that "
+         "has not returned within it is declared a supervised "
+         "ShardFault(device, block, gulp) (parallel/faultdomain.py).  0 "
+         "disables the watchdog.  Set it above the longest healthy "
+         "dispatch, kernel builds included, or pay spurious evictions.",
+         validate=lambda v: _validate_nonneg_float(
+             "mesh_collective_timeout_s", v),
+         env="BIFROST_TPU_MESH_COLLECTIVE_TIMEOUT"),
     Flag("fused_async", True,
          "A fused group with an accumulate tail and a guaranteed reader "
          "hands the gulps that complete no integration to its worker "

@@ -454,7 +454,7 @@ class DeviceSinkBlock(SinkBlock):
         self._egress_drained_gulps = 0
         self._egress_fault_hook = None   # fault injection (faultinject.py)
         self.egress_pool = None
-        self.egress_proclog = ProcLog(f"{self.name}/egress")
+        self.egress_proclog = ProcLog(f"{self.log_name}/egress")
 
     # -- subclass interface
     def on_sink_sequence(self, iseq):

@@ -30,8 +30,15 @@ Sites (hooks cost one attribute load when no plan is attached):
 - ``udp.recv`` / ``capture.packet`` — through the `_udp_fault_hook`
   seam of a capture-shaped block (before a recv window / after one that
   ingested packets).
-- ``collective.enter`` / ``shard.dispatch`` / ``shard.lost`` — the mesh
-  sites; arming one raises NotImplementedError (ROADMAP A16).
+- ``collective.enter`` / ``shard.lost`` / ``shard.dispatch`` — on a mesh
+  block's dispatching thread through its ``_collective_fault_hook`` seam
+  (parallel/faultdomain.guarded_call), in that order for every guarded
+  dispatch: ``shard.lost`` is the home of `lose_shard_at` (a `call` that
+  marks a device lost, so the loss precedes the dispatch it afflicts),
+  ``shard.dispatch`` fires just before the sharded call.  A wedge at
+  ``shard.dispatch`` is a shard that never reaches the reduction: the
+  collective watchdog (`mesh_collective_timeout_s`) declares a
+  ShardFault and the wedge loop breaks on the block's ``_shard_abort``.
 
 Actions: ``raise`` (`exc`, default InjectedFault), ``delay``
 (`seconds`), ``wedge`` (block on a `threading.Event`, optionally
@@ -57,7 +64,6 @@ SITES = ("ring.reserve", "ring.acquire", "ring.open", "block.on_data",
          "source.reserve", "egress.stage", "egress.drain",
          "udp.recv", "capture.packet",
          "collective.enter", "shard.dispatch", "shard.lost")
-# Mesh fault domains are not ported: arming these sites is refused.
 _COLLECTIVE_SITES = ("collective.enter", "shard.dispatch", "shard.lost")
 ACTIONS = ("raise", "delay", "wedge", "interrupt", "call")
 
@@ -88,10 +94,6 @@ class _Point(object):
                  **kwargs):
         if site not in SITES:
             raise ValueError(f"unknown site {site!r} (one of {SITES})")
-        if site in _COLLECTIVE_SITES:
-            raise NotImplementedError(
-                f"fault site {site!r}: mesh fault domains are not ported "
-                f"yet (ROADMAP A16)")
         if action not in ACTIONS:
             raise ValueError(f"unknown action {action!r} (one of {ACTIONS})")
         self.site = site
@@ -141,6 +143,7 @@ class FaultPlan(object):
         self._wrapped = []      # (block, original on_data)
         self._egress_hooked = []   # DeviceSinkBlocks with the hook set
         self._udp_hooked = []      # capture blocks with the hook set
+        self._coll_hooked = []     # mesh blocks with the collective hook
 
     # -------------------------------------------------------------- arming
     def inject(self, site, action, block=None, ring=None, nth=0, count=1,
@@ -177,6 +180,19 @@ class FaultPlan(object):
     def call_at(self, site, fn, **where):
         return self.inject(site, "call", fn=fn, **where)
 
+    def lose_shard_at(self, site, device, **where):
+        """Arm a `call` point that marks `device` lost in the fault-domain
+        registry (parallel/faultdomain.mark_lost): a device dying on the
+        virtual mesh, deterministically.  Armed at ``shard.lost``, it
+        fires before the same dispatch's ``shard.dispatch``, so a wedge
+        armed there with the same nth is attributed to `device`."""
+
+        def fire(_site, _block, _obj):
+            from .parallel.faultdomain import mark_lost
+            mark_lost(device)
+
+        return self.inject(site, "call", fn=fire, **where)
+
     # ----------------------------------------------------------- lifecycle
     def attach(self, pipeline):
         """Install the hooks on `pipeline`'s rings and blocks."""
@@ -192,6 +208,8 @@ class FaultPlan(object):
                        if p.site.startswith("egress.")}
         want_udp = {p.block for p in self.points
                     if p.site in ("udp.recv", "capture.packet")}
+        want_coll = {p.block for p in self.points
+                     if p.site in _COLLECTIVE_SITES}
         for b in pipeline.blocks:
             # Fused groups answer to their constituents' names too: a
             # plan armed on a block that later fused installs its hooks
@@ -205,6 +223,10 @@ class FaultPlan(object):
                     (None in want_udp or names & want_udp):
                 b._udp_fault_hook = self._udp_hook
                 self._udp_hooked.append(b)
+            if want_coll and hasattr(b, "_collective_fault_hook") and \
+                    (None in want_coll or names & want_coll):
+                b._collective_fault_hook = self._collective_hook
+                self._coll_hooked.append(b)
             if want_on_data and (None in want_on_data or
                                  names & want_on_data):
                 # Remember whether on_data was an INSTANCE attribute so
@@ -235,6 +257,9 @@ class FaultPlan(object):
         for b in self._udp_hooked:
             b._udp_fault_hook = None
         del self._udp_hooked[:]
+        for b in self._coll_hooked:
+            b._collective_fault_hook = None
+        del self._coll_hooked[:]
         self._pipeline = None
         return self
 
@@ -271,6 +296,9 @@ class FaultPlan(object):
         self._dispatch((site,), block, block)
 
     def _udp_hook(self, site, block):
+        self._dispatch((site,), block, block)
+
+    def _collective_hook(self, site, block):
         self._dispatch((site,), block, block)
 
     def _wrap_on_data(self, block, orig):
@@ -331,6 +359,12 @@ class FaultPlan(object):
             while release is not None and not release.is_set():
                 if time.monotonic() >= deadline:
                     break  # bounded: a broken script must not hang a test
+                if block is not None and \
+                        getattr(block, "_shard_abort", None) is not None:
+                    # The collective watchdog declared a ShardFault at
+                    # this block: unpark, so the dispatch scope raises it
+                    # (faultdomain.guarded_call).
+                    break
                 if kw.get("stamp_heartbeat") and block is not None:
                     block._heartbeat = time.monotonic()
                 release.wait(0.02)

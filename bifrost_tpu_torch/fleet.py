@@ -40,8 +40,9 @@ runs many such chains (tenants) on one device:
 - **Elastic operations**: `respec(tenant, stage, new_stage)` splices a
   replacement stage into a running tenant's chain (Service.respec);
   `resize(tenant, n)` changes a tenant's declared device share,
-  reclaiming from strictly lower-priority tenants when it grows (on the
-  port no mesh is rebuilt: ROADMAP item 17); `redeploy(specs)` rolls
+  reclaiming from strictly lower-priority tenants when it grows, and
+  takes effect through the effective-mesh rebuild and realign
+  (`faultdomain.note_geometry_change`); `redeploy(specs)` rolls
   replacement specs through the fleet one tenant at a time (ascending
   priority, each predecessor's exit report handed to its successor's
   factory as `warm_start`), bounded by a deadline and abortable
@@ -845,9 +846,10 @@ class FleetScheduler(object):
         capacity at once (an admission pass backfills the queue); a grow
         reclaims from strictly lower-priority running tenants, lowest
         first, after a feasibility check (an infeasible grow raises and
-        sheds no one).  The running tenant is not restarted; the change
-        is booked in the registry (`note_geometry_change`), which rebuilds
-        no mesh on the port (ROADMAP item 17)."""
+        sheds no one).  The running tenant is not restarted: the new
+        share takes effect through `faultdomain.note_geometry_change()`,
+        the effective-mesh rebuild and realign, so every guarded dispatch
+        re-resolves its mesh at its next gulp edge."""
         ndevices = int(ndevices)
         if ndevices < 0:
             raise ValueError("ndevices must be >= 0")

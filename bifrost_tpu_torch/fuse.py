@@ -68,11 +68,22 @@ follow a sub-byte quantize).  A quantize to a sub-byte REAL type folds
 several values a byte, which the next stage's header shape cannot hold:
 it may end a group, not extend one (``dtype_incompatible``).
 
-The JAX planner's third rule, ``mesh_chain``, needs the mesh layer
-(parallel/, not ported): its ``mesh_*`` reasons stay in ``REASONS`` and
-are never given.  Under the ``strict_sync`` config flag nothing is
-fused: every block the planner considers gets the ``strict_sync``
-reason and runs on its own, synchronised each gulp.
+``mesh_chain`` (applied first, bifrost_tpu/fuse.py:251-318)
+    A mesh-dispatched compute block declaring the mesh-fusion protocol
+    (``mesh_chain_plan``: the correlate and beamform blocks under a
+    ``mesh=`` scope) plus its one-reader accumulate tail becomes a
+    ``pipeline.MeshFusedBlock``: per-shard partials carried across every
+    gulp and the constituent boundary, one psum per emitted frame.
+    Gated on the ``mesh_defer_reduce`` config flag (off keeps the
+    per-block, per-gulp-psum chain: ``mesh_defer_reduce_off``, or
+    ``mesh_integrator`` for a B/X engine), both fuse-scoped, both rings
+    on the card; a head without such a tail is refused
+    (``mesh_integrator`` for a B/X engine, ``mesh_head_unfused``
+    otherwise, ``multi_reader`` with two readers).
+
+Under the ``strict_sync`` config flag nothing is fused by the device
+rules: every block they consider gets the ``strict_sync`` reason and
+runs on its own, synchronised each gulp.
 
 Every block the planner considered and did not fuse carries its reason
 (``REASONS``); ``Pipeline.fusion_report()`` returns the plan, and
@@ -170,7 +181,10 @@ class FusionPlan(object):
         # {"name", "rule", "constituents", "ring_hops_eliminated"}
         self.groups = []
         self.refused = {}    # block name -> reason key
-        self.flags = {"pipeline_fuse": bool(config.get("pipeline_fuse"))}
+        self.flags = {
+            "pipeline_fuse": bool(config.get("pipeline_fuse")),
+            "mesh_defer_reduce": bool(config.get("mesh_defer_reduce")),
+        }
 
     def note_group(self, name, rule, constituents, hops):
         self.groups.append({
@@ -198,11 +212,11 @@ class FusionPlan(object):
 
     def publish(self):
         """Flatten onto the ``<pipeline>/fusion_plan`` ProcLog, with the
-        JAX plan's keys (``mesh_defer_reduce`` is 0: no mesh rule)."""
+        JAX plan's keys."""
         from .proclog import ProcLog
         entry = {
             "pipeline_fuse": int(self.flags["pipeline_fuse"]),
-            "mesh_defer_reduce": 0,
+            "mesh_defer_reduce": int(self.flags["mesh_defer_reduce"]),
             "groups": len(self.groups),
             "ring_hops_eliminated": self.ring_hops_eliminated,
             "refused": json.dumps(self.refused),
@@ -213,6 +227,67 @@ class FusionPlan(object):
                  "constituents": g["constituents"],
                  "ring_hops_eliminated": g["ring_hops_eliminated"]})
         ProcLog(f"{self.pipeline_name}/fusion_plan").update(entry)
+
+
+# ------------------------------------------------------------- mesh rule
+def _mesh_head_ok(b):
+    return (hasattr(b, "mesh_chain_plan") and
+            bool(b._lookup("fuse")) and
+            b.bound_mesh is not None and
+            len(getattr(b, "orings", [])) == 1 and
+            getattr(b.orings[0], "space", None) == "cuda" and
+            getattr(_ring_base(b.irings[0]), "space", None) == "cuda")
+
+
+def _mesh_tail_ok(t):
+    from .blocks.accumulate import AccumulateBlock
+    return (isinstance(t, AccumulateBlock) and
+            bool(t._lookup("fuse")) and
+            t.dtype is None and
+            len(getattr(t, "orings", [])) == 1 and
+            getattr(t.orings[0], "space", None) == "cuda")
+
+
+def _apply_mesh_rule(pipeline, fplan, build=True):
+    """Collapse fuse-scoped mesh compute heads and their accumulate tails
+    into MeshFusedBlocks, gated on ``mesh_defer_reduce``.  -> the ids of
+    the blocks a ``build=False`` pass claimed (the device rule skips
+    them)."""
+    from . import config
+    from .pipeline import MeshFusedBlock, _view_transforms
+    enabled = bool(config.get("mesh_defer_reduce"))
+    readers = _readers_map(pipeline)
+    taken = set()
+    for b in list(pipeline.blocks):
+        if isinstance(b, MeshFusedBlock):
+            # An earlier (idempotent) pass built this group.
+            fplan.note_group(b.name, "mesh_chain", b.constituent_names, 1)
+            continue
+        if not _mesh_head_ok(b):
+            continue
+        if not enabled:
+            fplan.note_refusal(b, "mesh_integrator" if _integrator_nacc(b)
+                               else "mesh_defer_reduce_off")
+            continue
+        rs = readers.get(id(b.orings[0]), [])
+        if len(rs) != 1:
+            fplan.note_refusal(b, "multi_reader")
+            continue
+        if not _mesh_tail_ok(rs[0]):
+            fplan.note_refusal(b, "mesh_integrator" if _integrator_nacc(b)
+                               else "mesh_head_unfused")
+            continue
+        tail = rs[0]
+        if not build:
+            fplan.note_group(f"MeshFused_{b.name}+{tail.name}",
+                             "mesh_chain", [b.name, tail.name], 1)
+            taken.update((id(b), id(tail)))
+            continue
+        fused = MeshFusedBlock(b, tail, _view_transforms(tail.irings[0]))
+        pipeline.blocks[pipeline.blocks.index(b)] = fused
+        pipeline.blocks.remove(tail)
+        fplan.note_group(fused.name, "mesh_chain", [b.name, tail.name], 1)
+    return taken
 
 
 # ----------------------------------------------------- device-chain rule
@@ -300,19 +375,22 @@ def _boundary_extends(b):
     return True
 
 
-def _apply_device_rule(pipeline, fplan, build=True):
+def _apply_device_rule(pipeline, fplan, build=True, taken=()):
     """The device_chain and stateful_chain rules in one walk.  With
     ``build=False`` (:func:`plan`) the decisions are recorded and the
-    pipeline is left alone."""
+    pipeline is left alone; `taken` holds the ids of blocks a mesh pass
+    claimed without building."""
     from . import config
     from . import device as _device
-    from .pipeline import TransformBlock, _view_transforms
+    from .pipeline import MeshFusedBlock, TransformBlock, _view_transforms
     from .blocks.copy import CopyBlock
 
     enabled = bool(config.get("pipeline_fuse"))
     strict = _device.needs_strict_sync()
     readers = _readers_map(pipeline)
-    used = set()
+    used = set(taken)
+    used.update(id(b) for b in pipeline.blocks
+                if isinstance(b, MeshFusedBlock))
     chains = []
 
     def fusable(b):
@@ -421,12 +499,16 @@ def _apply_device_rule(pipeline, fplan, build=True):
 
 
 # -------------------------------------------------------------- planner
-def apply(pipeline):
+def apply(pipeline, rules=("mesh_chain", "device_chain")):
     """Plan and apply fusion on `pipeline` (idempotent: groups from an
     earlier pass are recognised, never fused again) -> the
-    :class:`FusionPlan`, also kept as ``pipeline._fusion_plan``."""
+    :class:`FusionPlan`, also kept as ``pipeline._fusion_plan``.  Mesh
+    chains fuse first."""
     fplan = FusionPlan(pipeline)
-    _apply_device_rule(pipeline, fplan)
+    if "mesh_chain" in rules:
+        _apply_mesh_rule(pipeline, fplan)
+    if "device_chain" in rules:
+        _apply_device_rule(pipeline, fplan)
     pipeline._fusion_plan = fplan
     fplan.publish()
     return fplan
@@ -436,7 +518,8 @@ def plan(pipeline):
     """The decisions :func:`apply` would make, with no side effects: the
     block list is untouched and no group is built."""
     fplan = FusionPlan(pipeline)
-    _apply_device_rule(pipeline, fplan, build=False)
+    taken = _apply_mesh_rule(pipeline, fplan, build=False)
+    _apply_device_rule(pipeline, fplan, build=False, taken=taken)
     return fplan
 
 

@@ -22,8 +22,9 @@ no padding, so none of that is ported.  Weights are staged to the device
 once per `set_weights` (once per block sequence) as one (nbeam, nsp)
 complex64 tensor.  ``execute_raw`` takes ci8 ring storage in header axis
 order and hands it to the kernel at 2 B/sample after at most one
-transpose; packed ci4 storage is unpacked to that form first.  The mesh variants (station tensor parallelism, beam
-sharding) are not ported.
+transpose; packed ci4 storage is unpacked to that form first.  The mesh
+variants (station tensor parallelism, beam sharding) live in
+blocks/beamform.py, which runs this plan's engine shard by shard.
 """
 
 from __future__ import annotations

@@ -177,10 +177,9 @@ class Pfb(object):
         y, _ = self.step(idata, None)
         return finalize(y, out=odata)
 
-    def step(self, idata, state):
-        """`execute` from an explicit history `state` (None: the plan's
-        own) -> (y, state'): the fused group's carry step (the block's
-        `device_kernel_carry`)."""
+    def fold(self, idata):
+        """A logical gulp (ntime, ...stream...) -> (its folded frames
+        (ntime // nchan, lanes), nstream, ncomp, stream shape)."""
         x = _as_tensor(idata)
         ntime = x.shape[0]
         if ntime % self.nchan:
@@ -191,14 +190,42 @@ class Pfb(object):
         nstream = int(np.prod(chan_shape)) if chan_shape else 1
         xm = x.reshape(ntime, nstream)
         if x.is_complex():
-            ncomp = 2
-            xf = fold_frames(xm.real.float(), xm.imag.float(), self.nchan)
-        else:
-            ncomp = 1
-            xf = fold_frames(xm.float(), None, self.nchan).contiguous()
+            return (fold_frames(xm.real.float(), xm.imag.float(),
+                                self.nchan), nstream, 2, chan_shape)
+        return (fold_frames(xm.float(), None, self.nchan).contiguous(),
+                nstream, 1, chan_shape)
+
+    def step(self, idata, state):
+        """`execute` from an explicit history `state` (None: the plan's
+        own) -> (y, state'): the fused group's carry step (the block's
+        `device_kernel_carry`)."""
+        xf, nstream, ncomp, chan_shape = self.fold(idata)
         y, state = self._run(xf, nstream, ncomp, (chan_shape, ncomp),
                              state, None)
         return y.reshape((y.shape[0], self.nchan) + chan_shape), state
+
+    def run_shards(self, shards, halos, nstream, ncomp, chan_shape, out):
+        """The MAC and DFT of one folded gulp cut into consecutive time
+        shards (`shards`, each on its shard's device, at least ntap-1
+        frames), into `out` ((frames, nchan, ...stream...) complex64 on
+        the plan's device), carrying the plan's own history: the first
+        shard starts from it, shard k from `halos[k]`, the last ntap-1
+        folded frames of shard k-1 (handed over by the caller's halo
+        exchange).  The same MAC rows in the same order as one whole
+        gulp, so bitwise that."""
+        key = (chan_shape, ncomp)
+        state = self._ensure_state(key, nstream, ncomp, out.device)
+        f0 = 0
+        for k, xk in enumerate(shards):
+            st = state if k == 0 else halos[k]
+            if st.device != xk.device or st.dtype != torch.float32:
+                st = st.to(xk.device, torch.float32)
+            y, last = self._run(xk, nstream, ncomp, key, st, None)
+            m = y.shape[0]
+            out[f0:f0 + m].copy_(y.view((m, self.nchan) + chan_shape))
+            f0 += m
+        self._state = last if last.device == out.device \
+            else last.to(out.device)
 
     def execute_raw(self, raw, dtype, out=None):
         """Raw ring-storage gulp (time-first: packed ci4 bytes, or ci8
@@ -210,6 +237,16 @@ class Pfb(object):
     def step_raw(self, raw, dtype, state, out=None):
         """`execute_raw` from an explicit history `state` (None: the
         plan's own) -> (y, state')."""
+        xf, nstream, chan_shape = self.fold_raw(raw, dtype)
+        m = xf.shape[0]
+        y, state = self._run(
+            xf, nstream, 2, (chan_shape, 2), state,
+            None if out is None else out.view(m, self.nchan, nstream))
+        return y.view((m, self.nchan) + chan_shape), state
+
+    def fold_raw(self, raw, dtype):
+        """Raw ring storage (time-first) -> (its folded frames (ntime //
+        nchan, lanes), int8 for ci8 as it lies, nstream, stream shape)."""
         dt = DataType(dtype)
         if not (dt.is_complex and dt.is_integer):
             raise ValueError(f"pfb: execute_raw expects a complex-integer "
@@ -233,11 +270,7 @@ class Pfb(object):
         xf = raw.contiguous().view(ntime // self.nchan, -1)
         if xf.dtype != torch.int8:
             xf = xf.float()
-        m = ntime // self.nchan
-        y, state = self._run(
-            xf, nstream, 2, (chan_shape, 2), state,
-            None if out is None else out.view(m, self.nchan, nstream))
-        return y.view((m, self.nchan) + chan_shape), state
+        return xf, nstream, chan_shape
 
     def plan_report(self):
         """Uniform runtime accounting (ops/runtime.py schema) + the PFB

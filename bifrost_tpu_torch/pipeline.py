@@ -49,7 +49,19 @@ so nothing it queued is still running when the replacement starts;
 
 Each block writes its
 `bind`, `in`, `out`, `sequence0` and (at most every
-`proclog.PERF_FLUSH_S`) `perf` logs (proclog.py).
+`proclog.PERF_FLUSH_S`) `perf` logs (proclog.py) under its log name
+(`Block.log_name`): the block's name, or `<name>#2`, `#3`, ... where a
+live block of the process already logs under it (two pipelines of one
+topology in one process), the rule of the ring logs (ring.py).  The JAX
+package keys block logs by name alone.
+
+The mesh (parallel/): the `mesh=` and `shard=` scope settings lay a
+scope's device gulps out over a `parallel.Mesh` (`bound_mesh`, through
+`faultdomain.effective_mesh`, so an eviction is seen at the next read;
+`shard_labels`); `mesh_gulp_factor` scales a mesh scope's gulps; every
+sharded dispatch runs through `Block.mesh_dispatch`, under the
+collective watchdog; `MeshFusedBlock` runs a mesh compute block and its
+accumulate tail as one deferred-reduction group.
 
 Device handling: a pipeline runs on one torch device, the card unless
 the caller passes ``device='cpu'``; with no card and no device named,
@@ -176,7 +188,7 @@ class BlockScope(object):
     (reference pipeline.py:87-165)."""
 
     _settable = ("gulp_nframe", "buffer_nframe", "buffer_factor", "core",
-                 "device", "fuse", "share_temp_storage")
+                 "device", "fuse", "share_temp_storage", "mesh", "shard")
     instance_count = 0
 
     def __init__(self, name=None, parent=None, **kwargs):
@@ -208,9 +220,21 @@ class BlockScope(object):
     def __exit__(self, *exc):
         _scope_stack().pop()
 
+    # Scaled by the `mesh_gulp_factor` flag under a mesh scope; blocks
+    # whose semantics pin the gulp (AccumulateBlock's one-frame loop)
+    # opt out.
+    mesh_gulp_scale_ok = True
+
     @property
     def gulp_nframe(self):
-        return self._lookup("gulp_nframe")
+        g = self._lookup("gulp_nframe")
+        if g and self.mesh_gulp_scale_ok and \
+                self._lookup("mesh") is not None:
+            from . import config
+            f = config.get("mesh_gulp_factor")
+            if f > 1:
+                return g * int(f)
+        return g
 
     @property
     def buffer_factor(self):
@@ -231,6 +255,25 @@ class BlockScope(object):
         return self._lookup("core")
 
     @property
+    def bound_mesh(self):
+        """The parallel.Mesh of the nearest `mesh=` scope setting, through
+        `faultdomain.effective_mesh`: once a shard is evicted, every mesh
+        consumer resolves the survivors at its next read, so a restarted
+        block rebuilds its layout without the bad device while the
+        others keep streaming.  With no eviction on record this is the
+        scope setting itself."""
+        mesh = self._lookup("mesh")
+        if mesh is None:
+            return None
+        from .parallel.faultdomain import effective_mesh
+        return effective_mesh(mesh)
+
+    @property
+    def shard_labels(self):
+        """{header axis label: mesh axis name} from the `shard=` setting."""
+        return self._lookup("shard")
+
+    @property
     def share_temp_storage(self):
         """Accepted for the reference's API: the port's blocks keep no
         shared scratch (temp_storage.TempStorage is the allocator)."""
@@ -240,7 +283,9 @@ class BlockScope(object):
 def block_scope(**kwargs):
     """`with bf.block_scope(gulp_nframe=4096, core=2): ...`; `core` pins
     the threads of the blocks built inside to that CPU core; `fuse=True`
-    marks them as candidates for the fusion compiler."""
+    marks them as candidates for the fusion compiler; `mesh=` (a
+    parallel.Mesh) lays their device gulps out over a mesh, `shard=`
+    ({label: mesh axis}) maps header labels to mesh axes."""
     return BlockScope(**kwargs)
 
 
@@ -266,6 +311,7 @@ class Pipeline(BlockScope):
         self._all_initialized = threading.Event()
         self._threads = []
         self._fusion_plan = None
+        self._log_names = []     # block log names claimed, freed at run end
         self.drain_report = None
         # Live splice: block name -> the output rings its replacement
         # adopts in create_ring (service.Service._splice_build).
@@ -365,6 +411,11 @@ class Pipeline(BlockScope):
         finally:
             if supervisor is not None:
                 supervisor.stop()
+            # The run is over: its blocks' log names are free for the
+            # next pipeline of this topology (the logs stay).
+            for name, owner_id in self._log_names:
+                _release_block_log_name(name, owner_id)
+            del self._log_names[:]
 
     def shutdown(self, timeout=None, join_grace=1.0):
         """Stop the pipeline.
@@ -497,6 +548,30 @@ class Pipeline(BlockScope):
         return self._quiesce_event.is_set()
 
 
+_BLOCK_LOG_NAMES = {}   # log name -> id of the live block that holds it
+_BLOCK_LOG_LOCK = threading.Lock()
+
+
+def _claim_block_log_name(name, owner):
+    """`name`, else `name#k` for the least k >= 2 no live block of this
+    process logs as (the ring logs' rule, ring._claim_log_name)."""
+    with _BLOCK_LOG_LOCK:
+        cand, k = name, 1
+        while cand in _BLOCK_LOG_NAMES:
+            k += 1
+            cand = f"{name}#{k}"
+        _BLOCK_LOG_NAMES[cand] = id(owner)
+        return cand
+
+
+def _release_block_log_name(name, owner_id):
+    # No lock: __del__ may run inside _claim_block_log_name on this
+    # thread.  Only the holder frees a name (a block collected after its
+    # run's release must not free a successor's claim).
+    if _BLOCK_LOG_NAMES.get(name) == owner_id:
+        _BLOCK_LOG_NAMES.pop(name, None)
+
+
 def _ring_log_name(ring):
     """The log name (`Ring.log_name`) of `ring` or of the ring a view
     wraps, which the tools join a block's in/out logs by."""
@@ -546,6 +621,12 @@ class Block(BlockScope):
         self._intr_token = 0         # interrupt target token (attach)
         self._heartbeat = None
         self._deadman_fired = False
+        # Mesh fault domains (parallel/faultdomain): the collective
+        # watchdog stamps a pending ShardFault here (the faultinject wedge
+        # loop breaks on it), and the collective fault sites ride the
+        # hook.
+        self._shard_abort = None
+        self._collective_fault_hook = None
         self._thread = None
         self._thread_ident = None
         # The block thread and its worker threads (fused groups, egress):
@@ -585,15 +666,55 @@ class Block(BlockScope):
         self._perf_lock = threading.Lock()
 
     def _init_proclogs(self):
-        """The block's logs (bifrost_tpu/pipeline.py:651-661); the input
-        log names the base rings, so tools can join the graph."""
-        self.bind_proclog = ProcLog(f"{self.name}/bind")
-        self.in_proclog = ProcLog(f"{self.name}/in")
-        self.out_proclog = ProcLog(f"{self.name}/out")
-        self.sequence_proclog = ProcLog(f"{self.name}/sequence0")
-        self.perf_proclog = ProcLog(f"{self.name}/perf")
+        """The block's logs (bifrost_tpu/pipeline.py:651-661) under its
+        log name (module docstring); the input log names the base rings,
+        so tools can join the graph."""
+        if getattr(self, "log_name", None) is None:
+            self.log_name = _claim_block_log_name(self.name, self)
+            self.pipeline._log_names.append((self.log_name, id(self)))
+        ln = self.log_name
+        self.bind_proclog = ProcLog(f"{ln}/bind")
+        self.in_proclog = ProcLog(f"{ln}/in")
+        self.out_proclog = ProcLog(f"{ln}/out")
+        self.sequence_proclog = ProcLog(f"{ln}/sequence0")
+        self.perf_proclog = ProcLog(f"{ln}/perf")
         self.in_proclog.update({
             f"ring{i}": _ring_log_name(r) for i, r in enumerate(self.irings)})
+
+    def __del__(self):
+        # A block collected before its pipeline ran frees its log name.
+        name = getattr(self, "log_name", None)
+        if name is not None:
+            _release_block_log_name(name, id(self))
+
+    def mesh_dispatch(self, fn, *args, mesh=None):
+        """Run one sharded dispatch under the collective watchdog
+        (parallel/faultdomain): with `mesh_collective_timeout_s` set, a
+        dispatch that does not return within the deadline surfaces as a
+        supervised ShardFault(device, block, gulp) through this block's
+        restart machinery instead of stalling every shard.  Also the home
+        of the `collective.enter` / `shard.lost` / `shard.dispatch`
+        faultinject seams.  With no mesh the call is a plain
+        `fn(*args)`."""
+        mesh = mesh if mesh is not None else self.bound_mesh
+        if mesh is None:
+            return fn(*args)
+        from .parallel.faultdomain import guarded_call
+        return guarded_call(self, mesh, fn, args)
+
+    def shard_array(self, x, labels):
+        """Lay tensor `x` out over the scope's mesh by axis label -> a
+        parallel.shard.ShardedTensor (`x` as is without a `mesh=`
+        setting), as a guarded dispatch."""
+        mesh = self.bound_mesh
+        if mesh is None or labels is None:
+            return x
+        from .parallel.shard import shard_put
+        # strict="axes": a scope-wide shard= override may name labels
+        # other headers of the chain carry; an unknown mesh axis raises.
+        return self.mesh_dispatch(
+            lambda a: shard_put(a, mesh, labels, self.shard_labels,
+                                strict="axes"), x, mesh=mesh)
 
     def create_ring(self, space="system"):
         # A replacement built under a ring-adoption entry takes over the
@@ -613,6 +734,9 @@ class Block(BlockScope):
         ring = Ring(space=space, name=f"{self.name}.out{len(self.orings)}",
                     device=self.device, core=self.core)
         ring.owner = self
+        # The scope's mesh, against which readers resolve the layout a
+        # sharded stream's header carries (ReadSpan.sharding).
+        ring.mesh = self._lookup("mesh")
         self.pipeline.rings.append(ring)
         return ring
 
@@ -2265,3 +2389,117 @@ class FusedTransformBlock(TransformBlock):
         self._drain_dispatcher()
         y = self._run_chain(self._gulp_input(ispan), ctx)
         return self._fold(y, phase, nfr, ospan)
+
+
+class MeshFusedBlock(TransformBlock):
+    """A mesh-dispatched compute block and its accumulate tail run as one
+    deferred-reduction group (counterpart of bifrost_tpu/pipeline.py:
+    3026-3170).
+
+    Built by the fusion compiler's `mesh_chain` rule (fuse.py) from fully
+    constructed blocks: it adopts the head's input ring and the tail's
+    output ring and runs the head's `mesh_chain_plan()` across the whole
+    fused window: one collective-free sharded step per gulp, per-shard
+    partials carried across every gulp and the constituent boundary, and
+    one psum at each emit (the head's integration length times the
+    tail's depth, in input frames).  The per-block chain pays a psum a
+    gulp and the tail's adds; the group pays one psum an emitted frame,
+    and its stream is bitwise the chain's where the data are integer
+    valued (the sums are exact in any order).
+
+    Every sharded dispatch runs through this block's own `mesh_dispatch`,
+    so the collective watchdog, the realign and the fault seams guard the
+    group as one unit: a shard fault sheds the carried partial through
+    the supervised restart, and the group resumes on the effective mesh.
+    A FaultPlan armed on the group must attach after fusion: call
+    `pipe._fuse_device_chains()` (idempotent) before `plan.attach(pipe)`.
+    """
+
+    # The exact emit schedule (the correlate/accumulate contract): zero-
+    # frame reservations on gulps that emit nothing.
+    async_reserve_ahead = False
+    # The group runs its gulps itself: no base executor loop.
+    _base_async_ok = False
+
+    def output_nframes_for_gulp(self, rel_frame0, in_nframe):
+        n = self._nacc_in
+        return [(rel_frame0 + in_nframe) // n - rel_frame0 // n]
+
+    def __init__(self, head, tail, tail_transforms):
+        # No super().__init__: the rings exist already and the blocks
+        # around the group hold references to them.
+        self.pipeline = head.pipeline
+        self.type = type(self).__name__
+        self.name = f"MeshFused_{head.name}+{tail.name}"
+        self.error = None
+        self._init_reported = False
+        self._held_latches = []
+        self.perf_totals = {}
+        self._init_supervision_state()
+        self.head = head
+        self.tail = tail
+        self._tail_transforms = list(tail_transforms or [])
+        self.irings = list(head.irings)
+        self.iring = self.irings[0]
+        self.orings = list(tail.orings)
+        self.guarantee = head.guarantee
+        # Scope settings (gulp, device, mesh, shard, fuse) resolve from
+        # the head's place in the scope tree.
+        self._lookup = head._lookup
+        self._plan = None
+        self.nframe_integrated = 0
+        self._init_proclogs()
+
+    fusion_rule = "mesh_chain"
+
+    @property
+    def constituent_names(self):
+        """The names of the blocks the group absorbed."""
+        return [self.head.name, self.tail.name]
+
+    def define_output_nframes(self, input_nframe):
+        return [1]
+
+    def on_sequence(self, iseq):
+        # Header flow: head -> the views between -> tail, as the unfused
+        # chain composes it (the head's on_sequence also resolves its
+        # axis roles, checks the gulp and stages its weights).
+        hdr = _constituent_on_sequence(self, self.head, iseq.header)
+        for t in self._tail_transforms:
+            h = json.loads(json.dumps(hdr))
+            hdr = t(h) or h
+        hdr = _constituent_on_sequence(self, self.tail, hdr)
+        self._nacc_in = self.head.nframe_per_integration * self.tail.nframe
+        self.nframe_integrated = 0
+        self._plan = self.head.mesh_chain_plan()
+        # The head latched its flags under its own name; the group holds
+        # the deferral flag for its sequence too.
+        self._hold_flag_latch("mesh_defer_reduce")
+        return hdr
+
+    def _release_flag_latches(self):
+        # The constituents latched flags in their on_sequence calls.
+        super()._release_flag_latches()
+        self.head._release_flag_latches()
+        self.tail._release_flag_latches()
+
+    def on_data(self, ispan, ospan):
+        from .blocks._common import store
+        x, raw = self.head._read(ispan)
+        self._plan.step(self, x, raw)
+        self.nframe_integrated += ispan.nframe
+        if self.nframe_integrated >= self._nacc_in:
+            store(ospan, self._plan.emit(self))
+            self.nframe_integrated = 0
+            return 1
+        return 0
+
+    def on_sequence_end(self, iseqs):
+        # A trailing partial window has no output slot: dropped, and said.
+        if self.nframe_integrated:
+            warnings.warn(
+                f"{self.name}: dropping a trailing partial fused "
+                f"integration ({self.nframe_integrated}/{self._nacc_in} "
+                f"frames) at sequence end", stacklevel=1)
+            self.nframe_integrated = 0
+            self._plan.reset()

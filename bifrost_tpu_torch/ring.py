@@ -1146,6 +1146,23 @@ class ReadSpan(object):
             return None
         return self.data
 
+    @property
+    def sharding(self):
+        """The span's layout over its ring's mesh, a
+        parallel.shard.NamedSharding: the {label: mesh axis} map a
+        sharded stream's header carries (stamped by the H2D copy under a
+        `mesh=` scope, carried on by the transforms after it) resolved
+        against this span's labels and shape.  None for an unsharded
+        stream."""
+        from .parallel.shard import AXES_KEY, span_sharding
+        mesh = getattr(self.ring, "mesh", None)
+        axes = self.rseq.header.get(AXES_KEY)
+        if mesh is None or not axes:
+            return None
+        t = self.tensor
+        shape = list(t.span_shape(self.nframe))
+        return span_sharding(mesh, list(t.labels or []), axes, shape)
+
     def hold_until(self, event):
         """Delay this span's release until `event` has completed on the
         host: an asynchronous copy still reads these bytes."""

@@ -82,9 +82,14 @@ The bare chains, each -> (pipeline, detector, ledger):
 - `lwa_instrument_pipeline`, the whole instrument.
 
 Sub-byte capture runs through the `unpack` kind, and the instrument
-takes `engine='int8'`.  `degrade_shards` is accepted, but with no mesh
-no shard is ever evicted (ROADMAP item 17, A16); the availability
-summary reads the device registry (parallel/faultdomain.py).  The
+takes `engine='int8'`.  With `degrade_shards` (the default) a
+collective-watchdog shard eviction of a mesh stage puts the service in
+degraded-mesh state instead of escalating: the chain streams on the
+surviving shards, the skipped gulp is booked as shed by a shard
+(`shard_shed_frames`, never lost), and the health loop restores an
+evicted shard once its health returns, clearing the state when no
+eviction remains.  The availability summary reads the device registry
+(parallel/faultdomain.py) over every mesh a guarded dispatch touched.  The
 data-quality front end of the beam search (flag -> calibrate before the
 B-engine) is built from blocks, as benchmarks/dq_tpu.py builds it.
 """
@@ -257,8 +262,10 @@ class ServiceSpec(object):
         self.degrade_margin = degrade_margin
         self.degrade_detect_factor = degrade_detect_factor
         self.degrade_shed_every = int(degrade_shed_every)
-        # Degraded-mesh policy: kept for the JAX spec's signature; with
-        # no mesh (ROADMAP A16) no shard is ever evicted.
+        # Degraded-mesh policy: True = a shard eviction puts the service
+        # in degraded state (exit code 1 if still degraded at stop) and
+        # the health loop restores evicted shards whose health returns;
+        # False = shard events are only counted and published.
         self.degrade_shards = bool(degrade_shards)
         self.quiesce_timeout_s = float(quiesce_timeout_s)
         self.health_interval_s = health_interval_s
@@ -290,6 +297,7 @@ class FrameLedger(object):
         self.sequences = 0
         self.shed_frames = 0           # overload-policy sheds (events)
         self.restart_shed_frames = 0   # faulted gulps skipped by restarts
+        self.shard_shed_frames = 0     # those skipped by shard faults
         self._restart_events = []      # SuperviseEvents (bounded)
         # seq key -> next expected frame0.  None = sequence announced
         # but no gulp observed yet: the first gulp baselines the
@@ -323,8 +331,12 @@ class FrameLedger(object):
             with self._lock:
                 self._restart_events.append(ev)
                 del self._restart_events[:-256]
-                self.restart_shed_frames += int(
-                    ev.details.get("shed_nframe", 0))
+                shed = int(ev.details.get("shed_nframe", 0))
+                self.restart_shed_frames += shed
+                if "shard_device" in ev.details or \
+                        "shard_reason" in ev.details:
+                    # A degraded mesh's missing gulp is shed, not lost.
+                    self.shard_shed_frames += shed
         elif ev.kind == "shed":
             with self._lock:
                 self.shed_frames += int(ev.details.get("nframe", 0))
@@ -347,7 +359,7 @@ class FrameLedger(object):
                 "sequences": self.sequences,
                 "shed_frames": self.shed_frames,
                 "restart_shed_frames": self.restart_shed_frames,
-                "shard_shed_frames": 0,
+                "shard_shed_frames": self.shard_shed_frames,
                 "restarts": len(self._restart_events),
             }
 
@@ -1058,7 +1070,11 @@ class Service(object):
         self.ledger = FrameLedger()
         self.degraded = False
         self.degrade_episodes = 0
-        self.shard_degraded = False   # no mesh (ROADMAP A16): stays False
+        # Degraded-mesh state (shard evictions outstanding): apart from
+        # the restart-budget degrade; it raises no detect threshold and
+        # clears when the shards are restored.
+        self.shard_degraded = False
+        self.shard_degrade_episodes = 0
         self._degraded_since = None
         self._last_restart_t = None
         self._state = "built"
@@ -1241,7 +1257,7 @@ class Service(object):
         wedged = bool(drain.wedged)
         if escalation is not None or error is not None or wedged:
             code, state = EXIT_ESCALATED, "escalated"
-        elif self.degraded or not drain.clean:
+        elif self.degraded or self.shard_degraded or not drain.clean:
             code, state = EXIT_DEGRADED, "degraded"
         else:
             code, state = EXIT_CLEAN, "stopped"
@@ -1253,7 +1269,8 @@ class Service(object):
             recovery=self.supervisor.recovery_stats(),
             ledger=self.ledger.summary(),
             degrade_episodes=self.degrade_episodes,
-            degraded_at_stop=self.degraded, escalation=escalation,
+            degraded_at_stop=self.degraded or self.shard_degraded,
+            escalation=escalation,
             error=error, uptime_s=uptime,
             availability=self._availability())
         self._push_health()
@@ -1429,6 +1446,8 @@ class Service(object):
             remaining = self.supervisor.budget_remaining(ev.block)
             if remaining is not None and remaining <= self._degrade_margin:
                 self._enter_degraded(ev.block, remaining)
+        elif ev.kind == "shard_evict" and self.spec.degrade_shards:
+            self._enter_shard_degraded(ev.block, ev.details.get("device"))
         elif ev.kind == "escalate":
             with self._lock:
                 if self._state in ("running", "degraded"):
@@ -1468,6 +1487,49 @@ class Service(object):
             shed_every=self.spec.degrade_shed_every)
         telemetry.track("service:degrade")
 
+    def _enter_shard_degraded(self, block_name, device):
+        """A shard was evicted: the service goes on with the surviving
+        shards (degraded-mesh mode) instead of escalating; the ledger
+        books the missing gulp as shed, and the state and exit code show
+        the impairment until the shard is restored."""
+        first = False
+        with self._lock:
+            if not self.shard_degraded:
+                self.shard_degraded = True
+                self.shard_degrade_episodes += 1
+                first = True
+            if self._state == "running":
+                self._state = "degraded"
+        if first:
+            self.supervisor.record_degrade(
+                block_name, reason="shard_evicted", shard_device=device)
+            telemetry.track("service:degrade_shards")
+
+    def _maybe_restore_shards(self):
+        """The health loop's auto-restore: every evicted shard whose
+        health has returned (`faultdomain.mark_restored`) goes back into
+        the mesh, and once no eviction remains (whoever restored it) the
+        degraded-mesh state clears."""
+        if not self.spec.degrade_shards:
+            return
+        from .parallel import faultdomain
+        restored = []
+        for dev in faultdomain.restorable_devices():
+            # restore() reports the transition: a concurrent restorer
+            # cannot double-book it.
+            if faultdomain.restore(dev):
+                self.supervisor.record_shard_restore(dev)
+                restored.append(dev)
+        if self.shard_degraded and not faultdomain.evicted_devices():
+            with self._lock:
+                was = self.shard_degraded
+                self.shard_degraded = False
+                if self._state == "degraded" and not self.degraded:
+                    self._state = "running"
+            if was:
+                self.supervisor.record_degrade(
+                    "mesh", recovered=True, restored_shards=restored)
+
     def _maybe_recover(self):
         """Leave degraded mode once every stage's budget has headroom and
         a full policy window has passed without a restart."""
@@ -1486,7 +1548,7 @@ class Service(object):
                 return
             self.degraded = False
             self._degraded_since = None
-            if self._state == "degraded":
+            if self._state == "degraded" and not self.shard_degraded:
                 self._state = "running"
         for det in self._detect_blocks():
             det.restore_threshold()
@@ -1495,9 +1557,11 @@ class Service(object):
 
     # ----------------------------------------------------------- health
     def _availability(self):
-        """The JAX report's availability summary, from the device
-        registry (parallel/faultdomain.py; no mesh is registered, ROADMAP
-        item 17, so it reads 100 %), and the live respecs' downtime."""
+        """The mesh fault-domain summary: availability_pct over every mesh
+        a guarded dispatch touched, shard-recovery p50/p99 (the
+        supervisor's shard-fault restarts), per-shard downtime and the
+        eviction and restore counts (100 % and empty with no mesh), and
+        the live respecs' downtime."""
         from .parallel import faultdomain
         counters = self.supervisor.counters
         return {
@@ -1506,7 +1570,7 @@ class Service(object):
             "shard_evictions": counters.get("shard_evictions", 0),
             "shard_restores": counters.get("shard_restores", 0),
             "downtime_s_by_shard": faultdomain.downtime_by_device(),
-            "shard_degrade_episodes": 0,
+            "shard_degrade_episodes": self.shard_degrade_episodes,
             "respecs": len(self.respecs),
             "respec_downtime_s": round(self.respec_downtime_s, 6),
         }
@@ -1553,9 +1617,9 @@ class Service(object):
             "state": self.state,
             "uptime_s": round(now - self._started_t, 3)
             if self._started_t is not None else 0.0,
-            "degraded": self.degraded,
+            "degraded": self.degraded or self.shard_degraded,
             "degrade_episodes": self.degrade_episodes,
-            "shard_degraded": False,
+            "shard_degraded": self.shard_degraded,
             "capture": capture_stats,
             "blocks": blocks,
             "counters": sup.counters,
@@ -1594,8 +1658,13 @@ class Service(object):
             if rec["count"]:
                 entry["recovery_p50_s"] = round(rec["p50_s"], 6)
                 entry["recovery_p99_s"] = round(rec["p99_s"], 6)
-            entry["availability_pct"] = \
-                snap["availability"]["availability_pct"]
+            avail = snap["availability"]
+            entry["availability_pct"] = avail["availability_pct"]
+            if avail["shard_recovery"]["count"]:
+                entry["shard_recovery_p50_s"] = round(
+                    avail["shard_recovery"]["p50_s"], 6)
+                entry["shard_recovery_p99_s"] = round(
+                    avail["shard_recovery"]["p99_s"], 6)
             cap = snap["capture"]
             if cap:
                 entry.update({f"capture_{k}": v for k, v in cap.items()})
@@ -1606,5 +1675,6 @@ class Service(object):
 
     def _health_loop(self):
         while not self._health_stop.wait(self._health_interval):
+            self._maybe_restore_shards()
             self._maybe_recover()
             self._push_health()

@@ -38,9 +38,16 @@ a spliced-out block's watchdog slot to its replacement, and
 `record_respec`, which books the splice.  A controller over many
 supervisors (fleet.FleetScheduler) reads `budget_remaining()` (every
 block at once) and merges `recovery_samples()` across tenants with
-`Supervisor.aggregate_recovery_stats`.  The mesh fault domains of the
-JAX package (`record_shard_fault`, `record_shard_restore`, shard
-evictions) are ROADMAP item 17 (A16): those methods raise.
+`Supervisor.aggregate_recovery_stats`.
+
+Mesh pipelines add shard fault domains (parallel/faultdomain.py): a
+sharded dispatch that misses its `mesh_collective_timeout_s` deadline is
+declared a `ShardFault(device, block, gulp)` by the collective watchdog
+(a `shard_fault` event, `record_shard_fault`), handled here as an
+ordinary supervised restart that also evicts the attributed device
+(`shard_evict`), so the restarted sequence runs on the survivors;
+`record_shard_restore` books the device's return, and
+`shard_recovery_stats()` summarizes the shard-fault recoveries.
 
 Heartbeat tuning: a block idle in a ring wait behind a slow upstream
 looks like a wedged one, so `heartbeat_interval_s * heartbeat_misses`
@@ -178,9 +185,9 @@ class Supervisor(object):
                           "shard_faults": 0, "shard_evictions": 0,
                           "shard_restores": 0, "respecs": 0}
         # Recovery times (fault -> first healthy gulp after the restart),
-        # bounded like the event ring; recovery_stats() summarizes.  The
-        # counters keep the JAX package's keys, the shard ones included
-        # (they stay 0 here: no mesh, ROADMAP item 17).
+        # bounded like the event ring; recovery_stats() summarizes.
+        # Shard-fault restarts also land in the shard list, which the
+        # service publishes as shard-recovery p50/p99.
         self._recovery_times = []
         self._shard_recovery_times = []
         self._by_name = {}          # block name -> _BlockState
@@ -435,8 +442,10 @@ class Supervisor(object):
         return self._summarize_times(times)
 
     def shard_recovery_stats(self):
-        """Shard-fault recoveries: none without mesh fault domains
-        (ROADMAP item 17); the service's availability summary reads it."""
+        """Summary of the recoveries of restarts that followed a
+        collective-watchdog ShardFault (fault -> first healthy gulp on
+        the survivors); the service publishes them as shard-recovery
+        p50/p99."""
         with self._lock:
             times = list(self._shard_recovery_times)
         return self._summarize_times(times)
@@ -548,21 +557,43 @@ class Supervisor(object):
             # on_sequence — retry the sequence from where it stood.)
             resume = loop_frame + gulp if gulp else loop_frame
             shed_nframe = resume - loop_frame
-        return self._count_restart(block, state, exc, resume, shed_nframe)
+        shard_extra = None
+        from .parallel.faultdomain import ShardFault
+        if isinstance(exc, ShardFault):
+            # A collective-watchdog fault: evict the attributed device, so
+            # every mesh consumer (bound_mesh -> effective_mesh) resolves
+            # the survivors from here on.  The restart event carries the
+            # attribution, so the service's ledger books the skipped gulp
+            # as shed by a shard, not lost.  evict() reports the
+            # transition: of two blocks faulting on one device, only the
+            # one that evicted books the event.
+            shard_extra = {"shard_device": exc.device,
+                           "shard_reason": exc.reason}
+            if exc.device is not None:
+                from .parallel import faultdomain
+                if faultdomain.evict(exc.device):
+                    self._emit("shard_evict", block, device=exc.device,
+                               gulp=exc.gulp)
+        return self._count_restart(block, state, exc, resume, shed_nframe,
+                                   shard_extra)
 
     def record_shard_fault(self, block, fault, timeout_s=None):
-        """Mesh fault domains are not ported (ROADMAP item 17, A16)."""
-        raise NotImplementedError(
-            "record_shard_fault: mesh fault domains are not ported yet "
-            "(ROADMAP item 17, A16)")
+        """Called by the mesh collective watchdog (parallel/faultdomain)
+        on its monitor thread when `block`'s sharded dispatch missed the
+        `mesh_collective_timeout_s` deadline.  Event and counter only:
+        the fault itself is raised on the dispatching thread and handled
+        by `on_block_fault`."""
+        self._emit("shard_fault", block, device=fault.device,
+                   gulp=fault.gulp, reason=fault.reason,
+                   timeout_s=timeout_s)
 
     def record_shard_restore(self, device, block="mesh"):
-        """Mesh fault domains are not ported (ROADMAP item 17, A16)."""
-        raise NotImplementedError(
-            "record_shard_restore: mesh fault domains are not ported yet "
-            "(ROADMAP item 17, A16)")
+        """An evicted shard returned to the mesh (the service's
+        auto-restore, or an operator)."""
+        self._emit("shard_restore", block, device=device)
 
-    def _count_restart(self, block, state, exc, resume, shed_nframe=0):
+    def _count_restart(self, block, state, exc, resume, shed_nframe=0,
+                       shard_extra=None):
         now = time.monotonic()
         with self._lock:
             # repr, not the exception object: a live exception pins its
@@ -610,6 +641,9 @@ class Supervisor(object):
             # frame-continuity ledger reads this instead of inferring it
             # from resume arithmetic.
             detail["shed_nframe"] = shed_nframe
+        if shard_extra:
+            detail.update({k: v for k, v in shard_extra.items()
+                           if v is not None})
         ev = self._emit("restart", block,
                         restarts=len(state.restart_times),
                         backoff_s=backoff, **detail)
@@ -618,7 +652,7 @@ class Supervisor(object):
         # recoveries counter (note_progress).  Backoff time counts — it
         # is part of what the pipeline's consumers actually waited.
         with self._lock:
-            state.recovering = (ev, now)
+            state.recovering = (ev, now, shard_extra is not None)
         # Backoff on the block's own thread, in slices that keep the
         # heartbeat fresh (a backoff is not a wedge); bail on shutdown.
         deadline = time.monotonic() + backoff
@@ -667,11 +701,14 @@ class Supervisor(object):
             state.deadman_pending = False
             rec, state.recovering = state.recovering, None
             if rec is not None:
-                ev, fault_t = rec
+                ev, fault_t, is_shard = rec
                 recovery_s = time.monotonic() - fault_t
                 ev.details["recovery_s"] = round(recovery_s, 6)
                 self._recovery_times.append(recovery_s)
                 del self._recovery_times[:-self.MAX_EVENTS]
+                if is_shard:
+                    self._shard_recovery_times.append(recovery_s)
+                    del self._shard_recovery_times[:-self.MAX_EVENTS]
                 self._counters["recoveries"] += 1
                 counters = dict(self._counters)
         if rec is not None:

@@ -412,6 +412,47 @@ Phases, one line each; any failure exits non-zero:
              each; launches go into `launches_by_path` as
              `observe_tools`, `observe_trace` and `observe_zc<0|1>_t<turn>`.
 
+21. mesh  — after [fleet], the mesh plane (bifrost_tpu_torch.parallel) on
+             virtual meshes of MESH_N = 8 positions backed by cuda:0
+             (`virtual_devices`); one card runs the virtual form only.
+             (a) The B-engine at [bengine]'s width: its seeded ci8 block
+             read as MESH_NINT integrations of channelized voltages (16
+             x 4096 channels x 256 stations x 2 pol a gulp; small
+             integers, every sum exact) -> copy('cuda') -> beamform(8
+             beams, N_INT) -> accumulate(MESH_TAIL), on (time, freq) =
+             (4, 2), (time, beam) = (2, 4) and (freq, stand) = (2, 4)
+             (the station label on 'stand'), each deferred and fused (one
+             MeshFusedBlock) and per block (mesh_defer_reduce off), in
+             MESH_TURNS turns beside the no-mesh chain: every output
+             bitwise the no-mesh chain's; K4 gulps x 8 launches on the
+             first two layouts and 0 on the third (its route
+             'stand_matmul', read from the `<name>/beamform_plan` log);
+             one all-reduce an emit deferred, one a gulp per block (the
+             station layout's coherent psum a gulp either way); steady
+             voltage frames/s and the shards' contiguous copies.  The
+             PFB-fed beam search (copy -> pfb -> beamform under the
+             (4, 2) mesh) on MESH_PFB_NINT integrations of the voltages:
+             within 2 N_INT eps32 of the no-mesh chain (the PFB's output
+             is not integer valued, so time shards reassociate), K2 once
+             a time shard a gulp (4; the history handed over by one
+             collective-permute a gulp), K4 once a shard.  (b) [xengine]'s int8 correlator (128 channels
+             x 512 inputs, gulps of 1024) -> accumulate(MESH_X_NINT)
+             fused by mesh_chain on (time, freq) = (2, 4), MESH_X_NINT
+             integrations: bitwise the no-mesh run, X1 gulps x 8
+             launches, one all-reduce in all (0 a gulp, 1 at the emit).
+             (c) (a)'s first layout as a supervised `Service`
+             (degrade_shards, mesh_collective_timeout_s 2 s) with
+             position 5 marked lost and its gulp-3 dispatch wedged: the
+             ShardFault declared within the timeout, shard_evict, the
+             restart onto 7 survivors, every other output bitwise the
+             clean run's, availability_pct below 100, the recovery time.
+             (d) `make_fx_step` at MESH_FX on (time, freq) and (time,
+             freq, stand) against `fx_step_reference` within eps32
+             (log2 nfine + 2 + the summed terms) max|ref|.  Launches go
+             into `launches_by_path` as `mesh_*`, and the collectives of
+             the runs that launch K4 or X1 into their records'
+             `mesh_collectives`.
+
 The launch checks of every phase count all nine kernels (K1, K2, K4,
 K6a, K6b, K5a, K5b, X1, M1).  The line before the last two holds the kernel
 records as JSON, one for each of those kernels; then the card's name and
@@ -423,6 +464,7 @@ import gc
 import glob
 import json
 import math
+import threading
 import os
 import shutil
 import subprocess
@@ -622,6 +664,25 @@ OB_TRACE_DIR = Path("traces") / "observe"
 OB_TOOLS = (("like_top",), ("like_ps",), ("like_pmap",),
             ("like_bmon", "-i", "1.0"), ("pipeline2dot",),
             ("pipeline2dot", "--rings"))
+
+# [mesh]: the mesh plane (parallel/) on one card, virtual meshes of
+# MESH_N positions backed by cuda:0.  (a) the B-engine at [bengine]'s
+# width on MESH_NINT integrations of channelized ci8 (its seeded block
+# read as N_INT x BCHAN x NSTAND x NPOL frames: small integers, every sum
+# exact), on each of MESH_LAYOUTS deferred and fused with an accumulate
+# of MESH_TAIL and per block, MESH_TURNS turns beside the no-mesh chain;
+# the PFB-fed beam search on MESH_PFB_NINT integrations of [bengine]'s
+# voltages; (b) [xengine]'s correlator on (time, freq) = (2, 4) for
+# MESH_X_NINT integrations; (c) (a)'s first layout as a Service with a
+# wedged shard (MESH_FAULT); (d) make_fx_step at MESH_FX on both layouts.
+MESH_N = 8
+MESH_LAYOUTS = ((("time", "freq"), (4, 2), None),
+                (("time", "beam"), (2, 4), None),
+                (("freq", "stand"), (2, 4), {"station": "stand"}))
+MESH_NINT, MESH_TAIL, MESH_TURNS, MESH_PFB_NINT = 16, 2, 2, 16
+MESH_X_NINT = 2
+MESH_FAULT = dict(timeout_s=2.0, lost=5, nth=6)
+MESH_FX = dict(ntime=1024, nchan=64, nstand=64, npol=2, nfine=16, nbeam=8)
 
 # Device-memory rate by card (NVIDIA data sheets), bytes/s
 _HBM_RATE = (("H200", 4.8e12), ("H100 PCIe", 2.0e12), ("H100", 3.35e12))
@@ -6264,6 +6325,432 @@ def ipc_cores(pipe, seen):
         b.main = main
 
 
+def mesh_of(dev, axes, shape=None):
+    from bifrost_tpu_torch.parallel import make_mesh, virtual_devices
+    return make_mesh(devices=virtual_devices(MESH_N, dev), axis_names=axes,
+                     shape=shape)
+
+
+def mesh_b_run(dev, arr, w, mesh=None, shard=None, defer=True, tail=False,
+               pfb=False):
+    """One B-engine run: array_source(arr) -> copy('cuda') [-> pfb] ->
+    beamform(w, N_INT) [-> accumulate(MESH_TAIL)] -> a sink on the card,
+    in a mesh scope where `mesh` is given (and a fuse scope with `tail`,
+    the mesh_chain rule's), `mesh_defer_reduce` = `defer`.  `arr`:
+    channelized ci8 (time, freq, station, pol, 2), or with `pfb`
+    [bengine]'s (time, station, pol, 2) voltages.  -> dict of the output
+    frames (on the card), their host stamps, wall seconds, launch counts,
+    the collectives, the shard copies, the fused groups and the
+    beamform route."""
+    from bifrost_tpu_torch import block_scope, config, proclog
+    from bifrost_tpu_torch.blocks import (accumulate, array_source,
+                                          beamform, callback_sink, copy)
+    from bifrost_tpu_torch.blocks import pfb as pfb_block
+    from bifrost_tpu_torch.parallel import collective
+    from bifrost_tpu_torch.parallel import shard as pshard
+    from bifrost_tpu_torch.pipeline import MeshFusedBlock, Pipeline
+    outs, stamps = [], []
+
+    def keep(a):
+        outs.append(a.clone())
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    scope = {}
+    if mesh is not None:
+        scope["mesh"] = mesh
+        if shard:
+            scope["shard"] = shard
+        if tail:
+            scope["fuse"] = True
+    if pfb:
+        hdr = {"dtype": "ci8", "labels": ["time", "station", "pol"],
+               "scales": [[0.0, B_DT], None, None]}
+        gulp = B_GULP
+    else:
+        hdr = {"dtype": "ci8",
+               "labels": ["time", "freq", "station", "pol"]}
+        gulp = N_INT
+    config.set("mesh_defer_reduce", defer)
+    try:
+        with Pipeline(device=dev) as pipe:
+            src = array_source(arr, gulp, header=hdr)
+            with block_scope(**scope):
+                x = copy(src, space="cuda")
+                if pfb:
+                    x = pfb_block(x, BCHAN, ntap=NTAP)
+                b = beamform(x, w, N_INT, gulp_nframe=N_INT)
+                head = b
+                if tail:
+                    b = accumulate(b, MESH_TAIL)
+            callback_sink(b, on_data=keep, gulp_nframe=1)
+            pipe._fuse_device_chains()
+            reset_counts()
+            collective.reset_totals()
+            pshard.reset_copy_stats()
+            t0 = time.perf_counter()
+            pipe.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        config.reset("mesh_defer_reduce")
+    groups = [g.name for g in pipe.blocks if isinstance(g, MeshFusedBlock)]
+    row = proclog.load_by_pid(os.getpid()).get(head.log_name, {})
+    return {"outs": outs, "stamps": stamps, "wall": wall,
+            "counts": read_counts(), "coll": collective.totals(),
+            "copies": pshard.copy_stats(), "groups": groups,
+            "route": row.get("beamform_plan", {}).get("route")}
+
+
+def mesh_steady(run, frames_per_out):
+    st = run["stamps"]
+    return (len(st) - 1) * frames_per_out / (st[-1] - st[0])
+
+
+def mesh_same(a, b, what):
+    if len(a) != len(b) or not all(bits_equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError(f"{what}: not bitwise equal "
+                             f"({len(a)} vs {len(b)} frames)")
+
+
+def mesh_a(dev, volt, counts, colls):
+    """(a): the B-engine on the three layouts and the PFB-fed beam
+    search (module docstring, phase 21)."""
+    from bifrost_tpu_torch.service import default_beam_weights
+    nsp = NSTAND * NPOL
+    nspec = MESH_NINT * N_INT
+    chan = volt[:nspec * BCHAN].reshape(nspec, BCHAN, NSTAND, NPOL, 2)
+    w = default_beam_weights(NBEAM, nsp)
+    nout = MESH_NINT // MESH_TAIL
+    per_out = N_INT * MESH_TAIL * BCHAN       # voltage frames an output
+    rates = {}
+    for turn in range(MESH_TURNS):
+        ref = mesh_b_run(dev, chan, w, tail=True)
+        if ref["counts"] != expected(beamform_power=MESH_NINT):
+            raise AssertionError(f"no-mesh launches {ref['counts']}")
+        rates.setdefault("no mesh", []).append(mesh_steady(ref, per_out))
+        if turn == 0:
+            counts["mesh_a_nomesh"] = ref["counts"]
+        for axes, shape, shard in MESH_LAYOUTS:
+            mesh = mesh_of(dev, axes, shape)
+            tag = "_".join(axes)
+            stand = shard is not None
+            for defer in (True, False):
+                r = mesh_b_run(dev, chan, w, mesh=mesh, shard=shard,
+                               defer=defer, tail=True)
+                mode = "deferred_fused" if defer else "per_block"
+                mesh_same(r["outs"], ref["outs"], f"[mesh] (a) {tag} {mode}")
+                nk4 = 0 if stand else MESH_NINT * MESH_N
+                if r["counts"] != expected(beamform_power=nk4):
+                    raise AssertionError(f"{tag} {mode}: launches "
+                                         f"{r['counts']}, K4 {nk4} expected")
+                # Deferred: the one psum over 'time' at each emit (none
+                # per gulp); the station layout's coherent psum is per gulp
+                # by construction.  Per block: one psum a gulp.
+                nred = MESH_NINT if (stand or not defer) else nout
+                if r["coll"]["ops"] != {"all-reduce": nred}:
+                    raise AssertionError(f"{tag} {mode}: collectives "
+                                         f"{r['coll']}, {nred} expected")
+                if defer and len(r["groups"]) != 1:
+                    raise AssertionError(f"{tag}: groups {r['groups']}")
+                want = "stand_matmul" if stand else "k4_per_shard"
+                if r["route"] != want:
+                    raise AssertionError(f"{tag}: route {r['route']}")
+                rates.setdefault(f"{tag} {mode}", []).append(
+                    mesh_steady(r, per_out))
+                if turn == 0:
+                    counts[f"mesh_a_{tag}_{mode}"] = r["counts"]
+                    colls[f"mesh_a_{tag}_{mode}"] = r["coll"]
+                    phase("mesh", f"(a) {tag} {dict(mesh.shape)} {mode}: "
+                          f"{nout} outputs bitwise the no-mesh chain's; "
+                          f"route {r['route']}; K4 {nk4} launches "
+                          f"({MESH_NINT} gulps x {MESH_N if nk4 else 0} "
+                          f"shards); collectives {r['coll']} over "
+                          f"{MESH_NINT} gulps and {nout} emits; shard "
+                          f"copies {r['copies']}; groups {r['groups']}")
+    phase("mesh", "(a) steady voltage frames/s (first output to last, "
+          f"{nout} outputs of {per_out} frames), {MESH_TURNS} turns: " +
+          "; ".join(f"{k} {', '.join(f'{v:.1f}' for v in vs)}"
+                    for k, vs in rates.items()))
+
+    # The PFB-fed beam search: the time-sharded PFB (K2 a time shard, the
+    # history handed over by one collective-permute a gulp) ahead of the
+    # sharded K4.  The PFB's output is not integer valued, so the
+    # time-sharded sums reassociate: within 2 N_INT eps32 of the no-mesh
+    # chain, elementwise relative (each power a sum of N_INT non-negative
+    # terms).
+    v = volt[:MESH_PFB_NINT * B_GULP]
+    ref = mesh_b_run(dev, v, w, pfb=True)
+    mesh = mesh_of(dev, ("time", "freq"))
+    r = mesh_b_run(dev, v, w, mesh=mesh, pfb=True)
+    nt = mesh.shape["time"]
+    pfb_shards = nt if N_INT // nt >= NTAP - 1 else 1
+    tol = 2 * N_INT * float(np.finfo(np.float32).eps)
+    err = max(float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+              for a, b in zip(r["outs"], ref["outs"]))
+    if len(r["outs"]) != MESH_PFB_NINT or not err <= tol:
+        raise AssertionError(f"PFB-fed mesh beam search: rel err {err} "
+                             f"(limit {tol})")
+    want = expected(fir_mac=MESH_PFB_NINT * pfb_shards,
+                    beamform_power=MESH_PFB_NINT * MESH_N)
+    colls_want = {"all-reduce": MESH_PFB_NINT}
+    if pfb_shards > 1:
+        colls_want["collective-permute"] = MESH_PFB_NINT
+    if r["counts"] != want or r["coll"]["ops"] != colls_want:
+        raise AssertionError(f"PFB-fed launches {r['counts']}, "
+                             f"collectives {r['coll']}")
+    counts["mesh_a_pfb"] = r["counts"]
+    colls["mesh_a_pfb"] = r["coll"]
+    phase("mesh", f"(a) PFB-fed beam search on (time, freq) = (4, 2), "
+          f"{MESH_PFB_NINT} integrations: max rel err {err:.3e} vs the "
+          f"no-mesh chain (limit 2 N_INT eps32 = {tol:.3e}); launches "
+          f"K2 {r['counts']['fir_mac']} ({MESH_PFB_NINT} gulps x "
+          f"{pfb_shards} time shards), K4 {r['counts']['beamform_power']}"
+          f"; collectives {r['coll']} (the PFB's halo a gulp, one psum an "
+          f"emit); steady "
+          f"{mesh_steady(r, N_INT * BCHAN):.1f} vs "
+          f"{mesh_steady(ref, N_INT * BCHAN):.1f} voltage frames/s no mesh")
+
+
+def mesh_x_run(dev, frames, nframe, mesh=None):
+    """[xengine]'s raw head -> correlate(XE_NINT, int8) ->
+    accumulate(MESH_X_NINT), fused by the mesh_chain rule under `mesh`
+    -> dict as mesh_b_run's."""
+    from bifrost_tpu_torch import block_scope
+    from bifrost_tpu_torch.blocks import (accumulate, callback_sink, copy,
+                                          correlate)
+    from bifrost_tpu_torch.parallel import collective
+    from bifrost_tpu_torch.parallel import shard as pshard
+    from bifrost_tpu_torch.pipeline import MeshFusedBlock, Pipeline
+    outs, stamps = [], []
+
+    def keep(a):
+        outs.append(a.clone())
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    scope = {"mesh": mesh, "fuse": True} if mesh is not None else {}
+    with Pipeline(device=dev) as pipe:
+        src = xe_source(frames, nframe)
+        with block_scope(**scope):
+            c = correlate(copy(src, space="cuda"), XE_NINT, engine="int8")
+            a = accumulate(c, MESH_X_NINT)
+        callback_sink(a, on_data=keep, gulp_nframe=1)
+        pipe._fuse_device_chains()
+        reset_counts()
+        collective.reset_totals()
+        pshard.reset_copy_stats()
+        t0 = time.perf_counter()
+        pipe.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return {"outs": outs, "stamps": stamps, "wall": wall,
+            "counts": read_counts(), "coll": collective.totals(),
+            "copies": pshard.copy_stats(),
+            "groups": [g.name for g in pipe.blocks
+                       if isinstance(g, MeshFusedBlock)]}
+
+
+def mesh_b(dev, counts, colls):
+    """(b): [xengine]'s int8 correlator on (time, freq) = (2, 4)."""
+    frames = xe_frames()
+    nframe = MESH_X_NINT * XE_NINT
+    ngulp = nframe // XE_GULP
+    ref = mesh_x_run(dev, frames, nframe)
+    r = mesh_x_run(dev, frames, nframe,
+                   mesh=mesh_of(dev, ("time", "freq")))
+    for x, y in zip(r["outs"], ref["outs"]):
+        if not bits_equal(torch.view_as_real(x), torch.view_as_real(y)):
+            raise AssertionError("[mesh] (b): not bitwise the no-mesh run")
+    if len(r["outs"]) != 1 or len(ref["outs"]) != 1:
+        raise AssertionError(f"[mesh] (b): {len(r['outs'])} outputs")
+    if r["counts"] != expected(xengine_int8=ngulp * MESH_N) or \
+            ref["counts"] != expected(xengine_int8=ngulp):
+        raise AssertionError(f"[mesh] (b) launches {r['counts']} / "
+                             f"{ref['counts']}")
+    if r["coll"]["ops"] != {"all-reduce": 1} or len(r["groups"]) != 1:
+        raise AssertionError(f"[mesh] (b): collectives {r['coll']}, "
+                             f"groups {r['groups']}")
+    counts["mesh_b_fused"] = r["counts"]
+    counts["mesh_b_nomesh"] = ref["counts"]
+    colls["mesh_b_fused"] = r["coll"]
+    nsp = XE_NSTAND * XE_NPOL
+    phase("mesh", f"(b) int8 X-engine {XE_NCHAN} ch x {nsp} inputs, "
+          f"gulps of {XE_GULP}, {MESH_X_NINT} integrations of {XE_NINT} "
+          f"fused with accumulate({MESH_X_NINT}) on (time, freq) = (2, 4): "
+          f"bitwise the no-mesh run; X1 {r['counts']['xengine_int8']} "
+          f"launches ({ngulp} gulps x {MESH_N} shards); collectives "
+          f"{r['coll']}: 0 over {ngulp} gulps, 1 all-reduce at the 1 emit; "
+          f"shard copies {r['copies']}; {nframe / r['wall']:.1f} frames/s "
+          f"whole vs {nframe / ref['wall']:.1f} no mesh")
+
+
+def mesh_c(dev, volt, counts):
+    """(c): (a)'s first layout as a supervised Service, a shard lost and
+    its dispatch wedged (module docstring, phase 21)."""
+    from bifrost_tpu_torch import block_scope, config
+    from bifrost_tpu_torch.blocks import array_source, beamform, copy
+    from bifrost_tpu_torch.faultinject import FaultPlan
+    from bifrost_tpu_torch.parallel import faultdomain
+    from bifrost_tpu_torch.pipeline import SinkBlock
+    from bifrost_tpu_torch.service import (Service, ServiceSpec, StageSpec,
+                                           default_beam_weights)
+    from bifrost_tpu_torch.supervise import RestartPolicy
+    nspec = MESH_NINT * N_INT
+    chan = volt[:nspec * BCHAN].reshape(nspec, BCHAN, NSTAND, NPOL, 2)
+    w = default_beam_weights(NBEAM, NSTAND * NPOL)
+    clean = mesh_b_run(dev, chan, w)["outs"]
+    mesh = mesh_of(dev, ("time", "freq"))
+    lost = str(mesh.devices.flat[MESH_FAULT["lost"]])
+    got = []
+
+    class Keep(SinkBlock):
+        def on_sequence(self, iseq):
+            pass
+
+        def on_data(self, ispan):
+            got.append(ispan.data.clone())
+
+    def scoped(fn):
+        def factory(up, **k):
+            with block_scope(mesh=mesh):
+                return fn(up)
+        return factory
+
+    hdr = {"dtype": "ci8", "labels": ["time", "freq", "station", "pol"]}
+    spec = ServiceSpec([
+        StageSpec("custom", name="src", params=dict(
+            factory=lambda _up, **k: array_source(chan, N_INT, header=hdr,
+                                                  name="mesh_src"))),
+        StageSpec("custom", name="h2d", params=dict(factory=scoped(
+            lambda up: copy(up, space="cuda", name="mesh_h2d")))),
+        StageSpec("custom", name="bengine", params=dict(factory=scoped(
+            lambda up: beamform(up, w, N_INT, gulp_nframe=N_INT,
+                                name="mesh_bengine"))),
+            restart=RestartPolicy(max_restarts=4, window_s=60.0,
+                                  backoff=0.01)),
+        StageSpec("custom", name="sink", params=dict(
+            factory=lambda up, **k: Keep(up, name="mesh_sink"))),
+    ], degrade_shards=True)
+    faultdomain.reset()
+    config.set("mesh_collective_timeout_s", MESH_FAULT["timeout_s"])
+    release = threading.Event()
+    marks = {}
+    try:
+        svc = Service(spec, device=dev)
+        svc.on_event(lambda ev: marks.setdefault(ev.kind, time.monotonic()))
+        svc.pipeline._fuse_device_chains()
+        plan = FaultPlan(seed=SEED)
+        plan.lose_shard_at("shard.lost", lost, block="mesh_bengine",
+                           nth=MESH_FAULT["nth"])
+        plan.call_at("shard.dispatch",
+                     lambda *a: marks.setdefault("wedged", time.monotonic()),
+                     block="mesh_bengine", nth=MESH_FAULT["nth"])
+        plan.wedge_at("shard.dispatch", block="mesh_bengine",
+                      nth=MESH_FAULT["nth"], release=release, timeout=60.0)
+        plan.attach(svc.pipeline)
+        reset_counts()
+        svc.start()
+        svc.wait(timeout=300)
+        rep = svc.stop(timeout=30)
+        plan.detach()
+        counts["mesh_c_fault"] = read_counts()
+        blk = svc.blocks["bengine"]
+        survivors = blk.bound_mesh.devices.size
+    finally:
+        release.set()
+        config.reset("mesh_collective_timeout_s")
+    shed = MESH_FAULT["nth"] // 2          # two dispatches a gulp
+    keep_idx = [i for i in range(MESH_NINT) if i != shed]
+    mesh_same(got, [clean[i] for i in keep_idx], "[mesh] (c) stream")
+    declared = marks["shard_fault"] - marks["wedged"]
+    avail = rep.availability
+    c = rep.counters
+    # The wedged dispatch runs once the watchdog unparks it (its powers
+    # are then shed with the fault): shed + 1 gulps on the full mesh.
+    nk4 = (shed + 1) * MESH_N + (MESH_NINT - shed - 1)
+    if not (c["shard_faults"] == 1 and c["shard_evictions"] == 1 and
+            c["escalations"] == 0 and survivors == MESH_N - 1 and
+            declared <= MESH_FAULT["timeout_s"] + 1.0 and
+            avail["availability_pct"] < 100.0 and
+            avail["shard_recovery"]["count"] == 1 and
+            rep.ledger["shard_shed_frames"] == N_INT and
+            counts["mesh_c_fault"]["beamform_power"] == nk4 and
+            faultdomain.evicted_devices() == [lost]):
+        raise AssertionError(f"[mesh] (c): counters {c}, survivors "
+                             f"{survivors}, declared after {declared:.3f} s,"
+                             f" availability {avail}, ledger {rep.ledger}, "
+                             f"launches {counts['mesh_c_fault']}")
+    phase("mesh", f"(c) Service on (time, freq) = (4, 2), {lost} lost and "
+          f"its gulp-{shed} dispatch wedged: ShardFault declared "
+          f"{declared:.3f} s after the wedge (timeout "
+          f"{MESH_FAULT['timeout_s']} s), shard_evict, restart onto "
+          f"{survivors} survivors; {len(got)} of {MESH_NINT} outputs, "
+          f"bitwise the clean run's but the shed one; exit code "
+          f"{rep.exit_code}, ledger shard_shed_frames "
+          f"{rep.ledger['shard_shed_frames']}, lost "
+          f"{rep.ledger['lost_frames']}; availability_pct "
+          f"{avail['availability_pct']}; recovery "
+          f"{avail['shard_recovery']['last_s']:.3f} s; K4 launches "
+          f"{counts['mesh_c_fault']['beamform_power']} ({shed + 1} gulps x "
+          f"{MESH_N}, the wedged one's shed, + {MESH_NINT - shed - 1} x 1 "
+          f"on the survivors, time replicated)")
+    faultdomain.reset()
+
+
+def mesh_d(dev):
+    """(d): make_fx_step on both layouts against fx_step_reference."""
+    from bifrost_tpu_torch.parallel import make_fx_step
+    from bifrost_tpu_torch.parallel.fx import fx_step_reference
+    f = MESH_FX
+    rng = np.random.default_rng(SEED + 21)
+    x = rng.integers(-8, 8, (f["ntime"], f["nchan"], f["nstand"], f["npol"],
+                             2)).astype(np.int8)
+    nsp = f["nstand"] * f["npol"]
+    w = (rng.integers(-3, 4, (f["nbeam"], nsp)) +
+         1j * rng.integers(-3, 4, (f["nbeam"], nsp))).astype(np.complex64)
+    ref = fx_step_reference(x, w, f["nfine"])
+    eps = float(np.finfo(np.float32).eps)
+    nblock = f["ntime"] // f["nfine"]
+    for axes in (("time", "freq"), ("time", "freq", "stand")):
+        step = make_fx_step(mesh_of(dev, axes), nfine=f["nfine"])
+        t0 = time.perf_counter()
+        got = [o.cpu().numpy() for o in step(x, w)]
+        secs = time.perf_counter() - t0
+        errs = []
+        for g, r, nterms, name in zip(got, ref, (nblock, nblock * nsp,
+                                                 nblock * nsp),
+                                      ("vis", "beam_pow", "spec")):
+            # eps32 x (log2(nfine) butterfly stages + the summed terms)
+            # x the output's magnitude
+            tol = eps * (math.log2(f["nfine"]) + 2 + nterms) * \
+                float(np.abs(r).max())
+            e = float(np.abs(g - r).max())
+            if g.shape != r.shape or not e <= tol:
+                raise AssertionError(f"[mesh] (d) {axes} {name}: err {e} "
+                                     f"(limit {tol})")
+            errs.append(f"{name} {e:.3e} <= {tol:.3e}")
+        phase("mesh", f"(d) make_fx_step {axes} at {f}: {'; '.join(errs)} "
+              f"(limit eps32 (log2 nfine + 2 + terms) max|ref|); "
+              f"{secs:.3f} s")
+
+
+def mesh_path(dev, kind, volt, smi):
+    """The mesh plane on one card (module docstring, phase 21).  ->
+    (launch counts by path, collective counts by path)."""
+    counts, colls = {}, {}
+    phase("mesh", f"virtual meshes of {MESH_N} positions on {dev} "
+          f"({kind}; {smi}); one card runs the virtual form only")
+    mesh_a(dev, volt, counts, colls)
+    free_device()
+    mesh_b(dev, counts, colls)
+    free_device()
+    mesh_c(dev, volt, counts)
+    free_device()
+    mesh_d(dev)
+    return counts, colls
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6333,6 +6820,10 @@ def main():
     free_device()
     t5i = time.perf_counter()
     counts.update(fleet_path(dev, kind, volt))
+    free_device()
+    t5m = time.perf_counter()
+    mesh_counts, mesh_colls = mesh_path(dev, kind, volt, smi)
+    counts.update(mesh_counts)
     del volt, spec
     ipc_ref = SOLO["frb"]
     SOLO.clear()
@@ -6356,7 +6847,8 @@ def main():
           f"{t5b - t5:.1f} s, fusion {t5c - t5b:.1f} s, service "
           f"{t5d - t5c:.1f} s, capture {t5e - t5d:.1f} s, fir "
           f"{t5f - t5e:.1f} s, xengine {t5h - t5f:.1f} s, map "
-          f"{t5i - t5h:.1f} s, fleet {t5g - t5i:.1f} s, async "
+          f"{t5i - t5h:.1f} s, fleet {t5m - t5i:.1f} s, mesh "
+          f"{t5g - t5m:.1f} s, async "
           f"{t6 - t5g:.1f} s, gpuspec "
           f"{t7 - t6:.1f} s, egress "
           f"{t8 - t7:.1f} s, ipc {time.perf_counter() - t8:.1f} s")
@@ -6365,6 +6857,11 @@ def main():
     for rec in recs:
         rec["launches_by_path"] = by_path[rec["name"]]
         rec["launches"] = sum(by_path[rec["name"]].values())
+        if rec["name"] in ("beamform_power", "xengine_int8"):
+            # The collectives of the [mesh] runs that launch this kernel.
+            rec["mesh_collectives"] = {
+                path: c for path, c in mesh_colls.items()
+                if by_path[rec["name"]].get(path)}
     print(json.dumps({"kernels": recs}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -105,7 +105,15 @@ def test_beamform_raw_perm_batch_and_report():
 @pytest.mark.parametrize("ntime,nchan,nsp,nbeam,elt,base", [
     (16, 4096, 512, 8, 8, 0), (16, 4096, 512, 8, 2, 0), (0, 5, 300, 1, 8, 0),
     (1, 5, 300, 3, 8, 0), (33, 13, 513, 9, 8, 0), (260, 3, 520, 128, 2, 0),
-    (5, 30, 1, 2, 2, 0), (16, 9, 512, 8, 8, 8)])
+    (5, 30, 1, 2, 2, 0), (16, 9, 512, 8, 8, 8),
+    # Per-shard local shapes of the mesh B-engine at the flagship gulp
+    # (16, 4096, 512): a (time, freq) = (4, 2) shard of ci8 and of
+    # complex64, a (time, beam) = (2, 4) shard (2 beams), and after an
+    # eviction to 7 survivors: the whole gulp (time replicated) and a
+    # 7-way freq shard of 56 channels.
+    (4, 2048, 512, 8, 2, 0), (4, 2048, 512, 8, 8, 0),
+    (8, 4096, 512, 2, 2, 0), (16, 4096, 512, 8, 2, 0),
+    (16, 8, 512, 8, 8, 0), (2, 8, 512, 8, 2, 0)])
 def test_launch_geometry(ntime, nchan, nsp, nbeam, elt, base):
     """K4's launch: every frame of a channel in one block, all of a call's
     frames in one tile up to the block's rows; channels a block filling

@@ -7,8 +7,9 @@ absorbed under supervision, a wedge escalating through the deadman, the
 bounded quiesce past a wedge, detach, and the UDP sites through a
 stand-in capture block (no socket); then a udp.recv raise through a real
 UDPCaptureBlock over loopback.  Then the port's own: the egress
-sites on a DeviceSinkBlock, and the mesh sites, which are refused
-(ROADMAP A16).
+sites on a DeviceSinkBlock.  The mesh sites (collective.enter,
+shard.lost, shard.dispatch) are armed on a mesh block in
+tests/test_torch_mesh_faults.py.
 """
 
 import threading
@@ -408,13 +409,6 @@ def test_udp_recv_raise_through_a_capture_block():
     assert len(a) == 32 and len(b) == 32
     for t in range(32):
         assert (a[t] == t).all() and (b[t] == (1000 + t) % 256).all()
-
-
-@pytest.mark.parametrize("site", ["collective.enter", "shard.dispatch",
-                                  "shard.lost"])
-def test_collective_site_refused(site):
-    with pytest.raises(NotImplementedError, match="ROADMAP A16"):
-        FaultPlan().raise_at(site)
 
 
 def test_egress_sites_fire_on_a_device_sink():

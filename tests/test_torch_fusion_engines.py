@@ -12,7 +12,7 @@ also bitwise equal to the JAX fused chain (the JAX test's f32 engine;
 the int8 X-engine and ci4 ingest are not ported).  The refusals:
 `gulp_pinned` for an integrator with its own gulp_nframe, the chain cut
 in front of an integrator behind another one, never `cross_gulp_state`.
-The mesh-sharded cases need the mesh layer (not ported).
+The mesh-sharded case is in tests/test_torch_mesh_fusion.py.
 """
 
 import numpy as np

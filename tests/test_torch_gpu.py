@@ -2044,3 +2044,117 @@ def test_serialize_from_a_cuda_ring_equals_the_system_ring(cuda, tmp_path):
             pipe.run()
         files[space] = {p.name: p.read_bytes() for p in out.iterdir()}
     assert len(files["cuda"]) > 64 and files["cuda"] == files["system"]
+
+
+def _virtual_mesh(axes, cuda):
+    from bifrost_tpu_torch.parallel import make_mesh, virtual_devices
+    return make_mesh(devices=virtual_devices(8, cuda), axis_names=axes)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8", [True, False])
+@pytest.mark.parametrize("axes,spec,nbeam,evict", [
+    (("time", "freq"), ("time", "freq"), 8, False),
+    (("time", "beam"), ("time", None), 8, False),
+    (("time", "freq"), (None, "freq"), 8, True)])
+def test_beamform_kernel_at_mesh_shard_shapes(cuda, int8, axes, spec,
+                                              nbeam, evict):
+    """K4 at the mesh B-engine's per-shard local shapes of a (16, 4096,
+    512) gulp, bitwise its plain version on every distinct shard: a
+    (time, freq) = (4, 2) shard, a (time, beam) = (2, 4) shard with its
+    2-beam weight slice, and after an eviction the 7 survivors' (7, 1)
+    mesh on 56 channels (time replicated, a whole-gulp launch).  Integer
+    data: the shards' powers psum to the single launch's, bitwise."""
+    from bifrost_tpu_torch.blocks.beamform import _bengine_mesh
+    from bifrost_tpu_torch.ops import beamform_kernel as bk
+    from bifrost_tpu_torch.parallel import faultdomain
+    from bifrost_tpu_torch.parallel.shard import shard_views
+    mesh = _virtual_mesh(axes, cuda)
+    nchan = 56 if evict else 4096
+    g = torch.Generator().manual_seed(nchan + nbeam)
+    pairs = torch.randint(-8, 8, (16, nchan, 512, 2), generator=g)
+    x = pairs.to(torch.int8) if int8 else \
+        torch.complex(pairs[..., 0].float(), pairs[..., 1].float())
+    x = x.to(cuda)
+    w = torch.complex(torch.randint(-3, 4, (nbeam, 512), generator=g).float(),
+                      torch.randint(-3, 4, (nbeam, 512), generator=g)
+                      .float()).to(cuda)
+    faultdomain.reset()
+    try:
+        if evict:
+            faultdomain.evict(str(mesh.devices.flat[5]))
+            mesh = faultdomain.effective_mesh(mesh)
+            assert mesh.devices.shape == (7, 1)
+        wspec = ("beam", None) if "beam" in axes else (None, None)
+        xs = shard_views(mesh, x, spec + (None,))
+        ws = shard_views(mesh, w, wspec)
+        pairs_seen = set()
+        for xv, wv in zip(xs.values, ws.values):
+            if (id(xv), id(wv)) in pairs_seen:
+                continue
+            pairs_seen.add((id(xv), id(wv)))
+            xv, wv = xv.contiguous(), wv.contiguous()
+            before = bk.beamform_power.launches
+            p = bk.beamform_power(xv, wv)
+            assert bk.beamform_power.launches == before + 1
+            assert _bits_equal(p, bk.beamform_power_plain(xv, wv))
+        assert len(pairs_seen) == (1 if evict else 8)
+        tax = "time" if spec[0] else None
+        fax = "freq" if spec[1] else None
+        bax = "beam" if "beam" in axes else None
+        before = bk.beamform_power.launches
+        got = _bengine_mesh(mesh, tax, fax, None, bax)(x, w)
+        assert bk.beamform_power.launches == before + len(pairs_seen)
+        assert _bits_equal(got, bk.beamform_power(x.contiguous(), w))
+    finally:
+        faultdomain.reset()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["ci8", "ci4"])
+@pytest.mark.parametrize("nchan,evict", [(128, False), (56, True)])
+def test_xengine_kernel_at_mesh_shard_shapes(cuda, fmt, nchan, evict):
+    """X1 at the mesh X-engine's per-shard local shapes of a 1024-frame
+    gulp of 512 inputs: (time, freq) = (2, 4) shards of 128 channels
+    (512 x 32 x 512), and after an eviction a 7-way freq shard of 56
+    channels with time replicated (1024 x 8 x 512); bitwise the plain
+    version per shard, and the psum of the shards' visibilities bitwise
+    one whole-gulp launch (integer data, exact)."""
+    from bifrost_tpu_torch.blocks.correlate import _xengine_mesh
+    from bifrost_tpu_torch.ops import xengine_kernel as xk
+    from bifrost_tpu_torch.parallel import faultdomain
+    from bifrost_tpu_torch.parallel.shard import shard_views
+    mesh = _virtual_mesh(("freq",) if evict else ("time", "freq"), cuda)
+    g = torch.Generator().manual_seed(nchan)
+    lo, hi = (-128, 127) if fmt == "ci8" else (-8, 7)
+    re = torch.randint(lo, hi + 1, (1024, nchan, 512), generator=g)
+    im = torch.randint(lo, hi + 1, (1024, nchan, 512), generator=g)
+    x = torch.stack([re, im], -1).to(torch.int8) if fmt == "ci8" else \
+        (((re & 0xF) << 4) | (im & 0xF)).to(torch.uint8)
+    x = x.to(cuda)
+    faultdomain.reset()
+    try:
+        if evict:
+            faultdomain.evict(str(mesh.devices.flat[2]))
+            mesh = faultdomain.effective_mesh(mesh)
+            assert mesh.devices.shape == (7,)
+            tax, fax = None, "freq"
+        else:
+            tax, fax = "time", "freq"
+        xs = shard_views(mesh, x, (tax, fax))
+        shards = xs.distinct()
+        assert len(shards) == (7 if evict else 8)
+        for xv in shards:
+            xv = xv.contiguous()
+            before = xk.xengine_int8.launches
+            got = xk.xengine_int8(xv, fmt)
+            assert xk.xengine_int8.launches == before + 1
+            assert _bits_equal(torch.view_as_real(got), torch.view_as_real(
+                xk.xengine_int8_plain(xv, fmt)))
+        before = xk.xengine_int8.launches
+        v = _xengine_mesh(mesh, tax, fax, "int8", fmt=fmt)(x)
+        assert xk.xengine_int8.launches == before + len(shards)
+        whole = xk.xengine_int8(x, fmt)
+        assert _bits_equal(torch.view_as_real(v), torch.view_as_real(whole))
+    finally:
+        faultdomain.reset()

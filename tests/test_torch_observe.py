@@ -420,6 +420,28 @@ def test_tools_start_without_torch(tmp_path):
     assert out.stdout.strip().splitlines()[-1] == "False False", out
 
 
+def test_two_frb_searches_in_one_process_keep_block_rows_apart(tree_env):
+    """Block logs follow the ring logs' rule: the second FRB search's
+    blocks log as `<name>#2`, so like_top has a row for each block of
+    both chains, each with its own counters (the JAX package keys block
+    logs by name alone, so its rows would clobber)."""
+    proc = _spawn(TWO_FRB_SEARCHES, tree_env)
+    try:
+        top = _run_tool(tree_env, "like_top", str(proc.pid)).stdout
+    finally:
+        proc.kill()
+        proc.wait()
+    rows = {ln.split("name=")[1]: ln for ln in top.splitlines()
+            if ln.startswith("block ")}
+    sources = [n for n in rows if n.startswith("ArraySourceBlock_")]
+    base = ["detect", "fdmt", "h2d", "transpose"]
+    assert len(set(sources)) == 2, top
+    assert sorted(rows) == sorted(sources + base +
+                                  [f"{n}#2" for n in base]), top
+    for n in ("h2d", "h2d#2", "fdmt", "fdmt#2"):
+        assert float(rows[n].split("total=")[1].split()[0]) > 0.0, top
+
+
 def test_tools_without_a_port_tree_say_so(tmp_path):
     env = dict(os.environ, BT_TORCH_PROCLOG_DIR=str(tmp_path))
     for tool in ("like_top", "like_ps", "like_pmap", "like_bmon",

@@ -8,8 +8,8 @@ ring wait, in-place resumes, the scripted inter-sequence absorb replay
 overrun policies, per-block policies and the supervise ProcLog, source
 restarts, stray interrupts, the bounded quiesce, recovery stamps and
 budgets.  The mesh case (`test_mesh_shard_wedge_supervised_restart_
-continuity`) waits for the mesh layer (ROADMAP A16); the port's shard
-and respec seams raise instead (last test).
+continuity`) and the shard seams' events are in
+tests/test_torch_mesh_faults.py.
 """
 
 import threading
@@ -662,15 +662,6 @@ def test_record_degrade_event_and_counter():
     assert sup.counters["degrades"] == 1
     ev = sup.events_for(sink.name, "degrade")[0]
     assert ev.details["budget_remaining"] == 1
-
-
-def test_shard_seams_are_not_ported():
-    sup = Supervisor()
-    for call in (lambda: sup.record_shard_fault("b", None),
-                 lambda: sup.record_shard_restore("dev")):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
-            call()
-    assert sup.shard_recovery_stats()["count"] == 0
 
 
 def test_record_respec_event_and_counter():
