@@ -106,6 +106,8 @@ class GainCalBlock(TransformBlock):
         self._lock = threading.Lock()
         self.gain_updates = 0
 
+    exact_output_nframes = True
+
     def define_output_nframes(self, input_nframe):
         return [input_nframe]
 

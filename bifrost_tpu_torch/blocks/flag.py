@@ -75,6 +75,8 @@ class RfiFlagBlock(TransformBlock):
         self.cells_flagged = 0
         self.baseline_resets = 0
 
+    exact_output_nframes = True
+
     def define_output_nframes(self, input_nframe):
         return [input_nframe]
 

@@ -74,6 +74,8 @@ class PfbBlock(TransformBlock):
         self.method = method
         self.pfb = Pfb()
 
+    exact_output_nframes = True
+
     def define_output_nframes(self, input_nframe):
         return [input_nframe // self.nchan]
 

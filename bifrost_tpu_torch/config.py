@@ -342,6 +342,20 @@ FLAGS = {f.name: f for f in [
 ]}
 
 
+def describe():
+    """A table of every flag, its environment variable and its value
+    (bifrost_tpu/config.py:440)."""
+    lines = []
+    for f in FLAGS.values():
+        try:
+            val = f.value()
+        except ValueError as e:        # an invalid environment setting
+            val = f"<error: {e}>"
+        lines.append(f"{f.name:20s} {str(f.env):34s} = {val!r}\n"
+                     f"{'':20s} {f.description}")
+    return "\n".join(lines)
+
+
 def hold_latch(name, owner):
     with _lock:
         _latch_guards.setdefault(name, []).append(str(owner))

@@ -8,7 +8,18 @@ reads through the JAX package's `core.status_string`."""
 from __future__ import annotations
 
 __all__ = ["status_string", "debug_enabled", "set_debug_enabled",
-           "cuda_enabled"]
+           "cuda_enabled", "BifrostError", "version"]
+
+# The version of the port's host core, as the JAX package's
+# `core_version()` reads its C core's (cpp/src/common.cpp).
+VERSION = "0.1.0"
+
+# Status codes the port's Python host core raises with.
+STATUS_INVALID_POINTER = 8
+STATUS_INVALID_SPACE = 11
+STATUS_MEM_ALLOC_FAILED = 16
+STATUS_MEM_OP_FAILED = 17
+STATUS_UNSUPPORTED_SPACE = 25
 
 # BTstatus -> text (cpp/include/btcore.h's codes, cpp/src/common.cpp's
 # btGetStatusString).
@@ -58,3 +69,22 @@ def cuda_enabled():
     constant, a runtime probe here)."""
     import torch
     return torch.cuda.is_available()
+
+
+class BifrostError(RuntimeError):
+    """A host-core failure carrying its status code (the JAX package's
+    `BifrostError` of its C core binding): the message is the status's
+    string, then the detail."""
+
+    def __init__(self, status, detail=""):
+        self.status = int(status)
+        msg = status_string(status)
+        if detail:
+            msg = f"{msg}: {detail}"
+        super().__init__(msg)
+
+
+def version():
+    """The port's host-core version string (the top level's
+    `core_version`)."""
+    return VERSION

@@ -49,6 +49,21 @@ def resolve_device(device=None):
     return device
 
 
+def get_devices():
+    """The devices the port runs on: every CUDA device, or the CPU alone
+    where this thread was bound to it (`set_device('cpu')`); empty with
+    neither."""
+    bound = getattr(_tls, "device", None)
+    if bound is not None and bound.type == "cpu":
+        return [bound]
+    return [torch.device("cuda", i)
+            for i in range(torch.cuda.device_count())]
+
+
+def device_count():
+    return len(get_devices())
+
+
 def set_device(device):
     """Bind this thread to `device` (tensors that ops create from host
     input land there)."""
@@ -146,3 +161,41 @@ def dispatch_lock():
             yield
     else:
         yield
+
+
+class ExternalStream(object):
+    """Issue this thread's port work on a stream someone else owns
+    (reference device.py:63-90): `stream` is a `torch.cuda.Stream` or a
+    raw `cudaStream_t` address.  Inside the scope the stream is the
+    thread's current one, so every op and block the thread runs there
+    queues on it; on exit the scope synchronizes it.  With no stream
+    (the JAX package's form) the scope only synchronizes the thread's
+    work on exit."""
+
+    def __init__(self, stream=None, device=None):
+        if stream is not None and not isinstance(stream, torch.cuda.Stream):
+            if not torch.cuda.is_available():
+                raise RuntimeError("ExternalStream: a cudaStream_t needs "
+                                   "a CUDA device, and none is available")
+            stream = torch.cuda.ExternalStream(
+                int(stream), device=resolve_device(device))
+        self.stream = stream
+        self._ctx = None
+
+    def __enter__(self):
+        if self.stream is not None:
+            self._ctx = torch.cuda.stream(self.stream)
+            self._ctx.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        try:
+            if self.stream is not None:
+                self.stream.synchronize()
+            else:
+                stream_synchronize()
+        finally:
+            if self._ctx is not None:
+                self._ctx.__exit__(*exc)
+                self._ctx = None
+        return False

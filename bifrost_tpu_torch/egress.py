@@ -395,11 +395,20 @@ class EgressStager(object):
             dest.write(part.numpy())
         dest.commit()
 
+    def inflight(self):
+        """Gulps submitted but not yet fully staged (queued and running)."""
+        return self._disp.inflight()
+
     def release(self, ticket):
         """Return a drained ticket's staging buffer to the pool."""
         self.pool.release(ticket._pool_buf)
         ticket._pool_buf = None
         ticket.array = None
+
+    def drain(self, raise_exc=True, timeout=None):
+        """Wait until every submitted gulp is staged; a worker's fault is
+        raised here when `raise_exc`."""
+        return self._disp.drain(raise_exc=raise_exc, timeout=timeout)
 
     def sync(self):
         """Wait until every copy issued so far has landed (before a

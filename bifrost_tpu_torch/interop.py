@@ -59,5 +59,5 @@ def from_torch(t, dtype=None, space="system", device=None):
         elif t.dtype != dt.as_torch_dtype():
             t = t.to(dt.as_torch_dtype())
     if space == "cuda":
-        return asarray(t, space, device)
+        return asarray(t, space, device=device)
     return t.to(space_device(space, torch.device("cpu")))

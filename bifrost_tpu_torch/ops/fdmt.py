@@ -280,6 +280,11 @@ class Fdmt(object):
             self._buckets = []
             self._step_need = []
 
+    def get_workspace_size(self, *args):
+        """The caller's scratch an execute needs: none (the merge steps'
+        state is the op's own)."""
+        return 0
+
     def plan_report(self):
         """Padding accounting for the bucketed scan layout (host-side, no
         device work): the padded row*step product the executor actually

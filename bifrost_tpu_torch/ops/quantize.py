@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from ..DataType import DataType
-from ..ndarray import complex_view
+from ..ndarray import complex_view, ndarray
 from .runtime import OpRuntime
 
 
@@ -125,7 +125,10 @@ def quantize(src, dst, scale=1.0, dtype=None):
     """Quantize float `src` into integer `dst` (reference quantize.py:41:
     quantize(src, dst, scale)): a storage tensor, or a numpy array of the
     JAX package's host form.  `dtype` names dst's type (packed and
-    complex types need it; a numpy dst defaults to its own dtype)."""
+    complex types need it; a host `ndarray` dst defaults to its `.bf`
+    dtype, a numpy dst to its own dtype)."""
+    if dtype is None and isinstance(dst, ndarray):
+        dtype = dst.bf.dtype
     if dtype is None:
         if isinstance(dst, torch.Tensor):
             raise ValueError("quantize: name dst's dtype for a tensor dst")

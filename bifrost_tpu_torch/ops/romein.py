@@ -349,6 +349,35 @@ class Romein(object):
                                   config_flag="romein_method",
                                   default="cuda")
 
+    # The runtime's stamps of the last execute, as the JAX `Romein`
+    # exposes them (bifrost_tpu/ops/romein.py:155-179).
+    @property
+    def last_method(self):
+        """Resolved method of the last execute."""
+        return self._runtime.last_method
+
+    @last_method.setter
+    def last_method(self, value):
+        self._runtime.last_method = value
+
+    @property
+    def last_origin(self):
+        """Plan-state origin ('host' or 'device') of that execute."""
+        return self._runtime.last_origin
+
+    @last_origin.setter
+    def last_origin(self, value):
+        self._runtime.last_origin = value
+
+    @property
+    def last_plan_build_s(self):
+        """Seconds the plan took to build (0.0 when served from cache)."""
+        return self._runtime.last_plan_build_s
+
+    @last_plan_build_s.setter
+    def last_plan_build_s(self, value):
+        self._runtime.last_plan_build_s = value
+
     def init(self, positions, kernels, ngrid, method=None, precision="f32"):
         """method: None/'auto' (the `romein_method` flag, else 'cuda'),
         'cuda' or 'plain'.  precision must be 'f32'."""

@@ -64,7 +64,11 @@ class OpRuntime(object):
 
     ``methods`` are the valid resolved methods (never 'auto');
     ``config_flag`` is consulted when the method is None/'auto';
-    ``default`` is what 'auto' resolves to when the flag says 'auto'."""
+    ``default`` is what 'auto' resolves to when the flag says 'auto'
+    (None: 'auto' stays 'auto', for an op that resolves it itself).
+    Blocks that resolve once a sequence latch the flag (`hold_latch`),
+    and the cache reads as a mapping (`get`, `keys`, `items`, `in`,
+    `len`)."""
 
     def __init__(self, op, methods, config_flag=None, default=None,
                  capacity=DEFAULT_CAPACITY):
@@ -91,6 +95,8 @@ class OpRuntime(object):
             from .. import config
             method = config.get(self.config_flag)
         if method == "auto":
+            if self.default is None:
+                return "auto"
             method = self.default
         if method not in self.methods:
             flag = f" ({self.config_flag} config flag)" \
@@ -100,8 +106,23 @@ class OpRuntime(object):
                 f"(expected auto/{'/'.join(self.methods)})")
         return method
 
+    def hold_latch(self, owner):
+        """Latch the op's config flag for a sequence (config.py's latch:
+        `config.set` on it raises, naming `owner`); pair with
+        `release_latch`."""
+        if self.config_flag is not None:
+            from .. import config
+            config.hold_latch(self.config_flag, owner)
+
+    def release_latch(self, owner):
+        if self.config_flag is not None:
+            from .. import config
+            config.release_latch(self.config_flag, owner)
+
     def plan(self, key, build, method=None, origin=None):
-        """Get-or-build the cached plan for ``key`` (bounded LRU)."""
+        """Get-or-build the cached plan for ``key`` (bounded LRU).  A build
+        that returns None is not cached; a plan's own `plan_build_s`
+        attribute, where it times itself, is its build cost."""
         if method is not None:
             self.last_method = method
         if origin is not None:
@@ -115,7 +136,10 @@ class OpRuntime(object):
         self.misses += 1
         t0 = time.perf_counter()
         value = build()
-        self.last_plan_build_s = time.perf_counter() - t0
+        if value is None:
+            return None
+        self.last_plan_build_s = float(getattr(
+            value, "plan_build_s", time.perf_counter() - t0))
         self._cache[key] = value
         while len(self._cache) > self.capacity:
             self._cache.popitem(last=False)
@@ -125,6 +149,28 @@ class OpRuntime(object):
     def invalidate(self):
         """Drop every cached plan; the counters survive."""
         self._cache.clear()
+
+    def get(self, key, default=None):
+        return self._cache.get(key, default)
+
+    def __contains__(self, key):
+        return key in self._cache
+
+    def __len__(self):
+        return len(self._cache)
+
+    def __eq__(self, other):
+        if isinstance(other, OpRuntime):
+            return self is other
+        return dict(self._cache) == other
+
+    __hash__ = object.__hash__
+
+    def keys(self):
+        return self._cache.keys()
+
+    def items(self):
+        return self._cache.items()
 
     def report(self):
         return {

@@ -250,6 +250,12 @@ class BlockScope(object):
         return self._lookup("device")
 
     @property
+    def bound_device(self):
+        """The device setting of the nearest scope that names one (the
+        JAX package's name for `device`)."""
+        return self._lookup("device")
+
+    @property
     def core(self):
         """The CPU core this scope's block threads are pinned to, or None."""
         return self._lookup("core")
@@ -328,6 +334,9 @@ class Pipeline(BlockScope):
     def __exit__(self, *exc):
         _pipeline_stack().pop()
         return super().__exit__(*exc)
+
+    def as_default(self):
+        return self
 
     def synchronize_block_initializations(self):
         """Barrier: every block reports init before data flows
@@ -546,6 +555,31 @@ class Pipeline(BlockScope):
     def quiesce_requested(self):
         """True once a bounded shutdown asked the sources to wind down."""
         return self._quiesce_event.is_set()
+
+    def dot_graph(self):
+        """Graphviz text of the block and ring graph, in the JAX package's
+        format (bifrost_tpu/pipeline.py:607-624; reference
+        pipeline.py:166-206): a node a block, an edge a ring labelled with
+        its space."""
+        lines = ["digraph pipeline {", "  rankdir=LR;",
+                 '  node [shape=box, style=rounded];']
+        for b in self.blocks:
+            label = b.name.replace('"', "'")
+            lines.append(f'  "{b.name}" [label="{label}"];')
+        for b in self.blocks:
+            for ring in getattr(b, "irings", []):
+                src = getattr(ring, "owner", None)
+                base = getattr(ring, "base_ring", ring)
+                srcname = src.name if src is not None else base.name
+                space = getattr(base, "space", "system")
+                lines.append(f'  "{srcname}" -> "{b.name}" '
+                             f'[label="{space}"];')
+        lines.append("}")
+        return "\n".join(lines)
+
+
+def izip(*iterables):
+    return zip(*iterables)
 
 
 _BLOCK_LOG_NAMES = {}   # log name -> id of the live block that holds it
@@ -785,12 +819,20 @@ class Block(BlockScope):
             # A finished block's heartbeat freezes: the watchdog must not
             # deadman it.
             self._thread_done = True
-            self._close_dispatcher()
-            self._release_flag_latches()
-            self.mark_initialized()   # unblock the barrier on early exit
+            try:
+                self.shutdown()
+            finally:
+                self._close_dispatcher()
+                self._release_flag_latches()
+                self.mark_initialized()   # unblock the barrier on early exit
 
     def main(self):
         raise NotImplementedError
+
+    def shutdown(self):
+        """Hook run on the block's thread when it ends, however it ends:
+        a block that holds a file, a socket or a worker releases it here
+        (idempotent; the JAX package's `Block.shutdown`)."""
 
     # -- supervision seams
     def owns_thread(self, ident):
@@ -1271,6 +1313,12 @@ class MultiTransformBlock(Block):
     """N input rings -> M output rings, the gulp hot loop
     (reference pipeline.py:523-694 — see SURVEY.md §3.3)."""
 
+    # A block whose output frames are not proportional to its input
+    # frames sizes a final partial gulp's reservation with
+    # `define_output_nframes` rather than by scaling a full gulp's
+    # (bifrost_tpu/pipeline.py:1753); an exact emit hook wins over both.
+    exact_output_nframes = False
+
     def __init__(self, irings, guarantee=True, name=None, **kwargs):
         super().__init__(irings=irings, name=name, **kwargs)
         self.guarantee = guarantee
@@ -1284,6 +1332,10 @@ class MultiTransformBlock(Block):
 
     def _on_data(self, ispans, ospans):
         return self.on_data(ispans, ospans)
+
+    def define_valid_input_spaces(self):
+        """The spaces each input may live in ('any': every space)."""
+        return ["any"] * len(self.irings)
 
     def define_input_overlap_nframe(self, iseqs):
         """Frames of overlap carried between gulps (FDMT/FIR state)."""
@@ -1524,6 +1576,8 @@ class MultiTransformBlock(Block):
                 if emit_hook is not None:
                     out_nframes = [int(n) for n in
                                    emit_hook(rel_frame, in_nframe)]
+                elif frac < 1 and self.exact_output_nframes:
+                    out_nframes = self.define_output_nframes(in_nframe)
                 else:
                     out_nframes = [max(1, int(round(onf * frac)))
                                    if frac < 1 else onf for onf in onframes]
@@ -1650,6 +1704,8 @@ class MultiTransformBlock(Block):
                     out_nframes = [int(n) for n in
                                    emit_hook(frame - begin_nframe,
                                              in_nframe)]
+                elif frac < 1 and self.exact_output_nframes:
+                    out_nframes = self.define_output_nframes(in_nframe)
                 else:
                     out_nframes = [max(1, int(round(onf * frac)))
                                    if frac < 1 else onf for onf in onframes]
@@ -2109,6 +2165,10 @@ class FusedTransformBlock(TransformBlock):
     (`_GulpHold`).  Gulps that emit drain the worker first.
     """
 
+    # A short final gulp can still complete an integration of the tail
+    # mid-gulp: its reservation comes from define_output_nframes.
+    exact_output_nframes = True
+
     def __init__(self, constituents, pre_transforms, tail=None,
                  tail_transforms=None):
         first = constituents[0]
@@ -2163,6 +2223,9 @@ class FusedTransformBlock(TransformBlock):
         if self._use_async():
             return contextlib.nullcontext()
         return super()._device_lock()
+
+    def shutdown(self):
+        self._close_dispatcher()
 
     def _drain_dispatcher(self, raise_exc=True):
         if self._dispatcher is not None:

@@ -71,7 +71,7 @@ import torch
 from . import device as _device
 from .DataType import DataType
 from .memory import SPACEMAP, Space, alloc_bytes
-from .ndarray import tensor_shape
+from .ndarray import _storage_shape, ndarray, tensor_shape
 from .proclog import ProcLog
 
 _ALIGN = 16   # default capacity/ghost granularity: every element divides it
@@ -163,6 +163,8 @@ class TensorInfo(object):
             .element_size()
         self.frame_nbyte = int(np.prod(self.frame_tensor_shape)) * \
             self.itemsize
+        self._view_lock = threading.Lock()
+        self._view_cache = {}
 
     def frame_major(self):
         """This tensor with its frame axis moved first, the ringlet axes
@@ -175,6 +177,53 @@ class TensorInfo(object):
         """Tensor shape of an nframe span in the header's axis order."""
         return tuple(self.ringlet_shape) + (nframe,) + \
             tuple(self.frame_tensor_shape)
+
+    def full_shape(self, nframe):
+        """Host storage shape of an nframe span in the header's axis order
+        (the JAX package's: complex integers without their (re, im) axis,
+        packed types folded)."""
+        frame = _storage_shape(self.frame_shape, self.dtype) \
+            if self.frame_shape else ()
+        return tuple(self.ringlet_shape) + (nframe,) + tuple(frame)
+
+    def span_array(self, data_ptr, ringlet_stride, nframe, space):
+        """A host `ndarray` view of an nframe span at host address
+        `data_ptr`, ringlets `ringlet_stride` bytes apart, in the header's
+        axis order (bifrost_tpu/ring.py:179-200; reference
+        ring2.py:430-446)."""
+        np_dtype = self.dtype.as_numpy_dtype()
+        frame = self.full_shape(nframe)[len(self.ringlet_shape) + 1:]
+        itemstrides = [np_dtype.itemsize]
+        for n in reversed(frame):
+            itemstrides.append(itemstrides[-1] * n)
+        ringlet_strides = []
+        acc = ringlet_stride
+        for n in reversed(self.ringlet_shape):
+            ringlet_strides.insert(0, acc)
+            acc *= n
+        shape = tuple(self.ringlet_shape) + (nframe,) + \
+            tuple(self.frame_shape)
+        strides = tuple(ringlet_strides) + (self.frame_nbyte,) + \
+            tuple(reversed(itemstrides[:-1]))
+        arr = ndarray(shape=shape, dtype=self.dtype, buffer=data_ptr,
+                      strides=strides, space=space)
+        arr.bf.ownbuffer = False
+        return arr
+
+    def span_array_cached(self, data_ptr, ringlet_stride, nframe, space):
+        """`span_array`, one view a (address, stride, nframe, space) for
+        this TensorInfo's life: steady streaming cycles through a few
+        slots, and the views alias the same bytes."""
+        key = (data_ptr, ringlet_stride, nframe, space)
+        with self._view_lock:
+            arr = self._view_cache.get(key)
+            if arr is None:
+                if len(self._view_cache) > 64:   # the buffer moved
+                    self._view_cache.clear()
+                arr = self.span_array(data_ptr, ringlet_stride, nframe,
+                                      space)
+                self._view_cache[key] = arr
+        return arr
 
     # ---------------------------------------------- host-destination views
     @property
@@ -381,6 +430,19 @@ class Ring(object):
         """-> (fired generation, acked generation, latest fire's target)."""
         with self._cond:
             return self._intr_fired, self._intr_acked, self._intr_target
+
+    def clear_interrupt(self):
+        """Retire every generation fired so far (the JAX package's compat
+        reset; supervised restarts ack the generation they saw)."""
+        with self._cond:
+            self._intr_acked = self._intr_fired
+            self._cond.notify_all()
+
+    @property
+    def writing_ended(self):
+        """Has the writer called `end_writing`?"""
+        with self._cond:
+            return self._writing_ended
 
     # ----------------------------------------------------------- ring log
     def _geometry(self):
@@ -903,6 +965,13 @@ class WriteSpan(object):
     def data(self, value):
         self.data.copy_(value)
 
+    def wait_ready(self):
+        """Block until the work this thread queued for the span has run
+        (a 'cuda' ring's span is written on the thread's stream); a host
+        span is ready when its writes return."""
+        if self.ring._on_cuda:
+            _device.stream_synchronize(self.ring.device)
+
     def publish_external(self, arr, nframe=None):
         """Commit `arr`'s bytes instead of the ring's: readers of this span
         get a tensor aliasing `arr` (the zero-copy host plane,
@@ -978,6 +1047,12 @@ class ReadSequence(object):
         self._closed = False
         self._open_spans = []
         self._manual = False
+
+    @property
+    def finished(self):
+        """Has the writer ended this sequence?"""
+        with self.ring._cond:
+            return self._seq.finished
 
     def set_guarantee_manual(self, manual=True):
         """Stop span acquires from moving this reader's guarantee forward;

@@ -31,37 +31,37 @@ STATUS_INSUFFICIENT_SPACE = 18
 STATUS_INTERRUPTED = 32
 STATUS_PEER_DIED = 41
 
-_u64 = ctypes.c_uint64
+u64 = ctypes.c_uint64
 _vp = ctypes.c_void_p
 _PROTOS = {
     "btGetLastError": (ctypes.c_char_p, []),
     "btShmRingCreate": (ctypes.c_int, [ctypes.POINTER(_vp), ctypes.c_char_p,
-                                       _u64, _u64]),
+                                       u64, u64]),
     "btShmRingAttach": (ctypes.c_int, [ctypes.POINTER(_vp),
                                        ctypes.c_char_p]),
     "btShmRingClose": (ctypes.c_int, [_vp]),
     "btShmRingUnlink": (ctypes.c_int, [ctypes.c_char_p]),
     "btShmRingInterrupt": (ctypes.c_int, [_vp]),
     "btShmRingAckInterrupt": (ctypes.c_int, [_vp]),
-    "btShmRingSequenceBegin": (ctypes.c_int, [_vp, _u64, ctypes.c_char_p,
-                                              _u64]),
+    "btShmRingSequenceBegin": (ctypes.c_int, [_vp, u64, ctypes.c_char_p,
+                                              u64]),
     "btShmRingSequenceEnd": (ctypes.c_int, [_vp]),
     "btShmRingEndWriting": (ctypes.c_int, [_vp]),
-    "btShmRingWrite": (ctypes.c_int, [_vp, _vp, _u64]),
-    "btShmRingWriteReserve": (ctypes.c_int, [_vp, _u64,
+    "btShmRingWrite": (ctypes.c_int, [_vp, _vp, u64]),
+    "btShmRingWriteReserve": (ctypes.c_int, [_vp, u64,
                                              ctypes.POINTER(_vp),
-                                             ctypes.POINTER(_u64)]),
-    "btShmRingWriteCommit": (ctypes.c_int, [_vp, _u64]),
+                                             ctypes.POINTER(u64)]),
+    "btShmRingWriteCommit": (ctypes.c_int, [_vp, u64]),
     "btShmRingNumReaders": (ctypes.c_int, [_vp,
                                            ctypes.POINTER(ctypes.c_int)]),
     "btShmRingReaderOpen": (ctypes.c_int, [_vp,
                                            ctypes.POINTER(ctypes.c_int)]),
     "btShmRingReaderClose": (ctypes.c_int, [_vp, ctypes.c_int]),
-    "btShmRingReadSequence": (ctypes.c_int, [_vp, ctypes.c_int, _vp, _u64,
-                                             ctypes.POINTER(_u64),
-                                             ctypes.POINTER(_u64)]),
-    "btShmRingRead": (ctypes.c_int, [_vp, ctypes.c_int, _vp, _u64,
-                                     ctypes.POINTER(_u64)]),
+    "btShmRingReadSequence": (ctypes.c_int, [_vp, ctypes.c_int, _vp, u64,
+                                             ctypes.POINTER(u64),
+                                             ctypes.POINTER(u64)]),
+    "btShmRingRead": (ctypes.c_int, [_vp, ctypes.c_int, _vp, u64,
+                                     ctypes.POINTER(u64)]),
 }
 
 _lib = None
@@ -120,8 +120,8 @@ class ShmRingWriter(object):
         self.data_capacity = int(data_capacity)
         obj = _vp()
         _check(_bt().btShmRingCreate(ctypes.byref(obj), name.encode(),
-                                     _u64(self.data_capacity),
-                                     _u64(hdr_capacity)))
+                                     u64(self.data_capacity),
+                                     u64(hdr_capacity)))
         self.obj = obj
         self._closed = False
 
@@ -147,13 +147,13 @@ class ShmRingWriter(object):
         if time_tag is None:
             time_tag = int(header.get("time_tag", 0))
         blob = json.dumps(header).encode()
-        _check(_bt().btShmRingSequenceBegin(self.obj, _u64(time_tag), blob,
-                                            _u64(len(blob))))
+        _check(_bt().btShmRingSequenceBegin(self.obj, u64(time_tag), blob,
+                                            u64(len(blob))))
 
     def write(self, arr):
         a = np.ascontiguousarray(arr)
         _check(_bt().btShmRingWrite(self.obj, a.ctypes.data_as(_vp),
-                                    _u64(a.nbytes)))
+                                    u64(a.nbytes)))
 
     def reserve_view(self, max_nbyte):
         """A writable np.uint8 view of up to `max_nbyte` contiguous free
@@ -162,8 +162,8 @@ class ShmRingWriter(object):
         does; publish the filled bytes with `commit_view(n)`.  The egress
         plane lands a gulp in the shared segment through this pair."""
         ptr = _vp()
-        got = _u64()
-        _check(_bt().btShmRingWriteReserve(self.obj, _u64(int(max_nbyte)),
+        got = u64()
+        _check(_bt().btShmRingWriteReserve(self.obj, u64(int(max_nbyte)),
                                            ctypes.byref(ptr),
                                            ctypes.byref(got)))
         n = int(got.value)
@@ -174,7 +174,7 @@ class ShmRingWriter(object):
 
     def commit_view(self, nbyte):
         """Publish `nbyte` bytes filled through `reserve_view`."""
-        _check(_bt().btShmRingWriteCommit(self.obj, _u64(int(nbyte))))
+        _check(_bt().btShmRingWriteCommit(self.obj, u64(int(nbyte))))
 
     def end_sequence(self):
         _check(_bt().btShmRingSequenceEnd(self.obj))
@@ -233,11 +233,11 @@ class ShmRingReader(object):
 
     def read_sequence(self):
         """-> (header dict, time_tag); raises EndOfDataStop when done."""
-        hdr_size = _u64()
-        time_tag = _u64()
+        hdr_size = u64()
+        time_tag = u64()
         while True:
             status = _bt().btShmRingReadSequence(
-                self.obj, self.slot, self._hdr_buf, _u64(len(self._hdr_buf)),
+                self.obj, self.slot, self._hdr_buf, u64(len(self._hdr_buf)),
                 ctypes.byref(hdr_size), ctypes.byref(time_tag))
             if status != STATUS_INSUFFICIENT_SPACE:
                 break
@@ -258,14 +258,14 @@ class ShmRingReader(object):
         if not arr.flags.c_contiguous or not arr.flags.writeable:
             raise ValueError("readinto requires a C-contiguous writable "
                              "array")
-        nread = _u64()
+        nread = u64()
         total = 0
         view = arr.view(np.uint8).reshape(-1)
         base = view.ctypes.data
         while total < arr.nbytes:
             status = _bt().btShmRingRead(self.obj, self.slot,
                                          _vp(base + total),
-                                         _u64(arr.nbytes - total),
+                                         u64(arr.nbytes - total),
                                          ctypes.byref(nread))
             if status == STATUS_END_OF_DATA:
                 if total:

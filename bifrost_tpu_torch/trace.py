@@ -25,7 +25,7 @@ import tempfile
 from . import config
 
 __all__ = ["trace_scope", "traced", "start_profile", "stop_profile",
-           "TRACE_FILE"]
+           "TRACE_FILE", "TRACE_ENABLED"]
 
 TRACE_FILE = "trace.json"     # the Chrome trace stop_profile writes
 
@@ -34,6 +34,11 @@ _profile = None               # (profiler, log_dir, on the card)
 
 def _enabled():
     return bool(config.get("trace"))
+
+
+# The flag's value at import (bifrost_tpu/trace.py:28); live checks read
+# the flag, so config.set("trace", ...) after import takes effect.
+TRACE_ENABLED = _enabled()
 
 
 @contextlib.contextmanager

@@ -452,6 +452,26 @@ Phases, one line each; any failure exits non-zero:
              into `launches_by_path` as `mesh_*`, and the collectives of
              the runs that launch K4 or X1 into their records'
              `mesh_collectives`.
+22. surface — at the end: the JAX package's user surface on the card.
+             `bf.asarray` to 'cuda' and back; `empty_like`/`zeros_like`
+             of a CUDA tensor and of a pinned one, their spaces read
+             by `get_space`; `memset_array` on a CUDA tensor; two
+             `raw_malloc(..., 'cuda_host')` blocks, pinned (their
+             backing tensors' `is_pinned()`), `memcpy2D` between them
+             and `copy_array` from the card into a host `ndarray` over
+             one; `ExternalStream` over a new `torch.cuda.Stream` (and
+             over its raw cudaStream_t), the scope's work queued on
+             that stream and not on the default one; `bf.fft.fft` and
+             `Fft.init/execute` of a card tensor into a host `ndarray`
+             within the FFT bound (32 eps32 sqrt(n) max|want|) of
+             np.fft; `transpose` and `reduce` into host out-arrays,
+             bitwise numpy on integer-valued data; `Fdmt.execute` at
+             [main]'s geometry from a card tensor into a host
+             `ndarray`, its K1 launches counted as the path `surface`
+             and its output bitwise the plain merge step's; the v1
+             `block.Pipeline` multi-add, FFT/IFFT and fold pipelines,
+             each file byte-identical to the one a plain numpy
+             computation of the same function writes.
 
 The launch checks of every phase count all nine kernels (K1, K2, K4,
 K6a, K6b, K5a, K5b, X1, M1).  The line before the last two holds the kernel
@@ -685,6 +705,10 @@ MESH_FAULT = dict(timeout_s=2.0, lost=5, nth=6)
 MESH_FX = dict(ntime=1024, nchan=64, nstand=64, npol=2, nfine=16, nbeam=8)
 
 # Device-memory rate by card (NVIDIA data sheets), bytes/s
+# [surface]: the FFT plan's (batch, n) and the transpose/reduce input.
+SF_FFT = (64, 4096)
+SF_ARR = (4096, 256)
+
 _HBM_RATE = (("H200", 4.8e12), ("H100 PCIe", 2.0e12), ("H100", 3.35e12))
 F32_PEAK = 67e12   # H100 SXM f32 outside the tensor cores, operations/s
 INT8_PEAK = 1979e12   # H100 SXM dense int8 tensor cores, operations/s
@@ -6751,6 +6775,228 @@ def mesh_path(dev, kind, volt, smi):
     return counts, colls
 
 
+def sf_ascii(arr):
+    """The bytes v1 `WriteAsciiBlock` writes for one gulp of `arr`: its
+    values (complex as interleaved (re, im) floats) each followed by a
+    space."""
+    arr = np.asarray(arr)
+    if arr.dtype == np.complex64:
+        arr = arr.view(np.float32)
+    return "".join(str(v) + " " for v in arr.ravel())
+
+
+def sf_fold_plain(data, fch1, foff, tsamp, tstart, bins, period):
+    """The fold histogram by a plain loop over samples (FoldBlock's
+    arithmetic: the MJD start in seconds, each channel's dispersion
+    delay, zero here, and the phase bin of each sample)."""
+    hist = np.zeros(bins, np.float64)
+    counts = np.zeros(bins, np.int64)
+    t0 = tstart * 86400.0
+    for i in range(data.shape[0]):
+        for c in range(data.shape[1]):
+            arrival = t0 + tsamp * i
+            b = int(np.floor(np.fmod(arrival, period) / period * bins))
+            hist[b] += float(data[i, c])
+            counts[b] += 1
+    return np.where(counts > 0, hist / np.maximum(counts, 1),
+                    0.0).astype(np.float32)
+
+
+def sf_v1(tmp):
+    """The v1 legacy Pipelines (tests/test_legacy_block.py's multi-add,
+    FFT/IFFT and fold), each file against a plain numpy computation's."""
+    from bifrost_tpu_torch import block as blk
+    from bifrost_tpu_torch.io.sigproc import write_header
+    rng = np.random.default_rng(SEED + 22)
+    a = np.arange(8, dtype=np.float32)
+    b = a * 10
+    arr = rng.standard_normal(16).astype(np.float32)
+    nsamp, nchan, bins, period, tsamp = 1024, 2, 8, 8e-4, 1e-4
+    t = np.arange(nsamp) * tsamp
+    pulse = (np.fmod(t, period) < tsamp).astype(np.uint8) * 100
+    data = np.repeat(pulse[:, None], nchan, axis=1) + 10
+    fil = tmp / "p.fil"
+    with open(fil, "wb") as f:
+        write_header(f, {"nchans": nchan, "nifs": 1, "nbits": 8,
+                         "tsamp": tsamp, "tstart": 0.0, "fch1": 400.0,
+                         "foff": 0.0, "data_type": 1})
+        f.write(data.astype(np.uint8).tobytes())
+    out = {k: str(tmp / f"{k}.txt") for k in ("add", "fft", "fold")}
+    blk.Pipeline([
+        (blk.TestingBlock(a), [], ["a"]), (blk.TestingBlock(b), [], ["b"]),
+        (blk.MultiAddBlock(), {"in_1": "a", "in_2": "b", "out_sum": "s"}),
+        (blk.WriteAsciiBlock(out["add"]), ["s"], [])]).main()
+    blk.Pipeline([
+        (blk.TestingBlock(arr), [], [0]), (blk.FFTBlock(), [0], [1]),
+        (blk.IFFTBlock(), [1], [2]),
+        (blk.WriteAsciiBlock(out["fft"]), [2], [])]).main()
+    blk.Pipeline([
+        (blk.SigprocReadBlock(str(fil)), [], [0]),
+        (blk.FoldBlock(bins=bins, period=period, dispersion_measure=0),
+         [0], [1]),
+        (blk.WriteAsciiBlock(out["fold"]), [1], [])]).main()
+    spec = np.fft.fft(arr.astype(np.complex64)).astype(np.complex64)
+    want = {"add": sf_ascii(a + b),
+            "fft": sf_ascii(np.fft.ifft(spec).astype(np.complex64)),
+            "fold": sf_ascii(sf_fold_plain(data, 400.0, 0.0, tsamp, 0.0,
+                                           bins, period))}
+    for k, path in out.items():
+        got = open(path).read()
+        if got != want[k]:
+            raise AssertionError(f"[surface] v1 {k}: {got[:80]!r} != "
+                                 f"{want[k][:80]!r}")
+    return {k: len(w) for k, w in want.items()}
+
+
+def surface_path(dev, kind, smi):
+    """[surface] (module docstring, phase 22).  -> {'surface': counts}."""
+    import tempfile
+    import bifrost_tpu_torch as bf
+    from bifrost_tpu_torch import memory
+    from bifrost_tpu_torch.ops import Fdmt, Fft, reduce, transpose
+    t_start = time.perf_counter()
+    bf.device.set_device(dev)
+    rng = np.random.default_rng(SEED + 23)
+    a = rng.integers(0, 16, SF_ARR).astype(np.float32)
+    # (a) spaces: to the card and back, likes, memset
+    t = bf.asarray(a, space="cuda")
+    back = bf.asarray(t, space="system")
+    if not (t.is_cuda and bf.get_space(t) == "cuda" and
+            type(back) is bf.ndarray and back.tobytes() == a.tobytes()):
+        raise AssertionError("[surface] asarray to 'cuda' and back")
+    pinned = bf.asarray(a, space="cuda_host")
+    likes = {}
+    for name, src in (("cuda", t), ("cuda_host", pinned)):
+        for like in (bf.empty_like, bf.zeros_like):
+            y = like(src)
+            likes[f"{like.__name__}({name})"] = bf.get_space(y)
+            if bf.get_space(y) != name or y.shape != src.shape or \
+                    y.dtype != src.dtype or y.device != src.device:
+                raise AssertionError(f"[surface] {like.__name__} of a "
+                                     f"{name} tensor: {bf.get_space(y)}")
+            if like is bf.zeros_like and bool(y.any()):
+                raise AssertionError(f"[surface] zeros_like({name})")
+    m = t.clone()
+    bf.memset_array(m, 0xFF)
+    if not bool((m.view(torch.int32) == -1).all()):
+        raise AssertionError("[surface] memset_array on the card")
+    # (b) pinned raw blocks, memcpy2D, copy_array into a raw block
+    rows, width = SF_ARR[0], SF_ARR[1] * 4
+    p1 = memory.raw_malloc(rows * width, "cuda_host")
+    p2 = memory.raw_malloc(rows * 2 * width, "cuda_host")
+    try:
+        pin = (memory.raw_pinned(p1), memory.raw_pinned(p2))
+        if not all(pin) or memory.raw_get_space(p1) != "cuda_host":
+            raise AssertionError(f"[surface] raw_malloc 'cuda_host' "
+                                 f"pinned {pin}")
+        h1 = bf.ndarray(buffer=p1, shape=SF_ARR, dtype="f32",
+                        space="cuda_host")
+        bf.copy_array(h1, t)                       # card -> raw block
+        if h1.tobytes() != a.tobytes():
+            raise AssertionError("[surface] copy_array into a raw block")
+        memory.memset(p2, 0, rows * 2 * width)
+        memory.memcpy2D(p2, 2 * width, p1, width, width, rows)
+        h2 = bf.ndarray(buffer=p2, shape=(rows, 2 * SF_ARR[1]),
+                        dtype="f32")
+        if h2[:, :SF_ARR[1]].tobytes() != a.tobytes() or \
+                h2[:, SF_ARR[1]:].any():
+            raise AssertionError("[surface] memcpy2D between raw blocks")
+    finally:
+        memory.raw_free(p1)
+        memory.raw_free(p2)
+    # (c) ExternalStream: the scope's work is queued on the stream
+    stream = torch.cuda.Stream(dev)
+    torch.cuda.synchronize()
+    with bf.device.ExternalStream(stream):
+        on = torch.cuda.current_stream(dev) == stream
+        torch.cuda._sleep(200_000_000)
+        queued = not stream.query()
+        idle = torch.cuda.default_stream(dev).query()
+        y = bf.fft.fft(t.to(torch.complex64), axes=1)
+    done = stream.query()
+    with bf.device.ExternalStream(stream.cuda_stream):
+        raw_on = torch.cuda.current_stream(dev).cuda_stream == \
+            stream.cuda_stream
+    if not (on and queued and idle and done and raw_on and y.is_cuda):
+        raise AssertionError(f"[surface] ExternalStream: current {on}, "
+                             f"queued {queued}, default idle {idle}, "
+                             f"synced {done}, raw address {raw_on}")
+    # (d) FFT from the card into host ndarrays
+    x = torch.from_numpy((rng.standard_normal(SF_FFT) + 1j *
+                          rng.standard_normal(SF_FFT)).astype(
+                              np.complex64)).to(dev)
+    want = np.fft.fft(x.cpu().numpy(), axis=1)
+    o1 = bf.empty(SF_FFT, dtype="cf32")
+    bf.fft.fft(x, o1, axes=1)
+    o2 = bf.zeros(SF_FFT, dtype="cf32")
+    plan = Fft()
+    plan.init(x, o2, axes=1)
+    plan.execute(x, o2)
+    fbound = 32 * float(np.finfo(np.float32).eps) * math.sqrt(SF_FFT[1]) \
+        * float(np.abs(want).max())
+    ferr = float(np.abs(np.asarray(o1) - want).max())
+    if not (ferr <= fbound and o1.tobytes() == o2.tobytes()):
+        raise AssertionError(f"[surface] fft into a host ndarray: err "
+                             f"{ferr} (bound {fbound})")
+    # (e) transpose and reduce into host out-arrays, bitwise numpy
+    ot = np.empty(SF_ARR[::-1], np.float32).view(bf.ndarray)
+    transpose(ot, t, axes=(1, 0))
+    osum = np.empty((SF_ARR[0], 1), np.float32).view(bf.ndarray)
+    reduce(t, osum, "sum")
+    omax = np.empty((1, SF_ARR[1]), np.float32).view(bf.ndarray)
+    reduce(t, omax, "max")
+    if ot.tobytes() != np.ascontiguousarray(a.T).tobytes() or \
+            osum.tobytes() != a.sum(axis=1, keepdims=True).tobytes() or \
+            omax.tobytes() != a.max(axis=0, keepdims=True).tobytes():
+        raise AssertionError("[surface] transpose/reduce into host arrays")
+    # (f) Fdmt at [main]'s geometry into a host ndarray: K1 on the path
+    xf = torch.from_numpy(np.ascontiguousarray(
+        frb_data()[:GULP].T.astype(np.float32))).to(dev)
+    fplan = Fdmt().init(NCHAN, MAX_DELAY, F0, DF, method="cuda")
+    fout = bf.empty((MAX_DELAY, GULP), dtype="f32")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    fplan.execute(xf, fout)
+    fdmt_s = time.perf_counter() - t0
+    counts = read_counts()
+    nsteps = len(fplan._steps)
+    if counts != expected(fdmt_merge_step=nsteps):
+        raise AssertionError(f"[surface] Fdmt launches {counts}, expected "
+                             f"{nsteps} of fdmt_merge_step alone")
+    t0 = time.perf_counter()               # warm: tables built, cached
+    fplan.execute(xf, fout)
+    warm_s = time.perf_counter() - t0
+    plain = Fdmt().init(NCHAN, MAX_DELAY, F0, DF, method="plain") \
+        .execute(xf).cpu().numpy()
+    if not (np.isfinite(fout).all() and
+            np.array_equal(np.asarray(fout).view(np.uint32),
+                           plain.view(np.uint32))):
+        raise AssertionError("[surface] Fdmt into a host ndarray: cuda "
+                             "!= plain")
+    del xf, plain
+    # (g) the v1 legacy blocks
+    with tempfile.TemporaryDirectory() as tmp:
+        v1 = sf_v1(Path(tmp))
+    bf.device._tls.device = None
+    phase("surface", f"{kind} ({smi}): asarray cuda and back bitwise; "
+          f"likes {likes}; memset_array on the card; raw_malloc "
+          f"'cuda_host' x 2 pinned {pin}, memcpy2D {rows} rows of "
+          f"{width} B and copy_array card -> raw block bitwise; "
+          f"ExternalStream: current {on}, work queued on it (default "
+          f"stream idle {idle}), synced on exit {done}, raw cudaStream_t "
+          f"{raw_on}; fft {SF_FFT} into host ndarrays err {ferr:.3e} <= "
+          f"{fbound:.3e}, one-shot and Fft.init/execute bitwise; "
+          f"transpose, reduce sum/max {SF_ARR} into host arrays bitwise "
+          f"numpy; Fdmt {NCHAN} x {GULP}, max_delay {MAX_DELAY} into a "
+          f"host ndarray {fdmt_s * 1e3:.3f} ms first, {warm_s * 1e3:.3f} "
+          f"ms warm (with its pageable D2H), K1 "
+          f"launches {counts['fdmt_merge_step']}, bitwise plain; v1 "
+          f"multi-add, FFT/IFFT, fold files byte-identical to plain numpy "
+          f"({v1} bytes); {time.perf_counter() - t_start:.2f} s")
+    return {"surface": counts}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6841,6 +7087,9 @@ def main():
     t8 = time.perf_counter()
     counts.update(ipc_path(dev, kind, smi, ipc_ref))
     del ipc_ref
+    free_device()
+    t9 = time.perf_counter()
+    counts.update(surface_path(dev, kind, smi))
     phase("timing", f"build {secs:.1f} s, kernels {t1 - t0:.1f} s, main "
           f"{t1b - t1:.1f} s, observe {t2 - t1b:.1f} s, frbflag {t3 - t2:.1f} s, bengine "
           f"{t4 - t3:.1f} s, instrument {t5 - t4:.1f} s, dq "
@@ -6851,7 +7100,8 @@ def main():
           f"{t5g - t5m:.1f} s, async "
           f"{t6 - t5g:.1f} s, gpuspec "
           f"{t7 - t6:.1f} s, egress "
-          f"{t8 - t7:.1f} s, ipc {time.perf_counter() - t8:.1f} s")
+          f"{t8 - t7:.1f} s, ipc {t9 - t8:.1f} s, surface "
+          f"{time.perf_counter() - t9:.1f} s")
     by_path = {name: {path: c[name] for path, c in counts.items()}
                for name in kernel_counters()}
     for rec in recs:

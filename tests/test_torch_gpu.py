@@ -2158,3 +2158,129 @@ def test_xengine_kernel_at_mesh_shard_shapes(cuda, fmt, nchan, evict):
         assert _bits_equal(torch.view_as_real(v), torch.view_as_real(whole))
     finally:
         faultdomain.reset()
+
+
+# ------------------------------------------- the user surface on the card
+@pytest.mark.gpu
+def test_raw_malloc_cuda_host_is_pinned_and_memcpy2d(cuda):
+    from bifrost_tpu_torch import memory
+    p1 = memory.raw_malloc(64 * 32, "cuda_host")
+    p2 = memory.raw_malloc(64 * 64, "cuda_host")
+    try:
+        assert memory.raw_pinned(p1) and memory.raw_pinned(p2)
+        assert memory.raw_get_space(p1) == "cuda_host"
+        assert p1 % memory.alignment() == 0
+        src = np.arange(64 * 32, dtype=np.uint8)
+        memory.memcpy(p1, src.ctypes.data, src.nbytes)
+        memory.memset(p2, 0, 64 * 64)
+        memory.memcpy2D(p2, 64, p1, 32, 32, 64)
+        import bifrost_tpu_torch as bf
+        dst = bf.ndarray(buffer=p2, shape=(64, 64), dtype="u8")
+        np.testing.assert_array_equal(dst[:, :32], src.reshape(64, 32))
+        assert not dst[:, 32:].any()
+    finally:
+        memory.raw_free(p1)
+        memory.raw_free(p2)
+
+
+@pytest.mark.gpu
+def test_surface_arrays_on_the_card(cuda):
+    import bifrost_tpu_torch as bf
+    from bifrost_tpu_torch import memory
+    a = np.arange(48, dtype=np.float32).reshape(6, 8)
+    t = bf.asarray(a, space="cuda", device=cuda)
+    assert t.is_cuda and bf.get_space(t) == "cuda"
+    assert bf.asarray(t, space="system").tobytes() == a.tobytes()
+    pinned = bf.asarray(a, space="cuda_host")
+    assert pinned.is_pinned() and bf.get_space(pinned) == "cuda_host"
+    for src, space in ((t, "cuda"), (pinned, "cuda_host")):
+        for like in (bf.empty_like, bf.zeros_like):
+            y = like(src)
+            assert bf.get_space(y) == space and y.device == src.device
+            assert y.shape == src.shape and y.dtype == src.dtype
+        assert not bf.zeros_like(src).any()
+    assert bf.empty((4,), space="cuda_host").is_pinned()
+    m = t.clone()
+    bf.memset_array(m, 0xFF)
+    assert bool((m.view(torch.int32) == -1).all())
+    ptr = memory.raw_malloc(a.nbytes, "cuda_host")
+    try:
+        host = bf.ndarray(buffer=ptr, shape=a.shape, dtype="f32",
+                          space="cuda_host")
+        assert bf.copy_array(host, t) is host
+        assert host.tobytes() == a.tobytes()
+    finally:
+        memory.raw_free(ptr)
+
+
+@pytest.mark.gpu
+def test_external_stream_queues_the_scope_s_work_on_the_stream(cuda):
+    import bifrost_tpu_torch as bf
+    stream = torch.cuda.Stream(cuda)
+    torch.cuda.synchronize()
+    with bf.device.ExternalStream(stream):
+        assert torch.cuda.current_stream(cuda) == stream
+        torch.cuda._sleep(100_000_000)
+        assert not stream.query()
+        assert torch.cuda.default_stream(cuda).query()
+    assert stream.query()
+    with bf.device.ExternalStream(stream.cuda_stream, device=cuda):
+        assert torch.cuda.current_stream(cuda).cuda_stream == \
+            stream.cuda_stream
+
+
+@pytest.mark.gpu
+def test_fft_and_fdmt_from_the_card_into_host_ndarrays(cuda):
+    import bifrost_tpu_torch as bf
+    rng = np.random.default_rng(22)
+    x = torch.from_numpy((rng.standard_normal((8, 512)) + 1j *
+                          rng.standard_normal((8, 512))).astype(
+                              np.complex64)).to(cuda)
+    want = np.fft.fft(x.cpu().numpy(), axis=1)
+    out = bf.empty((8, 512), dtype="cf32")
+    bf.fft.fft(x, out, axes=1)
+    bound = 32 * np.finfo(np.float32).eps * np.sqrt(512) * \
+        np.abs(want).max()
+    assert np.abs(np.asarray(out) - want).max() <= bound
+    nchan, max_delay, ntime = 256, 64, 1024
+    xf = torch.from_numpy(rng.integers(0, 32, (nchan, ntime)).astype(
+        np.float32)).to(cuda)
+    plan = Fdmt().init(nchan, max_delay, 40.0, 0.1, method="cuda")
+    fout = bf.empty((max_delay, ntime), dtype="f32")
+    before = fdmt_kernel.merge_step.launches
+    assert plan.execute(xf, fout) is fout
+    assert fdmt_kernel.merge_step.launches == before + len(plan._steps)
+    plain = Fdmt().init(nchan, max_delay, 40.0, 0.1, method="plain") \
+        .execute(xf).cpu().numpy()
+    assert np.asarray(fout).tobytes() == plain.tobytes()
+
+
+@pytest.mark.gpu
+def test_numpy_input_to_the_ops_lands_on_the_card(cuda):
+    """With no device bound, numpy input to every op that lifts it goes
+    to the card."""
+    import importlib
+    import threading
+    import bifrost_tpu_torch as bf
+    from bifrost_tpu_torch.ops import fftshift, reduce_to, transpose
+    from bifrost_tpu_torch.ops.calibrate import calibrate
+    from bifrost_tpu_torch.ops.flag import flag
+    emap = importlib.import_module("bifrost_tpu_torch.ops.map").map
+    x = np.arange(32, dtype=np.float32).reshape(8, 4)
+    calls = [lambda: calibrate(x, np.ones(4, np.complex64)),
+             lambda: Fdmt().init(8, 4, 60e6, 0.1e6).execute(x),
+             lambda: bf.fft.fft(x, axes=1),
+             lambda: fftshift(x, axes=0),
+             lambda: flag(x, 4)[0],
+             lambda: emap("b = a * 2", {"a": x}, shape=(8, 4)),
+             lambda: reduce_to(x, (8, 1), "sum"),
+             lambda: transpose(None, x, axes=(1, 0))]
+    got = []
+
+    def run():
+        got.extend(c() for c in calls)
+    th = threading.Thread(target=run)
+    th.start()
+    th.join(timeout=120)
+    assert not th.is_alive() and len(got) == len(calls)
+    assert all(r.is_cuda for r in got)

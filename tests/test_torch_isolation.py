@@ -99,3 +99,47 @@ def test_pipeline_without_device_needs_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Pipeline()
     assert Pipeline(device="cpu").device == torch.device("cpu")
+
+
+def test_top_level_surface_keeps_the_import_torch_free():
+    """`import bifrost_tpu_torch` and the top-level names that need no
+    array (the spaces, the host core, the flags, the version) load
+    neither torch nor numpy, in a fresh interpreter; the array names load
+    torch only when read."""
+    code = ("import sys\n"
+            "import bifrost_tpu_torch as bf\n"
+            "light = (bf.__version__, bf.Space('cuda'), "
+            "bf.space_accessible('cuda_host', 'system'), bf.core_version(), "
+            "bf.BifrostError, bf.memory.alignment(), bf.config.describe(), "
+            "sorted(bf.__all__))\n"
+            "print('torch' in sys.modules, 'numpy' in sys.modules)\n"
+            "bf.zeros_like, bf.ndarray, bf.block.Pipeline\n"
+            "print('torch' in sys.modules)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["False", "False", "True"], res.stdout
+
+
+@pytest.mark.parametrize("rel", ["block.py", "memory.py", "ndarray.py",
+                                 "core.py", "device.py", "__init__.py"])
+def test_the_surface_modules_import_no_jax(rel):
+    """The legacy v1 blocks and the array and memory surface stand alone:
+    nothing of JAX or of the JAX package, in source or once imported."""
+    path = PKG / rel
+    for mod in _imported_modules(path):
+        assert mod.split(".")[0] not in ("jax", "jaxlib", "bifrost_tpu"), \
+            (rel, mod)
+    name = "bifrost_tpu_torch" + ("" if rel == "__init__.py" else
+                                  "." + rel[:-3])
+    code = (f"import sys, importlib; importlib.import_module({name!r})\n"
+            "print([m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'bifrost_tpu')])\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]"
