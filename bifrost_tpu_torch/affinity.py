@@ -5,7 +5,9 @@ Linux's ``sched_setaffinity``/``sched_getaffinity`` with pid 0 act on the
 calling thread, and libc's ``pthread_setname_np`` names it, so no host
 library is built.  A block built under ``block_scope(core=N)`` pins its
 thread to core N when it starts (pipeline.Block._run) and records N in its
-``bind`` proclog.
+``bind`` proclog.  A ring of such a block prefers core N's NUMA node for
+its host bytes (ring.py); `core_node` and `page_nodes` read back where
+pages lie, from sysfs and ``/proc/self/numa_maps`` (read only).
 """
 
 from __future__ import annotations
@@ -14,7 +16,8 @@ import ctypes
 import errno
 import os
 
-__all__ = ["get_core", "set_core", "set_openmp_cores", "set_thread_name"]
+__all__ = ["get_core", "set_core", "set_openmp_cores", "set_thread_name",
+           "core_node", "page_nodes"]
 
 _libc = None
 
@@ -76,3 +79,45 @@ def set_thread_name(name):
                                 str(name).encode()[:15])
     if rc:
         raise RuntimeError(f"cannot name the thread: {os.strerror(rc)}")
+
+
+def core_node(core):
+    """The NUMA node of CPU `core` (sysfs), or None where the machine does
+    not say."""
+    try:
+        names = os.listdir(f"/sys/devices/system/cpu/cpu{int(core)}")
+    except OSError:
+        return None
+    nodes = [int(n[4:]) for n in names
+             if n.startswith("node") and n[4:].isdigit()]
+    return nodes[0] if nodes else None
+
+
+def page_nodes(ptr, nbyte):
+    """{NUMA node: resident pages} of the mappings of this process that
+    overlap [ptr, ptr + nbyte), and their memory policies, from
+    ``/proc/self/numa_maps`` -> (dict, set of policy strings), or None
+    where the kernel keeps no such file (built without NUMA).  Pages not
+    touched yet are not counted."""
+    if not os.path.exists("/proc/self/numa_maps"):
+        return None
+    lo, hi = int(ptr), int(ptr) + int(nbyte)
+    starts = []
+    with open("/proc/self/maps") as f:
+        for line in f:
+            a, b = (int(x, 16) for x in line.split()[0].split("-"))
+            if a < hi and b > lo:
+                starts.append(a)
+    nodes, policies = {}, set()
+    with open("/proc/self/numa_maps") as f:
+        for line in f:
+            fields = line.split()
+            if int(fields[0], 16) not in starts:
+                continue
+            policies.add(fields[1])
+            for fld in fields[2:]:
+                key, _, val = fld.partition("=")
+                if key[:1] == "N" and key[1:].isdigit():
+                    node = int(key[1:])
+                    nodes[node] = nodes.get(node, 0) + int(val)
+    return nodes, policies

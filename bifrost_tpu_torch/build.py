@@ -10,12 +10,16 @@ nvcc processes at once.  The build happens
 at first use and `build_all` starts one nvcc per source at once.  A build
 that fails raises with the compiler's output; nothing falls back.
 
-The host libraries (`HOST_LIBS`: the UDP data plane, ``csrc/*.cpp`` and
+The host libraries (`HOST_LIBS`: the ring engine, ``csrc/ring.cpp`` over
+``csrc/ring_host.h``; the UDP data plane, ``csrc/*.cpp`` and
 ``csrc/udp_host.h``; the shm ring over ``csrc/host_status.h``) need no
 CUDA: `load_host` compiles them with the host
 C++ compiler (``c++``) the same way, hash-named, at first use, through a
 temporary file renamed into place, so processes building at once do not
-collide.
+collide.  The ring engine is loaded with ``RTLD_GLOBAL`` before a library
+that calls it (`HOST_DEPS`: the UDP capture engine reserves and commits
+the ring itself), so that library's references resolve to the one
+engine.
 
 The directory the builds go to is `BUILD_DIR` (generated libraries under
 `MAP_BUILD_DIR`, its ``map/``): the package's ``build/`` by default, or the
@@ -59,9 +63,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 DERIVED = {"fir_long": ("fir", ("-DFIR_LONG_FORM",))}
 
-HOST_LIBS = {"udp": ("socket.cpp", "udp_capture.cpp", "udp_transmit.cpp"),
+HOST_LIBS = {"ring": ("ring.cpp",),
+             "udp": ("socket.cpp", "udp_capture.cpp", "udp_transmit.cpp"),
              "shmring": ("shmring.cpp",)}
-HOST_HEADERS = ("udp_host.h", "host_status.h")
+HOST_HEADERS = ("ring_host.h", "udp_host.h", "host_status.h")
+HOST_DEPS = {"udp": ("ring",)}
 HOST_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 MAP_BUILD_DIR = DEFAULT_BUILD_DIR / "map"
@@ -172,7 +178,11 @@ def _host_target(name):
 
 def load_host(name):
     """The ctypes library (`ctypes.CDLL`: its calls run without the GIL)
-    of host library `name` (`HOST_LIBS`), built at first use."""
+    of host library `name` (`HOST_LIBS`), built at first use, after the
+    libraries it calls (`HOST_DEPS`).  A failed build raises with the
+    compiler's output."""
+    for dep in HOST_DEPS.get(name, ()):
+        load_host(dep)
     with _lock:
         lib = _libs.get(name)
         if lib is not None:
@@ -193,7 +203,9 @@ def load_host(name):
                     f"c++ failed for {list(HOST_LIBS[name])} "
                     f"(exit {res.returncode}):\n{res.stdout}{res.stderr}")
             os.replace(tmp, target)
-        lib = _libs[name] = ctypes.CDLL(str(target))
+        called = any(name in deps for deps in HOST_DEPS.values())
+        mode = ctypes.RTLD_GLOBAL if called else ctypes.DEFAULT_MODE
+        lib = _libs[name] = ctypes.CDLL(str(target), mode=mode)
         return lib
 
 

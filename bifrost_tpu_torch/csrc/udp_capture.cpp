@@ -6,19 +6,26 @@
 //   moderately reordered packets still land;
 // - per-slot missing-packet accounting, a per-(frame, source) dedup
 //   bitmap, and a bound on forward sequence jumps;
-// - a sequence callback lets Python supply the JSON sequence header;
+// - a sequence callback lets Python supply the JSON sequence header, the
+//   one call into Python, once a sequence;
 // - the loop runs synchronously inside btpUdpCaptureRecv, on the calling
-//   block's thread.
+//   block's thread, and reserves and commits the ring through the port's
+//   ring engine (ring.cpp) without the GIL;
+// - the throttled `<capture>/stats` log, every 16,384 good payloads and
+//   at the end of each sequence and of the engine, to the file udp.py
+//   names.
 //
-// Two changes from the JAX engine.  The ring is the port's Python ring,
-// reached through the callback table BTPringCallbacks (udp_host.h)
-// instead of the C ring API, so a ring call's failure arrives as a
-// callback status.  And the engine keeps no proclog of its own: udp.py's
-// publish_stats writes the same keys.
+// One change from the JAX engine: the stats log is a file path that
+// udp.py gives (its ProcLog), written through a temporary file and a
+// rename; and the engine counts the slot windows it committed
+// (btpUdpCaptureGetWindows).
 
+#include <cstdio>
 #include <cstring>
 #include <endian.h>
 #include <netinet/in.h>
+#include <pthread.h>
+#include <string>
 #include <vector>
 
 #include "udp_host.h"
@@ -91,15 +98,26 @@ private:
     uint64_t src0_;
 };
 
-void ring_call(int status, const char* what) {
+void ring_call(BTPstatus status, const char* what) {
     if (status != BTP_STATUS_SUCCESS) throw status_error{status, what};
+}
+
+void write_log(const std::string& path, const char* text) {
+    char tmp[4200];
+    snprintf(tmp, sizeof(tmp), "%s.%lu.tmp", path.c_str(),
+             (unsigned long)pthread_self());
+    FILE* f = fopen(tmp, "w");
+    if (!f) return;
+    fputs(text, f);
+    fclose(f);
+    rename(tmp, path.c_str());
 }
 
 }  // namespace
 
 struct BTPudpcapture_impl {
     BTPsocket sock = nullptr;
-    BTPringCallbacks ring{};
+    BTPring ring = nullptr;
     Decoder decoder{0, 1, 0};
     uint64_t nsrc = 1;
     uint64_t payload_size = 0;   // bytes per (seq, src) cell
@@ -113,11 +131,10 @@ struct BTPudpcapture_impl {
     bool writing = false;
     bool pinned = false;
     int core = -1;
-    bool in_sequence = false;
+    BTPsequence wseq = nullptr;
     uint64_t seq0 = 0;           // packet seq of sequence start
     uint64_t slot_seq = 0;       // packet seq of slot0 start
-    bool open[2] = {false, false};
-    uint64_t span_id[2] = {0, 0};
+    BTPwspan spans[2] = {nullptr, nullptr};
     uint8_t* span_data[2] = {nullptr, nullptr};
     uint64_t filled[2] = {0, 0};  // good bytes per slot
     std::vector<uint8_t> cell_filled[2];  // per-(frame, src) dedup bitmap
@@ -143,15 +160,42 @@ struct BTPudpcapture_impl {
 
     // stats (reference PacketStats)
     uint64_t ngood = 0, nmissing = 0, ninvalid = 0, nlate = 0, nrepeat = 0;
+    uint64_t nwindow = 0;        // ring commits (slot windows)
+    std::string stats_path;      // "<capture>/stats" (empty: none)
+    uint64_t last_logged_ngood = 0;
+
+    void log_stats() {
+        if (stats_path.empty()) return;
+        // Throttled on progress, not time: once per 16k good payloads.
+        if (ngood - last_logged_ngood < 16384 && last_logged_ngood) return;
+        last_logged_ngood = ngood ? ngood : 1;
+        char txt[256];
+        snprintf(txt, sizeof(txt),
+                 "ngood_bytes : %llu\nnmissing_bytes : %llu\n"
+                 "ninvalid : %llu\nnlate : %llu\nnrepeat : %llu\n",
+                 (unsigned long long)(ngood * payload_size),
+                 (unsigned long long)(nmissing * payload_size),
+                 (unsigned long long)ninvalid, (unsigned long long)nlate,
+                 (unsigned long long)nrepeat);
+        write_log(stats_path, txt);
+    }
+
+    void log_stats_forced() {
+        last_logged_ngood = 0;
+        log_stats();
+    }
+
+    void commit(BTPwspan span, uint64_t nbyte, const char* what) {
+        ring_call(btpRingSpanCommit(span, nbyte), what);
+        nwindow++;
+    }
 
     void reserve_slot(int i) {
-        void* data = nullptr;
-        uint64_t id = 0;
-        ring_call(ring.reserve(ring.user, slot_ntime * frame_nbyte, &data,
-                               &id), "reserve failed");
-        open[i] = true;
-        span_id[i] = id;
-        span_data[i] = (uint8_t*)data;
+        BTPspanInfo info;
+        ring_call(btpRingSpanReserve(&spans[i], ring,
+                                     slot_ntime * frame_nbyte, 0, &info),
+                  "reserve failed");
+        span_data[i] = (uint8_t*)info.base + info.offset % info.capacity;
         std::memset(span_data[i], 0, slot_ntime * frame_nbyte);
         filled[i] = 0;
         cell_filled[i].assign(slot_ntime * nsrc, 0);
@@ -162,11 +206,10 @@ struct BTPudpcapture_impl {
         // Commit BEFORE accumulating: an interrupted commit unwinds to
         // the caller and may be retried (supervised restart), so stats
         // count only windows that were published.
-        ring_call(ring.commit(ring.user, span_id[0], expected),
-                  "commit failed");
+        commit(spans[0], expected, "commit failed");
         ngood += filled[0] / payload_size;
         nmissing += (expected - filled[0]) / payload_size;
-        span_id[0] = span_id[1];
+        spans[0] = spans[1];
         span_data[0] = span_data[1];
         filled[0] = filled[1];
         cell_filled[0].swap(cell_filled[1]);
@@ -174,7 +217,7 @@ struct BTPudpcapture_impl {
         // Close slot 1 BEFORE the reserve: if it unwinds (interrupted
         // wait under back-pressure) the two slots must not name the same
         // span, or the retrying end_sequence would commit it twice.
-        open[1] = false;
+        spans[1] = nullptr;
         reserve_slot(1);
     }
 
@@ -188,47 +231,46 @@ struct BTPudpcapture_impl {
             if (rc != 0) throw std::runtime_error("sequence callback failed");
         }
         if (!writing) {
-            ring_call(ring.begin_writing(ring.user), "begin writing failed");
+            ring_call(btpRingBeginWriting(ring), "begin writing failed");
             writing = true;
         }
-        ring_call(ring.resize(ring.user, slot_ntime * frame_nbyte,
-                              buffer_ntime * frame_nbyte), "resize failed");
-        ring_call(ring.sequence_begin(ring.user, time_tag, hdr, hdr_size),
-                  "sequence begin failed");
-        in_sequence = true;
+        int changed = 0;
+        ring_call(btpRingResize(ring, slot_ntime * frame_nbyte,
+                                buffer_ntime * frame_nbyte, 1, 1, 0,
+                                &changed), "resize failed");
+        ring_call(btpRingSequenceBegin(&wseq, ring, "", time_tag, hdr_size,
+                                       hdr, 1), "sequence begin failed");
         slot_seq = seq0;
         reserve_slot(0);
         reserve_slot(1);
     }
 
     void end_sequence() {
-        if (!in_sequence) return;
+        if (!wseq) return;
         // Each slot retires on its own (commit -> count -> close), so an
         // interrupted commit retried by a supervised restart never
         // commits a published span again or counts it twice.
         uint64_t expected = slot_ntime * frame_nbyte;
-        if (open[0]) {
-            ring_call(ring.commit(ring.user, span_id[0], expected),
-                      "final commit failed");
+        if (spans[0]) {
+            commit(spans[0], expected, "final commit failed");
             ngood += filled[0] / payload_size;
             nmissing += (expected - filled[0]) / payload_size;
-            open[0] = false;
+            spans[0] = nullptr;
         }
-        if (open[1]) {
+        if (spans[1]) {
             uint64_t f1 = filled[1];
             // Keep a partial final window (zero-filled gaps) instead of
             // dropping received data; an empty one commits away.
-            ring_call(ring.commit(ring.user, span_id[1],
-                                  f1 > 0 ? expected : 0),
-                      "final commit failed");
+            commit(spans[1], f1 > 0 ? expected : 0, "final commit failed");
             if (f1 > 0) {
                 ngood += f1 / payload_size;
                 nmissing += (expected - f1) / payload_size;
             }
-            open[1] = false;
+            spans[1] = nullptr;
         }
-        ring_call(ring.sequence_end(ring.user), "sequence end failed");
-        in_sequence = false;
+        ring_call(btpRingSequenceEnd(wseq), "sequence end failed");
+        wseq = nullptr;
+        log_stats_forced();
     }
 
     // Scatter one packet into the two-slot window; -> slots completed.
@@ -237,7 +279,7 @@ struct BTPudpcapture_impl {
             ninvalid++;
             return 0;
         }
-        if (!in_sequence) begin_sequence(pkt.seq);
+        if (!wseq) begin_sequence(pkt.seq);
         int completed = 0;
         if (pkt.seq < slot_seq) {
             nlate++;
@@ -274,12 +316,12 @@ struct BTPudpcapture_impl {
 extern "C" {
 
 BTPstatus btpUdpCaptureCreate(BTPudpcapture* obj, const char* format,
-                              BTPsocket sock, const BTPringCallbacks* ring,
+                              BTPsocket sock, BTPring ring,
                               uint64_t nsrc, uint64_t src0,
                               uint64_t max_payload_size,
                               uint64_t buffer_ntime, uint64_t slot_ntime,
                               BTPsequenceCallback callback, void* user_data,
-                              int core) {
+                              int core, const char* stats_path) {
     BTP_TRY_BEGIN
     BTP_CHECK_PTR(obj);
     BTP_CHECK_PTR(format);
@@ -296,15 +338,15 @@ BTPstatus btpUdpCaptureCreate(BTPudpcapture* obj, const char* format,
         btp::set_last_error("buffer_ntime must be >= 3*slot_ntime");
         return BTP_STATUS_INVALID_ARGUMENT;
     }
-    if (!ring->begin_writing || !ring->end_writing || !ring->resize ||
-        !ring->sequence_begin || !ring->sequence_end || !ring->reserve ||
-        !ring->commit) {
-        btp::set_last_error("ring callback table is incomplete");
-        return BTP_STATUS_INVALID_POINTER;
+    BTPringInfo info;
+    if (btpRingGetInfo(ring, &info) != BTP_STATUS_SUCCESS ||
+        info.space == BTP_SPACE_CUDA) {
+        btp::set_last_error("the capture ring must hold host memory");
+        return BTP_STATUS_INVALID_SPACE;
     }
     auto* c = new BTPudpcapture_impl;
     c->sock = sock;
-    c->ring = *ring;
+    c->ring = ring;
     c->decoder = Decoder(fmt, nsrc, src0);
     c->nsrc = nsrc;
     c->payload_size = max_payload_size;
@@ -315,6 +357,7 @@ BTPstatus btpUdpCaptureCreate(BTPudpcapture* obj, const char* format,
     c->user_data = user_data;
     c->layout_rxbuf();
     c->core = core;  // applied on the capture thread's first Recv
+    if (stats_path) c->stats_path = stats_path;
     *obj = c;
     return BTP_STATUS_SUCCESS;
     BTP_TRY_END
@@ -330,7 +373,8 @@ BTPstatus btpUdpCaptureDestroy(BTPudpcapture obj) {
         // ending the writing below truncates the open sequence at the
         // committed frontier, the bytes that are valid.
     }
-    if (obj->writing) obj->ring.end_writing(obj->ring.user);
+    if (obj->writing) btpRingEndWriting(obj->ring);
+    obj->log_stats_forced();
     delete obj;
     return BTP_STATUS_SUCCESS;
     BTP_TRY_END
@@ -374,7 +418,7 @@ BTPstatus btpUdpCaptureRecv(BTPudpcapture obj, int* result) {
     }
     // Receive batches until at least one slot commits (one buffer
     // window), the socket times out, or an error occurs.
-    bool had_sequence = obj->in_sequence;
+    bool had_sequence = obj->wseq != nullptr;
     for (;;) {
         unsigned nrecv = 0;
         BTPstatus s = btpSocketRecvMany(obj->sock, obj->batch,
@@ -399,6 +443,7 @@ BTPstatus btpUdpCaptureRecv(BTPudpcapture obj, int* result) {
         }
         obj->ninvalid += invalid;
         if (completed > 0) {
+            obj->log_stats();
             *result = had_sequence ? 1 : 0;  // continued : started
             return BTP_STATUS_SUCCESS;
         }
@@ -428,8 +473,7 @@ BTPstatus btpUdpCaptureEnd(BTPudpcapture obj) {
     BTP_CHECK_PTR(obj);
     obj->end_sequence();
     if (obj->writing) {
-        ring_call(obj->ring.end_writing(obj->ring.user),
-                  "end writing failed");
+        ring_call(btpRingEndWriting(obj->ring), "end writing failed");
         obj->writing = false;
     }
     return BTP_STATUS_SUCCESS;
@@ -449,6 +493,15 @@ BTPstatus btpUdpCaptureGetStats(BTPudpcapture obj, uint64_t* ngood,
     if (ninvalid) *ninvalid = obj->ninvalid;
     if (nlate) *nlate = obj->nlate;
     if (nrepeat) *nrepeat = obj->nrepeat;
+    return BTP_STATUS_SUCCESS;
+    BTP_TRY_END
+}
+
+BTPstatus btpUdpCaptureGetWindows(BTPudpcapture obj, uint64_t* nwindow) {
+    BTP_TRY_BEGIN
+    BTP_CHECK_PTR(obj);
+    BTP_CHECK_PTR(nwindow);
+    *nwindow = obj->nwindow;
     return BTP_STATUS_SUCCESS;
     BTP_TRY_END
 }

@@ -5,31 +5,21 @@
 // run without the GIL).
 //
 // Statuses are the JAX package's numbering (cpp/include/btcore.h), so a
-// status means the same in both packages.  The capture engine writes a
-// ring through the callback table `BTPringCallbacks`: the port's ring is
-// Python (ring.py), and udp.py fills the table from it.
+// status means the same in both packages (ring_host.h).  The capture
+// engine writes the port's ring engine (ring.cpp, its own library, which
+// build.py loads first and globally, so this library's references to it
+// resolve there).
 
 #ifndef BTP_UDP_HOST_H_
 #define BTP_UDP_HOST_H_
 
 #include <stdint.h>
 
+#include "ring_host.h"
+
 #ifdef __cplusplus
 extern "C" {
 #endif
-
-typedef int BTPstatus;
-enum {
-    BTP_STATUS_SUCCESS = 0,
-    BTP_STATUS_WOULD_BLOCK = 2,
-    BTP_STATUS_INVALID_POINTER = 8,
-    BTP_STATUS_INVALID_ARGUMENT = 9,
-    BTP_STATUS_INVALID_STATE = 10,
-    BTP_STATUS_MEM_ALLOC_FAILED = 16,
-    BTP_STATUS_INTERRUPTED = 32,   // a ring wait was woken by an interrupt
-    BTP_STATUS_IO_ERROR = 40,
-    BTP_STATUS_INTERNAL_ERROR = 99,
-};
 
 // Detail of the last failure on the calling thread.
 const char* btpGetLastError(void);
@@ -64,27 +54,6 @@ BTPstatus btpSocketRecvMany(BTPsocket sock, unsigned npacket,
 BTPstatus btpSocketBatchSupport(int* recvmmsg_ok, int* sendmmsg_ok);
 
 // ------------------------------------------------------- capture engine
-// The ring the engine writes, as callbacks into the port's Python ring.
-// Each returns a status: BTP_STATUS_INTERRUPTED when a ring wait was
-// interrupted (the supervision seam), another nonzero status for any
-// other failure.  `reserve` hands back a writable host pointer to
-// `nbyte` contiguous bytes and a span id that `commit` retires, in
-// reservation order; `commit` may publish fewer bytes than reserved only
-// for the final span.
-typedef struct {
-    void* user;
-    int (*begin_writing)(void* user);
-    int (*end_writing)(void* user);
-    int (*resize)(void* user, uint64_t contiguous_nbyte,
-                  uint64_t total_nbyte);
-    int (*sequence_begin)(void* user, uint64_t time_tag, const void* hdr,
-                          uint64_t hdr_size);
-    int (*sequence_end)(void* user);
-    int (*reserve)(void* user, uint64_t nbyte, void** data,
-                   uint64_t* span);
-    int (*commit)(void* user, uint64_t span, uint64_t nbyte);
-} BTPringCallbacks;
-
 // Called on the capture thread when a packet sequence starts at seq0: it
 // writes the time tag and a pointer to a JSON header that must stay
 // alive until the next call or the engine's destruction.  0 = success.
@@ -92,15 +61,19 @@ typedef int (*BTPsequenceCallback)(uint64_t seq0, uint64_t* time_tag,
                                    const void** hdr, uint64_t* hdr_size,
                                    void* user_data);
 
+// The engine writes `ring` (a host ring of the ring engine) itself; a
+// ring wait woken by an interrupt unwinds as BTP_STATUS_INTERRUPTED (the
+// supervision seam).  `stats_path`: the file of the throttled stats log,
+// or NULL for none.
 typedef struct BTPudpcapture_impl* BTPudpcapture;
 BTPstatus btpUdpCaptureCreate(BTPudpcapture* obj,
                               const char* format,   // "simple" | "chips"
-                              BTPsocket sock, const BTPringCallbacks* ring,
+                              BTPsocket sock, BTPring ring,
                               uint64_t nsrc, uint64_t src0,
                               uint64_t max_payload_size,
                               uint64_t buffer_ntime, uint64_t slot_ntime,
                               BTPsequenceCallback callback, void* user_data,
-                              int core);
+                              int core, const char* stats_path);
 BTPstatus btpUdpCaptureDestroy(BTPudpcapture obj);
 BTPstatus btpUdpCaptureSetBatch(BTPudpcapture obj, unsigned batch_npkt);
 BTPstatus btpUdpCaptureGetBatch(BTPudpcapture obj, unsigned* batch_npkt);
@@ -112,6 +85,8 @@ BTPstatus btpUdpCaptureEnd(BTPudpcapture obj);
 BTPstatus btpUdpCaptureGetStats(BTPudpcapture obj, uint64_t* ngood,
                                 uint64_t* nmissing, uint64_t* ninvalid,
                                 uint64_t* nlate, uint64_t* nrepeat);
+// Ring commits so far (slot windows, the sequences' final ones included).
+BTPstatus btpUdpCaptureGetWindows(BTPudpcapture obj, uint64_t* nwindow);
 
 // ----------------------------------------------------------- transmit
 typedef struct BTPudptransmit_impl* BTPudptransmit;

@@ -7,12 +7,14 @@ Headers are JSON dicts with a `_tensor` entry: {'dtype': 'u8', 'shape':
 [...]}, where -1 marks the frame (time) axis.  Axes before the frame axis
 are ringlets.
 
-Control plane: the ring engine of the JAX package's C++ core
-(cpp/src/ring.cpp) restated in Python over one `threading.Condition` per
-ring — byte offsets that only grow (tail <= head <= reserve_head),
-in-order commits, guaranteed readers whose lowest read position pins the
-tail, sequences that begin at the reserve head and end at the commit
-head.
+Control plane: the port's ring engine, ``csrc/ring.cpp`` (its copy of
+the JAX package's cpp/src/ring.cpp), built with the host C++ compiler at
+first use (build.load_host('ring')) and called through ctypes.CDLL, so a
+blocking call waits without the GIL — byte offsets that only grow (tail
+<= head <= reserve_head), in-order commits, guaranteed readers whose
+lowest read position pins the tail, sequences that begin at the reserve
+head and end at the commit head, generation-counted interrupts.  A
+failed build raises; there is no other engine.
 
 Data plane: one uint8 tensor of shape (nringlet, capacity + ghost) in the
 ring's space, the original Bifrost layout (SURVEY.md §2.1).  The ghost
@@ -20,27 +22,36 @@ region mirrors bytes [0, ghost) after the end of each ringlet row, so a
 span that wraps is still one strided view: a writer that runs past the
 capacity writes into the ghost and the commit copies that part down to
 the row's head; a write inside [0, ghost) is copied up into the ghost.
-For a 'cuda' ring the tensor is on the device and two kinds of CUDA
-events keep streams apart: each commit records one on the writer's
-stream, which a reader's stream waits on before it reads the span; each
-release records one on the reader's stream, which the writer's stream
-waits on before it writes the bytes it reclaimed.
+The host spaces ('system', 'cuda_host') hold the engine's own bytes,
+which this module views as that tensor: the engine keeps their mirror
+(the copy up deferred to the first read across the capacity), a resize
+moves them (the old bytes live on while a view of them does), and a
+ring of a block built under `block_scope(core=N)` places them on core
+N's NUMA node (`Ring(core=)`, best effort).  A 'cuda_host' ring on a
+CUDA device registers its bytes pinned, or raises.  A 'cuda' ring's
+engine keeps the offsets only: its bytes are a device tensor of this
+module's, mirrored here at each commit, and two kinds of CUDA events keep
+streams apart: each commit records one on the writer's stream, which a
+reader's stream waits on before it reads the span; each release records
+one on the reader's stream, which the writer's stream waits on before it
+writes the bytes it reclaimed.
 
-Interrupts are generation-counted (cpp/src/ring.cpp btRingInterruptGen /
-btRingAckInterrupt): `interrupt(target=)` fires generation g and wakes
+Interrupts are generation-counted (btpRingInterruptGen /
+btpRingAckInterrupt): `interrupt(target=)` fires generation g and wakes
 every waiter with RingInterrupted while g is pending, `ack_interrupt(g)`
 retires every generation up to g and no later one, so an ack bounded by
 the generation its issuer saw never retires a fire aimed at a peer.  A
-supervisor installs `_interrupt_retry`, which a woken waiter asks
-whether the fire was meant for its thread (supervise.py); with no hook,
-every pending fire raises (the shutdown path).  A reader waiting for
-data while the writer commits is alive: `_progress_hook` stamps its
-heartbeat at each such commit.  `_fault_hook`
-(faultinject.py) fires before the ring.open / ring.reserve /
-ring.acquire waits.  `WriteSpan.cancel(fence)` retires the ring's final
-reservation without committing it; the writer's next reservation of
-those bytes waits on `fence`, an event after the stream work that
-touched them.
+supervisor installs `_interrupt_retry`, which a woken waiter asks,
+outside the engine, whether the fire was meant for its thread
+(supervise.py); with no hook, every pending fire raises (the shutdown
+path).  A reader waiting for data while the writer commits is alive:
+with `_progress_hook` installed the engine ends the wait at each such
+commit, the hook stamps the reader's heartbeat, and the reader waits
+again.  `_fault_hook` (faultinject.py) fires before the ring.open /
+ring.reserve / ring.acquire waits.  `WriteSpan.cancel(fence)` retires
+the ring's final reservation without committing it; the writer's next
+reservation of those bytes waits on `fence`, an event after the stream
+work that touched them.
 
 The zero-copy host plane (bifrost_tpu/ring.py:322-329): a writer on a
 host ring may `WriteSpan.publish_external` a buffer of its own instead of
@@ -50,20 +61,21 @@ that aliases the publisher's memory.  The ring's control plane is
 unchanged: only the payload lives elsewhere.
 
 Every ring writes the ProcLog `rings/<name>` (cpp/src/ring.cpp:183-207):
-its geometry at each resize, and its frontiers at commits, at most every
-`GEOMETRY_LOG_S` seconds; the snapshot is taken under the ring's lock and
-written after it is released.  The log's name (`Ring.log_name`) is unique
-among the process's live rings: where a live ring already logs as
-`<name>` (two pipelines of one topology in one process), the next logs
-as `<name>#2`, `<name>#3`, ...; a ring unlinks only its own log.
+the engine writes its geometry at each resize, and its frontiers at
+commits, at most every 0.25 s, into the file of this module's ProcLog.
+The log's name (`Ring.log_name`) is unique among the process's live
+rings: where a live ring already logs as `<name>` (two pipelines of one
+topology in one process), the next logs as `<name>#2`, `<name>#3`, ...;
+a ring unlinks only its own log.
 """
 
 from __future__ import annotations
 
 import collections
+import ctypes
 import json
+import sys
 import threading
-import time
 
 import numpy as np
 import torch
@@ -75,7 +87,7 @@ from .ndarray import _storage_shape, ndarray, tensor_shape
 from .proclog import ProcLog
 
 _ALIGN = 16   # default capacity/ghost granularity: every element divides it
-GEOMETRY_LOG_S = 0.25   # least seconds between two commit-time ring logs
+GEOMETRY_LOG_S = 0.25   # the engine's least seconds between two commit logs
 _LOG_NAMES = set()      # the log names of the process's live rings
 _LOG_NAMES_LOCK = threading.Lock()
 
@@ -97,9 +109,6 @@ def _release_log_name(name):
     # may be inside _claim_log_name on the same thread; set.discard is
     # atomic on its own.
     _LOG_NAMES.discard(name)
-
-
-_OPEN_MODES = ("earliest", "latest", "name", "at", "next")
 
 
 class EndOfDataStop(Exception):
@@ -272,19 +281,129 @@ class TensorInfo(object):
         return typed.view(self.span_shape(nframe))
 
 
-class _Sequence(object):
-    def __init__(self, sid, name, time_tag, header, nringlet, begin):
-        self.id = sid
-        self.name = name
-        self.time_tag = time_tag
-        self.header = header          # JSON text, as the C engine stores it
-        self.nringlet = nringlet
-        self.begin = begin
-        self.end = None               # None while open
+class _RingInfo(ctypes.Structure):
+    """BTPringInfo (csrc/ring_host.h)."""
+    _fields_ = [("data", ctypes.c_void_p)] + \
+        [(k, ctypes.c_uint64) for k in (
+            "capacity", "ghost", "stride", "nringlet", "tail", "head",
+            "reserve_head", "intr_fired", "intr_acked", "intr_target")] + \
+        [(k, ctypes.c_int32) for k in (
+            "nwspan", "writing_ended", "core", "space")]
 
-    @property
-    def finished(self):
-        return self.end is not None
+
+class _SpanInfo(ctypes.Structure):
+    """BTPspanInfo (csrc/ring_host.h)."""
+    _fields_ = [("base", ctypes.c_void_p)] + \
+        [(k, ctypes.c_uint64) for k in (
+            "offset", "size", "capacity", "overwritten")]
+
+
+_vp = ctypes.c_void_p
+_u64 = ctypes.c_uint64
+_int = ctypes.c_int
+_vpp = ctypes.POINTER(ctypes.c_void_p)
+_u64p = ctypes.POINTER(ctypes.c_uint64)
+_intp = ctypes.POINTER(ctypes.c_int)
+_PROTOS = {
+    "btpRingGetLastError": (ctypes.c_char_p, []),
+    "btpRingCreate": (_int, [_vpp, ctypes.c_char_p, _int, ctypes.c_char_p]),
+    "btpRingDestroy": (_int, [_vp, _vpp]),
+    "btpRingFree": (_int, [_vp]),
+    "btpRingGetInfo": (_int, [_vp, ctypes.POINTER(_RingInfo)]),
+    "btpRingSetAffinity": (_int, [_vp, _int]),
+    "btpRingResize": (_int, [_vp, _u64, _u64, _u64, _u64, _int, _intp]),
+    "btpRingResizeDone": (_int, [_vp]),
+    "btpRingTakeRetired": (_int, [_vp, _vpp]),
+    "btpRingBeginWriting": (_int, [_vp]),
+    "btpRingEndWriting": (_int, [_vp]),
+    "btpRingInterruptGen": (_int, [_vp, _u64, _u64p]),
+    "btpRingAckInterrupt": (_int, [_vp, _u64]),
+    "btpRingSequenceBegin": (_int, [_vpp, _vp, ctypes.c_char_p, _u64, _u64,
+                                    ctypes.c_char_p, _u64]),
+    "btpRingSequenceEnd": (_int, [_vp]),
+    "btpRingSpanReserve": (_int, [_vpp, _vp, _u64, _int,
+                                  ctypes.POINTER(_SpanInfo)]),
+    "btpRingSpanCommit": (_int, [_vp, _u64]),
+    "btpRingSpanCancel": (_int, [_vp]),
+    "btpRingSequenceOpen": (_int, [_vpp, _vp, _int, ctypes.c_char_p, _u64,
+                                   _vp, _int, _int, _int]),
+    "btpRingSequenceClose": (_int, [_vp]),
+    "btpRingSequenceGuaranteeManual": (_int, [_vp, _int]),
+    "btpRingSequenceAdvanceGuarantee": (_int, [_vp, _u64]),
+    "btpRingSequenceGetInfo": (_int, [_vp, ctypes.POINTER(ctypes.c_char_p),
+                                      _u64p, _vpp, _u64p, _u64p, _u64p]),
+    "btpRingSequenceIsFinished": (_int, [_vp, _intp, _u64p]),
+    "btpRingSpanAcquire": (_int, [_vpp, _vp, _u64, _u64, _int, _int,
+                                  ctypes.POINTER(_SpanInfo)]),
+    "btpRingSpanRelease": (_int, [_vp]),
+}
+
+# Statuses of csrc/ring_host.h (the JAX package's numbering).
+STATUS_SUCCESS = 0
+STATUS_END_OF_DATA = 1
+STATUS_WOULD_BLOCK = 2
+STATUS_INVALID_ARGUMENT = 9
+STATUS_INVALID_SHAPE = 12
+STATUS_MEM_ALLOC_FAILED = 16
+STATUS_INTERRUPTED = 32
+STATUS_PROGRESS = 35
+
+_lib_lock = threading.Lock()
+_lib_obj = None
+
+
+def _lib():
+    """The ring engine's library with its prototypes set (built with the
+    host C++ compiler at first use; a failed build raises with the
+    compiler's output)."""
+    global _lib_obj
+    with _lib_lock:
+        if _lib_obj is None:
+            from . import build
+            lib = build.load_host("ring")
+            for name, (restype, argtypes) in _PROTOS.items():
+                fn = getattr(lib, name)
+                fn.restype = restype
+                fn.argtypes = argtypes
+            _lib_obj = lib
+        return _lib_obj
+
+
+def _error(status, what):
+    """The exception of a failed engine call (the Python engine's
+    exceptions, by status), carrying the engine's `status`."""
+    detail = (_lib().btpRingGetLastError() or b"").decode() or what
+    if status == STATUS_END_OF_DATA:
+        err = EndOfDataStop(what or detail)
+    elif status == STATUS_WOULD_BLOCK:
+        err = BlockingIOError(f"{what} would block")
+    elif status == STATUS_INTERRUPTED:
+        err = RingInterrupted(f"{what} interrupted")
+    elif status in (STATUS_INVALID_ARGUMENT, STATUS_INVALID_SHAPE):
+        err = ValueError(detail)
+    elif status == STATUS_MEM_ALLOC_FAILED:
+        err = MemoryError(detail)
+    else:
+        err = RuntimeError(detail or f"ring status {status}")
+    err.status = status
+    return err
+
+
+def _check(status, what=""):
+    # Raised straight from `_error`'s return: no frame of the traceback
+    # keeps the exception in a local, so the frames it holds
+    # (generators' among them) go with it rather than with a collection.
+    if status != STATUS_SUCCESS:
+        raise _error(status, what)
+
+
+_OPEN_WHICH = {"earliest": 0, "latest": 1, "name": 2, "at": 3, "next": 4}
+
+# One guard for the check-and-set of a span's release and a write span's
+# commit or cancel: the engine frees a span's handle at its end, so each
+# may run once (the async executor's worker and its block thread race
+# here).
+_span_guard = threading.Lock()
 
 
 class _HostBytes(object):
@@ -298,15 +417,39 @@ class _HostBytes(object):
         self._keep = keep
 
 
+class _EngineBytes(_HostBytes):
+    """A host buffer of the engine's (`nbyte` bytes at `ptr`) for
+    np.asarray.  The engine owns it until it hands it over (a resize
+    retired it, or the ring went); then `owned` is set, and the buffer
+    is unpinned and freed when the last view of it goes."""
+
+    def __init__(self, ptr, nbyte):
+        super().__init__(ptr, nbyte, None)
+        self.ptr = int(ptr)
+        self.nbyte = int(nbyte)
+        self.owned = False
+        self.pinned = False
+
+    def __del__(self):
+        if not self.owned or sys.is_finalizing():
+            return
+        try:
+            _free_host(self.ptr, self.pinned)
+        except Exception:  # noqa: BLE001 — interpreter teardown
+            pass
+
+
+def _free_host(ptr, pinned):
+    if pinned:
+        torch.cuda.cudart().cudaHostUnregister(ptr)
+    _lib().btpRingFree(ptr)
+
+
 class Ring(object):
     instance_count = 0
 
     def __init__(self, space="system", name=None, device=None, core=None):
         self.space = str(Space(space))
-        # The CPU core of the block that writes it (a scope's `core`),
-        # recorded: the ring's memory is placed by PyTorch's allocator,
-        # not bound to that core's NUMA node.
-        self.core = core
         if name is None:
             name = f"ring_{Ring.instance_count}"
         Ring.instance_count += 1
@@ -315,30 +458,17 @@ class Ring(object):
             device = "cpu" if self.space == "system" else \
                 _device.resolve_device(None)
         self.device = torch.device(device)
+        # The Python side's own state: the data view, the CUDA events, the
+        # zero-copy side plane.
         self._cond = threading.Condition()
-        self._buf = None
-        self.capacity = 0
-        self.ghost = 0
-        self.nringlet = 1
-        self.tail = 0            # earliest valid offset
-        self.head = 0            # committed frontier
-        self.reserve_head = 0    # reserved frontier
-        self._writing = False
-        self._writing_ended = False
-        self._intr_fired = 0          # latest fired generation (0: never)
-        self._intr_acked = 0          # generations <= this are retired
-        self._intr_target = 0         # target token of the latest fire
+        self._buf = None         # (nringlet, capacity + ghost) uint8 view
+        self._cap = 0            # the capacity `_buf` is laid out for
+        self._ghost = 0
+        self._host = None        # the _EngineBytes under `_buf`
         # Supervision and fault-injection hooks (module docstring).
         self._interrupt_retry = None
         self._progress_hook = None
         self._fault_hook = None
-        self._ncommit = 0             # commits so far, empty ones included
-        self._next_seq_id = 0
-        self._sequences = collections.deque()
-        self._open_wseq = None
-        self._open_wspans = collections.deque()
-        self._nread_open = 0
-        self._guarantees = []            # read positions of guaranteed readers
         # CUDA stream handoff (module docstring)
         self._commit_events = collections.deque()   # (begin, end, event)
         self._release_events = []
@@ -351,12 +481,30 @@ class Ring(object):
             self._proclog = ProcLog(f"rings/{self.log_name}")
         except OSError:
             self._proclog = None          # the log is best-effort
-        self._geom_log_t = 0.0
+        self._obj = ctypes.c_void_p()
+        path = self._proclog.path.encode() if self._proclog else None
+        _check(_lib().btpRingCreate(ctypes.byref(self._obj), name.encode(),
+                                    SPACEMAP[self.space], path))
+        if core is not None:
+            self.core = core
 
     def __del__(self):
         # A ring's log goes with it, as the C engine's ring destroys its
         # ProcLog (cpp/src/ring.cpp ~BTring_impl); the name is this
         # ring's alone, so no live ring's log is unlinked.
+        obj = getattr(self, "_obj", None)
+        # At interpreter exit a daemon thread may still be inside the
+        # engine (a capture's recv): the ring and its bytes are left to
+        # the process's end rather than freed under it.
+        if obj and not sys.is_finalizing():
+            try:
+                self._take_retired()
+                buf = ctypes.c_void_p()
+                _lib().btpRingDestroy(obj, ctypes.byref(buf))
+                self._obj = None
+                self._hand_over(buf.value)
+            except Exception:  # noqa: BLE001 — interpreter teardown
+                pass
         log = getattr(self, "_proclog", None)
         if log is not None:
             log.remove()
@@ -364,111 +512,184 @@ class Ring(object):
         if log_name is not None:
             _release_log_name(log_name)
 
+    # ----------------------------------------------------------- engine
+    def _info(self):
+        info = _RingInfo()
+        _check(_lib().btpRingGetInfo(self._obj, ctypes.byref(info)))
+        return info
+
+    def _blocking(self, call, reader=False):
+        """Run a blocking engine call (`call(progress)` -> status) and
+        settle its waits (bifrost_tpu/ring.py:50-69): a supervised
+        waiter woken by a fire that was not meant for it asks
+        `_interrupt_retry`, without any lock, and calls again; a `reader`
+        waiting for data is alive while the writer commits, even empty
+        spans (an FDMT's warm-up): each commit that does not end its wait
+        calls `_progress_hook`, which stamps its heartbeat, and the call
+        waits again.  -> the final status."""
+        while True:
+            hook = self._progress_hook if reader else None
+            status = call(1 if hook is not None else 0)
+            if status == STATUS_PROGRESS:
+                if hook is not None:
+                    hook()
+                continue
+            if status != STATUS_INTERRUPTED:
+                return status
+            retry = self._interrupt_retry
+            if retry is None or not retry():
+                return status
+
+    @property
+    def core(self):
+        """The CPU core whose NUMA node the ring's host bytes prefer (a
+        scope's `core`), or None."""
+        core = self._info().core
+        return None if core < 0 else core
+
+    @core.setter
+    def core(self, core):
+        _check(_lib().btpRingSetAffinity(
+            self._obj, -1 if core is None else int(core)))
+
+    def page_nodes(self):
+        """Where the ring's host bytes lie: ({NUMA node: pages}, memory
+        policies) (affinity.page_nodes; None where the kernel keeps no
+        NUMA maps); ({}, set()) for a 'cuda' ring or one not resized
+        yet."""
+        from .affinity import page_nodes
+        info = self._info()
+        if not info.data:
+            return {}, set()
+        return page_nodes(info.data, info.nringlet * info.stride)
+
+    @property
+    def capacity(self):
+        return self._info().capacity
+
+    @property
+    def ghost(self):
+        return self._info().ghost
+
+    @property
+    def nringlet(self):
+        return self._info().nringlet
+
+    @property
+    def tail(self):
+        """Earliest valid offset."""
+        return self._info().tail
+
+    @property
+    def head(self):
+        """Committed frontier."""
+        return self._info().head
+
+    @property
+    def reserve_head(self):
+        """Reserved frontier."""
+        return self._info().reserve_head
+
+    @property
+    def _open_wspans(self):
+        """Write spans open (reserved and not yet committed)."""
+        return self._info().nwspan
+
     @property
     def _on_cuda(self):
         return self._buf is not None and self._buf.is_cuda
 
-    # ----------------------------------------------------------- waiting
+    # ----------------------------------------------------------- interrupts
     def _intr_pending(self):
-        return self._intr_fired > self._intr_acked
-
-    def _wait_for(self, pred, reader=False):
-        """Condition wait that honours interrupts (caller holds _cond
-        once).  A pending interrupt surfaces only where the call really
-        blocks; a supervised waiter woken by a fire that was not meant
-        for it asks `_interrupt_retry` (without the lock) and waits
-        again.  A `reader` waiting for data is alive while the writer
-        commits, even empty spans (an FDMT's warm-up): each commit that
-        does not end its wait calls `_progress_hook`, which stamps its
-        heartbeat."""
-        while True:
-            if pred():
-                return
-            n0 = self._ncommit
-            self._cond.wait_for(lambda: self._intr_pending() or pred() or
-                                (reader and self._ncommit != n0))
-            if not self._intr_pending():
-                if pred():
-                    return
-                hook = self._progress_hook
-                if hook is not None:
-                    hook()
-                continue
-            retry = self._interrupt_retry
-            if retry is None:
-                raise RingInterrupted(f"ring {self.name} interrupted")
-            self._cond.release()
-            try:
-                again = retry()
-            finally:
-                self._cond.acquire()
-            if not again:
-                raise RingInterrupted(f"ring {self.name} interrupted")
+        info = self._info()
+        return info.intr_fired > info.intr_acked
 
     def interrupt(self, target=0):
         """Fire a generation-counted interrupt: every blocked caller wakes
         with RingInterrupted until the generation is acknowledged.
         `target` is an opaque token (0: everyone) naming whom the fire is
         for.  -> the fired generation."""
-        with self._cond:
-            self._intr_fired += 1
-            self._intr_target = int(target)
-            gen = self._intr_fired
-            self._cond.notify_all()
-        return gen
+        gen = ctypes.c_uint64()
+        _check(_lib().btpRingInterruptGen(self._obj, int(target),
+                                          ctypes.byref(gen)))
+        return gen.value
 
     def ack_interrupt(self, gen):
         """Retire every generation <= `gen` (never past the latest fire):
         a later fire stays pending for its own target."""
-        with self._cond:
-            bound = min(int(gen), self._intr_fired)
-            if bound > self._intr_acked:
-                self._intr_acked = bound
-            self._cond.notify_all()
+        _check(_lib().btpRingAckInterrupt(self._obj, int(gen)))
 
     def interrupt_info(self):
         """-> (fired generation, acked generation, latest fire's target)."""
-        with self._cond:
-            return self._intr_fired, self._intr_acked, self._intr_target
+        info = self._info()
+        return info.intr_fired, info.intr_acked, info.intr_target
 
     def clear_interrupt(self):
         """Retire every generation fired so far (the JAX package's compat
         reset; supervised restarts ack the generation they saw)."""
-        with self._cond:
-            self._intr_acked = self._intr_fired
-            self._cond.notify_all()
+        _check(_lib().btpRingAckInterrupt(self._obj, 2 ** 64 - 1))
 
     @property
     def writing_ended(self):
         """Has the writer called `end_writing`?"""
+        return bool(self._info().writing_ended)
+
+    # ----------------------------------------------------------- host bytes
+    def _hand_over(self, ptr):
+        """Take over a host buffer the engine handed out: the view's, if
+        it has one (freed with its last view), else freed now (no view,
+        so never pinned).  Caller holds no lock of the engine's."""
+        if not ptr:
+            return
+        host = self._host
+        if host is not None and host.ptr == ptr:
+            host.owned = True
+        else:
+            _free_host(ptr, False)
+
+    def _take_retired(self):
+        ptr = ctypes.c_void_p()
+        while True:
+            _check(_lib().btpRingTakeRetired(self._obj, ctypes.byref(ptr)))
+            if not ptr.value:
+                return
+            self._hand_over(ptr.value)
+
+    def _ensure_view(self, base):
+        """Make `_buf` view the engine's host bytes at `base` (a span's
+        base pointer): a resize, in Python or in the capture engine, moves
+        them."""
+        host = self._host
+        if base and (host is None or host.ptr != base):
+            self._refresh()
+
+    def _refresh(self):
+        """View the engine's current host bytes as the (nringlet, capacity
+        + ghost) uint8 tensor `_buf`; a 'cuda_host' ring's bytes are
+        registered pinned on a CUDA device, or this raises.  Buffers the
+        engine retired are taken over."""
         with self._cond:
-            return self._writing_ended
-
-    # ----------------------------------------------------------- ring log
-    def _geometry(self):
-        """The ring log's text (cpp/src/ring.cpp format_geometry; caller
-        holds _cond).  `guarantee` is the slowest guaranteed reader's
-        frontier, else the head: tools read the backlog as reserve_head
-        - guarantee.  `space` is numbered as the JAX engine logs it."""
-        g = self._min_guarantee()
-        return (f"capacity : {self.capacity}\nghost : {self.ghost}\n"
-                f"nringlet : {self.nringlet}\ntail : {self.tail}\n"
-                f"head : {self.head}\nreserve_head : {self.reserve_head}\n"
-                f"guarantee : {self.head if g is None else g}\n"
-                f"space : {SPACEMAP[self.space]}\n")
-
-    def _log(self, text):
-        if self._proclog is not None:
-            self._proclog.update(text)
-
-    def _geometry_if_due(self):
-        """The ring log's text if the last commit-time write is older than
-        GEOMETRY_LOG_S, else None (caller holds _cond)."""
-        now = time.monotonic()
-        if now - self._geom_log_t <= GEOMETRY_LOG_S:
-            return None
-        self._geom_log_t = now
-        return self._geometry()
+            info = self._info()
+            self._take_retired()
+            host = self._host
+            if not info.data or (host is not None and host.ptr == info.data):
+                return
+            host = _EngineBytes(info.data, info.nringlet * info.stride)
+            if self.space == "cuda_host" and self.device.type == "cuda":
+                err = torch.cuda.cudart().cudaHostRegister(host.ptr,
+                                                           host.nbyte, 0)
+                if int(getattr(err, "value", err)) != 0:
+                    raise RuntimeError(f"ring {self.name!r}: cannot pin "
+                                       f"{host.nbyte} bytes of 'cuda_host' "
+                                       f"memory ({err})")
+                host.pinned = True
+            buf = torch.from_numpy(np.asarray(host)).view(
+                int(info.nringlet), int(info.stride))
+            if host.pinned and not buf.is_pinned():
+                raise RuntimeError(f"ring {self.name!r}: 'cuda_host' bytes "
+                                   f"are not pinned after registration")
+            self._host, self._buf = host, buf
+            self._cap, self._ghost = int(info.capacity), int(info.ghost)
 
     # ----------------------------------------------------------- geometry
     def resize(self, contiguous_bytes, total_bytes=None, nringlet=1,
@@ -482,181 +703,114 @@ class Ring(object):
         time-last stream) then holds 16 bytes per ringlet, not 32."""
         if total_bytes is None:
             total_bytes = contiguous_bytes * 4
-        nringlet = max(int(nringlet), 1)
+        hold = self.space == "cuda"
+        changed = ctypes.c_int()
+        _check(self._blocking(lambda _p: _lib().btpRingResize(
+            self._obj, int(contiguous_bytes), int(total_bytes),
+            max(int(nringlet), 1), max(int(align), 1), int(hold),
+            ctypes.byref(changed))), f"ring {self.name} resize")
+        if not changed.value:
+            return
+        if not hold:
+            self._refresh()
+            return
+        try:
+            self._relayout_device()
+        finally:
+            _check(_lib().btpRingResizeDone(self._obj))
+
+    def _relayout_device(self):
+        """Move a 'cuda' ring's live bytes into a tensor of the engine's new
+        geometry, while the engine holds the ring closed."""
+        info = self._info()
+        cap, ghost, nring = int(info.capacity), int(info.ghost), \
+            int(info.nringlet)
+        nbuf = alloc_bytes((nring, cap + ghost), self.space, self.device)
+        nbuf.zero_()
+        old, old_cap = self._buf, self._cap
+        if old is not None and info.reserve_head > info.tail:
+            if old.is_cuda:
+                # Commits in flight on writer streams must land before
+                # their bytes move.
+                torch.cuda.synchronize(old.device)
+            off, hi = int(info.tail), int(info.reserve_head)
+            while off < hi:
+                run = min(hi - off, old_cap - off % old_cap, cap - off % cap)
+                src, dst = off % old_cap, off % cap
+                nbuf[:, dst:dst + run].copy_(old[:, src:src + run])
+                off += run
+            nbuf[:, cap:cap + ghost].copy_(nbuf[:, :ghost])
+        if nbuf.is_cuda:
+            # The zero fill and copies ran on this thread's stream; the
+            # writer's stream must not overtake them.
+            torch.cuda.synchronize(nbuf.device)
         with self._cond:
-            ghost = _round_up(max(self.ghost, contiguous_bytes), align)
-            cap = _round_up(max(self.capacity, total_bytes, ghost), align)
-            nring = max(self.nringlet, nringlet)
-            if (cap, ghost, nring) == (self.capacity, self.ghost,
-                                       self.nringlet):
-                return
-            self._wait_for(lambda: not self._open_wspans and
-                           self._nread_open == 0)
-            nbuf = alloc_bytes((nring, cap + ghost), self.space, self.device)
-            nbuf.zero_()
-            old = self._buf
-            if old is not None and self.reserve_head > self.tail:
-                if nring != self.nringlet:
-                    raise RuntimeError(
-                        "cannot change nringlet while the ring holds data")
-                if old.is_cuda:
-                    # Commits in flight on writer streams must land before
-                    # their bytes move.
-                    torch.cuda.synchronize(old.device)
-                off, hi = self.tail, self.reserve_head
-                while off < hi:
-                    run = min(hi - off, self.capacity - off % self.capacity,
-                              cap - off % cap)
-                    src = off % self.capacity
-                    dst = off % cap
-                    nbuf[:, dst:dst + run].copy_(old[:, src:src + run])
-                    off += run
-                nbuf[:, cap:cap + ghost].copy_(nbuf[:, :ghost])
-            if nbuf.is_cuda:
-                # The zero fill and copies ran on this thread's stream;
-                # the writer's stream must not overtake them.
-                torch.cuda.synchronize(nbuf.device)
-            self._buf = nbuf
-            self.capacity, self.ghost, self.nringlet = cap, ghost, nring
-            self._cond.notify_all()
-            text = self._geometry()
-        self._log(text)
+            self._buf, self._cap, self._ghost = nbuf, cap, ghost
 
     # ------------------------------------------------------------ writing
     def begin_writing(self):
-        with self._cond:
-            if self._writing:
-                raise RuntimeError(f"ring {self.name!r} already has a writer")
-            self._writing = True
-            self._writing_ended = False
+        _check(_lib().btpRingBeginWriting(self._obj))
         return RingWriter(self)
 
     def end_writing(self):
-        with self._cond:
-            seq = self._open_wseq
-            if seq is not None and not seq.finished:
-                seq.end = self.head
-            self._open_wseq = None
-            self._writing = False
-            self._writing_ended = True
-            self._cond.notify_all()
+        _check(_lib().btpRingEndWriting(self._obj))
 
     def begin_sequence(self, header, gulp_nframe=1, buf_nframe=None):
         return WriteSequence(self, header, gulp_nframe, buf_nframe)
 
-    def _sequence_begin(self, header, nringlet, time_tag=None):
-        """Open a sequence; its time tag is the header's "time_tag" unless
-        `time_tag` is given (a writer that passes it separately, as the
-        capture engine does)."""
-        if time_tag is None:
-            time_tag = header.get("time_tag", 0)
-        with self._cond:
-            if not self._writing:
-                raise RuntimeError(
-                    f"sequence_begin before begin_writing on {self.name!r}")
-            if self._open_wseq is not None and not self._open_wseq.finished:
-                raise RuntimeError(
-                    f"previous sequence still open on {self.name!r}")
-            if nringlet > self.nringlet:
-                raise ValueError(
-                    f"sequence nringlet {nringlet} exceeds ring nringlet "
-                    f"{self.nringlet} — resize first")
-            seq = _Sequence(self._next_seq_id, str(header.get("name", "")),
-                            int(time_tag),
-                            json.dumps(header), nringlet, self.reserve_head)
-            self._next_seq_id += 1
-            self._sequences.append(seq)
-            self._open_wseq = seq
-            self._cond.notify_all()
-            return seq
+    def _sequence_begin(self, header, nringlet):
+        """Open a sequence named and time-tagged by its header -> its
+        engine handle."""
+        raw = json.dumps(header).encode()
+        seq = ctypes.c_void_p()
+        _check(_lib().btpRingSequenceBegin(
+            ctypes.byref(seq), self._obj,
+            str(header.get("name", "")).encode(),
+            int(header.get("time_tag", 0)), len(raw), raw, int(nringlet)))
+        return seq
 
     def _sequence_end(self, seq):
-        with self._cond:
-            if not seq.finished:
-                seq.end = self.head
-            if self._open_wseq is seq:
-                self._open_wseq = None
-            self._cond.notify_all()
-
-    def _min_guarantee(self):
-        return min(self._guarantees) if self._guarantees else None
+        _check(_lib().btpRingSequenceEnd(seq))
 
     def _reserve(self, size, nonblocking):
-        """-> (begin offset, token, release events to wait on) of a new
-        reservation of `size` bytes."""
+        """-> (begin offset, engine span, release events to wait on) of a
+        new reservation of `size` bytes."""
+        span, info = ctypes.c_void_p(), _SpanInfo()
+        _check(self._blocking(lambda _p: _lib().btpRingSpanReserve(
+            ctypes.byref(span), self._obj, int(size), int(bool(nonblocking)),
+            ctypes.byref(info))), f"ring {self.name}: reserve")
+        self._ensure_view(info.base)
+        begin = int(info.offset)
+        reclaimed = begin + int(size) - int(info.capacity)
         with self._cond:
-            if not self._writing:
-                raise RuntimeError("span_reserve before begin_writing")
-            if size > self.capacity or size > self.ghost:
-                raise ValueError(
-                    f"span size {size} exceeds ring geometry (capacity "
-                    f"{self.capacity}, ghost {self.ghost}) — resize first")
-            begin = self.reserve_head
-
-            def needed_tail():
-                return max(begin + size - self.capacity, 0)
-
-            def can_advance():
-                g = self._min_guarantee()
-                need = needed_tail()
-                return (g is None or g >= need) and self.head >= need
-
-            if needed_tail() > self.tail:
-                # Back-pressure: bytes a guaranteed reader still pins, or
-                # that the writer has not committed, cannot be reclaimed.
-                if not can_advance():
-                    if nonblocking:
-                        raise BlockingIOError(
-                            f"ring {self.name}: reserve would block")
-                    self._wait_for(can_advance)
-                self.tail = max(self.tail, needed_tail())
-                while self._sequences and self._sequences[0].finished and \
-                        self._sequences[0].end <= self.tail:
-                    self._sequences.popleft()
-                while self._commit_events and \
-                        self._commit_events[0][1] <= self.tail:
-                    self._commit_events.popleft()
-            self.reserve_head = begin + size
-            token = object()
-            self._open_wspans.append(token)
+            while self._commit_events and \
+                    self._commit_events[0][1] <= reclaimed:
+                self._commit_events.popleft()
             released, self._release_events = self._release_events, []
-            self._cond.notify_all()
-        return begin, token, released
+        return begin, span, released
 
     def _commit(self, token, begin, size, commit_size, ext=None):
-        """Commit `commit_size` bytes of the reservation at `begin`;
-        `ext`: (ptr, keepref) of a published payload (WriteSpan.
-        publish_external), filed in the side plane instead of the ring's
-        bytes, whose ghost mirror it then needs no copy for."""
-        with self._cond:
-            if commit_size > size:
-                raise ValueError("commit larger than the reservation")
-            self._wait_for(lambda: self._open_wspans and
-                           self._open_wspans[0] is token)
-            if commit_size < size:
-                if begin + size != self.reserve_head:
-                    raise RuntimeError("partial commit of a non-final span")
-                self.reserve_head = begin + commit_size
-                for s in self._sequences:
-                    if s.finished and s.end > self.reserve_head:
-                        s.end = self.reserve_head
-            if commit_size and ext is not None:
+        """Commit `commit_size` bytes of the reservation `token` at
+        `begin`; `ext`: (ptr, keepref) of a published payload
+        (WriteSpan.publish_external), filed in the side plane instead of
+        the ring's bytes.  A 'cuda' ring's ghost mirror and commit event
+        are Python's; a host ring's mirror is the engine's."""
+        if commit_size > size:
+            raise ValueError("commit larger than the reservation")
+        if commit_size and ext is not None:
+            with self._cond:
                 self._plane_put((begin, commit_size) + tuple(ext))
                 self.published_spans += 1
-            elif commit_size and self._buf is not None:
-                self._sync_ghost(begin, commit_size)
-                ev = _device.record_event(self.device) if self._on_cuda \
-                    else None
-                if ev is not None:
+        elif commit_size and self.space == "cuda" and self._buf is not None:
+            self._sync_ghost(begin, commit_size)
+            ev = _device.record_event(self.device) if self._on_cuda \
+                else None
+            if ev is not None:
+                with self._cond:
                     self._commit_events.append((begin, begin + commit_size,
                                                 ev))
-            self.head = begin + commit_size
-            self._open_wspans.popleft()
-            self._ncommit += 1
-            self._cond.notify_all()
-            text = self._geometry_if_due()
-        if text is not None:
-            self._log(text)
+        _check(self._blocking(lambda _p: _lib().btpRingSpanCommit(
+            token, int(commit_size))), f"ring {self.name}: commit")
 
     # ------------------------------------------------- zero-copy host plane
     def _plane_put(self, entry):
@@ -666,7 +820,8 @@ class Ring(object):
         in offset order, so this appends."""
         store = self._ext_store
         store.append(entry)
-        while store and store[0][0] + store[0][1] <= self.tail:
+        tail = self.tail
+        while store and store[0][0] + store[0][1] <= tail:
             store.pop(0)
 
     def _ext_get(self, offset, nbyte):
@@ -721,23 +876,16 @@ class Ring(object):
         on a host ring the fence has completed before the bytes go back."""
         if fence is not None and not self._on_cuda:
             fence.synchronize()
-        with self._cond:
-            if begin + size != self.reserve_head:
-                raise RuntimeError(f"ring {self.name!r}: cancel of a "
-                                   f"non-final span")
-            self.reserve_head = begin
-            for s in self._sequences:
-                if s.finished and s.end > self.reserve_head:
-                    s.end = self.reserve_head
-            self._open_wspans.remove(token)
-            if fence is not None and self._on_cuda:
+        _check(_lib().btpRingSpanCancel(token))
+        if fence is not None and self._on_cuda:
+            with self._cond:
                 self._release_events.append(fence)
-            self._cond.notify_all()
 
     def _sync_ghost(self, begin, n):
-        """Keep the ghost mirror coherent for newly committed bytes (on
-        the committing thread's stream, before the commit event)."""
-        cap, ghost, buf = self.capacity, self.ghost, self._buf
+        """Keep a 'cuda' ring's ghost mirror coherent for newly committed
+        bytes (on the committing thread's stream, before the commit
+        event)."""
+        cap, ghost, buf = self._cap, self._ghost, self._buf
         p = begin % cap
         if p + n > cap:                       # wrote into the ghost
             glen = min(p + n - cap, ghost)
@@ -748,7 +896,7 @@ class Ring(object):
 
     def _rows(self, begin, size):
         """(nringlet, size) uint8 view of the bytes at `begin`."""
-        p = begin % self.capacity
+        p = begin % self._cap
         return self._buf[:, p:p + size]
 
     # ------------------------------------------------------------ reading
@@ -761,53 +909,21 @@ class Ring(object):
         every live sequence raises ValueError) or 'next' (after `cur`).
         Waits for such a sequence unless `nonblocking`, which raises
         BlockingIOError instead; EndOfDataStop once writing has ended."""
-        if which not in _OPEN_MODES:
+        if which not in _OPEN_WHICH:
             raise ValueError(f"unknown open mode {which!r}")
         hook = self._fault_hook
         if hook is not None:
             hook("ring.open", self)
-        with self._cond:
-            def find():
-                seqs = self._sequences
-                if which == "earliest":
-                    return next((s for s in seqs if not (
-                        s.finished and s.end <= self.tail)), None)
-                if which == "latest":
-                    return seqs[-1] if seqs else None
-                if which == "name":
-                    return next((s for s in seqs if name and
-                                 s.name == name), None)
-                if which == "at":
-                    best = None
-                    for s in seqs:
-                        if s.time_tag <= time_tag:
-                            best = s
-                    return best
-                return next((s for s in seqs if cur is not None and
-                             s.id > cur._seq.id), None)
-
-            found = [find()]
-            if found[0] is None and which == "at" and self._sequences:
-                raise ValueError(f"ring {self.name}: time_tag {time_tag} "
-                                 f"precedes every live sequence")
-
-            def ready():
-                found[0] = find()
-                return found[0] is not None or self._writing_ended
-
-            if not ready():
-                if nonblocking:
-                    raise BlockingIOError(f"ring {self.name}: open would "
-                                          f"block")
-                self._wait_for(ready, reader=True)
-            if found[0] is None:
-                raise EndOfDataStop(f"ring {self.name}: no more sequences")
-            seq = found[0]
-            pos = None
-            if guarantee:
-                pos = max(self.tail, seq.begin)
-                self._guarantees.append(pos)
-        return ReadSequence(self, seq, guarantee, pos)
+        seq = ctypes.c_void_p()
+        key = str(name).encode() if name else None
+        cur_seq = cur._seq if cur is not None else None
+        status = self._blocking(lambda progress: _lib().btpRingSequenceOpen(
+            ctypes.byref(seq), self._obj, _OPEN_WHICH[which], key,
+            int(time_tag), cur_seq, int(bool(guarantee)),
+            int(bool(nonblocking)), progress), reader=True)
+        _check(status, f"ring {self.name}: " + (
+            "no more sequences" if status == STATUS_END_OF_DATA else "open"))
+        return ReadSequence(self, seq, guarantee)
 
     def open_earliest_sequence(self, guarantee=True):
         return self.open_sequence("earliest", guarantee=guarantee)
@@ -837,10 +953,10 @@ class SequenceCursor(object):
     then each next one, closing the one before, until writing has ended.
     The position is held in the object rather than in a generator's
     frame, so a pipeline splice can hand it to a replacement block: the
-    current sequence, and its read guarantee, stay open across the
-    hand-off, and a wait interrupted in `next` leaves the position as it
-    was.  `wrap`, where given, maps each opened sequence to what the
-    reader sees (a header view's `SequenceView`)."""
+    current sequence, and its read guarantee in the engine, stay open
+    across the hand-off, and a wait interrupted in `next` leaves the
+    position as it was.  `wrap`, where given, maps each opened sequence
+    to what the reader sees (a header view's `SequenceView`)."""
 
     def __init__(self, ring, guarantee=True, wrap=None):
         self.ring = ring
@@ -916,7 +1032,10 @@ class WriteSequence(object):
                     self.tensor.frame_nbyte * buf_nframe,
                     self.tensor.nringlet, align=self.tensor.itemsize)
         self._seq = ring._sequence_begin(header, self.tensor.nringlet)
-        self.begin = self._seq.begin
+        begin = ctypes.c_uint64()
+        _check(_lib().btpRingSequenceGetInfo(self._seq, None, None, None,
+                                             None, None, ctypes.byref(begin)))
+        self.begin = begin.value
         self._ended = False
 
     def __enter__(self):
@@ -927,8 +1046,8 @@ class WriteSequence(object):
 
     def end(self):
         if not self._ended:
-            self.ring._sequence_end(self._seq)
             self._ended = True
+            self.ring._sequence_end(self._seq)
 
     def reserve(self, nframe, nonblocking=False):
         return WriteSpan(self, nframe, nonblocking)
@@ -1005,14 +1124,28 @@ class WriteSpan(object):
         self._ext = (ptr, arr)
         self.commit_nframe = n
 
+    def _claim(self):
+        """Take the span's one end (commit or cancel) -> False if it was
+        taken already."""
+        with _span_guard:
+            if self._committed:
+                return False
+            self._committed = True
+            return True
+
     def commit(self, nframe=None):
-        if self._committed:
+        if not self._claim():
             return
         if nframe is None:
             nframe = self.commit_nframe
-        self.ring._commit(self._token, self.offset, self.nbyte,
-                          nframe * self.tensor.frame_nbyte, self._ext)
-        self._committed = True
+        try:
+            self.ring._commit(self._token, self.offset, self.nbyte,
+                              nframe * self.tensor.frame_nbyte, self._ext)
+        except BaseException:
+            # Still reserved (interrupted, or refused): a later commit or
+            # cancel of it must not be a no-op.
+            self._committed = False
+            raise
 
     def cancel(self, fence=None):
         """Retire this reservation uncommitted, without the in-order
@@ -1020,10 +1153,13 @@ class WriteSpan(object):
         is cancelled newest first).  `fence`: an event recorded after the
         stream work that may still write these bytes (module docstring).
         A committed span is left as it is."""
-        if self._committed:
+        if not self._claim():
             return
-        self.ring._cancel(self._token, self.offset, self.nbyte, fence)
-        self._committed = True
+        try:
+            self.ring._cancel(self._token, self.offset, self.nbyte, fence)
+        except BaseException:
+            self._committed = False
+            raise
 
     def __enter__(self):
         return self
@@ -1033,58 +1169,59 @@ class WriteSpan(object):
 
 
 class ReadSequence(object):
-    def __init__(self, ring, seq, guarantee, guarantee_pos):
+    def __init__(self, ring, seq, guarantee):
         self.ring = ring
-        self._seq = seq
+        self._seq = seq               # the engine's read-sequence handle
         self.guarantee = guarantee
-        self._gpos = guarantee_pos
-        self.name = seq.name
-        self.time_tag = seq.time_tag
-        self.begin = seq.begin
-        self.header = json.loads(seq.header) if seq.header else {}
+        name, hdr = ctypes.c_char_p(), ctypes.c_void_p()
+        time_tag, hdr_size, nring, begin = (ctypes.c_uint64()
+                                            for _ in range(4))
+        _check(_lib().btpRingSequenceGetInfo(
+            seq, ctypes.byref(name), ctypes.byref(time_tag),
+            ctypes.byref(hdr), ctypes.byref(hdr_size), ctypes.byref(nring),
+            ctypes.byref(begin)))
+        self.name = name.value.decode() if name.value else ""
+        self.time_tag = time_tag.value
+        self.begin = begin.value
+        raw = ctypes.string_at(hdr.value, hdr_size.value) \
+            if hdr.value and hdr_size.value else b""
+        self.header = json.loads(raw.decode()) if raw else {}
         self.tensor = TensorInfo(self.header) \
             if "_tensor" in self.header else None
         self._closed = False
         self._open_spans = []
-        self._manual = False
 
     @property
     def finished(self):
         """Has the writer ended this sequence?"""
-        with self.ring._cond:
-            return self._seq.finished
+        fin = ctypes.c_int()
+        _check(_lib().btpRingSequenceIsFinished(self._seq, ctypes.byref(fin),
+                                                None))
+        return bool(fin.value)
 
     def set_guarantee_manual(self, manual=True):
         """Stop span acquires from moving this reader's guarantee forward;
         the reader moves it itself with `advance_guarantee` (the async
         gulp executor acquires ahead of the gulps its worker still
         reads; bifrost_tpu/ring.py:835-842)."""
-        self._manual = bool(manual)
+        _check(_lib().btpRingSequenceGuaranteeManual(self._seq,
+                                                     int(bool(manual))))
 
     def advance_guarantee(self, offset):
         """Move this reader's guarantee forward to byte `offset`: the
         bytes before it become the writer's to reclaim."""
-        ring = self.ring
-        with ring._cond:
-            if self._gpos is not None and offset > self._gpos:
-                ring._guarantees.remove(self._gpos)
-                self._gpos = int(offset)
-                ring._guarantees.append(self._gpos)
-                ring._cond.notify_all()
+        _check(_lib().btpRingSequenceAdvanceGuarantee(self._seq,
+                                                      int(offset)))
 
     def close(self):
         # Outstanding spans release before the guarantee goes away.
         for span in list(self._open_spans):
             span.release()
-        ring = self.ring
-        with ring._cond:
+        with _span_guard:
             if self._closed:
                 return
             self._closed = True
-            if self._gpos is not None:
-                ring._guarantees.remove(self._gpos)
-                self._gpos = None
-            ring._cond.notify_all()
+        _check(_lib().btpRingSequenceClose(self._seq))
 
     def __enter__(self):
         return self
@@ -1110,38 +1247,24 @@ class ReadSequence(object):
                         nframe * t.frame_nbyte, nonblocking)
 
     def _acquire(self, offset, size, nonblocking):
-        """-> (bytes available, bytes overwritten) at `offset`."""
-        ring, s = self.ring, self._seq
-        with ring._cond:
-            if self._gpos is not None and offset > self._gpos and \
-                    not self._manual:
-                # Guarantee follows the read position forward.
-                ring._guarantees.remove(self._gpos)
-                self._gpos = offset
-                ring._guarantees.append(offset)
-                ring._cond.notify_all()
-
-            def ready():
-                return (ring.head >= offset + size or
-                        (s.finished and ring.head >= min(offset + size,
-                                                         s.end)) or
-                        ring._writing_ended)
-
-            if not ready():
-                if nonblocking:
-                    raise BlockingIOError(f"ring {ring.name}: acquire "
-                                          f"would block")
-                ring._wait_for(ready, reader=True)
-            limit = s.end if s.finished else \
-                ring.head if ring._writing_ended else offset + size
-            if offset >= limit:
-                raise EndOfDataStop("sequence exhausted")
-            eff = min(offset + size, limit) - offset
-            ring._nread_open += 1
-            waits = [ev for (b, e, ev) in ring._commit_events
-                     if b < offset + eff and e > offset]
-            overwritten = min(max(ring.tail - offset, 0), eff)
-        return eff, overwritten, waits
+        """-> (bytes available, bytes overwritten, commit events to wait
+        on, the engine's span) at `offset`."""
+        ring = self.ring
+        span, info = ctypes.c_void_p(), _SpanInfo()
+        status = ring._blocking(lambda progress: _lib().btpRingSpanAcquire(
+            ctypes.byref(span), self._seq, int(offset), int(size),
+            int(bool(nonblocking)), progress, ctypes.byref(info)),
+            reader=True)
+        _check(status, "sequence exhausted" if status == STATUS_END_OF_DATA
+               else f"ring {ring.name}: acquire")
+        ring._ensure_view(info.base)
+        eff = int(info.size)
+        waits = []
+        if ring._commit_events:
+            with ring._cond:
+                waits = [ev for (b, e, ev) in ring._commit_events
+                         if b < offset + eff and e > offset]
+        return eff, int(info.overwritten), waits, span
 
     def read(self, gulp_nframe, stride_nframe=None, begin_nframe=0):
         """Generator of ReadSpans (reference ring2.py:324-334)."""
@@ -1170,7 +1293,8 @@ class ReadSpan(object):
         hook = self.ring._fault_hook
         if hook is not None:
             hook("ring.acquire", self.ring)
-        eff, overwritten, waits = rseq._acquire(offset, size, nonblocking)
+        eff, overwritten, waits, self._obj = rseq._acquire(offset, size,
+                                                           nonblocking)
         self.offset = offset
         self.nframe = eff // t.frame_nbyte
         self.nbyte = self.nframe * t.frame_nbyte
@@ -1187,8 +1311,7 @@ class ReadSpan(object):
     @property
     def nframe_overwritten(self):
         """Frames of this span the writer has overwritten (lossy readers)."""
-        with self.ring._cond:
-            ow = min(max(self.ring.tail - self.offset, 0), self.nbyte)
+        ow = min(max(self.ring.tail - self.offset, 0), self.nbyte)
         return min(ow // self.tensor.frame_nbyte, self.nframe)
 
     @property
@@ -1245,9 +1368,10 @@ class ReadSpan(object):
             self._hold.append(event)
 
     def release(self):
-        if self._released:
-            return
-        self._released = True
+        with _span_guard:
+            if self._released:
+                return
+            self._released = True
         for ev in self._hold:
             ev.synchronize()
         ring = self.ring
@@ -1256,11 +1380,10 @@ class ReadSpan(object):
             self.rseq._open_spans.remove(self)
         except ValueError:
             pass
-        with ring._cond:
-            if ev is not None:
+        if ev is not None:
+            with ring._cond:
                 ring._release_events.append(ev)
-            ring._nread_open -= 1
-            ring._cond.notify_all()
+        _check(_lib().btpRingSpanRelease(self._obj))
 
     def __enter__(self):
         return self

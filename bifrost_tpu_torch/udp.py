@@ -9,17 +9,16 @@ by `build.load_host('udp')` at first use and called through
 ``ctypes.CDLL``, so the capture loop and the walker run without the GIL.
 
 The capture engine scatters packet payloads into two consecutive ring
-write spans (the reorder window) and calls back into Python at sequence
-boundaries for the JSON header, as the JAX engine does.  The JAX engine
-writes a C ring; the port's ring is Python (ring.py), so the engine
-writes it through a table of callbacks (`_RingCallbacks`: begin/end
-writing, resize, sequence begin/end, reserve, commit) that `UDPCapture`
-fills from the port's `Ring`.  A Python exception cannot cross a ctypes
-callback: a callback returns a status (32 for `RingInterrupted`, 99 for
-any other error) and keeps the exception, the engine unwinds with that
-status, and `recv` (or `end_sequence`/`end`) raises the kept exception
-again.  The capture ring must be in the 'system' space: the engine
-writes host memory.
+write spans (the reorder window), reserving and committing them through
+the port's ring engine (``csrc/ring.cpp``, ring.py) from C, as the JAX
+engine does: a `recv` enters Python only at a sequence boundary, for the
+JSON header (the one callback).  A ring wait woken by an interrupt
+unwinds the engine with status 32, which `recv` (or
+`end_sequence`/`end`) raises as `RingInterrupted`.  The engine writes
+the throttled `udp_capture_<ring>/stats` log of the JAX engine, with its
+keys and cadence (every 16,384 good payloads, at each sequence end and
+at teardown).  The capture ring must hold host memory ('system'): the
+engine writes it.
 """
 
 from __future__ import annotations
@@ -28,6 +27,7 @@ import ctypes
 import json
 import logging
 import struct
+import sys
 import threading
 import time
 
@@ -35,14 +35,13 @@ from .ring import RingInterrupted
 
 __all__ = ["UDPSocket", "UDPCapture", "UDPTransmit", "UDPError",
            "TRANSMIT_RECORD_DTYPE", "pack_transmit_records",
-           "batch_support", "set_core"]
+           "batch_support", "set_core", "reuseport_senders"]
 
 _log = logging.getLogger("bifrost_tpu_torch.udp")
 
 STATUS_SUCCESS = 0
 STATUS_WOULD_BLOCK = 2
 STATUS_INTERRUPTED = 32
-STATUS_INTERNAL_ERROR = 99
 
 # numpy dtype of one packed schedule record (BTPtransmitRecord,
 # csrc/udp_host.h): byte offset into the payload slab, datagram size,
@@ -61,19 +60,6 @@ _vp = ctypes.c_void_p
 # Sequence callback: (seq0, *time_tag, **hdr, *hdr_size, user) -> int
 SEQUENCE_CALLBACK = ctypes.CFUNCTYPE(ctypes.c_int, _u64, _u64p, _voidpp,
                                      _u64p, _vp)
-_CB_VOID = ctypes.CFUNCTYPE(ctypes.c_int, _vp)
-_CB_RESIZE = ctypes.CFUNCTYPE(ctypes.c_int, _vp, _u64, _u64)
-_CB_SEQ = ctypes.CFUNCTYPE(ctypes.c_int, _vp, _u64, _vp, _u64)
-_CB_RESERVE = ctypes.CFUNCTYPE(ctypes.c_int, _vp, _u64, _voidpp, _u64p)
-_CB_COMMIT = ctypes.CFUNCTYPE(ctypes.c_int, _vp, _u64, _u64)
-
-
-class _RingCallbacks(ctypes.Structure):
-    """BTPringCallbacks (csrc/udp_host.h)."""
-    _fields_ = [("user", _vp), ("begin_writing", _CB_VOID),
-                ("end_writing", _CB_VOID), ("resize", _CB_RESIZE),
-                ("sequence_begin", _CB_SEQ), ("sequence_end", _CB_VOID),
-                ("reserve", _CB_RESERVE), ("commit", _CB_COMMIT)]
 
 
 _PROTOS = {
@@ -92,10 +78,9 @@ _PROTOS = {
     "btpSocketGetFD": (ctypes.c_int, [_vp, _intp]),
     "btpSocketBatchSupport": (ctypes.c_int, [_intp, _intp]),
     "btpUdpCaptureCreate": (ctypes.c_int,
-                            [_voidpp, ctypes.c_char_p, _vp,
-                             ctypes.POINTER(_RingCallbacks), _u64, _u64,
-                             _u64, _u64, _u64, SEQUENCE_CALLBACK, _vp,
-                             ctypes.c_int]),
+                            [_voidpp, ctypes.c_char_p, _vp, _vp, _u64,
+                             _u64, _u64, _u64, _u64, SEQUENCE_CALLBACK, _vp,
+                             ctypes.c_int, ctypes.c_char_p]),
     "btpUdpCaptureDestroy": (ctypes.c_int, [_vp]),
     "btpUdpCaptureSetBatch": (ctypes.c_int, [_vp, ctypes.c_uint]),
     "btpUdpCaptureGetBatch": (ctypes.c_int, [_vp, _uintp]),
@@ -103,6 +88,7 @@ _PROTOS = {
     "btpUdpCaptureSequenceEnd": (ctypes.c_int, [_vp]),
     "btpUdpCaptureEnd": (ctypes.c_int, [_vp]),
     "btpUdpCaptureGetStats": (ctypes.c_int, [_vp] + [_u64p] * 5),
+    "btpUdpCaptureGetWindows": (ctypes.c_int, [_vp, _u64p]),
     "btpUdpTransmitCreate": (ctypes.c_int, [_voidpp, _vp, ctypes.c_int]),
     "btpUdpTransmitDestroy": (ctypes.c_int, [_vp]),
     "btpUdpTransmitSend": (ctypes.c_int, [_vp, ctypes.c_char_p,
@@ -173,6 +159,8 @@ class _Native(object):
             self._destroyed = True
 
     def __del__(self):
+        if sys.is_finalizing():
+            return    # a daemon thread may still be inside the engine
         try:
             self.close()
         except Exception:  # noqa: BLE001 — interpreter teardown
@@ -274,87 +262,6 @@ class UDPSocket(_Native):
         _check(_lib().btpSocketShutdown(self.obj))
 
 
-class _RingWriter(object):
-    """The callback table's Python side over one port `Ring`: every
-    callback returns a status and keeps its exception in `error`."""
-
-    def __init__(self, ring):
-        self.ring = ring
-        self.error = None
-        self._spans = {}          # span id -> (begin, token, nbyte)
-        self._next_id = 0
-        self.ncommit = 0          # spans committed (slot windows)
-        self._seq = None
-        self.table = _RingCallbacks(
-            None, _CB_VOID(self._wrap(self._begin_writing)),
-            _CB_VOID(self._wrap(self._end_writing)),
-            _CB_RESIZE(self._wrap(self._resize)),
-            _CB_SEQ(self._wrap(self._sequence_begin)),
-            _CB_VOID(self._wrap(self._sequence_end)),
-            _CB_RESERVE(self._wrap(self._reserve)),
-            _CB_COMMIT(self._wrap(self._commit)))
-
-    def _wrap(self, fn):
-        def cb(user, *args):
-            try:
-                fn(*args)
-                return STATUS_SUCCESS
-            except RingInterrupted as e:
-                self.error = e
-                return STATUS_INTERRUPTED
-            except BaseException as e:  # noqa: BLE001 — re-raised by recv
-                self.error = e
-                return STATUS_INTERNAL_ERROR
-        return cb
-
-    def _begin_writing(self):
-        self.ring.begin_writing()
-
-    def _end_writing(self):
-        self.ring.end_writing()
-
-    def _resize(self, contiguous, total):
-        self.ring.resize(int(contiguous), int(total))
-
-    def _sequence_begin(self, time_tag, hdr, hdr_size):
-        header = json.loads(ctypes.string_at(hdr, hdr_size).decode()) \
-            if hdr_size else {}
-        self._seq = self.ring._sequence_begin(header, 1,
-                                              time_tag=int(time_tag))
-
-    def _sequence_end(self):
-        seq, self._seq = self._seq, None
-        if seq is not None:
-            self.ring._sequence_end(seq)
-
-    def _reserve(self, nbyte, data_p, span_p):
-        nbyte = int(nbyte)
-        begin, token, _released = self.ring._reserve(nbyte, False)
-        sid = self._next_id
-        self._next_id += 1
-        self._spans[sid] = (begin, token, nbyte)
-        # Ringlet 0 of a one-ringlet ring: the span's bytes start at its
-        # offset in the buffer (Ring._rows, without the view).
-        ring = self.ring
-        data_p[0] = ring._buf.data_ptr() + begin % ring.capacity
-        span_p[0] = sid
-
-    def _commit(self, sid, nbyte):
-        begin, token, size = self._spans.pop(int(sid))
-        self.ring._commit(token, begin, size, int(nbyte))
-        self.ncommit += 1
-
-    def raise_status(self, status):
-        """Raise for a failed engine call: the exception a callback kept
-        (RingInterrupted or the ring's own error), else the status."""
-        err, self.error = self.error, None
-        if status == STATUS_SUCCESS:
-            return
-        if err is not None:
-            raise err
-        _check(status)
-
-
 class UDPCapture(_Native):
     """Packet -> ring capture engine (bifrost_tpu/udp.py:UDPCapture).
 
@@ -365,7 +272,9 @@ class UDPCapture(_Native):
     `close`) also writes them, with byte totals, to a
     `<stats_name>/packet_stats` ProcLog and tracks their deltas in
     telemetry ('udp:ngood', ...), which `proclog.capture_metrics` and
-    `Service.health()` read.
+    `Service.health()` read.  The engine itself writes the JAX engine's
+    throttled `udp_capture_<ring log name>/stats` log, which goes with
+    the engine at `close`.
     """
 
     _destroy = "btpUdpCaptureDestroy"
@@ -378,6 +287,7 @@ class UDPCapture(_Native):
             raise ValueError(f"UDPCapture writes host memory: ring "
                              f"{ring.name!r} must be in the 'system' "
                              f"space, not {ring.space!r}")
+        from .proclog import ProcLog
         self.sock = sock
         self.ring = ring
         self.payload_size = int(max_payload_size)
@@ -387,8 +297,11 @@ class UDPCapture(_Native):
         self._stats_last = dict.fromkeys(
             ("ngood", "nmissing", "ninvalid", "nlate", "nrepeat"), 0)
         if stats_name is not None:
-            from .proclog import ProcLog
             self._stats_proclog = ProcLog(f"{stats_name}/packet_stats")
+        try:
+            self._engine_log = ProcLog(f"udp_capture_{ring.log_name}/stats")
+        except OSError:
+            self._engine_log = None       # the log is best-effort
         # Header buffers keyed by seq0: the engine may hold a header
         # pointer until the NEXT sequence callback or its destruction, so
         # the current and the previous sequence's buffers are kept (a
@@ -420,12 +333,11 @@ class UDPCapture(_Native):
                 return -1
 
         self._c_callback = SEQUENCE_CALLBACK(_cb)
-        self._writer = _RingWriter(ring)
         _check(_lib().btpUdpCaptureCreate(
-            ctypes.byref(self.obj), str(fmt).encode(), sock.obj,
-            ctypes.byref(self._writer.table), int(nsrc), int(src0),
-            int(max_payload_size), int(buffer_ntime), int(slot_ntime),
-            self._c_callback, None, int(core)))
+            ctypes.byref(self.obj), str(fmt).encode(), sock.obj, ring._obj,
+            int(nsrc), int(src0), int(max_payload_size), int(buffer_ntime),
+            int(slot_ntime), self._c_callback, None, int(core),
+            self._engine_log.path.encode() if self._engine_log else None))
         if batch_npkt is not None:
             _check(_lib().btpUdpCaptureSetBatch(self.obj, int(batch_npkt)))
 
@@ -433,7 +345,7 @@ class UDPCapture(_Native):
         status = fn(self.obj, *args)
         hdr_err, self._hdr_error = self._hdr_error, None
         try:
-            self._writer.raise_status(status)
+            _check(status)
         except UDPError as e:
             if hdr_err is None:
                 raise
@@ -442,7 +354,9 @@ class UDPCapture(_Native):
     @property
     def nwindow(self):
         """Slot windows the engine has committed to the ring so far."""
-        return self._writer.ncommit
+        val = ctypes.c_uint64()
+        _check(_lib().btpUdpCaptureGetWindows(self.obj, ctypes.byref(val)))
+        return val.value
 
     @property
     def batch_npkt(self):
@@ -484,6 +398,9 @@ class UDPCapture(_Native):
                 pass
         super().close()
         self._hdr_bufs.clear()
+        log = getattr(self, "_engine_log", None)
+        if log is not None and self._destroyed:
+            log.remove()       # as the JAX engine destroys its stats log
 
     @property
     def stats(self):
@@ -520,6 +437,46 @@ class UDPCapture(_Native):
         except Exception:  # noqa: BLE001 — observability only
             pass
         return stats
+
+
+def reuseport_senders(rxs, address="127.0.0.1", probes=256,
+                      timeout=2.0):
+    """One sender socket for each socket of `rxs`, a SO_REUSEPORT group
+    bound to one port: the kernel hashes each flow (its 4-tuple) to one
+    socket of the group, so a sender is kept for the first socket its
+    probe datagram lands on, until every socket has one.  The probes are
+    read off the group through duplicated descriptors, so no engine sees
+    them: call this before the captures run.  -> [UDPSocket] in the
+    order of `rxs`; RuntimeError after `probes` senders."""
+    import os
+    import socket as pysock
+    peeks = [pysock.socket(fileno=os.dup(rx.fileno())) for rx in rxs]
+    chosen = {}
+    try:
+        for p in peeks:
+            p.setblocking(False)
+        for _ in range(int(probes)):
+            sock = UDPSocket().connect(address, rxs[0].port)
+            UDPTransmit(sock).send(b"probe")
+            landed, deadline = None, time.monotonic() + timeout
+            while landed is None and time.monotonic() < deadline:
+                for i, p in enumerate(peeks):
+                    try:
+                        p.recv(64)
+                        landed = i
+                        break
+                    except BlockingIOError:
+                        pass
+            if landed is None:
+                raise RuntimeError("a reuseport probe datagram was lost")
+            chosen.setdefault(landed, sock)
+            if len(chosen) == len(rxs):
+                return [chosen[i] for i in range(len(rxs))]
+    finally:
+        for p in peeks:
+            p.close()
+    raise RuntimeError(f"{probes} probe flows reached only sockets "
+                       f"{sorted(chosen)} of {len(rxs)}")
 
 
 class UDPTransmit(_Native):

@@ -8,10 +8,12 @@ width (chip_smoke.py's constants) on the first `chip_smoke.CP_NINT`
 integrations of chip_smoke's [bengine] voltages, the packets sent over
 loopback by the port's schedule walker at `--rate` packets/s, once for
 each slot size S, and prints for each the walker's stats, the capture's
-packet counters, the images out and the wall time.  The capture engine's
-ring callbacks take the GIL once a slot window, so small slots show
-where the instrument's host threads delay them past what the socket
-buffer holds.  Prints the card's name and power limit first.
+packet counters, the images out and the wall time.  The capture engine
+reserves and commits its ring in C without the GIL (it enters Python
+once a sequence, for the header), so a small slot costs ring calls, not
+waits on the instrument's host threads; what the socket buffer cannot
+hold shows as `nmissing`.  Prints the card's name and power limit
+first.
 """
 
 import argparse

@@ -153,7 +153,7 @@ Phases, one line each; any failure exits non-zero:
              block and phase, peak device memory; one beam gulp's pinned
              H2D time.
 
-12. service — after [fusion], on [bengine]'s voltages, SV_NINT = 68
+12. service — after [fusion], on [bengine]'s voltages, SV_NINT = 66
              integrations (the FDMT's max_delay is 64, so K1 is on the
              path: 4 outputs, 2 in the faulted run, which sheds one): (a) `Service(lwa_instrument_spec(voltages=...))`
              and `lwa_instrument_pipeline`, both fused as the spec
@@ -196,7 +196,8 @@ Phases, one line each; any failure exits non-zero:
              within 1e-5 (the detector runs on a host ring here, on a
              'cuda' ring there; the FDMT input is the same bytes), the
              burst found; packets/s sent and ingested, frames/s, host
-             seconds by block.  (b) The same stream asked for at 4x
+             seconds by block.  (b) The same stream, its first
+             CP_B_NGULP = 2 gulps, asked for at 4x
              real time (256,000 packets/s; one walker thread sends what
              loopback takes): ngood, nmissing and the
              rates reported, not asserted, and the highest rate sent
@@ -223,6 +224,27 @@ Phases, one line each; any failure exits non-zero:
              to [-8, 7] at real time: nothing lost, candidates those of
              frb_search_pipeline fed the same values as i8.  Launches go
              into `launches_by_path` as `capture_i4`.
+
+             (f) ROADMAP item 18: CP_FAN_NSHARD = 4
+             `Service(lwa_frb_search_spec(rx_i))` at [main]'s full
+             width, their sockets bound to one port with SO_REUSEPORT,
+             fed by 4 walker flows of 16 sources each (one steered to
+             each shard by probing sender sockets), 2 gulps of
+             frb_data() holding the burst: Σ ngood equal to the packets
+             sent, no repeats, each shard's K1 launches 12 a gulp
+             (counted on its blocks' threads), each shard's candidates
+             those of frb_search_pipeline on its flow's channels;
+             frames/s a shard and in all, `health()["capture"]` of each,
+             the NUMA placement of every host ring (where the kernel
+             has NUMA maps).  (g) The instrument of (c) at
+             CP_SLOTS = 16- and 256-frame slots: packets lost with the
+             granted socket buffer, the images bitwise (c)'s replay
+             where none is; the capture engine's Python entries a slot
+             window (sys.setprofile: 1, the header callback, in about
+             1,022 windows); `Ring(core=c)`'s page policy.  (h) 2 GiB
+             through a 64 MiB host ring on the ring engine, every byte
+             checked.  Launches as `capture_fanout` (f) and
+             `capture_slots` (g).
 
 14. xengine — the exact int8 X-engine (kernel X1) at the repo's int8
              configuration (benchmarks/XENGINE_TPU.md:59): 128 channels x
@@ -564,7 +586,7 @@ FUSION_PAIRS, FX_NINT, FX_KEEP = 1, 8, 2
 # on the path), Service and bare pipeline in SV_PAIRS turns, SV_KEEP
 # images compared whole; the wedge run SV_WEDGE_NINT deep; the
 # mid-stream stop after SV_STOP_AFTER images with a SV_QUIESCE s quiesce.
-SV_NINT, SV_PAIRS, SV_KEEP = 68, 1, 2
+SV_NINT, SV_PAIRS, SV_KEEP = 66, 1, 2
 SV_WEDGE_NINT, SV_STOP_AFTER, SV_QUIESCE = 4, 3, 30.0
 
 # The capture phase: the FRB search over UDP at [main]'s geometry
@@ -578,10 +600,22 @@ SV_WEDGE_NINT, SV_STOP_AFTER, SV_QUIESCE = 4, 3, 30.0
 # keep the waits on the instrument's host threads few;
 # capture_slots.py compares slot sizes) and a capture ring holding the
 # whole stream; the chaos harness's --check.
-CP_NGULP, CP_NSRC, CP_PAYLOAD = 4, 64, 64
+CP_NGULP, CP_NSRC, CP_PAYLOAD, CP_B_NGULP = 4, 64, 64, 2
 CP_RATES = (64_000, 256_000)
 CP_NINT, CP_X_RATE = 4, 100_000
 CP_X = dict(nsrc=4, max_payload_size=256, slot_ntime=4096)
+# The 4x run (b) is cut to CP_B_NGULP gulps.  The SO_REUSEPORT fan-out
+# (f): CP_FAN_NSHARD FRB searches at [main]'s width, CP_FAN_NGULP gulps
+# from gulp CP_FAN_GULP0 (the burst's), one flow of CP_NSRC / CP_FAN_NSHARD sources
+# a shard at CP_FAN_RATE packets/s (the four at real time together),
+# steered with at most CP_FAN_PROBES probe flows; the instrument at
+# CP_SLOTS-frame slots (g), the engine's Python entries over
+# CP_ENTRIES_NFRAME frames; ring streaming (h): CP_STREAM_NBYTE through
+# a CP_STREAM_RING-byte ring in CP_STREAM_GULP-byte spans.
+CP_FAN_NSHARD, CP_FAN_NGULP, CP_FAN_RATE, CP_FAN_PROBES = 4, 2, 16_000, 256
+CP_FAN_GULP0 = 2
+CP_SLOTS, CP_ENTRIES_NFRAME = (16, 256), 16384
+CP_STREAM_NBYTE, CP_STREAM_RING, CP_STREAM_GULP = 2 << 30, 64 << 20, 4 << 20
 
 # The int8 X-engine (benchmarks/XENGINE_TPU.md:59, the repo's int8
 # configuration for ci8/ci4 streams): 128 channels x 256 stations x 2
@@ -3520,11 +3554,13 @@ def capture_path(dev, volt):
     # (b) The same stream asked for at 4x real time: reported
     # only.  The sustained rate is the highest rate SENT without loss.
     sustained = sent
+    nb = CP_B_NGULP * GULP * CP_NSRC
     for rate in CP_RATES[1:]:
-        b = cp_frb_run(dev, slab, cp_records(npkt, 12 + CP_PAYLOAD, rate))
+        b = cp_frb_run(dev, slab[:nb * (12 + CP_PAYLOAD)],
+                       cp_records(nb, 12 + CP_PAYLOAD, rate))
         sent, ingested = cp_rates(b)
         st = b["stats"]
-        if st["nmissing"] == 0 and st["ngood"] == npkt:
+        if st["nmissing"] == 0 and st["ngood"] == nb:
             sustained = max(sustained, sent)
         phase("capture", f"(b) asked {rate} packets/s ({rate // CP_RATES[0]}"
               f"x real time): sent {sent:.1f} packets/s (walker "
@@ -3543,21 +3579,8 @@ def capture_path(dev, volt):
     volt = volt[:CP_NINT * B_GULP]
     frames = volt.reshape(len(volt), -1).view(np.uint8)
     npkt = len(volt) * CP_X["nsrc"]
-    slab, recs = cp_packets(frames, CP_X["nsrc"], CP_X_RATE)
-    rx, rcvbuf = cp_socket()
-    imgs, cands = Fingerprints(CP_NINT), []
-    spec = lwa_instrument_spec(
-        sock=rx, capture=dict(CP_X, buffer_ntime=len(volt)),
-        nstand=NSTAND, npol=NPOL, nchan=BCHAN, ntap=NTAP, n_int=N_INT,
-        nbeam=NBEAM, max_delay=B_MAX_DELAY, ngrid=NGRID, f0_mhz=B_F0,
-        dt_s=B_DT, gulp_nframe=B_GULP, on_image=imgs,
-        on_candidate=cands.append)
-    svc = Service(spec, name="cp_x", device=dev)
-    reset_counts()
-    c = cp_drive(svc, svc.blocks["ingest"], rx, slab, recs)
-    counts = read_counts()
-    del slab, recs, svc
-    free_device()
+    c, imgs, cands, counts, rcvbuf = cp_x_run(dev, frames,
+                                              CP_X["slot_ntime"])
     rimgs, rcands = Fingerprints(CP_NINT), []
     rsvc = Service(sv_spec(volt, rimgs, rcands), name="cp_x_replay",
                    device=dev)
@@ -3595,7 +3618,7 @@ def capture_path(dev, volt):
           f"stats {st}; exit code 0; {CP_NINT} images bitwise the replay "
           f"Service's; launches {counts}, the replay's")
     out["capture_instrument"] = counts
-    del imgs, rimgs
+    del imgs
     free_device()
 
     # (d) The port's chaos matrix on the card.
@@ -3619,7 +3642,344 @@ def capture_path(dev, volt):
           f"equal across its two runs; {wall:.1f} s; launches {counts}")
     out["chaos"] = counts
     out["capture_i4"] = cp_i4_path(dev)
+    free_device()
+    out["capture_fanout"] = cp_fanout_path(dev)
+    free_device()
+    out["capture_slots"] = cp_slots_path(dev, frames, rimgs, rcands,
+                                         rcounts)
+    del rimgs
+    free_device()
+    cp_ring_stream()
     return out
+
+
+def cp_x_run(dev, frames, slot):
+    """The instrument over UDP (CP_X's packets of `frames` at CP_X_RATE,
+    capture slots of `slot` frames, a capture ring holding the whole
+    stream) -> (cp_drive's dict, images, candidates, launch counts,
+    SO_RCVBUF granted)."""
+    from bifrost_tpu_torch.service import Service, lwa_instrument_spec
+    slab, recs = cp_packets(frames, CP_X["nsrc"], CP_X_RATE)
+    rx, rcvbuf = cp_socket()
+    imgs, cands = Fingerprints(CP_NINT), []
+    spec = lwa_instrument_spec(
+        sock=rx, capture=dict(CP_X, slot_ntime=slot,
+                              buffer_ntime=len(frames)),
+        nstand=NSTAND, npol=NPOL, nchan=BCHAN, ntap=NTAP, n_int=N_INT,
+        nbeam=NBEAM, max_delay=B_MAX_DELAY, ngrid=NGRID, f0_mhz=B_F0,
+        dt_s=B_DT, gulp_nframe=B_GULP, on_image=imgs,
+        on_candidate=cands.append)
+    svc = Service(spec, name=f"cp_x{slot}", device=dev)
+    reset_counts()
+    c = cp_drive(svc, svc.blocks["ingest"], rx, slab, recs)
+    counts = read_counts()
+    del slab, recs, svc
+    return c, imgs, cands, counts, rcvbuf
+
+
+def cp_fanout_path(dev):
+    """(f) ROADMAP item 18 on the card: CP_FAN_NSHARD capture sockets on
+    one port (SO_REUSEPORT), each the socket of one
+    `Service(lwa_frb_search_spec(...))` at [main]'s full width (4096 u8
+    channels, gulp 4096, max_delay 2048), fed by CP_FAN_NSHARD walker
+    flows of 16 of the 64 sources each, one flow steered to each shard
+    (udp.reuseport_senders), CP_FAN_NGULP gulps of frb_data() from its gulp
+    CP_FAN_GULP0 (the burst's) at CP_FAN_RATE packets/s a flow.  Σ ngood equals the packets sent, no repeats; each shard's
+    K1 launches (12 a gulp: check_kernels holds K1 bitwise its plain
+    version at this shape); each shard's candidates equal to
+    frb_search_pipeline's on the frames with only its flow's channels.
+    -> launch counts."""
+    import sys as _sys
+
+    from bifrost_tpu_torch.service import (Service, frb_search_pipeline,
+                                           lwa_frb_search_spec)
+    from bifrost_tpu_torch.udp import (UDPSocket, UDPTransmit,
+                                       reuseport_senders)
+    fdmt_mod = _sys.modules["bifrost_tpu_torch.ops.fdmt"]
+    nshard = CP_FAN_NSHARD
+    per = CP_NSRC // nshard
+    data = frb_data()[CP_FAN_GULP0 * GULP:
+                      (CP_FAN_GULP0 + CP_FAN_NGULP) * GULP]
+    nframe = len(data)
+    rx0 = UDPSocket().bind("127.0.0.1", 0, reuseport=True)
+    rxs = [rx0] + [UDPSocket().bind("127.0.0.1", rx0.port, reuseport=True)
+                   for _ in range(nshard - 1)]
+    for rx in rxs:
+        rx.set_timeout(0.05)
+    senders = reuseport_senders(rxs, probes=CP_FAN_PROBES)
+    cands = [[] for _ in range(nshard)]
+    svcs = [Service(lwa_frb_search_spec(
+        rx, nsrc=CP_NSRC, max_payload_size=CP_PAYLOAD, gulp_nframe=GULP,
+        max_delay=MAX_DELAY, f0_mhz=F0, df_mhz=DF, dt_s=DT,
+        on_candidate=cands[i].append), name=f"cp_fan{i}", device=dev)
+        for i, rx in enumerate(rxs)]
+    flows = []
+    for g in range(nshard):
+        cols = data[:, g * per * CP_PAYLOAD:(g + 1) * per * CP_PAYLOAD]
+        slab, recs = cp_packets(np.ascontiguousarray(cols), per,
+                                CP_FAN_RATE)
+        pkt = np.frombuffer(slab, dtype=[("seq", "<u8"), ("src", "<u2"),
+                                         ("pad", "<u2"),
+                                         ("payload", "u1", CP_PAYLOAD)])
+        pkt = pkt.copy()
+        pkt["src"] += g * per
+        flows.append((pkt.tobytes(), recs))
+    by_thread = {}
+    real = fdmt_mod.merge_step
+
+    def counted(*a, **k):
+        ident = threading.get_ident()
+        by_thread[ident] = by_thread.get(ident, 0) + 1
+        return real(*a, **k)
+
+    fdmt_mod.merge_step = counted
+    reset_counts()
+    try:
+        for svc in svcs:
+            svc.start()
+        t0 = time.perf_counter()
+        txs = [UDPTransmit(sock) for sock in senders]
+        for tx, (slab, recs) in zip(txs, flows):
+            tx.start_schedule(slab, recs, batch_npkt=64)
+        walks = [tx.wait_schedule() for tx in txs]
+        last, still = None, time.perf_counter()
+        while time.perf_counter() - still < 0.5 and \
+                time.perf_counter() - t0 < 120:
+            cur = [svc.blocks["capture"].stats for svc in svcs]
+            if cur != last:
+                last, still = cur, time.perf_counter()
+            time.sleep(0.05)
+        health = [svc.health()["capture"] for svc in svcs]
+        host_rings = [(r.name, r.space, r.page_nodes() or "no NUMA maps")
+                      for svc in svcs for r in svc.pipeline.rings
+                      if r.space != "cuda"]
+        reports = [svc.stop(timeout=60.0) for svc in svcs]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        fdmt_mod.merge_step = real
+        for sock in senders:
+            sock.shutdown()
+        for rx in rxs:
+            rx.shutdown()
+    counts = read_counts()
+    for svc in svcs:
+        if svc._run_error is not None:
+            raise svc._run_error
+    stats = [svc.blocks["capture"].final_stats for svc in svcs]
+    shard_k1 = [sum(n for ident, n in by_thread.items()
+                    if any(ident in getattr(b, "_thread_idents", ())
+                           for b in svc.pipeline.blocks))
+                for svc in svcs]
+    nsteps = len(svcs[0].blocks["fdmt"].fdmt._steps)
+    sent = sum(w["nsent"] for w in walks)
+    if sent != nframe * CP_NSRC or any(w["ndropped"] for w in walks) or \
+            sum(st["ngood"] for st in stats) != sent or \
+            any(st["nrepeat"] or st["ngood"] != nframe * per
+                for st in stats) or \
+            any(r.exit_code != 0 or r.ledger["lost_frames"]
+                for r in reports):
+        raise AssertionError(f"fan-out: walkers {walks}, stats {stats}, "
+                             f"reports {reports}")
+    if shard_k1 != [nsteps * CP_FAN_NGULP] * nshard or \
+            counts != expected(fdmt_merge_step=nsteps * CP_FAN_NGULP *
+                               nshard):
+        raise AssertionError(f"fan-out K1 launches by shard {shard_k1}, "
+                             f"counts {counts}")
+    for g in range(nshard):
+        masked = np.zeros_like(data)
+        sl = slice(g * per * CP_PAYLOAD, (g + 1) * per * CP_PAYLOAD)
+        masked[:, sl] = data[:, sl]
+        ref = []
+        frb_search_pipeline(masked, GULP, MAX_DELAY, F0, DF, DT, device=dev,
+                            on_candidate=ref.append)[0].run()
+        got = cands[g]
+        if not ref or [(c["frame"], c["dm_index"]) for c in got] != \
+                [(c["frame"], c["dm_index"]) for c in ref] or \
+                any(abs(x["snr"] - y["snr"]) > 1e-5 * abs(y["snr"])
+                    for x, y in zip(got, ref)):
+            raise AssertionError(f"shard {g} candidates {got} != {ref}")
+    rates = [round(w["nsent"] / w["wall_s"], 1) for w in walks]
+    phase("capture", f"(f) {nshard} x Service(lwa_frb_search_spec(rx_i, "
+          f"gulp_nframe={GULP}, max_delay={MAX_DELAY})) on one SO_REUSEPORT "
+          f"port, {nshard} walker flows of {per} sources, one steered to "
+          f"each shard: {nframe} frames of {NCHAN} ch, {sent} packets "
+          f"sent at {rates} packets/s a flow; ngood {[st['ngood'] for st in stats]} "
+          f"(sum {sum(st['ngood'] for st in stats)} = sent), nrepeat "
+          f"{[st['nrepeat'] for st in stats]}, nmissing "
+          f"{[st['nmissing'] for st in stats]}; {nframe / wall:.1f} frames/s "
+          f"a shard, {nshard * nframe / wall:.1f} in all, "
+          f"{sent / wall:.1f} packets/s in all, through stop() ({wall:.2f} "
+          f"s); K1 launches by shard {shard_k1} ({nsteps} a gulp); "
+          f"candidates by shard {[len(c) for c in cands]}, each equal to "
+          f"frb_search_pipeline's on its flow's channels; health capture "
+          f"{health}; host rings (name, space, (pages by NUMA node, "
+          f"policies)) {host_rings}")
+    return counts
+
+
+def cp_entries(frames, slot):
+    """Python entries a slot window: a bare UDPCapture of CP_X's packets
+    of `frames` at CP_X_RATE into a host ring, slots of `slot` frames,
+    with every Python function entered straight from inside the engine's
+    recv counted (sys.setprofile, this thread) -> (entries, windows,
+    stats)."""
+    import inspect
+    import sys as _sys
+
+    from bifrost_tpu_torch.ring import Ring
+    from bifrost_tpu_torch.udp import UDPCapture, UDPSocket, UDPTransmit
+    slab, recs = cp_packets(frames, CP_X["nsrc"], CP_X_RATE)
+    rx, _ = cp_socket()
+    ring = Ring(space="system", name="cp_entries")
+    nbyte = frames.shape[1] // CP_X["nsrc"]
+    cap = UDPCapture("simple", rx, ring, nsrc=CP_X["nsrc"], src0=0,
+                     max_payload_size=nbyte, buffer_ntime=len(frames),
+                     slot_ntime=slot, header_callback=lambda s: (s, {
+                         "_tensor": {"dtype": "u8",
+                                     "shape": [-1, frames.shape[1]]}}))
+    src, first = inspect.getsourcelines(UDPCapture._call)
+    at_engine = first + next(i for i, ln in enumerate(src)
+                             if "fn(self.obj" in ln)
+    entries = []
+
+    def prof(frame, event, arg):
+        up = frame.f_back
+        if event == "call" and up is not None and \
+                up.f_code is UDPCapture._call.__code__ and \
+                up.f_lineno == at_engine:
+            entries.append(frame.f_code.co_name)
+
+    tx_sock = UDPSocket().connect("127.0.0.1", rx.port)
+    tx = UDPTransmit(tx_sock)
+    tx.start_schedule(slab, recs, batch_npkt=64)
+    _sys.setprofile(prof)
+    try:
+        deadline = time.perf_counter() + 60
+        while time.perf_counter() < deadline:
+            if cap.recv() == 3 and not tx.schedule_stats()["running"]:
+                break
+    finally:
+        _sys.setprofile(None)
+    tx.wait_schedule()
+    nwindow = cap.nwindow
+    cap.end()
+    stats = cap.stats
+    cap.close()
+    tx_sock.shutdown()
+    rx.shutdown()
+    return entries, nwindow, stats
+
+
+def cp_slots_path(dev, frames, rimgs, rcands, rcounts):
+    """(g) The instrument over UDP at CP_SLOTS-frame slots (K2, K4, K6b on
+    its path), the packets of (c), with the granted socket buffer: the
+    packets lost at each slot size ((c) is the 4096-frame run); where
+    none is lost, the images are bitwise (c)'s replay Service's.  Then the Python entries a slot window
+    of the capture engine at 16-frame slots (cp_entries), and where
+    `Ring(core=)` puts host pages.  -> launch counts of the first run."""
+    from bifrost_tpu_torch import affinity
+    from bifrost_tpu_torch.ring import Ring
+    out = None
+    npkt = len(frames) * CP_X["nsrc"]
+    want = expected(fir_mac=CP_NINT, beamform_power=CP_NINT,
+                    romein_grid_separable=CP_NINT)
+    for slot in CP_SLOTS:
+        c, imgs, cands, counts, rcvbuf = cp_x_run(dev, frames, slot)
+        st, rep = c["stats"], c["report"]
+        if rep.exit_code != 0 or counts != want or counts != rcounts or \
+                st["ngood"] + st["nmissing"] != npkt or st["nrepeat"]:
+            raise AssertionError(f"instrument over UDP at {slot}-frame "
+                                 f"slots: stats {st}, launches {counts}, "
+                                 f"{rep!r}")
+        same = "not compared (packets lost)"
+        if st["nmissing"] == 0:
+            if imgs.sums != rimgs.sums or cands != rcands:
+                raise AssertionError(f"{slot}-frame slots: images or "
+                                     f"candidates differ from the replay")
+            same = "bitwise the replay Service's"
+        sent, ingested = cp_rates(c)
+        phase("capture", f"(g) the instrument over UDP at {slot}-frame "
+              f"slots ({CP_X['nsrc'] * slot} packets a window), {npkt} "
+              f"packets asked at {CP_X_RATE} packets/s (SO_RCVBUF {rcvbuf} "
+              f"B): sent {sent:.1f}, ingested {ingested:.1f} packets/s; "
+              f"lost {st['nmissing']} of {npkt}; stats {st}; "
+              f"{len(frames) / c['wall']:.1f} frames/s through stop(); "
+              f"{len(imgs.sums)} images {same}; launches {counts}")
+        out = out or counts
+        del imgs
+        free_device()
+    nent = CP_ENTRIES_NFRAME
+    entries, nwindow, st = cp_entries(frames[:nent], 16)
+    if entries != ["_cb"] or nwindow < nent // 16 - 2:
+        raise AssertionError(f"Python entries {entries[:8]} "
+                             f"({len(entries)}) in {nwindow} windows")
+    cores = sorted(os.sched_getaffinity(0))
+    placed = []
+    for core in (cores[0], cores[-1]):
+        ring = Ring(space="system", name=f"cp_numa{core}", core=core)
+        ring.resize(1 << 24, 1 << 26)
+        where = ring.page_nodes()
+        node = affinity.core_node(core)
+        if ring.core != core or (where is not None and node is not None and
+                                 f"prefer:{node}" not in where[1]):
+            raise AssertionError(f"Ring(core={core}): core {ring.core}, "
+                                 f"pages and policy {where}")
+        placed.append((core, node, "no NUMA maps" if where is None
+                       else (where[0], sorted(where[1]))))
+        del ring
+    phase("capture", f"(g) Python entries of the capture engine: "
+          f"{len(entries)} ({entries}) in {nwindow} slot windows of 16 "
+          f"frames ({nent} frames, stats {st}): "
+          f"{len(entries) / nwindow:.5f} a window; Ring(core=c) host "
+          f"pages (core, its node, (pages by node, policies) or why "
+          f"not read): {placed}")
+    return out
+
+
+def cp_ring_stream():
+    """(h) verify/SKILL.md's ring-streaming sanity on the engine:
+    CP_STREAM_NBYTE through a CP_STREAM_RING-byte host ring, a writer
+    thread filling CP_STREAM_GULP-byte spans with a counter and a
+    guaranteed reader checking every byte of each."""
+    from bifrost_tpu_torch.ring import Ring
+    width = 4096
+    gulp = CP_STREAM_GULP // width
+    ngulp = CP_STREAM_NBYTE // CP_STREAM_GULP
+    ring = Ring(space="system", name="cp_stream")
+    hdr = {"name": "stream", "_tensor": {"dtype": "u8",
+                                         "shape": [-1, width]}}
+    ring.begin_writing()
+    wseq = ring.begin_sequence(hdr, gulp, CP_STREAM_RING // width)
+    iseq = ring.open_sequence("earliest", guarantee=True)
+
+    def writer():
+        for i in range(ngulp):
+            with wseq.reserve(gulp) as sp:
+                sp.data.fill_(i % 251)
+        wseq.end()
+        ring.end_writing()
+
+    t0 = time.perf_counter()
+    th = threading.Thread(target=writer, daemon=True)
+    th.start()
+    bad = nread = 0
+    for i, sp in enumerate(iseq.read(gulp)):
+        # Eight bytes a compare: each word must hold the gulp's byte
+        # eight times over.
+        d = sp.data.reshape(-1).view(torch.int64)
+        bad += int((d != (i % 251) * 0x0101010101010101).sum())
+        nread += d.numel() * 8
+    th.join(60)
+    wall = time.perf_counter() - t0
+    iseq.close()
+    if bad or nread != CP_STREAM_NBYTE or th.is_alive():
+        raise AssertionError(f"ring streaming: {nread} bytes read, {bad} "
+                             f"wrong")
+    phase("capture", f"(h) ring streaming on the engine: {nread} bytes "
+          f"through a {ring.capacity}-byte host ring in "
+          f"{CP_STREAM_GULP}-byte spans, every byte checked: "
+          f"{nread / wall / 1e9:.3f} GB/s ({wall:.2f} s)")
 
 
 def cp_i4_path(dev):

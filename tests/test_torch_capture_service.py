@@ -376,3 +376,69 @@ def test_instrument_capture_geometry_is_checked():
                                         **GEOM)
     finally:
         rx.shutdown()
+
+
+def test_four_lwa_frb_search_services_share_one_reuseport_port():
+    """ROADMAP item 18 as four Services: `lwa_frb_search_spec` of four
+    sockets bound to one port with SO_REUSEPORT, each spec run as a
+    Service of its own (the LWA's 64 sources x 64 B, 4096 channels; a
+    small gulp and FDMT depth), fed by four sender flows of 16 sources
+    each over 128 frames.  The kernel's flow hash picks each flow's
+    shard; every packet lands once across the four (Σ ngood = sent, no
+    repeats), every Service stops with exit code 0, and each reports its
+    own capture counters in `health()["capture"]`.  Each flow's sender
+    is one the kernel hashes to a shard of its own
+    (`udp.reuseport_senders`): a Service whose shard never sees a packet
+    never initializes its chain, and a stop cannot drain it."""
+    from bifrost_tpu_torch.udp import pack_transmit_records, reuseport_senders
+    nshard, nsrc, payload, nframe = 4, 64, 64, 128
+    per = nsrc // nshard
+    rx0 = UDPSocket().bind("127.0.0.1", 0, reuseport=True)
+    rxs = [rx0] + [UDPSocket().bind("127.0.0.1", rx0.port, reuseport=True)
+                   for _ in range(nshard - 1)]
+    for rx in rxs:
+        rx.set_timeout(0.05)
+    specs = service.lwa_frb_search_spec(rxs, gulp_nframe=32, max_delay=16,
+                                        slot_ntime=64)
+    svcs = [service.Service(s, name=f"fan{i}", device="cpu")
+            for i, s in enumerate(specs)]
+    senders = reuseport_senders(rxs)
+    rng = np.random.default_rng(23)
+    data = rng.integers(0, 32, (nframe, nsrc * payload)).astype(np.uint8)
+    txs = []
+    for svc in svcs:
+        svc.start()
+    try:
+        for g in range(nshard):
+            pkt = np.empty((nframe, per), dtype=[
+                ("seq", "<u8"), ("src", "<u2"), ("pad", "<u2"),
+                ("payload", "u1", payload)])
+            pkt["seq"] = np.arange(nframe)[:, None]
+            pkt["src"] = np.arange(g * per, (g + 1) * per)[None, :]
+            pkt["pad"] = 0
+            pkt["payload"] = data[:, g * per * payload:
+                                  (g + 1) * per * payload].reshape(
+                nframe, per, payload)
+            size = pkt.dtype.itemsize
+            recs = pack_transmit_records(
+                (k * size, size, k * 100_000) for k in range(pkt.size))
+            tx = UDPTransmit(senders[g])
+            tx.start_schedule(pkt.tobytes(), recs, batch_npkt=16)
+            txs.append((senders[g], tx))
+        walks = [tx.wait_schedule() for _s, tx in txs]
+        _quiet(lambda: [svc.blocks["capture"].stats for svc in svcs])
+        health = [svc.health()["capture"] for svc in svcs]
+        reports = [svc.stop(timeout=30.0) for svc in svcs]
+    finally:
+        for s, _tx in txs:
+            s.shutdown()
+        for rx in rxs:
+            rx.shutdown()
+    stats = [svc.blocks["capture"].final_stats for svc in svcs]
+    sent = sum(w["nsent"] for w in walks)
+    assert sent == nframe * nsrc and not any(w["ndropped"] for w in walks)
+    assert sum(st["ngood"] for st in stats) == sent, stats
+    assert all(st["nrepeat"] == 0 and st["ninvalid"] == 0 for st in stats)
+    assert all(r.exit_code == 0 for r in reports), reports
+    assert len(health) == nshard and all(h is not None for h in health)
+    assert [st["ngood"] for st in stats] == [per * nframe] * nshard

@@ -751,3 +751,218 @@ def test_capture_parity_with_the_jax_engine():
         assert tt == jt and th == jh
         assert td.dtype == jd.dtype == np.uint8
         assert td.shape == jd.shape and np.array_equal(td, jd)
+
+
+# --------------------------------------------------------------------------
+# The engine's own stats log, and the SO_REUSEPORT fan-out
+# --------------------------------------------------------------------------
+
+def _stats_logs(ring_name):
+    """The `udp_capture_<ring>/stats` log of either package's engine in
+    this process (None where it has none)."""
+    from bifrost_tpu import proclog as jproclog
+    from bifrost_tpu_torch import proclog as tproclog
+    key = f"udp_capture_{ring_name}"
+    jtree = jproclog.load_by_pid(os.getpid())
+    ttree = tproclog.load_by_pid(os.getpid())
+    return (jtree.get(key, {}).get("stats"),
+            ttree.get(key, {}).get("stats"))
+
+
+def test_capture_stats_log_equals_the_jax_engines():
+    """One seeded schedule (the parity test's faults: drops, duplicates,
+    reorders, malformed datagrams, a flap), sent whole into each
+    package's capture socket before its engine reads: both engines then
+    take the same recvmmsg batches, and their `<capture>/stats` logs are
+    equal after every recv (written at the first window, not again
+    before 16,384 more good payloads) and after the sequence's end
+    (forced), with the JAX engine's keys.  The port's log goes with its
+    engine."""
+    from bifrost_tpu import ring as jring
+    from bifrost_tpu import udp as judp
+    from bifrost_tpu_torch import udp as tudp
+
+    harness = _port_harness()
+    events = harness.build_schedule(
+        5, 0, 400, drop_ranges=((60, 80),), drop_p=0.03, dup_p=0.06,
+        reorder_p=0.12, malform_every=11, flaps={300: (0.0, 40)})
+    slab, recs, sent, malformed = harness.compile_schedule(events, 20_000)
+    npkt = sent + malformed
+
+    def hdr_cb(seq0):
+        return seq0, {"name": "statslog", "_tensor": {
+            "dtype": "u8", "shape": [-1, PAYLOAD]}}
+
+    tag = f"{os.getpid()}_{int(time.time() * 1e6) % 10**9}"
+    logs = []
+    for mod, ring in ((judp, jring.Ring(space="system", name=f"sl_{tag}")),
+                      (tudp, Ring(space="system", name=f"sl_{tag}"))):
+        rx = mod.UDPSocket().bind("127.0.0.1", 0)
+        rx.set_timeout(0.05)
+        cap = mod.UDPCapture("simple", rx, ring, nsrc=1, src0=0,
+                             max_payload_size=PAYLOAD, buffer_ntime=4096,
+                             slot_ntime=SLOT_PARITY, header_callback=hdr_cb)
+        tx_sock = mod.UDPSocket().connect("127.0.0.1", rx.port)
+        walk = mod.UDPTransmit(tx_sock).run_schedule(slab, recs,
+                                                     batch_npkt=16)
+        assert walk["nsent"] == npkt and walk["ndropped"] == 0, walk
+        seen = []
+        while cap.recv() != 3:
+            seen.append(_stats_logs(ring.name)[mod is tudp])
+        cap.end()
+        seen.append(_stats_logs(ring.name)[mod is tudp])
+        logs.append((seen, cap.stats))
+        cap.close()
+        rx.shutdown()
+        tx_sock.shutdown()
+        if mod is tudp:
+            assert _stats_logs(ring.name)[1] is None
+    (jseen, jstats), (tseen, tstats) = logs
+    assert tstats == jstats and tseen == jseen
+    assert len(tseen) > 3 and tseen[0] == tseen[-2] != tseen[-1]
+    assert set(tseen[-1]) == {"ngood_bytes", "nmissing_bytes", "ninvalid",
+                              "nlate", "nrepeat"}
+    assert tseen[-1]["ngood_bytes"] == tstats["ngood"] * PAYLOAD
+
+
+FANOUT_NSHARD, FANOUT_NSRC, FANOUT_PAYLOAD = 4, 64, 64
+FANOUT_NFRAME, FANOUT_SLOT = 128, 64
+
+
+def _fanout_flow(g):
+    """Flow g of the fan-out: sources [16 g, 16 g + 16) of every frame,
+    payload bytes (t + src) % 256 -> (slab, records)."""
+    from bifrost_tpu_torch.udp import pack_transmit_records
+    per = FANOUT_NSRC // FANOUT_NSHARD
+    chunks, recs, off, k = [], [], 0, 0
+    for t in range(FANOUT_NFRAME):
+        for src in range(g * per, (g + 1) * per):
+            pkt = struct.pack("<QHH", t, src, 0) + \
+                bytes([(t + src) % 256]) * FANOUT_PAYLOAD
+            chunks.append(pkt)
+            recs.append((off, len(pkt), k * 80_000))
+            off += len(pkt)
+            k += 1
+    return b"".join(chunks), pack_transmit_records(recs)
+
+
+def _fanout_header(seq0):
+    return seq0, {"name": "fanout", "_tensor": {
+        "dtype": "u8", "shape": [-1, FANOUT_NSRC * FANOUT_PAYLOAD]}}
+
+
+def _capture_flows(mod, rxs, rings, flows_by_rx):
+    """Run one capture engine of `mod` per socket of `rxs` into `rings`
+    on threads of their own while one schedule walker a flow sends
+    (`flows_by_rx`: for the single-socket form, the flows to send) ->
+    (each engine's stats, the walkers' stats)."""
+    caps = [mod.UDPCapture("simple", rx, ring, nsrc=FANOUT_NSRC, src0=0,
+                           max_payload_size=FANOUT_PAYLOAD, buffer_ntime=512,
+                           slot_ntime=FANOUT_SLOT,
+                           header_callback=_fanout_header)
+            for rx, ring in zip(rxs, rings)]
+    done = threading.Event()
+
+    def pump(cap):
+        deadline = time.time() + 30
+        while time.time() < deadline:
+            if cap.recv() == 3 and done.is_set():
+                break
+
+    pumps = [threading.Thread(target=pump, args=(c,), daemon=True)
+             for c in caps]
+    for p in pumps:
+        p.start()
+    socks, walks = [], []
+    for g in flows_by_rx:
+        tx_sock = mod.UDPSocket().connect("127.0.0.1", rxs[0].port)
+        tx = mod.UDPTransmit(tx_sock)
+        tx.start_schedule(*_fanout_flow(g), batch_npkt=64)
+        socks.append((tx_sock, tx))
+    walks = [tx.wait_schedule() for _s, tx in socks]
+    done.set()
+    for p in pumps:
+        p.join(40)
+    stats = []
+    for cap in caps:
+        cap.end()
+        stats.append(cap.stats)
+        cap.close()
+    for s, _tx in socks:
+        s.shutdown()
+    return stats, walks
+
+
+def _flows_in(frames):
+    """The flows whose every cell a shard's frames ((nframe, 4096) uint8)
+    hold."""
+    per = FANOUT_NSRC // FANOUT_NSHARD
+    got = []
+    for g in range(FANOUT_NSHARD):
+        cells = frames.reshape(len(frames), FANOUT_NSRC, FANOUT_PAYLOAD)[
+            :, g * per:(g + 1) * per]
+        want = (np.arange(len(frames))[:, None] +
+                np.arange(g * per, (g + 1) * per)[None, :]) % 256
+        if np.array_equal(cells, np.broadcast_to(want[..., None],
+                                                 cells.shape)):
+            got.append(g)
+    return got
+
+
+def test_reuseport_fanout_conserves_every_packet_across_four_shards():
+    """benchmarks/ingest_tpu.py:233 on the port: 4 capture sockets bound
+    to one port with SO_REUSEPORT, one engine and ring each, 4 sender
+    flows (distinct source ports, 16 of the 64 sources each) of 128
+    frames x 64 sources.  The kernel's flow hash decides which shard
+    takes which flow; every (seq, src) lands exactly once across the
+    shards (Σ ngood = packets sent, Σ nrepeat 0), each flow whole in one
+    shard.  Then each shard's ring bytes are bitwise what the JAX engine
+    writes from the same flows on a socket of its own."""
+    from bifrost_tpu import ring as jring
+    from bifrost_tpu import udp as judp
+    from bifrost_tpu_torch import udp as tudp
+
+    rx0 = UDPSocket().bind("127.0.0.1", 0, reuseport=True)
+    rxs = [rx0] + [UDPSocket().bind("127.0.0.1", rx0.port, reuseport=True)
+                   for _ in range(FANOUT_NSHARD - 1)]
+    for rx in rxs:
+        rx.set_timeout(0.1)
+    tag = uuid_tag()
+    rings = [Ring(space="system", name=f"fan{i}_{tag}")
+             for i in range(FANOUT_NSHARD)]
+    stats, walks = _capture_flows(tudp, rxs, rings, range(FANOUT_NSHARD))
+    for rx in rxs:
+        rx.shutdown()
+    total = FANOUT_NFRAME * FANOUT_NSRC
+    assert all(w["ndropped"] == 0 for w in walks), walks
+    assert sum(w["nsent"] for w in walks) == total
+    assert sum(s["ngood"] for s in stats) == total, stats
+    assert all(s["nrepeat"] == 0 and s["ninvalid"] == 0 and s["nlate"] == 0
+               for s in stats), stats
+    # A shard the hash gave no flow never began writing: nothing to read.
+    shards = [_ring_bytes(r) if st["ngood"] else []
+              for r, st in zip(rings, stats)]
+    flows = [_flows_in(b[0][2]) if b else [] for b in shards]
+    assert sorted(g for f in flows for g in f) == list(range(FANOUT_NSHARD))
+    for i, (tb, f) in enumerate(zip(shards, flows)):
+        per = FANOUT_NSRC // FANOUT_NSHARD
+        assert stats[i]["ngood"] == len(f) * per * FANOUT_NFRAME
+        if not f:
+            assert tb == []
+            continue
+        jrx = judp.UDPSocket().bind("127.0.0.1", 0)
+        jrx.set_timeout(0.1)
+        jr = jring.Ring(space="system", name=f"fanj{i}_{tag}")
+        jst, _ = _capture_flows(judp, [jrx], [jr], f)
+        jrx.shutdown()
+        assert jst[0] == stats[i]
+        jb = _ring_bytes(jr)
+        assert len(jb) == len(tb) == 1
+        (jt, jh, jd), (tt, th, td) = jb[0], tb[0]
+        assert (tt, th) == (jt, jh)
+        assert td.shape == jd.shape and np.array_equal(td, jd)
+
+
+def uuid_tag():
+    import uuid
+    return uuid.uuid4().hex[:8]
