@@ -6,10 +6,12 @@ Runs the planned `ops.map.Map`: `method=` (None reads the `map_method`
 config flag, LATCHED for the sequence) selects kernel M1, one CUDA
 kernel generated from the expression and built by nvcc, for a 'cuda'
 input ring, or the plain PyTorch engine (what 'auto' gives on a host
-ring).  Where the generator refuses the program's form by design
-(extra_code, forward or unbounded time indexing), 'auto' runs the plain
-engine and says why; what the kernel does not implement yet raises at
-on_sequence (ops/map_codegen.py `Unsupported`).  The resolved method, the generator's
+ring).  M1 takes every streaming form, forward and unbounded time
+indexing on its element path, and inlines straight-line ``extra_code``
+helpers; where the generator refuses the program (a helper it cannot
+inline), 'auto' runs the plain engine and says why; what the kernel
+does not implement raises at on_sequence (ops/map_codegen.py
+`Unsupported`).  The resolved method, the generator's
 refusal, the fusion form and the cache accounting land on the
 `<name>/map_plan` proclog channel (the fir_plan pattern), with M1's V
 and the note of a build that spilled.  M1 is built
@@ -32,7 +34,7 @@ so stencil maps join `stateful_chain` groups with split gulps bitwise
 == one long gulp.  Forward (``x(i+1)``) or unbounded (``x(n-1-i)``)
 time indexing is refused from fusion (reason ``map_unbounded_index``)
 and the block runs per-gulp with GULP-LOCAL index semantics
-(``n<axis>`` = the gulp's frame count).  A fused map is its unfused
+(``n<axis>`` = the gulp's frame count): one M1 launch a gulp.  A fused map is its unfused
 twin's code on the same operands: bitwise, with the same M1 launches.
 
 Raw int8 ingest: complex-integer streams are read in their ring storage

@@ -747,6 +747,31 @@ MAP_HD I wrapclamp(T i, I n) {
                                         ? static_cast<W>(n) - 1 : w));
 }
 
+// A scatter index as jnp's .at[idx].set takes it: a negative index wraps
+// once; an index still outside the axis drops the update (`ok` false).
+template <typename I, typename T>
+MAP_HD I wrapdrop(T i, I n, bool& ok) {
+  using W = decltype(i + n);
+  W w = static_cast<W>(i);
+  if (w < 0) w += static_cast<W>(n);
+  if (w < 0 || w >= static_cast<W>(n)) {
+    ok = false;
+    return I(0);
+  }
+  return static_cast<I>(w);
+}
+
+// A scatter's owner word: the largest (source position + 1) that targets
+// it, so that of repeated targets the highest source position wins.
+template <typename OW>
+MAP_HD void owner_max(OW* p, OW v) {
+#ifdef __CUDA_ARCH__
+  atomicMax(p, v);
+#else
+  if (v > *p) *p = v;
+#endif
+}
+
 // ----------------------------------------------- loads by storage form
 template <typename T, typename O>
 MAP_HD T ld_real(const void* p, O off) {

@@ -45,6 +45,7 @@
 #include <vector>
 
 #include <dirent.h>
+#include <malloc.h>
 #include <pthread.h>
 #include <sys/syscall.h>
 #include <unistd.h>
@@ -92,6 +93,14 @@ namespace {
 
 constexpr uint64_t kNoEnd = std::numeric_limits<uint64_t>::max();
 
+// The page-aligned interior of a heap block [addr, addr + len).
+bool page_interior(void* addr, size_t len, uintptr_t* lo, uintptr_t* hi) {
+    long page = sysconf(_SC_PAGESIZE);
+    *lo = ((uintptr_t)addr + page - 1) & ~(uintptr_t)(page - 1);
+    *hi = ((uintptr_t)addr + len) & ~(uintptr_t)(page - 1);
+    return *hi > *lo;
+}
+
 // Best-effort NUMA placement of a ring buffer near its bound core
 // (reference ring_impl.cpp:165-172 binds ring memory to the ring's NUMA
 // node): the raw mbind syscall with MPOL_PREFERRED, so no libnuma is
@@ -114,10 +123,8 @@ void numa_bind_best_effort(void* addr, size_t len, int core) {
     }
     closedir(d);
     if (node < 0 || node >= 64) return;
-    long page = sysconf(_SC_PAGESIZE);
-    uintptr_t lo = ((uintptr_t)addr + page - 1) & ~(uintptr_t)(page - 1);
-    uintptr_t hi = ((uintptr_t)addr + len) & ~(uintptr_t)(page - 1);
-    if (hi <= lo) return;
+    uintptr_t lo, hi;
+    if (!page_interior(addr, len, &lo, &hi)) return;
     unsigned long mask = 1ul << node;
     constexpr int kMpolPreferred = 1;
     syscall(SYS_mbind, (void*)lo, (unsigned long)(hi - lo), kMpolPreferred,
@@ -125,6 +132,23 @@ void numa_bind_best_effort(void* addr, size_t len, int core) {
 #else
     (void)addr; (void)len; (void)core;
 #endif
+}
+
+// Frees a ring buffer of alloc_pages'.  A bound ring's MPOL_PREFERRED
+// stays on its pages' mapping after free(), and the allocator hands
+// them to the next block it carves there (a heap block is not
+// unmapped), so the default policy goes back on them first.
+void free_pages(void* addr) {
+    if (!addr) return;
+#ifdef SYS_mbind
+    uintptr_t lo, hi;
+    if (page_interior(addr, malloc_usable_size(addr), &lo, &hi)) {
+        constexpr int kMpolDefault = 0;
+        syscall(SYS_mbind, (void*)lo, (unsigned long)(hi - lo), kMpolDefault,
+                nullptr, 0ul, 0ul);
+    }
+#endif
+    std::free(addr);
 }
 
 // Page-aligned host bytes (the pinned registration of a 'cuda_host'
@@ -239,8 +263,8 @@ struct BTPring_impl {
     struct timespec last_geom_log = {0, 0};
 
     ~BTPring_impl() {
-        std::free(buf);
-        for (char* p : retired) std::free(p);
+        free_pages(buf);
+        for (char* p : retired) free_pages(p);
     }
 
     // ---- helpers (call with the lock held) ----
@@ -438,7 +462,7 @@ BTPstatus btpRingDestroy(BTPring ring, void** buf) {
 }
 
 BTPstatus btpRingFree(void* buf) {
-    std::free(buf);
+    free_pages(buf);
     return BTP_STATUS_SUCCESS;
 }
 

@@ -12,7 +12,16 @@ and unchanged in behaviour (`_translate_expr`, `_rewrite_indexing`,
   scalars weakly typed).  ``x(i, j)`` indexing gathers with jnp's
   semantics (a negative index wraps once, then it is clamped); ``/`` and
   ``//`` by a scalar divide (PyTorch's reflected ``/`` and its card
-  kernels would multiply by the reciprocal);
+  kernels would multiply by the reciprocal).  The eager scatter
+  (``c(nj-1-j) = a(j)``) has ``.at[idx].set``'s semantics
+  (`scatter_targets`): an index wraps once if negative, an update still
+  out of bounds is dropped, and where targets repeat the update of the
+  highest source position (row-major) wins, chosen by an ``amax`` of
+  positions so that the rule holds on the card.  Two quirks of the JAX
+  package are kept: the scatter writes into a copy of the ORIGINAL
+  target (the right-hand side reads the original too), and the
+  streaming forms ignore the left-hand index, as its ``_stream_eval``
+  does;
 - kernel M1 (ops/map_codegen.py, ops/map_kernel.py): the same program
   as ONE generated CUDA kernel, built by nvcc at first use.  The JAX
   package's counterpart is the one XLA program its jitted closure
@@ -47,16 +56,21 @@ Two entry points share one translator:
 Methods (the ``map_method`` config flag when None/'auto'): 'auto'
 resolves to 'cuda' (M1) for a CUDA tensor and to 'plain' for a CPU one;
 'cuda' runs M1 (its plain version on a CPU tensor); 'plain' runs the
-plain engine on any device.  Three forms the generator refuses by
-design (``extra_code``, the eager explicit-index and scatter forms, the
-forward and unbounded streaming forms; `codegen_refusal`): 'auto'
-resolves them to 'plain' and says why in ``plan_report()``, 'cuda'
-raises with the reason.  What the kernel does not implement
-(`map_codegen.Unsupported`, listed there: a type with no C form, an
-indexed form of rank above 8) raises for a CUDA tensor under 'auto' and
-'cuda' alike; 'plain' runs it.  The
-JAX package's 'jnp' and 'pallas' are refused with the name of their
-counterparts here.
+plain engine on any device.  M1 takes every form: elementwise, local,
+stencil, forward and unbounded streams, the eager broadcasting,
+explicit-index and scatter calls (a statement that reads what an earlier
+one scattered starts a program of its own, `_scatter_segments`), and
+inlinable ``extra_code`` helpers.  What the generator refuses
+(`map_codegen.Refusal`, `codegen_refusal`: a helper it cannot inline, a
+scatter into an array an earlier program of the call wrote, and what
+the kernel does not implement in a form the plain engine ran before M1
+took it) 'auto' resolves to 'plain' and says why in ``plan_report()``;
+'cuda' raises with the reason.  What the
+kernel does not implement in the other forms (`map_codegen.Unsupported`:
+complex32, an indexed form of rank above 8) raises for a CUDA tensor
+under 'auto' and 'cuda' alike; 'plain' runs it.  The JAX package's
+'jnp' and 'pallas' are refused with the name of their counterparts
+here.
 
 Supported forms (all from the reference's docstring/examples):
 - elementwise with broadcasting:       ``bf.map("c = a + b", {'c':c,'a':a,'b':b})``
@@ -71,7 +85,8 @@ Supported forms (all from the reference's docstring/examples):
 - ``extra_code``: Python helper definitions with ``torch`` and ``np`` in
   scope, callable from the function string: the port's counterpart of
   the JAX package's jnp/np/jax helpers and of the reference's CUDA
-  global-scope injection (src/map.cpp:202-233).  Plain engine only.
+  global-scope injection (src/map.cpp:202-233).  M1 inlines the
+  straight-line ones (ops/map_codegen.py `_Inliner`).
 """
 
 from __future__ import annotations
@@ -273,6 +288,68 @@ def _gather(arr, idx):
     return arr[tuple(p for _, p in parts)]
 
 
+def scatter_targets(base_shape, idx, device):
+    """The targets of a scatter into an array of `base_shape` at the
+    index values `idx` (tensors or Python ints, one an axis), with the
+    JAX package's ``.at[idx].set`` semantics -> (the indices' broadcast
+    shape B, the flat row-major target of each source position of B, or
+    ``prod(base_shape)`` where it writes nothing).  A negative index wraps
+    once; an update still outside its axis is dropped; where targets
+    repeat, the update of the highest source position (row-major over B)
+    wins, chosen by an ``amax`` of positions, so the rule holds on every
+    device (``index_put_`` leaves the order of repeated writes open)."""
+    if len(idx) != len(base_shape):
+        raise IndexError(f"map: a {len(base_shape)}-d array scattered with "
+                         f"{len(idx)} indices")
+    parts = []
+    for i in idx:
+        if isinstance(i, torch.Tensor):
+            if i.dtype == torch.bool or i.is_floating_point() or \
+                    i.is_complex():
+                raise IndexError(f"map: index of type {i.dtype}")
+            parts.append(i.to(device=device, dtype=torch.int64))
+        else:
+            if isinstance(i, (bool, float, complex)):
+                raise IndexError(f"map: index {i!r} is not an integer")
+            parts.append(torch.tensor(int(i), dtype=torch.int64,
+                                      device=device))
+    shape = torch.broadcast_shapes(*[p.shape for p in parts])
+    numel = 1
+    for n in base_shape:
+        numel *= int(n)
+    flat = torch.zeros(shape, dtype=torch.int64, device=device)
+    valid = torch.ones(shape, dtype=torch.bool, device=device)
+    for n, i in zip(base_shape, parts):
+        i = torch.where(i < 0, i + n, i)
+        valid = valid & (i >= 0) & (i < n)
+        flat = flat * n + i
+    flat, valid = flat.reshape(-1), valid.reshape(-1)
+    pos = torch.arange(flat.numel(), dtype=torch.int64, device=device)
+    # a dropped update owns a word of its own past the targets (one word
+    # for them all would serialize the card's atomics on it)
+    slot = torch.where(valid, flat, numel + pos)
+    owner = torch.full((numel + flat.numel(),), -1, dtype=torch.int64,
+                       device=device).scatter_reduce_(0, slot, pos, "amax")
+    return shape, torch.where(valid & (owner.gather(0, slot) == pos), flat,
+                              numel)
+
+
+def _scatter(base, idx, val):
+    """``base.at[idx].set(val)`` as the JAX package computes it
+    (`scatter_targets`), into a copy of `base`: `val` broadcast to the
+    indices' shape, each target written once."""
+    if not isinstance(idx, tuple):
+        idx = (idx,)
+    shape, dest = scatter_targets(tuple(base.shape), idx, base.device)
+    numel = base.numel()
+    out = torch.empty(numel + 1, dtype=base.dtype, device=base.device)
+    out[:numel] = base.reshape(-1)
+    # the dropped updates land on the spare last element
+    out.scatter_(0, dest, torch.broadcast_to(val, shape).to(
+        base.dtype).reshape(-1))
+    return out[:numel].reshape(base.shape)
+
+
 def _make_namespace():
     ns = {
         "exp": _unary(torch.exp), "log": _unary(torch.log),
@@ -313,10 +390,16 @@ def _full_namespace(extra_code=None):
         # The reference's extra_code injects CUDA at global scope
         # (src/map.cpp:202-233); here it is Python helper definitions,
         # exec'd into the evaluation namespace.  Same trust model as the
-        # reference: the caller's code is compiled and run as-is.
+        # reference: the caller's code is compiled and run as-is.  A
+        # helper's ``/``, ``//`` and ``**`` are the program's own (the
+        # hooks), so that an inlined helper (map_codegen `_Inliner`) is
+        # the helper's evaluation.
         helper_ns = {"torch": torch, "np": np}
         helper_ns.update(ns)
-        exec(extra_code, helper_ns)  # noqa: S102
+        helper_ns.update(_HOOKS)
+        tree = _PlainCode(frozenset()).visit(ast.parse(extra_code))
+        exec(compile(ast.fix_missing_locations(tree), "<extra_code>",  # noqa: S102
+                     "exec"), helper_ns)
         for k, v in helper_ns.items():
             if not k.startswith("_") and callable(v) and \
                     k not in ("torch", "np"):
@@ -601,7 +684,7 @@ def _classify_stream(compiled, in_name, reserved):
       are not gulp-resident, so the streaming form runs per-gulp only
       and fusion refuses with ``map_unbounded_index``.
     """
-    explicit = any(s[1] is not None for s in compiled.statements)
+    explicit = compiled.explicit
     if not explicit:
         return "elementwise", 0
     axis_names = compiled.axis_names
@@ -664,7 +747,7 @@ def _stream_eval(compiled, ns_base, arrays, reserved, in_name, scalars,
     ns.update(_HOOKS)
     ns.update(scalars)
     ns[in_name] = x
-    explicit = any(s[1] is not None for s in compiled.statements)
+    explicit = compiled.explicit
     shape = None
     if explicit:
         nframe = x.shape[0] - pad
@@ -695,26 +778,34 @@ def _stream_eval(compiled, ns_base, arrays, reserved, in_name, scalars,
 _FN_CACHE_CAPACITY = 64
 
 
+def _parse_statement(stmt):
+    """One statement of a function string -> (lhs_name,
+    lhs_indices|None, translated rhs)."""
+    lhs, rhs = stmt.split("=", 1)
+    lhs = lhs.strip()
+    m = re.match(r"^([A-Za-z_]\w*)\s*(?:\((.*)\))?$", lhs)
+    if not m:
+        raise ValueError(f"bad map lhs: {lhs!r}")
+    lhs_idx = tuple(s.strip() for s in m.group(2).split(",")) \
+        if m.group(2) else None
+    return m.group(1), lhs_idx, _translate_expr(rhs)
+
+
 class _CompiledMap(object):
     def __init__(self, func_string, arg_names, axis_names, ndim_shape_known,
-                 extra_code=None):
+                 extra_code=None, statements=None):
         self.func_string = func_string
         self.extra_code = extra_code
-        self.statements = []  # list of (lhs_name, lhs_indices|None, rhs_expr)
         self.axis_names = tuple(axis_names) if axis_names else ()
-        for stmt in func_string.split(";"):
-            stmt = stmt.strip()
-            if not stmt:
-                continue
-            lhs, rhs = stmt.split("=", 1)
-            lhs = lhs.strip()
-            m = re.match(r"^([A-Za-z_]\w*)\s*(?:\((.*)\))?$", lhs)
-            if not m:
-                raise ValueError(f"bad map lhs: {lhs!r}")
-            lhs_name = m.group(1)
-            lhs_idx = tuple(s.strip() for s in m.group(2).split(",")) \
-                if m.group(2) else None
-            self.statements.append((lhs_name, lhs_idx, _translate_expr(rhs)))
+        # list of (lhs_name, lhs_indices|None, rhs_expr); `statements`
+        # given: a segment of a parsed program (`segment`)
+        if statements is None:
+            statements = [_parse_statement(stmt.strip())
+                          for stmt in func_string.split(";") if stmt.strip()]
+        self.statements = list(statements)
+        # the explicit-index form: a statement is indexed (a segment keeps
+        # its program's form, `segment`)
+        self.explicit = any(s[1] is not None for s in self.statements)
         # Closure cache per call signature, LRU-bounded (retention
         # contract: an evicted signature is rebuilt on next use).  The
         # eager call's generated programs live here too.  Translations
@@ -735,6 +826,18 @@ class _CompiledMap(object):
                 self._fn_cache.move_to_end(key)
             return fn
 
+    def segment(self, a, b):
+        """Statements a..b of the explicit form as a program of its own
+        (`_eager_cuda`): the same statements, explicit form, axis
+        names and helpers, whether or not a statement of the segment is
+        indexed; built once per program."""
+        def build():
+            seg = _CompiledMap(self.func_string, None, self.axis_names, None,
+                               self.extra_code, self.statements[a:b])
+            seg.explicit = self.explicit
+            return seg
+        return self._cached(("segment", a, b), build)
+
     def get_fn(self, shapes, dtypes, scalar_names, shape):
         key = (tuple(sorted((k, v) for k, v in shapes.items())), shape)
         return self._cached(key, lambda: self.build(shapes, dtypes,
@@ -745,7 +848,7 @@ class _CompiledMap(object):
         engine."""
         ns_base = _full_namespace(self.extra_code)
         arg_names = list(shapes.keys())
-        explicit = any(s[1] is not None for s in self.statements)
+        explicit = self.explicit
         axis_names = self.axis_names
         statements = self.statements
         reserved = set(ns_base.keys())
@@ -781,19 +884,12 @@ class _CompiledMap(object):
                 if lhs_idx is not None and \
                         tuple(lhs_idx) != tuple(axis_names):
                     # permuted/strided output indexing: a scatter into a
-                    # copy of the output array
-                    base = arrs[lhs_name].clone()
+                    # copy of the ORIGINAL output array
                     idx = tuple(_eval(_rewrite_indexing(ix, arrays,
                                                         reserved),
                                       arrays, ns)
                                 for ix in lhs_idx)
-                    idx = tuple(i.to(dev).long() if isinstance(
-                        i, torch.Tensor) else i for i in idx)
-                    base[torch.broadcast_tensors(*[
-                        i if isinstance(i, torch.Tensor) else
-                        torch.tensor(i, device=dev) for i in idx])] = \
-                        val.to(base.dtype)
-                    results[lhs_name] = base
+                    results[lhs_name] = _scatter(arrs[lhs_name], idx, val)
                 else:
                     results[lhs_name] = val
                 ns[lhs_name] = results[lhs_name]
@@ -908,7 +1004,7 @@ class Map(object):
             raise ValueError(f"map: no statements in {func_string!r}")
         self.out_name = self.statements[-1][0]
         lhs_names = {s[0] for s in self.statements}
-        self.explicit = any(s[1] is not None for s in self.statements)
+        self.explicit = self.compiled.explicit
         if self.explicit and not self.compiled.axis_names:
             # Checked BEFORE input inference: the index variables in
             # "y(i) = x(i)" would otherwise read as unbound identifiers.
@@ -933,6 +1029,8 @@ class Map(object):
         self.fuse_form, self.noffset = _classify_stream(
             self.compiled, in_name, reserved)
         self._arrays = frozenset([in_name] + [s[0] for s in self.statements])
+        self._helper_refusal = map_codegen.helper_refusal(
+            self.statements, self._arrays, self._ns, extra_code)
         self._programs = OrderedDict()  # program key -> Program | Refusal
         self._last_program = None       # the last program M1 ran
         self.codegen_refusal = None     # the last resolution's reason
@@ -971,20 +1069,15 @@ class Map(object):
                 if isinstance(v, torch.Tensor) and v.dim() > 0}
 
     def form_refusal(self):
-        """Why the generator refuses this program whatever its input, or
-        None."""
-        if self.extra_code:
-            return "extra_code: Python helpers have no CUDA form"
-        if self.fuse_form in ("forward", "unbounded"):
-            return (f"the {self.fuse_form} streaming form: its frames are "
-                    f"not gulp-resident")
-        return None
+        """Why the generator refuses this program whatever its input (an
+        `extra_code` helper it calls that cannot be inlined), or None."""
+        return self._helper_refusal
 
     def program(self, dtype, rank, out_chan_shape=None):
         """The generated program for an input of `dtype` (a DataType
         string: ring storage; or a torch dtype: a logical tensor) and
         logical rank `rank` -> `map_codegen.Program`, or raises
-        `map_codegen.Refusal` (a form refused by design) or
+        `map_codegen.Refusal` (a program the generator refuses) or
         `map_codegen.Unsupported` (what the kernel does not implement)."""
         scal = self._gen_scalars()
         ocs = tuple(out_chan_shape) if out_chan_shape is not None else None
@@ -1022,7 +1115,8 @@ class Map(object):
                 self.statements, self.fuse_form, [inp] + consts, self._ns,
                 self._arrays, [self.out_name],
                 axis_names=self.compiled.axis_names, scalars=scal,
-                noffset=self.noffset, out_rank=out_rank)
+                noffset=self.noffset, extra_code=self.extra_code,
+                out_rank=out_rank)
         except (map_codegen.Refusal, map_codegen.Unsupported) as r:
             return r
         prog.plain = self._prog_plain(prog, dtype)
@@ -1066,8 +1160,9 @@ class Map(object):
     def _resolve(self, dtype=None, rank=None, out_chan_shape=None,
                  device=None):
         """The method a call on `device` runs (None: a card).  'plain'
-        when asked for, and for 'auto' on the CPU.  For a form the
-        generator refuses by design (`form_refusal`, the reason kept in
+        when asked for, and for 'auto' on the CPU.  For a program the
+        generator refuses (`form_refusal`, or the `map_codegen.Refusal`
+        of generating it for `dtype`; the reason kept in
         `codegen_refusal`): 'plain' under 'auto', a ValueError with the
         reason under 'cuda'.  Else 'cuda', once the program for an input
         of `dtype` and `rank` (when given) is generated: what the kernel
@@ -1078,18 +1173,20 @@ class Map(object):
         if req == "plain" or (req == "auto" and device is not None and
                               torch.device(device).type == "cpu"):
             return "plain"
+        if reason is None and dtype is not None:
+            try:
+                self.program(dtype, rank, out_chan_shape)
+            except map_codegen.Unsupported as u:
+                raise _unsupported(self.func_string,
+                                   f"{u.reason}; input {dtype}") from None
+            except map_codegen.Refusal as r:
+                reason = self.codegen_refusal = r.reason
         if reason is not None:
             if req == "auto":
                 return "plain"
             raise ValueError(f"map: method 'cuda' cannot run "
                              f"{self.func_string!r}: the kernel generator "
                              f"refuses it ({reason})")
-        if dtype is not None:
-            try:
-                self.program(dtype, rank, out_chan_shape)
-            except map_codegen.Unsupported as u:
-                raise _unsupported(self.func_string,
-                                   f"{u.reason}; input {dtype}") from None
         return "cuda"
 
     def _step_fn(self, dtype, rank, out_chan_shape, raw, device):
@@ -1292,48 +1389,37 @@ def _eager_finalize(result, out):
     return out
 
 
-def _eager_cuda(compiled, arrs, scalar_names, method):
-    """The eager broadcasting form on M1 -> results dict, or None for a
-    form the generator refuses by design under 'auto' (extra_code, the
-    explicit-index and scatter forms; 'cuda' raises with the reason).
-    Statements of any shape that broadcasts to the inputs' are outputs of
-    one launch (each written once); a statement that depends on no array
-    is the plain engine's own value, as the plain engine returns it.
-    What the kernel does not implement raises `map_codegen.Unsupported`
-    under either method."""
+def _eager_plan(compiled, arrs, scalar_names, shape):
+    """The eager call's program for card tensors -> (Program, or the
+    `map_codegen.Refusal`, or None where no statement is an array; the
+    input names in order; the run-time scalars; the output names; the
+    plain engine's value of each statement on 'meta' tensors (shapes and
+    types, and the values of statements that depend on no array); the
+    grid).  Running the plain engine on 'meta' first raises its error for
+    a call it refuses.  What the broadcasting form's kernel does not
+    implement raises `map_codegen.Unsupported`."""
     tens = {k: v for k, v in arrs.items() if isinstance(v, torch.Tensor)}
-    if compiled.extra_code or \
-            any(s[1] is not None for s in compiled.statements):
-        reason = "extra_code: Python helpers have no CUDA form" \
-            if compiled.extra_code else \
-            "the eager explicit-index and scatter forms run on the plain " \
-            "engine"
-        if method == "cuda":
-            raise ValueError(f"map: method 'cuda' cannot run "
-                             f"{compiled.func_string!r}: the kernel "
-                             f"generator refuses it ({reason})")
-        return None
+    explicit = compiled.explicit
     names = sorted(tens)
     scal = {k: arrs[k] for k in sorted(scalar_names) if _number(arrs[k])}
     stmt_names = list(dict.fromkeys(s[0] for s in compiled.statements))
-    out_shape = tuple(torch.broadcast_shapes(*[tens[k].shape
-                                               for k in names]))
-    # Each statement's value on meta tensors (the plain engine): its
-    # shape, or the value itself where it depends on no array.
+    out_shape = tuple(shape) if explicit else tuple(
+        torch.broadcast_shapes(*[tens[k].shape for k in names]))
     meta = {k: (torch.empty(v.shape, dtype=v.dtype, device="meta")
                 if isinstance(v, torch.Tensor) else v)
             for k, v in arrs.items()}
     vals = compiled.get_fn(
         {k: (tuple(v.shape) if isinstance(v, torch.Tensor) else None)
          for k, v in arrs.items()},
-        None, frozenset(scalar_names), None)(**meta)
+        None, frozenset(scalar_names),
+        out_shape if explicit else None)(**meta)
     arrays = [n for n in stmt_names if isinstance(vals[n], torch.Tensor)
               and vals[n].device.type == "meta"]
-    results = {n: vals[n] for n in stmt_names if n not in arrays}
     if not arrays:
-        return results
-    collapsed = len(out_shape) > map_codegen.MAX_RANK
-    rank = min(max(len(out_shape), 1), map_codegen.MAX_RANK)
+        return None, names, scal, arrays, vals, out_shape
+    collapsed = not explicit and len(out_shape) > map_codegen.MAX_RANK
+    rank = len(out_shape) if explicit else \
+        min(max(len(out_shape), 1), map_codegen.MAX_RANK)
     key = ("cuda", tuple((k, str(tens[k].dtype), tens[k].dim())
                          for k in names),
            tuple((k, type(v).__name__) for k, v in scal.items()),
@@ -1345,21 +1431,154 @@ def _eager_cuda(compiled, arrs, scalar_names, method):
                 compiled.statements, "eager",
                 [map_codegen.input_for_tensor(
                     k, tens[k].dtype, rank if collapsed else tens[k].dim())
-                 for k in names], _full_namespace(None), frozenset(arrs),
-                arrays, scalars=scal, out_rank=rank)
+                 for k in names], _full_namespace(compiled.extra_code),
+                frozenset(arrs), arrays, axis_names=compiled.axis_names,
+                scalars=scal, extra_code=compiled.extra_code,
+                out_rank=rank, explicit=explicit)
+        except map_codegen.Refusal as r:
+            return r
         except map_codegen.Unsupported as u:
             raise _unsupported(compiled.func_string, u.reason) from None
     prog = compiled._cached(key, gen)
-    dev = tens[names[0]].device
-    outs = [torch.empty(vals[n].shape, dtype=dt, device=dev)
-            for n, dt in zip(arrays, prog.out_dtypes)]
+    if isinstance(prog, map_codegen.Program):
+        for n, dt in zip(arrays, prog.out_dtypes):
+            if vals[n].dtype != dt:
+                raise RuntimeError(f"map: the kernel generator infers {dt} "
+                                   f"for {n!r}, the plain engine gives "
+                                   f"{vals[n].dtype}")
+    return prog, names, scal, arrays, vals, out_shape
+
+
+def _eager_cuda(compiled, arrs, scalar_names, method, shape):
+    """The eager call on M1 -> results dict, or None where the generator
+    refuses the program under 'auto' (`map_codegen.Refusal`: an
+    ``extra_code`` helper that cannot be inlined, what the kernel does
+    not implement in the explicit form, a scatter into an array an
+    earlier segment wrote); 'cuda' raises with the reason.
+
+    The broadcasting form: statements of any shape that broadcasts to the
+    inputs' are outputs of one launch (each written once); a statement
+    that depends on no array is the plain engine's own value, as the
+    plain engine returns it.  The explicit form: every statement over
+    the grid `shape`, each input read at its computed indices through its
+    own shape and strides; a statement whose left-hand index is not the
+    axis names scatters into a copy of its target (two launches,
+    ops/map_kernel.py).  A statement that reads what an earlier one
+    scattered starts a program of its own (`_scatter_segments`), each
+    segment's results the next one's inputs; a scatter writes a copy of
+    its ORIGINAL target (the JAX package's quirk), so a later segment's
+    scatter into an array an earlier segment wrote is refused.  Each
+    output's shape and type are the plain engine's (`_eager_plan`).
+    What the broadcasting form's kernel does not implement raises
+    `map_codegen.Unsupported` under either method."""
+    if compiled.explicit and shape is None:
+        return None                     # the plain engine's error
+    segs = _scatter_segments(compiled) if compiled.explicit else []
+    parts = [compiled] if len(segs) < 2 else \
+        [compiled.segment(a, b) for a, b in segs]
+    cur, results = dict(arrs), {}
+    for part in parts:
+        again = [n for n, idx, _ in part.statements if n in results and
+                 idx is not None and tuple(idx) != compiled.axis_names]
+        if again:
+            return _refused(compiled, method,
+                            f"a scatter into {again[0]!r} after an earlier "
+                            f"statement wrote it and a later one read it: "
+                            f"the scatter writes a copy of the original "
+                            f"target")
+        res = _eager_launch(part, cur, scalar_names, method, shape)
+        if res is None:
+            return None
+        results.update(res)
+        cur.update(res)
+    return results
+
+
+def _refused(compiled, method, reason):
+    """None, where 'auto' runs the call on the plain engine; 'cuda'
+    raises with the reason."""
+    if method == "cuda":
+        raise ValueError(f"map: method 'cuda' cannot run "
+                         f"{compiled.func_string!r}: the kernel generator "
+                         f"refuses it ({reason})")
+    return None
+
+
+def _eager_launch(compiled, arrs, scalar_names, method, shape):
+    """One program of the eager call (`_eager_cuda`) on M1 -> results
+    dict, or `_refused`'s None."""
+    prog, names, scal, arrays, vals, out_shape = _eager_plan(
+        compiled, arrs, scalar_names, shape)
+    results = {n: vals[n] for n in dict.fromkeys(
+        s[0] for s in compiled.statements) if n not in arrays}
+    if prog is None:
+        return results
+    if isinstance(prog, map_codegen.Refusal):
+        return _refused(compiled, method, prog.reason)
+    dev = arrs[names[0]].device
+    outs = None
+    if not compiled.explicit:
+        outs = [torch.empty(vals[n].shape, dtype=dt, device=dev)
+                for n, dt in zip(arrays, prog.out_dtypes)]
     try:
-        map_apply(prog, [tens[k] for k in names], out_shape or (1,),
-                  [scal[k] for k in prog.scalar_names], outs=outs)
+        outs, _ = map_apply(prog, [arrs[k] for k in names],
+                            out_shape or (1,),
+                            [scal[k] for k in prog.scalar_names], outs=outs)
     except map_codegen.Unsupported as u:
         raise _unsupported(compiled.func_string, u.reason) from None
     results.update(zip(arrays, outs))
     return results
+
+
+def _scatter_segments(compiled):
+    """The explicit form's statements cut before each one that reads an
+    array an earlier statement of its segment scattered into ->
+    [(start, end)]: a scatter's result is whole only after its launches,
+    so each segment is a program of its own (`_CompiledMap.segment`),
+    the earlier segments' results its inputs."""
+    axes = tuple(compiled.axis_names)
+    segs, start, scattered = [], 0, set()
+    for k, (name, idx, rhs) in enumerate(compiled.statements):
+        reads = set()
+        for e in [rhs] + list(idx or ()):
+            reads.update(_IDENT_RE.findall(e))
+        if reads & scattered:
+            segs.append((start, k))
+            start, scattered = k, set()
+        if idx is not None and tuple(idx) != axes:
+            scattered.add(name)
+        else:
+            scattered.discard(name)
+    segs.append((start, len(compiled.statements)))
+    return segs
+
+
+def eager_program(func_string, data, axis_names=None, shape=None,
+                  extra_code=None):
+    """The generated program :func:`map` launches for `data` on a card
+    (tensors and numbers) -> (`map_codegen.Program`, its inputs in order,
+    its run-time scalar values in order, the grid, the output names);
+    raises `map_codegen.Refusal` for a program the generator refuses.
+    ``map_kernel.map_apply(prog, ins, grid, scalars)`` then runs it
+    alone (no plain-engine pass on 'meta' at each call): how a caller
+    times the kernel."""
+    compiled = _compile_map(func_string, tuple(sorted(data.keys())),
+                            tuple(axis_names) if axis_names else None,
+                            extra_code)
+    arrs = {k: (v if isinstance(v, torch.Tensor) else _py_scalar(v))
+            for k, v in data.items()}
+    scalar_names = {k for k, v in arrs.items()
+                    if not isinstance(v, torch.Tensor)}
+    prog, names, scal, arrays, _, grid = _eager_plan(
+        compiled, arrs, scalar_names,
+        tuple(shape) if shape is not None else None)
+    if isinstance(prog, map_codegen.Refusal):
+        raise prog
+    if prog is None:
+        raise ValueError(f"map: no statement of {func_string!r} is an "
+                         f"array")
+    return (prog, [arrs[k] for k in names],
+            [scal[k] for k in prog.scalar_names], grid or (1,), arrays)
 
 
 def map(func_string, data, axis_names=None, shape=None, func_name=None,
@@ -1370,11 +1589,14 @@ def map(func_string, data, axis_names=None, shape=None, func_name=None,
     as in the JAX package.  `extra_code` takes Python helper definitions
     (source with `torch` and `np` in scope) callable from func_string.
     Tensors are used where they lie, numpy arrays go to this thread's
-    device.  The `map_method` flag: 'auto' and 'cuda' run the
-    broadcasting form on M1 for CUDA tensors, every statement that
-    depends on an array written by one launch at its own shape (the
-    explicit-index, scatter and extra_code forms: the plain engine under
-    'auto', an error under 'cuda'), 'plain' the plain engine.
+    device.  The `map_method` flag: 'auto' and 'cuda' run the call on M1
+    for CUDA tensors (`_eager_cuda`): the broadcasting form, every
+    statement that depends on an array written by one launch at its own
+    shape; the explicit-index form over `shape` in one launch, two where
+    a statement scatters, a program of its own from each statement that
+    reads what an earlier one scattered; inlinable helpers inlined.  What the generator
+    refuses runs on the plain engine under 'auto' and raises under
+    'cuda'.  'plain' runs the plain engine.
     """
     compiled = _compile_map(func_string, tuple(sorted(data.keys())),
                             tuple(axis_names) if axis_names else None,
@@ -1402,7 +1624,8 @@ def map(func_string, data, axis_names=None, shape=None, func_name=None,
     devs = {v.device.type for v in arrs.values()
             if isinstance(v, torch.Tensor)}
     if req != "plain" and devs == {"cuda"}:
-        results = _eager_cuda(compiled, arrs, scalars, req)
+        results = _eager_cuda(compiled, arrs, scalars, req,
+                              tuple(shape) if shape is not None else None)
     if results is None:
         shapes = {n: (None if n in scalars else tuple(arrs[n].shape))
                   for n in arrs}

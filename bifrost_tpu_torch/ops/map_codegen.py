@@ -68,7 +68,27 @@ Forms (`Map.fuse_form` and the eager call):
 - ``eager``: the eager ``map()``'s broadcasting form, each input read
   through its own strides (0 on a broadcast axis), each statement
   written to an output of its own shape (once: an axis the output lacks
-  at coordinate 0 only).
+  at coordinate 0 only);
+- ``gather``: the eager call's explicit-index form (``generate`` takes
+  it as 'eager' with indexed statements): a grid over ``shape`` of rank
+  at most `MAX_RANK`, each input read at its computed indices through
+  its own shape and strides (``wrapclamp``), a whole-array read through
+  its broadcast strides; index arithmetic in the plain engine's int32.
+  A statement whose left-hand index is not the axis names scatters, as
+  jnp's ``.at[idx].set``, into a copy of its target (the launch makes
+  it; the right-hand side reads the original): an index wraps once if
+  negative, an update still out of bounds is dropped (``wrapdrop``),
+  and of repeated targets the highest source position, row-major over
+  the grid, wins.  Such a program is two launches: pass 1 raises each
+  target's owner word to its largest source position + 1
+  (``atomicMax``), pass 2 writes where the owner is the thread's own;
+- ``forward`` and ``unbounded``: the streaming forms whose frames are
+  not gulp-resident (``x(t+1)``, ``x(nt-1-t)``, a temp's history, a
+  stencil beside a whole-array read, a permuted left-hand index, which
+  the plain engine ignores as the JAX package's ``_stream_eval`` does),
+  on the gulp alone: every time index computed per element with
+  ``wrapclamp``, temps recomputed where they are read.  The element
+  path only (V = 1), as for ``gather``.
 
 In every form a tensor of one axis or more bound as a scalar is a
 constant array, read at the output's coordinates through its broadcast
@@ -76,10 +96,20 @@ strides (`Input.bcast`), and a statement that depends on no array is a
 scalar (broadcast to the output grid in the explicit forms, as the
 plain engine broadcasts it).
 
-Refused by design, with the reason `Refusal` carries (the only forms
-'auto' runs on the plain engine): ``extra_code`` (Python helpers have no
-CUDA form), the eager explicit-index and scatter forms, and the
-``forward`` and ``unbounded`` streaming forms.
+``extra_code`` helpers are inlined (`_Inliner`): a helper of
+straight-line assignments ending in one ``return``, over the map
+namespace, ``torch.<f>`` of the same meaning and other such helpers,
+called with positional arguments, becomes the expression it returns.
+
+Refused, with the reason `Refusal` carries (what 'auto' runs on the
+plain engine): an ``extra_code`` helper that cannot be inlined (a loop,
+a branch, keyword arguments, a global other than ``torch``/``np``,
+recursion, an attribute call outside `_TORCH_SAME`), a statement that
+reads an array an earlier statement scattered into (the eager call runs
+such a program as the programs ops/map.py `_scatter_segments` cuts
+before each such statement), and in the forms
+'auto' ran on the plain engine before M1 took them (`NEW_FORMS`, and
+programs with ``extra_code``) whatever the kernel does not implement.
 
 `Unsupported`, with its reason (raised for a CUDA tensor whatever the
 method): a type with no C form (complex32); an indexed form of rank
@@ -93,7 +123,9 @@ raises the same way.
 from __future__ import annotations
 
 import ast
+import copy
 import hashlib
+import math
 import re
 import struct
 import warnings
@@ -102,14 +134,21 @@ from collections import OrderedDict
 import torch
 
 MAX_RANK = 8
+FORMS = ("elementwise", "local", "stencil", "eager", "forward", "unbounded")
+# The forms whose programs 'auto' ran on the plain engine before M1 took
+# them: the eager call's explicit form, 'gather' (its scatters
+# included), and the streaming forms whose frames are not gulp-resident.
+# What the kernel does not implement there stays a `Refusal`.
+NEW_FORMS = ("gather", "forward", "unbounded")
 # The launch header, the first meta words (map_kernel.pack): n output
 # elements, ncarry carry elements, the path (1 vector, 0 element), nd
 # axes that are not padding (the elementwise and eager forms), nvec
 # vector items (elementwise, eager), nci channel items and nruns frame
 # runs (local, stencil), the input's channel extent and its divider (the
-# stencil's carry).
+# stencil's carry), and a scatter's pass (0 none, 1 the owners, 2 the
+# writes).
 HEADER = ("n", "ncarry", "vec", "nd", "nvec", "nci", "nruns", "chan",
-          "chan_m", "chan_s")
+          "chan_m", "chan_s", "pass")
 BLOCK = 256
 # Bytes a vector path may hold live a thread (V values of the widest
 # logical type, or the stencil's window): the budget V is cut to.
@@ -184,13 +223,21 @@ _CX_POW_SPECIAL = {2.0: "op_mul<{t}>({a}, {a})",
 
 
 class Refusal(Exception):
-    """A form the generator refuses by design (extra_code, the eager
-    explicit-index and scatter forms, forward and unbounded streams):
-    'auto' runs it on the plain engine.  `reason` says why."""
+    """A program the generator refuses (an ``extra_code`` helper it
+    cannot inline, a read of a scattered array, what the kernel does not
+    implement in a form the plain engine ran before M1 took it): 'auto'
+    runs it on the plain engine.  `reason` says why."""
 
     @property
     def reason(self):
         return self.args[0]
+
+
+def _read_scattered(name):
+    return Refusal(f"a statement reads {name!r} after a statement "
+                   f"scattered into it: M1 computes each statement at its "
+                   f"own coordinates in one pass, and a scatter's result "
+                   f"is whole only after the pass")
 
 
 class Unsupported(NotImplementedError):
@@ -389,6 +436,17 @@ class _Gen(object):
         self.ns = ns
         self.arrays = arrays
         self.out_names = list(out_names)
+        # the statement each output writes: the last of its name
+        self.out_idx = [max(i for i, s in enumerate(statements)
+                            if s[0] == n) for n in self.out_names]
+        # The eager call's forms: broadcasting ('eager') and explicit
+        # ('gather'); in the latter a statement whose left-hand index is
+        # not the axis names scatters into a copy of its target.
+        self.eager = form in ("eager", "gather")
+        self.scatter_stmt = {
+            k for k, (_n, idx, _r) in enumerate(statements)
+            if form == "gather" and idx is not None and
+            tuple(idx) != self.axis_names}
         self.counter = 0
         self.funcs = []              # C source of the statement functions
         self.stmt_types = []         # rep of each statement's value
@@ -407,9 +465,10 @@ class _Gen(object):
         # elementwise or eager call is not collapsed), and whether the
         # local or stencil form reads its input at its own channel
         # coordinates, x(t - k, <axes>) (the register window).
-        self.uses_coords = False
+        self.uses_coords = form == "gather"
         self.window = False
-        self.two_d = form in ("local", "stencil")
+        self.two_d = form in ("local", "stencil", "forward", "unbounded")
+        self.bare_names = set()      # inputs a gather form reads whole
 
     # ------------------------------------------------------- bindings
     def layout(self, rank):
@@ -432,11 +491,15 @@ class _Gen(object):
             self.divk_off = off            # the carry's channel extents
             off += 2 * (self.inputs[0].rank - 1)
         self.out_off = []
-        for _ in self.out_names:
+        for k in self.out_idx:
             self.out_off.append(off)
-            # the eager form: a mask of the axes an output of a smaller
+            if k in self.scatter_stmt:
+                # a scatter's target: its shape, then its strides
+                off += 2 * self.target(k).rank
+                continue
+            # the eager forms: a mask of the axes an output of a smaller
             # shape is written at coordinate 0 only
-            off += rank + (self.form == "eager")
+            off += rank + self.eager
         self.in_off = []
         for inp in self.inputs:
             shape_off = off
@@ -444,7 +507,8 @@ class _Gen(object):
             cs_off = stride_off + inp.rank
             off = cs_off + 1
             bs_off = None
-            if self.form == "eager" or inp.bcast:
+            if self.form == "eager" or inp.bcast or \
+                    inp.name in self.bare_names:
                 bs_off = off
                 off += rank
             self.in_off.append((shape_off, stride_off, cs_off, bs_off, off))
@@ -455,7 +519,48 @@ class _Gen(object):
             self.scalar_slots[name] = off
             off += 2 if isinstance(v, complex) else 1
         self.nmeta = off
-        self.nptr = len(self.inputs) + len(self.out_names) + 2
+        # inputs, outputs, the stencil's carry in and out, then each
+        # scattered output's owner words
+        self.owner_ptr = {}
+        nptr = len(self.inputs) + len(self.out_names) + 2
+        for j, k in enumerate(self.out_idx):
+            if k in self.scatter_stmt:
+                self.owner_ptr[j] = nptr
+                nptr += 1
+        self.nptr = nptr
+
+    def target(self, k):
+        """The input a scatter statement `k` writes a copy of."""
+        name = self.statements[k][0]
+        k_in = self.input_index.get(name)
+        if k_in is None:
+            raise KeyError(f"map: the scatter target {name!r} is not an "
+                           f"array of the call")
+        return self.inputs[k_in]
+
+    def out_dtype(self, j):
+        """Output `j`'s dtype: its statement's value, or a scatter
+        target's own."""
+        k = self.out_idx[j]
+        if k in self.scatter_stmt:
+            return self.target(k).dtype
+        return _value_dtype(self.stmt_types[k])
+
+    def scan_bare(self, trees):
+        """The inputs the gather form reads whole (through broadcast
+        strides): a name not indexed, before any statement of that
+        name."""
+        assigned = set()
+        for k, tree in enumerate(trees):
+            for t in [tree] + self.idx_trees.get(k, []):
+                indexed = {id(n.value) for n in ast.walk(t)
+                           if isinstance(n, ast.Subscript)}
+                for n in ast.walk(t):
+                    if isinstance(n, ast.Name) and id(n) not in indexed and \
+                            n.id in self.input_index and \
+                            n.id not in assigned:
+                        self.bare_names.add(n.id)
+            assigned.add(self.statements[k][0])
 
     def _env(self, upto):
         """name -> binding for statement `upto`'s rhs, in the order the
@@ -472,7 +577,8 @@ class _Gen(object):
             env[ax] = ("axis", d)
             env[f"n{ax}"] = ("size", d)
         for k in range(upto):
-            env[self.statements[k][0]] = ("stmt", k)
+            env[self.statements[k][0]] = \
+                ("scattered" if k in self.scatter_stmt else "stmt", k)
         return env
 
     # ---------------------------------------------------------- loads
@@ -506,7 +612,7 @@ class _Gen(object):
         mem = self._ld(k, [f"{idx}[{d}]" for d in range(inp.rank)])
         if bare and pre:
             return f.let(ct, f"PRE ? pre.in{k} : {mem}")
-        if bare and k == 0:
+        if bare and k == 0 and self.form == "local":
             # a whole-array read in the local form: frame t itself
             self.window = True
             return f.let(ct, f"PRE ? pre.w0 : {mem}")
@@ -674,6 +780,8 @@ class _Gen(object):
             if self.form == "stencil" and not v.bcast:
                 raise Unsupported("a whole-array reference in a stencil")
             return _Val(self.load(f, v, "c", bare=True), _rep_of(v.dtype))
+        if kind == "scattered":
+            raise _read_scattered(node.id)
         # an earlier statement, at this element's coordinates
         rep = self.stmt_types[v]
         return _Val(f.let(_ctype_of(rep), f"s{v}<I, PRE>(p, c, pre)"), rep,
@@ -683,19 +791,14 @@ class _Gen(object):
         if not isinstance(node.value, ast.Name):
             raise Unsupported(f"indexing {ast.unparse(node.value)!r}")
         b = env.get(node.value.id)
+        if b is not None and b[0] == "scattered":
+            raise _read_scattered(node.value.id)
         if b is None or b[0] not in ("input", "stmt"):
             raise TypeError(f"map: indexing {node.value.id!r}, which is not "
                             f"an array")
         sl = node.slice
         idx_nodes = sl.elts if isinstance(sl, ast.Tuple) else [sl]
-        idx = [self.expr(f, n, env) for n in idx_nodes]
-        for n, v in zip(idx_nodes, idx):
-            dt = v.rep.dtype if v.is_tensor else type(v.rep)
-            if dt in (bool, torch.bool) or dt in (float, complex) or \
-                    (v.is_tensor and (dt.is_floating_point or
-                                      dt.is_complex)):
-                raise IndexError(f"map: index {ast.unparse(n)!r} is not "
-                                 f"an integer")
+        idx = self._indices(f, idx_nodes, env)
         dim0 = all(v.dim0 for v in idx)
         name = f"g{self.counter}"
         self.counter += 1
@@ -727,12 +830,26 @@ class _Gen(object):
                           f"s{k}<I, false>(p, {name}, pre)"),
                     _rep_of(rep.dtype, dim0))
 
+    def _indices(self, f, idx_nodes, env):
+        """Index expressions -> their values, each an integer (the plain
+        engine raises IndexError on any other)."""
+        idx = [self.expr(f, n, env) for n in idx_nodes]
+        for n, v in zip(idx_nodes, idx):
+            dt = v.rep.dtype if v.is_tensor else type(v.rep)
+            if dt in (bool, torch.bool) or dt in (float, complex) or \
+                    (v.is_tensor and (dt.is_floating_point or
+                                      dt.is_complex)):
+                raise IndexError(f"map: index {ast.unparse(n)!r} is not "
+                                 f"an integer")
+        return idx
+
     def _window_offset(self, k, idx_nodes):
         """k in ``x(t - k, <axis 1>, ..., <axis R-1>)``: a read of the
         streaming input at the output's own channels, `k` frames back
         (0 in the local form), which the vector path takes from its
         register window; None for any other read."""
-        if not self.two_d or k != 0 or self.inputs[0].bcast or \
+        if self.form not in ("local", "stencil") or k != 0 or \
+                self.inputs[0].bcast or \
                 len(idx_nodes) != self.R or self.inputs[0].rank != self.R:
             return None
         for d in range(1, self.R):
@@ -1008,7 +1125,7 @@ class _Gen(object):
         env = self._env(k)
         v = self.expr(f, tree, env)
         rep, host = v.rep, v.host
-        if v.dim0 and self.form in ("local", "stencil"):
+        if v.dim0 and self.form != "elementwise" and self.form != "eager":
             # The explicit forms broadcast every statement's value to the
             # output grid (ops/map.py `_stream_eval`): an array.
             rep, host = _rep_of(_value_dtype(rep)), False
@@ -1020,7 +1137,33 @@ class _Gen(object):
             f"{body}\n  return cvt<{t}>({v.code});\n}}\n")
         self.stmt_types.append(rep)
         self.stmt_host.append(host)
+        if k in self.scatter_stmt:
+            self._targets(k, env)
         return rep
+
+    def _targets(self, k, env):
+        """A scatter statement's target function ``t<k>``: its target
+        index at the source coordinates c (each wrapped once if negative,
+        jnp's ``.at[]``) into `t`, false where an index stays outside its
+        axis (the update is dropped)."""
+        f = _Func(self)
+        inp = self.target(k)
+        trees = self.idx_trees[k]
+        if len(trees) != inp.rank:
+            raise IndexError(f"map: a {inp.rank}-d array scattered with "
+                             f"{len(trees)} indices")
+        idx = self._indices(f, trees, env)
+        so = self.out_off[self.out_idx.index(k)] \
+            if k in self.out_idx else None
+        if so is None:
+            return                       # overwritten by a later statement
+        f.lines.append("  bool ok = true;")
+        f.lines += [f"  t[{d}] = wrapdrop<I>({v.code}, (I)p.m[{so + d}], "
+                    f"ok);" for d, v in enumerate(idx)]
+        self.funcs.append(
+            f"template <typename I, bool PRE>\n"
+            f"MAP_HD bool t{k}(const P& p, const I* c, const Pre& pre, "
+            f"I* t) {{\n" + "\n".join(f.lines) + "\n  return ok;\n}\n")
 
     def _hoist(self, node, rep):
         """A value the plain engine computes on the host from scalars and
@@ -1048,6 +1191,222 @@ class _Gen(object):
         return _Val(code, rep, host=True)
 
 
+# torch functions that are a map namespace function of the same meaning
+# on tensors, by the namespace's name (an inlined helper may call them).
+_TORCH_SAME = {f: f for f in (
+    "exp", "log", "log2", "log10", "sin", "cos", "tan", "asin", "acos",
+    "atan", "atan2", "sinh", "cosh", "tanh", "sqrt", "abs", "floor", "ceil",
+    "round", "erf", "erfc", "conj", "real")}
+_TORCH_SAME.update(minimum="min", maximum="max")
+# numpy's constants an inlined helper may read.
+_NP_CONSTS = {"pi": math.pi, "e": math.e}
+
+
+class _Helper(object):
+    """An inlinable ``extra_code`` helper: its parameters, its local
+    assignments in order and its returned expression (AST nodes)."""
+
+    def __init__(self, params, assigns, ret):
+        self.params, self.assigns, self.ret = params, assigns, ret
+
+
+class _Inliner(ast.NodeTransformer):
+    """``extra_code`` helpers inlined into the expressions that call them.
+
+    A helper is inlined when its body is straight-line assignments to
+    local names ending in one ``return``, calling only functions of the
+    map namespace, ``torch.<f>`` where ``<f>`` is one of them
+    (`_TORCH_SAME`), and other inlinable helpers, with positional
+    arguments; operators, comparisons and ``where`` (the translator's
+    ternary) are allowed, and ``np.pi``/``np.e`` read as numbers.  The
+    call is replaced by the helper's returned expression, its parameters
+    and locals substituted by the expressions they stand for: the plain
+    engine evaluates a helper's operators as it evaluates the program's
+    (ops/map.py `_full_namespace`), so the inlined expression has the
+    helper's types and values, Python numbers staying weakly typed.
+    Anything else is a `Refusal` naming the construct."""
+
+    def __init__(self, extra_code, ns):
+        self.ns = ns
+        self.table = _helper_table(extra_code) if extra_code else {}
+        self.stack = []
+        self.env = {}
+
+    def expand(self, tree):
+        if not self.table:
+            return tree
+        return self.visit(copy.deepcopy(tree))
+
+    def visit_Call(self, node):
+        fname = node.func.id if isinstance(node.func, ast.Name) else None
+        if fname not in self.table or fname in self.env:
+            return self.generic_visit(node)
+        h = self.table[fname]
+        if isinstance(h, str):
+            raise Refusal(f"extra_code helper {fname!r}: {h}")
+        if node.keywords:
+            raise Refusal(f"extra_code helper {fname!r}: keyword "
+                          f"arguments")
+        if any(isinstance(a, ast.Starred) for a in node.args):
+            raise Refusal(f"extra_code helper {fname!r}: a starred "
+                          f"argument")
+        if len(node.args) != len(h.params):
+            raise Refusal(f"extra_code helper {fname!r} takes "
+                          f"{len(h.params)} arguments, called with "
+                          f"{len(node.args)}")
+        if fname in self.stack:
+            raise Refusal(f"extra_code helper {fname!r}: recursion")
+        args = [self.visit(a) for a in node.args]
+        outer = self.env
+        self.stack.append(fname)
+        try:
+            self.env = dict(zip(h.params, args))
+            for name, value in h.assigns:
+                self.env[name] = self._body(fname, value)
+            return self._body(fname, h.ret)
+        finally:
+            self.env = outer
+            self.stack.pop()
+
+    def _body(self, fname, node):
+        """A helper's expression with its names substituted."""
+        return _Substitute(self, fname).visit(copy.deepcopy(node))
+
+
+class _Substitute(ast.NodeTransformer):
+    """One helper expression: parameters and locals -> their expressions,
+    ``torch.<f>`` -> the namespace's ``<f>``, ``np.pi`` -> its value,
+    calls of helpers inlined."""
+
+    def __init__(self, inliner, fname):
+        self.inl, self.fname = inliner, fname
+
+    def refuse(self, what):
+        return Refusal(f"extra_code helper {self.fname!r}: {what}")
+
+    def visit_Name(self, node):
+        env = self.inl.env
+        if node.id in env:
+            return copy.deepcopy(env[node.id])
+        if node.id in self.inl.ns and node.id not in ("torch", "np"):
+            return node
+        raise self.refuse(f"the global name {node.id!r}")
+
+    def visit_Attribute(self, node):
+        base = node.value.id if isinstance(node.value, ast.Name) else None
+        if base == "np" and node.attr in _NP_CONSTS:
+            return ast.copy_location(ast.Constant(_NP_CONSTS[node.attr]),
+                                     node)
+        raise self.refuse(f"the attribute {ast.unparse(node)!r}")
+
+    def visit_Call(self, node):
+        if node.keywords:
+            raise self.refuse(f"keyword arguments in "
+                              f"{ast.unparse(node)!r}")
+        fn = node.func
+        if isinstance(fn, ast.Attribute):
+            base = fn.value.id if isinstance(fn.value, ast.Name) else None
+            if base != "torch" or fn.attr not in _TORCH_SAME:
+                raise self.refuse(f"the call {ast.unparse(fn)!r} (an "
+                                  f"attribute call that is not a map "
+                                  f"function)")
+            node.func = ast.copy_location(
+                ast.Name(_TORCH_SAME[fn.attr], ast.Load()), fn)
+            node.args = [self.visit(a) for a in node.args]
+            return node
+        if not isinstance(fn, ast.Name) or fn.id in self.inl.env:
+            raise self.refuse(f"the call {ast.unparse(node)!r}")
+        node.args = [self.visit(a) for a in node.args]
+        if fn.id in self.inl.table:
+            return self.inl.visit_Call(node)
+        if not callable(self.inl.ns.get(fn.id)):
+            raise self.refuse(f"the global name {fn.id!r}")
+        return node
+
+    def generic_visit(self, node):
+        if type(node) in _HELPER_REFUSED:
+            raise self.refuse(_HELPER_REFUSED[type(node)])
+        return super().generic_visit(node)
+
+
+_HELPER_REFUSED = {ast.IfExp: "a branch (a conditional expression)",
+                   ast.BoolOp: "a branch ('and'/'or')",
+                   ast.Subscript: "indexing", ast.Lambda: "a lambda",
+                   ast.ListComp: "a comprehension",
+                   ast.GeneratorExp: "a comprehension",
+                   ast.Starred: "a starred argument",
+                   ast.NamedExpr: "an assignment expression"}
+
+
+def _helper_table(extra_code):
+    """``extra_code``'s helpers -> {name: `_Helper`, or the reason it is
+    not inlinable}."""
+    table = {}
+    for st in ast.parse(extra_code).body:
+        if isinstance(st, ast.FunctionDef):
+            table[st.name] = _helper_of(st)
+        elif isinstance(st, ast.AsyncFunctionDef):
+            table[st.name] = "an async function"
+        else:
+            # a helper defined otherwise (a lambda, an import) is called
+            # as the plain engine calls it: not inlined
+            for t in ast.walk(st):
+                if isinstance(t, ast.Name) and isinstance(t.ctx, ast.Store):
+                    table.setdefault(t.id, "not a def of straight-line "
+                                           "assignments and a return")
+    return table
+
+
+def _helper_of(fd):
+    a = fd.args
+    if fd.decorator_list:
+        return "a decorator"
+    if a.posonlyargs or a.vararg or a.kwonlyargs or a.kwarg or a.defaults:
+        return "parameters that are not plain positional ones"
+    body = list(fd.body)
+    if body and isinstance(body[0], ast.Expr) and \
+            isinstance(body[0].value, ast.Constant) and \
+            isinstance(body[0].value.value, str):
+        body = body[1:]                  # the docstring
+    what = {ast.For: "a loop", ast.While: "a loop", ast.If: "a branch",
+            ast.AugAssign: "an augmented assignment (in place on a "
+                           "tensor)",
+            ast.Global: "a global statement",
+            ast.Nonlocal: "a nonlocal statement", ast.Try: "a try block",
+            ast.With: "a with block"}
+    assigns = []
+    for st in body[:-1]:
+        if isinstance(st, ast.Assign) and len(st.targets) == 1 and \
+                isinstance(st.targets[0], ast.Name):
+            assigns.append((st.targets[0].id, st.value))
+            continue
+        return what.get(type(st), f"the statement {ast.unparse(st)!r}")
+    if not body or not isinstance(body[-1], ast.Return) or \
+            body[-1].value is None:
+        last = body[-1] if body else None
+        return what.get(type(last), "no final return of a value")
+    return _Helper([p.arg for p in a.args], assigns, body[-1].value)
+
+
+def helper_refusal(statements, arrays, ns, extra_code):
+    """Why an ``extra_code`` helper the program calls cannot be inlined
+    (`_Inliner`), or None: what 'auto' then runs on the plain engine."""
+    if not extra_code:
+        return None
+    reserved = frozenset(ns)
+    inliner = _Inliner(extra_code, ns)
+    trees = _trees(statements, arrays, reserved) + list(_idx_trees(
+        statements, arrays, reserved,
+        [k for k, s in enumerate(statements) if s[1]]).values())
+    try:
+        for t in trees:
+            for n in (t if isinstance(t, list) else [t]):
+                inliner.expand(n)
+    except Refusal as r:
+        return r.reason
+    return None
+
+
 def _f64_word(v):
     """A float's IEEE bits as the signed 64-bit meta word `bits_f64`
     reads."""
@@ -1063,31 +1422,51 @@ def _trees(statements, arrays, reserved):
     return out
 
 
+def _idx_trees(statements, arrays, reserved, scatter_stmt):
+    """Each scatter statement's left-hand index expressions, parsed."""
+    from .map import _rewrite_indexing
+    return {k: [ast.parse(_rewrite_indexing(ix, arrays, reserved),
+                          mode="eval").body for ix in statements[k][1]]
+            for k in scatter_stmt}
+
+
 def generate(statements, form, inputs, ns, arrays, out_names,
              axis_names=None, scalars=None, noffset=0, extra_code=None,
-             out_rank=None):
+             out_rank=None, explicit=None):
     """Translated `statements` (ops/map.py `_CompiledMap.statements`) ->
-    a `Program`; raises `Refusal` for a form refused by design and
+    a `Program`; raises `Refusal` for a program the generator refuses and
     `Unsupported` for what the kernel does not implement.
 
-    form: 'elementwise', 'local', 'stencil' or 'eager'; inputs: the
-    `Input`s the kernel reads (the streaming input first); ns: the plain
-    engine's namespace (its functions give every node's type); arrays:
-    the names `_rewrite_indexing` rewrites; out_names: the statements
-    written out (the last one for a stream, every one for the eager
-    call); scalars: name -> value of the run-time scalars; out_rank: the
-    output rank."""
-    if extra_code:
-        raise Refusal("extra_code: Python helpers have no CUDA form")
-    if form in ("forward", "unbounded"):
-        raise Refusal(f"the {form} streaming form: its frames are not "
-                      f"gulp-resident")
-    if form not in ("elementwise", "local", "stencil", "eager"):
+    form: one of `FORMS` ('eager' of the explicit form is the 'gather'
+    form); explicit: whether the program is the explicit-index form
+    (default: whether a statement is indexed; a segment of an explicit
+    program is, whatever its own statements); extra_code: the helpers to
+    inline; inputs: the `Input`s the kernel reads (the streaming input
+    first); ns: the plain engine's namespace (its functions give every
+    node's type); arrays: the names `_rewrite_indexing` rewrites; out_names:
+    the statements written out (the last one for a stream, every one for the
+    eager call); scalars: name -> value of the run-time scalars; out_rank:
+    the output rank."""
+    if form not in FORMS:
         raise ValueError(f"unknown map form {form!r}")
-    explicit = any(s[1] is not None for s in statements)
+    if explicit is None:
+        explicit = any(s[1] is not None for s in statements)
     if form == "eager" and explicit:
-        raise Refusal("the eager explicit-index and scatter forms run on "
-                      "the plain engine")
+        form = "gather"
+    try:
+        return _generate(statements, form, inputs, ns, arrays, out_names,
+                         axis_names, scalars, noffset, extra_code, out_rank)
+    except Unsupported as u:
+        if extra_code or form in NEW_FORMS:
+            # What the kernel does not implement, in a program the plain
+            # engine ran under 'auto' before M1 took these forms, stays
+            # there: refused, with the reason.
+            raise Refusal(u.reason) from None
+        raise
+
+
+def _generate(statements, form, inputs, ns, arrays, out_names, axis_names,
+              scalars, noffset, extra_code, out_rank):
     rank = int(out_rank)
     if not 1 <= rank <= MAX_RANK or \
             any(inp.rank > MAX_RANK for inp in inputs):
@@ -1099,14 +1478,19 @@ def generate(statements, form, inputs, ns, arrays, out_names,
             raise Unsupported(f"{inp.dtype}: no generated form for this type")
     gen = _Gen(statements, form, axis_names, inputs, scalars or {},
                noffset, ns, arrays, out_names)
-    gen.layout(rank)
     reserved = frozenset(k for k, v in ns.items())
-    gen.trees = _trees(statements, arrays, reserved)
+    inliner = _Inliner(extra_code, ns)
+    gen.trees = [inliner.expand(t) for t in _trees(statements, arrays,
+                                                    reserved)]
+    gen.idx_trees = {k: [inliner.expand(t) for t in ts]
+                     for k, ts in _idx_trees(statements, arrays, reserved,
+                                             gen.scatter_stmt).items()}
+    if form == "gather":
+        gen.scan_bare(gen.trees)
+    gen.layout(rank)
     for k, tree in enumerate(gen.trees):
         gen.statement(k, tree)
-    out_idx = [max(i for i, s in enumerate(statements) if s[0] == n)
-               for n in out_names]
-    return Program(gen, out_idx)
+    return Program(gen, gen.out_idx)
 
 
 def storage_bytes(inp):
@@ -1140,8 +1524,8 @@ def choose_vec(gen, out_dtypes):
     vector path)
     where a local or stencil form has no channel axis, or its window of
     noffset + 1 frames would not fit `VEC_BYTES`."""
-    if gen.two_d and gen.R < 2:
-        return 1
+    if (gen.two_d and gen.R < 2) or gen.form in NEW_FORMS:
+        return 1                 # the new forms: the element path alone
     ins = _streamed(gen)
     sizes = [storage_bytes(i) for i in ins] + \
         [d.itemsize for d in out_dtypes]
@@ -1173,7 +1557,18 @@ class Program(object):
         self.noffset = gen.noffset
         self.rank = gen.R
         self.out_names = gen.out_names
-        self.out_dtypes = [_value_dtype(gen.stmt_types[k]) for k in out_idx]
+        self.out_dtypes = [gen.out_dtype(j) for j in range(len(out_idx))]
+        # The outputs a scatter writes (a copy of its target, made by the
+        # launch), each with its target's rank; such a program is two
+        # launches: the owners of every target, then the writes.
+        self.scatters = {j: gen.target(k).rank for j, k in enumerate(out_idx)
+                         if k in gen.scatter_stmt}
+        self.scatter_input = {j: gen.input_index[gen.statements[k][0]]
+                              for j, k in enumerate(out_idx)
+                              if k in gen.scatter_stmt}
+        # the inputs read through broadcast strides at the output's
+        # coordinates (the eager call's, and constant arrays)
+        self.bcast_reads = [o[3] is not None for o in gen.in_off]
         self.scalar_names = list(gen.scalars)
         self.scalar_types = [torch.Tensor if isinstance(v, torch.Tensor)
                              else type(v) for v in gen.scalars.values()]
@@ -1314,20 +1709,51 @@ class Program(object):
             return " + ".join(f"(I){c}[{d}] * (I)p.m[{gen.out_off[j] + d}]"
                               for d in range(R))
 
-        def stores(c, pre_val, PRE):
+        def stores(c, pre_val, PRE, e=None):
             out = []
-            if gen.form == "eager":
+            if gen.eager:
                 out.append("    long long nz = 0;\n" + "\n".join(
                     f"    nz |= (long long)({c}[{d}] != 0) << {d};"
                     for d in range(R)))
+            if gen.scatter_stmt:
+                out.append(f"    const long long ps = p.m[{H['pass']}];\n"
+                           f"    using OW = typename std::conditional<"
+                           f"sizeof(I) == 4, unsigned int, unsigned long "
+                           f"long>::type;")
             for j, k in enumerate(out_idx):
-                t = C_TYPES[_value_dtype(gen.stmt_types[k])]
+                t = C_TYPES[gen.out_dtype(j)]
+                val = f"cvt<{t}>(s{k}<I, {PRE}>(p, {c}, {pre_val}))"
+                if k in gen.scatter_stmt:
+                    out.append(scatter_store(j, k, t, c, pre_val, e, val))
+                    continue
                 guard = f"if (!(nz & p.m[{gen.out_off[j] + R}])) " \
-                    if gen.form == "eager" else ""
+                    if gen.eager else ""
+                if gen.scatter_stmt:
+                    guard = "if (ps != 1) " + guard
                 out.append(f"    {guard}st<{t}>(p.ptr[{nin + j}], "
-                           f"{out_off(j, c)}, cvt<{t}>(s{k}<I, {PRE}>(p, "
-                           f"{c}, {pre_val})));")
+                           f"{out_off(j, c)}, {val});")
             return "\n".join(out)
+
+        def scatter_store(j, k, t, c, pre_val, e, val):
+            """Output j's scatter at source position e: pass 1 raises
+            its target's owner word to e + 1, pass 2 writes where the
+            owner is e + 1 (the highest source position of the
+            target)."""
+            rt, so = self.scatters[j], gen.out_off[j]
+            flat = "t_[0]"
+            for d in range(1, rt):
+                flat = f"({flat}) * (I)p.m[{so + d}] + t_[{d}]"
+            off = " + ".join(f"t_[{d}] * (I)p.m[{so + rt + d}]"
+                             for d in range(rt))
+            own = f"static_cast<OW*>(p.ptr[{gen.owner_ptr[j]}])"
+            return (f"    {{\n      I t_[{rt}];\n"
+                    f"      if (t{k}<I, false>(p, {c}, {pre_val}, t_)) {{\n"
+                    f"        const I fl = {flat};\n"
+                    f"        const OW me = (OW)({e}) + 1;\n"
+                    f"        if (ps == 1) owner_max<OW>({own} + fl, me);\n"
+                    f"        else if ({own}[fl] == me)\n"
+                    f"          st<{t}>(p.ptr[{nin + j}], {off}, {val});\n"
+                    f"      }}\n    }}")
 
         def vstores(c, fill, advance):
             """The vector stores of V samples at coordinates `c` (the
@@ -1389,7 +1815,7 @@ MAP_HD void elem_item(const P& p, I e) {{
   I c[R];
   unflatten<I, {gen.dive_off}>(p, e, c);
   const Pre pre{{}};
-{stores("c", "pre", "false")}
+{stores("c", "pre", "false", "e")}
 }}""")
             if V > 1:
                 fields, loads, fill = [], [], []

@@ -45,7 +45,10 @@ the index arithmetic and the accesses well under that:
   and the 16-byte stores carry the streaming hint (``st.global.cs``).
 
 `map_apply(prog, ins, out_shape, scalars, carry, outs)` launches M1 for
-CUDA tensors on the caller's current stream, reading every input through
+CUDA tensors on the caller's current stream (a scatter's two passes:
+the owners of its targets by `atomicMax` of source positions, then the
+writes of the winners, so a repeated target takes the last source
+deterministically), reading every input through
 its element strides (a ring span as it lies; a complex-integer stream in
 its storage form, ci8 pairs and packed ci4 read in the kernel), and runs
 `map_apply_plain` (the program's plain PyTorch closure, `prog.plain`)
@@ -74,6 +77,7 @@ from .. import build
 from .map_codegen import HEADER, storage_bytes
 
 INDEX32_LIMIT = 2 ** 31
+_PASS = HEADER.index("pass")
 LAYOUTS = 8           # layouts whose words a program keeps (`pack`)
 
 
@@ -317,7 +321,9 @@ def pack(prog, ins, out_shape, scalars, carry, outs, carry_out):
     elementwise and eager calls are collapsed (`collapse`).  The words
     up to the scalars (shape, dividers, strides, path) are kept on the
     program by the operands' layout (`LAYOUTS` of them), so a repeated
-    call (a ring's next gulp) packs only its scalars and pointers."""
+    call (a ring's next gulp) packs only its scalars and pointers.  A
+    scatter's owner words are made here (`_owners`) -> (meta words,
+    pointers, plan, owners)."""
     if len(ins) != len(prog.inputs) or len(outs) != len(prog.out_names):
         raise ValueError("map: inputs or outputs do not match the program")
     key = _layout_key(prog, ins, out_shape, carry, outs)
@@ -333,11 +339,13 @@ def pack(prog, ins, out_shape, scalars, carry, outs, carry_out):
     if len(m) != prog.nmeta:
         raise ValueError(f"map: packed {len(m)} meta words, the program "
                          f"takes {prog.nmeta}")
+    owners = _owners(prog, plan, outs)
     ptrs = [t.data_ptr() for t in ins] + [o.data_ptr() for o in outs] + [
         carry.data_ptr() if carry is not None else 0,
-        carry_out.data_ptr() if carry_out is not None else 0]
+        carry_out.data_ptr() if carry_out is not None else 0] + [
+        w.data_ptr() for w in owners]
     return ((ctypes.c_longlong * len(m))(*m),
-            (ctypes.c_void_p * len(ptrs))(*ptrs), dict(plan))
+            (ctypes.c_void_p * len(ptrs))(*ptrs), dict(plan), owners)
 
 
 def _layout(prog, ins, out_shape, carry, outs, carry_out):
@@ -346,10 +354,12 @@ def _layout(prog, ins, out_shape, carry, outs, carry_out):
     out_shape = tuple(out_shape)
     n = math.prod(out_shape)
     ncarry = carry_out.numel() if carry_out is not None else 0
-    eager = prog.form == "eager"
+    eager = prog.form in ("eager", "gather")
     ostr = []
-    for o in outs:
-        if eager:
+    for j, o in enumerate(outs):
+        if j in prog.scatters:
+            ostr.append(None)            # a scatter's target: own strides
+        elif eager:
             ostr.append(_bcast_strides(o.shape, o.stride(), out_shape))
         elif tuple(o.shape) != out_shape:
             raise ValueError(f"map: output shape {tuple(o.shape)} != "
@@ -357,12 +367,12 @@ def _layout(prog, ins, out_shape, carry, outs, carry_out):
         else:
             ostr.append(list(o.stride()))
     views = []                   # (shape, strides, cs, bcast strides)
-    for t, inp in zip(ins, prog.inputs):
+    for t, inp, bcast in zip(ins, prog.inputs, prog.bcast_reads):
         _check_input(t, inp, len(out_shape) > prog.rank)
         strides, cs = _storage_strides(t, inp)
         shape = logical_shape(t, inp)
         bs = _bcast_strides(shape, strides, out_shape) \
-            if eager or inp.bcast else None
+            if bcast else None
         views.append([shape, strides, cs, bs])
     if not eager:
         # The streaming forms read their input at the output's frames (a
@@ -415,7 +425,11 @@ def _layout(prog, ins, out_shape, carry, outs, carry_out):
         modes = modes or [0] * len(ins)
         nvec, nci, nruns = (n // V if vec else 0), 0, 0
     # 32-bit indices where every index and offset fits.
-    offs = [n + ncarry] + [_max_offset(out_shape, st) for st in ostr]
+    offs = [n + ncarry] + [_max_offset(out_shape, st) for st in ostr
+                           if st is not None]
+    for j in prog.scatters:
+        offs += [outs[j].numel(), _max_offset(outs[j].shape,
+                                              outs[j].stride())]
     for (shape, strides, cs, bs), inp in zip(views, prog.inputs):
         offs.append(_max_offset(out_shape, bs, inp, cs) if bs is not None
                     else _max_offset(shape, strides, inp, cs))
@@ -425,7 +439,7 @@ def _layout(prog, ins, out_shape, carry, outs, carry_out):
     if prog.form == "stencil":
         chan_in = math.prod(logical_shape(ins[0], prog.inputs[0])[1:])
     m = [n, ncarry, int(vec), nd, nvec, nci, nruns, chan_in,
-         *magic(max(chan_in, 1), bits)]
+         *magic(max(chan_in, 1), bits), 0]
     assert len(m) == len(HEADER)
     m += list(out_shape)
     for d in range(1, R):
@@ -438,7 +452,10 @@ def _layout(prog, ins, out_shape, carry, outs, carry_out):
         lshape = logical_shape(ins[0], prog.inputs[0])
         for d in range(1, prog.inputs[0].rank):
             m += magic(max(lshape[d], 1), bits)
-    for st in ostr:
+    for j, st in enumerate(ostr):
+        if st is None:
+            m += list(outs[j].shape) + list(outs[j].stride())
+            continue
         m += list(st)
         if eager:
             m.append(sum(1 << d for d, (a, e) in enumerate(zip(st, out_shape))
@@ -455,15 +472,33 @@ def _layout(prog, ins, out_shape, carry, outs, carry_out):
     return m, out_shape, plan
 
 
-def _outputs(prog, out_shape, device, outs):
+def _outputs(prog, ins, out_shape, device, outs):
+    """The outputs (made where `outs` is None); a scatter's output is a
+    copy of its target, made here before the launches."""
     if outs is None:
-        return [torch.empty(out_shape, dtype=dt, device=device)
-                for dt in prog.out_dtypes]
+        outs = [torch.empty(ins[prog.scatter_input[j]].shape
+                            if j in prog.scatters else out_shape,
+                            dtype=dt, device=device)
+                for j, dt in enumerate(prog.out_dtypes)]
     for o, dt in zip(outs, prog.out_dtypes):
         if o.dtype != dt or o.device != device:
             raise ValueError(f"map: output must be {dt} on {device}, got "
                              f"{o.dtype} on {o.device}")
+    for j, k in prog.scatter_input.items():
+        if outs[j].shape != ins[k].shape:
+            raise ValueError(f"map: a scatter's output must have its "
+                             f"target's shape {tuple(ins[k].shape)}, got "
+                             f"{tuple(outs[j].shape)}")
+        outs[j].copy_(ins[k])
     return list(outs)
+
+
+def _owners(prog, plan, outs):
+    """Each scatter's owner words, zero: one a target element, 32-bit
+    with 32-bit indices (source positions + 1 below 2**31)."""
+    dt = torch.int32 if plan["index"] == "int32" else torch.int64
+    return [torch.zeros(outs[j].numel(), dtype=dt, device=outs[j].device)
+            for j in sorted(prog.scatters)]
 
 
 def _carry_out(prog, ins, carry):
@@ -557,7 +592,9 @@ def _count(fn, prog, plan):
 
 def map_apply(prog, ins, out_shape, scalars=(), carry=None, outs=None):
     """M1 on the operands' device: one launch on the current CUDA stream
-    for CUDA tensors, the plain version for CPU tensors.  ins: the
+    for CUDA tensors (two for a program that scatters: `_passes`, after
+    the target's copy and the zeroed owner words), the plain version for
+    CPU tensors.  ins: the
     program's inputs in storage form; out_shape: the logical output
     shape; scalars: the run-time scalar values in `prog.scalar_names`
     order; carry: a stencil's (noffset, ...chan...) history; outs:
@@ -570,21 +607,24 @@ def map_apply(prog, ins, out_shape, scalars=(), carry=None, outs=None):
     for t in list(ins) + ([carry] if carry is not None else []):
         if t.device != dev:
             raise ValueError(f"map_apply: operands on {t.device} and {dev}")
-    outs = _outputs(prog, tuple(out_shape), dev, outs)
+    outs = _outputs(prog, ins, tuple(out_shape), dev, outs)
     carry_out = _carry_out(prog, ins, carry)
     lib = _library(prog)                # first: a spill may change V
-    m, ptrs, plan = pack(prog, ins, tuple(out_shape), scalars, carry,
-                         outs, carry_out)
+    # `owners` lives until the launches are queued on the stream
+    m, ptrs, plan, owners = pack(prog, ins, tuple(out_shape), scalars,
+                                 carry, outs, carry_out)
     stream = torch.cuda.current_stream(dev).cuda_stream
     info = (ctypes.c_int * 6)()
-    err = lib.map_launch(m, ptrs, int(plan["index"] == "int64"), stream,
-                         info)
-    if err:
-        raise RuntimeError(f"map_apply: launch failed: "
-                           f"{lib.map_error_string(err).decode()}")
-    plan.update(grid=(info[0], info[1]), block=(info[2], info[3]),
-                blocks_per_sm=info[4], sms=info[5])
-    _count(map_apply, prog, plan)
+    for ps in _passes(prog):
+        m[_PASS] = ps
+        err = lib.map_launch(m, ptrs, int(plan["index"] == "int64"),
+                             stream, info)
+        if err:
+            raise RuntimeError(f"map_apply: launch failed: "
+                               f"{lib.map_error_string(err).decode()}")
+        plan.update(grid=(info[0], info[1]), block=(info[2], info[3]),
+                    blocks_per_sm=info[4], sms=info[5])
+        _count(map_apply, prog, plan)
     return outs, carry_out
 
 
@@ -596,16 +636,24 @@ def map_apply_host(prog, ins, out_shape, scalars=(), carry=None,
     dev = ins[0].device
     if dev.type != "cpu":
         raise ValueError("map_apply_host runs on CPU tensors")
-    outs = _outputs(prog, tuple(out_shape), dev, outs)
+    outs = _outputs(prog, ins, tuple(out_shape), dev, outs)
     carry_out = _carry_out(prog, ins, carry)
-    m, ptrs, plan = pack(prog, ins, tuple(out_shape), scalars, carry, outs,
-                         carry_out)
+    m, ptrs, plan, owners = pack(prog, ins, tuple(out_shape), scalars,
+                                 carry, outs, carry_out)
     lib = build.load_generated_host(prog.name, prog.source)
     lib.map_host.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
     lib.map_host.restype = ctypes.c_int
-    lib.map_host(m, ptrs, int(plan["index"] == "int64"))
-    _count(map_apply_host, prog, plan)
+    for ps in _passes(prog):
+        m[_PASS] = ps
+        lib.map_host(m, ptrs, int(plan["index"] == "int64"))
+        _count(map_apply_host, prog, plan)
     return outs, carry_out
+
+
+def _passes(prog):
+    """The launches of a call: one; a program with a scatter two, the
+    owners of its targets (pass 1), then the writes (pass 2)."""
+    return (1, 2) if prog.scatters else (0,)
 
 
 for _fn in (map_apply, map_apply_host):

@@ -39,8 +39,9 @@ Phases, one line each; any failure exits non-zero:
              `lwa_instrument_spec`'s flagship width: ci8 voltages of
              256 stations x 2 pol, PFB 4096 channels x 4 taps, 8 beams
              integrated over 16 spectra, FDMT max_delay 64, one
-             integration (65,536 frames) per gulp, 80 integrations (a
-             16-integration block of seeded noise replayed 5 times).
+             integration (65,536 frames) per gulp, B_NINT = 66
+             integrations (a 16-integration block of seeded noise
+             replayed 4.125 times).
              Launch counts are read from this run alone (K1: one launch
              per merge step for all 8 beams; every K2 launch on its
              vector kernel); steady state
@@ -83,7 +84,7 @@ Phases, one line each; any failure exits non-zero:
              the centre of one PFB channel on one station from the 9th
              integration on -> copy -> pfb -> rfi_flag(window=16) ->
              gaincal(seeded per-station gains) (kernel K5b) -> beamform
-             -> transpose -> fdmt -> detect, 80 integrations.  Launch
+             -> transpose -> fdmt -> detect, B_NINT integrations.  Launch
              counts are read from this run alone, every K5a and K2
              launch must take its vector kernel; the tone's cells must
              be flagged in every window from its onset, the beam powers
@@ -121,7 +122,7 @@ Phases, one line each; any failure exits non-zero:
              blocking in turns, EG_PAIRS pairs, at bench.py's dump shape
              (EG_DUMP: 16 x (4, 16,384) f32, gulp 4, depth 8; every run
              bitwise equal to the source) and at the instrument's image
-             frame (EG_IMAGE: 4096 x 128 x 128 cf32, 512 MiB a gulp, 16
+             frame (EG_IMAGE: 4096 x 128 x 128 cf32, 512 MiB a gulp, 12
              gulps replaying 4 distinct frames), there beside
              copy('system') -> callback_sink, the image egress's shape,
              and fed two ways: from the host (the replaying source ->
@@ -139,10 +140,11 @@ Phases, one line each; any failure exits non-zero:
              fuses by default, each fused (its blocks in
              `block_scope(fuse=True)` where the reference builds them
              so) and unfused in FUSION_PAIRS turns: the beam search
-             (`lwa_beam_search_pipeline(fuse=)`, 80 integrations), the
-             DQ beam search of [dq] with copy -> pfb -> rfi_flag ->
+             (`lwa_beam_search_pipeline(fuse=)`, B_NINT integrations),
+             the DQ beam search of [dq] with copy -> pfb -> rfi_flag ->
              gaincal -> beamform -> transpose -> fdmt in one fuse scope
-             (80), the instrument (`lwa_instrument_pipeline(fuse=)`, cut
+             (B_NINT), the instrument (`lwa_instrument_pipeline(fuse=)`,
+             cut
              to FX_NINT = 8 integrations, the first FX_KEEP images
              compared) and gpuspec (c) at GS_FLAGSHIP and GS_GUPPI.
              Each fused run prints its `fusion_report()` (groups,
@@ -155,18 +157,21 @@ Phases, one line each; any failure exits non-zero:
 
 12. service — after [fusion], on [bengine]'s voltages, SV_NINT = 66
              integrations (the FDMT's max_delay is 64, so K1 is on the
-             path: 4 outputs, 2 in the faulted run, which sheds one): (a) `Service(lwa_instrument_spec(voltages=...))`
+             path: 2 outputs): (a) `Service(lwa_instrument_spec(voltages=...))`
              and `lwa_instrument_pipeline`, both fused as the spec
              builds them, in SV_PAIRS turns: exit code 0, every block
              "drained", lost == dup == 0, no fault, restart, heartbeat
              miss or deadman, images (checksummed, the first SV_KEEP
              whole) and candidates bitwise the bare run's, launches
              equal; steady frames/s, peak memory, start() and stop()
-             seconds.  (b) The e2e fault, `FaultPlan(seed=7).raise_at(
-             "block.on_data", block="bengine", nth=1)`: one restart
-             naming bengine among its constituents, lost == dup == 0,
-             the X images bitwise (a)'s, exit code 0, peak within 1 GiB
-             of (a)'s; the recovery time.  (c) The image sink waiting in
+             seconds; the bare run is [fleet]'s reference for its inst
+             tenant (it gathers the dedispersed beams too).  (b) The
+             e2e fault, `FaultPlan(seed=7).raise_at("block.on_data",
+             block="bengine", nth=1)`, on the first SV_FAULT_NINT = 8
+             integrations: one restart naming bengine among its
+             constituents, lost == dup == 0, the X images bitwise (a)'s
+             first 8, exit code 0, peak within 1 GiB of (a)'s; the
+             recovery time.  (c) The image sink waiting in
              its ring for the last image of SV_WEDGE_NINT while the D2H
              copy is parked, heartbeat 0.25 s x 8: the deadman's
              interrupt restarts the sink once, the parked copy goes on
@@ -204,12 +209,12 @@ Phases, one line each; any failure exits non-zero:
              without loss named the sustained rate.  (c)
              `Service(lwa_instrument_spec(sock=rx, capture=CP_X))` at
              the flagship width, fused as the spec builds it, on the
-             first CP_NINT = 4 integrations of [bengine]'s voltages
-             (262,144 frames, 1,048,576 packets of 268 B) asked at
+             first CP_NINT = 2 integrations of [bengine]'s voltages
+             (131,072 frames, 524,288 packets of 268 B) asked at
              CP_X_RATE packets/s, slots of 4096 frames and a capture
              ring holding the stream: no packet lost, exit code 0,
              every image bitwise the replay Service's on the same
-             integrations, launches equal (K2, K4, K6b 4 each).  (d)
+             integrations, launches equal (K2, K4, K6b 2 each).  (d)
              `benchmarks_torch/frb_service.py`'s `--check` matrix on
              the card: every scenario passes, the restart storm's
              replay signature equal across its two runs; its wall
@@ -344,8 +349,24 @@ Phases, one line each; any failure exits non-zero:
              of it; the complex transcendentals on complex64 (within
              MAP_CX_ULP), and (d) runs the f16 program as a map_block
              chain over MAP_HALF_NGULP gulps, one M1 launch a gulp,
-             bitwise its 'plain' run.  Launches go into
-             `launches_by_path` as `map_<program>_<run>`.
+             bitwise its 'plain' run.  check_map also times the forward
+             ``x(t+1) - x(t)`` and unbounded ``x(nt-1-t)`` programs on
+             the raw ci8 gulp (M1's element path) among MAP_FORMS, and
+             the eager explicit-index and scatter forms on the gulp as
+             complex64 (B_GULP x 512, 256 MiB): the transpose (beside
+             `a.t().contiguous()`), the band flip (beside `torch.flip`)
+             and a scatter with repeated and dropped targets, each
+             bitwise the plain engine's eager call, one launch (two for
+             a scatter: the owners, then the writes), ms, plain ms,
+             bound and share.  (e) Those eager calls through map() on
+             card tensors, counted (5 launches), then MAP_FORWARD and
+             MAP_REVERSE in copy -> map_block -> detect on MAP_NGULP
+             gulps, each beside its 'plain' run and a fuse=True build
+             that refuses the map (map_unbounded_index) and groups
+             nothing: one M1 launch a gulp, bitwise, the first gulp
+             against an exact golden.  Launches go into
+             `launches_by_path` as `map_<program>_<run>` and
+             `map_eager`.
 18. fleet  — after [map], on [bengine]'s voltages: one FleetScheduler
              (fleet.py) on the card, tenants submitted in order: inst
              (lwa_instrument_spec at the flagship width, FL_INST_NINT
@@ -357,7 +378,9 @@ Phases, one line each; any failure exits non-zero:
              search cut to FL_FLAKY_NGULP gulps, one fault in its FDMT,
              0) and huge (a ring demand above the fleet's).  The ring
              budget is the first three's rings, measured from their
-             bare runs: flaky queues and is admitted when one completes;
+             bare runs (inst's is [service] (a)'s bare run of the same
+             66 integrations): flaky queues and is admitted when one
+             completes;
              huge is rejected.  The map stage is respecced live to
              FL_MAP_FUNC2 (M1 builds a new kernel: cold) and back (the
              built library: warm).  Checks: inst's images, dedispersed
@@ -427,7 +450,8 @@ Phases, one line each; any failure exits non-zero:
              to last K1 event, is printed.  (c) [main] with its source
              publishing its gulps (ArraySourceBlock.zero_copy, True by
              default) and copying them (the attribute set to False on
-             the built pipeline), OB_TURNS turns: NGULP spans published by each
+             the built pipeline), OB_TURNS = 1 turn: NGULP spans
+             published by each
              zero-copy run, none by the others; steady frames/s and the
              source's and H2D's host seconds by phase.  Every run's
              dedispersed gulps are bitwise [main]'s, K1 144 launches
@@ -445,7 +469,8 @@ Phases, one line each; any failure exits non-zero:
              (4, 2), (time, beam) = (2, 4) and (freq, stand) = (2, 4)
              (the station label on 'stand'), each deferred and fused (one
              MeshFusedBlock) and per block (mesh_defer_reduce off), in
-             MESH_TURNS turns beside the no-mesh chain: every output
+             MESH_TURNS = 1 turn beside the no-mesh chain: every
+             output
              bitwise the no-mesh chain's; K4 gulps x 8 launches on the
              first two layouts and 0 on the third (its route
              'stand_matmul', read from the `<name>/beamform_plan` log);
@@ -526,7 +551,7 @@ SEED = 20261016
 # The B-engine beam search: lwa_instrument_spec's flagship geometry
 # (bifrost_tpu/service.py:355-362), one integration per gulp.
 NSTAND, NPOL, BCHAN, NTAP, N_INT, NBEAM = 256, 2, 4096, 4, 16, 8
-B_MAX_DELAY, B_NINT, B_REPLAY = 64, 80, 16
+B_MAX_DELAY, B_NINT, B_REPLAY = 64, 66, 16
 B_F0, B_DT = 40.0, 1e-6
 B_GULP = N_INT * BCHAN
 
@@ -565,12 +590,12 @@ GS_GOLDEN_CHANS = (1234, 32 * 8192 + 4096)
 # array_source -> copy('cuda') -> a pooled DeviceSinkBlock, staged and
 # blocking in turns, at bench.py's dump shape (16 frames of (4, 16,384)
 # f32, gulp 4, depth 8) and at the instrument's image frame (4096 x 128 x
-# 128 cf32, 512 MiB a gulp; 16 gulps replaying 4 distinct frames, the
+# 128 cf32, 512 MiB a gulp; 12 gulps replaying 4 distinct frames, the
 # steady state from gulp `skip` on, a check run of 8 gulps), the latter
 # beside copy('system') -> callback_sink, the image egress's shape, fed
 # from the host and from the card.
 EG_DUMP = dict(shape=(16, 4, 16384), gulp=4, depth=8)
-EG_IMAGE = dict(shape=(4096, 128, 128), ndistinct=4, nframe=16,
+EG_IMAGE = dict(shape=(4096, 128, 128), ndistinct=4, nframe=12,
                 check_nframe=8, skip=8, depth=2)
 EG_PAIRS = 1
 
@@ -587,6 +612,8 @@ FUSION_PAIRS, FX_NINT, FX_KEEP = 1, 8, 2
 # images compared whole; the wedge run SV_WEDGE_NINT deep; the
 # mid-stream stop after SV_STOP_AFTER images with a SV_QUIESCE s quiesce.
 SV_NINT, SV_PAIRS, SV_KEEP = 66, 1, 2
+# (b)'s faulted run: the first SV_FAULT_NINT integrations.
+SV_FAULT_NINT = 8
 SV_WEDGE_NINT, SV_STOP_AFTER, SV_QUIESCE = 4, 3, 30.0
 
 # The capture phase: the FRB search over UDP at [main]'s geometry
@@ -602,7 +629,7 @@ SV_WEDGE_NINT, SV_STOP_AFTER, SV_QUIESCE = 4, 3, 30.0
 # whole stream; the chaos harness's --check.
 CP_NGULP, CP_NSRC, CP_PAYLOAD, CP_B_NGULP = 4, 64, 64, 2
 CP_RATES = (64_000, 256_000)
-CP_NINT, CP_X_RATE = 4, 100_000
+CP_NINT, CP_X_RATE = 2, 100_000
 CP_X = dict(nsrc=4, max_payload_size=256, slot_ntime=4096)
 # The 4x run (b) is cut to CP_B_NGULP gulps.  The SO_REUSEPORT fan-out
 # (f): CP_FAN_NSHARD FRB searches at [main]'s width, CP_FAN_NGULP gulps
@@ -677,6 +704,19 @@ MAP_CPK_FUNC = "y = v * v.conj() + v * 2"
 MAP_CX_FUNCS = ("sqrt", "log", "log2", "log10", "sin", "cos", "tan", "asin",
                 "acos", "atan", "sinh", "cosh", "tanh", "rsqrt")
 MAP_HALF_NGULP, MAP_CX_ULP = 4, 24
+# bf.map's eager explicit-index and scatter forms on one gulp of
+# [bengine]'s voltages as complex64 (B_GULP x NSTAND * NPOL, 256 MiB): the
+# transpose, the band flip, and a scatter whose targets repeat (two
+# sources a row) and half of whose sources fall outside the target (rows
+# past its end: i // 2 + MAP_SCATTER_K >= B_GULP); the forward and
+# unbounded (time reversal) streaming programs on the raw ci8 gulp, and
+# as chains in [map] (e).
+MAP_TRANSPOSE = "c(i,j) = a(j,i)"
+MAP_FLIP = "c(i, nj-1-j) = a(i, j)"
+MAP_SCATTER = "c(i//2 + k, j) = a(i, j)"
+MAP_SCATTER_K = 3 * B_GULP // 4
+MAP_FORWARD = "y(t,s,p) = x(t+1,s,p) - x(t,s,p)"
+MAP_REVERSE = "y(t,s,p) = x(nt-1-t,s,p)"
 # complex64 sqrt at the ends of the f32 range (its scaled branches):
 # FLT_MAX-sized parts, subnormal parts, zero against a tiny part.
 MAP_SQRT_EDGES = ((3e38, 3e38), (-3.4028234e38, -3.4028234e38),
@@ -695,6 +735,9 @@ MAP_SQRT_EDGES = ((3e38, 3e38), (-3.4028234e38, -3.4028234e38),
 # search cut to FL_FLAKY_NGULP gulps with one fault in its FDMT (its
 # gulp of index FL_FLAKY_NTH); huge: a ring demand above the fleet's.
 FL_INST_NINT = B_MAX_DELAY + 2
+if FL_INST_NINT != SV_NINT:
+    # [fleet]'s inst tenant is held against [service]'s bare run
+    raise ValueError(f"FL_INST_NINT {FL_INST_NINT} != SV_NINT {SV_NINT}")
 FL_MAP_NGULP, FL_MAP_PACE, FL_RESPEC_AT = 8, 0.25, (2, 5)
 FL_MAP_FUNC2 = "y = x * x.conj()"
 FL_FLAKY_NGULP, FL_FLAKY_NTH = 4, 2
@@ -713,7 +756,7 @@ IPC_TURNS, IPC_CHILD_TIMEOUT = 1, 300
 # while the five tools read it from OB_TOOL_AFTER s on (each a process of
 # its own, OB_TOOL_TIMEOUT s at most); the traced run's Chrome trace
 # under OB_TRACE_DIR; OB_TURNS turns of zero-copy and copying runs.
-OB_HOLD, OB_TOOL_TIMEOUT, OB_TURNS = 0.5, 120, 2
+OB_HOLD, OB_TOOL_TIMEOUT, OB_TURNS = 0.5, 120, 1
 OB_TRACE_DIR = Path("traces") / "observe"
 OB_TOOLS = (("like_top",), ("like_ps",), ("like_pmap",),
             ("like_bmon", "-i", "1.0"), ("pipeline2dot",),
@@ -733,7 +776,7 @@ MESH_N = 8
 MESH_LAYOUTS = ((("time", "freq"), (4, 2), None),
                 (("time", "beam"), (2, 4), None),
                 (("freq", "stand"), (2, 4), {"station": "stand"}))
-MESH_NINT, MESH_TAIL, MESH_TURNS, MESH_PFB_NINT = 16, 2, 2, 16
+MESH_NINT, MESH_TAIL, MESH_TURNS, MESH_PFB_NINT = 16, 2, 1, 16
 MESH_X_NINT = 2
 MESH_FAULT = dict(timeout_s=2.0, lost=5, nth=6)
 MESH_FX = dict(ntime=1024, nchan=64, nstand=64, npol=2, nfine=16, nbeam=8)
@@ -1508,10 +1551,11 @@ def bengine_path(dev):
     rng = np.random.default_rng(SEED)
     block = rng.integers(-8, 8, (B_REPLAY * B_GULP, NSTAND, NPOL, 2),
                          dtype=np.int8)
-    volt = np.concatenate([block] * (B_NINT // B_REPLAY))
+    volt = np.concatenate([block] * (B_NINT // B_REPLAY) +
+                          [block[:B_NINT % B_REPLAY * B_GULP]])
     phase("bengine", f"voltages: {volt.nbytes / 2**30:.2f} GiB of ci8 "
           f"({len(volt)} frames; a {B_REPLAY}-integration block replayed "
-          f"{B_NINT // B_REPLAY} times), {time.perf_counter() - t0:.1f} s")
+          f"{B_NINT / B_REPLAY:g} times), {time.perf_counter() - t0:.1f} s")
 
     def build(method, gather):
         return lwa_beam_search_pipeline(
@@ -3110,9 +3154,12 @@ def gather_dedispersed(spec, gather):
 def sv_run(dev, volt, service, plan=None):
     """One instrument run, as a supervised Service or the bare pipeline
     -> dict of images, candidates, ledger summary, launches, wall, the
-    steady rate, peak bytes, start()/stop() seconds, events, report."""
+    steady rate, peak bytes, start()/stop() seconds, events, report; the
+    bare run also its dedispersed frames and ring bytes ([fleet]'s
+    reference for its inst tenant)."""
+    from bifrost_tpu_torch.fleet import pipeline_ring_bytes
     from bifrost_tpu_torch.service import Service
-    imgs, cands, events = Fingerprints(SV_KEEP), [], []
+    imgs, cands, events, ded = Fingerprints(SV_KEEP), [], [], []
     if service:
         svc = Service(sv_spec(volt, imgs, cands), name="sv", device=dev)
         svc.on_event(events.append)
@@ -3120,7 +3167,8 @@ def sv_run(dev, volt, service, plan=None):
             svc.pipeline._fuse_device_chains()
             plan.attach(svc.pipeline)
     else:
-        pipe, det, ledger = instrument(dev, volt, on_image=imgs, fuse=True)
+        pipe, det, ledger = instrument(dev, volt, on_image=imgs, fuse=True,
+                                       gather={"dedispersed": ded})
         det.on_candidate = cands.append
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -3143,6 +3191,7 @@ def sv_run(dev, volt, service, plan=None):
         else:
             pipe.run()
             out["ledger"] = ledger.summary()
+            out.update(ded=ded, ring_bytes=pipeline_ring_bytes(pipe))
     finally:
         if plan is not None:
             plan.detach()
@@ -3170,17 +3219,20 @@ def sv_check_clean(r):
                              f"{[e.as_dict() for e in r['events']]}")
 
 
-def sv_same_images(a, b, what):
-    if len(a.sums) != SV_NINT or a.sums != b.sums:
+def sv_same_images(a, b, what, n=SV_NINT):
+    """The first `n` images of `a` and `b` bitwise (by checksum; the
+    first SV_KEEP whole); `a` holds n."""
+    if len(a.sums) != n or a.sums != b.sums[:n]:
         raise AssertionError(f"{what}: image checksums differ "
                              f"({len(a.sums)}/{len(b.sums)} images)")
-    images_equal(a, b, SV_KEEP)
+    images_equal(a, b, min(SV_KEEP, n))
 
 
 def service_path(dev, volt):
     """The instrument as one supervised Service (module docstring, phase
     12).  `volt`: [bengine]'s voltages.  -> launch counts of the clean
-    service run and of the faulted one."""
+    service run and of the faulted one, and the bare pipeline's run
+    (`sv_run`), which [fleet]'s inst tenant is held against."""
     from bifrost_tpu_torch.faultinject import FaultPlan
     nsp = NSTAND * NPOL
     volt = volt[:SV_NINT * B_GULP]
@@ -3233,7 +3285,7 @@ def service_path(dev, volt):
     # (b) One injected fault, as benchmarks/e2e_tpu.py:189-191 arms it.
     plan = FaultPlan(seed=7)
     plan.raise_at("block.on_data", block="bengine", nth=1)
-    f = sv_run(dev, volt, True, plan)
+    f = sv_run(dev, volt[:SV_FAULT_NINT * B_GULP], True, plan)
     free_device()
     rep = f["report"]
     restarts = [e for e in f["events"] if e.kind == "restart"]
@@ -3244,7 +3296,8 @@ def service_path(dev, volt):
     s = f["ledger"]
     if s["lost_frames"] or s["duplicated_frames"] or rep.exit_code != 0:
         raise AssertionError(f"fault run: {rep!r}")
-    sv_same_images(f["imgs"], clean["imgs"], "X branch, fault vs clean")
+    sv_same_images(f["imgs"], clean["imgs"], "X branch, fault vs clean",
+                   SV_FAULT_NINT)
     if f["peak"] > clean["peak"] + 2**30:
         raise AssertionError(f"fault run peak {f['peak']} > clean "
                              f"{clean['peak']} + 1 GiB")
@@ -3385,7 +3438,7 @@ def service_path(dev, volt):
           f"{rep.exit_code}, {len(imgs.stamps)} images; "
           f"torch.cuda.synchronize() ok; memory_allocated "
           f"{before / 2**30:.3f} -> {after / 2**30:.3f} GiB once dropped")
-    return runs[0]["counts"], f["counts"]
+    return runs[0]["counts"], f["counts"], ref
 
 
 def cp_packets(frames, nsrc, rate_pps):
@@ -4603,10 +4656,13 @@ def map_program_info():
 # axis names, input name, input DataType (None: a logical tensor),
 # logical rank, bytes in and out a sample, f32 operations a sample,
 # bitwise its plain version).  ci8 and the stencil are the main programs,
-# on [bengine]'s voltages read raw.
+# on [bengine]'s voltages read raw, as are the forward and the unbounded
+# (time reversal) programs (M1's element path).
 MAP_FORMS = (
     ("ci8", MAP_FUNC, None, None, "ci8", 3, 2, 8, 14, True),
     ("stencil", MAP_STENCIL, MAP_AXES, None, "ci8", 3, 2, 8, 2, True),
+    ("forward", MAP_FORWARD, MAP_AXES, None, "ci8", 3, 2, 8, 2, True),
+    ("reverse", MAP_REVERSE, MAP_AXES, None, "ci8", 3, 2, 8, 0, True),
     ("f16", MAP_HALF_FUNC, None, "v", None, 3, 2, 2, 4, True),
     ("bf16", MAP_HALF_FUNC, None, "v", None, 3, 2, 2, 4, True),
     ("ci2", MAP_CPK_FUNC, None, "v", "ci2", 2, 0.5, 8, 10, True),
@@ -4622,7 +4678,7 @@ def map_form_inputs(dev, raw):
     shape = (B_GULP, NSTAND, NPOL)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 16)
-    x = {"ci8": raw, "stencil": raw}
+    x = {"ci8": raw, "stencil": raw, "forward": raw, "reverse": raw}
     for tag, dt in (("f16", torch.float16), ("bf16", torch.bfloat16)):
         x[tag] = (torch.randn(shape, device=dev, generator=gen) * 3).to(dt)
     for tag, nbit in (("ci2", 2), ("ci1", 1)):
@@ -4722,7 +4778,9 @@ def check_map(dev, kind, volt):
     M1's ms a gulp by CUDA events, the plain version's, the bytes bound
     (2 B in and 8 B out a sample); an i4 stencil read packed, and no
     silent fall back.  Builds every [map] program in parallel first (one
-    nvcc each) and runs check_map_new_forms."""
+    nvcc each, the eager explicit-index and scatter programs of
+    map_eager_calls among them) and runs check_map_new_forms and
+    check_map_eager."""
     from concurrent.futures import ThreadPoolExecutor
 
     from bifrost_tpu_torch.ops import map_kernel
@@ -4735,9 +4793,11 @@ def check_map(dev, kind, volt):
     zq = inputs["csqrt"][:B_GULP // 4]
     cx_func = "; ".join(f"{fn}_ = {fn}(v)" for fn in MAP_CX_FUNCS)
     # map_path's ci4 chain (its frames [time, freq, station, pol]) builds
-    # here too
-    extra = [prog4, Map(MAP_FUNC).program("ci4", 4)]
-    with ThreadPoolExecutor(len(progs) + 3) as pool:
+    # here too, and the eager explicit-index and scatter programs
+    eager = map_eager_calls(raw)
+    extra = [prog4, Map(MAP_FUNC).program("ci4", 4)] + [
+        e["program"][0] for e in eager.values()]
+    with ThreadPoolExecutor(len(progs) + len(extra) + 1) as pool:
         builds = [pool.submit(map_kernel.prepare, p) for p in
                   [p for _, p in progs.values()] + extra]
         before = map_kernel.map_apply.launches
@@ -4776,6 +4836,8 @@ def check_map(dev, kind, volt):
     del raw4, got, want
     new = check_map_new_forms(dev, kind, progs, inputs, cx_func, cx_got,
                               cx_launches)
+    new.update(check_map_eager(kind, eager))
+    del eager
     phase("map", "map_apply (M1) against plain at "
           f"({B_GULP}, {NSTAND}, {NPOL}) ci8 read raw (64 MiB in, 256 MiB "
           f"out; tolerance: bitwise, integer-exact ci8): " +
@@ -4852,11 +4914,118 @@ def check_map_new_forms(dev, kind, progs, inputs, cx_func, cx_got,
             f"{r['edge_ulps_torch_sqrt']:.4g} where finite, not finite at "
             f"{r['edge_nonfinite_torch_sqrt']})"
             if tag == "csqrt" else ""))
-    phase("map", f"half, packed-complex, complex-math forms at "
-          f"({B_GULP}, {NSTAND}, {NPOL}): " + "; ".join(lines) +
+    phase("map", f"forward, unbounded, half, packed-complex, complex-math "
+          f"forms at ({B_GULP}, {NSTAND}, {NPOL}): " + "; ".join(lines) +
           f"; complex64 transcendentals (one eager call, one launch) vs "
           f"PyTorch's kernels, ulps of max(|z|, |w|) at |z| in (0.1, 10) "
           f"(limit {MAP_CX_ULP}): {worst}; {kind}")
+    return out
+
+
+def map_eager_calls(raw):
+    """[map]'s eager explicit-index and scatter calls on one raw ci8 gulp
+    -> {tag: {'func', 'data', 'shape', 'program': ops.map.eager_program's
+    (Program, inputs, scalars, grid, outputs)}}: `a` the gulp as complex64
+    (B_GULP, NSTAND * NPOL), `c` a zero target."""
+    from bifrost_tpu_torch.ops.map import eager_program
+    a = torch.complex(raw[..., 0].float(), raw[..., 1].float()).reshape(
+        B_GULP, NSTAND * NPOL)
+    n, m = a.shape
+    calls = {"transpose": (MAP_TRANSPOSE, {"a": a}, (m, n)),
+             "flip": (MAP_FLIP, {"a": a, "c": torch.zeros_like(a)}, (n, m)),
+             "scatter": (MAP_SCATTER, {"a": a, "c": torch.zeros_like(a),
+                                       "k": MAP_SCATTER_K}, (n, m))}
+    return {tag: {"func": f, "data": d, "shape": sh,
+                  "program": eager_program(f, d, ("i", "j"), sh)}
+            for tag, (f, d, sh) in calls.items()}
+
+
+def map_eager_written(tag, n, m):
+    """Target elements the eager call `tag` writes (its scatter's
+    winners; all for a gather)."""
+    if tag != "scatter":
+        return n * m
+    return len({i // 2 + MAP_SCATTER_K for i in range(n)} & set(range(n))) * m
+
+
+def check_map_eager(kind, eager):
+    """M1 on the eager transpose, band flip and scatter of `eager`
+    (map_eager_calls) at one gulp: each bitwise the plain engine's eager
+    call on the card, its launches (one, two for a scatter: the owners,
+    then the writes), ms by CUDA events, the plain call's ms, the bytes
+    bound (each input element the call needs read once: a scatter's
+    winning sources and the target elements it leaves, each output
+    element written once) and its share, beside `a.t().contiguous()` and
+    `torch.flip(a, [1])` (no single PyTorch call scatters with these
+    semantics) -> {'at_<tag>': record}."""
+    from bifrost_tpu_torch import config
+    from bifrost_tpu_torch.ops import map_kernel
+    from bifrost_tpu_torch.ops.map import map as eager_map
+    out, lines = {}, []
+    info = map_program_info()
+    for tag, e in eager.items():
+        prog, ins, scal, grid, _ = e["program"]
+        data, func, shape = e["data"], e["func"], e["shape"]
+        a = data["a"]
+        before = map_kernel.map_apply.launches
+        got = map_kernel.map_apply(prog, ins, grid, scal)[0][0]
+        n = map_kernel.map_apply.launches - before
+        plan = dict(map_kernel.map_apply.last)
+        scratch = dict(data, **({"c": data["c"].clone()} if "c" in data
+                                else {}))
+        config.set("map_method", "plain")
+        try:
+            want = eager_map(func, dict(scratch), axis_names=("i", "j"),
+                             shape=shape)
+            want = want.clone()
+            plain_ms = cuda_time(lambda: eager_map(
+                func, dict(scratch), axis_names=("i", "j"), shape=shape), 3)
+        finally:
+            config.reset("map_method")
+        torch.cuda.synchronize()
+        if n != (2 if prog.scatters else 1) or not bits_equal(
+                torch.view_as_real(got), torch.view_as_real(want)):
+            raise AssertionError(f"M1 eager {tag} ({n} launches) differs "
+                                 f"from the plain engine")
+        del want, scratch
+        ms = cuda_time(lambda: map_kernel.map_apply(prog, ins, grid, scal),
+                       10)
+        libname, library = {
+            "transpose": ("a.t().contiguous()", lambda: a.t().contiguous()),
+            "flip": ("torch.flip(a, [1])", lambda: torch.flip(a, [1]))}.get(
+                tag, (None, None))
+        library_ms = cuda_time(library, 10) if library else None
+        nel, esz = a.numel(), a.element_size()
+        written = map_eager_written(tag, *a.shape)
+        nbytes = (written + (nel - written if prog.scatters else 0) +
+                  nel) * esz
+        bound_ms, by = bound(nbytes, 0, hbm_rate(kind))
+        regs, spill = info.get(prog.name, (0, {}))[1].get(
+            plan["index"], (None, None))
+        r = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": by, "share": bound_ms / ms,
+             "library_ms": library_ms, "launches_a_call": n,
+             "path": plan["path"], "vec": plan["vec"],
+             "index": plan["index"], "grid": plan["grid"],
+             "block": plan["block"], "registers": regs,
+             "spill_bytes": spill, "written": written, "max_abs_err": 0.0}
+        out[f"at_{tag}"] = r
+        lib = (f"{libname} {library_ms:.4f} ms" if library else
+               "library: none (no PyTorch call scatters with these "
+               "semantics)")
+        lines.append(
+            f"{tag} {func!r} over {shape}: bitwise, {n} launches "
+            f"({r['path']} path, {r['index']}, {regs} registers, {spill} "
+            f"B spilled; grid {r['grid']} x block {r['block']}); "
+            f"{ms:.4f} ms a call, plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({by}, {nbytes / 2**20:.0f} MiB), "
+            f"{100 * r['share']:.1f} % of it; {lib}")
+        del got
+    phase("map", f"eager explicit-index and scatter forms on one gulp as "
+          f"complex64 {tuple(a.shape)} (256 MiB; the scatter's targets "
+          f"two sources a row, the sources of i >= "
+          f"{2 * (B_GULP - MAP_SCATTER_K)} dropped): " + "; ".join(lines) +
+          f"; {kind}")
     return out
 
 
@@ -4898,13 +5067,14 @@ def cx_ulps(got, want, z):
 
 
 def map_run(dev, source, func, axes=None, fuse=False, detect=True,
-            method=None):
+            method=None, groups=None):
     """One map chain, `source` -> copy('cuda') -> map_block(func) (->
     detect(scalar)) -> callback_sink on the card, in one fuse scope when
     `fuse` (the chain of benchmarks/map_tpu.py:97-130).  -> dict of the
     output gulps (on the card), the host clock when each was done, wall
     seconds, launch counts, the map block's raw reads (count, bytes) and
-    plan report, and the fusion report."""
+    plan report, its name, and the fusion report.  `groups`: whether the
+    run forms fused groups (default: `fuse`)."""
     import contextlib
 
     from bifrost_tpu_torch import block_scope
@@ -4930,15 +5100,17 @@ def map_run(dev, source, func, axes=None, fuse=False, detect=True,
         pipe.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    want = fuse if groups is None else groups
     groups = [b for b in pipe.blocks if isinstance(b, FusedTransformBlock)]
-    if bool(groups) != fuse:
+    if bool(groups) != want:
         raise AssertionError(f"map run (fuse {fuse}): groups {groups}")
     m1 = kernel_counters()["map_apply"]
     return {"outs": outs, "stamps": stamps, "wall": wall,
             "counts": read_counts(), "raw": (m._raw_reads,
                                              m._raw_read_nbyte),
             "vector": m1.vector_launches, "index64": m1.index64_launches,
-            "report": m.plan_report(), "fusion": pipe.fusion_report()}
+            "report": m.plan_report(), "name": m.name,
+            "fusion": pipe.fusion_report()}
 
 
 def map_same(a, b):
@@ -5120,6 +5292,45 @@ def map_path(dev, kind, volt):
         free_device()
     del base
 
+    # (e) The eager explicit-index and scatter calls of check_map as a
+    # user calls them (counted), then the forward program and the time
+    # reversal (per-gulp streaming forms, M1's element path) in copy ->
+    # map_block -> detect, each beside its 'plain' run and a fuse=True
+    # build, which refuses the map (map_unbounded_index) and puts it in
+    # no group.
+    out.update(map_eager_path(dev, volt))
+    for tag, func in (("forward", MAP_FORWARD), ("reverse", MAP_REVERSE)):
+        runs = {"unfused": map_run(dev, source(B_GULP), func, MAP_AXES),
+                "fused": map_run(dev, source(B_GULP), func, MAP_AXES,
+                                 fuse=True, groups=False),
+                "plain": map_run(dev, source(B_GULP), func, MAP_AXES,
+                                 method="plain")}
+        for r in runs.values():
+            r["gulps"] = MAP_NGULP
+        fz, name = runs["fused"]["fusion"], runs["fused"]["name"]
+        if fz["refused"].get(name) != "map_unbounded_index" or any(
+                name in g["constituents"] for g in fz["groups"]):
+            raise AssertionError(f"map {tag}: fusion {fz}")
+        y = torch.cat(runs["unfused"]["outs"])[:B_GULP].cpu().numpy()
+        x = volt[:B_GULP].astype(np.float64)
+        t = np.arange(B_GULP)
+        src = np.minimum(t + 1, B_GULP - 1) if tag == "forward" else \
+            B_GULP - 1 - t
+        d = x[src] - (x if tag == "forward" else 0)
+        if not np.array_equal(y, (d[..., 0] ** 2 + d[..., 1] ** 2)
+                              .astype(np.float32)):
+            raise AssertionError(f"map {tag}: differs from the exact "
+                                 f"golden on the first gulp")
+        del y, x, d
+        out.update(map_chains(tag, runs, MAP_NGULP, nframe, raw_nbyte,
+                              kind))
+        phase("map", f"{tag}: the fuse=True build refused {name} "
+              f"({fz['refused'][name]}), groups "
+              f"{[g['constituents'] for g in fz['groups']]}; the first "
+              f"gulp's detected powers equal the exact golden; {kind}")
+        del runs
+        free_device()
+
     # The generated kernels' builds, and a second Map on the same
     # expression: its library loads from build/map/ with no nvcc run.
     info = map_program_info()
@@ -5135,6 +5346,47 @@ def map_path(dev, kind, volt):
           f"built library with no nvcc run ({warm[0]['seconds']} s); "
           f"{kind}")
     return out
+
+
+def map_eager_path(dev, volt):
+    """[map] (e)'s eager calls: the transpose, band flip and scatter of
+    map_eager_calls on the first gulp of `volt`, through ops.map.map on
+    card tensors ('auto'), counted: one M1 launch for the transpose, two
+    for each scatter; each bitwise the plain engine -> {'map_eager':
+    launch counts}."""
+    from bifrost_tpu_torch import config
+    from bifrost_tpu_torch.ops.map import map as eager_map
+    raw = torch.from_numpy(volt[:B_GULP]).to(dev)
+    calls = map_eager_calls(raw)
+    del raw
+    got = {}
+    reset_counts()
+    for tag, e in calls.items():
+        got[tag] = eager_map(e["func"], dict(e["data"]),
+                             axis_names=("i", "j"), shape=e["shape"])
+        if "c" in e["data"]:
+            got[tag] = got[tag].clone()
+            e["data"]["c"].zero_()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if counts != expected(map_apply=5):
+        raise AssertionError(f"map eager: launches {counts}")
+    config.set("map_method", "plain")
+    try:
+        for tag, e in calls.items():
+            want = eager_map(e["func"], dict(e["data"]),
+                             axis_names=("i", "j"), shape=e["shape"])
+            if not bits_equal(torch.view_as_real(got[tag]),
+                              torch.view_as_real(want)):
+                raise AssertionError(f"map eager {tag}: M1 != plain")
+    finally:
+        config.reset("map_method")
+    phase("map", f"(e) eager calls {[e['func'] for e in calls.values()]} "
+          f"through map() on card tensors: launches {counts['map_apply']} "
+          f"(1 + 2 + 2), each bitwise the plain engine")
+    del calls, got
+    free_device()
+    return {"map_eager": counts}
 
 
 def frb_spec(tag, data, gather, cands, plan=None):
@@ -5182,10 +5434,12 @@ def frb_spec(tag, data, gather, cands, plan=None):
     ])
 
 
-def fleet_path(dev, kind, volt):
+def fleet_path(dev, kind, volt, inst_bare):
     """Four tenants sharing the card under one FleetScheduler (module
-    docstring, phase 18).  `volt`: [bengine]'s voltages.  -> launch
-    counts by path."""
+    docstring, phase 18).  `volt`: [bengine]'s voltages; `inst_bare`:
+    [service]'s bare run of the instrument (`service_path`), FL_INST_NINT
+    integrations, the inst tenant's reference.  -> launch counts by
+    path."""
     import threading
     from types import SimpleNamespace
 
@@ -5207,18 +5461,11 @@ def fleet_path(dev, kind, volt):
     fdata = data[:FL_FLAKY_NGULP * GULP]
     nfdmt = FL_INST_NINT - B_MAX_DELAY
 
-    # ---- the tenants alone: outputs, launches, ring bytes
-    bimgs, bcands, bded = Fingerprints(SV_KEEP), [], []
-    pipe, det, _ = instrument(dev, ivolt, on_image=bimgs, fuse=True,
-                              gather={"dedispersed": bded})
-    det.on_candidate = bcands.append
-    reset_counts()
-    pipe.run()
-    torch.cuda.synchronize()
-    bare_inst = read_counts()
-    rb_inst = pipeline_ring_bytes(pipe)
-    del pipe, det
-    free_device()
+    # ---- the tenants alone: outputs, launches, ring bytes (inst's from
+    # [service]'s bare run of the same FL_INST_NINT integrations)
+    bimgs, bcands, bded = inst_bare["imgs"], inst_bare["cands"], \
+        inst_bare["ded"]
+    bare_inst, rb_inst = inst_bare["counts"], inst_bare["ring_bytes"]
     fgather = []
     pipe, det, _ = frb_search_pipeline(fdata, GULP, MAX_DELAY, F0, DF, DT,
                                        device=dev, gather=fgather)
@@ -7409,7 +7656,8 @@ def main():
     counts.update(fusion_path(dev, kind, volt))
     free_device()
     t5c = time.perf_counter()
-    counts["service"], counts["service_fault"] = service_path(dev, volt)
+    counts["service"], counts["service_fault"], inst_bare = \
+        service_path(dev, volt)
     free_device()
     t5d = time.perf_counter()
     counts.update(capture_path(dev, volt))
@@ -7425,7 +7673,8 @@ def main():
     counts.update(map_path(dev, kind, volt))
     free_device()
     t5i = time.perf_counter()
-    counts.update(fleet_path(dev, kind, volt))
+    counts.update(fleet_path(dev, kind, volt, inst_bare))
+    del inst_bare
     free_device()
     t5m = time.perf_counter()
     mesh_counts, mesh_colls = mesh_path(dev, kind, volt, smi)

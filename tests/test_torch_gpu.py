@@ -13,7 +13,9 @@ import torch
 
 from bifrost_tpu_torch.ops import Fdmt
 from bifrost_tpu_torch.ops import fdmt_kernel
-from torch_map_forms import (FORMS, SQRT_EDGES, layout as layout_input,
+from torch_map_forms import (EAGER_FORMS, FORMS, READS_SCATTERED,
+                             SCATTER_TABLE, SQRT_EDGES, STREAM_FORMS,
+                             eager_data, layout as layout_input,
                              sqrt_edge_ulps, storage, ulps_of)
 
 
@@ -1368,8 +1370,8 @@ def test_map_kernel_tolerance_tiers(cuda):
 @pytest.mark.gpu
 def test_map_kernel_eager_broadcast_and_failures(cuda):
     """The eager call's broadcasting form on M1 (each input through its
-    own strides), bitwise the plain engine; 'cuda' on a refused form
-    raises with the reason; a program the kernel does not implement
+    own strides), bitwise the plain engine; 'cuda' on a refused program
+    (a helper with a loop) raises with the reason; a program the kernel does not implement
     raises under 'auto' on a card tensor; a generated source nvcc
     refuses raises with nvcc's output (nothing falls back)."""
     from bifrost_tpu_torch import build
@@ -1393,8 +1395,10 @@ def test_map_kernel_eager_broadcast_and_failures(cuda):
         config.reset("map_method")
     for k in ("c", "d"):
         assert _same_bits(got[k], want[k])
-    with pytest.raises(ValueError, match="forward"):
-        Map("y(t) = x(t+1)", axis_names=("t",),
+    loop = ("def h(v):\n    for _ in range(2):\n        v = v * 2\n"
+            "    return v\n")
+    with pytest.raises(ValueError, match="a loop"):
+        Map("y(t) = h(x(t+1))", axis_names=("t",), extra_code=loop,
             method="cuda").execute(a[:, 0])
     before = map_kernel.map_apply.launches
     with pytest.raises(NotImplementedError, match="complex32"):
@@ -1467,6 +1471,129 @@ def test_map_kernel_new_forms_bitwise_vs_plain(cuda, func, dtype, scalars,
     assert n == 1
     assert _same_bits(got[0], want[0]), \
         (got[0].double() - want[0].double()).abs().max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [f for f, _ in SCATTER_TABLE] +
+                         [f"{f} @ {shape}" for f, shape, _ in EAGER_FORMS])
+def test_map_kernel_gather_and_scatter_bitwise_vs_plain(cuda, case):
+    """The eager explicit-index and scatter forms on M1 ('auto' on card
+    tensors), bitwise the plain engine on the card, every output; one
+    launch, two where the program scatters; a statement reading what an
+    earlier one scattered starts a program of its own."""
+    from bifrost_tpu_torch.ops import map_kernel
+    from bifrost_tpu_torch.ops.map import _compile_map, map as eager_map
+    func, _, rest = case.partition(" @ ")
+    if rest:
+        shape, scal = next((s, d) for f, s, d in EAGER_FORMS
+                           if f == func and str(s) == rest)
+        data = eager_data(dev=cuda)
+        data.update(scal)
+    else:
+        shape = (5,)
+        data = {"a": torch.arange(5, dtype=torch.float32, device=cuda) + 10,
+                "c": torch.zeros(5, device=cuda)}
+    axes = ("i", "j")[:len(shape)]
+
+    def run():
+        return eager_map(func, {k: (v.clone() if isinstance(
+            v, torch.Tensor) else v) for k, v in data.items()},
+            axis_names=axes, shape=shape)
+    before = map_kernel.map_apply.launches
+    got = run()
+    n = map_kernel.map_apply.launches - before
+    want = _m1_plain_method(run)
+    torch.cuda.synchronize()
+    if not isinstance(got, dict):
+        got, want = {"_": got}, {"_": want}
+    for k in got:
+        assert _same_bits(got[k], want[k]), k
+    scatters = any(idx is not None and tuple(idx) != axes for _, idx, _ in
+                   _compile_map(func, tuple(sorted(data)), axes).statements)
+    if func in READS_SCATTERED:
+        assert n == 3, n                # cut in two: scatter, then gather
+    else:
+        assert n == (2 if scatters else 1), n
+
+
+@pytest.mark.gpu
+def test_map_kernel_scatter_duplicates_repeatable(cuda):
+    """A scatter of 4M sources onto 80K targets, 32 sources each and a
+    quarter of the sources dropped: the owner rule (the highest source
+    position wins) gives the same bits in 20 repeated launches, bitwise
+    the plain engine's amax rule on the card."""
+    from bifrost_tpu_torch.ops.map import map as eager_map
+    rng = np.random.default_rng(44)
+    a = torch.from_numpy(rng.standard_normal((4096, 1024)).astype(
+        np.float32)).to(cuda)
+    c = torch.zeros((80, 1024), device=cuda)
+    func = "c(i // 32 - 16, j) = a(i, j) * 3"
+
+    def run():
+        return eager_map(func, {"a": a, "c": c}, axis_names=("i", "j"),
+                         shape=(4096, 1024))
+    want = _m1_plain_method(run)
+    first = run()
+    for _ in range(20):
+        assert _same_bits(run(), first)
+    assert _same_bits(first, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["ci8", "ci4", "f32"])
+@pytest.mark.parametrize("func,form", STREAM_FORMS)
+def test_map_kernel_forward_and_unbounded_bitwise_vs_plain(cuda, func, form,
+                                                          dtype):
+    """The forward and unbounded streaming forms on M1's element path
+    (raw ci8 and ci4 read in the kernel, f32), one launch a gulp,
+    bitwise the plain engine on the card."""
+    from bifrost_tpu_torch.ops.map import Map
+    rng = np.random.default_rng(45)
+    shape = (1000, 16, 8, 2)
+    if dtype == "ci8":
+        x = torch.from_numpy(rng.integers(-128, 128, shape + (2,))
+                             .astype(np.int8))
+    elif dtype == "ci4":
+        x = torch.from_numpy(rng.integers(0, 256, shape).astype(np.uint8))
+    else:
+        x = torch.from_numpy((rng.standard_normal(shape) * 4)
+                             .astype(np.float32))
+    op = Map(func, axis_names=("t", "c", "s", "p"))
+    assert op._resolve(dtype if dtype != "f32" else torch.float32, 4) == \
+        "cuda"
+    (got, _), (want, _), n = _m1_case(op, x.to(cuda),
+                                      None if dtype == "f32" else dtype)
+    assert n == 1 and _same_bits(got[0], want[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("func,axes", [
+    ("y = g(v, w)", None), ("y(t,c) = g(v(t+1,c), w) + v(t,c)", ("t", "c")),
+])
+def test_map_kernel_inlined_helpers_bitwise_vs_plain(cuda, func, axes):
+    """extra_code helpers inlined into M1 (nested, torch.minimum, where,
+    np.pi), bitwise the plain engine's evaluation of the helpers on the
+    card; the eager call too; one launch each."""
+    from bifrost_tpu_torch.ops import map_kernel
+    from bifrost_tpu_torch.ops.map import Map, map as eager_map
+    code = ("def sq(v):\n    return v * v\n"
+            "def g(v, w):\n    a = sq(v) * w - v / 3\n"
+            "    b = torch.minimum(a, v) - 1\n"
+            "    return where(b > 0, b, -b) + np.pi\n")
+    rng = np.random.default_rng(46)
+    x = torch.from_numpy((rng.standard_normal((4096, 600)) * 4)
+                         .astype(np.float32)).to(cuda)
+    op = Map(func, axis_names=axes, scalars={"w": 0.7}, in_name="v",
+             extra_code=code)
+    (got, _), (want, _), n = _m1_case(op, x, None)
+    assert n == 1 and _same_bits(got[0], want[0])
+    if axes is None:
+        before = map_kernel.map_apply.launches
+        got = eager_map(func, {"v": x, "w": 0.7}, extra_code=code)
+        assert map_kernel.map_apply.launches == before + 1
+        want = _m1_plain_method(lambda: eager_map(
+            func, {"v": x, "w": 0.7}, extra_code=code))
+        assert _same_bits(got, want)
 
 
 @pytest.mark.gpu

@@ -48,6 +48,8 @@ from bifrost_tpu_torch.ndarray import pair_to_structured
 from bifrost_tpu_torch.ops.map import (Map, _compile_map, _FN_CACHE_CAPACITY,
                                        map as eager_map)
 from bifrost_tpu_torch.pipeline import Pipeline
+from torch_map_forms import (EAGER_FORMS, SCATTER_TABLE, STREAM_FORMS,
+                             eager_data)
 
 EPS = 2.0 ** -24
 DEPTH_ULP = 4
@@ -443,8 +445,9 @@ def test_map_refusal_reasons_forward_and_unbounded(func, form):
     """Mirrors test_map.py:306: forward/unbounded time indexing refuses
     as map_unbounded_index (now given by the port's planner) while the
     block still runs per-gulp with gulp-local semantics, bitwise the JAX
-    block; the generator refuses the form, so 'auto' runs the plain
-    engine and says why."""
+    block; the generator takes the form (M1's element path), so on a
+    host ring 'auto' runs the plain engine with no refusal, and for a
+    card it resolves to 'cuda'."""
     from bifrost_tpu_torch.fuse import REASONS
     assert "map_unbounded_index" in REASONS
     data = _volt(32, seed=4)
@@ -466,7 +469,10 @@ def test_map_refusal_reasons_forward_and_unbounded(func, form):
         mode="scalar"))
     assert _bits(fused, want)
     r = mbs[0].plan_report()
-    assert r["method"] == "plain" and form in r["codegen_refusal"]
+    assert r["method"] == "plain" and r["codegen_refusal"] is None
+    op = Map(func, axis_names=STENCIL_AXES)
+    assert op._resolve("ci8", 4) == "cuda" and op.codegen_refusal is None
+    assert op.program("ci8", 4).form == form
 
 
 def test_map_stencil_on_temp_refuses():
@@ -552,9 +558,10 @@ def test_map_bogus_method_raises_eagerly():
 
 def test_map_method_flag_resolution_and_bad_flag():
     """Mirrors test_map.py:398: the flag resolves ('plain', 'cuda',
-    'auto' -> 'cuda' or, for a refused form, 'plain'); a bad value
-    raises at resolution; 'cuda' forced on a refused form raises with
-    the reason."""
+    'auto' -> 'cuda' or, for a refused program, 'plain'); a bad value
+    raises at resolution; 'cuda' forced on a refused program raises with
+    the reason.  The forward form and an inlinable helper resolve to
+    'cuda'; a helper with a branch stays refused."""
     config.set("map_method", "plain")
     try:
         assert Map("y = x")._resolve() == "plain"
@@ -562,12 +569,14 @@ def test_map_method_flag_resolution_and_bad_flag():
         config.reset("map_method")
     assert Map("y = x")._resolve() == "cuda"
     fwd = "y(t) = x(t+1)"
-    assert Map(fwd, axis_names=("t",))._resolve() == "plain"
-    with pytest.raises(ValueError, match="forward"):
-        Map(fwd, axis_names=("t",), method="cuda")._resolve()
-    with pytest.raises(ValueError, match="extra_code"):
-        Map("y = f(x)", extra_code="def f(v):\n    return v\n",
-            method="cuda")._resolve()
+    assert Map(fwd, axis_names=("t",))._resolve() == "cuda"
+    assert Map(fwd, axis_names=("t",), method="cuda")._resolve() == "cuda"
+    assert Map("y = f(x)", extra_code="def f(v):\n    return v\n",
+               method="cuda")._resolve() == "cuda"
+    branch = "def f(v):\n    if v:\n        v = -v\n    return v\n"
+    assert Map("y = f(x)", extra_code=branch)._resolve() == "plain"
+    with pytest.raises(ValueError, match="extra_code.*a branch"):
+        Map("y = f(x)", extra_code=branch, method="cuda")._resolve()
     config.set("map_method", "warp9")
     try:
         op = Map("y = x")
@@ -789,6 +798,115 @@ def test_eager_map_cuda_method_on_cpu_is_the_plain_engine(on_cpu):
     config.set("map_method", "jnp")
     with pytest.raises(ValueError, match="'plain'"):
         eager_map("y = x*x - 1", {"x": x})
+
+
+# ------------- bf.map's remaining forms against the JAX package
+
+@pytest.mark.parametrize("func,want", SCATTER_TABLE)
+def test_eager_scatter_drops_and_wraps_as_jax(func, want, on_cpu):
+    """The plain engine's scatter takes ``.at[idx].set``'s semantics: an
+    index wraps once if negative, an update still out of bounds is
+    dropped (no IndexError), and of repeated targets the highest source
+    position wins; bitwise the JAX call."""
+    a = np.arange(5, dtype=np.float32) + 10
+    got = eager_map(func, {"a": a, "c": np.zeros(5, np.float32)},
+                    axis_names=("i",), shape=(5,))
+    jwant = _jnp(j_map(func, {"a": a, "c": np.zeros(5, np.float32)},
+                       axis_names=("i",), shape=(5,)))
+    assert _bits(got, jwant)
+    assert _bits(got, np.array(want, np.float32))
+
+
+@pytest.mark.parametrize("func,shape,scalars", EAGER_FORMS)
+def test_eager_gather_and_scatter_forms_as_jax(func, shape, scalars,
+                                               on_cpu):
+    """The eager explicit-index (gather) and scatter forms, scalars bound
+    by name among them, bitwise the JAX call on the same seeded input
+    (integer-exact values), every output."""
+    data = {k: v.numpy() for k, v in eager_data().items()}
+    data.update(scalars)
+    got = eager_map(func, {k: (v.copy() if isinstance(v, np.ndarray)
+                               else v) for k, v in data.items()},
+                    axis_names=("i", "j")[:len(shape)], shape=shape)
+    want = j_map(func, dict(data), axis_names=("i", "j")[:len(shape)],
+                 shape=shape)
+    if not isinstance(got, dict):
+        got, want = {"_": got}, {"_": want}
+    assert set(got) == set(want)
+    for k in got:
+        assert _bits(np.asarray(got[k]), _jnp(want[k])), k
+
+
+@pytest.mark.parametrize("dtype", ["ci8", "ci4"])
+@pytest.mark.parametrize("func,form", STREAM_FORMS)
+def test_map_forward_and_unbounded_raw_as_jax(func, form, dtype):
+    """The forward and unbounded streaming forms (a temp's history, a
+    stencil beside a whole-array read) on raw ci8 and ci4 gulps, each
+    gulp alone: the port's Map bitwise the JAX Map on the same storage
+    bytes."""
+    rng = np.random.default_rng(72)
+    shape = (9, 4, 3, 2)
+    if dtype == "ci8":
+        raw = rng.integers(-128, 128, shape + (2,)).astype(np.int8)
+    else:
+        raw = rng.integers(0, 256, shape).astype(np.uint8)
+    op = Map(func, axis_names=STENCIL_AXES)
+    assert op.fuse_form == form
+    got = op.execute_raw(torch.from_numpy(raw), dtype)
+    want = JMap(func, axis_names=STENCIL_AXES).execute_raw(raw, dtype)
+    assert _bits(got.numpy(), _jnp(want))
+
+
+# The JAX package's helpers (tests/test_ops.py:1336, tests/test_map.py:112)
+# and the same written in torch.
+HELPERS = {
+    "gauss": ("y = gauss(x, w)",
+              "def gauss(x, w):\n    return torch.exp(-(x*x)/(2*w*w))\n",
+              "def gauss(x, w):\n    return jnp.exp(-(x*x)/(2*w*w))\n",
+              np.float32, 0.5, 3),
+    "boost": ("y = boost(x)", "def boost(v):\n    return torch.exp(v) * 2\n",
+              "def boost(v):\n    return jnp.exp(v) * 2\n",
+              np.float32, 0.5, 3),
+    # No transcendental: the program's `/`, `//` and `**` inside a helper,
+    # bitwise (int true division to float32, float floor division and
+    # power, a weakly typed Python scalar).  XLA on the CPU contracts
+    # a product and a sum into one fused multiply-add and divides by a
+    # literal through its reciprocal, so neither is in the float body.
+    "ipoly": ("y = h(x, w)",
+              "def h(v, w):\n    return (v*w - v/3) // 2 + v**2\n", None,
+              np.int32, 3, 0),
+    "fpoly": ("y = h(x, w)",
+              "def h(v, w):\n    d = v / w - v\n"
+              "    return d // 2 - d**3 % w\n",
+              None, np.float32, 0.5, 0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(HELPERS))
+def test_map_extra_code_helpers_as_jax(name, on_cpu):
+    """extra_code helpers (inlined into M1 on a card) on the plain engine
+    against the JAX package's jnp helpers, the eager call and a Map, the
+    same dtype: bitwise where the helper has no transcendental, else
+    within DEPTH_ULP x 3 ulps (exp is XLA's against PyTorch's, then two
+    rounded operators)."""
+    func, code, jcode, dtype, w, depth = HELPERS[name]
+    x = _f32(ntime=12, shape=(5,), seed=73) * 40
+    x = x.astype(dtype) if dtype != np.float32 else x / 40
+    jcode = jcode or code
+
+    def same(got, want):
+        if not depth:
+            return _bits(got, want)
+        return got.dtype == want.dtype and _close(got, want, depth)
+    got = eager_map(func, {"x": x, "w": w}, extra_code=code).numpy()
+    want = _jnp(j_map(func, {"x": x, "w": w}, extra_code=jcode))
+    assert same(got, want)
+    op = Map(func, scalars={"w": w}, extra_code=code)
+    assert op.form_refusal() is None and op._resolve(
+        torch.from_numpy(x).dtype, 2) == "cuda"
+    got = op.execute(torch.from_numpy(x)).numpy()
+    want = _jnp(JMap(func, scalars={"w": w}, extra_code=jcode).execute(x))
+    assert same(got, want)
 
 
 def test_map_benchmark_check_runs_on_the_cpu():

@@ -35,12 +35,16 @@ import torch
 from hypothesis import given, settings, strategies as st
 
 from bifrost_tpu.ops.map import Map as JMap
+from bifrost_tpu.ops.map import map as j_map
 
 from bifrost_tpu_torch import config
 from bifrost_tpu_torch.ops import map_codegen, map_kernel
 from bifrost_tpu_torch.ops.map import Map
-from torch_map_forms import (FORMS, SQRT_EDGES, layout as layout_input,
-                             sqrt_edge_ulps, storage, ulps_of)
+from torch_map_forms import (EAGER_FORMS, FORMS, READS_SCATTERED,
+                             SCATTER_TABLE, SQRT_EDGES, STREAM_FORMS,
+                             eager_data, eager_program,
+                             layout as layout_input, sqrt_edge_ulps, storage,
+                             ulps_of)
 
 TRANS_ULP = 4
 CX_ULP = 4
@@ -75,11 +79,12 @@ def _ulps(a, b, scale=None):
 
 
 def _run(func, x, dtype=None, axis_names=None, scalars=None, ocs=None,
-         carry=None, in_name=None):
+         carry=None, in_name=None, extra_code=None):
     """The program of `func` on input `x` (storage form of DataType
     `dtype`, or a logical tensor): host-compiled body and plain engine
     -> (host outputs, plain outputs, program)."""
-    op = Map(func, axis_names=axis_names, scalars=scalars, in_name=in_name)
+    op = Map(func, axis_names=axis_names, scalars=scalars, in_name=in_name,
+             extra_code=extra_code)
     dkey = dtype if dtype is not None else x.dtype
     rank = x.dim() - (1 if dtype in ("ci8", "ci16", "ci32") else 0)
     prog = op.program(dkey, rank, ocs)
@@ -98,25 +103,36 @@ def _run(func, x, dtype=None, axis_names=None, scalars=None, ocs=None,
 
 # ------------------------------------------------ forms and refusals
 
+# A helper the generator cannot inline (a loop): what stays refused.
+LOOP_HELPER = ("def h(v):\n    for _ in range(2):\n        v = v * 2\n"
+               "    return v\n")
+
+
 @pytest.mark.parametrize("func,axes,form,reason", [
     ("y = 2.0f*x*x.conj() + 1.0f", None, "elementwise", None),
     ("y(t,c) = x(t, nc-1-c)", ("t", "c"), "local", None),
     ("y(t,c) = x(t,c) - x(t-2,c)", ("t", "c"), "stencil", None),
-    ("y(t,c) = x(t+1,c)", ("t", "c"), "forward", "forward"),
-    ("y(t,c) = x(nt-1-t,c)", ("t", "c"), "unbounded", "unbounded"),
+    ("y(t,c) = x(t+1,c)", ("t", "c"), "forward", "a loop"),
+    ("y(t,c) = x(nt-1-t,c)", ("t", "c"), "unbounded", "a loop"),
 ])
 def test_forms_and_refusal_reasons(func, axes, form, reason):
-    """The generator takes the elementwise, local and stencil streaming
-    forms and refuses the forward and unbounded ones with their names
-    (the JAX classifier gives the same forms); 'auto' then resolves to
-    'plain' and 'cuda' raises with the reason."""
+    """The generator takes every streaming form (the JAX classifier
+    gives the same forms), the forward and unbounded ones on the
+    element path; 'auto' resolves them to 'cuda'.  What stays refused
+    in those forms (a helper with a loop) resolves to 'plain' under
+    'auto', with the reason, and 'cuda' raises with it."""
     op = Map(func, axis_names=axes)
     assert op.fuse_form == JMap(func, axis_names=axes).fuse_form == form
+    assert op.form_refusal() is None
+    assert op._resolve("f32", 2) == "cuda"
+    assert op.plan_report()["codegen_refusal"] is None
     if reason is None:
-        assert op.form_refusal() is None
-        assert op._resolve("f32", 2) == "cuda"
-        assert op.plan_report()["codegen_refusal"] is None
         return
+    prog = op.program("f32", 2)
+    assert prog.form == form and prog.vec == 1
+    func = func.replace("= x(", "= h(x(") + ")"
+    op = Map(func, axis_names=axes, extra_code=LOOP_HELPER)
+    assert op.fuse_form == form
     assert reason in op.form_refusal()
     assert op._resolve("f32", 2) == "plain"
     assert reason in op.plan_report()["codegen_refusal"]
@@ -145,6 +161,10 @@ def test_refused_programs_name_their_reason(func, dtype, kwargs, reason):
     op = Map(func, **kwargs)
     assert op._resolve(dtype, 2, device="cpu") == "plain"
     if reason == "extra_code":
+        # an inlinable helper is generated; one with a loop is refused
+        assert op._resolve(dtype, 2) == "cuda"
+        assert op.program(dtype, 2).vec > 1
+        op = Map(func.replace("helper", "h"), extra_code=LOOP_HELPER)
         with pytest.raises(map_codegen.Refusal, match=reason):
             op.program(dtype, 2)
         assert op._resolve(dtype, 2) == "plain"
@@ -180,13 +200,26 @@ def _raised(fn, *args):
 
 
 def test_eager_explicit_forms_are_refused():
-    from bifrost_tpu_torch.ops.map import _compile_map
-    cm = _compile_map("c(i,j) = a(j,i)", ("a", "c"), ("i", "j"))
-    with pytest.raises(map_codegen.Refusal, match="explicit-index"):
-        map_codegen.generate(
+    """The eager explicit-index form is generated ('gather', the element
+    path) and a scatter is two launches; what one program refuses is a
+    statement reading an array an earlier statement scattered into (the
+    eager call cuts such a program in two)."""
+    from bifrost_tpu_torch.ops.map import _compile_map, _full_namespace
+
+    def gen(func, outs):
+        cm = _compile_map(func, ("a", "c"), ("i", "j"))
+        return map_codegen.generate(
             cm.statements, "eager",
-            [map_codegen.input_for_tensor("a", torch.float32, 2)],
-            {}, frozenset({"a", "c"}), ["c"], out_rank=2)
+            [map_codegen.input_for_tensor(k, torch.float32, 2)
+             for k in ("a", "c")], _full_namespace(None),
+            frozenset({"a", "c", "d"}), outs, axis_names=("i", "j"),
+            out_rank=2)
+    prog = gen("c(i,j) = a(j,i)", ["c"])
+    assert prog.form == "gather" and prog.vec == 1 and not prog.scatters
+    prog = gen("c(j,i) = a(i,j)", ["c"])
+    assert prog.scatters == {0: 2} and map_kernel._passes(prog) == (1, 2)
+    with pytest.raises(map_codegen.Refusal, match="scattered"):
+        gen("c(j,i) = a(i,j); d(i,j) = c(i,j) + 1", ["c", "d"])
 
 
 def test_function_names_ending_in_an_array_name():
@@ -1098,3 +1131,228 @@ def test_divider_property(bits, data):
     q = map_kernel.magic_div(n, m, s, bits)
     assert (q, n - q * d) == divmod(n, d)
     assert _c_divide(n, d, bits) == n // d
+
+
+# ------------- bf.map's remaining forms: the generated bodies on the host
+
+def _eager_host(func, data, axes, shape, extra_code=None):
+    """The eager call's generated program, host-compiled, against the
+    plain engine on the same tensors -> (host outputs, plain outputs,
+    program, launches)."""
+    from bifrost_tpu_torch.ops.map import map as eager_map
+    prog, ins, outs = eager_program(func, data, axes, shape, extra_code)
+    before = map_kernel.map_apply_host.launches
+    host, _ = map_kernel.map_apply_host(
+        prog, ins, shape, [data[k] for k in prog.scalar_names])
+    launches = map_kernel.map_apply_host.launches - before
+    config.set("map_method", "plain")
+    plain = eager_map(func, {k: (v.clone() if isinstance(v, torch.Tensor)
+                                 else v) for k, v in data.items()},
+                      axis_names=axes, shape=shape, extra_code=extra_code)
+    if not isinstance(plain, dict):
+        plain = {outs[0]: plain}
+    return dict(zip(outs, host)), plain, prog, launches
+
+
+@pytest.mark.parametrize("func,want", SCATTER_TABLE)
+def test_scatter_table_bodies_bitwise(func, want):
+    """The scatter's JAX semantics in the generated body (wrapdrop and
+    the owner rule, two launches), bitwise the plain engine and the
+    table."""
+    data = {"a": torch.arange(5, dtype=torch.float32) + 10,
+            "c": torch.zeros(5)}
+    host, plain, prog, n = _eager_host(func, data, ("i",), (5,))
+    assert prog.scatters == {0: 1} and n == 2
+    assert _bits(host["c"], plain["c"])
+    assert host["c"].tolist() == want
+
+
+@pytest.mark.parametrize("func,shape,scalars", EAGER_FORMS)
+def test_eager_gather_and_scatter_bodies_bitwise(func, shape, scalars):
+    """Every eager explicit-index and scatter program of the JAX parity
+    tests: the generated body, host-compiled, bitwise the plain engine,
+    every output; one launch, two where the program scatters."""
+    data = eager_data()
+    data.update(scalars)
+    axes = ("i", "j")[:len(shape)]
+    if func in READS_SCATTERED:
+        # one program cannot read what it scattered: the eager call cuts
+        # it in two (test_eager_split_at_a_scatter_read_bitwise)
+        with pytest.raises(map_codegen.Refusal, match="scattered"):
+            eager_program(func, data, axes, shape)
+        return
+    host, plain, prog, n = _eager_host(func, data, axes, shape)
+    assert prog.form == "gather" and n == (2 if prog.scatters else 1)
+    assert set(host) == set(plain)
+    for k in host:
+        assert _bits(host[k], plain[k]), k
+
+
+def test_scatter_duplicates_take_the_last_source_position():
+    """Many sources a target, in two axes, some dropped: the highest
+    source position (row-major over the grid) of each target wins, on
+    the host-compiled body as in the plain engine; a strided target is
+    read through its strides, and the result is a copy (the target
+    stays as it was)."""
+    rng = np.random.default_rng(74)
+    a = torch.from_numpy(rng.standard_normal((16, 12)).astype(np.float32))
+    c = torch.from_numpy(rng.standard_normal((12, 5)).astype(np.float32)).T
+    keep = c.clone()
+    func = "c(i % 3 - 1, j // 3 + i // 8) = a(i, j) * 2"
+    host, plain, prog, n = _eager_host(func, {"a": a, "c": c}, ("i", "j"),
+                                       (16, 12))
+    assert n == 2 and _bits(host["c"], plain["c"])
+    assert torch.equal(c, keep)
+    # target (r, q) of source (i, j): the last (i, j) in row-major order
+    want = keep.clone()
+    for i in range(16):
+        for j in range(12):
+            r, q = i % 3 - 1, j // 3 + i // 8
+            r = r + 5 if r < 0 else r
+            if q < 12:
+                want[r, q] = a[i, j] * 2
+    assert _bits(host["c"], want)
+
+
+@pytest.mark.parametrize("dtype", ["ci8", "ci4", "f32"])
+@pytest.mark.parametrize("func,form", STREAM_FORMS)
+def test_forward_and_unbounded_bodies_bitwise(func, form, dtype):
+    """The forward and unbounded streaming forms on the element path
+    (raw ci8 and ci4 read in the kernel, a logical f32 stream; a temp
+    read at other frames recomputed there), host-compiled, bitwise the
+    plain engine on the gulp alone."""
+    rng = np.random.default_rng(75)
+    shape = (11, 3, 2, 2)
+    if dtype == "ci8":
+        x = torch.from_numpy(rng.integers(-128, 128, shape + (2,))
+                             .astype(np.int8))
+    elif dtype == "ci4":
+        x = torch.from_numpy(rng.integers(0, 256, shape).astype(np.uint8))
+    else:
+        x = _f32(shape, 76)
+    (h, _), (p, _), prog = _run(func, x, dtype=None if dtype == "f32"
+                                else dtype, axis_names=("t", "c", "s", "p"))
+    assert prog.form == form and prog.vec == 1
+    assert map_kernel.map_apply_host.last["path"] == "element"
+    assert _bits(h, p)
+
+
+EXACT_HELPERS = (
+    "def sq(v):\n    return v * v\n"
+    "def g(v, w):\n    \"a docstring\"\n    a = sq(v) * w\n"
+    "    b = torch.minimum(a, v) - 1\n"
+    "    return where(b > 0, b, -b) // 2 + np.pi * 0\n")
+
+
+@pytest.mark.parametrize("func,dtype", [
+    ("y = g(x, w)", torch.int32), ("y = g(x, w) + g(x, 3)", torch.float32),
+    ("y(t,c) = g(x(t+1,c), w)", torch.float32),
+])
+def test_inlined_helper_bodies_bitwise(func, dtype):
+    """extra_code helpers inlined (nested helpers, torch.minimum, where,
+    np.pi, a docstring, a run-time scalar and a literal argument): the
+    program's types and values bitwise the plain engine's evaluation of
+    the helpers, in the elementwise, eager and forward forms."""
+    axes = ("t", "c") if "(t" in func else None
+    x = (_f32((7, 6), 77) * 4).round().to(dtype)
+    (h, _), (p, _), prog = _run(func, x, axis_names=axes,
+                                scalars={"w": 3}, extra_code=EXACT_HELPERS)
+    assert h.dtype == p.dtype and _bits(h, p)
+    if axes is None:
+        host, plain, _, n = _eager_host(func, {"x": x, "w": 3}, None,
+                                        tuple(x.shape), EXACT_HELPERS)
+        assert n == 1 and _bits(host["y"], plain["y"])
+
+
+def test_inlined_gauss_within_tolerance():
+    """The JAX package's gauss helper written in torch, inlined: within
+    TRANS_ULP ulps of the plain engine (the host's expf against
+    PyTorch's vectorized exp; the operators before it bitwise)."""
+    code = "def gauss(x, w):\n    return torch.exp(-(x*x)/(2*w*w))\n"
+    (h, _), (p, _), _ = _run("y = gauss(x, w)", _f32((9, 8), 78),
+                             scalars={"w": 0.5}, extra_code=code)
+    assert h.dtype == p.dtype and _ulps(h, p) <= TRANS_ULP
+
+
+@pytest.mark.parametrize("code,what", [
+    (LOOP_HELPER, "a loop"),
+    ("def h(v):\n    if v:\n        v = -v\n    return v\n", "a branch"),
+    ("def h(v):\n    return v if v > 0 else -v\n", "a branch"),
+    ("def h(v):\n    return v > 0 and v\n", "a branch"),
+    ("def h(v):\n    return exp(v=v)\n", "keyword arguments"),
+    ("S = 2\ndef h(v):\n    return v * S\n", "the global name 'S'"),
+    ("def h(v):\n    return h(v)\n", "recursion"),
+    ("def h(v):\n    return torch.clamp(v, 0)\n", "torch.clamp"),
+    ("def h(v):\n    return np.exp(v)\n", "np.exp"),
+    ("def h(v, w=2):\n    return v * w\n", "positional"),
+    ("def h(v):\n    v += 1\n    return v\n", "augmented"),
+    ("h = lambda v: v * 2\n", "not a def"),
+])
+def test_helpers_that_stay_refused_name_the_construct(code, what):
+    """A helper that is not straight-line assignments and a return over
+    the map namespace stays refused, naming the construct; 'auto' runs
+    it on the plain engine."""
+    op = Map("y = h(x)", extra_code=code)
+    reason = op.form_refusal()
+    assert reason is not None and what in reason, reason
+    assert op._resolve(torch.float32, 2) == "plain"
+
+
+@pytest.mark.parametrize("func,shape,scalars,launches", [
+    ("c(i - k, j) = a(i, j); e(i, j) = c(i, j) * 2", (6, 5), {"k": 8}, 3),
+    ("c(2*i, j) = a(i, j); d(j, i) = c(i, j) + a(i, j); "
+     "e(i, j) = d(j, i) - c", (6, 5), {}, 5),
+    ("c(i//2, j) = a(i, j); e(i, j) = c(i, j) + 1; a(i, j) = e * 2",
+     (6, 5), {}, 3),
+    ("c(2*i, j) = a(i, j); f = c(i, j) + 1", (6, 5), {}, 3),
+    ("c(i//2, j) = a(i, j); t = c(i, j) * 2; u = t - a(i, j)",
+     (6, 5), {}, 3),
+])
+def test_eager_split_at_a_scatter_read_bitwise(func, shape, scalars,
+                                               launches, monkeypatch):
+    """A statement reading what an earlier one scattered: the eager call
+    on card tensors runs the program as the segments it cuts, each
+    segment's results the next one's inputs, the generated bodies
+    (host-compiled here, `map_apply` for the card's) bitwise the plain
+    engine and the JAX call, every output, with the launches each
+    segment takes; a segment whose statements are not indexed stays the
+    explicit form over `shape`."""
+    import sys
+    from bifrost_tpu_torch.ops.map import map as eager_map
+    mod = sys.modules["bifrost_tpu_torch.ops.map"]
+    monkeypatch.setattr(mod, "map_apply", map_kernel.map_apply_host)
+    data = eager_data()
+    data.update(scalars)
+    cm = mod._compile_map(func, tuple(sorted(data)), ("i", "j"))
+    before = map_kernel.map_apply_host.launches
+    got = mod._eager_cuda(cm, dict(data), set(scalars), "cuda", shape)
+    assert map_kernel.map_apply_host.launches - before == launches
+    config.set("map_method", "plain")
+    want = eager_map(func, {k: (v.clone() if isinstance(v, torch.Tensor)
+                                else v) for k, v in data.items()},
+                     axis_names=("i", "j"), shape=shape)
+    assert set(want) <= set(got)
+    for k in want:
+        assert _bits(got[k], want[k]), k
+    jwant = j_map(func, {k: (v.numpy() if isinstance(v, torch.Tensor)
+                             else v) for k, v in data.items()},
+                  axis_names=("i", "j"), shape=shape)
+    assert set(jwant) == set(want)
+    for k in jwant:
+        assert _bits(got[k], torch.from_numpy(np.array(jwant[k]))), k
+
+
+def test_eager_rescatter_after_a_split_is_refused(monkeypatch):
+    """A later segment's scatter into an array an earlier segment wrote:
+    the scatter would start from that result, not from the original
+    target, so the eager call refuses it (plain under 'auto', an error
+    under 'cuda')."""
+    import sys
+    mod = sys.modules["bifrost_tpu_torch.ops.map"]
+    monkeypatch.setattr(mod, "map_apply", map_kernel.map_apply_host)
+    func = "c(2*i, j) = a(i, j); e(i, j) = c(i, j); c(i + 1, j) = e(i, j)"
+    data = eager_data()
+    cm = mod._compile_map(func, tuple(sorted(data)), ("i", "j"))
+    assert mod._eager_cuda(cm, dict(data), set(), "auto", (6, 5)) is None
+    with pytest.raises(ValueError, match="original target"):
+        mod._eager_cuda(cm, dict(data), set(), "cuda", (6, 5))

@@ -369,3 +369,32 @@ def test_ring_core_binds_host_pages_to_its_node(bind):
         assert policies == {"default"}, policies
     ring.core = None
     assert ring.core is None
+
+
+def test_freed_bound_pages_go_back_to_the_default_policy():
+    """A bound ring's host bytes, freed into the heap (glibc's mmap
+    threshold raised above them first, as any earlier large free does),
+    carry no MPOL_PREFERRED over to the unbound ring that gets the same
+    pages next."""
+    import ctypes
+    import gc
+    libc = ctypes.CDLL(None)
+    libc.malloc.restype = ctypes.c_void_p
+    libc.free(ctypes.c_void_p(libc.malloc(30 << 20)))
+    core = sorted(os.sched_getaffinity(0))[-1]
+
+    def ring(core, n=1 << 20, m=1 << 22):
+        r = pring.Ring(space="system", name=f"numa_{uuid.uuid4().hex[:6]}",
+                       core=core)
+        r.resize(n, m)
+        return r
+    bound = ring(core)
+    keep = ring(None, 1 << 12, 1 << 14)      # holds the heap above it
+    placed = bound.page_nodes()
+    if placed is None or affinity.core_node(core) is None:
+        pytest.skip("this machine's kernel keeps no NUMA maps")
+    del bound
+    gc.collect()
+    unbound = ring(None)
+    assert unbound.page_nodes()[1] == {"default"}
+    del keep

@@ -1,7 +1,9 @@
 """Shared cases of kernel M1's tests (tests/test_torch_map_codegen.py on
 the CPU, tests/test_torch_gpu.py on the card): the storage forms its two
-paths are held on, the inputs of each layout, and the complex64 sqrt
-edge points.  Imports no JAX, so the card tests can use it."""
+paths are held on, the inputs of each layout, the complex64 sqrt edge
+points, and the eager explicit-index, scatter and streaming programs
+(tests/test_torch_map.py holds them against the JAX package).  Imports
+no JAX, so the card tests can use it."""
 
 import numpy as np
 import torch
@@ -97,3 +99,72 @@ def ulps_of(got, want, z):
     d = (torch.view_as_real(got.to(torch.complex128)) -
          torch.view_as_real(want)).abs().amax(-1) / scale
     return d / 2.0 ** -24
+
+
+# The eager scatter's JAX semantics: a = 10..14, c = 0, shape (5,).
+SCATTER_TABLE = [
+    ("c(i+2) = a(i)", [0, 0, 10, 11, 12]),
+    ("c(2*i) = a(i)", [10, 0, 11, 0, 12]),
+    ("c(i-7) = a(i)", [12, 13, 14, 0, 0]),
+    ("c(i//2) = a(i)", [11, 13, 14, 0, 0]),
+]
+
+# Multi-axis gathers and scatters on `eager_data`: (program, shape,
+# scalars).
+EAGER_FORMS = [
+    ("d(i,j) = a(j,i)", (5, 6), {}),
+    ("e(i) = a(i, k)", (6,), {"k": 3}),
+    ("e(i) = a(i, k)", (6,), {"k": -2}),
+    ("c(i,j) = a(i,0) * b(j)", (6, 5), {}),
+    ("c(i,j) = a(ni-1-i, j) + s", (6, 5), {"s": 0.5}),
+    ("c(i, nj-1-j) = a(i, j)", (6, 5), {}),
+    ("c(i//2, j) = a(i, j)", (6, 5), {}),
+    ("c(2*i, j) = a(i, j) * s", (6, 5), {"s": 3}),
+    ("d(j, i) = a(i, j) + b(j)", (6, 5), {}),
+    ("c(i - k, j) = a(i, j); e(i, j) = c(i, j) * 2", (6, 5), {"k": 8}),
+    ("c(i,j) = a(i,j) * b(j); d(j,i) = c(i,j) - a(i,j)", (6, 5), {}),
+    ("c(2*i, j) = a(i, j); f = c(i, j) + 1", (6, 5), {}),
+    ("c(i//2, j) = a(i, j); t = c(i, j) * 2; u = t - a(i, j)", (6, 5), {}),
+]
+
+# Of EAGER_FORMS, those whose statement reads an array an earlier
+# statement scattered into: the generator refuses them as one program,
+# and the eager call runs them as two (ops/map.py `_scatter_segments`);
+# in the last two the second program's statements are not indexed, and it
+# stays the explicit form over `shape`.
+READS_SCATTERED = ("c(i - k, j) = a(i, j); e(i, j) = c(i, j) * 2",
+                   "c(2*i, j) = a(i, j); f = c(i, j) + 1",
+                   "c(i//2, j) = a(i, j); t = c(i, j) * 2; "
+                   "u = t - a(i, j)")
+
+# The forward and unbounded streaming forms over (t, c, s, p).
+STREAM_FORMS = [
+    ("y(t,c,s,p) = x(t+1,c,s,p) - x(t,c,s,p)", "forward"),
+    ("y(t,c,s,p) = x(nt-1-t,c,s,p)", "unbounded"),
+    ("z(t,c,s,p) = x(t,c,s,p) * 3; y(t,c,s,p) = z(t-1,c,s,p) + z(t,c,s,p)",
+     "unbounded"),
+    ("y(t,c,s,p) = x(t-1,c,s,p) + x", "unbounded"),
+]
+
+
+def eager_data(seed=71, dev=None):
+    """EAGER_FORMS' arrays: a (6, 5) f32 of small integers, b (5,) int32,
+    and the outputs given, c (6, 5) and d (5, 6) f32 (a scatter's
+    targets)."""
+    rng = np.random.default_rng(seed)
+    data = {"a": rng.integers(-20, 20, (6, 5)).astype(np.float32),
+            "b": rng.integers(-9, 9, (5,)).astype(np.int32),
+            "c": rng.integers(-5, 5, (6, 5)).astype(np.float32),
+            "d": rng.integers(-5, 5, (5, 6)).astype(np.float32)}
+    return {k: torch.from_numpy(v).to(dev) if dev is not None else
+            torch.from_numpy(v) for k, v in data.items()}
+
+
+def eager_program(func, data, axis_names, shape, extra_code=None):
+    """The generated program of the eager call `func` on `data` (tensors
+    and numbers) -> (Program, its inputs in order, its output names), as
+    ops.map.map builds it for a card."""
+    from bifrost_tpu_torch.ops.map import eager_program as program
+    prog, ins, _, _, outs = program(func, data, axis_names, shape,
+                                    extra_code)
+    return prog, ins, outs
