@@ -57,7 +57,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 DEFAULT_BUILD_DIR = Path(__file__).resolve().parent / "build"
 BUILD_DIR = DEFAULT_BUILD_DIR
 SOURCES = ("fdmt", "fir", "fir_long", "beamform", "romein", "dq",
-           "xengine")
+           "flag", "xengine")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

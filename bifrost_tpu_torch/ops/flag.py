@@ -25,21 +25,25 @@ window self-referential.  The carried state is (3, ncell) f32 rows
 frames is bitwise equal to one long gulp; a gulp that is not a multiple
 closes a short tail window of its own.
 
-Layout of the work: the JAX plan scans the windows one by one
-(``lax.scan``).  Only the baseline recurrence is sequential, so here the
-statistics of every window of a gulp (medians, MADs, the cross-cell
-median, the SK sums) come from one batched pass, and then a loop over
-the windows walks (ncell,) vectors.
+Layout of the work: the JAX plan scans the windows one by one on the
+device (``lax.scan``).  Only the baseline recurrence is sequential, so
+here the statistics of every window of a gulp (medians, MADs, the
+cross-cell median, the SK sums) come from one batched pass, and then one
+call walks the recurrence over a segment of windows (ops/flag_kernel.py):
+kernel W1, a thread a cell, for a CUDA tensor under 'cuda', one launch a
+gulp whose length is a multiple of ``window`` and a second for a tail
+window; the plain torch walk, a loop over the windows, otherwise.
 
 Methods (the `dq_flag_method` config flag when None/'auto'): 'cuda'
-(what 'auto' resolves to; K5a for a CUDA tensor, its plain version for a
-CPU tensor) and 'plain' (the plain version on any device).  The
-statistics are shared, and the fill is a select, so the two are bitwise
-equal.  Against the JAX package the masks and fills agree exactly
-wherever no decision sits within an ulp of its threshold: XLA:CPU
-contracts the complex power ``re*re + im*im``, the EMA update and the
-thresholds' ``a*b + c`` into FMAs, which the port does not, so the
-carried state agrees to a relative tolerance.
+(what 'auto' resolves to; W1 and K5a for a CUDA tensor, their plain
+versions for a CPU tensor) and 'plain' (the plain versions on any
+device).  The statistics are shared, W1 is bitwise its plain walk and
+the fill is a select, so the two are bitwise equal.  Against the JAX
+package the masks and fills agree exactly wherever no decision sits
+within an ulp of its threshold: XLA:CPU contracts the complex power
+``re*re + im*im``, the EMA update and the thresholds' ``a*b + c`` into
+FMAs, which the port does not, so the carried state agrees to a
+relative tolerance.
 """
 
 from __future__ import annotations
@@ -48,16 +52,10 @@ import numpy as np
 import torch
 
 from ..DataType import DataType
-from . import dq_kernel
+from . import dq_kernel, flag_kernel
 from .common import prepare
 from .runtime import OpRuntime, staged_unpack
-from .stats import MAD_EPS, MAD_SIGMA, median, spectral_kurtosis
-
-WARM_CAP = 2.0 ** 20
-
-
-def _f32(v):
-    return float(np.float32(v))
+from .stats import median, spectral_kurtosis
 
 
 class Flag(object):
@@ -121,8 +119,8 @@ class Flag(object):
     def _params(self):
         """[thresh, mad_factor, alpha] as f32 values, the precision the
         JAX plan's staged parameter vector holds them in."""
-        return tuple(_f32(v) for v in (self.thresh, self.mad_factor,
-                                       self.alpha))
+        return tuple(flag_kernel._f32(v) for v in
+                     (self.thresh, self.mad_factor, self.alpha))
 
     def reset_state(self):
         self._state = None
@@ -175,48 +173,13 @@ class Flag(object):
             return med[:, 0], mad, cross
         return spectral_kurtosis(pw, dim=1), pw.sum(dim=1) / pw.shape[1]
 
-    def _walk(self, stats, m, state, bads, fills):
-        """The baseline recurrence over the windows of `stats` (one
-        segment of m-frame windows), appending each window's mask and
-        fill row; -> state'."""
-        p_thresh, p_mad, a = self._params()
-        c_b, s_b, warm = state.unbind(0)
-        if self.algo == "mad":
-            med, mad, cross = stats
-            cold = mad > p_mad * (cross + MAD_EPS)[:, None]
-        else:
-            sk, mean = stats
-            band = _f32(np.sqrt(4.0 / max(m, 2)))
-            skbad = (sk - 1.0).abs() > p_thresh * band
-        for i in range(stats[0].shape[0]):
-            warmed = warm > 0.0
-            if self.algo == "mad":
-                ref_c = torch.where(warmed, c_b, med[i])
-                ref_s = torch.where(warmed, s_b, mad[i])
-                bad = ((med[i] - ref_c).abs() >
-                       p_thresh * (MAD_SIGMA * ref_s + MAD_EPS)) \
-                    | (mad[i] > p_mad * (ref_s + MAD_EPS)) \
-                    | (~warmed & cold[i])
-                good = ~bad
-                c_b = torch.where(good, ref_c + a * (med[i] - ref_c), ref_c)
-                s_b = torch.where(good, ref_s + a * (mad[i] - ref_s), ref_s)
-            else:
-                ref_c = torch.where(warmed, c_b, mean[i])
-                bad = skbad[i] | (warmed & ((mean[i] - ref_c).abs() >
-                                            p_mad * (ref_c + MAD_EPS)))
-                good = ~bad
-                c_b = torch.where(good, ref_c + a * (mean[i] - ref_c),
-                                  ref_c)
-                s_b = sk[i]
-            warm = torch.where(good, torch.clamp(warm + 1.0, max=WARM_CAP),
-                               warm)
-            bads.append(bad)
-            fills.append(ref_c)
-        return torch.stack([c_b, s_b, warm])
-
     def _windows(self, pwr, state):
         """pwr (ntime, ncell) f32 -> (mask (nrows, ncell) bool, fill rows
-        (nrows, ncell) f32, state')."""
+        (nrows, ncell) f32, state'): each segment of m-frame windows (the
+        whole windows, then a tail window) its statistics in one batched
+        pass and its walk in one call."""
+        walk = flag_kernel.flag_walk if self._resolve() == "cuda" \
+            else flag_kernel.flag_walk_plain
         ntime, ncell = pwr.shape
         w = self.window
         nwin, tail = divmod(ntime, w)
@@ -224,9 +187,13 @@ class Flag(object):
         for n, m, lo in ((nwin, w, 0), (1 if tail else 0, tail, nwin * w)):
             if n:
                 pw = pwr[lo:lo + n * m].reshape(n, m, ncell)
-                state = self._walk(self._window_stats(pw), m, state, bads,
-                                   fills)
-        return torch.stack(bads), torch.stack(fills), state
+                bad, fill, state = walk(self._window_stats(pw), m, state,
+                                        self._params(), self.algo)
+                bads.append(bad)
+                fills.append(fill)
+        if len(bads) == 1:
+            return bads[0], fills[0], state
+        return torch.cat(bads), torch.cat(fills), state
 
     # --------------------------------------------------------- execution
     def _apply(self, x, mask, fillr, out):

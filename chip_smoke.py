@@ -26,7 +26,12 @@ Phases, one line each; any failure exits non-zero:
              from them bitwise their host-origin launches, both build
              times and both kernels' times a frame beside each other;
              K6b's plan is also rebuilt for RM_NSEQ sequences of new
-             positions from each origin.
+             positions from each origin.  W1, the flagger's baseline
+             walk, is held bitwise against its plain walk on W1_EDGES
+             (both algorithms, [frbflag]'s 256 windows x 4096 channels,
+             [dq]'s one window of 2,097,152 cells, tail segments, ties
+             at each threshold, NaN and -0.0 statistics, the warm cap)
+             and timed at both paths' shapes from a warmed baseline.
 4. main    — drive the FRB-search chain (`frb_search_pipeline`) at full
              width: 4096 channels of u8 power at the LWA band (40 MHz,
              9.28 kHz, 1 ms), FDMT max_delay 2048, gulps of 4096 frames,
@@ -70,7 +75,8 @@ Phases, one line each; any failure exits non-zero:
              the same run with every method 'plain'.
 7. frbflag — the FRB search of phase 4 with the RFI flagger
              (`frb_search_pipeline(rfi_flag=dict(algo='mad', thresh=6.0,
-             mad_factor=4.0, window=16))`, kernel K5a) on the same data
+             mad_factor=4.0, window=16))`, kernels W1 and K5a) on the
+             same data
              with a seeded narrowband storm from the third gulp on (60
              channels blinking on with probability 0.8 per frame at
              255).  Launch counts are read from this run alone, every
@@ -78,14 +84,20 @@ Phases, one line each; any failure exits non-zero:
              found, every storm cell on for more than half
              of a window flagged in that window, and the dedispersed
              gulps bitwise equal to the chain with dq_flag_method and
-             fdmt_method 'plain'.
+             fdmt_method 'plain' and to the chain with dq_flag_method
+             'plain' alone (the plain walk, a loop of some 28 launches a
+             window), each run's steady frames/s printed beside the
+             others'.  The chain with W1 is then traced over its
+             NGULP gulps (`trace.start_profile`): the card's idle share
+             and the device ops that take the most time a gulp.
 8. dq      — the flagged, calibrated beam search at the flagship width,
              built from blocks: the voltages of phase 5 with a tone at
              the centre of one PFB channel on one station from the 9th
              integration on -> copy -> pfb -> rfi_flag(window=16) ->
              gaincal(seeded per-station gains) (kernel K5b) -> beamform
              -> transpose -> fdmt -> detect, B_NINT integrations.  Launch
-             counts are read from this run alone, every K5a and K2
+             counts are read from this run alone (W1 once a gulp: a
+             gulp is one window), every K5a and K2
              launch must take its vector kernel; the tone's cells must
              be flagged in every window from its onset, the beam powers
              and dedispersed frames bitwise equal to the same chain with
@@ -758,6 +770,7 @@ IPC_TURNS, IPC_CHILD_TIMEOUT = 1, 300
 # under OB_TRACE_DIR; OB_TURNS turns of zero-copy and copying runs.
 OB_HOLD, OB_TOOL_TIMEOUT, OB_TURNS = 0.5, 120, 1
 OB_TRACE_DIR = Path("traces") / "observe"
+FF_TRACE_DIR = Path("traces") / "frbflag"
 OB_TOOLS = (("like_top",), ("like_ps",), ("like_pmap",),
             ("like_bmon", "-i", "1.0"), ("pipeline2dot",),
             ("pipeline2dot", "--rings"))
@@ -926,8 +939,8 @@ class Stamped(list):
 def kernel_counters():
     from bifrost_tpu_torch.ops import (beamform_kernel, dq_kernel,
                                        fdmt_kernel, fir_kernel,
-                                       map_kernel, romein_kernel,
-                                       xengine_kernel)
+                                       flag_kernel, map_kernel,
+                                       romein_kernel, xengine_kernel)
     return {"fdmt_merge_step": fdmt_kernel.merge_step,
             "fir_mac": fir_kernel.fir_mac,
             "beamform_power": beamform_kernel.beamform_power,
@@ -935,6 +948,7 @@ def kernel_counters():
             "romein_grid_separable": romein_kernel.grid_separable,
             "dq_masked_fill": dq_kernel.masked_fill,
             "dq_gain_apply": dq_kernel.gain_apply,
+            "flag_walk": flag_kernel.flag_walk,
             "xengine_int8": xengine_kernel.xengine_int8,
             "map_apply": map_kernel.map_apply}
 
@@ -2089,7 +2103,8 @@ def instrument_path(dev, volt, bref, spec):
     kcounts = read_counts()
     if kcounts["romein_grid_general"] != X_PLAIN_NINT or \
             kcounts["romein_grid_separable"] != 0 or \
-            kcounts["dq_masked_fill"] or kcounts["dq_gain_apply"]:
+            kcounts["dq_masked_fill"] or kcounts["dq_gain_apply"] or \
+            kcounts["flag_walk"]:
         raise AssertionError(f"non-rank-1 run launches {kcounts}")
     del pipe
     free_device()
@@ -2270,7 +2285,8 @@ def ob_idle(path, ngulp):
     """The card's idle share over the traced run's steady window, from
     its first K1 launch to its last (xe_trace_summary's method: the
     union of kernels, copies and sets) -> (K1 events, idle share, busy
-    ms a gulp, device ms a gulp by kind)."""
+    ms a gulp, device ms a gulp by kind, the 8 device ops that take the
+    most time a gulp as [(name cut to 60 characters, ms)])."""
     events = [e for e in json.loads(Path(path).read_text())["traceEvents"]
               if e.get("ph") == "X" and "dur" in e]
     dev_ev = [e for e in events
@@ -2278,9 +2294,9 @@ def ob_idle(path, ngulp):
     k1 = sorted(e["ts"] for e in dev_ev
                 if "fdmt_merge_step_kernel" in e.get("name", ""))
     if len(k1) < 2:
-        return len(k1), None, None, {}
+        return len(k1), None, None, {}, []
     lo, hi = k1[0], k1[-1]
-    busy, end, kinds = 0.0, lo, {}
+    busy, end, kinds, names = 0.0, lo, {}, {}
     for e in dev_ev:
         name = e.get("name", "")
         if e["cat"] == "kernel":
@@ -2293,13 +2309,17 @@ def ob_idle(path, ngulp):
                      "memcpy")
         clip = max(0.0, min(e["ts"] + e["dur"], hi) - max(e["ts"], lo))
         kinds[k] = kinds.get(k, 0.0) + clip / 1e3 / (ngulp - 1)
+        names[name[:60]] = names.get(name[:60], 0.0) + \
+            clip / 1e3 / (ngulp - 1)
     for a, b in sorted((max(e["ts"], lo), min(e["ts"] + e["dur"], hi))
                        for e in dev_ev):
         if b > max(a, end):
             busy += b - max(a, end)
             end = b
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:8]
     return (len(k1), 1 - busy / (hi - lo), busy / 1e3 / (ngulp - 1),
-            {k: round(v, 4) for k, v in kinds.items()})
+            {k: round(v, 4) for k, v in kinds.items()},
+            [(n, round(v, 4)) for n, v in top])
 
 
 def ob_run(dev, data, zero_copy=True, hold=0.0, on_start=None):
@@ -2433,7 +2453,7 @@ def observe_path(dev, ref):
         n = e.get("name", "")
         if n == "observe.frb_search" or n.startswith("block:"):
             names[n] = names.get(n, 0) + 1
-    nk1, idle, busy, kinds = ob_idle(path, NGULP)
+    nk1, idle, busy, kinds, _ = ob_idle(path, NGULP)
     launches = run["counts"]["fdmt_merge_step"]
     if run["counts"] != want or nk1 != launches:
         raise AssertionError(f"(b) fdmt_merge_step_kernel events {nk1}, "
@@ -2666,10 +2686,170 @@ def check_dq(dev, kind):
     return [rec_fill, rec_gain]
 
 
+# W1's edge shapes: (windows, cells, frames a window): [frbflag]'s 256
+# windows of 4096 channels, [dq]'s one window of 2,097,152 cells, tail
+# segments of 12 frames (an SK threshold that is not an f32 product) and
+# of 5, windows past a thread's chunk of 8 (statistics and state read
+# through element strides there).
+W1_EDGES = ((256, 4096, 16), (1, 2_097_152, 16), (1, 4096, 12),
+            (3, 1000, 5), (9, 300, 16))
+W1_PARAMS = (FRB_FLAG["thresh"], FRB_FLAG["mad_factor"], 0.25)
+
+
+def walk_case(algo, n, ncell, m, seed, dev, strided):
+    """Statistics and state for W1's edge checks (the card tests'
+    `_walk_case`): warm counts 0, 1, 5, WARM_CAP - 1 and WARM_CAP; -0.0
+    centres and statistics, one NaN statistic in a few cells; in window
+    0, cells tied exactly with each threshold in f32, as the plain walk
+    computes it -> (stats, state) on `dev`, cells every other element of
+    a wider buffer where `strided`."""
+    from bifrost_tpu_torch.ops.flag_kernel import WARM_CAP
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    p_thresh, p_mad = f32(W1_PARAMS[0]), f32(W1_PARAMS[1])
+    sig, eps = f32(1.4826), f32(1e-6)
+    k = np.arange(ncell)
+    warm = rng.choice(np.array([0, 0, 1, 5, WARM_CAP - 1, WARM_CAP], f32),
+                      ncell)
+    c = rng.uniform(1, 4, ncell).astype(f32)
+    s = rng.uniform(0.2, 1, ncell).astype(f32)
+    c[k % 13 == 6] = -0.0
+    z = rng.standard_normal((n, ncell)).astype(f32)
+    u = rng.uniform(0.3, 6, (n, ncell)).astype(f32)
+    stats = [c + f32(6) * z * s, s * u, rng.uniform(0.3, 1, n).astype(f32)] \
+        if algo == "mad" else [f32(1) + f32(2) * z, c * u]
+    for j, a in enumerate(stats[:2]):
+        a[rng.random(a.shape) < 0.01] = -0.0
+        nan = k % 31 == 7 + j
+        a[rng.integers(0, n, ncell)[nan], nan] = np.nan
+    warmed = warm > 0
+    if algo == "mad":
+        t0, t1, t2 = (k % 13 == 1) & warmed, (k % 13 == 2) & warmed, \
+            (k % 13 == 3) & ~warmed
+        c[t0] = 0.0
+        stats[0][0, t0] = p_thresh * (sig * s[t0] + eps)
+        stats[1][0, t1] = p_mad * (s[t1] + eps)
+        stats[1][0, t2] = p_mad * (stats[2][0] + eps)
+    else:
+        thr = f32(float(p_thresh) * float(f32(np.sqrt(4.0 / max(m, 2)))))
+        t1 = (k % 13 == 2) & warmed
+        stats[0][0, k % 13 == 1] = f32(1) - thr
+        c[t1] = 0.0
+        stats[1][0, t1] = p_mad * (c[t1] + eps)
+
+    def put(a):
+        t = torch.from_numpy(a).to(dev)
+        if not strided or a.ndim < 2:
+            return t
+        wide = torch.full(a.shape[:-1] + (2 * a.shape[-1],), float("nan"),
+                          device=dev)
+        wide[..., ::2] = t
+        return wide[..., ::2]
+    return [put(a) for a in stats], put(np.stack([c, s, warm]))
+
+
+def walk_work(n, ncell):
+    """Bytes and operations of one 'mad' W1 call: the median and MAD rows
+    and the (n,) cross-cell median read once, the mask (1 byte) and fill
+    (4) rows written, the (3, ncell) state read and written; about 20 f32
+    operations a cell and window."""
+    return n * ncell * 13 + 24 * ncell + 4 * n, 20 * n * ncell
+
+
+def walk_equal(got, want):
+    return torch.equal(got[0], want[0]) and bits_equal(got[1], want[1]) \
+        and bits_equal(got[2], want[2])
+
+
+def check_flag_walk(dev, kind):
+    """W1 against its plain walk, bitwise, on W1_EDGES for both
+    algorithms (the caller's state left as it was), then at the flagger
+    paths' shapes: the statistics of a seeded exponential power gulp of
+    [frbflag] (4096 frames x 4096 channels, 256 windows of 16) and of
+    [dq] (16 x 2,097,152 cells, one window), 'mad', from the baseline a
+    first walk of the same gulp leaves; timed beside the plain walk and
+    the bytes bound.  -> W1's record, its primary numbers at [frbflag]'s
+    shape."""
+    from bifrost_tpu_torch.ops import Flag
+    from bifrost_tpu_torch.ops import flag_kernel as fk
+    nedge = 0
+    for algo in ("mad", "sk"):
+        for n, ncell, m in W1_EDGES:
+            stats, state = walk_case(algo, n, ncell, m, SEED + n, dev,
+                                     strided=n in (3, 9))
+            keep = state.clone()
+            before = fk.flag_walk.launches
+            got = fk.flag_walk(stats, m, state, W1_PARAMS, algo)
+            want = fk.flag_walk_plain(stats, m, state, W1_PARAMS, algo)
+            torch.cuda.synchronize()
+            if fk.flag_walk.launches != before + 1 or \
+                    not walk_equal(got, want) or \
+                    not bits_equal(state, keep) or not want[0].any():
+                raise AssertionError(f"flag_walk differs from plain ('{algo}'"
+                                     f", {n} x {ncell}, m {m})")
+            nedge += 1
+    del stats, state, keep, got, want
+    rate = hbm_rate(kind)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 11)
+    t = {}
+    for name, ntime, ncell, w in (
+            ("frbflag", GULP, NCHAN, FRB_FLAG["window"]),
+            ("dq", N_INT, BCHAN * NSTAND * NPOL, DQ_WINDOW)):
+        plan = Flag(method="cuda").init(w, algo="mad")
+        n = ntime // w
+        pw = torch.empty(n, w, ncell, device=dev).exponential_(generator=gen)
+        stats = plan._window_stats(pw)
+        del pw
+        state = fk.flag_walk(stats, w, plan.init_state(ncell, dev),
+                             W1_PARAMS, "mad")[2]
+        got = fk.flag_walk(stats, w, state, W1_PARAMS, "mad")
+        want = fk.flag_walk_plain(stats, w, state, W1_PARAMS, "mad")
+        torch.cuda.synchronize()
+        if not walk_equal(got, want):
+            raise AssertionError(f"flag_walk differs from plain ({name})")
+        nbytes, nops = walk_work(n, ncell)
+        t[name] = {
+            "ms": cuda_time(lambda: fk.flag_walk(stats, w, state, W1_PARAMS,
+                                                 "mad"), 20),
+            "plain_ms": cuda_time(lambda: fk.flag_walk_plain(
+                stats, w, state, W1_PARAMS, "mad"), 3),
+            "library_ms": None,
+            "bound_ms": bound(nbytes, nops, rate)[0],
+            "bound_by": bound(nbytes, nops, rate)[1],
+            "max_abs_err": float((got[1] - want[1]).abs().max()),
+            "gb": nbytes / 1e9, "shape": (n, ncell),
+            "flagged": float(got[0].float().mean())}
+        del stats, state, got, want
+    for name, r in t.items():
+        phase("kernels", f"flag_walk (W1) equal to plain (tolerance: "
+              f"bitwise) at [{name}]'s {r['shape'][0]} x {r['shape'][1]} "
+              f"(flagged {r['flagged']:.4f}) and on {nedge} edge cases; "
+              f"{r['ms']:.4f} ms per gulp (1 launch), plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}: {r['gb']:.4f} GB), {kind}")
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    return {"name": "flag_walk", "route": "cuda",
+            "source": "bifrost_tpu_torch/csrc/flag.cu",
+            "replaces": "bifrost_tpu/ops/flag.py:269",
+            "launches": None, **{k: t["frbflag"][k] for k in keys},
+            "library_call": "none: no single PyTorch call computes a "
+                            "recurrence over windows",
+            "at_dq": {k: t["dq"][k] for k in keys}}
+
+
+def ff_steady(ledger, t1):
+    """Steady frames/s of an FRB chain from its first committed gulp to
+    the end of its run at host time t1."""
+    return (ledger.committed_frames - ledger.first_sink_nframe) / \
+        (t1 - ledger.first_sink_t)
+
+
 def frbflag_path(dev):
     """The FRB search with the RFI flagger (module docstring, phase 7).
     -> the kernels' launch counts in the main run."""
-    from bifrost_tpu_torch import config
+    from bifrost_tpu_torch import config, trace
     from bifrost_tpu_torch.blocks.testing import narrowband_storm
     from bifrost_tpu_torch.service import frb_search_pipeline
     data = frb_data()
@@ -2688,11 +2868,12 @@ def frbflag_path(dev):
     t1 = time.perf_counter()
     counts = read_counts()
     wall = t1 - t0
-    steady = (ledger.committed_frames - ledger.first_sink_nframe) / \
-        (t1 - ledger.first_sink_t)
+    steady = ff_steady(ledger, t1)
     blocks = {b.name: b for b in pipe.blocks}
     nsteps = len(blocks["fdmt"].fdmt._steps)
-    expect = expected(fdmt_merge_step=nsteps * NGULP, dq_masked_fill=NGULP)
+    # GULP is a multiple of the window: one W1 launch a gulp, as K5a.
+    expect = expected(fdmt_merge_step=nsteps * NGULP, dq_masked_fill=NGULP,
+                      flag_walk=NGULP)
     if counts != expect:
         raise AssertionError(f"launches {counts}, expected {expect}")
     nvec = check_vectors(counts)
@@ -2719,8 +2900,9 @@ def frbflag_path(dev):
           f"storm of {len(chans)} channels (p_on {STORM['p_on']}) from "
           f"gulp {STORM_GULP0}: {wall:.3f} s, {nframe / wall:.1f} frames/s "
           f"with start-up; steady state {steady:.1f} frames/s (from the "
-          f"first committed gulp); launches {counts} (K5a: {nvec} "
-          f"vector); ledger {s}; candidate {best}; busy storm windows flagged "
+          f"first committed gulp; W1's walk); launches {counts} (K5a: "
+          f"{nvec} vector); ledger {s}; candidate {best}; busy storm "
+          f"windows flagged "
           f"{int(busy.sum())}/{int(busy.sum())}; flagged fraction "
           f"{flag.flagged_fraction:.6f}; clean cells flagged "
           f"{clean_share:.6f}")
@@ -2728,24 +2910,69 @@ def frbflag_path(dev):
             for b in pipe.blocks}
     phase("frbflag", f"host seconds by block and phase: {json.dumps(perf)}")
     del pipe, det, blocks, flag
-    ref = []
-    config.set("dq_flag_method", "plain")
-    try:
-        frb_search_pipeline(data, GULP, MAX_DELAY, F0, DF, DT, device=dev,
-                            gather=ref, fdmt_method="plain",
-                            rfi_flag=FRB_FLAG)[0].run()
-    finally:
-        config.reset("dq_flag_method")
-    if len(chunks) != NGULP or len(ref) != NGULP:
-        raise AssertionError(f"gathered {len(chunks)}/{len(ref)} gulps")
-    for x, y in zip(chunks, ref):
-        if x.shape != y.shape or not np.isfinite(x).all() or \
-                not np.array_equal(x.view(np.uint32), y.view(np.uint32)):
-            raise AssertionError("flagged dedispersed gulps: kernels != "
-                                 "plain")
+    rates = {"W1": steady}
+    for tag, fdmt_method in (("flagger plain", None),
+                             ("all plain", "plain")):
+        ref = []
+        config.set("dq_flag_method", "plain")
+        try:
+            pipe, _, led = frb_search_pipeline(
+                data, GULP, MAX_DELAY, F0, DF, DT, device=dev, gather=ref,
+                fdmt_method=fdmt_method, rfi_flag=FRB_FLAG)
+            reset_counts()
+            pipe.run()
+            torch.cuda.synchronize()
+            rates[tag] = ff_steady(led, time.perf_counter())
+        finally:
+            config.reset("dq_flag_method")
+        if read_counts()["flag_walk"] or len(chunks) != NGULP or \
+                len(ref) != NGULP:
+            raise AssertionError(f"{tag}: gathered {len(chunks)}/{len(ref)} "
+                                 f"gulps, launches {read_counts()}")
+        for x, y in zip(chunks, ref):
+            if x.shape != y.shape or not np.isfinite(x).all() or \
+                    not np.array_equal(x.view(np.uint32), y.view(np.uint32)):
+                raise AssertionError(f"flagged dedispersed gulps: kernels != "
+                                     f"{tag}")
+        del pipe, led, ref
+        free_device()
     phase("frbflag", f"dedispersed gulps ({NGULP} x {MAX_DELAY} x {GULP}) "
-          f"bitwise equal: K5a and K1 vs dq_flag_method and fdmt_method "
-          f"'plain'")
+          f"bitwise equal: W1, K5a and K1 vs dq_flag_method 'plain' (K1 on)"
+          f" and vs dq_flag_method and fdmt_method 'plain'; steady frames/s "
+          f"in this process, one after the other: "
+          f"{json.dumps({k: round(v, 1) for k, v in rates.items()})}")
+
+    # The chain with W1, traced: the card's idle share and its top ops.
+    shutil.rmtree(FF_TRACE_DIR, ignore_errors=True)
+    traced = []
+    pipe, _, led = frb_search_pipeline(
+        data, GULP, MAX_DELAY, F0, DF, DT, device=dev, gather=traced,
+        rfi_flag=FRB_FLAG)
+    reset_counts()
+    trace.start_profile(str(FF_TRACE_DIR), device=dev)
+    try:
+        pipe.run()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    finally:
+        path = trace.stop_profile()
+    tcounts = read_counts()
+    host = {b.name: {k: round(v, 4) for k, v in b.perf_totals.items()}
+            for b in pipe.blocks}
+    nk1, idle, busy, kinds, top = ob_idle(path, NGULP)
+    if tcounts != expect or nk1 != tcounts["fdmt_merge_step"] or \
+            not all(np.array_equal(x.view(np.uint32), y.view(np.uint32))
+                    for x, y in zip(traced, chunks)):
+        raise AssertionError(f"traced run: K1 events {nk1}, launches "
+                             f"{tcounts}")
+    phase("frbflag", f"traced run ({path}; outputs bitwise the first run's, "
+          f"launches equal): steady {ff_steady(led, t1):.1f} frames/s under "
+          f"the profiler; over the steady window (first to last K1 launch) "
+          f"the card idle {idle:.4f}, busy {busy:.4f} ms a gulp; device ms a "
+          f"gulp by kind {kinds}; top device ops, ms a gulp: "
+          f"{json.dumps(top)}; host s by block and phase "
+          f"{json.dumps(host)}")
+    del pipe, led, traced
     return counts
 
 
@@ -2838,6 +3065,7 @@ def dq_path(dev, volt, spec):
     nfdmt = B_NINT - B_MAX_DELAY
     expect = expected(fir_mac=B_NINT, beamform_power=B_NINT,
                       dq_masked_fill=B_NINT, dq_gain_apply=B_NINT,
+                      flag_walk=B_NINT,
                       fdmt_merge_step=nfdmt *
                       len(blocks["bdetect_fdmt"].fdmt._steps))
     if counts != expect:
@@ -3050,6 +3278,10 @@ def fusion_path(dev, kind, volt):
     counts["fusion_dq"] = fusion_chain(
         dev, "DQ beam search", dq, len(volt), B_GULP,
         "station-pol samples/s", nsp, equal_arrays)
+    c = counts["fusion_dq"]
+    if not c["flag_walk"] == c["dq_masked_fill"] == B_NINT:
+        raise AssertionError(f"DQ beam search: W1 and K5a once a gulp, "
+                             f"launches {c}")
 
     short = volt[:FX_NINT * B_GULP]
 
@@ -3685,10 +3917,13 @@ def capture_path(dev, volt):
     rc = harness._check(0, str(dev))
     wall = time.perf_counter() - t0
     counts = read_counts()
+    # rfi_storm's gulps of 64 frames are 4 whole windows: one W1 launch
+    # a gulp, as K5a.
     if rc != 0 or not counts["fdmt_merge_step"] or \
             not counts["dq_masked_fill"] or \
             counts != expected(fdmt_merge_step=counts["fdmt_merge_step"],
-                               dq_masked_fill=counts["dq_masked_fill"]):
+                               dq_masked_fill=counts["dq_masked_fill"],
+                               flag_walk=counts["dq_masked_fill"]):
         raise AssertionError(f"chaos --check: rc {rc}, launches {counts}")
     phase("capture", f"(d) benchmarks_torch/frb_service.py --check on "
           f"{dev}: every scenario passed, the restart storm's signature "
@@ -5731,8 +5966,8 @@ def fleet_path(dev, kind, volt, inst_bare):
     want["fdmt_merge_step"] -= nsteps
     if counts != want:
         raise AssertionError(f"fleet launches {counts}, expected {want}")
-    for k in ("dq_masked_fill", "dq_gain_apply", "romein_grid_general",
-              "xengine_int8"):
+    for k in ("dq_masked_fill", "dq_gain_apply", "flag_walk",
+              "romein_grid_general", "xengine_int8"):
         if counts[k]:
             raise AssertionError(f"fleet: {k} launched")
 
@@ -7630,6 +7865,7 @@ def main():
     time_dft(dev, kind, rng)
     recs += check_romein(dev, kind)
     recs += check_dq(dev, kind)
+    recs.append(check_flag_walk(dev, kind))
     time_xstages(dev, kind)
     free_device()
     t1 = time.perf_counter()

@@ -442,3 +442,76 @@ def test_four_lwa_frb_search_services_share_one_reuseport_port():
     assert all(r.exit_code == 0 for r in reports), reports
     assert len(health) == nshard and all(h is not None for h in health)
     assert [st["ngood"] for st in stats] == [per * nframe] * nshard
+
+
+# ------------------------------------- a capture no packet ever reaches
+_UNFED = r"""
+import importlib.util, json, os, sys, time
+sys.path.insert(0, {root!r})
+if {pkg!r} == "port":
+    from bifrost_tpu_torch import service as mod, udp as udp_mod
+else:
+    from bifrost_tpu import service as mod, udp as udp_mod
+spec_ = importlib.util.spec_from_file_location(
+    "h", os.path.join({root!r}, "benchmarks_torch", "frb_service.py"))
+H = importlib.util.module_from_spec(spec_)
+spec_.loader.exec_module(H)
+rx = udp_mod.UDPSocket().bind("127.0.0.1", 0)
+rx.set_timeout(0.05)
+spec = mod.frb_search_spec(
+    rx, H.NSRC, H.PAYLOAD, buffer_ntime=H.BUFFER_NTIME,
+    slot_ntime=H.SLOT_NTIME, gulp_nframe=H.GULP_NFRAME,
+    max_delay=H.MAX_DELAY, threshold=8.0)
+kw = {{"device": "cpu"}} if {pkg!r} == "port" else {{}}
+svc = mod.Service(spec, name="unfed_{pkg}", **kw)
+svc.start()
+time.sleep(1.0)
+t0 = time.monotonic()
+rep = svc.stop(timeout={timeout})
+print(json.dumps({{
+    "seconds": time.monotonic() - t0, "exit_code": rep.exit_code,
+    "state": rep.state, "committed": rep.ledger["committed_frames"],
+    "outcomes": {{b: v["outcome"] for b, v in
+                 rep.drain.blocks.items()}}}}))
+sys.stdout.flush()
+os._exit(0)
+"""
+
+
+def test_unfed_capture_service_stops_as_the_jax_service_does():
+    """A socket-fed FRB Service whose capture never receives a packet
+    (a SO_REUSEPORT shard no flow is steered to) never initializes its
+    chain, in both packages: `stop(timeout=3)` drains the capture, the
+    blocks after it wait at the initialization barrier until the
+    timeout interrupts them, and the report is degraded (exit code 1)
+    with no frame committed, the same in the port and the JAX package.
+    Each package runs in a process of its own under a 120 s limit."""
+    import json
+    import subprocess
+    import sys
+    timeout = 3.0
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    procs = {pkg: subprocess.Popen(
+        [sys.executable, "-c", _UNFED.format(root=ROOT, pkg=pkg,
+                                             timeout=timeout)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+        for pkg in ("port", "jax")}
+    res = {}
+    try:
+        for pkg, p in procs.items():
+            out, err = p.communicate(timeout=120)
+            assert p.returncode == 0, err[-2000:]
+            res[pkg] = json.loads(out.strip().splitlines()[-1])
+    finally:
+        for p in procs.values():
+            p.kill()
+    for r in res.values():
+        assert r["seconds"] >= timeout
+        assert r["exit_code"] == service.EXIT_DEGRADED
+        assert r["state"] == "degraded" and r["committed"] == 0
+        assert r["outcomes"] == {"capture": "drained",
+                                 "transpose": "interrupted",
+                                 "fdmt": "interrupted",
+                                 "detect": "interrupted"}
+    assert {k: v for k, v in res["port"].items() if k != "seconds"} == \
+        {k: v for k, v in res["jax"].items() if k != "seconds"}

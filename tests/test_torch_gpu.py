@@ -674,6 +674,141 @@ def test_flag_and_gaincal_cuda_match_cpu(cuda):
     assert _bits_equal(torch.view_as_real(a.cpu()), torch.view_as_real(b))
 
 
+def _walk_case(algo, n, ncell, m, params, seed):
+    """Statistics and state (numpy f32) for W1's edge checks: warm counts
+    0, 1, 5, WARM_CAP - 1 and WARM_CAP; -0.0 centres; -0.0 statistics,
+    and one NaN statistic in a few cells; in window 0, cells tied
+    exactly with each threshold, computed with f32 roundings as the
+    plain walk computes them (the SK threshold as the f32 value of its
+    f64 product) -> (stats, state, number of tied cells)."""
+    from bifrost_tpu_torch.ops.flag_kernel import WARM_CAP
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    p_thresh, p_mad = f32(params[0]), f32(params[1])
+    sig, eps = f32(1.4826), f32(1e-6)
+    k = np.arange(ncell)
+    warm = rng.choice(np.array([0, 0, 1, 5, WARM_CAP - 1, WARM_CAP], f32),
+                      ncell)
+    c = rng.uniform(1, 4, ncell).astype(f32)
+    s = rng.uniform(0.2, 1, ncell).astype(f32)
+    c[k % 13 == 6] = -0.0
+    z = rng.standard_normal((n, ncell)).astype(f32)
+    u = rng.uniform(0.3, 6, (n, ncell)).astype(f32)
+    if algo == "mad":
+        stats = [c + f32(6) * z * s, s * u, rng.uniform(0.3, 1, n)
+                 .astype(f32)]
+    else:
+        stats = [f32(1) + f32(2) * z, c * u]
+    for j, a in enumerate(stats[:2]):
+        a[rng.random(a.shape) < 0.01] = -0.0
+        nan = k % 31 == 7 + j          # a NaN taints a cell from then on
+        a[rng.integers(0, n, ncell)[nan], nan] = np.nan
+    warmed = warm > 0
+    if algo == "mad":
+        if n > 2:
+            stats[2][n // 2] = np.nan
+        t = [(k % 13 == 1) & warmed, (k % 13 == 2) & warmed,
+             (k % 13 == 3) & ~warmed]
+        c[t[0]] = 0.0
+        stats[0][0, t[0]] = p_thresh * (sig * s[t[0]] + eps)
+        stats[1][0, t[1]] = p_mad * (s[t[1]] + eps)
+        stats[1][0, t[2]] = p_mad * (stats[2][0] + eps)
+    else:
+        thr = f32(float(p_thresh) * float(f32(np.sqrt(4.0 / max(m, 2)))))
+        t = [k % 13 == 1, (k % 13 == 2) & warmed]
+        stats[0][0, t[0]] = f32(1) - thr
+        c[t[1]] = 0.0
+        stats[1][0, t[1]] = p_mad * (c[t[1]] + eps)
+    state = np.stack([c, s, warm])
+    return stats, state, int(sum(x.sum() for x in t))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo", ["mad", "sk"])
+@pytest.mark.parametrize("n,ncell,m,strided", [
+    (256, 4096, 16, False), (1, 2_097_152, 16, False), (1, 4096, 12, False),
+    (3, 1000, 5, True), (9, 300, 16, True)])
+def test_flag_walk_kernel_bitwise_vs_plain(cuda, algo, n, ncell, m,
+                                           strided):
+    """W1 against its plain walk, bitwise: [frbflag]'s 256 windows x 4096
+    channels and [dq]'s one window of 2,097,152 cells, tail segments (12
+    and 5 frames: an SK threshold that is not an f32 product), windows
+    past a thread's chunk of 8; ties at each threshold, NaN and -0.0
+    statistics, -0.0 centres, warm counts at and one short of the cap;
+    statistics and state read through element strides.  The caller's
+    state is left as it was."""
+    from bifrost_tpu_torch.ops.flag_kernel import flag_walk, flag_walk_plain
+    params = (6.0, 4.0, 0.25)
+    stats, state, ntie = _walk_case(algo, n, ncell, m, params, 40 + n)
+    assert ntie > 0
+
+    def put(a):
+        t = torch.from_numpy(a).to(cuda)
+        if not strided:
+            return t
+        wide = torch.full(a.shape[:-1] + (2 * a.shape[-1],), float("nan"),
+                          device=cuda)
+        wide[..., ::2] = t
+        return wide[..., ::2]
+
+    stats = [put(a) for a in stats[:2]] + \
+        [torch.from_numpy(a).to(cuda) for a in stats[2:]]
+    state = put(state)
+    keep = state.clone()
+    before = flag_walk.launches
+    got = flag_walk(stats, m, state, params, algo)
+    assert flag_walk.launches == before + 1
+    want = flag_walk_plain(stats, m, state, params, algo)
+    torch.cuda.synchronize()
+    assert got[0].dtype == torch.bool and torch.equal(got[0], want[0])
+    assert want[0].any() and not want[0].all()
+    assert _bits_equal(got[1], want[1]) and _bits_equal(got[2], want[2])
+    assert _bits_equal(state, keep)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo", ["mad", "sk"])
+def test_flag_cuda_bitwise_plain_every_form(cuda, algo):
+    """Flag.execute / execute_raw under 'cuda' (W1, K5a) against 'plain'
+    on the card, bitwise, on u8, f32 (also with fill='baseline'), c64 and
+    ci8 gulps of 150 frames at window 16 (9 windows and a tail: two W1
+    launches a gulp), two gulps from the carried baseline."""
+    from bifrost_tpu_torch.ops import Flag, dq_kernel, flag_kernel
+    rng = np.random.default_rng(41)
+    forms = {"u8": rng.integers(0, 32, (150, 40)).astype(np.uint8),
+             "f32": (rng.standard_normal((150, 8, 5)) ** 2)
+             .astype(np.float32),
+             "c64": (rng.standard_normal((150, 8, 5)) +
+                     1j * rng.standard_normal((150, 8, 5)))
+             .astype(np.complex64),
+             "ci8": rng.integers(-20, 20, (150, 6, 4, 2)).astype(np.int8)}
+    forms["u8"][64:, 5] = 250
+    forms["f32"][80:, 3, 2] += 30.0
+    forms["c64"][96:, 3, 1] += 25.0
+    forms["ci8"][64:, 2, 1] = 100
+    for name, a in forms.items():
+        for fill in (("zero", "baseline") if name in ("u8", "f32")
+                     else ("zero",)):
+            plans = [Flag(method=mth).init(16, algo=algo, fill=fill)
+                     for mth in ("cuda", "plain")]
+            for g in range(2):
+                x = torch.from_numpy(a[::-1].copy() if g else a).to(cuda)
+                w0 = flag_kernel.flag_walk.launches
+                f0 = dq_kernel.masked_fill.launches
+                res = [p.execute_raw(x, "ci8") if name == "ci8"
+                       else p.execute(x) for p in plans]
+                assert flag_kernel.flag_walk.launches == w0 + 2
+                assert dq_kernel.masked_fill.launches == f0 + 1
+                (y1, m1), (y2, m2) = res
+                torch.cuda.synchronize()
+                assert torch.equal(m1, m2) and m1.any(), (name, fill, g)
+                if y1.is_complex():
+                    y1, y2 = torch.view_as_real(y1), torch.view_as_real(y2)
+                assert torch.equal(y1.view(torch.uint8).flatten(),
+                                   y2.view(torch.uint8).flatten())
+                assert _bits_equal(plans[0]._state, plans[1]._state)
+
+
 # ------------------------------------------------------------ egress plane
 
 class _Collect(object):
