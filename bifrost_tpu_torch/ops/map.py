@@ -1462,8 +1462,8 @@ def _eager_cuda(compiled, arrs, scalar_names, method, shape):
     plain engine returns it.  The explicit form: every statement over
     the grid `shape`, each input read at its computed indices through its
     own shape and strides; a statement whose left-hand index is not the
-    axis names scatters into a copy of its target (two launches,
-    ops/map_kernel.py).  A statement that reads what an earlier one
+    axis names scatters into a copy of its target (two launches, one
+    where the scatter is injective: ops/map_kernel.py).  A statement that reads what an earlier one
     scattered starts a program of its own (`_scatter_segments`), each
     segment's results the next one's inputs; a scatter writes a copy of
     its ORIGINAL target (the JAX package's quirk), so a later segment's
@@ -1593,8 +1593,10 @@ def map(func_string, data, axis_names=None, shape=None, func_name=None,
     for CUDA tensors (`_eager_cuda`): the broadcasting form, every
     statement that depends on an array written by one launch at its own
     shape; the explicit-index form over `shape` in one launch, two where
-    a statement scatters, a program of its own from each statement that
-    reads what an earlier one scattered; inlinable helpers inlined.  What the generator
+    a statement scatters (one where the scatter is an injective
+    permutation of the grid axes), a program of its own from each
+    statement that reads what an earlier one scattered; inlinable helpers
+    inlined.  What the generator
     refuses runs on the plain engine under 'auto' and raises under
     'cuda'.  'plain' runs the plain engine.
     """

@@ -74,21 +74,34 @@ Forms (`Map.fuse_form` and the eager call):
   at most `MAX_RANK`, each input read at its computed indices through
   its own shape and strides (``wrapclamp``), a whole-array read through
   its broadcast strides; index arithmetic in the plain engine's int32.
+  A read whose indices are each ``+-axis + offset`` over distinct
+  axes, or an offset alone (the offset an int expression of scalars and
+  sizes), is affine (`_Gen.sites`): where the launch finds it inside its
+  input, the tile and vector paths take its value in ``pre`` (no
+  ``wrapclamp``).  The tile path (`Program._gather_src`) stages the
+  reads whose contiguous axis is not the output's innermost through
+  shared memory (`tile_geometry`); the vector path takes V samples along
+  the innermost axis, a read forward or reversed in one access.
   A statement whose left-hand index is not the axis names scatters, as
-  jnp's ``.at[idx].set``, into a copy of its target (the launch makes
-  it; the right-hand side reads the original): an index wraps once if
-  negative, an update still out of bounds is dropped (``wrapdrop``),
-  and of repeated targets the highest source position, row-major over
-  the grid, wins.  Such a program is two launches: pass 1 raises each
-  target's owner word to its largest source position + 1
-  (``atomicMax``), pass 2 writes where the owner is the thread's own;
+  jnp's ``.at[idx].set``, into a copy of its target (the right-hand
+  side reads the original): an index wraps once if negative, an update
+  still out of bounds is dropped (``wrapdrop``), and of repeated targets
+  the highest source position, row-major over the grid, wins.  Such a
+  program is two launches over a copy the launch makes: pass 1 raises
+  each target's owner word to its largest source position + 1
+  (``atomicMax``), pass 2 writes where the owner is the thread's own.
+  Where its indices are a permutation of the grid axes, each
+  ``+-axis + offset`` (`_Gen.one_pass`), the launch finds them inside
+  the target and the scatter is the program's only output, the map is
+  injective: one launch (pass 3) over the target's shape computes each
+  element at its source (``to_grid``) or keeps the target's value;
 - ``forward`` and ``unbounded``: the streaming forms whose frames are
   not gulp-resident (``x(t+1)``, ``x(nt-1-t)``, a temp's history, a
   stencil beside a whole-array read, a permuted left-hand index, which
   the plain engine ignores as the JAX package's ``_stream_eval`` does),
   on the gulp alone: every time index computed per element with
   ``wrapclamp``, temps recomputed where they are read.  The element
-  path only (V = 1), as for ``gather``.
+  path only (V = 1).
 
 In every form a tensor of one axis or more bound as a scalar is a
 constant array, read at the output's coordinates through its broadcast
@@ -141,15 +154,22 @@ FORMS = ("elementwise", "local", "stencil", "eager", "forward", "unbounded")
 # What the kernel does not implement there stays a `Refusal`.
 NEW_FORMS = ("gather", "forward", "unbounded")
 # The launch header, the first meta words (map_kernel.pack): n output
-# elements, ncarry carry elements, the path (1 vector, 0 element), nd
+# elements, ncarry carry elements, the path (1 vector, 0 element, 2 the
+# gather form's tile), nd
 # axes that are not padding (the elementwise and eager forms), nvec
 # vector items (elementwise, eager), nci channel items and nruns frame
 # runs (local, stencil), the input's channel extent and its divider (the
 # stencil's carry), and a scatter's pass (0 none, 1 the owners, 2 the
-# writes).
+# writes, 3 an injective scatter's one pass).
 HEADER = ("n", "ncarry", "vec", "nd", "nvec", "nci", "nruns", "chan",
           "chan_m", "chan_s", "pass")
 BLOCK = 256
+# The gather form's tile path (`tile_geometry`): (TP, TQ) by the element
+# size of its widest turned read, at most TILE_SLOTS reads in shared
+# memory, TILE_BYTES of it a block.
+TILES = {1: (64, 64), 2: (64, 64), 4: (32, 32), 8: (32, 32), 16: (32, 32)}
+TILE_SLOTS = 4
+TILE_BYTES = 40 * 1024
 # Bytes a vector path may hold live a thread (V values of the widest
 # logical type, or the stencil's window): the budget V is cut to.
 VEC_BYTES = 256
@@ -469,6 +489,14 @@ class _Gen(object):
         self.window = False
         self.two_d = form in ("local", "stencil", "forward", "unbounded")
         self.bare_names = set()      # inputs a gather form reads whole
+        # The gather form's affine reads ('sites'): (input index, its
+        # components (sign, grid axis, offset source) an input axis), each
+        # read from ``pre.r<site>`` on the tile and vector paths; and the
+        # components of a scatter whose left-hand index is a permutation
+        # of the grid axes (`one_pass`: statement, components).
+        self.sites = []
+        self.one_pass = None
+        self._collect_sites = form == "gather"
 
     # ------------------------------------------------------- bindings
     def layout(self, rank):
@@ -528,6 +556,76 @@ class _Gen(object):
                 self.owner_ptr[j] = nptr
                 nptr += 1
         self.nptr = nptr
+
+    def size_word(self, d):
+        """The C expression of the grid's extent along axis `d`: the
+        gather form keeps the grid's shape apart (`GSH`), since a one-pass
+        scatter walks its target's shape."""
+        if self.form == "gather":
+            return f"p.m[GSH + {d}]"
+        return f"p.m[{self.shape_off + d}]"
+
+    def gather_layout(self):
+        """The gather form's meta words after the scalars and the hoisted
+        values: the grid's shape (`GSH`), a one-pass scatter's offsets
+        (`CMAP`: c[a] = +-y[b] + word a), each affine read's words
+        (`site_off`: its offset at grid coordinate 0, its step a grid
+        axis, its path mode) and the tile's (`TILEW`: the axes p and q,
+        the tiles along each, the tiles in all)."""
+        R = self.R
+        self.gsh_off = self.nmeta
+        self.cmap_off = self.gsh_off + R
+        self.site_off = [self.cmap_off + R + (R + 2) * r
+                         for r in range(len(self.sites))]
+        self.tile_off = self.cmap_off + R + (R + 2) * len(self.sites)
+        self.nmeta = self.tile_off + 5
+
+    def _affine(self, nodes, env):
+        """Index expressions `nodes` -> their components (sign, grid axis,
+        offset source) where each is ``+-axis + offset`` over distinct
+        axes, or an offset alone (sign 0), the offset an int expression
+        of literals, int scalars and sizes (evaluated at launch,
+        `Program.offsets`); None otherwise."""
+        comps, used = [], set()
+        for n in nodes:
+            a = self._affine1(n, env)
+            if a is None or abs(a[0]) > 1 or (a[0] and a[1] in used):
+                return None
+            if a[0]:
+                used.add(a[1])
+            comps.append((a[0], a[1] if a[0] else None, a[2]))
+        return comps
+
+    def _affine1(self, node, env):
+        if isinstance(node, ast.Name):
+            kind, v = env.get(node.id, (None, None))
+            if kind == "axis":
+                return 1, v, "0"
+            if kind == "size" or (kind in ("scalar", "const") and
+                                  type(v) is int):
+                return 0, None, node.id
+            return None
+        if isinstance(node, ast.Constant):
+            return (0, None, repr(node.value)) \
+                if type(node.value) is int else None
+        if isinstance(node, ast.UnaryOp) and \
+                isinstance(node.op, (ast.USub, ast.UAdd)):
+            a = self._affine1(node.operand, env)
+            if a is None or isinstance(node.op, ast.UAdd):
+                return a
+            return -a[0], a[1], f"-({a[2]})"
+        if not isinstance(node, ast.BinOp):
+            return None
+        a, b = self._affine1(node.left, env), self._affine1(node.right, env)
+        if a is None or b is None or (a[0] and b[0]):
+            return None
+        if isinstance(node.op, (ast.Add, ast.Sub)):
+            sg = 1 if isinstance(node.op, ast.Add) else -1
+            return (a[0] + sg * b[0], a[1] if a[0] else b[1],
+                    f"({a[2]}) {'+' if sg > 0 else '-'} ({b[2]})")
+        if isinstance(node.op, ast.Mult) and not (a[0] or b[0]):
+            return 0, None, f"({a[2]}) * ({b[2]})"
+        return None
 
     def target(self, k):
         """The input a scatter statement `k` writes a copy of."""
@@ -601,7 +699,8 @@ class _Gen(object):
         if self.form == "stencil" and not inp.bcast:
             return f.let(ct, self._load_stencil(inp, idx, k))
         bs = self.in_off[k][3]
-        pre = not self.two_d
+        # (the gather form's `pre` holds its affine reads alone)
+        pre = not self.two_d and self.form != "gather"
         if bare and bs is not None:
             mem = self._ld(k, [f"c[{d}]" for d in range(self.R)], bs)
             return f.let(ct, f"PRE ? pre.in{k} : {mem}" if pre else mem)
@@ -775,7 +874,7 @@ class _Gen(object):
             return _Val(f"((int32_t)(c[{v}]{pad}))", _rep_of(torch.int32))
         if kind == "size":
             self.uses_coords = True
-            return _Val(f"p.m[{self.shape_off + v}]", 1, host=True)
+            return _Val(self.size_word(v), 1, host=True)
         if kind == "input":
             if self.form == "stencil" and not v.bcast:
                 raise Unsupported("a whole-array reference in a stencil")
@@ -815,6 +914,17 @@ class _Gen(object):
             f.lines.append(f"  const I {name}[{max(len(idx), 1)}] = {{" +
                            ", ".join(f"wrapclamp<I>({v.code}, {n})"
                                      for v, n in zip(idx, dims)) + "};")
+            comps = self._affine(idx_nodes, env) \
+                if self._collect_sites else None
+            if comps is not None:
+                # an affine read: on the tile and vector paths its value
+                # comes in `pre` (the launch checked it stays inside)
+                r = len(self.sites)
+                self.sites.append((k, comps))
+                mem = self._ld(k, [f"{name}[{d}]" for d in range(inp.rank)])
+                return _Val(f.let(C_TYPES[inp.dtype],
+                                  f"PRE ? pre.r{r} : {mem}"),
+                            _rep_of(inp.dtype, dim0))
             return _Val(self.load(f, inp, name,
                                   window=self._window_offset(k, idx_nodes)),
                         _rep_of(inp.dtype, dim0))
@@ -823,7 +933,7 @@ class _Gen(object):
             raise IndexError(f"map: {node.value.id!r} takes {self.R} "
                              f"indices, got {len(idx)}")
         f.lines.append(f"  const I {name}[{self.R}] = {{" + ", ".join(
-            f"wrapclamp<I>({v.code}, (I)p.m[{self.shape_off + d}])"
+            f"wrapclamp<I>({v.code}, (I){self.size_word(d)})"
             for d, v in enumerate(idx)) + "};")
         rep = self.stmt_types[k]
         return _Val(f.let(C_TYPES[rep.dtype],
@@ -1152,11 +1262,21 @@ class _Gen(object):
         if len(trees) != inp.rank:
             raise IndexError(f"map: a {inp.rank}-d array scattered with "
                              f"{len(trees)} indices")
+        self._collect_sites = False
         idx = self._indices(f, trees, env)
+        self._collect_sites = self.form == "gather"
         so = self.out_off[self.out_idx.index(k)] \
             if k in self.out_idx else None
         if so is None:
             return                       # overwritten by a later statement
+        comps = self._affine(trees, env)
+        if comps is not None and self.out_idx == [k] and \
+                inp.rank == self.R and \
+                sorted(a for _, a, _ in comps if a is not None) == \
+                list(range(self.R)):
+            # a permutation of the grid axes, each +-1: injective where
+            # the launch finds every index inside the target (one pass)
+            self.one_pass = (k, comps)
         f.lines.append("  bool ok = true;")
         f.lines += [f"  t[{d}] = wrapdrop<I>({v.code}, (I)p.m[{so + d}], "
                     f"ok);" for d, v in enumerate(idx)]
@@ -1490,6 +1610,8 @@ def _generate(statements, form, inputs, ns, arrays, out_names, axis_names,
     gen.layout(rank)
     for k, tree in enumerate(gen.trees):
         gen.statement(k, tree)
+    if form == "gather":
+        gen.gather_layout()
     return Program(gen, gen.out_idx)
 
 
@@ -1524,8 +1646,8 @@ def choose_vec(gen, out_dtypes):
     vector path)
     where a local or stencil form has no channel axis, or its window of
     noffset + 1 frames would not fit `VEC_BYTES`."""
-    if (gen.two_d and gen.R < 2) or gen.form in NEW_FORMS:
-        return 1                 # the new forms: the element path alone
+    if (gen.two_d and gen.R < 2) or gen.form in ("forward", "unbounded"):
+        return 1                 # the streamed new forms: the element path
     ins = _streamed(gen)
     sizes = [storage_bytes(i) for i in ins] + \
         [d.itemsize for d in out_dtypes]
@@ -1534,6 +1656,28 @@ def choose_vec(gen, out_dtypes):
             gen.inputs[0].dtype.itemsize > VEC_BYTES:
         return 1
     return v
+
+
+def tile_geometry(gen):
+    """The tile path's geometry for the gather form's affine reads ->
+    (TP, TQ, slots): a tile of TP grid steps along the turned reads'
+    contiguous axis p by TQ along the output's innermost axis q (`TILES`
+    by the widest slotted read's element size), and each slot (site,
+    element size, row pitch in elements, byte offset) of the shared
+    buffer; the first `TILE_SLOTS` reads that fit `TILE_BYTES` have one."""
+    sizes = [gen.inputs[k].dtype.itemsize for k, _ in gen.sites]
+    if not sizes:
+        return 0, 0, []
+    tp, tq = TILES[max(sizes[:TILE_SLOTS])]
+    slots, off = [], 0
+    for r, es in enumerate(sizes[:TILE_SLOTS]):
+        pitch = tp + max(1, 4 // es)      # odd words a row: no conflicts
+        nb = -(-tq * pitch * es // 16) * 16
+        if off + nb > TILE_BYTES:
+            break
+        slots.append((r, es, pitch, off))
+        off += nb
+    return tp, tq, slots
 
 
 def _min_vec(gen):
@@ -1592,6 +1736,13 @@ class Program(object):
         self.run = min(64, 8 * max(2, gen.noffset)) if gen.two_d else 1
         self.vec_note = None
         self.last_launch = None            # map_kernel's plan of the last
+        # The gather form's affine reads (input index, components) and a
+        # one-pass scatter's (statement, components); map_kernel checks
+        # at each launch where they stay inside (`offsets`).
+        self.sites = list(gen.sites)
+        self.one_pass = gen.one_pass
+        self.tile = tile_geometry(gen) if gen.form == "gather" else None
+        self._offsets = None
         self._gen, self._out_idx = gen, out_idx
         self.set_vec(choose_vec(gen, self.out_dtypes))
 
@@ -1606,6 +1757,32 @@ class Program(object):
         self.key = hashlib.sha256(self.source.encode()).hexdigest()[:16]
         self.name = f"map_{self.key}"
         self.lib = None
+
+    def offsets(self, scalars, grid):
+        """The offsets of the affine reads' and the one-pass scatter's
+        components at this launch, from the run-time `scalars` (name ->
+        value) and the grid's sizes -> (a tuple for each site, the
+        scatter's tuple or None); an offset that is not an int (a
+        scalar's value) is None."""
+        if self._offsets is None:
+            def code(comps):
+                return [compile(o, "<offset>", "eval") for _, _, o in comps]
+            self._offsets = ([code(c) for _, c in self.sites],
+                             code(self.one_pass[1]) if self.one_pass
+                             else None)
+        ns = dict(scalars)
+        ns.update({f"n{ax}": int(n) for ax, n in zip(self._axis_names,
+                                                      grid)})
+
+        def ev(codes):
+            out = []
+            for c in codes:
+                v = eval(c, {"__builtins__": {}}, ns)  # noqa: S307
+                out.append(v if type(v) is int else None)
+            return tuple(out)
+        sites, one = self._offsets
+        return (tuple(ev(c) for c in sites),
+                ev(one) if one is not None else None)
 
     def derive(self, scalars, out_shape):
         """The meta words of the hoisted values: each evaluated by the
@@ -1642,6 +1819,335 @@ class Program(object):
             else:
                 words.append(int(v))
         return words
+
+    @staticmethod
+    def _unflatten_src(gen):
+        H = {k: i for i, k in enumerate(HEADER)}
+        SH = gen.shape_off
+        return f"""// Coordinates of element (item) e over the element (item) extents: the
+// axes below R - nd are padding of extent 1.
+template <typename I, int DV>
+MAP_HD void unflatten(const P& p, I e, I* c) {{
+  const int nd = (int)p.m[{H['nd']}];
+  I r = e;
+#pragma unroll
+  for (int d = R - 1; d > 0; --d) {{
+    if (d > R - nd) {{
+      const I q = div_magic<I>(r, p.m[DV + 2 * (d - 1)], p.m[DV + 2 * (d - 1) + 1]);
+      c[d] = r - q * (I)(d == R - 1 && DV == {gen.divi_off} ? p.m[{SH} + d] / V : p.m[{SH} + d]);
+      r = q;
+    }} else {{
+      c[d] = r;
+      r = 0;
+    }}
+  }}
+  c[0] = r;
+}}"""
+
+    def _gather_src(self, gen, out_idx, stores, out_off):
+        """The gather form's items over the walked shape Y (the grid, or
+        a one-pass scatter's target): `to_grid` (grid coordinates c of
+        y, and whether c lies in the grid), `site_at` (an affine read's
+        offset at c), the element item, the vector item (each affine
+        read one vector access, forward or reversed, or one load), and
+        the tile's phases over (tile, thread, shared buffer): `tile_load`
+        moves each turned read's tile into shared memory along the
+        input's contiguous axis, `tile_store` computes each output from
+        it along the output's innermost axis -> (parts, kernel body,
+        host body, tile kernel and launch, host tile walk)."""
+        R, V, CH = gen.R, self.vec, self.chunk
+        nin = len(gen.inputs)
+        H = {k: i for i, k in enumerate(HEADER)}
+        SH = gen.shape_off
+        one = gen.one_pass
+        parts = []
+        if one is not None:
+            cm = "\n".join(
+                f"    c[{a}] = {'-' if sg < 0 else ''}y[{d}] + "
+                f"(I)p.m[CMAP + {a}];" for d, (sg, a, _) in enumerate(one[1]))
+            ing = " &&\n           ".join(
+                f"c[{a}] >= 0 && c[{a}] < (I)p.m[GSH + {a}]"
+                for a in range(R))
+            cm = (f"  if (p.m[PASS] == 3) {{\n{cm}\n    return {ing};\n"
+                  f"  }}\n")
+        else:
+            cm = ""
+        parts.append(f"""// The grid coordinates c of walked coordinates y: y itself, or under a
+// one-pass scatter (pass 3) the source of target element y; false where
+// c lies outside the grid (the target element keeps its value).
+template <typename I>
+MAP_HD bool to_grid(const P& p, const I* y, I* c) {{
+{cm}#pragma unroll
+  for (int d = 0; d < R; ++d) c[d] = y[d];
+  return true;
+}}
+
+// An affine read's storage offset at grid coordinates c, from its words
+// at w (the offset at c = 0, then its step a grid axis), in the unsigned
+// type: the launch checked that it lies inside the input.
+template <typename I>
+MAP_HD I site_at(const P& p, int w, const I* c) {{
+  using U = typename std::make_unsigned<I>::type;
+  U a = (U)p.m[w];
+#pragma unroll
+  for (int d = 0; d < R; ++d) a += (U)p.m[w + 1 + d] * (U)c[d];
+  return (I)a;
+}}""")
+        sw = gen.site_off
+
+        def site_ld(r, c):
+            k = gen.sites[r][0]
+            return gen._ld_at(k, f"p.ptr[{k}]",
+                              f"site_at<I>(p, {sw[r]}, {c})", None)
+
+        parts.append(f"""template <typename I>
+MAP_HD void elem_item(const P& p, I e) {{
+  I y[R], c[R];
+  unflatten<I, {gen.dive_off}>(p, e, y);
+  const bool ing = to_grid<I>(p, y, c);
+  (void)ing;
+  const Pre pre{{}};
+{stores("c", "pre", "false", "e", "y", "ing")}
+}}""")
+        if V > 1:
+            fields, loads, fill = [], [], []
+            for r, (k, _) in enumerate(gen.sites):
+                ct = C_TYPES[gen.inputs[k].dtype]
+                nb = V * gen.inputs[k].dtype.itemsize
+                fields.append(f"uint32_t w{r}[{(nb + 3) // 4}]; {ct} s{r}; "
+                              f"long long m{r};")
+                loads.append(
+                  f"  {{\n    const I a = site_at<I>(p, {sw[r]}, c);\n"
+                  f"    it.m{r} = p.m[{sw[r] + R + 1}];\n"
+                  f"    const {ct}* q = static_cast<const {ct}*>(p.ptr[{k}]);"
+                  f"\n    if (it.m{r} == 1) vld_words<{nb}>(it.w{r}, q + a);\n"
+                  f"    else if (it.m{r} == 2) vld_words<{nb}>(it.w{r}, "
+                  f"q + (a - (I)(V - 1)));\n"
+                  f"    else it.s{r} = {site_ld(r, 'c')};\n  }}")
+                part = _COMPLEX_PART.get(gen.inputs[k].dtype)
+                ex = (f"ex_cx<{part}>" if part else f"ex_real<{ct}>") + \
+                    f"(it.w{r}, {{j}})"
+                fill.append(f"        pre.r{r} = it.m{r} == 1 ? "
+                            f"{ex.format(j='j')} : it.m{r} == 2 ? "
+                            f"{ex.format(j='V - 1 - j')} : it.s{r};")
+            ys, comp, sts = [], [], []
+            for j, k in enumerate(out_idx):
+                t = C_TYPES[gen.out_dtype(j)]
+                if k in gen.scatter_stmt:
+                    if one is None or one[0] != k:
+                        continue          # a two-pass scatter: elements
+                    rt, so = self.scatters[j], gen.out_off[j]
+                    off = " + ".join(f"(I)it.y[{d}] * (I)p.m[{so + rt + d}]"
+                                     for d in range(rt))
+                    guard = "      "
+                else:
+                    off = out_off(j, "it.y")
+                    guard = f"      if (!(nz & p.m[{gen.out_off[j] + R}])) "
+                ys.append(f"      {t} o{j}[CH];")
+                comp.append(f"        o{j}[jj] = cvt<{t}>(s{k}<I, true>(p, "
+                            f"cj, pre));")
+                sts.append(f"{guard}vst<CH>(p.ptr[{nin + j}], {off} + "
+                           f"(I)(h * CH), o{j});")
+            nz = "\n".join(f"  nz |= (long long)(it.y[{d}] != 0) << {d};"
+                           for d in range(R - 1))
+            parts.append(f"""// A vector item: V consecutive samples of y along the innermost axis,
+// each affine read in one vector access (forward, or reversed: its words
+// taken from the last), or one load where the read does not move along
+// that axis; the statements on each sample, the outputs CH a store.
+template <typename I>
+struct Item {{ I y[R]; {' '.join(fields)} }};
+
+template <typename I>
+MAP_HD void vec_load(const P& p, I i, Item<I>& it) {{
+  unflatten<I, {gen.divi_off}>(p, i, it.y);
+  it.y[R - 1] *= V;
+  I c[R];
+  to_grid<I>(p, it.y, c);
+{chr(10).join(loads)}
+}}
+
+template <typename I>
+MAP_HD void vec_store(const P& p, const Item<I>& it) {{
+  long long nz = 0;
+{nz}
+  (void)nz;
+  I yj[R], cj[R];
+#pragma unroll
+  for (int d = 0; d < R; ++d) yj[d] = it.y[d];
+#pragma unroll
+  for (int h = 0; h < V / CH; ++h) {{
+{chr(10).join(ys)}
+#pragma unroll
+    for (int jj = 0; jj < CH; ++jj) {{
+      const int j = h * CH + jj;
+      yj[R - 1] = it.y[R - 1] + (I)j;
+      to_grid<I>(p, yj, cj);
+      Pre pre;
+{chr(10).join(fill)}
+{chr(10).join(comp)}
+    }}
+{chr(10).join(sts)}
+  }}
+}}""")
+        tp, tq, slots = self.tile
+        tile_kernel = tile_host = ""
+        if slots:
+            _, es, pitch, off = slots[-1]
+            shb = off + -(-tq * pitch * es // 16) * 16     # bytes in all
+            lds, pres = [], []
+            slotted = {r: (es, pitch, off) for r, es, pitch, off in slots}
+            for r, (k, _) in enumerate(gen.sites):
+                ct = C_TYPES[gen.inputs[k].dtype]
+                mode = f"p.m[{sw[r] + R + 1}]"
+                if r in slotted:
+                    _, pitch, off = slotted[r]
+                    lds.append(f"    if ({mode} == 3)\n      reinterpret_cast"
+                               f"<{ct}*>(sh + {off})[tq * {pitch} + tp] = "
+                               f"{site_ld(r, 'c')};")
+                    pres.append(f"    if ({mode} == 3) pre.r{r} = "
+                                f"reinterpret_cast<const {ct}*>(sh + {off})"
+                                f"[tq * {pitch} + tp];\n    else if (ing) "
+                                f"pre.r{r} = {site_ld(r, 'c')};")
+                else:
+                    pres.append(f"    if (ing) pre.r{r} = {site_ld(r, 'c')};")
+            walk = f"""  const int ap = (int)p.m[TILEW], aq = (int)p.m[TILEW + 1];
+  const I np = (I)p.m[{SH} + ap] - p0, nq = (I)p.m[{SH} + aq] - q0;"""
+            coords = """    I y[R], c[R];
+#pragma unroll
+    for (int d = 0; d < R; ++d)
+      y[d] = y0[d] + (d == ap ? (I)tp : (I)0) + (d == aq ? (I)tq : (I)0);"""
+            parts.append(f"""// The tile path: a block takes a tile of TP steps along the turned
+// reads' contiguous axis p by TQ along the output's innermost axis q
+// (the other axes fixed); each turned read's tile goes into shared
+// memory along p (rows padded to an odd number of words), then each
+// output is computed along q from it, the other reads read directly.
+constexpr int TP = {tp}, TQ = {tq}, NT = {BLOCK}, SHB = {shb};
+
+// Tile `tile`'s first coordinates y0 (its corner p0, q0 along p and q):
+// q's tiles fastest, then p's, then the other axes, innermost first.
+template <typename I>
+MAP_HD void tile_origin(const P& p, long long tile, I* y0, I& p0, I& q0) {{
+  const int ap = (int)p.m[TILEW], aq = (int)p.m[TILEW + 1];
+  long long r = tile;
+  q0 = (I)(r % p.m[TILEW + 3] * TQ);
+  r /= p.m[TILEW + 3];
+  p0 = (I)(r % p.m[TILEW + 2] * TP);
+  r /= p.m[TILEW + 2];
+#pragma unroll
+  for (int d = R - 1; d >= 0; --d) {{
+    if (d == aq) {{
+      y0[d] = q0;
+    }} else if (d == ap) {{
+      y0[d] = p0;
+    }} else {{
+      y0[d] = (I)(r % p.m[{SH} + d]);
+      r /= p.m[{SH} + d];
+    }}
+  }}
+}}
+
+// Thread t's share of the load phase: tile elements t, t + NT, ...,
+// p fastest, so that a warp reads along the input's contiguous axis.
+template <typename I>
+MAP_HD void tile_load(const P& p, const I* y0, I p0, I q0, int t,
+                      unsigned char* sh) {{
+{walk}
+#pragma unroll
+  for (int u = 0; u < TP * TQ / NT; ++u) {{
+    const int k = t + u * NT, tp = k % TP, tq = k / TP;
+    if ((I)tp >= np || (I)tq >= nq) continue;
+{coords}
+    if (!to_grid<I>(p, y, c)) continue;
+{chr(10).join(lds)}
+  }}
+}}
+
+// Thread t's share of the compute phase: q fastest, so that a warp
+// stores along the output's innermost axis.
+template <typename I>
+MAP_HD void tile_store(const P& p, const I* y0, I p0, I q0, int t,
+                       const unsigned char* sh) {{
+{walk}
+#pragma unroll
+  for (int u = 0; u < TP * TQ / NT; ++u) {{
+    const int k = t + u * NT, tq = k % TQ, tp = k / TQ;
+    if ((I)tp >= np || (I)tq >= nq) continue;
+{coords}
+    const bool ing = to_grid<I>(p, y, c);
+    Pre pre;
+{chr(10).join(pres)}
+{stores("c", "pre", "true", None, "y", "ing")}
+  }}
+}}""")
+            tile_kernel = f"""
+template <typename I>
+__global__ void __launch_bounds__(NT) map_tile(const P p) {{
+  __shared__ __align__(16) unsigned char sh[SHB];
+  for (long long tile = blockIdx.x; tile < p.m[TILEW + 4];
+       tile += gridDim.x) {{
+    I y0[R], p0, q0;
+    tile_origin<I>(p, tile, y0, p0, q0);
+    tile_load<I>(p, y0, p0, q0, (int)threadIdx.x, sh);
+    __syncthreads();
+    tile_store<I>(p, y0, p0, q0, (int)threadIdx.x, sh);
+    __syncthreads();
+  }}
+}}
+
+// The tile path's grid: at most four waves of the blocks the SMs hold.
+template <typename I>
+static int launch_tile(const P& p, cudaStream_t stream, int* info) {{
+  static int occ = 0;
+  if (occ == 0) {{
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &occ, map_tile<I>, NT, 0);
+    if (e != cudaSuccess) return (int)e;
+    if (occ < 1) occ = 1;
+  }}
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  long long g = p.m[TILEW + 4];
+  const long long cap = (long long)(sms > 0 ? sms : 1) * occ * 4;
+  if (g > cap) g = cap;
+  if (info) {{
+    info[0] = (int)g; info[1] = 1; info[2] = NT; info[3] = 1;
+    info[4] = occ; info[5] = sms;
+  }}
+  map_tile<I><<<(unsigned)g, NT, 0, stream>>>(p);
+  return (int)cudaGetLastError();
+}}
+"""
+            tile_host = f"""  if (p.m[{H['vec']}] == 2) {{
+    alignas(16) unsigned char sh[SHB];
+    for (long long tile = 0; tile < p.m[TILEW + 4]; ++tile) {{
+      I y0[R], p0, q0;
+      tile_origin<I>(p, tile, y0, p0, q0);
+      for (int t = 0; t < NT; ++t) tile_load<I>(p, y0, p0, q0, t, sh);
+      for (int t = 0; t < NT; ++t) tile_store<I>(p, y0, p0, q0, t, sh);
+    }}
+    return;
+  }}
+"""
+        vec_loop = host_vec = ""
+        if V > 1:
+            vec_loop = """  for (U i = tid; i < nvec; i += stride) {
+    Item<I> it;
+    vec_load<I>(p, (I)i, it);
+    vec_store<I>(p, it);
+  }
+"""
+            host_vec = vec_loop.replace("tid", "0").replace("stride", "1")
+        kernel_body = f"""  using U = typename std::make_unsigned<I>::type;
+  const U stride = (U)gridDim.x * blockDim.x;
+  const U tid = (U)blockIdx.x * blockDim.x + threadIdx.x;
+  const U nvec = (U)p.m[{H['nvec']}];
+{vec_loop}  for (U e = nvec * V + tid; e < (U)p.m[{H['n']}]; e += stride)
+    elem_item<I>(p, (I)e);"""
+        host_body = f"""{tile_host}  using U = typename std::make_unsigned<I>::type;
+  const U nvec = (U)p.m[{H['nvec']}];
+{host_vec}  for (U e = nvec * V; e < (U)p.m[{H['n']}]; ++e) elem_item<I>(p, (I)e);"""
+        return parts, kernel_body, host_body, tile_kernel, bool(slots)
 
     def _source(self, gen, out_idx):
         R, V, CH, RUN = gen.R, self.vec, self.chunk, self.run
@@ -1691,7 +2197,13 @@ class Program(object):
             f"struct P {{ long long m[{gen.nmeta}]; void* ptr[{gen.nptr}]; "
             f"}};",
         ]
-        if gen.two_d:
+        if gen.form == "gather":
+            lines.append(f"constexpr int GSH = {gen.gsh_off}, CMAP = "
+                         f"{gen.cmap_off}, TILEW = {gen.tile_off}, PASS = "
+                         f"{H['pass']};")
+            fields = [f"{C_TYPES[gen.inputs[k].dtype]} r{r};"
+                      for r, (k, _) in enumerate(gen.sites)]
+        elif gen.two_d:
             fields = [f"{C_TYPES[gen.inputs[0].dtype]} w{k};"
                       for k in range(gen.noffset + 1)] if gen.window else []
         else:
@@ -1709,7 +2221,10 @@ class Program(object):
             return " + ".join(f"(I){c}[{d}] * (I)p.m[{gen.out_off[j] + d}]"
                               for d in range(R))
 
-        def stores(c, pre_val, PRE, e=None):
+        def stores(c, pre_val, PRE, e=None, y=None, ing=None):
+            """The outputs' stores at coordinates `c` (a scatter's at
+            source position `e`; the gather form's one-pass scatter at
+            walked coordinates `y`, its source in the grid where `ing`)."""
             out = []
             if gen.eager:
                 out.append("    long long nz = 0;\n" + "\n".join(
@@ -1724,7 +2239,15 @@ class Program(object):
                 t = C_TYPES[gen.out_dtype(j)]
                 val = f"cvt<{t}>(s{k}<I, {PRE}>(p, {c}, {pre_val}))"
                 if k in gen.scatter_stmt:
-                    out.append(scatter_store(j, k, t, c, pre_val, e, val))
+                    code = []
+                    if y is not None and gen.one_pass and \
+                            gen.one_pass[0] == k:
+                        code.append(one_pass_store(j, k, t, y, ing, val))
+                    if e is not None:
+                        code.append(scatter_store(j, k, t, c, pre_val, e,
+                                                  val))
+                    out.append("\n    else ".join(
+                        x.lstrip() if i else x for i, x in enumerate(code)))
                     continue
                 guard = f"if (!(nz & p.m[{gen.out_off[j] + R}])) " \
                     if gen.eager else ""
@@ -1754,6 +2277,17 @@ class Program(object):
                     f"        else if ({own}[fl] == me)\n"
                     f"          st<{t}>(p.ptr[{nin + j}], {off}, {val});\n"
                     f"      }}\n    }}")
+
+        def one_pass_store(j, k, t, y, ing, val):
+            """Output j's injective scatter in pass 3 at target element y:
+            its source's value where `ing`, else the target's own."""
+            rt, so = self.scatters[j], gen.out_off[j]
+            keep = gen._ld(self.scatter_input[j],
+                           [f"{y}[{d}]" for d in range(rt)])
+            off = " + ".join(f"(I){y}[{d}] * (I)p.m[{so + rt + d}]"
+                             for d in range(rt))
+            return (f"    if (ps == 3) st<{t}>(p.ptr[{nin + j}], {off}, "
+                    f"{ing} ? {val} : cvt<{t}>({keep}));")
 
         def vstores(c, fill, advance):
             """The vector stores of V samples at coordinates `c` (the
@@ -1789,26 +2323,14 @@ class Program(object):
                     f"      }}\n{st_}\n    }}")
 
         parts = []
-        if not gen.two_d:
-            parts.append(f"""// Coordinates of element (item) e over the element (item) extents: the
-// axes below R - nd are padding of extent 1.
-template <typename I, int DV>
-MAP_HD void unflatten(const P& p, I e, I* c) {{
-  const int nd = (int)p.m[{H['nd']}];
-  I r = e;
-#pragma unroll
-  for (int d = R - 1; d > 0; --d) {{
-    if (d > R - nd) {{
-      const I q = div_magic<I>(r, p.m[DV + 2 * (d - 1)], p.m[DV + 2 * (d - 1) + 1]);
-      c[d] = r - q * (I)(d == R - 1 && DV == {gen.divi_off} ? p.m[{SH} + d] / V : p.m[{SH} + d]);
-      r = q;
-    }} else {{
-      c[d] = r;
-      r = 0;
-    }}
-  }}
-  c[0] = r;
-}}
+        tile_kernel, tiled = "", False
+        if gen.form == "gather":
+            parts.append(self._unflatten_src(gen))
+            g_parts, kernel_body, host_body, tile_kernel, tiled = \
+                self._gather_src(gen, out_idx, stores, out_off)
+            parts += g_parts
+        elif not gen.two_d:
+            parts.append(self._unflatten_src(gen) + f"""
 
 template <typename I>
 MAP_HD void elem_item(const P& p, I e) {{
@@ -1970,7 +2492,9 @@ MAP_HD void carry_item(const P& p, I j) {{
                           : {gen._ld(0, gulp_terms)};
   st<{ct}>(p.ptr[CARRY_OUT], j, v);
 }}""")
-        if not gen.two_d:
+        if gen.form == "gather":
+            pass
+        elif not gen.two_d:
             vec_loop = host_vec = ""
             if V > 1:
                 vec_loop = """  for (U i = tid; i < nvec; i += stride) {
@@ -2027,6 +2551,12 @@ MAP_HD void carry_item(const P& p, I j) {{
   }}""" + ("" if gen.form != "stencil" else f"""
   for (U j = 0; j < (U)p.m[{H['ncarry']}]; ++j) carry_item<I>(p, (I)j);""")
         lines += parts
+        tile_launch = ""
+        if tiled:
+            tile_launch = (f"  if (p.m[{H['vec']}] == 2)\n    return idx64 ? "
+                           f"launch_tile<long long>(p, (cudaStream_t)stream, "
+                           f"info)\n                 : launch_tile<int>(p, "
+                           f"(cudaStream_t)stream, info);\n")
         lines.append(f"""
 #ifdef __CUDACC__
 template <typename I>
@@ -2081,14 +2611,14 @@ static int launch(const P& p, cudaStream_t stream, int* info) {{
   map_kernel<I><<<grid, block, 0, stream>>>(p);
   return (int)cudaGetLastError();
 }}
-
+{tile_kernel}
 extern "C" int map_launch(const long long* m, void* const* ptr, int idx64,
                           void* stream, int* info) {{
   P p;
   for (int k = 0; k < {gen.nmeta}; ++k) p.m[k] = m[k];
   for (int k = 0; k < {gen.nptr}; ++k) p.ptr[k] = ptr[k];
   if (p.m[{H['n']}] + p.m[{H['ncarry']}] == 0) return 0;
-  return idx64 ? launch<long long>(p, (cudaStream_t)stream, info)
+{tile_launch}  return idx64 ? launch<long long>(p, (cudaStream_t)stream, info)
                : launch<int>(p, (cudaStream_t)stream, info);
 }}
 

@@ -42,22 +42,33 @@ the index arithmetic and the accesses well under that:
   window, so each input element is loaded once;
 - the grid is four waves of the blocks the device's SMs hold
   (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, in the library),
-  and the 16-byte stores carry the streaming hint (``st.global.cs``).
+  and the 16-byte stores carry the streaming hint (``st.global.cs``);
+- the eager explicit-index form (`_gather_path`): a read whose
+  contiguous axis is not the output's innermost would cost a warp 32
+  sectors for 32 samples, so a block turns a tile of it through shared
+  memory (loaded along the input's contiguous axis, stored along the
+  output's; on an H100 a transpose took 0.93 ms on the element path,
+  17 % of its bound); a read stepping +-1 along the innermost axis
+  takes the vector path, reversed in registers; an injective scatter is
+  one launch over its target (no copy of it, no owner words, no
+  ``atomicMax``).
 
 `map_apply(prog, ins, out_shape, scalars, carry, outs)` launches M1 for
 CUDA tensors on the caller's current stream (a scatter's two passes:
 the owners of its targets by `atomicMax` of source positions, then the
 writes of the winners, so a repeated target takes the last source
-deterministically), reading every input through
+deterministically; one pass where the scatter is injective), reading
+every input through
 its element strides (a ring span as it lies; a complex-integer stream in
 its storage form, ci8 pairs and packed ci4 read in the kernel), and runs
 `map_apply_plain` (the program's plain PyTorch closure, `prog.plain`)
 for CPU tensors; any other device raises.  `map_apply.launches` counts
-its launches and nothing else; `.vector_launches` and
-`.index64_launches` count those that took the vector path and the
-64-bit index type, and `.last` (and the program's `last_launch`) holds
-the last launch's plan: path, V, index type, grid.  `map_apply_host`
-runs the same generated body, the same vector/element split, compiled
+its launches and nothing else; `.vector_launches`, `.tile_launches` and
+`.index64_launches` count those that took the vector path, the tile
+path and the 64-bit index type, and `.last` (and the program's
+`last_launch`) holds the last launch's plan: path, V, index type, grid,
+the scatter's passes, and why a gather did not take the tile path.
+`map_apply_host` runs the same generated body, the same split, compiled
 by the host C++ compiler on CPU tensors (counted on itself the same
 way): the tests' way to hold the generated arithmetic against the plain
 engine without a card.
@@ -327,31 +338,191 @@ def pack(prog, ins, out_shape, scalars, carry, outs, carry_out):
     if len(ins) != len(prog.inputs) or len(outs) != len(prog.out_names):
         raise ValueError("map: inputs or outputs do not match the program")
     key = _layout_key(prog, ins, out_shape, carry, outs)
+    g = None
+    if prog.form == "gather":
+        g = _gather_call(prog, ins, out_shape, scalars, outs)
+        key = (key, g)
     hit = prog.layouts.get(key)
     if hit is None:
-        hit = _layout(prog, ins, out_shape, carry, outs, carry_out)
+        hit = _layout(prog, ins, out_shape, carry, outs, carry_out, g)
         prog.layouts[key] = hit
         while len(prog.layouts) > LAYOUTS:
             prog.layouts.popitem(last=False)
-    words, out_shape, plan = hit
-    m = words + _scalar_slots(prog, scalars) + \
-        prog.derive(dict(zip(prog.scalar_names, scalars)), out_shape)
+    words, shape, plan, gwords = hit
+    m = words + _scalar_slots(prog, scalars) + prog.derive(
+        dict(zip(prog.scalar_names, scalars)),
+        out_shape if g is not None else shape) + gwords
     if len(m) != prog.nmeta:
         raise ValueError(f"map: packed {len(m)} meta words, the program "
                          f"takes {prog.nmeta}")
-    owners = _owners(prog, plan, outs)
+    owners = _owners(prog, plan, outs) if plan["passes"] == (1, 2) else []
     ptrs = [t.data_ptr() for t in ins] + [o.data_ptr() for o in outs] + [
         carry.data_ptr() if carry is not None else 0,
         carry_out.data_ptr() if carry_out is not None else 0] + [
-        w.data_ptr() for w in owners]
+        w.data_ptr() for w in owners] + [0] * (len(prog.scatters) -
+                                           len(owners))
     return ((ctypes.c_longlong * len(m))(*m),
             (ctypes.c_void_p * len(ptrs))(*ptrs), dict(plan), owners)
 
 
-def _layout(prog, ins, out_shape, carry, outs, carry_out):
+def _inside(comps, offs, grid, shape):
+    """Whether every index ``sign * c[axis] + offset`` of the affine
+    components `comps` (offsets `offs`) lies in [0, shape[d]) over the
+    grid's coordinates c."""
+    for (s, a, _), o, n in zip(comps, offs, shape):
+        if o is None:
+            return False
+        span = s * (grid[a] - 1) if s and grid[a] else 0
+        if min(o, o + span) < 0 or max(o, o + span) >= n:
+            return False
+    return True
+
+
+def _gather_call(prog, ins, grid, scalars, outs):
+    """What a gather launch's words depend on beyond the operands'
+    layout: the affine offsets at these scalars and grid, whether every
+    affine read stays inside its input (its words then skip `wrapclamp`),
+    and whether the scatter runs in one pass (its indices a permutation
+    of the grid axes inside the target, which no output shares)."""
+    offs, one_offs = prog.offsets(dict(zip(prog.scalar_names, scalars)),
+                                  tuple(grid))
+    inside = all(_inside(c, o, grid, logical_shape(ins[k], prog.inputs[k]))
+                 for (k, c), o in zip(prog.sites, offs))
+    one = False
+    if prog.one_pass is not None:
+        t = ins[prog.scatter_input[0]]
+        one = _inside(prog.one_pass[1], one_offs, grid, tuple(t.shape)) and \
+            outs[0].untyped_storage().data_ptr() != \
+            t.untyped_storage().data_ptr()
+    return offs, one_offs, inside, one
+
+
+def _gather_path(prog, ins, shape, grid, outs, ostr, g):
+    """The gather form's path over the walked shape (the grid, or the
+    one-pass scatter's target) and its words after the scalars -> (plan
+    fields, words).
+
+    - 'tile' where an affine read's contiguous axis (its smallest step)
+      is a walked axis p other than the innermost axis q of more than
+      one element, and q steps it further: the turned reads must agree
+      on p and have a shared slot (`Program.tile`);
+    - 'vector' where every affine read steps by -1, 0 or 1 along q, its
+      vector access aligned, as are the outputs (a one-pass scatter's
+      target covered whole);
+    - 'element' otherwise, and wherever an affine read leaves its input
+      or the scatter takes two passes."""
+    offs, one_offs, inside, one = g
+    R = prog.rank
+    trans = [(a, 1, 0) for a in range(R)]      # c[a] = s * y[b] + w
+    if one:
+        for d, (s, a, _) in enumerate(prog.one_pass[1]):
+            trans[a] = (d, s, -s * one_offs[d])
+    sites = []
+    for (k, comps), o in zip(prog.sites, offs):
+        strides, _ = _storage_strides(ins[k], prog.inputs[k])
+        a0, cc = 0, [0] * R
+        if inside:
+            for (s, a, _), off, st in zip(comps, o, strides):
+                a0 += off * st
+                if s:
+                    cc[a] += s * st
+        cy, a0y = [0] * R, a0
+        for a, (b, s, w) in enumerate(trans):
+            cy[b] += cc[a] * s
+            a0y += cc[a] * w
+        # its words (offset and steps over grid coordinates), its offset
+        # and steps over walked coordinates, its input, its mode
+        sites.append([a0, cc, a0y, cy, k, 0])
+    two_pass = prog.scatters and not one
+    fields = {"passes": (3,) if one else _passes(prog),
+              "scatter": "two-pass" if two_pass else
+              "one-pass" if one else None, "note": None}
+    path, tile = "element", [0] * 5
+    if not two_pass and not inside:
+        fields["note"] = "an affine read leaves its input"
+    elif not two_pass:
+        path, tile, note = _gather_tile(prog, shape, sites)
+        fields["note"] = note
+        if path != "tile" and _gather_vector(prog, shape, grid, outs, ostr,
+                                             sites, one, ins):
+            path = "vector"
+    words = list(grid) + [w for _, _, w in trans]
+    for a0, cc, _, _, _, mode in sites:
+        words += [a0] + cc + [mode if path != "element" else 0]
+    fields["path"] = path
+    return fields, words + tile
+
+
+def _gather_tile(prog, shape, sites):
+    """The tile path's choice (`_gather_path`) -> (path, tile words,
+    why not)."""
+    R = prog.rank
+    q = max((b for b in range(R) if shape[b] > 1), default=None)
+    tp, tq, slots = prog.tile or (0, 0, [])
+    turned = {}
+    for r, (_, _, _, cy, _, _) in enumerate(sites):
+        cand = [b for b in range(R) if cy[b] and shape[b] > 1]
+        if q is None or not cand:
+            continue
+        b = min(cand, key=lambda b: (abs(cy[b]), b != q))
+        if b != q and abs(cy[q]) > abs(cy[b]):
+            turned[r] = b
+    if not turned:
+        return "element", [0] * 5, None
+    if len(set(turned.values())) > 1:
+        return "element", [0] * 5, (f"turned reads disagree on p "
+                                    f"({sorted(set(turned.values()))})")
+    if not set(turned) <= {s[0] for s in slots}:
+        return "element", [0] * 5, "a turned read has no shared slot"
+    p = next(iter(turned.values()))
+    for r in turned:
+        sites[r][5] = 3
+    ntp, ntq = -(-shape[p] // tp), -(-shape[q] // tq)
+    rest = math.prod(n for d, n in enumerate(shape) if d not in (p, q))
+    return "tile", [p, q, ntp, ntq, ntp * ntq * rest], None
+
+
+def _gather_vector(prog, shape, grid, outs, ostr, sites, one, ins):
+    """Whether the gather form's vector path applies (`_gather_path`),
+    setting each affine read's mode (0 one load, 1 forward, 2
+    reversed)."""
+    R, V = prog.rank, prog.vec
+    if V == 1 or not (R == 1 or shape[-1] % V == 0) or \
+            math.prod(shape) < V:
+        return False
+    if one and any(shape[d] != grid[a] for d, (_, a, _) in
+                   enumerate(prog.one_pass[1])):
+        return False                   # a target element outside the image
+    outer = [d for d in range(R - 1) if shape[d] > 1]
+    for o, st in zip(outs, ostr):
+        st = list(o.stride()) if st is None else st
+        e = o.element_size()
+        if st[-1] != 1 or not _aligned(o.data_ptr(), [st[d] for d in outer],
+                                       e, min(16, prog.chunk * e)):
+            return False
+    for site in sites:
+        _, _, a0y, cy, k, _ = site
+        if cy[-1] == 0:
+            continue
+        ub = prog.inputs[k].dtype.itemsize
+        base = a0y - (V - 1 if cy[-1] == -1 else 0)
+        if abs(cy[-1]) != 1 or not _aligned(
+                ins[k].data_ptr() + base * ub, [cy[d] for d in outer], ub,
+                min(16, V * ub)):
+            return False
+    for site in sites:
+        site[5] = {0: 0, 1: 1, -1: 2}[site[3][-1]]
+    return True
+
+
+def _layout(prog, ins, out_shape, carry, outs, carry_out, g=None):
     """The layout words of `pack` (checking the operands), the collapsed
-    output shape and the plan."""
-    out_shape = tuple(out_shape)
+    output shape, the plan and the gather form's words after the
+    scalars (`_gather_path`).  A one-pass scatter walks its target's
+    shape."""
+    out_shape = grid = tuple(out_shape)
+    if g is not None and g[3]:
+        out_shape = tuple(ins[prog.scatter_input[0]].shape)
     n = math.prod(out_shape)
     ncarry = carry_out.numel() if carry_out is not None else 0
     eager = prog.form in ("eager", "gather")
@@ -371,7 +542,7 @@ def _layout(prog, ins, out_shape, carry, outs, carry_out):
         _check_input(t, inp, len(out_shape) > prog.rank)
         strides, cs = _storage_strides(t, inp)
         shape = logical_shape(t, inp)
-        bs = _bcast_strides(shape, strides, out_shape) \
+        bs = _bcast_strides(shape, strides, grid) \
             if bcast else None
         views.append([shape, strides, cs, bs])
     if not eager:
@@ -413,7 +584,14 @@ def _layout(prog, ins, out_shape, carry, outs, carry_out):
             else:
                 v[0], v[1] = out_shape, w
     V = prog.vec
-    if prog.two_d:
+    gfields, gwords = {}, []
+    if g is not None:
+        gfields, gwords = _gather_path(prog, ins, out_shape, grid, outs,
+                                       ostr, g)
+        vec = gfields["path"] == "vector"
+        modes = [0] * len(ins)
+        nvec, nci, nruns = (n // V if vec else 0), 0, 0
+    elif prog.two_d:
         modes = [0] * len(ins)
         vec = _vector_2d(prog, out_shape, outs, ostr, ins, views, carry)
         chan = math.prod(out_shape[1:])
@@ -431,14 +609,17 @@ def _layout(prog, ins, out_shape, carry, outs, carry_out):
         offs += [outs[j].numel(), _max_offset(outs[j].shape,
                                               outs[j].stride())]
     for (shape, strides, cs, bs), inp in zip(views, prog.inputs):
-        offs.append(_max_offset(out_shape, bs, inp, cs) if bs is not None
+        offs.append(_max_offset(grid, bs, inp, cs) if bs is not None
                     else _max_offset(shape, strides, inp, cs))
     idx64 = max(offs) >= INDEX32_LIMIT
     bits = 64 if idx64 else 32
     chan_in = 1
     if prog.form == "stencil":
         chan_in = math.prod(logical_shape(ins[0], prog.inputs[0])[1:])
-    m = [n, ncarry, int(vec), nd, nvec, nci, nruns, chan_in,
+    path = gfields.get("path") or ("vector" if (nvec or (
+        prog.two_d and vec)) else "element")
+    m = [n, ncarry, {"element": 0, "vector": 1, "tile": 2}[path] if
+         g is not None else int(vec), nd, nvec, nci, nruns, chan_in,
          *magic(max(chan_in, 1), bits), 0]
     assert len(m) == len(HEADER)
     m += list(out_shape)
@@ -466,10 +647,11 @@ def _layout(prog, ins, out_shape, carry, outs, carry_out):
         if bs is not None:
             m += list(bs)
         m.append(mode)
-    plan = {"path": "vector" if (nvec or (prog.two_d and vec)) else
-            "element", "vec": V, "run": prog.run,
-            "index": "int64" if idx64 else "int32", "nd": nd}
-    return m, out_shape, plan
+    plan = {"path": path, "vec": V, "run": prog.run,
+            "index": "int64" if idx64 else "int32", "nd": nd,
+            "passes": _passes(prog)}
+    plan.update(gfields)
+    return m, out_shape, plan, gwords
 
 
 def _outputs(prog, ins, out_shape, device, outs):
@@ -489,8 +671,15 @@ def _outputs(prog, ins, out_shape, device, outs):
             raise ValueError(f"map: a scatter's output must have its "
                              f"target's shape {tuple(ins[k].shape)}, got "
                              f"{tuple(outs[j].shape)}")
-        outs[j].copy_(ins[k])
     return list(outs)
+
+
+def _copy_targets(prog, ins, outs, plan):
+    """A two-pass scatter's output starts as a copy of its target (a
+    one-pass scatter writes every element itself)."""
+    if plan["passes"] == (1, 2):
+        for j, k in prog.scatter_input.items():
+            outs[j].copy_(ins[k])
 
 
 def _owners(prog, plan, outs):
@@ -586,6 +775,7 @@ def map_apply_plain(prog, ins, out_shape, scalars=(), carry=None,
 def _count(fn, prog, plan):
     fn.launches += 1
     fn.vector_launches += plan["path"] == "vector"
+    fn.tile_launches += plan["path"] == "tile"
     fn.index64_launches += plan["index"] == "int64"
     fn.last = prog.last_launch = plan
 
@@ -613,9 +803,10 @@ def map_apply(prog, ins, out_shape, scalars=(), carry=None, outs=None):
     # `owners` lives until the launches are queued on the stream
     m, ptrs, plan, owners = pack(prog, ins, tuple(out_shape), scalars,
                                  carry, outs, carry_out)
+    _copy_targets(prog, ins, outs, plan)
     stream = torch.cuda.current_stream(dev).cuda_stream
     info = (ctypes.c_int * 6)()
-    for ps in _passes(prog):
+    for ps in plan["passes"]:
         m[_PASS] = ps
         err = lib.map_launch(m, ptrs, int(plan["index"] == "int64"),
                              stream, info)
@@ -640,10 +831,11 @@ def map_apply_host(prog, ins, out_shape, scalars=(), carry=None,
     carry_out = _carry_out(prog, ins, carry)
     m, ptrs, plan, owners = pack(prog, ins, tuple(out_shape), scalars,
                                  carry, outs, carry_out)
+    _copy_targets(prog, ins, outs, plan)
     lib = build.load_generated_host(prog.name, prog.source)
     lib.map_host.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
     lib.map_host.restype = ctypes.c_int
-    for ps in _passes(prog):
+    for ps in plan["passes"]:
         m[_PASS] = ps
         lib.map_host(m, ptrs, int(plan["index"] == "int64"))
         _count(map_apply_host, prog, plan)
@@ -651,11 +843,14 @@ def map_apply_host(prog, ins, out_shape, scalars=(), carry=None,
 
 
 def _passes(prog):
-    """The launches of a call: one; a program with a scatter two, the
-    owners of its targets (pass 1), then the writes (pass 2)."""
+    """The launches a call of `prog` may take: one; a program with a
+    scatter two, the owners of its targets (pass 1), then the writes
+    (pass 2), unless the launch finds the scatter injective (one pass,
+    3: `_gather_call`), which the plan's 'passes' says."""
     return (1, 2) if prog.scatters else (0,)
 
 
 for _fn in (map_apply, map_apply_host):
     _fn.launches = _fn.vector_launches = _fn.index64_launches = 0
+    _fn.tile_launches = 0
     _fn.last = None

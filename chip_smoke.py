@@ -718,13 +718,16 @@ MAP_CX_FUNCS = ("sqrt", "log", "log2", "log10", "sin", "cos", "tan", "asin",
 MAP_HALF_NGULP, MAP_CX_ULP = 4, 24
 # bf.map's eager explicit-index and scatter forms on one gulp of
 # [bengine]'s voltages as complex64 (B_GULP x NSTAND * NPOL, 256 MiB): the
-# transpose, the band flip, and a scatter whose targets repeat (two
-# sources a row) and half of whose sources fall outside the target (rows
-# past its end: i // 2 + MAP_SCATTER_K >= B_GULP); the forward and
-# unbounded (time reversal) streaming programs on the raw ci8 gulp, and
-# as chains in [map] (e).
+# transpose (M1's tile path), the band flip (an injective scatter: one
+# pass over its target), the transpose written as a scatter, and a
+# scatter whose targets repeat (two sources a row) and half of whose
+# sources fall outside the target (rows past its end: i // 2 +
+# MAP_SCATTER_K >= B_GULP; two passes); the forward and unbounded (time
+# reversal) streaming programs on the raw ci8 gulp, and as chains in
+# [map] (e).
 MAP_TRANSPOSE = "c(i,j) = a(j,i)"
 MAP_FLIP = "c(i, nj-1-j) = a(i, j)"
+MAP_STRANSPOSE = "c(j,i) = a(i,j)"
 MAP_SCATTER = "c(i//2 + k, j) = a(i, j)"
 MAP_SCATTER_K = 3 * B_GULP // 4
 MAP_FORWARD = "y(t,s,p) = x(t+1,s,p) - x(t,s,p)"
@@ -750,7 +753,9 @@ FL_INST_NINT = B_MAX_DELAY + 2
 if FL_INST_NINT != SV_NINT:
     # [fleet]'s inst tenant is held against [service]'s bare run
     raise ValueError(f"FL_INST_NINT {FL_INST_NINT} != SV_NINT {SV_NINT}")
-FL_MAP_NGULP, FL_MAP_PACE, FL_RESPEC_AT = 8, 0.25, (2, 5)
+# (the stream outlasts the cold respec's nvcc, during which the old map
+# block drains on: 8 gulps ran out before the warm respec on a slower host)
+FL_MAP_NGULP, FL_MAP_PACE, FL_RESPEC_AT = 16, 0.25, (2, 5)
 FL_MAP_FUNC2 = "y = x * x.conj()"
 FL_FLAKY_NGULP, FL_FLAKY_NTH = 4, 2
 FL_STAGING = 1 << 30
@@ -964,6 +969,7 @@ def reset_counts():
     for name in ("dq_masked_fill", "fir_mac", "map_apply"):
         kernel_counters()[name].vector_launches = 0
     kernel_counters()["map_apply"].index64_launches = 0
+    kernel_counters()["map_apply"].tile_launches = 0
 
 
 def check_vectors(counts, name="dq_masked_fill"):
@@ -4881,9 +4887,10 @@ def map_program_info():
             continue
         ks = ptxas_kernels(e["ptxas"])
         out[e["name"]] = (round(e["seconds"], 2), {
-            idx: next((v for k, v in ks.items() if f"map_kernelI{c}E" in k),
-                      (None, None))
-            for idx, c in (("int32", "i"), ("int64", "x"))})
+            pre + idx: next((v for k, v in ks.items()
+                             if f"{kern}I{c}E" in k), (None, None))
+            for idx, c in (("int32", "i"), ("int64", "x"))
+            for pre, kern in (("", "map_kernel"), ("tile_", "map_tile"))})
     return out
 
 
@@ -5138,6 +5145,11 @@ def check_map_new_forms(dev, kind, progs, inputs, cx_func, cx_got,
              r["edge_nonfinite_torch_sqrt"]) = sqrt_edges_ulps(
                 dev, progs[tag][1])
             del zs
+        if tag == "reverse":
+            # the nearest PyTorch call: the raw ci8 gulp reversed in time,
+            # int8 pairs out (M1 writes complex64)
+            x = inputs[tag]
+            r["library_ms"] = cuda_time(lambda: torch.flip(x, [0]), 20)
         del y
         out[f"at_{tag}"] = r
         lines.append(map_form_line(tag, form, r) + (
@@ -5148,7 +5160,10 @@ def check_map_new_forms(dev, kind, progs, inputs, cx_func, cx_got,
             f"{r['edge_ulps']:.2f} ulps, torch.sqrt in complex64 "
             f"{r['edge_ulps_torch_sqrt']:.4g} where finite, not finite at "
             f"{r['edge_nonfinite_torch_sqrt']})"
-            if tag == "csqrt" else ""))
+            if tag == "csqrt" else
+            f"; torch.flip(x, [0]) on the raw ci8 gulp {r['library_ms']:.4f}"
+            f" ms (int8 out: 128 MiB moved against M1's 320 MiB)"
+            if tag == "reverse" else ""))
     phase("map", f"forward, unbounded, half, packed-complex, complex-math "
           f"forms at ({B_GULP}, {NSTAND}, {NPOL}): " + "; ".join(lines) +
           f"; complex64 transcendentals (one eager call, one launch) vs "
@@ -5168,6 +5183,8 @@ def map_eager_calls(raw):
     n, m = a.shape
     calls = {"transpose": (MAP_TRANSPOSE, {"a": a}, (m, n)),
              "flip": (MAP_FLIP, {"a": a, "c": torch.zeros_like(a)}, (n, m)),
+             "stranspose": (MAP_STRANSPOSE, {"a": a, "c": torch.zeros(
+                 (m, n), dtype=a.dtype, device=a.device)}, (n, m)),
              "scatter": (MAP_SCATTER, {"a": a, "c": torch.zeros_like(a),
                                        "k": MAP_SCATTER_K}, (n, m))}
     return {tag: {"func": f, "data": d, "shape": sh,
@@ -5183,16 +5200,27 @@ def map_eager_written(tag, n, m):
     return len({i // 2 + MAP_SCATTER_K for i in range(n)} & set(range(n))) * m
 
 
+# Each eager call's path, scatter passes and launches (check_map_eager).
+MAP_EAGER_PLANS = {"transpose": ("tile", (0,), 1),
+                   "flip": ("vector", (3,), 1),
+                   "stranspose": ("tile", (3,), 1),
+                   "scatter": ("element", (1, 2), 2)}
+
+
 def check_map_eager(kind, eager):
-    """M1 on the eager transpose, band flip and scatter of `eager`
-    (map_eager_calls) at one gulp: each bitwise the plain engine's eager
-    call on the card, its launches (one, two for a scatter: the owners,
-    then the writes), ms by CUDA events, the plain call's ms, the bytes
-    bound (each input element the call needs read once: a scatter's
-    winning sources and the target elements it leaves, each output
-    element written once) and its share, beside `a.t().contiguous()` and
-    `torch.flip(a, [1])` (no single PyTorch call scatters with these
-    semantics) -> {'at_<tag>': record}."""
+    """M1 on the eager transpose, band flip, transpose written as a
+    scatter, and repeated-target scatter of `eager` (map_eager_calls) at
+    one gulp: each bitwise the plain engine's eager call on the card, its
+    path, passes and launches as MAP_EAGER_PLANS (the injective scatters
+    one pass over the target: no copy of it, no owner words; the
+    repeated-target scatter the owners, then the writes), ms by CUDA
+    events (and replayed from a CUDA graph: the card's time without the
+    host's), the plain call's ms, the bytes bound (each input element the
+    call needs read once: a scatter's winning sources and the target
+    elements it leaves, each output element written once) and its share,
+    beside `a.t().contiguous()` and `torch.flip(a, [1])` (no single
+    PyTorch call scatters with the last one's semantics) -> {'at_<tag>':
+    record}."""
     from bifrost_tpu_torch import config
     from bifrost_tpu_torch.ops import map_kernel
     from bifrost_tpu_torch.ops.map import map as eager_map
@@ -5218,15 +5246,24 @@ def check_map_eager(kind, eager):
         finally:
             config.reset("map_method")
         torch.cuda.synchronize()
-        if n != (2 if prog.scatters else 1) or not bits_equal(
-                torch.view_as_real(got), torch.view_as_real(want)):
-            raise AssertionError(f"M1 eager {tag} ({n} launches) differs "
-                                 f"from the plain engine")
+        if not bits_equal(torch.view_as_real(got), torch.view_as_real(want)):
+            raise AssertionError(f"M1 eager {tag} differs from the plain "
+                                 f"engine")
+        if (plan["path"], plan["passes"], n) != MAP_EAGER_PLANS[tag]:
+            raise AssertionError(f"M1 eager {tag}: {plan['path']} path, "
+                                 f"passes {plan['passes']}, {n} launches; "
+                                 f"want {MAP_EAGER_PLANS[tag]}")
         del want, scratch
         ms = cuda_time(lambda: map_kernel.map_apply(prog, ins, grid, scal),
                        10)
+        # the card's own time: the call replayed from a CUDA graph, its
+        # host work (the launch words, the owners) left out; a measurement
+        graph_ms = graph_time(
+            lambda: map_kernel.map_apply(prog, ins, grid, scal), 10)
         libname, library = {
             "transpose": ("a.t().contiguous()", lambda: a.t().contiguous()),
+            "stranspose": ("a.t().contiguous()",
+                           lambda: a.t().contiguous()),
             "flip": ("torch.flip(a, [1])", lambda: torch.flip(a, [1]))}.get(
                 tag, (None, None))
         library_ms = cuda_time(library, 10) if library else None
@@ -5236,11 +5273,13 @@ def check_map_eager(kind, eager):
                   nel) * esz
         bound_ms, by = bound(nbytes, 0, hbm_rate(kind))
         regs, spill = info.get(prog.name, (0, {}))[1].get(
-            plan["index"], (None, None))
-        r = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-             "bound_by": by, "share": bound_ms / ms,
+            ("tile_" if plan["path"] == "tile" else "") + plan["index"],
+            (None, None))
+        r = {"ms": ms, "graph_ms": graph_ms, "plain_ms": plain_ms,
+             "bound_ms": bound_ms, "bound_by": by, "share": bound_ms / ms,
              "library_ms": library_ms, "launches_a_call": n,
-             "path": plan["path"], "vec": plan["vec"],
+             "path": plan["path"], "passes": list(plan["passes"]),
+             "scatter": plan["scatter"], "vec": plan["vec"],
              "index": plan["index"], "grid": plan["grid"],
              "block": plan["block"], "registers": regs,
              "spill_bytes": spill, "written": written, "max_abs_err": 0.0}
@@ -5250,15 +5289,18 @@ def check_map_eager(kind, eager):
                "semantics)")
         lines.append(
             f"{tag} {func!r} over {shape}: bitwise, {n} launches "
-            f"({r['path']} path, {r['index']}, {regs} registers, {spill} "
+            f"({r['path']} path, "
+            f"{'passes ' + str(r['passes']) + ', ' if r['scatter'] else ''}"
+            f"{r['index']}, {regs} registers, {spill} "
             f"B spilled; grid {r['grid']} x block {r['block']}); "
-            f"{ms:.4f} ms a call, plain {plain_ms:.4f} ms, bound "
+            f"{ms:.4f} ms a call ({graph_ms:.4f} from a CUDA graph), plain "
+            f"{plain_ms:.4f} ms, bound "
             f"{bound_ms:.4f} ms ({by}, {nbytes / 2**20:.0f} MiB), "
             f"{100 * r['share']:.1f} % of it; {lib}")
         del got
     phase("map", f"eager explicit-index and scatter forms on one gulp as "
-          f"complex64 {tuple(a.shape)} (256 MiB; the scatter's targets "
-          f"two sources a row, the sources of i >= "
+          f"complex64 {tuple(a.shape)} (256 MiB; the repeated scatter's "
+          f"targets two sources a row, the sources of i >= "
           f"{2 * (B_GULP - MAP_SCATTER_K)} dropped): " + "; ".join(lines) +
           f"; {kind}")
     return out
@@ -5584,11 +5626,12 @@ def map_path(dev, kind, volt):
 
 
 def map_eager_path(dev, volt):
-    """[map] (e)'s eager calls: the transpose, band flip and scatter of
-    map_eager_calls on the first gulp of `volt`, through ops.map.map on
-    card tensors ('auto'), counted: one M1 launch for the transpose, two
-    for each scatter; each bitwise the plain engine -> {'map_eager':
-    launch counts}."""
+    """[map] (e)'s eager calls: the transpose, band flip, transpose as a
+    scatter and repeated-target scatter of map_eager_calls on the first
+    gulp of `volt`, through ops.map.map on card tensors ('auto'),
+    counted: one M1 launch each, two for the repeated-target scatter, the
+    two transposes on the tile path; each bitwise the plain engine ->
+    {'map_eager': launch counts}."""
     from bifrost_tpu_torch import config
     from bifrost_tpu_torch.ops.map import map as eager_map
     raw = torch.from_numpy(volt[:B_GULP]).to(dev)
@@ -5604,8 +5647,10 @@ def map_eager_path(dev, volt):
             e["data"]["c"].zero_()
     torch.cuda.synchronize()
     counts = read_counts()
-    if counts != expected(map_apply=5):
-        raise AssertionError(f"map eager: launches {counts}")
+    tiles = kernel_counters()["map_apply"].tile_launches
+    if counts != expected(map_apply=5) or tiles != 2:
+        raise AssertionError(f"map eager: launches {counts}, {tiles} on "
+                             f"the tile path")
     config.set("map_method", "plain")
     try:
         for tag, e in calls.items():
@@ -5618,7 +5663,8 @@ def map_eager_path(dev, volt):
         config.reset("map_method")
     phase("map", f"(e) eager calls {[e['func'] for e in calls.values()]} "
           f"through map() on card tensors: launches {counts['map_apply']} "
-          f"(1 + 2 + 2), each bitwise the plain engine")
+          f"(1 + 1 + 1 + 2; {tiles} on the tile path), each bitwise the "
+          f"plain engine")
     del calls, got
     free_device()
     return {"map_eager": counts}

@@ -38,7 +38,15 @@ port's also timed as a CUDA graph, its device time without the host's
 launch cost) version (bitwise; sqrt within chip_smoke.MAP_CX_ULP ulps), timed with
 `torch.sqrt` beside sqrt, and counted in SASS (cuobjdump): each loop's
 instructions, loads, stores and calls, and the kernel's 64-bit divide
-sequences (I2F.U64.RP).  Prints each variant's
+sequences (I2F.U64.RP).  M1e (--only M1e) runs M1's eager
+explicit-index form on [map]'s eager shape (65,536 x 512 complex64):
+the transpose on the tile path at the port's 32 x 32 tiles and at 64 x
+32, 32 x 64 and 64 x 64, with its store phase not unrolled; the
+transpose written as a scatter; the band flip (one pass, the vector
+path) at the port's V = 2 and at 4 and 8, with two and four vector items
+a thread in flight; a straight copy on the same vector path (M1E_VARIANTS),
+each bitwise the plain engine, in turns beside a.t().contiguous(),
+torch.flip and a.clone().  Prints each variant's
 registers and spilled bytes by kernel from ptxas, one line per round, and
 last the card's name and power limit and a JSON object of the times
 (ms).
@@ -2003,11 +2011,142 @@ def m1_run(dev, gen, rounds, out_dir):
     return times
 
 
+# M1's eager explicit-index form (--only M1e) on chip_smoke's [map] eager
+# shape, 65,536 x 512 complex64: name -> (program, grid axes are
+# chip_smoke's (n, m) or swapped, the tile for 8-byte reads, V, a text
+# substitution).  The port's choices first: 32 x 32 tiles, V from
+# choose_vec (2 complex64), one vector item a thread at a time.
+M1E_ITEMS_ONE = """  for (U i = tid; i < nvec; i += stride) {
+    Item<I> it;
+    vec_load<I>(p, (I)i, it);
+    vec_store<I>(p, it);
+  }
+"""
+
+
+def m1e_items(k):
+    """The gather form's vector loop with `k` items a thread in flight."""
+    its = ", ".join(f"it{j}" for j in range(k))
+    ld = "\n".join(f"    if (i + {j} * stride < nvec) vec_load<I>(p, "
+                   f"(I)(i + {j} * stride), it{j});" for j in range(k))
+    st = "\n".join(f"    if (i + {j} * stride < nvec) vec_store<I>(p, "
+                   f"it{j});" for j in range(k))
+    return (M1E_ITEMS_ONE, f"  for (U i = tid; i < nvec; i += {k} * "
+            f"stride) {{\n    Item<I> {its};\n{ld}\n{st}\n  }}\n")
+
+
+M1E_STORE_ROLLED = (
+    "#pragma unroll\n  for (int u = 0; u < TP * TQ / NT; ++u) {\n"
+    "    const int k = t + u * NT, tq",
+    "#pragma unroll 1\n  for (int u = 0; u < TP * TQ / NT; ++u) {\n"
+    "    const int k = t + u * NT, tq")
+M1E_VARIANTS = {
+    "M1e transpose": ("c(i,j) = a(j,i)", True, None, None, None),
+    "M1e transpose 64x32": ("c(i,j) = a(j,i)", True, (64, 32), None, None),
+    "M1e transpose 32x64": ("c(i,j) = a(j,i)", True, (32, 64), None, None),
+    "M1e transpose 64x64": ("c(i,j) = a(j,i)", True, (64, 64), None, None),
+    "M1e transpose store rolled": ("c(i,j) = a(j,i)", True, None, None,
+                                   M1E_STORE_ROLLED),
+    "M1e scatter transpose": ("c(j,i) = a(i,j)", False, None, None, None),
+    "M1e flip": ("c(i, nj-1-j) = a(i, j)", False, None, None, None),
+    "M1e flip V4": ("c(i, nj-1-j) = a(i, j)", False, None, 4, None),
+    "M1e flip V8": ("c(i, nj-1-j) = a(i, j)", False, None, 8, None),
+    "M1e flip 2 items": ("c(i, nj-1-j) = a(i, j)", False, None, None,
+                         m1e_items(2)),
+    "M1e flip 4 items": ("c(i, nj-1-j) = a(i, j)", False, None, None,
+                         m1e_items(4)),
+    "M1e copy": ("c(i,j) = a(i,j)", False, None, None, None),
+}
+
+
+def m1e_run(dev, gen, rounds):
+    """M1's eager forms and M1E_VARIANTS of them, each held bitwise
+    against the plain engine's eager call, timed in turns (forward, then
+    backward, each round) beside `a.t().contiguous()`, `torch.flip(a,
+    [1])` and `a.clone()` -> {name: [ms a round, ...]}."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    from bifrost_tpu_torch import config
+    from bifrost_tpu_torch.ops import map_codegen, map_kernel as mk
+    from bifrost_tpu_torch.ops.map import (clear_map_cache, eager_program,
+                                           map as eager_map)
+    n, m = cs.B_GULP, cs.NSTAND * cs.NPOL
+    a = torch.complex(torch.randn(n, m, device=dev, generator=gen),
+                      torch.randn(n, m, device=dev, generator=gen))
+    cases = {}
+    for name, (func, swap, tiles, vec, sub) in M1E_VARIANTS.items():
+        shape = (m, n) if swap else (n, m)
+        data = {"a": a}
+        if func.startswith(("c(j,i)", "c(i, nj")):     # a scatter's target
+            data["c"] = torch.zeros((m, n) if func.startswith("c(j,i)")
+                                    else (n, m), dtype=a.dtype, device=dev)
+        keep = dict(map_codegen.TILES)
+        if tiles:
+            map_codegen.TILES[8] = tiles
+        clear_map_cache()
+        try:
+            prog, ins, scal, grid, _ = eager_program(func, data, ("i", "j"),
+                                                     shape)
+        finally:
+            map_codegen.TILES.clear()
+            map_codegen.TILES.update(keep)
+        if vec:
+            prog.set_vec(vec)
+        if sub:
+            if prog.source.count(sub[0]) != 1:
+                raise AssertionError(f"{name}: the text to replace is not "
+                                     f"in the source once")
+            prog.source = prog.source.replace(sub[0], sub[1])
+        prog.name = "map_" + hashlib.sha256(
+            prog.source.encode()).hexdigest()[:16]
+        cases[name] = (prog, ins, scal, grid, func, data, shape)
+    clear_map_cache()
+    with ThreadPoolExecutor(len(cases)) as pool:
+        list(pool.map(lambda c: mk.prepare(c[0]), cases.values()))
+    info = cs.map_program_info()
+    config.set("map_method", "plain")
+    try:
+        for name, (prog, ins, scal, grid, func, data, shape) in \
+                cases.items():
+            got = mk.map_apply(prog, ins, grid, scal)[0][0]
+            plan = dict(mk.map_apply.last)
+            want = eager_map(func, {k: v.clone() for k, v in data.items()},
+                             axis_names=("i", "j"), shape=shape)
+            torch.cuda.synchronize()
+            if not cs.bits_equal(torch.view_as_real(got),
+                                 torch.view_as_real(want)):
+                raise AssertionError(f"{name} differs from plain")
+            regs = info[prog.name][1].get(("tile_" if plan["path"] == "tile"
+                                           else "") + plan["index"])
+            print(f"[M1e] {name}: {func!r} over {shape}, {plan['path']} "
+                  f"path, V {plan['vec']}, grid {plan['grid']}, "
+                  f"(registers, spill bytes) {regs}, bitwise", flush=True)
+            del got, want
+    finally:
+        config.reset("map_method")
+    lib = {"a.t().contiguous()": lambda: a.t().contiguous(),
+           "torch.flip(a, [1])": lambda: torch.flip(a, [1]),
+           "a.clone()": lambda: a.clone()}
+    times = {k: [] for k in list(cases) + list(lib)}
+    for rnd in range(rounds):
+        for name in list(cases) + list(cases)[::-1]:
+            prog, ins, scal, grid = cases[name][:4]
+            times[name].append(cs.cuda_time(
+                lambda: mk.map_apply(prog, ins, grid, scal), 20))
+        for name, fn in lib.items():
+            times[name].append(cs.cuda_time(fn, 20))
+        print(f"[round {rnd}] " + ", ".join(
+            f"{k} {v[-1]:.4f}" for k, v in times.items()), flush=True)
+    return times
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--only", default="",
-                    help="comma-separated kernel IDs (K2,K1,K4,K5a,X1,M1)")
+                    help="comma-separated kernel IDs (K2,K1,K4,K5a,X1,M1,"
+                         "M1e)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA device", file=sys.stderr)
@@ -2027,6 +2166,11 @@ def main():
         gen = torch.Generator(device=dev)
         gen.manual_seed(cs.SEED)
         m1_times = m1_run(dev, gen, args.rounds, out_dir)
+        cs.free_device()
+    if not only or "M1e" in only:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(cs.SEED)
+        m1_times.update(m1e_run(dev, gen, args.rounds))
         cs.free_device()
     libs = compile_all(out_dir, names)
     for name, (_, ptxas) in libs.items():

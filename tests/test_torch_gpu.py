@@ -13,7 +13,7 @@ import torch
 
 from bifrost_tpu_torch.ops import Fdmt
 from bifrost_tpu_torch.ops import fdmt_kernel
-from torch_map_forms import (EAGER_FORMS, FORMS, READS_SCATTERED,
+from torch_map_forms import (EAGER_FORMS, FORMS, ONE_PASS, READS_SCATTERED,
                              SCATTER_TABLE, SQRT_EDGES, STREAM_FORMS,
                              eager_data, layout as layout_input,
                              sqrt_edge_ulps, storage, ulps_of)
@@ -1614,8 +1614,9 @@ def test_map_kernel_new_forms_bitwise_vs_plain(cuda, func, dtype, scalars,
 def test_map_kernel_gather_and_scatter_bitwise_vs_plain(cuda, case):
     """The eager explicit-index and scatter forms on M1 ('auto' on card
     tensors), bitwise the plain engine on the card, every output; one
-    launch, two where the program scatters; a statement reading what an
-    earlier one scattered starts a program of its own."""
+    launch, two where the program scatters but for the injective affine
+    scatters of ONE_PASS; a statement reading what an earlier one
+    scattered starts a program of its own."""
     from bifrost_tpu_torch.ops import map_kernel
     from bifrost_tpu_torch.ops.map import _compile_map, map as eager_map
     func, _, rest = case.partition(" @ ")
@@ -1648,7 +1649,85 @@ def test_map_kernel_gather_and_scatter_bitwise_vs_plain(cuda, case):
     if func in READS_SCATTERED:
         assert n == 3, n                # cut in two: scatter, then gather
     else:
-        assert n == (2 if scatters else 1), n
+        assert n == (2 if scatters and func not in ONE_PASS else 1), n
+
+
+# The gather form's tile path and the one-pass scatter on the card:
+# (program, arrays: name -> shape, grid, dtype, path, launches); the full
+# gulp is chip_smoke's [map] eager shape (65,536 x 512 complex64).
+GULP = (65536, 512)
+TILE_CASES = [
+    ("c(i,j) = a(j,i)", {"a": (45, 37)}, (37, 45), "f32", "tile", 1),
+    ("c(i,j) = a(j,i)", {"a": GULP}, GULP[::-1], "c64", "tile", 1),
+    ("c(i,j) = a(j,i)", {"a": (45, 1)}, (1, 45), "i8", "element", 1),
+    ("c(i,j,k) = a(k,i,j)", {"a": (20, 24, 12)}, (24, 12, 20), "f16",
+     "tile", 1),
+    ("c(i,j) = a(nj-1-j, i) * 2", {"a": (40, 33)}, (33, 40), "i32", "tile",
+     1),
+    ("c(j,i) = a(i,j)", {"a": (45, 37), "c": (37, 45)}, (45, 37), "i8",
+     "tile", 1),
+    ("c(j,i) = a(i,j)", {"a": GULP, "c": GULP[::-1]}, GULP, "c64", "tile",
+     1),
+    ("c(i, nj-1-j) = a(i, j)", {"a": GULP, "c": GULP}, GULP, "c64",
+     "vector", 1),
+    ("c(i, nj-1-j) = a(i, j)", {"a": (46, 39), "c": (46, 39)}, (46, 39),
+     "f16", "element", 1),
+    ("c(i,j) = a(i, nj-1-j)", {"a": GULP}, GULP, "c64", "vector", 1),
+    ("c(i + 1, j) = a(i, j)", {"a": (45, 40), "c": (46, 40)}, (45, 40),
+     "f32", "element", 1),
+    ("c(j + 1, i) = a(i, j)", {"a": (12, 40), "c": (41, 13)}, (12, 40),
+     "c64", "tile", 1),
+    ("c(i//2 + h, j) = a(i, j)", {"a": GULP, "c": GULP}, GULP, "c64",
+     "element", 2),
+]
+# each case in both index types; the full gulp in int32 (its int64 form
+# is the ragged cases')
+TILE_RUNS = [(c, ix) for c in TILE_CASES for ix in ("int32", "int64")
+             if ix == "int32" or c[2] not in (GULP, GULP[::-1])]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,index", TILE_RUNS, ids=[
+    f"{c[0]} {c[2]} {c[3]} {ix}" for c, ix in TILE_RUNS])
+def test_map_kernel_tile_and_one_pass_bitwise_vs_plain(cuda, case, index,
+                                                      monkeypatch):
+    """The gather form's tile path (a shared-memory corner turn), its
+    vector path (reversed reads) and the injective scatter as one launch
+    over its target, at ragged and full-gulp shapes, in both index types
+    (int64 forced by map_kernel.INDEX32_LIMIT, lowered to 16): each on
+    the path asserted, bitwise the plain engine on the card; the
+    repeated-target scatter stays two launches."""
+    from bifrost_tpu_torch.ops import map_kernel
+    from bifrost_tpu_torch.ops.map import clear_map_cache, map as eager_map
+    func, arrays, grid, dt, path, launches = case
+    if index == "int64":
+        # a fresh program: one keeps the words of the layouts it has seen
+        clear_map_cache()
+        monkeypatch.setattr(map_kernel, "INDEX32_LIMIT", 16)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(46)
+    data = {}
+    for k, shape in arrays.items():
+        x = torch.randn(shape, device=cuda, generator=gen) * 20
+        data[k] = torch.complex(x, -x / 3) if dt == "c64" else x.to(
+            {"f32": torch.float32, "f16": torch.float16, "i8": torch.int8,
+             "i32": torch.int32}[dt])
+    if "+ h" in func:
+        data["h"] = 3 * grid[0] // 4
+
+    def run():
+        return eager_map(func, dict(data), axis_names=("i", "j", "k")[
+            :len(grid)], shape=grid)
+    before = map_kernel.map_apply.launches
+    tiles = map_kernel.map_apply.tile_launches
+    got = run()
+    n = map_kernel.map_apply.launches - before
+    last = dict(map_kernel.map_apply.last)
+    want = _m1_plain_method(run)
+    torch.cuda.synchronize()
+    assert _same_bits(got, want)
+    assert (last["path"], last["index"], n) == (path, index, launches), last
+    assert map_kernel.map_apply.tile_launches - tiles == (path == "tile")
 
 
 @pytest.mark.gpu

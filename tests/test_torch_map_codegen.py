@@ -40,7 +40,7 @@ from bifrost_tpu.ops.map import map as j_map
 from bifrost_tpu_torch import config
 from bifrost_tpu_torch.ops import map_codegen, map_kernel
 from bifrost_tpu_torch.ops.map import Map
-from torch_map_forms import (EAGER_FORMS, FORMS, READS_SCATTERED,
+from torch_map_forms import (EAGER_FORMS, FORMS, ONE_PASS, READS_SCATTERED,
                              SCATTER_TABLE, SQRT_EDGES, STREAM_FORMS,
                              eager_data, eager_program,
                              layout as layout_input, sqrt_edge_ulps, storage,
@@ -200,10 +200,12 @@ def _raised(fn, *args):
 
 
 def test_eager_explicit_forms_are_refused():
-    """The eager explicit-index form is generated ('gather', the element
-    path) and a scatter is two launches; what one program refuses is a
-    statement reading an array an earlier statement scattered into (the
-    eager call cuts such a program in two)."""
+    """The eager explicit-index form is generated ('gather', V samples a
+    vector item: 4 f32) and a scatter is two launches, or one where its
+    indices are a permutation of the grid axes (`one_pass`, taken where
+    the launch finds them inside the target); what one program refuses
+    is a statement reading an array an earlier statement scattered into
+    (the eager call cuts such a program in two)."""
     from bifrost_tpu_torch.ops.map import _compile_map, _full_namespace
 
     def gen(func, outs):
@@ -215,9 +217,12 @@ def test_eager_explicit_forms_are_refused():
             frozenset({"a", "c", "d"}), outs, axis_names=("i", "j"),
             out_rank=2)
     prog = gen("c(i,j) = a(j,i)", ["c"])
-    assert prog.form == "gather" and prog.vec == 1 and not prog.scatters
+    assert prog.form == "gather" and prog.vec == 4 and not prog.scatters
     prog = gen("c(j,i) = a(i,j)", ["c"])
     assert prog.scatters == {0: 2} and map_kernel._passes(prog) == (1, 2)
+    assert prog.one_pass is not None
+    prog = gen("c(2*j,i) = a(i,j)", ["c"])
+    assert prog.scatters == {0: 2} and prog.one_pass is None
     with pytest.raises(map_codegen.Refusal, match="scattered"):
         gen("c(j,i) = a(i,j); d(i,j) = c(i,j) + 1", ["c", "d"])
 
@@ -1171,7 +1176,8 @@ def test_scatter_table_bodies_bitwise(func, want):
 def test_eager_gather_and_scatter_bodies_bitwise(func, shape, scalars):
     """Every eager explicit-index and scatter program of the JAX parity
     tests: the generated body, host-compiled, bitwise the plain engine,
-    every output; one launch, two where the program scatters."""
+    every output; one launch, two where the program scatters but for the
+    injective affine scatters of ONE_PASS (one pass over the target)."""
     data = eager_data()
     data.update(scalars)
     axes = ("i", "j")[:len(shape)]
@@ -1182,7 +1188,8 @@ def test_eager_gather_and_scatter_bodies_bitwise(func, shape, scalars):
             eager_program(func, data, axes, shape)
         return
     host, plain, prog, n = _eager_host(func, data, axes, shape)
-    assert prog.form == "gather" and n == (2 if prog.scatters else 1)
+    assert prog.form == "gather" and \
+        n == (2 if prog.scatters and func not in ONE_PASS else 1)
     assert set(host) == set(plain)
     for k in host:
         assert _bits(host[k], plain[k]), k
@@ -1301,7 +1308,7 @@ def test_helpers_that_stay_refused_name_the_construct(code, what):
 @pytest.mark.parametrize("func,shape,scalars,launches", [
     ("c(i - k, j) = a(i, j); e(i, j) = c(i, j) * 2", (6, 5), {"k": 8}, 3),
     ("c(2*i, j) = a(i, j); d(j, i) = c(i, j) + a(i, j); "
-     "e(i, j) = d(j, i) - c", (6, 5), {}, 5),
+     "e(i, j) = d(j, i) - c", (6, 5), {}, 4),
     ("c(i//2, j) = a(i, j); e(i, j) = c(i, j) + 1; a(i, j) = e * 2",
      (6, 5), {}, 3),
     ("c(2*i, j) = a(i, j); f = c(i, j) + 1", (6, 5), {}, 3),
@@ -1315,8 +1322,9 @@ def test_eager_split_at_a_scatter_read_bitwise(func, shape, scalars,
     segment's results the next one's inputs, the generated bodies
     (host-compiled here, `map_apply` for the card's) bitwise the plain
     engine and the JAX call, every output, with the launches each
-    segment takes; a segment whose statements are not indexed stays the
-    explicit form over `shape`."""
+    segment takes (a transposing scatter alone in its segment one, the
+    other scatters two); a segment whose statements are not indexed stays
+    the explicit form over `shape`."""
     import sys
     from bifrost_tpu_torch.ops.map import map as eager_map
     mod = sys.modules["bifrost_tpu_torch.ops.map"]

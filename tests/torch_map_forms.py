@@ -137,6 +137,12 @@ READS_SCATTERED = ("c(i - k, j) = a(i, j); e(i, j) = c(i, j) * 2",
                    "c(i//2, j) = a(i, j); t = c(i, j) * 2; "
                    "u = t - a(i, j)")
 
+# Of EAGER_FORMS, the scatters that take one launch: indices a
+# permutation of the grid axes, each +-axis + offset, inside the target,
+# the program's only output (ops/map_kernel.py `_gather_call`); every
+# other scatter takes two.
+ONE_PASS = ("c(i, nj-1-j) = a(i, j)", "d(j, i) = a(i, j) + b(j)")
+
 # The forward and unbounded streaming forms over (t, c, s, p).
 STREAM_FORMS = [
     ("y(t,c,s,p) = x(t+1,c,s,p) - x(t,c,s,p)", "forward"),
