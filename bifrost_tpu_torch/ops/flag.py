@@ -26,19 +26,27 @@ frames is bitwise equal to one long gulp; a gulp that is not a multiple
 closes a short tail window of its own.
 
 Layout of the work: the JAX plan scans the windows one by one on the
-device (``lax.scan``).  Only the baseline recurrence is sequential, so
-here the statistics of every window of a gulp (medians, MADs, the
-cross-cell median, the SK sums) come from one batched pass, and then one
-call walks the recurrence over a segment of windows (ops/flag_kernel.py):
-kernel W1, a thread a cell, for a CUDA tensor under 'cuda', one launch a
-gulp whose length is a multiple of ``window`` and a second for a tail
-window; the plain torch walk, a loop over the windows, otherwise.
+device (``lax.scan``), each step computing its window's statistics and
+then the carried baseline.  Only the baseline recurrence is sequential,
+so here each segment of m-frame windows (the whole windows of a gulp,
+then a tail window) takes two calls (ops/flag_kernel.py): its
+statistics for every window at once (the medians and MADs, or the SK
+sums), then one walk of the recurrence over them.  Under 'cuda' for a
+CUDA tensor these are kernels W1s and W1; otherwise their plain
+versions.  For 'mad' the cross-cell median MAD of each window sits
+between them, a sort (`stats.median`) on either route.  A window longer
+than W1s takes (above `flag_kernel.STATS_MAX_M` frames, as the flag
+block's ``window=None`` gives: one window a gulp) keeps its statistics
+on plain PyTorch on either method, a route chosen by m: the plain
+version's key sorts for 'mad', batched sums for 'sk';
+`plan_report()["stats_route"]` names the route of each segment of
+the last gulp ("kernel" or "torch").
 
 Methods (the `dq_flag_method` config flag when None/'auto'): 'cuda'
-(what 'auto' resolves to; W1 and K5a for a CUDA tensor, their plain
+(what 'auto' resolves to; W1s, W1 and K5a for a CUDA tensor, their plain
 versions for a CPU tensor) and 'plain' (the plain versions on any
-device).  The statistics are shared, W1 is bitwise its plain walk and
-the fill is a select, so the two are bitwise equal.  Against the JAX
+device).  W1s and W1 are bitwise their plain versions and the fill is a
+select, so the two are bitwise equal.  Against the JAX
 package the masks and fills agree exactly wherever no decision sits
 within an ulp of its threshold: XLA:CPU contracts the complex power
 ``re*re + im*im``, the EMA update and the thresholds' ``a*b + c`` into
@@ -78,6 +86,7 @@ class Flag(object):
         self._state = None
         self._state_key = None
         self.method = method if method is not None else "auto"
+        self._last_routes = []
         self._runtime = OpRuntime("flag", ("cuda", "plain"),
                                   config_flag="dq_flag_method",
                                   default="cuda")
@@ -162,35 +171,52 @@ class Flag(object):
         return self._runtime.resolve_method(self.method)
 
     # ------------------------------------------------------- statistics
-    def _window_stats(self, pw):
+    @staticmethod
+    def _stats_route(m):
+        """The route of m-frame windows' statistics: "kernel" (W1s or
+        its plain version) up to STATS_MAX_M frames, else "torch"."""
+        return "kernel" if m <= flag_kernel.STATS_MAX_M else "torch"
+
+    def _window_stats(self, pw, kernel=False):
         """Carry-free statistics of n windows of m frames: pw (n, m,
         ncell) f32 -> tuple of (n, ncell) rows (and (n,) for the
-        cross-cell median)."""
+        cross-cell median).  On the "kernel" route W1s where `kernel`
+        (for a CUDA tensor; its plain version for a CPU one), else its
+        plain version; on the "torch" route the plain version's key
+        sorts for 'mad' (any m), and `spectral_kurtosis`'s batched sums
+        for 'sk' (the plain version's frame loop would be m launches)."""
+        kernel_route = self._stats_route(pw.shape[1]) == "kernel"
+        if kernel and kernel_route:
+            stats = flag_kernel.flag_stats(pw, self.algo)
+        elif kernel_route or self.algo == "mad":
+            stats = flag_kernel.flag_stats_plain(pw, self.algo)
+        else:
+            stats = spectral_kurtosis(pw, dim=1), pw.sum(dim=1) / pw.shape[1]
         if self.algo == "mad":
-            med = median(pw, dim=1, keepdim=True)
-            mad = median((pw - med).abs(), dim=1, keepdim=False)
-            cross = median(mad, dim=1, keepdim=False)
-            return med[:, 0], mad, cross
-        return spectral_kurtosis(pw, dim=1), pw.sum(dim=1) / pw.shape[1]
+            stats += (median(stats[1], dim=1, keepdim=False),)
+        return stats
 
     def _windows(self, pwr, state):
         """pwr (ntime, ncell) f32 -> (mask (nrows, ncell) bool, fill rows
         (nrows, ncell) f32, state'): each segment of m-frame windows (the
-        whole windows, then a tail window) its statistics in one batched
-        pass and its walk in one call."""
-        walk = flag_kernel.flag_walk if self._resolve() == "cuda" \
-            else flag_kernel.flag_walk_plain
+        whole windows, then a tail window) its statistics in one call and
+        its walk in one call."""
+        kernel = self._resolve() == "cuda"
+        walk = flag_kernel.flag_walk if kernel else \
+            flag_kernel.flag_walk_plain
         ntime, ncell = pwr.shape
         w = self.window
         nwin, tail = divmod(ntime, w)
-        bads, fills = [], []
+        bads, fills, routes = [], [], []
         for n, m, lo in ((nwin, w, 0), (1 if tail else 0, tail, nwin * w)):
             if n:
                 pw = pwr[lo:lo + n * m].reshape(n, m, ncell)
-                bad, fill, state = walk(self._window_stats(pw), m, state,
-                                        self._params(), self.algo)
+                bad, fill, state = walk(self._window_stats(pw, kernel), m,
+                                        state, self._params(), self.algo)
                 bads.append(bad)
                 fills.append(fill)
+                routes.append(self._stats_route(m))
+        self._last_routes = routes
         if len(bads) == 1:
             return bads[0], fills[0], state
         return torch.cat(bads), torch.cat(fills), state
@@ -296,7 +322,8 @@ class Flag(object):
         flagger plan tail."""
         rep = self._runtime.report()
         rep.update({"algo": self.algo, "window": self.window,
-                    "fill": self.fill})
+                    "fill": self.fill,
+                    "stats_route": list(self._last_routes)})
         return rep
 
 

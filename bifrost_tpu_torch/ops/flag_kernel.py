@@ -1,33 +1,44 @@
-"""The RFI flagger's baseline walk: the hand-written CUDA kernel W1
-(csrc/flag.cu) and its plain PyTorch version.
+"""The RFI flagger's window step: the hand-written CUDA kernels W1s (the
+window statistics) and W1 (the baseline walk), csrc/flag.cu, and their
+plain PyTorch versions.
 
-W1 replaces no Pallas kernel: the JAX plan walks its windows on the
+Neither replaces a Pallas kernel: the JAX plan walks its windows on the
 device as one ``jax.lax.scan`` of its per-window step
-(bifrost_tpu/ops/flag.py:257-281, the step at :176-233).  Here the
-carry-free statistics of a segment of n m-frame windows come from one
-batched pass (ops/flag.py `Flag._window_stats`), and the walk takes them:
+(bifrost_tpu/ops/flag.py:257-281, the step at :176-233), which computes
+each window's statistics and then the carried baseline.  Here a segment
+of n m-frame windows takes two launches:
 
-- ``stats``: 'mad' (med, mad, cross): (n, ncell) window medians and MADs
-  and the (n,) cross-cell median MAD; 'sk' (sk, mean): (n, ncell) each.
-- ``state``: the carried (3, ncell) f32 rows [center, scale, warm].
-- ``params``: (thresh, mad_factor, alpha) as f32 values (`Flag._params`).
+- `flag_stats` (W1s): pw, the segment's power viewed as (n, m, ncell)
+  f32 (any strides) -> 'mad' (med, mad), the window medians and MADs;
+  'sk' (sk, mean), each (n, ncell).  m at most `STATS_MAX_M` (the
+  register limit; ops/flag.py keeps longer windows on plain PyTorch).
+  The medians select on total-order keys (`_keys`: -0.0 before +0.0,
+  every NaN last and returned as 0x7fffffff), so `flag_stats_plain`, a
+  sort of the same keys, is bitwise equal to W1s on every input; the SK
+  sums run over the frames in frame order in both.
+- `flag_walk` (W1): ``stats`` 'mad' (med, mad, cross) with cross the (n,)
+  cross-cell median MAD, or 'sk' (sk, mean); ``state`` the carried (3,
+  ncell) f32 rows [center, scale, warm]; ``params`` (thresh,
+  mad_factor, alpha) as f32 values (`Flag._params`) -> (bad (n, ncell)
+  bool, fill rows (n, ncell) f32, state' (3, ncell) f32), state' a fresh
+  tensor (the caller's state is never written: the fused group's carry
+  step and supervised restarts hold on to it).  Its form is chosen here
+  by n (`walk_form`): the shared-memory ring for n > 1, one window a
+  thread a cell (four cells a thread where strides and alignment allow)
+  for n == 1.  `flag_walk_plain` is the torch walk, a loop over the
+  windows of (ncell,) operations; W1 rounds each operation on its own in
+  its order, so the two are bitwise equal on every input.
 
-and gives (bad (n, ncell) bool, fill rows (n, ncell) f32, state' (3,
-ncell) f32), state' a fresh tensor (the caller's state is never written:
-the fused group's carry step and supervised restarts hold on to it).
-
-`flag_walk_plain` is the torch walk, a loop over the windows of (ncell,)
-operations; `flag_walk` launches W1 for CUDA tensors (one launch, each
-cell's recurrence walked by a thread) and runs the plain version only for
-tensors on the CPU; any other device raises.  W1 rounds each operation on
-its own in the plain version's order, so the two are bitwise equal on
-every input.  `flag_walk.launches` counts W1's launches (and nothing
-else).
+Each wrapper launches its kernel for CUDA tensors and runs the plain
+version only for tensors on the CPU; any other device raises.
+`flag_stats.launches` and `flag_walk.launches` count the launches (and
+nothing else); `flag_walk.vector_launches` those of the four-cell form.
 """
 
 from __future__ import annotations
 
 import ctypes
+import re
 
 import numpy as np
 import torch
@@ -38,6 +49,11 @@ from .stats import MAD_EPS, MAD_SIGMA
 
 WARM_CAP = 2.0 ** 20
 ALGOS = ("mad", "sk")
+# W1s's longest window, read from the source (edit it there only).
+STATS_MAX_M = int(re.search(r"constexpr int kMaxM = (\d+);",
+                            (build.CSRC / "flag.cu").read_text()).group(1))
+WALK_FORMS = ("ring", "one", "one4")
+_TOP = 2 ** 31 - 1      # the key of a NaN
 
 
 def _f32(v):
@@ -48,6 +64,52 @@ def _sk_band(m):
     """The SK acceptance half-band per threshold sigma of m-frame
     windows, as an f32 value."""
     return _f32(np.sqrt(4.0 / max(m, 2)))
+
+
+def _sk_factor(m):
+    """SK's (m + 1) / (m - 1), as a float (an f32 value where used)."""
+    return (m + 1.0) / (m - 1.0)
+
+
+def _keys(x):
+    """The total-order int32 keys of f32 x (csrc/flag.cu key_of): the
+    bits, the lower 31 flipped where the sign is set, INT_MAX for a
+    NaN."""
+    b = x.view(torch.int32)
+    return torch.where(b < 0, b ^ 0x7FFFFFFF, b).masked_fill(x.isnan(),
+                                                              _TOP)
+
+
+def _values(k):
+    return torch.where(k < 0, k ^ 0x7FFFFFFF, k).view(torch.float32)
+
+
+def _middle(s, m):
+    """The median of m sorted keys along dim 1: the middle value, or (lo
+    + hi) / 2 of the two middle values for an even m."""
+    hi = _values(s.select(1, m // 2))
+    if m % 2 == 0:
+        hi = (_values(s.select(1, m // 2 - 1)) + hi) / 2
+    return hi
+
+
+def flag_stats_plain(pw, algo):
+    """W1s's plain version: the statistics of the n m-frame windows of pw
+    (n, m, ncell) f32 (module docstring)."""
+    m = pw.shape[1]
+    if algo == "mad":
+        med = _middle(_keys(pw).sort(dim=1).values, m)
+        dev = (pw - med[:, None]).abs()
+        return med, _middle(_keys(dev).sort(dim=1).values, m)
+    s1, s2 = pw[:, 0], pw[:, 0] * pw[:, 0]
+    for j in range(1, m):
+        x = pw[:, j]
+        s1 = s1 + x
+        s2 = s2 + x * x
+    sk = _sk_factor(m) * (float(m) * s2 / (s1 * s1 + MAD_EPS) - 1.0)
+    # A tensor divisor: on the card PyTorch divides by a Python number
+    # through its reciprocal, which W1s's quotient is not.
+    return sk, s1 / torch.full_like(s1, float(m))
 
 
 def flag_walk_plain(stats, m, state, params, algo):
@@ -95,8 +157,13 @@ def _library():
     global _lib
     if _lib is None:
         lib = build.load("flag")
+        lib.flag_stats.argtypes = (
+            [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_longlong] * 6 +
+            [ctypes.c_void_p] * 2 + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+        lib.flag_stats.restype = ctypes.c_int
         lib.flag_walk.argtypes = (
-            [ctypes.c_int] + ([ctypes.c_void_p] + [ctypes.c_longlong] * 2) * 2
+            [ctypes.c_int] * 2 +
+            ([ctypes.c_void_p] + [ctypes.c_longlong] * 2) * 2
             + [ctypes.c_void_p, ctypes.c_longlong] +
             [ctypes.c_void_p] + [ctypes.c_longlong] * 2 +
             [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 +
@@ -106,6 +173,70 @@ def _library():
         lib.flag_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def _raise(name, err):
+    raise RuntimeError(f"{name} launch failed: " +
+                       _library().flag_error_string(err).decode())
+
+
+def _stats_check(pw, algo):
+    """Refuse what W1s does not take -> (n, m, ncell)."""
+    if algo not in ALGOS:
+        raise ValueError(f"flag_stats: unknown algo {algo!r} (expected "
+                         f"{'/'.join(ALGOS)})")
+    if not isinstance(pw, torch.Tensor) or pw.dtype != torch.float32:
+        raise TypeError(f"flag_stats: the power must be a float32 tensor, "
+                        f"got {getattr(pw, 'dtype', type(pw))}")
+    if pw.dim() != 3 or pw.shape[0] < 1:
+        raise ValueError(f"flag_stats: the power must be (n >= 1, m, "
+                         f"ncell), got {tuple(pw.shape)}")
+    n, m, ncell = pw.shape
+    low = 2 if algo == "sk" else 1
+    if not low <= m <= STATS_MAX_M:
+        raise ValueError(f"flag_stats: '{algo}' takes windows of {low} to "
+                         f"{STATS_MAX_M} frames, got {m}")
+    return n, m, ncell
+
+
+def flag_stats(pw, algo):
+    """W1s on pw's device: `flag_stats_plain`'s statistics from one launch
+    (module docstring)."""
+    n, m, ncell = _stats_check(pw, algo)
+    if pw.device.type == "cpu":
+        return flag_stats_plain(pw, algo)
+    _device_check("flag_stats", pw)
+    out = [torch.empty(n, ncell, dtype=torch.float32, device=pw.device)
+           for _ in range(2)]
+    if ncell == 0:
+        return tuple(out)
+    err = _library().flag_stats(
+        ALGOS.index(algo), pw.data_ptr(), *pw.stride(), n, m, ncell,
+        out[0].data_ptr(), out[1].data_ptr(),
+        _f32(_sk_factor(m)) if algo == "sk" else 0.0, _f32(MAD_EPS),
+        torch.cuda.current_stream(pw.device).cuda_stream)
+    if err:
+        _raise("flag_stats", err)
+    flag_stats.launches += 1
+    return tuple(out)
+
+
+flag_stats.launches = 0
+
+
+def walk_form(stats, state):
+    """W1's form for these statistics and state: 'ring' for n > 1
+    windows; for one window 'one4' (four cells a thread, 16-byte
+    accesses) where the statistics and state rows are contiguous cells
+    on 16-byte boundaries and ncell is a multiple of 4, else 'one'."""
+    n, ncell = stats[0].shape
+    if n > 1:
+        return "ring"
+    rows = [stats[0], stats[1], state, state[1], state[2]]
+    if ncell % 4 == 0 and all(t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+                              for t in rows):
+        return "one4"
+    return "one"
 
 
 def _check(stats, state, params, algo):
@@ -152,20 +283,22 @@ def flag_walk(stats, m, state, params, algo):
     out = torch.empty(3, ncell, dtype=torch.float32, device=dev)
     s0, s1 = stats[0], stats[1]
     cross = stats[2] if algo == "mad" else None
-    lib = _library()
-    err = lib.flag_walk(
-        ALGOS.index(algo), s0.data_ptr(), *s0.stride(), s1.data_ptr(),
-        *s1.stride(), None if cross is None else cross.data_ptr(),
+    form = walk_form(stats, state)
+    err = _library().flag_walk(
+        ALGOS.index(algo), WALK_FORMS.index(form), s0.data_ptr(),
+        *s0.stride(), s1.data_ptr(), *s1.stride(),
+        None if cross is None else cross.data_ptr(),
         0 if cross is None else cross.stride(0), state.data_ptr(),
         *state.stride(), bad.data_ptr(), fill.data_ptr(), out.data_ptr(), n,
         ncell, _f32(p_thresh), _f32(p_mad), _f32(a), _f32(MAD_SIGMA),
         _f32(MAD_EPS), _f32(p_thresh * _sk_band(m)), WARM_CAP,
         torch.cuda.current_stream(dev).cuda_stream)
     if err:
-        raise RuntimeError("flag_walk launch failed: " +
-                           lib.flag_error_string(err).decode())
+        _raise("flag_walk", err)
     flag_walk.launches += 1
+    flag_walk.vector_launches += form == "one4"
     return bad, fill, out
 
 
 flag_walk.launches = 0
+flag_walk.vector_launches = 0

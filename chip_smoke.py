@@ -26,12 +26,19 @@ Phases, one line each; any failure exits non-zero:
              from them bitwise their host-origin launches, both build
              times and both kernels' times a frame beside each other;
              K6b's plan is also rebuilt for RM_NSEQ sequences of new
-             positions from each origin.  W1, the flagger's baseline
-             walk, is held bitwise against its plain walk on W1_EDGES
-             (both algorithms, [frbflag]'s 256 windows x 4096 channels,
-             [dq]'s one window of 2,097,152 cells, tail segments, ties
-             at each threshold, NaN and -0.0 statistics, the warm cap)
-             and timed at both paths' shapes from a warmed baseline.
+             positions from each origin.  The flagger's window step:
+             W1s, its statistics, held bitwise against its plain
+             version on W1S_EDGES (both algorithms, [frbflag]'s 256
+             windows of 16 frames x 4096 channels, [dq]'s one window of
+             16 x 2,097,152 cells, windows of 1 to 32 frames, NaN
+             samples of both signs, -0.0/+0.0 ties, strided power), and
+             W1, its baseline walk, against its plain walk on W1_EDGES
+             (tail segments, the ring's chunk edges, ties at each
+             threshold, NaN and -0.0 statistics, the warm cap); both
+             timed at both paths' shapes (CUDA graphs) beside the
+             torch-sort pass W1s replaces, the cross-cell median
+             between them and W1's latency floor (its walker's
+             dependent chain in SASS at the SM clock).
 4. main    — drive the FRB-search chain (`frb_search_pipeline`) at full
              width: 4096 channels of u8 power at the LWA band (40 MHz,
              9.28 kHz, 1 ms), FDMT max_delay 2048, gulps of 4096 frames,
@@ -75,8 +82,8 @@ Phases, one line each; any failure exits non-zero:
              the same run with every method 'plain'.
 7. frbflag — the FRB search of phase 4 with the RFI flagger
              (`frb_search_pipeline(rfi_flag=dict(algo='mad', thresh=6.0,
-             mad_factor=4.0, window=16))`, kernels W1 and K5a) on the
-             same data
+             mad_factor=4.0, window=16))`, kernels W1s, W1 and K5a) on
+             the same data
              with a seeded narrowband storm from the third gulp on (60
              channels blinking on with probability 0.8 per frame at
              255).  Launch counts are read from this run alone, every
@@ -96,8 +103,8 @@ Phases, one line each; any failure exits non-zero:
              integration on -> copy -> pfb -> rfi_flag(window=16) ->
              gaincal(seeded per-station gains) (kernel K5b) -> beamform
              -> transpose -> fdmt -> detect, B_NINT integrations.  Launch
-             counts are read from this run alone (W1 once a gulp: a
-             gulp is one window), every K5a and K2
+             counts are read from this run alone (W1s and W1 once a
+             gulp: a gulp is one window), every K5a, K2 and W1
              launch must take its vector kernel; the tone's cells must
              be flagged in every window from its onset, the beam powers
              and dedispersed frames bitwise equal to the same chain with
@@ -532,10 +539,11 @@ Phases, one line each; any failure exits non-zero:
              each file byte-identical to the one a plain numpy
              computation of the same function writes.
 
-The launch checks of every phase count all nine kernels (K1, K2, K4,
-K6a, K6b, K5a, K5b, X1, M1).  The line before the last two holds the kernel
-records as JSON, one for each of those kernels; then the card's name and
-power limit; the last line is {"ok": true, "device": {...}}.
+The launch checks of every phase count all eleven kernels (K1, K2, K4,
+K6a, K6b, K5a, K5b, X1, M1, W1s, W1).  The line before the last two
+holds the kernel records as JSON, one for each of those kernels; then
+the card's name and power limit; the last line is {"ok": true,
+"device": {...}}.
 """
 
 import contextlib
@@ -545,6 +553,7 @@ import json
 import math
 import threading
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -847,11 +856,11 @@ def cuda_time(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def graph_time(fn, reps):
+def graph_time(fn, reps, calls=1):
     """Mean device milliseconds of the kernels fn() launches: fn is
-    captured once in a CUDA graph and the graph replayed `reps` times,
-    so the host's own time per launch drops out.  A measurement only:
-    the port launches eagerly."""
+    captured `calls` times in a CUDA graph and the graph replayed `reps`
+    times, so the host's own time per launch drops out.  A measurement
+    only: the port launches eagerly."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -859,8 +868,9 @@ def graph_time(fn, reps):
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        fn()
-    return cuda_time(graph.replay, reps)
+        for _ in range(calls):
+            fn()
+    return cuda_time(graph.replay, reps) / calls
 
 
 def bits_equal(a, b):
@@ -953,6 +963,7 @@ def kernel_counters():
             "romein_grid_separable": romein_kernel.grid_separable,
             "dq_masked_fill": dq_kernel.masked_fill,
             "dq_gain_apply": dq_kernel.gain_apply,
+            "flag_stats": flag_kernel.flag_stats,
             "flag_walk": flag_kernel.flag_walk,
             "xengine_int8": xengine_kernel.xengine_int8,
             "map_apply": map_kernel.map_apply}
@@ -966,7 +977,7 @@ def expected(**nonzero):
 def reset_counts():
     for fn in kernel_counters().values():
         fn.launches = 0
-    for name in ("dq_masked_fill", "fir_mac", "map_apply"):
+    for name in ("dq_masked_fill", "fir_mac", "map_apply", "flag_walk"):
         kernel_counters()[name].vector_launches = 0
     kernel_counters()["map_apply"].index64_launches = 0
     kernel_counters()["map_apply"].tile_launches = 0
@@ -2110,7 +2121,7 @@ def instrument_path(dev, volt, bref, spec):
     if kcounts["romein_grid_general"] != X_PLAIN_NINT or \
             kcounts["romein_grid_separable"] != 0 or \
             kcounts["dq_masked_fill"] or kcounts["dq_gain_apply"] or \
-            kcounts["flag_walk"]:
+            kcounts["flag_walk"] or kcounts["flag_stats"]:
         raise AssertionError(f"non-rank-1 run launches {kcounts}")
     del pipe
     free_device()
@@ -2695,11 +2706,18 @@ def check_dq(dev, kind):
 # W1's edge shapes: (windows, cells, frames a window): [frbflag]'s 256
 # windows of 4096 channels, [dq]'s one window of 2,097,152 cells, tail
 # segments of 12 frames (an SK threshold that is not an f32 product) and
-# of 5, windows past a thread's chunk of 8 (statistics and state read
-# through element strides there).
+# of 5, the ring's chunks of 32 windows (9: one partial chunk; 33: a
+# chunk and one window; 97: past the ring's three stages) with 16-byte row
+# stores (4112 cells: a partial block of 16) and element stores
+# (statistics and state read through element strides at 3, 9 and 97).
 W1_EDGES = ((256, 4096, 16), (1, 2_097_152, 16), (1, 4096, 12),
-            (3, 1000, 5), (9, 300, 16))
+            (3, 1000, 5), (9, 300, 16), (33, 4112, 16), (97, 1000, 5))
 W1_PARAMS = (FRB_FLAG["thresh"], FRB_FLAG["mad_factor"], 0.25)
+# W1s's edge shapes: (windows, frames a window, cells, strided):
+# [frbflag]'s and [dq]'s, windows of 1 to 32 frames (its register limit).
+W1S_EDGES = ((256, 16, 4096, False), (1, 16, 2_097_152, False),
+             (3, 2, 1000, True), (4, 5, 300, False), (2, 12, 777, True),
+             (5, 17, 129, False), (3, 32, 64, True), (1, 1, 100, False))
 
 
 def walk_case(algo, n, ncell, m, seed, dev, strided):
@@ -2754,6 +2772,34 @@ def walk_case(algo, n, ncell, m, seed, dev, strided):
     return [put(a) for a in stats], put(np.stack([c, s, warm]))
 
 
+def stats_power(n, m, ncell, seed, strided, dev):
+    """(n, m, ncell) f32 power for W1s's edge checks (the card tests'
+    `_stats_power`): exponential noise; NaN samples of both signs, -0.0
+    and +0.0 ties, infinities, small integers, all-equal and all-NaN
+    cells; cells every other element of a wider buffer where
+    `strided`."""
+    rng = np.random.default_rng(seed)
+    pw = rng.exponential(1.0, (n, m, ncell)).astype(np.float32)
+    k = np.arange(ncell)
+    special = np.concatenate([
+        np.array([np.nan, 0.0, -0.0, np.inf, -np.inf, 1.0], np.float32),
+        np.array([0xFFC00000], np.uint32).view(np.float32)])
+    sel = (rng.random(pw.shape) < 0.2) & (k % 7 == 1)
+    pw[sel] = rng.choice(special, pw.shape)[sel]
+    pw[:, :, k % 7 == 2] = rng.choice(np.array([0.0, -0.0], np.float32),
+                                      (n, m, int((k % 7 == 2).sum())))
+    pw[:, :, k % 7 == 3] = rng.integers(0, 3, (n, m, int((k % 7 == 3)
+                                                        .sum())))
+    pw[:, :, k % 7 == 4] = 2.5
+    pw[:, :, k % 97 == 5] = np.nan
+    t = torch.from_numpy(pw).to(dev)
+    if not strided:
+        return t
+    wide = torch.full((n, m, 2 * ncell), float("nan"), device=dev)
+    wide[..., ::2] = t
+    return wide[..., ::2]
+
+
 def walk_work(n, ncell):
     """Bytes and operations of one 'mad' W1 call: the median and MAD rows
     and the (n,) cross-cell median read once, the mask (1 byte) and fill
@@ -2762,27 +2808,150 @@ def walk_work(n, ncell):
     return n * ncell * 13 + 24 * ncell + 4 * n, 20 * n * ncell
 
 
+def stats_work(n, m, ncell):
+    """Bytes and operations of one 'mad' W1s call: the n x m x ncell f32
+    samples read once, the median and MAD rows written; a (window, cell)
+    takes Batcher's odd-even merge sort of P = the next power of two of
+    m keys (P/4 log2(P) (log2(P) - 1) + P - 1 compare-exchanges of two
+    operations), a bitonic merge of P (P/2 log2(P)), and m deviations
+    (two operations each)."""
+    p = max(2, 1 << (m - 1).bit_length())
+    lg = p.bit_length() - 1
+    ops = 2 * (p * lg * (lg - 1) // 4 + p - 1 + p * lg // 2) + 2 * m
+    return 4 * n * m * ncell + 8 * n * ncell, ops * n * ncell
+
+
 def walk_equal(got, want):
     return torch.equal(got[0], want[0]) and bits_equal(got[1], want[1]) \
         and bits_equal(got[2], want[2])
 
 
-def check_flag_walk(dev, kind):
-    """W1 against its plain walk, bitwise, on W1_EDGES for both
-    algorithms (the caller's state left as it was), then at the flagger
-    paths' shapes: the statistics of a seeded exponential power gulp of
-    [frbflag] (4096 frames x 4096 channels, 256 windows of 16) and of
-    [dq] (16 x 2,097,152 cells, one window), 'mad', from the baseline a
-    first walk of the same gulp leaves; timed beside the plain walk and
-    the bytes bound.  -> W1's record, its primary numbers at [frbflag]'s
-    shape."""
+# The latency a dependent instruction waits for its operand on Hopper's
+# FP32, integer and predicate pipes (cycles), for W1's latency floor: an
+# assumed figure, not measured on the card; the floor is only as good as
+# it (`check_flag` prints the walk's measured time a window beside it).
+CHAIN_LATENCY = 4
+_NO_DEST = ("ST", "RED", "ATOM", "BAR", "BRA", "EXIT", "BSYNC", "BSSY",
+            "WARPSYNC", "CALL", "RET", "NOP", "DEPBAR", "MEMBAR", "YIELD",
+            "CCTL", "LDGDEPBAR", "LDGSTS", "ARRIVES")
+_LOADS = ("LD", "S2R", "CS2R", "S2UR", "ULDC")
+_REG = re.compile(r"(?<![\w.])(U?R\d+|U?P\d)(?!\w)")
+
+
+def chain_depth(seg):
+    """The longest dependent path through the SASS instructions `seg`
+    (straight-line, in order), in cycles: each instruction CHAIN_LATENCY
+    after the latest of its operands; loads start paths (their results
+    do not depend on the carry), stores and branches end them."""
+    depth = {}
+    for ins in seg:
+        m = re.match(r"(?:@!?(U?P\d|PT)\s+)?(\S+)\s*(.*)", ins)
+        guard, op, rest = m.group(1), m.group(2), m.group(3)
+        base = op.split(".")[0]
+        args = [a.strip() for a in rest.split(",")] if rest else []
+        if base.startswith(_NO_DEST):
+            continue
+        dests = []
+        while args and len(dests) < 2 and re.fullmatch(r"U?P\d|PT", args[0]):
+            dests.append(args.pop(0))
+        if not dests and args and _REG.fullmatch(args[0]):
+            dests.append(args.pop(0))
+        srcs = _REG.findall(" ".join(args)) + \
+            ([guard] + dests if guard else [])
+        d = 0 if base.startswith(_LOADS) else \
+            CHAIN_LATENCY + max([depth.get(r, 0) for r in srcs] or [0])
+        for r in dests:
+            if r != "PT":
+                depth[r] = d
+    return max(depth.values() or [0])
+
+
+def walk_chain(part, lib=None):
+    """W1's walker in the SASS (cuobjdump) of `lib` (the built flag
+    library by default): of the basic blocks (runs of instructions with
+    no branch and no branch target inside) of the kernel whose name holds
+    `part`, the one with the most FSETPs -> {windows in it (its flag-byte
+    loads), instructions a window, dependent cycles a window
+    (`chain_depth`)}."""
+    from bifrost_tpu_torch import build
+    tool = Path(build.nvcc_path()).parent / "cuobjdump"
+    lib = lib or build._target("flag")[2]
+    text = subprocess.run([str(tool), "-sass", str(lib)],
+                          capture_output=True, text=True, timeout=120).stdout
+    for sec in text.split("Function : ")[1:]:
+        if part not in sec.split("\n", 1)[0]:
+            continue
+        ins = [(int(a, 16), body.strip()) for a, body in re.findall(
+            r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", sec)]
+        targets = {int(t, 16) for _, b in ins for t in re.findall(
+            r"\b(?:BRA|BSSY)\s+(?:\S+\s*,\s*)?0x([0-9a-f]+)", b)}
+        blocks, cur = [], []
+        for addr, body in ins:
+            if addr in targets and cur:
+                blocks.append(cur)
+                cur = []
+            cur.append(body)
+            if re.search(r"\b(BRA|BSSY|BSYNC|EXIT|BAR|WARPSYNC)\b", body):
+                blocks.append(cur)
+                cur = []
+        blocks.append(cur)
+        seg = max(blocks, key=lambda b: sum("FSETP" in x for x in b))
+        nwin = sum(re.search(r"\bLDS\.U8\b", b) is not None for b in seg)
+        if not nwin:
+            break
+        return {"windows": nwin, "instructions": len(seg) / nwin,
+                "cycles": chain_depth(seg) / nwin}
+    raise AssertionError(f"no walker block of {part} in the SASS")
+
+
+def busy_clock(dev):
+    """The SM clock (MHz) nvidia-smi reads while the card spins a sleep
+    kernel, and the card's maximum."""
+    torch.cuda._sleep(2_000_000_000)
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60).stdout
+    torch.cuda.synchronize()
+    return [float(v) for v in out.split("\n")[0].split(",")]
+
+
+def check_flag(dev, kind):
+    """W1s and W1 against their plain versions, bitwise: W1s on
+    W1S_EDGES and W1 on W1_EDGES for both algorithms (the caller's state
+    left as it was); then at the flagger paths' shapes, the statistics
+    of a seeded exponential power gulp of [frbflag] (4096 frames x 4096
+    channels, 256 windows of 16) and of [dq] (16 x 2,097,152 cells, one
+    window), 'mad', and W1's walk of them from the baseline a first
+    walk leaves.  Each timed beside its plain version and its bytes
+    bound; W1s beside the torch-sort pass it replaces (its library
+    call, checked bitwise equal on these inputs), the cross-cell median
+    between the two launches, and W1s 'sk'; W1 beside its latency floor
+    (`walk_chain` x windows / `busy_clock`, at an assumed CHAIN_LATENCY).
+    Then the "torch" route a window longer than W1s takes, timed at the
+    flag block's default of one window a gulp ([frbflag]'s 4096 x 4096),
+    both algorithms, through `Flag._window_stats`.  -> the two records,
+    their primary numbers at [frbflag]'s shape."""
     from bifrost_tpu_torch.ops import Flag
     from bifrost_tpu_torch.ops import flag_kernel as fk
-    nedge = 0
+    from bifrost_tpu_torch.ops.stats import median, spectral_kurtosis
+    nstat = nedge = 0
     for algo in ("mad", "sk"):
+        for n, m, ncell, strided in W1S_EDGES:
+            if algo == "sk" and m < 2:
+                continue
+            pw = stats_power(n, m, ncell, SEED + m, strided, dev)
+            before = fk.flag_stats.launches
+            got = fk.flag_stats(pw, algo)
+            want = fk.flag_stats_plain(pw, algo)
+            torch.cuda.synchronize()
+            if fk.flag_stats.launches != before + 1 or not all(
+                    bits_equal(a, b.contiguous()) for a, b in zip(got, want)):
+                raise AssertionError(f"flag_stats differs from plain "
+                                     f"('{algo}', {n} x {m} x {ncell})")
+            nstat += 1
         for n, ncell, m in W1_EDGES:
             stats, state = walk_case(algo, n, ncell, m, SEED + n, dev,
-                                     strided=n in (3, 9))
+                                     strided=n in (3, 9, 97))
             keep = state.clone()
             before = fk.flag_walk.launches
             got = fk.flag_walk(stats, m, state, W1_PARAMS, algo)
@@ -2794,55 +2963,162 @@ def check_flag_walk(dev, kind):
                 raise AssertionError(f"flag_walk differs from plain ('{algo}'"
                                      f", {n} x {ncell}, m {m})")
             nedge += 1
-    del stats, state, keep, got, want
+    del pw, got, want, stats, state, keep
     rate = hbm_rate(kind)
+    chain = walk_chain("flag_walk_ringILb1E")
+    mhz, max_mhz = busy_clock(dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 11)
-    t = {}
+    ts, tw = {}, {}
     for name, ntime, ncell, w in (
             ("frbflag", GULP, NCHAN, FRB_FLAG["window"]),
             ("dq", N_INT, BCHAN * NSTAND * NPOL, DQ_WINDOW)):
         plan = Flag(method="cuda").init(w, algo="mad")
         n = ntime // w
         pw = torch.empty(n, w, ncell, device=dev).exponential_(generator=gen)
-        stats = plan._window_stats(pw)
-        del pw
+
+        def torch_pass():
+            m0 = median(pw, dim=1, keepdim=True)
+            return m0[:, 0], median((pw - m0).abs(), dim=1, keepdim=False)
+        st = fk.flag_stats(pw, "mad")
+        want = fk.flag_stats_plain(pw, "mad")
+        lib = torch_pass()
+        torch.cuda.synchronize()
+        if not all(bits_equal(a, b.contiguous()) and
+                   bits_equal(a, c.contiguous())
+                   for a, b, c in zip(st, want, lib)):
+            raise AssertionError(f"flag_stats differs from plain or from the "
+                                 f"torch pass ({name})")
+        del want, lib
+        nbytes, nops = stats_work(n, w, ncell)
+        ts[name] = {
+            "ms": graph_time(lambda: fk.flag_stats(pw, "mad"), 5, 20),
+            "event_ms": cuda_time(lambda: fk.flag_stats(pw, "mad"), 20),
+            "plain_ms": cuda_time(lambda: fk.flag_stats_plain(pw, "mad"), 3),
+            "library_ms": cuda_time(torch_pass, 3),
+            "sk_ms": graph_time(lambda: fk.flag_stats(pw, "sk"), 5, 20),
+            "cross_ms": graph_time(
+                lambda: median(st[1], dim=1, keepdim=False), 5, 20),
+            "bound_ms": bound(nbytes, nops, rate)[0],
+            "bound_by": bound(nbytes, nops, rate)[1],
+            "max_abs_err": 0.0, "gb": nbytes / 1e9, "shape": (n, w, ncell)}
+        stats = (st[0], st[1], median(st[1], dim=1, keepdim=False))
+        del pw, st
         state = fk.flag_walk(stats, w, plan.init_state(ncell, dev),
                              W1_PARAMS, "mad")[2]
+        v0 = fk.flag_walk.vector_launches
         got = fk.flag_walk(stats, w, state, W1_PARAMS, "mad")
         want = fk.flag_walk_plain(stats, w, state, W1_PARAMS, "mad")
         torch.cuda.synchronize()
-        if not walk_equal(got, want):
+        if not walk_equal(got, want) or \
+                fk.flag_walk.vector_launches != v0 + (n == 1):
             raise AssertionError(f"flag_walk differs from plain ({name})")
         nbytes, nops = walk_work(n, ncell)
-        t[name] = {
-            "ms": cuda_time(lambda: fk.flag_walk(stats, w, state, W1_PARAMS,
-                                                 "mad"), 20),
+        tw[name] = {
+            "ms": graph_time(lambda: fk.flag_walk(stats, w, state, W1_PARAMS,
+                                                  "mad"), 5, 20),
+            "event_ms": cuda_time(lambda: fk.flag_walk(
+                stats, w, state, W1_PARAMS, "mad"), 20),
             "plain_ms": cuda_time(lambda: fk.flag_walk_plain(
                 stats, w, state, W1_PARAMS, "mad"), 3),
             "library_ms": None,
             "bound_ms": bound(nbytes, nops, rate)[0],
             "bound_by": bound(nbytes, nops, rate)[1],
+            "latency_floor_ms": chain["cycles"] * n / (mhz * 1e3)
+            if n > 1 else None,
+            "form": fk.walk_form(stats, state),
             "max_abs_err": float((got[1] - want[1]).abs().max()),
             "gb": nbytes / 1e9, "shape": (n, ncell),
             "flagged": float(got[0].float().mean())}
         del stats, state, got, want
-    for name, r in t.items():
-        phase("kernels", f"flag_walk (W1) equal to plain (tolerance: "
-              f"bitwise) at [{name}]'s {r['shape'][0]} x {r['shape'][1]} "
-              f"(flagged {r['flagged']:.4f}) and on {nedge} edge cases; "
-              f"{r['ms']:.4f} ms per gulp (1 launch), plain "
-              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}: {r['gb']:.4f} GB), {kind}")
+        free_device()
+    long = {"shape": (1, GULP, NCHAN)}
+    pw = torch.empty(*long["shape"], device=dev).exponential_(generator=gen)
+    for algo in ("mad", "sk"):
+        plan = Flag(method="cuda").init(GULP, algo=algo)
+        if plan._stats_route(GULP) != "torch":
+            raise AssertionError(f"a {GULP}-frame window took the kernel "
+                                 f"route")
+        before = fk.flag_stats.launches
+        got = plan._window_stats(pw, kernel=True)
+        want = fk.flag_stats_plain(pw, algo) if algo == "mad" else \
+            (spectral_kurtosis(pw, dim=1), pw.sum(dim=1) / GULP)
+        torch.cuda.synchronize()
+        if fk.flag_stats.launches != before or not all(
+                bits_equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"the torch route differs ('{algo}', "
+                                 f"{long['shape']})")
+        long[algo] = cuda_time(lambda: plan._window_stats(pw, kernel=True),
+                               3)
+    nbytes = stats_work(*long["shape"])[0]
+    long["bytes_ms"] = nbytes / rate * 1e3
+    del pw, got, want
+    free_device()
+    for name in ts:
+        r, q = ts[name], tw[name]
+        phase("kernels", f"flag_stats (W1s) 'mad' equal to plain and to the "
+              f"torch-sort pass (tolerance: bitwise) at [{name}]'s "
+              f"{r['shape'][0]} x {r['shape'][1]} x {r['shape'][2]} and on "
+              f"{nstat} edge cases; {r['ms']:.4f} ms per gulp on the card "
+              f"(1 launch, from a CUDA graph; {r['event_ms']:.4f} launched "
+              f"from the host; 'sk' {r['sk_ms']:.4f}), plain "
+              f"{r['plain_ms']:.4f} ms, the "
+              f"torch pass it replaces {r['library_ms']:.4f} ms, the "
+              f"cross-cell median {r['cross_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}: {r['gb']:.4f} GB), "
+              f"{kind}")
+        floor = "" if q["latency_floor_ms"] is None else \
+            f", latency floor {q['latency_floor_ms']:.4f} ms (assumed " \
+            f"{CHAIN_LATENCY} cycles a dependent instruction; measured " \
+            f"{q['ms'] / q['shape'][0] * 1e6:.1f} ns a window)"
+        phase("kernels", f"flag_walk (W1, {q['form']} form) equal to plain "
+              f"(tolerance: bitwise) at [{name}]'s {q['shape'][0]} x "
+              f"{q['shape'][1]} (flagged {q['flagged']:.4f}) and on {nedge} "
+              f"edge cases; {q['ms']:.4f} ms per gulp on the card (1 launch,"
+              f" from a CUDA graph; {q['event_ms']:.4f} launched from the "
+              f"host), plain "
+              f"{q['plain_ms']:.4f} ms, bound {q['bound_ms']:.4f} ms "
+              f"({q['bound_by']}: {q['gb']:.4f} GB){floor}, {kind}")
+    phase("kernels", f"W1's walker (SASS of flag_walk_ring 'mad'): "
+          f"{chain['windows']} windows a loop body, "
+          f"{chain['instructions']:.1f} instructions and "
+          f"{chain['cycles']:.1f} dependent cycles a window at "
+          f"{CHAIN_LATENCY} a dependent instruction (assumed, not "
+          f"measured); SM clock {mhz:.0f} MHz busy (max {max_mhz:.0f}) by "
+          f"nvidia-smi")
+    phase("kernels", f"the \"torch\" route of a window above {fk.STATS_MAX_M} "
+          f"frames at the flag block's default of one window a gulp "
+          f"({long['shape'][0]} x {long['shape'][1]} x {long['shape'][2]}, "
+          f"Flag._window_stats, no W1s launch, bitwise its plain version): "
+          f"'mad' {long['mad']:.4f} ms, 'sk' {long['sk']:.4f} ms per gulp "
+          f"(events), against W1s's bytes bound at that shape "
+          f"{long['bytes_ms']:.4f} ms, {kind}")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    return {"name": "flag_walk", "route": "cuda",
-            "source": "bifrost_tpu_torch/csrc/flag.cu",
-            "replaces": "bifrost_tpu/ops/flag.py:269",
-            "launches": None, **{k: t["frbflag"][k] for k in keys},
-            "library_call": "none: no single PyTorch call computes a "
-                            "recurrence over windows",
-            "at_dq": {k: t["dq"][k] for k in keys}}
+    rec_s = {"name": "flag_stats", "route": "cuda",
+             "source": "bifrost_tpu_torch/csrc/flag.cu",
+             "replaces": "bifrost_tpu/ops/flag.py:190",
+             "launches": None, **{k: ts["frbflag"][k] for k in keys},
+             "event_ms": ts["frbflag"]["event_ms"],
+             "sk_ms": ts["frbflag"]["sk_ms"],
+             "cross_ms": ts["frbflag"]["cross_ms"],
+             "library_call": "the torch pass it replaces: stats.median "
+                             "(torch.sort) of the window, then of |x - "
+                             "med|",
+             "at_dq": {k: ts["dq"][k] for k in keys + (
+                 "event_ms", "sk_ms", "cross_ms")},
+             "torch_route_one_window_a_gulp": long}
+    rec_w = {"name": "flag_walk", "route": "cuda",
+             "source": "bifrost_tpu_torch/csrc/flag.cu",
+             "replaces": "bifrost_tpu/ops/flag.py:269",
+             "launches": None, **{k: tw["frbflag"][k] for k in keys},
+             "event_ms": tw["frbflag"]["event_ms"],
+             "latency_floor_ms": tw["frbflag"]["latency_floor_ms"],
+             "chain": {**chain, "sm_mhz": mhz, "max_sm_mhz": max_mhz},
+             "library_call": "none: no single PyTorch call computes a "
+                             "recurrence over windows",
+             "at_dq": {k: tw["dq"][k] for k in keys + ("event_ms",)}}
+    return [rec_s, rec_w]
 
 
 def ff_steady(ledger, t1):
@@ -2877,12 +3153,18 @@ def frbflag_path(dev):
     steady = ff_steady(ledger, t1)
     blocks = {b.name: b for b in pipe.blocks}
     nsteps = len(blocks["fdmt"].fdmt._steps)
-    # GULP is a multiple of the window: one W1 launch a gulp, as K5a.
+    # GULP is a multiple of the window: one W1s and one W1 launch a gulp
+    # (the ring form), as K5a.
     expect = expected(fdmt_merge_step=nsteps * NGULP, dq_masked_fill=NGULP,
-                      flag_walk=NGULP)
+                      flag_stats=NGULP, flag_walk=NGULP)
     if counts != expect:
         raise AssertionError(f"launches {counts}, expected {expect}")
     nvec = check_vectors(counts)
+    route = blocks["flag"].plan_report()["stats_route"]
+    nvec_w1 = kernel_counters()["flag_walk"].vector_launches
+    if route != ["kernel"] or nvec_w1:
+        raise AssertionError(f"W1s/W1: stats_route {route}, one-window "
+                             f"launches {nvec_w1}")
     s = ledger.summary()
     if s["lost_frames"] or s["duplicated_frames"] or \
             s["committed_frames"] != GULP * NGULP - MAX_DELAY:
@@ -3071,13 +3353,18 @@ def dq_path(dev, volt, spec):
     nfdmt = B_NINT - B_MAX_DELAY
     expect = expected(fir_mac=B_NINT, beamform_power=B_NINT,
                       dq_masked_fill=B_NINT, dq_gain_apply=B_NINT,
-                      flag_walk=B_NINT,
+                      flag_stats=B_NINT, flag_walk=B_NINT,
                       fdmt_merge_step=nfdmt *
                       len(blocks["bdetect_fdmt"].fdmt._steps))
     if counts != expect:
         raise AssertionError(f"launches {counts}, expected {expect}")
     nvec = check_vectors(counts)
     nvec_fir = check_vectors(counts, "fir_mac")
+    # One window a gulp: W1's one-window form, four cells a thread.
+    check_vectors(counts, "flag_walk")
+    route = blocks["dq_flag"].plan_report()["stats_route"]
+    if route != ["kernel"]:
+        raise AssertionError(f"W1s: stats_route {route}")
     s = ledger.summary()
     if s["lost_frames"] or s["duplicated_frames"] or \
             s["committed_frames"] != nfdmt:
@@ -3285,8 +3572,9 @@ def fusion_path(dev, kind, volt):
         dev, "DQ beam search", dq, len(volt), B_GULP,
         "station-pol samples/s", nsp, equal_arrays)
     c = counts["fusion_dq"]
-    if not c["flag_walk"] == c["dq_masked_fill"] == B_NINT:
-        raise AssertionError(f"DQ beam search: W1 and K5a once a gulp, "
+    if not c["flag_stats"] == c["flag_walk"] == c["dq_masked_fill"] == \
+            B_NINT:
+        raise AssertionError(f"DQ beam search: W1s, W1 and K5a once a gulp, "
                              f"launches {c}")
 
     short = volt[:FX_NINT * B_GULP]
@@ -3923,12 +4211,13 @@ def capture_path(dev, volt):
     rc = harness._check(0, str(dev))
     wall = time.perf_counter() - t0
     counts = read_counts()
-    # rfi_storm's gulps of 64 frames are 4 whole windows: one W1 launch
-    # a gulp, as K5a.
+    # rfi_storm's gulps of 64 frames are 4 whole windows: one W1s and
+    # one W1 launch a gulp, as K5a.
     if rc != 0 or not counts["fdmt_merge_step"] or \
             not counts["dq_masked_fill"] or \
             counts != expected(fdmt_merge_step=counts["fdmt_merge_step"],
                                dq_masked_fill=counts["dq_masked_fill"],
+                               flag_stats=counts["dq_masked_fill"],
                                flag_walk=counts["dq_masked_fill"]):
         raise AssertionError(f"chaos --check: rc {rc}, launches {counts}")
     phase("capture", f"(d) benchmarks_torch/frb_service.py --check on "
@@ -6012,7 +6301,7 @@ def fleet_path(dev, kind, volt, inst_bare):
     want["fdmt_merge_step"] -= nsteps
     if counts != want:
         raise AssertionError(f"fleet launches {counts}, expected {want}")
-    for k in ("dq_masked_fill", "dq_gain_apply", "flag_walk",
+    for k in ("dq_masked_fill", "dq_gain_apply", "flag_stats", "flag_walk",
               "romein_grid_general", "xengine_int8"):
         if counts[k]:
             raise AssertionError(f"fleet: {k} launched")
@@ -7911,7 +8200,7 @@ def main():
     time_dft(dev, kind, rng)
     recs += check_romein(dev, kind)
     recs += check_dq(dev, kind)
-    recs.append(check_flag_walk(dev, kind))
+    recs += check_flag(dev, kind)
     time_xstages(dev, kind)
     free_device()
     t1 = time.perf_counter()

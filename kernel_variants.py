@@ -1,11 +1,12 @@
 """Time the port's redesigned kernels against variants of their sources on
 a CUDA card: the FIR MAC K2, the FDMT merge step K1, the B-engine K4, the
-masked fill K5a, the int8 X-engine X1 and bf.map's generated kernel M1.
+masked fill K5a, the int8 X-engine X1, bf.map's generated kernel M1 and
+the flagger's window step W1s and W1.
 
     python3 kernel_variants.py [--rounds N] [--only K2,K1,M1]
 
 Each variant is the port's source (bifrost_tpu_torch/csrc/fir.cu,
-fdmt.cu, beamform.cu, dq.cu or xengine.cu) with a few lines replaced
+fdmt.cu, beamform.cu, dq.cu, xengine.cu or flag.cu) with a few lines replaced
 (VARIANTS below: every replaced text must occur exactly once) or, for a
 first design no longer in the source, a whole source kept here (K1's
 first design: one thread per output sample, launched once per beam; X1's:
@@ -46,7 +47,17 @@ transpose written as a scatter; the band flip (one pass, the vector
 path) at the port's V = 2 and at 4 and 8, with two and four vector items
 a thread in flight; a straight copy on the same vector path (M1E_VARIANTS),
 each bitwise the plain engine, in turns beside a.t().contiguous(),
-torch.flip and a.clone().  Prints each variant's
+torch.flip and a.clone().  W1 and W1s (--only W1,W1s) run the
+flagger's window step on [frbflag]'s shape (256 windows of 16 frames x
+4096 channels) and [dq]'s (one window of 16 x 2,097,152 cells), 'mad':
+W1s and W1 of csrc/flag.cu as built, W1's first design (the
+thread-a-cell kernel, W1_FIRST below), W1 with a ring of 3 stages, with
+chunks of 16 windows (4 and 8 stages), two copier warps, the walker
+walking a chunk in a rolled loop from shared memory (as built: its
+statistics into registers first, then the steps unrolled), the one-window
+form without its 32-register cap, and W1s in blocks of 256; each held
+bitwise against the plain versions, each W1 build's walker counted in
+SASS (chip_smoke.walk_chain).  Prints each variant's
 registers and spilled bytes by kernel from ptxas, one line per round, and
 last the card's name and power limit and a JSON object of the times
 (ms).
@@ -71,7 +82,92 @@ from bifrost_tpu_torch.ops import beamform_kernel as bk
 from bifrost_tpu_torch.ops import dq_kernel as dk
 from bifrost_tpu_torch.ops import fdmt_kernel as fdk
 from bifrost_tpu_torch.ops import fir_kernel as fk
+from bifrost_tpu_torch.ops import flag_kernel as flk
 from bifrost_tpu_torch.ops import xengine_kernel as xk
+from bifrost_tpu_torch.ops.stats import median
+
+# W1 as first built: a thread a cell walking the windows, 8
+# windows' statistics loaded at once from device memory, the carry-free
+# tests on its chain; put into the port's source (the kernel added, every
+# form launching it in blocks of 128) so the wrapper and W1s stay its own.
+W1_FIRST = r"""
+constexpr int kFirstAhead = 8;
+
+template <bool kMad>
+__global__ void flag_walk_first(Rows s0, Rows s1, Rows cross, Rows state,
+                                 unsigned char* __restrict__ bad,
+                                 float* __restrict__ fill,
+                                 float* __restrict__ state_out, int64_t nwin,
+                                 int64_t ncell, Params p) {
+    const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (c >= ncell) return;
+    float cb = *state.at(0, c), sb = *state.at(1, c), warm = *state.at(2, c);
+    for (int64_t i0 = 0; i0 < nwin; i0 += kFirstAhead) {
+        const int64_t left = nwin - i0;
+        const int nk = left < kFirstAhead ? (int)left : kFirstAhead;
+        float u[kFirstAhead], v[kFirstAhead], x[kFirstAhead];
+#pragma unroll
+        for (int k = 0; k < kFirstAhead; ++k) {
+            if (k < nk) {
+                u[k] = *s0.at(i0 + k, c);
+                v[k] = *s1.at(i0 + k, c);
+                if (kMad) x[k] = *cross.at(i0 + k, 0);
+            }
+        }
+#pragma unroll
+        for (int k = 0; k < kFirstAhead; ++k) {
+            if (k >= nk) continue;
+            const bool warmed = warm > 0.0f;
+            float ref_c, ref_s;
+            bool is_bad;
+            if (kMad) {
+                const float med = u[k], mad = v[k];
+                ref_c = warmed ? cb : med;
+                ref_s = warmed ? sb : mad;
+                const bool cold =
+                    mad > __fmul_rn(p.p_mad, __fadd_rn(x[k], p.eps));
+                const float tc = __fmul_rn(
+                    p.p_thresh, __fadd_rn(__fmul_rn(p.sigma, ref_s), p.eps));
+                is_bad = (fabsf(__fsub_rn(med, ref_c)) > tc) |
+                         (mad > __fmul_rn(p.p_mad, __fadd_rn(ref_s, p.eps))) |
+                         (!warmed & cold);
+                if (!is_bad) {
+                    cb = __fadd_rn(ref_c,
+                                   __fmul_rn(p.alpha, __fsub_rn(med, ref_c)));
+                    sb = __fadd_rn(ref_s,
+                                   __fmul_rn(p.alpha, __fsub_rn(mad, ref_s)));
+                } else {
+                    cb = ref_c;
+                    sb = ref_s;
+                }
+            } else {
+                const float sk = u[k], mean = v[k];
+                ref_c = warmed ? cb : mean;
+                is_bad = (fabsf(__fsub_rn(sk, 1.0f)) > p.sk_thresh) |
+                         (warmed &
+                          (fabsf(__fsub_rn(mean, ref_c)) >
+                           __fmul_rn(p.p_mad, __fadd_rn(ref_c, p.eps))));
+                cb = is_bad ? ref_c
+                            : __fadd_rn(ref_c, __fmul_rn(
+                                                   p.alpha,
+                                                   __fsub_rn(mean, ref_c)));
+                sb = sk;
+            }
+            if (!is_bad) {
+                const float w = __fadd_rn(warm, 1.0f);
+                warm = w > p.warm_cap ? p.warm_cap : w;   // NaN stays NaN
+            }
+            const int64_t o = (i0 + k) * ncell + c;
+            bad[o] = is_bad;
+            fill[o] = ref_c;
+        }
+    }
+    state_out[c] = cb;
+    state_out[ncell + c] = sb;
+    state_out[2 * ncell + c] = warm;
+}
+
+"""
 
 # K1 as first built: one thread per (row, sample), grid.y over rows,
 # one launch per slice of a batch (the per-beam loop it ran under).
@@ -563,6 +659,27 @@ VARIANTS = {
     "K5a 2 in flight": ("dq", [("kUnroll = 4;", "kUnroll = 2;")]),
     "K5a 8 in flight": ("dq", [("kUnroll = 4;", "kUnroll = 8;")]),
     "K5a 128 threads": ("dq", [("kThreads = 256;", "kThreads = 128;")]),
+    "W1 as built": ("flag", []),
+    "W1 first design": ("flag", [
+        ("template <bool kMad>\nint launch_walk(",
+         W1_FIRST + "\ntemplate <bool kMad>\nint launch_walk("),
+        ("    if (form == 0) {\n",
+         "    if (true) {\n        flag_walk_first<kMad><<<(unsigned)((ncell"
+         " + 127) / 128), 128, 0, st>>>(r0, r1, rx, rs, bad, fill, "
+         "state_out, nwin, ncell, p);\n    } else if (form == 0) {\n"),
+    ]),
+    "W1 3 stages": ("flag", [("kStages = 4;", "kStages = 3;")]),
+    "W1 chunk 16": ("flag", [("kChunk = 32;", "kChunk = 16;")]),
+    "W1 chunk 16 8 stages": ("flag", [("kChunk = 32;", "kChunk = 16;"),
+                                      ("kStages = 4;", "kStages = 8;")]),
+    "W1 2 copier warps": ("flag", [("kCopiers = 4;", "kCopiers = 2;")]),
+    "W1 chunk rolled": ("flag", [("            if (nk == kChunk) {",
+                                  "            if (false) {")]),
+    "W1 one-window 32 regs lifted": ("flag", [(
+        "__launch_bounds__(kOneThreads, 2048 / kOneThreads)",
+        "__launch_bounds__(kOneThreads)")]),
+    "W1s 256 threads": ("flag", [("kStatThreads = 128;",
+                                  "kStatThreads = 256;")]),
     "X1 as built": ("xengine", []),
     "X1 first design": ("xengine", XENGINE_FIRST),
     "X1 one wgmma group in flight": ("xengine", [
@@ -643,7 +760,7 @@ def ptxas_summary(log):
 
 
 MODULES = {"beamform": bk, "dq": dk, "fir": fk, "fdmt": fdk,
-           "xengine": xk}
+           "xengine": xk, "flag": flk}
 
 
 @contextlib.contextmanager
@@ -1857,6 +1974,48 @@ def sass_loops(lib, part):
     return None
 
 
+def w1_cases(dev, gen):
+    """W1s's and W1's shapes on chip_smoke.py's [frbflag] (256 windows of
+    16 frames x 4096 channels) and [dq] (one window of 16 x 2,097,152
+    cells), 'mad': the seeded exponential power, its plain statistics
+    with the cross-cell median, a warmed baseline from a first plain
+    walk, and the plain walk's result -> {key: (pw, stats, state,
+    (bad, fill, state'))}."""
+    out = {}
+    for key, ntime, ncell in (("frb", cs.GULP, cs.NCHAN),
+                              ("dq", cs.N_INT,
+                               cs.BCHAN * cs.NSTAND * cs.NPOL)):
+        w = cs.DQ_WINDOW
+        pw = torch.empty(ntime // w, w, ncell, device=dev).exponential_(
+            generator=gen)
+        med, mad = flk.flag_stats_plain(pw, "mad")
+        stats = (med, mad, median(mad, dim=1, keepdim=False))
+        state = torch.zeros(3, ncell, device=dev)
+        state = flk.flag_walk_plain(stats, w, state, cs.W1_PARAMS, "mad")[2]
+        out[key] = (pw, stats, state,
+                    flk.flag_walk_plain(stats, w, state, cs.W1_PARAMS,
+                                        "mad"))
+    return out
+
+
+def w1_run(name, w1, row):
+    """Flag variant `name`: W1s and W1 bitwise their plain versions on
+    both shapes, then timed on the card (CUDA graphs of 20 calls)."""
+    for key, (pw, stats, state, want) in w1.items():
+        got = flk.flag_stats(pw, "mad")
+        walk = flk.flag_walk(stats, cs.DQ_WINDOW, state, cs.W1_PARAMS, "mad")
+        torch.cuda.synchronize()
+        if not (cs.bits_equal(got[0], stats[0]) and
+                cs.bits_equal(got[1], stats[1]) and
+                cs.walk_equal(walk, want)):
+            raise AssertionError(f"{name} differs from plain ({key})")
+        row[f"{name} W1s {key}"] = cs.graph_time(
+            lambda: flk.flag_stats(pw, "mad"), 5, 20)
+        row[f"{name} W1 {key}"] = cs.graph_time(
+            lambda: flk.flag_walk(stats, cs.DQ_WINDOW, state, cs.W1_PARAMS,
+                                  "mad"), 5, 20)
+
+
 # M1's variants: name -> (V from the port's program's, a text
 # substitution in the generated source or None).
 M1_VARIANTS = {
@@ -2146,7 +2305,7 @@ def main():
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--only", default="",
                     help="comma-separated kernel IDs (K2,K1,K4,K5a,X1,M1,"
-                         "M1e)")
+                         "M1e,W1,W1s)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA device", file=sys.stderr)
@@ -2173,8 +2332,11 @@ def main():
         m1_times.update(m1e_run(dev, gen, args.rounds))
         cs.free_device()
     libs = compile_all(out_dir, names)
-    for name, (_, ptxas) in libs.items():
+    for name, (lib, ptxas) in libs.items():
         print(f"[ptxas] {name}: {ptxas}", flush=True)
+        if name.startswith("W1 "):
+            print(f"[sass] {name}: walker "
+                  f"{cs.walk_chain('flag_walk_ringILb1E', lib)}", flush=True)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(cs.SEED)
@@ -2214,6 +2376,9 @@ def main():
             zero = torch.zeros((), dtype=fx.dtype, device=dev)
             lib_calls[f"torch.where {k}"] = (
                 lambda mw=mw, xw=xw, zero=zero: torch.where(mw, zero, xw), 20)
+
+    if kernels & {"W1", "W1s"}:
+        w1 = w1_cases(dev, gen)
 
     if "X1" in kernels:
         x1, x1_library = x1_cases(dev, gen)
@@ -2270,6 +2435,8 @@ def main():
             xx, fmt, xout, _ = x1["ci4"]
             row[name] = cs.cuda_time(lambda: xk.xengine_int8(xx, fmt, xout),
                                      20)
+        elif kid in ("W1", "W1s"):
+            w1_run(name, w1, row)
         else:
             for k, (fx, fm, win) in fills.items():
                 dk.masked_fill(fx, fm, None, win, out=fout[k])

@@ -809,6 +809,180 @@ def test_flag_cuda_bitwise_plain_every_form(cuda, algo):
                 assert _bits_equal(plans[0]._state, plans[1]._state)
 
 
+def _stats_power(n, m, ncell, seed, strided, dev):
+    """(n, m, ncell) f32 power for W1s's edge checks: exponential noise;
+    NaN samples of both signs, -0.0 and +0.0 ties, infinities, small
+    integers (ties), all-equal and all-NaN cells -> a tensor on `dev`,
+    cells every other element of a wider buffer where `strided`."""
+    rng = np.random.default_rng(seed)
+    pw = rng.exponential(1.0, (n, m, ncell)).astype(np.float32)
+    k = np.arange(ncell)
+    special = np.array([np.nan, 0.0, -0.0, np.inf, -np.inf, 1.0],
+                       np.float32)
+    special = np.concatenate([special, np.array([0xFFC00000], np.uint32)
+                              .view(np.float32)])
+    sel = (rng.random(pw.shape) < 0.2) & (k % 7 == 1)
+    pw[sel] = rng.choice(special, pw.shape)[sel]
+    pw[:, :, k % 7 == 2] = rng.choice(np.array([0.0, -0.0], np.float32),
+                                      (n, m, int((k % 7 == 2).sum())))
+    pw[:, :, k % 7 == 3] = rng.integers(0, 3, (n, m, int((k % 7 == 3)
+                                                        .sum())))
+    pw[:, :, k % 7 == 4] = 2.5
+    pw[:, :, k % 97 == 5] = np.nan
+    t = torch.from_numpy(pw).to(dev)
+    if not strided:
+        return t
+    wide = torch.full((n, m, 2 * ncell), float("nan"), device=dev)
+    wide[..., ::2] = t
+    return wide[..., ::2]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo", ["mad", "sk"])
+@pytest.mark.parametrize("n,m,ncell,strided", [
+    (256, 16, 4096, False), (1, 16, 2_097_152, False), (3, 2, 1000, True),
+    (4, 5, 300, False), (2, 12, 777, True), (5, 17, 129, False),
+    (3, 32, 64, True), (1, 1, 100, False)])
+def test_flag_stats_kernel_bitwise_vs_plain(cuda, algo, n, m, ncell,
+                                            strided):
+    """W1s against its plain version, bitwise: [frbflag]'s 256 windows
+    of 16 frames x 4096 channels and [dq]'s one window of 16 frames x
+    2,097,152 cells; windows of 1 to 32 frames (the register limit),
+    NaN samples of both signs, -0.0/+0.0 ties, infinities, all-equal and
+    all-NaN cells; the power read through element strides.  'sk' refuses
+    a window of one frame."""
+    from bifrost_tpu_torch.ops.flag_kernel import flag_stats, flag_stats_plain
+    pw = _stats_power(n, m, ncell, 60 + m, strided, cuda)
+    if algo == "sk" and m < 2:
+        with pytest.raises(ValueError, match="2 to 32"):
+            flag_stats(pw, algo)
+        return
+    before = flag_stats.launches
+    got = flag_stats(pw, algo)
+    assert flag_stats.launches == before + 1
+    want = flag_stats_plain(pw, algo)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.shape == (n, ncell) and a.is_contiguous()
+        assert _bits_equal(a, b.contiguous())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo", ["mad", "sk"])
+@pytest.mark.parametrize("n,ncell,m,strided", [
+    (2, 4096, 16, False), (31, 4112, 16, False), (32, 1000, 12, True),
+    (33, 4096, 16, False), (64, 33, 5, False), (97, 4112, 16, True)])
+def test_flag_walk_ring_bitwise_vs_plain(cuda, algo, n, ncell, m,
+                                         strided):
+    """W1's ring form against its plain walk, bitwise, at the edges of
+    its chunks of 32 windows (31, 32, 33, 64), past the ring's three
+    stages (97 windows: four chunks, the last of one), blocks of 32
+    cells with a partial last block (4112, 1000, 33), 16-byte row stores
+    (ncell a multiple of 16) and element stores; the edge cases of
+    `_walk_case`."""
+    from bifrost_tpu_torch.ops.flag_kernel import (flag_walk,
+                                                   flag_walk_plain,
+                                                   walk_form)
+    params = (6.0, 4.0, 0.25)
+    stats, state, ntie = _walk_case(algo, n, ncell, m, params, 70 + n)
+    assert ntie > 0
+
+    def put(a):
+        t = torch.from_numpy(a).to(cuda)
+        if not strided or a.ndim < 2:
+            return t
+        wide = torch.full(a.shape[:-1] + (2 * a.shape[-1],), float("nan"),
+                          device=cuda)
+        wide[..., ::2] = t
+        return wide[..., ::2]
+
+    stats = [put(a) for a in stats]
+    state = put(state)
+    keep = state.clone()
+    assert walk_form(stats, state) == "ring"
+    before = flag_walk.launches, flag_walk.vector_launches
+    got = flag_walk(stats, m, state, params, algo)
+    assert (flag_walk.launches, flag_walk.vector_launches) == \
+        (before[0] + 1, before[1])
+    want = flag_walk_plain(stats, m, state, params, algo)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and want[0].any()
+    assert _bits_equal(got[1], want[1]) and _bits_equal(got[2], want[2])
+    assert _bits_equal(state, keep)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo", ["mad", "sk"])
+@pytest.mark.parametrize("ncell,strided,form", [
+    (4096, False, "one4"), (4096, True, "one"), (4094, False, "one")])
+def test_flag_walk_one_window_forms(cuda, algo, ncell, strided, form):
+    """W1's one-window form: four cells a thread where the rows are
+    contiguous and aligned and ncell a multiple of 4 (counted in
+    `vector_launches`), a cell a thread otherwise; bitwise its plain
+    walk."""
+    from bifrost_tpu_torch.ops.flag_kernel import (flag_walk,
+                                                   flag_walk_plain,
+                                                   walk_form)
+    params = (6.0, 4.0, 0.25)
+    stats, state, _ = _walk_case(algo, 1, ncell, 16, params, 80)
+
+    def put(a):
+        t = torch.from_numpy(a).to(cuda)
+        if not strided or a.ndim < 2:
+            return t
+        wide = torch.full(a.shape[:-1] + (2 * a.shape[-1],), float("nan"),
+                          device=cuda)
+        wide[..., ::2] = t
+        return wide[..., ::2]
+
+    stats = [put(a) for a in stats]
+    state = put(state)
+    assert walk_form(stats, state) == form
+    before = flag_walk.vector_launches
+    got = flag_walk(stats, 16, state, params, algo)
+    assert flag_walk.vector_launches == before + (form == "one4")
+    want = flag_walk_plain(stats, 16, state, params, algo)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and want[0].any()
+    assert _bits_equal(got[1], want[1]) and _bits_equal(got[2], want[2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo", ["mad", "sk"])
+@pytest.mark.parametrize("window,routes", [(16, ["kernel", "kernel"]),
+                                           (40, ["torch", "kernel"])])
+def test_flag_cuda_stats_route_and_launches(cuda, algo, window, routes):
+    """`Flag` 'cuda' on the card: W1s once a segment on the "kernel"
+    route (none on the "torch" route of windows past 32 frames), W1 once
+    a segment, `plan_report()["stats_route"]`; bitwise 'plain' on the
+    card and 'cuda' on the CPU, gulp after gulp."""
+    from bifrost_tpu_torch.ops import Flag, flag_kernel
+    rng = np.random.default_rng(43)
+    plans = [Flag(method=mth).init(window, algo=algo)
+             for mth in ("cuda", "plain", "cuda")]
+    for g in range(2):
+        a = rng.integers(0, 32, (150, 6, 40)).astype(np.uint8)
+        a[64:, 2, 5] = 250
+        a[:, 4, 7] = 200
+        x = torch.from_numpy(a)
+        s0, w0 = flag_kernel.flag_stats.launches, \
+            flag_kernel.flag_walk.launches
+        res = [p.execute(x.to(cuda) if i < 2 else x)
+               for i, p in enumerate(plans)]
+        assert flag_kernel.flag_stats.launches == \
+            s0 + routes.count("kernel")
+        assert flag_kernel.flag_walk.launches == w0 + len(routes)
+        torch.cuda.synchronize()
+        for p in plans:
+            assert p.plan_report()["stats_route"] == routes
+        (y1, m1), (y2, m2), (y3, m3) = res
+        assert m1.any() and torch.equal(m1, m2) and torch.equal(m1.cpu(), m3)
+        assert torch.equal(y1, y2) and torch.equal(y1.cpu(), y3)
+        assert _bits_equal(plans[0]._state, plans[1]._state)
+        if algo == "mad":
+            assert _bits_equal(plans[0]._state.cpu(), plans[2]._state)
+
+
 # ------------------------------------------------------------ egress plane
 
 class _Collect(object):
