@@ -29,24 +29,21 @@ Layout of the work: the JAX plan scans the windows one by one on the
 device (``lax.scan``), each step computing its window's statistics and
 then the carried baseline.  Only the baseline recurrence is sequential,
 so here each segment of m-frame windows (the whole windows of a gulp,
-then a tail window) takes two calls (ops/flag_kernel.py): its
-statistics for every window at once (the medians and MADs, or the SK
-sums), then one walk of the recurrence over them.  Under 'cuda' for a
-CUDA tensor these are kernels W1s and W1; otherwise their plain
-versions.  For 'mad' the cross-cell median MAD of each window sits
-between them, a sort (`stats.median`) on either route.  A window longer
-than W1s takes (above `flag_kernel.STATS_MAX_M` frames, as the flag
-block's ``window=None`` gives: one window a gulp) keeps its statistics
-on plain PyTorch on either method, a route chosen by m: the plain
-version's key sorts for 'mad', batched sums for 'sk';
-`plan_report()["stats_route"]` names the route of each segment of
-the last gulp ("kernel" or "torch").
+then a tail window) takes its statistics for every window at once (the
+medians and MADs, or the SK sums), for 'mad' the cross-cell median MAD
+of each window, then one walk of the recurrence over them
+(ops/flag_kernel.py).  Under 'cuda' for a CUDA tensor these are kernels
+W1s, W1m and W1, at every window length: W1s's register form up to
+`flag_kernel.STATS_MAX_M` frames, its select form above (as the flag
+block's ``window=None`` gives: one window a gulp);
+`plan_report()["stats_route"]` names W1s's form of each segment of the
+last gulp ("registers" or "select").  Otherwise their plain versions.
 
 Methods (the `dq_flag_method` config flag when None/'auto'): 'cuda'
-(what 'auto' resolves to; W1s, W1 and K5a for a CUDA tensor, their plain
-versions for a CPU tensor) and 'plain' (the plain versions on any
-device).  W1s and W1 are bitwise their plain versions and the fill is a
-select, so the two are bitwise equal.  Against the JAX
+(what 'auto' resolves to; W1s, W1m, W1 and K5a for a CUDA tensor, their
+plain versions for a CPU tensor) and 'plain' (the plain versions on any
+device).  W1s, W1m and W1 are bitwise their plain versions and the fill
+is a select, so the two are bitwise equal.  Against the JAX
 package the masks and fills agree exactly wherever no decision sits
 within an ulp of its threshold: XLA:CPU contracts the complex power
 ``re*re + im*im``, the EMA update and the thresholds' ``a*b + c`` into
@@ -63,7 +60,6 @@ from ..DataType import DataType
 from . import dq_kernel, flag_kernel
 from .common import prepare
 from .runtime import OpRuntime, staged_unpack
-from .stats import median, spectral_kurtosis
 
 
 class Flag(object):
@@ -171,29 +167,19 @@ class Flag(object):
         return self._runtime.resolve_method(self.method)
 
     # ------------------------------------------------------- statistics
-    @staticmethod
-    def _stats_route(m):
-        """The route of m-frame windows' statistics: "kernel" (W1s or
-        its plain version) up to STATS_MAX_M frames, else "torch"."""
-        return "kernel" if m <= flag_kernel.STATS_MAX_M else "torch"
-
     def _window_stats(self, pw, kernel=False):
         """Carry-free statistics of n windows of m frames: pw (n, m,
         ncell) f32 -> tuple of (n, ncell) rows (and (n,) for the
-        cross-cell median).  On the "kernel" route W1s where `kernel`
-        (for a CUDA tensor; its plain version for a CPU one), else its
-        plain version; on the "torch" route the plain version's key
-        sorts for 'mad' (any m), and `spectral_kurtosis`'s batched sums
-        for 'sk' (the plain version's frame loop would be m launches)."""
-        kernel_route = self._stats_route(pw.shape[1]) == "kernel"
-        if kernel and kernel_route:
-            stats = flag_kernel.flag_stats(pw, self.algo)
-        elif kernel_route or self.algo == "mad":
-            stats = flag_kernel.flag_stats_plain(pw, self.algo)
-        else:
-            stats = spectral_kurtosis(pw, dim=1), pw.sum(dim=1) / pw.shape[1]
+        cross-cell median).  Where `kernel`, W1s and, for 'mad', W1m (for
+        a CUDA tensor; their plain versions for a CPU one), else their
+        plain versions (`flag_stats_plain`, `flag_cross_plain`: the
+        key sorts and `stats.median`)."""
+        stats = (flag_kernel.flag_stats if kernel
+                 else flag_kernel.flag_stats_plain)(pw, self.algo)
         if self.algo == "mad":
-            stats += (median(stats[1], dim=1, keepdim=False),)
+            cross = flag_kernel.flag_cross if kernel \
+                else flag_kernel.flag_cross_plain
+            stats += (cross(stats[1]),)
         return stats
 
     def _windows(self, pwr, state):
@@ -215,7 +201,7 @@ class Flag(object):
                                         state, self._params(), self.algo)
                 bads.append(bad)
                 fills.append(fill)
-                routes.append(self._stats_route(m))
+                routes.append(flag_kernel.stats_form(m))
         self._last_routes = routes
         if len(bads) == 1:
             return bads[0], fills[0], state

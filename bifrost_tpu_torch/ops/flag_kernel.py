@@ -1,21 +1,30 @@
 """The RFI flagger's window step: the hand-written CUDA kernels W1s (the
-window statistics) and W1 (the baseline walk), csrc/flag.cu, and their
-plain PyTorch versions.
+window statistics), W1m (the cross-cell median MAD) and W1 (the baseline
+walk), csrc/flag.cu, and their plain PyTorch versions.
 
-Neither replaces a Pallas kernel: the JAX plan walks its windows on the
+None replaces a Pallas kernel: the JAX plan walks its windows on the
 device as one ``jax.lax.scan`` of its per-window step
 (bifrost_tpu/ops/flag.py:257-281, the step at :176-233), which computes
 each window's statistics and then the carried baseline.  Here a segment
-of n m-frame windows takes two launches:
+of n m-frame windows takes W1s, for 'mad' W1m, then W1:
 
 - `flag_stats` (W1s): pw, the segment's power viewed as (n, m, ncell)
   f32 (any strides) -> 'mad' (med, mad), the window medians and MADs;
-  'sk' (sk, mean), each (n, ncell).  m at most `STATS_MAX_M` (the
-  register limit; ops/flag.py keeps longer windows on plain PyTorch).
-  The medians select on total-order keys (`_keys`: -0.0 before +0.0,
-  every NaN last and returned as 0x7fffffff), so `flag_stats_plain`, a
-  sort of the same keys, is bitwise equal to W1s on every input; the SK
-  sums run over the frames in frame order in both.
+  'sk' (sk, mean), each (n, ncell).  Any m (at least 2 for 'sk'): the
+  register form up to `STATS_MAX_M` frames, the select form above
+  (`stats_form`).  The medians select on total-order keys (`_keys`:
+  -0.0 before +0.0, every NaN last and returned as 0x7fffffff), so
+  `flag_stats_plain`, a sort of the same keys, is bitwise equal to W1s
+  on every input; the SK sums run over the frames in the same tree of
+  fan-out `FAN` in both (`_tree_sum`: frame order up to 32 frames).
+- `flag_cross` (W1m): the (n, ncell) MAD rows -> the (n,) cross-cell
+  median of each window.  One launch for rows of at most
+  `CROSS_ROW_CELLS` cells (a block a row), three for each
+  `CROSS_GRID_ROWS` rows above (`cross_form`).  Its plain version is
+  `stats.median` (a `torch.sort`); MADs are non-negative or NaN, whose
+  keys order as the floats, so the two are bitwise equal where the
+  median is a number (a NaN median comes back as 0x7fffffff from W1m,
+  as the sorted NaN from the plain version).
 - `flag_walk` (W1): ``stats`` 'mad' (med, mad, cross) with cross the (n,)
   cross-cell median MAD, or 'sk' (sk, mean); ``state`` the carried (3,
   ncell) f32 rows [center, scale, warm]; ``params`` (thresh,
@@ -31,8 +40,10 @@ of n m-frame windows takes two launches:
 
 Each wrapper launches its kernel for CUDA tensors and runs the plain
 version only for tensors on the CPU; any other device raises.
-`flag_stats.launches` and `flag_walk.launches` count the launches (and
-nothing else); `flag_walk.vector_launches` those of the four-cell form.
+`flag_stats.launches`, `flag_cross.launches` and `flag_walk.launches`
+count the kernel launches (and nothing else); `flag_stats.
+select_launches` those of the select form, `flag_walk.vector_launches`
+those of the four-cell form.
 """
 
 from __future__ import annotations
@@ -45,13 +56,24 @@ import torch
 
 from .. import build
 from .dq_kernel import _device_check
-from .stats import MAD_EPS, MAD_SIGMA
+from .stats import MAD_EPS, MAD_SIGMA, median
 
 WARM_CAP = 2.0 ** 20
 ALGOS = ("mad", "sk")
-# W1s's longest window, read from the source (edit it there only).
-STATS_MAX_M = int(re.search(r"constexpr int kMaxM = (\d+);",
-                            (build.CSRC / "flag.cu").read_text()).group(1))
+_SOURCE = (build.CSRC / "flag.cu").read_text()
+
+
+def _constant(name):
+    """An int constant of csrc/flag.cu (edit it there only)."""
+    return int(re.search(rf"constexpr int {name} = (\d+);",
+                         _SOURCE).group(1))
+
+
+STATS_MAX_M = _constant("kMaxM")        # W1s's register form's longest
+FAN = _constant("kFan")                 # the SK sums' tree fan-out
+CROSS_ROW_CELLS = _constant("kCrossRowCells")
+CROSS_GRID_ROWS = _constant("kGridRows")
+CROSS_FORMS = ("row", "grid")
 WALK_FORMS = ("ring", "one", "one4")
 _TOP = 2 ** 31 - 1      # the key of a NaN
 
@@ -93,6 +115,33 @@ def _middle(s, m):
     return hi
 
 
+def _fold(v):
+    """v (..., k, ncell) summed over its dim -2 in order."""
+    s = v.select(-2, 0)
+    for j in range(1, v.shape[-2]):
+        s = s + v.select(-2, j)
+    return s
+
+
+def _tree_sum(x):
+    """x (n, L, ncell) summed over dim 1 in W1s's tree (csrc/flag.cu):
+    chunks of FAN (the last one shorter) each summed in order, then the
+    chunk sums likewise, until one sum remains -> (n, ncell).  At most
+    2 FAN operations a level."""
+    while True:
+        n, length, ncell = x.shape
+        full = length - length % FAN
+        parts = []
+        if full:
+            parts.append(_fold(x[:, :full].reshape(n, full // FAN, FAN,
+                                                   ncell)))
+        if full < length:
+            parts.append(_fold(x[:, full:])[:, None])
+        x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+        if x.shape[1] == 1:
+            return x[:, 0]
+
+
 def flag_stats_plain(pw, algo):
     """W1s's plain version: the statistics of the n m-frame windows of pw
     (n, m, ncell) f32 (module docstring)."""
@@ -101,15 +150,23 @@ def flag_stats_plain(pw, algo):
         med = _middle(_keys(pw).sort(dim=1).values, m)
         dev = (pw - med[:, None]).abs()
         return med, _middle(_keys(dev).sort(dim=1).values, m)
-    s1, s2 = pw[:, 0], pw[:, 0] * pw[:, 0]
-    for j in range(1, m):
-        x = pw[:, j]
-        s1 = s1 + x
-        s2 = s2 + x * x
+    s1, s2 = _tree_sum(pw), _tree_sum(pw * pw)
     sk = _sk_factor(m) * (float(m) * s2 / (s1 * s1 + MAD_EPS) - 1.0)
     # A tensor divisor: on the card PyTorch divides by a Python number
     # through its reciprocal, which W1s's quotient is not.
     return sk, s1 / torch.full_like(s1, float(m))
+
+
+def stats_form(m):
+    """W1s's form for m-frame windows: 'registers' up to STATS_MAX_M
+    frames, 'select' above."""
+    return "registers" if m <= STATS_MAX_M else "select"
+
+
+def flag_cross_plain(mad):
+    """W1m's plain version: the median of each row of mad (n, ncell)
+    f32 -> (n,)."""
+    return median(mad, dim=1, keepdim=False)
 
 
 def flag_walk_plain(stats, m, state, params, algo):
@@ -169,6 +226,12 @@ def _library():
             [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 +
             [ctypes.c_float] * 7 + [ctypes.c_void_p])
         lib.flag_walk.restype = ctypes.c_int
+        lib.flag_cross.argtypes = (
+            [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_longlong] * 4 +
+            [ctypes.c_void_p] * 3)
+        lib.flag_cross.restype = ctypes.c_int
+        lib.flag_cross_scratch_bytes.argtypes = []
+        lib.flag_cross_scratch_bytes.restype = ctypes.c_longlong
         lib.flag_error_string.argtypes = [ctypes.c_int]
         lib.flag_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -193,15 +256,15 @@ def _stats_check(pw, algo):
                          f"ncell), got {tuple(pw.shape)}")
     n, m, ncell = pw.shape
     low = 2 if algo == "sk" else 1
-    if not low <= m <= STATS_MAX_M:
-        raise ValueError(f"flag_stats: '{algo}' takes windows of {low} to "
-                         f"{STATS_MAX_M} frames, got {m}")
+    if m < low:
+        raise ValueError(f"flag_stats: '{algo}' takes windows of at least "
+                         f"{low} frames, got {m}")
     return n, m, ncell
 
 
 def flag_stats(pw, algo):
     """W1s on pw's device: `flag_stats_plain`'s statistics from one launch
-    (module docstring)."""
+    of the form `stats_form(m)` (module docstring)."""
     n, m, ncell = _stats_check(pw, algo)
     if pw.device.type == "cpu":
         return flag_stats_plain(pw, algo)
@@ -218,10 +281,53 @@ def flag_stats(pw, algo):
     if err:
         _raise("flag_stats", err)
     flag_stats.launches += 1
+    flag_stats.select_launches += stats_form(m) == "select"
     return tuple(out)
 
 
 flag_stats.launches = 0
+flag_stats.select_launches = 0
+
+
+def cross_form(ncell):
+    """W1m's form for rows of ncell cells: 'row' (a block a row, one
+    launch) up to CROSS_ROW_CELLS cells, 'grid' (a grid a row, three
+    launches) above."""
+    return "row" if ncell <= CROSS_ROW_CELLS else "grid"
+
+
+def flag_cross(mad):
+    """W1m on mad's device: `flag_cross_plain`'s cross-cell medians of the
+    (n, ncell) f32 MAD rows (any strides) -> (n,) (module docstring)."""
+    if not isinstance(mad, torch.Tensor) or mad.dtype != torch.float32:
+        raise TypeError(f"flag_cross: the MADs must be a float32 tensor, "
+                        f"got {getattr(mad, 'dtype', type(mad))}")
+    if mad.dim() != 2 or mad.shape[0] < 1 or mad.shape[1] < 1:
+        raise ValueError(f"flag_cross: the MADs must be (n >= 1, ncell >= "
+                         f"1), got {tuple(mad.shape)}")
+    if mad.device.type == "cpu":
+        return flag_cross_plain(mad)
+    _device_check("flag_cross", mad)
+    n, ncell = mad.shape
+    out = torch.empty(n, dtype=torch.float32, device=mad.device)
+    form = cross_form(ncell)
+    lib = _library()
+    scratch = None
+    if form == "grid":
+        scratch = torch.empty(n * lib.flag_cross_scratch_bytes(),
+                              dtype=torch.uint8, device=mad.device)
+    err = lib.flag_cross(
+        CROSS_FORMS.index(form), mad.data_ptr(), *mad.stride(), n, ncell,
+        out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        torch.cuda.current_stream(mad.device).cuda_stream)
+    if err:
+        _raise("flag_cross", err)
+    flag_cross.launches += 1 if form == "row" else \
+        3 * -(-n // CROSS_GRID_ROWS)
+    return out
+
+
+flag_cross.launches = 0
 
 
 def walk_form(stats, state):

@@ -28,17 +28,23 @@ Phases, one line each; any failure exits non-zero:
              K6b's plan is also rebuilt for RM_NSEQ sequences of new
              positions from each origin.  The flagger's window step:
              W1s, its statistics, held bitwise against its plain
-             version on W1S_EDGES (both algorithms, [frbflag]'s 256
-             windows of 16 frames x 4096 channels, [dq]'s one window of
-             16 x 2,097,152 cells, windows of 1 to 32 frames, NaN
-             samples of both signs, -0.0/+0.0 ties, strided power), and
+             version on W1S_EDGES (its register form: both algorithms,
+             [frbflag]'s 256 windows of 16 frames x 4096 channels,
+             [dq]'s one window of 16 x 2,097,152 cells, windows of 1 to
+             32 frames, NaN samples of both signs, -0.0/+0.0 ties,
+             strided power) and W1S_SELECT_EDGES (its select form,
+             windows of 33 to 65,536 frames); W1m, the cross-cell
+             median MAD, against stats.median on W1M_EDGES (one and two
+             cells, odd and even rows, NaN rows, both its forms); and
              W1, its baseline walk, against its plain walk on W1_EDGES
              (tail segments, the ring's chunk edges, ties at each
-             threshold, NaN and -0.0 statistics, the warm cap); both
-             timed at both paths' shapes (CUDA graphs) beside the
-             torch-sort pass W1s replaces, the cross-cell median
-             between them and W1's latency floor (its walker's
-             dependent chain in SASS at the SM clock).
+             threshold, NaN and -0.0 statistics, the warm cap); all
+             three timed at both paths' shapes (CUDA graphs) beside
+             the torch-sort passes W1s and W1m replace and W1's latency
+             floor (its walker's dependent chain in SASS at the SM
+             clock); W1s's select form and W1m also at the flag
+             block's default of one window a gulp ([frbflag]'s 4096 x
+             4096), beside the route they replace.
 4. main    — drive the FRB-search chain (`frb_search_pipeline`) at full
              width: 4096 channels of u8 power at the LWA band (40 MHz,
              9.28 kHz, 1 ms), FDMT max_delay 2048, gulps of 4096 frames,
@@ -82,8 +88,8 @@ Phases, one line each; any failure exits non-zero:
              the same run with every method 'plain'.
 7. frbflag — the FRB search of phase 4 with the RFI flagger
              (`frb_search_pipeline(rfi_flag=dict(algo='mad', thresh=6.0,
-             mad_factor=4.0, window=16))`, kernels W1s, W1 and K5a) on
-             the same data
+             mad_factor=4.0, window=16))`, kernels W1s, W1m, W1 and
+             K5a) on the same data
              with a seeded narrowband storm from the third gulp on (60
              channels blinking on with probability 0.8 per frame at
              255).  Launch counts are read from this run alone, every
@@ -96,7 +102,13 @@ Phases, one line each; any failure exits non-zero:
              window), each run's steady frames/s printed beside the
              others'.  The chain with W1 is then traced over its
              NGULP gulps (`trace.start_profile`): the card's idle share
-             and the device ops that take the most time a gulp.
+             and the device ops that take the most time a gulp.  Then
+             the same search at the flag block's default window
+             (`rfi_flag=dict(algo='mad')`: one window a gulp), its
+             launches asserted a gulp (W1s's select form, W1m, W1's
+             one-window form, K5a), every busy storm channel flagged,
+             its masks and dedispersed gulps bitwise the same chain
+             with dq_flag_method 'plain'.
 8. dq      — the flagged, calibrated beam search at the flagship width,
              built from blocks: the voltages of phase 5 with a tone at
              the centre of one PFB channel on one station from the 9th
@@ -104,7 +116,8 @@ Phases, one line each; any failure exits non-zero:
              gaincal(seeded per-station gains) (kernel K5b) -> beamform
              -> transpose -> fdmt -> detect, B_NINT integrations.  Launch
              counts are read from this run alone (W1s and W1 once a
-             gulp: a gulp is one window), every K5a, K2 and W1
+             gulp: a gulp is one window; W1m three times, a grid
+             over the 2,097,152 cells), every K5a, K2 and W1
              launch must take its vector kernel; the tone's cells must
              be flagged in every window from its onset, the beam powers
              and dedispersed frames bitwise equal to the same chain with
@@ -964,6 +977,7 @@ def kernel_counters():
             "dq_masked_fill": dq_kernel.masked_fill,
             "dq_gain_apply": dq_kernel.gain_apply,
             "flag_stats": flag_kernel.flag_stats,
+            "flag_cross": flag_kernel.flag_cross,
             "flag_walk": flag_kernel.flag_walk,
             "xengine_int8": xengine_kernel.xengine_int8,
             "map_apply": map_kernel.map_apply}
@@ -981,6 +995,7 @@ def reset_counts():
         kernel_counters()[name].vector_launches = 0
     kernel_counters()["map_apply"].index64_launches = 0
     kernel_counters()["map_apply"].tile_launches = 0
+    kernel_counters()["flag_stats"].select_launches = 0
 
 
 def check_vectors(counts, name="dq_masked_fill"):
@@ -2121,7 +2136,8 @@ def instrument_path(dev, volt, bref, spec):
     if kcounts["romein_grid_general"] != X_PLAIN_NINT or \
             kcounts["romein_grid_separable"] != 0 or \
             kcounts["dq_masked_fill"] or kcounts["dq_gain_apply"] or \
-            kcounts["flag_walk"] or kcounts["flag_stats"]:
+            kcounts["flag_walk"] or kcounts["flag_stats"] or \
+            kcounts["flag_cross"]:
         raise AssertionError(f"non-rank-1 run launches {kcounts}")
     del pipe
     free_device()
@@ -2714,10 +2730,27 @@ W1_EDGES = ((256, 4096, 16), (1, 2_097_152, 16), (1, 4096, 12),
             (3, 1000, 5), (9, 300, 16), (33, 4112, 16), (97, 1000, 5))
 W1_PARAMS = (FRB_FLAG["thresh"], FRB_FLAG["mad_factor"], 0.25)
 # W1s's edge shapes: (windows, frames a window, cells, strided):
-# [frbflag]'s and [dq]'s, windows of 1 to 32 frames (its register limit).
+# [frbflag]'s and [dq]'s, windows of 1 to 32 frames (its register form).
 W1S_EDGES = ((256, 16, 4096, False), (1, 16, 2_097_152, False),
              (3, 2, 1000, True), (4, 5, 300, False), (2, 12, 777, True),
              (5, 17, 129, False), (3, 32, 64, True), (1, 1, 100, False))
+# W1s's select form (windows above 32 frames): odd and even m, windows in
+# shared memory (up to 6144 frames) and read from device memory in each
+# pass (65,536), partial tiles of 8 cells, the SK tree's ragged chunks
+# (4097) and levels (65,536: three), strided power; NaN and +-0 windows
+# from `stats_power`.  [frbflag]'s gulp as one window is timed apart.
+W1S_SELECT_EDGES = ((1, 33, 100, False), (2, 40, 77, True),
+                    (3, 63, 50, False), (1, 64, 129, True),
+                    (2, 75, 40, False), (1, 4096, 300, True),
+                    (1, 4097, 64, False), (1, 65_536, 24, False))
+# W1m's edge shapes: (windows, cells, strided, NaN rows): one and two
+# cells, odd and even rows, rows with NaN MADs (one all NaN, one with
+# every other cell NaN), the block-a-row form's limit (16,384) and the
+# grid form above it; [frbflag]'s 256 x 4096 and [dq]'s 1 x 2,097,152
+# are timed apart.
+W1M_EDGES = ((3, 1, False, False), (3, 2, False, True), (4, 7, True, True),
+             (5, 40, False, False), (2, 41, True, True),
+             (3, 16_384, False, True), (2, 16_385, True, True))
 
 
 def walk_case(algo, n, ncell, m, seed, dev, strided):
@@ -2810,15 +2843,27 @@ def walk_work(n, ncell):
 
 def stats_work(n, m, ncell):
     """Bytes and operations of one 'mad' W1s call: the n x m x ncell f32
-    samples read once, the median and MAD rows written; a (window, cell)
-    takes Batcher's odd-even merge sort of P = the next power of two of
-    m keys (P/4 log2(P) (log2(P) - 1) + P - 1 compare-exchanges of two
-    operations), a bitonic merge of P (P/2 log2(P)), and m deviations
-    (two operations each)."""
-    p = max(2, 1 << (m - 1).bit_length())
-    lg = p.bit_length() - 1
-    ops = 2 * (p * lg * (lg - 1) // 4 + p - 1 + p * lg // 2) + 2 * m
+    samples read once, the median and MAD rows written.  The register
+    form (m <= 32): a (window, cell) takes Batcher's odd-even merge sort
+    of P = the next power of two of m keys (P/4 log2(P) (log2(P) - 1) +
+    P - 1 compare-exchanges of two operations), a bitonic merge of P
+    (P/2 log2(P)), and m deviations (two operations each).  The select
+    form: eight passes over the m samples of some four operations each
+    (the key or the deviation's key, its digit and prefix test)."""
+    if m > 32:
+        ops = 8 * 4 * m
+    else:
+        p = max(2, 1 << (m - 1).bit_length())
+        lg = p.bit_length() - 1
+        ops = 2 * (p * lg * (lg - 1) // 4 + p - 1 + p * lg // 2) + 2 * m
     return 4 * n * m * ncell + 8 * n * ncell, ops * n * ncell
+
+
+def cross_work(n, ncell):
+    """Bytes and operations of one W1m call: the (n, ncell) MAD rows read
+    once, the (n,) medians written; four (a row a block) or three (a
+    grid a row) passes of some four operations an element."""
+    return 4 * n * ncell + 4 * n, 16 * n * ncell
 
 
 def walk_equal(got, want):
@@ -2915,40 +2960,86 @@ def busy_clock(dev):
     return [float(v) for v in out.split("\n")[0].split(",")]
 
 
+def cross_rows(n, ncell, strided, nans, seed, dev):
+    """(n, ncell) f32 MAD rows for W1m's edge checks (the card tests'):
+    exponential values at a level per cell, ties at 0 and 2; with `nans`
+    every other cell of the first row NaN and the last row all NaN;
+    cells every other element of a wider buffer where `strided`."""
+    rng = np.random.default_rng(seed)
+    mad = (rng.exponential(1.0, (n, ncell)) *
+           rng.uniform(0.5, 4.0, ncell)).astype(np.float32)
+    mad[:, ::9] = 0.0
+    mad[:, 1::13] = 2.0
+    if nans:
+        mad[0, ::2] = np.nan
+        mad[-1] = np.nan
+    t = torch.from_numpy(mad).to(dev)
+    if not strided:
+        return t
+    wide = torch.full((n, 2 * ncell), 7.0, device=dev)
+    wide[:, ::2] = t
+    return wide[:, ::2]
+
+
+def nan_equal(a, b):
+    """Bitwise where b is not NaN, NaN where it is."""
+    nan = torch.isnan(b)
+    return a.shape == b.shape and torch.equal(torch.isnan(a), nan) and \
+        torch.equal(a[~nan].view(torch.int32), b[~nan].view(torch.int32))
+
+
+def cross_launches(ncell):
+    """W1m's kernel launches for one window row of ncell cells."""
+    from bifrost_tpu_torch.ops import flag_kernel as fk
+    return 1 if fk.cross_form(ncell) == "row" else 3
+
+
 def check_flag(dev, kind):
-    """W1s and W1 against their plain versions, bitwise: W1s on
-    W1S_EDGES and W1 on W1_EDGES for both algorithms (the caller's state
-    left as it was); then at the flagger paths' shapes, the statistics
-    of a seeded exponential power gulp of [frbflag] (4096 frames x 4096
-    channels, 256 windows of 16) and of [dq] (16 x 2,097,152 cells, one
-    window), 'mad', and W1's walk of them from the baseline a first
-    walk leaves.  Each timed beside its plain version and its bytes
-    bound; W1s beside the torch-sort pass it replaces (its library
-    call, checked bitwise equal on these inputs), the cross-cell median
-    between the two launches, and W1s 'sk'; W1 beside its latency floor
-    (`walk_chain` x windows / `busy_clock`, at an assumed CHAIN_LATENCY).
-    Then the "torch" route a window longer than W1s takes, timed at the
-    flag block's default of one window a gulp ([frbflag]'s 4096 x 4096),
-    both algorithms, through `Flag._window_stats`.  -> the two records,
-    their primary numbers at [frbflag]'s shape."""
+    """W1s, W1m and W1 against their plain versions: W1s bitwise on
+    W1S_EDGES (its register form) and W1S_SELECT_EDGES (its select form,
+    windows above 32 frames) for both algorithms, each launch's form
+    counted; W1m against `stats.median` on W1M_EDGES (a NaN compared as
+    a NaN); W1 bitwise on W1_EDGES for both algorithms (the caller's
+    state left as it was).  Then at the flagger paths' shapes, the
+    statistics of a seeded exponential power gulp of [frbflag] (4096
+    frames x 4096 channels, 256 windows of 16) and of [dq] (16 x
+    2,097,152 cells, one window), 'mad', W1m's cross-cell median of
+    their MAD rows and W1's walk of them from the baseline a first walk
+    leaves.  Each timed beside its plain version and its bytes bound; W1s
+    beside the torch-sort pass it replaces (its library call, checked
+    bitwise equal on these inputs) and W1s 'sk'; W1m beside the
+    torch.sort-based `stats.median` it replaces (its library call, also
+    its plain version); W1 beside its latency floor (`walk_chain` x
+    windows / `busy_clock`, at an assumed CHAIN_LATENCY).  Then W1s's
+    select form at the flag block's default of one window a gulp
+    ([frbflag]'s 1 x 4096 x 4096) through `Flag._window_stats`, both
+    algorithms, bitwise its plain version, timed beside the route it
+    replaces (for 'mad' its plain version, the key sorts; for 'sk'
+    `spectral_kurtosis`'s batched sums), and W1m on that window's MAD
+    row.  -> the three records, their primary numbers at [frbflag]'s
+    shape."""
     from bifrost_tpu_torch.ops import Flag
     from bifrost_tpu_torch.ops import flag_kernel as fk
     from bifrost_tpu_torch.ops.stats import median, spectral_kurtosis
-    nstat = nedge = 0
+    nstat = nsel = ncross = nedge = 0
     for algo in ("mad", "sk"):
-        for n, m, ncell, strided in W1S_EDGES:
+        for n, m, ncell, strided in W1S_EDGES + W1S_SELECT_EDGES:
             if algo == "sk" and m < 2:
                 continue
             pw = stats_power(n, m, ncell, SEED + m, strided, dev)
-            before = fk.flag_stats.launches
+            sel = fk.stats_form(m) == "select"
+            before = fk.flag_stats.launches, fk.flag_stats.select_launches
             got = fk.flag_stats(pw, algo)
             want = fk.flag_stats_plain(pw, algo)
             torch.cuda.synchronize()
-            if fk.flag_stats.launches != before + 1 or not all(
-                    bits_equal(a, b.contiguous()) for a, b in zip(got, want)):
+            if (fk.flag_stats.launches, fk.flag_stats.select_launches) != \
+                    (before[0] + 1, before[1] + sel) or not all(
+                        bits_equal(a, b.contiguous())
+                        for a, b in zip(got, want)):
                 raise AssertionError(f"flag_stats differs from plain "
                                      f"('{algo}', {n} x {m} x {ncell})")
-            nstat += 1
+            nsel += sel
+            nstat += not sel
         for n, ncell, m in W1_EDGES:
             stats, state = walk_case(algo, n, ncell, m, SEED + n, dev,
                                      strided=n in (3, 9, 97))
@@ -2963,13 +3054,24 @@ def check_flag(dev, kind):
                 raise AssertionError(f"flag_walk differs from plain ('{algo}'"
                                      f", {n} x {ncell}, m {m})")
             nedge += 1
-    del pw, got, want, stats, state, keep
+    for n, ncell, strided, nans in W1M_EDGES:
+        mad = cross_rows(n, ncell, strided, nans, SEED + ncell, dev)
+        before = fk.flag_cross.launches
+        got = fk.flag_cross(mad)
+        want = fk.flag_cross_plain(mad)
+        torch.cuda.synchronize()
+        if fk.flag_cross.launches != before + cross_launches(ncell) or \
+                not nan_equal(got, want) or nans != bool(got.isnan().any()):
+            raise AssertionError(f"flag_cross differs from plain ({n} x "
+                                 f"{ncell})")
+        ncross += 1
+    del pw, got, want, stats, state, keep, mad
     rate = hbm_rate(kind)
     chain = walk_chain("flag_walk_ringILb1E")
     mhz, max_mhz = busy_clock(dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 11)
-    ts, tw = {}, {}
+    ts, tm, tw = {}, {}, {}
     for name, ntime, ncell, w in (
             ("frbflag", GULP, NCHAN, FRB_FLAG["window"]),
             ("dq", N_INT, BCHAN * NSTAND * NPOL, DQ_WINDOW)):
@@ -2997,13 +3099,31 @@ def check_flag(dev, kind):
             "plain_ms": cuda_time(lambda: fk.flag_stats_plain(pw, "mad"), 3),
             "library_ms": cuda_time(torch_pass, 3),
             "sk_ms": graph_time(lambda: fk.flag_stats(pw, "sk"), 5, 20),
-            "cross_ms": graph_time(
-                lambda: median(st[1], dim=1, keepdim=False), 5, 20),
             "bound_ms": bound(nbytes, nops, rate)[0],
             "bound_by": bound(nbytes, nops, rate)[1],
             "max_abs_err": 0.0, "gb": nbytes / 1e9, "shape": (n, w, ncell)}
-        stats = (st[0], st[1], median(st[1], dim=1, keepdim=False))
-        del pw, st
+        del pw
+        before = fk.flag_cross.launches
+        cross = fk.flag_cross(st[1])
+        want = fk.flag_cross_plain(st[1])
+        torch.cuda.synchronize()
+        if fk.flag_cross.launches != before + cross_launches(ncell) or \
+                not bits_equal(cross, want):
+            raise AssertionError(f"flag_cross differs from plain ({name})")
+        nbytes, nops = cross_work(n, ncell)
+        tm[name] = {
+            "ms": graph_time(lambda: fk.flag_cross(st[1]), 5, 20),
+            "event_ms": cuda_time(lambda: fk.flag_cross(st[1]), 20),
+            "plain_ms": cuda_time(lambda: fk.flag_cross_plain(st[1]), 20),
+            "library_ms": cuda_time(
+                lambda: median(st[1], dim=1, keepdim=False), 20),
+            "bound_ms": bound(nbytes, nops, rate)[0],
+            "bound_by": bound(nbytes, nops, rate)[1],
+            "max_abs_err": 0.0, "gb": nbytes / 1e9, "shape": (n, ncell),
+            "form": fk.cross_form(ncell),
+            "launches_a_call": cross_launches(ncell)}
+        stats = (st[0], st[1], cross)
+        del st, want
         state = fk.flag_walk(stats, w, plan.init_state(ncell, dev),
                              W1_PARAMS, "mad")[2]
         v0 = fk.flag_walk.vector_launches
@@ -3030,43 +3150,85 @@ def check_flag(dev, kind):
             "max_abs_err": float((got[1] - want[1]).abs().max()),
             "gb": nbytes / 1e9, "shape": (n, ncell),
             "flagged": float(got[0].float().mean())}
-        del stats, state, got, want
+        del stats, state, got, want, cross
         free_device()
+    # W1s's select form at the flag block's default: one window a gulp.
     long = {"shape": (1, GULP, NCHAN)}
     pw = torch.empty(*long["shape"], device=dev).exponential_(generator=gen)
+    nbytes, nops = stats_work(*long["shape"])
     for algo in ("mad", "sk"):
         plan = Flag(method="cuda").init(GULP, algo=algo)
-        if plan._stats_route(GULP) != "torch":
-            raise AssertionError(f"a {GULP}-frame window took the kernel "
-                                 f"route")
-        before = fk.flag_stats.launches
+        mad = algo == "mad"
+        before = (fk.flag_stats.launches, fk.flag_stats.select_launches,
+                  fk.flag_cross.launches)
         got = plan._window_stats(pw, kernel=True)
-        want = fk.flag_stats_plain(pw, algo) if algo == "mad" else \
-            (spectral_kurtosis(pw, dim=1), pw.sum(dim=1) / GULP)
+        want = fk.flag_stats_plain(pw, algo)
         torch.cuda.synchronize()
-        if fk.flag_stats.launches != before or not all(
-                bits_equal(a, b) for a, b in zip(got, want)):
-            raise AssertionError(f"the torch route differs ('{algo}', "
-                                 f"{long['shape']})")
-        long[algo] = cuda_time(lambda: plan._window_stats(pw, kernel=True),
-                               3)
-    nbytes = stats_work(*long["shape"])[0]
-    long["bytes_ms"] = nbytes / rate * 1e3
-    del pw, got, want
+        if (fk.flag_stats.launches, fk.flag_stats.select_launches,
+                fk.flag_cross.launches) != (before[0] + 1, before[1] + 1,
+                                            before[2] + mad) or \
+                not all(bits_equal(a, b) for a, b in zip(got, want)) or \
+                (mad and not bits_equal(got[2], median(
+                    want[1], dim=1, keepdim=False))):
+            raise AssertionError(f"the select form differs from plain "
+                                 f"('{algo}', {long['shape']})")
+        if mad:
+            def library():
+                m0 = median(pw, dim=1, keepdim=True)
+                return median((pw - m0).abs(), dim=1, keepdim=False)
+        else:
+            def library():
+                return spectral_kurtosis(pw, dim=1), pw.sum(dim=1) / GULP
+        long[algo] = {
+            "ms": graph_time(lambda: fk.flag_stats(pw, algo), 5, 20),
+            "event_ms": cuda_time(lambda: fk.flag_stats(pw, algo), 20),
+            "plain_ms": cuda_time(lambda: fk.flag_stats_plain(pw, algo), 3),
+            "library_ms": cuda_time(library, 3),
+            # 'sk': three operations a sample
+            "bound_ms": bound(nbytes, nops if mad else 3 * GULP * NCHAN,
+                              rate)[0],
+            "bound_by": bound(nbytes, nops if mad else 3 * GULP * NCHAN,
+                              rate)[1]}
+        if mad:
+            row = got[1]
+            nb, no = cross_work(1, NCHAN)
+            long["cross"] = {
+                "ms": graph_time(lambda: fk.flag_cross(row), 5, 20),
+                "event_ms": cuda_time(lambda: fk.flag_cross(row), 20),
+                "plain_ms": cuda_time(lambda: fk.flag_cross_plain(row), 20),
+                "library_ms": cuda_time(
+                    lambda: median(row, dim=1, keepdim=False), 20),
+                "bound_ms": bound(nb, no, rate)[0],
+                "bound_by": bound(nb, no, rate)[1], "shape": (1, NCHAN)}
+            del row
+        del got, want
+    long["gb"] = nbytes / 1e9
+    long["passes"] = {"mad": 8, "sk": 1}
+    long["smem_frames"] = fk._constant("kSelSmemFrames")
+    del pw
     free_device()
     for name in ts:
-        r, q = ts[name], tw[name]
-        phase("kernels", f"flag_stats (W1s) 'mad' equal to plain and to the "
-              f"torch-sort pass (tolerance: bitwise) at [{name}]'s "
-              f"{r['shape'][0]} x {r['shape'][1]} x {r['shape'][2]} and on "
-              f"{nstat} edge cases; {r['ms']:.4f} ms per gulp on the card "
-              f"(1 launch, from a CUDA graph; {r['event_ms']:.4f} launched "
-              f"from the host; 'sk' {r['sk_ms']:.4f}), plain "
-              f"{r['plain_ms']:.4f} ms, the "
-              f"torch pass it replaces {r['library_ms']:.4f} ms, the "
-              f"cross-cell median {r['cross_ms']:.4f} ms, bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']}: {r['gb']:.4f} GB), "
-              f"{kind}")
+        r, x, q = ts[name], tm[name], tw[name]
+        phase("kernels", f"flag_stats (W1s, register form) 'mad' equal to "
+              f"plain and to the torch-sort pass (tolerance: bitwise) at "
+              f"[{name}]'s {r['shape'][0]} x {r['shape'][1]} x "
+              f"{r['shape'][2]}, and to plain on {nstat} register-form and "
+              f"{nsel} select-form edge cases; {r['ms']:.4f} ms per gulp on "
+              f"the card (1 launch, from a CUDA graph; {r['event_ms']:.4f} "
+              f"launched from the host; 'sk' {r['sk_ms']:.4f}), plain "
+              f"{r['plain_ms']:.4f} ms, the torch pass it replaces "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}: {r['gb']:.4f} GB), {kind}")
+        phase("kernels", f"flag_cross (W1m, {x['form']} form, "
+              f"{x['launches_a_call']} launch(es) a gulp) equal to "
+              f"stats.median (tolerance: bitwise; a NaN as a NaN on the "
+              f"edges) at [{name}]'s {x['shape'][0]} x {x['shape'][1]} MAD "
+              f"rows and on {ncross} edge cases; {x['ms']:.4f} ms per gulp "
+              f"on the card (from a CUDA graph; {x['event_ms']:.4f} "
+              f"launched from the host), plain {x['plain_ms']:.4f} ms, the "
+              f"torch.sort pass it replaces (stats.median) "
+              f"{x['library_ms']:.4f} ms, bound {x['bound_ms']:.4f} ms "
+              f"({x['bound_by']}: {x['gb']:.4f} GB), {kind}")
         floor = "" if q["latency_floor_ms"] is None else \
             f", latency floor {q['latency_floor_ms']:.4f} ms (assumed " \
             f"{CHAIN_LATENCY} cycles a dependent instruction; measured " \
@@ -3086,13 +3248,26 @@ def check_flag(dev, kind):
           f"{CHAIN_LATENCY} a dependent instruction (assumed, not "
           f"measured); SM clock {mhz:.0f} MHz busy (max {max_mhz:.0f}) by "
           f"nvidia-smi")
-    phase("kernels", f"the \"torch\" route of a window above {fk.STATS_MAX_M} "
-          f"frames at the flag block's default of one window a gulp "
-          f"({long['shape'][0]} x {long['shape'][1]} x {long['shape'][2]}, "
-          f"Flag._window_stats, no W1s launch, bitwise its plain version): "
-          f"'mad' {long['mad']:.4f} ms, 'sk' {long['sk']:.4f} ms per gulp "
-          f"(events), against W1s's bytes bound at that shape "
-          f"{long['bytes_ms']:.4f} ms, {kind}")
+    lm, ls, lc = long["mad"], long["sk"], long["cross"]
+    phase("kernels", f"flag_stats (W1s, select form) at the flag block's "
+          f"default of one window a gulp ({long['shape'][0]} x "
+          f"{long['shape'][1]} x {long['shape'][2]}, Flag._window_stats, 1 "
+          f"launch, equal to plain, tolerance: bitwise): 'mad' "
+          f"{lm['ms']:.4f} ms per gulp (from a CUDA graph; "
+          f"{lm['event_ms']:.4f} launched from the host; "
+          f"{long['passes']['mad']} passes over the window, one read from "
+          f"device memory: windows up to {long['smem_frames']} frames sit "
+          f"in shared memory), plain (the key sorts, the \"torch\" route it "
+          f"replaces) {lm['plain_ms']:.4f} ms, the torch-sort pass "
+          f"{lm['library_ms']:.4f} ms; 'sk' {ls['ms']:.4f} ms "
+          f"({ls['event_ms']:.4f} from the host; 1 pass), plain (the tree "
+          f"sums) {ls['plain_ms']:.4f} ms, spectral_kurtosis's sums (the "
+          f"route it replaces) {ls['library_ms']:.4f} ms; bound "
+          f"{lm['bound_ms']:.4f} ms (bytes: {long['gb']:.4f} GB); W1m on "
+          f"its 1 x {NCHAN} MAD row {lc['ms']:.4f} ms (from a CUDA graph; "
+          f"{lc['event_ms']:.4f} from the host), plain {lc['plain_ms']:.4f}"
+          f", stats.median {lc['library_ms']:.4f}, bound "
+          f"{lc['bound_ms']:.6f} ms, {kind}")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     rec_s = {"name": "flag_stats", "route": "cuda",
@@ -3101,13 +3276,21 @@ def check_flag(dev, kind):
              "launches": None, **{k: ts["frbflag"][k] for k in keys},
              "event_ms": ts["frbflag"]["event_ms"],
              "sk_ms": ts["frbflag"]["sk_ms"],
-             "cross_ms": ts["frbflag"]["cross_ms"],
              "library_call": "the torch pass it replaces: stats.median "
                              "(torch.sort) of the window, then of |x - "
                              "med|",
-             "at_dq": {k: ts["dq"][k] for k in keys + (
-                 "event_ms", "sk_ms", "cross_ms")},
-             "torch_route_one_window_a_gulp": long}
+             "at_dq": {k: ts["dq"][k] for k in keys + ("event_ms", "sk_ms")},
+             "select_one_window_a_gulp": long}
+    rec_m = {"name": "flag_cross", "route": "cuda",
+             "source": "bifrost_tpu_torch/csrc/flag.cu",
+             "replaces": "bifrost_tpu/ops/flag.py:198",
+             "launches": None, **{k: tm["frbflag"][k] for k in keys},
+             "event_ms": tm["frbflag"]["event_ms"],
+             "form": tm["frbflag"]["form"],
+             "library_call": "the torch.sort pass it replaces: stats.median "
+                             "of the MAD rows (also its plain version)",
+             "at_dq": {k: tm["dq"][k] for k in keys + (
+                 "event_ms", "form", "launches_a_call")}}
     rec_w = {"name": "flag_walk", "route": "cuda",
              "source": "bifrost_tpu_torch/csrc/flag.cu",
              "replaces": "bifrost_tpu/ops/flag.py:269",
@@ -3118,7 +3301,7 @@ def check_flag(dev, kind):
              "library_call": "none: no single PyTorch call computes a "
                              "recurrence over windows",
              "at_dq": {k: tw["dq"][k] for k in keys + ("event_ms",)}}
-    return [rec_s, rec_w]
+    return [rec_s, rec_m, rec_w]
 
 
 def ff_steady(ledger, t1):
@@ -3153,16 +3336,18 @@ def frbflag_path(dev):
     steady = ff_steady(ledger, t1)
     blocks = {b.name: b for b in pipe.blocks}
     nsteps = len(blocks["fdmt"].fdmt._steps)
-    # GULP is a multiple of the window: one W1s and one W1 launch a gulp
-    # (the ring form), as K5a.
+    # GULP is a multiple of the window: one W1s (the register form), one
+    # W1m (a block a window row) and one W1 launch a gulp (the ring
+    # form), as K5a.
     expect = expected(fdmt_merge_step=nsteps * NGULP, dq_masked_fill=NGULP,
-                      flag_stats=NGULP, flag_walk=NGULP)
+                      flag_stats=NGULP, flag_cross=NGULP, flag_walk=NGULP)
     if counts != expect:
         raise AssertionError(f"launches {counts}, expected {expect}")
     nvec = check_vectors(counts)
     route = blocks["flag"].plan_report()["stats_route"]
     nvec_w1 = kernel_counters()["flag_walk"].vector_launches
-    if route != ["kernel"] or nvec_w1:
+    if route != ["registers"] or nvec_w1 or \
+            kernel_counters()["flag_stats"].select_launches:
         raise AssertionError(f"W1s/W1: stats_route {route}, one-window "
                              f"launches {nvec_w1}")
     s = ledger.summary()
@@ -3261,6 +3446,89 @@ def frbflag_path(dev):
           f"{json.dumps(top)}; host s by block and phase "
           f"{json.dumps(host)}")
     del pipe, led, traced
+    free_device()
+    return {"frbflag": counts,
+            "frbflag_one_window": frbflag_one_window(dev, data, chans, on,
+                                                     nsteps)}
+
+
+def frbflag_one_window(dev, data, chans, on, nsteps):
+    """The flagged FRB search at the flag block's default window
+    (`rfi_flag=dict(algo='mad')`: one window a gulp of 4096 frames x
+    4096 channels) on [frbflag]'s data and storm: W1s's select form, W1m
+    (a block the window row), W1's one-window form (four cells a thread)
+    and K5a once a gulp each; every storm channel on for more than half
+    of a gulp flagged in that gulp; masks and dedispersed gulps bitwise
+    the same chain with dq_flag_method 'plain'.  -> the launch counts."""
+    from bifrost_tpu_torch import config
+    from bifrost_tpu_torch.service import frb_search_pipeline
+    runs = {}
+    for method in ("cuda", "plain"):
+        masks, chunks = [], []
+        config.set("dq_flag_method", method)
+        try:
+            pipe, _, led = frb_search_pipeline(
+                data, GULP, MAX_DELAY, F0, DF, DT, device=dev, gather=chunks,
+                rfi_flag=dict(algo="mad", on_mask=masks.append))
+            reset_counts()
+            t0 = time.perf_counter()
+            pipe.run()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+        finally:
+            config.reset("dq_flag_method")
+        flag = {b.name: b for b in pipe.blocks}["flag"]
+        runs[method] = dict(
+            masks=masks, chunks=chunks, counts=read_counts(),
+            select=kernel_counters()["flag_stats"].select_launches,
+            vec=[kernel_counters()[name].vector_launches
+                 for name in ("dq_masked_fill", "flag_walk")],
+            route=flag.plan_report()["stats_route"], wall=t1 - t0,
+            steady=ff_steady(led, t1), flagged=flag.flagged_fraction)
+        del pipe, led, flag
+        free_device()
+    k, p = runs["cuda"], runs["plain"]
+    counts = k["counts"]
+    expect = expected(fdmt_merge_step=nsteps * NGULP, dq_masked_fill=NGULP,
+                      flag_stats=NGULP, flag_cross=NGULP, flag_walk=NGULP)
+    if counts != expect or k["select"] != NGULP or \
+            k["route"] != ["select"] or p["counts"] != expected(
+                fdmt_merge_step=nsteps * NGULP):
+        raise AssertionError(f"one window a gulp: launches {counts} "
+                             f"(select form {k['select']}), route "
+                             f"{k['route']}; plain {p['counts']}")
+    if k["vec"] != [NGULP, NGULP]:
+        raise AssertionError(f"one window a gulp: K5a and W1 vector "
+                             f"launches {k['vec']}")
+    if len(k["masks"]) != NGULP or len(p["masks"]) != NGULP or \
+            len(k["chunks"]) != NGULP or len(p["chunks"]) != NGULP:
+        raise AssertionError("one window a gulp: gathered "
+                             f"{len(k['masks'])}/{len(p['masks'])} masks, "
+                             f"{len(k['chunks'])}/{len(p['chunks'])} gulps")
+    for a, b in zip(k["masks"], p["masks"]):
+        if a.shape != (1, NCHAN) or not np.array_equal(a, b):
+            raise AssertionError("one window a gulp: masks != plain")
+    for x, y in zip(k["chunks"], p["chunks"]):
+        if x.shape != y.shape or not np.isfinite(x).all() or \
+                not np.array_equal(x.view(np.uint32), y.view(np.uint32)):
+            raise AssertionError("one window a gulp: dedispersed gulps != "
+                                 "plain")
+    m = np.concatenate(k["masks"])[STORM_GULP0:]
+    busy = on.reshape(-1, GULP, len(chans)).sum(axis=1) > GULP // 2
+    missed = int((busy & ~m[:, chans]).sum())
+    if missed or not busy.any():
+        raise AssertionError(f"one window a gulp: {missed} busy storm "
+                             f"gulps not flagged")
+    phase("frbflag", f"flagged FRB chain at the flag block's default window "
+          f"(one window a gulp of {GULP} x {NCHAN}): launches {counts} "
+          f"(W1s's select form {k['select']}, W1's one-window form four "
+          f"cells a thread {k['vec'][1]}, K5a vector {k['vec'][0]}); "
+          f"stats_route {k['route']}; busy storm gulps flagged "
+          f"{int(busy.sum())}/{int(busy.sum())}; flagged fraction "
+          f"{k['flagged']:.6f}; masks and dedispersed gulps ({NGULP} x "
+          f"{MAX_DELAY} x {GULP}) bitwise equal to dq_flag_method 'plain'; "
+          f"steady frames/s {k['steady']:.1f} (plain flagger "
+          f"{p['steady']:.1f}); {k['wall']:.3f} s with start-up")
     return counts
 
 
@@ -3351,9 +3619,11 @@ def dq_path(dev, volt, spec):
     peak = torch.cuda.max_memory_allocated()
     blocks = {b.name: b for b in pipe.blocks}
     nfdmt = B_NINT - B_MAX_DELAY
+    # W1m: three launches a gulp (a grid over the 2,097,152 cells).
     expect = expected(fir_mac=B_NINT, beamform_power=B_NINT,
                       dq_masked_fill=B_NINT, dq_gain_apply=B_NINT,
-                      flag_stats=B_NINT, flag_walk=B_NINT,
+                      flag_stats=B_NINT, flag_cross=3 * B_NINT,
+                      flag_walk=B_NINT,
                       fdmt_merge_step=nfdmt *
                       len(blocks["bdetect_fdmt"].fdmt._steps))
     if counts != expect:
@@ -3363,7 +3633,7 @@ def dq_path(dev, volt, spec):
     # One window a gulp: W1's one-window form, four cells a thread.
     check_vectors(counts, "flag_walk")
     route = blocks["dq_flag"].plan_report()["stats_route"]
-    if route != ["kernel"]:
+    if route != ["registers"]:
         raise AssertionError(f"W1s: stats_route {route}")
     s = ledger.summary()
     if s["lost_frames"] or s["duplicated_frames"] or \
@@ -3573,9 +3843,9 @@ def fusion_path(dev, kind, volt):
         "station-pol samples/s", nsp, equal_arrays)
     c = counts["fusion_dq"]
     if not c["flag_stats"] == c["flag_walk"] == c["dq_masked_fill"] == \
-            B_NINT:
+            B_NINT or c["flag_cross"] != 3 * B_NINT:
         raise AssertionError(f"DQ beam search: W1s, W1 and K5a once a gulp, "
-                             f"launches {c}")
+                             f"W1m three times, launches {c}")
 
     short = volt[:FX_NINT * B_GULP]
 
@@ -4211,13 +4481,14 @@ def capture_path(dev, volt):
     rc = harness._check(0, str(dev))
     wall = time.perf_counter() - t0
     counts = read_counts()
-    # rfi_storm's gulps of 64 frames are 4 whole windows: one W1s and
-    # one W1 launch a gulp, as K5a.
+    # rfi_storm's gulps of 64 frames are 4 whole windows: one W1s, one W1m
+    # (a block a row) and one W1 launch a gulp, as K5a.
     if rc != 0 or not counts["fdmt_merge_step"] or \
             not counts["dq_masked_fill"] or \
             counts != expected(fdmt_merge_step=counts["fdmt_merge_step"],
                                dq_masked_fill=counts["dq_masked_fill"],
                                flag_stats=counts["dq_masked_fill"],
+                               flag_cross=counts["dq_masked_fill"],
                                flag_walk=counts["dq_masked_fill"]):
         raise AssertionError(f"chaos --check: rc {rc}, launches {counts}")
     phase("capture", f"(d) benchmarks_torch/frb_service.py --check on "
@@ -6301,8 +6572,8 @@ def fleet_path(dev, kind, volt, inst_bare):
     want["fdmt_merge_step"] -= nsteps
     if counts != want:
         raise AssertionError(f"fleet launches {counts}, expected {want}")
-    for k in ("dq_masked_fill", "dq_gain_apply", "flag_stats", "flag_walk",
-              "romein_grid_general", "xengine_int8"):
+    for k in ("dq_masked_fill", "dq_gain_apply", "flag_stats", "flag_cross",
+              "flag_walk", "romein_grid_general", "xengine_int8"):
         if counts[k]:
             raise AssertionError(f"fleet: {k} launched")
 
@@ -8210,7 +8481,7 @@ def main():
     counts.update(observe_path(dev, SOLO["frb"]["gathered"]))
     free_device()
     t2 = time.perf_counter()
-    counts["frbflag"] = frbflag_path(dev)
+    counts.update(frbflag_path(dev))
     free_device()
     t3 = time.perf_counter()
     counts["bengine"], volt, bgot, spec = bengine_path(dev)

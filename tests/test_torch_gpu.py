@@ -854,7 +854,7 @@ def test_flag_stats_kernel_bitwise_vs_plain(cuda, algo, n, m, ncell,
     from bifrost_tpu_torch.ops.flag_kernel import flag_stats, flag_stats_plain
     pw = _stats_power(n, m, ncell, 60 + m, strided, cuda)
     if algo == "sk" and m < 2:
-        with pytest.raises(ValueError, match="2 to 32"):
+        with pytest.raises(ValueError, match="at least 2"):
             flag_stats(pw, algo)
         return
     before = flag_stats.launches
@@ -949,13 +949,93 @@ def test_flag_walk_one_window_forms(cuda, algo, ncell, strided, form):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("algo", ["mad", "sk"])
-@pytest.mark.parametrize("window,routes", [(16, ["kernel", "kernel"]),
-                                           (40, ["torch", "kernel"])])
+@pytest.mark.parametrize("n,m,ncell,strided", [
+    (1, 33, 100, False), (2, 40, 77, True), (3, 63, 50, False),
+    (1, 64, 129, True), (2, 75, 40, False), (1, 4096, 300, False),
+    (1, 4097, 64, True), (1, 6145, 20, False), (1, 65536, 24, False),
+    (1, 4096, 4096, False)])
+def test_flag_stats_select_bitwise_vs_plain(cuda, algo, n, m, ncell,
+                                            strided):
+    """W1s's select form (windows above 32 frames) against its plain
+    version, bitwise: the radix select's two middle ranks (odd and even
+    m), windows held in shared memory (up to 6144 frames) and read from
+    device memory in each pass (6145, 65,536), partial tiles of 8
+    cells, the SK tree's ragged chunks and levels (4097: 129 chunks;
+    65,536: three levels), the edge cases of `_stats_power`, strided
+    power; [frbflag]'s gulp as one window, the flag block's default."""
+    from bifrost_tpu_torch.ops.flag_kernel import (flag_stats,
+                                                   flag_stats_plain,
+                                                   stats_form)
+    pw = _stats_power(n, m, ncell, 90 + m, strided, cuda)
+    assert stats_form(m) == "select"
+    before = flag_stats.launches, flag_stats.select_launches
+    got = flag_stats(pw, algo)
+    assert (flag_stats.launches, flag_stats.select_launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = flag_stats_plain(pw, algo)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.shape == (n, ncell) and a.is_contiguous()
+        assert _bits_equal(a, b.contiguous())
+
+
+def _nan_equal(a, b):
+    """Bitwise where b is not NaN, NaN where it is."""
+    nan = torch.isnan(b)
+    return a.shape == b.shape and torch.equal(torch.isnan(a), nan) and \
+        torch.equal(a[~nan].view(torch.int32), b[~nan].view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,ncell,strided,nans", [
+    (3, 1, False, False), (3, 2, False, True), (4, 7, True, True),
+    (5, 40, False, False), (2, 41, True, True), (256, 4096, False, False),
+    (3, 16384, False, True), (2, 16385, True, True),
+    (1, 2_097_152, False, False), (1, 2_097_151, False, True)])
+def test_flag_cross_kernel_bitwise_vs_plain(cuda, n, ncell, strided, nans):
+    """W1m against `stats.median` of the same MAD rows, a NaN compared as
+    a NaN: one and two cells, odd and even rows, rows with NaN MADs
+    (some all NaN, some with the middle on a NaN), ties at 0, the block
+    a row form up to 16,384 cells (one launch) and the grid form above
+    (three launches), [frbflag]'s 256 x 4096 and [dq]'s 1 x 2,097,152,
+    strided rows."""
+    from bifrost_tpu_torch.ops.flag_kernel import (cross_form, flag_cross,
+                                                   flag_cross_plain)
+    rng = np.random.default_rng(95 + ncell)
+    mad = (rng.exponential(1.0, (n, ncell)) *
+           rng.uniform(0.5, 4.0, ncell)).astype(np.float32)
+    mad[:, ::9] = 0.0
+    mad[:, 1::13] = 2.0
+    if nans:
+        mad[0, ::2] = np.nan
+        mad[-1] = np.nan
+    t = torch.from_numpy(mad).to(cuda)
+    if strided:
+        wide = torch.full((n, 2 * ncell), 7.0, device=cuda)
+        wide[:, ::2] = t
+        t = wide[:, ::2]
+    before = flag_cross.launches
+    got = flag_cross(t)
+    assert flag_cross.launches == before + (1 if cross_form(ncell) == "row"
+                                            else 3)
+    want = flag_cross_plain(t)
+    torch.cuda.synchronize()
+    assert got.shape == (n,) and _nan_equal(got, want)
+    if nans:
+        assert torch.isnan(got[-1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo", ["mad", "sk"])
+@pytest.mark.parametrize("window,routes", [(16, ["registers", "registers"]),
+                                           (40, ["select", "registers"]),
+                                           (150, ["select"])])
 def test_flag_cuda_stats_route_and_launches(cuda, algo, window, routes):
-    """`Flag` 'cuda' on the card: W1s once a segment on the "kernel"
-    route (none on the "torch" route of windows past 32 frames), W1 once
-    a segment, `plan_report()["stats_route"]`; bitwise 'plain' on the
-    card and 'cuda' on the CPU, gulp after gulp."""
+    """`Flag` 'cuda' on the card: W1s once a segment in either form (the
+    select form above 32 frames: no "torch" route is left), W1m once a
+    'mad' segment, W1 once a segment, `plan_report()["stats_route"]`;
+    bitwise 'plain' on the card and 'cuda' on the CPU, gulp after
+    gulp."""
     from bifrost_tpu_torch.ops import Flag, flag_kernel
     rng = np.random.default_rng(43)
     plans = [Flag(method=mth).init(window, algo=algo)
@@ -964,13 +1044,19 @@ def test_flag_cuda_stats_route_and_launches(cuda, algo, window, routes):
         a = rng.integers(0, 32, (150, 6, 40)).astype(np.uint8)
         a[64:, 2, 5] = 250
         a[:, 4, 7] = 200
+        a[:, 1, 3] = rng.integers(0, 250, 150)   # a noisy cell
         x = torch.from_numpy(a)
-        s0, w0 = flag_kernel.flag_stats.launches, \
-            flag_kernel.flag_walk.launches
+        s0, x0, w0 = (flag_kernel.flag_stats.launches,
+                      flag_kernel.flag_cross.launches,
+                      flag_kernel.flag_walk.launches)
+        sel0 = flag_kernel.flag_stats.select_launches
         res = [p.execute(x.to(cuda) if i < 2 else x)
                for i, p in enumerate(plans)]
-        assert flag_kernel.flag_stats.launches == \
-            s0 + routes.count("kernel")
+        assert flag_kernel.flag_stats.launches == s0 + len(routes)
+        assert flag_kernel.flag_stats.select_launches == \
+            sel0 + routes.count("select")
+        assert flag_kernel.flag_cross.launches == \
+            x0 + len(routes) * (algo == "mad")
         assert flag_kernel.flag_walk.launches == w0 + len(routes)
         torch.cuda.synchronize()
         for p in plans:
